@@ -1,0 +1,141 @@
+"""Virtual filesystem registry with URI-scheme dispatch (local files only).
+
+Reference: src/io/filesys.{h,cc} — FileSystem::GetInstance(URI),
+Open/OpenForRead/GetPathInfo/ListDirectory, URI{protocol,host,name},
+FileInfo{path,size,type}; src/io/local_filesys.{h,cc}.
+
+Only ``file://`` (and bare paths) is registered. Every other scheme
+raises a DMLCError saying it is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import stat as _stat
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+from dmlc_tpu_torch.utils.logging import DMLCError, check
+from dmlc_tpu_torch.io.stream import FileStream, SeekStream, Stream
+
+__all__ = ["URI", "FileInfo", "FileSystem", "LocalFileSystem"]
+
+
+class URI:
+    """Parsed resource locator (reference: io::URI{protocol, host, name}).
+
+    ``s3://bucket/key`` → protocol "s3://", host "bucket", name "/key".
+    A bare path has protocol "file://".
+    """
+
+    __slots__ = ("protocol", "host", "name")
+
+    def __init__(self, uri: str):
+        if "://" not in uri:
+            self.protocol = "file://"
+            self.host = ""
+            self.name = uri
+        else:
+            proto, _, rest = uri.partition("://")
+            self.protocol = proto + "://"
+            if self.protocol == "file://":
+                self.host = ""
+                self.name = rest
+            else:
+                host, slash, path = rest.partition("/")
+                self.host = host
+                self.name = slash + path
+        check(self.name != "" or self.host != "", f"invalid URI {uri!r}")
+
+    def str_uri(self) -> str:
+        if self.protocol == "file://":
+            return self.name
+        return f"{self.protocol}{self.host}{self.name}"
+
+    def __repr__(self) -> str:
+        return f"URI({self.str_uri()!r})"
+
+
+@dataclass
+class FileInfo:
+    """Reference: FileInfo{path, size, type}."""
+    path: str
+    size: int
+    type: str  # "file" | "directory"
+
+
+class FileSystem:
+    """Abstract VFS + scheme registry (reference: dmlc::io::FileSystem)."""
+
+    _schemes: Dict[str, Callable[[], "FileSystem"]] = {}
+    _instances: Dict[str, "FileSystem"] = {}
+
+    # -- registry
+
+    @classmethod
+    def register_scheme(cls, protocol: str,
+                        factory: Callable[[], "FileSystem"]) -> None:
+        """Register a filesystem factory for a protocol like "s3://"."""
+        check(protocol.endswith("://"), f"protocol must end with ://: {protocol!r}")
+        cls._schemes[protocol] = factory
+        cls._instances.pop(protocol, None)
+
+    @classmethod
+    def get_instance(cls, uri: URI,
+                     allow_null: bool = False) -> Optional["FileSystem"]:
+        """Reference: FileSystem::GetInstance — protocol → singleton."""
+        inst = cls._instances.get(uri.protocol)
+        if inst is not None:
+            return inst
+        factory = cls._schemes.get(uri.protocol)
+        if factory is None:
+            if allow_null:
+                return None
+            raise DMLCError(
+                f"filesystem protocol {uri.protocol!r} is not ported to "
+                f"dmlc_tpu_torch yet; registered: {sorted(cls._schemes)}")
+        inst = factory()
+        cls._instances[uri.protocol] = inst
+        return inst
+
+    # -- interface
+
+    def open(self, uri: URI, mode: str) -> Stream:
+        raise NotImplementedError
+
+    def open_for_read(self, uri: URI) -> SeekStream:
+        raise NotImplementedError
+
+    def get_path_info(self, uri: URI) -> FileInfo:
+        raise NotImplementedError
+
+    def list_directory(self, uri: URI) -> List[FileInfo]:
+        raise NotImplementedError
+
+
+class LocalFileSystem(FileSystem):
+    """Local files (reference: src/io/local_filesys.cc)."""
+
+    def open(self, uri: URI, mode: str) -> FileStream:
+        check(mode in ("r", "w", "a"), f"invalid mode {mode!r}")
+        return FileStream(open(uri.name, mode + "b"), path=uri.name)
+
+    def open_for_read(self, uri: URI) -> FileStream:
+        return FileStream(open(uri.name, "rb"), path=uri.name)
+
+    def get_path_info(self, uri: URI) -> FileInfo:
+        st = os.stat(uri.name)
+        ftype = "directory" if _stat.S_ISDIR(st.st_mode) else "file"
+        return FileInfo(path=uri.name, size=st.st_size, type=ftype)
+
+    def list_directory(self, uri: URI) -> List[FileInfo]:
+        out = []
+        for name in sorted(os.listdir(uri.name)):
+            full = os.path.join(uri.name, name)
+            st = os.stat(full)
+            ftype = "directory" if _stat.S_ISDIR(st.st_mode) else "file"
+            out.append(FileInfo(path=full, size=st.st_size, type=ftype))
+        return out
+
+
+FileSystem.register_scheme("file://", LocalFileSystem)

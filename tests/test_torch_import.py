@@ -1,0 +1,140 @@
+"""Import contract of the PyTorch/CUDA port (dmlc_tpu_torch).
+
+The port imports torch and numpy, never jax, and nothing of the JAX
+package dmlc_tpu (it keeps its own copies of the host modules it needs).
+Checked twice: in a fresh interpreter (tests/conftest.py imports jax into
+this one), and by an AST scan of every file of the package and of
+chip_smoke.py. Also: chip_smoke.py refuses to run without a CUDA card,
+and the kernel paths raise instead of falling back.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dmlc_tpu_torch.native import build
+from dmlc_tpu_torch.ops import csr
+from dmlc_tpu_torch.utils.logging import DMLCError
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "dmlc_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "dmlc_tpu")
+
+
+def _port_files():
+    out = []
+    for dirpath, dirnames, filenames in os.walk(PKG):
+        dirnames[:] = sorted(d for d in dirnames
+                             if d not in ("build", "__pycache__"))
+        out += [os.path.join(dirpath, f) for f in sorted(filenames)
+                if f.endswith(".py")]
+    return out + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_import_leaves_jax_and_dmlc_tpu_unimported():
+    code = (
+        "import pkgutil, sys\n"
+        "import dmlc_tpu_torch\n"
+        "for m in pkgutil.walk_packages(dmlc_tpu_torch.__path__,\n"
+        "                               'dmlc_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'dmlc_tpu'))\n"
+        "print(len([k for k in sys.modules\n"
+        "           if k.startswith('dmlc_tpu_torch.')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20  # every submodule was imported, not just the root
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_file_imports_jax_or_dmlc_tpu(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_chip_smoke_refuses_without_cuda():
+    assert not torch.cuda.is_available()  # the CPU test host
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "cuda" in proc.stderr.lower()
+
+
+def test_chip_smoke_refuses_alone(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo
+    it fails and prints no result."""
+    with open(os.path.join(REPO, "chip_smoke.py"), "rb") as f:
+        (tmp_path / "chip_smoke.py").write_bytes(f.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "NVCC_DEFAULT", "/nonexistent/bin/nvcc")
+    with pytest.raises(DMLCError, match="nvcc"):
+        build.build_kernels()
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """Tensors on a device that is neither the CPU nor a CUDA card never
+    reach the plain versions: the wrappers raise."""
+    meta = torch.device("meta")
+    off = torch.zeros(3, dtype=torch.int64, device=meta)
+    idx = torch.zeros(4, dtype=torch.uint32, device=meta)
+    val = torch.zeros(4, device=meta)
+    with pytest.raises(DMLCError):
+        csr.csr_spmv(off, idx, val, torch.zeros(8, device=meta))
+    with pytest.raises(DMLCError):
+        csr.csr_spmv_t(off, idx, val, torch.zeros(2, device=meta), 8)
+
+
+def test_wrappers_check_dtypes_and_devices():
+    off = torch.tensor([0, 2], dtype=torch.int64)
+    idx = torch.tensor([0, 1], dtype=torch.uint32)
+    val = torch.ones(2)
+    w = torch.ones(4)
+    with pytest.raises(DMLCError, match="offset"):
+        csr.csr_spmv(off.to(torch.int32), idx, val, w)
+    with pytest.raises(DMLCError, match="index dtype"):
+        csr.csr_spmv(off, idx.to(torch.float32), val, w)
+    with pytest.raises(DMLCError, match="float32"):
+        csr.csr_spmv(off, idx, val.double(), w)
+    with pytest.raises(DMLCError, match="one entry per row"):
+        csr.csr_spmv_t(off, idx, val, torch.ones(3), 4)
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    before = (csr.csr_spmv.launches, csr.csr_spmv_t.launches)
+    off = torch.tensor([0, 2], dtype=torch.int64)
+    idx = torch.from_numpy(np.array([0, 3], np.uint32))
+    csr.csr_spmv(off, idx, torch.ones(2), torch.ones(4))
+    csr.csr_spmv_t(off, idx, torch.ones(2), torch.ones(1), 4)
+    assert (csr.csr_spmv.launches, csr.csr_spmv_t.launches) == before
