@@ -19,13 +19,26 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    must fall and each kernel must have launched once per step;
 5. parity: native padded batches byte-identical to the Python parser's
    ``pad_single``; 3 steps on the card allclose to 3 steps of the plain
-   CPU path.
+   CPU path;
+6. the factor models' path: a seeded Criteo-shaped libfm file of about
+   128 MB (33-39 of 39 fields a row); K5 (``fm_pair_fwd``/``_bwd``) and
+   K6 (``ffm_pair_fwd``/``_bwd``) against their plain versions with the
+   same edge cases plus fields out of range, timed beside their bounds;
+   K5 and K6 also at other shapes (3 and 40 factors; 3 colliding
+   fields; 60 fields, past 48 KB of shared memory; 300 fields must raise);
+   one epoch each of ``SparseFMModel(1_000_000, num_factors=8)`` and
+   ``SparseFFMModel(1_000_000, 39, num_factors=4)`` through native
+   padded batches with ``field`` and pinned async H2D (the loss must
+   fall, each of the model's kernels launch once a step); libfm padded
+   batches byte-identical to ``pad_single``; 3 steps of each model with
+   the kernels allclose to 3 through the plain versions on the card.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
-the line before it the kernels' JSON record. Imports nothing of JAX or
-of the ``dmlc_tpu`` package.
+the line before it the kernels' JSON record (all six kernels). Imports
+nothing of JAX or of the ``dmlc_tpu`` package.
 """
 
+import gc
 import hashlib
 import json
 import os
@@ -42,7 +55,18 @@ NUM_FEATURES = 1_000_000       # LIBSVM's criteo, as BASELINE.json names it
 ROW_BUCKET = 8192              # bench.py's batch rows
 NNZ_BUCKET = ROW_BUCKET * 45   # bench.py's worst-case nnz bound (< 45/row)
 FILE_MB = 256                  # bench.py's default corpus size
+# The factor models at the public widths: SparseFMModel's defaults over the
+# Criteo feature space, and the Criteo setting of Juan et al., "Field-aware
+# Factorization Machines for CTR Prediction" (RecSys 2016): 39 fields (13
+# integer, 26 categorical) hashed into 10^6 features, k = 4.
+FM_FACTORS = 8
+FFM_FIELDS, FFM_FACTORS = 39, 4
+NUMERIC_FIELDS = 13            # fields 0-12 carry a float, 13-38 carry 1
+LIBFM_MB = 128
+LIBFM_NNZ_BUCKET = ROW_BUCKET * 40  # at most one nonzero per field
+INIT_SCALE = 0.05              # V ~ N(0, 0.05^2) in the kernel checks
 SEED = 0
+PROFILE_ATTEMPTS = 3
 # One rate for w and b. The bias sets the ceiling: its curvature is at
 # most 1/4, so SGD on it diverges above a rate of 8. The 10^6 weights each
 # see a few rows a batch, so at the reference's default of 0.1 the loss
@@ -61,7 +85,18 @@ FP32_FLOPS_PER_S = 67e12
 K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # K2 adds with fp32 atomics whose order varies from run to run.
 K2_RTOL, K2_ATOL = 1e-4, 1e-6
-# 3 SGD steps on the card against the plain CPU path: the kernels' sums
+# K5 and K6 forward sum each row in another fp32 order than the plain
+# versions (lane partials and shuffle trees, shared-memory atomics into S;
+# the plain FFM takes its diagonal off as the kernel does, the plain FM
+# sums by index_add_). As for K1, the rounding error scales with the sum
+# of the terms' magnitudes, so the rtol applies to each row's sum|terms|:
+# for FM 1/2 sum_f (s_abs^2 + sq), for FFM 1/2 (sum_ab <S,S^T>_abs + diag).
+PAIR_RTOL, PAIR_ATOL = 1e-5, 1e-6
+# K5 and K6 backward add into gV with fp32 atomics whose order varies from
+# run to run, as K2 does.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+# 3 SGD steps on the card against the plain path (the CPU for the linear
+# model; the plain versions on the card for FM and FFM): the kernels' sums
 # and the card's reductions of the loss run in other orders.
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-6
 
@@ -174,19 +209,59 @@ def write_corpus(path: str) -> int:
     return os.path.getsize(path)
 
 
-def padded_batches(parser):
+def write_libfm_corpus(path: str) -> int:
+    """A Criteo-shaped libfm file: 4000 seeded template rows repeated to
+    LIBFM_MB, as write_corpus does. Each row holds 33-39 of the 39 fields,
+    one nonzero each, the field's feature drawn below 10^6, valued by a
+    uniform float in the 13 numeric fields and 1 in the 26 categorical
+    ones. Labels split at the median margin of a seeded hidden FM teacher
+    (w ~ N(0, 1), V ~ N(0, 0.3^2), K = 8), so the pair term carries signal."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 2)
+    w_true = np.random.RandomState(8).randn(NUM_FEATURES)
+    v_true = 0.3 * np.random.RandomState(9).randn(NUM_FEATURES, FM_FACTORS)
+    rows, margins = [], []
+    for _ in range(4000):
+        fields = np.sort(rng.choice(FFM_FIELDS, rng.randint(33, 40),
+                                    replace=False))
+        idx = rng.randint(0, NUM_FEATURES, fields.size)
+        vals = np.where(fields < NUMERIC_FIELDS, rng.rand(fields.size), 1.0)
+        vx = vals[:, None] * v_true[idx]
+        pair = 0.5 * float((vx.sum(0) ** 2 - (vx * vx).sum(0)).sum())
+        rows.append((fields, idx, vals))
+        margins.append(float((vals * w_true[idx]).sum()) + pair)
+    median = float(np.median(margins))
+    block = ("\n".join(
+        f"{1 if m > median else -1} " + " ".join(
+            f"{f}:{j}:{v:.6f}" if f < NUMERIC_FIELDS else f"{f}:{j}:1"
+            for f, j, v in zip(*row))
+        for row, m in zip(rows, margins)) + "\n").encode()
+    reps = max(1, (LIBFM_MB << 20) // len(block))
+    with open(path, "wb") as f:
+        for _ in range(reps):
+            f.write(block)
+    return os.path.getsize(path)
+
+
+# Each format's padded batch: its nnz bucket and whether it carries field.
+LAYOUT = {"libsvm": (NNZ_BUCKET, False), "libfm": (LIBFM_NNZ_BUCKET, True)}
+
+
+def padded_batches(parser, fmt="libsvm"):
+    nnz_bucket, want_field = LAYOUT[fmt]
     while True:
-        batch = parser.next_padded(ROW_BUCKET, nnz_bucket=NNZ_BUCKET)
+        batch = parser.next_padded(ROW_BUCKET, nnz_bucket=nnz_bucket,
+                                   want_field=want_field)
         if batch is None:
             return
         yield batch
 
 
-def first_batch(path):
+def first_batch(path, fmt="libsvm"):
     """The native parser's first padded batch, copied out of its lease."""
     from dmlc_tpu_torch.data.parser import Parser
-    parser = Parser.create(path, 0, 1, format="libsvm", engine="native")
-    batch = next(padded_batches(parser)).copy()
+    parser = Parser.create(path, 0, 1, format=fmt, engine="native")
+    batch = next(padded_batches(parser, fmt)).copy()
     parser.destroy()
     return batch
 
@@ -223,15 +298,25 @@ def call_ms(fn, iters: int = 100) -> float:
 def _device_us_by_kernel(fn):
     """{kernel name: (device µs, calls)} of what ``fn`` runs on the card,
     from a torch.profiler trace of device activity only (so no host op
-    is counted beside the kernels it launched)."""
+    is counted beside the kernels it launched). A trace in which the
+    profiler saw no device activity at all (it happens now and then on
+    the card's machine) is taken again, up to PROFILE_ATTEMPTS times; the
+    retries are logged, and the callers fail on a trace that stays empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-    return {e.key: (e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_kernel = {e.key: (e.self_device_time_total, e.count)
+                     for e in prof.key_averages()
+                     if e.self_device_time_total > 0}
+        if by_kernel:
+            break
+        log(f"  the profiler saw no device time (trace {attempt} of "
+            f"{PROFILE_ATTEMPTS})")
+    return by_kernel
 
 
 def device_ms(fn, iters: int = 50) -> float:
@@ -249,10 +334,22 @@ def device_ms(fn, iters: int = 50) -> float:
     return sum(t for t, _ in by_kernel.values()) / iters / 1e3
 
 
+def bound_ms(nbytes, ops):
+    """The least time the card could take for a function: the bytes it
+    must move over the memory rate, or its fp32 operations over the peak,
+    whichever is larger; and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def edge_case_batch(first):
     """The main path's first padded batch with edge cases written in:
     rows 3 and 7 emptied, the last 100 rows made padding, an index at F-1
-    in row 10 and one out of range in row 20 (returned)."""
+    in row 10 and one out of range in row 20 (returned), and where the
+    batch has a field column, a field past the FFM's fields in row 30 and
+    one below 0 in row 40 (both clipped). Returns (offset, index, value,
+    field or None, the out-of-range row)."""
     import numpy as np
     off = first["offset"]
     require(int(first["num_rows"]) == ROW_BUCKET,
@@ -272,7 +369,13 @@ def edge_case_batch(first):
     val[:nnz] = first["value"][:int(off[-1])][keep]
     idx[new_off[10]] = NUM_FEATURES - 1
     idx[new_off[20] + 1] = NUM_FEATURES + 12345
-    return new_off, idx, val, 20
+    fld = None
+    if "field" in first:
+        fld = np.zeros_like(first["field"])
+        fld[:nnz] = first["field"][:int(off[-1])][keep]
+        fld[new_off[30]] = FFM_FIELDS + 4
+        fld[new_off[40] + 2] = -3
+    return new_off, idx, val, fld, 20
 
 
 def check_kernels(first):
@@ -283,7 +386,7 @@ def check_kernels(first):
 
     cuda = torch.device("cuda")
     rng = np.random.RandomState(SEED + 1)
-    off, idx, val, bad_row = edge_case_batch(first)
+    off, idx, val, _, bad_row = edge_case_batch(first)
     w = torch.from_numpy(rng.randn(NUM_FEATURES).astype(np.float32)).to(cuda)
     g = torch.from_numpy(rng.randn(ROW_BUCKET).astype(np.float32)).to(cuda)
     t_off = torch.from_numpy(off).to(cuda)
@@ -371,16 +474,10 @@ def check_kernels(first):
     require(after[0] > before[0] and after[1] > before[1],
             "the kernel wrappers did not count their launches")
 
-    def bound(nbytes):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
-        return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-                else "operations")
-
     log(f"timed at the main path's first batch: {n} rows, {nnz} nonzeros "
         f"of {NNZ_BUCKET}, {distinct} distinct features")
-    k1_bound, k1_by = bound(k1_bytes)
-    k2_bound, k2_by = bound(k2_bytes)
+    k1_bound, k1_by = bound_ms(k1_bytes, flops)
+    k2_bound, k2_by = bound_ms(k2_bytes, flops)
     rows = [
         {"name": "csr_spmv", "route": "cuda",
          "source": "dmlc_tpu_torch/csrc/csr_spmv.cu",
@@ -398,10 +495,295 @@ def check_kernels(first):
     return rows
 
 
+def _row_sums(offset, per_nnz):
+    """Per-row sums of a per-nonzero tensor (the padded tail dropped)."""
+    from dmlc_tpu_torch.ops import csr
+    n = offset.numel() - 1
+    rows = csr.csr_row_ids(offset, per_nnz.shape[0]).clamp(0, n)
+    out = per_nnz.new_zeros((n + 1,) + tuple(per_nnz.shape[1:]))
+    return out.index_add_(0, rows, per_nnz)[:n]
+
+
+def _check_pair(name, pair, plain, scale, bad_row, finite_rows):
+    """A forward's pair against its plain version: NaN in the out-of-range
+    row only, 0 in empty and padded rows, |err| <= atol + rtol * scale
+    (each row's sum|terms|). Returns (max |err|, max |err| / scale)."""
+    import torch
+    nan_rows = torch.isnan(pair).nonzero().flatten().tolist()
+    require(nan_rows == [bad_row],
+            f"{name}: NaN rows {nan_rows}, want [{bad_row}]")
+    require(torch.isnan(plain).nonzero().flatten().tolist() == nan_rows,
+            f"{name}: the plain version's NaN rows differ")
+    require(bool((pair[[3, 7]] == 0).all())
+            and bool((pair[ROW_BUCKET - 100:] == 0).all()),
+            f"{name}: empty or padded rows are not 0")
+    require(bool(torch.isfinite(pair[finite_rows]).all()),
+            f"{name}: rows {finite_rows} are not finite")
+    err = (pair - plain).nan_to_num().abs()
+    scale = scale.nan_to_num()
+    require(bool((err <= PAIR_ATOL + PAIR_RTOL * scale).all()),
+            f"{name} disagrees with its plain version: max |err| "
+            f"{err.max().item()}, max |err| / sum|terms| "
+            f"{(err / scale).nan_to_num().max().item()}")
+    return err.max().item(), (err / scale).nan_to_num().max().item()
+
+
+def _check_grad(name, gV, plain, want_nan):
+    """A backward's gV against its plain version: NaN exactly where the
+    reference's gradient is NaN (``want_nan``, over gV's leading dims),
+    allclose elsewhere. Returns max |err|."""
+    import torch
+    nan = torch.isnan(gV)
+    require(torch.equal(nan, torch.isnan(plain)),
+            f"{name}: NaN entries differ from the plain version's")
+    require(torch.equal(nan.any(-1), want_nan)
+            and torch.equal(nan.all(-1), want_nan),
+            f"{name}: NaN at {int(nan.any(-1).sum())} places, want "
+            f"{int(want_nan.sum())} (the out-of-range row's features)")
+    require(torch.allclose(gV, plain, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                           equal_nan=True),
+            f"{name} disagrees with its plain version: max |err| "
+            f"{(gV - plain).nan_to_num().abs().max().item()}")
+    require(bool((gV[NUM_FEATURES - 1] != 0).any()),
+            f"{name}: the index at F-1 got no gradient")
+    return (gV - plain).nan_to_num().abs().max().item()
+
+
+def check_factor_kernels(first):
+    """K5 and K6, forward and backward, against their plain versions on
+    the card, at the libfm path's shapes with edge cases written in, u32
+    and u64 index; then each timed at the path's first batch."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.ops import fm
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 3)
+    off, idx, val, fld, bad_row = edge_case_batch(first)
+    t_off, t_val, t_fld = (torch.from_numpy(a).to(cuda)
+                           for a in (off, val, fld))
+    g = torch.randn(ROW_BUCKET, generator=gen, device=cuda)
+    V5 = INIT_SCALE * torch.randn(NUM_FEATURES, FM_FACTORS, generator=gen,
+                                  device=cuda)
+    V6 = INIT_SCALE * torch.randn(NUM_FEATURES, FFM_FIELDS, FFM_FACTORS,
+                                  generator=gen, device=cuda)
+    # where the reference's gradient is NaN: at the features of the
+    # out-of-range row's other nonzeros (FM), and there for the bad
+    # nonzero's own field only (FFM)
+    lo, hi = int(off[bad_row]), int(off[bad_row + 1])
+    bad_k = lo + 1
+    others = [int(idx[k]) for k in range(lo, hi) if k != bad_k]
+    nan5 = torch.zeros(NUM_FEATURES, dtype=torch.bool, device=cuda)
+    nan5[others] = True
+    nan6 = torch.zeros(NUM_FEATURES, FFM_FIELDS, dtype=torch.bool,
+                       device=cuda)
+    nan6[others, min(max(int(fld[bad_k]), 0), FFM_FIELDS - 1)] = True
+    clipped_rows = [30, 40]
+    errs = {}
+    for dtype in (np.uint32, np.uint64):
+        t_idx = torch.from_numpy(idx.astype(dtype)).to(cuda)
+        name = np.dtype(dtype).name
+        args = (t_off, t_idx, t_val)
+        abs_args = (t_off, t_idx, t_val.abs())
+        # K5 forward and backward
+        pair, s = fm.fm_pair_fwd(*args, V5)
+        pair_p, s_p = fm.fm_pair_fwd_plain(*args, V5)
+        pair_a, s_a = fm.fm_pair_fwd_plain(*abs_args, V5.abs())
+        torch.cuda.synchronize()
+        e5 = _check_pair(f"fm_pair_fwd {name}", pair, pair_p,
+                         (s_a * s_a).sum(-1) - pair_a, bad_row, clipped_rows)
+        s_err = (s - s_p).nan_to_num().abs()
+        require(bool((s_err <= PAIR_ATOL
+                      + PAIR_RTOL * s_a.nan_to_num()).all())
+                and torch.equal(torch.isnan(s), torch.isnan(s_p)),
+                f"fm_pair_fwd {name}: s disagrees with the plain version's: "
+                f"max |err| {s_err.max().item()}")
+        gv = fm.fm_pair_bwd(*args, V5, s, g)
+        gv_p = fm.fm_pair_bwd_plain(*args, V5, s, g)
+        torch.cuda.synchronize()
+        g5 = _check_grad(f"fm_pair_bwd {name}", gv, gv_p, nan5)
+        del gv, gv_p
+        # K6 forward and backward
+        pair = fm.ffm_pair_fwd(*args, t_fld, V6)
+        pair_p = fm.ffm_pair_fwd_plain(*args, t_fld, V6)
+        pair_a = fm.ffm_pair_fwd_plain(*abs_args, t_fld, V6.abs())
+        v_own = V6.abs()[t_idx.to(torch.int64).clamp(max=NUM_FEATURES - 1),
+                         t_fld.clamp(0, FFM_FIELDS - 1)]
+        diag_a = _row_sums(t_off, (t_val[:, None] * v_own).pow(2).sum(-1))
+        torch.cuda.synchronize()
+        e6 = _check_pair(f"ffm_pair_fwd {name}", pair, pair_p,
+                         pair_a + diag_a, bad_row, clipped_rows)
+        gv = fm.ffm_pair_bwd(*args, t_fld, V6, g)
+        gv_p = fm.ffm_pair_bwd_plain(*args, t_fld, V6, g)
+        torch.cuda.synchronize()
+        g6 = _check_grad(f"ffm_pair_bwd {name}", gv, gv_p, nan6)
+        del gv, gv_p, v_own
+        if dtype is np.uint32:
+            errs = {"fm_pair_fwd": e5, "fm_pair_bwd": g5,
+                    "ffm_pair_fwd": e6, "ffm_pair_bwd": g6}
+    torch.cuda.empty_cache()
+    log("factor kernels agree with their plain versions (u32 and u64 "
+        "index; empty rows, padded tail, index at F-1, an out-of-range "
+        "index, fields past the fields and below 0): "
+        + ", ".join(f"{k} max |err| {v[0]:.3g} (/ sum|terms| {v[1]:.3g})"
+                    if isinstance(v, tuple) else f"{k} max |err| {v:.3g}"
+                    for k, v in errs.items())
+        + f"; forward rtol {PAIR_RTOL} of sum|terms|, atol {PAIR_ATOL}; "
+        f"backward rtol {GRAD_RTOL}, atol {GRAD_ATOL}")
+
+    # Timing, at the libfm path's first batch as it came from the parser.
+    b_off, b_idx, b_val, b_fld = (torch.from_numpy(first[k]).to(cuda)
+                                  for k in ("offset", "index", "value",
+                                            "field"))
+    n, nnz = ROW_BUCKET, int(first["num_nnz"])
+    distinct = int(np.unique(first["index"][:nnz]).size)
+    rows_of = np.repeat(np.arange(n), np.diff(first["offset"]))
+    fields_present = np.unique(rows_of * FFM_FIELDS
+                               + first["field"][:nnz]) // FFM_FIELDS
+    pairs_needed = int((np.bincount(fields_present, minlength=n) ** 2).sum())
+    csr_bytes = (n + 1) * 8 + nnz * (4 + 4)
+    K, nf, K6 = FM_FACTORS, FFM_FIELDS, FFM_FACTORS
+    args = (b_off, b_idx, b_val)
+    _, s_b = fm.fm_pair_fwd(*args, V5)
+    work = {
+        "fm_pair_fwd": (
+            lambda: fm.fm_pair_fwd(*args, V5),
+            lambda: fm.fm_pair_fwd_plain(*args, V5),
+            csr_bytes + distinct * K * 4 + n * 4 + n * K * 4,
+            4 * nnz * K + 3 * n * K),
+        "fm_pair_bwd": (
+            lambda: fm.fm_pair_bwd(*args, V5, s_b, g),
+            lambda: fm.fm_pair_bwd_plain(*args, V5, s_b, g),
+            csr_bytes + distinct * K * 4 + n * K * 4 + n * 4
+            + NUM_FEATURES * K * 4,
+            5 * nnz * K),
+        "ffm_pair_fwd": (
+            lambda: fm.ffm_pair_fwd(*args, b_fld, V6),
+            lambda: fm.ffm_pair_fwd_plain(*args, b_fld, V6),
+            csr_bytes + nnz * 8 + distinct * nf * K6 * 4 + n * 4,
+            2 * nnz * nf * K6 + 2 * pairs_needed * K6 + 2 * nnz * K6),
+        "ffm_pair_bwd": (
+            lambda: fm.ffm_pair_bwd(*args, b_fld, V6, g),
+            lambda: fm.ffm_pair_bwd_plain(*args, b_fld, V6, g),
+            csr_bytes + nnz * 8 + distinct * nf * K6 * 4 + n * 4
+            + NUM_FEATURES * nf * K6 * 4,
+            5 * nnz * nf * K6 + 2 * nnz * K6),
+    }
+    # The library yardstick for K5 forward: two cuSPARSE products compute
+    # its sums s = A V and sq = (A∘A)(V∘V) (not the pair, which needs one
+    # more elementwise pass). No single PyTorch call computes K5 backward
+    # or K6.
+    a1 = torch.sparse_csr_tensor(b_off, b_idx[:nnz].to(torch.int64),
+                                 b_val[:nnz], size=(n, NUM_FEATURES))
+    a2 = torch.sparse_csr_tensor(b_off, b_idx[:nnz].to(torch.int64),
+                                 b_val[:nnz] * b_val[:nnz],
+                                 size=(n, NUM_FEATURES))
+    V5sq = V5 * V5
+    s_lib = a1 @ V5
+    _, s_abs = fm.fm_pair_fwd_plain(b_off, b_idx, b_val.abs(), V5.abs())
+    require(bool(((s_lib - s_b).abs() <= PAIR_ATOL
+                  + PAIR_RTOL * s_abs).all()),
+            "fm_pair_fwd's s disagrees with torch.sparse on the path's batch")
+    library = {"fm_pair_fwd": device_ms(lambda: (a1 @ V5, a2 @ V5sq))}
+    log(f"factor kernels timed at the libfm path's first batch: {n} rows, "
+        f"{nnz} nonzeros of {LIBFM_NNZ_BUCKET}, {distinct} distinct "
+        f"features, {pairs_needed} (row, field, field) pairs present")
+    replaces = {"fm_pair_fwd": "dmlc_tpu/models/fm.py:43",
+                "fm_pair_bwd": "dmlc_tpu/models/fm.py:43",
+                "ffm_pair_fwd": "dmlc_tpu/models/fm.py:117",
+                "ffm_pair_bwd": "dmlc_tpu/models/fm.py:117"}
+    rows = []
+    for name, (kernel, plain, nbytes, ops) in work.items():
+        b, by = bound_ms(nbytes, ops)
+        err = errs[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "dmlc_tpu_torch/csrc/fm.cu",
+            "replaces": replaces[name],
+            "max_abs_err": err[0] if isinstance(err, tuple) else err,
+            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": library.get(name), "call_ms": call_ms(kernel)})
+    del V6, a1, a2
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_factor_shapes():
+    """K5 and K6 against their plain versions at shapes other than the
+    path's, on small seeded batches: K5 with 3 and 40 factors (not a power
+    of two; more than a warp's lanes), K6 with 3 fields of 5 factors
+    (several nonzeros of a row in one field: colliding shared-memory
+    adds) and with 60 fields (S and D take 58.6 KB, past the 48 KB
+    default: the opt-in size); and K6 with 300 fields, whose S does not
+    fit a block, which must raise a named error."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.ops import fm
+    from dmlc_tpu_torch.utils.logging import DMLCError
+    cuda = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 5)
+
+    def batch(rows, features, fields, factors, max_nnz):
+        lens = rng.randint(0, max_nnz + 1, rows)
+        off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        nnz = int(off[-1])
+        shape = ((features, factors) if fields is None
+                 else (features, fields, factors))
+        return [torch.from_numpy(a).to(cuda) for a in (
+            off, rng.randint(0, features, nnz).astype(np.uint32),
+            rng.rand(nnz).astype(np.float32),
+            rng.randint(0, fields or 1, nnz).astype(np.int64),
+            (0.3 * rng.randn(*shape)).astype(np.float32),
+            rng.randn(rows).astype(np.float32))]
+
+    done = []
+    for fields, factors, max_nnz in ((None, 3, 30), (None, 40, 70),
+                                     (3, 5, 30), (60, 4, 40)):
+        off, idx, val, fld, V, g = batch(300, 500, fields, factors, max_nnz)
+        csr_cols, abs_cols = (off, idx, val), (off, idx, val.abs())
+        if fields is None:
+            pair, s = fm.fm_pair_fwd(*csr_cols, V)
+            plain, _ = fm.fm_pair_fwd_plain(*csr_cols, V)
+            pair_a, s_a = fm.fm_pair_fwd_plain(*abs_cols, V.abs())
+            scale = (s_a * s_a).sum(-1) - pair_a
+            gv = fm.fm_pair_bwd(*csr_cols, V, s, g)
+            gv_p = fm.fm_pair_bwd_plain(*csr_cols, V, s, g)
+        else:
+            pair = fm.ffm_pair_fwd(*csr_cols, fld, V)
+            plain = fm.ffm_pair_fwd_plain(*csr_cols, fld, V)
+            v_own = V.abs()[idx.to(torch.int64), fld]
+            scale = (fm.ffm_pair_fwd_plain(*abs_cols, fld, V.abs())
+                     + _row_sums(off, (val[:, None] * v_own).pow(2).sum(-1)))
+            gv = fm.ffm_pair_bwd(*csr_cols, fld, V, g)
+            gv_p = fm.ffm_pair_bwd_plain(*csr_cols, fld, V, g)
+        torch.cuda.synchronize()
+        what = (f"K5 with {factors} factors" if fields is None
+                else f"K6 with {fields} fields of {factors} factors")
+        require(bool(((pair - plain).abs()
+                      <= PAIR_ATOL + PAIR_RTOL * scale).all()),
+                f"{what}: the forward disagrees with its plain version: "
+                f"max |err| {(pair - plain).abs().max().item()}")
+        require(torch.allclose(gv, gv_p, rtol=GRAD_RTOL, atol=GRAD_ATOL),
+                f"{what}: the backward disagrees with its plain version: "
+                f"max |err| {(gv - gv_p).abs().max().item()}")
+        done.append(what)
+    off, idx, val, fld, V, g = batch(10, 50, 300, 1, 5)
+    try:
+        fm.ffm_pair_fwd(off, idx, val, fld, V)
+    except DMLCError as e:
+        require("shared memory" in str(e), f"K6 with 300 fields: {e}")
+        log(f"factor kernels agree with their plain versions at other "
+            f"shapes ({'; '.join(done)}); 300 fields raise: {e}")
+    else:
+        fail("K6 with 300 fields (S past a block's shared memory) did not "
+             "raise")
+
+
 def report_kernels(rows, launches, steps):
     for r in rows:
         r["launches"] = launches[r["name"]]
-        lib = ("null" if r["library_ms"] is None
+        lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.2f} us")
         log(f"{r['name']}: kernel {r['ms'] * 1e3:.2f} us on the device "
             f"({r['call_ms'] * 1e3:.1f} us a call back to back, launch "
@@ -412,19 +794,21 @@ def report_kernels(rows, launches, steps):
 
 # --------------------------------------------------------------- phase 4
 
-def train_epoch(path, model, device, train: bool):
+def train_epoch(path, model, device, train: bool, fmt="libsvm"):
     """One epoch: native parse → padded batches → pinned async H2D →
     (train steps). Returns (seconds, losses, batches, bytes moved)."""
     import torch
     from dmlc_tpu_torch.data.parser import Parser
-    from dmlc_tpu_torch.native.bindings import NativeLibSVMParser
+    from dmlc_tpu_torch.native import bindings
     from dmlc_tpu_torch.parallel.device_iter import device_prefetch
-    parser = Parser.create(path, 0, 1, format="libsvm", engine="native")
-    require(isinstance(parser, NativeLibSVMParser),
+    parser = Parser.create(path, 0, 1, format=fmt, engine="native")
+    native_cls = {"libsvm": bindings.NativeLibSVMParser,
+                  "libfm": bindings.NativeLibFMParser}[fmt]
+    require(isinstance(parser, native_cls),
             f"engine='native' gave {type(parser).__name__}")
     losses, batches, moved = [], 0, 0
     t0 = time.perf_counter()
-    for batch in device_prefetch(padded_batches(parser), size=2,
+    for batch in device_prefetch(padded_batches(parser, fmt), size=2,
                                  device=device, staging=True):
         batches += 1
         moved += sum(t.numel() * t.element_size() for t in batch.values())
@@ -503,17 +887,15 @@ def main_path(path, size, lr):
     return launches, stats
 
 
-def device_time(path, lr, epoch_s):
+def device_time(path, model, epoch_s, fmt="libsvm"):
     """Where the card's time goes: the device time of one more training
-    epoch, traced by torch.profiler and summed by kernel, and its share
-    of the unprofiled epoch's wall time (copies overlapping compute
-    count twice)."""
+    epoch of ``model``, traced by torch.profiler and summed by kernel, and
+    its share of the unprofiled epoch's wall time (copies overlapping
+    compute count twice)."""
     import torch
-    from dmlc_tpu_torch.models.linear import SparseLinearModel
-    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
-                              device=torch.device("cuda"))
     by_kernel = _device_us_by_kernel(
-        lambda: train_epoch(path, model, torch.device("cuda"), train=True))
+        lambda: train_epoch(path, model, torch.device("cuda"), train=True,
+                            fmt=fmt))
     require(by_kernel, "the profiler saw no device time")
     total_us = sum(t for t, _ in by_kernel.values())
     log(f"device time over a training epoch: {total_us / 1e3:.3f} ms, "
@@ -580,12 +962,236 @@ def parity(path, lr):
         f"{STEP_ATOL})")
 
 
+# --------------------------------------------------------------- phase 6
+
+# The kernels each factor model's step launches once.
+PATH_KERNELS = {"fm": ("csr_spmv", "csr_spmv_t", "fm_pair_fwd",
+                       "fm_pair_bwd"),
+                "ffm": ("csr_spmv", "csr_spmv_t", "ffm_pair_fwd",
+                        "ffm_pair_bwd")}
+
+
+def _wrappers():
+    from dmlc_tpu_torch.ops import csr, fm
+    return {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
+            "fm_pair_fwd": fm.fm_pair_fwd, "fm_pair_bwd": fm.fm_pair_bwd,
+            "ffm_pair_fwd": fm.ffm_pair_fwd, "ffm_pair_bwd": fm.ffm_pair_bwd}
+
+
+def make_factor_model(kind, lr, cls=None):
+    """SparseFMModel(10^6, K=8) or SparseFFMModel(10^6, 39 fields, K=4) on
+    the card, V drawn from a seeded CUDA generator (``cls``: a subclass)."""
+    import torch
+    from dmlc_tpu_torch.models import SparseFFMModel, SparseFMModel
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 4)
+    if kind == "fm":
+        return (cls or SparseFMModel)(NUM_FEATURES, num_factors=FM_FACTORS,
+                                      learning_rate=lr, device=cuda,
+                                      generator=gen)
+    return (cls or SparseFFMModel)(NUM_FEATURES, FFM_FIELDS,
+                                   num_factors=FFM_FACTORS, learning_rate=lr,
+                                   device=cuda, generator=gen)
+
+
+def plain_factor_model(kind, lr):
+    """The same model whose margins run the plain versions of K1/K2 and of
+    K5 or K6, forward and backward, on the card's tensors."""
+    import torch
+    from dmlc_tpu_torch.models import SparseFFMModel, SparseFMModel
+    from dmlc_tpu_torch.ops import csr, fm
+
+    class Linear(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, off, idx, val, w):
+            ctx.save_for_backward(off, idx, val)
+            ctx.features = w.numel()
+            return csr.csr_spmv_plain(off, idx, val, w)
+
+        @staticmethod
+        def backward(ctx, g):
+            off, idx, val = ctx.saved_tensors
+            return None, None, None, csr.csr_spmv_t_plain(
+                off, idx, val, g.contiguous(), ctx.features)
+
+    class Pair(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, off, idx, val, fld, V):
+            if kind == "fm":
+                pair, s = fm.fm_pair_fwd_plain(off, idx, val, V)
+            else:
+                pair, s = fm.ffm_pair_fwd_plain(off, idx, val, fld, V), None
+            ctx.save_for_backward(off, idx, val, fld, V, s)
+            return pair
+
+        @staticmethod
+        def backward(ctx, g):
+            off, idx, val, fld, V, s = ctx.saved_tensors
+            if kind == "fm":
+                gV = fm.fm_pair_bwd_plain(off, idx, val, V, s, g.contiguous())
+            else:
+                gV = fm.ffm_pair_bwd_plain(off, idx, val, fld, V,
+                                           g.contiguous())
+            return None, None, None, None, gV
+
+    base = SparseFMModel if kind == "fm" else SparseFFMModel
+
+    class Plain(base):
+        def forward(self, batch):
+            csr_cols = (batch["offset"], batch["index"], batch["value"])
+            return (Linear.apply(*csr_cols, self.w)
+                    + Pair.apply(*csr_cols, batch["field"], self.V) + self.b)
+
+    return make_factor_model(kind, lr, cls=Plain)
+
+
+def factor_path(path, size, kind, lr):
+    """One epoch of the factor model over the libfm corpus through the
+    native parser, padded batches with field and pinned async H2D; the
+    loss must fall and each of the model's kernels launch once a step.
+    Then the same epoch without the step, and a profiled training epoch."""
+    import statistics
+    import torch
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.parallel.device_iter import device_prefetch
+    cuda = torch.device("cuda")
+    warm = Parser.create(path, 0, 1, format="libfm", engine="native")
+    model = make_factor_model(kind, lr)
+    for batch in device_prefetch(padded_batches(warm, "libfm"), device=cuda,
+                                 staging=True):
+        if kind == "ffm":
+            model.validate_batch(batch)
+        model.train_step(batch)
+        break
+    torch.cuda.synchronize()
+    warm.destroy()
+    del model
+    torch.cuda.empty_cache()
+
+    gc.collect()
+    model = make_factor_model(kind, lr)
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    held = torch.cuda.memory_allocated()  # the model, and anything left
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses, steps, moved = train_epoch(path, model, cuda, train=True,
+                                             fmt="libfm")
+    # read before the checks below: isfinite(V) makes about 1 GB of
+    # temporaries at the FFM width
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = {k: steps if k in PATH_KERNELS[kind] else 0 for k in launches}
+    require(steps >= 20, f"{kind}: the epoch gave {steps} steps, want >= 20")
+    require(launches == want,
+            f"{kind}: launch counts {launches} != {want}: the path did not "
+            "go through its kernels once per step")
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            f"{kind}: non-finite loss in {losses}")
+    first10, last10 = (statistics.mean(losses[:10]),
+                       statistics.mean(losses[-10:]))
+    require(last10 < first10, f"{kind}: the loss did not fall: mean of the "
+            f"first 10 steps {first10}, of the last 10 {last10}")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            f"{kind}: non-finite parameters")
+    log(f"{kind} path: {type(model).__name__} ({NUM_FEATURES} features, V "
+        f"{tuple(model.V.shape)}), {steps} steps at learning rate {lr}, "
+        f"loss mean of the first 10 steps {first10:.4f} -> of the last 10 "
+        f"{last10:.4f}; launches {launches}; peak device memory "
+        f"{peak / 2**20:.0f} MiB, {held / 2**20:.0f} MiB of it held before "
+        "the epoch")
+    log(f"  losses: {[round(x, 4) for x in losses]}")
+    parse_secs, _, batches2, _ = train_epoch(path, None, cuda, train=False,
+                                             fmt="libfm")
+    require(batches2 == steps, f"{kind}: second epoch gave {batches2} "
+            f"batches, first {steps}")
+    stats = {
+        "text_bytes": size, "steps": steps, "epoch_s": secs,
+        "parse_to_device_gbps_training": size / secs / 1e9,
+        "parse_to_device_gbps": size / parse_secs / 1e9,
+        "steps_per_s": steps / secs, "h2d_bytes_per_batch": moved // steps,
+        "peak_device_bytes": peak, "held_before_epoch_bytes": held,
+        "loss_first10": first10, "loss_last10": last10,
+    }
+    log(f"{kind} parse-to-device with training: "
+        f"{stats['parse_to_device_gbps_training']:.3f} GB/s ({size} text "
+        f"bytes in {secs:.3f} s), {stats['steps_per_s']:.2f} steps/s; "
+        f"without training: {stats['parse_to_device_gbps']:.3f} GB/s "
+        f"({parse_secs:.3f} s); {stats['h2d_bytes_per_batch']} H2D bytes "
+        "per batch")
+    stats["device"] = device_time(path, model, secs, fmt="libfm")
+    del model
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def libfm_parity(path, lr):
+    """Native libfm padded batches (with field) byte-identical to
+    pad_single over the Python parser; 3 SGD steps of each factor model
+    on the card allclose to 3 steps through the plain versions."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.data.padding import pad_single
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.data.rowblock import RowBlockContainer
+    native = Parser.create(path, 0, 1, format="libfm", engine="native")
+    firsts = []
+    for batch in padded_batches(native, "libfm"):
+        firsts.append(batch.copy())
+        if len(firsts) == 4:
+            break
+    native.destroy()
+    golden = Parser.create(path, 0, 1, format="libfm", engine="python",
+                           prefetch=False)
+    cont = RowBlockContainer(np.uint32)
+    for block in golden:
+        cont.push_block(block)
+        if cont.size >= 4 * ROW_BUCKET:
+            break
+    rows = cont.get_block()
+    for i, nat in enumerate(firsts):
+        gold = pad_single(rows.slice(i * ROW_BUCKET, (i + 1) * ROW_BUCKET),
+                          ROW_BUCKET, LIBFM_NNZ_BUCKET, want_field=True)
+        require("field" in nat and batch_hash(nat) == batch_hash(gold),
+                f"native libfm padded batch {i} differs from pad_single "
+                "over the Python parser")
+    log("parity: the first 4 native libfm padded batches (with field) are "
+        "byte-identical to pad_single over the Python parser")
+
+    cuda = torch.device("cuda")
+    batches = [{k: torch.from_numpy(np.asarray(v)).to(cuda)
+                for k, v in b.items()} for b in firsts[:3]]
+    for kind in ("fm", "ffm"):
+        results = []
+        for model in (make_factor_model(kind, lr),
+                      plain_factor_model(kind, lr)):
+            losses = torch.stack([model.train_step(b) for b in batches])
+            results.append([losses] + [p.detach() for p in
+                                       (model.w, model.b, model.V)])
+            del model
+        errs = {}
+        for name, a, b in zip(("losses", "w", "b", "V"), *results):
+            require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                    f"{kind}: 3 steps with the kernels vs the plain "
+                    f"versions: {name} max |err| "
+                    f"{(a - b).abs().max().item()}")
+            errs[name] = (a - b).abs().max().item()
+        log(f"parity: 3 {kind} steps with the kernels match 3 through the "
+            f"plain versions on the card (losses "
+            f"{[round(float(x), 6) for x in results[0][0]]}, max |err| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; rtol {STEP_RTOL}, atol {STEP_ATOL})")
+        del results
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
     card = environment()
     sys.path.insert(0, REPO)
     import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
     build_all()
     work = tempfile.mkdtemp(prefix="dmlc_chip_smoke_")
     try:
@@ -597,11 +1203,31 @@ def main() -> None:
         rows = check_kernels(first)
         launches, stats = main_path(path, size, LEARNING_RATE)
         report_kernels(rows, launches, stats["steps"])
-        stats["device"] = device_time(path, LEARNING_RATE, stats["epoch_s"])
+        stats["device"] = device_time(
+            path, SparseLinearModel(NUM_FEATURES, learning_rate=LEARNING_RATE,
+                                    device=torch.device("cuda")),
+            stats["epoch_s"])
         stats["h2d_gbps"] = h2d_gbps(first)
         log(f"H2D from pinned slots: {stats['h2d_gbps']:.2f} GB/s "
             f"({stats['h2d_bytes_per_batch']} bytes per batch)")
         parity(path, LEARNING_RATE)
+        os.unlink(path)
+
+        # the factor models' path: libfm → FM and FFM
+        path = os.path.join(work, "criteo_shaped.libfm")
+        t0 = time.perf_counter()
+        size = write_libfm_corpus(path)
+        log(f"libfm corpus: {size} bytes in {time.perf_counter() - t0:.1f} s")
+        factor_rows = check_factor_kernels(first_batch(path, "libfm"))
+        check_factor_shapes()
+        for kind in ("fm", "ffm"):
+            launches, stats[kind] = factor_path(path, size, kind,
+                                                LEARNING_RATE)
+            report_kernels([r for r in factor_rows
+                            if r["name"] in PATH_KERNELS[kind]],
+                           launches, stats[kind]["steps"])
+        libfm_parity(path, LEARNING_RATE)
+        rows += factor_rows
     finally:
         shutil.rmtree(work, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

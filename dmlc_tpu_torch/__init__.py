@@ -5,11 +5,13 @@ counterpart at the same path there, and the JAX package stays the
 reference the tests hold this one to. This package imports torch and
 numpy, never jax, and nothing of ``dmlc_tpu``.
 
-Ported so far (the main path): local-file ``InputSplit``, the libsvm
-parser (Python golden and native C++ engine, with ABI-5 padded batch
-assembly), bucket padding, the pinned async host→device iterator, the
-CSR SpMV kernels with their weight-gradient transpose, and
-``SparseLinearModel`` SGD. Entry points that touch a device default to
+Ported so far: local-file ``InputSplit``, the libsvm and libfm parsers
+(Python golden and native C++ engine, with ABI-5 padded batch assembly
+that carries libfm's ``field`` column), bucket padding, the pinned async
+host→device iterator, the CSR SpMV kernels with their weight-gradient
+transpose, the FM and FFM pair-term kernels with their gradients in V,
+and SGD for ``SparseLinearModel``, ``SparseFMModel`` and
+``SparseFFMModel``. Entry points that touch a device default to
 ``torch.device("cuda")``; pass ``device="cpu"`` to run the plain
 PyTorch versions of the kernels.
 """
@@ -17,7 +19,8 @@ PyTorch versions of the kernels.
 from dmlc_tpu_torch.utils.logging import DMLCError
 from dmlc_tpu_torch.data.parser import Parser
 from dmlc_tpu_torch.data import libsvm_parser as _libsvm  # registers "libsvm"
+from dmlc_tpu_torch.data import libfm_parser as _libfm  # registers "libfm"
 
 __all__ = ["DMLCError", "Parser"]
 
-del _libsvm
+del _libsvm, _libfm

@@ -3,8 +3,11 @@
 The two packages never import each other; a test (or a user moving a
 model) passes parameters through numpy: ``params_from_jax`` turns the
 JAX model's parameter dict into tensors a port model loads with
-``load_state_dict``, and ``params_to_numpy`` turns a port model's
-parameters back into the JAX layout.
+``load_state_dict(strict=True)``, and ``params_to_numpy`` turns a port
+model's parameters back into the JAX layout. The names and shapes are
+the same in both packages: ``w [F]`` and ``b []`` for every model, and
+``V`` of ``[F, K]`` (FM) or ``[F, num_fields, K]`` (FFM); a shape that
+does not fit the model is refused by ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ __all__ = ["params_from_jax", "params_to_numpy"]
 
 def params_from_jax(params: Mapping[str, np.ndarray],
                     device=None) -> Dict[str, torch.Tensor]:
-    """JAX parameters (``{"w": ..., "b": ...}`` as numpy) → float32
-    tensors on ``device`` (``cuda`` by default)."""
+    """JAX parameters (``{"w": ..., "b": ..., "V": ...}`` as numpy) →
+    float32 tensors on ``device`` (``cuda`` by default)."""
     device = torch.device("cuda" if device is None else device)
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in params.items()}

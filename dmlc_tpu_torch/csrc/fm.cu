@@ -1,0 +1,493 @@
+// The pair terms of the factorization machines (FM and field-aware FFM)
+// and their gradients in V, hand-written for Hopper (sm_90a), with a plain
+// C interface bound by ctypes from dmlc_tpu_torch/ops/fm.py.
+//
+// What they replace. The JAX package has no hand-written device kernel:
+// XLA compiled these computations from jnp.
+//   K5 fm_pair_fwd   <- the pair term of dmlc_tpu/models/fm.py:43
+//                       _fm_margins: s[r,:] = sum_k x_k V[i_k,:],
+//                       sq[r,:] = sum_k (x_k V[i_k,:])^2,
+//                       pair[r] = 1/2 sum_f (s^2 - sq). s is an output too:
+//                       the backward reads it.
+//   K5 fm_pair_bwd   <- its gradient in V (jax.value_and_grad in
+//                       dmlc_tpu/models/common.py:89):
+//                       gV[i_k,:] += g[r] x_k (s[r,:] - x_k V[i_k,:]).
+//   K6 ffm_pair_fwd  <- the pair term of dmlc_tpu/models/fm.py:117
+//                       _ffm_margins: S[a,b,:] = sum_{k: f_k = a} x_k
+//                       V[i_k,b,:] per row, pair[r] = 1/2 (sum_{a,b}
+//                       <S[a,b],S[b,a]> - sum_k |x_k V[i_k,f_k,:]|^2).
+//   K6 ffm_pair_bwd  <- its gradient in V: gV[i_k,b,:] += g[r] x_k
+//                       (S[b,f_k,:] - [b = f_k] x_k V[i_k,f_k,:]).
+//
+// Semantics kept from the reference:
+//   - an index at or past num_features reads no memory and its factors
+//     count as NaN (jnp.take fills NaN out of range): the row's pair is
+//     NaN, and so are the sums that the backward reads (s, or S[f_k,:,:]),
+//     exactly where jax.grad of the reference gives NaN. The out-of-range
+//     nonzero itself adds nothing to gV (the gradient of the filled take
+//     drops it);
+//   - a field id is clipped into [0, num_fields - 1] (jnp.clip);
+//   - rows are those of offset[0..num_rows]; nonzeros past offset[num_rows]
+//     (the padded tail) are never visited.
+//
+// Bound on the card (H100 SXM, 3.35 TB/s, 67 TFLOP/s fp32). All four move
+// bytes and do a few flops per byte. K5 forward gathers one K-row of V per
+// nonzero (32 B at K = 8) and reads index and value (8 B); K5 backward adds
+// one fp32 atomic per (nonzero, factor) and writes the dense gV (the
+// wrapper zero-fills it: 32 MB at 10^6 x 8). K6 gathers nf*K floats of V
+// per nonzero (624 B at 39 x 4), and its backward writes the dense gV of
+// 10^6 x 39 x 4 floats (624 MB), which dominates its bound.
+//
+// Design, simple first (no wgmma, no TMA, dense gradient):
+//   - K5: one warp per row. Lanes cover (nonzero, factor): lane = g*kp + f
+//     with kp = min(next power of two >= K, 32), so a warp reads 32/kp
+//     nonzeros' K-rows at once, coalesced; factors beyond 32 are covered
+//     in chunks of 32. Per-lane fp32 sums are folded across the nonzero
+//     groups with xor shuffles. The backward uses the same mapping and
+//     adds with fp32 atomicAdd into a zeroed gV (not bitwise
+//     deterministic).
+//   - K6: one block per row. S (nf*nf*K floats) and the per-field squares
+//     D (nf*K floats) live in dynamic shared memory, 24,960 B at 39/4;
+//     threads cover (nonzero, b, f), and their adds into S[f_k,b,:] use
+//     shared-memory atomics, since several nonzeros of a row may share a
+//     field. A block-wide reduction gives the pair. The backward rebuilds
+//     S the same way (it is not saved: 8192 rows of it would be 200 MB)
+//     and scatters with fp32 atomics. Where S and D do not fit a block's
+//     shared memory (the opt-in size above 48 KB) the launch returns
+//     cudaErrorInvalidValue; the wrapper checks first and raises.
+//   - Products that meet a subtraction are rounded on their own
+//     (__fmul_rn), not contracted into an FMA, so that a pair term that is
+//     exactly 0 in the reference's eager arithmetic (a row of one nonzero)
+//     is exactly 0 here too: the loss's subgradient at a zero margin
+//     depends on it (ROADMAP C4).
+// All kernels launch on the caller's stream and allocate nothing; each C
+// entry returns cudaGetLastError() (or the error it found first).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kWarpThreads = 256;   // K5: 8 warps = 8 rows per block
+constexpr int kBlockThreads = 256;  // K6: one block per row
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+
+__device__ __forceinline__ void row_range(const int64_t* offset, int64_t row,
+                                          int64_t nnz, int64_t* lo,
+                                          int64_t* hi) {
+  int64_t a = offset[row];
+  int64_t b = offset[row + 1];
+  // a corrupt offset array must not send a thread past index/value
+  *lo = a < 0 ? 0 : (a > nnz ? nnz : a);
+  *hi = b < *lo ? *lo : (b > nnz ? nnz : b);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------- K5
+
+// kp: lanes per nonzero (a power of two <= 32); groups = 32 / kp nonzeros
+// are read at once.
+template <typename IndexT>
+__global__ void __launch_bounds__(kWarpThreads)
+    fm_pair_fwd_kernel(const int64_t* __restrict__ offset,
+                       const IndexT* __restrict__ index,
+                       const float* __restrict__ value,
+                       const float* __restrict__ V, int64_t num_rows,
+                       int64_t nnz, int64_t num_features, int64_t K, int kp,
+                       float* __restrict__ pair, float* __restrict__ s_out) {
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kWarpThreads + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (row >= num_rows) return;  // uniform across the warp
+  int64_t lo, hi;
+  row_range(offset, row, nnz, &lo, &hi);
+  const int groups = kWarp / kp;
+  const int grp = lane / kp;
+  float total = 0.0f;
+  for (int64_t f0 = 0; f0 < K; f0 += kp) {
+    const int64_t f = f0 + lane % kp;
+    const bool has_f = f < K;
+    float s = 0.0f, sq = 0.0f;
+    for (int64_t k = lo + grp; k < hi; k += groups) {
+      const uint64_t j = static_cast<uint64_t>(index[k]);
+      float v = 0.0f;
+      if (has_f) {
+        v = j < static_cast<uint64_t>(num_features) ? __ldg(V + j * K + f)
+                                                    : nan_f();
+      }
+      const float vx = __fmul_rn(value[k], v);
+      s += vx;
+      sq += __fmul_rn(vx, vx);
+    }
+    // fold the nonzero groups: lanes of one factor differ in bits >= kp
+    for (int o = kp; o < kWarp; o <<= 1) {
+      s += __shfl_xor_sync(kFull, s, o);
+      sq += __shfl_xor_sync(kFull, sq, o);
+    }
+    float part = 0.0f;
+    if (grp == 0 && has_f) {
+      s_out[row * K + f] = s;
+      part = __fmul_rn(s, s) - sq;
+    }
+    total += warp_sum(part);
+  }
+  if (lane == 0) pair[row] = 0.5f * total;
+}
+
+template <typename IndexT>
+__global__ void __launch_bounds__(kWarpThreads)
+    fm_pair_bwd_kernel(const int64_t* __restrict__ offset,
+                       const IndexT* __restrict__ index,
+                       const float* __restrict__ value,
+                       const float* __restrict__ V,
+                       const float* __restrict__ s_in,
+                       const float* __restrict__ g, int64_t num_rows,
+                       int64_t nnz, int64_t num_features, int64_t K, int kp,
+                       float* __restrict__ gV) {
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kWarpThreads + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (row >= num_rows) return;
+  int64_t lo, hi;
+  row_range(offset, row, nnz, &lo, &hi);
+  const int groups = kWarp / kp;
+  const int grp = lane / kp;
+  const float gr = g[row];
+  for (int64_t f0 = 0; f0 < K; f0 += kp) {
+    const int64_t f = f0 + lane % kp;
+    if (f >= K) continue;
+    const float s = s_in[row * K + f];
+    for (int64_t k = lo + grp; k < hi; k += groups) {
+      const uint64_t j = static_cast<uint64_t>(index[k]);
+      if (j >= static_cast<uint64_t>(num_features)) continue;
+      const float x = value[k];
+      const float v = __ldg(V + j * K + f);
+      atomicAdd(gV + j * K + f, gr * x * (s - __fmul_rn(x, v)));
+    }
+  }
+}
+
+int lanes_per_nonzero(int64_t K) {
+  int kp = 1;
+  while (kp < K && kp < kWarp) kp <<= 1;
+  return kp;
+}
+
+unsigned warp_grid(int64_t num_rows) {
+  const int64_t rows_per_block = kWarpThreads / kWarp;
+  return static_cast<unsigned>((num_rows + rows_per_block - 1) /
+                               rows_per_block);
+}
+
+// ---------------------------------------------------------------- K6
+
+// Sums v over the block; the result is valid in thread 0.
+__device__ float block_sum(float v, float* scratch) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x / kWarp;
+  if (threadIdx.x % kWarp == 0) scratch[warp] = v;
+  __syncthreads();
+  float out = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kBlockThreads / kWarp; ++w) out += scratch[w];
+  }
+  __syncthreads();
+  return out;
+}
+
+__device__ __forceinline__ int64_t clip_field(int64_t a, int64_t nf) {
+  return a < 0 ? 0 : (a >= nf ? nf - 1 : a);
+}
+
+// The floats of a K6 block's dynamic shared memory: S [nf, nf, K], then
+// D [nf, K].
+__host__ __device__ __forceinline__ int64_t ffm_shared_floats(int64_t nf,
+                                                              int64_t K) {
+  return nf * nf * K + nf * K;
+}
+
+// One row's S[a, b, f] = sum_{k: f_k = a} x_k V[i_k, b, f] into shared
+// memory and, with want_D, D[a, f] = sum_{k: f_k = a} (x_k V[i_k, a, f])^2,
+// the part of S[a, a, f]^2 that pairs a nonzero with itself.
+template <typename IndexT>
+__device__ void build_S(float* S, float* D, bool want_D, int64_t lo,
+                        int64_t hi, const IndexT* __restrict__ index,
+                        const float* __restrict__ value,
+                        const int64_t* __restrict__ field,
+                        const float* __restrict__ V, int64_t num_features,
+                        int64_t nf, int64_t K) {
+  const int64_t nk = nf * K;
+  for (int64_t t = threadIdx.x; t < ffm_shared_floats(nf, K);
+       t += kBlockThreads) {
+    S[t] = 0.0f;  // D follows S
+  }
+  __syncthreads();
+  const int64_t work = (hi - lo) * nk;
+  for (int64_t t = threadIdx.x; t < work; t += kBlockThreads) {
+    const int64_t k = lo + t / nk;
+    const int64_t rem = t % nk;  // b * K + f
+    const uint64_t j = static_cast<uint64_t>(index[k]);
+    const int64_t a = clip_field(field[k], nf);
+    const float v = j < static_cast<uint64_t>(num_features)
+                        ? __ldg(V + j * nk + rem)
+                        : nan_f();
+    const float vx = __fmul_rn(value[k], v);
+    atomicAdd(S + a * nk + rem, vx);
+    if (want_D && rem / K == a) atomicAdd(D + rem, __fmul_rn(vx, vx));
+  }
+  __syncthreads();
+}
+
+// pair = 1/2 (sum_{a != b} <S[a,b], S[b,a]> + sum_a (|S[a,a]|^2 - D[a])):
+// the reference's total minus its diagonal, with the diagonal taken off
+// entry by entry. Where a field holds one nonzero (Criteo's rows), its
+// S[a,a,f]^2 - D[a,f] is exactly 0, and a row of one nonzero has a pair of
+// exactly 0, as the reference's eager value (no FMA contraction: the
+// products are rounded on their own).
+template <typename IndexT>
+__global__ void __launch_bounds__(kBlockThreads)
+    ffm_pair_fwd_kernel(const int64_t* __restrict__ offset,
+                        const IndexT* __restrict__ index,
+                        const float* __restrict__ value,
+                        const int64_t* __restrict__ field,
+                        const float* __restrict__ V, int64_t nnz,
+                        int64_t num_features, int64_t nf, int64_t K,
+                        float* __restrict__ pair) {
+  extern __shared__ float S[];
+  __shared__ float scratch[kBlockThreads / kWarp];
+  const int64_t row = blockIdx.x;
+  const int64_t nk = nf * K;
+  float* D = S + nf * nk;
+  int64_t lo, hi;
+  row_range(offset, row, nnz, &lo, &hi);
+  build_S(S, D, true, lo, hi, index, value, field, V, num_features, nf, K);
+  float total = 0.0f;
+  for (int64_t t = threadIdx.x; t < nf * nk; t += kBlockThreads) {
+    const int64_t a = t / nk;
+    const int64_t rem = t % nk;
+    const int64_t b = rem / K;
+    const int64_t f = rem % K;
+    total += a == b ? __fmul_rn(S[t], S[t]) - D[a * K + f]
+                    : __fmul_rn(S[t], S[b * nk + a * K + f]);
+  }
+  const float sum = block_sum(total, scratch);
+  if (threadIdx.x == 0) pair[row] = 0.5f * sum;
+}
+
+template <typename IndexT>
+__global__ void __launch_bounds__(kBlockThreads)
+    ffm_pair_bwd_kernel(const int64_t* __restrict__ offset,
+                        const IndexT* __restrict__ index,
+                        const float* __restrict__ value,
+                        const int64_t* __restrict__ field,
+                        const float* __restrict__ V,
+                        const float* __restrict__ g, int64_t nnz,
+                        int64_t num_features, int64_t nf, int64_t K,
+                        float* __restrict__ gV) {
+  extern __shared__ float S[];
+  const int64_t row = blockIdx.x;
+  const int64_t nk = nf * K;
+  int64_t lo, hi;
+  row_range(offset, row, nnz, &lo, &hi);
+  build_S(S, S + nf * nk, false, lo, hi, index, value, field, V,
+          num_features, nf, K);
+  const float gr = g[row];
+  const int64_t work = (hi - lo) * nk;
+  for (int64_t t = threadIdx.x; t < work; t += kBlockThreads) {
+    const int64_t k = lo + t / nk;
+    const int64_t rem = t % nk;  // b * K + f
+    const uint64_t j = static_cast<uint64_t>(index[k]);
+    if (j >= static_cast<uint64_t>(num_features)) continue;
+    const int64_t a = clip_field(field[k], nf);
+    const int64_t b = rem / K;
+    const float x = value[k];
+    float d = S[b * nk + a * K + rem % K];  // S[b, f_k, f]
+    if (b == a) d -= __fmul_rn(x, __ldg(V + j * nk + rem));
+    atomicAdd(gV + j * nk + rem, gr * x * d);
+  }
+}
+
+constexpr int64_t kDefaultSharedBytes = 48 * 1024;
+
+// The dynamic shared memory a K6 block may take on the current device:
+// the opt-in maximum less the kernels' static scratch.
+cudaError_t ffm_max_shared(int64_t* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  *out = static_cast<int64_t>(optin) -
+         static_cast<int64_t>(sizeof(float)) * (kBlockThreads / kWarp);
+  return cudaSuccess;
+}
+
+// Checks the size of S and raises the kernel's dynamic shared-memory limit
+// where S needs more than the default 48 KB.
+template <typename Kernel>
+cudaError_t prepare_ffm(Kernel kernel, int64_t nf, int64_t K,
+                        int64_t* bytes) {
+  *bytes = ffm_shared_floats(nf, K) * static_cast<int64_t>(sizeof(float));
+  int64_t most = 0;
+  cudaError_t err = ffm_max_shared(&most);
+  if (err != cudaSuccess) return err;
+  if (*bytes > most) return cudaErrorInvalidValue;
+  if (*bytes > kDefaultSharedBytes) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(*bytes));
+  }
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The most dynamic shared memory a K6 block takes on the current device,
+// into *out; a block needs (nf * nf * K + nf * K) * 4 bytes. Returns a
+// cudaError_t.
+int dmlc_ffm_max_shared_bytes(void* out) {
+  return static_cast<int>(ffm_max_shared(static_cast<int64_t*>(out)));
+}
+
+// pair[num_rows], s[num_rows, K] = the FM pair term of CSR(offset, index,
+// value) over V[num_features, K]. index_bytes: 4 (u32) or 8 (u64).
+int dmlc_fm_pair_fwd(const void* offset, const void* index, int index_bytes,
+                     const void* value, const void* V, int64_t num_rows,
+                     int64_t nnz, int64_t num_features, int64_t K,
+                     void* pair, void* s, void* stream) {
+  if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* off = static_cast<const int64_t*>(offset);
+  const auto* val = static_cast<const float*>(value);
+  const auto* v = static_cast<const float*>(V);
+  auto* p = static_cast<float*>(pair);
+  auto* so = static_cast<float*>(s);
+  const int kp = lanes_per_nonzero(K);
+  if (index_bytes == 4) {
+    fm_pair_fwd_kernel<uint32_t><<<warp_grid(num_rows), kWarpThreads, 0, st>>>(
+        off, static_cast<const uint32_t*>(index), val, v, num_rows, nnz,
+        num_features, K, kp, p, so);
+  } else if (index_bytes == 8) {
+    fm_pair_fwd_kernel<uint64_t><<<warp_grid(num_rows), kWarpThreads, 0, st>>>(
+        off, static_cast<const uint64_t*>(index), val, v, num_rows, nnz,
+        num_features, K, kp, p, so);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gV[num_features, K] += the gradient of sum_r g[r] pair[r] in V; gV must
+// be zeroed by the caller, s is fm_pair_fwd's. Returns a cudaError_t.
+int dmlc_fm_pair_bwd(const void* offset, const void* index, int index_bytes,
+                     const void* value, const void* V, const void* s,
+                     const void* g, int64_t num_rows, int64_t nnz,
+                     int64_t num_features, int64_t K, void* gV,
+                     void* stream) {
+  if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* off = static_cast<const int64_t*>(offset);
+  const auto* val = static_cast<const float*>(value);
+  const auto* v = static_cast<const float*>(V);
+  const auto* si = static_cast<const float*>(s);
+  const auto* gi = static_cast<const float*>(g);
+  auto* out = static_cast<float*>(gV);
+  const int kp = lanes_per_nonzero(K);
+  if (index_bytes == 4) {
+    fm_pair_bwd_kernel<uint32_t><<<warp_grid(num_rows), kWarpThreads, 0, st>>>(
+        off, static_cast<const uint32_t*>(index), val, v, si, gi, num_rows,
+        nnz, num_features, K, kp, out);
+  } else if (index_bytes == 8) {
+    fm_pair_bwd_kernel<uint64_t><<<warp_grid(num_rows), kWarpThreads, 0, st>>>(
+        off, static_cast<const uint64_t*>(index), val, v, si, gi, num_rows,
+        nnz, num_features, K, kp, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pair[num_rows] = the FFM pair term of CSR(offset, index, value) with
+// field[nnz] (int64) over V[num_features, nf, K]. Returns a cudaError_t:
+// cudaErrorInvalidValue where S does not fit a block's shared memory.
+int dmlc_ffm_pair_fwd(const void* offset, const void* index, int index_bytes,
+                      const void* value, const void* field, const void* V,
+                      int64_t num_rows, int64_t nnz, int64_t num_features,
+                      int64_t nf, int64_t K, void* pair, void* stream) {
+  if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* off = static_cast<const int64_t*>(offset);
+  const auto* val = static_cast<const float*>(value);
+  const auto* fld = static_cast<const int64_t*>(field);
+  const auto* v = static_cast<const float*>(V);
+  auto* p = static_cast<float*>(pair);
+  const unsigned grid = static_cast<unsigned>(num_rows);
+  int64_t bytes = 0;
+  cudaError_t err;
+  if (index_bytes == 4) {
+    err = prepare_ffm(ffm_pair_fwd_kernel<uint32_t>, nf, K, &bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ffm_pair_fwd_kernel<uint32_t><<<grid, kBlockThreads, bytes, st>>>(
+        off, static_cast<const uint32_t*>(index), val, fld, v, nnz,
+        num_features, nf, K, p);
+  } else if (index_bytes == 8) {
+    err = prepare_ffm(ffm_pair_fwd_kernel<uint64_t>, nf, K, &bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ffm_pair_fwd_kernel<uint64_t><<<grid, kBlockThreads, bytes, st>>>(
+        off, static_cast<const uint64_t*>(index), val, fld, v, nnz,
+        num_features, nf, K, p);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gV[num_features, nf, K] += the gradient of sum_r g[r] pair[r] in V; gV
+// must be zeroed by the caller. Returns a cudaError_t, as the forward.
+int dmlc_ffm_pair_bwd(const void* offset, const void* index, int index_bytes,
+                      const void* value, const void* field, const void* V,
+                      const void* g, int64_t num_rows, int64_t nnz,
+                      int64_t num_features, int64_t nf, int64_t K, void* gV,
+                      void* stream) {
+  if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* off = static_cast<const int64_t*>(offset);
+  const auto* val = static_cast<const float*>(value);
+  const auto* fld = static_cast<const int64_t*>(field);
+  const auto* v = static_cast<const float*>(V);
+  const auto* gi = static_cast<const float*>(g);
+  auto* out = static_cast<float*>(gV);
+  const unsigned grid = static_cast<unsigned>(num_rows);
+  int64_t bytes = 0;
+  cudaError_t err;
+  if (index_bytes == 4) {
+    err = prepare_ffm(ffm_pair_bwd_kernel<uint32_t>, nf, K, &bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ffm_pair_bwd_kernel<uint32_t><<<grid, kBlockThreads, bytes, st>>>(
+        off, static_cast<const uint32_t*>(index), val, fld, v, gi, nnz,
+        num_features, nf, K, out);
+  } else if (index_bytes == 8) {
+    err = prepare_ffm(ffm_pair_bwd_kernel<uint64_t>, nf, K, &bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ffm_pair_bwd_kernel<uint64_t><<<grid, kBlockThreads, bytes, st>>>(
+        off, static_cast<const uint64_t*>(index), val, fld, v, gi, nnz,
+        num_features, nf, K, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,1 +1,1 @@
-"""CSR row blocks, the libsvm parser and bucket padding."""
+"""CSR row blocks, the libsvm and libfm parsers and bucket padding."""

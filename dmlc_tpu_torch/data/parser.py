@@ -10,8 +10,8 @@ implementations subclass TextParserBase and provide ``parse_block(records,
 container)``. The native C++ engine (dmlc_tpu_torch.native) slots in at
 Parser.create via engine="native"; engine="auto" prefers native when it
 builds, and both engines share the frozen parse semantics (see
-data/strtonum.py), so blocks are byte-identical. Only the ``libsvm``
-format is registered in this package so far.
+data/strtonum.py), so blocks are byte-identical. The ``libsvm`` and
+``libfm`` formats are registered in this package so far.
 """
 
 from __future__ import annotations

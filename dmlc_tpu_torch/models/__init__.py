@@ -1,1 +1,6 @@
 """Learners over padded CSR batches."""
+
+from dmlc_tpu_torch.models.fm import SparseFFMModel, SparseFMModel
+from dmlc_tpu_torch.models.linear import SparseLinearModel
+
+__all__ = ["SparseLinearModel", "SparseFMModel", "SparseFFMModel"]

@@ -43,10 +43,12 @@ class SparseModelBase(nn.Module):
     """The weighted-objective SGD scaffolding shared by the sparse models.
 
     Subclasses provide ``_BATCH_KEYS`` (the batch columns their objective
-    consumes beyond label/weight) and ``_block_objective(batch) ->
-    (loss_sum, weight_sum)``. The base defines the normalised weighted
-    loss with optional l2 (over every parameter except the bias ``b``)
-    and the SGD step.
+    consumes beyond label/weight) and ``forward(batch) -> margins``; the
+    objective of a block, ``_block_objective(batch) -> (loss_sum,
+    weight_sum)``, is the weighted logistic loss of those margins unless a
+    subclass overrides it. The base defines the normalised weighted loss
+    with optional l2 (over every parameter except the bias ``b``) and the
+    SGD step.
     """
 
     _BATCH_KEYS: tuple = ("offset", "index", "value")
@@ -58,7 +60,9 @@ class SparseModelBase(nn.Module):
 
     def _block_objective(self, batch: Dict[str, Any]
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-        raise NotImplementedError
+        per_row = stable_bce_on_logits(self(batch), batch["label"])
+        w = batch["weight"]
+        return (per_row * w).sum(), w.sum()
 
     def _l2_term(self) -> torch.Tensor:
         return sum((p ** 2).sum() for name, p in self.named_parameters()

@@ -13,7 +13,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from dmlc_tpu_torch.models.common import SparseModelBase, stable_bce_on_logits
+from dmlc_tpu_torch.models.common import SparseModelBase
 from dmlc_tpu_torch.ops.csr import segment_spmv
 
 __all__ = ["SparseLinearModel"]
@@ -41,8 +41,3 @@ class SparseLinearModel(SparseModelBase):
                                batch["value"], self.w,
                                num_rows=batch["label"].shape[0])
         return margins + self.b
-
-    def _block_objective(self, batch):
-        per_row = stable_bce_on_logits(self(batch), batch["label"])
-        w = batch["weight"]
-        return (per_row * w).sum(), w.sum()

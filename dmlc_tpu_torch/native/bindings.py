@@ -1,4 +1,4 @@
-"""ctypes bindings for the native engine + the libsvm Parser adapter.
+"""ctypes bindings for the native engine + the libsvm and libfm Parser adapters.
 
 The native parser implements the same Parser protocol as the Python
 golden (data/parser.py) with byte-identical output. File listing and URI
@@ -22,7 +22,8 @@ from dmlc_tpu_torch.io.input_split import list_split_files
 from dmlc_tpu_torch.io.uri_spec import URISpec
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
-__all__ = ["load", "BlockLease", "NativeTextParser", "NativeLibSVMParser"]
+__all__ = ["load", "BlockLease", "NativeTextParser", "NativeLibSVMParser",
+           "NativeLibFMParser"]
 
 _lib = None
 
@@ -405,3 +406,7 @@ class NativeTextParser(Parser):
 
 class NativeLibSVMParser(NativeTextParser):
     _format = "libsvm"
+
+
+class NativeLibFMParser(NativeTextParser):
+    _format = "libfm"

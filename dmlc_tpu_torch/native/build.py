@@ -33,7 +33,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
 BUILD_DIR = os.path.join(PKG, "build")
 ENGINE_SRC = os.path.join(HERE, "src", "engine.cc")
-KERNEL_SRCS = [os.path.join(PKG, "csrc", "csr_spmv.cu")]
+KERNEL_SRCS = [os.path.join(PKG, "csrc", name)
+               for name in ("csr_spmv.cu", "fm.cu")]
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 _ZLIB_FLAGS = None

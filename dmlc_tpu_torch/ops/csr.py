@@ -22,39 +22,13 @@ kernels read it as it is). Offsets stay int64 on the device.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
-from dmlc_tpu_torch.utils.logging import DMLCError, check
+from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch
+from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
            "csr_spmv_plain", "csr_spmv_t_plain"]
-
-_INDEX_BYTES = {torch.uint32: 4, torch.uint64: 8}  # the layout's dtypes
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _kernels():
-    """The CUDA kernel library, built from csrc/ at first use."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            from dmlc_tpu_torch.native.build import build_kernels
-            lib = ctypes.CDLL(build_kernels())
-            args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                    ctypes.c_void_p]
-            for fn in (lib.dmlc_csr_spmv, lib.dmlc_csr_spmv_t):
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
 
 def csr_row_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
     """Row id of every nonzero: row_ids[k] = i s.t. offset[i] <= k < offset[i+1].
@@ -66,12 +40,12 @@ def csr_row_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
     return torch.searchsorted(offset, k, right=True) - 1
 
 
-def _check_csr(offset, index, value, dense, dense_name):
+def _check_csr(offset, index, value, dense, dense_name, dense_dim=1):
     check(offset.dim() == 1 and offset.numel() >= 1
           and offset.dtype == torch.int64,
           f"offset must be 1-D int64 with >= 1 entry, got "
           f"{tuple(offset.shape)} {offset.dtype}")
-    check(index.dtype in _INDEX_BYTES,
+    check(index.dtype in INDEX_BYTES,
           f"index dtype must be uint32/uint64, got {index.dtype}")
     check(index.dim() == 1 and value.dim() == 1
           and index.numel() == value.numel(),
@@ -80,24 +54,19 @@ def _check_csr(offset, index, value, dense, dense_name):
     check(value.dtype == torch.float32 and dense.dtype == torch.float32,
           f"value and {dense_name} must be float32, got {value.dtype} and "
           f"{dense.dtype}")
-    check(dense.dim() == 1, f"{dense_name} must be 1-D")
+    check(dense.dim() == dense_dim, f"{dense_name} must be {dense_dim}-D")
     devices = {t.device for t in (offset, index, value, dense)}
     check(len(devices) == 1,
           f"CSR tensors and {dense_name} must share one device, got "
           f"{sorted(str(d) for d in devices)}")
 
 
-def _launch(fn, offset, index, value, dense, num_rows, num_features, out):
+def _launch(name, offset, index, value, dense, num_rows, num_features, out):
     for t in (offset, index, value, dense, out):
         check(t.is_contiguous(), "the CSR kernels need contiguous tensors")
-    with torch.cuda.device(dense.device):
-        stream = torch.cuda.current_stream(dense.device).cuda_stream
-        err = fn(offset.data_ptr(), index.data_ptr(),
-                 _INDEX_BYTES[index.dtype], value.data_ptr(),
-                 dense.data_ptr(), num_rows, index.numel(), num_features,
-                 out.data_ptr(), stream)
-    if err != 0:
-        raise DMLCError(f"{fn.__name__} launch failed: CUDA error {err}")
+    launch(name, dense.device, offset.data_ptr(), index.data_ptr(),
+           INDEX_BYTES[index.dtype], value.data_ptr(), dense.data_ptr(),
+           num_rows, index.numel(), num_features, out.data_ptr())
 
 
 def _segment_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -144,7 +113,7 @@ def csr_spmv(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
         return csr_spmv_plain(offset, index, value, w)
     check(w.is_cuda, f"csr_spmv runs on cuda or cpu, got {w.device}")
     y = torch.empty(n, dtype=torch.float32, device=w.device)
-    _launch(_kernels().dmlc_csr_spmv, offset, index, value, w, n,
+    _launch("dmlc_csr_spmv", offset, index, value, w, n,
             w.numel(), y)
     csr_spmv.launches += 1
     return y
@@ -161,7 +130,7 @@ def csr_spmv_t(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
         return csr_spmv_t_plain(offset, index, value, g, num_features)
     check(g.is_cuda, f"csr_spmv_t runs on cuda or cpu, got {g.device}")
     grad = torch.zeros(num_features, dtype=torch.float32, device=g.device)
-    _launch(_kernels().dmlc_csr_spmv_t, offset, index, value, g, n,
+    _launch("dmlc_csr_spmv_t", offset, index, value, g, n,
             num_features, grad)
     csr_spmv_t.launches += 1
     return grad

@@ -1,0 +1,73 @@
+"""The port's CUDA kernel library, shared by the ops modules.
+
+One shared library is built from every source under ``csrc/``
+(``native/build.py``, nvcc for ``sm_90a``, at first use) and loaded with
+ctypes. Each C entry point is declared here once, and :func:`launch`
+calls one on the current stream of a tensor's device and raises on the
+CUDA error it returns.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from dmlc_tpu_torch.utils.logging import DMLCError
+
+__all__ = ["INDEX_BYTES", "library", "launch"]
+
+INDEX_BYTES = {torch.uint32: 4, torch.uint64: 8}  # the layout's index dtypes
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# Every entry returns a cudaError_t; the trailing pointer is the stream.
+_SIGNATURES = {
+    # offset, index, index_bytes, value, dense, rows, nnz, features, out
+    "dmlc_csr_spmv": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
+    "dmlc_csr_spmv_t": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
+    # offset, index, index_bytes, value, V, rows, nnz, features, K, pair, s
+    "dmlc_fm_pair_fwd": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _I64, _P, _P,
+                         _P],
+    # offset, index, index_bytes, value, V, s, g, rows, nnz, features, K, gV
+    "dmlc_fm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                         _P, _P],
+    # offset, index, index_bytes, value, field, V, rows, nnz, features, nf,
+    # K, pair
+    "dmlc_ffm_pair_fwd": [_P, _P, _I, _P, _P, _P, _I64, _I64, _I64, _I64,
+                          _I64, _P, _P],
+    # offset, index, index_bytes, value, field, V, g, rows, nnz, features,
+    # nf, K, gV
+    "dmlc_ffm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                          _I64, _P, _P],
+    # out: int64 (no stream)
+    "dmlc_ffm_max_shared_bytes": [_P],
+}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def library():
+    """The CUDA kernel library, built from csrc/ at first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            from dmlc_tpu_torch.native.build import build_kernels
+            lib = ctypes.CDLL(build_kernels())
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the entry ``name`` with ``args`` and the current stream of
+    ``device``; raise a DMLCError on the CUDA error it returns."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise DMLCError(f"{name} launch failed: CUDA error {err}")

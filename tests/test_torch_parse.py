@@ -225,5 +225,7 @@ def test_cache_uri_raises(tmp_path):
 
 
 def test_only_libsvm_is_registered():
-    with pytest.raises(DMLCError, match="libsvm"):
+    """The text formats ported so far are libsvm and libfm (its parity
+    tests: tests/test_torch_libfm.py); csv is not ported."""
+    with pytest.raises(DMLCError, match=r"\['libfm', 'libsvm'\]"):
         Parser.create("x.csv", format="csv")
