@@ -31,10 +31,30 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    padded batches with ``field`` and pinned async H2D (the loss must
    fall, each of the model's kernels launch once a step); libfm padded
    batches byte-identical to ``pad_single``; 3 steps of each model with
-   the kernels allclose to 3 through the plain versions on the card.
+   the kernels allclose to 3 through the plain versions on the card;
+7. the ranking path: a seeded libsvm-with-qid file of about 128 MB shaped
+   like MSLR-WEB30K (136 features a row, graded labels 0-4, queries of
+   1-240 documents); K7 (``pair_sums``/``pair_sums_grad``) against its
+   plain versions on the path's first batch with edge cases (a padded
+   tail, an all-padded batch, a query of equal labels, a query split into
+   non-contiguous rows, all-zero margins, a NaN margin), K3
+   (``sdot_rows``) and K4 (``csr_to_dense``) on the same batch, each
+   timed beside its bound; one epoch of ``SparseRankingModel(137)``
+   through native padded batches with ``qid`` (4096 rows, the
+   reference's ``max_row_bucket``) and pinned async H2D: the loss must
+   fall, the pairwise accuracy on the first batch rise, and K1, K2, K7
+   forward and backward launch once a step; then the trained scores of
+   the first batch through K3 (padded rows) and K4 (dense) must equal
+   K1's; qid padded batches byte-identical to ``pad_single``; 3 steps
+   with the kernels allclose to 3 through the plain versions on the card.
+
+Every kernel check holds the index rule (ROADMAP C6): indices u32
+2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
+written into the batches, and each kernel must read them as its plain
+version does.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
-the line before it the kernels' JSON record (all six kernels). Imports
+the line before it the kernels' JSON record (all ten kernels). Imports
 nothing of JAX or of the ``dmlc_tpu`` package.
 """
 
@@ -65,6 +85,22 @@ NUMERIC_FIELDS = 13            # fields 0-12 carry a float, 13-38 carry 1
 LIBFM_MB = 128
 LIBFM_NNZ_BUCKET = ROW_BUCKET * 40  # at most one nonzero per field
 INIT_SCALE = 0.05              # V ~ N(0, 0.05^2) in the kernel checks
+# The ranking path at the shape of MSLR-WEB30K (Microsoft Learning to Rank
+# Datasets): 136 features in every row, written as indices 1-136, so the
+# model has 137 weights under the default indexing_mode 0; graded labels
+# 0-4; queries of 1-240 documents. Batches at the reference's
+# max_row_bucket.
+RANK_FEATURES = 136
+RANK_NUM_FEATURES = RANK_FEATURES + 1
+RANK_ROW_BUCKET = 4096
+RANK_NNZ_BUCKET = RANK_ROW_BUCKET * RANK_FEATURES  # 557,056
+RANK_MB = 128
+RANK_LEARNING_RATE = 3.0
+# The index rule's edge values (ROADMAP C6): u32 2^32-1 reads the last
+# entry, u32 2^31 is invalid, u64 2^32+3 reads entry 3 (a u32 copy of the
+# batch holds its low 32 bits, 3, which reads the same), and a field of
+# 2^31 wraps negative and reads field 0.
+WRAP_LAST, WRAP_BAD, WRAP_U64 = 2**32 - 1, 2**31, 2**32 + 3
 SEED = 0
 PROFILE_ATTEMPTS = 3
 # One rate for w and b. The bias sets the ceiling: its curvature is at
@@ -95,6 +131,11 @@ PAIR_RTOL, PAIR_ATOL = 1e-5, 1e-6
 # K5 and K6 backward add into gV with fp32 atomics whose order varies from
 # run to run, as K2 does.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+# K7 forward sums non-negative terms (softplus * pw, and pw), so its rtol
+# applies to the result itself; the backward's terms cancel, so as for K1
+# its rtol applies to each row's sum of |terms| (s * pw * sp' over both
+# directions). K7 sums in another order than its plain version.
+RANK_RTOL, RANK_ATOL = 1e-5, 1e-6
 # 3 SGD steps on the card against the plain path (the CPU for the linear
 # model; the plain versions on the card for FM and FFM): the kernels' sums
 # and the card's reductions of the loss run in other orders.
@@ -243,15 +284,52 @@ def write_libfm_corpus(path: str) -> int:
     return os.path.getsize(path)
 
 
-# Each format's padded batch: its nnz bucket and whether it carries field.
-LAYOUT = {"libsvm": (NNZ_BUCKET, False), "libfm": (LIBFM_NNZ_BUCKET, True)}
+def write_ranking_corpus(path: str) -> int:
+    """A libsvm-with-qid file shaped like MSLR-WEB30K, about RANK_MB: 4000
+    seeded template documents of 136 features each (indices 1-136, values
+    uniform in [0, 1) to 4 decimals), graded 0-4 by a seeded hidden linear
+    scorer plus noise at about the dataset's label shares (51%, 32%, 13%,
+    3%, 1%), written as contiguous queries of 1-240 documents (mean about
+    120), each under a fresh qid. Each template's feature text is made
+    once; the queries repeat the templates in turn."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 6)
+    templates = 4000
+    X = np.round(rng.rand(templates, RANK_FEATURES), 4)
+    w_true = np.random.RandomState(11).randn(RANK_FEATURES)
+    score = X @ w_true
+    score = (score - score.mean()) / score.std() + rng.randn(templates)
+    labels = np.digitize(score, np.quantile(score, [0.51, 0.83, 0.96, 0.99]))
+    feats = [" ".join(f"{j}:{v:.4f}" for j, v in
+                      zip(range(1, RANK_FEATURES + 1), row)) for row in X]
+    target = RANK_MB << 20
+    written, qid, t = 0, 1, 0
+    with open(path, "wb") as f:
+        while written < target:
+            lines = []
+            for _ in range(rng.randint(1, 241)):
+                lines.append(f"{labels[t]} qid:{qid} {feats[t]}\n")
+                t = (t + 1) % templates
+            chunk = "".join(lines).encode()
+            f.write(chunk)
+            written += len(chunk)
+            qid += 1
+    return os.path.getsize(path)
+
+
+# Each path's padded batch: the file's format, the row and nnz buckets,
+# and the columns it forces.
+LAYOUT = {"libsvm": ("libsvm", ROW_BUCKET, NNZ_BUCKET, {}),
+          "libfm": ("libfm", ROW_BUCKET, LIBFM_NNZ_BUCKET,
+                    {"want_field": True}),
+          "ranking": ("libsvm", RANK_ROW_BUCKET, RANK_NNZ_BUCKET,
+                      {"want_qid": True})}
 
 
 def padded_batches(parser, fmt="libsvm"):
-    nnz_bucket, want_field = LAYOUT[fmt]
+    _, rows, nnz_bucket, want = LAYOUT[fmt]
     while True:
-        batch = parser.next_padded(ROW_BUCKET, nnz_bucket=nnz_bucket,
-                                   want_field=want_field)
+        batch = parser.next_padded(rows, nnz_bucket=nnz_bucket, **want)
         if batch is None:
             return
         yield batch
@@ -260,7 +338,8 @@ def padded_batches(parser, fmt="libsvm"):
 def first_batch(path, fmt="libsvm"):
     """The native parser's first padded batch, copied out of its lease."""
     from dmlc_tpu_torch.data.parser import Parser
-    parser = Parser.create(path, 0, 1, format=fmt, engine="native")
+    parser = Parser.create(path, 0, 1, format=LAYOUT[fmt][0],
+                           engine="native")
     batch = next(padded_batches(parser, fmt)).copy()
     parser.destroy()
     return batch
@@ -346,10 +425,13 @@ def bound_ms(nbytes, ops):
 def edge_case_batch(first):
     """The main path's first padded batch with edge cases written in:
     rows 3 and 7 emptied, the last 100 rows made padding, an index at F-1
-    in row 10 and one out of range in row 20 (returned), and where the
-    batch has a field column, a field past the FFM's fields in row 30 and
-    one below 0 in row 40 (both clipped). Returns (offset, index, value,
-    field or None, the out-of-range row)."""
+    in row 10, one out of range in row 20, and the index rule's edges
+    (C6): 2^32-1 in row 50 (reads F-1), 2^31 in row 60 (invalid) and
+    2^32+3 in row 70 (reads 3); where the batch has a field column, a
+    field past the FFM's fields in row 30, one below 0 in row 40 and 2^31
+    in row 80 (all clipped). The index is returned as u64; its u32 copy
+    keeps the low 32 bits. Returns (offset, index, value, field or None,
+    the rows of invalid indices)."""
     import numpy as np
     off = first["offset"]
     require(int(first["num_rows"]) == ROW_BUCKET,
@@ -363,19 +445,23 @@ def edge_case_batch(first):
     nnz = int(lens.sum())
     new_off = np.zeros_like(off)
     new_off[1:] = np.cumsum(lens)
-    idx = np.zeros_like(first["index"])
+    idx = np.zeros(first["index"].shape, np.uint64)
     val = np.zeros_like(first["value"])
     idx[:nnz] = first["index"][:int(off[-1])][keep]
     val[:nnz] = first["value"][:int(off[-1])][keep]
     idx[new_off[10]] = NUM_FEATURES - 1
     idx[new_off[20] + 1] = NUM_FEATURES + 12345
+    idx[new_off[50] + 1] = WRAP_LAST
+    idx[new_off[60] + 2] = WRAP_BAD
+    idx[new_off[70]] = WRAP_U64
     fld = None
     if "field" in first:
         fld = np.zeros_like(first["field"])
         fld[:nnz] = first["field"][:int(off[-1])][keep]
         fld[new_off[30]] = FFM_FIELDS + 4
         fld[new_off[40] + 2] = -3
-    return new_off, idx, val, fld, 20
+        fld[new_off[80] + 1] = WRAP_BAD
+    return new_off, idx, val, fld, [20, 60]
 
 
 def check_kernels(first):
@@ -386,7 +472,7 @@ def check_kernels(first):
 
     cuda = torch.device("cuda")
     rng = np.random.RandomState(SEED + 1)
-    off, idx, val, _, bad_row = edge_case_batch(first)
+    off, idx, val, _, bad_rows = edge_case_batch(first)
     w = torch.from_numpy(rng.randn(NUM_FEATURES).astype(np.float32)).to(cuda)
     g = torch.from_numpy(rng.randn(ROW_BUCKET).astype(np.float32)).to(cuda)
     t_off = torch.from_numpy(off).to(cuda)
@@ -401,8 +487,8 @@ def check_kernels(first):
         torch.cuda.synchronize()
         name = np.dtype(dtype).name
         nan_rows = torch.isnan(y).nonzero().flatten().tolist()
-        require(nan_rows == [bad_row],
-                f"K1 {name}: NaN rows {nan_rows}, want [{bad_row}]")
+        require(nan_rows == bad_rows,
+                f"K1 {name}: NaN rows {nan_rows}, want {bad_rows}")
         require(torch.isnan(y_plain).nonzero().flatten().tolist() == nan_rows,
                 f"K1 {name}: plain version's NaN rows differ")
         require(bool((y[[3, 7]] == 0).all()) and
@@ -426,7 +512,8 @@ def check_kernels(first):
             k1_err = err.abs().max().item()
             k1_rel = (err.abs() / scale).nan_to_num().max().item()
             k2_err = (gw - gw_plain).abs().max().item()
-    log(f"kernels agree with their plain versions (u32 and u64 index): "
+    log(f"kernels agree with their plain versions (u32 and u64 index; "
+        f"indices 2^32-1, 2^31 and 2^32+3 among the edge cases): "
         f"K1 max |err| {k1_err:.3g}, max |err| / sum|terms| {k1_rel:.3g} "
         f"(rtol {K1_RTOL} of sum|terms|, atol {K1_ATOL}), "
         f"K2 max |err| {k2_err:.3g} (rtol {K2_RTOL}, atol {K2_ATOL})")
@@ -504,14 +591,15 @@ def _row_sums(offset, per_nnz):
     return out.index_add_(0, rows, per_nnz)[:n]
 
 
-def _check_pair(name, pair, plain, scale, bad_row, finite_rows):
-    """A forward's pair against its plain version: NaN in the out-of-range
-    row only, 0 in empty and padded rows, |err| <= atol + rtol * scale
-    (each row's sum|terms|). Returns (max |err|, max |err| / scale)."""
+def _check_pair(name, pair, plain, scale, bad_rows, finite_rows):
+    """A forward's pair against its plain version: NaN in the rows of
+    invalid indices only, 0 in empty and padded rows, |err| <= atol + rtol
+    * scale (each row's sum|terms|). Returns (max |err|, max |err| /
+    scale)."""
     import torch
     nan_rows = torch.isnan(pair).nonzero().flatten().tolist()
-    require(nan_rows == [bad_row],
-            f"{name}: NaN rows {nan_rows}, want [{bad_row}]")
+    require(nan_rows == bad_rows,
+            f"{name}: NaN rows {nan_rows}, want {bad_rows}")
     require(torch.isnan(plain).nonzero().flatten().tolist() == nan_rows,
             f"{name}: the plain version's NaN rows differ")
     require(bool((pair[[3, 7]] == 0).all())
@@ -556,10 +644,11 @@ def check_factor_kernels(first):
     import numpy as np
     import torch
     from dmlc_tpu_torch.ops import fm
+    from dmlc_tpu_torch.ops.index import clip_field, wrap_index
 
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED + 3)
-    off, idx, val, fld, bad_row = edge_case_batch(first)
+    off, idx, val, fld, bad_rows = edge_case_batch(first)
     t_off, t_val, t_fld = (torch.from_numpy(a).to(cuda)
                            for a in (off, val, fld))
     g = torch.randn(ROW_BUCKET, generator=gen, device=cuda)
@@ -568,17 +657,22 @@ def check_factor_kernels(first):
     V6 = INIT_SCALE * torch.randn(NUM_FEATURES, FFM_FIELDS, FFM_FACTORS,
                                   generator=gen, device=cuda)
     # where the reference's gradient is NaN: at the features of the
-    # out-of-range row's other nonzeros (FM), and there for the bad
-    # nonzero's own field only (FFM)
-    lo, hi = int(off[bad_row]), int(off[bad_row + 1])
-    bad_k = lo + 1
-    others = [int(idx[k]) for k in range(lo, hi) if k != bad_k]
+    # invalid rows' other nonzeros (FM), and there for the bad nonzero's
+    # own field only (FFM)
     nan5 = torch.zeros(NUM_FEATURES, dtype=torch.bool, device=cuda)
-    nan5[others] = True
     nan6 = torch.zeros(NUM_FEATURES, FFM_FIELDS, dtype=torch.bool,
                        device=cuda)
-    nan6[others, min(max(int(fld[bad_k]), 0), FFM_FIELDS - 1)] = True
-    clipped_rows = [30, 40]
+    for row in bad_rows:
+        lo, hi = int(off[row]), int(off[row + 1])
+        entries, valid = wrap_index(torch.from_numpy(idx[lo:hi]),
+                                    NUM_FEATURES)
+        require(int((~valid).sum()) == 1, f"row {row}: not one invalid index")
+        bad_k = lo + int((~valid).nonzero()[0, 0])
+        others = entries[valid].to(cuda)
+        nan5[others] = True
+        nan6[others, int(clip_field(torch.tensor(int(fld[bad_k])),
+                                    FFM_FIELDS))] = True
+    clipped_rows = [30, 40, 50, 70, 80]
     errs = {}
     for dtype in (np.uint32, np.uint64):
         t_idx = torch.from_numpy(idx.astype(dtype)).to(cuda)
@@ -591,7 +685,8 @@ def check_factor_kernels(first):
         pair_a, s_a = fm.fm_pair_fwd_plain(*abs_args, V5.abs())
         torch.cuda.synchronize()
         e5 = _check_pair(f"fm_pair_fwd {name}", pair, pair_p,
-                         (s_a * s_a).sum(-1) - pair_a, bad_row, clipped_rows)
+                         (s_a * s_a).sum(-1) - pair_a, bad_rows,
+                         clipped_rows)
         s_err = (s - s_p).nan_to_num().abs()
         require(bool((s_err <= PAIR_ATOL
                       + PAIR_RTOL * s_a.nan_to_num()).all())
@@ -607,12 +702,12 @@ def check_factor_kernels(first):
         pair = fm.ffm_pair_fwd(*args, t_fld, V6)
         pair_p = fm.ffm_pair_fwd_plain(*args, t_fld, V6)
         pair_a = fm.ffm_pair_fwd_plain(*abs_args, t_fld, V6.abs())
-        v_own = V6.abs()[t_idx.to(torch.int64).clamp(max=NUM_FEATURES - 1),
-                         t_fld.clamp(0, FFM_FIELDS - 1)]
+        v_own = V6.abs()[wrap_index(t_idx, NUM_FEATURES)[0],
+                         clip_field(t_fld, FFM_FIELDS)]
         diag_a = _row_sums(t_off, (t_val[:, None] * v_own).pow(2).sum(-1))
         torch.cuda.synchronize()
         e6 = _check_pair(f"ffm_pair_fwd {name}", pair, pair_p,
-                         pair_a + diag_a, bad_row, clipped_rows)
+                         pair_a + diag_a, bad_rows, clipped_rows)
         gv = fm.ffm_pair_bwd(*args, t_fld, V6, g)
         gv_p = fm.ffm_pair_bwd_plain(*args, t_fld, V6, g)
         torch.cuda.synchronize()
@@ -624,7 +719,8 @@ def check_factor_kernels(first):
     torch.cuda.empty_cache()
     log("factor kernels agree with their plain versions (u32 and u64 "
         "index; empty rows, padded tail, index at F-1, an out-of-range "
-        "index, fields past the fields and below 0): "
+        "index, indices 2^32-1, 2^31 and 2^32+3, fields past the fields, "
+        "below 0 and at 2^31): "
         + ", ".join(f"{k} max |err| {v[0]:.3g} (/ sum|terms| {v[1]:.3g})"
                     if isinstance(v, tuple) else f"{k} max |err| {v:.3g}"
                     for k, v in errs.items())
@@ -783,13 +879,14 @@ def check_factor_shapes():
 def report_kernels(rows, launches, steps):
     for r in rows:
         r["launches"] = launches[r["name"]]
-        lib = ("none" if r["library_ms"] is None
+        lib = ("none: no single PyTorch call computes it"
+               if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.2f} us")
         log(f"{r['name']}: kernel {r['ms'] * 1e3:.2f} us on the device "
             f"({r['call_ms'] * 1e3:.1f} us a call back to back, launch "
             f"included), plain {r['plain_ms'] * 1e3:.2f} us, library {lib}, "
             f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
-            f"{r['launches'] / steps:g} launches per step")
+            f"{r['launches']} launches in the path's {steps} steps")
 
 
 # --------------------------------------------------------------- phase 4
@@ -801,9 +898,10 @@ def train_epoch(path, model, device, train: bool, fmt="libsvm"):
     from dmlc_tpu_torch.data.parser import Parser
     from dmlc_tpu_torch.native import bindings
     from dmlc_tpu_torch.parallel.device_iter import device_prefetch
-    parser = Parser.create(path, 0, 1, format=fmt, engine="native")
+    parser = Parser.create(path, 0, 1, format=LAYOUT[fmt][0],
+                           engine="native")
     native_cls = {"libsvm": bindings.NativeLibSVMParser,
-                  "libfm": bindings.NativeLibFMParser}[fmt]
+                  "libfm": bindings.NativeLibFMParser}[LAYOUT[fmt][0]]
     require(isinstance(parser, native_cls),
             f"engine='native' gave {type(parser).__name__}")
     losses, batches, moved = [], 0, 0
@@ -964,18 +1062,23 @@ def parity(path, lr):
 
 # --------------------------------------------------------------- phase 6
 
-# The kernels each factor model's step launches once.
+# The kernels each model's step launches once.
 PATH_KERNELS = {"fm": ("csr_spmv", "csr_spmv_t", "fm_pair_fwd",
                        "fm_pair_bwd"),
                 "ffm": ("csr_spmv", "csr_spmv_t", "ffm_pair_fwd",
-                        "ffm_pair_bwd")}
+                        "ffm_pair_bwd"),
+                "ranking": ("csr_spmv", "csr_spmv_t", "pair_sums",
+                            "pair_sums_grad")}
 
 
 def _wrappers():
-    from dmlc_tpu_torch.ops import csr, fm
+    from dmlc_tpu_torch.ops import csr, fm, ranking
     return {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
+            "sdot_rows": csr.sdot_rows, "csr_to_dense": csr.csr_to_dense,
             "fm_pair_fwd": fm.fm_pair_fwd, "fm_pair_bwd": fm.fm_pair_bwd,
-            "ffm_pair_fwd": fm.ffm_pair_fwd, "ffm_pair_bwd": fm.ffm_pair_bwd}
+            "ffm_pair_fwd": fm.ffm_pair_fwd, "ffm_pair_bwd": fm.ffm_pair_bwd,
+            "pair_sums": ranking.pair_sums,
+            "pair_sums_grad": ranking.pair_sums_grad}
 
 
 def make_factor_model(kind, lr, cls=None):
@@ -994,12 +1097,11 @@ def make_factor_model(kind, lr, cls=None):
                                    device=cuda, generator=gen)
 
 
-def plain_factor_model(kind, lr):
-    """The same model whose margins run the plain versions of K1/K2 and of
-    K5 or K6, forward and backward, on the card's tensors."""
+def _plain_linear():
+    """An autograd Function: CSR · w through the plain versions of K1
+    (forward) and K2 (backward)."""
     import torch
-    from dmlc_tpu_torch.models import SparseFFMModel, SparseFMModel
-    from dmlc_tpu_torch.ops import csr, fm
+    from dmlc_tpu_torch.ops import csr
 
     class Linear(torch.autograd.Function):
         @staticmethod
@@ -1013,6 +1115,18 @@ def plain_factor_model(kind, lr):
             off, idx, val = ctx.saved_tensors
             return None, None, None, csr.csr_spmv_t_plain(
                 off, idx, val, g.contiguous(), ctx.features)
+
+    return Linear
+
+
+def plain_factor_model(kind, lr):
+    """The same model whose margins run the plain versions of K1/K2 and of
+    K5 or K6, forward and backward, on the card's tensors."""
+    import torch
+    from dmlc_tpu_torch.models import SparseFFMModel, SparseFMModel
+    from dmlc_tpu_torch.ops import fm
+
+    Linear = _plain_linear()
 
     class Pair(torch.autograd.Function):
         @staticmethod
@@ -1185,6 +1299,471 @@ def libfm_parity(path, lr):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 7
+
+def _rank_tensors(batch, device):
+    """A padded batch's columns as tensors on ``device``."""
+    import numpy as np
+    import torch
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def _query_rows(qid):
+    """The rows of each query of a batch, in order, padding left out."""
+    import numpy as np
+    order = [q for q in dict.fromkeys(qid.tolist()) if q >= 0]
+    return [np.flatnonzero(qid == q) for q in order]
+
+
+def _grad_scale(margins, label, qid, weight, s):
+    """Per row, the sum of |terms| of K7's gradient: |s|·pw·σ over the
+    row's pairs in both directions."""
+    import torch
+    from dmlc_tpu_torch.ops import ranking
+    pw = ranking.pair_weights_plain(label, qid, weight)
+    ct = s.abs() * pw * torch.sigmoid(margins[None, :] - margins[:, None])
+    return (ct.sum(0) + ct.sum(1)).nan_to_num()
+
+
+def check_ranking_kernels(first):
+    """K7 forward and backward against their plain versions on the ranking
+    path's first batch, the margins from a seeded w through K1's plain
+    version, with edge cases written in; K3 on the batch's padded rows and
+    K4 to its dense matrix, against their plain versions and K1, with the
+    index rule's edges; then each timed at the batch as it came."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dmlc_tpu_torch.ops import csr, ranking
+    cuda = torch.device("cuda")
+    n = RANK_ROW_BUCKET
+    require(int(first["num_rows"]) == n,
+            f"first ranking batch has {int(first['num_rows'])} rows, want {n}")
+    b = _rank_tensors(first, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 7)
+    w = 0.1 * torch.randn(RANK_NUM_FEATURES, generator=gen, device=cuda)
+    margins = csr.csr_spmv_plain(b["offset"], b["index"], b["value"], w) + 0.3
+    s = torch.tensor(0.37, device=cuda)
+
+    # K7: the batch with edge cases, and three batches of one edge each
+    queries = _query_rows(first["qid"])
+    many = [q for q in queries if len(q) >= 2]
+    require(len(many) >= 4, "the first ranking batch has < 4 queries of 2+")
+    label, qid, weight = (b[k].clone() for k in ("label", "qid", "weight"))
+    label[torch.from_numpy(many[0]).to(cuda)] = 2.0  # a query of ties
+    # query 1's id on query 3's rows too: one qid, rows not contiguous
+    qid[torch.from_numpy(many[3]).to(cuda)] = int(first["qid"][many[1][0]])
+    tail = slice(n - 100, n)  # a padded tail of 100 rows
+    qid[tail], weight[tail], label[tail] = -1, 0.0, 0.0
+    nan_margins = margins.clone()
+    nan_margins[57] = float("nan")
+    cases = {
+        "edges": (margins, label, qid, weight),
+        "all_padded": (margins, torch.zeros_like(label),
+                       torch.full_like(qid, -1), torch.zeros_like(weight)),
+        "zero_margins": (torch.zeros_like(margins), b["label"], b["qid"],
+                         b["weight"]),
+        "nan_margin": (nan_margins, b["label"], b["qid"], b["weight"]),
+    }
+    fwd_err = bwd_err = 0.0
+    for name, args in cases.items():
+        lsum, wsum = ranking.pair_sums(*args)
+        lsum_p, wsum_p = ranking.pair_sums_plain(*args)
+        g = ranking.pair_sums_grad(*args, s)
+        g_p = ranking.pair_sums_grad_plain(*args, s)
+        torch.cuda.synchronize()
+        for what, a, p in (("lsum", lsum, lsum_p), ("wsum", wsum, wsum_p)):
+            a, p = float(a), float(p)
+            require((a != a) == (p != p),
+                    f"K7 {name}: {what} {a}, plain {p} (NaN on one side)")
+            if p == p:
+                require(abs(a - p) <= RANK_ATOL + RANK_RTOL * abs(p),
+                        f"K7 {name}: {what} {a}, plain {p}")
+                fwd_err = max(fwd_err, abs(a - p))
+        require(torch.equal(torch.isnan(g), torch.isnan(g_p)),
+                f"K7 {name}: the gradient's NaN entries differ from the "
+                "plain version's")
+        err = (g - g_p).nan_to_num().abs()
+        scale = _grad_scale(*args, s)
+        require(bool((err <= RANK_ATOL + RANK_RTOL * scale).all()),
+                f"K7 {name}: the gradient disagrees with its plain version: "
+                f"max |err| {err.max().item()}")
+        bwd_err = max(bwd_err, err.max().item())
+        if name == "all_padded":
+            require(float(lsum) == 0.0 and float(wsum) == 0.0
+                    and not bool(g.any()),
+                    f"K7 all padded: lsum {float(lsum)}, wsum {float(wsum)}")
+        if name == "nan_margin":
+            require(float(lsum) != float(lsum)
+                    and bool(torch.isnan(g).all()),
+                    "K7 with a NaN margin: lsum or a gradient is not NaN")
+        if name == "edges":
+            require(bool(torch.isfinite(g).all()) and float(wsum) > 0,
+                    "K7 edges: a non-finite gradient or no pairs")
+            require(bool((g[tail] == 0).all()) and bool(
+                (g[torch.from_numpy(many[0]).to(cuda)] == 0).all()),
+                "K7 edges: padded rows or a query of ties got a gradient")
+    log(f"K7 agrees with its plain versions on the ranking batch (a padded "
+        f"tail, a query of ties, a split query; all padded; zero margins; "
+        f"a NaN margin): lsum/wsum max |err| {fwd_err:.3g} (rtol "
+        f"{RANK_RTOL}, atol {RANK_ATOL}), gradient max |err| {bwd_err:.3g} "
+        f"(rtol {RANK_RTOL} of each row's sum|terms|, atol {RANK_ATOL})")
+
+    # K3 on the padded rows and K4 to the dense matrix, with the index
+    # rule's edges: 2^32-1 in row 5 (reads w[136]), 2^31 in row 6
+    # (invalid) and 2^32+3 in row 7 (reads w[3])
+    nnz = int(first["num_nnz"])
+    pi, pv, _ = csr.csr_to_padded_rows(first["offset"], first["index"],
+                                       first["value"])
+    require(pi.shape == (n, RANK_FEATURES), f"padded rows {pi.shape}")
+    t_pi, t_pv = (torch.from_numpy(a).to(cuda) for a in (pi, pv))
+    y1 = csr.csr_spmv(b["offset"], b["index"], b["value"], w)
+    y3 = csr.sdot_rows(t_pi, t_pv, w)
+    y3_p = csr.sdot_rows_plain(t_pi, t_pv, w)
+    scale3 = csr.sdot_rows_plain(t_pi, t_pv.abs(), w.abs())
+    d4 = csr.csr_to_dense(b["offset"], b["index"], b["value"], n,
+                          RANK_NUM_FEATURES)
+    d4_p = csr.csr_to_dense_plain(b["offset"], b["index"], b["value"],
+                                  RANK_NUM_FEATURES)
+    torch.cuda.synchronize()
+    k3_err = (y3 - y3_p).abs()
+    require(bool((k3_err <= K1_ATOL + K1_RTOL * scale3).all()),
+            f"K3 disagrees with its plain version: max |err| "
+            f"{k3_err.max().item()}")
+    require(bool(((y3 - y1).abs() <= K1_ATOL + K1_RTOL * scale3).all()),
+            "K3 on the padded rows disagrees with K1 on the CSR batch")
+    # each entry of the dense matrix is one value added to 0: exact
+    require(torch.equal(d4, d4_p), "K4 disagrees with its plain version")
+    require(bool(((d4 @ w - y1).abs() <= K1_ATOL + K1_RTOL * scale3).all()),
+            "K4's dense matrix times w disagrees with K1")
+    ell = pi.astype(np.uint64)
+    ell[5, 0], ell[6, 1], ell[7, 2] = WRAP_LAST, WRAP_BAD, WRAP_U64
+    flat = np.asarray(first["index"]).astype(np.uint64)
+    off = first["offset"]
+    flat[off[5]], flat[off[6] + 1], flat[off[7] + 2] = (WRAP_LAST, WRAP_BAD,
+                                                         WRAP_U64)
+    for dtype in (np.int32, np.uint32, np.uint64):
+        e_pi = torch.from_numpy(ell.astype(np.uint32).view(np.int32)
+                                if dtype is np.int32
+                                else ell.astype(dtype)).to(cuda)
+        y = csr.sdot_rows(e_pi, t_pv, w)
+        y_p = csr.sdot_rows_plain(e_pi, t_pv, w)
+        torch.cuda.synchronize()
+        name = np.dtype(dtype).name
+        nan_rows = torch.isnan(y).nonzero().flatten().tolist()
+        require(nan_rows == [6] and torch.equal(torch.isnan(y_p),
+                                                torch.isnan(y)),
+                f"K3 {name} with the index rule's edges: NaN rows {nan_rows}")
+        require(bool(((y - y_p).nan_to_num().abs()
+                      <= K1_ATOL + K1_RTOL * scale3).all()),
+                f"K3 {name} with the index rule's edges disagrees with its "
+                "plain version")
+        if dtype is np.int32:
+            continue
+        e_idx = torch.from_numpy(flat.astype(dtype)).to(cuda)
+        d = csr.csr_to_dense(b["offset"], e_idx, b["value"], n,
+                             RANK_NUM_FEATURES)
+        d_p = csr.csr_to_dense_plain(b["offset"], e_idx, b["value"],
+                                     RANK_NUM_FEATURES)
+        torch.cuda.synchronize()
+        require(torch.equal(d, d_p),
+                f"K4 {name} with the index rule's edges disagrees with its "
+                "plain version")
+    k4_err = (d4 - d4_p).abs().max().item()
+    log(f"K3 and K4 agree with their plain versions on the ranking batch "
+        f"(K3 [{n}, {RANK_FEATURES}] int32, u32 and u64, K3 also with K1; "
+        f"K4 to [{n}, {RANK_NUM_FEATURES}], exact; indices 2^32-1, 2^31 and "
+        f"2^32+3): K3 max |err| {k3_err.max().item():.3g} (rtol {K1_RTOL} "
+        f"of sum|terms|, atol {K1_ATOL}), K4 max |err| {k4_err:.3g}")
+
+    # Timing, at the batch as it came from the parser.
+    args = (margins, b["label"], b["qid"], b["weight"])
+    pw = ranking.pair_weights_plain(*args[1:])
+    weighted = int((pw != 0).sum())
+    del pw
+    distinct = int(np.unique(first["index"][:nnz]).size)
+    k = pi.shape[1]
+    rows_of = csr.csr_row_ids(b["offset"], nnz)
+    cols_of = b["index"][:nnz].to(torch.int64)
+    vals = b["value"][:nnz]
+    emb = F.embedding_bag(t_pi, w[:, None], per_sample_weights=t_pv,
+                          mode="sum")[:, 0]
+    dense_lib = torch.zeros(n, RANK_NUM_FEATURES, device=cuda).index_put_(
+        (rows_of, cols_of), vals, accumulate=True)
+    torch.cuda.synchronize()
+    require(bool(((emb - y3).abs() <= K1_ATOL + K1_RTOL * scale3).all())
+            and torch.equal(dense_lib, d4),
+            "the library yardsticks of K3/K4 disagree with the kernels")
+    doc_bytes = n * (4 + 4 + 4 + 8)  # margin, label, weight, qid
+    work = {
+        # per weighted pair: the difference, softplus (|x|, exp, log1p,
+        # max, add), w_i·w_j and the pair mask, the product, two sums
+        "pair_sums": (lambda: ranking.pair_sums(*args),
+                      lambda: ranking.pair_sums_plain(*args),
+                      doc_bytes + 8, 11 * weighted,
+                      "dmlc_tpu/models/ranking.py:64",
+                      "dmlc_tpu_torch/csrc/ranking.cu", None, fwd_err),
+        # per weighted pair: the difference, softplus (5), its derivative
+        # exp(x - sp) (2), s·w_i·w_j·mask (3), the product, two sums
+        "pair_sums_grad": (lambda: ranking.pair_sums_grad(*args, s),
+                           lambda: ranking.pair_sums_grad_plain(*args, s),
+                           doc_bytes + 4 + n * 4, 14 * weighted,
+                           "dmlc_tpu/models/ranking.py:64",
+                           "dmlc_tpu_torch/csrc/ranking.cu", None, bwd_err),
+        "sdot_rows": (lambda: csr.sdot_rows(t_pi, t_pv, w),
+                      lambda: csr.sdot_rows_plain(t_pi, t_pv, w),
+                      n * k * (4 + 4) + distinct * 4 + n * 4, 2 * n * k,
+                      "dmlc_tpu/ops/csr.py:107",
+                      "dmlc_tpu_torch/csrc/csr_ops.cu",
+                      lambda: F.embedding_bag(t_pi, w[:, None],
+                                              per_sample_weights=t_pv,
+                                              mode="sum"),
+                      k3_err.max().item()),
+        "csr_to_dense": (lambda: csr.csr_to_dense(
+                             b["offset"], b["index"], b["value"], n,
+                             RANK_NUM_FEATURES),
+                         lambda: csr.csr_to_dense_plain(
+                             b["offset"], b["index"], b["value"],
+                             RANK_NUM_FEATURES),
+                         (n + 1) * 8 + nnz * (4 + 4)
+                         + n * RANK_NUM_FEATURES * 4, nnz,
+                         "dmlc_tpu/ops/csr.py:68",
+                         "dmlc_tpu_torch/csrc/csr_ops.cu",
+                         lambda: torch.zeros(
+                             n, RANK_NUM_FEATURES, device=cuda).index_put_(
+                             (rows_of, cols_of), vals, accumulate=True),
+                         k4_err),
+    }
+    log(f"ranking kernels timed at the path's first batch: {n} rows, {nnz} "
+        f"nonzeros, {distinct} distinct features, {weighted} weighted pairs "
+        f"of {n * n}")
+    # K2 on this batch: a model of 137 weights takes all of its atomics
+    g = torch.randn(n, generator=gen, device=cuda)
+    k2_bound, k2_by = bound_ms((n + 1) * 8 + nnz * (4 + 4) + n * 4
+                               + RANK_NUM_FEATURES * 4, 2 * nnz)
+    k2_ms = device_ms(lambda: csr.csr_spmv_t(b["offset"], b["index"],
+                                             b["value"], g,
+                                             RANK_NUM_FEATURES))
+    log(f"csr_spmv_t at the ranking batch ({RANK_NUM_FEATURES} weights): "
+        f"{k2_ms * 1e3:.2f} us on the device, bound {k2_bound * 1e3:.2f} us "
+        f"({k2_by})")
+    rows = []
+    for name, (kernel, plain, nbytes, ops, replaces, source, lib,
+               err) in work.items():
+        bound, by = bound_ms(nbytes, ops)
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err,
+            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": device_ms(lib) if lib else None,
+            "call_ms": call_ms(kernel)})
+    return rows
+
+
+def plain_ranking_model(lr):
+    """SparseRankingModel whose scores and pair sums run the plain
+    versions of K1/K2 and of K7, forward and backward, on the card."""
+    import torch
+    from dmlc_tpu_torch.models import SparseRankingModel
+    from dmlc_tpu_torch.ops import ranking
+
+    Linear = _plain_linear()
+
+    class Pairs(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, m, label, qid, weight):
+            ctx.save_for_backward(m, label, qid, weight)
+            lsum, wsum = ranking.pair_sums_plain(m, label, qid, weight)
+            ctx.mark_non_differentiable(wsum)
+            return lsum, wsum
+
+        @staticmethod
+        def backward(ctx, g, _):
+            return (ranking.pair_sums_grad_plain(*ctx.saved_tensors, g),
+                    None, None, None)
+
+    class Plain(SparseRankingModel):
+        def forward(self, batch):
+            return Linear.apply(batch["offset"], batch["index"],
+                                batch["value"], self.w) + self.b
+
+        def _block_objective(self, batch):
+            return Pairs.apply(self(batch), batch["label"], batch["qid"],
+                               batch["weight"])
+
+    return Plain(RANK_NUM_FEATURES, learning_rate=lr,
+                 device=torch.device("cuda"))
+
+
+def ranking_path(path, size, lr):
+    """One epoch of SparseRankingModel(137) over the MSLR-shaped corpus
+    through the native parser, padded batches with qid (4096 rows) and
+    pinned async H2D: the loss must fall and K1, K2, K7 forward and K7
+    backward launch once a step. Then, in the same run, the evaluation of
+    the first batch: the pairwise accuracy must rise above that after the
+    first step, and the trained scores through K3 (padded rows) and K4
+    (dense) must equal K1's. Then the epoch without the step, and a
+    profiled training epoch."""
+    import statistics
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.models import SparseRankingModel
+    from dmlc_tpu_torch.ops import csr
+    from dmlc_tpu_torch.parallel.device_iter import device_prefetch
+    cuda = torch.device("cuda")
+    first = first_batch(path, "ranking")
+    first_t = _rank_tensors(first, cuda)
+    warm = Parser.create(path, 0, 1, format="libsvm", engine="native")
+    model = SparseRankingModel(RANK_NUM_FEATURES, learning_rate=lr,
+                               device=cuda)
+    for batch in device_prefetch(padded_batches(warm, "ranking"),
+                                 device=cuda, staging=True):
+        model.validate_batch(batch)
+        model.train_step(batch)
+        break
+    torch.cuda.synchronize()
+    warm.destroy()
+    acc_first_step = model.pairwise_accuracy(first_t)  # one step on it
+
+    model = SparseRankingModel(RANK_NUM_FEATURES, learning_rate=lr,
+                               device=cuda)
+    acc_init = model.pairwise_accuracy(first_t)
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    secs, losses, steps, moved = train_epoch(path, model, cuda, train=True,
+                                             fmt="ranking")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = {k: steps if k in PATH_KERNELS["ranking"] else 0
+            for k in launches}
+    require(steps >= 10, f"ranking: the epoch gave {steps} steps, want >= 10")
+    require(launches == want,
+            f"ranking: launch counts {launches} != {want}: the path did not "
+            "go through its kernels once per step")
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            f"ranking: non-finite loss in {losses}")
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    require(last5 < first5, f"ranking: the loss did not fall: mean of the "
+            f"first 5 steps {first5}, of the last 5 {last5}")
+    # the evaluation of the first batch, in the same run
+    acc = model.pairwise_accuracy(first_t)
+    require(acc > acc_first_step and acc > 0.5,
+            f"ranking: pairwise accuracy on the first batch {acc}, after the "
+            f"first step {acc_first_step}, at the zero init {acc_init}")
+    with torch.no_grad():
+        y1 = model(first_t)
+        pi, pv, _ = csr.csr_to_padded_rows(first["offset"], first["index"],
+                                           first["value"])
+        t_pi, t_pv = (torch.from_numpy(a).to(cuda) for a in (pi, pv))
+        y3 = csr.sdot_rows(t_pi, t_pv, model.w) + model.b
+        dense = csr.csr_to_dense(first_t["offset"], first_t["index"],
+                                 first_t["value"], RANK_ROW_BUCKET,
+                                 RANK_NUM_FEATURES)
+        y4 = dense @ model.w + model.b
+        scale = csr.sdot_rows_plain(t_pi, t_pv.abs(),
+                                    model.w.abs()) + model.b.abs()
+    torch.cuda.synchronize()
+    for name, y in (("K3 (padded rows)", y3), ("K4 (dense)", y4)):
+        require(bool(((y - y1).abs() <= K1_ATOL + K1_RTOL * scale).all()),
+                f"ranking: the trained scores through {name} disagree with "
+                f"K1's: max |err| {(y - y1).abs().max().item()}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    require(launches["sdot_rows"] == 1 and launches["csr_to_dense"] == 1,
+            f"ranking: the evaluation did not launch K3 and K4: {launches}")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            "ranking: non-finite parameters")
+    log(f"ranking path: SparseRankingModel ({RANK_NUM_FEATURES} features), "
+        f"{steps} steps at learning rate {lr}, loss mean of the first 5 steps "
+        f"{first5:.4f} -> of the last 5 {last5:.4f}; pairwise accuracy on the "
+        f"first batch {acc_init:.4f} at the zero init (every score ties), "
+        f"{acc_first_step:.4f} after the first step, {acc:.4f} after the "
+        f"epoch; the trained scores through K3 and K4 equal K1's; launches "
+        f"{launches}")
+    log(f"  losses: {[round(x, 4) for x in losses]}")
+    parse_secs, _, batches2, _ = train_epoch(path, None, cuda, train=False,
+                                             fmt="ranking")
+    require(batches2 == steps, f"ranking: second epoch gave {batches2} "
+            f"batches, first {steps}")
+    stats = {
+        "text_bytes": size, "steps": steps, "epoch_s": secs,
+        "parse_to_device_gbps_training": size / secs / 1e9,
+        "parse_to_device_gbps": size / parse_secs / 1e9,
+        "steps_per_s": steps / secs, "h2d_bytes_per_batch": moved // steps,
+        "loss_first5": first5, "loss_last5": last5,
+        "pairwise_accuracy": [acc_init, acc_first_step, acc],
+        "queries_in_first_batch": len(_query_rows(np.asarray(first["qid"]))),
+    }
+    log(f"ranking parse-to-device with training: "
+        f"{stats['parse_to_device_gbps_training']:.3f} GB/s ({size} text "
+        f"bytes in {secs:.3f} s), {stats['steps_per_s']:.2f} steps/s; "
+        f"without training: {stats['parse_to_device_gbps']:.3f} GB/s "
+        f"({parse_secs:.3f} s); {stats['h2d_bytes_per_batch']} H2D bytes "
+        "per batch")
+    stats["device"] = device_time(path, model, secs, fmt="ranking")
+    del model
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def ranking_parity(path, lr):
+    """Native qid padded batches byte-identical to pad_single(want_qid)
+    over the Python parser; 3 SGD steps of SparseRankingModel on the card
+    allclose to 3 through the plain versions."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.data.padding import pad_single
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.data.rowblock import RowBlockContainer
+    from dmlc_tpu_torch.models import SparseRankingModel
+    native = Parser.create(path, 0, 1, format="libsvm", engine="native")
+    firsts = []
+    for batch in padded_batches(native, "ranking"):
+        firsts.append(batch.copy())
+        if len(firsts) == 3:
+            break
+    native.destroy()
+    golden = Parser.create(path, 0, 1, format="libsvm", engine="python",
+                           prefetch=False)
+    cont = RowBlockContainer(np.uint32)
+    for block in golden:
+        cont.push_block(block)
+        if cont.size >= 3 * RANK_ROW_BUCKET:
+            break
+    rows = cont.get_block()
+    for i, nat in enumerate(firsts):
+        gold = pad_single(rows.slice(i * RANK_ROW_BUCKET,
+                                     (i + 1) * RANK_ROW_BUCKET),
+                          RANK_ROW_BUCKET, RANK_NNZ_BUCKET, want_qid=True)
+        require("qid" in nat and batch_hash(nat) == batch_hash(gold),
+                f"native qid padded batch {i} differs from pad_single over "
+                "the Python parser")
+    log("parity: the first 3 native qid padded batches are byte-identical "
+        "to pad_single over the Python parser")
+
+    cuda = torch.device("cuda")
+    batches = [_rank_tensors(b, cuda) for b in firsts]
+    results = []
+    for model in (SparseRankingModel(RANK_NUM_FEATURES, learning_rate=lr,
+                                     device=cuda),
+                  plain_ranking_model(lr)):
+        losses = torch.stack([model.train_step(b) for b in batches])
+        results.append([losses, model.w.detach(), model.b.detach()])
+    errs = {}
+    for name, a, b in zip(("losses", "w", "b"), *results):
+        require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                f"ranking: 3 steps with the kernels vs the plain versions: "
+                f"{name} max |err| {(a - b).abs().max().item()}")
+        errs[name] = (a - b).abs().max().item()
+    log(f"parity: 3 ranking steps with the kernels match 3 through the plain "
+        f"versions on the card (losses "
+        f"{[round(float(x), 6) for x in results[0][0]]}, max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; rtol {STEP_RTOL}, atol {STEP_ATOL})")
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
@@ -1228,6 +1807,20 @@ def main() -> None:
                            launches, stats[kind]["steps"])
         libfm_parity(path, LEARNING_RATE)
         rows += factor_rows
+        os.unlink(path)
+
+        # the ranking path: libsvm with qid → SparseRankingModel
+        path = os.path.join(work, "mslr_shaped.libsvm")
+        t0 = time.perf_counter()
+        size = write_ranking_corpus(path)
+        log(f"ranking corpus: {size} bytes in {time.perf_counter() - t0:.1f} "
+            "s")
+        rank_rows = check_ranking_kernels(first_batch(path, "ranking"))
+        launches, stats["ranking"] = ranking_path(path, size,
+                                                  RANK_LEARNING_RATE)
+        report_kernels(rank_rows, launches, stats["ranking"]["steps"])
+        ranking_parity(path, RANK_LEARNING_RATE)
+        rows += rank_rows
     finally:
         shutil.rmtree(work, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

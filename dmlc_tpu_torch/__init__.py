@@ -9,9 +9,11 @@ Ported so far: local-file ``InputSplit``, the libsvm and libfm parsers
 (Python golden and native C++ engine, with ABI-5 padded batch assembly
 that carries libfm's ``field`` column), bucket padding, the pinned async
 host→device iterator, the CSR SpMV kernels with their weight-gradient
-transpose, the FM and FFM pair-term kernels with their gradients in V,
-and SGD for ``SparseLinearModel``, ``SparseFMModel`` and
-``SparseFFMModel``. Entry points that touch a device default to
+transpose, the padded-row dot and the CSR-to-dense scatter, the FM and
+FFM pair-term kernels with their gradients in V, the pairwise ranking
+loss with its gradient in the margins, and SGD for
+``SparseLinearModel``, ``SparseFMModel``, ``SparseFFMModel`` and
+``SparseRankingModel`` (over libsvm ``qid``). Entry points that touch a device default to
 ``torch.device("cuda")``; pass ``device="cpu"`` to run the plain
 PyTorch versions of the kernels.
 """

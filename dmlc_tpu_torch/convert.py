@@ -5,9 +5,10 @@ model) passes parameters through numpy: ``params_from_jax`` turns the
 JAX model's parameter dict into tensors a port model loads with
 ``load_state_dict(strict=True)``, and ``params_to_numpy`` turns a port
 model's parameters back into the JAX layout. The names and shapes are
-the same in both packages: ``w [F]`` and ``b []`` for every model, and
-``V`` of ``[F, K]`` (FM) or ``[F, num_fields, K]`` (FFM); a shape that
-does not fit the model is refused by ``load_state_dict``.
+the same in both packages: ``w [F]`` and ``b []`` for every model (the
+only parameters of ``SparseLinearModel`` and ``SparseRankingModel``),
+and ``V`` of ``[F, K]`` (FM) or ``[F, num_fields, K]`` (FFM); a shape
+that does not fit the model is refused by ``load_state_dict``.
 """
 
 from __future__ import annotations

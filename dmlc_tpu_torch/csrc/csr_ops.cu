@@ -1,0 +1,164 @@
+// The rest of the reference's CSR ops: a padded-ELL row dot and the CSR to
+// dense scatter, hand-written for Hopper (sm_90a), with a plain C interface
+// bound by ctypes from dmlc_tpu_torch/ops/csr.py.
+//
+// What they replace. The JAX package has no hand-written device kernel:
+// XLA compiled these computations from jnp.
+//   K3 sdot_rows     <- dmlc_tpu/ops/csr.py:107 sdot_rows: y[r] = sum_k
+//                       w[index[r,k]] * value[r,k] over padded ELL rows
+//                       [n, k] (the output of csr_to_padded_rows).
+//   K4 csr_to_dense  <- dmlc_tpu/ops/csr.py:68 csr_to_dense:
+//                       dense[row(k), index[k]] += value[k] into a zeroed
+//                       [rows, cols] float32 matrix.
+//
+// Semantics kept from the reference:
+//   - an index maps by the reference's rule (index.cuh: low 32 bits,
+//     signed, negative counted from the end); an invalid one reads no
+//     memory: K3 gives its row NaN (jnp.take fills NaN), K4 drops it (the
+//     scatter drops an out-of-bounds index);
+//   - K4's rows are those of offset[0..num_rows]; nonzeros past
+//     offset[num_rows] (the padded tail) are never visited; duplicate
+//     columns of a row add up.
+//
+// Bound on the card (H100 SXM, 3.35 TB/s). Both move bytes and do one or
+// two flops per entry. K3 reads index and value once (8 B an entry with a
+// 4-byte index), gathers w (at most 4 B an entry, far less from device
+// memory: a small w stays in L2) and writes 4 B a row. K4 reads offset,
+// index and value once and writes the dense matrix, which dominates where
+// the batch is dense-ish (the ranking batch: 4096 x 137 floats, 2.2 MB,
+// written by the wrapper's zero fill and then by the kernel's adds).
+//
+// Design, simple first: one warp per row, lanes striding over the row's
+// entries with coalesced index/value reads. K3 reduces with warp shuffles
+// and votes its row NaN when any lane met an invalid index. K4 adds with
+// fp32 atomicAdd, since a row may repeat a column; rows own disjoint parts
+// of the output, so only such duplicates contend, and only they make K4's
+// sums depend on the order of the atomics. Both launch on the caller's
+// stream and allocate nothing; each C entry returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "index.cuh"
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kThreads = 256;  // 8 warps = 8 rows per block
+constexpr unsigned kFull = 0xffffffffu;
+
+unsigned warp_grid(int64_t num_rows) {
+  const int64_t rows_per_block = kThreads / kWarp;
+  return static_cast<unsigned>((num_rows + rows_per_block - 1) /
+                               rows_per_block);
+}
+
+template <typename IndexT>
+__global__ void __launch_bounds__(kThreads)
+    sdot_rows_kernel(const IndexT* __restrict__ index,
+                     const float* __restrict__ value,
+                     const float* __restrict__ w, int64_t num_rows,
+                     int64_t width, int64_t num_features,
+                     float* __restrict__ y) {
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (row >= num_rows) return;  // uniform across the warp
+  const IndexT* idx = index + row * width;
+  const float* val = value + row * width;
+  float acc = 0.0f;
+  int bad = 0;
+  for (int64_t k = lane; k < width; k += kWarp) {
+    int64_t j;
+    if (dmlc_index::wrap(idx[k], num_features, &j)) {
+      acc = fmaf(__ldg(w + j), val[k], acc);
+    } else {
+      bad = 1;
+    }
+  }
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    acc += __shfl_down_sync(kFull, acc, o);
+  }
+  bad = __any_sync(kFull, bad);
+  if (lane == 0) y[row] = bad ? __int_as_float(0x7fc00000) : acc;  // NaN
+}
+
+template <typename IndexT>
+__global__ void __launch_bounds__(kThreads)
+    csr_to_dense_kernel(const int64_t* __restrict__ offset,
+                        const IndexT* __restrict__ index,
+                        const float* __restrict__ value, int64_t num_rows,
+                        int64_t nnz, int64_t num_cols,
+                        float* __restrict__ dense) {
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (row >= num_rows) return;
+  int64_t lo = offset[row];
+  int64_t hi = offset[row + 1];
+  // a corrupt offset array must not send a warp past index/value
+  lo = lo < 0 ? 0 : (lo > nnz ? nnz : lo);
+  hi = hi < lo ? lo : (hi > nnz ? nnz : hi);
+  float* out = dense + row * num_cols;
+  for (int64_t k = lo + lane; k < hi; k += kWarp) {
+    int64_t j;
+    if (dmlc_index::wrap(index[k], num_cols, &j)) atomicAdd(out + j, value[k]);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// y[num_rows] = sum_k w[index[r, k]] * value[r, k] over row-major
+// index/value [num_rows, width]. index_bytes: 4 (u32 or int32) or 8 (u64).
+// Returns a cudaError_t.
+int dmlc_sdot_rows(const void* index, int index_bytes, const void* value,
+                   const void* w, int64_t num_rows, int64_t width,
+                   int64_t num_features, void* y, void* stream) {
+  if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* val = static_cast<const float*>(value);
+  const auto* wv = static_cast<const float*>(w);
+  auto* out = static_cast<float*>(y);
+  if (index_bytes == 4) {
+    sdot_rows_kernel<uint32_t><<<warp_grid(num_rows), kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(index), val, wv, num_rows, width,
+        num_features, out);
+  } else if (index_bytes == 8) {
+    sdot_rows_kernel<uint64_t><<<warp_grid(num_rows), kThreads, 0, s>>>(
+        static_cast<const uint64_t*>(index), val, wv, num_rows, width,
+        num_features, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dense[num_rows, num_cols] += the CSR batch (offset[num_rows+1],
+// index[nnz], value[nnz]); dense must be zeroed by the caller. Returns a
+// cudaError_t.
+int dmlc_csr_to_dense(const void* offset, const void* index, int index_bytes,
+                      const void* value, int64_t num_rows, int64_t nnz,
+                      int64_t num_cols, void* dense, void* stream) {
+  if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* off = static_cast<const int64_t*>(offset);
+  const auto* val = static_cast<const float*>(value);
+  auto* out = static_cast<float*>(dense);
+  if (index_bytes == 4) {
+    csr_to_dense_kernel<uint32_t><<<warp_grid(num_rows), kThreads, 0, s>>>(
+        off, static_cast<const uint32_t*>(index), val, num_rows, nnz,
+        num_cols, out);
+  } else if (index_bytes == 8) {
+    csr_to_dense_kernel<uint64_t><<<warp_grid(num_rows), kThreads, 0, s>>>(
+        off, static_cast<const uint64_t*>(index), val, num_rows, nnz,
+        num_cols, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -12,9 +12,10 @@
 //                     grad_w[index[k]] += value[k] * g[row(k)].
 //
 // Semantics kept from the reference:
-//   - an index at or past num_features reads no memory; K1 gives its row
-//     NaN (jnp.take fills NaN out of range), K2 drops its contribution
-//     (the gradient of the filled take drops it);
+//   - an index maps by the reference's rule (index.cuh: low 32 bits,
+//     signed, negative counted from the end); an invalid one reads no
+//     memory; K1 gives its row NaN (jnp.take fills NaN out of range), K2
+//     drops its contribution (the gradient of the filled take drops it);
 //   - rows are those of offset[0..num_rows]; nonzeros past offset[num_rows]
 //     (the padded tail) are never visited, as segment_sum drops them.
 //
@@ -39,6 +40,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "index.cuh"
 
 namespace {
 
@@ -72,8 +75,8 @@ __global__ void __launch_bounds__(kThreads)
   float acc = 0.0f;
   int bad = 0;
   for (int64_t k = lo + lane; k < hi; k += kWarp) {
-    const uint64_t j = static_cast<uint64_t>(index[k]);
-    if (j < static_cast<uint64_t>(num_features)) {
+    int64_t j;
+    if (dmlc_index::wrap(index[k], num_features, &j)) {
       acc = fmaf(value[k], __ldg(w + j), acc);
     } else {
       bad = 1;
@@ -103,8 +106,8 @@ __global__ void __launch_bounds__(kThreads)
   row_range(offset, row, nnz, &lo, &hi);
   const float gi = g[row];
   for (int64_t k = lo + lane; k < hi; k += kWarp) {
-    const uint64_t j = static_cast<uint64_t>(index[k]);
-    if (j < static_cast<uint64_t>(num_features)) {
+    int64_t j;
+    if (dmlc_index::wrap(index[k], num_features, &j)) {
       atomicAdd(grad_w + j, value[k] * gi);
     }
   }
@@ -121,7 +124,7 @@ unsigned grid_for(int64_t num_rows) {
 extern "C" {
 
 // y[num_rows] = CSR(offset[num_rows+1], index[nnz], value[nnz]) . w
-// index_bytes: 4 (u32) or 8 (u64). Returns a cudaError_t.
+// index_bytes: 4 (u32 or int32) or 8 (u64). Returns a cudaError_t.
 int dmlc_csr_spmv(const void* offset, const void* index, int index_bytes,
                   const void* value, const void* w, int64_t num_rows,
                   int64_t nnz, int64_t num_features, void* y,

@@ -20,13 +20,15 @@
 //                       (S[b,f_k,:] - [b = f_k] x_k V[i_k,f_k,:]).
 //
 // Semantics kept from the reference:
-//   - an index at or past num_features reads no memory and its factors
-//     count as NaN (jnp.take fills NaN out of range): the row's pair is
+//   - an index maps by the reference's rule (index.cuh: low 32 bits,
+//     signed, negative counted from the end); an invalid one reads no
+//     memory and its factors count as NaN (jnp.take fills NaN out of range): the row's pair is
 //     NaN, and so are the sums that the backward reads (s, or S[f_k,:,:]),
 //     exactly where jax.grad of the reference gives NaN. The out-of-range
 //     nonzero itself adds nothing to gV (the gradient of the filled take
 //     drops it);
-//   - a field id is clipped into [0, num_fields - 1] (jnp.clip);
+//   - a field id takes its low 32 bits, signed, and is clipped into
+//     [0, num_fields - 1] (astype(int32), then jnp.clip);
 //   - rows are those of offset[0..num_rows]; nonzeros past offset[num_rows]
 //     (the padded tail) are never visited.
 //
@@ -65,6 +67,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "index.cuh"
 
 namespace {
 
@@ -117,12 +121,10 @@ __global__ void __launch_bounds__(kWarpThreads)
     const bool has_f = f < K;
     float s = 0.0f, sq = 0.0f;
     for (int64_t k = lo + grp; k < hi; k += groups) {
-      const uint64_t j = static_cast<uint64_t>(index[k]);
+      int64_t j;
+      const bool ok = dmlc_index::wrap(index[k], num_features, &j);
       float v = 0.0f;
-      if (has_f) {
-        v = j < static_cast<uint64_t>(num_features) ? __ldg(V + j * K + f)
-                                                    : nan_f();
-      }
+      if (has_f) v = ok ? __ldg(V + j * K + f) : nan_f();
       const float vx = __fmul_rn(value[k], v);
       s += vx;
       sq += __fmul_rn(vx, vx);
@@ -166,8 +168,8 @@ __global__ void __launch_bounds__(kWarpThreads)
     if (f >= K) continue;
     const float s = s_in[row * K + f];
     for (int64_t k = lo + grp; k < hi; k += groups) {
-      const uint64_t j = static_cast<uint64_t>(index[k]);
-      if (j >= static_cast<uint64_t>(num_features)) continue;
+      int64_t j;
+      if (!dmlc_index::wrap(index[k], num_features, &j)) continue;
       const float x = value[k];
       const float v = __ldg(V + j * K + f);
       atomicAdd(gV + j * K + f, gr * x * (s - __fmul_rn(x, v)));
@@ -203,10 +205,6 @@ __device__ float block_sum(float v, float* scratch) {
   return out;
 }
 
-__device__ __forceinline__ int64_t clip_field(int64_t a, int64_t nf) {
-  return a < 0 ? 0 : (a >= nf ? nf - 1 : a);
-}
-
 // The floats of a K6 block's dynamic shared memory: S [nf, nf, K], then
 // D [nf, K].
 __host__ __device__ __forceinline__ int64_t ffm_shared_floats(int64_t nf,
@@ -234,11 +232,10 @@ __device__ void build_S(float* S, float* D, bool want_D, int64_t lo,
   for (int64_t t = threadIdx.x; t < work; t += kBlockThreads) {
     const int64_t k = lo + t / nk;
     const int64_t rem = t % nk;  // b * K + f
-    const uint64_t j = static_cast<uint64_t>(index[k]);
-    const int64_t a = clip_field(field[k], nf);
-    const float v = j < static_cast<uint64_t>(num_features)
-                        ? __ldg(V + j * nk + rem)
-                        : nan_f();
+    int64_t j;
+    const bool ok = dmlc_index::wrap(index[k], num_features, &j);
+    const int64_t a = dmlc_index::clip_field(field[k], nf);
+    const float v = ok ? __ldg(V + j * nk + rem) : nan_f();
     const float vx = __fmul_rn(value[k], v);
     atomicAdd(S + a * nk + rem, vx);
     if (want_D && rem / K == a) atomicAdd(D + rem, __fmul_rn(vx, vx));
@@ -304,9 +301,9 @@ __global__ void __launch_bounds__(kBlockThreads)
   for (int64_t t = threadIdx.x; t < work; t += kBlockThreads) {
     const int64_t k = lo + t / nk;
     const int64_t rem = t % nk;  // b * K + f
-    const uint64_t j = static_cast<uint64_t>(index[k]);
-    if (j >= static_cast<uint64_t>(num_features)) continue;
-    const int64_t a = clip_field(field[k], nf);
+    int64_t j;
+    if (!dmlc_index::wrap(index[k], num_features, &j)) continue;
+    const int64_t a = dmlc_index::clip_field(field[k], nf);
     const int64_t b = rem / K;
     const float x = value[k];
     float d = S[b * nk + a * K + rem % K];  // S[b, f_k, f]
@@ -362,7 +359,7 @@ int dmlc_ffm_max_shared_bytes(void* out) {
 }
 
 // pair[num_rows], s[num_rows, K] = the FM pair term of CSR(offset, index,
-// value) over V[num_features, K]. index_bytes: 4 (u32) or 8 (u64).
+// value) over V[num_features, K]. index_bytes: 4 (u32 or int32) or 8 (u64).
 int dmlc_fm_pair_fwd(const void* offset, const void* index, int index_bytes,
                      const void* value, const void* V, int64_t num_rows,
                      int64_t nnz, int64_t num_features, int64_t K,

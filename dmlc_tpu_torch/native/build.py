@@ -7,7 +7,8 @@ Two shared libraries, both built from this package's own sources into
   the reference package's engine), with the same g++ command the
   reference uses;
 - the CUDA kernels, ``csrc/*.cu``, with nvcc for Hopper (``sm_90a``)
-  into a library with a plain C interface, loaded with ctypes.
+  into a library with a plain C interface, loaded with ctypes: one nvcc
+  for each source, all started together, then one link.
 
 Each output name carries a hash of its source and its command, so an
 edited source builds anew instead of loading a stale library. A build
@@ -34,7 +35,9 @@ PKG = os.path.dirname(HERE)
 BUILD_DIR = os.path.join(PKG, "build")
 ENGINE_SRC = os.path.join(HERE, "src", "engine.cc")
 KERNEL_SRCS = [os.path.join(PKG, "csrc", name)
-               for name in ("csr_spmv.cu", "fm.cu")]
+               for name in ("csr_spmv.cu", "fm.cu", "csr_ops.cu",
+                            "ranking.cu")]
+KERNEL_HEADERS = [os.path.join(PKG, "csrc", "index.cuh")]
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 _ZLIB_FLAGS = None
@@ -161,16 +164,49 @@ def nvcc() -> str:
     return found
 
 
-def _kernel_cmd(out: str) -> List[str]:
-    return ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", out] + KERNEL_SRCS
+_KERNEL_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def kernels_path() -> str:
     return os.path.join(
-        BUILD_DIR,
-        f"libdmlc_kernels.{_stamp(KERNEL_SRCS, _kernel_cmd('OUT'))}.so")
+        BUILD_DIR, "libdmlc_kernels."
+        f"{_stamp(KERNEL_SRCS + KERNEL_HEADERS, _KERNEL_FLAGS)}.so")
+
+
+def _compile_kernels(out: str, log_path: str) -> None:
+    """nvcc each source to an object, all at once, then link them into
+    the library ``out``; every command's output goes to ``log_path``."""
+    cc = nvcc()
+    objs = [f"{out}.{i}.o" for i in range(len(KERNEL_SRCS))]
+    cmds = [[cc] + _KERNEL_FLAGS + ["-c", src, "-o", obj]
+            for src, obj in zip(KERNEL_SRCS, objs)]
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        outputs = [p.communicate(timeout=900)[0] for p in procs]
+        with open(log_path, "w") as f:
+            for cmd, text in zip(cmds, outputs):
+                f.write(" ".join(cmd) + "\n" + text)
+        for cmd, proc, text in zip(cmds, procs, outputs):
+            if proc.returncode != 0:
+                raise DMLCError(f"CUDA kernel build failed (rc "
+                                f"{proc.returncode}): {' '.join(cmd)}\n"
+                                f"{text.strip()[-4000:]}")
+        _run([cc, "-shared", "-o", out] + objs, "CUDA kernel link",
+             log_path + ".link")
+    except (OSError, subprocess.SubprocessError) as e:
+        raise DMLCError(f"CUDA kernel build failed to run: {e}") from e
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
 
 
 def build_kernels() -> str:
@@ -178,9 +214,7 @@ def build_kernels() -> str:
     compiler's register/shared-memory report lands beside it in
     ``<lib>.log``."""
     out = kernels_path()
-    return _locked_build(
-        out, lambda tmp: _run([nvcc()] + _kernel_cmd(tmp), "CUDA kernel",
-                              out + ".log"))
+    return _locked_build(out, lambda tmp: _compile_kernels(tmp, out + ".log"))
 
 
 if __name__ == "__main__":

@@ -1,34 +1,46 @@
-"""Device ops over CSR batches: the CSR SpMV kernels and their plain versions.
+"""Device ops over CSR batches: the CUDA kernels and their plain versions.
 
 Counterpart of ``dmlc_tpu/ops/csr.py``, where XLA compiled these from
 jnp. Here each device computation is a CUDA kernel written by hand
-(``csrc/csr_spmv.cu``) with a plain PyTorch version of the same function
-beside it:
+(``csrc/csr_spmv.cu``, ``csrc/csr_ops.cu``) with a plain PyTorch version
+of the same function beside it:
 
-- K1 ``csr_spmv``:   y[i] = Σ_{offset[i] ≤ k < offset[i+1]} value[k]·w[index[k]]
-- K2 ``csr_spmv_t``: grad_w[index[k]] += value[k]·g[row(k)]
+- K1 ``csr_spmv``:    y[i] = Σ_{offset[i] ≤ k < offset[i+1]} value[k]·w[index[k]]
+- K2 ``csr_spmv_t``:  grad_w[index[k]] += value[k]·g[row(k)]
+- K3 ``sdot_rows``:   y[n] = Σ_k w[index[n,k]]·value[n,k] over padded ELL rows
+- K4 ``csr_to_dense``: dense[row(k), index[k]] += value[k], a zeroed
+  ``[rows, cols]`` float32 matrix (duplicate columns of a row add up)
 
 A wrapper runs the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises. Each wrapper counts
-its kernel launches in ``.launches``.
+its kernel launches in ``.launches``. ``csr_to_padded_rows`` is the
+host-side (numpy) CSR → ELL conversion that feeds K3.
 
-Out-of-range semantics follow the reference: an index at or past
-``len(w)`` gives its row NaN in K1 (``jnp.take`` fills NaN) and is
-dropped by K2. Nonzeros past ``offset[-1]`` (the padded tail) belong to
-no row. The index keeps its layout dtype (u32/u64; torch cannot index
-with unsigned types, so the plain versions widen it to int64 and the
-kernels read it as it is). Offsets stay int64 on the device.
+Index semantics follow the reference (``ops/index.py``: low 32 bits,
+signed, negative counted from the end): an invalid index gives its row
+NaN in K1 and K3 (``jnp.take`` fills NaN) and is dropped by K2 and K4.
+Nonzeros past ``offset[-1]`` (the padded tail) belong to no row. The
+index keeps its layout dtype (u32/u64, or int32 from
+``csr_to_padded_rows``; torch cannot index with unsigned types, so the
+plain versions widen it to int64 and the kernels read it as it is).
+Offsets stay int64 on the device.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 
+from dmlc_tpu_torch.ops.index import wrap_index
 from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
-           "csr_spmv_plain", "csr_spmv_t_plain"]
+           "csr_spmv_plain", "csr_spmv_t_plain", "sdot_rows",
+           "sdot_rows_plain", "csr_to_dense", "csr_to_dense_plain",
+           "csr_to_padded_rows"]
 
 def csr_row_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
     """Row id of every nonzero: row_ids[k] = i s.t. offset[i] <= k < offset[i+1].
@@ -40,25 +52,37 @@ def csr_row_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
     return torch.searchsorted(offset, k, right=True) - 1
 
 
-def _check_csr(offset, index, value, dense, dense_name, dense_dim=1):
+def _check_index_value(index, value, dims):
+    check(index.dtype in INDEX_BYTES,
+          f"index dtype must be uint32/uint64/int32, got {index.dtype}")
+    check(index.dim() == dims and index.shape == value.shape,
+          f"index and value must be {dims}-D of one shape, got "
+          f"{tuple(index.shape)} and {tuple(value.shape)}")
+    check(value.dtype == torch.float32,
+          f"value must be float32, got {value.dtype}")
+
+
+def _check_device(tensors, what):
+    devices = {t.device for t in tensors}
+    check(len(devices) == 1, f"{what} must share one device, got "
+          f"{sorted(str(d) for d in devices)}")
+
+
+def _check_csr(offset, index, value, dense=None, dense_name="",
+               dense_dim=1):
     check(offset.dim() == 1 and offset.numel() >= 1
           and offset.dtype == torch.int64,
           f"offset must be 1-D int64 with >= 1 entry, got "
           f"{tuple(offset.shape)} {offset.dtype}")
-    check(index.dtype in INDEX_BYTES,
-          f"index dtype must be uint32/uint64, got {index.dtype}")
-    check(index.dim() == 1 and value.dim() == 1
-          and index.numel() == value.numel(),
-          f"index and value must be 1-D of one length, got "
-          f"{tuple(index.shape)} and {tuple(value.shape)}")
-    check(value.dtype == torch.float32 and dense.dtype == torch.float32,
-          f"value and {dense_name} must be float32, got {value.dtype} and "
-          f"{dense.dtype}")
+    _check_index_value(index, value, 1)
+    if dense is None:
+        _check_device((offset, index, value), "CSR tensors")
+        return
+    check(dense.dtype == torch.float32,
+          f"{dense_name} must be float32, got {dense.dtype}")
     check(dense.dim() == dense_dim, f"{dense_name} must be {dense_dim}-D")
-    devices = {t.device for t in (offset, index, value, dense)}
-    check(len(devices) == 1,
-          f"CSR tensors and {dense_name} must share one device, got "
-          f"{sorted(str(d) for d in devices)}")
+    _check_device((offset, index, value, dense),
+                  f"CSR tensors and {dense_name}")
 
 
 def _launch(name, offset, index, value, dense, num_rows, num_features, out):
@@ -81,10 +105,8 @@ def csr_spmv_plain(offset: torch.Tensor, index: torch.Tensor,
                    value: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: gather, then index_add_ over the row ids."""
     n = offset.numel() - 1
-    idx = index.to(torch.int64)
-    inside = (idx >= 0) & (idx < w.numel())
-    gathered = torch.where(inside, w[torch.where(inside, idx, 0)],
-                           float("nan"))
+    idx, inside = wrap_index(index, w.numel())
+    gathered = torch.where(inside, w[idx], float("nan"))
     y = torch.zeros(n + 1, dtype=w.dtype, device=w.device)
     y.index_add_(0, _segment_ids(offset, index.numel()), value * gathered)
     return y[:n]
@@ -95,12 +117,11 @@ def csr_spmv_t_plain(offset: torch.Tensor, index: torch.Tensor,
                      num_features: int) -> torch.Tensor:
     """Plain version of K2: index_add_ of value·g[row] into grad_w."""
     rows = _segment_ids(offset, index.numel())
-    idx = index.to(torch.int64)
-    keep = (idx >= 0) & (idx < num_features)
+    idx, keep = wrap_index(index, num_features)
     g_ext = torch.cat([g, g.new_zeros(1)])  # row n: the dropped tail
     contrib = torch.where(keep, value * g_ext[rows], 0.0)
     grad = torch.zeros(num_features, dtype=g.dtype, device=g.device)
-    grad.index_add_(0, torch.where(keep, idx, 0), contrib)
+    grad.index_add_(0, idx, contrib)
     return grad
 
 
@@ -178,3 +199,109 @@ def spmv(offset, index, value, weights) -> torch.Tensor:
     """Convenience wrapper: num_rows from offset shape."""
     return segment_spmv(offset, index, value, weights,
                         num_rows=offset.numel() - 1)
+
+
+# ------------------------------------------------------------ K3, K4
+
+def csr_to_padded_rows(offset: np.ndarray, index: np.ndarray,
+                       value: Optional[np.ndarray],
+                       max_nnz_per_row: Optional[int] = None
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side CSR → padded ELL (index[n,k] int32, value[n,k] float32,
+    mask[n,k] bool), the input of K3.
+
+    Pads index with 0 and value with 0.0. A row longer than ``k`` keeps
+    its first ``k`` nonzeros; ``value=None`` means all ones. The index is
+    stored as int32 as numpy casts it (a u32/u64 index keeps its low 32
+    bits), byte for byte the reference's output.
+    """
+    offset = np.asarray(offset, np.int64)
+    n = len(offset) - 1
+    lens = np.diff(offset)
+    k = int(max_nnz_per_row if max_nnz_per_row is not None
+            else (lens.max() if n else 0))
+    out_idx = np.zeros((n, k), np.int32)
+    out_val = np.zeros((n, k), np.float32)
+    mask = np.zeros((n, k), bool)
+    vals = (np.asarray(value, np.float32) if value is not None
+            else np.ones(len(index), np.float32))
+    for i in range(n):
+        m = min(int(lens[i]), k)
+        lo = int(offset[i])
+        out_idx[i, :m] = index[lo:lo + m]
+        out_val[i, :m] = vals[lo:lo + m]
+        mask[i, :m] = True
+    return out_idx, out_val, mask
+
+
+def sdot_rows_plain(padded_index: torch.Tensor, padded_value: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: gather (NaN for an invalid index), then sum
+    each row."""
+    idx, inside = wrap_index(padded_index, w.numel())
+    gathered = torch.where(inside, w[idx], float("nan"))
+    return (gathered * padded_value).sum(-1)
+
+
+def sdot_rows(padded_index: torch.Tensor, padded_value: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """K3: y[n] = Σ_k w[index[n,k]]·value[n,k] over padded ELL rows (the
+    reference's batched Row::SDot)."""
+    _check_index_value(padded_index, padded_value, 2)
+    check(w.dim() == 1 and w.dtype == torch.float32,
+          f"w must be 1-D float32, got {tuple(w.shape)} {w.dtype}")
+    _check_device((padded_index, padded_value, w), "ELL tensors and w")
+    if w.device.type == "cpu":
+        return sdot_rows_plain(padded_index, padded_value, w)
+    check(w.is_cuda, f"sdot_rows runs on cuda or cpu, got {w.device}")
+    for t in (padded_index, padded_value, w):
+        check(t.is_contiguous(), "sdot_rows needs contiguous tensors")
+    n, k = padded_index.shape
+    y = torch.empty(n, dtype=torch.float32, device=w.device)
+    launch("dmlc_sdot_rows", w.device, padded_index.data_ptr(),
+           INDEX_BYTES[padded_index.dtype], padded_value.data_ptr(),
+           w.data_ptr(), n, k, w.numel(), y.data_ptr())
+    sdot_rows.launches += 1
+    return y
+
+
+def csr_to_dense_plain(offset: torch.Tensor, index: torch.Tensor,
+                       value: torch.Tensor, num_cols: int) -> torch.Tensor:
+    """Plain version of K4: index_put_ with accumulation into zeros; the
+    padded tail and invalid columns are dropped."""
+    n = offset.numel() - 1
+    rows = _segment_ids(offset, index.numel())
+    cols, keep = wrap_index(index, num_cols)
+    keep = keep & (rows < n)
+    dense = torch.zeros(n, num_cols, dtype=torch.float32,
+                        device=value.device)
+    dense.index_put_((rows[keep], cols[keep]), value[keep], accumulate=True)
+    return dense
+
+
+def csr_to_dense(offset: torch.Tensor, index: torch.Tensor,
+                 value: torch.Tensor, num_rows: int,
+                 num_cols: int) -> torch.Tensor:
+    """K4: the CSR batch scattered into a dense [num_rows, num_cols]
+    float32 matrix; ``num_rows`` must equal ``offset.numel() - 1``."""
+    _check_csr(offset, index, value)
+    check(num_rows == offset.numel() - 1,
+          f"num_rows {num_rows} != offset rows {offset.numel() - 1}")
+    check(num_cols >= 0, f"num_cols must be >= 0, got {num_cols}")
+    if value.device.type == "cpu":
+        return csr_to_dense_plain(offset, index, value, num_cols)
+    check(value.is_cuda,
+          f"csr_to_dense runs on cuda or cpu, got {value.device}")
+    for t in (offset, index, value):
+        check(t.is_contiguous(), "csr_to_dense needs contiguous tensors")
+    dense = torch.zeros(num_rows, num_cols, dtype=torch.float32,
+                        device=value.device)
+    launch("dmlc_csr_to_dense", value.device, offset.data_ptr(),
+           index.data_ptr(), INDEX_BYTES[index.dtype], value.data_ptr(),
+           num_rows, index.numel(), num_cols, dense.data_ptr())
+    csr_to_dense.launches += 1
+    return dense
+
+
+sdot_rows.launches = 0
+csr_to_dense.launches = 0

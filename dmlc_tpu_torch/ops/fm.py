@@ -14,14 +14,16 @@ version of the same function beside it:
 - K6 ``ffm_pair_bwd``: gV[i_k,b,:] += g[r]·x_k·(S[r,b,f_k,:] − [b=f_k]·x_k V[i_k,f_k,:])
 
 (k runs over the nonzeros of row r, x is ``value``, i is ``index``, f is
-``field`` clipped into [0, num_fields − 1].) ``fm_pair`` and ``ffm_pair``
+``field`` clipped into [0, num_fields − 1] after taking its low 32
+bits, signed, as the reference's ``astype(int32)`` does.) ``fm_pair`` and ``ffm_pair``
 pair each forward with its backward in a ``torch.autograd.Function``,
 differentiable in V only.
 
 As in ``ops/csr.py``: a wrapper runs the plain version only when its
 tensors lie on the CPU, and for CUDA tensors launches its kernel or
-raises; each wrapper counts its launches in ``.launches``. An index at or
-past F reads as NaN factors (``jnp.take`` fills NaN), so its row's pair
+raises; each wrapper counts its launches in ``.launches``. An index maps
+by the reference's rule (``ops/index.py``), and an invalid one reads as
+NaN factors (``jnp.take`` fills NaN), so its row's pair
 is NaN and the gradient is NaN wherever the reference's is; the
 out-of-range nonzero itself adds nothing to gV. Nonzeros past
 ``offset[-1]`` (the padded tail) belong to no row. The plain versions
@@ -38,6 +40,7 @@ from typing import Tuple
 import torch
 
 from dmlc_tpu_torch.ops.csr import _check_csr, _segment_ids
+from dmlc_tpu_torch.ops.index import clip_field, wrap_index
 from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, library
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
@@ -49,13 +52,11 @@ __all__ = ["fm_pair", "ffm_pair", "fm_pair_fwd", "fm_pair_bwd",
 # ------------------------------------------------------------ plain versions
 
 def _gather(V: torch.Tensor, index: torch.Tensor):
-    """V[index] with NaN rows where the index is out of range (the
-    reference's filled take), and the in-range mask."""
-    idx = index.to(torch.int64)
-    inside = idx < V.shape[0]
-    rows = V[torch.where(inside, idx, 0)]
+    """V[index] with NaN rows where the index is invalid (the reference's
+    filled take), the rows read (0 where invalid) and the valid mask."""
+    idx, inside = wrap_index(index, V.shape[0])
     mask = inside.view((-1,) + (1,) * (V.dim() - 1))
-    return torch.where(mask, rows, float("nan")), idx, inside
+    return torch.where(mask, V[idx], float("nan")), idx, inside
 
 
 def _with_tail(t: torch.Tensor) -> torch.Tensor:
@@ -82,7 +83,7 @@ def fm_pair_bwd_plain(offset, index, value, V, s, g) -> torch.Tensor:
     x = value[:, None]
     d = _with_tail(g)[seg][:, None] * x * (_with_tail(s)[seg] - x * v)
     return torch.zeros_like(V).index_add_(
-        0, torch.where(keep, idx, 0), torch.where(keep[:, None], d, 0.0))
+        0, idx, torch.where(keep[:, None], d, 0.0))
 
 
 def _ffm_S(offset, index, value, field, V):
@@ -90,7 +91,7 @@ def _ffm_S(offset, index, value, field, V):
     S [rows + 1, nf, nf, K] (the last row sums the padded tail)."""
     n, nf, K = offset.numel() - 1, V.shape[1], V.shape[2]
     seg = _segment_ids(offset, index.numel())
-    f = field.clamp(0, nf - 1)
+    f = clip_field(field, nf)
     v, idx, keep = _gather(V, index)
     vx = value[:, None, None] * v
     S = V.new_zeros((n + 1) * nf, nf, K).index_add_(0, seg * nf + f, vx)
@@ -126,8 +127,7 @@ def ffm_pair_bwd_plain(offset, index, value, field, V, g) -> torch.Tensor:
     d = d - own * vsel[:, None, :]
     contrib = (_with_tail(g)[seg] * value)[:, None, None] * d
     return torch.zeros_like(V).index_add_(
-        0, torch.where(keep, idx, 0),
-        torch.where(keep[:, None, None], contrib, 0.0))
+        0, idx, torch.where(keep[:, None, None], contrib, 0.0))
 
 
 # ------------------------------------------------------------ wrappers

@@ -18,7 +18,10 @@ from dmlc_tpu_torch.utils.logging import DMLCError
 
 __all__ = ["INDEX_BYTES", "library", "launch"]
 
-INDEX_BYTES = {torch.uint32: 4, torch.uint64: 8}  # the layout's index dtypes
+# The index dtypes the kernels read, by width: the layout's u32/u64, and
+# int32 (csr_to_padded_rows). Under the index rule (csrc/index.cuh) u32 and
+# int32 read alike: only the low 32 bits count.
+INDEX_BYTES = {torch.uint32: 4, torch.int32: 4, torch.uint64: 8}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # Every entry returns a cudaError_t; the trailing pointer is the stream.
@@ -42,6 +45,14 @@ _SIGNATURES = {
                           _I64, _P, _P],
     # out: int64 (no stream)
     "dmlc_ffm_max_shared_bytes": [_P],
+    # index [n, k], index_bytes, value [n, k], w, rows, k, features, y
+    "dmlc_sdot_rows": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
+    # offset, index, index_bytes, value, rows, nnz, cols, dense
+    "dmlc_csr_to_dense": [_P, _P, _I, _P, _I64, _I64, _I64, _P, _P],
+    # margins, label, qid, weight, n, row sums [2n] (scratch), lsum, wsum
+    "dmlc_pair_sums_fwd": [_P, _P, _P, _P, _I64, _P, _P, _P, _P],
+    # margins, label, qid, weight, s (device scalar), n, g [n]
+    "dmlc_pair_sums_bwd": [_P, _P, _P, _P, _P, _I64, _P, _P],
 }
 
 _lib = None

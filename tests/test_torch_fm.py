@@ -11,7 +11,10 @@ on the CPU, with the segment sums in different orders. For the pair term
 itself the rtol applies to the sum of its terms' magnitudes, not to the
 result: the reference computes the FFM pair as an ordered-pair total
 less a diagonal, which cancel, and the rounding error of a sum scales
-with its terms. NaN must sit at the same places on both sides.
+with its terms. NaN must sit at the same places on both sides. The index
+rule (ROADMAP C6: low 32 bits, signed, negative counted from the end) and
+the field rule (low 32 bits, signed, then clipped) are held to the
+reference at u32 2³²−1 and 2³¹, u64 2³²+3, int32 −1 and a field of 2³¹.
 """
 
 import jax
@@ -35,13 +38,15 @@ RTOL, ATOL = 1e-5, 1e-6
 
 def _csr(seed, rows=48, features=200, fields=5, K=4, ffm=False, max_nnz=10,
          pad_rows=0, pad_nnz=0, empty=(), out_of_range=(), bad_field=(),
-         index_dtype=np.uint32):
+         raw=(), raw_field=(), index_dtype=np.uint32):
     """A padded CSR batch with a field column, V and a cotangent g:
     ``pad_rows`` empty tail rows, ``pad_nnz`` zero-valued tail nonzeros,
     rows in ``empty`` emptied, an index past the features in each row of
-    ``out_of_range`` and a field past the fields (and one below 0) in
-    each row of ``bad_field``. Rows hold up to ``max_nnz`` nonzeros over
-    ``fields`` fields, so several nonzeros of a row share a field."""
+    ``out_of_range``, a field past the fields (and one below 0) in each
+    row of ``bad_field``, and for each (row, v) of ``raw`` (``raw_field``)
+    the raw index (field) v as the row's first. Rows hold up to
+    ``max_nnz`` nonzeros over ``fields`` fields, so several nonzeros of a
+    row share a field."""
     rng = np.random.RandomState(seed)
     lens = rng.randint(2, max_nnz + 1, rows)
     lens[list(empty)] = 0
@@ -61,6 +66,10 @@ def _csr(seed, rows=48, features=200, fields=5, K=4, ffm=False, max_nnz=10,
     for r in bad_field:
         field[offset[r]] = fields + 3
         field[offset[r] + 1] = -2
+    for r, v in raw:
+        index[offset[r]] = v
+    for r, v in raw_field:
+        field[offset[r]] = v
     shape = (features, fields, K) if ffm else (features, K)
     V = (0.3 * rng.randn(*shape)).astype(np.float32)
     g = rng.randn(rows).astype(np.float32)
@@ -80,7 +89,35 @@ CASES = {
     "factors_3": dict(seed=8, K=3),
     "factors_40": dict(seed=9, K=40, rows=16),
     "one_field": dict(seed=10, fields=1),
+    # the index rule (C6): u32 2^32-1 reads V[F-1], 2^31 is invalid
+    "c6_u32": dict(seed=17, raw=((3, 2**32 - 1), (9, 2**31),
+                                 (12, 2**32 - 5))),
+    # u64: 2^32+3 reads V[3], 2^32-2 V[F-2], 2^40+2^31 is invalid
+    "c6_u64": dict(seed=18, index_dtype=np.uint64, pad_nnz=4,
+                   raw=((3, 2**32 + 3), (9, 2**32 - 2), (20, 2**40 + 2**31))),
+    # int32: -1 reads V[F-1], -F-1 is invalid
+    "c6_int32": dict(seed=19, index_dtype=np.int32,
+                     raw=((3, -1), (9, -201))),
+    # the field rule: 2^31 wraps negative and clips to field 0, 2^32+2
+    # reads field 2, 2^31-1 clips to the last field
+    "c6_field": dict(seed=20, raw_field=((2, 2**31), (5, 2**32 + 2),
+                                         (8, 2**31 - 1), (11, -2**31))),
 }
+
+
+def _ref_index(raw, n):
+    """The reference's reading of raw indices into a table of n: low 32
+    bits, signed, negative counted from the end (numpy, independent of
+    the port); -1 where invalid."""
+    j = (np.asarray(raw).astype(np.uint64) & 0xFFFFFFFF).astype(np.int64)
+    j = np.where(j >= 2**31, j - 2**32, j)
+    j = np.where(j < 0, j + n, j)
+    return np.where((j >= 0) & (j < n), j, -1)
+
+
+def _ref_field(raw, nf):
+    j = (np.asarray(raw).astype(np.uint64) & 0xFFFFFFFF).astype(np.int64)
+    return np.clip(np.where(j >= 2**31, j - 2**32, j), 0, nf - 1)
 
 
 def _t(a):
@@ -115,18 +152,24 @@ def _sum_abs_terms(c, ffm):
     pair = _port_pair(a, _t(a["V"]), ffm).numpy().astype(np.float64)
     rows = np.repeat(np.arange(len(c["offset"]) - 1), np.diff(c["offset"]))
     k = np.arange(len(rows))
-    idx = np.minimum(c["index"][k].astype(np.int64), len(c["V"]) - 1)
+    idx = np.maximum(_ref_index(c["index"][k], len(c["V"])), 0)
     v = a["V"][idx]
     if ffm:
-        v = v[k, np.clip(c["field"][k], 0, c["V"].shape[1] - 1)]
+        v = v[k, _ref_field(c["field"][k], c["V"].shape[1])]
     vx = (a["value"][k, None] * v).astype(np.float64)
     diag = np.zeros(len(pair))
     np.add.at(diag, rows, (vx * vx).sum(-1))
     return pair + diag
 
 
-@pytest.mark.parametrize("ffm", [False, True], ids=["fm", "ffm"])
-@pytest.mark.parametrize("case", sorted(CASES))
+# every case for FM and FFM, but the field rule's for FFM only (FM reads
+# no field)
+PAIR_CASES = [pytest.param(case, ffm, id=f"{case}-{'ffm' if ffm else 'fm'}")
+              for case in sorted(CASES) for ffm in (False, True)
+              if ffm or case != "c6_field"]
+
+
+@pytest.mark.parametrize("case,ffm", PAIR_CASES)
 def test_pair_plain_matches_jax(case, ffm):
     c = _csr(ffm=ffm, **CASES[case])
     want = np.asarray(_ref_pair(c, ffm)(jnp.asarray(c["V"])))
@@ -137,8 +180,7 @@ def test_pair_plain_matches_jax(case, ffm):
     assert ok.all(), np.abs(got - want)[~ok]
 
 
-@pytest.mark.parametrize("ffm", [False, True], ids=["fm", "ffm"])
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case,ffm", PAIR_CASES)
 def test_pair_backward_matches_jax_grad(case, ffm):
     """The autograd pair (the plain backward on the CPU) against the
     cotangent g pulled back through the reference in V."""
@@ -154,7 +196,7 @@ def test_pair_backward_matches_jax_grad(case, ffm):
 
 def _brute_force_ffm(c):
     """The FFM pair term by its definition, Σ_{i<j} <v_{i,f_j}, v_{j,f_i}>
-    x_i x_j, row by row in float64 (fields clipped as the model does)."""
+    x_i x_j, row by row in float64 (fields read as the model does)."""
     V = c["V"].astype(np.float64)
     nf = V.shape[1]
     out = []
@@ -162,7 +204,7 @@ def _brute_force_ffm(c):
         s, e = int(c["offset"][r]), int(c["offset"][r + 1])
         idx = c["index"][s:e].astype(np.int64)
         val = c["value"][s:e].astype(np.float64)
-        fld = np.clip(c["field"][s:e], 0, nf - 1)
+        fld = _ref_field(c["field"][s:e], nf)
         m = 0.0
         for a in range(len(idx)):
             for b in range(a + 1, len(idx)):
@@ -173,7 +215,7 @@ def _brute_force_ffm(c):
 
 
 @pytest.mark.parametrize("case", ["plain", "empty_rows", "bad_field",
-                                  "long_rows", "one_field"])
+                                  "long_rows", "one_field", "c6_field"])
 def test_ffm_pair_matches_pairwise_definition(case):
     c = _csr(ffm=True, **CASES[case])
     got = _port_pair(c, _t(c["V"]), True).numpy()

@@ -138,3 +138,27 @@ def test_cpu_calls_do_not_count_as_launches():
     csr.csr_spmv(off, idx, torch.ones(2), torch.ones(4))
     csr.csr_spmv_t(off, idx, torch.ones(2), torch.ones(1), 4)
     assert (csr.csr_spmv.launches, csr.csr_spmv_t.launches) == before
+
+
+def test_every_kernel_source_is_built_and_every_entry_declared():
+    """The kernel library is built from every source under csrc/, and each
+    C entry point has a ctypes declaration with as many arguments as the
+    source gives it (no card is needed to catch a drift between the two)."""
+    import glob
+    import re
+    from dmlc_tpu_torch.ops.kernels import _SIGNATURES
+    csrc = os.path.join(PKG, "csrc")
+    assert sorted(build.KERNEL_SRCS) == sorted(
+        glob.glob(os.path.join(csrc, "*.cu")))
+    assert sorted(build.KERNEL_HEADERS) == sorted(
+        glob.glob(os.path.join(csrc, "*.cuh")))
+    entries = {}
+    for src in build.KERNEL_SRCS:
+        with open(src, encoding="utf-8") as f:
+            text = f.read()
+        for name, params in re.findall(r"^int (dmlc_\w+)\(([^)]*)\)", text,
+                                       flags=re.M):
+            entries[name] = len(params.split(","))
+    assert sorted(entries) == sorted(_SIGNATURES)
+    for name, count in entries.items():
+        assert len(_SIGNATURES[name]) == count, name
