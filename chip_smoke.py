@@ -25,7 +25,9 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    K6 (``ffm_pair_fwd``/``_bwd``) against their plain versions with the
    same edge cases plus fields out of range, timed beside their bounds;
    K5 and K6 also at other shapes (3 and 40 factors; 3 colliding
-   fields; 60 fields, past 48 KB of shared memory; 300 fields must raise);
+   fields; 60 fields, past 48 KB of shared memory; 50 fields of 6
+   factors, more columns than a block's threads, rows longer than a
+   staged chunk; 300 fields must raise);
    one epoch each of ``SparseFMModel(1_000_000, num_factors=8)`` and
    ``SparseFFMModel(1_000_000, 39, num_factors=4)`` through native
    padded batches with ``field`` and pinned async H2D (the loss must
@@ -122,11 +124,12 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # K2 adds with fp32 atomics whose order varies from run to run.
 K2_RTOL, K2_ATOL = 1e-4, 1e-6
 # K5 and K6 forward sum each row in another fp32 order than the plain
-# versions (lane partials and shuffle trees, shared-memory atomics into S;
-# the plain FFM takes its diagonal off as the kernel does, the plain FM
-# sums by index_add_). As for K1, the rounding error scales with the sum
-# of the terms' magnitudes, so the rtol applies to each row's sum|terms|:
-# for FM 1/2 sum_f (s_abs^2 + sq), for FFM 1/2 (sum_ab <S,S^T>_abs + diag).
+# versions (lane partials and shuffle trees; per-column sums over the
+# fields and a block reduction; the plain FFM takes its diagonal off as
+# the kernel does, the plain FM sums by index_add_). As for K1, the
+# rounding error scales with the sum of the terms' magnitudes, so the rtol
+# applies to each row's sum|terms|: for FM 1/2 sum_f (s_abs^2 + sq), for
+# FFM 1/2 (sum_ab <S,S^T>_abs + diag).
 PAIR_RTOL, PAIR_ATOL = 1e-5, 1e-6
 # K5 and K6 backward add into gV with fp32 atomics whose order varies from
 # run to run, as K2 does.
@@ -429,7 +432,9 @@ def edge_case_batch(first):
     (C6): 2^32-1 in row 50 (reads F-1), 2^31 in row 60 (invalid) and
     2^32+3 in row 70 (reads 3); where the batch has a field column, a
     field past the FFM's fields in row 30, one below 0 in row 40 and 2^31
-    in row 80 (all clipped). The index is returned as u64; its u32 copy
+    in row 80 (all clipped), and 2^31 (invalid) at the first nonzero of
+    the padded tail, which belongs to no row and must add nothing to a
+    gradient (ROADMAP C7). The index is returned as u64; its u32 copy
     keeps the low 32 bits. Returns (offset, index, value, field or None,
     the rows of invalid indices)."""
     import numpy as np
@@ -461,6 +466,8 @@ def edge_case_batch(first):
         fld[new_off[30]] = FFM_FIELDS + 4
         fld[new_off[40] + 2] = -3
         fld[new_off[80] + 1] = WRAP_BAD
+        require(nnz < idx.size, "the factor batch has no padded tail")
+        idx[nnz] = WRAP_BAD
     return new_off, idx, val, fld, [20, 60]
 
 
@@ -718,9 +725,9 @@ def check_factor_kernels(first):
                     "ffm_pair_fwd": e6, "ffm_pair_bwd": g6}
     torch.cuda.empty_cache()
     log("factor kernels agree with their plain versions (u32 and u64 "
-        "index; empty rows, padded tail, index at F-1, an out-of-range "
-        "index, indices 2^32-1, 2^31 and 2^32+3, fields past the fields, "
-        "below 0 and at 2^31): "
+        "index; empty rows, padded tail with an invalid index, index at "
+        "F-1, an out-of-range index, indices 2^32-1, 2^31 and 2^32+3, "
+        "fields past the fields, below 0 and at 2^31): "
         + ", ".join(f"{k} max |err| {v[0]:.3g} (/ sum|terms| {v[1]:.3g})"
                     if isinstance(v, tuple) else f"{k} max |err| {v:.3g}"
                     for k, v in errs.items())
@@ -809,9 +816,12 @@ def check_factor_shapes():
     """K5 and K6 against their plain versions at shapes other than the
     path's, on small seeded batches: K5 with 3 and 40 factors (not a power
     of two; more than a warp's lanes), K6 with 3 fields of 5 factors
-    (several nonzeros of a row in one field: colliding shared-memory
-    adds) and with 60 fields (S and D take 58.6 KB, past the 48 KB
-    default: the opt-in size); and K6 with 300 fields, whose S does not
+    (several nonzeros of a row in one field add into one entry of S),
+    with 60 fields (S and D take 58.6 KB, past the 48 KB default: the
+    opt-in size) and with 50 fields of 6 factors, rows of up to 150
+    nonzeros (300 columns of S, more than a block's 256 threads, and 256 %
+    6 != 0, so a thread's second column wraps its factor; 61.2 KB; 64
+    nonzeros staged at a time); and K6 with 300 fields, whose S does not
     fit a block, which must raise a named error."""
     import numpy as np
     import torch
@@ -835,7 +845,7 @@ def check_factor_shapes():
 
     done = []
     for fields, factors, max_nnz in ((None, 3, 30), (None, 40, 70),
-                                     (3, 5, 30), (60, 4, 40)):
+                                     (3, 5, 30), (60, 4, 40), (50, 6, 150)):
         off, idx, val, fld, V, g = batch(300, 500, fields, factors, max_nnz)
         csr_cols, abs_cols = (off, idx, val), (off, idx, val.abs())
         if fields is None:

@@ -48,14 +48,23 @@
 //     groups with xor shuffles. The backward uses the same mapping and
 //     adds with fp32 atomicAdd into a zeroed gV (not bitwise
 //     deterministic).
-//   - K6: one block per row. S (nf*nf*K floats) and the per-field squares
-//     D (nf*K floats) live in dynamic shared memory, 24,960 B at 39/4;
-//     threads cover (nonzero, b, f), and their adds into S[f_k,b,:] use
-//     shared-memory atomics, since several nonzeros of a row may share a
-//     field. A block-wide reduction gives the pair. The backward rebuilds
-//     S the same way (it is not saved: 8192 rows of it would be 200 MB)
-//     and scatters with fp32 atomics. Where S and D do not fit a block's
-//     shared memory (the opt-in size above 48 KB) the launch returns
+//   - K6: one block per row, one thread per column c = b*K + f of S (nf*K
+//     columns, 156 at 39/4; the block is that rounded up to a warp, at most
+//     256 threads, each owning columns c, c + blockDim, ...). S (nf*nf*K
+//     floats) and the per-field squares D (nf*K floats) live in dynamic
+//     shared memory, 24,960 B at 39/4. The row's nonzeros are staged in
+//     shared memory 64 at a time, each wrapped and clipped once; then the
+//     thread of column c reads V[j, c] for each (a whole row of V across
+//     the block, coalesced; 8 nonzeros' loads in flight before their adds,
+//     since one at a time left each thread waiting out the latency) and
+//     adds into S[a, c], which only it writes: no atomics, a fixed order of
+//     sums, and no integer division in any loop (a thread finds its b and f
+//     once, in 32-bit arithmetic). The pair is each thread's sum over a and
+//     one block reduction, so the forward is deterministic. The backward
+//     rebuilds S the same way (it is not saved: 8192 rows of it would be
+//     200 MB) and adds each valid nonzero's row of gV with coalesced fp32
+//     atomics. Where S and D do not fit a block's shared memory (the
+//     opt-in size above 48 KB, less the static staging) the launch returns
 //     cudaErrorInvalidValue; the wrapper checks first and raises.
 //   - Products that meet a subtraction are rounded on their own
 //     (__fmul_rn), not contracted into an FMA, so that a pair term that is
@@ -73,8 +82,7 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kWarpThreads = 256;   // K5: 8 warps = 8 rows per block
-constexpr int kBlockThreads = 256;  // K6: one block per row
+constexpr int kWarpThreads = 256;  // K5: 8 warps = 8 rows per block
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
@@ -191,17 +199,57 @@ unsigned warp_grid(int64_t num_rows) {
 
 // ---------------------------------------------------------------- K6
 
-// Sums v over the block; the result is valid in thread 0.
+constexpr int kMaxBlockThreads = 256;  // K6: one block per row
+constexpr int kChunk = 64;             // K6: nonzeros staged at once
+constexpr int kBatch = 8;  // K6: loads of V a thread issues before it adds
+
+// A row's nonzeros, kChunk at a time, in static shared memory: base = j *
+// nk, the offset of the row of V that the index reads (-1 where it is
+// invalid), the clipped field a and the value x.
+struct Staged {
+  int64_t base[kChunk];
+  int a[kChunk];
+  float x[kChunk];
+};
+
+// The static shared memory of a K6 block: the staged nonzeros and the
+// forward's reduction scratch.
+constexpr int64_t kStaticSharedBytes =
+    sizeof(Staged) + sizeof(float) * (kMaxBlockThreads / kWarp);
+
+// The columns c = b * K + f of S[a, :, :] that a thread owns: threadIdx.x,
+// then every blockDim.x on. b and f come from one 32-bit division at the
+// first column and are stepped without one.
+struct Column {
+  int c, b, f, db, df;
+  __device__ explicit Column(int K)
+      : c(threadIdx.x),
+        b(threadIdx.x / K),
+        f(threadIdx.x % K),
+        db(blockDim.x / K),
+        df(blockDim.x % K) {}
+  __device__ void next(int K) {
+    c += blockDim.x;
+    b += db;
+    f += df;
+    if (f >= K) {
+      f -= K;
+      ++b;
+    }
+  }
+};
+
+// Sums v over the block, in a fixed order; the result is valid in thread 0.
 __device__ float block_sum(float v, float* scratch) {
   v = warp_sum(v);
-  const int warp = threadIdx.x / kWarp;
-  if (threadIdx.x % kWarp == 0) scratch[warp] = v;
+  if (threadIdx.x % kWarp == 0) scratch[threadIdx.x / kWarp] = v;
   __syncthreads();
   float out = 0.0f;
   if (threadIdx.x == 0) {
-    for (int w = 0; w < kBlockThreads / kWarp; ++w) out += scratch[w];
+    for (int w = 0; w < static_cast<int>(blockDim.x) / kWarp; ++w) {
+      out += scratch[w];
+    }
   }
-  __syncthreads();
   return out;
 }
 
@@ -212,33 +260,67 @@ __host__ __device__ __forceinline__ int64_t ffm_shared_floats(int64_t nf,
   return nf * nf * K + nf * K;
 }
 
-// One row's S[a, b, f] = sum_{k: f_k = a} x_k V[i_k, b, f] into shared
-// memory and, with want_D, D[a, f] = sum_{k: f_k = a} (x_k V[i_k, a, f])^2,
-// the part of S[a, a, f]^2 that pairs a nonzero with itself.
+// Stages the nonzeros k0 .. min(k0 + kChunk, hi) - 1, each wrapped and
+// clipped once; returns how many. Every thread of the block calls it.
 template <typename IndexT>
-__device__ void build_S(float* S, float* D, bool want_D, int64_t lo,
-                        int64_t hi, const IndexT* __restrict__ index,
+__device__ int stage(Staged& st, int64_t k0, int64_t hi,
+                     const IndexT* __restrict__ index,
+                     const float* __restrict__ value,
+                     const int64_t* __restrict__ field, int64_t num_features,
+                     int nf, int nk) {
+  const int m = static_cast<int>(hi - k0 < kChunk ? hi - k0 : kChunk);
+  __syncthreads();  // the previous chunk's readers are done
+  for (int t = threadIdx.x; t < m; t += blockDim.x) {
+    const int64_t k = k0 + t;
+    int64_t j;
+    const bool ok = dmlc_index::wrap(index[k], num_features, &j);
+    st.base[t] = ok ? j * nk : -1;
+    st.a[t] = static_cast<int>(dmlc_index::clip_field(field[k], nf));
+    st.x[t] = value[k];
+  }
+  __syncthreads();
+  return m;
+}
+
+// One row's S[a, b, f] = sum_{k: f_k = a} x_k V[i_k, b, f] into shared
+// memory and, where D is given, D[a, f] = sum_{k: f_k = a} (x_k V[i_k, a,
+// f])^2, the part of S[a, a, f]^2 that pairs a nonzero with itself. The
+// thread of column c reads V[j, c] for each staged nonzero (the block reads
+// a row of V whole, coalesced) and alone writes S[:, c] and D[c] (D[a, f]
+// with a == b is D[c]): no atomics, and the sums run in the nonzeros'
+// order. On return the staging holds the row's last chunk.
+template <typename IndexT>
+__device__ void build_S(float* S, float* D, Staged& st, const Column& first,
+                        int64_t lo, int64_t hi,
+                        const IndexT* __restrict__ index,
                         const float* __restrict__ value,
                         const int64_t* __restrict__ field,
                         const float* __restrict__ V, int64_t num_features,
-                        int64_t nf, int64_t K) {
-  const int64_t nk = nf * K;
-  for (int64_t t = threadIdx.x; t < ffm_shared_floats(nf, K);
-       t += kBlockThreads) {
-    S[t] = 0.0f;  // D follows S
-  }
-  __syncthreads();
-  const int64_t work = (hi - lo) * nk;
-  for (int64_t t = threadIdx.x; t < work; t += kBlockThreads) {
-    const int64_t k = lo + t / nk;
-    const int64_t rem = t % nk;  // b * K + f
-    int64_t j;
-    const bool ok = dmlc_index::wrap(index[k], num_features, &j);
-    const int64_t a = dmlc_index::clip_field(field[k], nf);
-    const float v = ok ? __ldg(V + j * nk + rem) : nan_f();
-    const float vx = __fmul_rn(value[k], v);
-    atomicAdd(S + a * nk + rem, vx);
-    if (want_D && rem / K == a) atomicAdd(D + rem, __fmul_rn(vx, vx));
+                        int nf, int K) {
+  const int nk = nf * K;
+  const int floats = nf * nk + (D != nullptr ? nk : 0);
+  for (int t = threadIdx.x; t < floats; t += blockDim.x) S[t] = 0.0f;
+  for (int64_t k0 = lo; k0 < hi; k0 += kChunk) {
+    const int m = stage(st, k0, hi, index, value, field, num_features, nf, nk);
+    for (Column col = first; col.c < nk; col.next(K)) {
+      float* s_col = S + col.c;  // S[a, b, f] at a * nk
+      for (int t0 = 0; t0 < m; t0 += kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int64_t base = t0 + u < m ? st.base[t0 + u] : -1;
+          v[u] = base >= 0 ? __ldg(V + base + col.c) : nan_f();
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (t0 + u >= m) break;
+          const int a = st.a[t0 + u];
+          const float vx = __fmul_rn(st.x[t0 + u], v[u]);
+          s_col[a * nk] += vx;
+          if (D != nullptr && a == col.b) D[col.c] += __fmul_rn(vx, vx);
+        }
+      }
+    }
   }
   __syncthreads();
 }
@@ -248,74 +330,110 @@ __device__ void build_S(float* S, float* D, bool want_D, int64_t lo,
 // entry by entry. Where a field holds one nonzero (Criteo's rows), its
 // S[a,a,f]^2 - D[a,f] is exactly 0, and a row of one nonzero has a pair of
 // exactly 0, as the reference's eager value (no FMA contraction: the
-// products are rounded on their own).
+// products are rounded on their own). The thread of column (b, f) sums over
+// a; its reads of S[b, a, f] fall in distinct banks across a warp (at 39/4:
+// b * 156 mod 32 = 28 b). One block reduction in a fixed order makes the
+// result deterministic.
 template <typename IndexT>
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(kMaxBlockThreads)
     ffm_pair_fwd_kernel(const int64_t* __restrict__ offset,
                         const IndexT* __restrict__ index,
                         const float* __restrict__ value,
                         const int64_t* __restrict__ field,
                         const float* __restrict__ V, int64_t nnz,
-                        int64_t num_features, int64_t nf, int64_t K,
+                        int64_t num_features, int nf, int K,
                         float* __restrict__ pair) {
   extern __shared__ float S[];
-  __shared__ float scratch[kBlockThreads / kWarp];
+  __shared__ Staged st;
+  __shared__ float scratch[kMaxBlockThreads / kWarp];
   const int64_t row = blockIdx.x;
-  const int64_t nk = nf * K;
+  const int nk = nf * K;
   float* D = S + nf * nk;
+  const Column first(K);
   int64_t lo, hi;
   row_range(offset, row, nnz, &lo, &hi);
-  build_S(S, D, true, lo, hi, index, value, field, V, num_features, nf, K);
+  build_S(S, D, st, first, lo, hi, index, value, field, V, num_features, nf,
+          K);
   float total = 0.0f;
-  for (int64_t t = threadIdx.x; t < nf * nk; t += kBlockThreads) {
-    const int64_t a = t / nk;
-    const int64_t rem = t % nk;
-    const int64_t b = rem / K;
-    const int64_t f = rem % K;
-    total += a == b ? __fmul_rn(S[t], S[t]) - D[a * K + f]
-                    : __fmul_rn(S[t], S[b * nk + a * K + f]);
+  for (Column col = first; col.c < nk; col.next(K)) {
+    const float* mine = S + col.c;                   // S[a, b, f] at a * nk
+    const float* other = S + col.b * nk + col.f;     // S[b, a, f] at a * K
+    for (int a = 0; a < nf; ++a) {
+      const float p = __fmul_rn(mine[a * nk], other[a * K]);
+      total += a == col.b ? p - D[col.c] : p;
+    }
   }
   const float sum = block_sum(total, scratch);
   if (threadIdx.x == 0) pair[row] = 0.5f * sum;
 }
 
+// gV[j_k, b, f] += g[r] x_k (S[b, a_k, f] - [b = a_k] x_k V[j_k, b, f]) for
+// each valid nonzero k of the row: the thread of column c adds into gV[j_k,
+// c], so each nonzero is one coalesced row of fp32 reductions.
 template <typename IndexT>
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(kMaxBlockThreads)
     ffm_pair_bwd_kernel(const int64_t* __restrict__ offset,
                         const IndexT* __restrict__ index,
                         const float* __restrict__ value,
                         const int64_t* __restrict__ field,
                         const float* __restrict__ V,
                         const float* __restrict__ g, int64_t nnz,
-                        int64_t num_features, int64_t nf, int64_t K,
+                        int64_t num_features, int nf, int K,
                         float* __restrict__ gV) {
   extern __shared__ float S[];
+  __shared__ Staged st;
   const int64_t row = blockIdx.x;
-  const int64_t nk = nf * K;
+  const int nk = nf * K;
+  const Column first(K);
   int64_t lo, hi;
   row_range(offset, row, nnz, &lo, &hi);
-  build_S(S, S + nf * nk, false, lo, hi, index, value, field, V,
+  build_S(S, nullptr, st, first, lo, hi, index, value, field, V,
           num_features, nf, K);
   const float gr = g[row];
-  const int64_t work = (hi - lo) * nk;
-  for (int64_t t = threadIdx.x; t < work; t += kBlockThreads) {
-    const int64_t k = lo + t / nk;
-    const int64_t rem = t % nk;  // b * K + f
-    int64_t j;
-    if (!dmlc_index::wrap(index[k], num_features, &j)) continue;
-    const int64_t a = dmlc_index::clip_field(field[k], nf);
-    const int64_t b = rem / K;
-    const float x = value[k];
-    float d = S[b * nk + a * K + rem % K];  // S[b, f_k, f]
-    if (b == a) d -= __fmul_rn(x, __ldg(V + j * nk + rem));
-    atomicAdd(gV + j * nk + rem, gr * x * d);
+  // a row of one chunk is still staged from the build
+  const bool restage = hi - lo > kChunk;
+  for (int64_t k0 = lo; k0 < hi; k0 += kChunk) {
+    const int m = restage ? stage(st, k0, hi, index, value, field,
+                                  num_features, nf, nk)
+                          : static_cast<int>(hi - lo);
+    for (Column col = first; col.c < nk; col.next(K)) {
+      const float* s_b = S + col.b * nk + col.f;  // S[b, a, f] at a * K
+      for (int t0 = 0; t0 < m; t0 += kBatch) {
+        float own[kBatch];  // V[j, c] where the nonzero's field is b
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int t = t0 + u;
+          const bool mine = t < m && st.base[t] >= 0 && st.a[t] == col.b;
+          own[u] = mine ? __ldg(V + st.base[t] + col.c) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int t = t0 + u;
+          if (t >= m) break;
+          const int64_t base = st.base[t];
+          if (base < 0) continue;
+          const int a = st.a[t];
+          const float x = st.x[t];
+          float d = s_b[a * K];
+          if (a == col.b) d -= __fmul_rn(x, own[u]);
+          atomicAdd(gV + base + col.c, gr * x * d);
+        }
+      }
+    }
   }
+}
+
+// A K6 block's threads: nf * K rounded up to a warp, at most
+// kMaxBlockThreads.
+unsigned ffm_threads(int64_t nf, int64_t K) {
+  const int64_t t = (nf * K + kWarp - 1) / kWarp * kWarp;
+  return static_cast<unsigned>(t < kMaxBlockThreads ? t : kMaxBlockThreads);
 }
 
 constexpr int64_t kDefaultSharedBytes = 48 * 1024;
 
 // The dynamic shared memory a K6 block may take on the current device:
-// the opt-in maximum less the kernels' static scratch.
+// the opt-in maximum less the kernels' static shared memory.
 cudaError_t ffm_max_shared(int64_t* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -324,8 +442,7 @@ cudaError_t ffm_max_shared(int64_t* out) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return err;
-  *out = static_cast<int64_t>(optin) -
-         static_cast<int64_t>(sizeof(float)) * (kBlockThreads / kWarp);
+  *out = static_cast<int64_t>(optin) - kStaticSharedBytes;
   return cudaSuccess;
 }
 
@@ -431,20 +548,21 @@ int dmlc_ffm_pair_fwd(const void* offset, const void* index, int index_bytes,
   const auto* v = static_cast<const float*>(V);
   auto* p = static_cast<float*>(pair);
   const unsigned grid = static_cast<unsigned>(num_rows);
+  const unsigned threads = ffm_threads(nf, K);
   int64_t bytes = 0;
   cudaError_t err;
   if (index_bytes == 4) {
     err = prepare_ffm(ffm_pair_fwd_kernel<uint32_t>, nf, K, &bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_pair_fwd_kernel<uint32_t><<<grid, kBlockThreads, bytes, st>>>(
+    ffm_pair_fwd_kernel<uint32_t><<<grid, threads, bytes, st>>>(
         off, static_cast<const uint32_t*>(index), val, fld, v, nnz,
-        num_features, nf, K, p);
+        num_features, static_cast<int>(nf), static_cast<int>(K), p);
   } else if (index_bytes == 8) {
     err = prepare_ffm(ffm_pair_fwd_kernel<uint64_t>, nf, K, &bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_pair_fwd_kernel<uint64_t><<<grid, kBlockThreads, bytes, st>>>(
+    ffm_pair_fwd_kernel<uint64_t><<<grid, threads, bytes, st>>>(
         off, static_cast<const uint64_t*>(index), val, fld, v, nnz,
-        num_features, nf, K, p);
+        num_features, static_cast<int>(nf), static_cast<int>(K), p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -467,20 +585,21 @@ int dmlc_ffm_pair_bwd(const void* offset, const void* index, int index_bytes,
   const auto* gi = static_cast<const float*>(g);
   auto* out = static_cast<float*>(gV);
   const unsigned grid = static_cast<unsigned>(num_rows);
+  const unsigned threads = ffm_threads(nf, K);
   int64_t bytes = 0;
   cudaError_t err;
   if (index_bytes == 4) {
     err = prepare_ffm(ffm_pair_bwd_kernel<uint32_t>, nf, K, &bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_pair_bwd_kernel<uint32_t><<<grid, kBlockThreads, bytes, st>>>(
+    ffm_pair_bwd_kernel<uint32_t><<<grid, threads, bytes, st>>>(
         off, static_cast<const uint32_t*>(index), val, fld, v, gi, nnz,
-        num_features, nf, K, out);
+        num_features, static_cast<int>(nf), static_cast<int>(K), out);
   } else if (index_bytes == 8) {
     err = prepare_ffm(ffm_pair_bwd_kernel<uint64_t>, nf, K, &bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_pair_bwd_kernel<uint64_t><<<grid, kBlockThreads, bytes, st>>>(
+    ffm_pair_bwd_kernel<uint64_t><<<grid, threads, bytes, st>>>(
         off, static_cast<const uint64_t*>(index), val, fld, v, gi, nnz,
-        num_features, nf, K, out);
+        num_features, static_cast<int>(nf), static_cast<int>(K), out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

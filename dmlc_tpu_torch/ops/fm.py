@@ -118,8 +118,11 @@ def ffm_pair_fwd_plain(offset, index, value, field, V) -> torch.Tensor:
 
 def ffm_pair_bwd_plain(offset, index, value, field, V, g) -> torch.Tensor:
     """Plain version of K6 backward: S rebuilt, S[r, :, f_k, :] gathered
-    per nonzero, the diagonal's own term taken off, index_add_ into gV."""
-    nf = V.shape[1]
+    per nonzero, the diagonal's own term taken off, index_add_ into gV.
+    The padded tail's nonzeros are dropped with the invalid ones: their
+    row of S sums the tail, NaN where a tail index is invalid, and
+    0 · NaN would reach gV (ROADMAP C7)."""
+    n, nf = offset.numel() - 1, V.shape[1]
     seg, f, vx, S, idx, keep = _ffm_S(offset, index, value, field, V)
     d = S[seg, :, f]  # [nnz, nf (b), K] = S[r, b, f_k, :]
     own = torch.nn.functional.one_hot(f, nf).to(V.dtype)[:, :, None]
@@ -127,7 +130,7 @@ def ffm_pair_bwd_plain(offset, index, value, field, V, g) -> torch.Tensor:
     d = d - own * vsel[:, None, :]
     contrib = (_with_tail(g)[seg] * value)[:, None, None] * d
     return torch.zeros_like(V).index_add_(
-        0, idx, torch.where(keep[:, None, None], contrib, 0.0))
+        0, idx, torch.where((keep & (seg < n))[:, None, None], contrib, 0.0))
 
 
 # ------------------------------------------------------------ wrappers

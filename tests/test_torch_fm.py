@@ -38,13 +38,14 @@ RTOL, ATOL = 1e-5, 1e-6
 
 def _csr(seed, rows=48, features=200, fields=5, K=4, ffm=False, max_nnz=10,
          pad_rows=0, pad_nnz=0, empty=(), out_of_range=(), bad_field=(),
-         raw=(), raw_field=(), index_dtype=np.uint32):
+         raw=(), raw_field=(), tail_raw=(), index_dtype=np.uint32):
     """A padded CSR batch with a field column, V and a cotangent g:
     ``pad_rows`` empty tail rows, ``pad_nnz`` zero-valued tail nonzeros,
     rows in ``empty`` emptied, an index past the features in each row of
     ``out_of_range``, a field past the fields (and one below 0) in each
     row of ``bad_field``, and for each (row, v) of ``raw`` (``raw_field``)
-    the raw index (field) v as the row's first. Rows hold up to
+    the raw index (field) v as the row's first, and for each (k, v) of
+    ``tail_raw`` the raw index v at the k-th tail nonzero. Rows hold up to
     ``max_nnz`` nonzeros over ``fields`` fields, so several nonzeros of a
     row share a field."""
     rng = np.random.RandomState(seed)
@@ -70,6 +71,8 @@ def _csr(seed, rows=48, features=200, fields=5, K=4, ffm=False, max_nnz=10,
         index[offset[r]] = v
     for r, v in raw_field:
         field[offset[r]] = v
+    for k, v in tail_raw:
+        index[nnz + k] = v
     shape = (features, fields, K) if ffm else (features, K)
     V = (0.3 * rng.randn(*shape)).astype(np.float32)
     g = rng.randn(rows).astype(np.float32)
@@ -102,6 +105,9 @@ CASES = {
     # reads field 2, 2^31-1 clips to the last field
     "c6_field": dict(seed=20, raw_field=((2, 2**31), (5, 2**32 + 2),
                                          (8, 2**31 - 1), (11, -2**31))),
+    # an invalid index (2^31) in the padded tail, beside tail nonzeros of
+    # index 0: the tail belongs to no row, so it adds nothing to gV (C7)
+    "c7_tail": dict(seed=21, pad_rows=2, pad_nnz=3, tail_raw=((1, 2**31),)),
 }
 
 
