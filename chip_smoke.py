@@ -27,7 +27,8 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    K5 and K6 also at other shapes (3 and 40 factors; 3 colliding
    fields; 60 fields, past 48 KB of shared memory; 50 fields of 6
    factors, more columns than a block's threads, rows longer than a
-   staged chunk; 300 fields must raise);
+   staged chunk; 39 fields of 40 factors, 120 of 4 and 300 of 1, past a
+   block's shared memory, through K6's global route, which is timed);
    one epoch each of ``SparseFMModel(1_000_000, num_factors=8)`` and
    ``SparseFFMModel(1_000_000, 39, num_factors=4)`` through native
    padded batches with ``field`` and pinned async H2D (the loss must
@@ -39,7 +40,12 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    1-240 documents); K7 (``pair_sums``/``pair_sums_grad``) against its
    plain versions on the path's first batch with edge cases (a padded
    tail, an all-padded batch, a query of equal labels, a query split into
-   non-contiguous rows, all-zero margins, a NaN margin), K3
+   non-contiguous rows, all-zero margins, a NaN margin, a -inf margin, two
+   margins of +-3e38, a NaN weight on a padded row, a weight of 2e19, one
+   query over the batch, every row its own query, interleaved queries;
+   the gradient also at a cotangent of inf), each kernel's tile and rows
+   a block swept, the share of tiles each block skips, and K7 timed at
+   two batches where no tile can be skipped, K3
    (``sdot_rows``) and K4 (``csr_to_dense``) on the same batch, each
    timed beside its bound; one epoch of ``SparseRankingModel(137)``
    through native padded batches with ``qid`` (4096 rows, the
@@ -821,12 +827,14 @@ def check_factor_shapes():
     opt-in size) and with 50 fields of 6 factors, rows of up to 150
     nonzeros (300 columns of S, more than a block's 256 threads, and 256 %
     6 != 0, so a thread's second column wraps its factor; 61.2 KB; 64
-    nonzeros staged at a time); and K6 with 300 fields, whose S does not
-    fit a block, which must raise a named error."""
+    nonzeros staged at a time); and K6 at 39 fields of 40 factors, 120 of
+    4 and 300 of 1, whose S and D pass a block's shared memory (ROADMAP
+    C8): they take the global route, S in a workspace in device memory,
+    and must match too, while 39 of 4 keeps the shared route. Then the
+    global route timed at 39 x 40 on a batch of 2048 rows."""
     import numpy as np
     import torch
     from dmlc_tpu_torch.ops import fm
-    from dmlc_tpu_torch.utils.logging import DMLCError
     cuda = torch.device("cuda")
     rng = np.random.RandomState(SEED + 5)
 
@@ -843,9 +851,18 @@ def check_factor_shapes():
             (0.3 * rng.randn(*shape)).astype(np.float32),
             rng.randn(rows).astype(np.float32))]
 
+    most = fm.ffm_max_shared_bytes(cuda)
+    routes = {(f, k): fm.ffm_route(f, k, most)
+              for f, k in ((FFM_FIELDS, FFM_FACTORS), (39, 40), (120, 4),
+                           (300, 1))}
+    require(routes == {(FFM_FIELDS, FFM_FACTORS): "shared", (39, 40): "global",
+                       (120, 4): "global", (300, 1): "global"},
+            f"K6 routes at {most} bytes of shared memory a block: {routes}")
     done = []
     for fields, factors, max_nnz in ((None, 3, 30), (None, 40, 70),
-                                     (3, 5, 30), (60, 4, 40), (50, 6, 150)):
+                                     (3, 5, 30), (60, 4, 40), (50, 6, 150),
+                                     (39, 40, 39), (120, 4, 80),
+                                     (300, 1, 60)):
         off, idx, val, fld, V, g = batch(300, 500, fields, factors, max_nnz)
         csr_cols, abs_cols = (off, idx, val), (off, idx, val.abs())
         if fields is None:
@@ -865,7 +882,8 @@ def check_factor_shapes():
             gv_p = fm.ffm_pair_bwd_plain(*csr_cols, fld, V, g)
         torch.cuda.synchronize()
         what = (f"K5 with {factors} factors" if fields is None
-                else f"K6 with {fields} fields of {factors} factors")
+                else f"K6 with {fields} fields of {factors} factors ("
+                f"{fm.ffm_route(fields, factors, most)} route)")
         require(bool(((pair - plain).abs()
                       <= PAIR_ATOL + PAIR_RTOL * scale).all()),
                 f"{what}: the forward disagrees with its plain version: "
@@ -874,16 +892,26 @@ def check_factor_shapes():
                 f"{what}: the backward disagrees with its plain version: "
                 f"max |err| {(gv - gv_p).abs().max().item()}")
         done.append(what)
-    off, idx, val, fld, V, g = batch(10, 50, 300, 1, 5)
-    try:
-        fm.ffm_pair_fwd(off, idx, val, fld, V)
-    except DMLCError as e:
-        require("shared memory" in str(e), f"K6 with 300 fields: {e}")
-        log(f"factor kernels agree with their plain versions at other "
-            f"shapes ({'; '.join(done)}); 300 fields raise: {e}")
-    else:
-        fail("K6 with 300 fields (S past a block's shared memory) did not "
-             "raise")
+        del pair, plain, gv, gv_p, scale
+    torch.cuda.empty_cache()
+    log(f"factor kernels agree with their plain versions at other shapes "
+        f"({'; '.join(done)}; u32 index, {most} bytes of shared memory a "
+        "block)")
+    off, idx, val, fld, V, g = batch(2048, 20000, 39, 40, 39)
+    nnz = int(off[-1])
+    fwd_ms = device_ms(lambda: fm.ffm_pair_fwd(off, idx, val, fld, V))
+    bwd = _device_us_by_kernel(
+        lambda: [fm.ffm_pair_bwd(off, idx, val, fld, V, g)
+                 for _ in range(20)])
+    require(bwd, "the profiler saw no device time")
+    bwd_kernel = sum(t for k, (t, _) in bwd.items() if "ffm_pair_bwd" in k)
+    log(f"K6 global route at 39 fields x 40 factors, 2048 rows, {nnz} "
+        f"nonzeros, V [20000, 39, 40]: forward {fwd_ms * 1e3:.2f} us on the "
+        f"device, backward {sum(t for t, _ in bwd.values()) / 20:.2f} us "
+        f"({bwd_kernel / 20:.2f} us of it the kernel, the rest the fill of "
+        f"gV)")
+    del off, idx, val, fld, V, g
+    torch.cuda.empty_cache()
 
 
 def report_kernels(rows, launches, steps):
@@ -1336,6 +1364,109 @@ def _grad_scale(margins, label, qid, weight, s):
     return (ct.sum(0) + ct.sum(1)).nan_to_num()
 
 
+def k7_tiles(first, args, s):
+    """K7 at the ranking path's first batch: each supported tile and rows
+    a block timed (forward, and backward with the forward's tile table),
+    each against the plain versions; the share of tiles each block skips
+    and the pairs evaluated at the wrapper's choice; then K7 timed at two
+    batches where no tile can be skipped: one query over the batch, and
+    the batch's qids shuffled across its rows. Returns the tile table of
+    the first batch at the wrapper's choice."""
+    import collections
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.ops import ranking
+    cuda = torch.device("cuda")
+    n = RANK_ROW_BUCKET
+    lsum_p, wsum_p = (float(x) for x in ranking.pair_sums_plain(*args))
+    g_p = ranking.pair_sums_grad_plain(*args, s)
+    scale = _grad_scale(*args, s)
+    chosen = (ranking.TILE, ranking.ROWS)
+    sweep = []
+    try:
+        for tile in (64, 128, 256):
+            for rows in (4, 8, 16):
+                ranking.TILE, ranking.ROWS = tile, rows
+                lsum, wsum, table = ranking.pair_sums_with_table(*args)
+                g = ranking.pair_sums_grad(*args, s, table)
+                torch.cuda.synchronize()
+                require(abs(float(lsum) - lsum_p)
+                        <= RANK_ATOL + RANK_RTOL * abs(lsum_p)
+                        and abs(float(wsum) - wsum_p)
+                        <= RANK_ATOL + RANK_RTOL * abs(wsum_p)
+                        and bool(((g - g_p).abs()
+                                  <= RANK_ATOL + RANK_RTOL * scale).all()),
+                        f"K7 at tile {tile}, {rows} rows a block disagrees "
+                        "with its plain versions")
+                sweep.append((tile, rows,
+                              device_ms(lambda: ranking.pair_sums(*args)),
+                              device_ms(lambda: ranking.pair_sums_grad(
+                                  *args, s, table))))
+    finally:
+        ranking.TILE, ranking.ROWS = chosen
+    log("K7 tile and rows a block at the first batch (forward us, backward "
+        "us on the device; each matches its plain versions): "
+        + "; ".join(f"T {t} R {r}: {f * 1e3:.2f}, {b * 1e3:.2f}"
+                    for t, r, f, b in sweep)
+        + f"; the wrapper takes T {chosen[0]}, R {chosen[1]}")
+    _, _, table = ranking.pair_sums_with_table(*args)
+    tb = table.cpu().numpy()
+    tiles = tb[2:].reshape(-1, 2)  # after the flag and the block count
+    qid = np.asarray(first["qid"])
+    skipped, visited_pairs, row_pairs = [], 0, 0
+    for r0 in range(0, n, chosen[1]):
+        rq = qid[r0:r0 + chosen[1]]
+        valid = rq[rq >= 0]
+        lo, hi = ((valid.min(), valid.max()) if valid.size
+                  else (np.iinfo(np.int64).max, -1))
+        skip = ((tiles[:, 0] > hi) | (tiles[:, 1] < lo)) if tb[0] else (
+            np.zeros(len(tiles), bool))
+        skipped.append(float(skip.mean()))
+        for t in np.flatnonzero(~skip):
+            docs = min(n, (t + 1) * chosen[0]) - t * chosen[0]
+            visited_pairs += len(rq) * docs
+            row_pairs += int(((rq >= tiles[t, 0]) & (rq <= tiles[t, 1])).sum()
+                             ) * docs
+    visits = collections.Counter(
+        int(round((1 - x) * len(tiles))) for x in skipped)
+    log(f"K7 at the first batch: safe flag {int(tb[0])}; each block of "
+        f"{chosen[1]} rows skips on average {np.mean(skipped):.4f} of "
+        f"{len(tiles)} tiles of {chosen[0]} documents (least "
+        f"{min(skipped):.4f}, most {max(skipped):.4f}); blocks by tiles "
+        f"visited {dict(sorted(visits.items()))}; pairs in visited tiles "
+        f"{visited_pairs}, of them in rows whose qid the tile holds "
+        f"{row_pairs}, of {n * n}")
+    perm = torch.from_numpy(np.random.RandomState(SEED + 8).permutation(n))
+    unskippable = {
+        "one query": (args[0], args[1], torch.full_like(
+            args[2], int(qid[0])), args[3]),
+        "shuffled qids": (args[0], args[1], args[2][perm.to(cuda)], args[3]),
+    }
+    for name, a in unskippable.items():
+        lsum, wsum, tb_a = ranking.pair_sums_with_table(*a)
+        lsum_q, wsum_q = (float(x) for x in ranking.pair_sums_plain(*a))
+        g = ranking.pair_sums_grad(*a, s, tb_a)
+        g_q = ranking.pair_sums_grad_plain(*a, s)
+        torch.cuda.synchronize()
+        require(abs(float(lsum) - lsum_q) <= RANK_ATOL + RANK_RTOL * abs(lsum_q)
+                and abs(float(wsum) - wsum_q)
+                <= RANK_ATOL + RANK_RTOL * abs(wsum_q)
+                and bool(((g - g_q).abs() <= RANK_ATOL + RANK_RTOL
+                          * _grad_scale(*a, s)).all()),
+                f"K7 at the batch with {name} disagrees with its plain "
+                "versions")
+        pw = ranking.pair_weights_plain(*a[1:])
+        weighted = int((pw != 0).sum())
+        del pw
+        log(f"K7 at the first batch with {name} ({weighted} weighted pairs; "
+            f"safe flag {int(tb_a[0])}): forward "
+            f"{device_ms(lambda: ranking.pair_sums(*a)) * 1e3:.2f} us, "
+            f"backward "
+            f"{device_ms(lambda: ranking.pair_sums_grad(*a, s, tb_a)) * 1e3:.2f}"
+            f" us on the device")
+    return table
+
+
 def check_ranking_kernels(first):
     """K7 forward and backward against their plain versions on the ranking
     path's first batch, the margins from a seeded w through K1's plain
@@ -1356,7 +1487,7 @@ def check_ranking_kernels(first):
     margins = csr.csr_spmv_plain(b["offset"], b["index"], b["value"], w) + 0.3
     s = torch.tensor(0.37, device=cuda)
 
-    # K7: the batch with edge cases, and three batches of one edge each
+    # K7: the batch with edge cases, and batches of one edge each
     queries = _query_rows(first["qid"])
     many = [q for q in queries if len(q) >= 2]
     require(len(many) >= 4, "the first ranking batch has < 4 queries of 2+")
@@ -1366,22 +1497,44 @@ def check_ranking_kernels(first):
     qid[torch.from_numpy(many[3]).to(cuda)] = int(first["qid"][many[1][0]])
     tail = slice(n - 100, n)  # a padded tail of 100 rows
     qid[tail], weight[tail], label[tail] = -1, 0.0, 0.0
-    nan_margins = margins.clone()
-    nan_margins[57] = float("nan")
+
+    def margin_at(i, v):
+        out = margins.clone()
+        out[i] = v
+        return out
+
+    # +-3e38 at the first document of the first and of the last query: each
+    # finite, their difference not
+    huge = margins.clone()
+    huge[int(queries[0][0])], huge[int(queries[-1][0])] = 3e38, -3e38
+    nan_pad = weight.clone()
+    nan_pad[n - 3] = float("nan")  # a padded row's weight
+    big = b["weight"].clone()
+    big[10] = 2e19  # its square overflows
+    rows_t = torch.arange(n, device=cuda)
+    batch = (b["label"], b["qid"], b["weight"])
     cases = {
         "edges": (margins, label, qid, weight),
         "all_padded": (margins, torch.zeros_like(label),
                        torch.full_like(qid, -1), torch.zeros_like(weight)),
-        "zero_margins": (torch.zeros_like(margins), b["label"], b["qid"],
-                         b["weight"]),
-        "nan_margin": (nan_margins, b["label"], b["qid"], b["weight"]),
+        "zero_margins": (torch.zeros_like(margins),) + batch,
+        "nan_margin": (margin_at(57, float("nan")),) + batch,
+        "neg_inf_margin": (margin_at(57, float("-inf")),) + batch,
+        "huge_margins": (huge,) + batch,
+        "nan_weight_padded": (margins, label, qid, nan_pad),
+        "big_weight": (margins, b["label"], b["qid"], big),
+        "one_query": (margins, b["label"], torch.full_like(
+            b["qid"], int(first["qid"][0])), b["weight"]),
+        "own_queries": (margins, b["label"], rows_t, b["weight"]),
+        "interleaved": (margins, b["label"], rows_t % 37, b["weight"]),
     }
+    unsafe = {"nan_margin", "neg_inf_margin", "huge_margins",
+              "nan_weight_padded", "big_weight"}
+    s_inf = torch.tensor(float("inf"), device=cuda)
     fwd_err = bwd_err = 0.0
     for name, args in cases.items():
-        lsum, wsum = ranking.pair_sums(*args)
+        lsum, wsum, table = ranking.pair_sums_with_table(*args)
         lsum_p, wsum_p = ranking.pair_sums_plain(*args)
-        g = ranking.pair_sums_grad(*args, s)
-        g_p = ranking.pair_sums_grad_plain(*args, s)
         torch.cuda.synchronize()
         for what, a, p in (("lsum", lsum, lsum_p), ("wsum", wsum, wsum_p)):
             a, p = float(a), float(p)
@@ -1391,15 +1544,28 @@ def check_ranking_kernels(first):
                 require(abs(a - p) <= RANK_ATOL + RANK_RTOL * abs(p),
                         f"K7 {name}: {what} {a}, plain {p}")
                 fwd_err = max(fwd_err, abs(a - p))
-        require(torch.equal(torch.isnan(g), torch.isnan(g_p)),
-                f"K7 {name}: the gradient's NaN entries differ from the "
-                "plain version's")
-        err = (g - g_p).nan_to_num().abs()
-        scale = _grad_scale(*args, s)
-        require(bool((err <= RANK_ATOL + RANK_RTOL * scale).all()),
-                f"K7 {name}: the gradient disagrees with its plain version: "
-                f"max |err| {err.max().item()}")
-        bwd_err = max(bwd_err, err.max().item())
+        require(int(table[0]) == (name not in unsafe),
+                f"K7 {name}: the safe flag is {int(table[0])}")
+        for s_ in (s, s_inf):
+            g_p = ranking.pair_sums_grad_plain(*args, s_)
+            # with the forward's tile table, and writing its own
+            for g in (ranking.pair_sums_grad(*args, s_, table),
+                      ranking.pair_sums_grad(*args, s_)):
+                torch.cuda.synchronize()
+                require(torch.equal(torch.isnan(g), torch.isnan(g_p)),
+                        f"K7 {name}, s = {float(s_)}: the gradient's NaN "
+                        "entries differ from the plain version's")
+                err = (g - g_p).nan_to_num().abs()
+                scale = _grad_scale(*args, s_)
+                require(bool((err <= RANK_ATOL + RANK_RTOL * scale).all()),
+                        f"K7 {name}, s = {float(s_)}: the gradient disagrees "
+                        f"with its plain version: max |err| "
+                        f"{err.max().item()}")
+                bwd_err = max(bwd_err, err.max().item())
+            if s_ is s_inf:
+                require(bool(torch.isnan(g).any()) or name == "all_padded",
+                        f"K7 {name}: no NaN in the gradient at s = inf")
+        g = ranking.pair_sums_grad(*args, s, table)
         if name == "all_padded":
             require(float(lsum) == 0.0 and float(wsum) == 0.0
                     and not bool(g.any()),
@@ -1416,9 +1582,14 @@ def check_ranking_kernels(first):
                 "K7 edges: padded rows or a query of ties got a gradient")
     log(f"K7 agrees with its plain versions on the ranking batch (a padded "
         f"tail, a query of ties, a split query; all padded; zero margins; "
-        f"a NaN margin): lsum/wsum max |err| {fwd_err:.3g} (rtol "
-        f"{RANK_RTOL}, atol {RANK_ATOL}), gradient max |err| {bwd_err:.3g} "
-        f"(rtol {RANK_RTOL} of each row's sum|terms|, atol {RANK_ATOL})")
+        f"a NaN margin; a -inf margin; margins of +-3e38; a NaN weight on a "
+        f"padded row; a weight of 2e19; one query; every row its own query; "
+        f"interleaved queries; the gradient at s = 0.37 and s = inf, with "
+        f"the forward's tile table and without): lsum/wsum max |err| "
+        f"{fwd_err:.3g} (rtol {RANK_RTOL}, atol {RANK_ATOL}), gradient max "
+        f"|err| {bwd_err:.3g} (rtol {RANK_RTOL} of each row's sum|terms|, "
+        f"atol {RANK_ATOL}); the safe flag clear exactly in the "
+        f"{len(unsafe)} unsafe cases")
 
     # K3 on the padded rows and K4 to the dense matrix, with the index
     # rule's edges: 2^32-1 in row 5 (reads w[136]), 2^31 in row 6
@@ -1489,6 +1660,7 @@ def check_ranking_kernels(first):
 
     # Timing, at the batch as it came from the parser.
     args = (margins, b["label"], b["qid"], b["weight"])
+    table = k7_tiles(first, args, s)
     pw = ranking.pair_weights_plain(*args[1:])
     weighted = int((pw != 0).sum())
     del pw
@@ -1516,7 +1688,7 @@ def check_ranking_kernels(first):
                       "dmlc_tpu_torch/csrc/ranking.cu", None, fwd_err),
         # per weighted pair: the difference, softplus (5), its derivative
         # exp(x - sp) (2), s·w_i·w_j·mask (3), the product, two sums
-        "pair_sums_grad": (lambda: ranking.pair_sums_grad(*args, s),
+        "pair_sums_grad": (lambda: ranking.pair_sums_grad(*args, s, table),
                            lambda: ranking.pair_sums_grad_plain(*args, s),
                            doc_bytes + 4 + n * 4, 14 * weighted,
                            "dmlc_tpu/models/ranking.py:64",

@@ -63,9 +63,17 @@
 //     one block reduction, so the forward is deterministic. The backward
 //     rebuilds S the same way (it is not saved: 8192 rows of it would be
 //     200 MB) and adds each valid nonzero's row of gV with coalesced fp32
-//     atomics. Where S and D do not fit a block's shared memory (the
-//     opt-in size above 48 KB, less the static staging) the launch returns
-//     cudaErrorInvalidValue; the wrapper checks first and raises.
+//     atomics.
+//   - K6, two routes for S and D. Where they fit a block's shared memory
+//     (the opt-in size above 48 KB, less the static staging: 39 fields of
+//     up to 37 factors) they live there, one block per row. Past that (39
+//     fields of 40 factors, 120 of 4, 300 of 1) they live in a workspace in
+//     device memory that the wrapper allocates: G blocks, each with its own
+//     S and D, walk the rows in a grid-stride loop. The build, the column
+//     ownership, the summation order and the index rule are the same; only
+//     where S points and the row loop differ. The wrapper chooses the route
+//     (ops/fm.py ffm_route); a shared-memory launch of a shape that does not
+//     fit returns cudaErrorInvalidValue.
 //   - Products that meet a subtraction are rounded on their own
 //     (__fmul_rn), not contracted into an FMA, so that a pair term that is
 //     exactly 0 in the reference's eager arithmetic (a row of one nonzero)
@@ -334,92 +342,118 @@ __device__ void build_S(float* S, float* D, Staged& st, const Column& first,
 // a; its reads of S[b, a, f] fall in distinct banks across a warp (at 39/4:
 // b * 156 mod 32 = 28 b). One block reduction in a fixed order makes the
 // result deterministic.
-template <typename IndexT>
+//
+// kGlobal: S and D in the block's part of the workspace, rows in a
+// grid-stride loop; else in dynamic shared memory, one block per row.
+template <typename IndexT, bool kGlobal>
 __global__ void __launch_bounds__(kMaxBlockThreads)
     ffm_pair_fwd_kernel(const int64_t* __restrict__ offset,
                         const IndexT* __restrict__ index,
                         const float* __restrict__ value,
                         const int64_t* __restrict__ field,
-                        const float* __restrict__ V, int64_t nnz,
-                        int64_t num_features, int nf, int K,
-                        float* __restrict__ pair) {
-  extern __shared__ float S[];
+                        const float* __restrict__ V, int64_t num_rows,
+                        int64_t nnz, int64_t num_features, int nf, int K,
+                        float* __restrict__ pair, float* workspace) {
+  extern __shared__ float S_shared[];
   __shared__ Staged st;
   __shared__ float scratch[kMaxBlockThreads / kWarp];
-  const int64_t row = blockIdx.x;
   const int nk = nf * K;
+  float* S = kGlobal ? workspace + blockIdx.x * ffm_shared_floats(nf, K)
+                     : S_shared;
   float* D = S + nf * nk;
   const Column first(K);
-  int64_t lo, hi;
-  row_range(offset, row, nnz, &lo, &hi);
-  build_S(S, D, st, first, lo, hi, index, value, field, V, num_features, nf,
-          K);
-  float total = 0.0f;
-  for (Column col = first; col.c < nk; col.next(K)) {
-    const float* mine = S + col.c;                   // S[a, b, f] at a * nk
-    const float* other = S + col.b * nk + col.f;     // S[b, a, f] at a * K
-    for (int a = 0; a < nf; ++a) {
-      const float p = __fmul_rn(mine[a * nk], other[a * K]);
-      total += a == col.b ? p - D[col.c] : p;
+  const auto one_row = [&](int64_t row) {
+    int64_t lo, hi;
+    row_range(offset, row, nnz, &lo, &hi);
+    build_S(S, D, st, first, lo, hi, index, value, field, V, num_features,
+            nf, K);
+    float total = 0.0f;
+    for (Column col = first; col.c < nk; col.next(K)) {
+      const float* mine = S + col.c;                // S[a, b, f] at a * nk
+      const float* other = S + col.b * nk + col.f;  // S[b, a, f] at a * K
+      for (int a = 0; a < nf; ++a) {
+        const float p = __fmul_rn(mine[a * nk], other[a * K]);
+        total += a == col.b ? p - D[col.c] : p;
+      }
     }
+    const float sum = block_sum(total, scratch);
+    if (threadIdx.x == 0) pair[row] = 0.5f * sum;
+  };
+  if (kGlobal) {
+    for (int64_t row = blockIdx.x; row < num_rows; row += gridDim.x) {
+      __syncthreads();  // the previous row's readers are done
+      one_row(row);
+    }
+  } else {
+    one_row(blockIdx.x);  // a block per row
   }
-  const float sum = block_sum(total, scratch);
-  if (threadIdx.x == 0) pair[row] = 0.5f * sum;
 }
 
 // gV[j_k, b, f] += g[r] x_k (S[b, a_k, f] - [b = a_k] x_k V[j_k, b, f]) for
 // each valid nonzero k of the row: the thread of column c adds into gV[j_k,
-// c], so each nonzero is one coalesced row of fp32 reductions.
-template <typename IndexT>
+// c], so each nonzero is one coalesced row of fp32 reductions. kGlobal as
+// in the forward.
+template <typename IndexT, bool kGlobal>
 __global__ void __launch_bounds__(kMaxBlockThreads)
     ffm_pair_bwd_kernel(const int64_t* __restrict__ offset,
                         const IndexT* __restrict__ index,
                         const float* __restrict__ value,
                         const int64_t* __restrict__ field,
                         const float* __restrict__ V,
-                        const float* __restrict__ g, int64_t nnz,
-                        int64_t num_features, int nf, int K,
-                        float* __restrict__ gV) {
-  extern __shared__ float S[];
+                        const float* __restrict__ g, int64_t num_rows,
+                        int64_t nnz, int64_t num_features, int nf, int K,
+                        float* __restrict__ gV, float* workspace) {
+  extern __shared__ float S_shared[];
   __shared__ Staged st;
-  const int64_t row = blockIdx.x;
   const int nk = nf * K;
+  float* S = kGlobal ? workspace + blockIdx.x * ffm_shared_floats(nf, K)
+                     : S_shared;
   const Column first(K);
-  int64_t lo, hi;
-  row_range(offset, row, nnz, &lo, &hi);
-  build_S(S, nullptr, st, first, lo, hi, index, value, field, V,
-          num_features, nf, K);
-  const float gr = g[row];
-  // a row of one chunk is still staged from the build
-  const bool restage = hi - lo > kChunk;
-  for (int64_t k0 = lo; k0 < hi; k0 += kChunk) {
-    const int m = restage ? stage(st, k0, hi, index, value, field,
-                                  num_features, nf, nk)
-                          : static_cast<int>(hi - lo);
-    for (Column col = first; col.c < nk; col.next(K)) {
-      const float* s_b = S + col.b * nk + col.f;  // S[b, a, f] at a * K
-      for (int t0 = 0; t0 < m; t0 += kBatch) {
-        float own[kBatch];  // V[j, c] where the nonzero's field is b
+  const auto one_row = [&](int64_t row) {
+    int64_t lo, hi;
+    row_range(offset, row, nnz, &lo, &hi);
+    build_S(S, nullptr, st, first, lo, hi, index, value, field, V,
+            num_features, nf, K);
+    const float gr = g[row];
+    // a row of one chunk is still staged from the build
+    const bool restage = hi - lo > kChunk;
+    for (int64_t k0 = lo; k0 < hi; k0 += kChunk) {
+      const int m = restage ? stage(st, k0, hi, index, value, field,
+                                    num_features, nf, nk)
+                            : static_cast<int>(hi - lo);
+      for (Column col = first; col.c < nk; col.next(K)) {
+        const float* s_b = S + col.b * nk + col.f;  // S[b, a, f] at a * K
+        for (int t0 = 0; t0 < m; t0 += kBatch) {
+          float own[kBatch];  // V[j, c] where the nonzero's field is b
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int t = t0 + u;
-          const bool mine = t < m && st.base[t] >= 0 && st.a[t] == col.b;
-          own[u] = mine ? __ldg(V + st.base[t] + col.c) : 0.0f;
-        }
+          for (int u = 0; u < kBatch; ++u) {
+            const int t = t0 + u;
+            const bool mine = t < m && st.base[t] >= 0 && st.a[t] == col.b;
+            own[u] = mine ? __ldg(V + st.base[t] + col.c) : 0.0f;
+          }
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int t = t0 + u;
-          if (t >= m) break;
-          const int64_t base = st.base[t];
-          if (base < 0) continue;
-          const int a = st.a[t];
-          const float x = st.x[t];
-          float d = s_b[a * K];
-          if (a == col.b) d -= __fmul_rn(x, own[u]);
-          atomicAdd(gV + base + col.c, gr * x * d);
+          for (int u = 0; u < kBatch; ++u) {
+            const int t = t0 + u;
+            if (t >= m) break;
+            const int64_t base = st.base[t];
+            if (base < 0) continue;
+            const int a = st.a[t];
+            const float x = st.x[t];
+            float d = s_b[a * K];
+            if (a == col.b) d -= __fmul_rn(x, own[u]);
+            atomicAdd(gV + base + col.c, gr * x * d);
+          }
         }
       }
     }
+  };
+  if (kGlobal) {
+    for (int64_t row = blockIdx.x; row < num_rows; row += gridDim.x) {
+      __syncthreads();  // the previous row's readers are done
+      one_row(row);
+    }
+  } else {
+    one_row(blockIdx.x);  // a block per row
   }
 }
 
@@ -462,6 +496,66 @@ cudaError_t prepare_ffm(Kernel kernel, int64_t nf, int64_t K,
                                static_cast<int>(*bytes));
   }
   return err;
+}
+
+// One K6 call's inputs.
+struct FfmArgs {
+  const int64_t* offset;
+  const void* index;
+  const float* value;
+  const int64_t* field;
+  const float* V;
+  int64_t num_rows, nnz, num_features, nf, K;
+  cudaStream_t stream;
+};
+
+// The grid and dynamic shared memory of a K6 launch: for the shared route
+// a block per row and S in dynamic shared memory (the limit raised where S
+// needs more than 48 KB), for the global route `blocks` blocks over the
+// workspace.
+template <bool kGlobal, typename Kernel>
+cudaError_t ffm_config(Kernel kernel, const FfmArgs& a, int64_t blocks,
+                       unsigned* grid, int64_t* bytes) {
+  *bytes = 0;
+  if (kGlobal) {
+    if (blocks <= 0) return cudaErrorInvalidValue;
+    *grid = static_cast<unsigned>(blocks);
+    return cudaSuccess;
+  }
+  *grid = static_cast<unsigned>(a.num_rows);
+  return prepare_ffm(kernel, a.nf, a.K, bytes);
+}
+
+template <typename IndexT, bool kGlobal>
+cudaError_t ffm_fwd(const FfmArgs& a, float* pair, float* workspace,
+                    int64_t blocks) {
+  const auto kernel = ffm_pair_fwd_kernel<IndexT, kGlobal>;
+  unsigned grid = 0;
+  int64_t bytes = 0;
+  const cudaError_t err = ffm_config<kGlobal>(kernel, a, blocks, &grid,
+                                              &bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ffm_threads(a.nf, a.K), bytes, a.stream>>>(
+      a.offset, static_cast<const IndexT*>(a.index), a.value, a.field, a.V,
+      a.num_rows, a.nnz, a.num_features, static_cast<int>(a.nf),
+      static_cast<int>(a.K), pair, workspace);
+  return cudaGetLastError();
+}
+
+template <typename IndexT, bool kGlobal>
+cudaError_t ffm_bwd(const FfmArgs& a, const float* g, float* gV,
+                    float* workspace, int64_t blocks) {
+  const auto kernel = ffm_pair_bwd_kernel<IndexT, kGlobal>;
+  unsigned grid = 0;
+  int64_t bytes = 0;
+  const cudaError_t err = ffm_config<kGlobal>(kernel, a, blocks, &grid,
+                                              &bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ffm_threads(a.nf, a.K), bytes, a.stream>>>(
+      a.offset, static_cast<const IndexT*>(a.index), a.value, a.field, a.V,
+      g, a.num_rows, a.nnz, a.num_features, static_cast<int>(a.nf),
+      static_cast<int>(a.K), gV, workspace);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -534,76 +628,65 @@ int dmlc_fm_pair_bwd(const void* offset, const void* index, int index_bytes,
 }
 
 // pair[num_rows] = the FFM pair term of CSR(offset, index, value) with
-// field[nnz] (int64) over V[num_features, nf, K]. Returns a cudaError_t:
-// cudaErrorInvalidValue where S does not fit a block's shared memory.
+// field[nnz] (int64) over V[num_features, nf, K]. workspace: null for the
+// shared-memory route, else `blocks` * (nf * nf * K + nf * K) floats for
+// the global route. Returns a cudaError_t: cudaErrorInvalidValue where the
+// shared route is asked for and S does not fit a block's shared memory.
 int dmlc_ffm_pair_fwd(const void* offset, const void* index, int index_bytes,
                       const void* value, const void* field, const void* V,
                       int64_t num_rows, int64_t nnz, int64_t num_features,
-                      int64_t nf, int64_t K, void* pair, void* stream) {
+                      int64_t nf, int64_t K, void* pair, void* workspace,
+                      int64_t blocks, void* stream) {
   if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* off = static_cast<const int64_t*>(offset);
-  const auto* val = static_cast<const float*>(value);
-  const auto* fld = static_cast<const int64_t*>(field);
-  const auto* v = static_cast<const float*>(V);
+  const FfmArgs a{static_cast<const int64_t*>(offset), index,
+                  static_cast<const float*>(value),
+                  static_cast<const int64_t*>(field),
+                  static_cast<const float*>(V), num_rows, nnz, num_features,
+                  nf, K, static_cast<cudaStream_t>(stream)};
   auto* p = static_cast<float*>(pair);
-  const unsigned grid = static_cast<unsigned>(num_rows);
-  const unsigned threads = ffm_threads(nf, K);
-  int64_t bytes = 0;
+  auto* ws = static_cast<float*>(workspace);
+  const bool global = ws != nullptr;
   cudaError_t err;
   if (index_bytes == 4) {
-    err = prepare_ffm(ffm_pair_fwd_kernel<uint32_t>, nf, K, &bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_pair_fwd_kernel<uint32_t><<<grid, threads, bytes, st>>>(
-        off, static_cast<const uint32_t*>(index), val, fld, v, nnz,
-        num_features, static_cast<int>(nf), static_cast<int>(K), p);
+    err = global ? ffm_fwd<uint32_t, true>(a, p, ws, blocks)
+                 : ffm_fwd<uint32_t, false>(a, p, ws, blocks);
   } else if (index_bytes == 8) {
-    err = prepare_ffm(ffm_pair_fwd_kernel<uint64_t>, nf, K, &bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_pair_fwd_kernel<uint64_t><<<grid, threads, bytes, st>>>(
-        off, static_cast<const uint64_t*>(index), val, fld, v, nnz,
-        num_features, static_cast<int>(nf), static_cast<int>(K), p);
+    err = global ? ffm_fwd<uint64_t, true>(a, p, ws, blocks)
+                 : ffm_fwd<uint64_t, false>(a, p, ws, blocks);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // gV[num_features, nf, K] += the gradient of sum_r g[r] pair[r] in V; gV
-// must be zeroed by the caller. Returns a cudaError_t, as the forward.
+// must be zeroed by the caller. workspace and the result as the forward's.
 int dmlc_ffm_pair_bwd(const void* offset, const void* index, int index_bytes,
                       const void* value, const void* field, const void* V,
                       const void* g, int64_t num_rows, int64_t nnz,
                       int64_t num_features, int64_t nf, int64_t K, void* gV,
-                      void* stream) {
+                      void* workspace, int64_t blocks, void* stream) {
   if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* off = static_cast<const int64_t*>(offset);
-  const auto* val = static_cast<const float*>(value);
-  const auto* fld = static_cast<const int64_t*>(field);
-  const auto* v = static_cast<const float*>(V);
+  const FfmArgs a{static_cast<const int64_t*>(offset), index,
+                  static_cast<const float*>(value),
+                  static_cast<const int64_t*>(field),
+                  static_cast<const float*>(V), num_rows, nnz, num_features,
+                  nf, K, static_cast<cudaStream_t>(stream)};
   const auto* gi = static_cast<const float*>(g);
   auto* out = static_cast<float*>(gV);
-  const unsigned grid = static_cast<unsigned>(num_rows);
-  const unsigned threads = ffm_threads(nf, K);
-  int64_t bytes = 0;
+  auto* ws = static_cast<float*>(workspace);
+  const bool global = ws != nullptr;
   cudaError_t err;
   if (index_bytes == 4) {
-    err = prepare_ffm(ffm_pair_bwd_kernel<uint32_t>, nf, K, &bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_pair_bwd_kernel<uint32_t><<<grid, threads, bytes, st>>>(
-        off, static_cast<const uint32_t*>(index), val, fld, v, gi, nnz,
-        num_features, static_cast<int>(nf), static_cast<int>(K), out);
+    err = global ? ffm_bwd<uint32_t, true>(a, gi, out, ws, blocks)
+                 : ffm_bwd<uint32_t, false>(a, gi, out, ws, blocks);
   } else if (index_bytes == 8) {
-    err = prepare_ffm(ffm_pair_bwd_kernel<uint64_t>, nf, K, &bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_pair_bwd_kernel<uint64_t><<<grid, threads, bytes, st>>>(
-        off, static_cast<const uint64_t*>(index), val, fld, v, gi, nnz,
-        num_features, static_cast<int>(nf), static_cast<int>(K), out);
+    err = global ? ffm_bwd<uint64_t, true>(a, gi, out, ws, blocks)
+                 : ffm_bwd<uint64_t, false>(a, gi, out, ws, blocks);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

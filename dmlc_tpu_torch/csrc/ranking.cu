@@ -15,10 +15,10 @@
 //                       sum_j (s pw[i,j]) sp'(m_j - m_i).
 //
 // Semantics kept from the reference, which evaluates all n^2 pairs:
-//   - every pair is evaluated and softplus(-d) * pw formed, those with
-//     pw = 0 too, so a NaN or infinite margin anywhere makes lsum NaN
-//     (NaN * 0, and inf - inf on the diagonal), and the gradient is NaN
-//     exactly where jax.vjp puts it;
+//   - every pair's softplus(-d) * pw counts, those with pw = 0 too, so a
+//     NaN or infinite margin anywhere makes lsum NaN (NaN * 0, and
+//     inf - inf on the diagonal), and the gradient is NaN exactly where
+//     jax.vjp puts it;
 //   - softplus is jax.nn.softplus (logaddexp(x, 0)): x where x is NaN,
 //     else max(x, 0) + log1p(exp(-|x|)); its derivative is the one jax's
 //     logaddexp jvp forms, exp(x - softplus(x)) with +inf read as 0. No
@@ -26,26 +26,62 @@
 //   - pw is (w_i * w_j) * [pair], so a NaN weight poisons its pairs as in
 //     the reference.
 //
-// Bound on the card (H100 SXM, 3.35 TB/s, 67 TFLOP/s fp32). The inputs are
-// 20 B a row (margin, label, weight, qid), so the bytes bound is well
-// under a microsecond at the reference's 4096 rows. The operations that
-// the batch needs are those of the pairs with pw != 0, a few hundred
-// thousand at 4096 rows: also under a microsecond. Evaluating all 16.7M
-// pairs, as the reference does, costs far more than either: a first kernel
-// that is right, not one that is fast. A later one can skip tiles with no
-// weighted pair, once it keeps the NaN semantics by another route.
+// The skip rule. A pair with pw = 0 adds exactly +-0 to lsum, wsum and g
+// (and so changes no sum) when the batch is "safe":
+//   - every margin and every weight is finite;
+//   - fl(max m - min m) is finite, so every m_i - m_j is (rounding is
+//     monotone), its softplus is finite and sp' lies in [0, 1];
+//   - fl(max|w| * max|w|) is finite, so every w_i * w_j is, and
+//     (w_i * w_j) * 0 is +-0;
+//   - in the backward, the cotangent s is finite, so s * pw is +-0.
+// Then only pairs with pw != 0 need evaluating, and those have qid_i ==
+// qid_j >= 0. Each condition that fails is a case where the reference
+// answers NaN or inf somewhere (the diagonal pair is never weighted, so
+// max|w|^2 overflowing means some unweighted product overflows); there the
+// kernels evaluate every pair, as the reference does. The decision stays on
+// the device: a pre-pass writes the flag into a tile table that every block
+// reads.
 //
-// Design. Rows of the batch are documents. One warp per row i, 8 rows a
-// block; the block sweeps j in tiles of 256 documents that its threads
-// load into shared memory (margin, label, weight, qid), each warp's lanes
-// striding over the tile. No [n, n] array exists.
+// Bound on the card (H100 SXM, 3.35 TB/s, 67 TFLOP/s fp32). The inputs are
+// 20 B a row (margin, label, weight, qid), so the bytes bound is well under
+// a microsecond at the reference's 4096 rows. The operations the batch
+// needs are those of the pairs with pw != 0, a few hundred thousand at
+// 4096 rows: also under a microsecond. What is left is latency: two short
+// dependent kernels (pre-pass, pairs) in the forward, one in the backward,
+// each a chain of round trips to memory that the design keeps short.
+//
+// Design. Rows of the batch are documents, cut into tiles of T documents.
+//   - pre-pass (one block): the safe flag, and for each tile the least and
+//     the largest qid of its valid documents (qid >= 0; an empty tile gets
+//     the empty interval [INT64_MAX, -1]). The table, int64 [2 + 2 tiles]:
+//     table[0] the flag, table[1] the forward's count of finished blocks,
+//     table[2 + 2t], table[3 + 2t] tile t's interval. The forward writes
+//     it; the backward reads the forward's, or writes its own when called
+//     alone.
+//   - pairs: one warp per row i, R rows a block. The block computes its
+//     rows' valid-qid interval and, when the flag is set, skips every tile
+//     whose interval does not meet it (a tile skipped is one whose pairs
+//     with the block's rows all have pw = 0, whatever the qid order: qids
+//     in contiguous queries, as LETOR files keep them, give a block one to
+//     four tiles of 128 to visit). Its threads read the table's entries at
+//     once, R * 32 tiles at a time, and list the tiles to visit in shared
+//     memory (a ballot and a prefix count), so a skipped tile costs no
+//     round trip. A visited tile is loaded into shared memory (margin,
+//     label, weight, qid) from registers that were filled while the block
+//     worked on the one before, and each warp's lanes stride over it; a
+//     warp whose own qid lies outside the tile's interval skips it too.
+//     With the flag set, the transcendentals run only where pw != 0; with
+//     it clear, every pair is evaluated as the reference does. Either way
+//     the nonzero terms are summed in the same lane order, so skipping
+//     changes no bit of any result.
 //   - forward: each warp writes its row's (sum_j softplus * pw, sum_j pw)
-//     to a scratch of 2n floats (the wrapper's); a second kernel, one
-//     block, sums them in a fixed order, so lsum and wsum are
-//     deterministic;
+//     to a scratch of 2n floats (the wrapper's); the last block to finish
+//     (a count in the table) sums them in a fixed order, so lsum and wsum
+//     are deterministic;
 //   - backward: each warp writes g_i; no atomics, deterministic.
-// Both launch on the caller's stream and allocate nothing; each C entry
-// returns cudaGetLastError().
+// T and R are template parameters (T in {64, 128, 256}, R in {4, 8, 16});
+// the wrapper chooses them. All kernels launch on the caller's stream and
+// allocate nothing; each C entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,11 +90,10 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;  // 8 warps = 8 rows per block
-constexpr int kRowsPerBlock = kThreads / kWarp;
-constexpr int kTile = kThreads;  // documents j per shared-memory tile
-constexpr int kSumThreads = 1024;
+constexpr int kPrepThreads = 1024;  // 32 warps: one warp folds them
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int64_t kNoQid = INT64_MAX;  // the low end of an empty interval
+constexpr int kTableHead = 2;  // the flag and the forward's block count
 
 // jax.nn.softplus: logaddexp(x, 0).
 __device__ __forceinline__ float softplus(float x) {
@@ -89,121 +124,351 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-struct Tile {
-  float m[kTile];
-  float label[kTile];
-  float weight[kTile];
-  int64_t qid[kTile];
-};
-
-// Loads documents [j0, j0 + kTile) into the tile (one per thread); returns
-// how many there are.
-__device__ __forceinline__ int load_tile(Tile* t, int64_t j0, int64_t n,
-                                         const float* __restrict__ m,
-                                         const float* __restrict__ label,
-                                         const int64_t* __restrict__ qid,
-                                         const float* __restrict__ weight) {
-  const int64_t j = j0 + threadIdx.x;
-  if (j < n) {
-    t->m[threadIdx.x] = m[j];
-    t->label[threadIdx.x] = label[j];
-    t->weight[threadIdx.x] = weight[j];
-    t->qid[threadIdx.x] = qid[j];
+__device__ __forceinline__ int64_t warp_min(int64_t v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    const long long u = __shfl_xor_sync(kFull, static_cast<long long>(v), o);
+    v = u < v ? u : v;
   }
-  return static_cast<int>(n - j0 < kTile ? n - j0 : kTile);
+  return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int64_t warp_max(int64_t v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    const long long u = __shfl_xor_sync(kFull, static_cast<long long>(v), o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+// The tile table (see the design note above). One block of kPrepThreads.
+template <int T>
+__global__ void __launch_bounds__(kPrepThreads)
+    tile_table_kernel(const float* __restrict__ m,
+                      const int64_t* __restrict__ qid,
+                      const float* __restrict__ weight, int64_t n,
+                      int64_t* __restrict__ table) {
+  __shared__ float part[3][kPrepThreads / kWarp];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  bool finite = true;
+  float hi = -INFINITY, lo = INFINITY, wmax = 0.0f;
+  for (int64_t i = threadIdx.x; i < n; i += kPrepThreads) {
+    const float mi = m[i], wi = weight[i];
+    finite = finite && isfinite(mi) && isfinite(wi);
+    hi = fmaxf(hi, mi);
+    lo = fminf(lo, mi);
+    wmax = fmaxf(wmax, fabsf(wi));
+  }
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, o));
+    lo = fminf(lo, __shfl_xor_sync(kFull, lo, o));
+    wmax = fmaxf(wmax, __shfl_xor_sync(kFull, wmax, o));
+  }
+  if (lane == 0) {
+    part[0][warp] = hi;
+    part[1][warp] = lo;
+    part[2][warp] = wmax;
+  }
+  // every tile's valid-qid interval: warp w takes tiles w, w + 32, ...
+  const int64_t tiles = (n + T - 1) / T;
+  for (int64_t t = warp; t < tiles; t += kPrepThreads / kWarp) {
+    int64_t qlo = kNoQid, qhi = -1;
+    const int64_t end = (t + 1) * T < n ? (t + 1) * T : n;
+    for (int64_t j = t * T + lane; j < end; j += kWarp) {
+      const int64_t q = qid[j];
+      if (q >= 0) {
+        qlo = q < qlo ? q : qlo;
+        qhi = q > qhi ? q : qhi;
+      }
+    }
+    qlo = warp_min(qlo);
+    qhi = warp_max(qhi);
+    if (lane == 0) {
+      table[kTableHead + 2 * t] = qlo;
+      table[kTableHead + 2 * t + 1] = qhi;
+    }
+  }
+  const bool all_finite = __syncthreads_and(finite);
+  if (warp == 0) {  // one warp folds the 32 warps' partials
+    hi = part[0][lane];
+    lo = part[1][lane];
+    wmax = part[2][lane];
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1) {
+      hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, o));
+      lo = fminf(lo, __shfl_xor_sync(kFull, lo, o));
+      wmax = fmaxf(wmax, __shfl_xor_sync(kFull, wmax, o));
+    }
+    if (lane == 0) {
+      const float spread = hi - lo;
+      const float wsq = __fmul_rn(wmax, wmax);
+      table[0] = all_finite && isfinite(spread) && isfinite(wsq) ? 1 : 0;
+      table[1] = 0;  // the forward's count of finished blocks
+    }
+  }
+}
+
+template <int T>
+struct Tile {
+  float m[T];
+  float label[T];
+  float weight[T];
+  int64_t qid[T];
+};
+
+// The documents of a tile that one thread loads, k = threadIdx.x + u *
+// blockDim.x for u < P: the next tile's are read into these registers
+// while the block works on the current one, then stored into the tile.
+template <int T, int P>
+struct Prefetch {
+  float m[P], label[P], weight[P];
+  int64_t qid[P];
+  int count;
+
+  __device__ void load(int64_t j0, int64_t n, const float* __restrict__ ms,
+                       const float* __restrict__ labels,
+                       const int64_t* __restrict__ qids,
+                       const float* __restrict__ weights) {
+    count = static_cast<int>(n - j0 < T ? n - j0 : T);
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int k = threadIdx.x + u * blockDim.x;
+      if (k < count) {
+        m[u] = ms[j0 + k];
+        label[u] = labels[j0 + k];
+        weight[u] = weights[j0 + k];
+        qid[u] = qids[j0 + k];
+      }
+    }
+  }
+
+  __device__ void store(Tile<T>* t) const {
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int k = threadIdx.x + u * blockDim.x;
+      if (k < count) {
+        t->m[k] = m[u];
+        t->label[k] = label[u];
+        t->weight[k] = weight[u];
+        t->qid[k] = qid[u];
+      }
+    }
+  }
+};
+
+// The tiles a block visits, one chunk of R * 32 tiles of the table at a
+// time, in order: their index and interval.
+template <int R>
+struct Visits {
+  int64_t tile[R * kWarp], lo[R * kWarp], hi[R * kWarp];
+  int per_warp[R];
+};
+
+// What a block of R rows shares: its rows' valid-qid interval, and whether
+// it may skip (the flag, and in the backward a finite s).
+struct BlockView {
+  int64_t lo, hi;
+  bool safe;
+};
+
+// Every thread of the block calls it; qi is -1 where the warp has no row.
+template <int R>
+__device__ BlockView block_view(int64_t qi, bool safe) {
+  __shared__ int64_t row_q[R];
+  const int warp = threadIdx.x / kWarp;
+  if (threadIdx.x % kWarp == 0) row_q[warp] = qi;
+  __syncthreads();
+  BlockView v{kNoQid, -1, safe};
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t q = row_q[r];
+    if (q >= 0) {
+      v.lo = q < v.lo ? q : v.lo;
+      v.hi = q > v.hi ? q : v.hi;
+    }
+  }
+  return v;
+}
+
+// Lists, in order, the tiles c0 .. c0 + R * 32 - 1 that the block visits:
+// every tile when it may not skip, else those whose interval meets the
+// block's (an empty interval meets nothing). Each thread reads one tile's
+// entry of the table, so a chunk costs one round trip to memory. Every
+// thread calls it; returns how many tiles were listed.
+template <int R>
+__device__ int list_visits(Visits<R>* v, const BlockView& b,
+                           const int64_t* __restrict__ table, int64_t tiles,
+                           int64_t c0) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int64_t t = c0 + threadIdx.x;
+  int64_t lo = kNoQid, hi = -1;
+  if (t < tiles) {
+    lo = table[kTableHead + 2 * t];
+    hi = table[kTableHead + 2 * t + 1];
+  }
+  const bool on = t < tiles && (!b.safe || (lo <= b.hi && hi >= b.lo));
+  const unsigned mask = __ballot_sync(kFull, on);
+  __syncthreads();  // the previous chunk's list has been read
+  if (lane == 0) v->per_warp[warp] = __popc(mask);
+  __syncthreads();
+  int at = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < R; ++w) {
+    at += w < warp ? v->per_warp[w] : 0;
+    total += v->per_warp[w];
+  }
+  if (on) {
+    at += __popc(mask & ((1u << lane) - 1u));
+    v->tile[at] = t;
+    v->lo[at] = lo;
+    v->hi[at] = hi;
+  }
+  __syncthreads();
+  return total;
+}
+
+// Walks the tiles the block visits, each loaded into shared memory while
+// the next one's documents are in flight, and calls visit(tile, tlo, thi,
+// count) on each. Every thread calls it.
+template <int T, int R, typename Visit>
+__device__ void walk_tiles(const BlockView& b,
+                           const int64_t* __restrict__ table, int64_t n,
+                           const float* __restrict__ m,
+                           const float* __restrict__ label,
+                           const int64_t* __restrict__ qid,
+                           const float* __restrict__ weight, Visit visit) {
+  constexpr int kThreads = R * kWarp;
+  __shared__ Tile<T> tile;
+  __shared__ Visits<R> v;
+  Prefetch<T, (T + kThreads - 1) / kThreads> next;
+  const int64_t tiles = (n + T - 1) / T;
+  for (int64_t c0 = 0; c0 < tiles; c0 += kThreads) {
+    const int listed = list_visits<R>(&v, b, table, tiles, c0);
+    if (listed > 0) next.load(v.tile[0] * T, n, m, label, qid, weight);
+    for (int k = 0; k < listed; ++k) {
+      const int64_t tlo = v.lo[k], thi = v.hi[k];
+      __syncthreads();  // the previous tile's readers are done
+      next.store(&tile);
+      const int count = next.count;
+      __syncthreads();
+      if (k + 1 < listed) {
+        next.load(v.tile[k + 1] * T, n, m, label, qid, weight);
+      }
+      visit(tile, tlo, thi, count);
+    }
+  }
+}
+
+template <int T, int R>
+__global__ void __launch_bounds__(R* kWarp)
     pair_rows_fwd_kernel(const float* __restrict__ m,
                          const float* __restrict__ label,
                          const int64_t* __restrict__ qid,
-                         const float* __restrict__ weight, int64_t n,
-                         float* __restrict__ row_l, float* __restrict__ row_w) {
-  __shared__ Tile tile;
+                         const float* __restrict__ weight, int64_t* table,
+                         int64_t n, float* row_l, float* row_w,
+                         float* __restrict__ lsum, float* __restrict__ wsum) {
   const int lane = threadIdx.x % kWarp;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
-                    threadIdx.x / kWarp;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * R + threadIdx.x / kWarp;
   const bool has_i = i < n;  // no early return: the block syncs per tile
   const float mi = has_i ? m[i] : 0.0f;
   const float li = has_i ? label[i] : 0.0f;
   const float wi = has_i ? weight[i] : 0.0f;
   const int64_t qi = has_i ? qid[i] : -1;
+  const BlockView b = block_view<R>(qi, table[0] != 0);
   float acc_l = 0.0f, acc_w = 0.0f;
-  for (int64_t j0 = 0; j0 < n; j0 += kTile) {
-    const int count = load_tile(&tile, j0, n, m, label, qid, weight);
-    __syncthreads();
-    if (has_i) {
-      for (int t = lane; t < count; t += kWarp) {
-        const float pw = pair_weight(qi, tile.qid[t], li, tile.label[t], wi,
-                                     tile.weight[t]);
-        acc_l += __fmul_rn(softplus(-(mi - tile.m[t])), pw);
+  walk_tiles<T, R>(b, table, n, m, label, qid, weight,
+                   [&](const Tile<T>& tile, int64_t tlo, int64_t thi,
+                       int count) {
+    if (!has_i) return;
+    if (!b.safe) {
+      for (int k = lane; k < count; k += kWarp) {
+        const float pw = pair_weight(qi, tile.qid[k], li, tile.label[k], wi,
+                                     tile.weight[k]);
+        acc_l += __fmul_rn(softplus(-(mi - tile.m[k])), pw);
         acc_w += pw;
       }
+    } else if (tlo <= qi && qi <= thi) {
+      for (int k = lane; k < count; k += kWarp) {
+        const float pw = pair_weight(qi, tile.qid[k], li, tile.label[k], wi,
+                                     tile.weight[k]);
+        if (pw != 0.0f) {
+          acc_l += __fmul_rn(softplus(-(mi - tile.m[k])), pw);
+          acc_w += pw;
+        }
+      }
     }
-    __syncthreads();
-  }
+  });
   acc_l = warp_sum(acc_l);
   acc_w = warp_sum(acc_w);
   if (has_i && lane == 0) {
     row_l[i] = acc_l;
     row_w[i] = acc_w;
   }
-}
-
-// lsum = sum_i row_l[i], wsum = sum_i row_w[i], in a fixed order.
-__global__ void __launch_bounds__(kSumThreads)
-    sum_rows_kernel(const float* __restrict__ row_l,
-                    const float* __restrict__ row_w, int64_t n,
-                    float* __restrict__ lsum, float* __restrict__ wsum) {
-  __shared__ float part_l[kSumThreads / kWarp], part_w[kSumThreads / kWarp];
-  float a = 0.0f, b = 0.0f;
-  for (int64_t i = threadIdx.x; i < n; i += kSumThreads) {
-    a += row_l[i];
-    b += row_w[i];
-  }
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  if (lane == 0) {
-    part_l[warp] = a;
-    part_w[warp] = b;
+  // The last block to finish sums the rows in a fixed order, so lsum and
+  // wsum do not depend on which block that is.
+  __shared__ bool last;
+  __shared__ float part_l[R], part_w[R];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long done = atomicAdd(
+        reinterpret_cast<unsigned long long*>(table + 1), 1ull);
+    last = done == gridDim.x - 1ull;
   }
   __syncthreads();
-  if (warp == 0) {
-    a = warp_sum(part_l[lane]);
-    b = warp_sum(part_w[lane]);
-    if (lane == 0) {
-      *lsum = a;
-      *wsum = b;
+  if (!last) return;
+  float a = 0.0f, c = 0.0f;
+  for (int64_t r = threadIdx.x; r < n; r += R * kWarp) {
+    a += __ldcg(row_l + r);
+    c += __ldcg(row_w + r);
+  }
+  a = warp_sum(a);
+  c = warp_sum(c);
+  if (lane == 0) {
+    part_l[threadIdx.x / kWarp] = a;
+    part_w[threadIdx.x / kWarp] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    a = c = 0.0f;
+    for (int w = 0; w < R; ++w) {
+      a += part_l[w];
+      c += part_w[w];
     }
+    *lsum = a;
+    *wsum = c;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int T, int R>
+__global__ void __launch_bounds__(R* kWarp)
     pair_rows_bwd_kernel(const float* __restrict__ m,
                          const float* __restrict__ label,
                          const int64_t* __restrict__ qid,
                          const float* __restrict__ weight,
-                         const float* __restrict__ s_in, int64_t n,
+                         const float* __restrict__ s_in,
+                         const int64_t* __restrict__ table, int64_t n,
                          float* __restrict__ g) {
-  __shared__ Tile tile;
   const int lane = threadIdx.x % kWarp;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
-                    threadIdx.x / kWarp;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * R + threadIdx.x / kWarp;
   const bool has_i = i < n;
   const float s = *s_in;
   const float mi = has_i ? m[i] : 0.0f;
   const float li = has_i ? label[i] : 0.0f;
   const float wi = has_i ? weight[i] : 0.0f;
   const int64_t qi = has_i ? qid[i] : -1;
+  const BlockView b = block_view<R>(qi, table[0] != 0 && isfinite(s));
   float acc = 0.0f;
-  for (int64_t j0 = 0; j0 < n; j0 += kTile) {
-    const int count = load_tile(&tile, j0, n, m, label, qid, weight);
-    __syncthreads();
-    if (has_i) {
-      for (int t = lane; t < count; t += kWarp) {
-        const float mj = tile.m[t], lj = tile.label[t], wj = tile.weight[t];
-        const int64_t qj = tile.qid[t];
+  walk_tiles<T, R>(b, table, n, m, label, qid, weight,
+                   [&](const Tile<T>& tile, int64_t tlo, int64_t thi,
+                       int count) {
+    if (!has_i) return;
+    if (!b.safe) {
+      for (int k = lane; k < count; k += kWarp) {
+        const float mj = tile.m[k], lj = tile.label[k], wj = tile.weight[k];
+        const int64_t qj = tile.qid[k];
         // pair (j, i): softplus(-(m_j - m_i)) pulls m_i up
         const float up = __fmul_rn(
             __fmul_rn(s, pair_weight(qj, qi, lj, li, wj, wi)),
@@ -214,15 +479,119 @@ __global__ void __launch_bounds__(kThreads)
             softplus_grad(-(mi - mj)));
         acc += up - down;
       }
+    } else if (tlo <= qi && qi <= thi) {
+      // at most one of the two directions is weighted (label_i > label_j
+      // or label_j > label_i), and the other adds exactly +-0: up - (+-0)
+      // is up, (+-0) - down is -down
+      for (int k = lane; k < count; k += kWarp) {
+        const float mj = tile.m[k], lj = tile.label[k], wj = tile.weight[k];
+        const int64_t qj = tile.qid[k];
+        const float pw_up = pair_weight(qj, qi, lj, li, wj, wi);
+        const float pw_down = pair_weight(qi, qj, li, lj, wi, wj);
+        if (pw_up != 0.0f) {
+          acc += __fmul_rn(__fmul_rn(s, pw_up), softplus_grad(-(mj - mi)));
+        } else if (pw_down != 0.0f) {
+          acc += -__fmul_rn(__fmul_rn(s, pw_down),
+                            softplus_grad(-(mi - mj)));
+        }
+      }
     }
-    __syncthreads();
-  }
+  });
   acc = warp_sum(acc);
   if (has_i && lane == 0) g[i] = acc;
 }
 
-unsigned row_grid(int64_t n) {
-  return static_cast<unsigned>((n + kRowsPerBlock - 1) / kRowsPerBlock);
+struct Args {
+  const float* m;
+  const float* label;
+  const int64_t* qid;
+  const float* weight;
+  int64_t n;
+  cudaStream_t stream;
+};
+
+template <int T>
+cudaError_t launch_table(const Args& a, int64_t* table) {
+  tile_table_kernel<T><<<1, kPrepThreads, 0, a.stream>>>(a.m, a.qid,
+                                                         a.weight, a.n, table);
+  return cudaGetLastError();
+}
+
+template <int T, int R>
+cudaError_t launch_fwd(const Args& a, int64_t* table, float* rows,
+                       float* lsum, float* wsum) {
+  cudaError_t err = launch_table<T>(a, table);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((a.n + R - 1) / R);
+  pair_rows_fwd_kernel<T, R><<<grid, R * kWarp, 0, a.stream>>>(
+      a.m, a.label, a.qid, a.weight, table, a.n, rows, rows + a.n, lsum,
+      wsum);
+  return cudaGetLastError();
+}
+
+template <int T, int R>
+cudaError_t launch_bwd(const Args& a, const float* s, int64_t* table,
+                       bool table_ready, float* g) {
+  if (!table_ready) {
+    const cudaError_t err = launch_table<T>(a, table);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned grid = static_cast<unsigned>((a.n + R - 1) / R);
+  pair_rows_bwd_kernel<T, R><<<grid, R * kWarp, 0, a.stream>>>(
+      a.m, a.label, a.qid, a.weight, s, table, a.n, g);
+  return cudaGetLastError();
+}
+
+// The launches of each entry for one (T, R); dispatch picks the pair.
+struct Fwd {
+  const Args& a;
+  int64_t* tb;
+  float *rs, *lsum, *wsum;
+  template <int T, int R>
+  cudaError_t operator()() const {
+    return launch_fwd<T, R>(a, tb, rs, lsum, wsum);
+  }
+};
+
+struct Bwd {
+  const Args& a;
+  const float* s;
+  int64_t* tb;
+  bool ready;
+  float* g;
+  template <int T, int R>
+  cudaError_t operator()() const {
+    return launch_bwd<T, R>(a, s, tb, ready, g);
+  }
+};
+
+// Calls f.template operator()<T, R>() for the supported (T, R), else
+// returns cudaErrorInvalidValue.
+template <typename F>
+cudaError_t dispatch(int64_t tile, int64_t rows, F f) {
+#define DMLC_K7_ROWS(T)                                   \
+  switch (rows) {                                         \
+    case 4: return f.template operator()<T, 4>();         \
+    case 8: return f.template operator()<T, 8>();         \
+    case 16: return f.template operator()<T, 16>();       \
+    default: return cudaErrorInvalidValue;                \
+  }
+  switch (tile) {
+    case 64: DMLC_K7_ROWS(64)
+    case 128: DMLC_K7_ROWS(128)
+    case 256: DMLC_K7_ROWS(256)
+    default: return cudaErrorInvalidValue;
+  }
+#undef DMLC_K7_ROWS
+}
+
+Args make_args(const void* margins, const void* label, const void* qid,
+               const void* weight, int64_t n, void* stream) {
+  return Args{static_cast<const float*>(margins),
+              static_cast<const float*>(label),
+              static_cast<const int64_t*>(qid),
+              static_cast<const float*>(weight), n,
+              static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -230,40 +599,41 @@ unsigned row_grid(int64_t n) {
 extern "C" {
 
 // *lsum, *wsum of the batch's n documents (margins, label, weight float32;
-// qid int64, -1 for padding). row_sums: scratch of 2n floats. Returns a
-// cudaError_t.
+// qid int64, -1 for padding), with tiles of `tile` documents and `rows`
+// rows a block. row_sums: scratch of 2n floats; table: int64 [2 + 2 *
+// ceil(n / tile)], the tile table, written here for the backward. Returns a
+// cudaError_t (cudaErrorInvalidValue for an unsupported tile or rows).
 int dmlc_pair_sums_fwd(const void* margins, const void* label,
                        const void* qid, const void* weight, int64_t n,
-                       void* row_sums, void* lsum, void* wsum,
-                       void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* rows = static_cast<float*>(row_sums);
-  if (n > 0) {
-    pair_rows_fwd_kernel<<<row_grid(n), kThreads, 0, s>>>(
-        static_cast<const float*>(margins), static_cast<const float*>(label),
-        static_cast<const int64_t*>(qid), static_cast<const float*>(weight),
-        n, rows, rows + n);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+                       int64_t tile, int64_t rows, void* row_sums,
+                       void* table, void* lsum, void* wsum, void* stream) {
+  const Args a = make_args(margins, label, qid, weight, n, stream);
+  if (n <= 0) {
+    cudaError_t err = cudaMemsetAsync(lsum, 0, sizeof(float), a.stream);
+    if (err == cudaSuccess) {
+      err = cudaMemsetAsync(wsum, 0, sizeof(float), a.stream);
+    }
+    return static_cast<int>(err);
   }
-  sum_rows_kernel<<<1, kSumThreads, 0, s>>>(rows, rows + n, n,
-                                            static_cast<float*>(lsum),
-                                            static_cast<float*>(wsum));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dispatch(
+      tile, rows,
+      Fwd{a, static_cast<int64_t*>(table), static_cast<float*>(row_sums),
+          static_cast<float*>(lsum), static_cast<float*>(wsum)}));
 }
 
 // g[n] = the gradient of s * lsum in the margins, s read from the device
-// scalar s. Returns a cudaError_t.
+// scalar s, with the forward's tile table (table_ready != 0) or one
+// written here into table first. Returns a cudaError_t.
 int dmlc_pair_sums_bwd(const void* margins, const void* label,
                        const void* qid, const void* weight, const void* s,
-                       int64_t n, void* g, void* stream) {
+                       int64_t n, int64_t tile, int64_t rows, void* table,
+                       int table_ready, void* g, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  pair_rows_bwd_kernel<<<row_grid(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(margins), static_cast<const float*>(label),
-      static_cast<const int64_t*>(qid), static_cast<const float*>(weight),
-      static_cast<const float*>(s), n, static_cast<float*>(g));
-  return static_cast<int>(cudaGetLastError());
+  const Args a = make_args(margins, label, qid, weight, n, stream);
+  return static_cast<int>(dispatch(
+      tile, rows,
+      Bwd{a, static_cast<const float*>(s), static_cast<int64_t*>(table),
+          table_ready != 0, static_cast<float*>(g)}));
 }
 
 }  // extern "C"

@@ -46,7 +46,8 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["fm_pair", "ffm_pair", "fm_pair_fwd", "fm_pair_bwd",
            "ffm_pair_fwd", "ffm_pair_bwd", "fm_pair_fwd_plain",
-           "fm_pair_bwd_plain", "ffm_pair_fwd_plain", "ffm_pair_bwd_plain"]
+           "fm_pair_bwd_plain", "ffm_pair_fwd_plain", "ffm_pair_bwd_plain",
+           "ffm_route"]
 
 
 # ------------------------------------------------------------ plain versions
@@ -198,9 +199,28 @@ def fm_pair_bwd(offset: torch.Tensor, index: torch.Tensor,
     return gV
 
 
+# The global route's workspace: at most this many bytes, and two blocks an
+# SM (each block holds one row's S and D at a time).
+FFM_WORKSPACE_BYTES = 256 << 20
+FFM_BLOCKS_PER_SM = 2
+
+
+def ffm_shared_bytes(num_fields: int, K: int) -> int:
+    """Bytes of one row's S [nf, nf, K] and D [nf, K]."""
+    return (num_fields * num_fields * K + num_fields * K) * 4
+
+
+def ffm_route(num_fields: int, K: int, max_shared: int) -> str:
+    """K6's route for S and D: ``"shared"`` where they fit a block's
+    ``max_shared`` bytes of shared memory, else ``"global"`` (a workspace
+    in device memory)."""
+    return ("shared" if ffm_shared_bytes(num_fields, K) <= max_shared
+            else "global")
+
+
 def ffm_max_shared_bytes(device: torch.device) -> int:
-    """The most shared memory a K6 block takes on ``device``; it needs
-    (num_fields² · K + num_fields · K) · 4 bytes."""
+    """The most shared memory a K6 block takes on ``device`` (the opt-in
+    maximum less the kernels' static staging)."""
     out = ctypes.c_int64()
     with torch.cuda.device(device):
         err = library().dmlc_ffm_max_shared_bytes(ctypes.addressof(out))
@@ -209,14 +229,21 @@ def ffm_max_shared_bytes(device: torch.device) -> int:
     return out.value
 
 
-def _check_ffm_shared(V: torch.Tensor) -> None:
+def _ffm_workspace(V: torch.Tensor, rows: int):
+    """(workspace or None, blocks) of a K6 call: None for the shared
+    route; for the global route min(rows, FFM_BLOCKS_PER_SM · SMs, what
+    FFM_WORKSPACE_BYTES holds) blocks, at least one, each with one row's
+    S and D. A workspace that cannot be had raises the allocator's
+    out-of-memory error."""
     _, nf, K = V.shape
-    need, most = (nf * nf * K + nf * K) * 4, ffm_max_shared_bytes(V.device)
-    if need > most:
-        raise DMLCError(
-            f"ffm_pair: S of {nf} fields x {nf} fields x {K} factors needs "
-            f"{need} bytes of shared memory, a block on {V.device} takes at "
-            f"most {most}")
+    if ffm_route(nf, K, ffm_max_shared_bytes(V.device)) == "shared":
+        return None, 0
+    per_block = ffm_shared_bytes(nf, K)
+    sms = torch.cuda.get_device_properties(V.device).multi_processor_count
+    blocks = max(1, min(rows, FFM_BLOCKS_PER_SM * sms,
+                        FFM_WORKSPACE_BYTES // per_block))
+    return torch.empty(blocks * per_block // 4, dtype=torch.float32,
+                       device=V.device), blocks
 
 
 def ffm_pair_fwd(offset: torch.Tensor, index: torch.Tensor,
@@ -226,13 +253,14 @@ def ffm_pair_fwd(offset: torch.Tensor, index: torch.Tensor,
     n, on_card = _check(offset, index, value, V, 3, field=field)
     if not on_card:
         return ffm_pair_fwd_plain(offset, index, value, field, V)
-    _check_ffm_shared(V)
     F, nf, K = V.shape
+    workspace, blocks = _ffm_workspace(V, n)
     pair = torch.empty(n, dtype=torch.float32, device=V.device)
     launch("dmlc_ffm_pair_fwd", V.device, offset.data_ptr(),
            index.data_ptr(), INDEX_BYTES[index.dtype], value.data_ptr(),
            field.data_ptr(), V.data_ptr(), n, index.numel(), F, nf, K,
-           pair.data_ptr())
+           pair.data_ptr(),
+           None if workspace is None else workspace.data_ptr(), blocks)
     ffm_pair_fwd.launches += 1
     return pair
 
@@ -244,13 +272,14 @@ def ffm_pair_bwd(offset: torch.Tensor, index: torch.Tensor,
     n, on_card = _check(offset, index, value, V, 3, field=field, g=g)
     if not on_card:
         return ffm_pair_bwd_plain(offset, index, value, field, V, g)
-    _check_ffm_shared(V)
     F, nf, K = V.shape
+    workspace, blocks = _ffm_workspace(V, n)
     gV = torch.zeros_like(V)
     launch("dmlc_ffm_pair_bwd", V.device, offset.data_ptr(),
            index.data_ptr(), INDEX_BYTES[index.dtype], value.data_ptr(),
            field.data_ptr(), V.data_ptr(), g.data_ptr(), n, index.numel(),
-           F, nf, K, gV.data_ptr())
+           F, nf, K, gV.data_ptr(),
+           None if workspace is None else workspace.data_ptr(), blocks)
     ffm_pair_bwd.launches += 1
     return gV
 

@@ -36,23 +36,27 @@ _SIGNATURES = {
     "dmlc_fm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                          _P, _P],
     # offset, index, index_bytes, value, field, V, rows, nnz, features, nf,
-    # K, pair
+    # K, pair, workspace (null: shared route), blocks
     "dmlc_ffm_pair_fwd": [_P, _P, _I, _P, _P, _P, _I64, _I64, _I64, _I64,
-                          _I64, _P, _P],
+                          _I64, _P, _P, _I64, _P],
     # offset, index, index_bytes, value, field, V, g, rows, nnz, features,
-    # nf, K, gV
+    # nf, K, gV, workspace, blocks
     "dmlc_ffm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                          _I64, _P, _P],
+                          _I64, _P, _P, _I64, _P],
     # out: int64 (no stream)
     "dmlc_ffm_max_shared_bytes": [_P],
     # index [n, k], index_bytes, value [n, k], w, rows, k, features, y
     "dmlc_sdot_rows": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
     # offset, index, index_bytes, value, rows, nnz, cols, dense
     "dmlc_csr_to_dense": [_P, _P, _I, _P, _I64, _I64, _I64, _P, _P],
-    # margins, label, qid, weight, n, row sums [2n] (scratch), lsum, wsum
-    "dmlc_pair_sums_fwd": [_P, _P, _P, _P, _I64, _P, _P, _P, _P],
-    # margins, label, qid, weight, s (device scalar), n, g [n]
-    "dmlc_pair_sums_bwd": [_P, _P, _P, _P, _P, _I64, _P, _P],
+    # margins, label, qid, weight, n, tile, rows, row sums [2n] (scratch),
+    # tile table, lsum, wsum
+    "dmlc_pair_sums_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P,
+                           _P],
+    # margins, label, qid, weight, s (device scalar), n, tile, rows, tile
+    # table, table_ready, g [n]
+    "dmlc_pair_sums_bwd": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _I, _P,
+                           _P],
 }
 
 _lib = None

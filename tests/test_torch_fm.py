@@ -220,6 +220,54 @@ def _brute_force_ffm(c):
     return np.array(out)
 
 
+# FFM shapes whose S and D pass a block's shared memory on sm_90 (the
+# kernels' global route): a few rows each, an out-of-range index in row 2
+# and a clipped field in row 3
+WIDE_FFM = {"120x4": dict(fields=120, K=4, max_nnz=60),
+            "39x40": dict(fields=39, K=40, max_nnz=39),
+            "300x1": dict(fields=300, K=1, max_nnz=40)}
+
+
+@pytest.mark.parametrize("shape", sorted(WIDE_FFM))
+def test_wide_ffm_pair_and_gradient_match_jax(shape):
+    c = _csr(seed=22, rows=6, features=50, ffm=True, out_of_range=(2,),
+             bad_field=(3,), **WIDE_FFM[shape])
+    want = np.asarray(_ref_pair(c, True)(jnp.asarray(c["V"])))
+    V = _t(c["V"]).requires_grad_()
+    got = _port_pair(c, V, True)
+    np.testing.assert_array_equal(np.isnan(got.detach().numpy()),
+                                  np.isnan(want))
+    assert np.isnan(want).sum() == 1
+    ok = np.isnan(want) | (np.abs(got.detach().numpy() - want)
+                           <= ATOL + RTOL * _sum_abs_terms(c, True))
+    assert ok.all()
+    _, pullback = jax.vjp(_ref_pair(c, True), jnp.asarray(c["V"]))
+    want_g = np.asarray(pullback(jnp.asarray(c["g"]))[0])
+    got.backward(_t(c["g"]))
+    np.testing.assert_allclose(V.grad.numpy(), want_g, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(np.isnan(V.grad.numpy()),
+                                  np.isnan(want_g))
+
+
+# sm_90's opt-in shared memory a block (232,448 bytes) less K6's static
+# staging (1,056 bytes)
+SM90_K6_SHARED = 232448 - 1056
+
+
+@pytest.mark.parametrize("fields,K,route", [(39, 4, "shared"),
+                                            (39, 37, "shared"),
+                                            (39, 40, "global"),
+                                            (120, 4, "global"),
+                                            (300, 1, "global")])
+def test_ffm_route_at_sm90_optin(fields, K, route):
+    """S and D of 39 fields of 4 factors (24,960 bytes) stay in shared
+    memory; 39 × 40 (249,600), 120 × 4 (232,320) and 300 × 1 (361,200)
+    take the global route instead of raising."""
+    assert fm.ffm_route(fields, K, SM90_K6_SHARED) == route
+    assert (fm.ffm_shared_bytes(fields, K) <= SM90_K6_SHARED) == (
+        route == "shared")
+
+
 @pytest.mark.parametrize("case", ["plain", "empty_rows", "bad_field",
                                   "long_rows", "one_field", "c6_field"])
 def test_ffm_pair_matches_pairwise_definition(case):

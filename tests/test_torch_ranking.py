@@ -44,17 +44,27 @@ RTOL, ATOL = 1e-5, 1e-6
 
 
 def _docs(seed, n=128, queries=8, pad=0, split_qid=False, nan_at=(),
-          inf_at=(), zero_margins=False, tie_query=False):
+          inf_at=(), zero_margins=False, tie_query=False, neg_inf_at=(),
+          huge_at=(), nan_weight_at=(), weight_at=(), qids="sorted"):
     """n documents in contiguous queries (labels 0-4 with ties, weights
     in (0, 1]); the last ``pad`` made padding (qid -1, weight 0, label
     0); with ``split_qid`` query 1's id reused by the last query, so its
     rows are not contiguous; with ``tie_query`` every label of query 2
-    equal (no pairs)."""
+    equal (no pairs). ``huge_at`` = (i, j): margins 3e38 at i and -3e38
+    at j, in different queries (each finite, their difference not);
+    ``nan_weight_at`` rows weigh NaN (after the padding); ``weight_at``
+    holds (row, weight) pairs; ``qids``: "sorted" (contiguous queries),
+    "own" (every row its own query) or "interleaved" (row r in query r
+    mod ``queries``)."""
     rng = np.random.RandomState(seed)
     qid = np.sort(rng.randint(0, queries, n)).astype(np.int64)
     label = rng.randint(0, 5, n).astype(np.float32)
     weight = (1.0 - rng.rand(n)).astype(np.float32)  # (0, 1]
     m = rng.randn(n).astype(np.float32)
+    if qids == "own":
+        qid = np.arange(n, dtype=np.int64)
+    elif qids == "interleaved":
+        qid = np.arange(n, dtype=np.int64) % queries
     if split_qid:
         qid[qid == queries - 1] = 1
     if tie_query:
@@ -67,6 +77,14 @@ def _docs(seed, n=128, queries=8, pad=0, split_qid=False, nan_at=(),
         m[:] = 0.0
     m[list(nan_at)] = np.nan
     m[list(inf_at)] = np.inf
+    m[list(neg_inf_at)] = -np.inf
+    if huge_at:
+        i, j = huge_at
+        assert qid[i] != qid[j]
+        m[i], m[j] = 3e38, -3e38
+    weight[list(nan_weight_at)] = np.nan
+    for r, v in weight_at:
+        weight[r] = v
     return dict(m=m, label=label, qid=qid, weight=weight)
 
 
@@ -81,6 +99,15 @@ CASES = {
     "nan_margin": dict(seed=7, nan_at=(17,)),
     "inf_margin": dict(seed=8, inf_at=(40,)),
     "all_padded": dict(seed=9, n=64, pad=64),
+    # the skip rule's edges: each unsafe batch falls back to every pair
+    "neg_inf_margin": dict(seed=13, neg_inf_at=(25,)),
+    "huge_margins": dict(seed=14, huge_at=(5, 120)),
+    "nan_weight_padded": dict(seed=15, pad=20, nan_weight_at=(115,)),
+    "big_weight": dict(seed=16, weight_at=((10, 2e19),)),  # 2e19² > 3.4e38
+    # no tile can be skipped, or every pair is unweighted
+    "one_query": dict(seed=17, queries=1),
+    "own_queries": dict(seed=18, qids="own"),
+    "interleaved": dict(seed=19, queries=7, qids="interleaved"),
 }
 
 
@@ -101,10 +128,10 @@ def test_pair_sums_plain_matches_jax(case):
     d = _docs(**CASES[case])
     want_l, want_w = (float(x) for x in _ref_sums(d)(jnp.asarray(d["m"])))
     got_l, got_w = (float(x) for x in ranking.pair_sums(*_port_args(d)))
-    assert np.isnan(got_l) == np.isnan(want_l)
-    if not np.isnan(want_l):
-        assert got_l == pytest.approx(want_l, rel=RTOL, abs=ATOL)
-    assert got_w == pytest.approx(want_w, rel=RTOL, abs=ATOL)
+    for got, want in ((got_l, want_l), (got_w, want_w)):
+        assert np.isnan(got) == np.isnan(want)
+        if not np.isnan(want):
+            assert got == pytest.approx(want, rel=RTOL, abs=ATOL)
     if case == "all_padded":
         assert got_l == 0.0 and got_w == 0.0
 
@@ -138,6 +165,141 @@ def test_pair_sums_grad_plain_matches_jax_vjp(case):
         assert np.isnan(got).all()  # every row pairs with the NaN one
     if case == "inf_margin":
         assert np.isnan(got).tolist() == [i == 40 for i in range(len(got))]
+
+
+@pytest.mark.parametrize("case", ["plain", "nan_margin", "big_weight",
+                                  "one_query"])
+def test_pair_sums_grad_plain_matches_jax_vjp_at_inf_cotangent(case):
+    """s = inf: the reference's s·pw is inf·0 = NaN for every unweighted
+    pair, so NaN reaches each row that has one."""
+    d = _docs(**CASES[case])
+    _, pullback = jax.vjp(_ref_sums(d), jnp.asarray(d["m"]))
+    want = np.asarray(pullback((jnp.float32(np.inf), jnp.float32(0.0)))[0])
+    got = ranking.pair_sums_grad(*_port_args(d),
+                                 torch.tensor(np.inf, dtype=torch.float32))
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(got.numpy()[~np.isnan(want)],
+                                  want[~np.isnan(want)])
+
+
+# ------------------------------------------------------------ the skip rule
+
+def _sp32(x):
+    """jax.nn.softplus in float32."""
+    with np.errstate(all="ignore"):
+        sp = np.maximum(x, 0) + np.log1p(np.exp(-np.abs(x)))
+    return np.where(np.isnan(x), x, sp).astype(np.float32)
+
+
+def _sp_grad32(x):
+    """Its derivative as jax's logaddexp jvp forms it, in float32."""
+    sp = _sp32(x)
+    with np.errstate(all="ignore"):
+        return np.exp(np.where(x == np.inf, 0, x).astype(np.float32)
+                      - np.where(sp == np.inf, 0, sp)).astype(np.float32)
+
+
+def _tile_table(d, T):
+    """The kernels' pre-pass (csrc/ranking.cu): the safe flag and each
+    tile's valid-qid interval, (INT64_MAX, -1) where it has none."""
+    m, w, q = d["m"], d["weight"], d["qid"]
+    with np.errstate(all="ignore"):
+        safe = bool(np.isfinite(m).all() and np.isfinite(w).all()
+                    and np.isfinite(np.float32(m.max()) - np.float32(m.min()))
+                    and np.isfinite(np.abs(w).max() * np.abs(w).max()))
+    tiles = []
+    for t0 in range(0, len(m), T):
+        tq = q[t0:t0 + T]
+        tq = tq[tq >= 0]
+        tiles.append((int(tq.min()), int(tq.max())) if tq.size
+                     else (np.iinfo(np.int64).max, -1))
+    return safe, tiles
+
+
+def _skip_model(d, s=None, T=16, R=8):
+    """A numpy model of K7's skip rule: blocks of R rows visit only the
+    tiles of T documents whose valid-qid interval meets theirs, rows only
+    the tiles whose interval holds their qid, and pairs only where pw !=
+    0, when the batch is safe (and s finite); every pair otherwise.
+    Returns ((lsum, wsum) or g, the tiles visited, the tiles in all)."""
+    m, label, q, w = d["m"], d["label"], d["qid"], d["weight"]
+    n = len(m)
+    safe, tiles = _tile_table(d, T)
+    if s is not None:
+        safe = safe and bool(np.isfinite(s))
+        s = np.float32(s)
+    row_l, row_w, g = np.zeros(n), np.zeros(n), np.zeros(n)
+    visited = 0
+    for r0 in range(0, n, R):
+        rows = range(r0, min(n, r0 + R))
+        valid = [int(q[i]) for i in rows if q[i] >= 0]
+        blo, bhi = (min(valid), max(valid)) if valid else (2**63 - 1, -1)
+        for t, (tlo, thi) in enumerate(tiles):
+            if safe and (tlo > bhi or thi < blo):
+                continue
+            visited += 1
+            j = np.arange(t * T, min(n, (t + 1) * T))
+            for i in rows:
+                if safe and not tlo <= q[i] <= thi:
+                    continue
+                with np.errstate(all="ignore"):
+                    on = (q[i] >= 0) & (q[j] >= 0) & (q[j] == q[i])
+                    pw_dn = (w[i] * w[j]) * (on & (label[i] > label[j]))
+                    pw_up = (w[j] * w[i]) * (on & (label[j] > label[i]))
+                    if s is None:
+                        keep = pw_dn != 0 if safe else np.ones(j.size, bool)
+                        row_l[i] += np.sum(_sp32(-(m[i] - m[j]))[keep]
+                                           * pw_dn[keep], dtype=np.float64)
+                        row_w[i] += np.sum(pw_dn[keep], dtype=np.float64)
+                        continue
+                    up = (s * pw_up) * _sp_grad32(-(m[j] - m[i]))
+                    down = (s * pw_dn) * _sp_grad32(-(m[i] - m[j]))
+                    if safe:
+                        term = np.where(pw_up != 0, up,
+                                        np.where(pw_dn != 0, -down, 0.0))
+                    else:
+                        term = up - down
+                    g[i] += np.sum(term, dtype=np.float64)
+    out = (row_l.sum(), row_w.sum()) if s is None else g
+    return out, visited, -(-n // R) * len(tiles)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_skip_rule_model_matches_jax(case):
+    """The skip rule, modelled in numpy, against the reference: lsum, wsum
+    and the gradient (s = 0.37 and s = inf) with the NaN pattern exact."""
+    d = _docs(**CASES[case])
+    want = [float(x) for x in _ref_sums(d)(jnp.asarray(d["m"]))]
+    got, _, _ = _skip_model(d)
+    for a, b in zip(got, want):
+        assert np.isnan(a) == np.isnan(b)
+        if not np.isnan(b):
+            assert a == pytest.approx(b, rel=RTOL, abs=ATOL)
+    _, pullback = jax.vjp(_ref_sums(d), jnp.asarray(d["m"]))
+    for s in (0.37, np.inf):
+        want_g = np.asarray(pullback((jnp.float32(s), jnp.float32(0.0)))[0])
+        got_g, _, _ = _skip_model(d, s)
+        np.testing.assert_array_equal(np.isnan(got_g), np.isnan(want_g))
+        ok = np.isnan(want_g) | (np.abs(got_g - want_g)
+                                 <= ATOL + RTOL * _grad_scale(d, s))
+        assert ok.all(), (s, np.abs(got_g - want_g)[~ok])
+
+
+def test_skip_rule_skips_only_safe_batches():
+    """Contiguous queries leave most tiles unvisited; an unsafe batch, one
+    query over the batch and interleaved queries leave none; every row
+    its own query visits only its own tile."""
+    def share(case, s=None):
+        _, visited, total = _skip_model(_docs(**CASES[case]), s)
+        return visited / total
+    assert share("plain") < 0.5 and share("plain", 0.37) < 0.5
+    assert share("own_queries") == pytest.approx(1 / 8)
+    for case in ("nan_margin", "inf_margin", "neg_inf_margin", "huge_margins",
+                 "nan_weight_padded", "big_weight", "one_query",
+                 "interleaved"):
+        assert share(case) == 1.0, case
+    assert share("plain", np.inf) == 1.0
 
 
 @pytest.mark.parametrize("case", ["plain", "padded_tail", "nan_margin"])
@@ -206,6 +368,10 @@ def test_wrappers_check_shapes_and_dtypes():
         ranking.pair_sums(m, label, qid, weight.double())
     with pytest.raises(DMLCError, match="s must"):
         ranking.pair_sums_grad(m, label, qid, weight, torch.zeros(2))
+    with pytest.raises(DMLCError, match="tile table"):
+        ranking.pair_sums_grad(m, label, qid, weight, torch.tensor(1.0),
+                               torch.zeros(ranking.table_size(16),
+                                           dtype=torch.int64))
 
 
 def test_cpu_calls_do_not_count_as_launches():
