@@ -43,9 +43,9 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    non-contiguous rows, all-zero margins, a NaN margin, a -inf margin, two
    margins of +-3e38, a NaN weight on a padded row, a weight of 2e19, one
    query over the batch, every row its own query, interleaved queries;
-   the gradient also at a cotangent of inf), each kernel's tile and rows
-   a block swept, the share of tiles each block skips, and K7 timed at
-   two batches where no tile can be skipped, K3
+   the gradient also at a cotangent of inf), the share of tiles each
+   block skips, and K7 timed at two batches where no tile can be skipped,
+   K3
    (``sdot_rows``) and K4 (``csr_to_dense``) on the same batch, each
    timed beside its bound; one epoch of ``SparseRankingModel(137)``
    through native padded batches with ``qid`` (4096 rows, the
@@ -1364,58 +1364,41 @@ def _grad_scale(margins, label, qid, weight, s):
     return (ct.sum(0) + ct.sum(1)).nan_to_num()
 
 
+def _k7_shape():
+    """(T, R): the documents of a tile and the rows of a block that
+    csrc/ranking.cu compiles in."""
+    import re
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "dmlc_tpu_torch", "csrc", "ranking.cu")).read()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1))
+                 for name in ("kTile", "kRows"))
+
+
 def k7_tiles(first, args, s):
-    """K7 at the ranking path's first batch: each supported tile and rows
-    a block timed (forward, and backward with the forward's tile table),
-    each against the plain versions; the share of tiles each block skips
-    and the pairs evaluated at the wrapper's choice; then K7 timed at two
-    batches where no tile can be skipped: one query over the batch, and
-    the batch's qids shuffled across its rows. Returns the tile table of
-    the first batch at the wrapper's choice."""
+    """K7 at the ranking path's first batch: the share of tiles each block
+    skips and the pairs in the tiles it visits, worked out on the host by
+    the skip rule from the tile table that the forward wrote on the device
+    (the kernel counts nothing); then K7 against its plain versions and
+    timed at the batch as it came and at two batches where no tile can be
+    skipped: one query over the batch, and the batch's qids shuffled
+    across its rows. Returns the tile table of the first batch."""
     import collections
     import numpy as np
     import torch
     from dmlc_tpu_torch.ops import ranking
     cuda = torch.device("cuda")
     n = RANK_ROW_BUCKET
-    lsum_p, wsum_p = (float(x) for x in ranking.pair_sums_plain(*args))
-    g_p = ranking.pair_sums_grad_plain(*args, s)
-    scale = _grad_scale(*args, s)
-    chosen = (ranking.TILE, ranking.ROWS)
-    sweep = []
-    try:
-        for tile in (64, 128, 256):
-            for rows in (4, 8, 16):
-                ranking.TILE, ranking.ROWS = tile, rows
-                lsum, wsum, table = ranking.pair_sums_with_table(*args)
-                g = ranking.pair_sums_grad(*args, s, table)
-                torch.cuda.synchronize()
-                require(abs(float(lsum) - lsum_p)
-                        <= RANK_ATOL + RANK_RTOL * abs(lsum_p)
-                        and abs(float(wsum) - wsum_p)
-                        <= RANK_ATOL + RANK_RTOL * abs(wsum_p)
-                        and bool(((g - g_p).abs()
-                                  <= RANK_ATOL + RANK_RTOL * scale).all()),
-                        f"K7 at tile {tile}, {rows} rows a block disagrees "
-                        "with its plain versions")
-                sweep.append((tile, rows,
-                              device_ms(lambda: ranking.pair_sums(*args)),
-                              device_ms(lambda: ranking.pair_sums_grad(
-                                  *args, s, table))))
-    finally:
-        ranking.TILE, ranking.ROWS = chosen
-    log("K7 tile and rows a block at the first batch (forward us, backward "
-        "us on the device; each matches its plain versions): "
-        + "; ".join(f"T {t} R {r}: {f * 1e3:.2f}, {b * 1e3:.2f}"
-                    for t, r, f, b in sweep)
-        + f"; the wrapper takes T {chosen[0]}, R {chosen[1]}")
-    _, _, table = ranking.pair_sums_with_table(*args)
+    T, R = _k7_shape()
+    _, _, table = ranking.pair_sums(*args)
     tb = table.cpu().numpy()
+    require(len(tb) == 2 + 2 * -(-n // T),
+            f"K7's tile table has {len(tb)} entries at tiles of {T}")
     tiles = tb[2:].reshape(-1, 2)  # after the flag and the block count
     qid = np.asarray(first["qid"])
     skipped, visited_pairs, row_pairs = [], 0, 0
-    for r0 in range(0, n, chosen[1]):
-        rq = qid[r0:r0 + chosen[1]]
+    for r0 in range(0, n, R):
+        rq = qid[r0:r0 + R]
         valid = rq[rq >= 0]
         lo, hi = ((valid.min(), valid.max()) if valid.size
                   else (np.iinfo(np.int64).max, -1))
@@ -1423,27 +1406,29 @@ def k7_tiles(first, args, s):
             np.zeros(len(tiles), bool))
         skipped.append(float(skip.mean()))
         for t in np.flatnonzero(~skip):
-            docs = min(n, (t + 1) * chosen[0]) - t * chosen[0]
+            docs = min(n, (t + 1) * T) - t * T
             visited_pairs += len(rq) * docs
             row_pairs += int(((rq >= tiles[t, 0]) & (rq <= tiles[t, 1])).sum()
                              ) * docs
     visits = collections.Counter(
         int(round((1 - x) * len(tiles))) for x in skipped)
-    log(f"K7 at the first batch: safe flag {int(tb[0])}; each block of "
-        f"{chosen[1]} rows skips on average {np.mean(skipped):.4f} of "
-        f"{len(tiles)} tiles of {chosen[0]} documents (least "
-        f"{min(skipped):.4f}, most {max(skipped):.4f}); blocks by tiles "
-        f"visited {dict(sorted(visits.items()))}; pairs in visited tiles "
-        f"{visited_pairs}, of them in rows whose qid the tile holds "
-        f"{row_pairs}, of {n * n}")
+    log(f"K7 at the first batch, by the skip rule applied on the host to "
+        f"the tile table the forward wrote on the device (no counter in the "
+        f"kernel): safe flag {int(tb[0])}; each block of {R} rows skips on "
+        f"average {np.mean(skipped):.4f} of {len(tiles)} tiles of {T} "
+        f"documents (least {min(skipped):.4f}, most {max(skipped):.4f}); "
+        f"blocks by tiles visited {dict(sorted(visits.items()))}; pairs in "
+        f"visited tiles {visited_pairs}, of them in rows whose qid the tile "
+        f"holds {row_pairs}, of {n * n}")
     perm = torch.from_numpy(np.random.RandomState(SEED + 8).permutation(n))
-    unskippable = {
+    batches = {
+        "as it came": args,
         "one query": (args[0], args[1], torch.full_like(
             args[2], int(qid[0])), args[3]),
         "shuffled qids": (args[0], args[1], args[2][perm.to(cuda)], args[3]),
     }
-    for name, a in unskippable.items():
-        lsum, wsum, tb_a = ranking.pair_sums_with_table(*a)
+    for name, a in batches.items():
+        lsum, wsum, tb_a = ranking.pair_sums(*a)
         lsum_q, wsum_q = (float(x) for x in ranking.pair_sums_plain(*a))
         g = ranking.pair_sums_grad(*a, s, tb_a)
         g_q = ranking.pair_sums_grad_plain(*a, s)
@@ -1453,12 +1438,12 @@ def k7_tiles(first, args, s):
                 <= RANK_ATOL + RANK_RTOL * abs(wsum_q)
                 and bool(((g - g_q).abs() <= RANK_ATOL + RANK_RTOL
                           * _grad_scale(*a, s)).all()),
-                f"K7 at the batch with {name} disagrees with its plain "
+                f"K7 at the first batch, {name}, disagrees with its plain "
                 "versions")
         pw = ranking.pair_weights_plain(*a[1:])
         weighted = int((pw != 0).sum())
         del pw
-        log(f"K7 at the first batch with {name} ({weighted} weighted pairs; "
+        log(f"K7 at the first batch, {name} ({weighted} weighted pairs; "
             f"safe flag {int(tb_a[0])}): forward "
             f"{device_ms(lambda: ranking.pair_sums(*a)) * 1e3:.2f} us, "
             f"backward "
@@ -1533,7 +1518,7 @@ def check_ranking_kernels(first):
     s_inf = torch.tensor(float("inf"), device=cuda)
     fwd_err = bwd_err = 0.0
     for name, args in cases.items():
-        lsum, wsum, table = ranking.pair_sums_with_table(*args)
+        lsum, wsum, table = ranking.pair_sums(*args)
         lsum_p, wsum_p = ranking.pair_sums_plain(*args)
         torch.cuda.synchronize()
         for what, a, p in (("lsum", lsum, lsum_p), ("wsum", wsum, wsum_p)):
@@ -1548,20 +1533,17 @@ def check_ranking_kernels(first):
                 f"K7 {name}: the safe flag is {int(table[0])}")
         for s_ in (s, s_inf):
             g_p = ranking.pair_sums_grad_plain(*args, s_)
-            # with the forward's tile table, and writing its own
-            for g in (ranking.pair_sums_grad(*args, s_, table),
-                      ranking.pair_sums_grad(*args, s_)):
-                torch.cuda.synchronize()
-                require(torch.equal(torch.isnan(g), torch.isnan(g_p)),
-                        f"K7 {name}, s = {float(s_)}: the gradient's NaN "
-                        "entries differ from the plain version's")
-                err = (g - g_p).nan_to_num().abs()
-                scale = _grad_scale(*args, s_)
-                require(bool((err <= RANK_ATOL + RANK_RTOL * scale).all()),
-                        f"K7 {name}, s = {float(s_)}: the gradient disagrees "
-                        f"with its plain version: max |err| "
-                        f"{err.max().item()}")
-                bwd_err = max(bwd_err, err.max().item())
+            g = ranking.pair_sums_grad(*args, s_, table)
+            torch.cuda.synchronize()
+            require(torch.equal(torch.isnan(g), torch.isnan(g_p)),
+                    f"K7 {name}, s = {float(s_)}: the gradient's NaN "
+                    "entries differ from the plain version's")
+            err = (g - g_p).nan_to_num().abs()
+            scale = _grad_scale(*args, s_)
+            require(bool((err <= RANK_ATOL + RANK_RTOL * scale).all()),
+                    f"K7 {name}, s = {float(s_)}: the gradient disagrees "
+                    f"with its plain version: max |err| {err.max().item()}")
+            bwd_err = max(bwd_err, err.max().item())
             if s_ is s_inf:
                 require(bool(torch.isnan(g).any()) or name == "all_padded",
                         f"K7 {name}: no NaN in the gradient at s = inf")
@@ -1585,7 +1567,7 @@ def check_ranking_kernels(first):
         f"a NaN margin; a -inf margin; margins of +-3e38; a NaN weight on a "
         f"padded row; a weight of 2e19; one query; every row its own query; "
         f"interleaved queries; the gradient at s = 0.37 and s = inf, with "
-        f"the forward's tile table and without): lsum/wsum max |err| "
+        f"the forward's tile table): lsum/wsum max |err| "
         f"{fwd_err:.3g} (rtol {RANK_RTOL}, atol {RANK_ATOL}), gradient max "
         f"|err| {bwd_err:.3g} (rtol {RANK_RTOL} of each row's sum|terms|, "
         f"atol {RANK_ATOL}); the safe flag clear exactly in the "

@@ -56,8 +56,7 @@
 //     the empty interval [INT64_MAX, -1]). The table, int64 [2 + 2 tiles]:
 //     table[0] the flag, table[1] the forward's count of finished blocks,
 //     table[2 + 2t], table[3 + 2t] tile t's interval. The forward writes
-//     it; the backward reads the forward's, or writes its own when called
-//     alone.
+//     it; the backward reads the forward's.
 //   - pairs: one warp per row i, R rows a block. The block computes its
 //     rows' valid-qid interval and, when the flag is set, skips every tile
 //     whose interval does not meet it (a tile skipped is one whose pairs
@@ -79,9 +78,10 @@
 //     (a count in the table) sums them in a fixed order, so lsum and wsum
 //     are deterministic;
 //   - backward: each warp writes g_i; no atomics, deterministic.
-// T and R are template parameters (T in {64, 128, 256}, R in {4, 8, 16});
-// the wrapper chooses them. All kernels launch on the caller's stream and
-// allocate nothing; each C entry returns cudaGetLastError().
+// T = 128 and R = 8 (kTile, kRows) were chosen by measurement on the H100
+// at the ranking path's first batch (PERF.md). All kernels launch on the
+// caller's stream and allocate nothing; each C entry returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,6 +94,11 @@ constexpr int kPrepThreads = 1024;  // 32 warps: one warp folds them
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int64_t kNoQid = INT64_MAX;  // the low end of an empty interval
 constexpr int kTableHead = 2;  // the flag and the forward's block count
+constexpr int kTile = 128;     // T: documents a tile (ops/ranking.py: _TILE)
+constexpr int kRows = 8;       // R: rows a block, one warp each
+constexpr int kThreads = kRows * kWarp;
+// documents of a tile that one thread loads
+constexpr int kPerThread = (kTile + kThreads - 1) / kThreads;
 
 // jax.nn.softplus: logaddexp(x, 0).
 __device__ __forceinline__ float softplus(float x) {
@@ -143,7 +148,6 @@ __device__ __forceinline__ int64_t warp_max(int64_t v) {
 }
 
 // The tile table (see the design note above). One block of kPrepThreads.
-template <int T>
 __global__ void __launch_bounds__(kPrepThreads)
     tile_table_kernel(const float* __restrict__ m,
                       const int64_t* __restrict__ qid,
@@ -172,11 +176,11 @@ __global__ void __launch_bounds__(kPrepThreads)
     part[2][warp] = wmax;
   }
   // every tile's valid-qid interval: warp w takes tiles w, w + 32, ...
-  const int64_t tiles = (n + T - 1) / T;
+  const int64_t tiles = (n + kTile - 1) / kTile;
   for (int64_t t = warp; t < tiles; t += kPrepThreads / kWarp) {
     int64_t qlo = kNoQid, qhi = -1;
-    const int64_t end = (t + 1) * T < n ? (t + 1) * T : n;
-    for (int64_t j = t * T + lane; j < end; j += kWarp) {
+    const int64_t end = (t + 1) * kTile < n ? (t + 1) * kTile : n;
+    for (int64_t j = t * kTile + lane; j < end; j += kWarp) {
       const int64_t q = qid[j];
       if (q >= 0) {
         qlo = q < qlo ? q : qlo;
@@ -210,31 +214,30 @@ __global__ void __launch_bounds__(kPrepThreads)
   }
 }
 
-template <int T>
 struct Tile {
-  float m[T];
-  float label[T];
-  float weight[T];
-  int64_t qid[T];
+  float m[kTile];
+  float label[kTile];
+  float weight[kTile];
+  int64_t qid[kTile];
 };
 
 // The documents of a tile that one thread loads, k = threadIdx.x + u *
-// blockDim.x for u < P: the next tile's are read into these registers
-// while the block works on the current one, then stored into the tile.
-template <int T, int P>
+// kThreads for u < kPerThread: the next tile's are read into these
+// registers while the block works on the current one, then stored into
+// the tile.
 struct Prefetch {
-  float m[P], label[P], weight[P];
-  int64_t qid[P];
+  float m[kPerThread], label[kPerThread], weight[kPerThread];
+  int64_t qid[kPerThread];
   int count;
 
   __device__ void load(int64_t j0, int64_t n, const float* __restrict__ ms,
                        const float* __restrict__ labels,
                        const int64_t* __restrict__ qids,
                        const float* __restrict__ weights) {
-    count = static_cast<int>(n - j0 < T ? n - j0 : T);
+    count = static_cast<int>(n - j0 < kTile ? n - j0 : kTile);
 #pragma unroll
-    for (int u = 0; u < P; ++u) {
-      const int k = threadIdx.x + u * blockDim.x;
+    for (int u = 0; u < kPerThread; ++u) {
+      const int k = threadIdx.x + u * kThreads;
       if (k < count) {
         m[u] = ms[j0 + k];
         label[u] = labels[j0 + k];
@@ -244,10 +247,10 @@ struct Prefetch {
     }
   }
 
-  __device__ void store(Tile<T>* t) const {
+  __device__ void store(Tile* t) const {
 #pragma unroll
-    for (int u = 0; u < P; ++u) {
-      const int k = threadIdx.x + u * blockDim.x;
+    for (int u = 0; u < kPerThread; ++u) {
+      const int k = threadIdx.x + u * kThreads;
       if (k < count) {
         t->m[k] = m[u];
         t->label[k] = label[u];
@@ -258,15 +261,14 @@ struct Prefetch {
   }
 };
 
-// The tiles a block visits, one chunk of R * 32 tiles of the table at a
+// The tiles a block visits, one chunk of kThreads tiles of the table at a
 // time, in order: their index and interval.
-template <int R>
 struct Visits {
-  int64_t tile[R * kWarp], lo[R * kWarp], hi[R * kWarp];
-  int per_warp[R];
+  int64_t tile[kThreads], lo[kThreads], hi[kThreads];
+  int per_warp[kRows];
 };
 
-// What a block of R rows shares: its rows' valid-qid interval, and whether
+// What a block of kRows rows shares: its rows' valid-qid interval, and whether
 // it may skip (the flag, and in the backward a finite s).
 struct BlockView {
   int64_t lo, hi;
@@ -274,15 +276,14 @@ struct BlockView {
 };
 
 // Every thread of the block calls it; qi is -1 where the warp has no row.
-template <int R>
 __device__ BlockView block_view(int64_t qi, bool safe) {
-  __shared__ int64_t row_q[R];
+  __shared__ int64_t row_q[kRows];
   const int warp = threadIdx.x / kWarp;
   if (threadIdx.x % kWarp == 0) row_q[warp] = qi;
   __syncthreads();
   BlockView v{kNoQid, -1, safe};
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < kRows; ++r) {
     const int64_t q = row_q[r];
     if (q >= 0) {
       v.lo = q < v.lo ? q : v.lo;
@@ -292,13 +293,12 @@ __device__ BlockView block_view(int64_t qi, bool safe) {
   return v;
 }
 
-// Lists, in order, the tiles c0 .. c0 + R * 32 - 1 that the block visits:
+// Lists, in order, the tiles c0 .. c0 + kThreads - 1 that the block visits:
 // every tile when it may not skip, else those whose interval meets the
 // block's (an empty interval meets nothing). Each thread reads one tile's
 // entry of the table, so a chunk costs one round trip to memory. Every
 // thread calls it; returns how many tiles were listed.
-template <int R>
-__device__ int list_visits(Visits<R>* v, const BlockView& b,
+__device__ int list_visits(Visits* v, const BlockView& b,
                            const int64_t* __restrict__ table, int64_t tiles,
                            int64_t c0) {
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
@@ -315,7 +315,7 @@ __device__ int list_visits(Visits<R>* v, const BlockView& b,
   __syncthreads();
   int at = 0, total = 0;
 #pragma unroll
-  for (int w = 0; w < R; ++w) {
+  for (int w = 0; w < kRows; ++w) {
     at += w < warp ? v->per_warp[w] : 0;
     total += v->per_warp[w];
   }
@@ -332,21 +332,20 @@ __device__ int list_visits(Visits<R>* v, const BlockView& b,
 // Walks the tiles the block visits, each loaded into shared memory while
 // the next one's documents are in flight, and calls visit(tile, tlo, thi,
 // count) on each. Every thread calls it.
-template <int T, int R, typename Visit>
+template <typename Visit>
 __device__ void walk_tiles(const BlockView& b,
                            const int64_t* __restrict__ table, int64_t n,
                            const float* __restrict__ m,
                            const float* __restrict__ label,
                            const int64_t* __restrict__ qid,
                            const float* __restrict__ weight, Visit visit) {
-  constexpr int kThreads = R * kWarp;
-  __shared__ Tile<T> tile;
-  __shared__ Visits<R> v;
-  Prefetch<T, (T + kThreads - 1) / kThreads> next;
-  const int64_t tiles = (n + T - 1) / T;
+  __shared__ Tile tile;
+  __shared__ Visits v;
+  Prefetch next;
+  const int64_t tiles = (n + kTile - 1) / kTile;
   for (int64_t c0 = 0; c0 < tiles; c0 += kThreads) {
-    const int listed = list_visits<R>(&v, b, table, tiles, c0);
-    if (listed > 0) next.load(v.tile[0] * T, n, m, label, qid, weight);
+    const int listed = list_visits(&v, b, table, tiles, c0);
+    if (listed > 0) next.load(v.tile[0] * kTile, n, m, label, qid, weight);
     for (int k = 0; k < listed; ++k) {
       const int64_t tlo = v.lo[k], thi = v.hi[k];
       __syncthreads();  // the previous tile's readers are done
@@ -354,15 +353,14 @@ __device__ void walk_tiles(const BlockView& b,
       const int count = next.count;
       __syncthreads();
       if (k + 1 < listed) {
-        next.load(v.tile[k + 1] * T, n, m, label, qid, weight);
+        next.load(v.tile[k + 1] * kTile, n, m, label, qid, weight);
       }
       visit(tile, tlo, thi, count);
     }
   }
 }
 
-template <int T, int R>
-__global__ void __launch_bounds__(R* kWarp)
+__global__ void __launch_bounds__(kThreads)
     pair_rows_fwd_kernel(const float* __restrict__ m,
                          const float* __restrict__ label,
                          const int64_t* __restrict__ qid,
@@ -370,17 +368,17 @@ __global__ void __launch_bounds__(R* kWarp)
                          int64_t n, float* row_l, float* row_w,
                          float* __restrict__ lsum, float* __restrict__ wsum) {
   const int lane = threadIdx.x % kWarp;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * R + threadIdx.x / kWarp;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.x / kWarp;
   const bool has_i = i < n;  // no early return: the block syncs per tile
   const float mi = has_i ? m[i] : 0.0f;
   const float li = has_i ? label[i] : 0.0f;
   const float wi = has_i ? weight[i] : 0.0f;
   const int64_t qi = has_i ? qid[i] : -1;
-  const BlockView b = block_view<R>(qi, table[0] != 0);
+  const BlockView b = block_view(qi, table[0] != 0);
   float acc_l = 0.0f, acc_w = 0.0f;
-  walk_tiles<T, R>(b, table, n, m, label, qid, weight,
-                   [&](const Tile<T>& tile, int64_t tlo, int64_t thi,
-                       int count) {
+  walk_tiles(b, table, n, m, label, qid, weight,
+             [&](const Tile& tile, int64_t tlo, int64_t thi, int count) {
     if (!has_i) return;
     if (!b.safe) {
       for (int k = lane; k < count; k += kWarp) {
@@ -409,7 +407,7 @@ __global__ void __launch_bounds__(R* kWarp)
   // The last block to finish sums the rows in a fixed order, so lsum and
   // wsum do not depend on which block that is.
   __shared__ bool last;
-  __shared__ float part_l[R], part_w[R];
+  __shared__ float part_l[kRows], part_w[kRows];
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -420,7 +418,7 @@ __global__ void __launch_bounds__(R* kWarp)
   __syncthreads();
   if (!last) return;
   float a = 0.0f, c = 0.0f;
-  for (int64_t r = threadIdx.x; r < n; r += R * kWarp) {
+  for (int64_t r = threadIdx.x; r < n; r += kThreads) {
     a += __ldcg(row_l + r);
     c += __ldcg(row_w + r);
   }
@@ -433,7 +431,7 @@ __global__ void __launch_bounds__(R* kWarp)
   __syncthreads();
   if (threadIdx.x == 0) {
     a = c = 0.0f;
-    for (int w = 0; w < R; ++w) {
+    for (int w = 0; w < kRows; ++w) {
       a += part_l[w];
       c += part_w[w];
     }
@@ -442,8 +440,7 @@ __global__ void __launch_bounds__(R* kWarp)
   }
 }
 
-template <int T, int R>
-__global__ void __launch_bounds__(R* kWarp)
+__global__ void __launch_bounds__(kThreads)
     pair_rows_bwd_kernel(const float* __restrict__ m,
                          const float* __restrict__ label,
                          const int64_t* __restrict__ qid,
@@ -452,18 +449,18 @@ __global__ void __launch_bounds__(R* kWarp)
                          const int64_t* __restrict__ table, int64_t n,
                          float* __restrict__ g) {
   const int lane = threadIdx.x % kWarp;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * R + threadIdx.x / kWarp;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.x / kWarp;
   const bool has_i = i < n;
   const float s = *s_in;
   const float mi = has_i ? m[i] : 0.0f;
   const float li = has_i ? label[i] : 0.0f;
   const float wi = has_i ? weight[i] : 0.0f;
   const int64_t qi = has_i ? qid[i] : -1;
-  const BlockView b = block_view<R>(qi, table[0] != 0 && isfinite(s));
+  const BlockView b = block_view(qi, table[0] != 0 && isfinite(s));
   float acc = 0.0f;
-  walk_tiles<T, R>(b, table, n, m, label, qid, weight,
-                   [&](const Tile<T>& tile, int64_t tlo, int64_t thi,
-                       int count) {
+  walk_tiles(b, table, n, m, label, qid, weight,
+             [&](const Tile& tile, int64_t tlo, int64_t thi, int count) {
     if (!has_i) return;
     if (!b.safe) {
       for (int k = lane; k < count; k += kWarp) {
@@ -510,81 +507,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int T>
-cudaError_t launch_table(const Args& a, int64_t* table) {
-  tile_table_kernel<T><<<1, kPrepThreads, 0, a.stream>>>(a.m, a.qid,
-                                                         a.weight, a.n, table);
-  return cudaGetLastError();
-}
-
-template <int T, int R>
-cudaError_t launch_fwd(const Args& a, int64_t* table, float* rows,
-                       float* lsum, float* wsum) {
-  cudaError_t err = launch_table<T>(a, table);
-  if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((a.n + R - 1) / R);
-  pair_rows_fwd_kernel<T, R><<<grid, R * kWarp, 0, a.stream>>>(
-      a.m, a.label, a.qid, a.weight, table, a.n, rows, rows + a.n, lsum,
-      wsum);
-  return cudaGetLastError();
-}
-
-template <int T, int R>
-cudaError_t launch_bwd(const Args& a, const float* s, int64_t* table,
-                       bool table_ready, float* g) {
-  if (!table_ready) {
-    const cudaError_t err = launch_table<T>(a, table);
-    if (err != cudaSuccess) return err;
-  }
-  const unsigned grid = static_cast<unsigned>((a.n + R - 1) / R);
-  pair_rows_bwd_kernel<T, R><<<grid, R * kWarp, 0, a.stream>>>(
-      a.m, a.label, a.qid, a.weight, s, table, a.n, g);
-  return cudaGetLastError();
-}
-
-// The launches of each entry for one (T, R); dispatch picks the pair.
-struct Fwd {
-  const Args& a;
-  int64_t* tb;
-  float *rs, *lsum, *wsum;
-  template <int T, int R>
-  cudaError_t operator()() const {
-    return launch_fwd<T, R>(a, tb, rs, lsum, wsum);
-  }
-};
-
-struct Bwd {
-  const Args& a;
-  const float* s;
-  int64_t* tb;
-  bool ready;
-  float* g;
-  template <int T, int R>
-  cudaError_t operator()() const {
-    return launch_bwd<T, R>(a, s, tb, ready, g);
-  }
-};
-
-// Calls f.template operator()<T, R>() for the supported (T, R), else
-// returns cudaErrorInvalidValue.
-template <typename F>
-cudaError_t dispatch(int64_t tile, int64_t rows, F f) {
-#define DMLC_K7_ROWS(T)                                   \
-  switch (rows) {                                         \
-    case 4: return f.template operator()<T, 4>();         \
-    case 8: return f.template operator()<T, 8>();         \
-    case 16: return f.template operator()<T, 16>();       \
-    default: return cudaErrorInvalidValue;                \
-  }
-  switch (tile) {
-    case 64: DMLC_K7_ROWS(64)
-    case 128: DMLC_K7_ROWS(128)
-    case 256: DMLC_K7_ROWS(256)
-    default: return cudaErrorInvalidValue;
-  }
-#undef DMLC_K7_ROWS
-}
-
 Args make_args(const void* margins, const void* label, const void* qid,
                const void* weight, int64_t n, void* stream) {
   return Args{static_cast<const float*>(margins),
@@ -594,19 +516,22 @@ Args make_args(const void* margins, const void* label, const void* qid,
               static_cast<cudaStream_t>(stream)};
 }
 
+unsigned row_blocks(int64_t n) {
+  return static_cast<unsigned>((n + kRows - 1) / kRows);
+}
+
 }  // namespace
 
 extern "C" {
 
 // *lsum, *wsum of the batch's n documents (margins, label, weight float32;
-// qid int64, -1 for padding), with tiles of `tile` documents and `rows`
-// rows a block. row_sums: scratch of 2n floats; table: int64 [2 + 2 *
-// ceil(n / tile)], the tile table, written here for the backward. Returns a
-// cudaError_t (cudaErrorInvalidValue for an unsupported tile or rows).
+// qid int64, -1 for padding). row_sums: scratch of 2n floats; table: int64
+// [2 + 2 * ceil(n / 128)], the tile table, written here for the backward.
+// Returns a cudaError_t.
 int dmlc_pair_sums_fwd(const void* margins, const void* label,
                        const void* qid, const void* weight, int64_t n,
-                       int64_t tile, int64_t rows, void* row_sums,
-                       void* table, void* lsum, void* wsum, void* stream) {
+                       void* row_sums, void* table, void* lsum, void* wsum,
+                       void* stream) {
   const Args a = make_args(margins, label, qid, weight, n, stream);
   if (n <= 0) {
     cudaError_t err = cudaMemsetAsync(lsum, 0, sizeof(float), a.stream);
@@ -615,25 +540,30 @@ int dmlc_pair_sums_fwd(const void* margins, const void* label,
     }
     return static_cast<int>(err);
   }
-  return static_cast<int>(dispatch(
-      tile, rows,
-      Fwd{a, static_cast<int64_t*>(table), static_cast<float*>(row_sums),
-          static_cast<float*>(lsum), static_cast<float*>(wsum)}));
+  int64_t* tb = static_cast<int64_t*>(table);
+  float* rows = static_cast<float*>(row_sums);
+  tile_table_kernel<<<1, kPrepThreads, 0, a.stream>>>(a.m, a.qid, a.weight,
+                                                      a.n, tb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair_rows_fwd_kernel<<<row_blocks(n), kThreads, 0, a.stream>>>(
+      a.m, a.label, a.qid, a.weight, tb, a.n, rows, rows + a.n,
+      static_cast<float*>(lsum), static_cast<float*>(wsum));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // g[n] = the gradient of s * lsum in the margins, s read from the device
-// scalar s, with the forward's tile table (table_ready != 0) or one
-// written here into table first. Returns a cudaError_t.
+// scalar s, with the tile table that dmlc_pair_sums_fwd wrote on the same
+// inputs. Returns a cudaError_t.
 int dmlc_pair_sums_bwd(const void* margins, const void* label,
                        const void* qid, const void* weight, const void* s,
-                       int64_t n, int64_t tile, int64_t rows, void* table,
-                       int table_ready, void* g, void* stream) {
+                       int64_t n, const void* table, void* g, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const Args a = make_args(margins, label, qid, weight, n, stream);
-  return static_cast<int>(dispatch(
-      tile, rows,
-      Bwd{a, static_cast<const float*>(s), static_cast<int64_t*>(table),
-          table_ready != 0, static_cast<float*>(g)}));
+  pair_rows_bwd_kernel<<<row_blocks(n), kThreads, 0, a.stream>>>(
+      a.m, a.label, a.qid, a.weight, static_cast<const float*>(s),
+      static_cast<const int64_t*>(table), a.n, static_cast<float*>(g));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -49,14 +49,12 @@ _SIGNATURES = {
     "dmlc_sdot_rows": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
     # offset, index, index_bytes, value, rows, nnz, cols, dense
     "dmlc_csr_to_dense": [_P, _P, _I, _P, _I64, _I64, _I64, _P, _P],
-    # margins, label, qid, weight, n, tile, rows, row sums [2n] (scratch),
-    # tile table, lsum, wsum
-    "dmlc_pair_sums_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P,
-                           _P],
-    # margins, label, qid, weight, s (device scalar), n, tile, rows, tile
-    # table, table_ready, g [n]
-    "dmlc_pair_sums_bwd": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _I, _P,
-                           _P],
+    # margins, label, qid, weight, n, row sums [2n] (scratch), tile table,
+    # lsum, wsum
+    "dmlc_pair_sums_fwd": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
+    # margins, label, qid, weight, s (device scalar), n, the forward's tile
+    # table, g [n]
+    "dmlc_pair_sums_bwd": [_P, _P, _P, _P, _P, _I64, _P, _P, _P],
 }
 
 _lib = None

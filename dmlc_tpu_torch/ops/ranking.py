@@ -11,7 +11,7 @@ beside it:
   label_i > label_j, else 0 (``[n, n]``; also what ``pairwise_accuracy``
   counts);
 - K7 ``pair_sums``:      (lsum, wsum) = (Σ_ij softplus(−(m_i − m_j))·pw[i,j],
-  Σ_ij pw[i,j]);
+  Σ_ij pw[i,j]), and the tile table that K7 backward reads;
 - K7 ``pair_sums_grad``: g_i = Σ_j s·pw[j,i]·sp′(m_i − m_j)
   − Σ_j s·pw[i,j]·sp′(m_j − m_i), the gradient of s·lsum in the margins.
 
@@ -28,7 +28,7 @@ weighted pair when every unweighted pair adds exactly ±0 (finite margins
 and weights, a finite spread of the margins and a finite max|w|², a
 finite s), and every pair otherwise: ``csrc/ranking.cu`` states the rule.
 The forward's tile table carries that decision, on the device, to the
-backward. softplus is ``jax.nn.softplus`` (``logaddexp(x, 0)``), not
+backward, which on the card needs it. softplus is ``jax.nn.softplus`` (``logaddexp(x, 0)``), not
 ``torch.nn.functional.softplus`` (whose threshold of 20 differs); sp′ is
 the derivative that jax's ``logaddexp`` jvp forms, ``exp(x −
 softplus(x))`` with +inf read as 0. The plain versions materialise the
@@ -45,21 +45,17 @@ from dmlc_tpu_torch.ops.kernels import launch
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["pair_weights_plain", "pair_sums_plain", "pair_sums_grad_plain",
-           "pair_sums", "pair_sums_with_table", "pair_sums_grad",
-           "pair_sums_autograd"]
+           "pair_sums", "pair_sums_grad", "pair_sums_autograd"]
 
-# The kernels' tile of documents and rows a block (csrc/ranking.cu takes
-# TILE in {64, 128, 256} and ROWS in {4, 8, 16}); chosen by measurement on
-# the H100 at the ranking path's first batch (PERF.md).
-TILE = 128
-ROWS = 8
+# kTile of csrc/ranking.cu: the documents of a tile, which size the table.
+_TILE = 128
 
 
 def table_size(n: int) -> int:
     """int64 entries of the tile table of n documents: the safe flag, the
     forward's count of finished blocks and each tile's valid-qid
     interval."""
-    return 2 + 2 * ((n + TILE - 1) // TILE)
+    return 2 + 2 * ((n + _TILE - 1) // _TILE)
 
 
 def pair_weights_plain(label: torch.Tensor, qid: torch.Tensor,
@@ -137,12 +133,11 @@ def _check(margins, label, qid, weight, s=None):
     return True
 
 
-def pair_sums_with_table(margins: torch.Tensor, label: torch.Tensor,
-                         qid: torch.Tensor, weight: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor,
-                                    Optional[torch.Tensor]]:
-    """K7 forward: (lsum, wsum, the tile table for ``pair_sums_grad``, or
-    None on the CPU)."""
+def pair_sums(margins: torch.Tensor, label: torch.Tensor, qid: torch.Tensor,
+              weight: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K7 forward: (lsum, wsum, the tile table for ``pair_sums_grad``):
+    two float32 scalars, and the table, None on the CPU."""
     if not _check(margins, label, qid, weight):
         return pair_sums_plain(margins, label, qid, weight) + (None,)
     n = margins.numel()
@@ -152,17 +147,11 @@ def pair_sums_with_table(margins: torch.Tensor, label: torch.Tensor,
     lsum = torch.empty((), dtype=torch.float32, device=margins.device)
     wsum = torch.empty((), dtype=torch.float32, device=margins.device)
     launch("dmlc_pair_sums_fwd", margins.device, margins.data_ptr(),
-           label.data_ptr(), qid.data_ptr(), weight.data_ptr(), n, TILE,
-           ROWS, row_sums.data_ptr(), table.data_ptr(), lsum.data_ptr(),
+           label.data_ptr(), qid.data_ptr(), weight.data_ptr(), n,
+           row_sums.data_ptr(), table.data_ptr(), lsum.data_ptr(),
            wsum.data_ptr())
     pair_sums.launches += 1
     return lsum, wsum, table
-
-
-def pair_sums(margins: torch.Tensor, label: torch.Tensor, qid: torch.Tensor,
-              weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7 forward: (lsum, wsum), two float32 scalars."""
-    return pair_sums_with_table(margins, label, qid, weight)[:2]
 
 
 def pair_sums_grad(margins: torch.Tensor, label: torch.Tensor,
@@ -170,27 +159,24 @@ def pair_sums_grad(margins: torch.Tensor, label: torch.Tensor,
                    s: torch.Tensor,
                    table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 backward: g [n], the gradient of s·lsum in the margins, for the
-    cotangent s (a float32 scalar on the margins' device). ``table`` is
-    the tile table of the forward on the same inputs; without it the
-    kernel writes its own first. The CPU takes no table."""
+    cotangent s (a float32 scalar on the margins' device). On the card
+    ``table`` is the tile table that ``pair_sums`` returned on the same
+    inputs; the CPU takes none."""
     if not _check(margins, label, qid, weight, s):
         check(table is None, "the plain K7 backward takes no tile table")
         return pair_sums_grad_plain(margins, label, qid, weight, s)
     n = margins.numel()
-    ready = table is not None
-    if ready:
-        check(table.dtype == torch.int64 and tuple(table.shape)
-              == (table_size(n),) and table.device == margins.device,
-              f"table must be int64 [{table_size(n)}] on {margins.device}, "
-              f"got {table.dtype} {tuple(table.shape)} on {table.device}")
-    else:
-        table = torch.empty(table_size(n), dtype=torch.int64,
-                            device=margins.device)
+    check(table is not None and table.dtype == torch.int64
+          and tuple(table.shape) == (table_size(n),)
+          and table.device == margins.device,
+          f"K7 backward needs the forward's tile table, int64 "
+          f"[{table_size(n)}] on {margins.device}, got "
+          + ("none" if table is None else f"{table.dtype} "
+             f"{tuple(table.shape)} on {table.device}"))
     g = torch.empty_like(margins)
     launch("dmlc_pair_sums_bwd", margins.device, margins.data_ptr(),
            label.data_ptr(), qid.data_ptr(), weight.data_ptr(),
-           s.contiguous().data_ptr(), n, TILE, ROWS, table.data_ptr(),
-           int(ready), g.data_ptr())
+           s.contiguous().data_ptr(), n, table.data_ptr(), g.data_ptr())
     pair_sums_grad.launches += 1
     return g
 
@@ -206,8 +192,7 @@ class _PairSums(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, margins, label, qid, weight):
-        lsum, wsum, table = pair_sums_with_table(margins, label, qid,
-                                                 weight)
+        lsum, wsum, table = pair_sums(margins, label, qid, weight)
         ctx.save_for_backward(margins, label, qid, weight, table)
         ctx.mark_non_differentiable(wsum)
         return lsum, wsum

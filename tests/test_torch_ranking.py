@@ -19,6 +19,9 @@ scales with the sum of its terms' magnitudes, not with the result:
 NaN must sit at the same places on both sides.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,7 +130,9 @@ def _ref_sums(d):
 def test_pair_sums_plain_matches_jax(case):
     d = _docs(**CASES[case])
     want_l, want_w = (float(x) for x in _ref_sums(d)(jnp.asarray(d["m"])))
-    got_l, got_w = (float(x) for x in ranking.pair_sums(*_port_args(d)))
+    got_l, got_w, table = ranking.pair_sums(*_port_args(d))
+    assert table is None  # the CPU route writes no tile table
+    got_l, got_w = float(got_l), float(got_w)
     for got, want in ((got_l, want_l), (got_w, want_w)):
         assert np.isnan(got) == np.isnan(want)
         if not np.isnan(want):
@@ -372,6 +377,17 @@ def test_wrappers_check_shapes_and_dtypes():
         ranking.pair_sums_grad(m, label, qid, weight, torch.tensor(1.0),
                                torch.zeros(ranking.table_size(16),
                                            dtype=torch.int64))
+
+
+def test_tile_table_size_matches_the_kernels_tile():
+    """The wrapper sizes the tile table by the tile that csrc/ranking.cu
+    compiles in: the flag, the block count and two entries a tile."""
+    src = (Path(ranking.__file__).parents[1] / "csrc" / "ranking.cu"
+           ).read_text()
+    tile = int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
+    assert ranking._TILE == tile
+    for n in (1, tile, tile + 1, 4096):
+        assert ranking.table_size(n) == 2 + 2 * -(-n // tile)
 
 
 def test_cpu_calls_do_not_count_as_launches():
