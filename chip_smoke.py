@@ -11,7 +11,11 @@ checkout, and fails (non-zero exit, no result line) on any fault:
 3. kernels: K1 ``csr_spmv`` and K2 ``csr_spmv_t`` against their plain
    PyTorch versions at the main path's shapes, edge cases included
    (empty rows, a padded tail, an index at F-1, an out-of-range index, a
-   u64 index), with times beside their bound and a library call's;
+   u64 index), with times beside their bound and a library call's (K2
+   and its zero fill apart); K2 also on a narrow model's edge batch (137
+   weights, rows of indices 1-136 with duplicates, empty rows, an
+   invalid index in the padded tail, u32 and u64 index), where it must
+   take its private route, as at 10^6 weights its global one;
 4. main path: a seeded Criteo-shaped libsvm file of about 256 MB →
    native parser → ABI-5 padded batches (8192 rows, 368640 nonzeros) →
    pinned async H2D (``device_prefetch(staging=True)``) →
@@ -23,7 +27,9 @@ checkout, and fails (non-zero exit, no result line) on any fault:
 6. the factor models' path: a seeded Criteo-shaped libfm file of about
    128 MB (33-39 of 39 fields a row); K5 (``fm_pair_fwd``/``_bwd``) and
    K6 (``ffm_pair_fwd``/``_bwd``) against their plain versions with the
-   same edge cases plus fields out of range, timed beside their bounds;
+   same edge cases plus fields out of range, timed beside their bounds
+   (K5 backward's kernel and its zero fill apart; its vector route at 8
+   and 40 factors, its scalar route at 3 and for a misaligned V);
    K5 and K6 also at other shapes (3 and 40 factors; 3 colliding
    fields; 60 fields, past 48 KB of shared memory; 50 fields of 6
    factors, more columns than a block's threads, rows longer than a
@@ -44,8 +50,9 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    margins of +-3e38, a NaN weight on a padded row, a weight of 2e19, one
    query over the batch, every row its own query, interleaved queries;
    the gradient also at a cotangent of inf), the share of tiles each
-   block skips, and K7 timed at two batches where no tile can be skipped,
-   K3
+   block skips, and K7 timed at two batches where no tile can be skipped;
+   K2 on the batch (137 weights: its private route) against its plain
+   version, timed beside ``A.t() @ g``; K3
    (``sdot_rows``) and K4 (``csr_to_dense``) on the same batch, each
    timed beside its bound; one epoch of ``SparseRankingModel(137)``
    through native padded batches with ``qid`` (4096 rows, the
@@ -127,7 +134,11 @@ FP32_FLOPS_PER_S = 67e12
 # a row whose terms cancel (|y| << the terms) differs by as much as a
 # row whose terms do not.
 K1_RTOL, K1_ATOL = 1e-5, 1e-6
-# K2 adds with fp32 atomics whose order varies from run to run.
+# K2 adds with fp32 atomics whose order varies from run to run. On a
+# narrow model (137 weights, about 4096 terms each, of either sign) a
+# weight's sum may cancel, so there, as for K1, the rtol applies to each
+# weight's sum of |terms|; at 10^6 weights (a few terms each) to the
+# result.
 K2_RTOL, K2_ATOL = 1e-4, 1e-6
 # K5 and K6 forward sum each row in another fp32 order than the plain
 # versions (lane partials and shuffle trees; per-column sums over the
@@ -422,6 +433,20 @@ def device_ms(fn, iters: int = 50) -> float:
     return sum(t for t, _ in by_kernel.values()) / iters / 1e3
 
 
+def _fill_and_kernel(fn, kernel, iters: int = 50):
+    """(the rest, the kernel) of ``fn``'s device milliseconds a call: the
+    kernels whose name holds ``kernel`` apart from everything else it runs
+    on the card (the zero fill of its output)."""
+    for _ in range(10):
+        fn()
+    by_kernel = _device_us_by_kernel(lambda: [fn() for _ in range(iters)])
+    require(by_kernel, "the profiler saw no device time")
+    mine = sum(t for k, (t, _) in by_kernel.items() if kernel in k)
+    require(mine > 0, f"no kernel named {kernel} ran")
+    rest = sum(t for t, _ in by_kernel.values()) - mine
+    return rest / iters / 1e3, mine / iters / 1e3
+
+
 def bound_ms(nbytes, ops):
     """The least time the card could take for a function: the bytes it
     must move over the memory rate, or its fp32 operations over the peak,
@@ -477,6 +502,80 @@ def edge_case_batch(first):
     return new_off, idx, val, fld, [20, 60]
 
 
+def _k2_route(num_features, index):
+    """The route csr_spmv_t takes on this card for a model of
+    ``num_features`` weights and a batch of ``index``."""
+    import torch
+    from dmlc_tpu_torch.ops import csr
+    cuda = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return csr.csr_spmv_t_route(num_features, index.numel(), sms,
+                                csr.csr_spmv_t_max_shared_bytes(cuda))
+
+
+def _k5_route(V, s):
+    """The route fm_pair_bwd takes for V and s (its gV, new from the
+    caching allocator, starts on 512 bytes)."""
+    from dmlc_tpu_torch.ops import fm
+    return fm.fm_bwd_route(V.shape[1], V.data_ptr() % 16 == 0
+                           and s.data_ptr() % 16 == 0)
+
+
+def _check_narrow_k2(name, offset, index, value, g):
+    """K2 on a narrow model's batch against its plain version, with the
+    rtol of each weight's sum|terms| (see K2_RTOL); returns max |err|."""
+    import torch
+    from dmlc_tpu_torch.ops import csr
+    F = RANK_NUM_FEATURES
+    route = _k2_route(F, index)
+    require(route == "private", f"K2 {name}: the {route} route at {F} "
+            f"weights and {index.numel()} nonzeros")
+    gw = csr.csr_spmv_t(offset, index, value, g, F)
+    plain = csr.csr_spmv_t_plain(offset, index, value, g, F)
+    scale = csr.csr_spmv_t_plain(offset, index, value.abs(), g.abs(), F)
+    torch.cuda.synchronize()
+    err = (gw - plain).abs()
+    require(bool(torch.isfinite(gw).all())
+            and bool((err <= K2_ATOL + K2_RTOL * scale).all()),
+            f"K2 {name} (private route) disagrees with its plain version: "
+            f"max |err| {err.max().item()}, max |err| / sum|terms| "
+            f"{(err / scale).nan_to_num().max().item()}")
+    return err.max().item()
+
+
+def narrow_edge_batch():
+    """A batch of a narrow model (137 weights) with K2's edge cases: 4096
+    rows, each of the indices 1-136 and 0-7 more of them again (duplicates
+    within the row), rows 3 and 7 emptied, the last 100 rows padding, and
+    the index rule's edges (C6): 2^32-1 in row 50 (reads F-1), 2^31 in row
+    60 (invalid) and 2^32+3 in row 70 (reads 3); then a padded tail of 64
+    nonzeros whose first holds 2^31 (invalid) and whose second index 5
+    with value 1, which must add nothing. Returns (offset, index as u64,
+    value, g)."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 11)
+    n = RANK_ROW_BUCKET
+    lens = RANK_FEATURES + rng.randint(0, 8, n)
+    lens[[3, 7]] = 0
+    lens[n - 100:] = 0
+    off = np.zeros(n + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    nnz = int(off[-1])
+    idx = np.zeros(nnz + 64, np.uint64)
+    val = np.zeros(nnz + 64, np.float32)
+    idx[:nnz] = np.concatenate([
+        np.concatenate([np.arange(1, RANK_NUM_FEATURES),
+                        rng.randint(1, RANK_NUM_FEATURES,
+                                    m - RANK_FEATURES)])
+        for m in lens if m])
+    val[:nnz] = rng.rand(nnz)
+    idx[off[50] + 1] = WRAP_LAST
+    idx[off[60] + 2] = WRAP_BAD
+    idx[off[70]] = WRAP_U64
+    idx[nnz], idx[nnz + 1], val[nnz + 1] = WRAP_BAD, 5, 1.0
+    return off, idx, val, rng.randn(n).astype(np.float32)
+
+
 def check_kernels(first):
     """Phase 3: K1/K2 against their plain versions on the card."""
     import numpy as np
@@ -525,11 +624,31 @@ def check_kernels(first):
             k1_err = err.abs().max().item()
             k1_rel = (err.abs() / scale).nan_to_num().max().item()
             k2_err = (gw - gw_plain).abs().max().item()
+    route = _k2_route(NUM_FEATURES, t_idx)
+    require(route == "global",
+            f"K2 took the {route} route at {NUM_FEATURES} weights")
     log(f"kernels agree with their plain versions (u32 and u64 index; "
         f"indices 2^32-1, 2^31 and 2^32+3 among the edge cases): "
         f"K1 max |err| {k1_err:.3g}, max |err| / sum|terms| {k1_rel:.3g} "
         f"(rtol {K1_RTOL} of sum|terms|, atol {K1_ATOL}), "
-        f"K2 max |err| {k2_err:.3g} (rtol {K2_RTOL}, atol {K2_ATOL})")
+        f"K2 (global route) max |err| {k2_err:.3g} (rtol {K2_RTOL}, atol "
+        f"{K2_ATOL})")
+    n_off, n_idx, n_val, n_g = narrow_edge_batch()
+    t_off, t_val, t_g = (torch.from_numpy(a).to(cuda)
+                         for a in (n_off, n_val, n_g))
+    narrow_err = {}
+    for dtype in (np.uint32, np.uint64):
+        name = np.dtype(dtype).name
+        t_idx = torch.from_numpy(n_idx.astype(dtype)).to(cuda)
+        narrow_err[name] = _check_narrow_k2(f"narrow {name}", t_off, t_idx,
+                                            t_val, t_g)
+    log(f"K2 agrees with its plain version on a narrow model's edge batch "
+        f"through its private route ({RANK_NUM_FEATURES} weights, "
+        f"{RANK_ROW_BUCKET} rows of indices 1-{RANK_FEATURES} with "
+        f"duplicates, empty rows, indices 2^32-1, 2^31 and 2^32+3, an "
+        f"invalid index in the padded tail): max |err| u32 "
+        f"{narrow_err['uint32']:.3g}, u64 {narrow_err['uint64']:.3g} (rtol "
+        f"{K2_RTOL} of sum|terms|, atol {K2_ATOL})")
 
     # Timing, at the main path's batch as it came from the parser.
     b_off = torch.from_numpy(first["offset"]).to(cuda)
@@ -550,6 +669,10 @@ def check_kernels(first):
     k1_ms, k1_call = device_ms(k1), call_ms(k1)
     k1_plain = device_ms(lambda: csr.csr_spmv_plain(b_off, b_idx, b_val, w))
     k2_ms, k2_call = device_ms(k2), call_ms(k2)
+    k2_fill, k2_kernel = _fill_and_kernel(k2, "csr_spmv_t")
+    log(f"csr_spmv_t at the main path's batch (global route): kernel "
+        f"{k2_kernel * 1e3:.2f} us, zero fill {k2_fill * 1e3:.2f} us on the "
+        "device")
     k2_plain = device_ms(lambda: csr.csr_spmv_t_plain(b_off, b_idx, b_val, g,
                                                       NUM_FEATURES))
     # the library yardstick: one torch.sparse CSR product on the same
@@ -706,10 +829,14 @@ def check_factor_kernels(first):
                 and torch.equal(torch.isnan(s), torch.isnan(s_p)),
                 f"fm_pair_fwd {name}: s disagrees with the plain version's: "
                 f"max |err| {s_err.max().item()}")
+        route = _k5_route(V5, s)
+        require(route == "vector",
+                f"fm_pair_bwd took the {route} route at {FM_FACTORS} factors")
         gv = fm.fm_pair_bwd(*args, V5, s, g)
         gv_p = fm.fm_pair_bwd_plain(*args, V5, s, g)
         torch.cuda.synchronize()
-        g5 = _check_grad(f"fm_pair_bwd {name}", gv, gv_p, nan5)
+        g5 = _check_grad(f"fm_pair_bwd {name} (vector route)", gv, gv_p,
+                         nan5)
         del gv, gv_p
         # K6 forward and backward
         pair = fm.ffm_pair_fwd(*args, t_fld, V6)
@@ -794,6 +921,11 @@ def check_factor_kernels(first):
                   + PAIR_RTOL * s_abs).all()),
             "fm_pair_fwd's s disagrees with torch.sparse on the path's batch")
     library = {"fm_pair_fwd": device_ms(lambda: (a1 @ V5, a2 @ V5sq))}
+    k5_fill, k5_kernel = _fill_and_kernel(
+        lambda: fm.fm_pair_bwd(*args, V5, s_b, g), "fm_pair_bwd")
+    log(f"fm_pair_bwd at the libfm path's batch ({_k5_route(V5, s_b)} "
+        f"route): kernel {k5_kernel * 1e3:.2f} us, zero fill "
+        f"{k5_fill * 1e3:.2f} us on the device")
     log(f"factor kernels timed at the libfm path's first batch: {n} rows, "
         f"{nnz} nonzeros of {LIBFM_NNZ_BUCKET}, {distinct} distinct "
         f"features, {pairs_needed} (row, field, field) pairs present")
@@ -870,6 +1002,10 @@ def check_factor_shapes():
             plain, _ = fm.fm_pair_fwd_plain(*csr_cols, V)
             pair_a, s_a = fm.fm_pair_fwd_plain(*abs_cols, V.abs())
             scale = (s_a * s_a).sum(-1) - pair_a
+            route = _k5_route(V, s)
+            want = "vector" if factors % 4 == 0 else "scalar"
+            require(route == want, f"K5 backward with {factors} factors "
+                    f"took the {route} route, want {want}")
             gv = fm.fm_pair_bwd(*csr_cols, V, s, g)
             gv_p = fm.fm_pair_bwd_plain(*csr_cols, V, s, g)
         else:
@@ -881,7 +1017,8 @@ def check_factor_shapes():
             gv = fm.ffm_pair_bwd(*csr_cols, fld, V, g)
             gv_p = fm.ffm_pair_bwd_plain(*csr_cols, fld, V, g)
         torch.cuda.synchronize()
-        what = (f"K5 with {factors} factors" if fields is None
+        what = (f"K5 with {factors} factors ({route} backward)"
+                if fields is None
                 else f"K6 with {fields} fields of {factors} factors ("
                 f"{fm.ffm_route(fields, factors, most)} route)")
         require(bool(((pair - plain).abs()
@@ -893,6 +1030,24 @@ def check_factor_shapes():
                 f"max |err| {(gv - gv_p).abs().max().item()}")
         done.append(what)
         del pair, plain, gv, gv_p, scale
+    # V as a view one float past the allocator's alignment: K5 backward
+    # must take its scalar route, and agree
+    off, idx, val, _, V, g = batch(300, 500, None, FM_FACTORS, 30)
+    V_off = torch.empty(V.numel() + 1, device=cuda)[1:].view(V.shape)
+    V_off.copy_(V)
+    _, s = fm.fm_pair_fwd(off, idx, val, V_off)
+    route = _k5_route(V_off, s)
+    require(route == "scalar", f"K5 backward on a misaligned V took the "
+            f"{route} route")
+    gv = fm.fm_pair_bwd(off, idx, val, V_off, s, g)
+    gv_p = fm.fm_pair_bwd_plain(off, idx, val, V_off, s, g)
+    torch.cuda.synchronize()
+    require(torch.allclose(gv, gv_p, rtol=GRAD_RTOL, atol=GRAD_ATOL),
+            f"K5 backward on a misaligned V disagrees with its plain "
+            f"version: max |err| {(gv - gv_p).abs().max().item()}")
+    done.append(f"K5 with {FM_FACTORS} factors, V misaligned ({route} "
+                "backward)")
+    del V_off, gv, gv_p
     torch.cuda.empty_cache()
     log(f"factor kernels agree with their plain versions at other shapes "
         f"({'; '.join(done)}; u32 index, {most} bytes of shared memory a "
@@ -1702,16 +1857,34 @@ def check_ranking_kernels(first):
     log(f"ranking kernels timed at the path's first batch: {n} rows, {nnz} "
         f"nonzeros, {distinct} distinct features, {weighted} weighted pairs "
         f"of {n * n}")
-    # K2 on this batch: a model of 137 weights takes all of its atomics
+    # K2 on this batch: a model of 137 weights, its private route
     g = torch.randn(n, generator=gen, device=cuda)
+    k2_err = _check_narrow_k2("at the ranking batch", b["offset"],
+                              b["index"], b["value"], g)
     k2_bound, k2_by = bound_ms((n + 1) * 8 + nnz * (4 + 4) + n * 4
                                + RANK_NUM_FEATURES * 4, 2 * nnz)
-    k2_ms = device_ms(lambda: csr.csr_spmv_t(b["offset"], b["index"],
-                                             b["value"], g,
-                                             RANK_NUM_FEATURES))
-    log(f"csr_spmv_t at the ranking batch ({RANK_NUM_FEATURES} weights): "
-        f"{k2_ms * 1e3:.2f} us on the device, bound {k2_bound * 1e3:.2f} us "
-        f"({k2_by})")
+
+    def k2():
+        return csr.csr_spmv_t(b["offset"], b["index"], b["value"], g,
+                              RANK_NUM_FEATURES)
+
+    k2_ms = device_ms(k2)
+    k2_rest, k2_kernel = _fill_and_kernel(k2, "csr_spmv_t")
+    k2_plain = device_ms(lambda: csr.csr_spmv_t_plain(
+        b["offset"], b["index"], b["value"], g, RANK_NUM_FEATURES))
+    a = torch.sparse_csr_tensor(b["offset"], cols_of, vals,
+                                size=(n, RANK_NUM_FEATURES))
+    try:
+        at = a.t()
+        at @ g
+        k2_lib = f"{device_ms(lambda: at @ g) * 1e3:.2f} us"
+    except RuntimeError as e:
+        k2_lib = f"not timed ({e})"
+    log(f"csr_spmv_t at the ranking batch ({RANK_NUM_FEATURES} weights, "
+        f"private route; max |err| {k2_err:.3g}): {k2_ms * 1e3:.2f} us on "
+        f"the device (kernel {k2_kernel * 1e3:.2f} us, the rest "
+        f"{k2_rest * 1e3:.2f} us), plain {k2_plain * 1e3:.2f} us, library "
+        f"A.t() @ g {k2_lib}, bound {k2_bound * 1e3:.2f} us ({k2_by})")
     rows = []
     for name, (kernel, plain, nbytes, ops, replaces, source, lib,
                err) in work.items():

@@ -37,6 +37,22 @@
 // zeroed grad_w; the order of atomics varies from run to run, so K2 is
 // not bitwise deterministic. Both kernels launch on the caller's stream
 // and allocate nothing; each C entry returns cudaGetLastError().
+//
+// K2 has two routes; the wrapper picks one (ops/csr.py csr_spmv_t_route).
+//   - global: the kernel above, for wide models (10^6 weights), whose
+//     atomics spread over many addresses.
+//   - private, for narrow models (the ranking path's 137 weights, where
+//     each address would take about 4096 global atomics and they queue at
+//     the L2's atomic units): a grid of `blocks` blocks, one warp per row
+//     in a grid-stride loop, each block adding into its own copy of grad_w
+//     in shared memory (native shared-memory float atomics, which stay in
+//     the SM), then adding its copy into the zeroed grad_w with one global
+//     atomic per weight. Each address takes `blocks` global atomics
+//     instead of its nonzeros. A fixed-order sum of the copies by the last
+//     block to finish (a workspace of blocks x F and a device counter, no
+//     zero fill) lost on an H100: 10.1 us against 5.2 at the ranking
+//     batch, one block's sum of 128 x 137 partials costing more than the
+//     fill it saves (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +129,88 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------- private
+
+constexpr int kPrivateThreads = 1024;  // 32 rows of a block at a time
+
+// grad_w += CSR^T . g with each block's copy of grad_w in shared memory
+// (own: F floats of dynamic shared memory), added into grad_w at the end.
+template <typename IndexT>
+__global__ void __launch_bounds__(kPrivateThreads, 2)
+    csr_spmv_t_private_kernel(const int64_t* __restrict__ offset,
+                              const IndexT* __restrict__ index,
+                              const float* __restrict__ value,
+                              const float* __restrict__ g, int64_t num_rows,
+                              int64_t nnz, int64_t num_features,
+                              float* __restrict__ grad_w) {
+  extern __shared__ float own[];
+  const int F = static_cast<int>(num_features);
+  const int lane = threadIdx.x % kWarp;
+  constexpr int kRows = kPrivateThreads / kWarp;
+  for (int c = threadIdx.x; c < F; c += kPrivateThreads) own[c] = 0.0f;
+  __syncthreads();
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kRows +
+                     threadIdx.x / kWarp;
+       row < num_rows; row += static_cast<int64_t>(gridDim.x) * kRows) {
+    int64_t lo, hi;
+    row_range(offset, row, nnz, &lo, &hi);
+    const float gi = g[row];
+    for (int64_t k = lo + lane; k < hi; k += kWarp) {
+      int64_t j;
+      if (dmlc_index::wrap(index[k], num_features, &j)) {
+        atomicAdd(own + j, value[k] * gi);
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < F; c += kPrivateThreads) {
+    atomicAdd(grad_w + c, own[c]);
+  }
+}
+
+constexpr int64_t kDefaultSharedBytes = 48 * 1024;
+
+// The dynamic shared memory a private-route block may take on the current
+// device: the opt-in maximum (the kernel has no static shared memory).
+cudaError_t private_max_shared(int64_t* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  *out = optin;
+  return err;
+}
+
+template <typename IndexT>
+cudaError_t spmv_t_private(const int64_t* offset, const IndexT* index,
+                           const float* value, const float* g,
+                           int64_t num_rows, int64_t nnz,
+                           int64_t num_features, float* grad_w,
+                           int64_t blocks, cudaStream_t s) {
+  const auto kernel = csr_spmv_t_private_kernel<IndexT>;
+  const int64_t bytes = num_features * static_cast<int64_t>(sizeof(float));
+  int64_t most = 0;
+  cudaError_t err = private_max_shared(&most);
+  if (err != cudaSuccess) return err;
+  if (bytes > most) return cudaErrorInvalidValue;
+  // no more blocks than the rows fill
+  const int64_t rows_per_block = kPrivateThreads / kWarp;
+  const int64_t fill = (num_rows + rows_per_block - 1) / rows_per_block;
+  const int64_t grid = blocks < fill ? blocks : fill;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+  if (bytes > kDefaultSharedBytes) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>(grid), kPrivateThreads, bytes, s>>>(
+      offset, index, value, g, num_rows, nnz, num_features, grad_w);
+  return cudaGetLastError();
+}
+
 unsigned grid_for(int64_t num_rows) {
   const int64_t rows_per_block = kThreads / kWarp;
   return static_cast<unsigned>((num_rows + rows_per_block - 1) /
@@ -149,18 +247,39 @@ int dmlc_csr_spmv(const void* offset, const void* index, int index_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The most dynamic shared memory a private-route block takes on the
+// current device, into *out (int64); a block needs num_features * 4 bytes.
+// Returns a cudaError_t.
+int dmlc_csr_spmv_t_max_shared_bytes(void* out) {
+  return static_cast<int>(private_max_shared(static_cast<int64_t*>(out)));
+}
+
 // grad_w[num_features] += CSR^T . g[num_rows]; grad_w must be zeroed by
-// the caller. Returns a cudaError_t.
+// the caller. blocks: 0 for the global route, else the private route's
+// most blocks (it takes no more than 32 rows a block fill). Returns a cudaError_t: cudaErrorInvalidValue where the private
+// route is asked for and num_features floats do not fit a block's shared
+// memory.
 int dmlc_csr_spmv_t(const void* offset, const void* index, int index_bytes,
                     const void* value, const void* g, int64_t num_rows,
                     int64_t nnz, int64_t num_features, void* grad_w,
-                    void* stream) {
-  if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+                    int64_t blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* off = static_cast<const int64_t*>(offset);
   const auto* val = static_cast<const float*>(value);
   const auto* gv = static_cast<const float*>(g);
   auto* out = static_cast<float*>(grad_w);
+  if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (blocks > 0) {
+    cudaError_t err = cudaErrorInvalidValue;
+    if (index_bytes == 4) {
+      err = spmv_t_private(off, static_cast<const uint32_t*>(index), val, gv,
+                           num_rows, nnz, num_features, out, blocks, s);
+    } else if (index_bytes == 8) {
+      err = spmv_t_private(off, static_cast<const uint64_t*>(index), val, gv,
+                           num_rows, nnz, num_features, out, blocks, s);
+    }
+    return static_cast<int>(err);
+  }
   if (index_bytes == 4) {
     csr_spmv_t_kernel<uint32_t><<<grid_for(num_rows), kThreads, 0, s>>>(
         off, static_cast<const uint32_t*>(index), val, gv, num_rows, nnz,

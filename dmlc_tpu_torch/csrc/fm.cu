@@ -45,9 +45,18 @@
 //     with kp = min(next power of two >= K, 32), so a warp reads 32/kp
 //     nonzeros' K-rows at once, coalesced; factors beyond 32 are covered
 //     in chunks of 32. Per-lane fp32 sums are folded across the nonzero
-//     groups with xor shuffles. The backward uses the same mapping and
-//     adds with fp32 atomicAdd into a zeroed gV (not bitwise
-//     deterministic).
+//     groups with xor shuffles. The backward adds with fp32 atomics into
+//     a zeroed gV (not bitwise deterministic), by one of two routes that
+//     the wrapper picks (ops/fm.py fm_bwd_route):
+//       - vector, where K % 4 == 0 and V, s and gV are 16-byte aligned:
+//         a lane owns four factors of a nonzero (K/4 lanes a nonzero, 16
+//         nonzeros a warp step at K = 8), reads them of V and of s as one
+//         float4 each (s once a row) and adds them with one vector
+//         reduction (atomicAdd on float4, global memory, sm_90), so the
+//         reductions and the loads of index and value are a quarter of
+//         the scalar route's;
+//       - scalar, for any other K or alignment: the forward's mapping,
+//         one scalar atomic per (nonzero, factor).
 //   - K6: one block per row, one thread per column c = b*K + f of S (nf*K
 //     columns, 156 at 39/4; the block is that rounded up to a warp, at most
 //     256 threads, each owning columns c, c + blockDim, ...). S (nf*nf*K
@@ -189,6 +198,49 @@ __global__ void __launch_bounds__(kWarpThreads)
       const float x = value[k];
       const float v = __ldg(V + j * K + f);
       atomicAdd(gV + j * K + f, gr * x * (s - __fmul_rn(x, v)));
+    }
+  }
+}
+
+// The vector route: qp lanes a nonzero (qp = min(K / 4, 32)), each owning
+// the four factors 4q .. 4q + 3 of q = lane % qp (and q + qp, ... past 32
+// quads); 32 / qp nonzeros a warp step, the lanes past them idle. The
+// products are those of the scalar route, term for term.
+template <typename IndexT>
+__global__ void __launch_bounds__(kWarpThreads)
+    fm_pair_bwd_vec_kernel(const int64_t* __restrict__ offset,
+                           const IndexT* __restrict__ index,
+                           const float* __restrict__ value,
+                           const float* __restrict__ V,
+                           const float* __restrict__ s_in,
+                           const float* __restrict__ g, int64_t num_rows,
+                           int64_t nnz, int64_t num_features, int64_t K,
+                           int qp, float* __restrict__ gV) {
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kWarpThreads + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int groups = kWarp / qp;
+  const int grp = lane / qp;
+  if (row >= num_rows || grp >= groups) return;  // no shuffles follow
+  int64_t lo, hi;
+  row_range(offset, row, nnz, &lo, &hi);
+  const int64_t quads = K / 4;
+  const float gr = g[row];
+  const auto* V4 = reinterpret_cast<const float4*>(V);
+  auto* gV4 = reinterpret_cast<float4*>(gV);
+  for (int64_t q = lane % qp; q < quads; q += qp) {
+    const float4 s = reinterpret_cast<const float4*>(s_in)[row * quads + q];
+    for (int64_t k = lo + grp; k < hi; k += groups) {
+      int64_t j;
+      if (!dmlc_index::wrap(index[k], num_features, &j)) continue;
+      const float x = value[k];
+      const float4 v = __ldg(V4 + j * quads + q);
+      float4 d;
+      d.x = gr * x * (s.x - __fmul_rn(x, v.x));
+      d.y = gr * x * (s.y - __fmul_rn(x, v.y));
+      d.z = gr * x * (s.z - __fmul_rn(x, v.z));
+      d.w = gr * x * (s.w - __fmul_rn(x, v.w));
+      atomicAdd(gV4 + j * quads + q, d);
     }
   }
 }
@@ -598,11 +650,14 @@ int dmlc_fm_pair_fwd(const void* offset, const void* index, int index_bytes,
 }
 
 // gV[num_features, K] += the gradient of sum_r g[r] pair[r] in V; gV must
-// be zeroed by the caller, s is fm_pair_fwd's. Returns a cudaError_t.
+// be zeroed by the caller, s is fm_pair_fwd's. vector: 1 for the vector
+// route, 0 for the scalar one. Returns a cudaError_t:
+// cudaErrorInvalidValue where the vector route is asked for and K % 4 != 0
+// or V, s or gV is not 16-byte aligned.
 int dmlc_fm_pair_bwd(const void* offset, const void* index, int index_bytes,
                      const void* value, const void* V, const void* s,
                      const void* g, int64_t num_rows, int64_t nnz,
-                     int64_t num_features, int64_t K, void* gV,
+                     int64_t num_features, int64_t K, void* gV, int vector,
                      void* stream) {
   if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -612,6 +667,28 @@ int dmlc_fm_pair_bwd(const void* offset, const void* index, int index_bytes,
   const auto* si = static_cast<const float*>(s);
   const auto* gi = static_cast<const float*>(g);
   auto* out = static_cast<float*>(gV);
+  if (vector) {
+    const auto misaligned = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+    };
+    if (K % 4 != 0 || misaligned(V) || misaligned(s) || misaligned(gV) ||
+        (index_bytes != 4 && index_bytes != 8)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int qp = static_cast<int>(K / 4 < kWarp ? K / 4 : kWarp);
+    if (index_bytes == 4) {
+      fm_pair_bwd_vec_kernel<uint32_t>
+          <<<warp_grid(num_rows), kWarpThreads, 0, st>>>(
+              off, static_cast<const uint32_t*>(index), val, v, si, gi,
+              num_rows, nnz, num_features, K, qp, out);
+    } else {
+      fm_pair_bwd_vec_kernel<uint64_t>
+          <<<warp_grid(num_rows), kWarpThreads, 0, st>>>(
+              off, static_cast<const uint64_t*>(index), val, v, si, gi,
+              num_rows, nnz, num_features, K, qp, out);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const int kp = lanes_per_nonzero(K);
   if (index_bytes == 4) {
     fm_pair_bwd_kernel<uint32_t><<<warp_grid(num_rows), kWarpThreads, 0, st>>>(

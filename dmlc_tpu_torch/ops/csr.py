@@ -12,7 +12,11 @@ of the same function beside it:
   ``[rows, cols]`` float32 matrix (duplicate columns of a row add up)
 
 A wrapper runs the plain version only when its tensors lie on the CPU;
-for CUDA tensors it launches the kernel or raises. Each wrapper counts
+for CUDA tensors it launches the kernel or raises. K2 has two routes on
+the card, which :func:`csr_spmv_t_route` picks from the model's width,
+the batch's nonzeros and the card: "global" (one atomic into grad_w per
+nonzero) and "private" (each block sums into its own copy of grad_w in
+shared memory, then adds it into grad_w). Each wrapper counts
 its kernel launches in ``.launches``. ``csr_to_padded_rows`` is the
 host-side (numpy) CSR → ELL conversion that feeds K3.
 
@@ -28,17 +32,20 @@ Offsets stay int64 on the device.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from dmlc_tpu_torch.ops.index import wrap_index
-from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch
-from dmlc_tpu_torch.utils.logging import check
+from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, library
+from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
-           "csr_spmv_plain", "csr_spmv_t_plain", "sdot_rows",
+           "csr_spmv_plain", "csr_spmv_t_plain", "csr_spmv_t_route",
+           "csr_spmv_t_max_shared_bytes", "sdot_rows",
            "sdot_rows_plain", "csr_to_dense", "csr_to_dense_plain",
            "csr_to_padded_rows"]
 
@@ -85,12 +92,13 @@ def _check_csr(offset, index, value, dense=None, dense_name="",
                   f"CSR tensors and {dense_name}")
 
 
-def _launch(name, offset, index, value, dense, num_rows, num_features, out):
+def _launch(name, offset, index, value, dense, num_rows, num_features, out,
+            *extra):
     for t in (offset, index, value, dense, out):
         check(t.is_contiguous(), "the CSR kernels need contiguous tensors")
     launch(name, dense.device, offset.data_ptr(), index.data_ptr(),
            INDEX_BYTES[index.dtype], value.data_ptr(), dense.data_ptr(),
-           num_rows, index.numel(), num_features, out.data_ptr())
+           num_rows, index.numel(), num_features, out.data_ptr(), *extra)
 
 
 def _segment_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -140,6 +148,53 @@ def csr_spmv(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
     return y
 
 
+# K2's private route: blocks an SM at most (each of 32 warps, one row at a
+# time), and the most global atomics its flush (one a weight a block) may
+# take per nonzero of the batch.
+K2_BLOCKS_PER_SM = 2
+K2_FLUSH_PER_NNZ = 8
+
+
+def csr_spmv_t_route(num_features: int, nnz: int, sms: int,
+                     max_shared: int) -> str:
+    """K2's route on a card of ``sms`` SMs whose blocks take at most
+    ``max_shared`` bytes of dynamic shared memory, for a model of
+    ``num_features`` weights and a batch of ``nnz`` nonzeros (its bucket,
+    padded tail included): ``"private"`` where the F floats of grad_w fit
+    a block's shared memory and the flush, K2_BLOCKS_PER_SM · sms · F
+    global atomics, is at most K2_FLUSH_PER_NNZ per nonzero; else
+    ``"global"``. On an H100 (132 SMs), at 4096 rows of 136 nonzeros, the
+    private route ran 7.3×, 9.3×, 2.0× and 1.24× faster than the global
+    one at 137, 1,024, 8,192 and 16,384 weights, and 1.17× slower at
+    32,768 (``kernel_split.py --sweep``, PERF.md §6). The constant 8 puts
+    the boundary between the last two: at that batch the rule's flush is
+    7.8 atomics a nonzero at 16,384 weights and 15.5 at 32,768."""
+    if not 0 < num_features * 4 <= max_shared:
+        return "global"
+    flush = K2_BLOCKS_PER_SM * sms * num_features
+    return "private" if flush <= K2_FLUSH_PER_NNZ * nnz else "global"
+
+
+def csr_spmv_t_max_shared_bytes(device: torch.device) -> int:
+    """The most dynamic shared memory a block of K2's private route takes
+    on ``device`` (the opt-in maximum)."""
+    out = ctypes.c_int64()
+    with torch.cuda.device(device):
+        err = library().dmlc_csr_spmv_t_max_shared_bytes(
+            ctypes.addressof(out))
+    if err != 0:
+        raise DMLCError("dmlc_csr_spmv_t_max_shared_bytes failed: CUDA "
+                        f"error {err}")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _card(device: torch.device) -> Tuple[int, int]:
+    """(SMs, csr_spmv_t_max_shared_bytes) of a card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, csr_spmv_t_max_shared_bytes(device)
+
+
 def csr_spmv_t(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
                g: torch.Tensor, num_features: int) -> torch.Tensor:
     """K2: grad_w[num_features] = CSRᵀ · g (see module docstring)."""
@@ -150,9 +205,12 @@ def csr_spmv_t(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
     if g.device.type == "cpu":
         return csr_spmv_t_plain(offset, index, value, g, num_features)
     check(g.is_cuda, f"csr_spmv_t runs on cuda or cpu, got {g.device}")
+    sms, most = _card(g.device)
+    private = csr_spmv_t_route(num_features, index.numel(), sms,
+                               most) == "private"
     grad = torch.zeros(num_features, dtype=torch.float32, device=g.device)
-    _launch("dmlc_csr_spmv_t", offset, index, value, g, n,
-            num_features, grad)
+    _launch("dmlc_csr_spmv_t", offset, index, value, g, n, num_features,
+            grad, K2_BLOCKS_PER_SM * sms if private else 0)
     csr_spmv_t.launches += 1
     return grad
 

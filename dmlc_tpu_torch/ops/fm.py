@@ -21,7 +21,8 @@ differentiable in V only.
 
 As in ``ops/csr.py``: a wrapper runs the plain version only when its
 tensors lie on the CPU, and for CUDA tensors launches its kernel or
-raises; each wrapper counts its launches in ``.launches``. An index maps
+raises (K5 backward by the route :func:`fm_bwd_route` picks, K6 by
+:func:`ffm_route`'s); each wrapper counts its launches in ``.launches``. An index maps
 by the reference's rule (``ops/index.py``), and an invalid one reads as
 NaN factors (``jnp.take`` fills NaN), so its row's pair
 is NaN and the gradient is NaN wherever the reference's is; the
@@ -47,7 +48,7 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check
 __all__ = ["fm_pair", "ffm_pair", "fm_pair_fwd", "fm_pair_bwd",
            "ffm_pair_fwd", "ffm_pair_bwd", "fm_pair_fwd_plain",
            "fm_pair_bwd_plain", "ffm_pair_fwd_plain", "ffm_pair_bwd_plain",
-           "ffm_route"]
+           "ffm_route", "fm_bwd_route"]
 
 
 # ------------------------------------------------------------ plain versions
@@ -191,12 +192,21 @@ def fm_pair_bwd(offset: torch.Tensor, index: torch.Tensor,
         return fm_pair_bwd_plain(offset, index, value, V, s, g)
     F, K = V.shape
     gV = torch.zeros_like(V)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (V, s, gV))
     launch("dmlc_fm_pair_bwd", V.device, offset.data_ptr(), index.data_ptr(),
            INDEX_BYTES[index.dtype], value.data_ptr(), V.data_ptr(),
            s.data_ptr(), g.data_ptr(), n, index.numel(), F, K,
-           gV.data_ptr())
+           gV.data_ptr(), int(fm_bwd_route(K, aligned) == "vector"))
     fm_pair_bwd.launches += 1
     return gV
+
+
+def fm_bwd_route(K: int, aligned: bool) -> str:
+    """K5 backward's route: ``"vector"`` (four factors a lane, one float4
+    load of V and of s and one vector reduction into gV) where K % 4 == 0
+    and V, s and gV start on 16 bytes (``aligned``), so that every row's
+    factors do; else ``"scalar"`` (one factor a lane)."""
+    return "vector" if K % 4 == 0 and aligned else "scalar"
 
 
 # The global route's workspace: at most this many bytes, and two blocks an

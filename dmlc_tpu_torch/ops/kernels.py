@@ -28,13 +28,17 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # offset, index, index_bytes, value, dense, rows, nnz, features, out
     "dmlc_csr_spmv": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
-    "dmlc_csr_spmv_t": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
+    # ..., grad_w, blocks (0: global route)
+    "dmlc_csr_spmv_t": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _I64, _P],
+    # out: int64 (no stream)
+    "dmlc_csr_spmv_t_max_shared_bytes": [_P],
     # offset, index, index_bytes, value, V, rows, nnz, features, K, pair, s
     "dmlc_fm_pair_fwd": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _I64, _P, _P,
                          _P],
-    # offset, index, index_bytes, value, V, s, g, rows, nnz, features, K, gV
+    # offset, index, index_bytes, value, V, s, g, rows, nnz, features, K,
+    # gV, vector (1: vector route)
     "dmlc_fm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                         _P, _P],
+                         _P, _I, _P],
     # offset, index, index_bytes, value, field, V, rows, nnz, features, nf,
     # K, pair, workspace (null: shared route), blocks
     "dmlc_ffm_pair_fwd": [_P, _P, _I, _P, _P, _P, _I64, _I64, _I64, _I64,

@@ -91,6 +91,8 @@ CASES = {
     "last_feature": dict(seed=7, features=3),
     "factors_3": dict(seed=8, K=3),
     "factors_40": dict(seed=9, K=40, rows=16),
+    # 12 factors: three float4 a nonzero on the card's vector route
+    "factors_12": dict(seed=24, K=12, out_of_range=(5,), pad_nnz=4),
     "one_field": dict(seed=10, fields=1),
     # the index rule (C6): u32 2^32-1 reads V[F-1], 2^31 is invalid
     "c6_u32": dict(seed=17, raw=((3, 2**32 - 1), (9, 2**31),
@@ -266,6 +268,18 @@ def test_ffm_route_at_sm90_optin(fields, K, route):
     assert fm.ffm_route(fields, K, SM90_K6_SHARED) == route
     assert (fm.ffm_shared_bytes(fields, K) <= SM90_K6_SHARED) == (
         route == "shared")
+
+
+@pytest.mark.parametrize("K,aligned,route", [(8, True, "vector"),
+                                              (40, True, "vector"),
+                                              (4, True, "vector"),
+                                              (3, True, "scalar"),
+                                              (6, True, "scalar"),
+                                              (8, False, "scalar")])
+def test_fm_bwd_route(K, aligned, route):
+    """K5 backward reads and adds four factors at once only where K is a
+    multiple of 4 and V, s and gV start on 16 bytes."""
+    assert fm.fm_bwd_route(K, aligned) == route
 
 
 @pytest.mark.parametrize("case", ["plain", "empty_rows", "bad_field",

@@ -29,13 +29,18 @@ RTOL, ATOL = 1e-5, 1e-6
 
 
 def _csr(seed, rows=64, features=500, max_nnz=12, pad_rows=0, pad_nnz=0,
-         empty=(), out_of_range=(), raw=(), index_dtype=np.uint32):
+         empty=(), out_of_range=(), raw=(), index_dtype=np.uint32,
+         dense=False):
     """A padded CSR batch: ``pad_rows`` empty tail rows, ``pad_nnz``
     zero-valued tail nonzeros, rows in ``empty`` emptied, an index past
     the features in each row of ``out_of_range``, and for each (row, v)
-    of ``raw`` the raw index v as the row's first."""
+    of ``raw`` the raw index v as the row's first. ``dense``: each row
+    holds every index 1 .. features-1 (a narrow model's dense rows, as in
+    the ranking path) and then up to ``max_nnz`` of them again."""
     rng = np.random.RandomState(seed)
     lens = rng.randint(1, max_nnz + 1, rows)
+    if dense:
+        lens += features - 1
     lens[list(empty)] = 0
     if pad_rows:
         lens[rows - pad_rows:] = 0
@@ -43,7 +48,13 @@ def _csr(seed, rows=64, features=500, max_nnz=12, pad_rows=0, pad_nnz=0,
     offset[1:] = np.cumsum(lens)
     nnz = int(offset[-1])
     index = np.zeros(nnz + pad_nnz, index_dtype)
-    index[:nnz] = rng.randint(0, features, nnz)
+    if dense:
+        index[:nnz] = np.concatenate([
+            np.concatenate([np.arange(1, features),
+                            rng.randint(1, features, n - features + 1)])
+            for n in lens if n])
+    else:
+        index[:nnz] = rng.randint(0, features, nnz)
     value = np.zeros(nnz + pad_nnz, np.float32)
     value[:nnz] = rng.rand(nnz)
     for r in out_of_range:
@@ -76,6 +87,11 @@ CASES = {
     # is invalid
     "c6_int32": dict(seed=10, index_dtype=np.int32,
                      raw=((3, -1), (7, -500), (9, -501))),
+    # a narrow model of 137 weights whose rows hold indices 1-136 and
+    # duplicates (the ranking path's shape, where K2 takes its private
+    # route on the card), with empty rows and a padded tail
+    "narrow_dense": dict(seed=11, rows=40, features=137, max_nnz=6,
+                         dense=True, empty=(2, 9), pad_rows=3, pad_nnz=7),
 }
 
 
@@ -114,6 +130,26 @@ def test_k2_plain_matches_jax_grad(case):
     got = csr.csr_spmv_t(_t(offset), _t(index), _t(value), _t(g),
                          len(w)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# sm_90's opt-in shared memory a block (the private kernel has no static
+# shared memory)
+SM90_K2_SHARED = 232448
+
+
+@pytest.mark.parametrize("features,nnz,route", [
+    (137, 557056, "private"),       # the ranking batch: 137 weights
+    (8192, 557056, "private"),      # a flush of 264 x 8192 atomics
+    (32768, 557056, "global"),      # a flush of 264 x 32768: 15.5 a nonzero
+    (10**6, 368640, "global"),      # the linear batch: 10^6 weights
+    (60000, 10**9, "global"),       # 240 KB: past a block's shared memory
+    (0, 557056, "global"),          # no weight to flush
+])
+def test_k2_route(features, nnz, route):
+    """K2 takes its private route where grad_w fits a block's shared
+    memory and its flush (2 blocks an SM x 132 SMs x F atomics) is at
+    most K2_FLUSH_PER_NNZ a nonzero; else the global one."""
+    assert csr.csr_spmv_t_route(features, nnz, 132, SM90_K2_SHARED) == route
 
 
 def test_out_of_range_gives_nan_row_and_dropped_gradient():
