@@ -118,6 +118,29 @@ RANK_LEARNING_RATE = 3.0
 WRAP_LAST, WRAP_BAD, WRAP_U64 = 2**32 - 1, 2**31, 2**32 + 3
 SEED = 0
 PROFILE_ATTEMPTS = 3
+# The kernel of each route of K2 and of K5 backward, as the profiler names
+# it; the route a call took is read from its trace. FILL is torch's zero
+# fill, which both wrappers launch once a call for their output.
+ROUTE_KERNELS = {
+    "csr_spmv_t": {"global": "csr_spmv_t_kernel",
+                   "private": "csr_spmv_t_private_kernel"},
+    "fm_pair_bwd": {"scalar": "fm_pair_bwd_kernel",
+                    "vector": "fm_pair_bwd_vec_kernel"},
+}
+FILL = "FillFunctor"
+SPIN = "spin_kernel"  # torch.cuda._sleep's kernel
+# The launches a call of each wrapper of one route makes, by kernel (see
+# _launched): its kernels, and a zero fill where it zeroes its output.
+KERNEL_CALLS = {
+    "csr_spmv": {"csr_spmv_kernel": 1},
+    "fm_pair_fwd": {"fm_pair_fwd_kernel": 1},
+    "ffm_pair_fwd": {"ffm_pair_fwd_kernel": 1},
+    "ffm_pair_bwd": {"ffm_pair_bwd_kernel": 1, FILL: 1},
+    "pair_sums": {"tile_table_kernel": 1, "pair_rows_fwd_kernel": 1},
+    "pair_sums_grad": {"pair_rows_bwd_kernel": 1},
+    "sdot_rows": {"sdot_rows_kernel": 1},
+    "csr_to_dense": {"csr_to_dense_kernel": 1, FILL: 1},
+}
 # One rate for w and b. The bias sets the ceiling: its curvature is at
 # most 1/4, so SGD on it diverges above a rate of 8. The 10^6 weights each
 # see a few rows a batch, so at the reference's default of 0.1 the loss
@@ -394,33 +417,64 @@ def call_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_us_by_kernel(fn):
-    """{kernel name: (device µs, calls)} of what ``fn`` runs on the card,
-    from a torch.profiler trace of device activity only (so no host op
-    is counted beside the kernels it launched). A trace in which the
-    profiler saw no device activity at all (it happens now and then on
-    the card's machine) is taken again, up to PROFILE_ATTEMPTS times; the
-    retries are logged, and the callers fail on a trace that stays empty."""
+def _launched(key, kernel):
+    """Whether the profiler's ``key`` names ``kernel``: a kernel of the
+    port ("(anonymous namespace)::name<...>(...)"), or torch's fill
+    (FILL) or spin kernel (SPIN)."""
+    return f"::{kernel}<" in key or f"::{kernel}(" in key
+
+
+def _device_us_by_kernel(fn, iters: int = 1, calls=None):
+    """{kernel name: (device µs, launches)} of one piece of the work that
+    ``fn`` repeats ``iters`` times on the card, from a torch.profiler
+    trace of device activity only (so no host op is counted beside the
+    kernels it launched). ``calls`` maps kernels (see _launched) to the
+    launches a piece must show of them, 0 for a kernel that must not run.
+
+    Late in a run on the card, a trace loses the record of its first
+    launch (of 100 launches, 49 and 50 records of K7 forward's two
+    kernels; a single K2 call without its fill), so each trace opens with
+    a launch of torch's spin kernel (SPIN), left out of the result. A
+    kernel's launches a piece are its records over ``iters``, rounded,
+    and its time a piece the mean of the records it kept times those
+    launches; a trace in which a kernel kept fewer than nine tenths of
+    its launches' records, or more than them, or that shows launches
+    other than ``calls`` (or no device activity at all) is taken again,
+    up to PROFILE_ATTEMPTS times, and then fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    want = dict(calls or {})
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        by_kernel = {e.key: (e.self_device_time_total, e.count)
-                     for e in prof.key_averages()
-                     if e.self_device_time_total > 0}
-        if by_kernel:
-            break
-        log(f"  the profiler saw no device time (trace {attempt} of "
-            f"{PROFILE_ATTEMPTS})")
-    return by_kernel
+        by_kernel, lost = {}, {}
+        for e in prof.key_averages():
+            per = round(e.count / iters)
+            if (e.self_device_time_total <= 0 or per == 0
+                    or _launched(e.key, SPIN)):
+                continue
+            by_kernel[e.key] = (e.self_device_time_total / e.count * per, per)
+            if not 0 <= per * iters - e.count <= per * iters // 10:
+                lost[e.key[:60]] = f"{e.count} of {per * iters}"
+        seen = {k: sum(n for key, (_, n) in by_kernel.items()
+                       if _launched(key, k)) for k in want}
+        if by_kernel and seen == want and not lost:
+            return by_kernel
+        log(f"  trace {attempt} of {PROFILE_ATTEMPTS}: "
+            f"{len(by_kernel)} kernels, launches a piece {seen} (want "
+            f"{want}), records kept out of launches {lost}")
+    fail(f"no trace of {PROFILE_ATTEMPTS} showed the launches wanted: "
+         f"{want} a piece of {iters}")
 
 
-def device_ms(fn, iters: int = 50) -> float:
+def device_ms(fn, iters: int = 50, calls=None) -> float:
     """Device milliseconds per call of ``fn``: the summed device time of
-    every kernel, copy and fill it runs, over ``iters`` calls."""
+    every kernel, copy and fill it runs, from ``iters`` calls, each of
+    which launches ``calls`` (see _device_us_by_kernel)."""
     for _ in range(10):
         fn()
 
@@ -428,23 +482,39 @@ def device_ms(fn, iters: int = 50) -> float:
         for _ in range(iters):
             fn()
 
-    by_kernel = _device_us_by_kernel(loop)
-    require(by_kernel, "the profiler saw no device time")
-    return sum(t for t, _ in by_kernel.values()) / iters / 1e3
+    by_kernel = _device_us_by_kernel(loop, iters, calls)
+    return sum(t for t, _ in by_kernel.values()) / 1e3
 
 
-def _fill_and_kernel(fn, kernel, iters: int = 50):
-    """(the rest, the kernel) of ``fn``'s device milliseconds a call: the
-    kernels whose name holds ``kernel`` apart from everything else it runs
-    on the card (the zero fill of its output)."""
+def route_calls(op, route):
+    """The launches a call of the wrapper ``op`` makes by ``route``: one
+    of that route's kernel, none of its other routes' kernels, and one
+    zero fill of its output."""
+    calls = {k: int(r == route) for r, k in ROUTE_KERNELS[op].items()}
+    calls[FILL] = 1
+    return calls
+
+
+def on_route(op, route, fn):
+    """``fn()``, one call of the wrapper ``op``, run under the profiler;
+    fails unless its trace shows that it took ``route``."""
+    out = []
+    _device_us_by_kernel(lambda: out.append(fn()), 1, route_calls(op, route))
+    return out[-1]
+
+
+def _fill_and_kernel(fn, op, route, iters: int = 50):
+    """(the fill, the kernel) of the device milliseconds a call of ``fn``
+    takes, a call of the wrapper ``op`` by ``route``: the route's kernel
+    apart from the zero fill of its output."""
     for _ in range(10):
         fn()
-    by_kernel = _device_us_by_kernel(lambda: [fn() for _ in range(iters)])
-    require(by_kernel, "the profiler saw no device time")
-    mine = sum(t for k, (t, _) in by_kernel.items() if kernel in k)
-    require(mine > 0, f"no kernel named {kernel} ran")
+    by_kernel = _device_us_by_kernel(lambda: [fn() for _ in range(iters)],
+                                     iters, route_calls(op, route))
+    mine = sum(t for k, (t, _) in by_kernel.items()
+               if _launched(k, ROUTE_KERNELS[op][route]))
     rest = sum(t for t, _ in by_kernel.values()) - mine
-    return rest / iters / 1e3, mine / iters / 1e3
+    return rest / 1e3, mine / 1e3
 
 
 def bound_ms(nbytes, ops):
@@ -502,35 +572,14 @@ def edge_case_batch(first):
     return new_off, idx, val, fld, [20, 60]
 
 
-def _k2_route(num_features, index):
-    """The route csr_spmv_t takes on this card for a model of
-    ``num_features`` weights and a batch of ``index``."""
-    import torch
-    from dmlc_tpu_torch.ops import csr
-    cuda = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    return csr.csr_spmv_t_route(num_features, index.numel(), sms,
-                                csr.csr_spmv_t_max_shared_bytes(cuda))
-
-
-def _k5_route(V, s):
-    """The route fm_pair_bwd takes for V and s (its gV, new from the
-    caching allocator, starts on 512 bytes)."""
-    from dmlc_tpu_torch.ops import fm
-    return fm.fm_bwd_route(V.shape[1], V.data_ptr() % 16 == 0
-                           and s.data_ptr() % 16 == 0)
-
-
 def _check_narrow_k2(name, offset, index, value, g):
     """K2 on a narrow model's batch against its plain version, with the
     rtol of each weight's sum|terms| (see K2_RTOL); returns max |err|."""
     import torch
     from dmlc_tpu_torch.ops import csr
     F = RANK_NUM_FEATURES
-    route = _k2_route(F, index)
-    require(route == "private", f"K2 {name}: the {route} route at {F} "
-            f"weights and {index.numel()} nonzeros")
-    gw = csr.csr_spmv_t(offset, index, value, g, F)
+    gw = on_route("csr_spmv_t", "private",
+                  lambda: csr.csr_spmv_t(offset, index, value, g, F))
     plain = csr.csr_spmv_t_plain(offset, index, value, g, F)
     scale = csr.csr_spmv_t_plain(offset, index, value.abs(), g.abs(), F)
     torch.cuda.synchronize()
@@ -594,7 +643,8 @@ def check_kernels(first):
         t_idx = torch.from_numpy(idx.astype(dtype)).to(cuda)
         y = csr.csr_spmv(t_off, t_idx, t_val, w)
         y_plain = csr.csr_spmv_plain(t_off, t_idx, t_val, w)
-        gw = csr.csr_spmv_t(t_off, t_idx, t_val, g, NUM_FEATURES)
+        gw = on_route("csr_spmv_t", "global", lambda: csr.csr_spmv_t(
+            t_off, t_idx, t_val, g, NUM_FEATURES))
         gw_plain = csr.csr_spmv_t_plain(t_off, t_idx, t_val, g, NUM_FEATURES)
         torch.cuda.synchronize()
         name = np.dtype(dtype).name
@@ -624,9 +674,6 @@ def check_kernels(first):
             k1_err = err.abs().max().item()
             k1_rel = (err.abs() / scale).nan_to_num().max().item()
             k2_err = (gw - gw_plain).abs().max().item()
-    route = _k2_route(NUM_FEATURES, t_idx)
-    require(route == "global",
-            f"K2 took the {route} route at {NUM_FEATURES} weights")
     log(f"kernels agree with their plain versions (u32 and u64 index; "
         f"indices 2^32-1, 2^31 and 2^32+3 among the edge cases): "
         f"K1 max |err| {k1_err:.3g}, max |err| / sum|terms| {k1_rel:.3g} "
@@ -666,10 +713,11 @@ def check_kernels(first):
     def k2():
         return csr.csr_spmv_t(b_off, b_idx, b_val, g, NUM_FEATURES)
 
-    k1_ms, k1_call = device_ms(k1), call_ms(k1)
+    k1_ms = device_ms(k1, calls=KERNEL_CALLS["csr_spmv"])
+    k1_call = call_ms(k1)
     k1_plain = device_ms(lambda: csr.csr_spmv_plain(b_off, b_idx, b_val, w))
-    k2_ms, k2_call = device_ms(k2), call_ms(k2)
-    k2_fill, k2_kernel = _fill_and_kernel(k2, "csr_spmv_t")
+    k2_fill, k2_kernel = _fill_and_kernel(k2, "csr_spmv_t", "global")
+    k2_ms, k2_call = k2_fill + k2_kernel, call_ms(k2)
     log(f"csr_spmv_t at the main path's batch (global route): kernel "
         f"{k2_kernel * 1e3:.2f} us, zero fill {k2_fill * 1e3:.2f} us on the "
         "device")
@@ -829,10 +877,8 @@ def check_factor_kernels(first):
                 and torch.equal(torch.isnan(s), torch.isnan(s_p)),
                 f"fm_pair_fwd {name}: s disagrees with the plain version's: "
                 f"max |err| {s_err.max().item()}")
-        route = _k5_route(V5, s)
-        require(route == "vector",
-                f"fm_pair_bwd took the {route} route at {FM_FACTORS} factors")
-        gv = fm.fm_pair_bwd(*args, V5, s, g)
+        gv = on_route("fm_pair_bwd", "vector",
+                      lambda: fm.fm_pair_bwd(*args, V5, s, g))
         gv_p = fm.fm_pair_bwd_plain(*args, V5, s, g)
         torch.cuda.synchronize()
         g5 = _check_grad(f"fm_pair_bwd {name} (vector route)", gv, gv_p,
@@ -922,10 +968,10 @@ def check_factor_kernels(first):
             "fm_pair_fwd's s disagrees with torch.sparse on the path's batch")
     library = {"fm_pair_fwd": device_ms(lambda: (a1 @ V5, a2 @ V5sq))}
     k5_fill, k5_kernel = _fill_and_kernel(
-        lambda: fm.fm_pair_bwd(*args, V5, s_b, g), "fm_pair_bwd")
-    log(f"fm_pair_bwd at the libfm path's batch ({_k5_route(V5, s_b)} "
-        f"route): kernel {k5_kernel * 1e3:.2f} us, zero fill "
-        f"{k5_fill * 1e3:.2f} us on the device")
+        lambda: fm.fm_pair_bwd(*args, V5, s_b, g), "fm_pair_bwd", "vector")
+    log(f"fm_pair_bwd at the libfm path's batch (vector route): kernel "
+        f"{k5_kernel * 1e3:.2f} us, zero fill {k5_fill * 1e3:.2f} us on the "
+        "device")
     log(f"factor kernels timed at the libfm path's first batch: {n} rows, "
         f"{nnz} nonzeros of {LIBFM_NNZ_BUCKET}, {distinct} distinct "
         f"features, {pairs_needed} (row, field, field) pairs present")
@@ -933,6 +979,8 @@ def check_factor_kernels(first):
                 "fm_pair_bwd": "dmlc_tpu/models/fm.py:43",
                 "ffm_pair_fwd": "dmlc_tpu/models/fm.py:117",
                 "ffm_pair_bwd": "dmlc_tpu/models/fm.py:117"}
+    calls = dict(KERNEL_CALLS,
+                 fm_pair_bwd=route_calls("fm_pair_bwd", "vector"))
     rows = []
     for name, (kernel, plain, nbytes, ops) in work.items():
         b, by = bound_ms(nbytes, ops)
@@ -942,7 +990,8 @@ def check_factor_kernels(first):
             "source": "dmlc_tpu_torch/csrc/fm.cu",
             "replaces": replaces[name],
             "max_abs_err": err[0] if isinstance(err, tuple) else err,
-            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "ms": device_ms(kernel, calls=calls[name]),
+            "plain_ms": device_ms(plain),
             "bound_ms": b, "bound_by": by,
             "library_ms": library.get(name), "call_ms": call_ms(kernel)})
     del V6, a1, a2
@@ -967,6 +1016,7 @@ def check_factor_shapes():
     import numpy as np
     import torch
     from dmlc_tpu_torch.ops import fm
+    from dmlc_tpu_torch.ops.kernels import max_shared_bytes
     cuda = torch.device("cuda")
     rng = np.random.RandomState(SEED + 5)
 
@@ -983,7 +1033,7 @@ def check_factor_shapes():
             (0.3 * rng.randn(*shape)).astype(np.float32),
             rng.randn(rows).astype(np.float32))]
 
-    most = fm.ffm_max_shared_bytes(cuda)
+    most = max_shared_bytes(cuda) - fm.FFM_STATIC_SHARED_BYTES
     routes = {(f, k): fm.ffm_route(f, k, most)
               for f, k in ((FFM_FIELDS, FFM_FACTORS), (39, 40), (120, 4),
                            (300, 1))}
@@ -1002,11 +1052,9 @@ def check_factor_shapes():
             plain, _ = fm.fm_pair_fwd_plain(*csr_cols, V)
             pair_a, s_a = fm.fm_pair_fwd_plain(*abs_cols, V.abs())
             scale = (s_a * s_a).sum(-1) - pair_a
-            route = _k5_route(V, s)
-            want = "vector" if factors % 4 == 0 else "scalar"
-            require(route == want, f"K5 backward with {factors} factors "
-                    f"took the {route} route, want {want}")
-            gv = fm.fm_pair_bwd(*csr_cols, V, s, g)
+            route = "vector" if factors % 4 == 0 else "scalar"
+            gv = on_route("fm_pair_bwd", route,
+                          lambda: fm.fm_pair_bwd(*csr_cols, V, s, g))
             gv_p = fm.fm_pair_bwd_plain(*csr_cols, V, s, g)
         else:
             pair = fm.ffm_pair_fwd(*csr_cols, fld, V)
@@ -1036,16 +1084,14 @@ def check_factor_shapes():
     V_off = torch.empty(V.numel() + 1, device=cuda)[1:].view(V.shape)
     V_off.copy_(V)
     _, s = fm.fm_pair_fwd(off, idx, val, V_off)
-    route = _k5_route(V_off, s)
-    require(route == "scalar", f"K5 backward on a misaligned V took the "
-            f"{route} route")
-    gv = fm.fm_pair_bwd(off, idx, val, V_off, s, g)
+    gv = on_route("fm_pair_bwd", "scalar",
+                  lambda: fm.fm_pair_bwd(off, idx, val, V_off, s, g))
     gv_p = fm.fm_pair_bwd_plain(off, idx, val, V_off, s, g)
     torch.cuda.synchronize()
     require(torch.allclose(gv, gv_p, rtol=GRAD_RTOL, atol=GRAD_ATOL),
             f"K5 backward on a misaligned V disagrees with its plain "
             f"version: max |err| {(gv - gv_p).abs().max().item()}")
-    done.append(f"K5 with {FM_FACTORS} factors, V misaligned ({route} "
+    done.append(f"K5 with {FM_FACTORS} factors, V misaligned (scalar "
                 "backward)")
     del V_off, gv, gv_p
     torch.cuda.empty_cache()
@@ -1054,17 +1100,17 @@ def check_factor_shapes():
         "block)")
     off, idx, val, fld, V, g = batch(2048, 20000, 39, 40, 39)
     nnz = int(off[-1])
-    fwd_ms = device_ms(lambda: fm.ffm_pair_fwd(off, idx, val, fld, V))
+    fwd_ms = device_ms(lambda: fm.ffm_pair_fwd(off, idx, val, fld, V),
+                       calls=KERNEL_CALLS["ffm_pair_fwd"])
     bwd = _device_us_by_kernel(
         lambda: [fm.ffm_pair_bwd(off, idx, val, fld, V, g)
-                 for _ in range(20)])
-    require(bwd, "the profiler saw no device time")
-    bwd_kernel = sum(t for k, (t, _) in bwd.items() if "ffm_pair_bwd" in k)
+                 for _ in range(20)], 20, KERNEL_CALLS["ffm_pair_bwd"])
+    bwd_kernel = sum(t for k, (t, _) in bwd.items()
+                     if _launched(k, "ffm_pair_bwd_kernel"))
     log(f"K6 global route at 39 fields x 40 factors, 2048 rows, {nnz} "
         f"nonzeros, V [20000, 39, 40]: forward {fwd_ms * 1e3:.2f} us on the "
-        f"device, backward {sum(t for t, _ in bwd.values()) / 20:.2f} us "
-        f"({bwd_kernel / 20:.2f} us of it the kernel, the rest the fill of "
-        f"gV)")
+        f"device, backward {sum(t for t, _ in bwd.values()):.2f} us "
+        f"({bwd_kernel:.2f} us of it the kernel, the rest the fill of gV)")
     del off, idx, val, fld, V, g
     torch.cuda.empty_cache()
 
@@ -1187,7 +1233,6 @@ def device_time(path, model, epoch_s, fmt="libsvm"):
     by_kernel = _device_us_by_kernel(
         lambda: train_epoch(path, model, torch.device("cuda"), train=True,
                             fmt=fmt))
-    require(by_kernel, "the profiler saw no device time")
     total_us = sum(t for t, _ in by_kernel.values())
     log(f"device time over a training epoch: {total_us / 1e3:.3f} ms, "
         f"busy share {total_us / 1e6 / epoch_s:.4f} of the "
@@ -1598,12 +1643,13 @@ def k7_tiles(first, args, s):
         pw = ranking.pair_weights_plain(*a[1:])
         weighted = int((pw != 0).sum())
         del pw
+        fwd_ms = device_ms(lambda: ranking.pair_sums(*a),
+                           calls=KERNEL_CALLS["pair_sums"])
+        bwd_ms = device_ms(lambda: ranking.pair_sums_grad(*a, s, tb_a),
+                           calls=KERNEL_CALLS["pair_sums_grad"])
         log(f"K7 at the first batch, {name} ({weighted} weighted pairs; "
-            f"safe flag {int(tb_a[0])}): forward "
-            f"{device_ms(lambda: ranking.pair_sums(*a)) * 1e3:.2f} us, "
-            f"backward "
-            f"{device_ms(lambda: ranking.pair_sums_grad(*a, s, tb_a)) * 1e3:.2f}"
-            f" us on the device")
+            f"safe flag {int(tb_a[0])}): forward {fwd_ms * 1e3:.2f} us, "
+            f"backward {bwd_ms * 1e3:.2f} us on the device")
     return table
 
 
@@ -1868,8 +1914,8 @@ def check_ranking_kernels(first):
         return csr.csr_spmv_t(b["offset"], b["index"], b["value"], g,
                               RANK_NUM_FEATURES)
 
-    k2_ms = device_ms(k2)
-    k2_rest, k2_kernel = _fill_and_kernel(k2, "csr_spmv_t")
+    k2_fill, k2_kernel = _fill_and_kernel(k2, "csr_spmv_t", "private")
+    k2_ms = k2_fill + k2_kernel
     k2_plain = device_ms(lambda: csr.csr_spmv_t_plain(
         b["offset"], b["index"], b["value"], g, RANK_NUM_FEATURES))
     a = torch.sparse_csr_tensor(b["offset"], cols_of, vals,
@@ -1882,8 +1928,8 @@ def check_ranking_kernels(first):
         k2_lib = f"not timed ({e})"
     log(f"csr_spmv_t at the ranking batch ({RANK_NUM_FEATURES} weights, "
         f"private route; max |err| {k2_err:.3g}): {k2_ms * 1e3:.2f} us on "
-        f"the device (kernel {k2_kernel * 1e3:.2f} us, the rest "
-        f"{k2_rest * 1e3:.2f} us), plain {k2_plain * 1e3:.2f} us, library "
+        f"the device (kernel {k2_kernel * 1e3:.2f} us, zero fill "
+        f"{k2_fill * 1e3:.2f} us), plain {k2_plain * 1e3:.2f} us, library "
         f"A.t() @ g {k2_lib}, bound {k2_bound * 1e3:.2f} us ({k2_by})")
     rows = []
     for name, (kernel, plain, nbytes, ops, replaces, source, lib,
@@ -1892,7 +1938,8 @@ def check_ranking_kernels(first):
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err,
-            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "ms": device_ms(kernel, calls=KERNEL_CALLS[name]),
+            "plain_ms": device_ms(plain),
             "bound_ms": bound, "bound_by": by,
             "library_ms": device_ms(lib) if lib else None,
             "call_ms": call_ms(kernel)})

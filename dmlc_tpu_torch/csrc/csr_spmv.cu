@@ -57,6 +57,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "index.cuh"
 
 namespace {
@@ -168,21 +169,6 @@ __global__ void __launch_bounds__(kPrivateThreads, 2)
   }
 }
 
-constexpr int64_t kDefaultSharedBytes = 48 * 1024;
-
-// The dynamic shared memory a private-route block may take on the current
-// device: the opt-in maximum (the kernel has no static shared memory).
-cudaError_t private_max_shared(int64_t* out) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  *out = optin;
-  return err;
-}
-
 template <typename IndexT>
 cudaError_t spmv_t_private(const int64_t* offset, const IndexT* index,
                            const float* value, const float* g,
@@ -191,8 +177,8 @@ cudaError_t spmv_t_private(const int64_t* offset, const IndexT* index,
                            int64_t blocks, cudaStream_t s) {
   const auto kernel = csr_spmv_t_private_kernel<IndexT>;
   const int64_t bytes = num_features * static_cast<int64_t>(sizeof(float));
-  int64_t most = 0;
-  cudaError_t err = private_max_shared(&most);
+  int64_t most = 0;  // the kernel has no static shared memory
+  cudaError_t err = dmlc_device::max_shared_bytes(&most);
   if (err != cudaSuccess) return err;
   if (bytes > most) return cudaErrorInvalidValue;
   // no more blocks than the rows fill
@@ -200,7 +186,7 @@ cudaError_t spmv_t_private(const int64_t* offset, const IndexT* index,
   const int64_t fill = (num_rows + rows_per_block - 1) / rows_per_block;
   const int64_t grid = blocks < fill ? blocks : fill;
   if (grid > 0x7fffffff) return cudaErrorInvalidValue;
-  if (bytes > kDefaultSharedBytes) {
+  if (bytes > dmlc_device::kDefaultSharedBytes) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
@@ -247,11 +233,14 @@ int dmlc_csr_spmv(const void* offset, const void* index, int index_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The most dynamic shared memory a private-route block takes on the
-// current device, into *out (int64); a block needs num_features * 4 bytes.
-// Returns a cudaError_t.
-int dmlc_csr_spmv_t_max_shared_bytes(void* out) {
-  return static_cast<int>(private_max_shared(static_cast<int64_t*>(out)));
+// The most shared memory, static and dynamic together, that a block of any
+// kernel here may opt in to on the current device, into *out (int64). K2's
+// private route needs num_features * 4 bytes of it; K6's shared route
+// ffm_shared_floats * 4 and its static kStaticSharedBytes (fm.cu). Returns
+// a cudaError_t.
+int dmlc_max_shared_bytes(void* out) {
+  return static_cast<int>(
+      dmlc_device::max_shared_bytes(static_cast<int64_t*>(out)));
 }
 
 // grad_w[num_features] += CSR^T . g[num_rows]; grad_w must be zeroed by

@@ -94,6 +94,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "index.cuh"
 
 namespace {
@@ -273,9 +274,12 @@ struct Staged {
 };
 
 // The static shared memory of a K6 block: the staged nonzeros and the
-// forward's reduction scratch.
+// forward's reduction scratch. ops/fm.py's ffm_route subtracts it, as
+// FFM_STATIC_SHARED_BYTES, from the card's opt-in maximum.
 constexpr int64_t kStaticSharedBytes =
     sizeof(Staged) + sizeof(float) * (kMaxBlockThreads / kWarp);
+static_assert(kStaticSharedBytes == 1056,
+              "update FFM_STATIC_SHARED_BYTES in ops/fm.py");
 
 // The columns c = b * K + f of S[a, :, :] that a thread owns: threadIdx.x,
 // then every blockDim.x on. b and f come from one 32-bit division at the
@@ -516,22 +520,6 @@ unsigned ffm_threads(int64_t nf, int64_t K) {
   return static_cast<unsigned>(t < kMaxBlockThreads ? t : kMaxBlockThreads);
 }
 
-constexpr int64_t kDefaultSharedBytes = 48 * 1024;
-
-// The dynamic shared memory a K6 block may take on the current device:
-// the opt-in maximum less the kernels' static shared memory.
-cudaError_t ffm_max_shared(int64_t* out) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return err;
-  *out = static_cast<int64_t>(optin) - kStaticSharedBytes;
-  return cudaSuccess;
-}
-
 // Checks the size of S and raises the kernel's dynamic shared-memory limit
 // where S needs more than the default 48 KB.
 template <typename Kernel>
@@ -539,10 +527,10 @@ cudaError_t prepare_ffm(Kernel kernel, int64_t nf, int64_t K,
                         int64_t* bytes) {
   *bytes = ffm_shared_floats(nf, K) * static_cast<int64_t>(sizeof(float));
   int64_t most = 0;
-  cudaError_t err = ffm_max_shared(&most);
+  cudaError_t err = dmlc_device::max_shared_bytes(&most);
   if (err != cudaSuccess) return err;
-  if (*bytes > most) return cudaErrorInvalidValue;
-  if (*bytes > kDefaultSharedBytes) {
+  if (*bytes > most - kStaticSharedBytes) return cudaErrorInvalidValue;
+  if (*bytes > dmlc_device::kDefaultSharedBytes) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(*bytes));
@@ -613,13 +601,6 @@ cudaError_t ffm_bwd(const FfmArgs& a, const float* g, float* gV,
 }  // namespace
 
 extern "C" {
-
-// The most dynamic shared memory a K6 block takes on the current device,
-// into *out; a block needs (nf * nf * K + nf * K) * 4 bytes. Returns a
-// cudaError_t.
-int dmlc_ffm_max_shared_bytes(void* out) {
-  return static_cast<int>(ffm_max_shared(static_cast<int64_t*>(out)));
-}
 
 // pair[num_rows], s[num_rows, K] = the FM pair term of CSR(offset, index,
 // value) over V[num_features, K]. index_bytes: 4 (u32 or int32) or 8 (u64).

@@ -37,7 +37,8 @@ ENGINE_SRC = os.path.join(HERE, "src", "engine.cc")
 KERNEL_SRCS = [os.path.join(PKG, "csrc", name)
                for name in ("csr_spmv.cu", "fm.cu", "csr_ops.cu",
                             "ranking.cu")]
-KERNEL_HEADERS = [os.path.join(PKG, "csrc", "index.cuh")]
+KERNEL_HEADERS = [os.path.join(PKG, "csrc", name)
+                  for name in ("device.cuh", "index.cuh")]
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 _ZLIB_FLAGS = None

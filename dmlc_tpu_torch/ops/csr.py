@@ -32,20 +32,18 @@ Offsets stay int64 on the device.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from dmlc_tpu_torch.ops.index import wrap_index
-from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, library
-from dmlc_tpu_torch.utils.logging import DMLCError, check
+from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, max_shared_bytes
+from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
            "csr_spmv_plain", "csr_spmv_t_plain", "csr_spmv_t_route",
-           "csr_spmv_t_max_shared_bytes", "sdot_rows",
+           "sdot_rows",
            "sdot_rows_plain", "csr_to_dense", "csr_to_dense_plain",
            "csr_to_padded_rows"]
 
@@ -157,8 +155,9 @@ K2_FLUSH_PER_NNZ = 8
 
 def csr_spmv_t_route(num_features: int, nnz: int, sms: int,
                      max_shared: int) -> str:
-    """K2's route on a card of ``sms`` SMs whose blocks take at most
-    ``max_shared`` bytes of dynamic shared memory, for a model of
+    """K2's route on a card of ``sms`` SMs whose blocks may opt in to
+    ``max_shared`` bytes of shared memory (the private kernel has no
+    static shared memory), for a model of
     ``num_features`` weights and a batch of ``nnz`` nonzeros (its bucket,
     padded tail included): ``"private"`` where the F floats of grad_w fit
     a block's shared memory and the flush, K2_BLOCKS_PER_SM · sms · F
@@ -166,33 +165,13 @@ def csr_spmv_t_route(num_features: int, nnz: int, sms: int,
     ``"global"``. On an H100 (132 SMs), at 4096 rows of 136 nonzeros, the
     private route ran 7.3×, 9.3×, 2.0× and 1.24× faster than the global
     one at 137, 1,024, 8,192 and 16,384 weights, and 1.17× slower at
-    32,768 (``kernel_split.py --sweep``, PERF.md §6). The constant 8 puts
+    32,768 (a sweep of both routes, PERF.md §6). The constant 8 puts
     the boundary between the last two: at that batch the rule's flush is
     7.8 atomics a nonzero at 16,384 weights and 15.5 at 32,768."""
     if not 0 < num_features * 4 <= max_shared:
         return "global"
     flush = K2_BLOCKS_PER_SM * sms * num_features
     return "private" if flush <= K2_FLUSH_PER_NNZ * nnz else "global"
-
-
-def csr_spmv_t_max_shared_bytes(device: torch.device) -> int:
-    """The most dynamic shared memory a block of K2's private route takes
-    on ``device`` (the opt-in maximum)."""
-    out = ctypes.c_int64()
-    with torch.cuda.device(device):
-        err = library().dmlc_csr_spmv_t_max_shared_bytes(
-            ctypes.addressof(out))
-    if err != 0:
-        raise DMLCError("dmlc_csr_spmv_t_max_shared_bytes failed: CUDA "
-                        f"error {err}")
-    return out.value
-
-
-@functools.lru_cache(maxsize=None)
-def _card(device: torch.device) -> Tuple[int, int]:
-    """(SMs, csr_spmv_t_max_shared_bytes) of a card."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms, csr_spmv_t_max_shared_bytes(device)
 
 
 def csr_spmv_t(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
@@ -205,9 +184,9 @@ def csr_spmv_t(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
     if g.device.type == "cpu":
         return csr_spmv_t_plain(offset, index, value, g, num_features)
     check(g.is_cuda, f"csr_spmv_t runs on cuda or cpu, got {g.device}")
-    sms, most = _card(g.device)
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
     private = csr_spmv_t_route(num_features, index.numel(), sms,
-                               most) == "private"
+                               max_shared_bytes(g.device)) == "private"
     grad = torch.zeros(num_features, dtype=torch.float32, device=g.device)
     _launch("dmlc_csr_spmv_t", offset, index, value, g, n, num_features,
             grad, K2_BLOCKS_PER_SM * sms if private else 0)

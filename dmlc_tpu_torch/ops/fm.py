@@ -35,15 +35,14 @@ kernels to them on the card.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
 from dmlc_tpu_torch.ops.csr import _check_csr, _segment_ids
 from dmlc_tpu_torch.ops.index import clip_field, wrap_index
-from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, library
-from dmlc_tpu_torch.utils.logging import DMLCError, check
+from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, max_shared_bytes
+from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["fm_pair", "ffm_pair", "fm_pair_fwd", "fm_pair_bwd",
            "ffm_pair_fwd", "ffm_pair_bwd", "fm_pair_fwd_plain",
@@ -213,6 +212,9 @@ def fm_bwd_route(K: int, aligned: bool) -> str:
 # SM (each block holds one row's S and D at a time).
 FFM_WORKSPACE_BYTES = 256 << 20
 FFM_BLOCKS_PER_SM = 2
+# A K6 block's static shared memory (kStaticSharedBytes of csrc/fm.cu,
+# which asserts this value): its staged nonzeros and reduction scratch.
+FFM_STATIC_SHARED_BYTES = 1056
 
 
 def ffm_shared_bytes(num_fields: int, K: int) -> int:
@@ -228,17 +230,6 @@ def ffm_route(num_fields: int, K: int, max_shared: int) -> str:
             else "global")
 
 
-def ffm_max_shared_bytes(device: torch.device) -> int:
-    """The most shared memory a K6 block takes on ``device`` (the opt-in
-    maximum less the kernels' static staging)."""
-    out = ctypes.c_int64()
-    with torch.cuda.device(device):
-        err = library().dmlc_ffm_max_shared_bytes(ctypes.addressof(out))
-    if err != 0:
-        raise DMLCError(f"dmlc_ffm_max_shared_bytes failed: CUDA error {err}")
-    return out.value
-
-
 def _ffm_workspace(V: torch.Tensor, rows: int):
     """(workspace or None, blocks) of a K6 call: None for the shared
     route; for the global route min(rows, FFM_BLOCKS_PER_SM · SMs, what
@@ -246,7 +237,8 @@ def _ffm_workspace(V: torch.Tensor, rows: int):
     S and D. A workspace that cannot be had raises the allocator's
     out-of-memory error."""
     _, nf, K = V.shape
-    if ffm_route(nf, K, ffm_max_shared_bytes(V.device)) == "shared":
+    most = max_shared_bytes(V.device) - FFM_STATIC_SHARED_BYTES
+    if ffm_route(nf, K, most) == "shared":
         return None, 0
     per_block = ffm_shared_bytes(nf, K)
     sms = torch.cuda.get_device_properties(V.device).multi_processor_count

@@ -10,13 +10,14 @@ CUDA error it returns.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 
 from dmlc_tpu_torch.utils.logging import DMLCError
 
-__all__ = ["INDEX_BYTES", "library", "launch"]
+__all__ = ["INDEX_BYTES", "library", "launch", "max_shared_bytes"]
 
 # The index dtypes the kernels read, by width: the layout's u32/u64, and
 # int32 (csr_to_padded_rows). Under the index rule (csrc/index.cuh) u32 and
@@ -30,8 +31,6 @@ _SIGNATURES = {
     "dmlc_csr_spmv": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
     # ..., grad_w, blocks (0: global route)
     "dmlc_csr_spmv_t": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _I64, _P],
-    # out: int64 (no stream)
-    "dmlc_csr_spmv_t_max_shared_bytes": [_P],
     # offset, index, index_bytes, value, V, rows, nnz, features, K, pair, s
     "dmlc_fm_pair_fwd": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _I64, _P, _P,
                          _P],
@@ -48,7 +47,7 @@ _SIGNATURES = {
     "dmlc_ffm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                           _I64, _P, _P, _I64, _P],
     # out: int64 (no stream)
-    "dmlc_ffm_max_shared_bytes": [_P],
+    "dmlc_max_shared_bytes": [_P],
     # index [n, k], index_bytes, value [n, k], w, rows, k, features, y
     "dmlc_sdot_rows": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
     # offset, index, index_bytes, value, rows, nnz, cols, dense
@@ -88,3 +87,16 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise DMLCError(f"{name} launch failed: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def max_shared_bytes(device: torch.device) -> int:
+    """The most shared memory, static and dynamic together, that a block
+    may opt in to on ``device`` (``csrc/device.cuh``); the routes of K2
+    and K6 are chosen against it."""
+    out = ctypes.c_int64()
+    with torch.cuda.device(device):
+        err = library().dmlc_max_shared_bytes(ctypes.addressof(out))
+    if err != 0:
+        raise DMLCError(f"dmlc_max_shared_bytes failed: CUDA error {err}")
+    return out.value

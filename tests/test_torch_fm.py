@@ -17,6 +17,9 @@ the field rule (low 32 bits, signed, then clipped) are held to the
 reference at u32 2³²−1 and 2³¹, u64 2³²+3, int32 −1 and a field of 2³¹.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -268,6 +271,18 @@ def test_ffm_route_at_sm90_optin(fields, K, route):
     assert fm.ffm_route(fields, K, SM90_K6_SHARED) == route
     assert (fm.ffm_shared_bytes(fields, K) <= SM90_K6_SHARED) == (
         route == "shared")
+
+
+def test_ffm_static_shared_bytes_is_the_kernels():
+    """ops/fm.py subtracts the K6 kernels' static shared memory from the
+    card's opt-in size by a constant that csrc/fm.cu asserts, and it is
+    the 1,056 bytes SM90_K6_SHARED takes off."""
+    src = os.path.join(os.path.dirname(fm.__file__), "..", "csrc", "fm.cu")
+    with open(src) as f:
+        asserted = re.search(r"static_assert\(kStaticSharedBytes == (\d+)",
+                             f.read())
+    assert asserted is not None
+    assert int(asserted.group(1)) == fm.FFM_STATIC_SHARED_BYTES == 1056
 
 
 @pytest.mark.parametrize("K,aligned,route", [(8, True, "vector"),
