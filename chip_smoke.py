@@ -12,7 +12,10 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    PyTorch versions at the main path's shapes, edge cases included
    (empty rows, a padded tail, an index at F-1, an out-of-range index, a
    u64 index), with times beside their bound and a library call's (K2
-   and its zero fill apart); K2 also on a narrow model's edge batch (137
+   and its zero fill apart); K1 there through its half route (16 lanes a
+   row) and, with the bucket grown past 64 a row, its warp route, and
+   through both on a batch of rows of 0-1000 nonzeros (ROW_LENGTHS);
+   K2 also on a narrow model's edge batch (137
    weights, rows of indices 1-136 with duplicates, empty rows, an
    invalid index in the padded tail, u32 and u64 index), where it must
    take its private route, as at 10^6 weights its global one;
@@ -28,8 +31,11 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    128 MB (33-39 of 39 fields a row); K5 (``fm_pair_fwd``/``_bwd``) and
    K6 (``ffm_pair_fwd``/``_bwd``) against their plain versions with the
    same edge cases plus fields out of range, timed beside their bounds
-   (K5 backward's kernel and its zero fill apart; its vector route at 8
-   and 40 factors, its scalar route at 3 and for a misaligned V);
+   (K5 backward's kernel and its zero fill apart; K5's vector route at 8
+   and 40 factors, its scalar route at 3 and for a misaligned V, forward
+   and backward; K5 forward also at 1-40 factors on the rows of 0-1000
+   nonzeros, and timed by its scalar route; K1 held and timed at this
+   batch);
    K5 and K6 also at other shapes (3 and 40 factors; 3 colliding
    fields; 60 fields, past 48 KB of shared memory; 50 fields of 6
    factors, more columns than a block's threads, rows longer than a
@@ -52,7 +58,8 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    the gradient also at a cotangent of inf), the share of tiles each
    block skips, and K7 timed at two batches where no tile can be skipped;
    K2 on the batch (137 weights: its private route) against its plain
-   version, timed beside ``A.t() @ g``; K3
+   version, timed beside ``A.t() @ g``; K1 (136 a row: its warp route)
+   held and timed there too; K3
    (``sdot_rows``) and K4 (``csr_to_dense``) on the same batch, each
    timed beside its bound; one epoch of ``SparseRankingModel(137)``
    through native padded batches with ``qid`` (4096 rows, the
@@ -118,22 +125,25 @@ RANK_LEARNING_RATE = 3.0
 WRAP_LAST, WRAP_BAD, WRAP_U64 = 2**32 - 1, 2**31, 2**32 + 3
 SEED = 0
 PROFILE_ATTEMPTS = 3
-# The kernel of each route of K2 and of K5 backward, as the profiler names
-# it; the route a call took is read from its trace. FILL is torch's zero
-# fill, which both wrappers launch once a call for their output.
+# The kernel of each route of K1, K2 and K5, as the profiler names it; the
+# route a call took is read from its trace. FILL is torch's zero fill, which
+# the wrappers in ZEROED launch once a call for their output.
 ROUTE_KERNELS = {
+    "csr_spmv": {"half": "csr_spmv_half_kernel",
+                 "warp": "csr_spmv_warp_kernel"},
     "csr_spmv_t": {"global": "csr_spmv_t_kernel",
                    "private": "csr_spmv_t_private_kernel"},
+    "fm_pair_fwd": {"scalar": "fm_pair_fwd_kernel",
+                    "vector": "fm_pair_fwd_vec_kernel"},
     "fm_pair_bwd": {"scalar": "fm_pair_bwd_kernel",
                     "vector": "fm_pair_bwd_vec_kernel"},
 }
+ZEROED = ("csr_spmv_t", "fm_pair_bwd")
 FILL = "FillFunctor"
 SPIN = "spin_kernel"  # torch.cuda._sleep's kernel
 # The launches a call of each wrapper of one route makes, by kernel (see
 # _launched): its kernels, and a zero fill where it zeroes its output.
 KERNEL_CALLS = {
-    "csr_spmv": {"csr_spmv_kernel": 1},
-    "fm_pair_fwd": {"fm_pair_fwd_kernel": 1},
     "ffm_pair_fwd": {"ffm_pair_fwd_kernel": 1},
     "ffm_pair_bwd": {"ffm_pair_bwd_kernel": 1, FILL: 1},
     "pair_sums": {"tile_table_kernel": 1, "pair_rows_fwd_kernel": 1},
@@ -489,9 +499,10 @@ def device_ms(fn, iters: int = 50, calls=None) -> float:
 def route_calls(op, route):
     """The launches a call of the wrapper ``op`` makes by ``route``: one
     of that route's kernel, none of its other routes' kernels, and one
-    zero fill of its output."""
+    zero fill of its output where ``op`` zeroes it (ZEROED)."""
     calls = {k: int(r == route) for r, k in ROUTE_KERNELS[op].items()}
-    calls[FILL] = 1
+    if op in ZEROED:
+        calls[FILL] = 1
     return calls
 
 
@@ -625,6 +636,82 @@ def narrow_edge_batch():
     return off, idx, val, rng.randn(n).astype(np.float32)
 
 
+# Rows about K1's lane counts (16 and 32 lanes a row; 64 and 160 nonzeros a
+# pass) and K5 forward's window (48 nonzeros), the ranking path's 136, and
+# 1000, over a small model.
+ROW_LENGTHS = (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 136, 1000)
+ROW_LENGTH_FEATURES = 500
+
+
+def row_length_batch(bucket_per_row):
+    """A seeded batch of the ROW_LENGTHS rows, each twice, and as many
+    empty rows, in a seeded order, over ROW_LENGTH_FEATURES features; its
+    bucket padded to ``bucket_per_row`` nonzeros a row, so that K1 takes
+    its half route at up to 64 and its warp route past it. The padded tail
+    starts with 2^31 (invalid), which no row may read. The index rule's
+    edges (C6): 2^32-1 (reads F-1) first in the first row of 1000, 2^31
+    (invalid: a NaN row) first in the first row of 136, 2^32+3 (reads 3)
+    first in the first row of 33. Returns (offset, index as u64, value,
+    the rows of invalid indices)."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 13)
+    lens = rng.permutation(np.array(ROW_LENGTHS * 2 + (0,) * 26))
+    off = np.zeros(lens.size + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    nnz = int(off[-1])
+    bucket = bucket_per_row * lens.size
+    require(bucket > nnz, "the row-length batch has no padded tail")
+    idx = np.zeros(bucket, np.uint64)
+    val = np.zeros(bucket, np.float32)
+    idx[:nnz] = rng.randint(0, ROW_LENGTH_FEATURES, nnz)
+    val[:nnz] = rng.rand(nnz) * 2 - 0.5
+    idx[nnz] = WRAP_BAD
+    first_of = {n: int(np.flatnonzero(lens == n)[0]) for n in (1000, 136, 33)}
+    idx[off[first_of[1000]]] = WRAP_LAST
+    idx[off[first_of[136]]] = WRAP_BAD
+    idx[off[first_of[33]]] = WRAP_U64
+    return off, idx, val, [first_of[136]]
+
+
+def _check_k1(name, offset, index, value, w, route, bad_rows):
+    """K1 by ``route`` (read from the call's trace) against its plain
+    version: NaN in the rows of invalid indices only, 0 in empty rows,
+    |err| <= atol + rtol * each row's sum|terms|. Returns (max |err|, max
+    |err| / sum|terms|)."""
+    import torch
+    from dmlc_tpu_torch.ops import csr
+    y = on_route("csr_spmv", route,
+                 lambda: csr.csr_spmv(offset, index, value, w))
+    plain = csr.csr_spmv_plain(offset, index, value, w)
+    scale = csr.csr_spmv_plain(offset, index, value.abs(),
+                               w.abs()).nan_to_num()
+    torch.cuda.synchronize()
+    nan_rows = torch.isnan(y).nonzero().flatten().tolist()
+    require(nan_rows == bad_rows,
+            f"K1 {name} ({route} route): NaN rows {nan_rows}, want "
+            f"{bad_rows}")
+    require(torch.isnan(plain).nonzero().flatten().tolist() == nan_rows,
+            f"K1 {name}: the plain version's NaN rows differ")
+    empty = offset[1:] == offset[:-1]
+    require(bool((y[empty] == 0).all()),
+            f"K1 {name} ({route} route): empty or padded rows are not 0")
+    err = (y - plain).nan_to_num().abs()
+    require(bool((err <= K1_ATOL + K1_RTOL * scale).all()),
+            f"K1 {name} ({route} route) disagrees with its plain version: "
+            f"max |err| {err.max().item()}, max |err| / sum|terms| "
+            f"{(err / scale).nan_to_num().max().item()}")
+    return err.max().item(), (err / scale).nan_to_num().max().item()
+
+
+def _with_bucket(offset, index, value, bucket):
+    """The batch (numpy) with its padded tail grown to ``bucket``
+    nonzeros."""
+    import numpy as np
+    grow = bucket - index.size
+    return (offset, np.concatenate([index, np.zeros(grow, index.dtype)]),
+            np.concatenate([value, np.zeros(grow, value.dtype)]))
+
+
 def check_kernels(first):
     """Phase 3: K1/K2 against their plain versions on the card."""
     import numpy as np
@@ -639,30 +726,22 @@ def check_kernels(first):
     t_off = torch.from_numpy(off).to(cuda)
     t_val = torch.from_numpy(val).to(cuda)
     before = (csr.csr_spmv.launches, csr.csr_spmv_t.launches)
+    # K1's warp route on the same rows: the bucket grown past 64 a row
+    warp_bucket = (csr.K1_HALF_MAX_PER_ROW + 1) * ROW_BUCKET
+    k1_errs = {}
     for dtype in (np.uint32, np.uint64):
         t_idx = torch.from_numpy(idx.astype(dtype)).to(cuda)
-        y = csr.csr_spmv(t_off, t_idx, t_val, w)
-        y_plain = csr.csr_spmv_plain(t_off, t_idx, t_val, w)
+        name = np.dtype(dtype).name
+        k1_errs[name] = _check_k1(name, t_off, t_idx, t_val, w, "half",
+                                  bad_rows)
+        _check_k1(f"{name}, bucket of {warp_bucket}", *(
+            torch.from_numpy(a).to(cuda) for a in _with_bucket(
+                off, idx.astype(dtype), val, warp_bucket)), w, "warp",
+            bad_rows)
         gw = on_route("csr_spmv_t", "global", lambda: csr.csr_spmv_t(
             t_off, t_idx, t_val, g, NUM_FEATURES))
         gw_plain = csr.csr_spmv_t_plain(t_off, t_idx, t_val, g, NUM_FEATURES)
         torch.cuda.synchronize()
-        name = np.dtype(dtype).name
-        nan_rows = torch.isnan(y).nonzero().flatten().tolist()
-        require(nan_rows == bad_rows,
-                f"K1 {name}: NaN rows {nan_rows}, want {bad_rows}")
-        require(torch.isnan(y_plain).nonzero().flatten().tolist() == nan_rows,
-                f"K1 {name}: plain version's NaN rows differ")
-        require(bool((y[[3, 7]] == 0).all()) and
-                bool((y[ROW_BUCKET - 100:] == 0).all()),
-                f"K1 {name}: empty or padded rows are not 0")
-        scale = csr.csr_spmv_plain(t_off, t_idx, t_val.abs(), w.abs())
-        err = (y - y_plain).nan_to_num()
-        require(bool((err.abs() <= K1_ATOL + K1_RTOL
-                      * scale.nan_to_num()).all()),
-                f"K1 {name} disagrees with its plain version: max |err| "
-                f"{err.abs().max().item()}, max |err| / sum|terms| "
-                f"{(err.abs() / scale).nan_to_num().max().item()}")
         require(torch.isfinite(gw).all().item(),
                 f"K2 {name}: non-finite gradient")
         require(torch.allclose(gw, gw_plain, rtol=K2_RTOL, atol=K2_ATOL),
@@ -671,13 +750,13 @@ def check_kernels(first):
         require(gw[NUM_FEATURES - 1].item() != 0.0,
                 f"K2 {name}: the index at F-1 got no gradient")
         if dtype is np.uint32:
-            k1_err = err.abs().max().item()
-            k1_rel = (err.abs() / scale).nan_to_num().max().item()
             k2_err = (gw - gw_plain).abs().max().item()
+    k1_err, k1_rel = k1_errs["uint32"]
     log(f"kernels agree with their plain versions (u32 and u64 index; "
         f"indices 2^32-1, 2^31 and 2^32+3 among the edge cases): "
-        f"K1 max |err| {k1_err:.3g}, max |err| / sum|terms| {k1_rel:.3g} "
-        f"(rtol {K1_RTOL} of sum|terms|, atol {K1_ATOL}), "
+        f"K1 (half route; the warp route too, on a bucket of "
+        f"{warp_bucket}) max |err| {k1_err:.3g}, max |err| / sum|terms| "
+        f"{k1_rel:.3g} (rtol {K1_RTOL} of sum|terms|, atol {K1_ATOL}), "
         f"K2 (global route) max |err| {k2_err:.3g} (rtol {K2_RTOL}, atol "
         f"{K2_ATOL})")
     n_off, n_idx, n_val, n_g = narrow_edge_batch()
@@ -696,6 +775,23 @@ def check_kernels(first):
         f"invalid index in the padded tail): max |err| u32 "
         f"{narrow_err['uint32']:.3g}, u64 {narrow_err['uint64']:.3g} (rtol "
         f"{K2_RTOL} of sum|terms|, atol {K2_ATOL})")
+    w_small = torch.from_numpy(
+        rng.randn(ROW_LENGTH_FEATURES).astype(np.float32)).to(cuda)
+    lengths_err = {}
+    for route, per_row in (("half", csr.K1_HALF_MAX_PER_ROW),
+                           ("warp", csr.K1_HALF_MAX_PER_ROW + 1)):
+        r_off, r_idx, r_val, r_bad = row_length_batch(per_row)
+        for dtype in (np.uint32, np.uint64):
+            lengths_err[route, np.dtype(dtype).name] = _check_k1(
+                f"rows of {ROW_LENGTHS} nonzeros", *(
+                    torch.from_numpy(a).to(cuda)
+                    for a in (r_off, r_idx.astype(dtype), r_val)),
+                w_small, route, r_bad)[0]
+    log(f"K1 agrees with its plain version on rows of {ROW_LENGTHS} "
+        f"nonzeros through both routes, u32 and u64, with indices 2^32-1, "
+        f"2^31 and 2^32+3 and an invalid index in the padded tail: max "
+        f"|err| " + ", ".join(f"{r} {d} {e:.3g}"
+                              for (r, d), e in lengths_err.items()))
 
     # Timing, at the main path's batch as it came from the parser.
     b_off = torch.from_numpy(first["offset"]).to(cuda)
@@ -713,7 +809,7 @@ def check_kernels(first):
     def k2():
         return csr.csr_spmv_t(b_off, b_idx, b_val, g, NUM_FEATURES)
 
-    k1_ms = device_ms(k1, calls=KERNEL_CALLS["csr_spmv"])
+    k1_ms = device_ms(k1, calls=route_calls("csr_spmv", "half"))
     k1_call = call_ms(k1)
     k1_plain = device_ms(lambda: csr.csr_spmv_plain(b_off, b_idx, b_val, w))
     k2_fill, k2_kernel = _fill_and_kernel(k2, "csr_spmv_t", "global")
@@ -827,7 +923,7 @@ def check_factor_kernels(first):
     and u64 index; then each timed at the path's first batch."""
     import numpy as np
     import torch
-    from dmlc_tpu_torch.ops import fm
+    from dmlc_tpu_torch.ops import csr, fm
     from dmlc_tpu_torch.ops.index import clip_field, wrap_index
 
     cuda = torch.device("cuda")
@@ -864,7 +960,8 @@ def check_factor_kernels(first):
         args = (t_off, t_idx, t_val)
         abs_args = (t_off, t_idx, t_val.abs())
         # K5 forward and backward
-        pair, s = fm.fm_pair_fwd(*args, V5)
+        pair, s = on_route("fm_pair_fwd", "vector",
+                           lambda: fm.fm_pair_fwd(*args, V5))
         pair_p, s_p = fm.fm_pair_fwd_plain(*args, V5)
         pair_a, s_a = fm.fm_pair_fwd_plain(*abs_args, V5.abs())
         torch.cuda.synchronize()
@@ -972,6 +1069,34 @@ def check_factor_kernels(first):
     log(f"fm_pair_bwd at the libfm path's batch (vector route): kernel "
         f"{k5_kernel * 1e3:.2f} us, zero fill {k5_fill * 1e3:.2f} us on the "
         "device")
+    # K5 forward's scalar route at the same batch: V viewed one float off
+    # its allocation
+    V5_off = torch.empty(V5.numel() + 1, device=cuda)[1:].view(V5.shape)
+    V5_off.copy_(V5)
+    pair_off, _ = on_route("fm_pair_fwd", "scalar",
+                           lambda: fm.fm_pair_fwd(*args, V5_off))
+    pair_vec, _ = fm.fm_pair_fwd(*args, V5)
+    torch.cuda.synchronize()
+    _, s_abs_b = fm.fm_pair_fwd_plain(*args, V5.abs())
+    require(bool(((pair_off - pair_vec).abs() <= PAIR_ATOL + PAIR_RTOL
+                  * (s_abs_b * s_abs_b).sum(-1)).all()),
+            "fm_pair_fwd's scalar route disagrees with its vector route at "
+            "the path's batch")
+    k5_scalar = device_ms(lambda: fm.fm_pair_fwd(*args, V5_off),
+                          calls=route_calls("fm_pair_fwd", "scalar"))
+    del V5_off
+    log(f"fm_pair_fwd at the libfm path's batch by its scalar route (V one "
+        f"float off its allocation): {k5_scalar * 1e3:.2f} us on the device")
+    # K1 at this batch (its half route): held to its plain version, timed
+    w1 = torch.randn(NUM_FEATURES, generator=gen, device=cuda)
+    k1_err = _check_k1("at the libfm path's batch", *args, w1, "half", [])
+    k1_bound, k1_by = bound_ms(csr_bytes + distinct * 4 + n * 4, 2 * nnz)
+    k1_ms = device_ms(lambda: csr.csr_spmv(*args, w1),
+                      calls=route_calls("csr_spmv", "half"))
+    log(f"csr_spmv at the libfm path's batch (half route; max |err| "
+        f"{k1_err[0]:.3g}): {k1_ms * 1e3:.2f} us on the device, bound "
+        f"{k1_bound * 1e3:.2f} us ({k1_by})")
+    del w1
     log(f"factor kernels timed at the libfm path's first batch: {n} rows, "
         f"{nnz} nonzeros of {LIBFM_NNZ_BUCKET}, {distinct} distinct "
         f"features, {pairs_needed} (row, field, field) pairs present")
@@ -980,6 +1105,7 @@ def check_factor_kernels(first):
                 "ffm_pair_fwd": "dmlc_tpu/models/fm.py:117",
                 "ffm_pair_bwd": "dmlc_tpu/models/fm.py:117"}
     calls = dict(KERNEL_CALLS,
+                 fm_pair_fwd=route_calls("fm_pair_fwd", "vector"),
                  fm_pair_bwd=route_calls("fm_pair_bwd", "vector"))
     rows = []
     for name, (kernel, plain, nbytes, ops) in work.items():
@@ -997,6 +1123,62 @@ def check_factor_kernels(first):
     del V6, a1, a2
     torch.cuda.empty_cache()
     return rows
+
+
+def _check_k5_row_lengths():
+    """K5 forward against its plain version on the row-length batch (see
+    row_length_batch) at 1, 3, 4, 8, 12, 32, 33 and 40 factors, u32 and
+    u64 index: pair and s, NaN in the invalid index's row only, 0 in empty
+    rows, the route read from the trace (vector where K % 4 == 0, else
+    scalar), and at K % 4 == 0 also on a V viewed one float off its
+    allocation (scalar). Returns what it checked."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.ops import fm
+    cuda = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 17)
+    off, idx, val, bad = row_length_batch(64)
+    t_off, t_val = (torch.from_numpy(a).to(cuda) for a in (off, val))
+    empty = (t_off[1:] == t_off[:-1]).nonzero().flatten().tolist()
+    worst = 0.0
+    for K in (1, 3, 4, 8, 12, 32, 33, 40):
+        V = torch.from_numpy((0.3 * rng.randn(ROW_LENGTH_FEATURES, K))
+                             .astype(np.float32)).to(cuda)
+        views = [("vector" if K % 4 == 0 else "scalar", V)]
+        if K % 4 == 0:
+            V_off = torch.empty(V.numel() + 1, device=cuda)[1:].view(V.shape)
+            V_off.copy_(V)
+            views.append(("scalar", V_off))
+        for dtype in (np.uint32, np.uint64):
+            t_idx = torch.from_numpy(idx.astype(dtype)).to(cuda)
+            args = (t_off, t_idx, t_val)
+            pair_p, s_p = fm.fm_pair_fwd_plain(*args, V)
+            pair_a, s_a = fm.fm_pair_fwd_plain(t_off, t_idx, t_val.abs(),
+                                               V.abs())
+            scale = ((s_a * s_a).sum(-1) - pair_a).nan_to_num()
+            for route, Vr in views:
+                what = (f"K5 forward with {K} factors, rows of "
+                        f"{ROW_LENGTHS} nonzeros, {np.dtype(dtype).name}, "
+                        f"{route} route")
+                pair, s = on_route("fm_pair_fwd", route,
+                                   lambda: fm.fm_pair_fwd(*args, Vr))
+                torch.cuda.synchronize()
+                require(torch.isnan(pair).nonzero().flatten().tolist() == bad
+                        and torch.equal(torch.isnan(s), torch.isnan(s_p)),
+                        f"{what}: NaN rows differ from {bad}")
+                require(bool((pair[empty] == 0).all()),
+                        f"{what}: empty rows are not 0")
+                err = (pair - pair_p).nan_to_num().abs()
+                s_err = (s - s_p).nan_to_num().abs()
+                require(bool((err <= PAIR_ATOL + PAIR_RTOL * scale).all())
+                        and bool((s_err <= PAIR_ATOL + PAIR_RTOL
+                                  * s_a.nan_to_num()).all()),
+                        f"{what} disagrees with its plain version: max "
+                        f"|err| {err.max().item()}, s {s_err.max().item()}")
+                worst = max(worst, (err / scale).nan_to_num().max().item())
+    return (f"K5 forward on rows of {ROW_LENGTHS} nonzeros at 1, 3, 4, 8, "
+            f"12, 32, 33 and 40 factors, u32 and u64, V aligned and one "
+            f"float off (max |err| / sum|terms| {worst:.3g})")
 
 
 def check_factor_shapes():
@@ -1048,11 +1230,12 @@ def check_factor_shapes():
         off, idx, val, fld, V, g = batch(300, 500, fields, factors, max_nnz)
         csr_cols, abs_cols = (off, idx, val), (off, idx, val.abs())
         if fields is None:
-            pair, s = fm.fm_pair_fwd(*csr_cols, V)
+            route = "vector" if factors % 4 == 0 else "scalar"
+            pair, s = on_route("fm_pair_fwd", route,
+                               lambda: fm.fm_pair_fwd(*csr_cols, V))
             plain, _ = fm.fm_pair_fwd_plain(*csr_cols, V)
             pair_a, s_a = fm.fm_pair_fwd_plain(*abs_cols, V.abs())
             scale = (s_a * s_a).sum(-1) - pair_a
-            route = "vector" if factors % 4 == 0 else "scalar"
             gv = on_route("fm_pair_bwd", route,
                           lambda: fm.fm_pair_bwd(*csr_cols, V, s, g))
             gv_p = fm.fm_pair_bwd_plain(*csr_cols, V, s, g)
@@ -1078,12 +1261,13 @@ def check_factor_shapes():
                 f"max |err| {(gv - gv_p).abs().max().item()}")
         done.append(what)
         del pair, plain, gv, gv_p, scale
-    # V as a view one float past the allocator's alignment: K5 backward
-    # must take its scalar route, and agree
+    # V as a view one float past the allocator's alignment: K5 forward and
+    # backward must take their scalar routes, and agree
     off, idx, val, _, V, g = batch(300, 500, None, FM_FACTORS, 30)
     V_off = torch.empty(V.numel() + 1, device=cuda)[1:].view(V.shape)
     V_off.copy_(V)
-    _, s = fm.fm_pair_fwd(off, idx, val, V_off)
+    _, s = on_route("fm_pair_fwd", "scalar",
+                    lambda: fm.fm_pair_fwd(off, idx, val, V_off))
     gv = on_route("fm_pair_bwd", "scalar",
                   lambda: fm.fm_pair_bwd(off, idx, val, V_off, s, g))
     gv_p = fm.fm_pair_bwd_plain(off, idx, val, V_off, s, g)
@@ -1092,8 +1276,9 @@ def check_factor_shapes():
             f"K5 backward on a misaligned V disagrees with its plain "
             f"version: max |err| {(gv - gv_p).abs().max().item()}")
     done.append(f"K5 with {FM_FACTORS} factors, V misaligned (scalar "
-                "backward)")
+                "forward and backward)")
     del V_off, gv, gv_p
+    done.append(_check_k5_row_lengths())
     torch.cuda.empty_cache()
     log(f"factor kernels agree with their plain versions at other shapes "
         f"({'; '.join(done)}; u32 index, {most} bytes of shared memory a "
@@ -1931,6 +2116,17 @@ def check_ranking_kernels(first):
         f"the device (kernel {k2_kernel * 1e3:.2f} us, zero fill "
         f"{k2_fill * 1e3:.2f} us), plain {k2_plain * 1e3:.2f} us, library "
         f"A.t() @ g {k2_lib}, bound {k2_bound * 1e3:.2f} us ({k2_by})")
+    # K1 on this batch: 136 nonzeros a row, its warp route
+    k1_err = _check_k1("at the ranking batch", b["offset"], b["index"],
+                       b["value"], w, "warp", [])
+    k1_bound, k1_by = bound_ms((n + 1) * 8 + nnz * (4 + 4) + distinct * 4
+                               + n * 4, 2 * nnz)
+    k1_ms = device_ms(lambda: csr.csr_spmv(b["offset"], b["index"],
+                                           b["value"], w),
+                      calls=route_calls("csr_spmv", "warp"))
+    log(f"csr_spmv at the ranking batch ({RANK_NUM_FEATURES} weights, warp "
+        f"route; max |err| {k1_err[0]:.3g}): {k1_ms * 1e3:.2f} us on the "
+        f"device, bound {k1_bound * 1e3:.2f} us ({k1_by})")
     rows = []
     for name, (kernel, plain, nbytes, ops, replaces, source, lib,
                err) in work.items():

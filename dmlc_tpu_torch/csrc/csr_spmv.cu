@@ -76,35 +76,91 @@ __device__ __forceinline__ void row_range(const int64_t* offset, int64_t row,
   *hi = b < *lo ? *lo : (b > nnz ? nnz : b);
 }
 
-template <typename IndexT>
-__global__ void __launch_bounds__(kThreads)
-    csr_spmv_kernel(const int64_t* __restrict__ offset,
-                    const IndexT* __restrict__ index,
-                    const float* __restrict__ value,
-                    const float* __restrict__ w, int64_t num_rows,
-                    int64_t nnz, int64_t num_features, float* __restrict__ y) {
-  const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (row >= num_rows) return;  // uniform across the warp
-  int64_t lo, hi;
-  row_range(offset, row, nnz, &lo, &hi);
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+
+// The rows of nonzeros offset[row] .. offset[row + 1], clamped into [0,
+// nnz], as 32-bit offsets (the C entry refuses nnz >= 2^31).
+__device__ __forceinline__ void row_range32(const int64_t* offset, int row,
+                                            int nnz, int* lo, int* hi) {
+  const int64_t a = offset[row];
+  const int64_t b = offset[row + 1];
+  *lo = static_cast<int>(a < 0 ? 0 : (a > nnz ? nnz : a));
+  *hi = static_cast<int>(b < *lo ? *lo : (b > nnz ? nnz : b));
+}
+
+// K1: kLanes lanes a row (16: two rows a warp; 32: one), each taking the
+// row's nonzeros lane, lane + kLanes, ... kUnroll at a time: first every
+// index and value load, then every gather of w, then the adds, so that a
+// row is three dependent loads deep (offset, index, w). An invalid index
+// gathers NaN, which the sum carries into the row (jnp.take's fill). The
+// lanes of a row past num_rows take no nonzero and store nothing, but stay
+// for the shuffles, which run within each row's kLanes lanes.
+template <typename IndexT, int kLanes, int kUnroll>
+__device__ __forceinline__ void spmv_rows(const int64_t* __restrict__ offset,
+                                          const IndexT* __restrict__ index,
+                                          const float* __restrict__ value,
+                                          const float* __restrict__ w,
+                                          int num_rows, int nnz,
+                                          int64_t num_features,
+                                          float* __restrict__ y) {
+  const int row = blockIdx.x * (kThreads / kLanes) + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  int lo = 0, hi = 0;
+  if (row < num_rows) row_range32(offset, row, nnz, &lo, &hi);
+  const unsigned len = static_cast<unsigned>(hi - lo);
   float acc = 0.0f;
-  int bad = 0;
-  for (int64_t k = lo + lane; k < hi; k += kWarp) {
-    int64_t j;
-    if (dmlc_index::wrap(index[k], num_features, &j)) {
-      acc = fmaf(value[k], __ldg(w + j), acc);
-    } else {
-      bad = 1;
+  for (unsigned t0 = lane; t0 < len; t0 += kLanes * kUnroll) {
+    IndexT raw[kUnroll];
+    float x[kUnroll], v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned t = t0 + u * kLanes;
+      raw[u] = t < len ? index[lo + t] : IndexT(0);
+      x[u] = t < len ? value[lo + t] : 0.0f;
     }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      int64_t j;
+      const bool ok = dmlc_index::wrap(raw[u], num_features, &j);
+      v[u] = t0 + u * kLanes >= len ? 0.0f : (ok ? __ldg(w + j) : nan_f());
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc = fmaf(x[u], v[u], acc);
   }
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) {
-    acc += __shfl_down_sync(kFull, acc, o);
+  for (int o = kLanes / 2; o > 0; o >>= 1) {
+    acc += __shfl_down_sync(kFull, acc, o, kLanes);
   }
-  bad = __any_sync(kFull, bad);
-  if (lane == 0) y[row] = bad ? __int_as_float(0x7fc00000) : acc;  // NaN
+  if (lane == 0 && row < num_rows) y[row] = acc;
+}
+
+// K1's two routes, one kernel each so that a trace names the route: the
+// half route (kHalfLanes lanes a row) where the wrapper's rows are short
+// (ops/csr.py csr_spmv_route), the warp route (a warp a row) where they
+// are long.
+constexpr int kHalfLanes = 16, kHalfUnroll = 4;
+constexpr int kWarpLanes = 32, kWarpUnroll = 5;
+
+template <typename IndexT>
+__global__ void __launch_bounds__(kThreads)
+    csr_spmv_half_kernel(const int64_t* __restrict__ offset,
+                         const IndexT* __restrict__ index,
+                         const float* __restrict__ value,
+                         const float* __restrict__ w, int num_rows, int nnz,
+                         int64_t num_features, float* __restrict__ y) {
+  spmv_rows<IndexT, kHalfLanes, kHalfUnroll>(offset, index, value, w,
+                                             num_rows, nnz, num_features, y);
+}
+
+template <typename IndexT>
+__global__ void __launch_bounds__(kThreads)
+    csr_spmv_warp_kernel(const int64_t* __restrict__ offset,
+                         const IndexT* __restrict__ index,
+                         const float* __restrict__ value,
+                         const float* __restrict__ w, int num_rows, int nnz,
+                         int64_t num_features, float* __restrict__ y) {
+  spmv_rows<IndexT, kWarpLanes, kWarpUnroll>(offset, index, value, w,
+                                             num_rows, nnz, num_features, y);
 }
 
 template <typename IndexT>
@@ -203,34 +259,59 @@ unsigned grid_for(int64_t num_rows) {
                                rows_per_block);
 }
 
+template <typename IndexT>
+cudaError_t spmv(int lanes, const int64_t* offset, const void* index,
+                 const float* value, const float* w, int64_t num_rows,
+                 int64_t nnz, int64_t num_features, float* y,
+                 cudaStream_t s) {
+  const auto* idx = static_cast<const IndexT*>(index);
+  const int rows = static_cast<int>(num_rows);
+  const int n = static_cast<int>(nnz);
+  if (lanes == kHalfLanes) {
+    constexpr int64_t per_block = kThreads / kHalfLanes;
+    csr_spmv_half_kernel<IndexT>
+        <<<static_cast<unsigned>((num_rows + per_block - 1) / per_block),
+           kThreads, 0, s>>>(offset, idx, value, w, rows, n, num_features,
+                             y);
+  } else if (lanes == kWarpLanes) {
+    csr_spmv_warp_kernel<IndexT><<<grid_for(num_rows), kThreads, 0, s>>>(
+        offset, idx, value, w, rows, n, num_features, y);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // y[num_rows] = CSR(offset[num_rows+1], index[nnz], value[nnz]) . w
-// index_bytes: 4 (u32 or int32) or 8 (u64). Returns a cudaError_t.
+// index_bytes: 4 (u32 or int32) or 8 (u64); lanes: 16 or 32 lanes a row.
+// Returns a cudaError_t: cudaErrorInvalidValue for another index width or
+// lane count, or where nnz or num_rows reaches 2^31.
 int dmlc_csr_spmv(const void* offset, const void* index, int index_bytes,
                   const void* value, const void* w, int64_t num_rows,
-                  int64_t nnz, int64_t num_features, void* y,
+                  int64_t nnz, int64_t num_features, void* y, int lanes,
                   void* stream) {
   if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (nnz > INT32_MAX || num_rows >= INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* off = static_cast<const int64_t*>(offset);
   const auto* val = static_cast<const float*>(value);
   const auto* wv = static_cast<const float*>(w);
   auto* out = static_cast<float*>(y);
+  cudaError_t err = cudaErrorInvalidValue;
   if (index_bytes == 4) {
-    csr_spmv_kernel<uint32_t><<<grid_for(num_rows), kThreads, 0, s>>>(
-        off, static_cast<const uint32_t*>(index), val, wv, num_rows, nnz,
-        num_features, out);
+    err = spmv<uint32_t>(lanes, off, index, val, wv, num_rows, nnz,
+                         num_features, out, s);
   } else if (index_bytes == 8) {
-    csr_spmv_kernel<uint64_t><<<grid_for(num_rows), kThreads, 0, s>>>(
-        off, static_cast<const uint64_t*>(index), val, wv, num_rows, nnz,
-        num_features, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = spmv<uint64_t>(lanes, off, index, val, wv, num_rows, nnz,
+                         num_features, out, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // The most shared memory, static and dynamic together, that a block of any

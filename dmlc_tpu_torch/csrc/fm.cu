@@ -123,51 +123,177 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------- K5
 
-// kp: lanes per nonzero (a power of two <= 32); groups = 32 / kp nonzeros
-// are read at once.
-template <typename IndexT>
+// The nonzeros of a row as 32-bit offsets (the C entry refuses nnz >= 2^31).
+__device__ __forceinline__ void row_range32(const int64_t* offset, int row,
+                                            int nnz, int* lo, int* hi) {
+  const int64_t a = offset[row];
+  const int64_t b = offset[row + 1];
+  *lo = static_cast<int>(a < 0 ? 0 : (a > nnz ? nnz : a));
+  *hi = static_cast<int>(b < *lo ? *lo : (b > nnz ? nnz : b));
+}
+
+// kW factors of a row of V at p (kW = 4: one 16-byte load).
+template <int kW>
+__device__ __forceinline__ void load_factors(const float* p, float (&v)[kW]) {
+  if constexpr (kW == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) v[i] = __ldg(p + i);
+  }
+}
+
+template <int kW>
+__device__ __forceinline__ void store_factors(float* p, const float (&v)[kW]) {
+  if constexpr (kW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) p[i] = v[i];
+  }
+}
+
+// K5 forward: kFwdRowLanes lanes a row (two rows a warp) and kWindow of
+// its nonzeros at a time, kWindow / kFwdRowLanes loaded by each lane.
+constexpr int kFwdRowLanes = 16;
+constexpr int kWindow = 48;
+
+// kCP lanes a nonzero, each owning kW factors (a "column") of the K / kW
+// columns: c = c0 + lane % kCP for c0 = 0, kCP, ... So kFwdRowLanes / kCP
+// nonzeros are gathered at once, a step. For each window a lane loads index
+// and value of its own kWindow / kFwdRowLanes nonzeros and wraps each index
+// once into J = j * K, the row's offset in V (-1 where the index is
+// invalid, -2 past the row); then, step by step, the lanes of a nonzero
+// take J and x by shuffle from the lane that loaded them and issue the
+// gather of their columns of V[j, :]: every gather of the window is in
+// flight before the first add, and a row of up to kWindow nonzeros is three
+// loads deep (offset, index, V). J is an int where V holds fewer than 2^31
+// floats (one shuffle, not two). Each lane sums its column's s and its
+// squares into one sq; the groups are folded by xor shuffles (every lane
+// then holds its column's s) and the pair is summed over the kCP lanes of
+// a column chunk. A row of one nonzero has a pair of exactly 0: its
+// sum_f s_f^2 and sq add the same rounded products in the same order.
+template <typename IndexT, int kW, int kCP, typename J>
+__device__ __forceinline__ void pair_fwd_rows(
+    const int64_t* __restrict__ offset, const IndexT* __restrict__ index,
+    const float* __restrict__ value, const float* __restrict__ V,
+    int num_rows, int nnz, int64_t num_features, int K,
+    float* __restrict__ pair, float* __restrict__ s_out) {
+  constexpr int kGroups = kFwdRowLanes / kCP;  // nonzeros a step
+  constexpr int kLoads = kWindow / kFwdRowLanes;
+  constexpr int kSteps = kWindow / kGroups;
+  static_assert(kLoads * kFwdRowLanes == kWindow && kSteps * kGroups == kWindow,
+                "a window is whole loads and whole steps");
+  const int row = (blockIdx.x * kWarpThreads + threadIdx.x) / kFwdRowLanes;
+  const int lane = threadIdx.x % kFwdRowLanes;
+  const int grp = lane / kCP;
+  int lo = 0, hi = 0;
+  if (row < num_rows) row_range32(offset, row, nnz, &lo, &hi);
+  const unsigned len = static_cast<unsigned>(hi - lo);
+  // both rows of a warp run as many windows as the longer one
+  const unsigned most = max(len, __shfl_xor_sync(kFull, len, kFwdRowLanes));
+  const int cols = K / kW;
+  float total = 0.0f;
+  for (int c0 = 0; c0 < cols; c0 += kCP) {
+    const int c = c0 + lane % kCP;
+    const bool has_c = c < cols;
+    float s[kW] = {}, sq = 0.0f;
+    for (unsigned t0 = 0; t0 < most; t0 += kWindow) {
+      J jk[kLoads];
+      float xs[kLoads];
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        const unsigned t = t0 + i * kFwdRowLanes + lane;
+        jk[i] = -2;
+        xs[i] = 0.0f;
+        if (t < len) {
+          int64_t j;
+          const bool ok = dmlc_index::wrap(index[lo + t], num_features, &j);
+          jk[i] = ok ? static_cast<J>(j * K) : J(-1);
+          xs[i] = value[lo + t];
+        }
+      }
+      float v[kSteps][kW], x[kSteps];
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        // nonzero t0 + st * kGroups + grp, loaded by lane (st % kCP) *
+        // kGroups + grp of this row in its load st / kCP
+        const int src = (st % kCP) * kGroups + grp;
+        const J at = __shfl_sync(kFull, jk[st / kCP], src, kFwdRowLanes);
+        x[st] = __shfl_sync(kFull, xs[st / kCP], src, kFwdRowLanes);
+        if (at >= 0 && has_c) {
+          load_factors<kW>(V + at + c * kW, v[st]);
+        } else {
+          const float fill = at == -1 && has_c ? nan_f() : 0.0f;
+#pragma unroll
+          for (int i = 0; i < kW; ++i) v[st][i] = fill;
+        }
+      }
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+#pragma unroll
+        for (int i = 0; i < kW; ++i) {
+          const float vx = __fmul_rn(x[st], v[st][i]);
+          s[i] += vx;
+          sq += __fmul_rn(vx, vx);
+        }
+      }
+    }
+    // fold the nonzero groups: lanes of one column differ in bits >= kCP
+#pragma unroll
+    for (int o = kCP; o < kFwdRowLanes; o <<= 1) {
+#pragma unroll
+      for (int i = 0; i < kW; ++i) s[i] += __shfl_xor_sync(kFull, s[i], o);
+      sq += __shfl_xor_sync(kFull, sq, o);
+    }
+    float part = 0.0f;
+    if (has_c) {
+      if (grp == 0 && row < num_rows) {
+        store_factors<kW>(s_out + static_cast<int64_t>(row) * K + c * kW, s);
+      }
+      float ss = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kW; ++i) ss += __fmul_rn(s[i], s[i]);
+      part = ss - sq;
+    }
+    // the column chunk's pair: a sum over the kCP lanes of a group
+#pragma unroll
+    for (int o = 1; o < kCP; o <<= 1) part += __shfl_xor_sync(kFull, part, o);
+    total += part;
+  }
+  if (lane == 0 && row < num_rows) pair[row] = 0.5f * total;
+}
+
+// K5 forward's two routes, one kernel each so that a trace names the
+// route: scalar (one factor a lane) and vector (four; K % 4 == 0 and V and
+// s 16-byte aligned), picked by the wrapper (ops/fm.py fm_route).
+template <typename IndexT, int kCP, typename J>
 __global__ void __launch_bounds__(kWarpThreads)
     fm_pair_fwd_kernel(const int64_t* __restrict__ offset,
                        const IndexT* __restrict__ index,
                        const float* __restrict__ value,
-                       const float* __restrict__ V, int64_t num_rows,
-                       int64_t nnz, int64_t num_features, int64_t K, int kp,
-                       float* __restrict__ pair, float* __restrict__ s_out) {
-  const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * kWarpThreads + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (row >= num_rows) return;  // uniform across the warp
-  int64_t lo, hi;
-  row_range(offset, row, nnz, &lo, &hi);
-  const int groups = kWarp / kp;
-  const int grp = lane / kp;
-  float total = 0.0f;
-  for (int64_t f0 = 0; f0 < K; f0 += kp) {
-    const int64_t f = f0 + lane % kp;
-    const bool has_f = f < K;
-    float s = 0.0f, sq = 0.0f;
-    for (int64_t k = lo + grp; k < hi; k += groups) {
-      int64_t j;
-      const bool ok = dmlc_index::wrap(index[k], num_features, &j);
-      float v = 0.0f;
-      if (has_f) v = ok ? __ldg(V + j * K + f) : nan_f();
-      const float vx = __fmul_rn(value[k], v);
-      s += vx;
-      sq += __fmul_rn(vx, vx);
-    }
-    // fold the nonzero groups: lanes of one factor differ in bits >= kp
-    for (int o = kp; o < kWarp; o <<= 1) {
-      s += __shfl_xor_sync(kFull, s, o);
-      sq += __shfl_xor_sync(kFull, sq, o);
-    }
-    float part = 0.0f;
-    if (grp == 0 && has_f) {
-      s_out[row * K + f] = s;
-      part = __fmul_rn(s, s) - sq;
-    }
-    total += warp_sum(part);
-  }
-  if (lane == 0) pair[row] = 0.5f * total;
+                       const float* __restrict__ V, int num_rows, int nnz,
+                       int64_t num_features, int K, float* __restrict__ pair,
+                       float* __restrict__ s_out) {
+  pair_fwd_rows<IndexT, 1, kCP, J>(offset, index, value, V, num_rows, nnz,
+                                   num_features, K, pair, s_out);
+}
+
+template <typename IndexT, int kCP, typename J>
+__global__ void __launch_bounds__(kWarpThreads)
+    fm_pair_fwd_vec_kernel(const int64_t* __restrict__ offset,
+                           const IndexT* __restrict__ index,
+                           const float* __restrict__ value,
+                           const float* __restrict__ V, int num_rows,
+                           int nnz, int64_t num_features, int K,
+                           float* __restrict__ pair,
+                           float* __restrict__ s_out) {
+  pair_fwd_rows<IndexT, 4, kCP, J>(offset, index, value, V, num_rows, nnz,
+                                   num_features, K, pair, s_out);
 }
 
 template <typename IndexT>
@@ -250,6 +376,70 @@ int lanes_per_nonzero(int64_t K) {
   int kp = 1;
   while (kp < K && kp < kWarp) kp <<= 1;
   return kp;
+}
+
+// K5 forward: at most kMaxCP lanes a nonzero; wider rows of V are taken in
+// chunks of kMaxCP columns.
+constexpr int kMaxCP = 8;
+
+template <typename IndexT, int kW, int kCP, typename J>
+void fm_fwd_launch(unsigned grid, const int64_t* offset, const IndexT* index,
+                   const float* value, const float* V, int rows, int nnz,
+                   int64_t num_features, int K, float* pair, float* s,
+                   cudaStream_t st) {
+  if constexpr (kW == 4) {
+    fm_pair_fwd_vec_kernel<IndexT, kCP, J><<<grid, kWarpThreads, 0, st>>>(
+        offset, index, value, V, rows, nnz, num_features, K, pair, s);
+  } else {
+    fm_pair_fwd_kernel<IndexT, kCP, J><<<grid, kWarpThreads, 0, st>>>(
+        offset, index, value, V, rows, nnz, num_features, K, pair, s);
+  }
+}
+
+// J: an int where V holds fewer than 2^31 floats.
+template <typename IndexT, int kW, int kCP>
+cudaError_t fm_fwd(const int64_t* offset, const void* index,
+                   const float* value, const float* V, int64_t num_rows,
+                   int64_t nnz, int64_t num_features, int64_t K, float* pair,
+                   float* s, cudaStream_t st) {
+  constexpr int64_t per_block = kWarpThreads / kFwdRowLanes;
+  const unsigned grid =
+      static_cast<unsigned>((num_rows + per_block - 1) / per_block);
+  const auto* idx = static_cast<const IndexT*>(index);
+  const int rows = static_cast<int>(num_rows), n = static_cast<int>(nnz);
+  const int k = static_cast<int>(K);
+  if (num_features * K <= INT32_MAX) {
+    fm_fwd_launch<IndexT, kW, kCP, int>(grid, offset, idx, value, V, rows, n,
+                                        num_features, k, pair, s, st);
+  } else {
+    fm_fwd_launch<IndexT, kW, kCP, int64_t>(grid, offset, idx, value, V, rows,
+                                            n, num_features, k, pair, s, st);
+  }
+  return cudaGetLastError();
+}
+
+// The kCP lanes a nonzero for K / kW columns: the least power of two that
+// covers them, at most kMaxCP.
+template <typename IndexT, int kW>
+cudaError_t fm_fwd_cols(const int64_t* offset, const void* index,
+                        const float* value, const float* V, int64_t num_rows,
+                        int64_t nnz, int64_t num_features, int64_t K,
+                        float* pair, float* s, cudaStream_t st) {
+  const int64_t cols = K / kW;
+  if (cols <= 1) {
+    return fm_fwd<IndexT, kW, 1>(offset, index, value, V, num_rows, nnz,
+                                 num_features, K, pair, s, st);
+  }
+  if (cols <= 2) {
+    return fm_fwd<IndexT, kW, 2>(offset, index, value, V, num_rows, nnz,
+                                 num_features, K, pair, s, st);
+  }
+  if (cols <= 4) {
+    return fm_fwd<IndexT, kW, 4>(offset, index, value, V, num_rows, nnz,
+                                 num_features, K, pair, s, st);
+  }
+  return fm_fwd<IndexT, kW, kMaxCP>(offset, index, value, V, num_rows, nnz,
+                                    num_features, K, pair, s, st);
 }
 
 unsigned warp_grid(int64_t num_rows) {
@@ -604,30 +794,42 @@ extern "C" {
 
 // pair[num_rows], s[num_rows, K] = the FM pair term of CSR(offset, index,
 // value) over V[num_features, K]. index_bytes: 4 (u32 or int32) or 8 (u64).
+// vector: 1 for the vector route (four factors a lane), 0 for the scalar
+// one. Returns a cudaError_t: cudaErrorInvalidValue for another index
+// width, where nnz or num_rows reaches 2^31, K does not fit an int, or the
+// vector route is asked for and K % 4 != 0 or V or s is not 16-byte
+// aligned.
 int dmlc_fm_pair_fwd(const void* offset, const void* index, int index_bytes,
                      const void* value, const void* V, int64_t num_rows,
                      int64_t nnz, int64_t num_features, int64_t K,
-                     void* pair, void* s, void* stream) {
+                     void* pair, void* s, int vector, void* stream) {
   if (num_rows <= 0) return static_cast<int>(cudaGetLastError());
+  const auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (nnz > INT32_MAX || num_rows >= INT32_MAX || K > INT32_MAX ||
+      (vector && (K % 4 != 0 || misaligned(V) || misaligned(s)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* off = static_cast<const int64_t*>(offset);
   const auto* val = static_cast<const float*>(value);
   const auto* v = static_cast<const float*>(V);
   auto* p = static_cast<float*>(pair);
   auto* so = static_cast<float*>(s);
-  const int kp = lanes_per_nonzero(K);
+  cudaError_t err = cudaErrorInvalidValue;
   if (index_bytes == 4) {
-    fm_pair_fwd_kernel<uint32_t><<<warp_grid(num_rows), kWarpThreads, 0, st>>>(
-        off, static_cast<const uint32_t*>(index), val, v, num_rows, nnz,
-        num_features, K, kp, p, so);
+    err = vector ? fm_fwd_cols<uint32_t, 4>(off, index, val, v, num_rows, nnz,
+                                            num_features, K, p, so, st)
+                 : fm_fwd_cols<uint32_t, 1>(off, index, val, v, num_rows, nnz,
+                                            num_features, K, p, so, st);
   } else if (index_bytes == 8) {
-    fm_pair_fwd_kernel<uint64_t><<<warp_grid(num_rows), kWarpThreads, 0, st>>>(
-        off, static_cast<const uint64_t*>(index), val, v, num_rows, nnz,
-        num_features, K, kp, p, so);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = vector ? fm_fwd_cols<uint64_t, 4>(off, index, val, v, num_rows, nnz,
+                                            num_features, K, p, so, st)
+                 : fm_fwd_cols<uint64_t, 1>(off, index, val, v, num_rows, nnz,
+                                            num_features, K, p, so, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // gV[num_features, K] += the gradient of sum_r g[r] pair[r] in V; gV must

@@ -12,11 +12,13 @@ of the same function beside it:
   ``[rows, cols]`` float32 matrix (duplicate columns of a row add up)
 
 A wrapper runs the plain version only when its tensors lie on the CPU;
-for CUDA tensors it launches the kernel or raises. K2 has two routes on
-the card, which :func:`csr_spmv_t_route` picks from the model's width,
-the batch's nonzeros and the card: "global" (one atomic into grad_w per
-nonzero) and "private" (each block sums into its own copy of grad_w in
-shared memory, then adds it into grad_w). Each wrapper counts
+for CUDA tensors it launches the kernel or raises. K1 has two routes on
+the card, which :func:`csr_spmv_route` picks from the batch's nonzeros a
+row: "half" (16 lanes a row) and "warp" (32). K2 has two, which
+:func:`csr_spmv_t_route` picks from the model's width, the batch's
+nonzeros and the card: "global" (one atomic into grad_w per nonzero) and
+"private" (each block sums into its own copy of grad_w in shared memory,
+then adds it into grad_w). Each wrapper counts
 its kernel launches in ``.launches``. ``csr_to_padded_rows`` is the
 host-side (numpy) CSR → ELL conversion that feeds K3.
 
@@ -42,7 +44,8 @@ from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, max_shared_bytes
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
-           "csr_spmv_plain", "csr_spmv_t_plain", "csr_spmv_t_route",
+           "csr_spmv_plain", "csr_spmv_t_plain", "csr_spmv_route",
+           "csr_spmv_t_route",
            "sdot_rows",
            "sdot_rows_plain", "csr_to_dense", "csr_to_dense_plain",
            "csr_to_padded_rows"]
@@ -131,6 +134,25 @@ def csr_spmv_t_plain(offset: torch.Tensor, index: torch.Tensor,
     return grad
 
 
+# K1's half route (16 lanes a row, 4 nonzeros a lane at once) takes rows
+# of up to this many nonzeros in one pass; the bucket's rows beyond it take
+# the warp route (32 lanes, 5 at once).
+K1_HALF_MAX_PER_ROW = 64
+K1_LANES = {"half": 16, "warp": 32}
+_INT32_MAX = 2**31 - 1
+
+
+def csr_spmv_route(nnz: int, rows: int) -> str:
+    """K1's route for a batch of ``rows`` rows and ``nnz`` nonzeros (its
+    bucket, padded tail included): ``"half"`` where the bucket holds at
+    most K1_HALF_MAX_PER_ROW nonzeros a row, else ``"warp"``. On an H100
+    the half route took 3.84–3.99 µs at the linear batch (45 a row) and
+    4.08 at the FM batch (40), against 4.39 and 4.52–4.77 for the warp a
+    row that K1 had before; at the ranking batch (136 a row) it took 2.81
+    against 2.66, and the warp route 2.33 (PERF.md §6)."""
+    return "half" if nnz <= K1_HALF_MAX_PER_ROW * rows else "warp"
+
+
 def csr_spmv(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
     """K1: y[offset.numel()-1] = CSR · w (see module docstring)."""
@@ -139,9 +161,12 @@ def csr_spmv(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
     if w.device.type == "cpu":
         return csr_spmv_plain(offset, index, value, w)
     check(w.is_cuda, f"csr_spmv runs on cuda or cpu, got {w.device}")
+    check(index.numel() <= _INT32_MAX and n < _INT32_MAX,
+          f"csr_spmv takes fewer than 2^31 nonzeros and rows, got "
+          f"{index.numel()} and {n}")
     y = torch.empty(n, dtype=torch.float32, device=w.device)
     _launch("dmlc_csr_spmv", offset, index, value, w, n,
-            w.numel(), y)
+            w.numel(), y, K1_LANES[csr_spmv_route(index.numel(), n)])
     csr_spmv.launches += 1
     return y
 

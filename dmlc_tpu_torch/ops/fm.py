@@ -21,8 +21,9 @@ differentiable in V only.
 
 As in ``ops/csr.py``: a wrapper runs the plain version only when its
 tensors lie on the CPU, and for CUDA tensors launches its kernel or
-raises (K5 backward by the route :func:`fm_bwd_route` picks, K6 by
-:func:`ffm_route`'s); each wrapper counts its launches in ``.launches``. An index maps
+raises (K5 forward and backward by the route :func:`fm_route` picks, K6
+by :func:`ffm_route`'s); each wrapper counts its launches in
+``.launches``. An index maps
 by the reference's rule (``ops/index.py``), and an invalid one reads as
 NaN factors (``jnp.take`` fills NaN), so its row's pair
 is NaN and the gradient is NaN wherever the reference's is; the
@@ -47,7 +48,7 @@ from dmlc_tpu_torch.utils.logging import check
 __all__ = ["fm_pair", "ffm_pair", "fm_pair_fwd", "fm_pair_bwd",
            "ffm_pair_fwd", "ffm_pair_bwd", "fm_pair_fwd_plain",
            "fm_pair_bwd_plain", "ffm_pair_fwd_plain", "ffm_pair_bwd_plain",
-           "ffm_route", "fm_bwd_route"]
+           "ffm_route", "fm_route", "starts_aligned"]
 
 
 # ------------------------------------------------------------ plain versions
@@ -172,11 +173,16 @@ def fm_pair_fwd(offset: torch.Tensor, index: torch.Tensor,
     if not on_card:
         return fm_pair_fwd_plain(offset, index, value, V)
     F, K = V.shape
+    check(index.numel() < 2**31 and n < 2**31 - 1,
+          f"fm_pair_fwd takes fewer than 2^31 nonzeros and rows, got "
+          f"{index.numel()} and {n}")
     pair = torch.empty(n, dtype=torch.float32, device=V.device)
     s = torch.empty(n, K, dtype=torch.float32, device=V.device)
+    aligned = starts_aligned(V, s)
     launch("dmlc_fm_pair_fwd", V.device, offset.data_ptr(), index.data_ptr(),
            INDEX_BYTES[index.dtype], value.data_ptr(), V.data_ptr(), n,
-           index.numel(), F, K, pair.data_ptr(), s.data_ptr())
+           index.numel(), F, K, pair.data_ptr(), s.data_ptr(),
+           int(fm_route(K, aligned) == "vector"))
     fm_pair_fwd.launches += 1
     return pair, s
 
@@ -191,20 +197,26 @@ def fm_pair_bwd(offset: torch.Tensor, index: torch.Tensor,
         return fm_pair_bwd_plain(offset, index, value, V, s, g)
     F, K = V.shape
     gV = torch.zeros_like(V)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (V, s, gV))
+    aligned = starts_aligned(V, s, gV)
     launch("dmlc_fm_pair_bwd", V.device, offset.data_ptr(), index.data_ptr(),
            INDEX_BYTES[index.dtype], value.data_ptr(), V.data_ptr(),
            s.data_ptr(), g.data_ptr(), n, index.numel(), F, K,
-           gV.data_ptr(), int(fm_bwd_route(K, aligned) == "vector"))
+           gV.data_ptr(), int(fm_route(K, aligned) == "vector"))
     fm_pair_bwd.launches += 1
     return gV
 
 
-def fm_bwd_route(K: int, aligned: bool) -> str:
-    """K5 backward's route: ``"vector"`` (four factors a lane, one float4
-    load of V and of s and one vector reduction into gV) where K % 4 == 0
-    and V, s and gV start on 16 bytes (``aligned``), so that every row's
-    factors do; else ``"scalar"`` (one factor a lane)."""
+def starts_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on 16 bytes (a float4)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def fm_route(K: int, aligned: bool) -> str:
+    """K5's route, forward and backward: ``"vector"`` (four factors a
+    lane: float4 loads of V, and of s and one vector reduction into gV in
+    the backward) where K % 4 == 0 and the call's tensors of K columns (V
+    and s; and gV in the backward) start on 16 bytes (``aligned``), so
+    that every row's factors do; else ``"scalar"`` (one factor a lane)."""
     return "vector" if K % 4 == 0 and aligned else "scalar"
 
 

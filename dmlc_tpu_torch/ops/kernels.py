@@ -27,13 +27,15 @@ INDEX_BYTES = {torch.uint32: 4, torch.int32: 4, torch.uint64: 8}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # Every entry returns a cudaError_t; the trailing pointer is the stream.
 _SIGNATURES = {
-    # offset, index, index_bytes, value, dense, rows, nnz, features, out
-    "dmlc_csr_spmv": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
+    # offset, index, index_bytes, value, w, rows, nnz, features, y, lanes
+    # (16: the half route, 32: the warp route)
+    "dmlc_csr_spmv": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _I, _P],
     # ..., grad_w, blocks (0: global route)
     "dmlc_csr_spmv_t": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _I64, _P],
-    # offset, index, index_bytes, value, V, rows, nnz, features, K, pair, s
+    # offset, index, index_bytes, value, V, rows, nnz, features, K, pair, s,
+    # vector (1: vector route)
     "dmlc_fm_pair_fwd": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _I64, _P, _P,
-                         _P],
+                         _I, _P],
     # offset, index, index_bytes, value, V, s, g, rows, nnz, features, K,
     # gV, vector (1: vector route)
     "dmlc_fm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,

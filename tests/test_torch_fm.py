@@ -41,7 +41,8 @@ RTOL, ATOL = 1e-5, 1e-6
 
 def _csr(seed, rows=48, features=200, fields=5, K=4, ffm=False, max_nnz=10,
          pad_rows=0, pad_nnz=0, empty=(), out_of_range=(), bad_field=(),
-         raw=(), raw_field=(), tail_raw=(), index_dtype=np.uint32):
+         raw=(), raw_field=(), tail_raw=(), index_dtype=np.uint32,
+         lengths=None):
     """A padded CSR batch with a field column, V and a cotangent g:
     ``pad_rows`` empty tail rows, ``pad_nnz`` zero-valued tail nonzeros,
     rows in ``empty`` emptied, an index past the features in each row of
@@ -50,9 +51,12 @@ def _csr(seed, rows=48, features=200, fields=5, K=4, ffm=False, max_nnz=10,
     the raw index (field) v as the row's first, and for each (k, v) of
     ``tail_raw`` the raw index v at the k-th tail nonzero. Rows hold up to
     ``max_nnz`` nonzeros over ``fields`` fields, so several nonzeros of a
-    row share a field."""
+    row share a field. ``lengths``: the rows' nonzeros, in place of
+    ``rows`` drawn ones."""
     rng = np.random.RandomState(seed)
     lens = rng.randint(2, max_nnz + 1, rows)
+    if lengths is not None:
+        rows, lens = len(lengths), np.array(lengths)
     lens[list(empty)] = 0
     if pad_rows:
         lens[rows - pad_rows:] = 0
@@ -82,6 +86,10 @@ def _csr(seed, rows=48, features=200, fields=5, K=4, ffm=False, max_nnz=10,
     return dict(offset=offset, index=index, value=value, field=field, V=V,
                 g=g)
 
+
+# The row lengths the kernels are held at here and on the card
+# (chip_smoke.py): about 16, 32 and 64, the ranking path's 136, and 1000.
+ROW_LENGTHS = (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 136, 1000)
 
 CASES = {
     "plain": dict(seed=0),
@@ -113,6 +121,11 @@ CASES = {
     # an invalid index (2^31) in the padded tail, beside tail nonzeros of
     # index 0: the tail belongs to no row, so it adds nothing to gV (C7)
     "c7_tail": dict(seed=21, pad_rows=2, pad_nnz=3, tail_raw=((1, 2**31),)),
+    # rows about K5 forward's window on the card (48 nonzeros, 16 lanes a
+    # row, 8 nonzeros a step at K = 4) and past it, at 8 factors (the FM
+    # path's), an invalid index in a long row and a padded tail
+    "row_lengths": dict(seed=25, K=8, lengths=ROW_LENGTHS, out_of_range=(11,),
+                        pad_nnz=6),
 }
 
 
@@ -293,8 +306,23 @@ def test_ffm_static_shared_bytes_is_the_kernels():
                                               (8, False, "scalar")])
 def test_fm_bwd_route(K, aligned, route):
     """K5 backward reads and adds four factors at once only where K is a
-    multiple of 4 and V, s and gV start on 16 bytes."""
-    assert fm.fm_bwd_route(K, aligned) == route
+    multiple of 4 and V, s and gV start on 16 bytes (the route it shares
+    with the forward)."""
+    assert fm.fm_route(K, aligned) == route
+
+
+@pytest.mark.parametrize("shift,route", [(0, "vector"), (1, "scalar"),
+                                         (2, "scalar"), (3, "scalar"),
+                                         (4, "vector")])
+def test_fm_route_reads_the_alignment_of_a_view(shift, route):
+    """At the FM path's 8 factors, K5 takes its vector route forward and
+    backward only where its tensors start on 16 bytes: V viewed ``shift``
+    floats into its allocation does at 0 and 4 floats, not at 1-3."""
+    base = torch.zeros(200 * 8 + 4)
+    V = base[shift:shift + 200 * 8].view(200, 8)
+    s = torch.zeros(48, 8)
+    assert fm.fm_route(8, fm.starts_aligned(V, s)) == route
+    assert fm.fm_route(6, fm.starts_aligned(V, s)) == "scalar"
 
 
 @pytest.mark.parametrize("case", ["plain", "empty_rows", "bad_field",

@@ -30,15 +30,18 @@ RTOL, ATOL = 1e-5, 1e-6
 
 def _csr(seed, rows=64, features=500, max_nnz=12, pad_rows=0, pad_nnz=0,
          empty=(), out_of_range=(), raw=(), index_dtype=np.uint32,
-         dense=False):
+         dense=False, lengths=None):
     """A padded CSR batch: ``pad_rows`` empty tail rows, ``pad_nnz``
     zero-valued tail nonzeros, rows in ``empty`` emptied, an index past
     the features in each row of ``out_of_range``, and for each (row, v)
     of ``raw`` the raw index v as the row's first. ``dense``: each row
     holds every index 1 .. features-1 (a narrow model's dense rows, as in
-    the ranking path) and then up to ``max_nnz`` of them again."""
+    the ranking path) and then up to ``max_nnz`` of them again.
+    ``lengths``: the rows' nonzeros, in place of ``rows`` drawn ones."""
     rng = np.random.RandomState(seed)
     lens = rng.randint(1, max_nnz + 1, rows)
+    if lengths is not None:
+        rows, lens = len(lengths), np.array(lengths)
     if dense:
         lens += features - 1
     lens[list(empty)] = 0
@@ -66,6 +69,10 @@ def _csr(seed, rows=64, features=500, max_nnz=12, pad_rows=0, pad_nnz=0,
     return offset, index, value, w, g
 
 
+# The row lengths the kernels are held at here and on the card
+# (chip_smoke.py): about 16, 32 and 64, the ranking path's 136, and 1000.
+ROW_LENGTHS = (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 136, 1000)
+
 CASES = {
     "plain": dict(seed=0),
     "empty_rows": dict(seed=1, empty=(0, 5, 6, 63)),
@@ -92,6 +99,11 @@ CASES = {
     # route on the card), with empty rows and a padded tail
     "narrow_dense": dict(seed=11, rows=40, features=137, max_nnz=6,
                          dense=True, empty=(2, 9), pad_rows=3, pad_nnz=7),
+    # rows about the lane counts of K1's routes on the card (16 and 32
+    # lanes a row, 64 and 160 nonzeros a pass) and past them, an invalid
+    # index in a long row and a padded tail
+    "row_lengths": dict(seed=12, lengths=ROW_LENGTHS, out_of_range=(12,),
+                        pad_nnz=6),
 }
 
 
@@ -150,6 +162,21 @@ def test_k2_route(features, nnz, route):
     memory and its flush (2 blocks an SM x 132 SMs x F atomics) is at
     most K2_FLUSH_PER_NNZ a nonzero; else the global one."""
     assert csr.csr_spmv_t_route(features, nnz, 132, SM90_K2_SHARED) == route
+
+
+@pytest.mark.parametrize("nnz,rows,route", [
+    (368640, 8192, "half"),      # the linear batch: 45 a row
+    (327680, 8192, "half"),      # the FM batch: 40 a row
+    (557056, 4096, "warp"),      # the ranking batch: 136 a row
+    (64 * 8192, 8192, "half"),   # the boundary: 64 a row
+    (64 * 8192 + 1, 8192, "warp"),
+    (0, 1, "half"),              # an empty batch
+])
+def test_k1_route(nnz, rows, route):
+    """K1 takes 16 lanes a row where the bucket holds at most 64 nonzeros
+    a row (a row in one pass of 4 a lane), a warp a row beyond."""
+    assert csr.csr_spmv_route(nnz, rows) == route
+    assert csr.K1_LANES[route] == {"half": 16, "warp": 32}[route]
 
 
 def test_out_of_range_gives_nan_row_and_dropped_gradient():
