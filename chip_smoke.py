@@ -703,15 +703,6 @@ def _check_k1(name, offset, index, value, w, route, bad_rows):
     return err.max().item(), (err / scale).nan_to_num().max().item()
 
 
-def _with_bucket(offset, index, value, bucket):
-    """The batch (numpy) with its padded tail grown to ``bucket``
-    nonzeros."""
-    import numpy as np
-    grow = bucket - index.size
-    return (offset, np.concatenate([index, np.zeros(grow, index.dtype)]),
-            np.concatenate([value, np.zeros(grow, value.dtype)]))
-
-
 def check_kernels(first):
     """Phase 3: K1/K2 against their plain versions on the card."""
     import numpy as np
@@ -728,16 +719,19 @@ def check_kernels(first):
     before = (csr.csr_spmv.launches, csr.csr_spmv_t.launches)
     # K1's warp route on the same rows: the bucket grown past 64 a row
     warp_bucket = (csr.K1_HALF_MAX_PER_ROW + 1) * ROW_BUCKET
+    grown = warp_bucket - idx.size
+    w_val = torch.from_numpy(
+        np.concatenate([val, np.zeros(grown, val.dtype)])).to(cuda)
     k1_errs = {}
     for dtype in (np.uint32, np.uint64):
         t_idx = torch.from_numpy(idx.astype(dtype)).to(cuda)
         name = np.dtype(dtype).name
         k1_errs[name] = _check_k1(name, t_off, t_idx, t_val, w, "half",
                                   bad_rows)
-        _check_k1(f"{name}, bucket of {warp_bucket}", *(
-            torch.from_numpy(a).to(cuda) for a in _with_bucket(
-                off, idx.astype(dtype), val, warp_bucket)), w, "warp",
-            bad_rows)
+        w_idx = torch.from_numpy(np.concatenate(
+            [idx, np.zeros(grown, idx.dtype)]).astype(dtype)).to(cuda)
+        _check_k1(f"{name}, bucket of {warp_bucket}", t_off, w_idx, w_val,
+                  w, "warp", bad_rows)
         gw = on_route("csr_spmv_t", "global", lambda: csr.csr_spmv_t(
             t_off, t_idx, t_val, g, NUM_FEATURES))
         gw_plain = csr.csr_spmv_t_plain(t_off, t_idx, t_val, g, NUM_FEATURES)

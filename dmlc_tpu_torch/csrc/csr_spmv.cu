@@ -29,18 +29,28 @@
 // one 4-byte atomic per nonzero into grad_w. At these sizes both are
 // bound by launch latency more than by bytes.
 //
-// Design. One warp per row: lanes stride over the row's nonzeros
-// (coalesced index/value reads), gather w through the read-only path,
-// accumulate in fp32 and reduce with warp shuffles. No row-id array is
-// built. Criteo rows carry 25-44 nonzeros, so a warp's lanes are mostly
-// busy for one or two strides. K2 scatters with fp32 atomicAdd into a
-// zeroed grad_w; the order of atomics varies from run to run, so K2 is
-// not bitwise deterministic. Both kernels launch on the caller's stream
-// and allocate nothing; each C entry returns cudaGetLastError().
+// K1's design. Lanes of a row take its nonzeros lane, lane + L, ... U at
+// a time: first every index and value load, then every gather of w
+// through the read-only path, then the fp32 FMAs, and a shuffle tree
+// within the row's lanes; 32-bit arithmetic inside a row (the C entry
+// refuses 2^31 nonzeros); no row-id array. Two routes, one kernel each,
+// picked by the wrapper from the bucket's nonzeros a row (ops/csr.py
+// csr_spmv_route): half (L = 16, U = 4; two rows a warp) up to 64 a row,
+// warp (L = 32, U = 5) beyond. On an NVIDIA H100 80GB HBM3 at 700 W,
+// warm L2: 3.84-4.11 us at the linear batch and 4.08 at the FM batch (the
+// warp a row before it: 4.38-4.41 and 4.52-4.77), 2.33-2.39 at the
+// ranking batch (before: 2.66). What bounds it there is the gathers: an
+// empty kernel of the same grid takes 1.23 us, the offsets and the index
+// and value streams 0.6 more, and the 282k gathers into the 4 MB w about
+// 2.0 more, against 0.3 when w is 137 floats that stay in L1 (PERF.md
+// section 6). K2 scatters with fp32 atomicAdd into a zeroed grad_w; the
+// order of atomics varies from run to run, so K2 is not bitwise
+// deterministic. Both kernels launch on the caller's stream and allocate
+// nothing; each C entry returns cudaGetLastError().
 //
 // K2 has two routes; the wrapper picks one (ops/csr.py csr_spmv_t_route).
-//   - global: the kernel above, for wide models (10^6 weights), whose
-//     atomics spread over many addresses.
+//   - global: one warp a row, lanes striding over its nonzeros, for wide
+//     models (10^6 weights), whose atomics spread over many addresses.
 //   - private, for narrow models (the ranking path's 137 weights, where
 //     each address would take about 4096 global atomics and they queue at
 //     the L2's atomic units): a grid of `blocks` blocks, one warp per row
@@ -253,8 +263,9 @@ cudaError_t spmv_t_private(const int64_t* offset, const IndexT* index,
   return cudaGetLastError();
 }
 
-unsigned grid_for(int64_t num_rows) {
-  const int64_t rows_per_block = kThreads / kWarp;
+// The blocks of kThreads that give each of num_rows rows `lanes` lanes.
+unsigned grid_for(int64_t num_rows, int lanes = kWarp) {
+  const int64_t rows_per_block = kThreads / lanes;
   return static_cast<unsigned>((num_rows + rows_per_block - 1) /
                                rows_per_block);
 }
@@ -268,14 +279,13 @@ cudaError_t spmv(int lanes, const int64_t* offset, const void* index,
   const int rows = static_cast<int>(num_rows);
   const int n = static_cast<int>(nnz);
   if (lanes == kHalfLanes) {
-    constexpr int64_t per_block = kThreads / kHalfLanes;
     csr_spmv_half_kernel<IndexT>
-        <<<static_cast<unsigned>((num_rows + per_block - 1) / per_block),
-           kThreads, 0, s>>>(offset, idx, value, w, rows, n, num_features,
-                             y);
+        <<<grid_for(num_rows, kHalfLanes), kThreads, 0, s>>>(
+            offset, idx, value, w, rows, n, num_features, y);
   } else if (lanes == kWarpLanes) {
-    csr_spmv_warp_kernel<IndexT><<<grid_for(num_rows), kThreads, 0, s>>>(
-        offset, idx, value, w, rows, n, num_features, y);
+    csr_spmv_warp_kernel<IndexT>
+        <<<grid_for(num_rows, kWarpLanes), kThreads, 0, s>>>(
+            offset, idx, value, w, rows, n, num_features, y);
   } else {
     return cudaErrorInvalidValue;
   }

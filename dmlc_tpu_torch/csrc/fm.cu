@@ -34,20 +34,38 @@
 //
 // Bound on the card (H100 SXM, 3.35 TB/s, 67 TFLOP/s fp32). All four move
 // bytes and do a few flops per byte. K5 forward gathers one K-row of V per
-// nonzero (32 B at K = 8) and reads index and value (8 B); K5 backward adds
+// nonzero (32 B at K = 8) and reads index and value (8 B) and writes s
+// (its bound counts each distinct row of V once); K5 backward adds
 // one fp32 atomic per (nonzero, factor) and writes the dense gV (the
 // wrapper zero-fills it: 32 MB at 10^6 x 8). K6 gathers nf*K floats of V
 // per nonzero (624 B at 39 x 4), and its backward writes the dense gV of
 // 10^6 x 39 x 4 floats (624 MB), which dominates its bound.
 //
 // Design, simple first (no wgmma, no TMA, dense gradient):
-//   - K5: one warp per row. Lanes cover (nonzero, factor): lane = g*kp + f
-//     with kp = min(next power of two >= K, 32), so a warp reads 32/kp
-//     nonzeros' K-rows at once, coalesced; factors beyond 32 are covered
-//     in chunks of 32. Per-lane fp32 sums are folded across the nonzero
-//     groups with xor shuffles. The backward adds with fp32 atomics into
-//     a zeroed gV (not bitwise deterministic), by one of two routes that
-//     the wrapper picks (ops/fm.py fm_bwd_route):
+//   - K5 forward: 16 lanes a row (two rows a warp), kCP lanes a nonzero
+//     (the least power of two that covers its K / kW columns of kW
+//     factors, at most 8; wider rows in chunks of 8 columns). The row's
+//     nonzeros are taken 48 at a time: each lane loads and wraps the index
+//     and value of its own 3 once, then the lanes of each nonzero take its
+//     offset j * K in V (an int where V holds fewer than 2^31 floats) and
+//     its value by shuffle and issue the gather of their columns; every
+//     gather of the 48 is in flight before the first add, so a row of up
+//     to 48 is three loads deep (offset, index, V). The sums are folded
+//     across the nonzero groups with xor shuffles. Two routes, one kernel
+//     each, that the wrapper picks (ops/fm.py fm_route): vector (kW = 4, a
+//     float4 a lane) where K % 4 == 0 and V and s are 16-byte aligned,
+//     scalar (kW = 1) otherwise. On an NVIDIA H100 80GB HBM3 at 700 W at
+//     the FM batch (K = 8, warm L2): vector 4.55-4.77 us, scalar 6.48 (7.55
+//     with V one float off its allocation), the warp a row with an index
+//     load a factor that it replaced 8.02-8.55. An empty kernel of its
+//     grid takes 1.23 us and all but the gathers of V 2.96: the 295k
+//     random 32-byte gathers cost the rest (PERF.md section 6).
+//   - K5 backward: one warp per row. Lanes cover (nonzero, factor): lane
+//     = g*kp + f with kp = min(next power of two >= K, 32), so a warp
+//     reads 32/kp nonzeros' K-rows at once, coalesced; factors beyond 32
+//     are covered in chunks of 32. It adds with fp32 atomics into a zeroed
+//     gV (not bitwise deterministic), by one of two routes that the
+//     wrapper picks (ops/fm.py fm_route):
 //       - vector, where K % 4 == 0 and V, s and gV are 16-byte aligned:
 //         a lane owns four factors of a nonzero (K/4 lanes a nonzero, 16
 //         nonzeros a warp step at K = 8), reads them of V and of s as one
@@ -55,8 +73,8 @@
 //         reduction (atomicAdd on float4, global memory, sm_90), so the
 //         reductions and the loads of index and value are a quarter of
 //         the scalar route's;
-//       - scalar, for any other K or alignment: the forward's mapping,
-//         one scalar atomic per (nonzero, factor).
+//       - scalar, for any other K or alignment: one scalar atomic per
+//         (nonzero, factor).
 //   - K6: one block per row, one thread per column c = b*K + f of S (nf*K
 //     columns, 156 at 39/4; the block is that rounded up to a warp, at most
 //     256 threads, each owning columns c, c + blockDim, ...). S (nf*nf*K
