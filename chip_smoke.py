@@ -19,11 +19,18 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    weights, rows of indices 1-136 with duplicates, empty rows, an
    invalid index in the padded tail, u32 and u64 index), where it must
    take its private route, as at 10^6 weights its global one;
-4. main path: a seeded Criteo-shaped libsvm file of about 256 MB →
-   native parser → ABI-5 padded batches (8192 rows, 368640 nonzeros) →
-   pinned async H2D (``device_prefetch(staging=True)``) →
-   ``SparseLinearModel(1_000_000).train_step`` for one epoch; the loss
-   must fall and each kernel must have launched once per step;
+4. main path: a seeded Criteo-shaped libsvm file of about 256 MB through
+   the port's ``Pipeline``, the chain bench.py builds:
+   ``Pipeline.from_uri(path).parse(engine="native").batch(8192, pad=True,
+   nnz_bucket=368640).to_device(cuda, window="auto")
+   .build(autotune=True)`` (native parse → the engine's ABI-5 padded
+   batches → pinned async H2D) → ``SparseLinearModel(1_000_000)
+   .train_step`` for one epoch; the loss must fall and each kernel must
+   have launched once per step; then parse-only epochs through the
+   ``Pipeline`` and through the ``device_prefetch(size=2)`` loop this
+   script drove before, in turns, each GB/s printed; every path prints
+   its pipeline's stats snapshot, and every path's epochs run through
+   its ``Pipeline``;
 5. parity: native padded batches byte-identical to the Python parser's
    ``pad_single``; 3 steps on the card allclose to 3 steps of the plain
    CPU path;
@@ -61,9 +68,13 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    version, timed beside ``A.t() @ g``; K1 (136 a row: its warp route)
    held and timed there too; K3
    (``sdot_rows``) and K4 (``csr_to_dense``) on the same batch, each
-   timed beside its bound; one epoch of ``SparseRankingModel(137)``
-   through native padded batches with ``qid`` (4096 rows, the
-   reference's ``max_row_bucket``) and pinned async H2D: the loss must
+   timed beside its bound, K4 by its tile route (no fill) and, at a
+   matrix of 8192 columns, by its global route, each route read from
+   the trace and both held to the plain version on an edge batch too
+   (a repeated column, invalid indices, a padded tail, empty and flat
+   rows, corrupt offsets, u32 and u64); one epoch of
+   ``SparseRankingModel(137)`` through padded batches with ``qid`` (4096
+   rows, the reference's ``max_row_bucket``): the loss must
    fall, the pairwise accuracy on the first batch rise, and K1, K2, K7
    forward and backward launch once a step; then the trained scores of
    the first batch through K3 (padded rows) and K4 (dense) must equal
@@ -125,9 +136,9 @@ RANK_LEARNING_RATE = 3.0
 WRAP_LAST, WRAP_BAD, WRAP_U64 = 2**32 - 1, 2**31, 2**32 + 3
 SEED = 0
 PROFILE_ATTEMPTS = 3
-# The kernel of each route of K1, K2 and K5, as the profiler names it; the
-# route a call took is read from its trace. FILL is torch's zero fill, which
-# the wrappers in ZEROED launch once a call for their output.
+# The kernel of each route of K1, K2, K4 and K5, as the profiler names it;
+# the route a call took is read from its trace. FILL is torch's zero fill,
+# which the routes in ZEROED launch once a call for their output.
 ROUTE_KERNELS = {
     "csr_spmv": {"half": "csr_spmv_half_kernel",
                  "warp": "csr_spmv_warp_kernel"},
@@ -137,8 +148,12 @@ ROUTE_KERNELS = {
                     "vector": "fm_pair_fwd_vec_kernel"},
     "fm_pair_bwd": {"scalar": "fm_pair_bwd_kernel",
                     "vector": "fm_pair_bwd_vec_kernel"},
+    "csr_to_dense": {"tile": "csr_to_dense_tile_kernel",
+                     "global": "csr_to_dense_kernel"},
 }
-ZEROED = ("csr_spmv_t", "fm_pair_bwd")
+ZEROED = {"csr_spmv_t": ("global", "private"),
+          "fm_pair_bwd": ("scalar", "vector"),
+          "csr_to_dense": ("global",)}  # the tile route writes every entry
 FILL = "FillFunctor"
 SPIN = "spin_kernel"  # torch.cuda._sleep's kernel
 # The launches a call of each wrapper of one route makes, by kernel (see
@@ -149,7 +164,6 @@ KERNEL_CALLS = {
     "pair_sums": {"tile_table_kernel": 1, "pair_rows_fwd_kernel": 1},
     "pair_sums_grad": {"pair_rows_bwd_kernel": 1},
     "sdot_rows": {"sdot_rows_kernel": 1},
-    "csr_to_dense": {"csr_to_dense_kernel": 1, FILL: 1},
 }
 # One rate for w and b. The bias sets the ceiling: its curvature is at
 # most 1/4, so SGD on it diverges above a rate of 8. The 10^6 weights each
@@ -184,6 +198,13 @@ PAIR_RTOL, PAIR_ATOL = 1e-5, 1e-6
 # K5 and K6 backward add into gV with fp32 atomics whose order varies from
 # run to run, as K2 does.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+# K4 adds a row's duplicate columns with fp32 atomics in another order than
+# its plain version (index_put_ with accumulation); every other entry is one
+# value added to 0, and exact.
+K4_RTOL, K4_ATOL = 1e-6, 0.0
+# A matrix too wide for K4's tile route (8 rows of 8192 floats pass a
+# block's shared memory on an H100): its global route.
+K4_WIDE_COLS = 8192
 # K7 forward sums non-negative terms (softplus * pw, and pw), so its rtol
 # applies to the result itself; the backward's terms cancel, so as for K1
 # its rtol applies to each row's sum of |terms| (s * pw * sp' over both
@@ -498,11 +519,12 @@ def device_ms(fn, iters: int = 50, calls=None) -> float:
 
 def route_calls(op, route):
     """The launches a call of the wrapper ``op`` makes by ``route``: one
-    of that route's kernel, none of its other routes' kernels, and one
-    zero fill of its output where ``op`` zeroes it (ZEROED)."""
+    of that route's kernel, none of its other routes' kernels, and for a
+    wrapper in ZEROED one zero fill of its output where that route zeroes
+    it, none where it does not."""
     calls = {k: int(r == route) for r, k in ROUTE_KERNELS[op].items()}
     if op in ZEROED:
-        calls[FILL] = 1
+        calls[FILL] = int(route in ZEROED[op])
     return calls
 
 
@@ -1309,31 +1331,85 @@ def report_kernels(rows, launches, steps):
 
 # --------------------------------------------------------------- phase 4
 
-def train_epoch(path, model, device, train: bool, fmt="libsvm"):
-    """One epoch: native parse → padded batches → pinned async H2D →
-    (train steps). Returns (seconds, losses, batches, bytes moved)."""
+def build_pipeline(path, fmt="libsvm"):
+    """The port's Pipeline over ``path`` in ``fmt``'s padded layout, the
+    chain bench.py builds: native parse → the engine's padded batch
+    assembly → pinned async H2D to the card, window "auto", autotuned
+    between epochs."""
     import torch
-    from dmlc_tpu_torch.data.parser import Parser
-    from dmlc_tpu_torch.native import bindings
-    from dmlc_tpu_torch.parallel.device_iter import device_prefetch
-    parser = Parser.create(path, 0, 1, format=LAYOUT[fmt][0],
-                           engine="native")
-    native_cls = {"libsvm": bindings.NativeLibSVMParser,
-                  "libfm": bindings.NativeLibFMParser}[LAYOUT[fmt][0]]
-    require(isinstance(parser, native_cls),
-            f"engine='native' gave {type(parser).__name__}")
+    from dmlc_tpu_torch.pipeline import Pipeline
+    file_fmt, rows, nnz_bucket, want = LAYOUT[fmt]
+    return (Pipeline.from_uri(path)
+            .parse(format=file_fmt, engine="native")
+            .batch(rows, pad=True, row_bucket=rows, nnz_bucket=nnz_bucket,
+                   **want)
+            .to_device(torch.device("cuda"), window="auto")
+            .build(autotune=True))
+
+
+def warm_up(built, model, check=None):
+    """One batch of ``built`` through ``check`` and a train step of
+    ``model`` (first launches, the allocator, pinned slots); the epoch is
+    abandoned."""
+    import torch
+    it = iter(built)
+    batch = next(it)
+    if check is not None:
+        check(batch)
+    model.train_step(batch)
+    torch.cuda.synchronize()
+    it.close()
+
+
+def train_epoch(built, model, train: bool):
+    """One epoch of ``built`` (build_pipeline), with a train step of
+    ``model`` a batch where ``train``. Returns (seconds, losses, batches,
+    bytes moved)."""
+    import torch
     losses, batches, moved = [], 0, 0
     t0 = time.perf_counter()
-    for batch in device_prefetch(padded_batches(parser, fmt), size=2,
-                                 device=device, staging=True):
+    for batch in built:
         batches += 1
         moved += sum(t.numel() * t.element_size() for t in batch.values())
         if train:
             losses.append(model.train_step(batch))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    parser.destroy()
+    assembly = built.stats()["stages"][0]["extra"]["assembly_path"]
+    require(assembly == "native-padded",
+            f"the pipeline assembled its batches by {assembly}, not in the "
+            "native engine")
     return secs, [float(x) for x in losses], batches, moved
+
+
+def prefetch_epoch(path, fmt="libsvm"):
+    """A parse-only epoch through the loop this script drove before the
+    Pipeline: the native parser's ``next_padded`` into
+    ``device_prefetch(size=2, staging=True)``. Returns (seconds,
+    batches)."""
+    import torch
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.native import bindings
+    from dmlc_tpu_torch.parallel.device_iter import device_prefetch
+    parser = Parser.create(path, 0, 1, format=LAYOUT[fmt][0],
+                           engine="native")
+    require(isinstance(parser, bindings.NativeTextParser),
+            f"engine='native' gave {type(parser).__name__}")
+    batches = 0
+    t0 = time.perf_counter()
+    for _ in device_prefetch(padded_batches(parser, fmt), size=2,
+                             device=torch.device("cuda"), staging=True):
+        batches += 1
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    parser.destroy()
+    return secs, batches
+
+
+def log_pipeline_stats(name, built):
+    """The stats snapshot of ``built``'s last epoch, on one line."""
+    log(f"{name} pipeline stats of the last epoch: "
+        f"{json.dumps(built.stats())}")
 
 
 def h2d_gbps(first) -> float:
@@ -1348,27 +1424,23 @@ def h2d_gbps(first) -> float:
 
 
 def main_path(path, size, lr):
+    """One training epoch of SparseLinearModel(10^6) through the port's
+    Pipeline; then parse-only epochs through the Pipeline and through the
+    old device_prefetch loop in turns (Pipeline, loop, loop, Pipeline);
+    then a profiled training epoch."""
+    import statistics
     import torch
-    from dmlc_tpu_torch.data.parser import Parser
     from dmlc_tpu_torch.models.linear import SparseLinearModel
     from dmlc_tpu_torch.ops import csr
-    from dmlc_tpu_torch.parallel.device_iter import device_prefetch
     cuda = torch.device("cuda")
-    # warm-up: one batch through the whole path (first launches, the
-    # allocator, pinned slots)
-    warm = Parser.create(path, 0, 1, format="libsvm", engine="native")
-    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
-    for batch in device_prefetch(padded_batches(warm), device=cuda,
-                                 staging=True):
-        model.train_step(batch)
-        break
-    torch.cuda.synchronize()
-    warm.destroy()
+    built = build_pipeline(path)
+    warm_up(built, SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                     device=cuda))
 
     model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
     csr.csr_spmv.launches = 0
     csr.csr_spmv_t.launches = 0
-    secs, losses, steps, moved = train_epoch(path, model, cuda, train=True)
+    secs, losses, steps, moved = train_epoch(built, model, train=True)
     launches = {"csr_spmv": csr.csr_spmv.launches,
                 "csr_spmv_t": csr.csr_spmv_t.launches}
     require(steps > 0, "the epoch yielded no batch")
@@ -1385,33 +1457,50 @@ def main_path(path, size, lr):
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}); "
         f"launches {launches}")
     log(f"  losses: {[round(x, 4) for x in losses]}")
-    parse_secs, _, batches2, _ = train_epoch(path, None, cuda, train=False)
-    require(batches2 == steps, f"second epoch gave {batches2} batches, "
-            f"first {steps}")
+    # the parse-only epoch through each entry point, in turns
+    runs = {"pipeline": [], "device_prefetch": []}
+    for entry in ("pipeline", "device_prefetch", "device_prefetch",
+                  "pipeline"):
+        if entry == "pipeline":
+            parse_secs, _, batches2, _ = train_epoch(built, None,
+                                                     train=False)
+        else:
+            parse_secs, batches2 = prefetch_epoch(path)
+        require(batches2 == steps, f"a parse-only epoch through {entry} "
+                f"gave {batches2} batches, the training epoch {steps}")
+        runs[entry].append(size / parse_secs / 1e9)
+    log_pipeline_stats("linear", built)
     stats = {
         "text_bytes": size, "steps": steps,
         "epoch_s": secs, "parse_to_device_gbps_training": size / secs / 1e9,
-        "parse_to_device_gbps": size / parse_secs / 1e9,
+        "parse_to_device_gbps": statistics.mean(runs["pipeline"]),
+        "parse_to_device_gbps_runs": runs,
         "steps_per_s": steps / secs,
         "h2d_bytes_per_batch": moved // steps,
+        "knobs": built.knob_values(),
     }
     log(f"parse-to-device with training: "
         f"{stats['parse_to_device_gbps_training']:.3f} GB/s ({size} text "
         f"bytes in {secs:.3f} s), {stats['steps_per_s']:.2f} steps/s; "
-        f"without training: {stats['parse_to_device_gbps']:.3f} GB/s "
-        f"({parse_secs:.3f} s)")
+        f"without training, in turns: the Pipeline "
+        + " / ".join(f"{x:.3f}" for x in runs["pipeline"])
+        + " GB/s, the device_prefetch(size=2) loop "
+        + " / ".join(f"{x:.3f}" for x in runs["device_prefetch"])
+        + " GB/s")
+    stats["device"] = device_time(
+        built, SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                 device=cuda), secs)
+    built.close()
     return launches, stats
 
 
-def device_time(path, model, epoch_s, fmt="libsvm"):
+def device_time(built, model, epoch_s):
     """Where the card's time goes: the device time of one more training
-    epoch of ``model``, traced by torch.profiler and summed by kernel, and
-    its share of the unprofiled epoch's wall time (copies overlapping
-    compute count twice)."""
-    import torch
+    epoch of ``model`` through ``built``, traced by torch.profiler and
+    summed by kernel, and its share of the unprofiled epoch's wall time
+    (copies overlapping compute count twice)."""
     by_kernel = _device_us_by_kernel(
-        lambda: train_epoch(path, model, torch.device("cuda"), train=True,
-                            fmt=fmt))
+        lambda: train_epoch(built, model, train=True))
     total_us = sum(t for t, _ in by_kernel.values())
     log(f"device time over a training epoch: {total_us / 1e3:.3f} ms, "
         f"busy share {total_us / 1e6 / epoch_s:.4f} of the "
@@ -1578,24 +1667,16 @@ def plain_factor_model(kind, lr):
 
 def factor_path(path, size, kind, lr):
     """One epoch of the factor model over the libfm corpus through the
-    native parser, padded batches with field and pinned async H2D; the
-    loss must fall and each of the model's kernels launch once a step.
-    Then the same epoch without the step, and a profiled training epoch."""
+    port's Pipeline (native parse, padded batches with field, pinned async
+    H2D); the loss must fall and each of the model's kernels launch once a
+    step. Then the same epoch without the step, and a profiled training
+    epoch."""
     import statistics
     import torch
-    from dmlc_tpu_torch.data.parser import Parser
-    from dmlc_tpu_torch.parallel.device_iter import device_prefetch
-    cuda = torch.device("cuda")
-    warm = Parser.create(path, 0, 1, format="libfm", engine="native")
+    built = build_pipeline(path, "libfm")
     model = make_factor_model(kind, lr)
-    for batch in device_prefetch(padded_batches(warm, "libfm"), device=cuda,
-                                 staging=True):
-        if kind == "ffm":
-            model.validate_batch(batch)
-        model.train_step(batch)
-        break
-    torch.cuda.synchronize()
-    warm.destroy()
+    warm_up(built, model,
+            model.validate_batch if kind == "ffm" else None)
     del model
     torch.cuda.empty_cache()
 
@@ -1606,8 +1687,7 @@ def factor_path(path, size, kind, lr):
         fn.launches = 0
     held = torch.cuda.memory_allocated()  # the model, and anything left
     torch.cuda.reset_peak_memory_stats()
-    secs, losses, steps, moved = train_epoch(path, model, cuda, train=True,
-                                             fmt="libfm")
+    secs, losses, steps, moved = train_epoch(built, model, train=True)
     # read before the checks below: isfinite(V) makes about 1 GB of
     # temporaries at the FFM width
     peak = torch.cuda.max_memory_allocated()
@@ -1632,10 +1712,10 @@ def factor_path(path, size, kind, lr):
         f"{peak / 2**20:.0f} MiB, {held / 2**20:.0f} MiB of it held before "
         "the epoch")
     log(f"  losses: {[round(x, 4) for x in losses]}")
-    parse_secs, _, batches2, _ = train_epoch(path, None, cuda, train=False,
-                                             fmt="libfm")
+    parse_secs, _, batches2, _ = train_epoch(built, None, train=False)
     require(batches2 == steps, f"{kind}: second epoch gave {batches2} "
             f"batches, first {steps}")
+    log_pipeline_stats(kind, built)
     stats = {
         "text_bytes": size, "steps": steps, "epoch_s": secs,
         "parse_to_device_gbps_training": size / secs / 1e9,
@@ -1643,6 +1723,7 @@ def factor_path(path, size, kind, lr):
         "steps_per_s": steps / secs, "h2d_bytes_per_batch": moved // steps,
         "peak_device_bytes": peak, "held_before_epoch_bytes": held,
         "loss_first10": first10, "loss_last10": last10,
+        "knobs": built.knob_values(),
     }
     log(f"{kind} parse-to-device with training: "
         f"{stats['parse_to_device_gbps_training']:.3f} GB/s ({size} text "
@@ -1650,7 +1731,8 @@ def factor_path(path, size, kind, lr):
         f"without training: {stats['parse_to_device_gbps']:.3f} GB/s "
         f"({parse_secs:.3f} s); {stats['h2d_bytes_per_batch']} H2D bytes "
         "per batch")
-    stats["device"] = device_time(path, model, secs, fmt="libfm")
+    stats["device"] = device_time(built, model, secs)
+    built.close()
     del model
     torch.cuda.empty_cache()
     return launches, stats
@@ -1832,6 +1914,70 @@ def k7_tiles(first, args, s):
     return table
 
 
+def check_k4_edges():
+    """K4 by each route (tile at 137 columns, global at K4_WIDE_COLS),
+    u32 and u64 index, against its plain version on a batch of edges:
+    rows of 0-44 nonzeros, empty rows, a row repeating one column five
+    times, indices 2^32-1 (the last column), 2^31 (invalid), 2^32+3
+    (column 3) and one past the columns, a padded tail of 50 nonzeros
+    (an invalid index among them) and 7 flat rows after the last; then
+    corrupt offsets (backwards, negative, past nnz), which each route
+    clamps into [0, nnz]. Returns the max |err|."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.ops import csr
+    cuda = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 8)
+    lens = rng.randint(0, 40, 203)
+    lens[[4, 9, 10]] = 0
+    lens[[5, 6, 7, 8, 11]] += 5  # the rows that carry the edges
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    nnz = int(off[-1])
+    val = np.concatenate([rng.rand(nnz), np.ones(50)]).astype(np.float32)
+    err = 0.0
+    for cols, route in ((RANK_NUM_FEATURES, "tile"),
+                        (K4_WIDE_COLS, "global")):
+        idx = rng.randint(0, cols, nnz).astype(np.uint64)
+        idx[off[5]:off[5] + 5] = 7
+        idx[off[6]], idx[off[7]] = WRAP_LAST, WRAP_BAD
+        idx[off[8]], idx[off[11]] = WRAP_U64, cols + 5
+        idx = np.concatenate([idx, np.full(50, WRAP_BAD + 1, np.uint64)])
+        flat = np.concatenate([off, np.full(7, nnz)])
+        for dtype in (np.uint32, np.uint64):
+            o, i, v = (torch.from_numpy(a).to(cuda)
+                       for a in (flat, idx.astype(dtype), val))
+            rows = o.numel() - 1
+            d = on_route("csr_to_dense", route, lambda: csr.csr_to_dense(
+                o, i, v, rows, cols))
+            d_p = csr.csr_to_dense_plain(o, i, v, cols)
+            torch.cuda.synchronize()
+            require(torch.allclose(d, d_p, rtol=K4_RTOL, atol=K4_ATOL),
+                    f"K4 {route} route, {np.dtype(dtype).name}, on the edge "
+                    f"batch: max |err| {(d - d_p).abs().max().item()}")
+            require(float(d[5, 7]) > 0 and not bool(d[-7:].any()),
+                    f"K4 {route} route: the repeated column or the flat "
+                    "rows are wrong")
+            err = max(err, (d - d_p).abs().max().item())
+    # corrupt offsets: each row's range clamped into [0, nnz], as the
+    # plain version's row ids read them where the offsets are monotone
+    o = torch.tensor([0, 5, 3, -2, 40, 9], dtype=torch.int64, device=cuda)
+    i = torch.arange(10, dtype=torch.int32).to(torch.uint32).to(cuda)
+    v = torch.ones(10, device=cuda)
+    want = torch.zeros(5, 12)
+    for r, (a, b) in enumerate(zip([0, 5, 3, -2, 40], [5, 3, -2, 40, 9])):
+        a = min(max(a, 0), 10)
+        want[r, a:min(max(b, a), 10)] = 1.0
+    for route, cols in (("tile", 12), ("global", K4_WIDE_COLS)):
+        d = on_route("csr_to_dense", route,
+                     lambda: csr.csr_to_dense(o, i, v, 5, cols))
+        require(torch.equal(d[:, :12].cpu(), want) and not bool(
+            d[:, 12:].any()), f"K4 {route} route with corrupt offsets")
+    log(f"K4 agrees with its plain version by its tile and global routes on "
+        f"the edge batch (u32 and u64; rtol {K4_RTOL}, atol {K4_ATOL}) and "
+        f"clamps corrupt offsets: max |err| {err:.3g}")
+    return err
+
+
 def check_ranking_kernels(first):
     """K7 forward and backward against their plain versions on the ranking
     path's first batch, the margins from a seeded w through K1's plain
@@ -1965,8 +2111,8 @@ def check_ranking_kernels(first):
     y3 = csr.sdot_rows(t_pi, t_pv, w)
     y3_p = csr.sdot_rows_plain(t_pi, t_pv, w)
     scale3 = csr.sdot_rows_plain(t_pi, t_pv.abs(), w.abs())
-    d4 = csr.csr_to_dense(b["offset"], b["index"], b["value"], n,
-                          RANK_NUM_FEATURES)
+    d4 = on_route("csr_to_dense", "tile", lambda: csr.csr_to_dense(
+        b["offset"], b["index"], b["value"], n, RANK_NUM_FEATURES))
     d4_p = csr.csr_to_dense_plain(b["offset"], b["index"], b["value"],
                                   RANK_NUM_FEATURES)
     torch.cuda.synchronize()
@@ -2005,20 +2151,25 @@ def check_ranking_kernels(first):
         if dtype is np.int32:
             continue
         e_idx = torch.from_numpy(flat.astype(dtype)).to(cuda)
-        d = csr.csr_to_dense(b["offset"], e_idx, b["value"], n,
-                             RANK_NUM_FEATURES)
-        d_p = csr.csr_to_dense_plain(b["offset"], e_idx, b["value"],
-                                     RANK_NUM_FEATURES)
-        torch.cuda.synchronize()
-        require(torch.equal(d, d_p),
-                f"K4 {name} with the index rule's edges disagrees with its "
-                "plain version")
-    k4_err = (d4 - d4_p).abs().max().item()
+        for route, cols in (("tile", RANK_NUM_FEATURES),
+                            ("global", K4_WIDE_COLS)):
+            d = on_route("csr_to_dense", route, lambda: csr.csr_to_dense(
+                b["offset"], e_idx, b["value"], n, cols))
+            d_p = csr.csr_to_dense_plain(b["offset"], e_idx, b["value"],
+                                         cols)
+            torch.cuda.synchronize()
+            require(torch.equal(d, d_p),
+                    f"K4 {name}, {route} route, with the index rule's edges "
+                    "disagrees with its plain version")
+            del d, d_p
+    k4_err = max((d4 - d4_p).abs().max().item(), check_k4_edges())
     log(f"K3 and K4 agree with their plain versions on the ranking batch "
         f"(K3 [{n}, {RANK_FEATURES}] int32, u32 and u64, K3 also with K1; "
-        f"K4 to [{n}, {RANK_NUM_FEATURES}], exact; indices 2^32-1, 2^31 and "
-        f"2^32+3): K3 max |err| {k3_err.max().item():.3g} (rtol {K1_RTOL} "
-        f"of sum|terms|, atol {K1_ATOL}), K4 max |err| {k4_err:.3g}")
+        f"K4 to [{n}, {RANK_NUM_FEATURES}] by its tile route and to [{n}, "
+        f"{K4_WIDE_COLS}] by its global route, exact; indices 2^32-1, 2^31 "
+        f"and 2^32+3): K3 max |err| {k3_err.max().item():.3g} (rtol "
+        f"{K1_RTOL} of sum|terms|, atol {K1_ATOL}), K4 max |err| "
+        f"{k4_err:.3g}")
 
     # Timing, at the batch as it came from the parser.
     args = (margins, b["label"], b["qid"], b["weight"])
@@ -2082,6 +2233,23 @@ def check_ranking_kernels(first):
     log(f"ranking kernels timed at the path's first batch: {n} rows, {nnz} "
         f"nonzeros, {distinct} distinct features, {weighted} weighted pairs "
         f"of {n * n}")
+    calls = dict(KERNEL_CALLS,
+                 csr_to_dense=route_calls("csr_to_dense", "tile"))
+    # K4's global route at a wide shape: the batch's nonzeros spread over
+    # K4_WIDE_COLS columns
+    wide = torch.from_numpy(np.random.RandomState(SEED + 9).randint(
+        0, K4_WIDE_COLS, nnz).astype(np.uint32)).to(cuda)
+    wide_fill, wide_kernel = _fill_and_kernel(
+        lambda: csr.csr_to_dense(b["offset"], wide, vals, n, K4_WIDE_COLS),
+        "csr_to_dense", "global")
+    wide_bound, wide_by = bound_ms((n + 1) * 8 + nnz * (4 + 4)
+                                   + n * K4_WIDE_COLS * 4, nnz)
+    log(f"csr_to_dense by its global route at [{n}, {K4_WIDE_COLS}] "
+        f"({nnz} nonzeros): {(wide_fill + wide_kernel) * 1e3:.2f} us on the "
+        f"device (kernel {wide_kernel * 1e3:.2f} us, zero fill "
+        f"{wide_fill * 1e3:.2f} us), bound {wide_bound * 1e3:.2f} us "
+        f"({wide_by})")
+    del wide
     # K2 on this batch: a model of 137 weights, its private route
     g = torch.randn(n, generator=gen, device=cuda)
     k2_err = _check_narrow_k2("at the ranking batch", b["offset"],
@@ -2128,7 +2296,7 @@ def check_ranking_kernels(first):
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err,
-            "ms": device_ms(kernel, calls=KERNEL_CALLS[name]),
+            "ms": device_ms(kernel, calls=calls[name]),
             "plain_ms": device_ms(plain),
             "bound_ms": bound, "bound_by": by,
             "library_ms": device_ms(lib) if lib else None,
@@ -2173,8 +2341,8 @@ def plain_ranking_model(lr):
 
 def ranking_path(path, size, lr):
     """One epoch of SparseRankingModel(137) over the MSLR-shaped corpus
-    through the native parser, padded batches with qid (4096 rows) and
-    pinned async H2D: the loss must fall and K1, K2, K7 forward and K7
+    through the port's Pipeline (native parse, padded batches with qid of
+    4096 rows, pinned async H2D): the loss must fall and K1, K2, K7 forward and K7
     backward launch once a step. Then, in the same run, the evaluation of
     the first batch: the pairwise accuracy must rise above that after the
     first step, and the trained scores through K3 (padded rows) and K4
@@ -2183,23 +2351,15 @@ def ranking_path(path, size, lr):
     import statistics
     import numpy as np
     import torch
-    from dmlc_tpu_torch.data.parser import Parser
     from dmlc_tpu_torch.models import SparseRankingModel
     from dmlc_tpu_torch.ops import csr
-    from dmlc_tpu_torch.parallel.device_iter import device_prefetch
     cuda = torch.device("cuda")
     first = first_batch(path, "ranking")
     first_t = _rank_tensors(first, cuda)
-    warm = Parser.create(path, 0, 1, format="libsvm", engine="native")
+    built = build_pipeline(path, "ranking")
     model = SparseRankingModel(RANK_NUM_FEATURES, learning_rate=lr,
                                device=cuda)
-    for batch in device_prefetch(padded_batches(warm, "ranking"),
-                                 device=cuda, staging=True):
-        model.validate_batch(batch)
-        model.train_step(batch)
-        break
-    torch.cuda.synchronize()
-    warm.destroy()
+    warm_up(built, model, model.validate_batch)
     acc_first_step = model.pairwise_accuracy(first_t)  # one step on it
 
     model = SparseRankingModel(RANK_NUM_FEATURES, learning_rate=lr,
@@ -2208,8 +2368,7 @@ def ranking_path(path, size, lr):
     wrappers = _wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    secs, losses, steps, moved = train_epoch(path, model, cuda, train=True,
-                                             fmt="ranking")
+    secs, losses, steps, moved = train_epoch(built, model, train=True)
     launches = {k: fn.launches for k, fn in wrappers.items()}
     want = {k: steps if k in PATH_KERNELS["ranking"] else 0
             for k in launches}
@@ -2257,10 +2416,10 @@ def ranking_path(path, size, lr):
         f"epoch; the trained scores through K3 and K4 equal K1's; launches "
         f"{launches}")
     log(f"  losses: {[round(x, 4) for x in losses]}")
-    parse_secs, _, batches2, _ = train_epoch(path, None, cuda, train=False,
-                                             fmt="ranking")
+    parse_secs, _, batches2, _ = train_epoch(built, None, train=False)
     require(batches2 == steps, f"ranking: second epoch gave {batches2} "
             f"batches, first {steps}")
+    log_pipeline_stats("ranking", built)
     stats = {
         "text_bytes": size, "steps": steps, "epoch_s": secs,
         "parse_to_device_gbps_training": size / secs / 1e9,
@@ -2269,6 +2428,7 @@ def ranking_path(path, size, lr):
         "loss_first5": first5, "loss_last5": last5,
         "pairwise_accuracy": [acc_init, acc_first_step, acc],
         "queries_in_first_batch": len(_query_rows(np.asarray(first["qid"]))),
+        "knobs": built.knob_values(),
     }
     log(f"ranking parse-to-device with training: "
         f"{stats['parse_to_device_gbps_training']:.3f} GB/s ({size} text "
@@ -2276,7 +2436,8 @@ def ranking_path(path, size, lr):
         f"without training: {stats['parse_to_device_gbps']:.3f} GB/s "
         f"({parse_secs:.3f} s); {stats['h2d_bytes_per_batch']} H2D bytes "
         "per batch")
-    stats["device"] = device_time(path, model, secs, fmt="ranking")
+    stats["device"] = device_time(built, model, secs)
+    built.close()
     del model
     torch.cuda.empty_cache()
     return launches, stats
@@ -2344,7 +2505,6 @@ def main() -> None:
     card = environment()
     sys.path.insert(0, REPO)
     import torch
-    from dmlc_tpu_torch.models.linear import SparseLinearModel
     build_all()
     work = tempfile.mkdtemp(prefix="dmlc_chip_smoke_")
     try:
@@ -2356,10 +2516,6 @@ def main() -> None:
         rows = check_kernels(first)
         launches, stats = main_path(path, size, LEARNING_RATE)
         report_kernels(rows, launches, stats["steps"])
-        stats["device"] = device_time(
-            path, SparseLinearModel(NUM_FEATURES, learning_rate=LEARNING_RATE,
-                                    device=torch.device("cuda")),
-            stats["epoch_s"])
         stats["h2d_gbps"] = h2d_gbps(first)
         log(f"H2D from pinned slots: {stats['h2d_gbps']:.2f} GB/s "
             f"({stats['h2d_bytes_per_batch']} bytes per batch)")

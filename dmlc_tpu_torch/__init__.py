@@ -8,14 +8,16 @@ numpy, never jax, and nothing of ``dmlc_tpu``.
 Ported so far: local-file ``InputSplit``, the libsvm and libfm parsers
 (Python golden and native C++ engine, with ABI-5 padded batch assembly
 that carries libfm's ``field`` column), bucket padding, the pinned async
-host→device iterator, the CSR SpMV kernels with their weight-gradient
-transpose, the padded-row dot and the CSR-to-dense scatter, the FM and
-FFM pair-term kernels with their gradients in V, the pairwise ranking
-loss with its gradient in the margins, and SGD for
+host→device iterator, the pipeline graph (``dmlc_tpu_torch.pipeline``:
+``Pipeline.from_uri(...).parse(...).batch(...).to_device(...).build()``
+with its stage probes and autotuner), the CSR SpMV kernels with their
+weight-gradient transpose, the padded-row dot and the CSR-to-dense
+scatter, the FM and FFM pair-term kernels with their gradients in V,
+the pairwise ranking loss with its gradient in the margins, and SGD for
 ``SparseLinearModel``, ``SparseFMModel``, ``SparseFFMModel`` and
-``SparseRankingModel`` (over libsvm ``qid``). Entry points that touch a device default to
-``torch.device("cuda")``; pass ``device="cpu"`` to run the plain
-PyTorch versions of the kernels.
+``SparseRankingModel`` (over libsvm ``qid``). Entry points that touch a
+device default to ``torch.device("cuda")``; pass ``device="cpu"`` to run
+the plain PyTorch versions of the kernels.
 """
 
 from dmlc_tpu_torch.utils.logging import DMLCError

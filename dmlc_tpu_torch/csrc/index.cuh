@@ -31,6 +31,16 @@ __device__ __forceinline__ bool wrap(IndexT raw, int64_t n, int64_t* j) {
   return static_cast<uint64_t>(w) < static_cast<uint64_t>(n);
 }
 
+// wrap for a table of n < 2^31 entries, in 32-bit arithmetic: the same
+// entry and validity (j + n cannot overflow where j < 0 and n < 2^31).
+template <typename IndexT>
+__device__ __forceinline__ bool wrap32(IndexT raw, int n, int* j) {
+  const int v = static_cast<int>(static_cast<uint32_t>(raw));
+  const int w = v < 0 ? v + n : v;
+  *j = w;
+  return static_cast<unsigned>(w) < static_cast<unsigned>(n);
+}
+
 // The field a raw (int64) field id selects among nf fields.
 __device__ __forceinline__ int64_t clip_field(int64_t raw, int64_t nf) {
   const int64_t a = static_cast<int32_t>(static_cast<uint32_t>(raw));

@@ -127,7 +127,8 @@ class TextParserBase(Parser):
         self._block: Optional[RowBlock] = None
         self._prefetch: Optional[ThreadedIter] = None
         if prefetch:
-            self._prefetch = ThreadedIter(max_capacity=prefetch_depth)
+            self._prefetch = ThreadedIter(max_capacity=prefetch_depth,
+                                          name="parse.chunk_prefetch")
             self._prefetch.init(self._split.next_chunk,
                                 self._split.before_first)
 

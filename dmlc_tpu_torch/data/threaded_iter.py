@@ -10,11 +10,17 @@ Protocol here: ``next_fn() -> item | None`` (None = end of stream, the
 reference's ``Next(DType**) -> false``), ``before_first_fn()`` rewinds the
 underlying source. Items flow through a bounded queue tagged with an epoch
 so a BeforeFirst mid-stream discards stale items without data races.
+
+The queue's occupancy (``qsize``), its bound (``capacity``,
+``set_capacity``) and the producer's epoch counters (``stats``) are what
+the pipeline's stage probes and autotuner read
+(``dmlc_tpu_torch.pipeline``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Generic, Optional, TypeVar
 
 from dmlc_tpu_torch.utils.logging import check
@@ -25,16 +31,23 @@ _DATA, _END, _EXC = 0, 1, 2
 
 
 class ThreadedIter(Generic[T]):
-    """Background prefetch with faithful exception semantics."""
+    """Background prefetch with faithful exception semantics. ``name``
+    labels the queue (the reference also registers it with its metrics
+    plane, which is not ported)."""
 
-    def __init__(self, max_capacity: int = 8):
+    def __init__(self, max_capacity: int = 8, name: Optional[str] = None):
         check(max_capacity >= 1, "max_capacity must be >= 1")
         self._cap = max_capacity
+        self.name = name
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         self._not_full = threading.Condition(self._lock)
         self._queue: list = []
         self._epoch = 0           # consumer's current epoch
+        self._produced = 0        # items enqueued this epoch
+        self._producer_block_s = 0.0  # producer time blocked on a full
+        # queue this epoch: with qsize() this tells producer-bound (empty
+        # queue, no block time) from consumer-bound (full queue)
         self._producer_wake = threading.Event()
         self._destroyed = False
         self._ended = False
@@ -101,13 +114,20 @@ class ThreadedIter(Generic[T]):
         _not_full under the lock, so no polling wake-ups are needed.
         """
         with self._lock:
+            t0 = None
             while len(self._queue) >= self._cap:
                 if self._destroyed or self._epoch != epoch:
                     return False
+                if t0 is None:
+                    t0 = time.perf_counter()
                 self._not_full.wait()
+            if t0 is not None:
+                self._producer_block_s += time.perf_counter() - t0
             if self._destroyed or self._epoch != epoch:
                 return False
             self._queue.append((epoch, kind, payload))
+            if kind == _DATA:
+                self._produced += 1
             self._not_empty.notify()
             return True
 
@@ -137,12 +157,42 @@ class ThreadedIter(Generic[T]):
             self._ended = True  # _EXC: stream is dead until BeforeFirst
             raise payload
 
+    # -- introspection/tuning (pipeline probes + autotuner)
+
+    def qsize(self) -> int:
+        """Items currently buffered (occupancy sample for stage probes)."""
+        with self._lock:
+            return len(self._queue)
+
+    def stats(self) -> dict:
+        """Epoch-scoped producer counters (reset by before_first): items
+        produced and seconds the producer spent blocked on a full queue."""
+        with self._lock:
+            return {"produced": self._produced,
+                    "producer_block_s": round(self._producer_block_s, 6)}
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    def set_capacity(self, n: int) -> None:
+        """Resize the bounded queue between epochs (autotune knob). A
+        grow wakes a producer blocked in _emit; a shrink takes effect as
+        the consumer drains below the new bound — queued items are never
+        dropped."""
+        check(n >= 1, "capacity must be >= 1")
+        with self._lock:
+            self._cap = n
+            self._not_full.notify_all()
+
     def before_first(self) -> None:
         """Restart iteration (reference: BeforeFirst)."""
         check(self._thread is not None, "ThreadedIter not initialized")
         with self._lock:
             self._epoch += 1
             self._queue.clear()
+            self._produced = 0
+            self._producer_block_s = 0.0
             self._not_full.notify_all()
         self._ended = False
         self._producer_wake.set()

@@ -18,8 +18,11 @@ row: "half" (16 lanes a row) and "warp" (32). K2 has two, which
 :func:`csr_spmv_t_route` picks from the model's width, the batch's
 nonzeros and the card: "global" (one atomic into grad_w per nonzero) and
 "private" (each block sums into its own copy of grad_w in shared memory,
-then adds it into grad_w). Each wrapper counts
-its kernel launches in ``.launches``. ``csr_to_padded_rows`` is the
+then adds it into grad_w). K4 has two, which :func:`csr_to_dense_route`
+picks from the matrix's width and the card: "tile" (a block builds
+K4_TILE_ROWS rows of the matrix in shared memory and writes them once)
+and "global" (one atomic into a zeroed matrix per nonzero). Each wrapper
+counts its kernel launches in ``.launches``. ``csr_to_padded_rows`` is the
 host-side (numpy) CSR → ELL conversion that feeds K3.
 
 Index semantics follow the reference (``ops/index.py``: low 32 bits,
@@ -48,7 +51,7 @@ __all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
            "csr_spmv_t_route",
            "sdot_rows",
            "sdot_rows_plain", "csr_to_dense", "csr_to_dense_plain",
-           "csr_to_padded_rows"]
+           "csr_to_dense_route", "csr_to_padded_rows"]
 
 def csr_row_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
     """Row id of every nonzero: row_ids[k] = i s.t. offset[i] <= k < offset[i+1].
@@ -341,6 +344,22 @@ def csr_to_dense_plain(offset: torch.Tensor, index: torch.Tensor,
     return dense
 
 
+# K4's tile route: the rows a block builds in shared memory, one a warp (a
+# multiple of 4, so that each block's run of the matrix starts on 16
+# bytes). On an H100 at the ranking batch (4096 rows x 137 columns) 8 rows
+# a block took 3.13 µs, 4 took 4.19, 16 3.78 and 32 5.11 (PERF.md §6).
+K4_TILE_ROWS = 8
+
+
+def csr_to_dense_route(num_cols: int, max_shared: int) -> str:
+    """K4's route for a matrix of ``num_cols`` columns on a card whose
+    blocks may opt in to ``max_shared`` bytes of shared memory (the tile
+    kernel has no static shared memory): ``"tile"`` where K4_TILE_ROWS
+    rows of the matrix fit a block's shared memory, else ``"global"``."""
+    return ("tile" if 0 < K4_TILE_ROWS * num_cols * 4 <= max_shared
+            else "global")
+
+
 def csr_to_dense(offset: torch.Tensor, index: torch.Tensor,
                  value: torch.Tensor, num_rows: int,
                  num_cols: int) -> torch.Tensor:
@@ -356,11 +375,15 @@ def csr_to_dense(offset: torch.Tensor, index: torch.Tensor,
           f"csr_to_dense runs on cuda or cpu, got {value.device}")
     for t in (offset, index, value):
         check(t.is_contiguous(), "csr_to_dense needs contiguous tensors")
-    dense = torch.zeros(num_rows, num_cols, dtype=torch.float32,
-                        device=value.device)
+    tile = csr_to_dense_route(num_cols,
+                              max_shared_bytes(value.device)) == "tile"
+    # the tile route writes every entry; the global route adds into zeros
+    dense = (torch.empty if tile else torch.zeros)(
+        num_rows, num_cols, dtype=torch.float32, device=value.device)
     launch("dmlc_csr_to_dense", value.device, offset.data_ptr(),
            index.data_ptr(), INDEX_BYTES[index.dtype], value.data_ptr(),
-           num_rows, index.numel(), num_cols, dense.data_ptr())
+           num_rows, index.numel(), num_cols, dense.data_ptr(),
+           K4_TILE_ROWS if tile else 0)
     csr_to_dense.launches += 1
     return dense
 

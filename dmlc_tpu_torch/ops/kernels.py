@@ -52,8 +52,9 @@ _SIGNATURES = {
     "dmlc_max_shared_bytes": [_P],
     # index [n, k], index_bytes, value [n, k], w, rows, k, features, y
     "dmlc_sdot_rows": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
-    # offset, index, index_bytes, value, rows, nnz, cols, dense
-    "dmlc_csr_to_dense": [_P, _P, _I, _P, _I64, _I64, _I64, _P, _P],
+    # offset, index, index_bytes, value, rows, nnz, cols, dense, rows a
+    # block (0: global route)
+    "dmlc_csr_to_dense": [_P, _P, _I, _P, _I64, _I64, _I64, _P, _I64, _P],
     # margins, label, qid, weight, n, row sums [2n] (scratch), tile table,
     # lsum, wsum
     "dmlc_pair_sums_fwd": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
@@ -94,8 +95,8 @@ def launch(name: str, device: torch.device, *args) -> None:
 @functools.lru_cache(maxsize=None)
 def max_shared_bytes(device: torch.device) -> int:
     """The most shared memory, static and dynamic together, that a block
-    may opt in to on ``device`` (``csrc/device.cuh``); the routes of K2
-    and K6 are chosen against it."""
+    may opt in to on ``device`` (``csrc/device.cuh``); the routes of K2,
+    K4 and K6 are chosen against it."""
     out = ctypes.c_int64()
     with torch.cuda.device(device):
         err = library().dmlc_max_shared_bytes(ctypes.addressof(out))

@@ -26,6 +26,7 @@ keeps its layout dtype (u32 stays 4 bytes an index across the edge).
 from __future__ import annotations
 
 import collections
+import time
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
@@ -66,6 +67,7 @@ class HostStaging:
         self._free: List[Dict[str, torch.Tensor]] = []
         self._busy: collections.deque = collections.deque()
         self.allocated = 0
+        self.assemble_s = 0.0  # seconds spent staging, over the pool's life
 
     @staticmethod
     def _matches(slot: Dict[str, torch.Tensor],
@@ -93,6 +95,7 @@ class HostStaging:
     def stage(self, arrs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Copy ``arrs`` into a staging slot; the source arrays are dead
         to this pool after the call."""
+        t0 = time.perf_counter()
         arrs = {k: np.asarray(v) for k, v in arrs.items()}
         self._reclaim(wait=False)
         slot = self._take(arrs)
@@ -106,6 +109,7 @@ class HostStaging:
             self.allocated += 1
         for k, a in arrs.items():
             slot[k].copy_(torch.from_numpy(a))
+        self.assemble_s += time.perf_counter() - t0
         return slot
 
     def release(self, slot: Dict[str, torch.Tensor],

@@ -323,6 +323,23 @@ def test_csr_to_dense_plain_matches_jax(case, tail):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("cols,route", [
+    (137, "tile"),       # the ranking batch: 137 weights
+    (9, "tile"),
+    (8192, "global"),    # a wide matrix: 8 rows of it pass 227 KB
+    (SM90_K2_SHARED // (4 * csr.K4_TILE_ROWS), "tile"),  # the boundary
+    (SM90_K2_SHARED // (4 * csr.K4_TILE_ROWS) + 1, "global"),
+    (0, "global"),       # no column to build
+])
+def test_csr_to_dense_route(cols, route):
+    """K4 builds its rows in shared memory (the tile route) where
+    K4_TILE_ROWS rows of the matrix fit a block's opt-in shared memory on
+    sm_90 (the tile kernel has no static shared memory), and adds into a
+    zeroed matrix in device memory (the global route) past it."""
+    assert csr.csr_to_dense_route(cols, SM90_K2_SHARED) == route
+    assert csr.K4_TILE_ROWS % 4 == 0  # each block's run on 16 bytes
+
+
 @pytest.mark.parametrize("k", [None, 3], ids=["all", "cut_to_3"])
 @pytest.mark.parametrize("case", sorted(K34_CASES))
 def test_sdot_rows_plain_matches_jax(case, k):
