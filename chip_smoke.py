@@ -79,7 +79,23 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    forward and backward launch once a step; then the trained scores of
    the first batch through K3 (padded rows) and K4 (dense) must equal
    K1's; qid padded batches byte-identical to ``pad_single``; 3 steps
-   with the kernels allclose to 3 through the plain versions on the card.
+   with the kernels allclose to 3 through the plain versions on the card;
+8. the sharded path, in this one process over a world-1 NCCL group
+   (``init_from_env`` under a world-1 env, a TCP store on localhost): a
+   ``Mesh`` of 4 parts on the card; three epochs of the linear corpus
+   through ``Pipeline.from_uri(path).parse(engine="native").shard(mesh,
+   row_bucket=8192, nnz_bucket=368640)`` into
+   ``SparseLinearModel(1_000_000).make_sharded_train_step(mesh)``: the
+   loss must fall, K1 and K2 launch once a part a step (the launch
+   counters, and one step's trace: 4 launches of each route's kernel)
+   and the step's all-reduces show in its trace; epoch 2 re-parses and
+   tees, epoch 3 replays from memory with batches hashing equal to epoch
+   1's; 3 sharded steps allclose to 3 flat ``train_step``s over the same
+   rows, and 3 sharded steps of FM, FFM and ranking at their paths'
+   widths allclose to the same steps through the plain versions on the
+   card; ``graft.dryrun_multichip(8)`` on the card. Its steps/s, GB/s
+   and the all-reduce's device time a step are printed beside the
+   single-part main path's.
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -136,6 +152,13 @@ RANK_LEARNING_RATE = 3.0
 WRAP_LAST, WRAP_BAD, WRAP_U64 = 2**32 - 1, 2**31, 2**32 + 3
 SEED = 0
 PROFILE_ATTEMPTS = 3
+# The sharded phase: a mesh of this many parts of the path's batch on the
+# card, one process over a world-1 NCCL group; the dry run's mesh.
+SHARD_PARTS = 4
+DRYRUN_PARTS = 8
+# The sharded linear step's all-reduces: the (loss, weight) sums, then the
+# gradients of w and of b.
+SHARD_ALLREDUCES = 3
 # The kernel of each route of K1, K2, K4 and K5, as the profiler names it;
 # the route a call took is read from its trace. FILL is torch's zero fill,
 # which the routes in ZEROED launch once a call for their output.
@@ -498,6 +521,7 @@ def _device_us_by_kernel(fn, iters: int = 1, calls=None):
         log(f"  trace {attempt} of {PROFILE_ATTEMPTS}: "
             f"{len(by_kernel)} kernels, launches a piece {seen} (want "
             f"{want}), records kept out of launches {lost}")
+        time.sleep(1.0)  # an empty trace recovers by the next one or two
     fail(f"no trace of {PROFILE_ATTEMPTS} showed the launches wanted: "
          f"{want} a piece of {iters}")
 
@@ -2499,9 +2523,299 @@ def ranking_parity(path, lr):
         + f"; rtol {STEP_RTOL}, atol {STEP_ATOL})")
 
 
+# --------------------------------------------------------------- phase 8
+
+def init_nccl():
+    """This process as the one rank of a NCCL group: ``init_from_env``
+    under a world-1 env whose coordinator is a TCP store on localhost.
+    Returns the group's mesh of SHARD_PARTS parts on the card."""
+    import torch
+    import torch.distributed as dist
+    from dmlc_tpu_torch.parallel.launch import (
+        find_free_port, init_from_env, worker_envs,
+    )
+    from dmlc_tpu_torch.parallel.sharded import Mesh
+    os.environ.update(worker_envs(f"127.0.0.1:{find_free_port()}", 1, 0))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    rank, world = init_from_env()
+    require((rank, world) == (0, 1) and dist.get_backend() == "nccl",
+            f"init_from_env gave rank {rank} of {world} over "
+            f"{dist.get_backend()}, want 0 of 1 over nccl")
+    mesh = Mesh((SHARD_PARTS,), ("data",), group=dist.group.WORLD,
+                device=torch.device("cuda"))
+    log(f"sharded: {mesh} over {dist.get_backend()}")
+    return mesh
+
+
+def first_sharded_batches(path, mesh, fmt, count=3):
+    """The first ``count`` batches of a ShardedRowBlockIter over ``path``
+    in ``fmt``'s layout on ``mesh``, streamed (the epoch is abandoned)."""
+    from dmlc_tpu_torch.parallel.sharded import ShardedRowBlockIter
+    file_fmt, rows, nnz_bucket, _ = LAYOUT[fmt]
+    it = ShardedRowBlockIter(path, mesh, format=file_fmt, row_bucket=rows,
+                             nnz_bucket=nnz_bucket, engine="native",
+                             first_epoch_cache="never")
+    out = []
+    for batch in it:
+        out.append(batch)
+        if len(out) == count:
+            break
+    it.close()
+    require(len(out) == count, f"{fmt}: the sharded iterator gave "
+            f"{len(out)} batches, want {count}")
+    return out
+
+
+def _flat_batch(batch, device):
+    """The rows of a sharded batch's parts, in part order, as one flat
+    padded batch of their total buckets."""
+    import numpy as np
+    import torch
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    parts, rb = host["label"].shape
+    nb = host["index"].shape[1]
+    out = {"offset": np.zeros(parts * rb + 1, np.int64),
+           "label": np.zeros(parts * rb, np.float32),
+           "weight": np.zeros(parts * rb, np.float32),
+           "index": np.zeros(parts * nb, host["index"].dtype),
+           "value": np.zeros(parts * nb, np.float32)}
+    r = z = 0
+    for p in range(parts):
+        n, nz = int(host["num_rows"][p]), int(host["num_nnz"][p])
+        out["offset"][r + 1:r + n + 1] = host["offset"][p, 1:n + 1] + z
+        for k in ("label", "weight"):
+            out[k][r:r + n] = host[k][p, :n]
+        for k in ("index", "value"):
+            out[k][z:z + nz] = host[k][p, :nz]
+        r, z = r + n, z + nz
+    out["offset"][r + 1:] = z
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def allreduce_trace(fn, per_call):
+    """One call of ``fn`` under the profiler, host and device activity:
+    the all-reduce ops it ran (each key naming an all-reduce, with its
+    count) and the device µs of the NCCL kernels. Fails unless some key
+    counts ``per_call`` all-reduces."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, nccl_us = {}, 0.0
+    for e in prof.key_averages():
+        low = e.key.lower()
+        if "allreduce" in low or "all_reduce" in low:
+            ops[e.key[:60]] = e.count
+        if "nccl" in low and e.self_device_time_total > 0:
+            nccl_us += e.self_device_time_total
+    require(per_call in ops.values(),
+            f"the trace of a sharded step shows all-reduce ops {ops}, "
+            f"none {per_call} times")
+    return ops, nccl_us
+
+
+def sharded_path(path, size, lr, mesh, single):
+    """Three epochs of SparseLinearModel(10^6)'s sharded step over the
+    linear corpus through ``Pipeline.shard`` on ``mesh``; then one step's
+    traces, and 3 sharded steps against 3 flat ones. ``single``: the
+    single-part main path's stats of this run, printed beside."""
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.ops import csr
+    from dmlc_tpu_torch.pipeline import Pipeline
+    cuda = mesh.device
+    built = (Pipeline.from_uri(path)
+             .parse(format="libsvm", engine="native")
+             .shard(mesh, row_bucket=ROW_BUCKET, nnz_bucket=NNZ_BUCKET)
+             .build(autotune=True))
+    # the first launches and the communicator on an abandoned epoch
+    warm = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    it = iter(built)
+    warm.make_sharded_train_step(mesh)(next(it))
+    torch.cuda.synchronize()
+    it.close()
+
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    step = model.make_sharded_train_step(mesh)
+    epochs = []
+    for epoch in range(3):
+        csr.csr_spmv.launches = 0
+        csr.csr_spmv_t.launches = 0
+        kept, losses, moved = [], [], 0
+        t0 = time.perf_counter()
+        for batch in built:
+            kept.append(batch)
+            moved += sum(t.numel() * t.element_size() for t in batch.values())
+            losses.append(step(batch))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"csr_spmv": csr.csr_spmv.launches,
+                    "csr_spmv_t": csr.csr_spmv_t.launches}
+        hashes = [batch_hash({k: v.cpu().numpy() for k, v in b.items()})
+                  for b in kept]
+        shard = built.stats()["stages"][0]
+        epochs.append({"secs": secs, "steps": len(kept),
+                       "losses": [float(x) for x in losses],
+                       "launches": launches, "hashes": hashes,
+                       "moved": moved, "tier": shard["extra"]["replay_tier"],
+                       "replay_epochs": shard["extra"]["replay_epochs"]})
+        del kept
+    e1, e2, e3 = epochs
+    steps = e1["steps"]
+    require(steps > 0, "the sharded epoch yielded no batch")
+    want = {k: SHARD_PARTS * steps for k in e1["launches"]}
+    require(e1["launches"] == want,
+            f"sharded launch counts {e1['launches']} != {want}: K1 and K2 "
+            f"did not launch once a part a step")
+    losses = e1["losses"]
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            f"sharded: non-finite loss in {losses}")
+    require(losses[-1] < losses[0], f"sharded: the loss did not fall: "
+            f"first {losses[0]}, last {losses[-1]}")
+    require([e["tier"] for e in epochs] == ["parse", "parse", "memory"]
+            and e3["replay_epochs"] >= 1,
+            f"sharded: the epochs were served by "
+            f"{[e['tier'] for e in epochs]}, replay epochs "
+            f"{e3['replay_epochs']}; want parse, parse (the tee), memory")
+    require(e1["hashes"] == e2["hashes"] == e3["hashes"],
+            "sharded: the replayed epoch's batches differ from epoch 1's")
+    log(f"sharded path: {SHARD_PARTS} parts of {ROW_BUCKET} rows, {steps} "
+        f"steps an epoch at learning rate {lr}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches {e1['launches']}; epochs served by "
+        f"{[e['tier'] for e in epochs]}, epoch 3's {steps} batches hash "
+        "equal to epoch 1's")
+    log(f"  losses: {[round(x, 4) for x in losses]}")
+    log_pipeline_stats("sharded", built)
+
+    # one step's traces: K1 and K2 once a part, each by its route; then
+    # the all-reduces, with host activity on
+    gen = iter(built)
+    batch = next(gen)
+    gen.close()
+    calls = {"csr_spmv_half_kernel": SHARD_PARTS, "csr_spmv_warp_kernel": 0,
+             "csr_spmv_t_kernel": SHARD_PARTS,
+             "csr_spmv_t_private_kernel": 0}
+    by_kernel = _device_us_by_kernel(lambda: step(batch), 1, calls)
+    step_us = sum(t for t, _ in by_kernel.values())
+    ops, nccl_us = allreduce_trace(lambda: step(batch), SHARD_ALLREDUCES)
+    log(f"sharded step trace: {step_us:.2f} us of device time, "
+        f"{len(by_kernel)} kernels; all-reduce ops {ops}, NCCL kernels "
+        f"{nccl_us:.2f} us of device time a step; by kernel:")
+    for key, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {t:9.2f} us  {n:3d} calls  {key[:90]}")
+    built.close()
+
+    gbps = [size / e["secs"] / 1e9 for e in epochs]
+    sps = [e["steps"] / e["secs"] for e in epochs]
+    stats = {"parts": SHARD_PARTS, "steps": steps,
+             "epoch_s": [e["secs"] for e in epochs],
+             "parse_to_device_gbps_training": gbps, "steps_per_s": sps,
+             "rows_per_s": [r * SHARD_PARTS * ROW_BUCKET for r in sps],
+             "h2d_bytes_per_batch": e1["moved"] // steps,
+             "allreduce_device_us_per_step": nccl_us,
+             "allreduce_ops": ops, "step_device_us": step_us,
+             "launches": e1["launches"], "knobs": built.knob_values()}
+    log(f"sharded parse-to-device with training: epochs 1 (parse), 2 "
+        f"(parse, tee), 3 (memory replay): "
+        + " / ".join(f"{x:.3f}" for x in gbps) + " GB/s, "
+        + " / ".join(f"{x:.2f}" for x in sps) + f" steps/s of "
+        f"{SHARD_PARTS} x {ROW_BUCKET} rows; all-reduce {nccl_us:.2f} us "
+        f"of device time a step; the single-part main path of this run: "
+        f"{single['parse_to_device_gbps_training']:.3f} GB/s, "
+        f"{single['steps_per_s']:.2f} steps/s of {ROW_BUCKET} rows, no "
+        "all-reduce")
+
+    # 3 sharded steps against 3 flat steps over the same rows
+    batches = first_sharded_batches(path, mesh, "libsvm")
+    sharded = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    flat = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    step = sharded.make_sharded_train_step(mesh)
+    ls = torch.stack([step(b) for b in batches])
+    lf = torch.stack([flat.train_step(_flat_batch(b, cuda))
+                      for b in batches])
+    errs = {}
+    for name, a, b in (("losses", ls, lf), ("w", sharded.w, flat.w),
+                       ("b", sharded.b, flat.b)):
+        a, b = a.detach(), b.detach()
+        require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                f"3 sharded steps vs 3 flat steps: {name} max |err| "
+                f"{(a - b).abs().max().item()}")
+        errs[name] = (a - b).abs().max().item()
+    log(f"parity: 3 sharded linear steps ({SHARD_PARTS} parts) match 3 "
+        f"flat train_steps over the same {SHARD_PARTS * ROW_BUCKET} rows a "
+        f"step (losses {[round(float(x), 6) for x in ls]}, max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; rtol {STEP_RTOL}, atol {STEP_ATOL})")
+    return stats
+
+
+def sharded_parity(path, fmt, kinds, mesh, lr):
+    """3 sharded steps of each model of ``kinds`` over the first batches
+    of ``path`` on ``mesh``, with the kernels and through the plain
+    versions on the card, allclose."""
+    import torch
+    batches = first_sharded_batches(path, mesh, fmt)
+    for kind in kinds:
+        if kind == "ranking":
+            from dmlc_tpu_torch.models import SparseRankingModel
+            models = (SparseRankingModel(RANK_NUM_FEATURES, learning_rate=lr,
+                                         device=mesh.device),
+                      plain_ranking_model(lr))
+        else:
+            models = (make_factor_model(kind, lr),
+                      plain_factor_model(kind, lr))
+        names = ["losses"] + sorted(n for n, _ in
+                                    models[0].named_parameters())
+        results = []
+        for model in models:
+            step = model.make_sharded_train_step(mesh)
+            losses = torch.stack([step(b) for b in batches])
+            params = dict(model.named_parameters())
+            results.append([losses] + [params[n].detach()
+                                       for n in names[1:]])
+        del models, model, step, params
+        errs = {}
+        for name, a, b in zip(names, *results):
+            require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                    f"{kind}: 3 sharded steps with the kernels vs the plain "
+                    f"versions: {name} max |err| "
+                    f"{(a - b).abs().max().item()}")
+            errs[name] = (a - b).abs().max().item()
+        log(f"parity: 3 sharded {kind} steps ({SHARD_PARTS} parts) with the "
+            f"kernels match 3 through the plain versions on the card "
+            f"(losses {[round(float(x), 6) for x in results[0][0]]}, max "
+            "|err| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; rtol {STEP_RTOL}, atol {STEP_ATOL})")
+        del results
+        torch.cuda.empty_cache()
+
+
+def sharded_dryrun(mesh):
+    """``graft.dryrun_multichip(8)`` on the card, over the NCCL group."""
+    from dmlc_tpu_torch import graft
+    try:
+        out = graft.dryrun_multichip(DRYRUN_PARTS, device=mesh.device,
+                                     group=mesh.group)
+    except AssertionError as e:
+        fail(f"dryrun_multichip({DRYRUN_PARTS}) on the card: {e}")
+    log(f"dryrun_multichip({DRYRUN_PARTS}) on the card passed: loss "
+        f"{out['loss0']:.4f} -> {out['loss5']:.4f}, {out['batches']} "
+        f"batches, {out['replay_epochs']} epoch(s) replayed")
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
+    # Keep CUPTI set up between profiler traces. With kineto's default
+    # teardown after each trace, a trace late in a run on an H100
+    # (torch 2.11, CUDA 12.8) came back with no device activity, and so
+    # did every later one of the process (two of four runs on one card
+    # failed so); without the teardown an empty trace was followed by a
+    # full one (four of four runs on the next card passed).
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     card = environment()
     sys.path.insert(0, REPO)
     import torch
@@ -2520,6 +2834,9 @@ def main() -> None:
         log(f"H2D from pinned slots: {stats['h2d_gbps']:.2f} GB/s "
             f"({stats['h2d_bytes_per_batch']} bytes per batch)")
         parity(path, LEARNING_RATE)
+        mesh = init_nccl()
+        stats["sharded"] = sharded_path(path, size, LEARNING_RATE, mesh,
+                                        stats)
         os.unlink(path)
 
         # the factor models' path: libfm → FM and FFM
@@ -2536,6 +2853,7 @@ def main() -> None:
                             if r["name"] in PATH_KERNELS[kind]],
                            launches, stats[kind]["steps"])
         libfm_parity(path, LEARNING_RATE)
+        sharded_parity(path, "libfm", ("fm", "ffm"), mesh, LEARNING_RATE)
         rows += factor_rows
         os.unlink(path)
 
@@ -2550,9 +2868,17 @@ def main() -> None:
                                                   RANK_LEARNING_RATE)
         report_kernels(rank_rows, launches, stats["ranking"]["steps"])
         ranking_parity(path, RANK_LEARNING_RATE)
+        sharded_parity(path, "ranking", ("ranking",), mesh,
+                       RANK_LEARNING_RATE)
         rows += rank_rows
+        sharded_dryrun(mesh)
+        from dmlc_tpu_torch.parallel.launch import finalize
+        finalize()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        import torch.distributed as dist
+        if dist.is_initialized():  # a failed phase: no barrier
+            dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log("main path: " + json.dumps(stats))

@@ -15,7 +15,9 @@ weight-gradient transpose, the padded-row dot and the CSR-to-dense
 scatter, the FM and FFM pair-term kernels with their gradients in V,
 the pairwise ranking loss with its gradient in the margins, and SGD for
 ``SparseLinearModel``, ``SparseFMModel``, ``SparseFFMModel`` and
-``SparseRankingModel`` (over libsvm ``qid``). Entry points that touch a
+``SparseRankingModel`` (over libsvm ``qid``), on one device and data
+parallel over a ``torch.distributed`` group (``parallel.launch``,
+``parallel.sharded``, ``Pipeline.shard``, ``graft``). Entry points that touch a
 device default to ``torch.device("cuda")``; pass ``device="cpu"`` to run
 the plain PyTorch versions of the kernels.
 """

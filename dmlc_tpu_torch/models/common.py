@@ -1,5 +1,6 @@
 """Shared model math and the SGD scaffolding (counterpart of
-``dmlc_tpu/models/common.py``): one definition per formula."""
+``dmlc_tpu/models/common.py``): one definition per formula, and one
+definition of the single-device and the data-parallel step."""
 
 from __future__ import annotations
 
@@ -98,3 +99,92 @@ class SparseModelBase(nn.Module):
             for p in self.parameters():
                 p.add_(p.grad, alpha=-self.learning_rate)
         return loss.detach()
+
+    # -- data parallel (parallel.sharded layout: [L, ...] columns)
+
+    def _sharded_sums(self, batch: Dict[str, Any], mesh
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(Σ loss sums, Σ weight sums) over this process's L parts, and
+        the same pair summed over the mesh's group (detached; an
+        all-reduce whenever the mesh has a group, world 1 included).
+
+        Each part runs the model's own objective on its block, as the
+        reference's ``shard_map`` runs it on each device's: the ranking
+        model pairs rows only inside a part, and its ``max_row_bucket``
+        applies to a part's rows."""
+        self._check_columns(batch)
+        lsum = wsum = None
+        for p in range(batch["label"].shape[0]):
+            ls, ws = self._block_objective({k: v[p] for k, v in batch.items()})
+            lsum = ls if lsum is None else lsum + ls
+            wsum = ws if wsum is None else wsum + ws
+        total = torch.stack([lsum.detach(), wsum.detach()])
+        if mesh.group is not None:
+            import torch.distributed as dist
+            from dmlc_tpu_torch.parallel.sharded import collective_device
+            dev = collective_device(mesh)
+            reduced = total.to(dev)
+            dist.all_reduce(reduced, group=mesh.group)
+            total = reduced.to(total.device)
+        return lsum, total
+
+    def _global_loss_value(self, total: torch.Tensor) -> torch.Tensor:
+        """The global loss from the group's (Σ lsum, Σ wsum): the
+        weighted mean, plus the l2 term once."""
+        loss = _weighted_mean(total[0], total[1])
+        if self.l2:
+            loss = loss + self.l2 * self._l2_term()
+        return loss
+
+    def global_loss(self, batch: Dict[str, Any], mesh) -> torch.Tensor:
+        """The loss of a sharded batch over the whole group (counterpart
+        of the reference's ``global_loss_fn``): the loss and weight sums
+        of every part of every process summed before normalising, so the
+        mean weights every datum once, not every part; plus the l2 term
+        once. A value, not differentiable through the all-reduce."""
+        with torch.no_grad():
+            return self._global_loss_value(
+                self._sharded_sums(batch, mesh)[1])
+
+    def make_sharded_train_step(self, mesh):
+        """The data-parallel SGD step over ``mesh`` (counterpart of the
+        reference's ``make_sharded_train_step``): ``step(batch) -> loss``
+        on a sharded batch, the parameters updated IN PLACE as
+        ``train_step`` does; every process of the group must call it on
+        its own parts.
+
+        The per-part (lsum, wsum) are summed over the process's parts
+        and all-reduced; each process backpropagates its ``lsum / W`` (W
+        the group's weight sum, guarded as the flat loss guards it) and
+        the gradients are all-reduced (SUM), which gives every process
+        the gradient of the group's loss; then the l2 term's gradient,
+        ``2·l2·p`` for every parameter but ``b``, is added once. The
+        loss returned is the group's, before the update."""
+        def step(batch: Dict[str, Any]) -> torch.Tensor:
+            params = list(self.named_parameters())
+            for _, p in params:
+                p.grad = None
+            lsum, total = self._sharded_sums(batch, mesh)
+            denom = torch.where(total[1] > 0, total[1],
+                                torch.ones_like(total[1]))
+            (lsum / denom).backward()
+            if mesh.group is not None:
+                import torch.distributed as dist
+                from dmlc_tpu_torch.parallel.sharded import (
+                    collective_device,
+                )
+                dev = collective_device(mesh)
+                for _, p in params:
+                    g = p.grad.to(dev)
+                    dist.all_reduce(g, group=mesh.group)
+                    if g is not p.grad:
+                        p.grad.copy_(g)
+            with torch.no_grad():
+                loss = self._global_loss_value(total)
+                for name, p in params:
+                    if self.l2 and name != "b":
+                        p.grad.add_(p, alpha=2 * self.l2)
+                    p.add_(p.grad, alpha=-self.learning_rate)
+            return loss.detach()
+
+        return step

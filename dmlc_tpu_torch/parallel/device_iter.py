@@ -19,20 +19,28 @@ memory (as the reference's CPU ``device_put`` does): a released slot is
 then never reused — ownership passes to the consumer.
 
 Each batch is a dict of numpy arrays (or numpy scalars) and comes out
-as a dict of tensors with the same keys, shapes and dtypes: the index
-keeps its layout dtype (u32 stays 4 bytes an index across the edge).
+as a :class:`DeviceBatch`, a dict of tensors with the same keys, shapes
+and dtypes: the index keeps its layout dtype (u32 stays 4 bytes an index
+across the edge).
+
+The copy itself is :func:`copy_to_device` (enqueue, event behind) and
+:func:`wait_copy` (the consumer's side); ``device_prefetch``, the
+pipeline's ``to_device`` stage and ``parallel.sharded``'s serve thread
+all move batches through these two.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
 
-__all__ = ["device_prefetch", "DeviceIter", "HostStaging"]
+__all__ = ["device_prefetch", "DeviceIter", "HostStaging", "DeviceBatch",
+           "copy_to_device", "wait_copy"]
 
 
 def _device(device) -> torch.device:
@@ -129,6 +137,57 @@ def _to_tensors(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
 
+class DeviceBatch(dict):
+    """One batch on its device: a dict of tensors with the keys, shapes
+    and dtypes of the host batch it came from (the index keeps its
+    layout dtype). ``counts`` holds that host batch's (rows, nnz), which
+    the stage probes read instead of a device tensor; ``event`` is the
+    CUDA event recorded behind its copies (None off the card)."""
+
+    __slots__ = ("counts", "event")
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.counts: Optional[Tuple[int, int]] = None
+        self.event: Optional[torch.cuda.Event] = None
+
+
+def copy_to_device(src: Dict[str, torch.Tensor], device: torch.device,
+                   copy_stream: Optional[torch.cuda.Stream] = None
+                   ) -> DeviceBatch:
+    """Enqueue the copy of the host tensors ``src`` to ``device``.
+
+    On the card each copy is ``non_blocking`` on ``copy_stream`` (the
+    current stream when None) and one CUDA event is recorded behind them
+    in the result's ``event``: a pinned source may be reused once it has
+    completed, and the consumer must :func:`wait_copy` before it uses the
+    batch. Elsewhere the copy is ``Tensor.to``, which on the CPU ALIASES
+    the source."""
+    if device.type != "cuda":
+        return DeviceBatch({k: t.to(device) for k, t in src.items()})
+    stream = (copy_stream if copy_stream is not None
+              else torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        out = DeviceBatch({k: t.to(device, non_blocking=True)
+                           for k, t in src.items()})
+        out.event = torch.cuda.Event()
+        out.event.record(stream)
+    return out
+
+
+def wait_copy(batch: DeviceBatch, device: torch.device) -> DeviceBatch:
+    """The consumer's side of :func:`copy_to_device`: the current stream
+    of ``device`` waits on the batch's copy, and each tensor is recorded
+    as used by that stream (so the caching allocator does not hand its
+    memory out while the consumer's work is queued). Returns ``batch``."""
+    if batch.event is not None:
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(batch.event)
+        for t in batch.values():
+            t.record_stream(consumer)
+    return batch
+
+
 def device_prefetch(host_batches: Iterable[Dict[str, Any]], size: int = 2,
                     device=None,
                     staging: bool = False) -> Iterator[Dict[str, Any]]:
@@ -153,27 +212,9 @@ def device_prefetch(host_batches: Iterable[Dict[str, Any]], size: int = 2,
     def _enqueue():
         batch = next(it)  # StopIteration propagates to the caller
         src = pool.stage(batch) if pool is not None else _to_tensors(batch)
-        if not on_cuda:
-            out = {k: t.to(device) for k, t in src.items()}
-            if pool is not None:
-                pool.release(src)
-            return out, None
-        with torch.cuda.stream(copy_stream):
-            out = {k: t.to(device, non_blocking=True)
-                   for k, t in src.items()}
-            event = torch.cuda.Event()
-            event.record(copy_stream)
+        out = copy_to_device(src, device, copy_stream)
         if pool is not None:
-            pool.release(src, event)
-        return out, event
-
-    def _drain(entry):
-        out, event = entry
-        if event is not None:
-            consumer = torch.cuda.current_stream(device)
-            consumer.wait_event(event)
-            for t in out.values():
-                t.record_stream(consumer)
+            pool.release(src, out.event)
         return out
 
     try:
@@ -187,7 +228,7 @@ def device_prefetch(host_batches: Iterable[Dict[str, Any]], size: int = 2,
             queue.append(_enqueue())
         except StopIteration:
             pass
-        yield _drain(entry)
+        yield wait_copy(entry, device)
 
 
 class DeviceIter:

@@ -1,0 +1,302 @@
+"""Job launcher and rendezvous on ``torch.distributed``.
+
+Counterpart of ``dmlc_tpu/parallel/launch.py`` (reference:
+tracker/dmlc_tracker/{submit,tracker,local}.py): workers find a
+coordinator, get a rank and learn the world size. Here that is
+``torch.distributed.init_process_group`` over a TCP store at the
+coordinator's address. This module keeps:
+
+- the env contract (``DMLC_TPU_COORDINATOR_URI``/``NUM_WORKER``/
+  ``TASK_ID``, with the reference's ``DMLC_*`` names read as aliases),
+  and the parameter-server half (``ps_envs``, ``get_role``);
+- ``init_from_env()`` and ``finalize()``, worker side: NCCL when the
+  device is ``cuda`` (the default), gloo only when the caller asks for
+  the CPU. NCCL needs one card a rank. There is no fallback from one
+  backend to the other: if NCCL fails, the call raises;
+- ``launch_local()``, N local worker processes: the gang is killed on
+  the first nonzero exit and on timeout;
+- the ring/tree topology helpers (``get_ring``, ``get_tree``,
+  ``get_link_map``), pure functions kept for API parity;
+- ``find_free_port(s)``.
+
+Trimmed from the reference: ssh and the CLI, the PS role set in
+``launch_local`` and every option of ``launch_local`` that waits for a
+plane the port does not have yet (each raises a DMLCError that says
+"not ported" and names the plane).
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from dmlc_tpu_torch.utils.logging import DMLCError, check
+
+__all__ = [
+    "worker_envs", "ps_envs", "get_role", "init_from_env", "finalize",
+    "launch_local", "get_ring", "get_tree", "get_link_map",
+    "find_free_port", "find_free_ports", "ENV_COORD", "ENV_NWORKER",
+    "ENV_TASK_ID",
+]
+
+# env contract (reference: slave_envs in tracker.py)
+ENV_COORD = "DMLC_TPU_COORDINATOR_URI"
+ENV_NWORKER = "DMLC_TPU_NUM_WORKER"
+ENV_TASK_ID = "DMLC_TPU_TASK_ID"
+# reference-name aliases accepted on read
+_ALIASES = {
+    ENV_COORD: ["DMLC_TRACKER_URI"],
+    ENV_NWORKER: ["DMLC_NUM_WORKER"],
+    ENV_TASK_ID: ["DMLC_TASK_ID"],
+}
+
+# launch_local options of the reference that wait for a plane the port
+# does not have, each with the plane it waits for
+_NOT_PORTED = {
+    "num_servers": "the parameter-server role set",
+    "trace_dir": "the obs trace plane",
+    "serve_ports": "the obs live status server",
+    "flight_dir": "the obs flight recorder",
+    "history_s": "the obs time-series plane",
+    "gang_poll_s": "the obs gang aggregation plane",
+    "profile_hz": "the obs sampling profiler",
+    "control": "the obs control plane",
+    "scheduler": "the multi-tenant pipeline scheduler",
+    "slo": "the obs SLO plane",
+    "restart_policy": "the resilience plane",
+    "faults": "the resilience fault plane",
+    "rendezvous": "the rendezvous plane",
+    "heartbeat_grace_s": "the rendezvous plane",
+}
+
+
+# how often launch_local looks at its workers
+_POLL_S = 0.05
+
+
+def _getenv(name: str) -> Optional[str]:
+    v = os.environ.get(name)
+    if v:
+        return v
+    for alias in _ALIASES.get(name, []):
+        v = os.environ.get(alias)
+        if v:
+            return v
+    return None
+
+
+def find_free_port(host: str = "127.0.0.1") -> int:
+    return find_free_ports(1, host)[0]
+
+
+def find_free_ports(n: int, host: str = "127.0.0.1") -> List[int]:
+    """``n`` distinct free ports, chosen while ALL probe sockets are
+    held open: closing a probe before the next bind lets the OS hand the
+    same port out twice. Only guaranteed distinct from each other; as
+    with any probe-then-bind scheme another process can still grab one
+    before the real bind."""
+    check(n >= 1, "find_free_ports needs n >= 1")
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind((host, 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def worker_envs(coordinator: str, num_workers: int,
+                task_id: int) -> Dict[str, str]:
+    """The env block handed to each worker (reference: slave_envs +
+    per-worker DMLC_TASK_ID). Reference names are set too, for
+    downstream code that reads them."""
+    check(":" in coordinator,
+          f"coordinator must be host:port, got {coordinator!r}")
+    return {
+        ENV_COORD: coordinator,
+        ENV_NWORKER: str(num_workers),
+        ENV_TASK_ID: str(task_id),
+        "DMLC_TRACKER_URI": coordinator.rsplit(":", 1)[0],
+        "DMLC_TRACKER_PORT": coordinator.rsplit(":", 1)[1],
+        "DMLC_NUM_WORKER": str(num_workers),
+        "DMLC_TASK_ID": str(task_id),
+        "DMLC_ROLE": "worker",
+    }
+
+
+def ps_envs(root_uri: str, root_port: int, num_workers: int,
+            num_servers: int, role: str,
+            task_id: Optional[int] = None) -> Dict[str, str]:
+    """The parameter-server half of the reference env contract
+    (reference: tracker.py PSTracker — DMLC_PS_ROOT_URI/PORT, DMLC_ROLE
+    in scheduler|server|worker, DMLC_NUM_SERVER/WORKER), for PS-style
+    downstream code that expects these names."""
+    check(role in ("scheduler", "server", "worker"),
+          f"unknown PS role {role!r}")
+    out = {
+        "DMLC_PS_ROOT_URI": root_uri,
+        "DMLC_PS_ROOT_PORT": str(root_port),
+        "DMLC_NUM_SERVER": str(num_servers),
+        "DMLC_NUM_WORKER": str(num_workers),
+        "DMLC_ROLE": role,
+    }
+    if task_id is not None:
+        out["DMLC_TASK_ID"] = str(task_id)
+    return out
+
+
+def get_role() -> str:
+    """This process's tracker role (reference: DMLC_ROLE); 'worker' when
+    unset."""
+    return os.environ.get("DMLC_ROLE", "worker")
+
+
+def init_from_env(device=None) -> Tuple[int, int]:
+    """Worker-side rendezvous: ``torch.distributed.init_process_group``
+    from the env contract. Returns (rank, world size).
+
+    The backend follows ``device`` (``cuda`` by default): ``nccl`` on
+    the card, ``gloo`` only when the caller asks for ``"cpu"``; the
+    store is TCP at the coordinator's host:port. With no coordinator in
+    the env this is single-process mode: it returns (0, 1) and creates
+    no group. A process group that already exists is kept (its rank and
+    size are returned)."""
+    import torch
+    import torch.distributed as dist
+    check(get_role() == "worker",
+          f"init_from_env joins the WORKER gang; this process is a "
+          f"{get_role()!r} (branch on get_role() first)")
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    coord = _getenv(ENV_COORD)
+    if coord is None:
+        return 0, 1
+    dev = torch.device("cuda" if device is None else device)
+    check(dev.type in ("cuda", "cpu"),
+          f"init_from_env runs on cuda or cpu, got {dev}")
+    nworker = int(_getenv(ENV_NWORKER) or "1")
+    task_id = int(_getenv(ENV_TASK_ID) or "0")
+    if dev.type == "cuda":
+        check(torch.cuda.is_available(),
+              "init_from_env(device='cuda') needs a CUDA card for NCCL "
+              "(pass device='cpu' for gloo)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://{coord}",
+                            world_size=nworker, rank=task_id,
+                            device_id=dev if backend == "nccl" else None)
+    return task_id, nworker
+
+
+def finalize() -> None:
+    """Synchronize all processes, then shut the group down (call at
+    worker exit: without the barrier rank 0, which hosts the store, can
+    exit while peers are still using it). No-op without a group."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _kill_all(procs: List[subprocess.Popen]) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait()
+
+
+def launch_local(num_workers: int, command: Sequence[str],
+                 env: Optional[Dict[str, str]] = None,
+                 coordinator: Optional[str] = None,
+                 timeout: Optional[float] = None,
+                 **options) -> List[int]:
+    """Run ``num_workers`` worker processes of ``command`` on this host
+    (reference: local.py), each with the env contract of its rank on top
+    of this process's environment and ``env``. A worker that exits 0
+    early is finished and the others keep running; the first nonzero
+    exit kills the gang and raises; past ``timeout`` seconds every
+    worker is killed and the call raises. Returns the exit codes in rank
+    order (all 0).
+
+    The reference's other options (``num_servers``, ``trace_dir``,
+    ``serve_ports``, ``flight_dir``, ``history_s``, ``gang_poll_s``,
+    ``profile_hz``, ``control``, ``scheduler``, ``slo``,
+    ``restart_policy``, ``faults``, ``rendezvous``,
+    ``heartbeat_grace_s``) raise a DMLCError naming the plane each waits
+    for."""
+    for name, value in options.items():
+        if name not in _NOT_PORTED:
+            raise TypeError(
+                f"launch_local() got an unexpected keyword argument {name!r}")
+        if value not in (None, False, 0):
+            raise DMLCError(
+                f"launch_local({name}=...) is not ported to dmlc_tpu_torch "
+                f"yet (it waits for {_NOT_PORTED[name]})")
+    check(num_workers >= 1, "num_workers must be >= 1")
+    if coordinator is None:
+        coordinator = f"127.0.0.1:{find_free_port()}"
+    procs: List[subprocess.Popen] = []
+    try:
+        for task_id in range(num_workers):
+            wenv = dict(os.environ)
+            if env:
+                wenv.update(env)
+            wenv.update(worker_envs(coordinator, num_workers, task_id))
+            procs.append(subprocess.Popen(list(command), env=wenv))
+        deadline = (time.monotonic() + timeout) if timeout else None
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [c for c in codes if c not in (None, 0)]
+            if bad:
+                _kill_all(procs)
+                raise DMLCError(
+                    f"worker failure, exit codes "
+                    f"{[p.returncode for p in procs]} (gang killed on "
+                    "first nonzero exit)")
+            if all(c == 0 for c in codes):
+                return codes
+            if deadline is not None and time.monotonic() > deadline:
+                _kill_all(procs)
+                raise DMLCError(
+                    f"workers exceeded timeout {timeout}s; all killed")
+            time.sleep(_POLL_S)
+    except BaseException:
+        _kill_all(procs)
+        raise
+
+
+# ---------------------------------------------------------------- topology
+# Reference: tracker.py get_ring/get_tree/get_link_map (RabitTracker).
+
+def get_ring(n: int) -> Dict[int, Tuple[int, int]]:
+    """rank -> (prev, next) on a ring (reference: get_ring)."""
+    check(n >= 1, "ring needs n >= 1")
+    return {r: ((r - 1) % n, (r + 1) % n) for r in range(n)}
+
+
+def get_tree(n: int) -> Dict[int, int]:
+    """rank -> parent (-1 for root) on a binary tree (reference: get_tree)."""
+    check(n >= 1, "tree needs n >= 1")
+    return {r: ((r - 1) // 2 if r else -1) for r in range(n)}
+
+
+def get_link_map(n: int) -> Dict[int, List[int]]:
+    """rank -> neighbor list combining tree links (reference: get_link_map)."""
+    parent = get_tree(n)
+    links: Dict[int, List[int]] = {r: [] for r in range(n)}
+    for r, p in parent.items():
+        if p >= 0:
+            links[r].append(p)
+            links[p].append(r)
+    return links

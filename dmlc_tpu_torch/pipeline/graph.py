@@ -29,11 +29,15 @@ native-engine blocks by detaching their arena lease (falling back to a
 copy); ``to_device`` holds the lease until the block's bytes are staged
 or its copy to the card has completed.
 
+``shard(mesh, ...)`` lowers source + parse into
+:class:`~dmlc_tpu_torch.parallel.sharded.ShardedRowBlockIter`, which
+yields ``[L, ...]`` batches on the mesh's device (its serve thread
+stages and copies them); only ``map`` and ``prefetch`` may follow it.
+
 Trimmed from the reference: the obs trace spans, the stall watchdog and
 the metrics registry, and the verdict-driven controller. Not ported yet
 (each raises a DMLCError that says so): ``shuffle``, ``cache``,
-``shard``, ``from_stream``, ``to_device(sharding=...)`` and
-``build(tenant=...)``.
+``from_stream``, ``to_device(sharding=...)`` and ``build(tenant=...)``.
 """
 
 from __future__ import annotations
@@ -45,6 +49,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dmlc_tpu_torch.parallel.device_iter import (
+    DeviceBatch, copy_to_device, wait_copy,
+)
 from dmlc_tpu_torch.pipeline.autotune import Autotuner, Knob
 from dmlc_tpu_torch.pipeline.stages import StageSpec, validate_chain
 from dmlc_tpu_torch.pipeline.stats import StageProbe, _item_stats, snapshot
@@ -302,6 +309,60 @@ class _NativeAssembleRunner(_RunnerBase):
         self._parser.destroy()
 
 
+class _ShardRunner(_RunnerBase):
+    """source [+ parse opts] + shard → ShardedRowBlockIter batches
+    ([L, ...] tensors on the mesh's device)."""
+
+    kind = "shard"
+
+    def __init__(self, source: StageSpec, parse: Optional[StageSpec],
+                 shard: StageSpec):
+        super().__init__("shard")
+        from dmlc_tpu_torch.parallel.sharded import ShardedRowBlockIter
+        sp = source.params
+        p = dict(parse.params) if parse is not None else {}
+        p.pop("prefetch_depth", None)
+        fmt = p.pop("format", None)
+        p = {k: v for k, v in p.items() if v is not None}
+        if sp["split_type"] != "text":
+            p["split_type"] = sp["split_type"]
+        shp = dict(shard.params)
+        mesh = shp.pop("mesh")
+        self._it = ShardedRowBlockIter(sp["uri"], mesh, format=fmt,
+                                       **shp, **p)
+
+    def epoch(self) -> Iterator:
+        return iter(self._it)
+
+    @property
+    def queue(self):
+        # the live serve ThreadedIter while an epoch runs: occupancy
+        # samples land in the probe, which is what lets the autotuner
+        # drive the shard.prefetch knob
+        return getattr(self._it, "_serve_queue", None)
+
+    def knobs(self) -> List[Knob]:
+        it = self._it
+
+        def _set(n: int) -> None:
+            it.prefetch_depth = n
+
+        return [Knob("shard.prefetch", "shard",
+                     lambda: it.prefetch_depth, _set, lo=1, hi=8)]
+
+    def finalize_epoch(self) -> None:
+        it = self._it
+        if it.replay_tier is not None:
+            self.probe.extra["replay_tier"] = it.replay_tier
+        self.probe.extra["replay_epochs"] = it.replay_epochs
+        self.probe.extra["page_replay_epochs"] = it.page_replay_epochs
+        if it._serve_stats:
+            self.probe.extra["serve"] = dict(it._serve_stats)
+
+    def close(self) -> None:
+        self._it.close()
+
+
 class _MapRunner(_RunnerBase):
     """User fn over each item. The fn sees the upstream item under the
     upstream's lifetime contract; ownership passes through unchanged."""
@@ -405,19 +466,6 @@ class _PrefetchRunner(_RunnerBase):
         self._ti.destroy()
 
 
-class DeviceBatch(dict):
-    """One batch on its device: a dict of tensors with the keys, shapes
-    and dtypes of the host batch it came from (the index keeps its
-    layout dtype). ``counts`` holds that host batch's (rows, nnz), which
-    the stage probes read instead of a device tensor."""
-
-    __slots__ = ("counts",)
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.counts: Optional[Tuple[int, int]] = None
-
-
 class _DeviceRunner(_RunnerBase):
     """Async host→device copies with a bounded in-flight window, on the
     port's pieces (parallel.device_iter): each batch's copies are
@@ -484,17 +532,13 @@ class _DeviceRunner(_RunnerBase):
 
         def drain_one():
             nonlocal xfer_wait
-            out, event, lease = in_flight.popleft()
+            out, lease = in_flight.popleft()
             t0 = time.perf_counter()
-            if event is not None:
-                if lease is not None:
-                    # the copy reads the leased arena: it must have
-                    # completed before the arena returns to the engine
-                    event.synchronize()
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(event)
-                for t in out.values():
-                    t.record_stream(consumer)
+            if out.event is not None and lease is not None:
+                # the copy reads the leased arena: it must have
+                # completed before the arena returns to the engine
+                out.event.synchronize()
+            wait_copy(out, device)
             if lease is not None:
                 lease.release()
             xfer_wait += time.perf_counter() - t0
@@ -540,19 +584,11 @@ class _DeviceRunner(_RunnerBase):
                     lease = None
                 src = {k: torch.from_numpy(np.asarray(v))
                        for k, v in arrs.items()}
-            event = None
-            if on_cuda:
-                with torch.cuda.stream(copy_stream):
-                    out = DeviceBatch({k: t.to(device, non_blocking=True)
-                                       for k, t in src.items()})
-                    event = torch.cuda.Event()
-                    event.record(copy_stream)
-            else:
-                out = DeviceBatch({k: t.to(device) for k, t in src.items()})
+            out = copy_to_device(src, device, copy_stream)
             out.counts = counts
             if slot is not None:
-                pool.release(slot, event)
-            in_flight.append((out, event, lease))
+                pool.release(slot, out.event)
+            in_flight.append((out, lease))
             # window is re-read each round: the autotuner adjusts it
             # between epochs (and a mid-epoch change is simply honored)
             while len(in_flight) > self.window:
@@ -735,9 +771,15 @@ class Pipeline:
         queue; depth="auto" is an autotuner knob."""
         return self._with(StageSpec("prefetch", depth=depth))
 
-    def shard(self, *args: Any, **kwargs: Any) -> "Pipeline":
-        """Device-granular multi-host ingest: not ported."""
-        raise _not_ported("shard", "the data-parallel gang (ROADMAP A6)")
+    def shard(self, mesh, axis: str = "data", row_bucket: int = 1 << 14,
+              nnz_bucket: int = 1 << 18, **kwargs: Any) -> "Pipeline":
+        """Part-granular multi-process ingest: lowers source+parse into
+        ShardedRowBlockIter and yields ``[L, ...]`` batch dicts of this
+        process's parts along the mesh's ``axis``, on the mesh's
+        device."""
+        return self._with(StageSpec("shard", mesh=mesh, axis=axis,
+                                    row_bucket=row_bucket,
+                                    nnz_bucket=nnz_bucket, **kwargs))
 
     def to_device(self, device=None, sharding=None,
                   window="auto", staging="auto") -> "Pipeline":
@@ -751,7 +793,8 @@ class Pipeline:
         streams)."""
         if sharding is not None:
             raise _not_ported("to_device(sharding=...)",
-                              "the data-parallel gang (ROADMAP A6)")
+                              "a sharded device placement of batches "
+                              "(shard(mesh) places them itself)")
         return self._with(StageSpec("to_device", device=device,
                                     window=window, staging=staging))
 
@@ -773,14 +816,25 @@ class Pipeline:
         if specs[0].params.get("stream") is not None:
             raise _not_ported("a streaming source", "the streaming split")
         for kind, plane in (("shuffle", "the shuffle plane"),
-                            ("cache", "the page store"),
-                            ("shard", "the data-parallel gang (ROADMAP A6)")):
+                            ("cache", "the page store")):
             if kind in kinds:
                 raise _not_ported(kind, plane)
-        if "parse" not in kinds:
-            raise DMLCError("pipeline: nothing to run — add .parse(...)")
-        runners: List[_RunnerBase] = [_ParseRunner(specs[0], specs[1])]
-        for spec in specs[2:]:
+        if "parse" not in kinds and "shard" not in kinds:
+            raise DMLCError(
+                "pipeline: nothing to run — add .parse(...) or "
+                ".shard(mesh)")
+        i = 1
+        parse_spec = None
+        if specs[i].kind == "parse":
+            parse_spec = specs[i]
+            i += 1
+        runners: List[_RunnerBase]
+        if i < len(specs) and specs[i].kind == "shard":
+            runners = [_ShardRunner(specs[0], parse_spec, specs[i])]
+            i += 1
+        else:
+            runners = [_ParseRunner(specs[0], parse_spec)]
+        for spec in specs[i:]:
             up = runners[-1]
             if spec.kind == "batch" and spec.params["pad"]:
                 # padded assembly sitting DIRECTLY on a native-engine

@@ -8,8 +8,8 @@ refuses is refused here with the same message. A
 without executing anything. ``Pipeline.build()`` validates the chain
 against ``ALLOWED_AFTER`` (the legal stage grammar) and lowers each spec
 onto the port's machinery (see ``dmlc_tpu_torch.pipeline.graph``). The
-port refuses ``shuffle``, ``cache``, ``shard`` and streaming sources
-when they are chained, with a "not ported" error.
+port refuses ``shuffle``, ``cache`` and streaming sources when they are
+chained, with a "not ported" error.
 
 Stage catalog (the reference's docs/pipeline.md has the narrative
 version):
@@ -23,7 +23,9 @@ version):
               an autotuner knob
   to_device — async host→device copies with a bounded in-flight
               window; window "auto" is an autotuner knob
-  shuffle, cache, shard — in the grammar, refused by the port
+  shard     — part-granular multi-process ingest (ShardedRowBlockIter):
+              [L, ...] batches on the mesh's device
+  shuffle, cache — in the grammar, refused by the port
 """
 
 from __future__ import annotations

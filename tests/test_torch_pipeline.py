@@ -32,6 +32,7 @@ from dmlc_tpu_torch.data.rowblock import RowBlockContainer
 from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.models.linear import SparseLinearModel
 from dmlc_tpu_torch.native import native_available
+from dmlc_tpu_torch.parallel.sharded import Mesh
 from dmlc_tpu_torch.pipeline import (
     PIPELINE_STATS_SCHEMA, Autotuner, CompiledPipeline, Knob, Pipeline,
     StageProbe, StageSpec, snapshot)
@@ -317,7 +318,8 @@ def test_drop_remainder_drops_the_short_tail(corpora, native):
     (lambda p: p.shuffle(), "shuffle"),
     (lambda p: p.shuffle(global_seed=3), "shuffle"),
     (lambda p: p.parse().cache(), "cache"),
-    (lambda p: p.shard(None), "shard"),
+    (lambda p: p.shard(Mesh((1,), device="cpu"), page_spill=True).build(),
+     "shard"),
     (lambda p: p.parse().to_device(sharding=object()), "sharding"),
     (lambda p: p.parse().build(tenant="feed"), "tenant"),
     (lambda p: Pipeline.from_stream("x.libsvm", window_records=8),

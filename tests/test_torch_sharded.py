@@ -1,0 +1,505 @@
+"""The port's sharded ingest (``parallel.sharded``, ``ops.csr.
+sharded_spmv``, ``Pipeline.shard``) against the JAX package's on its
+8-device CPU mesh.
+
+The port's mesh is 8 parts on the CPU in one process; the reference's
+is 8 virtual CPU devices (``tests/conftest.py``), built as
+``tests/test_parallel_ops.py`` builds it. Batches are held byte for
+byte: the reference's iterator runs with its ``make_global_batch``
+replaced by a copy of the host ``[D, ...]`` arrays (jax without x64
+would turn the int64 columns into int32 on the way to its devices), and
+each port batch's tensors, moved back to numpy, must equal them in
+dtype and bytes. ``sharded_spmv`` is held at rtol=1e-5, atol=1e-6: both
+sides sum each row in fp32 in another order; with ``w[0] = inf`` the
+non-finite entries must sit at the same places.
+"""
+
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh as RefMesh
+
+import dmlc_tpu.parallel.sharded as ref_sharded
+from dmlc_tpu.data.padding import pad_to_bucket as ref_pad_to_bucket
+from dmlc_tpu.data.padding import stack_padded_rows as ref_stack
+from dmlc_tpu.data.rowblock import RowBlock as RefRowBlock
+from dmlc_tpu.data.rowblock import RowBlockContainer as RefContainer
+from dmlc_tpu.ops import sharded_spmv as ref_sharded_spmv
+from dmlc_tpu.parallel import ShardedRowBlockIter as RefIter
+from dmlc_tpu.parallel import make_global_batch as ref_make_global_batch
+from dmlc_tpu.parallel import stack_device_batches as ref_stack_batches
+from dmlc_tpu_torch.data.padding import stack_padded_rows
+from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
+from dmlc_tpu_torch.ops.csr import sharded_spmv
+from dmlc_tpu_torch.parallel.sharded import (
+    Mesh, ShardedRowBlockIter, empty_block, make_global_batch,
+    make_replicated, next_pow2_bucket, stack_device_batches,
+)
+from dmlc_tpu_torch.pipeline import Pipeline
+from dmlc_tpu_torch.utils.logging import DMLCError
+
+RTOL, ATOL = 1e-5, 1e-6
+PARTS = 8
+
+
+@pytest.fixture(scope="module")
+def ref_mesh():
+    return RefMesh(np.array(jax.devices()[:PARTS]).reshape(PARTS),
+                   ("data",))
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    return Mesh((PARTS,), ("data",), device="cpu")
+
+
+@pytest.fixture
+def ref_host(monkeypatch):
+    """The reference's iterator yielding its host [D, ...] arrays."""
+    monkeypatch.setattr(
+        ref_sharded, "make_global_batch",
+        lambda local, mesh, axis="data": {
+            k: np.array(v, copy=True) for k, v in local.items()})
+
+
+def _block(rng, cls, rows, ncol=50, max_nnz=8, qid=False, field=False,
+           weight=False):
+    c = cls(np.uint32)
+    for i in range(rows):
+        nnz = rng.randint(0, max_nnz)
+        idx = np.sort(rng.choice(np.arange(1, ncol), nnz, replace=False))
+        kw = {}
+        if qid:
+            kw["qid"] = i // 2
+        if weight:
+            kw["weight"] = 0.5 + rng.rand()
+        if field:
+            kw["fields"] = rng.randint(0, 4, nnz)
+        c.push(float(rng.randint(0, 2) * 2 - 1), idx,
+               rng.rand(nnz).astype(np.float32), **kw)
+    return c.get_block()
+
+
+def _pair(seed, rows, **kw):
+    """The same block in the port's RowBlock and the reference's."""
+    port = _block(np.random.RandomState(seed), RowBlockContainer, rows, **kw)
+    ref = _block(np.random.RandomState(seed), RefContainer, rows, **kw)
+    return port, ref
+
+
+def _ref_empty():
+    return RefRowBlock(offset=np.zeros(1, np.int64),
+                       label=np.zeros(0, np.float32),
+                       index=np.zeros(0, np.uint32))
+
+
+def _assert_same_bytes(port: dict, ref: dict):
+    assert set(port) == set(ref)
+    for k in ref:
+        a = port[k]
+        if isinstance(a, torch.Tensor):
+            a = a.numpy()
+        a, b = np.asarray(a), np.asarray(ref[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, (k, a.dtype,
+                                                           b.dtype)
+        assert a.tobytes() == b.tobytes(), k
+
+
+# ------------------------------------------------------------ padding
+
+STACK_CASES = {
+    "plain": ([dict(rows=5), dict(rows=3), None], False, False),
+    "qid": ([dict(rows=4, qid=True, weight=True), None, dict(rows=2)],
+            False, False),
+    "field": ([dict(rows=3, field=True), None], False, False),
+    "forced": ([dict(rows=2)], True, True),
+    "single": ([dict(rows=6)], False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STACK_CASES))
+def test_stack_padded_rows_is_byte_identical(case):
+    specs, want_qid, want_field = STACK_CASES[case]
+    port_blocks, ref_blocks = [], []
+    for i, spec in enumerate(specs):
+        if spec is None:
+            port_blocks.append(empty_block())
+            ref_blocks.append(_ref_empty())
+        else:
+            p, r = _pair(10 + i, **spec)
+            port_blocks.append(p)
+            ref_blocks.append(r)
+    _assert_same_bytes(stack_padded_rows(port_blocks, 8, 64, want_qid,
+                                         want_field),
+                       ref_stack(ref_blocks, 8, 64, want_qid, want_field))
+
+
+@pytest.mark.parametrize("qid", [False, True])
+def test_single_full_block_is_a_zero_copy_view(qid):
+    """L == 1 and the block exactly bucket-sized: the reference serves
+    views of the block's own arrays; so does the port, byte-identical."""
+    rows, nnz = 4, 6
+    kw = dict(offset=np.array([0, 1, 3, 5, 6], np.int64),
+              label=np.ones(rows, np.float32),
+              index=np.arange(nnz, dtype=np.uint32),
+              value=np.ones(nnz, np.float32),
+              weight=np.ones(rows, np.float32),
+              qid=np.arange(rows, dtype=np.int64) if qid else None)
+    port, ref = RowBlock(**kw), RefRowBlock(**kw)
+    out = stack_padded_rows([port], rows, nnz)
+    _assert_same_bytes(out, ref_stack([ref], rows, nnz))
+    assert np.shares_memory(out["index"], port.index)
+    assert np.shares_memory(out["offset"], port.offset)
+
+
+def test_helpers_match_reference():
+    for n in (0, 5, 8, 9, 1000):
+        assert next_pow2_bucket(n) == ref_sharded.next_pow2_bucket(n)
+    port = [dict(stack_padded_rows([_pair(s, 4)[0]], 8, 64)) for s in (1, 2)]
+    ref = [ref_pad_to_bucket(_pair(s, 4)[1], 8, 64) for s in (1, 2)]
+    stacked = stack_device_batches([{k: v[0] for k, v in b.items()}
+                                    for b in port])
+    _assert_same_bytes(stacked, ref_stack_batches(ref))
+    with pytest.raises(DMLCError, match="inconsistent batch keys"):
+        stack_device_batches([{"a": np.zeros(1)}, {"b": np.zeros(1)}])
+
+
+# ------------------------------------------------------------ mesh, batch
+
+def test_mesh_owns_every_part_in_one_process():
+    m = Mesh((8,), device="cpu")
+    assert (m.rank, m.world, m.size) == (0, 1, 8)
+    assert m.local_parts() == list(range(8))
+    m2 = Mesh((4, 2), ("data", "model"), device="cpu")
+    assert m2.parts("data") == 4 and m2.parts("model") == 2
+    assert m2.local_parts("data") == [0, 1, 2, 3]
+    assert m2.local_parts("model") == [0, 1]
+    with pytest.raises(DMLCError, match="mesh shape"):
+        Mesh((8,), ("data", "model"), device="cpu")
+
+
+def test_make_global_batch_layout(mesh):
+    blocks = [_pair(s, 4)[0] for s in range(PARTS)]
+    local = stack_padded_rows(blocks, 8, 64)
+    gb = make_global_batch(local, mesh)
+    assert gb["offset"].shape == (PARTS, 9)
+    assert gb["index"].dtype == torch.uint32
+    assert gb.counts == (int(local["num_rows"].sum()),
+                         int(local["num_nnz"].sum()))
+    _assert_same_bytes(gb, local)
+    with pytest.raises(DMLCError, match="leading part dim"):
+        make_global_batch({k: v[:3] for k, v in local.items()}, mesh)
+    rep = make_replicated({"w": np.ones(3, np.float32),
+                           "b": [np.float32(2)]}, mesh)
+    assert rep["w"].device.type == "cpu" and float(rep["b"][0]) == 2.0
+
+
+# ------------------------------------------------------------ sharded_spmv
+
+def _spmv_blocks(full_part):
+    """8 parts padded to (8, 64); part ``full_part`` holds exactly 64
+    nonzeros (no padded tail), the others leave a tail of index 0 and
+    value 0. No row reads index 0."""
+    ports, refs = [], []
+    for d in range(PARTS):
+        rng = np.random.RandomState(100 + d)
+        lens = rng.randint(0, 8, 6)
+        if d == full_part:
+            lens = np.array([8, 8, 8, 8, 8, 8, 8, 8])
+        offset = np.zeros(len(lens) + 1, np.int64)
+        offset[1:] = np.cumsum(lens)
+        nnz = int(offset[-1])
+        kw = dict(offset=offset,
+                  label=np.ones(len(lens), np.float32),
+                  index=rng.randint(1, 50, nnz).astype(np.uint32),
+                  value=rng.rand(nnz).astype(np.float32))
+        ports.append(RowBlock(**kw))
+        refs.append(RefRowBlock(**kw))
+    return ports, refs
+
+
+@pytest.mark.parametrize("inf_w0", [False, True])
+def test_sharded_spmv_matches_reference(mesh, ref_mesh, inf_w0):
+    ports, refs = _spmv_blocks(full_part=3)
+    local = stack_padded_rows(ports, 8, 64)
+    assert local["num_nnz"][3] == 64
+    w = np.random.RandomState(5).rand(50).astype(np.float32)
+    if inf_w0:
+        w[0] = np.inf
+    gb = ref_make_global_batch(ref_stack(refs, 8, 64), ref_mesh)
+    want = np.asarray(ref_sharded_spmv(gb, w, ref_mesh))
+    wt = torch.from_numpy(w.copy()).requires_grad_(True)
+    got = sharded_spmv(make_global_batch(local, mesh), wt, mesh)
+    assert got.shape == (PARTS, 8)
+    assert np.isfinite(want).all()  # the tails never reach a margin
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+    if not inf_w0:
+        # the gradient in w: K2 per part, summed (jax.vjp of the same)
+        g = np.random.RandomState(6).randn(PARTS, 8).astype(np.float32)
+        got.backward(torch.from_numpy(g))
+        _, vjp = jax.vjp(lambda ww: ref_sharded_spmv(gb, ww, ref_mesh),
+                         jax.numpy.asarray(w))
+        np.testing.assert_allclose(wt.grad.numpy(), np.asarray(vjp(g)[0]),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_sharded_spmv_checks_the_part_count(mesh):
+    ports, _ = _spmv_blocks(full_part=0)
+    gb = make_global_batch(stack_padded_rows(ports, 8, 64), mesh)
+    with pytest.raises(DMLCError, match="parts"):
+        sharded_spmv(gb, torch.ones(50), Mesh((4,), device="cpu"))
+
+
+# ------------------------------------------------------------ the iterator
+
+def _write_libsvm(path, seed, n):
+    rng = np.random.RandomState(seed)
+    lines = [f"{i % 2} {rng.randint(0, 50)}:{rng.rand():.6f}".encode()
+             for i in range(n)]
+    path.write_bytes(b"\n".join(lines) + b"\n")
+
+
+def _skewed_qid(path, seed):
+    rng = np.random.RandomState(seed)
+    lines = [f"{i % 2} qid:{i // 3} {rng.randint(0, 9)}:1"
+             for i in range(200)]
+    for i in range(20):
+        feats = " ".join(f"{j}:{rng.rand():.6f}"
+                         for j in sorted(rng.choice(500, 40, replace=False)))
+        lines.append(f"{i % 2} qid:{100 + i} {feats}")
+    path.write_bytes("\n".join(lines).encode() + b"\n")
+
+
+def _skewed_field(path, seed):
+    rng = np.random.RandomState(seed)
+    lines = [f"{i % 2} 1:{rng.randint(0, 9)}:1" for i in range(200)]
+    for i in range(20):
+        toks = " ".join(f"{rng.randint(0, 6)}:{j}:{rng.rand():.6f}"
+                        for j in sorted(rng.choice(500, 40, replace=False)))
+        lines.append(f"{i % 2} {toks}")
+    path.write_bytes("\n".join(lines).encode() + b"\n")
+
+
+def _collect(it):
+    return [{k: (v.numpy().copy() if isinstance(v, torch.Tensor)
+                 else np.array(v, copy=True)) for k, v in b.items()}
+            for b in it]
+
+
+def _same_epochs(port, ref):
+    assert len(port) == len(ref) > 0
+    for a, b in zip(port, ref):
+        _assert_same_bytes(a, b)
+
+
+def _iters(path, mesh, ref_mesh, **kw):
+    kw.setdefault("prefetch", False)
+    return (ShardedRowBlockIter(str(path), mesh, **kw),
+            RefIter(str(path), ref_mesh, page_spill=False, **kw))
+
+
+ITER_CASES = {
+    "coverage": (lambda p: _write_libsvm(p, 1, 333), "libsvm",
+                 dict(row_bucket=32, nnz_bucket=64)),
+    "cached": (lambda p: _write_libsvm(p, 2, 150), "libsvm",
+               dict(row_bucket=32, nnz_bucket=64,
+                    first_epoch_cache="always")),
+    "qid_always": (lambda p: _skewed_qid(p, 3), "libsvm",
+                   dict(row_bucket=8, nnz_bucket=64,
+                        first_epoch_cache="always")),
+    "qid_never": (lambda p: _skewed_qid(p, 3), "libsvm",
+                  dict(row_bucket=8, nnz_bucket=64,
+                       first_epoch_cache="never")),
+    "field": (lambda p: _skewed_field(p, 4), "libfm",
+              dict(row_bucket=8, nnz_bucket=64)),
+    "over_budget": (lambda p: _write_libsvm(p, 5, 200), "libsvm",
+                    dict(row_bucket=32, nnz_bucket=64,
+                         first_epoch_cache="always",
+                         agreement_cache_bytes=0)),
+    "no_replay": (lambda p: _write_libsvm(p, 6, 100), "libsvm",
+                  dict(row_bucket=32, nnz_bucket=64, steady_replay=False,
+                       first_epoch_cache="always")),
+    "native": (lambda p: _write_libsvm(p, 7, 300), "libsvm",
+               dict(row_bucket=16, nnz_bucket=32, engine="native")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ITER_CASES))
+def test_iterator_epochs_match_reference(case, mesh, ref_mesh, ref_host,
+                                         tmp_path):
+    """Three epochs of each side, byte for byte, with the replay counters
+    and tiers of the reference at every epoch."""
+    write, fmt, kw = ITER_CASES[case]
+    p = tmp_path / f"d.{fmt}"
+    write(p)
+    it, ref = _iters(p, mesh, ref_mesh, format=fmt, **kw)
+    e1 = None
+    for _ in range(3):
+        got, want = _collect(it), _collect(ref)
+        _same_epochs(got, want)
+        e1 = e1 or got
+        _same_epochs(got, e1)
+        assert (it.replay_epochs, it.replay_tier) == (ref.replay_epochs,
+                                                      ref.replay_tier)
+        assert it._part_rounds == ref._part_rounds
+    total = sum(int(b["num_rows"].sum()) for b in e1)
+    assert total == sum(1 for _ in open(p))
+    if case.startswith("qid") or case == "field":
+        assert len(set(it._part_rounds)) > 1  # the skew happened
+        key = "qid" if case != "field" else "field"
+        assert all(key in b for b in e1)
+    it.close()
+    ref.close()
+
+
+def test_replay_counts_and_tiers(mesh, tmp_path):
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 8, 150)
+    it = ShardedRowBlockIter(str(p), mesh, format="libsvm", row_bucket=32,
+                             nnz_bucket=64, prefetch=False,
+                             first_epoch_cache="always")
+    e1 = _collect(it)
+    assert (it.replay_epochs, it.replay_tier) == (0, "parse")
+    assert it._round_store is not None and it._round_store.tier == "memory"
+    _same_epochs(_collect(it), e1)
+    assert (it.replay_epochs, it.replay_tier) == (1, "memory")
+    auto = ShardedRowBlockIter(str(p), mesh, format="libsvm", row_bucket=32,
+                               nnz_bucket=64, prefetch=False)
+    _collect(auto)
+    _collect(auto)
+    assert auto.replay_epochs == 0  # epoch 2 re-parsed (the tee)
+    _same_epochs(_collect(auto), e1)
+    assert auto.replay_epochs == 1  # epoch 3 replayed the tee
+    assert auto.replay_tier == "memory" and auto.page_replay_epochs == 0
+
+
+@pytest.mark.parametrize("cache_mode", ["always", "never"])
+def test_truncated_file_raises(mesh, tmp_path, cache_mode):
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 9, 300)
+    it = ShardedRowBlockIter(str(p), mesh, format="libsvm", row_bucket=8,
+                             nnz_bucket=16, prefetch=False,
+                             first_epoch_cache=cache_mode)
+    assert len(_collect(it)) > 0
+    data = p.read_bytes()
+    cut = data.index(b"\n", len(data) // 4) + 1
+    p.write_bytes(data[:cut])  # clean truncation at a line boundary
+    with pytest.raises(DMLCError, match="changed between epochs"):
+        _collect(it)
+
+
+def test_rewritten_file_raises(mesh, tmp_path):
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 10, 300)
+    it = ShardedRowBlockIter(str(p), mesh, format="libsvm", row_bucket=8,
+                             nnz_bucket=16, prefetch=False)
+    assert len(_collect(it)) > 0
+    _write_libsvm(p, 11, 40)  # rewrite, much shorter
+    with pytest.raises(DMLCError, match="changed between epochs"):
+        _collect(it)
+
+
+@pytest.mark.parametrize("cache_mode", ["always", "auto"])
+def test_appends_stay_invisible_and_replay_reearns(mesh, ref_mesh,
+                                                   ref_host, tmp_path,
+                                                   cache_mode):
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 12, 150)
+    it, ref = _iters(p, mesh, ref_mesh, format="libsvm", row_bucket=32,
+                     nnz_bucket=64, first_epoch_cache=cache_mode)
+    e1 = _collect(it)
+    _same_epochs(e1, _collect(ref))
+    with open(p, "ab") as f:
+        f.write(b"1 3:0.5\n" * 200)
+    for _ in range(2):
+        got = _collect(it)
+        _same_epochs(got, _collect(ref))
+        _same_epochs(got, e1)
+        assert (it.replay_epochs, it.replay_tier) == (ref.replay_epochs,
+                                                      ref.replay_tier)
+
+
+def test_over_budget_fallback_matches_cached_path(mesh, tmp_path):
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 13, 200)
+    kw = dict(format="libsvm", row_bucket=32, nnz_bucket=64,
+              prefetch=False, first_epoch_cache="always")
+    fast = ShardedRowBlockIter(str(p), mesh, **kw)
+    slow = ShardedRowBlockIter(str(p), mesh, agreement_cache_bytes=2048,
+                               **kw)
+    _same_epochs(_collect(slow), _collect(fast))
+    _same_epochs(_collect(slow), _collect(fast))
+    assert slow.replay_epochs == 0 and slow._round_store is None
+    assert fast.replay_epochs == 1
+
+
+@pytest.mark.parametrize("kw", [dict(page_spill=True),
+                                dict(spill_dir="/nonexistent")])
+def test_page_tier_is_not_ported(mesh, tmp_path, kw):
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 14, 20)
+    with pytest.raises(DMLCError, match="not ported"):
+        ShardedRowBlockIter(str(p), mesh, format="libsvm", **kw)
+
+
+def test_serve_thread_and_prefetch_depth(mesh, tmp_path):
+    """The cached epoch and the replay are served by a background thread
+    (the shard.serve queue) through HostStaging: the batches are the
+    streamed epoch's, whatever the lookahead."""
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 15, 400)
+    kw = dict(format="libsvm", row_bucket=16, nnz_bucket=32,
+              prefetch=False)
+    stream = _collect(ShardedRowBlockIter(str(p), mesh,
+                                          first_epoch_cache="never", **kw))
+    for depth in (1, 4):
+        it = ShardedRowBlockIter(str(p), mesh, first_epoch_cache="always",
+                                 **kw)
+        it.prefetch_depth = depth
+        _same_epochs(_collect(it), stream)
+        assert it._serve_stats is not None
+        _same_epochs(_collect(it), stream)
+        assert it.replay_tier == "memory"
+
+
+# ------------------------------------------------------------ Pipeline
+
+def test_pipeline_shard_yields_the_iterators_batches(mesh, tmp_path):
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 16, 300)
+    want = _collect(ShardedRowBlockIter(
+        str(p), mesh, format="libsvm", row_bucket=16, nnz_bucket=32,
+        engine="native"))
+    built = (Pipeline.from_uri(str(p))
+             .parse(format="libsvm", engine="native")
+             .shard(mesh, row_bucket=16, nnz_bucket=32)
+             .prefetch(2)
+             .build(autotune=True))
+    for epoch in range(3):
+        _same_epochs(_collect(built), want)
+    stats = built.stats()
+    shard = stats["stages"][0]
+    assert shard["kind"] == "shard"
+    assert shard["items"] == len(want)
+    assert shard["rows"] == sum(int(b["num_rows"].sum()) for b in want)
+    assert shard["extra"]["replay_tier"] == "memory"
+    assert shard["extra"]["replay_epochs"] == 1
+    assert "shard.prefetch" in built.knob_values()
+    built.close()
+
+
+def test_pipeline_shard_grammar(mesh, tmp_path):
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 17, 10)
+    with pytest.raises(DMLCError, match="cannot follow"):
+        (Pipeline.from_uri(str(p)).parse().shard(mesh)
+         .to_device(device="cpu").build())
+    with pytest.raises(DMLCError, match="not ported"):
+        Pipeline.from_uri(str(p)).parse().to_device(sharding=object())
+    built = Pipeline.from_uri(str(p)).shard(mesh, row_bucket=8,
+                                            nnz_bucket=16).build()
+    assert sum(int(b["num_rows"].sum()) for b in built) == 10
+    built.close()
