@@ -19,18 +19,31 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    weights, rows of indices 1-136 with duplicates, empty rows, an
    invalid index in the padded tail, u32 and u64 index), where it must
    take its private route, as at 10^6 weights its global one;
+   then K8 (``logistic_step`` on one part; ``logistic_sums`` and
+   ``logistic_grad``, the sharded step's two launches) against its plain
+   versions at the first batch's labels and weights and on edge cases (a
+   margin of exactly 0, {0,1} labels, an all-padded batch, 0 < W < 1,
+   |m| of 88 and 3e38, a NaN margin), one part and [4, 2048]; K9
+   (``sgd_update``) at l2 = 0 and 0.01 on the parameters of all four
+   models at full width (FFM's 624 MB V) and on a parameter one float off
+   its allocation with its gradient aligned alike and apart; each timed
+   beside its bound, its plain version and one PyTorch call
+   (``F.binary_cross_entropy_with_logits(..., reduction="sum")``,
+   ``torch._foreach_add_``);
 4. main path: a seeded Criteo-shaped libsvm file of about 256 MB through
    the port's ``Pipeline``, the chain bench.py builds:
    ``Pipeline.from_uri(path).parse(engine="native").batch(8192, pad=True,
    nnz_bucket=368640).to_device(cuda, window="auto")
    .build(autotune=True)`` (native parse → the engine's ABI-5 padded
    batches → pinned async H2D) → ``SparseLinearModel(1_000_000)
-   .train_step`` for one epoch; the loss must fall and each kernel must
-   have launched once per step; then parse-only epochs through the
-   ``Pipeline`` and through the ``device_prefetch(size=2)`` loop this
-   script drove before, in turns, each GB/s printed; every path prints
+   .train_step`` for one epoch; the loss must fall and each kernel (K1,
+   K2, K8, K9) must have launched once per step; then parse-only epochs
+   through the ``Pipeline`` and through the ``device_prefetch(size=2)``
+   loop this script drove before, in turns, each GB/s printed; every
+   path prints
    its pipeline's stats snapshot, and every path's epochs run through
-   its ``Pipeline``;
+   its ``Pipeline``; one step on the first batch is traced: its launches
+   and device µs by kernel;
 5. parity: native padded batches byte-identical to the Python parser's
    ``pad_single``; 3 steps on the card allclose to 3 steps of the plain
    CPU path;
@@ -86,8 +99,9 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    through ``Pipeline.from_uri(path).parse(engine="native").shard(mesh,
    row_bucket=8192, nnz_bucket=368640)`` into
    ``SparseLinearModel(1_000_000).make_sharded_train_step(mesh)``: the
-   loss must fall, K1 and K2 launch once a part a step (the launch
-   counters, and one step's trace: 4 launches of each route's kernel)
+   loss must fall, K1 and K2 launch once a part a step and K8 twice and
+   K9 once a step (the launch counters, and one step's trace, whose
+   launches and device µs by kernel are printed)
    and the step's all-reduces show in its trace; epoch 2 re-parses and
    tees, epoch 3 replays from memory with batches hashing equal to epoch
    1's; 3 sharded steps allclose to 3 flat ``train_step``s over the same
@@ -103,7 +117,8 @@ written into the batches, and each kernel must read them as its plain
 version does.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
-the line before it the kernels' JSON record (all ten kernels). Imports
+the line before it the kernels' JSON record (every kernel: K1-K9, K8's
+three launches apart). Imports
 nothing of JAX or of the ``dmlc_tpu`` package.
 """
 
@@ -196,6 +211,11 @@ LEARNING_RATE = 6.0
 # Card peaks (H100 SXM data sheet, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# The card's L2. A kernel whose bound counts its bytes at HBM_BYTES_PER_S
+# is timed cold, rotating over copies of its inputs that pass twice this
+# together (at most COLD_COPIES copies).
+L2_BYTES = 50 * 2**20
+COLD_COPIES = 16
 # Tolerances, each with its reason:
 # K1 sums each row in another fp32 order (warp lanes + shuffle tree with
 # fma) than the plain version (index_add_, atomics on the card). The
@@ -233,6 +253,19 @@ K4_WIDE_COLS = 8192
 # its rtol applies to each row's sum of |terms| (s * pw * sp' over both
 # directions). K7 sums in another order than its plain version.
 RANK_RTOL, RANK_ATOL = 1e-5, 1e-6
+# K8 sums non-negative terms (weight * loss, and the weights), so its loss
+# is held to an rtol of itself; g = (w / W) * d with d in [-1, 1] formed by
+# expf/log1pf and a few roundings in the kernel and by torch's exp and
+# sigmoid in the plain version, so |err| of g is held to K8_DTOL of w / W;
+# the bias's sum g, whose terms cancel, to K8_RTOL of sum|g|.
+K8_RTOL, K8_ATOL, K8_DTOL = 1e-5, 1e-6, 1e-6
+# About 24 fp32 operations a row: the margin's adds, exp and log1p (about
+# 8 each in library code), sigma's divide, the products and the three sums.
+K8_OPS_PER_ROW = 24
+# K9 computes p - lr (g + 2 l2 p) with two fmas, the plain version with
+# four roundings: |err| to K9_RTOL of |p| + lr |g| + 2 lr l2 |p|. Its l2
+# term sums p^2 (non-negative) in another order: rtol of itself.
+K9_RTOL, K9_LOSS_RTOL = 1e-6, 1e-5
 # 3 SGD steps on the card against the plain path (the CPU for the linear
 # model; the plain versions on the card for FM and FFM): the kernels' sums
 # and the card's reductions of the loss run in other orders.
@@ -524,6 +557,23 @@ def _device_us_by_kernel(fn, iters: int = 1, calls=None):
         time.sleep(1.0)  # an empty trace recovers by the next one or two
     fail(f"no trace of {PROFILE_ATTEMPTS} showed the launches wanted: "
          f"{want} a piece of {iters}")
+
+
+def rotating(inputs, nbytes):
+    """A function that returns ``inputs`` and its copies in turn: as many
+    copies (``inputs`` counted) as pass 2 * L2_BYTES together at
+    ``nbytes`` each, at most COLD_COPIES, so a kernel timed on them reads
+    its inputs from HBM, not from L2. ``inputs``: a list of tensors or of
+    lists of tensors. Returns (the function, the number of copies)."""
+    import itertools
+
+    def clone(x):
+        return x.clone() if hasattr(x, "clone") else [clone(y) for y in x]
+
+    copies = max(1, min(COLD_COPIES, -(-2 * L2_BYTES // max(nbytes, 1))))
+    turn = itertools.cycle([inputs] + [clone(inputs)
+                                       for _ in range(copies - 1)])
+    return lambda: next(turn), copies
 
 
 def device_ms(fn, iters: int = 50, calls=None) -> float:
@@ -899,6 +949,351 @@ def check_kernels(first):
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib,
          "call_ms": k2_call},
     ]
+    return rows
+
+
+# --------------------------------------------------------------- phase 3b
+
+# The objective's and the update's edge cases (K8, K9): see
+# objective_cases and check_step_kernels.
+def objective_cases(label, weight):
+    """K8's inputs at the main path's first batch (its labels ±1 and
+    weights), with edge cases written in: {name: (t0, t1 or None, bias or
+    None, label, weight)}, float32 numpy of the batch's rows."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 8)
+    n = label.size
+    t0 = rng.randn(n).astype(np.float32)
+    t1 = (0.5 * rng.randn(n)).astype(np.float32)
+    bias = np.float32(0.1)
+    zero = np.zeros(n, np.float32)
+    large = t0.copy()
+    large_w = weight.copy()
+    large[:8] = [88.0, -88.0, 3e38, -3e38, 3e38, -3e38, 88.0, -88.0]
+    large_label = label.copy()
+    large_label[:8] = [1, -1, 1, -1, -1, 1, -1, 1]
+    large_w[:8] = 1.0
+    large_w[4:6] = 1e-3  # their losses are 3e38: keep the sums finite
+    nan = t0.copy()
+    nan[10] = np.nan
+    return {
+        "first_batch": (t0, None, bias, label, weight),
+        "two_terms": (t0, t1, bias, label, weight),
+        "zero_margin": (zero, zero, np.float32(0.0), label, weight),
+        "labels01": (t0, t1, bias, (label > 0).astype(np.float32), weight),
+        "all_padded": (t0, None, bias, label, np.zeros(n, np.float32)),
+        "small_weight": (t0, None, bias, label,
+                         (weight * (0.37 / max(weight.sum(), 1.0))
+                          ).astype(np.float32)),
+        "large_margin": (large, None, None, large_label, large_w),
+        "nan_margin": (nan, t1, bias, label, weight),
+    }
+
+
+def _on_card(case, shape=None):
+    import torch
+    t0, t1, bias, label, weight = case
+    cuda = torch.device("cuda")
+
+    def put(a):
+        t = torch.from_numpy(a).to(cuda)
+        return t if shape is None else t.reshape(shape)
+
+    return ([put(t0)] + ([] if t1 is None else [put(t1)]),
+            None if bias is None else torch.tensor(bias, device=cuda),
+            put(label), put(weight))
+
+
+def _first_rows(case, count):
+    """A K8 case (see objective_cases) cut to its first ``count`` rows."""
+    t0, t1, bias, label, weight = case
+    return (t0[:count], None if t1 is None else t1[:count], bias,
+            label[:count], weight[:count])
+
+
+def _check_objective(name, got, want, weight):
+    """K8's (loss, g, gb) against its plain version's: NaN where the plain
+    version's is; the loss (a sum of non-negative terms) to K8_RTOL of
+    itself; g to K8_DTOL of weight / W (the rounding of d in [-1, 1]);
+    gb to K8_RTOL of sum|g| (0 where every weight is 0). Returns the max
+    |err| of g."""
+    import torch
+    loss, g, gb = got
+    p_loss, p_g, p_gb = want
+    torch.cuda.synchronize()
+    wsum = weight.sum()
+    unit = weight.abs() / torch.where(wsum > 0, wsum, torch.ones_like(wsum))
+    for what, a, b in (("loss", loss, p_loss), ("g", g, p_g),
+                       ("sum g", gb, p_gb)):
+        require(torch.equal(torch.isnan(a), torch.isnan(b)),
+                f"K8 {name}: {what} is NaN where its plain version's is "
+                "not, or the other way round")
+    g_err = (g - p_g).abs().nan_to_num()
+    ok = (bool((loss - p_loss).abs().nan_to_num()
+               <= K8_RTOL * p_loss.abs().nan_to_num() + K8_ATOL)
+          and bool((g_err <= K8_DTOL * unit.reshape(g.shape)).all())
+          and bool((gb - p_gb).abs().nan_to_num()
+                   <= K8_RTOL * p_g.abs().nan_to_num().sum()))
+    require(ok, f"K8 {name} disagrees with its plain version: loss "
+            f"{loss.item()} vs {p_loss.item()}, g max |err| "
+            f"{g_err.max().item()}, sum g {gb.item()} vs {p_gb.item()}")
+    return g_err.max().item()
+
+
+def _check_sgd(name, params, grads, decay, lr, l2):
+    """K9 on copies of ``params`` against its plain version on others,
+    with the loss's l2 term: each parameter to K9_RTOL of |p| + lr·|g| +
+    2·lr·l2·|p| (a few roundings of each), the loss to K9_LOSS_RTOL.
+    Returns the max |err| of the parameters."""
+    import torch
+    from dmlc_tpu_torch.ops import step as step_ops
+
+    def copy(p):
+        # a copy at p's offset from a 16-byte boundary (a clone would
+        # start on one): K9 cuts a parameter by its alignment
+        floats = p.data_ptr() % 16 // 4
+        buf = torch.empty(p.numel() + 4, device=p.device)
+        return buf[floats:floats + p.numel()].view(p.shape).copy_(p)
+
+    got = [copy(p) for p in params]
+    want = [copy(p) for p in params]
+    require(all(a.data_ptr() % 16 == p.data_ptr() % 16
+                for a, p in zip(got, params)),
+            f"K9 {name}: the copies lost the parameters' alignment")
+    loss = torch.tensor(0.5, device=params[0].device)
+    p_loss = loss.clone()
+    step_ops.sgd_update(got, grads, decay, lr, l2, loss)
+    step_ops.sgd_update_plain(want, grads, decay, lr, l2, p_loss)
+    torch.cuda.synchronize()
+    err = 0.0
+    for p, g, a, b, dk in zip(params, grads, got, want, decay):
+        scale = p.abs() * (1 + 2 * lr * l2 * dk) + lr * g.abs()
+        e = (a - b).abs()
+        require(bool((e <= K9_RTOL * scale).all()),
+                f"K9 {name} disagrees with its plain version: max |err| "
+                f"{e.max().item()}, max |err| / scale "
+                f"{(e / scale).nan_to_num().max().item()}")
+        err = max(err, e.max().item())
+        del e, scale
+    require(abs(loss.item() - p_loss.item())
+            <= K9_LOSS_RTOL * abs(p_loss.item()),
+            f"K9 {name}: the loss with its l2 term {loss.item()} vs the "
+            f"plain version's {p_loss.item()}")
+    if not l2:
+        require(loss.item() == 0.5, f"K9 {name}: l2 = 0 changed the loss")
+    del got, want
+    return err
+
+
+def model_params(kind, device, gen):
+    """Random parameters and gradients at a model's full width: w and b,
+    and V of FM [10^6, 8] or FFM [10^6, 39, 4] (624 MB); the ranking
+    model's 137 weights. Returns (params, grads, decay)."""
+    import torch
+    width = {"linear": (NUM_FEATURES,), "fm": (NUM_FEATURES,),
+             "ffm": (NUM_FEATURES,), "ranking": (RANK_NUM_FEATURES,)}[kind]
+    shapes = [width, ()]
+    if kind == "fm":
+        shapes.append((NUM_FEATURES, FM_FACTORS))
+    if kind == "ffm":
+        shapes.append((NUM_FEATURES, FFM_FIELDS, FFM_FACTORS))
+    params = [torch.randn(s, device=device, generator=gen) * 0.1
+              for s in shapes]
+    grads = [torch.randn(s, device=device, generator=gen) * 1e-3
+             for s in shapes]
+    return params, grads, [len(s) > 0 for s in shapes]
+
+
+def check_step_kernels(first):
+    """Phase 3b: K8 (the objective and its margin gradient, one launch a
+    part and two a sharded step) and K9 (the SGD update, one launch for
+    every parameter) against their plain versions on the card, at the main
+    path's first batch and edge cases, at the sharded [4, 8192] layout and
+    a grid with a partial last block ([3, 2727]), and K9 at the four
+    models' widths; then each timed beside its bound, its plain version
+    and one PyTorch call, K9 with its inputs cold in L2 (rotating)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dmlc_tpu_torch.ops import step as step_ops
+    cuda = torch.device("cuda")
+    n = ROW_BUCKET
+    label = np.asarray(first["label"], np.float32)
+    weight = np.asarray(first["weight"], np.float32)
+    require(label.size == n and set(np.unique(label)) <= {-1.0, 1.0},
+            "the main path's first batch has other labels than +-1")
+    cases = objective_cases(label, weight)
+    errs = {}
+    for name, case in cases.items():
+        args = _on_card(case)
+        before = step_ops.logistic_step.launches
+        got = step_ops.logistic_step(*args)
+        require(step_ops.logistic_step.launches == before + 1,
+                f"K8 {name}: the wrapper did not count its launch")
+        errs[name] = _check_objective(
+            name, got, step_ops.logistic_step_plain(*args), args[3])
+        # the sharded layout: [4, rows / 4] of one process
+        sh = _on_card(case, (SHARD_PARTS, n // SHARD_PARTS))
+        total = step_ops.logistic_sums(*sh)
+        p_total = step_ops.logistic_sums_plain(*sh)
+        torch.cuda.synchronize()
+        require(bool(torch.allclose(total, p_total, rtol=K8_RTOL,
+                                    atol=K8_ATOL, equal_nan=True)),
+                f"K8 sums {name}: {total.tolist()} vs the plain version's "
+                f"{p_total.tolist()}")
+        _check_objective(f"{name}, sharded", step_ops.logistic_grad(
+            *sh, p_total), step_ops.logistic_grad_plain(*sh, p_total),
+            sh[3])
+        # a grid whose last block is partial: [3, 2727] of the rows
+        odd = _on_card(_first_rows(case, 3 * 2727), (3, 2727))
+        odd_total = step_ops.logistic_sums(*odd)
+        p_odd = step_ops.logistic_sums_plain(*odd)
+        torch.cuda.synchronize()
+        require(bool(torch.allclose(odd_total, p_odd, rtol=K8_RTOL,
+                                    atol=K8_ATOL, equal_nan=True)),
+                f"K8 sums {name} over [3, 2727]: {odd_total.tolist()} vs "
+                f"the plain version's {p_odd.tolist()}")
+        _check_objective(f"{name}, sharded [3, 2727]",
+                         step_ops.logistic_grad(*odd, p_odd),
+                         step_ops.logistic_grad_plain(*odd, p_odd), odd[3])
+    zl, zg, _ = step_ops.logistic_step(*_on_card(cases["zero_margin"]))
+    y = torch.from_numpy((label > 0).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(weight).to(cuda)
+    require(bool(torch.allclose(zg, -y * w / w.sum(), rtol=1e-6, atol=0)),
+            "K8 at m = 0: g is not -y * w / W (ROADMAP C4)")
+    log("K8 agrees with its plain version (one part, and its two sharded "
+        f"launches over [{SHARD_PARTS}, {n // SHARD_PARTS}] and "
+        "[3, 2727]) on "
+        + ", ".join(f"{k} (g max |err| {v:.3g})" for k, v in errs.items())
+        + f"; at m = 0, g = -y w / W (rtol {K8_RTOL} of the loss, "
+        f"{K8_DTOL} of w / W for g)")
+
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 9)
+    sgd_errs = {}
+    for kind in ("linear", "fm", "ffm", "ranking"):
+        params, grads, decay = model_params(kind, cuda, gen)
+        for l2 in (0.0, 0.01):
+            sgd_errs[kind, l2] = _check_sgd(f"{kind} l2={l2}", params, grads,
+                                            decay, 0.5, l2)
+        del params, grads
+        torch.cuda.empty_cache()
+    # the float4 body and the scalar head and tail: a parameter one float
+    # off its allocation (and of a length not a multiple of 4), its
+    # gradient aligned alike or not, beside the bias
+    buf = torch.randn(NUM_FEATURES + 8, device=cuda, generator=gen)
+    gbuf = torch.randn(NUM_FEATURES + 8, device=cuda, generator=gen)
+    span = NUM_FEATURES + 3
+    for what, g in (("aligned alike", gbuf[1:1 + span]),
+                    ("aligned apart", gbuf[2:2 + span])):
+        sgd_errs[what, 0.01] = _check_sgd(
+            f"one float off its allocation, gradient {what}",
+            [buf[1:1 + span], buf[-1]], [g, gbuf[-1]], [True, False], 0.5,
+            0.01)
+    log("K9 agrees with its plain version at l2 = 0 and 0.01 on the "
+        "parameters of the linear model, FM (V 8e6 floats), FFM (V "
+        f"{NUM_FEATURES * FFM_FIELDS * FFM_FACTORS} floats) and the ranking "
+        "model, and on a parameter one float off its allocation: "
+        + ", ".join(f"{k} l2={l2} {v:.3g}"
+                    for (k, l2), v in sgd_errs.items())
+        + f" (rtol {K9_RTOL} of |p| + lr |g| + 2 lr l2 |p|; the loss's l2 "
+        f"term rtol {K9_LOSS_RTOL})")
+
+    # Timing: K8 at the main path's first batch (margins = K1's + b) and
+    # at the sharded layout; K9 at each model's width, l2 = 0
+    rows = []
+    t = _on_card(cases["first_batch"])
+    m = t[0][0] + t[1]
+    y01 = (t[2] > 0).to(torch.float32)
+    k8_bytes = n * 16 + 4 + 3 * 4
+    k8_ops = n * K8_OPS_PER_ROW
+    k8_ms = device_ms(lambda: step_ops.logistic_step(*t),
+                      calls={"logistic_step_kernel": 1})
+    k8_call = call_ms(lambda: step_ops.logistic_step(*t))
+    k8_plain = device_ms(lambda: step_ops.logistic_step_plain(*t))
+    k8_lib = device_ms(lambda: F.binary_cross_entropy_with_logits(
+        m, y01, t[3], reduction="sum"))
+    bound, by = bound_ms(k8_bytes, k8_ops)
+    rows.append({"name": "logistic_step", "route": "cuda",
+                 "source": "dmlc_tpu_torch/csrc/step.cu",
+                 "replaces": "dmlc_tpu/models/common.py:28",
+                 "max_abs_err": errs["first_batch"], "ms": k8_ms,
+                 "plain_ms": k8_plain, "bound_ms": bound, "bound_by": by,
+                 "library_ms": k8_lib, "call_ms": k8_call})
+    sh = _on_card((np.tile(cases["first_batch"][0], SHARD_PARTS), None,
+                   np.float32(0.1), np.tile(label, SHARD_PARTS),
+                   np.tile(weight, SHARD_PARTS)), (SHARD_PARTS, n))
+    total = step_ops.logistic_sums(*sh)
+    sh_m = sh[0][0] + sh[1]
+    sh_y = (sh[2] > 0).to(torch.float32)
+    for name, replaces, fn, plain, nbytes in (
+            ("logistic_sums", "dmlc_tpu/models/common.py:18",
+             lambda: step_ops.logistic_sums(*sh),
+             lambda: step_ops.logistic_sums_plain(*sh),
+             SHARD_PARTS * n * 12 + 4 + 8),
+            ("logistic_grad", "dmlc_tpu/models/common.py:132",
+             lambda: step_ops.logistic_grad(*sh, total),
+             lambda: step_ops.logistic_grad_plain(*sh, total),
+             SHARD_PARTS * n * 16 + 4 + 8 + 3 * 4)):
+        got = fn()
+        want = plain()
+        torch.cuda.synchronize()
+        if name == "logistic_sums":
+            err = (got - want).abs().max().item()
+        else:
+            err = _check_objective("sharded timing batch", got, want, sh[3])
+        k_ms = device_ms(fn, calls={f"{name}_kernel": 1})
+        bound, by = bound_ms(nbytes, SHARD_PARTS * n * K8_OPS_PER_ROW)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "dmlc_tpu_torch/csrc/step.cu",
+                     "replaces": replaces, "max_abs_err": err, "ms": k_ms,
+                     "plain_ms": device_ms(plain), "bound_ms": bound,
+                     "bound_by": by,
+                     "library_ms": device_ms(
+                         lambda: F.binary_cross_entropy_with_logits(
+                             sh_m, sh_y, sh[3], reduction="sum")),
+                     "call_ms": call_ms(fn)})
+    log(f"K8 timed at the main path's first batch ({n} rows) and at the "
+        f"sharded layout [{SHARD_PARTS}, {n}]; library: "
+        "F.binary_cross_entropy_with_logits(m, y, weight, reduction='sum') "
+        "on the summed margins")
+    for kind in ("linear", "fm", "ffm", "ranking"):
+        params, grads, decay = model_params(kind, cuda, gen)
+        floats = sum(p.numel() for p in params)
+        # cold: at the linear width p and g (8 MB) would stay in L2 from
+        # one call to the next, and the kernel would beat its HBM bound
+        turn, copies = rotating([params, grads], floats * 8)
+
+        def k9():
+            p, g = turn()
+            step_ops.sgd_update(p, g, decay, LEARNING_RATE, 0.0)
+
+        def k9_plain():
+            p, g = turn()
+            step_ops.sgd_update_plain(p, g, decay, LEARNING_RATE, 0.0)
+
+        def k9_lib():
+            p, g = turn()
+            torch._foreach_add_(p, g, alpha=-LEARNING_RATE)
+
+        k9_ms = device_ms(k9, iters=20, calls={"sgd_update_kernel": 1})
+        k9_plain_ms = device_ms(k9_plain, iters=20)
+        k9_lib = device_ms(k9_lib, iters=20)
+        bound, by = bound_ms(floats * 12, floats * 2)
+        log(f"K9 at the {kind} model's {floats} floats, rotating over "
+            f"{copies} copies of p and g: kernel "
+            f"{k9_ms * 1e3:.2f} us, plain {k9_plain_ms * 1e3:.2f} us, "
+            f"torch._foreach_add_ {k9_lib * 1e3:.2f} us, bound "
+            f"{bound * 1e3:.2f} us ({by})")
+        if kind == "linear":
+            rows.append({"name": "sgd_update", "route": "cuda",
+                         "source": "dmlc_tpu_torch/csrc/step.cu",
+                         "replaces": "dmlc_tpu/models/common.py:91",
+                         "max_abs_err": sgd_errs["linear", 0.0],
+                         "ms": k9_ms, "plain_ms": k9_plain_ms,
+                         "bound_ms": bound, "bound_by": by,
+                         "library_ms": k9_lib, "call_ms": call_ms(k9)})
+        del params, grads, turn
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1447,30 +1842,39 @@ def h2d_gbps(first) -> float:
     return nbytes / (ms * 1e-3) / 1e9
 
 
-def main_path(path, size, lr):
+def main_path(path, size, lr, first):
     """One training epoch of SparseLinearModel(10^6) through the port's
     Pipeline; then parse-only epochs through the Pipeline and through the
     old device_prefetch loop in turns (Pipeline, loop, loop, Pipeline);
-    then a profiled training epoch."""
+    then a profiled training epoch, and a profiled step on ``first``, the
+    path's first batch."""
     import statistics
+    import numpy as np
     import torch
     from dmlc_tpu_torch.models.linear import SparseLinearModel
     from dmlc_tpu_torch.ops import csr
+    from dmlc_tpu_torch.ops import step as step_ops
     cuda = torch.device("cuda")
+    wrappers = {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
+                "logistic_step": step_ops.logistic_step,
+                "logistic_sums": step_ops.logistic_sums,
+                "logistic_grad": step_ops.logistic_grad,
+                "sgd_update": step_ops.sgd_update}
     built = build_pipeline(path)
     warm_up(built, SparseLinearModel(NUM_FEATURES, learning_rate=lr,
                                      device=cuda))
 
     model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
-    csr.csr_spmv.launches = 0
-    csr.csr_spmv_t.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     secs, losses, steps, moved = train_epoch(built, model, train=True)
-    launches = {"csr_spmv": csr.csr_spmv.launches,
-                "csr_spmv_t": csr.csr_spmv_t.launches}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
     require(steps > 0, "the epoch yielded no batch")
-    require(all(v == steps for v in launches.values()),
-            f"launch counts {launches} != {steps} steps: the main path did "
-            "not go through the kernels once per step")
+    want = {k: steps if k in PATH_KERNELS["linear"] else 0
+            for k in launches}
+    require(launches == want,
+            f"launch counts {launches} != {want}: the main path did not go "
+            "through the kernels once per step")
     require(all(x == x and abs(x) != float("inf") for x in losses),
             f"non-finite loss in {losses}")
     require(losses[-1] < losses[0],
@@ -1515,7 +1919,52 @@ def main_path(path, size, lr):
         built, SparseLinearModel(NUM_FEATURES, learning_rate=lr,
                                  device=cuda), secs)
     built.close()
+    batch = {k: torch.from_numpy(np.asarray(v)).to(cuda)
+             for k, v in first.items()}
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    for _ in range(3):
+        model.train_step(batch)
+    stats["step"] = step_trace("linear", lambda: model.train_step(batch),
+                               STEP_CALLS["linear"])
     return launches, stats
+
+
+def _launch_kind(key):
+    """What a step trace's kernel is: a kernel of the port (its name), or
+    torch's fill, reduction, elementwise, cat or NCCL kernels, or a
+    copy."""
+    for prefix in ("(anonymous namespace)::", "void (anonymous namespace)::"):
+        if key.startswith(prefix):
+            return key[len(prefix):].split("<")[0].split("(")[0]
+    for part, kind in ((FILL, "fill"), ("reduce_kernel", "reduction"),
+                       ("CatArrayBatchedCopy", "cat"),
+                       ("elementwise", "elementwise"), ("nccl", "nccl"),
+                       ("Memcpy", "copy"), ("Memset", "memset")):
+        if part in key:
+            return kind
+    return "other"
+
+
+def step_trace(name, fn, calls=None):
+    """One step, ``fn()``, under the profiler: its total launches and its
+    device µs, by kind of kernel (_launch_kind) and by kernel, logged and
+    returned ({"launches", "device_us", "by_kind": {kind: [µs, n]}}).
+    ``calls``: the launches it must show (see _device_us_by_kernel)."""
+    by_kernel = _device_us_by_kernel(fn, 1, calls)
+    kinds = {}
+    for key, (t, n) in by_kernel.items():
+        us, count = kinds.get(_launch_kind(key), (0.0, 0))
+        kinds[_launch_kind(key)] = (us + t, count + n)
+    out = {"launches": sum(n for _, n in by_kernel.values()),
+           "device_us": sum(t for t, _ in by_kernel.values()),
+           "by_kind": {k: [round(us, 3), n] for k, (us, n) in kinds.items()}}
+    log(f"{name} step trace: {out['launches']} launches, "
+        f"{out['device_us']:.2f} us of device time; by kind: "
+        + ", ".join(f"{k} {n} x {us:.2f} us" for k, (us, n) in
+                    sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    for key, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {t:9.2f} us  {n:3d} calls  {key[:90]}")
+    return out
 
 
 def device_time(built, model, epoch_s):
@@ -1592,23 +2041,85 @@ def parity(path, lr):
 
 # --------------------------------------------------------------- phase 6
 
-# The kernels each model's step launches once.
-PATH_KERNELS = {"fm": ("csr_spmv", "csr_spmv_t", "fm_pair_fwd",
-                       "fm_pair_bwd"),
+# The kernels each model's single-part step launches once: K8 on the
+# logistic models, K9 on every model.
+PATH_KERNELS = {"linear": ("csr_spmv", "csr_spmv_t", "logistic_step",
+                           "sgd_update"),
+                "fm": ("csr_spmv", "csr_spmv_t", "fm_pair_fwd",
+                       "fm_pair_bwd", "logistic_step", "sgd_update"),
                 "ffm": ("csr_spmv", "csr_spmv_t", "ffm_pair_fwd",
-                        "ffm_pair_bwd"),
+                        "ffm_pair_bwd", "logistic_step", "sgd_update"),
                 "ranking": ("csr_spmv", "csr_spmv_t", "pair_sums",
-                            "pair_sums_grad")}
+                            "pair_sums_grad", "sgd_update")}
+# The kernels a traced step must launch, by kernel: the linear single-part
+# step's, and the sharded linear step's over SHARD_PARTS parts (K1 and K2
+# once a part, K8 twice, K9 once).
+STEP_CALLS = {
+    "linear": {"csr_spmv_half_kernel": 1, "csr_spmv_warp_kernel": 0,
+               "csr_spmv_t_kernel": 1, "csr_spmv_t_private_kernel": 0,
+               "logistic_step_kernel": 1, "logistic_sums_kernel": 0,
+               "logistic_grad_kernel": 0, "sgd_update_kernel": 1},
+    "sharded": {"csr_spmv_half_kernel": SHARD_PARTS,
+                "csr_spmv_warp_kernel": 0,
+                "csr_spmv_t_kernel": SHARD_PARTS,
+                "csr_spmv_t_private_kernel": 0, "logistic_step_kernel": 0,
+                "logistic_sums_kernel": 1, "logistic_grad_kernel": 1,
+                "sgd_update_kernel": 1},
+}
 
 
 def _wrappers():
     from dmlc_tpu_torch.ops import csr, fm, ranking
+    from dmlc_tpu_torch.ops import step as step_ops
     return {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
             "sdot_rows": csr.sdot_rows, "csr_to_dense": csr.csr_to_dense,
             "fm_pair_fwd": fm.fm_pair_fwd, "fm_pair_bwd": fm.fm_pair_bwd,
             "ffm_pair_fwd": fm.ffm_pair_fwd, "ffm_pair_bwd": fm.ffm_pair_bwd,
             "pair_sums": ranking.pair_sums,
-            "pair_sums_grad": ranking.pair_sums_grad}
+            "pair_sums_grad": ranking.pair_sums_grad,
+            "logistic_step": step_ops.logistic_step,
+            "logistic_sums": step_ops.logistic_sums,
+            "logistic_grad": step_ops.logistic_grad,
+            "sgd_update": step_ops.sgd_update}
+
+
+class plain_step_ops:
+    """Within it, ``ops.step``'s wrappers are their plain versions, so a
+    model's step runs the plain K8 and K9 on the card's tensors."""
+
+    NAMES = ("logistic_step", "logistic_sums", "logistic_grad",
+             "sgd_update")
+
+    def __enter__(self):
+        from dmlc_tpu_torch.ops import step as step_ops
+        self.saved = {n: getattr(step_ops, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(step_ops, n, getattr(step_ops, n + "_plain"))
+
+    def __exit__(self, *exc):
+        from dmlc_tpu_torch.ops import step as step_ops
+        for n, fn in self.saved.items():
+            setattr(step_ops, n, fn)
+
+
+def _plain_steps(cls):
+    """``cls`` whose steps, single-part and sharded, run the plain K8 and
+    K9 (plain_step_ops)."""
+
+    class PlainSteps(cls):
+        def train_step(self, batch):
+            with plain_step_ops():
+                return super().train_step(batch)
+
+        def make_sharded_train_step(self, mesh, axis="data"):
+            step = super().make_sharded_train_step(mesh, axis)
+
+            def plain(batch):
+                with plain_step_ops():
+                    return step(batch)
+            return plain
+
+    return PlainSteps
 
 
 def make_factor_model(kind, lr, cls=None):
@@ -1651,7 +2162,8 @@ def _plain_linear():
 
 def plain_factor_model(kind, lr):
     """The same model whose margins run the plain versions of K1/K2 and of
-    K5 or K6, forward and backward, on the card's tensors."""
+    K5 or K6, forward and backward, and whose steps the plain K8 and K9,
+    on the card's tensors."""
     import torch
     from dmlc_tpu_torch.models import SparseFFMModel, SparseFMModel
     from dmlc_tpu_torch.ops import fm
@@ -1680,11 +2192,11 @@ def plain_factor_model(kind, lr):
 
     base = SparseFMModel if kind == "fm" else SparseFFMModel
 
-    class Plain(base):
-        def forward(self, batch):
+    class Plain(_plain_steps(base)):
+        def _margin_terms(self, batch):
             csr_cols = (batch["offset"], batch["index"], batch["value"])
-            return (Linear.apply(*csr_cols, self.w)
-                    + Pair.apply(*csr_cols, batch["field"], self.V) + self.b)
+            return [Linear.apply(*csr_cols, self.w),
+                    Pair.apply(*csr_cols, batch["field"], self.V)]
 
     return make_factor_model(kind, lr, cls=Plain)
 
@@ -2330,7 +2842,8 @@ def check_ranking_kernels(first):
 
 def plain_ranking_model(lr):
     """SparseRankingModel whose scores and pair sums run the plain
-    versions of K1/K2 and of K7, forward and backward, on the card."""
+    versions of K1/K2 and of K7, forward and backward, and whose steps the
+    plain K9, on the card."""
     import torch
     from dmlc_tpu_torch.models import SparseRankingModel
     from dmlc_tpu_torch.ops import ranking
@@ -2350,10 +2863,10 @@ def plain_ranking_model(lr):
             return (ranking.pair_sums_grad_plain(*ctx.saved_tensors, g),
                     None, None, None)
 
-    class Plain(SparseRankingModel):
-        def forward(self, batch):
-            return Linear.apply(batch["offset"], batch["index"],
-                                batch["value"], self.w) + self.b
+    class Plain(_plain_steps(SparseRankingModel)):
+        def _margin_terms(self, batch):
+            return [Linear.apply(batch["offset"], batch["index"],
+                                 batch["value"], self.w)]
 
         def _block_objective(self, batch):
             return Pairs.apply(self(batch), batch["label"], batch["qid"],
@@ -2624,9 +3137,11 @@ def sharded_path(path, size, lr, mesh, single):
     single-part main path's stats of this run, printed beside."""
     import torch
     from dmlc_tpu_torch.models.linear import SparseLinearModel
-    from dmlc_tpu_torch.ops import csr
     from dmlc_tpu_torch.pipeline import Pipeline
     cuda = mesh.device
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["linear"] + ("logistic_sums",
+                                                  "logistic_grad")}
     built = (Pipeline.from_uri(path)
              .parse(format="libsvm", engine="native")
              .shard(mesh, row_bucket=ROW_BUCKET, nnz_bucket=NNZ_BUCKET)
@@ -2642,8 +3157,8 @@ def sharded_path(path, size, lr, mesh, single):
     step = model.make_sharded_train_step(mesh)
     epochs = []
     for epoch in range(3):
-        csr.csr_spmv.launches = 0
-        csr.csr_spmv_t.launches = 0
+        for fn in wrappers.values():
+            fn.launches = 0
         kept, losses, moved = [], [], 0
         t0 = time.perf_counter()
         for batch in built:
@@ -2652,8 +3167,7 @@ def sharded_path(path, size, lr, mesh, single):
             losses.append(step(batch))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = {"csr_spmv": csr.csr_spmv.launches,
-                    "csr_spmv_t": csr.csr_spmv_t.launches}
+        launches = {k: fn.launches for k, fn in wrappers.items()}
         hashes = [batch_hash({k: v.cpu().numpy() for k, v in b.items()})
                   for b in kept]
         shard = built.stats()["stages"][0]
@@ -2666,10 +3180,14 @@ def sharded_path(path, size, lr, mesh, single):
     e1, e2, e3 = epochs
     steps = e1["steps"]
     require(steps > 0, "the sharded epoch yielded no batch")
-    want = {k: SHARD_PARTS * steps for k in e1["launches"]}
+    want = {"csr_spmv": SHARD_PARTS * steps,
+            "csr_spmv_t": SHARD_PARTS * steps, "logistic_step": 0,
+            "logistic_sums": steps, "logistic_grad": steps,
+            "sgd_update": steps}
     require(e1["launches"] == want,
             f"sharded launch counts {e1['launches']} != {want}: K1 and K2 "
-            f"did not launch once a part a step")
+            f"did not launch once a part a step, or K8's two launches and "
+            f"K9 once a step")
     losses = e1["losses"]
     require(all(x == x and abs(x) != float("inf") for x in losses),
             f"sharded: non-finite loss in {losses}")
@@ -2690,22 +3208,17 @@ def sharded_path(path, size, lr, mesh, single):
     log(f"  losses: {[round(x, 4) for x in losses]}")
     log_pipeline_stats("sharded", built)
 
-    # one step's traces: K1 and K2 once a part, each by its route; then
-    # the all-reduces, with host activity on
+    # one step's traces: K1 and K2 once a part, each by its route, K8's
+    # two launches and K9; then the all-reduces, with host activity on
     gen = iter(built)
     batch = next(gen)
     gen.close()
-    calls = {"csr_spmv_half_kernel": SHARD_PARTS, "csr_spmv_warp_kernel": 0,
-             "csr_spmv_t_kernel": SHARD_PARTS,
-             "csr_spmv_t_private_kernel": 0}
-    by_kernel = _device_us_by_kernel(lambda: step(batch), 1, calls)
-    step_us = sum(t for t, _ in by_kernel.values())
+    traced = step_trace("sharded", lambda: step(batch),
+                        STEP_CALLS["sharded"])
+    step_us = traced["device_us"]
     ops, nccl_us = allreduce_trace(lambda: step(batch), SHARD_ALLREDUCES)
-    log(f"sharded step trace: {step_us:.2f} us of device time, "
-        f"{len(by_kernel)} kernels; all-reduce ops {ops}, NCCL kernels "
-        f"{nccl_us:.2f} us of device time a step; by kernel:")
-    for key, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
-        log(f"  {t:9.2f} us  {n:3d} calls  {key[:90]}")
+    log(f"sharded step: all-reduce ops {ops}, NCCL kernels {nccl_us:.2f} "
+        "us of device time a step")
     built.close()
 
     gbps = [size / e["secs"] / 1e9 for e in epochs]
@@ -2717,7 +3230,8 @@ def sharded_path(path, size, lr, mesh, single):
              "h2d_bytes_per_batch": e1["moved"] // steps,
              "allreduce_device_us_per_step": nccl_us,
              "allreduce_ops": ops, "step_device_us": step_us,
-             "launches": e1["launches"], "knobs": built.knob_values()}
+             "step": traced, "launches": e1["launches"],
+             "knobs": built.knob_values()}
     log(f"sharded parse-to-device with training: epochs 1 (parse), 2 "
         f"(parse, tee), 3 (memory replay): "
         + " / ".join(f"{x:.3f}" for x in gbps) + " GB/s, "
@@ -2827,9 +3341,12 @@ def main() -> None:
         size = write_corpus(path)
         log(f"corpus: {size} bytes in {time.perf_counter() - t0:.1f} s")
         first = first_batch(path)
-        rows = check_kernels(first)
-        launches, stats = main_path(path, size, LEARNING_RATE)
-        report_kernels(rows, launches, stats["steps"])
+        rows = check_kernels(first) + check_step_kernels(first)
+        launches, stats = main_path(path, size, LEARNING_RATE, first)
+        sharded_rows = [r for r in rows
+                        if r["name"] in ("logistic_sums", "logistic_grad")]
+        report_kernels([r for r in rows if r not in sharded_rows], launches,
+                       stats["steps"])
         stats["h2d_gbps"] = h2d_gbps(first)
         log(f"H2D from pinned slots: {stats['h2d_gbps']:.2f} GB/s "
             f"({stats['h2d_bytes_per_batch']} bytes per batch)")
@@ -2837,6 +3354,8 @@ def main() -> None:
         mesh = init_nccl()
         stats["sharded"] = sharded_path(path, size, LEARNING_RATE, mesh,
                                         stats)
+        report_kernels(sharded_rows, stats["sharded"]["launches"],
+                       stats["sharded"]["steps"])
         os.unlink(path)
 
         # the factor models' path: libfm → FM and FFM

@@ -4,11 +4,13 @@ definition of the single-device and the data-parallel step."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
 
+from dmlc_tpu_torch.ops import step as step_ops
+from dmlc_tpu_torch.ops.step import stable_bce_on_logits
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["SparseModelBase", "stable_bce_on_logits"]
@@ -22,34 +24,20 @@ def _weighted_mean(lsum: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
     return lsum / denom
 
 
-def stable_bce_on_logits(margins: torch.Tensor,
-                         labels: torch.Tensor) -> torch.Tensor:
-    """Per-row binary cross-entropy on logits, numerically stable.
-
-    Labels may follow the ±1 (libsvm) or {0,1} convention: y = label > 0.
-
-    At a zero margin (every row of the zero-initialised model) the
-    gradient follows the reference's subgradients, not σ(0) − y:
-    ``jnp.maximum`` splits a tie in half (as ``torch.maximum`` does) and
-    ``jnp.abs`` has slope +1 at 0 (``torch.abs`` has 0), so |m| is
-    written as a select that takes the +m branch at 0.
-    """
-    y = (labels > 0).to(torch.float32)
-    abs_m = torch.where(margins >= 0, margins, -margins)
-    return (torch.maximum(margins, torch.zeros_like(margins))
-            - margins * y + torch.log1p(torch.exp(-abs_m)))
-
-
 class SparseModelBase(nn.Module):
     """The weighted-objective SGD scaffolding shared by the sparse models.
 
     Subclasses provide ``_BATCH_KEYS`` (the batch columns their objective
-    consumes beyond label/weight) and ``forward(batch) -> margins``; the
-    objective of a block, ``_block_objective(batch) -> (loss_sum,
-    weight_sum)``, is the weighted logistic loss of those margins unless a
-    subclass overrides it. The base defines the normalised weighted loss
-    with optional l2 (over every parameter except the bias ``b``) and the
-    SGD step.
+    consumes beyond label/weight) and ``_margin_terms(batch)``: the margins
+    without the bias ``b``, as one or two ``[rows]`` terms, whose sum plus
+    ``b`` is ``forward``. The base's objective, ``_objective``, is the
+    weighted logistic loss of those margins, run with its margin gradient
+    through kernel K8 (``ops.step``); the ranking model overrides it with
+    its pairwise objective.
+
+    The base defines the normalised weighted loss with optional l2 (over
+    every parameter except the bias ``b``) and the single-part and
+    data-parallel SGD steps, whose update is kernel K9.
     """
 
     _BATCH_KEYS: tuple = ("offset", "index", "value")
@@ -59,11 +47,48 @@ class SparseModelBase(nn.Module):
         self.l2 = l2
         self.learning_rate = learning_rate
 
-    def _block_objective(self, batch: Dict[str, Any]
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        per_row = stable_bce_on_logits(self(batch), batch["label"])
-        w = batch["weight"]
-        return (per_row * w).sum(), w.sum()
+    def _margin_terms(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Margins for one flat padded CSR batch."""
+        terms = self._margin_terms(batch)
+        margins = terms[0]
+        for t in terms[1:]:
+            margins = margins + t
+        return margins + self.b
+
+    def _objective(self, batch: Dict[str, Any], mesh=None,
+                   backward: bool = False) -> torch.Tensor:
+        """The loss of ``batch`` without the l2 term: of one part (flat
+        ``[rows]`` columns) where ``mesh`` is None, else of this process's
+        parts (``[L, rows]``) normalised by the weight of the whole group's
+        batch (its all-reduce). With ``backward``, also sets every
+        parameter's ``.grad`` to this process's gradient of that loss.
+
+        The weighted logistic loss of the margin terms through K8: on one
+        part one launch gives the loss, the margin gradient g and ``b``'s
+        gradient Σ g; on a mesh the terms are stacked over the parts, K8's
+        first launch sums (lsum, wsum), which is all-reduced, and its
+        second reads the group's W on the device. Autograd sends g back
+        through each term's kernels."""
+        if mesh is None:
+            terms = self._margin_terms(batch)
+        else:
+            terms = [torch.stack(ts) for ts in zip(*(
+                self._margin_terms(self._part(batch, p))
+                for p in range(batch["label"].shape[0])))]
+        args = ([t.detach() for t in terms], self.b.detach(),
+                batch["label"], batch["weight"])
+        if mesh is None:
+            loss, g, gb = step_ops.logistic_step(*args)
+        else:
+            total = self._all_reduce(step_ops.logistic_sums(*args), mesh)
+            loss, g, gb = step_ops.logistic_grad(*args, total)
+        if backward:
+            torch.autograd.backward(terms, [g] * len(terms))
+            self.b.grad = gb
+        return loss
 
     def _l2_term(self) -> torch.Tensor:
         return sum((p ** 2).sum() for name, p in self.named_parameters()
@@ -76,65 +101,58 @@ class SparseModelBase(nn.Module):
               f"{type(self).__name__} needs batch column(s) {missing} "
               "that this batch lacks")
 
+    def _with_l2(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss + self.l2 * self._l2_term() if self.l2 else loss
+
     def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The loss of one flat batch, with the l2 term (a value)."""
         self._check_columns(batch)
-        lsum, wsum = self._block_objective(batch)
-        loss = _weighted_mean(lsum, wsum)
-        if self.l2:
-            loss = loss + self.l2 * self._l2_term()
-        return loss
+        with torch.no_grad():
+            return self._with_l2(self._objective(batch))
+
+    def _sgd(self, loss: torch.Tensor) -> None:
+        """K9 over every parameter, l2 on all but ``b``; adds the loss's l2
+        term (of the parameters before the update) to ``loss``."""
+        names, params = zip(*self.named_parameters())
+        step_ops.sgd_update(params, [p.grad for p in params],
+                            [n != "b" for n in names], self.learning_rate,
+                            self.l2, loss)
 
     def train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One SGD step on one batch; returns the loss before the update.
 
         Unlike the reference's functional ``train_step(params, batch) ->
-        (new_params, loss)``, this updates the parameters IN PLACE (under
-        ``no_grad``), so the 4 MB weight vector is not copied each step.
+        (new_params, loss)``, this updates the parameters IN PLACE, so the
+        4 MB weight vector is not copied each step. The logistic models'
+        objective, its margin gradient and ``b``'s gradient are one K8
+        launch; the update and the loss's l2 term are one K9 launch.
         """
+        self._check_columns(batch)
         for p in self.parameters():
             p.grad = None
-        loss = self.loss(batch)
-        loss.backward()
-        with torch.no_grad():
-            for p in self.parameters():
-                p.add_(p.grad, alpha=-self.learning_rate)
-        return loss.detach()
+        loss = self._objective(batch, backward=True)
+        self._sgd(loss)
+        return loss
 
     # -- data parallel (parallel.sharded layout: [L, ...] columns)
 
-    def _sharded_sums(self, batch: Dict[str, Any], mesh
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(Σ loss sums, Σ weight sums) over this process's L parts, and
-        the same pair summed over the mesh's group (detached; an
-        all-reduce whenever the mesh has a group, world 1 included).
+    @staticmethod
+    def _all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+        """``t`` summed in place over the mesh's group (an all-reduce
+        whenever the mesh has a group, world 1 included)."""
+        if mesh.group is None:
+            return t
+        import torch.distributed as dist
+        from dmlc_tpu_torch.parallel.sharded import collective_device
+        reduced = t.to(collective_device(mesh))
+        dist.all_reduce(reduced, group=mesh.group)
+        if reduced is not t:
+            t.copy_(reduced)
+        return t
 
-        Each part runs the model's own objective on its block, as the
-        reference's ``shard_map`` runs it on each device's: the ranking
-        model pairs rows only inside a part, and its ``max_row_bucket``
-        applies to a part's rows."""
-        self._check_columns(batch)
-        lsum = wsum = None
-        for p in range(batch["label"].shape[0]):
-            ls, ws = self._block_objective({k: v[p] for k, v in batch.items()})
-            lsum = ls if lsum is None else lsum + ls
-            wsum = ws if wsum is None else wsum + ws
-        total = torch.stack([lsum.detach(), wsum.detach()])
-        if mesh.group is not None:
-            import torch.distributed as dist
-            from dmlc_tpu_torch.parallel.sharded import collective_device
-            dev = collective_device(mesh)
-            reduced = total.to(dev)
-            dist.all_reduce(reduced, group=mesh.group)
-            total = reduced.to(total.device)
-        return lsum, total
-
-    def _global_loss_value(self, total: torch.Tensor) -> torch.Tensor:
-        """The global loss from the group's (Σ lsum, Σ wsum): the
-        weighted mean, plus the l2 term once."""
-        loss = _weighted_mean(total[0], total[1])
-        if self.l2:
-            loss = loss + self.l2 * self._l2_term()
-        return loss
+    @staticmethod
+    def _part(batch: Dict[str, Any], p: int) -> Dict[str, Any]:
+        return {k: v[p] for k, v in batch.items()}
 
     def global_loss(self, batch: Dict[str, Any], mesh) -> torch.Tensor:
         """The loss of a sharded batch over the whole group (counterpart
@@ -142,49 +160,39 @@ class SparseModelBase(nn.Module):
         of every part of every process summed before normalising, so the
         mean weights every datum once, not every part; plus the l2 term
         once. A value, not differentiable through the all-reduce."""
+        self._check_columns(batch)
         with torch.no_grad():
-            return self._global_loss_value(
-                self._sharded_sums(batch, mesh)[1])
+            return self._with_l2(self._objective(batch, mesh))
 
-    def make_sharded_train_step(self, mesh):
-        """The data-parallel SGD step over ``mesh`` (counterpart of the
-        reference's ``make_sharded_train_step``): ``step(batch) -> loss``
-        on a sharded batch, the parameters updated IN PLACE as
-        ``train_step`` does; every process of the group must call it on
-        its own parts.
+    def make_sharded_train_step(self, mesh, axis: str = "data"):
+        """The data-parallel SGD step over ``mesh``'s ``axis`` (counterpart
+        of the reference's ``make_sharded_train_step``): ``step(batch) ->
+        loss`` on a sharded batch of this process's parts along ``axis``,
+        the parameters updated IN PLACE as ``train_step`` does; every
+        process of the group must call it on its own parts.
 
-        The per-part (lsum, wsum) are summed over the process's parts
-        and all-reduced; each process backpropagates its ``lsum / W`` (W
-        the group's weight sum, guarded as the flat loss guards it) and
-        the gradients are all-reduced (SUM), which gives every process
-        the gradient of the group's loss; then the l2 term's gradient,
-        ``2·l2·p`` for every parameter but ``b``, is added once. The
-        loss returned is the group's, before the update."""
+        ``_objective`` gives the group's loss and this process's gradient
+        of it; the gradients are all-reduced (SUM), which gives every
+        process the gradient of the group's loss; then K9 updates every
+        parameter, adding the l2 term once. The loss returned is the
+        group's, before the update."""
+        check(axis in mesh.axis_names,
+              f"axis {axis!r} is not an axis of the mesh, whose axes are "
+              f"{mesh.axis_names}")
+        parts = len(mesh.local_parts(axis))
+
         def step(batch: Dict[str, Any]) -> torch.Tensor:
-            params = list(self.named_parameters())
-            for _, p in params:
+            self._check_columns(batch)
+            got = batch["label"].shape[0]
+            check(got == parts,
+                  f"the batch holds {got} parts, the mesh gives this "
+                  f"process {parts} along {axis!r}")
+            for p in self.parameters():
                 p.grad = None
-            lsum, total = self._sharded_sums(batch, mesh)
-            denom = torch.where(total[1] > 0, total[1],
-                                torch.ones_like(total[1]))
-            (lsum / denom).backward()
-            if mesh.group is not None:
-                import torch.distributed as dist
-                from dmlc_tpu_torch.parallel.sharded import (
-                    collective_device,
-                )
-                dev = collective_device(mesh)
-                for _, p in params:
-                    g = p.grad.to(dev)
-                    dist.all_reduce(g, group=mesh.group)
-                    if g is not p.grad:
-                        p.grad.copy_(g)
-            with torch.no_grad():
-                loss = self._global_loss_value(total)
-                for name, p in params:
-                    if self.l2 and name != "b":
-                        p.grad.add_(p, alpha=2 * self.l2)
-                    p.add_(p.grad, alpha=-self.learning_rate)
-            return loss.detach()
+            loss = self._objective(batch, mesh, backward=True)
+            for p in self.parameters():
+                self._all_reduce(p.grad, mesh)
+            self._sgd(loss)
+            return loss
 
         return step

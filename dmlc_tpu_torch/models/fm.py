@@ -7,13 +7,14 @@ gradient K2, ``ops.csr.segment_spmv``), the pair term FM's (Rendle 2010,
 the O(nnz·K) identity; kernel K5 forward and backward, ``ops.fm.fm_pair``)
 or FFM's (Juan et al. 2016, one K-vector per feature and field, the
 partner's field selects it; kernel K6 forward and backward,
-``ops.fm.ffm_pair``). Plain FM ignores ``field``. Padded rows carry
+``ops.fm.ffm_pair``). Plain FM ignores ``field``. The step's objective is
+K8 and its update K9 (``models.common``). Padded rows carry
 weight 0, so they are loss- and gradient-neutral.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -54,12 +55,13 @@ class _SparseFactorModelBase(SparseModelBase):
     def _pair(self, batch: Dict[str, Any]) -> torch.Tensor:
         raise NotImplementedError
 
-    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Margins for one flat padded CSR batch."""
-        linear = segment_spmv(batch["offset"], batch["index"],
-                              batch["value"], self.w,
-                              num_rows=batch["label"].shape[0])
-        return linear + self._pair(batch) + self.b
+    def _margin_terms(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
+        """The linear term and the pair term; ``forward`` adds them, then
+        the bias, in the reference's order."""
+        return [segment_spmv(batch["offset"], batch["index"],
+                             batch["value"], self.w,
+                             num_rows=batch["label"].shape[0]),
+                self._pair(batch)]
 
     def predict_proba(self, batch: Dict[str, Any]) -> torch.Tensor:
         return torch.sigmoid(self(batch))

@@ -1,14 +1,16 @@
 """Sparse linear learner (logistic regression) over padded CSR batches.
 
-Counterpart of ``dmlc_tpu/models/linear.py``: the forward is the CSR SpMV
-(kernel K1 on the card) and the weight gradient its transpose (kernel
-K2), paired in ``ops.csr.segment_spmv``'s autograd function. Padded rows
-carry weight 0, so they are loss- and gradient-neutral.
+Counterpart of ``dmlc_tpu/models/linear.py``: the margin is the CSR SpMV
+(kernel K1 on the card) plus the bias, and the weight gradient its
+transpose (kernel K2), paired in ``ops.csr.segment_spmv``'s autograd
+function; the step's objective is K8 and its update K9
+(``models.common``). Padded rows carry weight 0, so they are loss- and
+gradient-neutral.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
@@ -35,9 +37,10 @@ class SparseLinearModel(SparseModelBase):
         self.w = nn.Parameter(torch.zeros(num_features, device=device))
         self.b = nn.Parameter(torch.zeros((), device=device))
 
-    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Margins for one flat padded CSR batch."""
-        margins = segment_spmv(batch["offset"], batch["index"],
-                               batch["value"], self.w,
-                               num_rows=batch["label"].shape[0])
-        return margins + self.b
+    def _margin_terms(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
+        return [segment_spmv(batch["offset"], batch["index"],
+                             batch["value"], self.w,
+                             num_rows=batch["label"].shape[0])]
+
+    def predict_proba(self, batch: Dict[str, Any]) -> torch.Tensor:
+        return torch.sigmoid(self(batch))

@@ -16,12 +16,12 @@ before any launch: the two packages refuse the same batches.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
 
-from dmlc_tpu_torch.models.common import SparseModelBase
+from dmlc_tpu_torch.models.common import SparseModelBase, _weighted_mean
 from dmlc_tpu_torch.ops.csr import segment_spmv
 from dmlc_tpu_torch.ops.ranking import pair_sums_autograd, pair_weights_plain
 from dmlc_tpu_torch.utils.logging import DMLCError
@@ -53,14 +53,13 @@ class SparseRankingModel(SparseModelBase):
         only when the file has qid: tokens)."""
         self._check_columns(batch)
 
-    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Scores for one flat padded CSR batch."""
-        margins = segment_spmv(batch["offset"], batch["index"],
-                               batch["value"], self.w,
-                               num_rows=batch["label"].shape[0])
-        return margins + self.b
+    def _margin_terms(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
+        return [segment_spmv(batch["offset"], batch["index"],
+                             batch["value"], self.w,
+                             num_rows=batch["label"].shape[0])]
 
     def _block_objective(self, batch: Dict[str, Any]):
+        """(loss sum, weight sum) of one part's pairs through K7."""
         num_rows = batch["label"].shape[0]
         if num_rows > self.max_row_bucket:
             raise DMLCError(
@@ -72,6 +71,32 @@ class SparseRankingModel(SparseModelBase):
                 "max_row_bucket explicitly")
         return pair_sums_autograd(self(batch), batch["label"], batch["qid"],
                                   batch["weight"])
+
+    def _objective(self, batch: Dict[str, Any], mesh=None,
+                   backward: bool = False) -> torch.Tensor:
+        """The pairwise objective (see ``SparseModelBase._objective``),
+        differentiated by autograd through K7. Each part pairs only its
+        own rows, as the reference's ``shard_map`` runs it on each
+        device's block, and ``max_row_bucket`` applies to a part's rows;
+        the loss and weight sums of the parts (and of the group) are
+        summed before normalising."""
+        parts = ([batch] if mesh is None else
+                 [self._part(batch, p)
+                  for p in range(batch["label"].shape[0])])
+        lsum, wsum = self._block_objective(parts[0])
+        for part in parts[1:]:
+            ls, ws = self._block_objective(part)
+            lsum, wsum = lsum + ls, wsum + ws
+        if mesh is None:
+            loss = _weighted_mean(lsum, wsum.detach())
+            if backward:
+                loss.backward()
+            return loss.detach()
+        total = self._all_reduce(torch.stack([lsum.detach(), wsum.detach()]),
+                                 mesh)
+        if backward:
+            _weighted_mean(lsum, total[1]).backward()
+        return _weighted_mean(total[0], total[1])
 
     def pairwise_accuracy(self, batch: Dict[str, Any]) -> float:
         """Fraction of preference pairs the scorer orders correctly

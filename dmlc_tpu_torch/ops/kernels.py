@@ -25,6 +25,7 @@ __all__ = ["INDEX_BYTES", "library", "launch", "max_shared_bytes"]
 INDEX_BYTES = {torch.uint32: 4, torch.int32: 4, torch.uint64: 8}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F = ctypes.c_float
 # Every entry returns a cudaError_t; the trailing pointer is the stream.
 _SIGNATURES = {
     # offset, index, index_bytes, value, w, rows, nnz, features, y, lanes
@@ -61,6 +62,20 @@ _SIGNATURES = {
     # margins, label, qid, weight, s (device scalar), n, the forward's tile
     # table, g [n]
     "dmlc_pair_sums_bwd": [_P, _P, _P, _P, _P, _I64, _P, _P, _P],
+    # t0, t1 (or null), bias (or null), label, weight, n, loss, g, gb
+    "dmlc_logistic_step": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P],
+    # t0, t1, bias, label, weight, n, partial [2 blocks], counter, total [2],
+    # blocks
+    "dmlc_logistic_sums": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I64, _P],
+    # t0, t1, bias, label, weight, n, total [2] (read), loss, g,
+    # partial [blocks], counter, gb, blocks
+    "dmlc_logistic_grad": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+                           _P, _I64, _P],
+    # host arrays: params, grads, numel (int64), decay (int); count, lr,
+    # l2, partial [blocks], counter, loss (the three null: no l2 term),
+    # blocks
+    "dmlc_sgd_update": [_P, _P, _P, _P, _I, _F, _F, _P, _P, _P, _I64,
+                        _P],
 }
 
 _lib = None

@@ -109,6 +109,15 @@ def test_forward_matches_reference_margins():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def test_predict_proba_matches_reference():
+    params = _params(5)
+    batch = _batch(4)
+    ref, port = _models(params, 0.0)
+    want = np.asarray(ref.predict_proba(params, batch))
+    got = port.predict_proba(_tensors(batch)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
 def test_bce_matches_reference_at_zero_margin():
     """At m == 0 the reference's subgradient is -y, not sigma(0) - y."""
     import jax

@@ -177,6 +177,62 @@ def test_sharded_step_matches_reference_and_flat(kind, l2, mesh, ref_mesh):
         _close(got[k], v)
 
 
+def test_sharded_step_takes_the_axis():
+    """``axis`` names the mesh axis the batch is sharded on: a mesh whose
+    one axis is "batch", on both sides, with l2 > 0."""
+    ref, port = _models("linear", 0.01)
+    params = _params(ref, seed=3)
+    port.load_state_dict(params_from_jax(params, device="cpu"))
+    ref_mesh = RefMesh(np.array(jax.devices()[:PARTS]).reshape(PARTS),
+                       ("batch",))
+    mesh = Mesh((PARTS,), ("batch",), device="cpu")
+    blocks = _blocks(RefContainer, 6, "linear")
+    gb_ref = ref_make_global_batch(ref_stack_batches(
+        [ref_pad_to_bucket(b, 8, 64) for b in blocks]), ref_mesh,
+        axis="batch")
+    gb = make_global_batch(stack_padded_rows(
+        _blocks(RowBlockContainer, 6, "linear"), 8, 64), mesh, axis="batch")
+    want_params, want_loss = ref.make_sharded_train_step(
+        ref_mesh, axis="batch")(
+            {k: jax.numpy.asarray(v) for k, v in params.items()}, gb_ref)
+    _close(port.make_sharded_train_step(mesh, axis="batch")(gb), want_loss)
+    for k, v in params_to_numpy(port.state_dict()).items():
+        _close(v, want_params[k])
+
+
+def test_sharded_step_checks_the_axis_and_the_parts(mesh, ref_mesh):
+    """An axis the mesh lacks is refused, as the reference refuses it (at
+    its first call); so is a batch of other than this process's parts
+    along the axis, each named in the error. On a 2-D mesh the step
+    takes the parts along its axis."""
+    ref, port = _models("linear", 0.0)
+    params = _params(ref, seed=3)
+    gb_ref, gb, _ = _global_batches("linear", 7, ref_mesh, mesh)
+    with pytest.raises(ValueError, match="model"):
+        ref.make_sharded_train_step(ref_mesh, axis="model")(
+            {k: jax.numpy.asarray(v) for k, v in params.items()}, gb_ref)
+    with pytest.raises(DMLCError, match=r"axis 'model' is not an axis of "
+                       r"the mesh, whose axes are \('data',\)"):
+        port.make_sharded_train_step(mesh, axis="model")
+    grid = Mesh((2, 4), ("model", "data"), device="cpu")
+    step = port.make_sharded_train_step(grid, axis="data")
+    with pytest.raises(DMLCError, match="the batch holds 8 parts, the mesh "
+                       "gives this process 4 along 'data'"):
+        step(gb)
+    # 4 parts along "data": the step of a 1-D mesh of those 4 parts
+    four = make_global_batch(stack_padded_rows(
+        _blocks(RowBlockContainer, 7, "linear")[:4], 8, 64),
+        Mesh((4,), device="cpu"))
+    twin = _models("linear", 0.0)[1]
+    port.load_state_dict(params_from_jax(params, device="cpu"))
+    twin.load_state_dict(params_from_jax(params, device="cpu"))
+    _close(step(four), twin.make_sharded_train_step(
+        Mesh((4,), device="cpu"))(four))
+    got = params_to_numpy(port.state_dict())
+    for k, v in params_to_numpy(twin.state_dict()).items():
+        _close(got[k], v)
+
+
 def test_ranking_pairs_only_inside_a_part(mesh, ref_mesh):
     """A query split across parts 0 and 1: the reference pairs rows only
     inside a device's block, and so does the port, so the step differs
