@@ -44,11 +44,9 @@
 // kernel's argument, so no copy to the device precedes it. It moves 12
 // bytes a float (read p and g, write p) and does 3 flops: bound by bytes
 // (FFM's w and V, 1.56e8 floats: 1.88 GB, 562 us). Each parameter is cut
-// into units: a scalar head up to p's first 16-byte boundary, a float4
-// body and a scalar tail (all scalar where p and g are not aligned alike).
-// The grid strides over the units of every parameter laid end to end, so
-// the parameters of a narrow model (the ranking model's 137 weights and
-// its bias) are updated at once, not one after another. Where the caller asks
+// into a scalar head up to p's first 16-byte boundary, a float4 body and a
+// scalar tail (all scalar where p and g are not aligned alike), and the
+// grid strides over each parameter's pieces in turn. Where the caller asks
 // for the loss's l2 term, each thread also sums p*p of the old p over the
 // flagged parameters, and grid_sum adds them up in a fixed order; its last
 // block adds l2 times the sum to the loss.
@@ -264,16 +262,15 @@ __global__ void __launch_bounds__(kGridThreads)
 
 // ---------------------------------------------------------------- K9
 
-// One launch's parameters, by value: p[k] and its gradient g[k], cut into
-// head[k] scalars, body[k] float4s and the rest scalars, which are the
-// grid's units start[k] to start[k + 1] - 1 (start[count]: every unit);
-// decay[k]: whether the l2 term applies.
+// One launch's parameters, by value: p[k] (numel[k] floats) and its
+// gradient g[k], cut into head[k] scalars, body[k] float4s and the rest
+// scalars; decay[k]: whether the l2 term applies.
 struct SgdTable {
   float* p[kSgdMaxParams];
   const float* g[kSgdMaxParams];
+  int64_t numel[kSgdMaxParams];
   int64_t head[kSgdMaxParams];
   int64_t body[kSgdMaxParams];
-  int64_t start[kSgdMaxParams + 1];
   int decay[kSgdMaxParams];
   int count;
 };
@@ -297,26 +294,28 @@ __global__ void __launch_bounds__(kSgdThreads)
                       threadIdx.x;
   const float two_l2 = 2.0f * l2;
   float sq = 0.0f;
-  int k = 0;  // the parameter of unit u: u only grows, and k with it
-  for (int64_t u = tid; u < t.start[t.count]; u += stride) {
-    while (u >= t.start[k + 1]) ++k;
+  for (int k = 0; k < t.count; ++k) {
     float* __restrict__ p = t.p[k];
     const float* __restrict__ g = t.g[k];
     const bool decay = t.decay[k] != 0 && l2 != 0.0f;
     const int64_t head = t.head[k], body = t.body[k];
-    const int64_t v = u - t.start[k] - head;  // the unit's float4, if any
-    if (v >= 0 && v < body) {
-      float4* p4 = reinterpret_cast<float4*>(p + head) + v;
-      const float4 g4 = reinterpret_cast<const float4*>(g + head)[v];
-      float4 a = *p4;
-      a.x = sgd_one(a.x, g4.x, lr, two_l2, decay, &sq);
-      a.y = sgd_one(a.y, g4.y, lr, two_l2, decay, &sq);
-      a.z = sgd_one(a.z, g4.z, lr, two_l2, decay, &sq);
-      a.w = sgd_one(a.w, g4.w, lr, two_l2, decay, &sq);
-      *p4 = a;
-    } else {
-      const int64_t j = v < 0 ? v + head : head + 4 * body + (v - body);
-      p[j] = sgd_one(p[j], g[j], lr, two_l2, decay, &sq);
+    const int64_t tail = t.numel[k] - head - 4 * body;
+    const int64_t units = head + body + tail;
+    for (int64_t u = tid; u < units; u += stride) {
+      const int64_t v = u - head;
+      if (v >= 0 && v < body) {
+        float4* p4 = reinterpret_cast<float4*>(p + head) + v;
+        const float4 g4 = reinterpret_cast<const float4*>(g + head)[v];
+        float4 a = *p4;
+        a.x = sgd_one(a.x, g4.x, lr, two_l2, decay, &sq);
+        a.y = sgd_one(a.y, g4.y, lr, two_l2, decay, &sq);
+        a.z = sgd_one(a.z, g4.z, lr, two_l2, decay, &sq);
+        a.w = sgd_one(a.w, g4.w, lr, two_l2, decay, &sq);
+        *p4 = a;
+      } else {
+        const int64_t j = v < 0 ? u : head + 4 * body + (v - body);
+        p[j] = sgd_one(p[j], g[j], lr, two_l2, decay, &sq);
+      }
     }
   }
   if (loss == nullptr) return;  // the same for every thread of the grid
@@ -413,6 +412,7 @@ int dmlc_sgd_update(const void* params, const void* grads, const void* numel,
     t.p[k] = static_cast<float* const*>(params)[k];
     t.g[k] = static_cast<const float* const*>(grads)[k];
     const int64_t n = static_cast<const int64_t*>(numel)[k];
+    t.numel[k] = n;
     t.decay[k] = static_cast<const int*>(decay)[k];
     const uintptr_t pa = reinterpret_cast<uintptr_t>(t.p[k]);
     const uintptr_t ga = reinterpret_cast<uintptr_t>(t.g[k]);
@@ -423,8 +423,6 @@ int dmlc_sgd_update(const void* params, const void* grads, const void* numel,
     }
     t.head[k] = head;
     t.body[k] = (n - head) / 4;
-    // the units: head scalars, body float4s, the tail's scalars
-    t.start[k + 1] = t.start[k] + n - 3 * t.body[k];
   }
   sgd_update_kernel<<<static_cast<unsigned>(blocks), kSgdThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(

@@ -269,10 +269,10 @@ def _counter(device: torch.device) -> torch.Tensor:
 
 def sgd_grid(numels: Sequence[int], sms: int) -> int:
     """K9's blocks for parameters of ``numels`` floats on a card of
-    ``sms`` SMs: one float4 a thread over all of them end to end, at most
+    ``sms`` SMs: one float4 a thread over the largest, at most
     _SGD_BLOCKS_PER_SM blocks an SM (a grid-stride loop takes the rest),
     at least one."""
-    units = sum((n + 3) // 4 for n in numels)
+    units = (max(numels, default=0) + 3) // 4
     return max(1, min((units + _SGD_THREADS - 1) // _SGD_THREADS,
                       _SGD_BLOCKS_PER_SM * sms))
 
