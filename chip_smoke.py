@@ -23,13 +23,19 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    ``logistic_grad``, the sharded step's two launches) against its plain
    versions at the first batch's labels and weights and on edge cases (a
    margin of exactly 0, {0,1} labels, an all-padded batch, 0 < W < 1,
-   |m| of 88 and 3e38, a NaN margin), one part and [4, 2048]; K9
-   (``sgd_update``) at l2 = 0 and 0.01 on the parameters of all four
-   models at full width (FFM's 624 MB V) and on a parameter one float off
-   its allocation with its gradient aligned alike and apart; each timed
-   beside its bound, its plain version and one PyTorch call
+   |m| of 88 and 3e38, a NaN margin), one part and [4, 2048]; on one part
+   also at 1, 511, 513, 8181 rows and at its grid route's cap and one row
+   past it, each route read from the trace (one launch of the grid, or
+   the split into the sharded step's two launches); K9 (``sgd_update``)
+   at l2 = 0 and 0.01 on the parameters of all four models at full width
+   (FFM's 624 MB V), on a parameter one float off its allocation with its
+   gradient aligned alike and apart, and by its narrow route on the
+   ranking model's 137 + 1 floats, on the bias alone, on [137, 1] one
+   float off its allocation and at the widest parameters it takes, with
+   one unit more taking the wide route, each route read from the trace;
+   each timed beside its bound, its plain version and one PyTorch call
    (``F.binary_cross_entropy_with_logits(..., reduction="sum")``,
-   ``torch._foreach_add_``);
+   ``torch._foreach_add_``), K9 at the ranking width by its narrow route;
 4. main path: a seeded Criteo-shaped libsvm file of about 256 MB through
    the port's ``Pipeline``, the chain bench.py builds:
    ``Pipeline.from_uri(path).parse(engine="native").batch(8192, pad=True,
@@ -118,7 +124,8 @@ version does.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it the kernels' JSON record (every kernel: K1-K9, K8's
-three launches apart). Imports
+three launches apart, K9 at the linear width and, by its narrow route,
+at the ranking width). Imports
 nothing of JAX or of the ``dmlc_tpu`` package.
 """
 
@@ -188,6 +195,15 @@ ROUTE_KERNELS = {
                     "vector": "fm_pair_bwd_vec_kernel"},
     "csr_to_dense": {"tile": "csr_to_dense_tile_kernel",
                      "global": "csr_to_dense_kernel"},
+    "sgd_update": {"narrow": "sgd_update_narrow_kernel",
+                   "wide": "sgd_update_kernel"},
+}
+# K8 on one part: its routes' launches, by kernel (ops.step.objective_route).
+OBJECTIVE_ROUTE_CALLS = {
+    "grid": {"logistic_step_kernel": 1, "logistic_sums_kernel": 0,
+             "logistic_grad_kernel": 0},
+    "split": {"logistic_step_kernel": 0, "logistic_sums_kernel": 1,
+              "logistic_grad_kernel": 1},
 }
 ZEROED = {"csr_spmv_t": ("global", "private"),
           "fm_pair_bwd": ("scalar", "vector"),
@@ -266,6 +282,10 @@ K8_OPS_PER_ROW = 24
 # four roundings: |err| to K9_RTOL of |p| + lr |g| + 2 lr l2 |p|. Its l2
 # term sums p^2 (non-negative) in another order: rtol of itself.
 K9_RTOL, K9_LOSS_RTOL = 1e-6, 1e-5
+# The widest w that K9's narrow route takes beside the bias: 255 float4s
+# and the bias fill a block's 256 units (ops.step._SGD_THREADS); 1021
+# floats are 256 units alone.
+NARROW_WIDEST = 1020
 # 3 SGD steps on the card against the plain path (the CPU for the linear
 # model; the plain versions on the card for FM and FFM): the kernels' sums
 # and the card's reductions of the loss run in other orders.
@@ -1011,6 +1031,15 @@ def _first_rows(case, count):
             label[:count], weight[:count])
 
 
+def _resized(case, count):
+    """A K8 case (see objective_cases) with its rows cut or repeated to
+    ``count``."""
+    import numpy as np
+    t0, t1, bias, label, weight = case
+    return (np.resize(t0, count), None if t1 is None else np.resize(t1, count),
+            bias, np.resize(label, count), np.resize(weight, count))
+
+
 def _check_objective(name, got, want, weight):
     """K8's (loss, g, gb) against its plain version's: NaN where the plain
     version's is; the loss (a sum of non-negative terms) to K8_RTOL of
@@ -1040,11 +1069,12 @@ def _check_objective(name, got, want, weight):
     return g_err.max().item()
 
 
-def _check_sgd(name, params, grads, decay, lr, l2):
+def _check_sgd(name, params, grads, decay, lr, l2, route):
     """K9 on copies of ``params`` against its plain version on others,
     with the loss's l2 term: each parameter to K9_RTOL of |p| + lr·|g| +
-    2·lr·l2·|p| (a few roundings of each), the loss to K9_LOSS_RTOL.
-    Returns the max |err| of the parameters."""
+    2·lr·l2·|p| (a few roundings of each), the loss to K9_LOSS_RTOL; the
+    kernel's call must take ``route`` (read from its trace). Returns the
+    max |err| of the parameters."""
     import torch
     from dmlc_tpu_torch.ops import step as step_ops
 
@@ -1062,7 +1092,8 @@ def _check_sgd(name, params, grads, decay, lr, l2):
             f"K9 {name}: the copies lost the parameters' alignment")
     loss = torch.tensor(0.5, device=params[0].device)
     p_loss = loss.clone()
-    step_ops.sgd_update(got, grads, decay, lr, l2, loss)
+    on_route("sgd_update", route,
+             lambda: step_ops.sgd_update(got, grads, decay, lr, l2, loss))
     step_ops.sgd_update_plain(want, grads, decay, lr, l2, p_loss)
     torch.cuda.synchronize()
     err = 0.0
@@ -1161,6 +1192,28 @@ def check_step_kernels(first):
     w = torch.from_numpy(weight).to(cuda)
     require(bool(torch.allclose(zg, -y * w / w.sum(), rtol=1e-6, atol=0)),
             "K8 at m = 0: g is not -y * w / W (ROADMAP C4)")
+    # one part at other row counts: a block's rows (512), a partial last
+    # block, the grid route's cap and one row past it (the split route);
+    # each case's arrays cut or repeated to the rows
+    cap = step_ops.OBJECTIVE_STEP_MAX_ROWS
+    counts = (1, 511, 513, 8181, cap, cap + 1)
+    for count in counts:
+        route = step_ops.objective_route(count)
+        for name, case in cases.items():
+            args = _on_card(_resized(case, count))
+            if name == "two_terms":  # the route, from the trace
+                out = []
+                _device_us_by_kernel(
+                    lambda: out.append(step_ops.logistic_step(*args)), 1,
+                    OBJECTIVE_ROUTE_CALLS[route])
+                got = out[-1]
+            else:
+                got = step_ops.logistic_step(*args)
+            _check_objective(f"{name} at {count} rows ({route} route)", got,
+                             step_ops.logistic_step_plain(*args), args[3])
+    log(f"K8 on one part agrees with its plain version on every case at "
+        f"{', '.join(map(str, counts))} rows, each route read from the "
+        f"trace: grid up to {cap} rows, split past it")
     log("K8 agrees with its plain version (one part, and its two sharded "
         f"launches over [{SHARD_PARTS}, {n // SHARD_PARTS}] and "
         "[3, 2727]) on "
@@ -1170,11 +1223,13 @@ def check_step_kernels(first):
 
     gen = torch.Generator(device=cuda).manual_seed(SEED + 9)
     sgd_errs = {}
+    routes = {"linear": "wide", "fm": "wide", "ffm": "wide",
+              "ranking": "narrow"}
     for kind in ("linear", "fm", "ffm", "ranking"):
         params, grads, decay = model_params(kind, cuda, gen)
         for l2 in (0.0, 0.01):
             sgd_errs[kind, l2] = _check_sgd(f"{kind} l2={l2}", params, grads,
-                                            decay, 0.5, l2)
+                                            decay, 0.5, l2, routes[kind])
         del params, grads
         torch.cuda.empty_cache()
     # the float4 body and the scalar head and tail: a parameter one float
@@ -1188,11 +1243,39 @@ def check_step_kernels(first):
         sgd_errs[what, 0.01] = _check_sgd(
             f"one float off its allocation, gradient {what}",
             [buf[1:1 + span], buf[-1]], [g, gbuf[-1]], [True, False], 0.5,
-            0.01)
+            0.01, "wide")
+    # the narrow route: the bias alone; the ranking model's w one float off
+    # its allocation, its gradient aligned alike and apart; the widest w
+    # beside the bias that it takes (NARROW_WIDEST) and one float more,
+    # which takes the wide route
+    buf = torch.randn(RANK_NUM_FEATURES + 8, device=cuda, generator=gen)
+    gbuf = torch.randn(RANK_NUM_FEATURES + 8, device=cuda, generator=gen)
+    span = RANK_NUM_FEATURES
+    narrow = {"bias alone": ([buf[-1]], [gbuf[-1]], [False], "narrow")}
+    for what, g in (("aligned alike", gbuf[1:1 + span]),
+                    ("aligned apart", gbuf[2:2 + span])):
+        narrow[f"[{span}, 1] one float off its allocation, gradient "
+               f"{what}"] = ([buf[1:1 + span], buf[-1]], [g, gbuf[-1]],
+                             [True, False], "narrow")
+    for width, route in ((NARROW_WIDEST, "narrow"),
+                         (NARROW_WIDEST + 1, "wide")):
+        p = [torch.randn(width, device=cuda, generator=gen),
+             torch.randn((), device=cuda, generator=gen)]
+        narrow[f"[{width}, 1]"] = (p, [torch.randn_like(x) for x in p],
+                                   [True, False], route)
+    for what, (p, g, dk, route) in narrow.items():
+        require(step_ops.sgd_route([x.numel() for x in p],
+                                   [(x.data_ptr(), y.data_ptr())
+                                    for x, y in zip(p, g)]) == route,
+                f"K9 {what}: sgd_route does not pick the {route} route")
+        for l2 in (0.0, 0.01):
+            sgd_errs[what, l2] = _check_sgd(f"{what} ({route}) l2={l2}", p,
+                                            g, dk, 0.5, l2, route)
     log("K9 agrees with its plain version at l2 = 0 and 0.01 on the "
         "parameters of the linear model, FM (V 8e6 floats), FFM (V "
         f"{NUM_FEATURES * FFM_FIELDS * FFM_FACTORS} floats) and the ranking "
-        "model, and on a parameter one float off its allocation: "
+        "model, on a parameter one float off its allocation, and on the "
+        "narrow route's edges, each route read from the trace: "
         + ", ".join(f"{k} l2={l2} {v:.3g}"
                     for (k, l2), v in sgd_errs.items())
         + f" (rtol {K9_RTOL} of |p| + lr |g| + 2 lr l2 |p|; the loss's l2 "
@@ -1275,23 +1358,27 @@ def check_step_kernels(first):
             p, g = turn()
             torch._foreach_add_(p, g, alpha=-LEARNING_RATE)
 
-        k9_ms = device_ms(k9, iters=20, calls={"sgd_update_kernel": 1})
+        k9_ms = device_ms(k9, iters=20,
+                          calls=route_calls("sgd_update", routes[kind]))
         k9_plain_ms = device_ms(k9_plain, iters=20)
         k9_lib = device_ms(k9_lib, iters=20)
         bound, by = bound_ms(floats * 12, floats * 2)
-        log(f"K9 at the {kind} model's {floats} floats, rotating over "
-            f"{copies} copies of p and g: kernel "
+        log(f"K9 at the {kind} model's {floats} floats ({routes[kind]} "
+            f"route), rotating over {copies} copies of p and g: kernel "
             f"{k9_ms * 1e3:.2f} us, plain {k9_plain_ms * 1e3:.2f} us, "
             f"torch._foreach_add_ {k9_lib * 1e3:.2f} us, bound "
             f"{bound * 1e3:.2f} us ({by})")
-        if kind == "linear":
+        if kind in ("linear", "ranking"):
+            # the ranking width's row (the narrow route) is reported with
+            # the ranking path's launches
             rows.append({"name": "sgd_update", "route": "cuda",
                          "source": "dmlc_tpu_torch/csrc/step.cu",
                          "replaces": "dmlc_tpu/models/common.py:91",
-                         "max_abs_err": sgd_errs["linear", 0.0],
+                         "max_abs_err": sgd_errs[kind, 0.0],
                          "ms": k9_ms, "plain_ms": k9_plain_ms,
                          "bound_ms": bound, "bound_by": by,
-                         "library_ms": k9_lib, "call_ms": call_ms(k9)})
+                         "library_ms": k9_lib, "call_ms": call_ms(k9),
+                         "path": kind})
         del params, grads, turn
         torch.cuda.empty_cache()
     return rows
@@ -2052,19 +2139,22 @@ PATH_KERNELS = {"linear": ("csr_spmv", "csr_spmv_t", "logistic_step",
                 "ranking": ("csr_spmv", "csr_spmv_t", "pair_sums",
                             "pair_sums_grad", "sgd_update")}
 # The kernels a traced step must launch, by kernel: the linear single-part
-# step's, and the sharded linear step's over SHARD_PARTS parts (K1 and K2
-# once a part, K8 twice, K9 once).
+# step's, the sharded linear step's over SHARD_PARTS parts (K1 and K2
+# once a part, K8 twice, K9 once), and the ranking step's K9 (its narrow
+# route).
 STEP_CALLS = {
     "linear": {"csr_spmv_half_kernel": 1, "csr_spmv_warp_kernel": 0,
                "csr_spmv_t_kernel": 1, "csr_spmv_t_private_kernel": 0,
                "logistic_step_kernel": 1, "logistic_sums_kernel": 0,
-               "logistic_grad_kernel": 0, "sgd_update_kernel": 1},
+               "logistic_grad_kernel": 0, "sgd_update_kernel": 1,
+               "sgd_update_narrow_kernel": 0},
     "sharded": {"csr_spmv_half_kernel": SHARD_PARTS,
                 "csr_spmv_warp_kernel": 0,
                 "csr_spmv_t_kernel": SHARD_PARTS,
                 "csr_spmv_t_private_kernel": 0, "logistic_step_kernel": 0,
                 "logistic_sums_kernel": 1, "logistic_grad_kernel": 1,
-                "sgd_update_kernel": 1},
+                "sgd_update_kernel": 1, "sgd_update_narrow_kernel": 0},
+    "ranking": {"sgd_update_narrow_kernel": 1, "sgd_update_kernel": 0},
 }
 
 
@@ -2973,6 +3063,9 @@ def ranking_path(path, size, lr):
         f"without training: {stats['parse_to_device_gbps']:.3f} GB/s "
         f"({parse_secs:.3f} s); {stats['h2d_bytes_per_batch']} H2D bytes "
         "per batch")
+    stats["step"] = step_trace("ranking",
+                               lambda: model.train_step(first_t),
+                               STEP_CALLS["ranking"])
     stats["device"] = device_time(built, model, secs)
     built.close()
     del model
@@ -3345,7 +3438,9 @@ def main() -> None:
         launches, stats = main_path(path, size, LEARNING_RATE, first)
         sharded_rows = [r for r in rows
                         if r["name"] in ("logistic_sums", "logistic_grad")]
-        report_kernels([r for r in rows if r not in sharded_rows], launches,
+        narrow_rows = [r for r in rows if r.get("path") == "ranking"]
+        report_kernels([r for r in rows
+                        if r not in sharded_rows + narrow_rows], launches,
                        stats["steps"])
         stats["h2d_gbps"] = h2d_gbps(first)
         log(f"H2D from pinned slots: {stats['h2d_gbps']:.2f} GB/s "
@@ -3385,7 +3480,8 @@ def main() -> None:
         rank_rows = check_ranking_kernels(first_batch(path, "ranking"))
         launches, stats["ranking"] = ranking_path(path, size,
                                                   RANK_LEARNING_RATE)
-        report_kernels(rank_rows, launches, stats["ranking"]["steps"])
+        report_kernels(rank_rows + narrow_rows, launches,
+                       stats["ranking"]["steps"])
         ranking_parity(path, RANK_LEARNING_RATE)
         sharded_parity(path, "ranking", ("ranking",), mesh,
                        RANK_LEARNING_RATE)

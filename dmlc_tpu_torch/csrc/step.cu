@@ -26,30 +26,41 @@
 //
 // Bound on the card (H100 SXM, 3.35 TB/s): K8 reads 12 bytes a row (t0,
 // label, weight; 4 more with t1) and writes 4 (g): at the main path's 8192
-// rows, 131 KB, 0.04 us, so a launch's latency bounds it. On one part, one
-// block of 1024 threads takes every row: each thread sums its rows i,
-// i + 1024, ... in order and the block reduces the threads in a fixed
-// tree, so the result does not vary from run to run, and the block knows W
-// without a second launch. It then computes g in a second sweep over the
-// same rows (from L1/L2). The sharded step's W is the group's, after an
-// all-reduce of (lsum, wsum) over the processes, so there it is two
-// launches, each a grid of blocks of kGridRows rows: logistic_sums writes
-// this process's (lsum, wsum), and logistic_grad reads the all-reduced pair
-// from device memory (never from the host) and writes the loss, g and
-// sum g. Their sums over the grid are grid_sum's: fixed in order too.
+// rows, 131 KB, 0.04 us, so a launch's latency bounds it. On one part, up
+// to kStepMaxRows rows, it is one launch of a grid of blocks of kStepRows
+// rows, a row a thread, with no barrier across the grid: each thread loads
+// its row first, then every block sums all n weights in one fixed order
+// (32 KB at 8192 rows, from L2), so every block holds the same W bit for
+// bit and writes its rows' g at once; the blocks' (sum weight*loss, sum g)
+// end in grid_sum, whose last block writes the loss and sum g. Past
+// kStepMaxRows the n reads of every block would cost more than a second
+// launch, and the one part takes the sharded step's two launches with
+// the total read straight from the first. The sharded step's W is the
+// group's, after an all-reduce of (lsum, wsum) over the processes, so
+// there it is two launches, each a grid of blocks of kGridRows rows:
+// logistic_sums writes this process's (lsum, wsum), and logistic_grad
+// reads the all-reduced pair from device memory (never from the host) and
+// writes the loss, g and sum g. Every sum over a grid is grid_sum's: fixed
+// in order, so the result does not vary from run to run.
 //
 // K9. p <- p - lr * (g + 2 * l2 * p) for every parameter, the l2 term only
 // where the parameter's flag says so (every parameter but the bias), in
-// one launch: the table of (p, g, numel, flag) travels by value as the
-// kernel's argument, so no copy to the device precedes it. It moves 12
-// bytes a float (read p and g, write p) and does 3 flops: bound by bytes
-// (FFM's w and V, 1.56e8 floats: 1.88 GB, 562 us). Each parameter is cut
-// into a scalar head up to p's first 16-byte boundary, a float4 body and a
-// scalar tail (all scalar where p and g are not aligned alike), and the
-// grid strides over each parameter's pieces in turn. Where the caller asks
-// for the loss's l2 term, each thread also sums p*p of the old p over the
-// flagged parameters, and grid_sum adds them up in a fixed order; its last
-// block adds l2 times the sum to the loss.
+// one launch: the table of parameters travels by value as the kernel's
+// argument, so no copy to the device precedes it. It moves 12 bytes a
+// float (read p and g, write p) and does 3 flops: bound by bytes (FFM's w
+// and V, 1.56e8 floats: 1.88 GB, 562 us). Each parameter is cut into
+// units: a scalar head up to p's first 16-byte boundary, a float4 body and
+// a scalar tail (all scalar where p and g are not aligned alike). Two
+// routes, picked by the units: where every parameter's units together fit
+// one block (the ranking model's 137 + 1 floats: 36 units), the narrow
+// route gives each thread of one block one unit, finding its parameter by
+// comparisons against a table of 2, 4 or 16 slots unrolled at compile
+// time, with 32-bit indices; the launch's cost is then its argument and
+// its one round of loads. Otherwise the wide route's grid strides over
+// each parameter's units in turn, with a table of 16 slots. Where the
+// caller asks for the loss's l2 term, each thread also sums p*p of the old
+// p over the flagged parameters, and the block (narrow) or grid_sum (wide)
+// adds them up in a fixed order and adds l2 times the sum to the loss.
 //
 // grid_sum's counter of finished blocks is one device unsigned that
 // atomicInc wraps back to 0 at each launch's last block, so it needs no
@@ -66,10 +77,14 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kObjectiveThreads = 1024;
 constexpr int kGridThreads = 256;
 constexpr int kGridRows = 512;  // ops/step.py OBJECTIVE_GRID_ROWS
-constexpr int kSgdThreads = 256;
+// K8 on one part: a row a thread, kStepRows rows a block, up to
+// kStepMaxRows rows; kWeightLoads of a thread's weights in flight at once.
+constexpr int kStepRows = 512;          // ops/step.py OBJECTIVE_GRID_ROWS
+constexpr int kStepMaxRows = 1 << 16;   // ops/step.py OBJECTIVE_STEP_MAX_ROWS
+constexpr int kWeightLoads = 16;
+constexpr int kSgdThreads = 256;   // ops/step.py _SGD_THREADS
 constexpr int kSgdMaxParams = 16;  // ops/step.py SGD_MAX_PARAMS
 
 // Sums v[0..N) over the block in a fixed order (lanes by a shuffle tree,
@@ -201,21 +216,54 @@ __device__ __forceinline__ float guarded(float wsum) {
   return wsum > 0.0f ? wsum : 1.0f;
 }
 
-__global__ void __launch_bounds__(kObjectiveThreads)
+// The sum of weight[0..n) in a fixed order, the same in every block: a
+// thread's weights i, i + blockDim.x, ... in order, kWeightLoads of them
+// loaded before any is added, then block_sum.
+__device__ __forceinline__ float weight_total(const float* __restrict__ weight,
+                                              int n, float* scratch) {
+  float s[1] = {0.0f};
+  for (int base = threadIdx.x; base < n;
+       base += kWeightLoads * static_cast<int>(blockDim.x)) {
+    float v[kWeightLoads];
+#pragma unroll
+    for (int j = 0; j < kWeightLoads; ++j) {
+      const int i = base + j * static_cast<int>(blockDim.x);
+      v[j] = i < n ? weight[i] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kWeightLoads; ++j) s[0] += v[j];
+  }
+  block_sum(s, scratch);
+  return s[0];
+}
+
+__global__ void __launch_bounds__(kStepRows)
     logistic_step_kernel(Margins mg, const float* __restrict__ label,
-                         const float* __restrict__ weight, int64_t n,
+                         const float* __restrict__ weight, int n,
+                         float* __restrict__ partial, unsigned* counter,
                          float* __restrict__ loss, float* __restrict__ g,
                          float* __restrict__ gb) {
   __shared__ float scratch[2 * kWarp];
-  float sums[2];
-  thread_sums(mg, label, weight, 0, n, sums);
-  block_sum(sums, scratch);
-  const float W = guarded(sums[1]);
-  float gsum[1] = {thread_grad(mg, label, weight, 0, n, W, g)};
-  block_sum(gsum, scratch);
-  if (threadIdx.x == 0) {
+  // the row's loads first, in flight while the block sums the weights
+  const int i = static_cast<int>(blockIdx.x) * kStepRows +
+                static_cast<int>(threadIdx.x);
+  const bool row = i < n;
+  const float m = row ? margin_at(mg, i) : 0.0f;
+  const float y = row ? label[i] : 0.0f;
+  const float w = row ? weight[i] : 0.0f;
+  const float W = guarded(weight_total(weight, n, scratch));
+  float sums[2] = {0.0f, 0.0f};  // sum weight * loss, sum g
+  if (row) {
+    float l, d;
+    row_loss(m, y, &l, &d);
+    const float gi = (w * (1.0f / W)) * d;
+    g[i] = gi;
+    sums[0] = l * w;
+    sums[1] = gi;
+  }
+  if (grid_sum(sums, partial, counter, scratch) && threadIdx.x == 0) {
     *loss = sums[0] / W;
-    *gb = gsum[0];
+    *gb = sums[1];
   }
 }
 
@@ -326,6 +374,122 @@ __global__ void __launch_bounds__(kSgdThreads)
   }
 }
 
+// The narrow route's parameters, by value, in N slots (2, 4 or 16): p[k]
+// and g[k], whose units start at unit start[k] of the launch (kNoUnit for
+// an empty slot), cut into head[k] scalars, body[k] float4s and the rest
+// scalars up to the next parameter's start; bit k of decay: whether the l2
+// term applies.
+constexpr int kNoUnit = 0x7fffffff;
+
+template <int N>
+struct NarrowTable {
+  float* p[N];
+  const float* g[N];
+  int start[N];
+  int head[N];
+  int body[N];
+  unsigned decay;
+  int units;
+};
+
+template <int N>
+__global__ void __launch_bounds__(kSgdThreads)
+    sgd_update_narrow_kernel(NarrowTable<N> t, float lr, float l2,
+                             float* __restrict__ loss) {
+  const int u = threadIdx.x;
+  float sq = 0.0f;
+  if (u < t.units) {
+    // this unit's parameter: the last slot that starts at or before it,
+    // by compile-time-unrolled selects (no run-time-indexed table load)
+    float* p = t.p[0];
+    const float* g = t.g[0];
+    int v = u, head = t.head[0], body = t.body[0];
+    bool decay = (t.decay & 1u) != 0;
+#pragma unroll
+    for (int k = 1; k < N; ++k) {
+      if (u >= t.start[k]) {
+        p = t.p[k];
+        g = t.g[k];
+        v = u - t.start[k];
+        head = t.head[k];
+        body = t.body[k];
+        decay = ((t.decay >> k) & 1u) != 0;
+      }
+    }
+    decay = decay && l2 != 0.0f;
+    const float two_l2 = 2.0f * l2;
+    const int b = v - head;
+    if (b >= 0 && b < body) {
+      float4* p4 = reinterpret_cast<float4*>(p + head) + b;
+      const float4 g4 = reinterpret_cast<const float4*>(g + head)[b];
+      float4 a = *p4;
+      a.x = sgd_one(a.x, g4.x, lr, two_l2, decay, &sq);
+      a.y = sgd_one(a.y, g4.y, lr, two_l2, decay, &sq);
+      a.z = sgd_one(a.z, g4.z, lr, two_l2, decay, &sq);
+      a.w = sgd_one(a.w, g4.w, lr, two_l2, decay, &sq);
+      *p4 = a;
+    } else {
+      const int j = b < 0 ? v : head + 4 * body + (b - body);
+      p[j] = sgd_one(p[j], g[j], lr, two_l2, decay, &sq);
+    }
+  }
+  if (loss == nullptr) return;  // the same for every thread of the block
+  __shared__ float scratch[kWarp];
+  float s[1] = {sq};
+  block_sum(s, scratch);
+  if (threadIdx.x == 0) *loss += l2 * s[0];
+}
+
+// K9's cut of a parameter of n floats at p, its gradient at g: the scalars
+// before p's first 16-byte boundary (all n where p and g align apart) and
+// the float4s after them.
+void sgd_cut(const void* p, const void* g, int64_t n, int64_t* head,
+             int64_t* body) {
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
+  *head = n;
+  if (pa % 16 == ga % 16 && pa % 4 == 0) {
+    *head = static_cast<int64_t>((16 - pa % 16) % 16 / 4);
+    if (*head > n) *head = n;
+  }
+  *body = (n - *head) / 4;
+}
+
+// The narrow route (see the note at the top): one block, a unit a thread,
+// of a multiple of kWarp threads; cudaErrorInvalidValue where the units
+// pass kSgdThreads.
+template <int N>
+int sgd_update_narrow(const void* params, const void* grads,
+                      const void* numel, const void* decay, int count,
+                      float lr, float l2, void* loss, cudaStream_t stream) {
+  NarrowTable<N> t = {};
+  int64_t units = 0;
+  for (int k = 0; k < N; ++k) {
+    t.start[k] = kNoUnit;
+    if (k >= count) continue;
+    t.p[k] = static_cast<float* const*>(params)[k];
+    t.g[k] = static_cast<const float* const*>(grads)[k];
+    const int64_t n = static_cast<const int64_t*>(numel)[k];
+    int64_t head, body;
+    sgd_cut(t.p[k], t.g[k], n, &head, &body);
+    if (units + n - 3 * body > kSgdThreads) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    t.start[k] = static_cast<int>(units);
+    t.head[k] = static_cast<int>(head);
+    t.body[k] = static_cast<int>(body);
+    if (static_cast<const int*>(decay)[k] != 0) t.decay |= 1u << k;
+    units += n - 3 * body;
+  }
+  t.units = static_cast<int>(units);
+  const int threads = units > kWarp
+                          ? static_cast<int>((units + kWarp - 1) / kWarp) * kWarp
+                          : kWarp;
+  sgd_update_narrow_kernel<N><<<1, threads, 0, stream>>>(
+      t, lr, l2, static_cast<float*>(loss));
+  return static_cast<int>(cudaGetLastError());
+}
+
 Margins margins(const void* t0, const void* t1, const void* bias) {
   return Margins{static_cast<const float*>(t0),
                  static_cast<const float*>(t1),
@@ -347,15 +511,25 @@ extern "C" {
 
 // K8 on one part: loss (one float) = lsum / W, g[n] and gb (one float) =
 // sum g, for margins t0[n] (+ t1[n], or null) (+ *bias, or null), label[n]
-// and weight[n]. One block.
+// and weight[n]. One launch of blocks = ceil(n / kStepRows) blocks (at
+// least 1); partial holds 2 * blocks floats, and counter is a device
+// unsigned at 0 that no launch in flight shares. Returns
+// cudaErrorInvalidValue past kStepMaxRows rows or for another grid.
 int dmlc_logistic_step(const void* t0, const void* t1, const void* bias,
                        const void* label, const void* weight, int64_t n,
-                       void* loss, void* g, void* gb, void* stream) {
-  logistic_step_kernel<<<1, kObjectiveThreads, 0,
+                       void* partial, void* counter, void* loss, void* g,
+                       void* gb, int64_t blocks, void* stream) {
+  const int64_t want = n > 0 ? (n + kStepRows - 1) / kStepRows : 1;
+  if (n < 0 || n > kStepMaxRows || blocks != want) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  logistic_step_kernel<<<static_cast<unsigned>(blocks), kStepRows, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       margins(t0, t1, bias), static_cast<const float*>(label),
-      static_cast<const float*>(weight), n, static_cast<float*>(loss),
-      static_cast<float*>(g), static_cast<float*>(gb));
+      static_cast<const float*>(weight), static_cast<int>(n),
+      static_cast<float*>(partial), static_cast<unsigned*>(counter),
+      static_cast<float*>(loss), static_cast<float*>(g),
+      static_cast<float*>(gb));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,38 +568,44 @@ int dmlc_logistic_grad(const void* t0, const void* t1, const void* bias,
 // K9: params[k] -= lr * (grads[k] + 2 * l2 * params[k]) for k < count (the
 // l2 term where decay[k] != 0), numel[k] floats each; params, grads,
 // numel and decay are host arrays of count entries. Where loss is not null,
-// *loss += l2 * sum of the old params[k]^2 over the decayed k; partial
-// (blocks floats) and counter (a device unsigned at 0 that no launch in
-// flight shares) are then its workspace. Returns cudaErrorInvalidValue
-// for more than kSgdMaxParams parameters or a grid outside [1, 2^31).
+// *loss += l2 * sum of the old params[k]^2 over the decayed k. blocks 0:
+// the narrow route (one block; partial and counter unused); else the wide
+// route's grid, where partial (blocks floats) and counter (a device
+// unsigned at 0 that no launch in flight shares) are the l2 sum's
+// workspace. Returns cudaErrorInvalidValue for more than kSgdMaxParams
+// parameters, a grid past 2^31 - 1 blocks, or narrow units past
+// kSgdThreads.
 int dmlc_sgd_update(const void* params, const void* grads, const void* numel,
                     const void* decay, int count, float lr, float l2,
                     void* partial, void* counter, void* loss, int64_t blocks,
                     void* stream) {
-  if (count < 0 || count > kSgdMaxParams || blocks < 1 ||
+  if (count < 0 || count > kSgdMaxParams || blocks < 0 ||
       blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (blocks == 0) {
+    if (count <= 2) {
+      return sgd_update_narrow<2>(params, grads, numel, decay, count, lr, l2,
+                                  loss, st);
+    }
+    if (count <= 4) {
+      return sgd_update_narrow<4>(params, grads, numel, decay, count, lr, l2,
+                                  loss, st);
+    }
+    return sgd_update_narrow<kSgdMaxParams>(params, grads, numel, decay,
+                                            count, lr, l2, loss, st);
   }
   SgdTable t = {};
   t.count = count;
   for (int k = 0; k < count; ++k) {
     t.p[k] = static_cast<float* const*>(params)[k];
     t.g[k] = static_cast<const float* const*>(grads)[k];
-    const int64_t n = static_cast<const int64_t*>(numel)[k];
-    t.numel[k] = n;
+    t.numel[k] = static_cast<const int64_t*>(numel)[k];
     t.decay[k] = static_cast<const int*>(decay)[k];
-    const uintptr_t pa = reinterpret_cast<uintptr_t>(t.p[k]);
-    const uintptr_t ga = reinterpret_cast<uintptr_t>(t.g[k]);
-    int64_t head = n;  // all scalar unless p and g align alike
-    if (pa % 16 == ga % 16 && pa % 4 == 0) {
-      head = static_cast<int64_t>((16 - pa % 16) % 16 / 4);
-      if (head > n) head = n;
-    }
-    t.head[k] = head;
-    t.body[k] = (n - head) / 4;
+    sgd_cut(t.p[k], t.g[k], t.numel[k], &t.head[k], &t.body[k]);
   }
-  sgd_update_kernel<<<static_cast<unsigned>(blocks), kSgdThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  sgd_update_kernel<<<static_cast<unsigned>(blocks), kSgdThreads, 0, st>>>(
       t, lr, l2, static_cast<float*>(partial),
       static_cast<unsigned*>(counter), static_cast<float*>(loss));
   return static_cast<int>(cudaGetLastError());

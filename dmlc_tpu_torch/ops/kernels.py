@@ -62,8 +62,10 @@ _SIGNATURES = {
     # margins, label, qid, weight, s (device scalar), n, the forward's tile
     # table, g [n]
     "dmlc_pair_sums_bwd": [_P, _P, _P, _P, _P, _I64, _P, _P, _P],
-    # t0, t1 (or null), bias (or null), label, weight, n, loss, g, gb
-    "dmlc_logistic_step": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P],
+    # t0, t1 (or null), bias (or null), label, weight, n, partial
+    # [2 blocks], counter, loss, g, gb, blocks
+    "dmlc_logistic_step": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+                           _I64, _P],
     # t0, t1, bias, label, weight, n, partial [2 blocks], counter, total [2],
     # blocks
     "dmlc_logistic_sums": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I64, _P],
@@ -72,8 +74,8 @@ _SIGNATURES = {
     "dmlc_logistic_grad": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
                            _P, _I64, _P],
     # host arrays: params, grads, numel (int64), decay (int); count, lr,
-    # l2, partial [blocks], counter, loss (the three null: no l2 term),
-    # blocks
+    # l2, partial [blocks], counter (both null: no l2 term, or the narrow
+    # route), loss (null: no l2 term), blocks (0: the narrow route)
     "dmlc_sgd_update": [_P, _P, _P, _P, _I, _F, _F, _P, _P, _P, _I64,
                         _P],
 }

@@ -18,7 +18,11 @@ beside it:
   Σ weight, W = wsum if wsum > 0 else 1; returns (lsum / W, g, Σ g) with
   g = weight·d / W, d = σ(m) − y where m ≠ 0 and −y where m = 0 (the
   reference's subgradients: ``jnp.maximum`` splits a tie in half,
-  ``jnp.abs`` has slope +1 at 0; ROADMAP C4). One launch, one block.
+  ``jnp.abs`` has slope +1 at 0; ROADMAP C4). Its route is picked by
+  the rows (``objective_route``): up to ``OBJECTIVE_STEP_MAX_ROWS``,
+  "grid", one launch of a grid of blocks of ``OBJECTIVE_GRID_ROWS`` rows,
+  every block summing all the weights for W; past it, "split", the two
+  launches below with the first's total read straight by the second.
 - K8 ``logistic_sums`` and ``logistic_grad``: the same split in two for
   the sharded step, whose W is the group's: the first gives (lsum, wsum)
   of this process's rows, which the caller all-reduces; the second reads
@@ -27,7 +31,9 @@ beside it:
 - K9 ``sgd_update``: p ← p − lr·(g + 2·l2·p) for every parameter, the
   l2 term only where ``decay`` says so (every parameter but the bias), in
   one launch; where ``loss`` is given and l2 > 0, adds l2·Σ p² over the
-  decayed parameters, read before the update, to it.
+  decayed parameters, read before the update, to it. Its route is picked
+  by the parameters' units (``sgd_route``): "narrow", one block with a
+  unit a thread, where they fit one block; else "wide", a grid.
 
 As in ``ops/csr.py``, a wrapper runs the plain version only when its
 tensors lie on the CPU, and for CUDA tensors launches its kernel or
@@ -56,14 +62,20 @@ __all__ = ["stable_bce_on_logits", "logistic_step", "logistic_sums",
            "logistic_grad", "sgd_update",
            "logistic_step_plain", "logistic_sums_plain",
            "logistic_grad_plain", "sgd_update_plain", "sgd_grid",
-           "objective_grid", "SGD_MAX_PARAMS", "OBJECTIVE_GRID_ROWS"]
+           "sgd_route", "objective_grid", "objective_route",
+           "SGD_MAX_PARAMS", "OBJECTIVE_GRID_ROWS",
+           "OBJECTIVE_STEP_MAX_ROWS"]
 
 # kSgdMaxParams of csrc/step.cu: the parameters one K9 launch takes.
 SGD_MAX_PARAMS = 16
-# kGridRows of csrc/step.cu: the rows a block of K8's sharded launches
-# takes.
+# kGridRows and kStepRows of csrc/step.cu: the rows a block of K8's
+# launches takes.
 OBJECTIVE_GRID_ROWS = 512
-# K9's grid: threads a block, and blocks an SM at most.
+# kStepMaxRows of csrc/step.cu: the most rows K8's one-launch "grid" route
+# takes on one part; every block of it reads all the rows' weights.
+OBJECTIVE_STEP_MAX_ROWS = 1 << 16
+# kSgdThreads of csrc/step.cu: K9's threads a block, and so the most units
+# of its narrow route; and its wide grid's blocks an SM at most.
 _SGD_THREADS = 256
 _SGD_BLOCKS_PER_SM = 8
 
@@ -180,6 +192,13 @@ def _scalar(like):
     return torch.empty((), dtype=torch.float32, device=like.device)
 
 
+def objective_route(n: int) -> str:
+    """K8's route on one part of ``n`` rows: "grid" (one launch of
+    ``logistic_step_kernel``) up to OBJECTIVE_STEP_MAX_ROWS rows, else
+    "split" (``logistic_sums_kernel`` then ``logistic_grad_kernel``)."""
+    return "grid" if n <= OBJECTIVE_STEP_MAX_ROWS else "split"
+
+
 def logistic_step(terms: Sequence[torch.Tensor],
                   bias: Optional[torch.Tensor], label: torch.Tensor,
                   weight: torch.Tensor
@@ -189,16 +208,24 @@ def logistic_step(terms: Sequence[torch.Tensor],
     summed in order into the margins, then ``bias`` added."""
     if not _check_objective(terms, bias, label, weight):
         return logistic_step_plain(terms, bias, label, weight)
+    n = label.numel()
+    if objective_route(n) == "split":
+        return logistic_grad(terms, bias, label, weight,
+                             logistic_sums(terms, bias, label, weight))
+    blocks = objective_grid(n)
+    partial = torch.empty(2 * blocks, dtype=torch.float32,
+                          device=label.device)
     loss, gb, g = _scalar(label), _scalar(label), torch.empty_like(label)
     launch("dmlc_logistic_step", label.device,
-           *_pointers(terms, bias, label, weight), loss.data_ptr(),
-           g.data_ptr(), gb.data_ptr())
+           *_pointers(terms, bias, label, weight), partial.data_ptr(),
+           _counter(label.device).data_ptr(), loss.data_ptr(),
+           g.data_ptr(), gb.data_ptr(), blocks)
     logistic_step.launches += 1
     return loss, g, gb
 
 
 def objective_grid(n: int) -> int:
-    """The blocks of K8's sharded launches over ``n`` rows:
+    """The blocks of each of K8's launches over ``n`` rows:
     ceil(n / OBJECTIVE_GRID_ROWS), at least one."""
     return max(1, -(-n // OBJECTIVE_GRID_ROWS))
 
@@ -277,12 +304,35 @@ def sgd_grid(numels: Sequence[int], sms: int) -> int:
                       _SGD_BLOCKS_PER_SM * sms))
 
 
+def _sgd_units(numel: int, p_ptr: int, g_ptr: int) -> int:
+    """K9's units of a parameter of ``numel`` floats at address ``p_ptr``
+    with its gradient at ``g_ptr`` (``sgd_cut`` of csrc/step.cu): the
+    scalars before p's first 16-byte boundary, the float4s after them and
+    the scalars left; every float a unit where p and g align apart."""
+    if p_ptr % 16 != g_ptr % 16 or p_ptr % 4:
+        return numel
+    head = min(numel, (16 - p_ptr % 16) % 16 // 4)
+    return numel - 3 * ((numel - head) // 4)
+
+
+def sgd_route(numels: Sequence[int],
+              addresses: Optional[Sequence[Tuple[int, int]]] = None) -> str:
+    """K9's route for parameters of ``numels`` floats at ``addresses``
+    ((p, g) a parameter; 16-byte aligned where None): "narrow" (one block,
+    a unit a thread) where their units together fit _SGD_THREADS, else
+    "wide" (a grid, ``sgd_grid``)."""
+    if addresses is None:
+        addresses = [(0, 0)] * len(numels)
+    units = sum(_sgd_units(n, p, g) for n, (p, g) in zip(numels, addresses))
+    return "narrow" if units <= _SGD_THREADS else "wide"
+
+
 def sgd_update(params: Sequence[torch.Tensor],
                grads: Sequence[torch.Tensor], decay: Sequence[bool],
                lr: float, l2: float,
                loss: Optional[torch.Tensor] = None) -> None:
     """K9: every parameter updated in place (see module docstring), in
-    one launch. ``decay[i]``: whether parameter i takes the l2 term.
+    one launch by ``sgd_route``'s route. ``decay[i]``: whether parameter i takes the l2 term.
     ``loss``: a float32 scalar to which l2·Σ p² (old p) is added where
     l2 > 0, or None."""
     check(len(params) == len(grads) == len(decay),
@@ -313,20 +363,25 @@ def sgd_update(params: Sequence[torch.Tensor],
     for t in tensors:
         check(t.is_contiguous(), "K9 needs contiguous tensors")
     n = len(params)
-    blocks = sgd_grid([p.numel() for p in params], _sms(device))
+    numels = [p.numel() for p in params]
+    narrow = sgd_route(numels, [(p.data_ptr(), g.data_ptr())
+                                for p, g in zip(params, grads)]) == "narrow"
+    blocks = 0 if narrow else sgd_grid(numels, _sms(device))
     accumulate = loss is not None and l2 != 0
+    # the wide grid's l2 sum needs a workspace; the narrow block does not
+    grid_sum = accumulate and not narrow
     partial = (torch.empty(blocks, dtype=torch.float32, device=device)
-               if accumulate else None)
+               if grid_sum else None)
     # the host table the C entry copies into the kernel's argument; the
     # arrays stay referenced until the launch returns
     table = ((ctypes.c_void_p * n)(*[p.data_ptr() for p in params]),
              (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads]),
-             (ctypes.c_int64 * n)(*[p.numel() for p in params]),
+             (ctypes.c_int64 * n)(*numels),
              (ctypes.c_int * n)(*[int(bool(d)) for d in decay]))
     launch("dmlc_sgd_update", device,
            *[ctypes.addressof(a) for a in table], n, float(lr), float(l2),
-           partial.data_ptr() if accumulate else None,
-           _counter(device).data_ptr() if accumulate else None,
+           partial.data_ptr() if grid_sum else None,
+           _counter(device).data_ptr() if grid_sum else None,
            loss.data_ptr() if accumulate else None, blocks)
     sgd_update.launches += 1
 
