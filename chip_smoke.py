@@ -1192,9 +1192,9 @@ def check_step_kernels(first):
     w = torch.from_numpy(weight).to(cuda)
     require(bool(torch.allclose(zg, -y * w / w.sum(), rtol=1e-6, atol=0)),
             "K8 at m = 0: g is not -y * w / W (ROADMAP C4)")
-    # one part at other row counts: a block's rows (512), a partial last
-    # block, the grid route's cap and one row past it (the split route);
-    # each case's arrays cut or repeated to the rows
+    # one part at other row counts: partial blocks of the grid route, its
+    # cap and one row past it (the split route); each case's arrays cut or
+    # repeated to the rows
     cap = step_ops.OBJECTIVE_STEP_MAX_ROWS
     counts = (1, 511, 513, 8181, cap, cap + 1)
     for count in counts:
@@ -1211,9 +1211,22 @@ def check_step_kernels(first):
                 got = step_ops.logistic_step(*args)
             _check_objective(f"{name} at {count} rows ({route} route)", got,
                              step_ops.logistic_step_plain(*args), args[3])
+    # the grid route with its inputs one float off their allocation, so
+    # the blocks sum the weights by scalar loads
+    def off(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].copy_(t)
+
+    terms, bias, y_off, w_off = _on_card(cases["two_terms"])
+    args = ([off(t) for t in terms], bias, off(y_off), off(w_off))
+    out = []
+    _device_us_by_kernel(lambda: out.append(step_ops.logistic_step(*args)), 1,
+                         OBJECTIVE_ROUTE_CALLS["grid"])
+    _check_objective("two_terms one float off the allocation", out[-1],
+                     step_ops.logistic_step_plain(*args), args[3])
     log(f"K8 on one part agrees with its plain version on every case at "
         f"{', '.join(map(str, counts))} rows, each route read from the "
-        f"trace: grid up to {cap} rows, split past it")
+        f"trace: grid up to {cap} rows, split past it; and at {n} rows "
+        "with its inputs one float off their allocation")
     log("K8 agrees with its plain version (one part, and its two sharded "
         f"launches over [{SHARD_PARTS}, {n // SHARD_PARTS}] and "
         "[3, 2727]) on "

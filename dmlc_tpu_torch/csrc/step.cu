@@ -29,13 +29,17 @@
 // rows, 131 KB, 0.04 us, so a launch's latency bounds it. On one part, up
 // to kStepMaxRows rows, it is one launch of a grid of blocks of kStepRows
 // rows, a row a thread, with no barrier across the grid: each thread loads
-// its row first, then every block sums all n weights in one fixed order
-// (32 KB at 8192 rows, from L2), so every block holds the same W bit for
-// bit and writes its rows' g at once; the blocks' (sum weight*loss, sum g)
-// end in grid_sum, whose last block writes the loss and sum g. Past
-// kStepMaxRows the n reads of every block would cost more than a second
-// launch, and the one part takes the sharded step's two launches with
-// the total read straight from the first. The sharded step's W is the
+// its row and forms its loss and d first, then every block sums all n
+// weights in one fixed order (32 KB at 8192 rows, from L2, as float4s),
+// so every block holds the same W bit for bit and writes its rows' g at
+// once; the blocks' (sum weight*loss, sum g) end in grid_sum, whose last
+// block writes the loss and sum g. On an H100 at 8192 rows this took less
+// time than one cooperative launch with a grid barrier in place of the
+// redundant W, or one cluster of blocks summing in each other's shared
+// memory (PERF.md). Past kStepMaxRows the n reads of every block cost
+// more than a second launch, and the one part takes the sharded step's
+// two launches with the total read straight from the first. The sharded
+// step's W is the
 // group's, after an all-reduce of (lsum, wsum) over the processes, so
 // there it is two launches, each a grid of blocks of kGridRows rows:
 // logistic_sums writes this process's (lsum, wsum), and logistic_grad
@@ -80,10 +84,11 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kGridThreads = 256;
 constexpr int kGridRows = 512;  // ops/step.py OBJECTIVE_GRID_ROWS
 // K8 on one part: a row a thread, kStepRows rows a block, up to
-// kStepMaxRows rows; kWeightLoads of a thread's weights in flight at once.
-constexpr int kStepRows = 512;          // ops/step.py OBJECTIVE_GRID_ROWS
-constexpr int kStepMaxRows = 1 << 16;   // ops/step.py OBJECTIVE_STEP_MAX_ROWS
-constexpr int kWeightLoads = 16;
+// kStepMaxRows rows; kWeightLoads float4s of a thread's weights in flight
+// at once.
+constexpr int kStepRows = 256;          // ops/step.py OBJECTIVE_STEP_ROWS
+constexpr int kStepMaxRows = 1 << 15;   // ops/step.py OBJECTIVE_STEP_MAX_ROWS
+constexpr int kWeightLoads = 8;
 constexpr int kSgdThreads = 256;   // ops/step.py _SGD_THREADS
 constexpr int kSgdMaxParams = 16;  // ops/step.py SGD_MAX_PARAMS
 
@@ -216,18 +221,41 @@ __device__ __forceinline__ float guarded(float wsum) {
   return wsum > 0.0f ? wsum : 1.0f;
 }
 
-// The sum of weight[0..n) in a fixed order, the same in every block: a
-// thread's weights i, i + blockDim.x, ... in order, kWeightLoads of them
-// loaded before any is added, then block_sum.
+// The sum of weight[0..n) in a fixed order, the same in every block:
+// where weight is 16-byte aligned, a thread's float4s j, j + blockDim.x,
+// ... in order, kWeightLoads of them loaded before any is added, then the
+// scalars past the last float4 (all of them where weight is not aligned),
+// kWeightLoads at a time; then block_sum.
 __device__ __forceinline__ float weight_total(const float* __restrict__ weight,
                                               int n, float* scratch) {
+  const int T = static_cast<int>(blockDim.x);
   float s[1] = {0.0f};
-  for (int base = threadIdx.x; base < n;
-       base += kWeightLoads * static_cast<int>(blockDim.x)) {
+  int done = 0;
+  if (reinterpret_cast<uintptr_t>(weight) % 16 == 0) {
+    const int n4 = n / 4;
+    const float4* __restrict__ w4 = reinterpret_cast<const float4*>(weight);
+    for (int base = threadIdx.x; base < n4; base += kWeightLoads * T) {
+      float4 v[kWeightLoads];
+#pragma unroll
+      for (int j = 0; j < kWeightLoads; ++j) {
+        const int i = base + j * T;
+        v[j] = i < n4 ? w4[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int j = 0; j < kWeightLoads; ++j) {
+        s[0] += v[j].x;
+        s[0] += v[j].y;
+        s[0] += v[j].z;
+        s[0] += v[j].w;
+      }
+    }
+    done = 4 * n4;
+  }
+  for (int base = done + threadIdx.x; base < n; base += kWeightLoads * T) {
     float v[kWeightLoads];
 #pragma unroll
     for (int j = 0; j < kWeightLoads; ++j) {
-      const int i = base + j * static_cast<int>(blockDim.x);
+      const int i = base + j * T;
       v[j] = i < n ? weight[i] : 0.0f;
     }
 #pragma unroll
@@ -244,18 +272,19 @@ __global__ void __launch_bounds__(kStepRows)
                          float* __restrict__ loss, float* __restrict__ g,
                          float* __restrict__ gb) {
   __shared__ float scratch[2 * kWarp];
-  // the row's loads first, in flight while the block sums the weights
+  // the row's loss and d first, while the block's loads of the weights
+  // follow its own
   const int i = static_cast<int>(blockIdx.x) * kStepRows +
                 static_cast<int>(threadIdx.x);
   const bool row = i < n;
   const float m = row ? margin_at(mg, i) : 0.0f;
   const float y = row ? label[i] : 0.0f;
   const float w = row ? weight[i] : 0.0f;
+  float l = 0.0f, d = 0.0f;
+  if (row) row_loss(m, y, &l, &d);
   const float W = guarded(weight_total(weight, n, scratch));
   float sums[2] = {0.0f, 0.0f};  // sum weight * loss, sum g
   if (row) {
-    float l, d;
-    row_loss(m, y, &l, &d);
     const float gi = (w * (1.0f / W)) * d;
     g[i] = gi;
     sums[0] = l * w;
@@ -392,7 +421,10 @@ struct NarrowTable {
   int units;
 };
 
-template <int N>
+// kDecay: l2 != 0; kSum: the loss's l2 term is asked for. A launch
+// without them carries none of their code: at 138 floats the l2 sum's
+// code alone, never run, cost 0.05 us a launch (sweeps/k8_k9, PERF.md).
+template <int N, bool kDecay, bool kSum>
 __global__ void __launch_bounds__(kSgdThreads)
     sgd_update_narrow_kernel(NarrowTable<N> t, float lr, float l2,
                              float* __restrict__ loss) {
@@ -416,7 +448,7 @@ __global__ void __launch_bounds__(kSgdThreads)
         decay = ((t.decay >> k) & 1u) != 0;
       }
     }
-    decay = decay && l2 != 0.0f;
+    decay = kDecay && decay;
     const float two_l2 = 2.0f * l2;
     const int b = v - head;
     if (b >= 0 && b < body) {
@@ -433,7 +465,7 @@ __global__ void __launch_bounds__(kSgdThreads)
       p[j] = sgd_one(p[j], g[j], lr, two_l2, decay, &sq);
     }
   }
-  if (loss == nullptr) return;  // the same for every thread of the block
+  if (!kSum) return;
   __shared__ float scratch[kWarp];
   float s[1] = {sq};
   block_sum(s, scratch);
@@ -455,6 +487,33 @@ void sgd_cut(const void* p, const void* g, int64_t n, int64_t* head,
   *body = (n - *head) / 4;
 }
 
+// The narrow route's table of the count parameters at params, grads
+// (host arrays, as dmlc_sgd_update takes them); false where their units
+// pass kSgdThreads.
+template <int N>
+bool narrow_table(const void* params, const void* grads, const void* numel,
+                  const void* decay, int count, NarrowTable<N>* t) {
+  *t = NarrowTable<N>{};
+  int64_t units = 0;
+  for (int k = 0; k < N; ++k) {
+    t->start[k] = kNoUnit;
+    if (k >= count) continue;
+    t->p[k] = static_cast<float* const*>(params)[k];
+    t->g[k] = static_cast<const float* const*>(grads)[k];
+    const int64_t n = static_cast<const int64_t*>(numel)[k];
+    int64_t head, body;
+    sgd_cut(t->p[k], t->g[k], n, &head, &body);
+    if (units + n - 3 * body > kSgdThreads) return false;
+    t->start[k] = static_cast<int>(units);
+    t->head[k] = static_cast<int>(head);
+    t->body[k] = static_cast<int>(body);
+    if (static_cast<const int*>(decay)[k] != 0) t->decay |= 1u << k;
+    units += n - 3 * body;
+  }
+  t->units = static_cast<int>(units);
+  return true;
+}
+
 // The narrow route (see the note at the top): one block, a unit a thread,
 // of a multiple of kWarp threads; cudaErrorInvalidValue where the units
 // pass kSgdThreads.
@@ -462,31 +521,23 @@ template <int N>
 int sgd_update_narrow(const void* params, const void* grads,
                       const void* numel, const void* decay, int count,
                       float lr, float l2, void* loss, cudaStream_t stream) {
-  NarrowTable<N> t = {};
-  int64_t units = 0;
-  for (int k = 0; k < N; ++k) {
-    t.start[k] = kNoUnit;
-    if (k >= count) continue;
-    t.p[k] = static_cast<float* const*>(params)[k];
-    t.g[k] = static_cast<const float* const*>(grads)[k];
-    const int64_t n = static_cast<const int64_t*>(numel)[k];
-    int64_t head, body;
-    sgd_cut(t.p[k], t.g[k], n, &head, &body);
-    if (units + n - 3 * body > kSgdThreads) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    t.start[k] = static_cast<int>(units);
-    t.head[k] = static_cast<int>(head);
-    t.body[k] = static_cast<int>(body);
-    if (static_cast<const int*>(decay)[k] != 0) t.decay |= 1u << k;
-    units += n - 3 * body;
+  NarrowTable<N> t;
+  if (!narrow_table(params, grads, numel, decay, count, &t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  t.units = static_cast<int>(units);
-  const int threads = units > kWarp
-                          ? static_cast<int>((units + kWarp - 1) / kWarp) * kWarp
-                          : kWarp;
-  sgd_update_narrow_kernel<N><<<1, threads, 0, stream>>>(
-      t, lr, l2, static_cast<float*>(loss));
+  const int threads = t.units > 0 ? (t.units + kWarp - 1) / kWarp * kWarp
+                                  : kWarp;
+  float* sum = static_cast<float*>(loss);
+  if (l2 == 0.0f) {
+    sgd_update_narrow_kernel<N, false, false><<<1, threads, 0, stream>>>(
+        t, lr, l2, nullptr);
+  } else if (sum == nullptr) {
+    sgd_update_narrow_kernel<N, true, false><<<1, threads, 0, stream>>>(
+        t, lr, l2, nullptr);
+  } else {
+    sgd_update_narrow_kernel<N, true, true><<<1, threads, 0, stream>>>(
+        t, lr, l2, sum);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

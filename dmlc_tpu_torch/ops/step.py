@@ -20,7 +20,7 @@ beside it:
   reference's subgradients: ``jnp.maximum`` splits a tie in half,
   ``jnp.abs`` has slope +1 at 0; ROADMAP C4). Its route is picked by
   the rows (``objective_route``): up to ``OBJECTIVE_STEP_MAX_ROWS``,
-  "grid", one launch of a grid of blocks of ``OBJECTIVE_GRID_ROWS`` rows,
+  "grid", one launch of a grid of blocks of ``OBJECTIVE_STEP_ROWS`` rows,
   every block summing all the weights for W; past it, "split", the two
   launches below with the first's total read straight by the second.
 - K8 ``logistic_sums`` and ``logistic_grad``: the same split in two for
@@ -63,17 +63,19 @@ __all__ = ["stable_bce_on_logits", "logistic_step", "logistic_sums",
            "logistic_step_plain", "logistic_sums_plain",
            "logistic_grad_plain", "sgd_update_plain", "sgd_grid",
            "sgd_route", "objective_grid", "objective_route",
-           "SGD_MAX_PARAMS", "OBJECTIVE_GRID_ROWS",
+           "SGD_MAX_PARAMS", "OBJECTIVE_GRID_ROWS", "OBJECTIVE_STEP_ROWS",
            "OBJECTIVE_STEP_MAX_ROWS"]
 
 # kSgdMaxParams of csrc/step.cu: the parameters one K9 launch takes.
 SGD_MAX_PARAMS = 16
-# kGridRows and kStepRows of csrc/step.cu: the rows a block of K8's
-# launches takes.
+# kGridRows of csrc/step.cu: the rows a block of K8's sharded launches
+# takes; kStepRows: of its one-part "grid" route.
 OBJECTIVE_GRID_ROWS = 512
-# kStepMaxRows of csrc/step.cu: the most rows K8's one-launch "grid" route
-# takes on one part; every block of it reads all the rows' weights.
-OBJECTIVE_STEP_MAX_ROWS = 1 << 16
+OBJECTIVE_STEP_ROWS = 256
+# kStepMaxRows of csrc/step.cu: the most rows the "grid" route takes; every
+# block of it reads all the rows' weights, and past this the two launches
+# of the "split" route took less time (an H100, PERF.md).
+OBJECTIVE_STEP_MAX_ROWS = 1 << 15
 # kSgdThreads of csrc/step.cu: K9's threads a block, and so the most units
 # of its narrow route; and its wide grid's blocks an SM at most.
 _SGD_THREADS = 256
@@ -212,7 +214,7 @@ def logistic_step(terms: Sequence[torch.Tensor],
     if objective_route(n) == "split":
         return logistic_grad(terms, bias, label, weight,
                              logistic_sums(terms, bias, label, weight))
-    blocks = objective_grid(n)
+    blocks = objective_grid(n, OBJECTIVE_STEP_ROWS)
     partial = torch.empty(2 * blocks, dtype=torch.float32,
                           device=label.device)
     loss, gb, g = _scalar(label), _scalar(label), torch.empty_like(label)
@@ -224,10 +226,11 @@ def logistic_step(terms: Sequence[torch.Tensor],
     return loss, g, gb
 
 
-def objective_grid(n: int) -> int:
-    """The blocks of each of K8's launches over ``n`` rows:
-    ceil(n / OBJECTIVE_GRID_ROWS), at least one."""
-    return max(1, -(-n // OBJECTIVE_GRID_ROWS))
+def objective_grid(n: int, rows: int = OBJECTIVE_GRID_ROWS) -> int:
+    """The blocks of one of K8's launches over ``n`` rows, ``rows`` a
+    block (the sharded launches' OBJECTIVE_GRID_ROWS, or the one-part
+    grid's OBJECTIVE_STEP_ROWS): ceil(n / rows), at least one."""
+    return max(1, -(-n // rows))
 
 
 def logistic_sums(terms: Sequence[torch.Tensor],

@@ -2,9 +2,10 @@
 """Forms of K8 on one part and of K9 at a narrow model, timed in turns on
 one NVIDIA GPU: ``python3 sweeps/k8_k9/sweep.py`` from the repo root.
 
-Builds the port's kernel library and, beside it, ``variants.cu`` and
+Builds the port's kernel library and, beside it, ``variants.cu``,
 ``coop.cu`` (twice: a counter barrier, and cooperative groups'
-``grid.sync()``) with the library's nvcc flags into ``build/sweep/``;
+``grid.sync()``) and ``cluster.cu`` with the library's nvcc flags into
+``build/sweep/``;
 holds each form to the plain version; then times each by its device time
 in a torch.profiler trace (chip_smoke's ``device_ms``: 50 calls, each
 call's kernels checked), every list of forms in turns (A, B, ..., B, A),
@@ -18,15 +19,23 @@ of p and g as chip_smoke times K9, l2 = 0:
 (c) the same with a 2-slot table; (g) with no argument;
 (d) the wide kernel's loop with a 2-slot table and 32-bit indices;
 (e) ``torch._foreach_add_(p, g, alpha=-lr)``;
-(f) the narrow route (``sgd_update_narrow_kernel<2>``);
-and (a) and (f) at l2 = 0.01 with the loss's l2 term.
+(f) the narrow route (``sgd_update_narrow_kernel<2, false, false>``, 64
+threads); (h) the same kernel with 256 threads; (i) the narrow update
+written alone, with no l2 code; (j) w and b as plain kernel arguments,
+a unit a thread; and (a) and (f) at l2 = 0.01 with the loss's l2 term.
 
 K8 on one part at 8192 rows (the main path's batch), warm: the one block
 of 1024 threads of PR 11; the grid (every block sums all the weights) at
-128, 256, 512 and 1024 rows a block, and ``logistic_step`` itself; the
-cooperative launch with each barrier; the split route (``logistic_sums``
-then ``logistic_grad``); ``F.binary_cross_entropy_with_logits``. Then the
-grid at 512 rows a block against the split route at 16384-262144 rows.
+128, 256, 512 and 1024 rows a block; the same with each row's loss formed
+before the sum of the weights, which loads 16 or 32 scalars or 4 or 8
+float4s of a thread at once; ``logistic_step`` itself; the cooperative
+launch with each barrier; one cluster of 4-16 blocks that sum in each
+other's shared memory; the split route (``logistic_sums`` then
+``logistic_grad``); ``F.binary_cross_entropy_with_logits``; and, for
+their times alone (their results are wrong), the grid at 512 rows a
+block without the sum of the weights, and without ``grid_sum``. Then the
+grid at 256, 512 and 1024 rows a block (and 256 and 512 with the loss
+first and 8 float4s) against the split route at 16384-262144 rows.
 """
 
 import ctypes
@@ -66,7 +75,8 @@ def build_all():
     jobs = [(os.path.join(HERE, "variants.cu"), "variants.so", []),
             (os.path.join(HERE, "coop.cu"), "coop_counter.so", []),
             (os.path.join(HERE, "coop.cu"), "coop_groups.so",
-             ["-DSWEEP_GROUPS"])]
+             ["-DSWEEP_GROUPS"]),
+            (os.path.join(HERE, "cluster.cu"), "cluster.so", [])]
     threads = [threading.Thread(target=nvcc_lib, args=job + (results,))
                for job in jobs]
     for t in threads:
@@ -74,6 +84,19 @@ def build_all():
     kernels.library()
     for t in threads:
         t.join()
+    P, I, I64, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_float)
+    signatures = {
+        "sweep_k8_block": [P, P, P, P, P, I64, P, P, P, P],
+        "sweep_k8_rows": [P, P, P, P, P, I64, P, P, P, P, P, I, I, P],
+        "sweep_k8_early": [P, P, P, P, P, I64, P, P, P, P, P, I, I, P],
+        "sweep_empty": [I, P],
+        "sweep_sgd_slot32": [P, P, P, P, I, F, P],
+        "sweep_narrow": [P, P, P, P, I, F, I, I, P],
+        "sweep_two": [P, P, I, P, P, F, P],
+        "sweep_k8_coop": [P, P, P, P, P, I64, P, P, P, P, P, P, P, P],
+        "sweep_k8_cluster": [P, P, P, P, P, I64, P, P, P, I, P],
+    }
     libs = {}
     for name, (rc, path, text) in sorted(results.items()):
         for line in text.splitlines():
@@ -82,7 +105,11 @@ def build_all():
                 cs.log(f"  {name}: {line.strip()}")
         cs.log(f"build {name}: rc {rc}")
         if rc == 0:
-            libs[name] = ctypes.CDLL(path)
+            lib = ctypes.CDLL(path)
+            for fn, args in signatures.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = args
+            libs[name] = lib
     cs.require("variants.so" in libs, "variants.cu did not build")
     return libs
 
@@ -104,11 +131,11 @@ def in_turns(label, forms, rounds=2):
 
 def stream():
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return torch.cuda.current_stream().cuda_stream
 
 
 def ptr(t):
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+    return None if t is None else t.data_ptr()
 
 
 # ------------------------------------------------------------------ K9
@@ -145,13 +172,29 @@ def k9(libs):
     def slot32(p, g):
         t = table(p, g)
         err = var.sweep_sgd_slot32(*[ctypes.addressof(a) for a in t],
-                                   len(p), ctypes.c_float(LR), stream())
+                                   len(p), LR, stream())
         cs.require(err == 0, f"slot32 K9: CUDA error {err}")
+
+    def narrow(threads, which):
+        def call(p, g):
+            t = table(p, g)
+            err = var.sweep_narrow(*[ctypes.addressof(a) for a in t], len(p),
+                                   LR, threads, which, stream())
+            cs.require(err == 0, f"narrow K9 {threads} {which}: CUDA error "
+                       f"{err}")
+        return call
+
+    def two(p, g):
+        err = var.sweep_two(p[0].data_ptr(), g[0].data_ptr(), p[0].numel(),
+                            p[1].data_ptr(), g[1].data_ptr(), LR, stream())
+        cs.require(err == 0, f"two K9: CUDA error {err}")
 
     # each form against the plain version once
     for name, fn in (("wide", wide), ("slot32", slot32),
                      ("narrow", lambda p, g: step.sgd_update(p, g, decay, LR,
-                                                             0.0))):
+                                                             0.0)),
+                     ("narrow 256 threads", narrow(256, 0)),
+                     ("narrow update alone", narrow(64, 1)), ("two", two)):
         got = [p.clone() for p in params]
         want = [p.clone() for p in params]
         fn(got, grads)
@@ -186,6 +229,11 @@ def k9(libs):
         ("f narrow", on(lambda p, g: step.sgd_update(p, g, decay, LR, 0.0)),
          {"sgd_update_narrow_kernel": 1, "sgd_update_kernel": 0}),
         ("g empty, no argument", empty(0), {"empty0_kernel": 1}),
+        ("h narrow, 256 threads", on(narrow(256, 0)),
+         {"sgd_update_narrow_kernel": 1}),
+        ("i narrow update alone", on(narrow(64, 1)),
+         {"narrow_update_kernel": 1}),
+        ("j w and b as arguments", on(two), {"two_kernel": 1}),
     ]
     in_turns("k9 at 138 floats, l2 = 0", forms)
     forms = [
@@ -224,24 +272,23 @@ def k8(libs):
     def block(args):
         (terms, bias, label, weight) = args
         loss, g, gb = outs(label)
-        err = var.sweep_k8_block(ptr(terms[0]), ptr(None), ptr(bias),
-                                 ptr(label), ptr(weight),
-                                 ctypes.c_int64(label.numel()), ptr(loss),
-                                 ptr(g), ptr(gb), stream())
+        err = var.sweep_k8_block(ptr(terms[0]), None, ptr(bias),
+                                 ptr(label), ptr(weight), label.numel(),
+                                 ptr(loss), ptr(g), ptr(gb), stream())
         cs.require(err == 0, f"K8 block: CUDA error {err}")
         return loss, g, gb
 
-    def rows(threads):
+    def rows(threads, mode=0, entry="sweep_k8_rows"):
         def call(args):
             (terms, bias, label, weight) = args
             n = label.numel()
             blocks = max(1, -(-n // threads))
             partial = torch.empty(2 * blocks, device=cuda)
             loss, g, gb = outs(label)
-            err = var.sweep_k8_rows(
-                ptr(terms[0]), ptr(None), ptr(bias), ptr(label), ptr(weight),
-                ctypes.c_int64(n), ptr(partial), ptr(step._counter(cuda)),
-                ptr(loss), ptr(g), ptr(gb), threads, stream())
+            err = getattr(var, entry)(
+                ptr(terms[0]), None, ptr(bias), ptr(label), ptr(weight), n,
+                ptr(partial), ptr(step._counter(cuda)), ptr(loss), ptr(g),
+                ptr(gb), threads, mode, stream())
             cs.require(err == 0, f"K8 rows {threads}: CUDA error {err}")
             return loss, g, gb
         return call
@@ -257,11 +304,22 @@ def k8(libs):
             partial2 = torch.empty(blocks, device=cuda)
             loss, g, gb = outs(label)
             err = lib.sweep_k8_coop(
-                ptr(terms[0]), ptr(None), ptr(bias), ptr(label), ptr(weight),
-                ctypes.c_int64(n), ptr(partial), ptr(partial2),
+                ptr(terms[0]), None, ptr(bias), ptr(label), ptr(weight),
+                n, ptr(partial), ptr(partial2),
                 ptr(step._counter(cuda)), ptr(barrier), ptr(loss), ptr(g),
                 ptr(gb), stream())
             cs.require(err == 0, f"K8 coop: CUDA error {err}")
+            return loss, g, gb
+        return call
+
+    def cluster(shape):
+        def call(args):
+            (terms, bias, label, weight) = args
+            loss, g, gb = outs(label)
+            err = libs["cluster.so"].sweep_k8_cluster(
+                ptr(terms[0]), None, ptr(bias), ptr(label), ptr(weight),
+                label.numel(), ptr(loss), ptr(g), ptr(gb), shape, stream())
+            cs.require(err == 0, f"K8 cluster {shape}: CUDA error {err}")
             return loss, g, gb
         return call
 
@@ -277,7 +335,13 @@ def k8(libs):
     forms = [("block (PR 11)", block, {"logistic_block_kernel": 1})]
     forms += [(f"grid {t} rows a block", rows(t),
                {"logistic_rows_kernel": 1}) for t in (128, 256, 512, 1024)]
-    forms += [("logistic_step (grid route)", step.logistic_step,
+    early = ("scalar, 16 loads", "scalar, 32 loads", "float4, 8 loads",
+             "float4, 4 loads")
+    forms += [(f"grid {t}, loss first, W {early[f]}",
+               rows(t, f, "sweep_k8_early"), {"logistic_early_kernel": 1})
+              for t, f in ((256, 0), (256, 1), (256, 2), (256, 3), (512, 0),
+                           (512, 2), (512, 3))]
+    forms += [("logistic_step (grid route)", lambda a: step.logistic_step(*a),
                {"logistic_step_kernel": 1})]
     for name in ("coop_counter.so", "coop_groups.so"):
         if name in libs:
@@ -287,6 +351,13 @@ def k8(libs):
             reading(sweep="k8 build", form=name, built=False)
     forms += [("split (sums + grad)", split,
                {"logistic_sums_kernel": 1, "logistic_grad_kernel": 1})]
+    if "cluster.so" in libs:
+        forms += [(f"cluster of {K8_ROWS // (t * r)}, {t} threads x {r} rows",
+                   cluster(t * 10 + r), {"logistic_cluster_kernel": 1})
+                  for t, r in ((256, 2), (512, 1), (512, 2), (1024, 1),
+                               (1024, 2))]
+    else:
+        reading(sweep="k8 build", form="cluster.so", built=False)
 
     args = inputs(K8_ROWS)
     want = step.logistic_step_plain(*args)
@@ -303,17 +374,31 @@ def k8(libs):
         good.append((name, (lambda f: lambda: f(args))(fn), calls))
     good.append(("F.binary_cross_entropy_with_logits",
                  lambda: library(args), None))
+    for mode, what in ((1, "without the sum of the weights"),
+                       (2, "without grid_sum")):
+        good.append((f"grid 512 rows a block {what} (timing only)",
+                     (lambda f: lambda: f(args))(rows(512, mode)),
+                     {"logistic_rows_kernel": 1}))
     in_turns(f"k8 at {K8_ROWS} rows", good)
 
     for n in K8_WIDE:
         args = inputs(n)
         want = step.logistic_step_plain(*args)
-        forms = [("grid 512 rows a block", rows(512),
+        forms = [("grid 256 rows a block", rows(256),
+                  {"logistic_rows_kernel": 1}),
+                 ("grid 512 rows a block", rows(512),
                   {"logistic_rows_kernel": 1}),
                  ("grid 1024 rows a block", rows(1024),
                   {"logistic_rows_kernel": 1}),
                  ("split (sums + grad)", split,
                   {"logistic_sums_kernel": 1, "logistic_grad_kernel": 1})]
+        forms += [(f"grid {t}, loss first, W {early[f]}",
+                   rows(t, f, "sweep_k8_early"), {"logistic_early_kernel": 1})
+                  for t, f in ((256, 2), (512, 2))]
+        if n == 2 * K8_ROWS and "cluster.so" in libs:
+            forms += [(f"cluster of 16, {t} threads x {r} rows",
+                       cluster(t * 10 + r), {"logistic_cluster_kernel": 1})
+                      for t, r in ((512, 2), (1024, 1))]
         for name, fn, _ in forms:
             cs._check_objective(f"{name} at {n}", fn(args), want, args[3])
         in_turns(f"k8 at {n} rows",

@@ -25,8 +25,10 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// logistic_step_kernel with T threads (and rows) a block.
-template <int T>
+// logistic_step_kernel with T threads (and rows) a block. kMode 1: no
+// sum of the weights (W = 1); 2: no grid_sum (each block writes its
+// partial sums only); both for timing alone, their results are wrong.
+template <int T, int kMode>
 __global__ void __launch_bounds__(T)
     logistic_rows_kernel(Margins mg, const float* __restrict__ label,
                          const float* __restrict__ weight, int n,
@@ -39,11 +41,92 @@ __global__ void __launch_bounds__(T)
   const float m = row ? margin_at(mg, i) : 0.0f;
   const float y = row ? label[i] : 0.0f;
   const float w = row ? weight[i] : 0.0f;
-  const float W = guarded(weight_total(weight, n, scratch));
+  const float W = kMode == 1 ? 1.0f
+                             : guarded(weight_total(weight, n, scratch));
   float sums[2] = {0.0f, 0.0f};
   if (row) {
     float l, d;
     row_loss(m, y, &l, &d);
+    const float gi = (w * (1.0f / W)) * d;
+    g[i] = gi;
+    sums[0] = l * w;
+    sums[1] = gi;
+  }
+  if (kMode == 2) {
+    block_sum(sums, scratch);
+    if (threadIdx.x == 0) {
+      partial[2 * blockIdx.x] = sums[0];
+      partial[2 * blockIdx.x + 1] = sums[1];
+    }
+    return;
+  }
+  if (grid_sum(sums, partial, counter, scratch) && threadIdx.x == 0) {
+    *loss = sums[0] / W;
+    *gb = sums[1];
+  }
+}
+
+// The grid with the rows' loss and d formed before the sum of the
+// weights, which keeps kLoads loads (float4 where kVec and weight is
+// 16-byte aligned) of a thread in flight.
+template <int kLoads, bool kVec>
+__device__ __forceinline__ float weight_total_form(
+    const float* __restrict__ weight, int n, float* scratch) {
+  float s[1] = {0.0f};
+  const int T = static_cast<int>(blockDim.x);
+  int done = 0;
+  if (kVec && reinterpret_cast<uintptr_t>(weight) % 16 == 0) {
+    const int n4 = n / 4;
+    const float4* w4 = reinterpret_cast<const float4*>(weight);
+    for (int base = threadIdx.x; base < n4; base += kLoads * T) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int i = base + j * T;
+        v[j] = i < n4 ? w4[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        s[0] += v[j].x;
+        s[0] += v[j].y;
+        s[0] += v[j].z;
+        s[0] += v[j].w;
+      }
+    }
+    done = 4 * n4;
+  }
+  for (int base = done + threadIdx.x; base < n; base += kLoads * T) {
+    float v[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = base + j * T;
+      v[j] = i < n ? weight[i] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) s[0] += v[j];
+  }
+  block_sum(s, scratch);
+  return s[0];
+}
+
+template <int T, int kLoads, bool kVec>
+__global__ void __launch_bounds__(T)
+    logistic_early_kernel(Margins mg, const float* __restrict__ label,
+                          const float* __restrict__ weight, int n,
+                          float* __restrict__ partial, unsigned* counter,
+                          float* __restrict__ loss, float* __restrict__ g,
+                          float* __restrict__ gb) {
+  __shared__ float scratch[2 * kWarp];
+  const int i = static_cast<int>(blockIdx.x) * T + static_cast<int>(threadIdx.x);
+  const bool row = i < n;
+  const float m = row ? margin_at(mg, i) : 0.0f;
+  const float y = row ? label[i] : 0.0f;
+  const float w = row ? weight[i] : 0.0f;
+  float l = 0.0f, d = 0.0f;
+  if (row) row_loss(m, y, &l, &d);
+  const float W = guarded(weight_total_form<kLoads, kVec>(weight, n, scratch));
+  float sums[2] = {0.0f, 0.0f};
+  if (row) {
     const float gi = (w * (1.0f / W)) * d;
     g[i] = gi;
     sums[0] = l * w;
@@ -126,9 +209,100 @@ __global__ void __launch_bounds__(kSgdThreads)
   }
 }
 
+// (i): the narrow kernel's update alone, no l2 sum and no shared memory.
+template <int N>
+__global__ void __launch_bounds__(kSgdThreads)
+    narrow_update_kernel(NarrowTable<N> t, float lr) {
+  const int u = threadIdx.x;
+  if (u >= t.units) return;
+  float* p = t.p[0];
+  const float* g = t.g[0];
+  int v = u, head = t.head[0], body = t.body[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) {
+    if (u >= t.start[k]) {
+      p = t.p[k];
+      g = t.g[k];
+      v = u - t.start[k];
+      head = t.head[k];
+      body = t.body[k];
+    }
+  }
+  const int b = v - head;
+  if (b >= 0 && b < body) {
+    float4* p4 = reinterpret_cast<float4*>(p + head) + b;
+    const float4 g4 = reinterpret_cast<const float4*>(g + head)[b];
+    float4 a = *p4;
+    a.x = fmaf(-lr, g4.x, a.x);
+    a.y = fmaf(-lr, g4.y, a.y);
+    a.z = fmaf(-lr, g4.z, a.z);
+    a.w = fmaf(-lr, g4.w, a.w);
+    *p4 = a;
+  } else {
+    const int j = b < 0 ? v : head + 4 * body + (b - body);
+    p[j] = fmaf(-lr, g[j], p[j]);
+  }
+}
+
+// (j): w (aligned: body float4s, then scalars to n) and b as plain
+// arguments, a unit a thread.
+__global__ void two_kernel(float* __restrict__ w, const float* __restrict__ gw,
+                           int body, int n, float* __restrict__ b,
+                           const float* __restrict__ gb, float lr) {
+  const int u = threadIdx.x;
+  const int tail = n - 4 * body;
+  if (u < body) {
+    float4* p4 = reinterpret_cast<float4*>(w) + u;
+    const float4 g4 = reinterpret_cast<const float4*>(gw)[u];
+    float4 a = *p4;
+    a.x = fmaf(-lr, g4.x, a.x);
+    a.y = fmaf(-lr, g4.y, a.y);
+    a.z = fmaf(-lr, g4.z, a.z);
+    a.w = fmaf(-lr, g4.w, a.w);
+    *p4 = a;
+  } else if (u < body + tail) {
+    const int j = 4 * body + (u - body);
+    w[j] = fmaf(-lr, gw[j], w[j]);
+  } else if (u == body + tail) {
+    *b = fmaf(-lr, *gb, *b);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// the narrow route's table for at most 2 parameters, launched with
+// `threads` threads: which 0, step.cu's sgd_update_narrow_kernel (l2 = 0,
+// no loss); 1, narrow_update_kernel
+int sweep_narrow(const void* params, const void* grads, const void* numel,
+                 const void* decay, int count, float lr, int threads,
+                 int which, void* stream) {
+  NarrowTable<2> t;
+  if (count > 2 || !narrow_table(params, grads, numel, decay, count, &t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (which == 0) {
+    sgd_update_narrow_kernel<2, false, false><<<1, threads, 0, st>>>(
+        t, lr, 0.0f, nullptr);
+  } else {
+    narrow_update_kernel<2><<<1, threads, 0, st>>>(t, lr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sweep_two(void* w, const void* gw, int n, void* b, const void* gb,
+              float lr, void* stream) {
+  const int body = n / 4;
+  const int units = body + (n - 4 * body) + 1;
+  two_kernel<<<1, (units + kWarp - 1) / kWarp * kWarp, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(w), static_cast<const float*>(gw), body, n,
+      static_cast<float*>(b), static_cast<const float*>(gb), lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 
 int sweep_k8_block(const void* t0, const void* t1, const void* bias,
                    const void* label, const void* weight, int64_t n,
@@ -144,25 +318,57 @@ int sweep_k8_block(const void* t0, const void* t1, const void* bias,
 int sweep_k8_rows(const void* t0, const void* t1, const void* bias,
                   const void* label, const void* weight, int64_t n,
                   void* partial, void* counter, void* loss, void* g,
-                  void* gb, int threads, void* stream) {
+                  void* gb, int threads, int mode, void* stream) {
   const unsigned blocks =
       n > 0 ? static_cast<unsigned>((n + threads - 1) / threads) : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SWEEP_ROWS(T)                                                       \
-  logistic_rows_kernel<T><<<blocks, T, 0, st>>>(                            \
+#define SWEEP_ROWS(T, M)                                                    \
+  logistic_rows_kernel<T, M><<<blocks, T, 0, st>>>(                         \
       margins(t0, t1, bias), static_cast<const float*>(label),              \
       static_cast<const float*>(weight), static_cast<int>(n),               \
       static_cast<float*>(partial), static_cast<unsigned*>(counter),        \
       static_cast<float*>(loss), static_cast<float*>(g),                    \
       static_cast<float*>(gb))
-  switch (threads) {
-    case 128: SWEEP_ROWS(128); break;
-    case 256: SWEEP_ROWS(256); break;
-    case 512: SWEEP_ROWS(512); break;
-    case 1024: SWEEP_ROWS(1024); break;
+  switch (threads * 4 + mode) {
+    case 128 * 4: SWEEP_ROWS(128, 0); break;
+    case 256 * 4: SWEEP_ROWS(256, 0); break;
+    case 512 * 4: SWEEP_ROWS(512, 0); break;
+    case 1024 * 4: SWEEP_ROWS(1024, 0); break;
+    case 512 * 4 + 1: SWEEP_ROWS(512, 1); break;
+    case 512 * 4 + 2: SWEEP_ROWS(512, 2); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SWEEP_ROWS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// form: 0 scalar 16 loads, 1 scalar 32 loads, 2 float4 8 loads, 3 float4
+// 4 loads; threads 256 or 512
+int sweep_k8_early(const void* t0, const void* t1, const void* bias,
+                   const void* label, const void* weight, int64_t n,
+                   void* partial, void* counter, void* loss, void* g,
+                   void* gb, int threads, int form, void* stream) {
+  const unsigned blocks =
+      n > 0 ? static_cast<unsigned>((n + threads - 1) / threads) : 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SWEEP_EARLY(T, L, V)                                                \
+  logistic_early_kernel<T, L, V><<<blocks, T, 0, st>>>(                     \
+      margins(t0, t1, bias), static_cast<const float*>(label),              \
+      static_cast<const float*>(weight), static_cast<int>(n),               \
+      static_cast<float*>(partial), static_cast<unsigned*>(counter),        \
+      static_cast<float*>(loss), static_cast<float*>(g),                    \
+      static_cast<float*>(gb))
+  switch (threads * 4 + form) {
+    case 256 * 4 + 0: SWEEP_EARLY(256, 16, false); break;
+    case 256 * 4 + 1: SWEEP_EARLY(256, 32, false); break;
+    case 256 * 4 + 2: SWEEP_EARLY(256, 8, true); break;
+    case 256 * 4 + 3: SWEEP_EARLY(256, 4, true); break;
+    case 512 * 4 + 0: SWEEP_EARLY(512, 16, false); break;
+    case 512 * 4 + 2: SWEEP_EARLY(512, 8, true); break;
+    case 512 * 4 + 3: SWEEP_EARLY(512, 4, true); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SWEEP_EARLY
   return static_cast<int>(cudaGetLastError());
 }
 

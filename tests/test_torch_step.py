@@ -55,14 +55,15 @@ def _close(got, want):
 
 # ------------------------------------------------------------ K8
 
-def _objective_case(name):
-    """(t0, t1, bias, label, weight), float32 numpy, for a K8 case."""
+def _objective_case(name, rows=ROWS):
+    """(t0, t1, bias, label, weight), float32 numpy, for a K8 case of
+    ``rows`` rows."""
     rng = np.random.RandomState(sum(map(ord, name)))
-    t0 = rng.randn(ROWS).astype(np.float32)
-    t1 = (0.5 * rng.randn(ROWS)).astype(np.float32)
+    t0 = rng.randn(rows).astype(np.float32)
+    t1 = (0.5 * rng.randn(rows)).astype(np.float32)
     bias = np.float32(0.25)
-    label = np.where(rng.rand(ROWS) > 0.5, 1.0, -1.0).astype(np.float32)
-    weight = (rng.rand(ROWS) + 0.5).astype(np.float32)
+    label = np.where(rng.rand(rows) > 0.5, 1.0, -1.0).astype(np.float32)
+    weight = (rng.rand(rows) + 0.5).astype(np.float32)
     if name == "zero_margin":  # the zero-initialised model's first step
         t0[:] = 0.0
         t1[:] = 0.0
@@ -72,9 +73,9 @@ def _objective_case(name):
         bias = np.float32(0.0)
         t0[::3] = 0.0
     elif name == "labels01":
-        label = (rng.rand(ROWS) > 0.5).astype(np.float32)
+        label = (rng.rand(rows) > 0.5).astype(np.float32)
     elif name == "graded":  # y = label > 0: 0, 0.5, 2 and -3 read as 0/1
-        label = rng.choice([-3.0, 0.0, 0.5, 2.0], ROWS).astype(np.float32)
+        label = rng.choice([-3.0, 0.0, 0.5, 2.0], rows).astype(np.float32)
     elif name == "all_padded":  # W = 0: loss 0, no gradient
         weight[:] = 0.0
     elif name == "small_weight":  # 0 < W < 1: W is not clamped to 1
@@ -82,11 +83,12 @@ def _objective_case(name):
     elif name == "large_margin":
         t1[:] = 0.0
         bias = np.float32(0.0)
-        t0[:8] = [88.0, -88.0, 3e38, -3e38, 3e38, -3e38, 88.0, -88.0]
-        label[:8] = [1, 0, 1, -1, 0, 1, -1, 1]
+        k = min(8, rows)
+        t0[:k] = [88.0, -88.0, 3e38, -3e38, 3e38, -3e38, 88.0, -88.0][:k]
+        label[:k] = [1, 0, 1, -1, 0, 1, -1, 1][:k]
         weight[4:6] = 1e-3  # their losses are 3e38: keep the sums finite
     elif name == "nan_margin":
-        t0[5] = np.nan
+        t0[min(5, rows - 1)] = np.nan
     elif name == "one_term":
         t1 = None
     elif name == "no_bias":
@@ -134,6 +136,22 @@ def test_logistic_step_plain_matches_jax(case):
     again = step.logistic_step(*_torch(t0, t1, bias, label, weight))
     for a, b in zip(again, (loss, g, gb)):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("rows", [1, 511, 513, 8181])
+@pytest.mark.parametrize("case", OBJECTIVE_CASES)
+def test_logistic_step_plain_matches_jax_at_row_counts(case, rows):
+    """K8 on one part at the row counts where its grid of 512-row blocks
+    is one partial block, one short of a block, one past it and partial
+    at its end: the wrapper's CPU path (the plain version) against the
+    reference, as at ROWS."""
+    t0, t1, bias, label, weight = _objective_case(case, rows)
+    want_loss, want_g = _ref_objective(_ref_margins(t0, t1, bias), label,
+                                       weight)
+    loss, g, gb = step.logistic_step(*_torch(t0, t1, bias, label, weight))
+    _close(loss, want_loss)
+    _close(g, want_g)
+    _close(gb, want_g.sum())
 
 
 def test_zero_margin_gradient_is_minus_y_over_W():
@@ -336,6 +354,46 @@ def test_sgd_grid(numels, sms, want):
 ])
 def test_objective_grid(n, want):
     assert step.objective_grid(n) == want
+
+
+@pytest.mark.parametrize("n, want", [
+    (0, 1), (1, 1), (256, 1), (257, 2), (511, 2), (513, 3),
+    (8181, 32),                            # a partial last block
+    (8192, 32),                            # the main path's batch
+    (step.OBJECTIVE_STEP_MAX_ROWS, 128),   # the one-launch route's cap
+])
+def test_objective_step_grid(n, want):
+    assert step.objective_grid(n, step.OBJECTIVE_STEP_ROWS) == want
+
+
+CAP = step.OBJECTIVE_STEP_MAX_ROWS
+
+
+@pytest.mark.parametrize("numels, addresses, want", [
+    ([137, 1], None, "narrow"),            # the ranking model: 35 + 1 units
+    ([1], None, "narrow"),                 # the bias alone
+    ([1020, 1], None, "narrow"),           # the widest beside b: 255 + 1
+    ([1021, 1], None, "wide"),             # one unit more: 256 + 1
+    ([1019, 1], None, "wide"),             # 254 float4s + 3 scalars + 1
+    ([10**6, 1], None, "wide"),            # the linear model
+    ([10**6, 1, 8 * 10**6], None, "wide"),                # FM
+    ([10**6, 1, 39 * 4 * 10**6], None, "wide"),           # FFM
+    ([137, 1], [(4, 4), (0, 0)], "narrow"),  # one float off, alike: 38 + 1
+    ([137, 1], [(4, 8), (0, 0)], "narrow"),  # aligned apart: 137 + 1
+    ([255, 1], [(4, 8), (0, 0)], "narrow"),  # apart: 256 units
+    ([256, 1], [(4, 8), (0, 0)], "wide"),    # apart: 257 units
+    ([0], None, "narrow"),
+])
+def test_sgd_route(numels, addresses, want):
+    assert step.sgd_route(numels, addresses) == want
+
+
+@pytest.mark.parametrize("n, want", [
+    (0, "grid"), (1, "grid"), (8192, "grid"),  # 8192: the path's batch
+    (CAP, "grid"), (CAP + 1, "split"),
+])
+def test_objective_route(n, want):
+    assert step.objective_route(n) == want
 
 
 # ------------------------------------------------------------ the models
