@@ -39,13 +39,13 @@
 // memory (PERF.md). Past kStepMaxRows the n reads of every block cost
 // more than a second launch, and the one part takes the sharded step's
 // two launches with the total read straight from the first. The sharded
-// step's W is the
-// group's, after an all-reduce of (lsum, wsum) over the processes, so
-// there it is two launches, each a grid of blocks of kGridRows rows:
-// logistic_sums writes this process's (lsum, wsum), and logistic_grad
-// reads the all-reduced pair from device memory (never from the host) and
-// writes the loss, g and sum g. Every sum over a grid is grid_sum's: fixed
-// in order, so the result does not vary from run to run.
+// step's W is the group's, after an all-reduce of (lsum, wsum) over the
+// processes, so there it is two launches, each a grid of blocks of
+// kGridRows rows: logistic_sums writes this process's (lsum, wsum), and
+// logistic_grad reads the all-reduced pair from device memory (never from
+// the host) and writes the loss, g and sum g. Every sum over a grid is
+// grid_sum's: fixed in order, so the result does not vary from run to
+// run.
 //
 // K9. p <- p - lr * (g + 2 * l2 * p) for every parameter, the l2 term only
 // where the parameter's flag says so (every parameter but the bias), in
@@ -59,8 +59,8 @@
 // one block (the ranking model's 137 + 1 floats: 36 units), the narrow
 // route gives each thread of one block one unit, finding its parameter by
 // comparisons against a table of 2, 4 or 16 slots unrolled at compile
-// time, with 32-bit indices; the launch's cost is then its argument and
-// its one round of loads. Otherwise the wide route's grid strides over
+// time, with 32-bit indices, so the launch costs one round of loads.
+// Otherwise the wide route's grid strides over
 // each parameter's units in turn, with a table of 16 slots. Where the
 // caller asks for the loss's l2 term, each thread also sums p*p of the old
 // p over the flagged parameters, and the block (narrow) or grid_sum (wide)
@@ -272,8 +272,7 @@ __global__ void __launch_bounds__(kStepRows)
                          float* __restrict__ loss, float* __restrict__ g,
                          float* __restrict__ gb) {
   __shared__ float scratch[2 * kWarp];
-  // the row's loss and d first, while the block's loads of the weights
-  // follow its own
+  // this thread's row, its loss and d
   const int i = static_cast<int>(blockIdx.x) * kStepRows +
                 static_cast<int>(threadIdx.x);
   const bool row = i < n;
@@ -422,8 +421,9 @@ struct NarrowTable {
 };
 
 // kDecay: l2 != 0; kSum: the loss's l2 term is asked for. A launch
-// without them carries none of their code: at 138 floats the l2 sum's
-// code alone, never run, cost 0.05 us a launch (sweeps/k8_k9, PERF.md).
+// without them carries none of their code: with the l2 sum's code in
+// every launch, this kernel was slower than torch._foreach_add_ at 138
+// floats on an H100 (PERF.md, section 6).
 template <int N, bool kDecay, bool kSum>
 __global__ void __launch_bounds__(kSgdThreads)
     sgd_update_narrow_kernel(NarrowTable<N> t, float lr, float l2,

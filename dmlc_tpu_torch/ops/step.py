@@ -335,9 +335,9 @@ def sgd_update(params: Sequence[torch.Tensor],
                lr: float, l2: float,
                loss: Optional[torch.Tensor] = None) -> None:
     """K9: every parameter updated in place (see module docstring), in
-    one launch by ``sgd_route``'s route. ``decay[i]``: whether parameter i takes the l2 term.
-    ``loss``: a float32 scalar to which l2·Σ p² (old p) is added where
-    l2 > 0, or None."""
+    one launch by ``sgd_route``'s route. ``decay[i]``: whether parameter i
+    takes the l2 term. ``loss``: a float32 scalar to which l2·Σ p² (old p)
+    is added where l2 > 0, or None."""
     check(len(params) == len(grads) == len(decay),
           f"K9 takes one gradient and one decay flag a parameter, got "
           f"{len(params)}, {len(grads)}, {len(decay)}")
