@@ -115,7 +115,29 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    widths allclose to the same steps through the plain versions on the
    card; ``graft.dryrun_multichip(8)`` on the card. Its steps/s, GB/s
    and the all-reduce's device time a step are printed beside the
-   single-part main path's.
+   single-part main path's;
+9. the page tier, on the linear corpus, right after the sharded path
+   (the same mesh): five epochs of the sharded step through
+   ``Pipeline.from_uri(path).parse(engine="native").shard(mesh,
+   row_bucket=8192, nnz_bucket=368640, agreement_cache_bytes=1 << 20,
+   first_epoch_cache="never", spill_dir=<work>/spill)``: epoch 1
+   streams, epoch 2 re-parses and spills its rounds to a page file,
+   epochs 3-5 replay the pages (tiers parse, parse, pages x 3, page
+   replay epochs >= 3); every epoch's batches hash equal to epoch 1's,
+   K1 and K2 launch once a part a step and K8's two launches and K9 once
+   a step in every epoch, the loss falls, the page file is there while
+   the store lives and gone after ``close()``; then three epochs of
+   ``SparseLinearModel(10^6).train_step`` through
+   ``parse(engine="native").cache(memory_budget_bytes=0).batch(8192,
+   pad=True, nnz_bucket=368640).to_device(cuda)``: every epoch served by
+   pages, its batches hashing equal to the same chain's without the
+   cache, K1, K2, K8 and K9 once a step, the loss falling; each epoch's
+   GB/s and steps/s printed beside the memory-replay epoch and the main
+   path of the run;
+10. last, after every traced phase, configs 8 (``page_replay``) and 10
+   (``spill_replay``) of ``dmlc_tpu_torch.bench_suite`` at 256 MB, each
+   JSON on a line, their own parity asserts holding (the replayed
+   content hash against a direct parse; page replay epochs >= 3).
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -322,7 +344,7 @@ def environment():
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0].strip()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; card {card}")
     return card
 
 
@@ -3426,6 +3448,223 @@ def sharded_dryrun(mesh):
         f"batches, {out['replay_epochs']} epoch(s) replayed")
 
 
+# --------------------------------------------------------------- phase 9
+
+SPILL_EPOCHS = 5
+SPILL_TIERS = ["parse", "parse"] + ["pages"] * (SPILL_EPOCHS - 2)
+CACHE_EPOCHS = 3
+
+
+def _epoch_gbps(size, epochs):
+    return [size / e["secs"] / 1e9 for e in epochs]
+
+
+def _epoch_sps(epochs):
+    return [e["steps"] / e["secs"] for e in epochs]
+
+
+def _hashes(kept):
+    return [batch_hash({k: v.cpu().numpy() for k, v in b.items()})
+            for b in kept]
+
+
+def spill_path(path, size, lr, mesh, work, sharded):
+    """SPILL_EPOCHS epochs of SparseLinearModel(10^6)'s sharded step over
+    the linear corpus through ``Pipeline.shard`` with a 1 MB replay
+    budget: epoch 1 streams, epoch 2 re-parses and spills its rounds to
+    a page file under ``<work>/spill``, epochs 3+ replay the pages.
+    ``sharded``: sharded_path's stats of this run, whose memory-replay
+    epoch is printed beside."""
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.pipeline import Pipeline
+    spill_dir = os.path.join(work, "spill")
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["linear"] + ("logistic_sums",
+                                                  "logistic_grad")}
+    built = (Pipeline.from_uri(path)
+             .parse(format="libsvm", engine="native")
+             .shard(mesh, row_bucket=ROW_BUCKET, nnz_bucket=NNZ_BUCKET,
+                    agreement_cache_bytes=1 << 20,
+                    first_epoch_cache="never", spill_dir=spill_dir)
+             .build(autotune=True))
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                              device=mesh.device)
+    step = model.make_sharded_train_step(mesh)
+    epochs = []
+    for epoch in range(SPILL_EPOCHS):
+        for fn in wrappers.values():
+            fn.launches = 0
+        kept, losses = [], []
+        t0 = time.perf_counter()
+        for batch in built:
+            kept.append(batch)
+            losses.append(step(batch))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        shard = built.stats()["stages"][0]["extra"]
+        epochs.append({"secs": secs, "steps": len(kept),
+                       "losses": [float(x) for x in losses],
+                       "launches": launches, "hashes": _hashes(kept),
+                       "tier": shard["replay_tier"],
+                       "page_replay_epochs": shard["page_replay_epochs"],
+                       "serve": shard.get("serve")})
+        del kept
+    steps = epochs[0]["steps"]
+    require(steps > 0, "spill: the epoch yielded no batch")
+    tiers = [e["tier"] for e in epochs]
+    require(tiers == SPILL_TIERS
+            and epochs[-1]["page_replay_epochs"] >= SPILL_EPOCHS - 2,
+            f"spill: the epochs were served by {tiers}, page replay epochs "
+            f"{epochs[-1]['page_replay_epochs']}; want {SPILL_TIERS}")
+    want = {"csr_spmv": SHARD_PARTS * steps,
+            "csr_spmv_t": SHARD_PARTS * steps, "logistic_step": 0,
+            "logistic_sums": steps, "logistic_grad": steps,
+            "sgd_update": steps}
+    for i, e in enumerate(epochs):
+        require(e["steps"] == steps and e["launches"] == want,
+                f"spill: epoch {i + 1} ({e['tier']}) took {e['steps']} "
+                f"steps with launch counts {e['launches']}; want {steps} "
+                f"and {want}")
+        require(e["hashes"] == epochs[0]["hashes"],
+                f"spill: epoch {i + 1}'s ({e['tier']}) batches differ from "
+                "epoch 1's")
+    losses = [x for e in epochs for x in e["losses"]]
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            f"spill: non-finite loss in {losses}")
+    require(losses[-1] < losses[0], f"spill: the loss did not fall: "
+            f"first {losses[0]}, last {losses[-1]}")
+    files = [n for n in os.listdir(spill_dir) if n.endswith(".pages")]
+    require(len(files) == 1, f"spill: {spill_dir} holds {files}, want one "
+            "page file while the store lives")
+    page_bytes = os.path.getsize(os.path.join(spill_dir, files[0]))
+    log_pipeline_stats("spill", built)
+    built.close()
+    left = [n for n in os.listdir(spill_dir) if n.endswith(".pages")]
+    require(left == [], f"spill: close() left {left} in {spill_dir}")
+    gbps, sps = _epoch_gbps(size, epochs), _epoch_sps(epochs)
+    memory = sharded["parse_to_device_gbps_training"][2]
+    log(f"spill path: {SHARD_PARTS} parts of {ROW_BUCKET} rows, {steps} "
+        f"steps an epoch, agreement_cache_bytes 1 MB; epochs served by "
+        f"{tiers}, every epoch's batches hash equal to epoch 1's; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches an epoch "
+        f"{epochs[-1]['launches']}; page file {page_bytes} bytes "
+        f"({page_bytes / size:.3f} of the text), deleted by close()")
+    log(f"spill parse-to-device with training, epochs "
+        + ", ".join(f"{i + 1} ({t})" for i, t in enumerate(tiers)) + ": "
+        + " / ".join(f"{x:.3f}" for x in gbps) + " GB/s, "
+        + " / ".join(f"{x:.2f}" for x in sps) + f" steps/s of "
+        f"{SHARD_PARTS} x {ROW_BUCKET} rows; the sharded path's memory-"
+        f"replay epoch of this run: {memory:.3f} GB/s, "
+        f"{sharded['steps_per_s'][2]:.2f} steps/s")
+    for i, e in enumerate(epochs):
+        log(f"  spill epoch {i + 1} ({e['tier']}) serve: "
+            f"{json.dumps(e['serve'])}")
+    return {"steps": steps, "tiers": tiers, "epoch_s":
+            [e["secs"] for e in epochs],
+            "parse_to_device_gbps_training": gbps, "steps_per_s": sps,
+            "page_bytes": page_bytes, "memory_replay_gbps": memory,
+            "serve": [e["serve"] for e in epochs]}
+
+
+def cache_path(path, size, lr, single):
+    """CACHE_EPOCHS training epochs of SparseLinearModel(10^6) through
+    ``Pipeline...cache(memory_budget_bytes=0)``: the parse builds a page
+    cache (under the port's page store root) and every epoch replays it,
+    padded by the Python fused golden. Its batches must hash equal to
+    the chain without the cache. ``single``: the main path's stats of
+    this run, printed beside."""
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.pipeline import Pipeline
+    cuda = torch.device("cuda")
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["linear"] + ("logistic_sums",
+                                                  "logistic_grad")}
+    plain = build_pipeline(path)
+    want_hashes = _hashes(list(plain))
+    plain.close()
+    t0 = time.perf_counter()
+    built = (Pipeline.from_uri(path)
+             .parse(format="libsvm", engine="native")
+             .cache(memory_budget_bytes=0)
+             .batch(ROW_BUCKET, pad=True, nnz_bucket=NNZ_BUCKET)
+             .to_device(cuda, window="auto")
+             .build(autotune=True))
+    build_s = time.perf_counter() - t0
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    epochs = []
+    for epoch in range(CACHE_EPOCHS):
+        for fn in wrappers.values():
+            fn.launches = 0
+        kept, losses = [], []
+        t0 = time.perf_counter()
+        for batch in built:
+            kept.append(batch)
+            losses.append(model.train_step(batch))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        stages = {s["kind"]: s["extra"] for s in built.stats()["stages"]}
+        epochs.append({"secs": secs, "steps": len(kept),
+                       "losses": [float(x) for x in losses],
+                       "launches": launches, "hashes": _hashes(kept),
+                       "tier": stages["cache"]["replay_tier"],
+                       "assembly": stages["assemble"]["assembly_path"]})
+        del kept
+    steps = len(want_hashes)
+    want = {k: steps if k in PATH_KERNELS["linear"] else 0
+            for k in wrappers}
+    for i, e in enumerate(epochs):
+        require(e["tier"] == "pages",
+                f"cache: epoch {i + 1} was served by {e['tier']}, not pages")
+        require(e["hashes"] == want_hashes,
+                f"cache: epoch {i + 1}'s {e['steps']} batches differ from "
+                f"the {steps} of the same chain without the cache")
+        require(e["launches"] == want,
+                f"cache: epoch {i + 1}'s launch counts {e['launches']} != "
+                f"{want}: not once a step")
+    losses = [x for e in epochs for x in e["losses"]]
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            f"cache: non-finite loss in {losses}")
+    require(losses[-1] < losses[0], f"cache: the loss did not fall: "
+            f"first {losses[0]}, last {losses[-1]}")
+    log_pipeline_stats("cache", built)
+    built.close()
+    gbps, sps = _epoch_gbps(size, epochs), _epoch_sps(epochs)
+    log(f"cache path: the page cache built in {build_s:.3f} s; "
+        f"{CACHE_EPOCHS} epochs of {steps} steps served by pages, padded "
+        f"by {epochs[0]['assembly']}, batches hash equal to the chain "
+        f"without the cache; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"launches an epoch {epochs[-1]['launches']}")
+    log(f"cache parse-to-device with training, epochs 1-{CACHE_EPOCHS} "
+        "(pages): " + " / ".join(f"{x:.3f}" for x in gbps) + " GB/s, "
+        + " / ".join(f"{x:.2f}" for x in sps) + " steps/s; the main "
+        f"path of this run: "
+        f"{single['parse_to_device_gbps_training']:.3f} GB/s, "
+        f"{single['steps_per_s']:.2f} steps/s")
+    return {"steps": steps, "build_s": build_s,
+            "epoch_s": [e["secs"] for e in epochs],
+            "parse_to_device_gbps_training": gbps, "steps_per_s": sps}
+
+
+def bench_twins(work):
+    """Configs 8 and 10 of the port's bench suite at 256 MB on the card;
+    their own parity asserts (content hash against a direct parse; page
+    replay epochs) must hold. Each JSON is printed as a line."""
+    from dmlc_tpu_torch.bench_suite import bench_page_replay, \
+        bench_spill_replay
+    out = {}
+    for name, fn in (("page_replay", bench_page_replay),
+                     ("spill_replay", bench_spill_replay)):
+        t0 = time.perf_counter()
+        out[name] = fn(256, work=work)
+        log(f"bench config {name} ({time.perf_counter() - t0:.1f} s):")
+        log(json.dumps(out[name]))
+    return out
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
@@ -3441,6 +3680,9 @@ def main() -> None:
     import torch
     build_all()
     work = tempfile.mkdtemp(prefix="dmlc_chip_smoke_")
+    # the port's default page-store root (Pipeline.cache's derived page
+    # files) under the run's directory, so the rmtree below removes it
+    os.environ["DMLC_TPU_TORCH_PAGESTORE_DIR"] = os.path.join(work, "pages")
     try:
         path = os.path.join(work, "criteo_shaped.libsvm")
         t0 = time.perf_counter()
@@ -3464,6 +3706,9 @@ def main() -> None:
                                         stats)
         report_kernels(sharded_rows, stats["sharded"]["launches"],
                        stats["sharded"]["steps"])
+        stats["spill"] = spill_path(path, size, LEARNING_RATE, mesh, work,
+                                    stats["sharded"])
+        stats["cache"] = cache_path(path, size, LEARNING_RATE, stats)
         os.unlink(path)
 
         # the factor models' path: libfm → FM and FFM
@@ -3500,6 +3745,11 @@ def main() -> None:
                        RANK_LEARNING_RATE)
         rows += rank_rows
         sharded_dryrun(mesh)
+        # last: writing the configs' corpus takes minutes of host time,
+        # and a profiler trace taken that long after the one before it
+        # saw no device activity on the card (three retakes of K5
+        # forward's route came back empty), so no trace may follow
+        stats["bench"] = bench_twins(work)
         from dmlc_tpu_torch.parallel.launch import finalize
         finalize()
     finally:

@@ -10,6 +10,10 @@ Deltas from the reference:
   ``RowBlock.to_device``. dtypes: offset int64, label/weight/value float32,
   qid int64, field int64, index uint32 or uint64 (IndexType parameter).
 - ``value`` may be None (implicit 1.0), as in the reference.
+- The on-disk page format (``save_block``/``load_block``) is the
+  reference's own little-endian format, same magic, version and flag
+  bits, so a page written by one package is byte-identical to the
+  other's and loads in it.
 """
 
 from __future__ import annotations
@@ -18,9 +22,14 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from dmlc_tpu_torch.io.stream import Stream
+from dmlc_tpu_torch.utils import serializer as ser
 from dmlc_tpu_torch.utils.logging import check, check_eq, check_lt
 
 __all__ = ["RowBlock", "Row", "RowBlockContainer"]
+
+_PAGE_MAGIC = 0x42524F57  # "BROW"
+_PAGE_VERSION = 1
 
 
 class Row:
@@ -374,3 +383,58 @@ class RowBlockContainer:
             weight=weight,
             qid=qid,
             field=field)
+
+    # -- binary page format (reference: RowBlockContainer::Save/Load)
+
+    @staticmethod
+    def save_block(block: RowBlock, stream: Stream) -> None:
+        ser.write_u32(stream, _PAGE_MAGIC)
+        ser.write_u8(stream, _PAGE_VERSION)
+        flags = ((1 if block.value is not None else 0)
+                 | (2 if block.weight is not None else 0)
+                 | (4 if block.qid is not None else 0)
+                 | (8 if block.field is not None else 0))
+        ser.write_u8(stream, flags)
+        ser.write_ndarray(stream, block.offset)
+        ser.write_ndarray(stream, block.label)
+        ser.write_ndarray(stream, block.index)
+        for present, arr in ((flags & 1, block.value), (flags & 2, block.weight),
+                             (flags & 4, block.qid), (flags & 8, block.field)):
+            if present:
+                ser.write_ndarray(stream, arr)
+
+    @staticmethod
+    def load_block(stream: Stream) -> Optional[RowBlock]:
+        """Load one page; None at clean EOF. Every array is owned
+        (``read_ndarray`` copies): none aliases the stream's buffer."""
+        head = stream.read(4)
+        if len(head) == 0:
+            return None
+        check_eq(len(head), 4, "RowBlock page: truncated magic")
+        magic = int.from_bytes(head, "little")
+        check_eq(magic, _PAGE_MAGIC, "RowBlock page: bad magic")
+        version = ser.read_u8(stream)
+        check_eq(version, _PAGE_VERSION, "RowBlock page: bad version")
+        flags = ser.read_u8(stream)
+        offset = ser.read_ndarray(stream)
+        label = ser.read_ndarray(stream)
+        index = ser.read_ndarray(stream)
+        value = ser.read_ndarray(stream) if flags & 1 else None
+        weight = ser.read_ndarray(stream) if flags & 2 else None
+        qid = ser.read_ndarray(stream) if flags & 4 else None
+        field = ser.read_ndarray(stream) if flags & 8 else None
+        return RowBlock(offset=offset, label=label, index=index, value=value,
+                        weight=weight, qid=qid, field=field)
+
+    def save(self, stream: Stream) -> None:
+        self.save_block(self.get_block(), stream)
+
+    def load(self, stream: Stream) -> bool:
+        """Replace contents with one page from stream; False at EOF."""
+        block = self.load_block(stream)
+        if block is None:
+            return False
+        self.clear()
+        self.index_dtype = block.index.dtype
+        self.push_block(block)
+        return True

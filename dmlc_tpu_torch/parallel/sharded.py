@@ -30,6 +30,8 @@ compute-neutral: weight 0, empty; padded nnz: value 0.
 
 from __future__ import annotations
 
+import hashlib
+import itertools
 import os
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -197,12 +199,6 @@ def make_replicated(tree, mesh: Mesh):
     return torch.tensor(np.asarray(tree), device=mesh.device)
 
 
-def _stat(path: str):
-    """(size, mtime_ns, ctime_ns, inode) of a local file."""
-    st = os.stat(path)
-    return st.st_size, st.st_mtime_ns, st.st_ctime_ns, st.st_ino
-
-
 class ShardedRowBlockIter:
     """Part-granular sharded ingest: global part d reads part d of D.
 
@@ -217,27 +213,27 @@ class ShardedRowBlockIter:
     num_parts = total parts and the batch is the process's slice.
 
     Steady-epoch replay (reference: disk_row_iter.h's parse-once/
-    replay-epochs): epochs after the first serve retained rounds of RAW
-    (unpadded) blocks — padded, stacked and copied to the device on the
-    serve-prefetch thread — whenever (a) ``steady_replay`` is on
-    (default), (b) the rounds' raw bytes fit ``agreement_cache_bytes``
-    and (c) a per-file (size, mtime_ns, ctime_ns, inode) fingerprint
-    still matches. ``replay_tier`` reports which tier served the last
-    epoch ("parse" | "memory"); ``replay_epochs`` counts the replayed
-    ones. On any fingerprint mismatch the epoch transparently re-parses
-    with the replay-count mutation assertions (truncation/rewrite raise
-    DMLCError, appended bytes stay invisible) and re-earns replay by
-    teeing the clean re-parse. The first epoch of a single-process
-    "auto" run streams (fast first batch); its epoch 2 re-parses and
-    tees; epochs 3+ replay.
-
-    Divergence from the reference: the PAGE tier (rounds over the budget
-    spilled to a binary page file and replayed from it) waits for the
-    port's page store and codec host planes. Here ``page_spill``
-    defaults to False, and ``page_spill=True`` or ``spill_dir=`` raise a
-    DMLCError that says "not ported"; rounds over the budget abandon
-    replay and every epoch re-parses. Within the budget the two packages
-    behave the same (the reference spills only past it).
+    replay-epochs, composed in two tiers): epochs after the first serve
+    retained rounds of RAW (unpadded) blocks — padded, stacked and
+    copied to the device on the serve-prefetch thread — whenever (a)
+    ``steady_replay`` is on (default) and (b) a per-file (size,
+    mtime_ns, ctime_ns, inode) fingerprint still matches. The tier is
+    picked by budget: rounds whose raw bytes fit
+    ``agreement_cache_bytes`` stay in memory; larger rounds SPILL to a
+    fingerprint-stamped binary page file (``spill_dir``, by default the
+    port's page store root, ``data.row_iter.default_spill_dir``), and
+    steady epochs replay pages instead of re-parsing text every epoch
+    (the larger-than-RAM case). ``page_spill=False`` abandons replay
+    past the budget instead. ``replay_tier`` reports which tier served
+    the last epoch ("parse" | "memory" | "pages"); ``replay_epochs``
+    counts the replayed ones and ``page_replay_epochs`` the page-served
+    ones among them. On any fingerprint mismatch the epoch
+    transparently re-parses with the replay-count mutation assertions
+    (truncation/rewrite raise DMLCError, appended bytes stay invisible)
+    and re-earns replay by teeing the clean re-parse. The first epoch of
+    a single-process "auto" run streams (fast first batch); its epoch 2
+    re-parses and tees; epochs 3+ replay. ``close()`` deletes the spill
+    file.
     """
 
     def __init__(self, uri: str, mesh: Mesh, format: Optional[str] = None,
@@ -245,17 +241,10 @@ class ShardedRowBlockIter:
                  nnz_bucket: int = 1 << 18, index_dtype=np.uint32,
                  agreement_cache_bytes: int = 1 << 30,
                  first_epoch_cache: str = "auto",
-                 steady_replay: bool = True, page_spill: bool = False,
+                 steady_replay: bool = True, page_spill: bool = True,
                  spill_dir: Optional[str] = None, **parser_kwargs):
         from dmlc_tpu_torch.data.parser import Parser
         from dmlc_tpu_torch.io.input_split import list_split_files
-        if page_spill or spill_dir is not None:
-            raise DMLCError(
-                "ShardedRowBlockIter: the page tier of the shard replay "
-                "(page_spill=True, spill_dir=...) is not ported to "
-                "dmlc_tpu_torch yet (it waits for the page store and codec "
-                "host planes); rounds over agreement_cache_bytes re-parse "
-                "every epoch")
         check(first_epoch_cache in ("auto", "always", "never"),
               "first_epoch_cache must be auto|always|never")
         self.mesh = mesh
@@ -277,18 +266,24 @@ class ShardedRowBlockIter:
         # either path (tests, tuning).
         self.first_epoch_cache = first_epoch_cache
         # steady-epoch replay: keep the epoch-1 rounds as RAW (unpadded)
-        # block rows and serve later epochs from them, guarded by a
-        # per-file fingerprint captured before the cached parse: ANY
-        # mismatch falls back to the re-parse epoch, whose count
-        # assertions implement the exact mutation semantics — replay is
-        # a pure optimization, never a semantics change
+        # block rows and serve later epochs from them — rounds within
+        # agreement_cache_bytes of raw bytes in memory, larger ones
+        # spilled to a binary page file — guarded by a per-file
+        # fingerprint captured before the cached parse: ANY mismatch
+        # falls back to the re-parse epoch, whose count assertions
+        # implement the exact mutation semantics — replay is a pure
+        # optimization, never a semantics change
         self.steady_replay = steady_replay
-        self.replay_epochs = 0        # replay-served epochs
-        self.page_replay_epochs = 0   # always 0: no page tier here
+        self.page_spill = page_spill
+        self._spill_dir = spill_dir
+        self.replay_epochs = 0        # replay-served epochs (all tiers)
+        self.page_replay_epochs = 0   # ... of which from the page tier
         self.replay_tier: Optional[str] = None  # last epoch's server
-        self._round_store: Optional["ShardedRowBlockIter._MemoryRounds"] \
+        self._round_store: Optional["ShardedRowBlockIter._RoundStore"] \
             = None
         self._fingerprint = None
+        self._was_pages = False  # last dropped store was page-tier: its
+        # re-earn tee starts spilled (the shard is known over budget)
         self._serve_queue = None  # live serve ThreadedIter (probes)
         self._serve_stats: Optional[Dict[str, float]] = None
         # serve-side prefetch lookahead (rounds assembled ahead of the
@@ -437,10 +432,16 @@ class ShardedRowBlockIter:
         # cache is dropped rather than used for assembly so both sides of
         # the protocol stay identical; the epoch is still teed locally
         # when this process wanted to cache (the tee is not part of the
-        # protocol)
+        # protocol), and an over-budget shard spills its rounds to pages
+        # here. force_spill when THIS rank's cache pass just measured
+        # the shard over budget: accumulating up to the budget in memory
+        # a second time only to flush it to the writer would be
+        # redundant copying. A rank that cached fine but lost the vote
+        # keeps the memory tier.
+        over_budget = want_cache and cached is None
         cached = None
-        tee = (self._make_tee(fp) if want_cache
-               else self._ReplayTee(0, None))
+        tee = (self._make_tee(fp, force_spill=over_budget) if want_cache
+               else self._ReplayTee(0, None, None))
         its, done, counts = self._restart_streams()
         rounds = 0
         try:
@@ -457,13 +458,17 @@ class ShardedRowBlockIter:
         finally:
             tee.close()
 
-    def _replay_store(self, store: "ShardedRowBlockIter._MemoryRounds"
+    def _replay_store(self, store: "ShardedRowBlockIter._RoundStore"
                       ) -> Iterator[DeviceBatch]:
-        """Serve an epoch from retained raw rounds: zero parsing — the
-        serve-prefetch thread pads, stacks and enqueues copies one round
-        ahead of the consumer. No collectives (the replay path and the
-        re-parse path produce the same batch call sequence, so ranks may
-        mix paths when only SOME see a local mutation)."""
+        """Serve an epoch from retained raw rounds (memory or pages):
+        zero parsing — the serve-prefetch thread decodes pages, pads,
+        stacks and enqueues copies one round ahead of the consumer. One
+        producer on purpose: page decode and pad/stack are both
+        memcpy-bound, and the reference measured a second serve thread
+        35% slower. No collectives (the replay path and the re-parse
+        path produce the same batch call sequence, so ranks may mix
+        paths when only SOME see a local mutation — or sit in different
+        tiers)."""
         rows = store.iter_rows()
 
         def make():
@@ -472,7 +477,13 @@ class ShardedRowBlockIter:
                 return None
             return self._assemble_stacked(row)
 
-        yield from self._prefetch_serve(make)
+        try:
+            yield from self._prefetch_serve(make)
+        finally:
+            # the page generator holds the spill file open; the serve
+            # thread has been joined by now
+            if hasattr(rows, "close"):
+                rows.close()
 
     def _fingerprint_now(self):
         """(path, size, mtime_ns, ctime_ns, inode) per backing file, or
@@ -480,22 +491,31 @@ class ShardedRowBlockIter:
         the re-parse path simply keeps running every epoch). Inode
         catches replace-by-rename; ctime catches in-place rewrites whose
         mtime was then backdated."""
-        from dmlc_tpu_torch.io.filesys import URI
         from dmlc_tpu_torch.io.input_split import list_split_files
+        from dmlc_tpu_torch.io.pagestore import stat_uri
         try:
             out = []
             for path, _size in list_split_files(self._uri):
-                size, mtime_ns, ctime_ns, ino = _stat(URI(path).name)
+                size, mtime_ns, ctime_ns, ino = stat_uri(path)
                 out.append((path, size, mtime_ns, ctime_ns, ino))
             return tuple(out)
         except (OSError, DMLCError):
             return None
 
-    class _MemoryRounds:
+    class _RoundStore:
         """Retained epoch-1 rounds, served on steady epochs. Rows are
         RAW (unpadded) per-part blocks; padding happens at serve time
         on the prefetch thread."""
 
+        tier = "?"
+
+        def iter_rows(self) -> Iterator[List[RowBlock]]:
+            raise NotImplementedError
+
+        def drop(self) -> None:
+            pass
+
+    class _MemoryRounds(_RoundStore):
         tier = "memory"
 
         def __init__(self, rows: List[List[RowBlock]], nbytes: int):
@@ -508,61 +528,170 @@ class ShardedRowBlockIter:
         def drop(self) -> None:
             self.rows = None
 
-    class _ReplayTee:
-        """Accumulate raw rounds within the byte budget (abandoning
-        replay past it); commit only a COMPLETE epoch whose backing
-        files re-stat to the fingerprint captured before the epoch's
-        parse began (a file mutated DURING the pass must not arm replay
-        with half-old half-new rounds). ``owned_rows`` marks rows whose
-        blocks the caller hands over (the epoch-1 cache pass);
-        otherwise blocks may be ephemeral arena views and are copied."""
+    class _PageRounds(_RoundStore):
+        tier = "pages"
 
-        def __init__(self, budget: int, fp, owned_rows: bool = False):
+        def __init__(self, spill_file):
+            self.file = spill_file  # data.row_iter.RoundSpillFile
+
+        def iter_rows(self) -> Iterator[List[RowBlock]]:
+            return self.file.iter_rows()
+
+        def drop(self) -> None:
+            self.file.delete()
+
+    class _ReplayTee:
+        """Accumulate raw rounds within the byte budget, SPILLING to a
+        binary page file when they exceed it; commit only a COMPLETE
+        epoch whose backing files re-stat to the fingerprint captured
+        before the epoch's parse began (a file mutated DURING the pass
+        must not arm replay with half-old half-new rounds). Shared by
+        the epoch-1 fast path, the epoch-1 per-round path, and the
+        re-parse tee so the budget/spill/commit invariant lives in one
+        place. ``owned_rows`` marks rows whose blocks the caller hands
+        over (the epoch-1 cache pass); otherwise blocks may be
+        ephemeral arena views and the memory tier copies them (the
+        spill writer serializes immediately, so it never copies).
+        ``start_spilled`` skips the doomed memory accumulation when a
+        size pre-check already proved the shard over budget. A failed
+        spill degrades to "no replay"; it never kills the epoch."""
+
+        def __init__(self, budget: int, fp, spill_path: Optional[str],
+                     owned_rows: bool = False,
+                     start_spilled: bool = False):
             self.budget = budget
             self.fp = fp
             self.active = fp is not None and budget > 0
+            self.spill_path = spill_path
             self.owned_rows = owned_rows
             self.rows: List[List[RowBlock]] = []
             self.used = 0
+            self._writer = None
+            self._committed = False
+            # opened lazily at the first row (its width = nparts)
+            self._spill_on_first_row = start_spilled
+            if self.active and start_spilled and spill_path is None:
+                self.active = False
+
+        def _writer_for(self, nparts: int):
+            from dmlc_tpu_torch.data.row_iter import RoundSpillWriter
+            meta = {"fingerprint": [list(e) for e in self.fp]
+                    if self.fp else None}
+            return RoundSpillWriter(self.spill_path, nparts, meta)
 
         def add_row(self, blocks: List[RowBlock]) -> None:
             if not self.active:
+                return
+            try:
+                self._add_row(blocks)
+            except (OSError, DMLCError) as e:  # a full/unwritable disk
+                # must degrade to "no replay", never kill the epoch
+                log_warning(f"ShardedRowBlockIter: replay spill failed "
+                            f"({e}); steady epochs will re-parse")
+                self._abandon()
+
+        def _add_row(self, blocks: List[RowBlock]) -> None:
+            if self._writer is None and self._spill_on_first_row:
+                self._writer = self._writer_for(len(blocks))
+                self._spill_on_first_row = False
+            if self._writer is not None:
+                self._writer.add_row(blocks)
                 return
             row = (list(blocks) if self.owned_rows
                    else [b.copy() for b in blocks])
             self.used += sum(b.memory_cost_bytes() for b in row)
             if self.used <= self.budget:
                 self.rows.append(row)
-            else:
+                return
+            # over budget: move to the page tier (or abandon when
+            # spilling is off)
+            if self.spill_path is None:
                 self._abandon()
+                return
+            self._writer = self._writer_for(len(blocks))
+            for r in self.rows:
+                self._writer.add_row(r)
+            self._writer.add_row(row)
+            self.rows = []
 
         def _abandon(self) -> None:
             self.active = False
             self.rows = []
+            if self._writer is not None:
+                self._writer.abort()
+                self._writer = None
 
         def commit(self, it: "ShardedRowBlockIter",
                    expected_rounds: int) -> None:
             if not self.active:
                 return
-            if (len(self.rows) != expected_rounds
-                    or it._fingerprint_now() != self.fp):
+            got = (self._writer.rounds if self._writer is not None
+                   else len(self.rows))
+            if got != expected_rounds or it._fingerprint_now() != self.fp:
                 self._abandon()
                 return
-            it._round_store = ShardedRowBlockIter._MemoryRounds(
-                self.rows, self.used)
+            if self._writer is not None:
+                try:
+                    spill_file = self._writer.commit()
+                except OSError as e:  # same degrade-to-no-replay
+                    # contract as add_row: a commit-time ENOSPC/unlink
+                    # must not kill a COMPLETE epoch
+                    log_warning(f"ShardedRowBlockIter: replay spill "
+                                f"commit failed ({e}); steady epochs "
+                                "will re-parse")
+                    self._abandon()
+                    return
+                it._round_store = ShardedRowBlockIter._PageRounds(
+                    spill_file)
+                self._writer = None
+            else:
+                it._round_store = ShardedRowBlockIter._MemoryRounds(
+                    self.rows, self.used)
+                self.rows = []
             it._fingerprint = self.fp
-            self.rows = []
-            self.active = False
+            self._committed = True
 
         def close(self) -> None:
-            """Drop an un-committed tee's rounds (abandoned epoch)."""
-            self._abandon()
+            """Abort an un-committed spill (abandoned epoch): the .tmp
+            must not linger as if it were a cache."""
+            if not self._committed:
+                self._abandon()
 
-    def _make_tee(self, fp, owned_rows: bool = False) -> "_ReplayTee":
+    def _make_tee(self, fp, owned_rows: bool = False,
+                  force_spill: bool = False) -> "_ReplayTee":
+        """A two-tier tee for this iterator: memory within the budget,
+        page spill above it (when enabled), starting directly in spill
+        mode when the size pre-check — or the caller's stronger
+        evidence (``force_spill``: a cache pass that just measured the
+        shard over budget) — proves memory accumulation doomed."""
         if not self.steady_replay:
-            return self._ReplayTee(0, None)
-        return self._ReplayTee(self.agreement_cache_bytes, fp,
-                               owned_rows=owned_rows)
+            return self._ReplayTee(0, None, None)
+        return self._ReplayTee(
+            self.agreement_cache_bytes, fp, self._spill_path(),
+            owned_rows=owned_rows,
+            start_spilled=(self.page_spill
+                           and (force_spill
+                                or not self._cache_precheck_ok())))
+
+    # itertools.count: next() is atomic in CPython, so concurrent tees
+    # from different threads can never derive the same spill path
+    _SPILL_SEQ = itertools.count(1)
+
+    def _spill_path(self) -> Optional[str]:
+        """Unique per-instance spill file under spill_dir, keyed by the
+        shard identity (uri/parts/buckets) so the name is self-
+        describing; the fingerprint rides in the file header for
+        sweep_stale_spill. None disables the page tier."""
+        if not self.page_spill:
+            return None
+        from dmlc_tpu_torch.data.row_iter import default_spill_dir
+        key = hashlib.sha256(repr(
+            (self._uri, self._total_parts, self._my_parts,
+             self.row_bucket, self.nnz_bucket,
+             str(self.index_dtype))).encode()).hexdigest()[:16]
+        return os.path.join(
+            self._spill_dir or default_spill_dir(),
+            f"rounds-{key}-p{os.getpid()}-{next(self._SPILL_SEQ)}.pages")
 
     def _prefetch_serve(self, make_next) -> Iterator[DeviceBatch]:
         """Serve batches from a background producer, one round ahead:
@@ -695,11 +824,11 @@ class ShardedRowBlockIter:
         EOF is SIGBUS — a crash, not a catchable error."""
         if self._ctor_sizes is None:
             return
-        from dmlc_tpu_torch.io.filesys import URI
+        from dmlc_tpu_torch.io.pagestore import stat_uri
         for path, size in self._ctor_sizes:
             try:
-                now = _stat(URI(path).name)[0]
-            except OSError:
+                now = stat_uri(path)[0]
+            except (OSError, DMLCError):
                 continue  # deleted/unstatable: the read path reports it
             if now < size:
                 raise DMLCError(
@@ -813,27 +942,41 @@ class ShardedRowBlockIter:
             yield from self._first_epoch_batches()
             return
         self._check_not_shrunk()
+        store_file = getattr(self._round_store, "file", None)
+        if store_file is not None and not os.path.exists(store_file.path):
+            # spill file vanished (external cleanup raced us): not a
+            # data hazard — degrade to the re-parse path below and let
+            # the tee re-earn a fresh store
+            self._round_store = None
+            self._fingerprint = None
         if self._round_store is not None:
             if (self._fingerprint is not None
                     and self._fingerprint == self._fingerprint_now()):
                 self.replay_epochs += 1
                 self.replay_tier = self._round_store.tier
+                if self.replay_tier == "pages":
+                    self.page_replay_epochs += 1
                 yield from self._replay_store(self._round_store)
                 return
             # backing files changed (or stopped stat-ing) since the
-            # rounds were captured: the store is stale. Drop it and
-            # re-parse — _steady_stream's count assertions then decide
-            # whether the change was a hazard (truncation/rewrite
-            # raises) or benign (appends are invisible by byte-range)
+            # rounds were captured: the store is stale. Drop it (a page
+            # tier deletes its spill file) and re-parse —
+            # _steady_stream's count assertions then decide whether the
+            # change was a hazard (truncation/rewrite raises) or benign
+            # (appends are invisible by byte-range)
             store, self._round_store, self._fingerprint = \
                 self._round_store, None, None
+            self._was_pages = store.tier == "pages"
             store.drop()
-        # re-parse epoch; tee the raw rounds into a fresh replay store so
-        # single-process "auto" jobs (no epoch-1 cache) replay from epoch
-        # 3 on and a mutated-then-stable file re-earns replay after one
-        # clean re-parse epoch
+        # re-parse epoch; tee the raw rounds into a fresh replay store
+        # (memory within budget, pages above it) so single-process
+        # "auto" jobs (no epoch-1 cache) replay from epoch 3 on and a
+        # mutated-then-stable file re-earns replay after one clean
+        # re-parse epoch. A shard whose previous store was pages is
+        # known over budget — skip the doomed memory accumulation.
         self.replay_tier = "parse"
-        tee = self._make_tee(self._fingerprint_now())
+        tee = self._make_tee(self._fingerprint_now(),
+                             force_spill=self._was_pages)
         try:
             for blocks in self._steady_stream():
                 tee.add_row(blocks)
@@ -843,8 +986,10 @@ class ShardedRowBlockIter:
             tee.close()
 
     def close(self) -> None:
-        """Release the replay store and destroy the parsers. Safe to
-        call twice; also invoked from __del__."""
+        """Release the replay store (a page-tier store deletes its
+        spill file) and destroy the parsers. Safe to call twice; also
+        invoked from __del__ so an abandoned iterator cannot leak spill
+        files past process exit by accident."""
         store, self._round_store = self._round_store, None
         if store is not None:
             store.drop()

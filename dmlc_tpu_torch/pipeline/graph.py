@@ -33,11 +33,15 @@ or its copy to the card has completed.
 :class:`~dmlc_tpu_torch.parallel.sharded.ShardedRowBlockIter`, which
 yields ``[L, ...]`` batches on the mesh's device (its serve thread
 stages and copies them); only ``map`` and ``prefetch`` may follow it.
+``cache(...)`` after ``parse`` replays later epochs from raw blocks in
+RAM or from a :class:`~dmlc_tpu_torch.data.row_iter.DiskRowIter` page
+cache under the port's page store.
 
 Trimmed from the reference: the obs trace spans, the stall watchdog and
 the metrics registry, and the verdict-driven controller. Not ported yet
-(each raises a DMLCError that says so): ``shuffle``, ``cache``,
-``from_stream``, ``to_device(sharding=...)`` and ``build(tenant=...)``.
+(each raises a DMLCError that says so): ``shuffle``, ``from_stream``,
+``to_device(sharding=...)`` and ``build(tenant=...)``; ``shuffle``
+with ``cache`` keeps the reference's own refusal.
 """
 
 from __future__ import annotations
@@ -307,6 +311,158 @@ class _NativeAssembleRunner(_RunnerBase):
 
     def close(self) -> None:
         self._parser.destroy()
+
+
+class _CacheRunner(_RunnerBase):
+    """parse + cache → replayed epochs with no re-parse, the tier
+    picked by budget (the ShardedRowBlockIter steady-replay story at
+    the single-stream level): blocks whose raw bytes fit
+    ``memory_budget_bytes`` are retained owned in RAM; larger datasets
+    build a DiskRowIter binary page cache (parse once at build, replay
+    pages every epoch). An explicit ``path`` forces the page tier; with
+    ``path=None`` the page file is derived under the port's page store
+    root, fingerprint-keyed so a changed source gets a fresh cache, with
+    a sidecar stamp for sweep_stale_spill."""
+
+    kind = "cache"
+
+    def __init__(self, source: StageSpec, shuffle: Optional[StageSpec],
+                 parse: StageSpec, cache: StageSpec):
+        super().__init__("cache")
+        check(shuffle is None,
+              "pipeline: shuffle + cache is not lowerable (the page "
+              "cache replays one fixed order); shuffle after cache via "
+              "a map stage, or drop the cache")
+        from dmlc_tpu_torch.data.row_iter import DiskRowIter
+        sp = source.params
+        self._source_uri = sp["uri"]
+        self._source_parts = sp["num_parts"]
+        p = {k: v for k, v in parse.params.items() if v is not None}
+        p.pop("prefetch_depth", None)
+        fmt = p.pop("format", None)
+        if sp["split_type"] != "text":
+            p["split_type"] = sp["split_type"]
+
+        def make_parser():
+            from dmlc_tpu_torch.data.parser import Parser
+            return Parser.create(sp["uri"], sp["part_index"],
+                                 sp["num_parts"], format=fmt, **p)
+
+        path = cache.params["path"]
+        budget = cache.params["memory_budget_bytes"]
+        if budget is None:  # not `or`: an explicit 0 must force pages
+            budget = 1 << 30
+        self._blocks: Optional[List] = None
+        self._it = None
+        self.tier = "pages"
+        fingerprint = self._source_fingerprint(sp)
+        if path is None:
+            if self._try_memory(make_parser, budget):
+                self.tier = "memory"
+                return
+            path = self._derived_page_path(
+                sp, fmt, cache.params["rows_per_page"], fingerprint)
+        page_budget = cache.params["page_budget_bytes"]
+        if page_budget is not None:
+            # the store owning this cache's root gets the byte budget
+            # (LRU eviction of cold committed entries down to it)
+            from dmlc_tpu_torch.io.pagestore import PageStore
+            PageStore.for_path(path)[0].set_budget(page_budget)
+        # DiskRowIter stamps the sidecar itself at commit (and a
+        # stamped cache whose sources changed is rebuilt, not replayed)
+        self._it = DiskRowIter(make_parser, path,
+                               rows_per_page=cache.params["rows_per_page"],
+                               fingerprint=fingerprint)
+
+    def _try_memory(self, make_parser, budget: int) -> bool:
+        """Drain the parser into owned raw blocks within the budget;
+        False (with nothing retained) when the dataset is larger — the
+        caller then builds the page tier from a fresh parser. A stat
+        pre-check skips the doomed drain outright when the source's
+        byte share already exceeds the budget (raw CSR is rarely
+        smaller than its text)."""
+        if not self._memory_precheck_ok(budget):
+            return False
+        parser = make_parser()
+        blocks: List = []
+        used = 0
+        ok = True
+        parser.before_first()
+        while parser.next():
+            blk = parser.value()
+            if blk.lease is not None:
+                blk = blk.copy()  # own past the parser's next()
+            used += blk.memory_cost_bytes()
+            if used > budget:
+                ok = False
+                break
+            blocks.append(blk)
+        if hasattr(parser, "destroy"):
+            parser.destroy()
+        if ok:
+            self._blocks = blocks
+        return ok
+
+    def _memory_precheck_ok(self, budget: int) -> bool:
+        from dmlc_tpu_torch.io.input_split import list_split_files
+        try:
+            total = sum(size for _, size in
+                        list_split_files(self._source_uri))
+        except (OSError, DMLCError):  # non-stat-able: try the drain
+            return True
+        return total // max(self._source_parts, 1) <= budget
+
+    @staticmethod
+    def _source_fingerprint(sp):
+        """``[[path, size, mtime_ns], ...]`` of the source's backing
+        files, or None when non-stat-able."""
+        from dmlc_tpu_torch.io.input_split import list_split_files
+        from dmlc_tpu_torch.io.pagestore import stat_fingerprint
+        try:
+            return stat_fingerprint(
+                p for p, _ in list_split_files(sp["uri"]))
+        except (OSError, DMLCError):
+            return None
+
+    @staticmethod
+    def _derived_page_path(sp, fmt, rows_per_page: int, fingerprint):
+        """Page path under the port's default store root —
+        fingerprint-keyed so a changed source derives a fresh cache
+        file (the stamp DiskRowIter writes catches in-place mutation of
+        an unchanged name too)."""
+        import hashlib
+        import os
+
+        from dmlc_tpu_torch.io.pagestore import default_store_dir
+        key = hashlib.sha256(repr(
+            (sp["uri"], sp["part_index"], sp["num_parts"], fmt,
+             rows_per_page, fingerprint)).encode()).hexdigest()[:16]
+        d = default_store_dir()
+        os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"cache-{key}.pages")
+
+    @property
+    def queue(self):
+        return getattr(self._it, "_iter", None)
+
+    def epoch(self) -> Iterator:
+        if self._blocks is not None:
+            yield from self._blocks
+            return
+        it = self._it
+        it.before_first()
+        while it.next():
+            yield it.value()
+
+    def finalize_epoch(self) -> None:
+        # which replay tier served the epoch — the autotuner must not
+        # judge a knob trial across a tier flip
+        self.probe.extra["replay_tier"] = self.tier
+
+    def close(self) -> None:
+        self._blocks = None
+        if self._it is not None:
+            self._it._close()
 
 
 class _ShardRunner(_RunnerBase):
@@ -723,9 +879,29 @@ class Pipeline:
         """Shuffled read order: not ported."""
         raise _not_ported("shuffle", "the shuffle plane")
 
-    def cache(self, *args: Any, **kwargs: Any) -> "Pipeline":
-        """Parse once, replay later epochs: not ported."""
-        raise _not_ported("cache", "the page store")
+    def cache(self, path: Optional[str] = None,
+              rows_per_page: int = 64 << 10,
+              memory_budget_bytes: Optional[int] = None,
+              page_budget_bytes: Optional[int] = None) -> "Pipeline":
+        """Parse once; later epochs replay instead of re-parsing text.
+        The tier is picked by budget (default 1 GiB; an explicit 0
+        forces pages): raw blocks within ``memory_budget_bytes`` are
+        retained in RAM, larger datasets spill to binary row pages
+        (DiskRowIter) under the port's page store
+        (``io.pagestore.default_store_dir``), fingerprint-keyed AND
+        fingerprint-stamped (a changed source rebuilds instead of
+        replaying). An explicit ``path`` forces the page tier at that
+        location. ``page_budget_bytes`` sets the owning page store's
+        byte budget: committed entries LRU-evict down to it (pinned
+        live caches are skipped).
+
+        The memory tier serves the SAME RowBlock objects every epoch —
+        RowBlock is immutable by contract, so downstream ``map`` fns
+        must not mutate blocks in place."""
+        return self._with(StageSpec("cache", path=path,
+                                    rows_per_page=rows_per_page,
+                                    memory_budget_bytes=memory_budget_bytes,
+                                    page_budget_bytes=page_budget_bytes))
 
     def batch(self, rows: int, drop_remainder: bool = False,
               pad: bool = False, row_bucket: Optional[int] = None,
@@ -815,21 +991,28 @@ class Pipeline:
         kinds = [s.kind for s in specs]
         if specs[0].params.get("stream") is not None:
             raise _not_ported("a streaming source", "the streaming split")
-        for kind, plane in (("shuffle", "the shuffle plane"),
-                            ("cache", "the page store")):
-            if kind in kinds:
-                raise _not_ported(kind, plane)
+        if "shuffle" in kinds and "cache" not in kinds:
+            # with a cache, _CacheRunner keeps the reference's refusal
+            raise _not_ported("shuffle", "the shuffle plane")
         if "parse" not in kinds and "shard" not in kinds:
             raise DMLCError(
                 "pipeline: nothing to run — add .parse(...) or "
                 ".shard(mesh)")
         i = 1
+        shuffle_spec = None
         parse_spec = None
+        if specs[i].kind == "shuffle":
+            shuffle_spec = specs[i]
+            i += 1
         if specs[i].kind == "parse":
             parse_spec = specs[i]
             i += 1
         runners: List[_RunnerBase]
-        if i < len(specs) and specs[i].kind == "shard":
+        if i < len(specs) and specs[i].kind == "cache":
+            runners = [_CacheRunner(specs[0], shuffle_spec, parse_spec,
+                                    specs[i])]
+            i += 1
+        elif i < len(specs) and specs[i].kind == "shard":
             runners = [_ShardRunner(specs[0], parse_spec, specs[i])]
             i += 1
         else:
@@ -839,8 +1022,8 @@ class Pipeline:
             if spec.kind == "batch" and spec.params["pad"]:
                 # padded assembly sitting DIRECTLY on a native-engine
                 # parse fuses into the engine's batch assembly; anything
-                # else (python engine, map between) pads through the
-                # Python fused golden — byte-identical
+                # else (python engine, cache upstream, map between) pads
+                # through the Python fused golden — byte-identical
                 if (len(runners) == 1 and isinstance(up, _ParseRunner)
                         and hasattr(up._parser, "next_padded")):
                     runners[-1] = _NativeAssembleRunner(up, spec)

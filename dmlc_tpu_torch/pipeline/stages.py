@@ -8,14 +8,18 @@ refuses is refused here with the same message. A
 without executing anything. ``Pipeline.build()`` validates the chain
 against ``ALLOWED_AFTER`` (the legal stage grammar) and lowers each spec
 onto the port's machinery (see ``dmlc_tpu_torch.pipeline.graph``). The
-port refuses ``shuffle``, ``cache`` and streaming sources when they are
-chained, with a "not ported" error.
+port refuses ``shuffle`` and streaming sources when they are built, with
+a "not ported" error.
 
 Stage catalog (the reference's docs/pipeline.md has the narrative
 version):
 
   source    — from_uri(uri, part_index, num_parts): the sharded byte span
   parse     — text bytes → CSR RowBlock stream (Parser.create)
+  cache     — parse once, replay later epochs; the tier is picked by
+              memory_budget_bytes: raw blocks in RAM when they fit,
+              a DiskRowIter binary page cache when they don't
+              (an explicit path forces pages)
   batch     — re-chunk the block stream to fixed row counts, or (pad=True)
               assemble fixed-shape padded batches
   map       — user fn over each item
@@ -25,7 +29,7 @@ version):
               window; window "auto" is an autotuner knob
   shard     — part-granular multi-process ingest (ShardedRowBlockIter):
               [L, ...] batches on the mesh's device
-  shuffle, cache — in the grammar, refused by the port
+  shuffle   — in the grammar, refused by the port
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ sides, the CSR sums in different orders).
 """
 
 import json
+import os
 import time
 
 import numpy as np
@@ -32,7 +33,6 @@ from dmlc_tpu_torch.data.rowblock import RowBlockContainer
 from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.models.linear import SparseLinearModel
 from dmlc_tpu_torch.native import native_available
-from dmlc_tpu_torch.parallel.sharded import Mesh
 from dmlc_tpu_torch.pipeline import (
     PIPELINE_STATS_SCHEMA, Autotuner, CompiledPipeline, Knob, Pipeline,
     StageProbe, StageSpec, snapshot)
@@ -317,9 +317,6 @@ def test_drop_remainder_drops_the_short_tail(corpora, native):
 @pytest.mark.parametrize("refused,match", [
     (lambda p: p.shuffle(), "shuffle"),
     (lambda p: p.shuffle(global_seed=3), "shuffle"),
-    (lambda p: p.parse().cache(), "cache"),
-    (lambda p: p.shard(Mesh((1,), device="cpu"), page_spill=True).build(),
-     "shard"),
     (lambda p: p.parse().to_device(sharding=object()), "sharding"),
     (lambda p: p.parse().build(tenant="feed"), "tenant"),
     (lambda p: Pipeline.from_stream("x.libsvm", window_records=8),
@@ -328,6 +325,160 @@ def test_drop_remainder_drops_the_short_tail(corpora, native):
 def test_refused_stages_say_not_ported(refused, match):
     with pytest.raises(DMLCError, match=f"{match}.*not ported"):
         refused(Pipeline.from_uri("x.libsvm"))
+
+
+# ------------------------------------------------------------- cache
+
+@pytest.fixture
+def stores(tmp_path, monkeypatch):
+    """Each package's page store root under this test's directory: the
+    two derive the same cache-file names."""
+    roots = {"port": tmp_path / "port_store", "ref": tmp_path / "ref_store"}
+    monkeypatch.setenv("DMLC_TPU_TORCH_PAGESTORE_DIR", str(roots["port"]))
+    monkeypatch.setenv("DMLC_TPU_PAGESTORE_DIR", str(roots["ref"]))
+    return roots
+
+
+def _cached(cls, src, engine="python", pad=False, **cache):
+    p = (cls.from_uri(src)
+         .parse(format="libsvm", engine=engine, chunk_size=16 << 10)
+         .cache(rows_per_page=100, **cache))
+    if pad:
+        p = p.batch(BATCH, pad=True, nnz_bucket=NNZ_BUCKET)
+        p = p.to_device(device="cpu") if cls is Pipeline else p.prefetch(2)
+    return p.build()
+
+
+def _tier(built):
+    return [s for s in built.stats()["stages"]
+            if s["kind"] == "cache"][0]["extra"]["replay_tier"]
+
+
+CACHE_TIERS = {"memory": ({}, "memory"),
+               "pages_budget0": ({"memory_budget_bytes": 0}, "pages"),
+               "pages_path": ({"path": True}, "pages")}
+
+
+@pytest.mark.parametrize("engine", ["native", "python"])
+@pytest.mark.parametrize("tier", sorted(CACHE_TIERS))
+def test_cache_streams_match_reference(corpora, native, stores, tmp_path,
+                                       tier, engine):
+    """parse → cache in each tier: three epochs of the port's block
+    stream hash equal to the reference's and to a direct parse, the
+    cache stage reports the tier, and a page cache's file is byte for
+    byte the reference's."""
+    kw, want_tier = CACHE_TIERS[tier]
+    src = corpora["libsvm"]
+    port_kw, ref_kw = dict(kw), dict(kw)
+    if kw.get("path"):
+        port_kw["path"] = str(tmp_path / "port.pages")
+        ref_kw["path"] = str(tmp_path / "ref.pages")
+    ref = _cached(RefPipeline, src, **ref_kw)
+    want = _hash(ref, RefContainer)
+    assert _tier(ref) == want_tier
+    with _cached(Pipeline, src, engine=engine, **port_kw) as built:
+        for _ in range(3):
+            assert _hash(built, RowBlockContainer) == want
+            assert _tier(built) == want_tier
+    ref.close()
+    direct = Parser.create(src, 0, 1, format="libsvm", engine="python")
+    assert _hash(direct, RowBlockContainer) == want
+    if want_tier == "pages":
+        if kw.get("path"):
+            files = [port_kw["path"], ref_kw["path"]]
+        else:
+            files = [str(stores[k] / n) for k in ("port", "ref")
+                     for n in os.listdir(stores[k])
+                     if n.endswith(".pages")]
+            assert [os.path.basename(f) for f in files][0].startswith(
+                "cache-")
+        assert len(files) == 2
+        with open(files[0], "rb") as a, open(files[1], "rb") as b:
+            assert a.read() == b.read()
+    else:
+        assert not os.path.exists(stores["port"])
+
+
+@pytest.mark.parametrize("tier", ["memory", "pages_budget0"])
+def test_cache_padded_batches_match_reference(corpora, native, stores,
+                                              tier):
+    """cache → batch(pad=True) pads through the Python fused golden, in
+    both packages, byte for byte, over two epochs."""
+    kw = CACHE_TIERS[tier][0]
+    ref = _cached(RefPipeline, corpora["libsvm"], pad=True, **kw)
+    port = _cached(Pipeline, corpora["libsvm"], engine="native", pad=True,
+                   **kw)
+    try:
+        for _ in range(2):
+            got = [_host(b) for b in port]
+            gold = [_host(b) for b in ref]
+            assert len(got) == len(gold) == -(-ROWS // BATCH)
+            for g, h in zip(got, gold):
+                assert sorted(g) == sorted(h)
+                for k in g:
+                    assert g[k].dtype == h[k].dtype, k
+                    assert g[k].tobytes() == h[k].tobytes(), k
+        assemble = [s for s in port.stats()["stages"]
+                    if s["kind"] == "assemble"][0]
+        assert assemble["extra"]["assembly_path"] == "python-fused"
+    finally:
+        port.close()
+        ref.close()
+
+
+def test_cache_rebuilds_a_changed_source(stores, tmp_path):
+    """A page cache stamped with its source's fingerprint is rebuilt, not
+    replayed, once the source changes, in both packages."""
+    src = tmp_path / "d.libsvm"
+    src.write_text("1 1:1.0\n0 2:2.0\n" * 50)
+    paths = {Pipeline: str(tmp_path / "p.pages"),
+             RefPipeline: str(tmp_path / "r.pages")}
+    labels = {}
+    for version in (1, 2):
+        if version == 2:
+            src.write_text("1 1:1.0\n1 2:2.0\n" * 60)
+        for cls in (Pipeline, RefPipeline):
+            with _cached(cls, str(src), path=paths[cls]) as built:
+                labels[cls] = sum(float(b.label.sum()) for b in built)
+        assert labels[Pipeline] == labels[RefPipeline] == (
+            50.0 if version == 1 else 120.0)
+        with open(paths[Pipeline], "rb") as a, \
+                open(paths[RefPipeline], "rb") as b:
+            assert a.read() == b.read()
+
+
+def test_cache_page_budget_evicts_cold_entries(corpora, stores, tmp_path):
+    """page_budget_bytes sets the cache's store budget: a cold entry in
+    the same root is evicted, the live cache kept, as in the reference."""
+    probe = str(tmp_path / "probe.pages")
+    _cached(Pipeline, corpora["libsvm"], path=probe).close()
+    budget = os.path.getsize(probe) + 500  # the cache fits, not the cold
+    for cls, root in ((Pipeline, tmp_path / "p"), (RefPipeline,
+                                                    tmp_path / "r")):
+        root.mkdir()
+        cold = root / "cold.pages"
+        cold.write_bytes(b"x" * 1000)
+        os.utime(cold, (1, 1))
+        path = str(root / "live.pages")
+        with _cached(cls, corpora["libsvm"], path=path,
+                     page_budget_bytes=budget) as built:
+            built.run_epoch()
+            assert _tier(built) == "pages"
+        assert os.path.exists(path) and not cold.exists(), cls
+
+
+def test_shuffle_with_cache_keeps_the_reference_refusal(corpora):
+    for cls, err in ((Pipeline, DMLCError), (RefPipeline, RefDMLCError)):
+        pipe = cls((StageSpec("source", uri=corpora["libsvm"], part_index=0,
+                              num_parts=1, split_type="text"),
+                    StageSpec("shuffle", num_shuffle_parts=2, seed=0,
+                              global_seed=None, window_bytes=None),
+                    StageSpec("parse", format="libsvm", engine="python"),
+                    StageSpec("cache", path=None, rows_per_page=100,
+                              memory_budget_bytes=None,
+                              page_budget_bytes=None)))
+        with pytest.raises(err, match="shuffle \\+ cache is not lowerable"):
+            pipe.build()
 
 
 def test_grammar_matches_the_reference(tmp_path):
@@ -543,14 +694,20 @@ class TestAutotuner:
 STEPS = 5
 
 
+@pytest.mark.parametrize("cache", [None, 0], ids=["parse", "page_cache"])
 @pytest.mark.parametrize("engine", ["native", "python"])
-def test_pipeline_to_linear_model_matches_reference(corpora, native, engine):
+def test_pipeline_to_linear_model_matches_reference(corpora, native, stores,
+                                                    engine, cache):
     """Pipeline → SparseLinearModel, 5 SGD steps from zero weights, in both
-    packages: losses and the final weights allclose."""
+    packages, straight from the parse and from a page cache
+    (``cache(memory_budget_bytes=0)``): losses and the final weights
+    allclose."""
     def chain(cls, **device):
-        return (cls.from_uri(corpora["libsvm"])
-                .parse(format="libsvm", engine=engine)
-                .batch(BATCH, pad=True, nnz_bucket=NNZ_BUCKET)
+        p = cls.from_uri(corpora["libsvm"]).parse(format="libsvm",
+                                                  engine=engine)
+        if cache is not None:
+            p = p.cache(memory_budget_bytes=cache)
+        return (p.batch(BATCH, pad=True, nnz_bucket=NNZ_BUCKET)
                 .to_device(**device).build(autotune=True))
 
     ref = RefModel(FEATURES, learning_rate=2.0)

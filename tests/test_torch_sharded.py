@@ -15,6 +15,8 @@ non-finite entries must sit at the same places.
 """
 
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -298,7 +300,7 @@ def _same_epochs(port, ref):
 def _iters(path, mesh, ref_mesh, **kw):
     kw.setdefault("prefetch", False)
     return (ShardedRowBlockIter(str(path), mesh, **kw),
-            RefIter(str(path), ref_mesh, page_spill=False, **kw))
+            RefIter(str(path), ref_mesh, **kw))
 
 
 ITER_CASES = {
@@ -423,26 +425,170 @@ def test_appends_stay_invisible_and_replay_reearns(mesh, ref_mesh,
 
 
 def test_over_budget_fallback_matches_cached_path(mesh, tmp_path):
+    """Over its budget the per-round path serves the cached path's
+    batches, and its rounds replay from pages (the page tier is on by
+    default, as in the reference)."""
     p = tmp_path / "d.libsvm"
     _write_libsvm(p, 13, 200)
     kw = dict(format="libsvm", row_bucket=32, nnz_bucket=64,
               prefetch=False, first_epoch_cache="always")
     fast = ShardedRowBlockIter(str(p), mesh, **kw)
     slow = ShardedRowBlockIter(str(p), mesh, agreement_cache_bytes=2048,
-                               **kw)
+                               spill_dir=str(tmp_path / "spill"), **kw)
     _same_epochs(_collect(slow), _collect(fast))
     _same_epochs(_collect(slow), _collect(fast))
-    assert slow.replay_epochs == 0 and slow._round_store is None
-    assert fast.replay_epochs == 1
+    assert slow.replay_epochs == 1 and slow._round_store.tier == "pages"
+    assert fast.replay_epochs == 1 and fast._round_store.tier == "memory"
+    slow.close()
 
 
-@pytest.mark.parametrize("kw", [dict(page_spill=True),
-                                dict(spill_dir="/nonexistent")])
-def test_page_tier_is_not_ported(mesh, tmp_path, kw):
+# ------------------------------------------------------------ page tier
+# twins of tests/test_parallel_ops.py's page-tier tests: each package
+# spills into its own directory (both derive the same file names)
+
+def _page_iters(path, mesh, ref_mesh, tmp_path, **kw):
+    kw = dict(dict(format="libsvm", row_bucket=32, nnz_bucket=64,
+                   prefetch=False, agreement_cache_bytes=2048,
+                   first_epoch_cache="always"), **kw)
+    return (ShardedRowBlockIter(str(path), mesh,
+                                spill_dir=str(tmp_path / "port_spill"), **kw),
+            RefIter(str(path), ref_mesh,
+                    spill_dir=str(tmp_path / "ref_spill"), **kw))
+
+
+def _state(it):
+    return (it.replay_tier, it.replay_epochs, it.page_replay_epochs)
+
+
+@pytest.mark.parametrize("cache_mode,level", [("always", 0), ("never", 0),
+                                              ("always", 6)])
+def test_page_spill_serves_steady_epochs_like_reference(
+        mesh, ref_mesh, ref_host, tmp_path, monkeypatch, cache_mode, level):
+    """Rounds over a tiny agreement_cache_bytes spill to pages, and every
+    steady epoch is served from them, byte for byte the reference's
+    (raw rounds and, at level 6, codec-paged ones), with the reference's
+    tier and counters at every epoch; the spill files are equal too, and
+    close() deletes the port's."""
+    monkeypatch.setenv("DMLC_TPU_PAGE_CODEC_LEVEL", str(level))
     p = tmp_path / "d.libsvm"
-    _write_libsvm(p, 14, 20)
-    with pytest.raises(DMLCError, match="not ported"):
-        ShardedRowBlockIter(str(p), mesh, format="libsvm", **kw)
+    _write_libsvm(p, 20, 300)
+    it, ref = _page_iters(p, mesh, ref_mesh, tmp_path,
+                          first_epoch_cache=cache_mode)
+    e1 = None
+    tiers = []
+    for epoch in range(4):
+        got, want = _collect(it), _collect(ref)
+        _same_epochs(got, want)
+        e1 = e1 or got
+        _same_epochs(got, e1)
+        assert _state(it) == _state(ref)
+        tiers.append(it.replay_tier)
+    spilled = ["parse"] * (1 if cache_mode == "always" else 2)
+    assert tiers == spilled + ["pages"] * (4 - len(spilled))
+    assert it.page_replay_epochs == 4 - len(spilled)
+    port_file = it._round_store.file.path
+    ref_file = ref._round_store.file.path
+    assert os.path.dirname(port_file) == str(tmp_path / "port_spill")
+    with open(port_file, "rb") as a, open(ref_file, "rb") as b:
+        assert a.read() == b.read()
+    it.close()
+    ref.close()
+    assert not os.path.exists(port_file)
+    assert os.listdir(tmp_path / "port_spill") == []
+
+
+def test_page_spill_mutation_reparses_then_reearns(mesh, ref_mesh,
+                                                   ref_host, tmp_path):
+    """A page-armed iterator notices the stat change, re-parses one
+    clean asserting epoch (appends stay invisible) with the stale spill
+    file deleted, and re-earns PAGE replay, as the reference does."""
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 21, 300)
+    it, ref = _page_iters(p, mesh, ref_mesh, tmp_path)
+    e1 = _collect(it)
+    _same_epochs(e1, _collect(ref))
+    first_spill = it._round_store.file.path
+    with open(p, "ab") as f:
+        f.write(b"1 3:0.5\n" * 200)
+    for want_tier, want_pages in (("parse", 0), ("pages", 1)):
+        got = _collect(it)
+        _same_epochs(got, _collect(ref))
+        _same_epochs(got, e1)
+        assert _state(it) == _state(ref)
+        assert (it.replay_tier, it.page_replay_epochs) == (want_tier,
+                                                           want_pages)
+        assert not os.path.exists(first_spill)
+    it.close()
+    ref.close()
+
+
+def test_page_spill_truncation_still_raises(mesh, ref_mesh, tmp_path):
+    """Truncating the backing file under a page-armed iterator raises
+    the mutation error on the fallback re-parse, in both packages."""
+    from dmlc_tpu.utils.logging import DMLCError as RefDMLCError
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 22, 300)
+    it, ref = _page_iters(p, mesh, ref_mesh, tmp_path, row_bucket=8,
+                          nnz_bucket=16)
+    assert len(_collect(it)) == len(_collect(ref)) > 0
+    assert it._round_store.tier == ref._round_store.tier == "pages"
+    data = p.read_bytes()
+    cut = data.index(b"\n", len(data) // 4) + 1
+    p.write_bytes(data[:cut])
+    with pytest.raises(DMLCError, match="changed between epochs"):
+        _collect(it)
+    with pytest.raises(RefDMLCError, match="changed between epochs"):
+        _collect(ref)
+
+
+def test_page_spill_off_abandons_over_budget(mesh, ref_mesh, ref_host,
+                                             tmp_path):
+    """page_spill=False: over-budget rounds abandon replay and every
+    epoch re-parses, identically, in both packages."""
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 23, 200)
+    it, ref = _page_iters(p, mesh, ref_mesh, tmp_path, page_spill=False)
+    e1 = _collect(it)
+    for _ in range(2):
+        got = _collect(it)
+        _same_epochs(got, _collect(ref))
+        _same_epochs(got, e1)
+        assert _state(it) == _state(ref) == ("parse", 0, 0)
+    assert it._round_store is None and ref._round_store is None
+    assert not os.path.exists(tmp_path / "port_spill")
+
+
+def test_vanished_spill_file_degrades_to_a_reparse(mesh, ref_mesh,
+                                                   ref_host, tmp_path):
+    """A spill file removed under a page-armed iterator is not a data
+    hazard: the epoch re-parses and re-earns a fresh page store."""
+    p = tmp_path / "d.libsvm"
+    _write_libsvm(p, 24, 300)
+    it, ref = _page_iters(p, mesh, ref_mesh, tmp_path)
+    e1 = _collect(it)
+    _collect(ref)
+    for x in (it, ref):
+        os.remove(x._round_store.file.path)
+    for want_tier in ("parse", "pages"):
+        got = _collect(it)
+        _same_epochs(got, _collect(ref))
+        _same_epochs(got, e1)
+        assert _state(it) == _state(ref)
+        assert it.replay_tier == want_tier
+    it.close()
+    ref.close()
+
+
+def test_page_tier_defaults_match_reference():
+    """C10: the port's page tier is on by default, with the reference's
+    budget, so the two packages pick the same tier for the same shard."""
+    import inspect
+    port = inspect.signature(ShardedRowBlockIter).parameters
+    ref = inspect.signature(RefIter).parameters
+    for name in ("page_spill", "agreement_cache_bytes", "spill_dir",
+                 "steady_replay", "first_epoch_cache"):
+        assert port[name].default == ref[name].default, name
+    assert port["page_spill"].default is True
 
 
 def test_serve_thread_and_prefetch_depth(mesh, tmp_path):
