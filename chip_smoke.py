@@ -126,18 +126,23 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    replay epochs >= 3); every epoch's batches hash equal to epoch 1's,
    K1 and K2 launch once a part a step and K8's two launches and K9 once
    a step in every epoch, the loss falls, the page file is there while
-   the store lives and gone after ``close()``; then three epochs of
-   ``SparseLinearModel(10^6).train_step`` through
+   the store lives and gone after ``close()``, and the serve thread's
+   work of a page epoch is timed pass by pass over the page file (read;
+   read and decode; and pad+stack; and the copy through pinned slots to
+   the card); then three
+   epochs of ``SparseLinearModel(10^6).train_step`` through
    ``parse(engine="native").cache(memory_budget_bytes=0).batch(8192,
    pad=True, nnz_bucket=368640).to_device(cuda)``: every epoch served by
    pages, its batches hashing equal to the same chain's without the
    cache, K1, K2, K8 and K9 once a step, the loss falling; each epoch's
    GB/s and steps/s printed beside the memory-replay epoch and the main
    path of the run;
-10. last, after every traced phase, configs 8 (``page_replay``) and 10
-   (``spill_replay``) of ``dmlc_tpu_torch.bench_suite`` at 256 MB, each
-   JSON on a line, their own parity asserts holding (the replayed
-   content hash against a direct parse; page replay epochs >= 3).
+10. right after those, configs 8 (``page_replay``) and 10
+   (``spill_replay``) of ``dmlc_tpu_torch.bench_suite`` at 256 MB over
+   the linear corpus (linked to the name the suite reads, so it writes
+   no corpus of its own), each JSON on a line, their own parity asserts
+   holding (the replayed content hash against a direct parse; page
+   replay epochs >= 3).
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -3539,6 +3544,8 @@ def spill_path(path, size, lr, mesh, work, sharded):
     require(len(files) == 1, f"spill: {spill_dir} holds {files}, want one "
             "page file while the store lives")
     page_bytes = os.path.getsize(os.path.join(spill_dir, files[0]))
+    split = page_serve_split(os.path.join(spill_dir, files[0]), steps,
+                             mesh)
     log_pipeline_stats("spill", built)
     built.close()
     left = [n for n in os.listdir(spill_dir) if n.endswith(".pages")]
@@ -3561,11 +3568,61 @@ def spill_path(path, size, lr, mesh, work, sharded):
     for i, e in enumerate(epochs):
         log(f"  spill epoch {i + 1} ({e['tier']}) serve: "
             f"{json.dumps(e['serve'])}")
+    log(f"spill serve thread's work of a page epoch, by pass over the "
+        f"page file with no step: read {split['read_s']:.4f} s, read and "
+        f"decode {split['read_decode_s']:.4f} s, read, decode and "
+        f"pad+stack {split['read_decode_stack_s']:.4f} s, all that and "
+        f"the copy through pinned slots to the card "
+        f"{split['read_decode_stack_copy_s']:.4f} s; the last page epoch "
+        f"{epochs[-1]['secs']:.4f} s with its steps")
     return {"steps": steps, "tiers": tiers, "epoch_s":
             [e["secs"] for e in epochs],
             "parse_to_device_gbps_training": gbps, "steps_per_s": sps,
             "page_bytes": page_bytes, "memory_replay_gbps": memory,
-            "serve": [e["serve"] for e in epochs]}
+            "serve": [e["serve"] for e in epochs], "serve_split": split}
+
+
+def page_serve_split(spill, rounds, mesh):
+    """The serve thread's work in a page epoch, pass by pass over the
+    spill file (warm in the host's page cache), on this thread with no
+    step between batches: the file's read alone; the read and decode
+    (``RoundSpillFile.iter_rows``); both with the pad+stack
+    (``stack_padded_rows``); and all of that with the copy into pinned
+    slots and to the card (``make_global_batch`` on a copy stream, each
+    batch waited on as the consumer does, as ``_prefetch_serve`` runs
+    it). Seconds a pass."""
+    import torch
+    from dmlc_tpu_torch.data.row_iter import RoundSpillFile
+    from dmlc_tpu_torch.parallel.device_iter import HostStaging, wait_copy
+    from dmlc_tpu_torch.parallel.sharded import make_global_batch, \
+        stack_padded_rows
+    buf = bytearray(1 << 20)
+    t0 = time.perf_counter()
+    with open(spill, "rb", buffering=0) as f:
+        while f.readinto(buf):
+            pass
+    out = {"read_s": time.perf_counter() - t0}
+    pages = RoundSpillFile(spill, SHARD_PARTS, rounds)
+    t0 = time.perf_counter()
+    for _row in pages.iter_rows():
+        pass
+    out["read_decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for row in pages.iter_rows():
+        stack_padded_rows(row, ROW_BUCKET, NNZ_BUCKET, False, False)
+    out["read_decode_stack_s"] = time.perf_counter() - t0
+    on_cuda = mesh.device.type == "cuda"
+    pool = HostStaging(3, pin=on_cuda, alias_unsafe=not on_cuda)
+    stream = torch.cuda.Stream(mesh.device) if on_cuda else None
+    t0 = time.perf_counter()
+    for row in pages.iter_rows():
+        wait_copy(make_global_batch(
+            stack_padded_rows(row, ROW_BUCKET, NNZ_BUCKET, False, False),
+            mesh, staging=pool, copy_stream=stream), mesh.device)
+    if on_cuda:
+        torch.cuda.synchronize(mesh.device)
+    out["read_decode_stack_copy_s"] = time.perf_counter() - t0
+    return out
 
 
 def cache_path(path, size, lr, single):
@@ -3649,19 +3706,29 @@ def cache_path(path, size, lr, single):
             "parse_to_device_gbps_training": gbps, "steps_per_s": sps}
 
 
-def bench_twins(work):
-    """Configs 8 and 10 of the port's bench suite at 256 MB on the card;
-    their own parity asserts (content hash against a direct parse; page
-    replay epochs) must hold. Each JSON is printed as a line."""
+def bench_twins(path, work):
+    """Configs 8 and 10 of the port's bench suite at 256 MB on the card,
+    over the linear corpus ``path``, linked to the name the suite reads
+    (so it writes no corpus of its own); their own parity asserts
+    (content hash against a direct parse of that corpus; page replay
+    epochs) must hold. Each JSON is printed as a line. The suite's files
+    are removed after."""
     from dmlc_tpu_torch.bench_suite import bench_page_replay, \
         bench_spill_replay
+    prefix = "dmlc_tpu_torch_bench_suite."
+    os.link(path, os.path.join(work, prefix + "criteo.libsvm"))
     out = {}
-    for name, fn in (("page_replay", bench_page_replay),
-                     ("spill_replay", bench_spill_replay)):
-        t0 = time.perf_counter()
-        out[name] = fn(256, work=work)
-        log(f"bench config {name} ({time.perf_counter() - t0:.1f} s):")
-        log(json.dumps(out[name]))
+    try:
+        for name, fn in (("page_replay", bench_page_replay),
+                         ("spill_replay", bench_spill_replay)):
+            t0 = time.perf_counter()
+            out[name] = fn(256, work=work)
+            log(f"bench config {name} ({time.perf_counter() - t0:.1f} s):")
+            log(json.dumps(out[name]))
+    finally:
+        for n in os.listdir(work):
+            if n.startswith(prefix):
+                os.unlink(os.path.join(work, n))
     return out
 
 
@@ -3709,6 +3776,7 @@ def main() -> None:
         stats["spill"] = spill_path(path, size, LEARNING_RATE, mesh, work,
                                     stats["sharded"])
         stats["cache"] = cache_path(path, size, LEARNING_RATE, stats)
+        stats["bench"] = bench_twins(path, work)
         os.unlink(path)
 
         # the factor models' path: libfm → FM and FFM
@@ -3745,11 +3813,6 @@ def main() -> None:
                        RANK_LEARNING_RATE)
         rows += rank_rows
         sharded_dryrun(mesh)
-        # last: writing the configs' corpus takes minutes of host time,
-        # and a profiler trace taken that long after the one before it
-        # saw no device activity on the card (three retakes of K5
-        # forward's route came back empty), so no trace may follow
-        stats["bench"] = bench_twins(work)
         from dmlc_tpu_torch.parallel.launch import finalize
         finalize()
     finally:

@@ -128,8 +128,7 @@ def _done(put) -> None:
 
 
 def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
-                      epochs: int = 3, gauge_fn=None, device=None,
-                      work: Optional[str] = None) -> Dict:
+                      device=None, work: Optional[str] = None) -> Dict:
     """Binary page replay → device memory, parse skipped.
 
     The reference's own larger-than-RAM answer to "parse is expensive"
@@ -142,9 +141,9 @@ def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
     (checked untimed).
 
     Reports gbps over PAGE bytes (the IO this path performs) and
-    text_equiv_gbps over the text bytes the replay stands in for.
-    ``epochs`` replay passes are timed (>= 3); ``gauge_fn`` tags each
-    epoch with a pre-epoch gauge reading."""
+    text_equiv_gbps over the text bytes the replay stands in for. Three
+    replay passes are timed. ``epoch_gauges`` is None: the reference's
+    pre-epoch gauge has no caller in the port yet."""
     from dmlc_tpu_torch.data.parser import Parser
     from dmlc_tpu_torch.data.row_iter import DiskRowIter
     from dmlc_tpu_torch.data.rowblock import RowBlockContainer
@@ -183,12 +182,7 @@ def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
             _done(put)
         return time.perf_counter() - t0
 
-    gauges = []
-    walls = []
-    for _ in range(max(3, epochs)):
-        if gauge_fn is not None:
-            gauges.append(round(float(gauge_fn()), 2))
-        walls.append(replay_epoch())
+    walls = [replay_epoch() for _ in range(3)]
     best = min(walls)
     # parity: replayed pages == direct parse, byte-identical CSR
     c = RowBlockContainer(np.uint32)
@@ -207,12 +201,12 @@ def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
             # rates from the UNROUNDED walls
             "epoch_rates_text_gbps": [round(size / w / 1e9, 4)
                                       for w in walls],
-            "epoch_gauges": gauges or None,
+            "epoch_gauges": None,
             "platform": _platform(dev),
             "hash": replay_hash}
 
 
-def bench_spill_replay(mb: int, gauge_fn=None, replay_epochs: int = 5,
+def bench_spill_replay(mb: int, replay_epochs: int = 5,
                        row_bucket: int = 1 << 14,
                        nnz_bucket: int = 1 << 19, device=None,
                        work: Optional[str] = None) -> Dict:
@@ -222,9 +216,10 @@ def bench_spill_replay(mb: int, gauge_fn=None, replay_epochs: int = 5,
     below the shard's round bytes, so the replay tee spills the epoch's
     rounds to a binary page file and every steady epoch serves pages
     instead of re-parsing text. Epoch 1 is the parse epoch, epoch 2
-    re-parses + spills (the tee), epochs 3+ are gauge-tagged
-    page-replay epochs reported as best AND sustained (>= 5 epochs).
-    speedup_vs_parse is the best replay epoch over the parse epoch.
+    re-parses + spills (the tee), epochs 3+ are page-replay epochs
+    reported as best AND sustained (>= 3 epochs). speedup_vs_parse is
+    the best replay epoch over the parse epoch. The gauge keys are None:
+    the reference's pre-epoch gauge has no caller in the port yet.
     The spill file goes under ``work`` when one is given, else under
     the port's page store root."""
     from dmlc_tpu_torch.parallel.sharded import Mesh, ShardedRowBlockIter
@@ -247,17 +242,10 @@ def bench_spill_replay(mb: int, gauge_fn=None, replay_epochs: int = 5,
                 torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
-    parse_gauge = (round(float(gauge_fn()), 2)
-                   if gauge_fn is not None else None)
     parse_wall = epoch()          # parse epoch 1 (no tee: "never")
     spill_wall = epoch()          # re-parse + spill write (the tee)
     assert it.replay_tier == "parse", it.replay_tier
-    gauges = []
-    replay_walls = []
-    for _ in range(max(3, replay_epochs)):
-        if gauge_fn is not None:
-            gauges.append(round(float(gauge_fn()), 2))
-        replay_walls.append(epoch())
+    replay_walls = [epoch() for _ in range(max(3, replay_epochs))]
     assert it.replay_tier == "pages", it.replay_tier
     assert it.page_replay_epochs >= 3, it.page_replay_epochs
     spill_file = it._round_store.file
@@ -273,10 +261,10 @@ def bench_spill_replay(mb: int, gauge_fn=None, replay_epochs: int = 5,
             "replay_sustained_gbps": round(sustained, 4),
             "bytes": size, "page_bytes": page_bytes,
             "parse_epoch_gbps": round(parse_gbps, 4),
-            "parse_epoch_gauge": parse_gauge,
+            "parse_epoch_gauge": None,
             "spill_epoch_gbps": round(size / spill_wall / 1e9, 4),
             "replay_epoch_walls": [round(w, 3) for w in replay_walls],
-            "epoch_gauges": gauges or None,
+            "epoch_gauges": None,
             "speedup_vs_parse": round(best / parse_gbps, 2),
             "rounds": spill_file.rounds,
             "platform": _platform(dev)}

@@ -1,9 +1,15 @@
 """Binary (de)serialization onto Streams.
 
 Copy of ``dmlc_tpu/utils/serializer.py`` with its imports rewritten to
-``dmlc_tpu_torch``; nothing trimmed. The typed helpers carry the
-RowBlock page and round-spill formats, so a file written by either
-package reads in the other.
+``dmlc_tpu_torch``. The typed helpers carry the RowBlock page and
+round-spill formats, so a file written by either package reads in the
+other. ``read_ndarray`` reads the payload straight into the array it
+returns (``Stream.readinto``), where the reference reads ``bytes`` and
+copies them out: the same array in one copy, not two.
+
+Trimmed from the reference: the tagged ``serialize``/``deserialize``
+pair, which has no caller in the port yet (checkpoints, ROADMAP A9,
+will bring it back with a parity test).
 
 Reference: include/dmlc/serializer.h — serializer::Handler<T>::Write/Read with
 a POD fast path and container recursion, plus the Stream::Write(T)/Read(T&)
@@ -11,19 +17,14 @@ sugar in io.h. Byte order is little-endian always (reference: endian.h,
 DMLC_IO_NO_ENDIAN_SWAP on LE hosts; we define the format as LE so files are
 portable, the reference's intent).
 
-Two surfaces:
-- typed helpers (write_u64/read_f32/...): the reference's compile-time-typed
-  path; used by RowBlockContainer pages and checkpoints where the schema is
-  known on both sides (no per-element overhead).
-- ``serialize``/``deserialize``: a tagged self-describing container format for
-  Python convenience (dict/list/tuple/str/bytes/int/float/bool/None/ndarray),
-  the analogue of Handler<T> recursion over STL containers.
+The typed helpers (write_u64/read_f32/...) are the reference's
+compile-time-typed path, used by RowBlockContainer pages where the schema is
+known on both sides (no per-element overhead).
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any
 
 import numpy as np
 
@@ -35,7 +36,6 @@ __all__ = [
     "write_f32", "write_f64", "read_u8", "read_u32", "read_u64", "read_i32",
     "read_i64", "read_f32", "read_f64", "write_str", "read_str",
     "write_bytes", "read_bytes", "write_ndarray", "read_ndarray",
-    "serialize", "deserialize",
 ]
 
 
@@ -96,91 +96,19 @@ def write_ndarray(s: Stream, a: np.ndarray) -> None:
 
 
 def read_ndarray(s: Stream) -> np.ndarray:
+    """The array ``write_ndarray`` wrote, in a buffer of its own: it
+    aliases nothing of the stream's, so a reader that reuses a buffer
+    may hand it on."""
     dtype = np.dtype(read_str(s))
     ndim = read_u8(s)
     shape = tuple(read_u64(s) for _ in range(ndim))
-    count = int(np.prod(shape)) if ndim else 1
-    raw = s.read_exact(dtype.itemsize * count)
-    return np.frombuffer(raw, dtype=dtype, count=count).reshape(shape).copy()
-
-
-# -- tagged self-describing format
-
-_T_NONE, _T_BOOL, _T_INT, _T_FLOAT, _T_STR, _T_BYTES = 0, 1, 2, 3, 4, 5
-_T_LIST, _T_DICT, _T_TUPLE, _T_NDARRAY = 6, 7, 8, 9
-
-
-def serialize(obj: Any, s: Stream) -> None:
-    """Recursively write a Python container tree (Handler<T> analogue)."""
-    if obj is None:
-        write_u8(s, _T_NONE)
-    elif isinstance(obj, bool):
-        write_u8(s, _T_BOOL)
-        write_u8(s, 1 if obj else 0)
-    elif isinstance(obj, int):
-        write_u8(s, _T_INT)
-        write_i64(s, obj)
-    elif isinstance(obj, float):
-        write_u8(s, _T_FLOAT)
-        write_f64(s, obj)
-    elif isinstance(obj, str):
-        write_u8(s, _T_STR)
-        write_str(s, obj)
-    elif isinstance(obj, (bytes, bytearray)):
-        write_u8(s, _T_BYTES)
-        write_bytes(s, bytes(obj))
-    elif isinstance(obj, list):
-        write_u8(s, _T_LIST)
-        write_u64(s, len(obj))
-        for x in obj:
-            serialize(x, s)
-    elif isinstance(obj, tuple):
-        write_u8(s, _T_TUPLE)
-        write_u64(s, len(obj))
-        for x in obj:
-            serialize(x, s)
-    elif isinstance(obj, dict):
-        write_u8(s, _T_DICT)
-        write_u64(s, len(obj))
-        for k, v in obj.items():
-            serialize(k, s)
-            serialize(v, s)
-    elif isinstance(obj, np.ndarray):
-        write_u8(s, _T_NDARRAY)
-        write_ndarray(s, obj)
-    elif isinstance(obj, (np.integer,)):
-        serialize(int(obj), s)
-    elif isinstance(obj, (np.floating,)):
-        serialize(float(obj), s)
-    else:
-        raise DMLCError(f"serialize: unsupported type {type(obj).__name__}")
-
-
-def deserialize(s: Stream) -> Any:
-    tag = read_u8(s)
-    if tag == _T_NONE:
-        return None
-    if tag == _T_BOOL:
-        return bool(read_u8(s))
-    if tag == _T_INT:
-        return read_i64(s)
-    if tag == _T_FLOAT:
-        return read_f64(s)
-    if tag == _T_STR:
-        return read_str(s)
-    if tag == _T_BYTES:
-        return read_bytes(s)
-    if tag == _T_LIST:
-        return [deserialize(s) for _ in range(read_u64(s))]
-    if tag == _T_TUPLE:
-        return tuple(deserialize(s) for _ in range(read_u64(s)))
-    if tag == _T_DICT:
-        n = read_u64(s)
-        out = {}
-        for _ in range(n):
-            k = deserialize(s)
-            out[k] = deserialize(s)
-        return out
-    if tag == _T_NDARRAY:
-        return read_ndarray(s)
-    raise DMLCError(f"deserialize: bad tag {tag}")
+    out = np.empty(shape, dtype=dtype)
+    view = memoryview(out.reshape(-1).view(np.uint8))
+    got = 0
+    while got < len(view):
+        n = s.readinto(view[got:])
+        if not n:
+            raise DMLCError(f"Stream: unexpected EOF (wanted {len(view)}, "
+                            f"got {got})")
+        got += n
+    return out

@@ -111,6 +111,50 @@ def test_bad_page_magic_and_truncation_raise():
         RowBlockContainer.load_block(MemoryStream(page[:-3]))
 
 
+NDARRAYS = {
+    "u32": np.arange(7, dtype=np.uint32),
+    "f64_2d": np.random.RandomState(8).randn(3, 5),
+    "scalar": np.array(2.5, dtype=np.float32),
+    "empty": np.zeros((0, 4), dtype=np.int64),
+    "bool": np.array([True, False, True]),
+    "big_endian": np.arange(6, dtype=">i4").reshape(2, 3),
+}
+
+
+@pytest.mark.parametrize("via", ["memory", "file"])
+@pytest.mark.parametrize("name", sorted(NDARRAYS))
+def test_read_ndarray_matches_reference(tmp_path, name, via):
+    """``read_ndarray`` reads into the array it returns (one copy, where
+    the reference copies out of ``bytes``): the same bytes on the wire,
+    the same dtype, shape and values back, an array owning its memory,
+    from a memory stream and from a file."""
+    from dmlc_tpu.utils import serializer as ref_ser
+    from dmlc_tpu_torch.utils import serializer as ser
+    a = NDARRAYS[name]
+    s, rs = MemoryStream(), RefMemoryStream()
+    ser.write_ndarray(s, a)
+    ser.write_ndarray(s, a)
+    ref_ser.write_ndarray(rs, a)
+    ref_ser.write_ndarray(rs, a)
+    raw = s.getvalue()
+    assert raw == rs.getvalue()
+    if via == "file":
+        p = tmp_path / "a.bin"
+        p.write_bytes(raw)
+        src = create_stream(str(p), "r")
+    else:
+        src = MemoryStream(raw)
+    want = ref_ser.read_ndarray(RefMemoryStream(raw))
+    for _ in range(2):
+        got = ser.read_ndarray(src)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+        assert got.flags.owndata and got.flags.writeable
+    src.close()
+    with pytest.raises(DMLCError, match="unexpected EOF"):
+        ser.read_ndarray(MemoryStream(raw[:len(raw) // 2 - 1]))
+
+
 # ------------------------------------------------------------ DiskRowIter
 
 def _write_libsvm(path, seed, rows):
