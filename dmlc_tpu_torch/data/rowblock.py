@@ -406,8 +406,7 @@ class RowBlockContainer:
     @staticmethod
     def load_block(stream: Stream) -> Optional[RowBlock]:
         """Load one page; None at clean EOF. Every array is owned
-        (``read_ndarray`` reads into a new array): none aliases the
-        stream's buffer."""
+        (``read_ndarray`` copies): none aliases the stream's buffer."""
         head = stream.read(4)
         if len(head) == 0:
             return None

@@ -103,13 +103,6 @@ class MemoryStream(SeekStream):
         self._pos += len(b)
         return b
 
-    def readinto(self, b) -> int:
-        n = min(len(b), len(self._buf) - self._pos)
-        with memoryview(self._buf) as src, memoryview(b) as dst:
-            dst[:n] = src[self._pos:self._pos + n]
-        self._pos += n
-        return n
-
     def write(self, data) -> int:
         n = len(data)
         end = self._pos + n

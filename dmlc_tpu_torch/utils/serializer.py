@@ -3,9 +3,7 @@
 Copy of ``dmlc_tpu/utils/serializer.py`` with its imports rewritten to
 ``dmlc_tpu_torch``. The typed helpers carry the RowBlock page and
 round-spill formats, so a file written by either package reads in the
-other. ``read_ndarray`` reads the payload straight into the array it
-returns (``Stream.readinto``), where the reference reads ``bytes`` and
-copies them out: the same array in one copy, not two.
+other.
 
 Trimmed from the reference: the tagged ``serialize``/``deserialize``
 pair, which has no caller in the port yet (checkpoints, ROADMAP A9,
@@ -96,19 +94,9 @@ def write_ndarray(s: Stream, a: np.ndarray) -> None:
 
 
 def read_ndarray(s: Stream) -> np.ndarray:
-    """The array ``write_ndarray`` wrote, in a buffer of its own: it
-    aliases nothing of the stream's, so a reader that reuses a buffer
-    may hand it on."""
     dtype = np.dtype(read_str(s))
     ndim = read_u8(s)
     shape = tuple(read_u64(s) for _ in range(ndim))
-    out = np.empty(shape, dtype=dtype)
-    view = memoryview(out.reshape(-1).view(np.uint8))
-    got = 0
-    while got < len(view):
-        n = s.readinto(view[got:])
-        if not n:
-            raise DMLCError(f"Stream: unexpected EOF (wanted {len(view)}, "
-                            f"got {got})")
-        got += n
-    return out
+    count = int(np.prod(shape)) if ndim else 1
+    raw = s.read_exact(dtype.itemsize * count)
+    return np.frombuffer(raw, dtype=dtype, count=count).reshape(shape).copy()

@@ -124,10 +124,10 @@ NDARRAYS = {
 @pytest.mark.parametrize("via", ["memory", "file"])
 @pytest.mark.parametrize("name", sorted(NDARRAYS))
 def test_read_ndarray_matches_reference(tmp_path, name, via):
-    """``read_ndarray`` reads into the array it returns (one copy, where
-    the reference copies out of ``bytes``): the same bytes on the wire,
-    the same dtype, shape and values back, an array owning its memory,
-    from a memory stream and from a file."""
+    """The serializer's arrays against the reference's: the same bytes on
+    the wire, the same dtype, shape and values back (0-d, empty, bool and
+    big-endian inputs too), each array owning its memory, from a memory
+    stream and from a file; a short stream raises."""
     from dmlc_tpu.utils import serializer as ref_ser
     from dmlc_tpu_torch.utils import serializer as ser
     a = NDARRAYS[name]
