@@ -49,7 +49,11 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    path prints
    its pipeline's stats snapshot, and every path's epochs run through
    its ``Pipeline``; one step on the first batch is traced: its launches
-   and device µs by kernel;
+   and device µs by kernel; then the transfer probe
+   (``dmlc_tpu_torch.bench_transfer.probe``, 3 interleaved rounds at 64
+   MB a cell: the port's put, a pinned staging slot and a copy stream,
+   at 1-8 MB chunks, on 2 and 4 threads, in one 64 MB put, beside a host
+   memcpy), its JSON on a line;
 5. parity: native padded batches byte-identical to the Python parser's
    ``pad_single``; 3 steps on the card allclose to 3 steps of the plain
    CPU path;
@@ -73,6 +77,10 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    fall, each of the model's kernels launch once a step); libfm padded
    batches byte-identical to ``pad_single``; 3 steps of each model with
    the kernels allclose to 3 through the plain versions on the card;
+   ``SparseFFMModel(10^6, 39, K=4)`` (628 MB of V) saved by
+   ``ShardedCheckpoint`` and restored into a fresh model on the card bit
+   for bit, one step on the first libfm batch on each agreeing (K6, K8
+   and K9 launching), save and restore GB/s printed;
 7. the ranking path: a seeded libsvm-with-qid file of about 128 MB shaped
    like MSLR-WEB30K (136 features a row, graded labels 0-4, queries of
    1-240 documents); K7 (``pair_sums``/``pair_sums_grad``) against its
@@ -126,23 +134,31 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    replay epochs >= 3); every epoch's batches hash equal to epoch 1's,
    K1 and K2 launch once a part a step and K8's two launches and K9 once
    a step in every epoch, the loss falls, the page file is there while
-   the store lives and gone after ``close()``, and the serve thread's
-   work of a page epoch is timed pass by pass over the page file (read;
-   read and decode; and pad+stack; and the copy through pinned slots to
-   the card); then three
+   the store lives and gone after ``close()``, each page epoch's serve
+   thread work printed in wall and thread CPU seconds, and the serve
+   thread's work of a page epoch timed pass by pass over the page file
+   (read; read and decode; and pad+stack; and the pad+stack into pinned
+   slots with the copy to the card), 5 rounds interleaved, each led by
+   the host memcpy gauge; then three
    epochs of ``SparseLinearModel(10^6).train_step`` through
    ``parse(engine="native").cache(memory_budget_bytes=0).batch(8192,
    pad=True, nnz_bucket=368640).to_device(cuda)``: every epoch served by
    pages, its batches hashing equal to the same chain's without the
    cache, K1, K2, K8 and K9 once a step, the loss falling; each epoch's
    GB/s and steps/s printed beside the memory-replay epoch and the main
-   path of the run;
-10. right after those, configs 8 (``page_replay``) and 10
-   (``spill_replay``) of ``dmlc_tpu_torch.bench_suite`` at 256 MB over
-   the linear corpus (linked to the name the suite reads, so it writes
-   no corpus of its own), each JSON on a line, their own parity asserts
-   holding (the replayed content hash against a direct parse; page
-   replay epochs >= 3).
+   path of the run; then the checkpoint path: ``SparseLinearModel(10^6)``
+   trains one epoch, is saved by ``ShardedCheckpoint`` and by
+   ``save_pytree`` and restored by each into a fresh model on the card
+   bit for bit, and 3 steps on each restored model match 3 on the model
+   never interrupted (K1, K2, K8 and K9 launching);
+10. last, after every traced phase, configs 4 (``prefetch``), 7
+   (``multiprocess``: two worker processes over a gloo group, each a
+   mesh of 2 parts on this card), 8 (``page_replay``) and 10 (``spill_replay``, both with
+   the memcpy gauge before each epoch) of ``dmlc_tpu_torch.bench_suite``
+   at 256 MB over the linear corpus (linked to the name the suite reads,
+   so it writes no corpus of its own), each JSON on a line, their own
+   checks holding (content hashes against a direct parse; page replay
+   epochs >= 3; config 7's epochs 2-3 replayed).
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -3568,13 +3584,23 @@ def spill_path(path, size, lr, mesh, work, sharded):
     for i, e in enumerate(epochs):
         log(f"  spill epoch {i + 1} ({e['tier']}) serve: "
             f"{json.dumps(e['serve'])}")
+    for i, e in enumerate(epochs):
+        if e["tier"] == "pages":
+            log(f"spill page epoch {i + 1}: {e['secs']:.4f} s with its "
+                f"steps; the serve thread's work {e['serve']['work_s']:.4f}"
+                f" s of wall, {e['serve']['work_cpu_s']:.4f} s of its CPU, "
+                f"blocked on a full queue "
+                f"{e['serve']['producer_block_s']:.4f} s")
+    fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)  # noqa: E731
     log(f"spill serve thread's work of a page epoch, by pass over the "
-        f"page file with no step: read {split['read_s']:.4f} s, read and "
-        f"decode {split['read_decode_s']:.4f} s, read, decode and "
-        f"pad+stack {split['read_decode_stack_s']:.4f} s, all that and "
-        f"the copy through pinned slots to the card "
-        f"{split['read_decode_stack_copy_s']:.4f} s; the last page epoch "
-        f"{epochs[-1]['secs']:.4f} s with its steps")
+        f"page file with no step, {SERVE_SPLIT_ROUNDS} rounds interleaved "
+        f"(memcpy gauge {fmt(split['gauges'])} GB/s): read "
+        f"{fmt(split['read_s'])} s; read and decode "
+        f"{fmt(split['read_decode_s'])} s; read, decode and pad+stack "
+        f"{fmt(split['read_decode_stack_s'])} s; read, decode and the "
+        f"pad+stack into pinned slots and the copy to the card "
+        f"{fmt(split['read_decode_stack_copy_s'])} s (its thread CPU "
+        f"{fmt(split['read_decode_stack_copy_cpu_s'])} s)")
     return {"steps": steps, "tiers": tiers, "epoch_s":
             [e["secs"] for e in epochs],
             "parse_to_device_gbps_training": gbps, "steps_per_s": sps,
@@ -3582,46 +3608,69 @@ def spill_path(path, size, lr, mesh, work, sharded):
             "serve": [e["serve"] for e in epochs], "serve_split": split}
 
 
+SERVE_SPLIT_ROUNDS = 5
+SERVE_PASSES = ("read_s", "read_decode_s", "read_decode_stack_s",
+                "read_decode_stack_copy_s")
+
+
 def page_serve_split(spill, rounds, mesh):
     """The serve thread's work in a page epoch, pass by pass over the
     spill file (warm in the host's page cache), on this thread with no
     step between batches: the file's read alone; the read and decode
     (``RoundSpillFile.iter_rows``); both with the pad+stack
-    (``stack_padded_rows``); and all of that with the copy into pinned
-    slots and to the card (``make_global_batch`` on a copy stream, each
-    batch waited on as the consumer does, as ``_prefetch_serve`` runs
-    it). Seconds a pass."""
+    (``stack_padded_rows``); and all of that as the serve thread stages
+    a round (``stage_round``: the pad+stack straight into a pinned slot,
+    then ``make_global_batch(staged=True)`` on a copy stream, each batch
+    waited on as the consumer does). The four passes run
+    SERVE_SPLIT_ROUNDS times, interleaved (one of each a round), each
+    round led by ``bench_transfer.memcpy_gauge`` (the host's memcpy
+    GB/s then). Seconds a pass, a list a pass; the last pass's thread
+    CPU seconds too."""
     import torch
+    from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     from dmlc_tpu_torch.data.row_iter import RoundSpillFile
     from dmlc_tpu_torch.parallel.device_iter import HostStaging, wait_copy
     from dmlc_tpu_torch.parallel.sharded import make_global_batch, \
-        stack_padded_rows
+        stack_padded_rows, stage_round
     buf = bytearray(1 << 20)
-    t0 = time.perf_counter()
-    with open(spill, "rb", buffering=0) as f:
-        while f.readinto(buf):
-            pass
-    out = {"read_s": time.perf_counter() - t0}
     pages = RoundSpillFile(spill, SHARD_PARTS, rounds)
-    t0 = time.perf_counter()
-    for _row in pages.iter_rows():
-        pass
-    out["read_decode_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for row in pages.iter_rows():
-        stack_padded_rows(row, ROW_BUCKET, NNZ_BUCKET, False, False)
-    out["read_decode_stack_s"] = time.perf_counter() - t0
     on_cuda = mesh.device.type == "cuda"
     pool = HostStaging(3, pin=on_cuda, alias_unsafe=not on_cuda)
     stream = torch.cuda.Stream(mesh.device) if on_cuda else None
-    t0 = time.perf_counter()
-    for row in pages.iter_rows():
-        wait_copy(make_global_batch(
-            stack_padded_rows(row, ROW_BUCKET, NNZ_BUCKET, False, False),
-            mesh, staging=pool, copy_stream=stream), mesh.device)
-    if on_cuda:
-        torch.cuda.synchronize(mesh.device)
-    out["read_decode_stack_copy_s"] = time.perf_counter() - t0
+
+    def read():
+        with open(spill, "rb", buffering=0) as f:
+            while f.readinto(buf):
+                pass
+
+    def decode():
+        for _row in pages.iter_rows():
+            pass
+
+    def stack():
+        for row in pages.iter_rows():
+            stack_padded_rows(row, ROW_BUCKET, NNZ_BUCKET, False, False)
+
+    def stage():
+        for row in pages.iter_rows():
+            slot = stage_round(row, ROW_BUCKET, NNZ_BUCKET, False, False,
+                               pool)
+            wait_copy(make_global_batch(slot, mesh, staging=pool,
+                                        copy_stream=stream, staged=True),
+                      mesh.device)
+        if on_cuda:
+            torch.cuda.synchronize(mesh.device)
+
+    passes = dict(zip(SERVE_PASSES, (read, decode, stack, stage)))
+    out = {k: [] for k in SERVE_PASSES}
+    out["gauges"], out["read_decode_stack_copy_cpu_s"] = [], []
+    for _ in range(SERVE_SPLIT_ROUNDS):
+        out["gauges"].append(memcpy_gauge())
+        for name, fn in passes.items():
+            t0, c0 = time.perf_counter(), time.thread_time()
+            fn()
+            out[name].append(time.perf_counter() - t0)
+        out["read_decode_stack_copy_cpu_s"].append(time.thread_time() - c0)
     return out
 
 
@@ -3707,29 +3756,235 @@ def cache_path(path, size, lr, single):
 
 
 def bench_twins(path, work):
-    """Configs 8 and 10 of the port's bench suite at 256 MB on the card,
-    over the linear corpus ``path``, linked to the name the suite reads
-    (so it writes no corpus of its own); their own parity asserts
-    (content hash against a direct parse of that corpus; page replay
-    epochs) must hold. Each JSON is printed as a line. The suite's files
-    are removed after."""
-    from dmlc_tpu_torch.bench_suite import bench_page_replay, \
-        bench_spill_replay
+    """Configs 4 (``prefetch``), 7 (``multiprocess``), 8 (``page_replay``)
+    and 10 (``spill_replay``) of the port's bench suite at 256 MB on the
+    card, over the linear corpus ``path``, linked to the name the suite
+    reads (so it writes no corpus of its own); 8 and 10 tag their epochs
+    with ``bench_transfer.memcpy_gauge``. Their own checks must hold
+    (config 4's content hash against a direct parse, config 7's two
+    ranks agreeing on their batches, 8's replay hash, 10's page replay
+    epochs) and 4's and 10's hashes and rounds stand beside the corpus.
+    Config 7 runs two worker processes over a gloo group, each a Mesh of
+    2 parts on this card (NCCL refuses two ranks on one card). Each JSON
+    is printed as a line. The suite's files are removed after."""
+    from dmlc_tpu_torch.bench_suite import (
+        bench_multiprocess_ingest, bench_page_replay, bench_prefetch,
+        bench_spill_replay,
+    )
+    from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     prefix = "dmlc_tpu_torch_bench_suite."
     os.link(path, os.path.join(work, prefix + "criteo.libsvm"))
+    configs = (("prefetch", lambda: bench_prefetch(256, work=work)),
+               ("multiprocess",
+                lambda: bench_multiprocess_ingest(256, work=work)),
+               ("page_replay", lambda: bench_page_replay(
+                   256, gauge_fn=memcpy_gauge, work=work)),
+               ("spill_replay", lambda: bench_spill_replay(
+                   256, gauge_fn=memcpy_gauge, work=work)))
     out = {}
     try:
-        for name, fn in (("page_replay", bench_page_replay),
-                         ("spill_replay", bench_spill_replay)):
+        for name, fn in configs:
             t0 = time.perf_counter()
-            out[name] = fn(256, work=work)
+            out[name] = fn()
             log(f"bench config {name} ({time.perf_counter() - t0:.1f} s):")
             log(json.dumps(out[name]))
     finally:
         for n in os.listdir(work):
             if n.startswith(prefix):
                 os.unlink(os.path.join(work, n))
+    require(out["prefetch"]["to_device"] and out["prefetch"]["hosts"] == 4,
+            f"config 4: {out['prefetch']}")
+    require(out["multiprocess"]["replay_epochs"] == 2,
+            f"config 7: epochs 2-3 were not replayed: {out['multiprocess']}")
+    for name in ("page_replay", "spill_replay"):
+        require(out[name]["epoch_gauges"] is not None
+                and out[name]["platform"] == "gpu",
+                f"config {name}: no gauges or not on the card: {out[name]}")
     return out
+
+
+def transfer_probe():
+    """A8's probe on the card, 3 interleaved rounds at 64 MB a cell: the
+    port's put (a pinned HostStaging slot, a copy stream, an event) one
+    stream at chunks of 1-8 MB, 2 and 4 streams at once, one 64 MB put,
+    the process's CPU share and a stream beside a host memcpy; the
+    table (with each single-stream cell's pageable rate) and the JSON
+    line printed."""
+    import torch
+    from dmlc_tpu_torch.bench_transfer import probe
+    t0 = time.perf_counter()
+    rec = probe(torch.device("cuda"), reps=3, mb=64)
+    require(all(v > 0 for v in rec["cells"].values()),
+            f"transfer probe: a cell without a rate: {rec}")
+    log(f"transfer probe ({time.perf_counter() - t0:.1f} s):")
+    log(json.dumps(rec))
+    return rec
+
+
+def _same_state(name, got, want):
+    """Each tensor of ``got`` equals ``want``'s bit for bit."""
+    import torch
+    for k, w in want.items():
+        g = got[k]
+        require(g.shape == w.shape and g.dtype == w.dtype
+                and torch.equal(g, w),
+                f"checkpoint: {name}: {k} restored differs from the saved")
+
+
+def checkpoint_path(path, lr, work):
+    """A9 on the card, linear: ``SparseLinearModel(10^6)`` trains one
+    epoch of the linear corpus (the main path's Pipeline), is saved by
+    ``ShardedCheckpoint.save`` and by ``save_pytree``, and restored by
+    each into a fresh model on the card (``restore(like=...)`` /
+    ``load_pytree(like=...)``, then ``load_state_dict``): bit for bit the
+    saved state. Then the same 3 batches take 3 steps on the model never
+    interrupted and on each restored one; they agree within the step
+    tolerance (K2's atomics). K1, K2, K8 and K9 must launch in the
+    epoch and the resume steps."""
+    import torch
+    from dmlc_tpu_torch.io.checkpoint import (
+        ShardedCheckpoint, load_pytree, save_pytree,
+    )
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    cuda = torch.device("cuda")
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["linear"]}
+    for fn in wrappers.values():
+        fn.launches = 0
+    built = build_pipeline(path)
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    secs, losses, steps, _ = train_epoch(built, model, train=True)
+    it = iter(built)
+    resume = [next(it) for _ in range(3)]
+    it.close()
+    built.close()
+    root = os.path.join(work, "ckpt")
+    ck = ShardedCheckpoint(root)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(steps, model.state_dict(), metadata={"epoch": 1})
+    save_s = time.perf_counter() - t0
+    pytree = os.path.join(work, "linear.pytree")
+    save_pytree(model.state_dict(), pytree)
+    restored = {}
+    for name in ("sharded", "pytree"):
+        fresh = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                  device=cuda)
+        t0 = time.perf_counter()
+        if name == "sharded":
+            state, user = ck.restore(like=fresh.state_dict())
+            require(ck.latest_step() == steps and user == {"epoch": 1},
+                    f"checkpoint: latest step {ck.latest_step()}, user "
+                    f"{user}")
+        else:
+            state = load_pytree(pytree, like=fresh.state_dict())
+        fresh.load_state_dict(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(all(v.device.type == "cuda" for v in state.values()),
+                f"checkpoint: {name} restored leaves off the card")
+        _same_state(name, fresh.state_dict(), model.state_dict())
+        restored[name] = (fresh, restore_s)
+    runs = {"uninterrupted": model}
+    runs.update({k: m for k, (m, _) in restored.items()})
+    after = {}
+    for name, m in runs.items():
+        ls = [m.train_step(b) for b in resume]
+        after[name] = (torch.stack(ls).cpu(), m.w.detach().cpu(),
+                       m.b.detach().cpu())
+    base = after["uninterrupted"]
+    for name in restored:
+        for label, a, b in zip(("losses", "w", "b"), after[name], base):
+            require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                    f"checkpoint: 3 steps after the {name} restore vs the "
+                    f"uninterrupted model: {label} max |err| "
+                    f"{(a - b).abs().max().item()}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    require(all(launches[k] >= steps + 9 for k in PATH_KERNELS["linear"]),
+            f"checkpoint: launches {launches}, want each of "
+            f"{PATH_KERNELS['linear']} at least {steps} + 9")
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in model.state_dict().values())
+    log(f"checkpoint path: SparseLinearModel(10^6) trained {steps} steps "
+        f"(loss {losses[0]:.4f} -> {losses[-1]:.4f}), saved at step "
+        f"{steps} ({nbytes} bytes) in {save_s:.4f} s "
+        f"({nbytes / save_s / 1e9:.3f} GB/s); restored bit for bit by "
+        f"ShardedCheckpoint in {restored['sharded'][1]:.4f} s "
+        f"({ck.last_restore_bytes_read} bytes read) and by load_pytree in "
+        f"{restored['pytree'][1]:.4f} s; 3 steps after each restore match "
+        f"the uninterrupted model's (losses "
+        f"{[round(float(x), 6) for x in base[0]]}, rtol {STEP_RTOL}, atol "
+        f"{STEP_ATOL}); launches {launches}")
+    shutil.rmtree(root)
+    os.unlink(pytree)
+    return {"steps": steps, "bytes": nbytes, "save_s": save_s,
+            "restore_s": restored["sharded"][1],
+            "pytree_restore_s": restored["pytree"][1],
+            "launches": launches}
+
+
+def checkpoint_ffm(path, lr, work):
+    """A9 on the card, FFM: ``SparseFFMModel(10^6, 39, K=4)`` (628 MB of
+    V) saved by ``ShardedCheckpoint`` and restored into a fresh model on
+    the card, bit for bit; one step on the first libfm batch, on the
+    saved model and on the restored one, agrees within the step
+    tolerance (K6 forward and backward, K8 and K9 launch in it). Save
+    and restore GB/s are printed, restore's over
+    ``last_restore_bytes_read``."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["ffm"]}
+    for fn in wrappers.values():
+        fn.launches = 0
+    batch = first_batch(path, "libfm")
+    cuda = torch.device("cuda")
+    batch = {k: torch.from_numpy(np.asarray(v)).to(cuda)
+             for k, v in batch.items()}
+    model = make_factor_model("ffm", lr)
+    root = os.path.join(work, "ckpt_ffm")
+    ck = ShardedCheckpoint(root)
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in model.state_dict().values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(1, model.state_dict())
+    save_s = time.perf_counter() - t0
+    fresh = make_factor_model("ffm", lr)
+    with torch.no_grad():
+        fresh.V.zero_()
+    t0 = time.perf_counter()
+    state, _ = ck.restore(like=fresh.state_dict())
+    fresh.load_state_dict(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del state
+    _same_state("ffm", fresh.state_dict(), model.state_dict())
+    out = {}
+    for name, m in (("saved", model), ("restored", fresh)):
+        loss = m.train_step(batch)
+        out[name] = (loss.reshape(1).cpu(), m.V.detach()[:4096].cpu(),
+                     m.w.detach().cpu())
+    for label, a, b in zip(("loss", "V", "w"), out["restored"],
+                           out["saved"]):
+        require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                f"checkpoint: the FFM step after the restore: {label} max "
+                f"|err| {(a - b).abs().max().item()}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    require(all(launches[k] >= 2 for k in ("ffm_pair_fwd", "ffm_pair_bwd",
+                                           "logistic_step", "sgd_update")),
+            f"checkpoint: FFM resume step launches {launches}")
+    read = ck.last_restore_bytes_read
+    log(f"checkpoint FFM: SparseFFMModel(10^6, 39, K=4), {nbytes} bytes of "
+        f"parameters: save {save_s:.4f} s ({nbytes / save_s / 1e9:.3f} "
+        f"GB/s), restore to the card {restore_s:.4f} s ({read} bytes read, "
+        f"{read / restore_s / 1e9:.3f} GB/s), bit for bit; one step on each "
+        f"agrees (loss {float(out['saved'][0][0]):.6f}); launches "
+        f"{launches}")
+    shutil.rmtree(root)
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "restore_bytes_read": read, "launches": launches}
 
 
 # --------------------------------------------------------------- main
@@ -3767,6 +4022,7 @@ def main() -> None:
         stats["h2d_gbps"] = h2d_gbps(first)
         log(f"H2D from pinned slots: {stats['h2d_gbps']:.2f} GB/s "
             f"({stats['h2d_bytes_per_batch']} bytes per batch)")
+        stats["transfer"] = transfer_probe()
         parity(path, LEARNING_RATE)
         mesh = init_nccl()
         stats["sharded"] = sharded_path(path, size, LEARNING_RATE, mesh,
@@ -3776,8 +4032,8 @@ def main() -> None:
         stats["spill"] = spill_path(path, size, LEARNING_RATE, mesh, work,
                                     stats["sharded"])
         stats["cache"] = cache_path(path, size, LEARNING_RATE, stats)
-        stats["bench"] = bench_twins(path, work)
-        os.unlink(path)
+        stats["checkpoint"] = checkpoint_path(path, LEARNING_RATE, work)
+        linear = path
 
         # the factor models' path: libfm → FM and FFM
         path = os.path.join(work, "criteo_shaped.libfm")
@@ -3793,6 +4049,7 @@ def main() -> None:
                             if r["name"] in PATH_KERNELS[kind]],
                            launches, stats[kind]["steps"])
         libfm_parity(path, LEARNING_RATE)
+        stats["checkpoint_ffm"] = checkpoint_ffm(path, LEARNING_RATE, work)
         sharded_parity(path, "libfm", ("fm", "ffm"), mesh, LEARNING_RATE)
         rows += factor_rows
         os.unlink(path)
@@ -3813,6 +4070,12 @@ def main() -> None:
                        RANK_LEARNING_RATE)
         rows += rank_rows
         sharded_dryrun(mesh)
+        # the bench configs last, after every traced phase: in a run with
+        # them before the factor path (config 7's two worker processes on
+        # the card among them), the factor kernels' profiler traces came
+        # back with no device activity
+        stats["bench"] = bench_twins(linear, work)
+        os.unlink(linear)
         from dmlc_tpu_torch.parallel.launch import finalize
         finalize()
     finally:

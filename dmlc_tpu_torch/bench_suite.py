@@ -1,10 +1,17 @@
-"""The page-tier configs of the benchmark suite, on the port.
+"""The ported configs of the benchmark suite.
 
 Counterpart of ``dmlc_tpu/bench_suite.py``, holding only the configs
 whose planes are ported; each emits one JSON line with the reference's
 keys, ``"platform"`` naming the device the numbers came from (``gpu``
-on the card):
+on the card) where the reference reports one:
 
+  4. prefetch — four parts parsed on concurrent threads, each copying
+               its blocks to the device through its own pinned staging
+               pool, 4 copies in flight a part (the multi-host shape)
+  7. multiprocess — a real 2-process gang (``launch_local``) streaming
+               its parts through ShardedRowBlockIter for 3 epochs
+               (``bench_mp_worker.py``): epoch 1 parses, epochs 2-3
+               replay the retained rounds
   8. page_replay — binary page cache replay → device memory, parse
                skipped (DiskRowIter pages; the repeated-epoch shape)
  10. spill_replay — page-SPILL steady replay: ShardedRowBlockIter
@@ -12,18 +19,21 @@ on the card):
                epochs served from the spilled round pages (the
                larger-than-RAM training shape)
 
-Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB]
+Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB]. Every
+config copies to the card (config 4 as the reference's ``--device``
+run does; its parse-only form is not ported).
 
-Trimmed from the reference: every other config (4 and 7 wait for the
-transfer probe, ROADMAP A8; the rest for planes not ported), the warm-up
-pass, ``--trace`` and ``--chaos``. Data files go under
-``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a config is given a
-``work`` directory. Configs 8 and 10 read one corpus file, the
+Trimmed from the reference: every other config (their planes are not
+ported), the warm-up pass, ``--trace`` and ``--chaos``. Data files go
+under ``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a config is
+given a ``work`` directory. Every config reads one corpus file, the
 reference's criteo shape from seed 7 (the file its configs 4, 9 and 12
-share; it writes the same bytes under two more names for 8 and 10):
+share; it writes the same bytes under more names for 7, 8 and 10):
 ``make_libsvm`` draws each row's indices by a permutation of 10^6, so
 writing it takes minutes whatever ``mb`` is, and a second copy would
-double that.
+double that. Configs 8 and 10 take the reference's ``gauge_fn`` (e.g.
+``bench_transfer.memcpy_gauge``), which tags each epoch with the
+host's memcpy rate just before it.
 """
 
 from __future__ import annotations
@@ -39,8 +49,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-__all__ = ["make_libsvm", "bench_page_replay", "bench_spill_replay",
-           "CONFIGS", "main"]
+__all__ = ["make_libsvm", "bench_prefetch", "bench_multiprocess_ingest",
+           "bench_page_replay", "bench_spill_replay", "CONFIGS", "main"]
 
 
 def _prefix(work: Optional[str]) -> str:
@@ -102,7 +112,7 @@ def make_libsvm(path: str, mb: int, seed: int = 0,
 
 
 def _criteo(prefix: str, mb: int) -> str:
-    """The criteo-shaped corpus of configs 8 and 10 (written once)."""
+    """The criteo-shaped corpus of every config (written once)."""
     path = f"{prefix}.criteo.libsvm"
     make_libsvm(path, mb, seed=7, nnz_range=(25, 45), index_space=10 ** 6,
                 real_values=True)
@@ -127,8 +137,149 @@ def _done(put) -> None:
         put[1].synchronize()
 
 
+PREFETCH_IN_FLIGHT = 4  # device copies in flight a part (config 4)
+
+
+def bench_prefetch(mb: int, device=None,
+                   work: Optional[str] = None) -> Dict:
+    """Multi-host shape: every part parsed with the prefetch pipeline
+    (one process enumerates all part_index values). Parts run on
+    CONCURRENT threads — the engine's calls release the GIL, so a
+    multi-core host overlaps the per-part pipelines the way real hosts
+    would. Each part copies each block's offset, index and value to
+    ``device`` (``cuda`` unless the caller asks; the reference's
+    ``--device`` run) through its own pinned HostStaging pool and copy
+    stream, at most ``PREFETCH_IN_FLIGHT`` copies in flight: a block's
+    arrays are copied into a slot before the parser's next call, so no
+    copy reads an arena the parser reuses."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.parallel.device_iter import (
+        HostStaging, copy_to_device,
+    )
+
+    path = _criteo(_prefix(work), mb)
+    size = os.path.getsize(path)
+    nhosts = 4
+    dev = torch.device("cuda" if device is None else device)
+    on_cuda = dev.type == "cuda"
+
+    # split cores between concurrent parts; a 1-core host degenerates to
+    # serial parts (threading 8 pipelines onto 1 core only adds churn)
+    ncores = os.cpu_count() or 1
+    part_workers = min(nhosts, max(1, ncores // 2))
+    nthreads = max(1, ncores // part_workers)
+
+    def run_part(k: int) -> int:
+        rows = 0
+        in_flight: List = []
+        pool = HostStaging(PREFETCH_IN_FLIGHT + 1, pin=on_cuda,
+                           alias_unsafe=not on_cuda)
+        stream = torch.cuda.Stream(dev) if on_cuda else None
+        p = Parser.create(path, k, nhosts, format="libsvm",
+                          chunk_size=32 << 20, nthreads=nthreads)
+        try:
+            while p.next():
+                b = p.value()
+                rows += b.size
+                slot = pool.stage({"offset": b.offset, "index": b.index,
+                                   "value": b.value})
+                out = copy_to_device(slot, dev, stream)
+                pool.release(slot, out.event)
+                in_flight.append(out)
+                if len(in_flight) > PREFETCH_IN_FLIGHT:
+                    _landed(in_flight.pop(0))
+            for out in in_flight:
+                _landed(out)
+        finally:
+            if hasattr(p, "destroy"):
+                p.destroy()
+        return rows
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=part_workers) as pool_:
+        results = list(pool_.map(run_part, range(nhosts)))
+    dt = time.perf_counter() - t0
+    return {"config": "prefetch_criteo_multihost",
+            "gbps": size / dt / 1e9, "bytes": size, "rows": sum(results),
+            "hosts": nhosts, "to_device": True,
+            "hash": _content_hash(path, "libsvm")}
+
+
+def _landed(batch) -> None:
+    if batch.event is not None:
+        batch.event.synchronize()
+
+
+def bench_multiprocess_ingest(mb: int, device=None,
+                              work: Optional[str] = None,
+                              backend: str = "gloo") -> Dict:
+    """REAL 2-process collective ingest throughput: a ``launch_local``
+    gang streams its parts through ShardedRowBlockIter for 3 epochs
+    (``bench_mp_worker.py``), each rank a ``Mesh`` of 2 parts on
+    ``device`` (``cuda`` unless the caller asks), as each of the
+    reference's workers holds 2 host devices. Epoch 1 carries the
+    one-time round-count agreement (one all-gather); epochs 2+ run with
+    no collective, so their cadence is the steady-state number.
+
+    The gang's group is gloo by default: NCCL needs a card a rank and
+    refuses two ranks on one card, so ``backend="nccl"`` raises unless
+    the host has a card for each rank (each rank then takes card
+    ``rank``)."""
+    from dmlc_tpu_torch.parallel.launch import launch_local
+    from dmlc_tpu_torch.utils.logging import DMLCError
+
+    procs = 2
+    dev = torch.device("cuda" if device is None else device)
+    if backend not in ("gloo", "nccl"):
+        raise DMLCError(f"config 7: backend must be gloo or nccl, got "
+                        f"{backend!r}")
+    if backend == "nccl" and (dev.type != "cuda"
+                              or torch.cuda.device_count() < procs):
+        raise DMLCError(
+            f"config 7 over NCCL needs a card a rank: {procs} ranks, "
+            f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} "
+            "card(s); NCCL refuses two ranks on one card (run it over "
+            "gloo)")
+    path = _criteo(_prefix(work), mb)
+    size = os.path.getsize(path)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "bench_mp_worker.py")
+    out_dir = tempfile.mkdtemp(prefix="dmlc_torch_bench_mp_", dir=work)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {"PYTHONPATH": os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}  # empty entries would inject cwd
+    try:
+        launch_local(procs, [sys.executable, worker, path, out_dir,
+                             str(dev), backend], env=env, timeout=900)
+        results = []
+        for rank in range(procs):
+            with open(os.path.join(out_dir, f"bench-mp-{rank}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        import shutil
+        shutil.rmtree(out_dir, ignore_errors=True)
+    assert results[0]["batches"] == results[1]["batches"]
+    walls = np.array([r["epoch_walls"] for r in results])
+    # the gang finishes an epoch together: the slower rank's wall is the
+    # epoch's wall
+    epoch_walls = walls.max(axis=0)
+    steady = float(np.min(epoch_walls[1:]))
+    first = float(epoch_walls[0])
+    return {"config": "multiprocess_ingest", "procs": procs,
+            "gbps": size / steady / 1e9, "bytes": size,
+            "batches_per_epoch": results[0]["batches"],
+            "first_epoch_gbps": round(size / first / 1e9, 4),
+            "steady_over_first": round(first / steady, 2),
+            "replay_epochs": results[0].get("replay_epochs", 0),
+            "replay_tier": results[0].get("replay_tier")}
+
+
 def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
-                      device=None, work: Optional[str] = None) -> Dict:
+                      gauge_fn=None, device=None,
+                      work: Optional[str] = None) -> Dict:
     """Binary page replay → device memory, parse skipped.
 
     The reference's own larger-than-RAM answer to "parse is expensive"
@@ -142,8 +293,9 @@ def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
 
     Reports gbps over PAGE bytes (the IO this path performs) and
     text_equiv_gbps over the text bytes the replay stands in for. Three
-    replay passes are timed. ``epoch_gauges`` is None: the reference's
-    pre-epoch gauge has no caller in the port yet."""
+    replay passes are timed; ``gauge_fn`` (e.g.
+    ``bench_transfer.memcpy_gauge``) tags each with a gauge read just
+    before it (``epoch_gauges``, None without one)."""
     from dmlc_tpu_torch.data.parser import Parser
     from dmlc_tpu_torch.data.row_iter import DiskRowIter
     from dmlc_tpu_torch.data.rowblock import RowBlockContainer
@@ -182,7 +334,12 @@ def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
             _done(put)
         return time.perf_counter() - t0
 
-    walls = [replay_epoch() for _ in range(3)]
+    gauges = []
+    walls = []
+    for _ in range(3):
+        if gauge_fn is not None:
+            gauges.append(round(float(gauge_fn()), 2))
+        walls.append(replay_epoch())
     best = min(walls)
     # parity: replayed pages == direct parse, byte-identical CSR
     c = RowBlockContainer(np.uint32)
@@ -201,12 +358,12 @@ def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
             # rates from the UNROUNDED walls
             "epoch_rates_text_gbps": [round(size / w / 1e9, 4)
                                       for w in walls],
-            "epoch_gauges": None,
+            "epoch_gauges": gauges or None,
             "platform": _platform(dev),
             "hash": replay_hash}
 
 
-def bench_spill_replay(mb: int, replay_epochs: int = 5,
+def bench_spill_replay(mb: int, gauge_fn=None, replay_epochs: int = 5,
                        row_bucket: int = 1 << 14,
                        nnz_bucket: int = 1 << 19, device=None,
                        work: Optional[str] = None) -> Dict:
@@ -218,8 +375,9 @@ def bench_spill_replay(mb: int, replay_epochs: int = 5,
     instead of re-parsing text. Epoch 1 is the parse epoch, epoch 2
     re-parses + spills (the tee), epochs 3+ are page-replay epochs
     reported as best AND sustained (>= 3 epochs). speedup_vs_parse is
-    the best replay epoch over the parse epoch. The gauge keys are None:
-    the reference's pre-epoch gauge has no caller in the port yet.
+    the best replay epoch over the parse epoch. ``gauge_fn`` (e.g.
+    ``bench_transfer.memcpy_gauge``) tags the parse epoch and each
+    replay epoch with a gauge read just before it (None without one).
     The spill file goes under ``work`` when one is given, else under
     the port's page store root."""
     from dmlc_tpu_torch.parallel.sharded import Mesh, ShardedRowBlockIter
@@ -242,10 +400,17 @@ def bench_spill_replay(mb: int, replay_epochs: int = 5,
                 torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
+    parse_gauge = (round(float(gauge_fn()), 2)
+                   if gauge_fn is not None else None)
     parse_wall = epoch()          # parse epoch 1 (no tee: "never")
     spill_wall = epoch()          # re-parse + spill write (the tee)
     assert it.replay_tier == "parse", it.replay_tier
-    replay_walls = [epoch() for _ in range(max(3, replay_epochs))]
+    gauges = []
+    replay_walls = []
+    for _ in range(max(3, replay_epochs)):
+        if gauge_fn is not None:
+            gauges.append(round(float(gauge_fn()), 2))
+        replay_walls.append(epoch())
     assert it.replay_tier == "pages", it.replay_tier
     assert it.page_replay_epochs >= 3, it.page_replay_epochs
     spill_file = it._round_store.file
@@ -261,16 +426,18 @@ def bench_spill_replay(mb: int, replay_epochs: int = 5,
             "replay_sustained_gbps": round(sustained, 4),
             "bytes": size, "page_bytes": page_bytes,
             "parse_epoch_gbps": round(parse_gbps, 4),
-            "parse_epoch_gauge": None,
+            "parse_epoch_gauge": parse_gauge,
             "spill_epoch_gbps": round(size / spill_wall / 1e9, 4),
             "replay_epoch_walls": [round(w, 3) for w in replay_walls],
-            "epoch_gauges": None,
+            "epoch_gauges": gauges or None,
             "speedup_vs_parse": round(best / parse_gbps, 2),
             "rounds": spill_file.rounds,
             "platform": _platform(dev)}
 
 
 CONFIGS = {
+    4: ("prefetch", lambda mb: bench_prefetch(mb)),
+    7: ("multiprocess", lambda mb: bench_multiprocess_ingest(mb)),
     8: ("page_replay", lambda mb: bench_page_replay(mb)),
     10: ("spill_replay", lambda mb: bench_spill_replay(mb)),
 }

@@ -6,7 +6,9 @@ producers that must agree byte for byte (tests pin it):
 - ``pad_single`` / ``pad_to_bucket``: the Python golden — one block →
   one padded dict (``pad_single`` is the fused one-pass form).
 - ``stack_padded_rows``: the fused multi-block pad+stack serving
-  ShardedRowBlockIter's rounds (one ``[L, ...]`` array per key).
+  ShardedRowBlockIter's rounds (one ``[L, ...]`` array per key), into
+  fresh arrays or, with ``out=``, straight into the caller's (a pinned
+  staging slot: ``stack_spec`` gives its shapes and dtypes).
 - the native engine's ABI-5 ``dtp_parser_next_padded``
   (``native/src/engine.cc`` NextPadded), which emits the same layout
   directly from the parse arena so Python never touches row bytes.
@@ -30,7 +32,7 @@ padded nnz carry index 0, value 0.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -38,7 +40,7 @@ from dmlc_tpu_torch.data.rowblock import RowBlock
 from dmlc_tpu_torch.utils.logging import check, check_le
 
 __all__ = ["pad_to_bucket", "ensure_schema", "stack_padded_rows",
-           "pad_single", "PaddedBatch"]
+           "stack_spec", "pad_single", "PaddedBatch"]
 
 
 class PaddedBatch(dict):
@@ -159,9 +161,34 @@ def pad_single(block: RowBlock, row_bucket: int, nnz_bucket: int,
     return out
 
 
+def stack_spec(blocks: List[RowBlock], row_bucket: int, nnz_bucket: int,
+               want_qid: bool = False, want_field: bool = False
+               ) -> Dict[str, Tuple[tuple, np.dtype]]:
+    """``{key: (shape, dtype)}`` of the arrays ``stack_padded_rows``
+    makes for ``blocks``: what a buffer given as its ``out=`` must
+    hold."""
+    L = len(blocks)
+    check(L > 0, "no device batches")
+    rb, nb = row_bucket, nnz_bucket
+    spec = {"offset": ((L, rb + 1), np.dtype(np.int64)),
+            "label": ((L, rb), np.dtype(np.float32)),
+            "weight": ((L, rb), np.dtype(np.float32)),
+            "index": ((L, nb), blocks[0].index.dtype),
+            "value": ((L, nb), np.dtype(np.float32)),
+            "num_rows": ((L,), np.dtype(np.int32)),
+            "num_nnz": ((L,), np.dtype(np.int32))}
+    if want_qid or any(b.qid is not None for b in blocks):
+        spec["qid"] = ((L, rb), np.dtype(np.int64))
+    if want_field or any(b.field is not None for b in blocks):
+        spec["field"] = ((L, nb), np.dtype(np.int64))
+    return spec
+
+
 def stack_padded_rows(blocks: List[RowBlock], row_bucket: int,
                       nnz_bucket: int, want_qid: bool = False,
-                      want_field: bool = False) -> Dict[str, np.ndarray]:
+                      want_field: bool = False,
+                      out: Optional[Dict[str, np.ndarray]] = None
+                      ) -> Dict[str, np.ndarray]:
     """pad_to_bucket + ensure_schema + stack_device_batches fused into
     ONE pass: the stacked [L, ...] arrays are allocated directly and
     each device's slice written in place — no per-device intermediate
@@ -178,13 +205,17 @@ def stack_padded_rows(blocks: List[RowBlock], row_bucket: int,
     otherwise pay a full pad memcpy that writes the same bytes it read.
     RowBlock is immutable by contract and the replay tiers serve blocks
     that are only ever read, so aliasing is safe; blocks still carrying
-    a native-arena lease are excluded (their buffers get recycled)."""
+    a native-arena lease are excluded (their buffers get recycled).
+
+    ``out``: arrays of ``stack_spec``'s keys, shapes and dtypes (numpy
+    views of a pinned staging slot) to write into instead of fresh ones;
+    every element is written, so their old contents do not matter, and
+    the zero-copy path becomes one copy into them. Returns ``out``."""
+    spec = stack_spec(blocks, row_bucket, nnz_bucket, want_qid, want_field)
     L = len(blocks)
-    check(L > 0, "no device batches")
-    has_qid = want_qid or any(b.qid is not None for b in blocks)
-    has_field = want_field or any(b.field is not None for b in blocks)
+    has_qid, has_field = "qid" in spec, "field" in spec
     rb, nb = row_bucket, nnz_bucket
-    if L == 1:
+    if L == 1 and out is None:
         b = blocks[0]
         if (b.size == rb and b.nnz == nb and b.lease is None
                 and b.weight is not None and b.value is not None
@@ -200,19 +231,14 @@ def stack_padded_rows(blocks: List[RowBlock], row_bucket: int,
             if has_field:
                 out["field"] = b.field[None]
             return out
-    out = {
-        "offset": np.empty((L, rb + 1), np.int64),
-        "label": np.empty((L, rb), np.float32),
-        "weight": np.empty((L, rb), np.float32),
-        "index": np.empty((L, nb), blocks[0].index.dtype),
-        "value": np.empty((L, nb), np.float32),
-        "num_rows": np.empty(L, np.int32),
-        "num_nnz": np.empty(L, np.int32),
-    }
-    if has_qid:
-        out["qid"] = np.empty((L, rb), np.int64)
-    if has_field:
-        out["field"] = np.empty((L, nb), np.int64)
+    if out is None:
+        out = {k: np.empty(shape, dtype) for k, (shape, dtype) in spec.items()}
+    else:
+        check(out.keys() == spec.keys()
+              and all(out[k].shape == shape and out[k].dtype == dtype
+                      for k, (shape, dtype) in spec.items()),
+              "stack_padded_rows: out= does not hold the round's "
+              "stack_spec")
     for i, b in enumerate(blocks):
         n, nnz = b.size, b.nnz
         check_le(n, rb, "row bucket too small")

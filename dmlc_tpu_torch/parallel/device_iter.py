@@ -47,20 +47,23 @@ def _device(device) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
-def _torch_dtype(a: np.ndarray) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
 class HostStaging:
     """Reusable host-side staging slots for H2D double-buffering.
 
-    ``stage(arrs)`` copies a dict of arrays into a free slot whose
-    shapes/dtypes match (allocating one when none does) and returns the
-    slot: a dict of CPU tensors, pinned when ``pin`` is set. The caller
-    enqueues the H2D copy from the slot and hands it back with
-    ``release(slot, event)``; the slot is reused once ``event`` (the CUDA
-    event recorded after that copy) has completed. Fixed-shape batches
-    (the padded steady path) reuse the same slots forever.
+    ``acquire(spec)`` hands out a free slot of the shapes and dtypes in
+    ``spec`` (``{key: (shape, numpy dtype)}``), allocating one when none
+    matches: a dict of CPU tensors, pinned when ``pin`` is set, for the
+    caller to fill in place (``parallel.sharded`` pads and stacks a round
+    straight into it). ``stage(arrs)`` is ``acquire`` plus a copy of a
+    dict of arrays into the slot. The caller enqueues the H2D copy from
+    the slot and hands it back with ``release(slot, event)``; the slot is
+    reused once ``event`` (the CUDA event recorded after that copy) has
+    completed, and never handed out before. Fixed-shape batches (the
+    padded steady path) reuse the same slots forever.
 
     ``alias_unsafe`` marks a target that may ALIAS the slot (the CPU):
     there a released slot is NOT reused, since the consumer's tensors
@@ -79,12 +82,12 @@ class HostStaging:
 
     @staticmethod
     def _matches(slot: Dict[str, torch.Tensor],
-                 arrs: Dict[str, np.ndarray]) -> bool:
-        if slot.keys() != arrs.keys():
+                 spec: Dict[str, Tuple[tuple, np.dtype]]) -> bool:
+        if slot.keys() != spec.keys():
             return False
-        return all(tuple(slot[k].shape) == a.shape
-                   and slot[k].dtype == _torch_dtype(a)
-                   for k, a in arrs.items())
+        return all(tuple(slot[k].shape) == tuple(shape)
+                   and slot[k].dtype == _torch_dtype(dtype)
+                   for k, (shape, dtype) in spec.items())
 
     def _reclaim(self, wait: bool) -> None:
         """Move busy slots whose H2D copy has completed to the free list;
@@ -94,27 +97,44 @@ class HostStaging:
         while self._busy and self._busy[0][1].query():
             self._free.append(self._busy.popleft()[0])
 
-    def _take(self, arrs: Dict[str, np.ndarray]):
+    def _take(self, spec: Dict[str, Tuple[tuple, np.dtype]]):
         for i, s in enumerate(self._free):
-            if self._matches(s, arrs):
+            if self._matches(s, spec):
                 return self._free.pop(i)
         return None
+
+    def acquire(self, spec: Dict[str, Tuple[tuple, Any]]
+                ) -> Dict[str, torch.Tensor]:
+        """A free slot of the ``{key: (shape, dtype)}`` in ``spec``: a
+        matching one whose copy has completed, else (every slot
+        allocated and one busy) the oldest copy is waited on first, else
+        a new slot, which takes the place of a free slot of another
+        shape when every slot is allocated. Its contents are stale: the
+        caller overwrites every element, then copies from it and
+        releases it."""
+        self._reclaim(wait=False)
+        slot = self._take(spec)
+        if slot is None and self._busy and self.allocated >= self.slots:
+            self._reclaim(wait=True)
+            slot = self._take(spec)
+        if slot is None:
+            while self._free and self.allocated >= self.slots:
+                # a free slot of another shape: drop it rather than hold
+                # it, so a stream of changing shapes keeps ``slots``
+                self._free.pop(0)
+                self.allocated -= 1
+            slot = {k: torch.empty(tuple(shape), dtype=_torch_dtype(dtype),
+                                   pin_memory=self.pin)
+                    for k, (shape, dtype) in spec.items()}
+            self.allocated += 1
+        return slot
 
     def stage(self, arrs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Copy ``arrs`` into a staging slot; the source arrays are dead
         to this pool after the call."""
         t0 = time.perf_counter()
         arrs = {k: np.asarray(v) for k, v in arrs.items()}
-        self._reclaim(wait=False)
-        slot = self._take(arrs)
-        if slot is None and self._busy and self.allocated >= self.slots:
-            self._reclaim(wait=True)
-            slot = self._take(arrs)
-        if slot is None:
-            slot = {k: torch.empty(a.shape, dtype=_torch_dtype(a),
-                                   pin_memory=self.pin)
-                    for k, a in arrs.items()}
-            self.allocated += 1
+        slot = self.acquire({k: (a.shape, a.dtype) for k, a in arrs.items()})
         for k, a in arrs.items():
             slot[k].copy_(torch.from_numpy(a))
         self.assemble_s += time.perf_counter() - t0

@@ -33,14 +33,15 @@ from __future__ import annotations
 import hashlib
 import itertools
 import os
-from typing import Dict, Iterator, List, Optional, Sequence
+import time
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from dmlc_tpu_torch.data.padding import (  # noqa: F401 — re-exported, as
     # the reference re-exports them from its sharded module
-    ensure_schema, pad_to_bucket, stack_padded_rows,
+    ensure_schema, pad_to_bucket, stack_padded_rows, stack_spec,
 )
 from dmlc_tpu_torch.data.rowblock import RowBlock
 from dmlc_tpu_torch.parallel.device_iter import (
@@ -53,7 +54,7 @@ from dmlc_tpu_torch.utils.logging import (
 __all__ = ["Mesh", "pad_to_bucket", "stack_device_batches",
            "make_global_batch", "make_replicated", "stack_padded_rows",
            "ShardedRowBlockIter", "next_pow2_bucket", "empty_block",
-           "ensure_schema", "collective_device"]
+           "ensure_schema", "collective_device", "stage_round"]
 
 
 class Mesh:
@@ -147,10 +148,10 @@ def stack_device_batches(batches: List[Dict[str, np.ndarray]]
     return {k: np.stack([np.asarray(b[k]) for b in batches]) for k in keys}
 
 
-def make_global_batch(local: Dict[str, np.ndarray], mesh: Mesh,
+def make_global_batch(local: Dict[str, Any], mesh: Mesh,
                       axis: str = "data",
                       staging: Optional[HostStaging] = None,
-                      copy_stream=None) -> DeviceBatch:
+                      copy_stream=None, staged: bool = False) -> DeviceBatch:
     """Local stacked batch ``[L, ...]`` (numpy) → a :class:`DeviceBatch`
     of tensors ``[L, ...]`` on ``mesh.device``, L = this process's parts
     along ``axis``. Dtypes are kept: the index stays u32/u64.
@@ -159,19 +160,26 @@ def make_global_batch(local: Dict[str, np.ndarray], mesh: Mesh,
     HostStaging pool owned by the calling thread) each array is first
     copied into a pinned slot, the slot is released behind the copy's
     event, and a consumer on another thread must call
-    ``device_iter.wait_copy`` on the batch before using it. Without
+    ``device_iter.wait_copy`` on the batch before using it. ``staged``
+    says ``local`` already IS a slot of ``staging``, filled in place
+    (``stage_round``): it is copied to the device as it stands. Without
     staging the batch is ready for the current stream when returned.
     The batch's ``counts`` are the host's (rows, nnz) summed over the
     parts."""
     want = len(mesh.local_parts(axis))
+    check(not staged or staging is not None,
+          "make_global_batch(staged=True) needs the slot's staging pool")
     arrs = {}
     for k, v in local.items():
-        v = np.asarray(v)
+        v = v if staged else np.asarray(v)
         check(v.ndim >= 1 and v.shape[0] == want,
               f"{k}: batch arrays need a leading part dim of {want} (this "
-              f"process's parts along {axis!r}), got shape {v.shape}")
+              f"process's parts along {axis!r}), got shape "
+              f"{tuple(v.shape)}")
         arrs[k] = v
-    if staging is not None:
+    if staged:
+        src = arrs
+    elif staging is not None:
         src = staging.stage(arrs)
     else:
         src = {k: torch.from_numpy(v) for k, v in arrs.items()}
@@ -185,6 +193,21 @@ def make_global_batch(local: Dict[str, np.ndarray], mesh: Mesh,
     out.counts = (int(rows.sum()) if rows is not None else 0,
                   int(nnz.sum()) if nnz is not None else 0)
     return out
+
+
+def stage_round(blocks: List[RowBlock], row_bucket: int, nnz_bucket: int,
+                want_qid: bool, want_field: bool,
+                staging: HostStaging) -> Dict[str, torch.Tensor]:
+    """Pad and stack one round straight into a free slot of ``staging``
+    (``HostStaging.acquire`` of the round's ``stack_spec``): each byte is
+    written once, into the memory the copy to the card reads. The bytes
+    are ``stack_padded_rows``'s. Hand the slot to ``make_global_batch(
+    ..., staging=staging, staged=True)``."""
+    slot = staging.acquire(stack_spec(blocks, row_bucket, nnz_bucket,
+                                      want_qid, want_field))
+    stack_padded_rows(blocks, row_bucket, nnz_bucket, want_qid, want_field,
+                      out={k: t.numpy() for k, t in slot.items()})
+    return slot
 
 
 def make_replicated(tree, mesh: Mesh):
@@ -399,24 +422,23 @@ class ShardedRowBlockIter:
             # copy)
             tee = self._make_tee(fp, owned_rows=True)
 
-            def assemble_round(r: int) -> Dict[str, np.ndarray]:
-                row = [c[r] if r < len(c) else empty for c in cached]
-                # pad/stack at serve time (this runs on the prefetch
+            def next_round(r: int) -> List[RowBlock]:
+                # pad/stack happens at serve time (on the prefetch
                 # producer thread): the counting pass stays pure parse
                 # and the retained rounds stay RAW
-                stacked = self._assemble_stacked(row)
+                row = [c[r] if r < len(c) else empty for c in cached]
                 for c in cached:
                     if r < len(c):
                         c[r] = None  # the tee owns the blocks now
                 tee.add_row(row)
-                return stacked
+                return row
 
             # pad+stack+copy of round r+1 runs on a background thread
             # while the consumer works on round r
             rr = iter(range(rounds))
             try:
                 yield from self._prefetch_serve(
-                    lambda: (assemble_round(r)
+                    lambda: (next_round(r)
                              if (r := next(rr, None)) is not None
                              else None))
                 # commit the replay rounds only on a COMPLETE
@@ -470,15 +492,8 @@ class ShardedRowBlockIter:
         paths when only SOME see a local mutation — or sit in different
         tiers)."""
         rows = store.iter_rows()
-
-        def make():
-            row = next(rows, None)
-            if row is None:
-                return None
-            return self._assemble_stacked(row)
-
         try:
-            yield from self._prefetch_serve(make)
+            yield from self._prefetch_serve(lambda: next(rows, None))
         finally:
             # the page generator holds the spill file open; the serve
             # thread has been joined by now
@@ -693,35 +708,49 @@ class ShardedRowBlockIter:
             self._spill_dir or default_spill_dir(),
             f"rounds-{key}-p{os.getpid()}-{next(self._SPILL_SEQ)}.pages")
 
-    def _prefetch_serve(self, make_next) -> Iterator[DeviceBatch]:
+    def _prefetch_serve(self, next_row) -> Iterator[DeviceBatch]:
         """Serve batches from a background producer, one round ahead:
-        ``make_next()`` gives the next stacked host round (None at the
-        end), and the producer thread copies it to the device through a
-        pinned HostStaging slot on its own copy stream, so the copy of
-        round r+1 overlaps the consumer's work on round r; the consumer
-        waits on each batch's copy event. The live queue is exposed as
+        ``next_row()`` gives the next round's raw blocks (None at the
+        end), and the producer thread pads and stacks them straight into
+        a pinned HostStaging slot (``stage_round``) and copies the slot
+        to the device on its own copy stream, so the copy of round r+1
+        overlaps the consumer's work on round r; the consumer waits on
+        each batch's copy event. The live queue is exposed as
         ``_serve_queue`` while an epoch runs (pipeline probes sample its
         occupancy — that is what lets the autotuner drive the
         shard.prefetch knob) and its producer stats land in
-        ``_serve_stats`` at epoch end."""
+        ``_serve_stats`` at epoch end, with the thread's work (the round,
+        its staging and the copy's enqueue) in wall seconds
+        (``work_s``) and in the thread's CPU seconds (``work_cpu_s``):
+        the gap is time the thread was ready but not running (the GIL,
+        the page read's I/O)."""
         from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
         device = self.mesh.device
         on_cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if on_cuda else None
         pool = HostStaging(self.prefetch_depth + 1, pin=on_cuda,
                            alias_unsafe=not on_cuda)
+        work = [0.0, 0.0]  # wall, thread CPU
+
+        def stage():
+            row = next_row()
+            if row is None:
+                return None
+            slot = self._assemble_stacked(row, staging=pool)
+            return make_global_batch(slot, self.mesh, self.axis,
+                                     staging=pool, copy_stream=copy_stream,
+                                     staged=True)
 
         def produce():
-            stacked = make_next()
-            if stacked is None:
-                return None
+            w0, c0 = time.perf_counter(), time.thread_time()
             if on_cuda:
                 with torch.cuda.device(device):
-                    return make_global_batch(stacked, self.mesh, self.axis,
-                                             staging=pool,
-                                             copy_stream=copy_stream)
-            return make_global_batch(stacked, self.mesh, self.axis,
-                                     staging=pool)
+                    batch = stage()
+            else:
+                batch = stage()
+            work[0] += time.perf_counter() - w0
+            work[1] += time.thread_time() - c0
+            return batch
 
         ti = ThreadedIter(max_capacity=self.prefetch_depth,
                           name="shard.serve")
@@ -732,7 +761,9 @@ class ShardedRowBlockIter:
                 yield wait_copy(batch, device)
         finally:
             self._serve_queue = None
-            self._serve_stats = ti.stats()
+            self._serve_stats = dict(ti.stats(),
+                                     work_s=round(work[0], 6),
+                                     work_cpu_s=round(work[1], 6))
             ti.destroy()
 
     def _steady_stream(self) -> Iterator[List[RowBlock]]:
@@ -921,13 +952,18 @@ class ShardedRowBlockIter:
                 yield block.slice(start, end)
                 start = end
 
-    def _assemble_stacked(self, blocks: List[RowBlock]
-                          ) -> Dict[str, np.ndarray]:
+    def _assemble_stacked(self, blocks: List[RowBlock],
+                          staging: Optional[HostStaging] = None
+                          ) -> Dict[str, Any]:
+        """The fused pad+stack of one round: into fresh arrays, or with
+        ``staging`` straight into a slot of it (``stage_round``)."""
         # locally observed keys are sticky too: a round where every part
         # is an empty pad must still carry the keys earlier rounds did
         self._note_schema(any(b.qid is not None for b in blocks),
                           any(b.field is not None for b in blocks))
-        # the fused pad+stack: one in-place pass
+        if staging is not None:
+            return stage_round(blocks, self.row_bucket, self.nnz_bucket,
+                               self._has_qid, self._has_field, staging)
         return stack_padded_rows(blocks, self.row_bucket,
                                  self.nnz_bucket, self._has_qid,
                                  self._has_field)

@@ -96,3 +96,61 @@ def test_main_prints_one_line_a_config(dirs, monkeypatch, capsys):
     assert json.loads(lines[0]) == {"gbps": 1.0}
     assert json.loads(lines[1])["config"] == "spill_replay"
     assert "error" in json.loads(lines[1])
+
+
+# ------------------------------------------------- configs 4 and 7, gauges
+
+def _return_keys(fn):
+    """The keys of the dict literal that ``fn`` returns last."""
+    import ast
+    import inspect
+    import textwrap
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    rets = [n for n in ast.walk(tree)
+            if isinstance(n, ast.Return) and isinstance(n.value, ast.Dict)]
+    return {k.value for k in rets[-1].value.keys}
+
+
+def test_prefetch_matches_reference(dirs, tmp_path):
+    """Config 4: four parts on threads, each copying its blocks through
+    its own staging pool; the reference's keys and content hash."""
+    _criteo_shaped(str(tmp_path / "ref.criteo.libsvm"))
+    got = bench_suite.bench_prefetch(1, device="cpu", work=dirs)
+    want = ref_bench.bench_prefetch(1, True)
+    assert set(got) == set(want)
+    for k in ("hash", "bytes", "rows", "hosts", "to_device", "config"):
+        assert got[k] == want[k], k
+    json.dumps(got)
+
+
+def test_multiprocess_runs_a_two_process_gang(dirs):
+    """Config 7: two launch_local workers over a gloo group, each a Mesh
+    of 2 parts on the CPU, three epochs; the reference's keys."""
+    got = bench_suite.bench_multiprocess_ingest(1, device="cpu", work=dirs)
+    assert set(got) == _return_keys(ref_bench.bench_multiprocess_ingest)
+    assert got["procs"] == 2 and got["bytes"] == os.path.getsize(
+        os.path.join(dirs, "dmlc_tpu_torch_bench_suite.criteo.libsvm"))
+    assert got["batches_per_epoch"] > 0
+    assert got["replay_epochs"] == 2 and got["replay_tier"] == "memory"
+    assert [n for n in os.listdir(dirs) if n.startswith("dmlc_torch_bench_mp_")
+            ] == []
+    json.dumps(got)
+
+
+def test_multiprocess_over_nccl_needs_a_card_a_rank(dirs):
+    from dmlc_tpu_torch.utils.logging import DMLCError
+    with pytest.raises(DMLCError, match="card a rank"):
+        bench_suite.bench_multiprocess_ingest(1, device="cpu", work=dirs,
+                                              backend="nccl")
+
+
+def test_gauge_fn_tags_each_epoch(dirs):
+    gauge = iter(range(1, 100))
+    got = bench_suite.bench_page_replay(1, gauge_fn=lambda: next(gauge),
+                                        device="cpu", work=dirs)
+    assert got["epoch_gauges"] == [1.0, 2.0, 3.0]
+    got = bench_suite.bench_spill_replay(
+        1, gauge_fn=lambda: 2.5, replay_epochs=3, row_bucket=512,
+        nnz_bucket=512 * 45, device="cpu", work=dirs)
+    assert got["parse_epoch_gauge"] == 2.5
+    assert got["epoch_gauges"] == [2.5] * 3

@@ -74,6 +74,31 @@ def test_no_file_imports_jax_or_dmlc_tpu(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
+               "dmlc_tpu_torch.bench_mp_worker",
+               "dmlc_tpu_torch.io.checkpoint",
+               "dmlc_tpu_torch.utils.json_util")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_transfer_and_checkpoint_modules_import_alone(module):
+    """The transfer probe, the multi-process bench worker, the checkpoint
+    plane and its JSON helpers import in a fresh interpreter without
+    jax or dmlc_tpu (each is also in the AST scan above)."""
+    path = os.path.join(REPO, *module.split(".")) + ".py"
+    assert path in _port_files()
+    code = (f"import sys, {module}\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'dmlc_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_refuses_without_cuda():
     assert not torch.cuda.is_available()  # the CPU test host
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,

@@ -35,9 +35,11 @@ from dmlc_tpu.parallel import stack_device_batches as ref_stack_batches
 from dmlc_tpu_torch.data.padding import stack_padded_rows
 from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
 from dmlc_tpu_torch.ops.csr import sharded_spmv
+from dmlc_tpu_torch.data.padding import stack_spec
+from dmlc_tpu_torch.parallel.device_iter import HostStaging
 from dmlc_tpu_torch.parallel.sharded import (
     Mesh, ShardedRowBlockIter, empty_block, make_global_batch,
-    make_replicated, next_pow2_bucket, stack_device_batches,
+    make_replicated, next_pow2_bucket, stack_device_batches, stage_round,
 )
 from dmlc_tpu_torch.pipeline import Pipeline
 from dmlc_tpu_torch.utils.logging import DMLCError
@@ -154,6 +156,129 @@ def test_single_full_block_is_a_zero_copy_view(qid):
     _assert_same_bytes(out, ref_stack([ref], rows, nnz))
     assert np.shares_memory(out["index"], port.index)
     assert np.shares_memory(out["offset"], port.offset)
+
+
+def _random_round(seed, parts, qid, field):
+    """A seeded round of ``parts`` blocks (some empty pads), the same in
+    the port's RowBlock and the reference's."""
+    rng = np.random.RandomState(seed)
+    port_blocks, ref_blocks = [], []
+    for i in range(parts):
+        rows = int(rng.randint(0, 9))
+        if rows == 0 and parts > 1:
+            port_blocks.append(empty_block())
+            ref_blocks.append(_ref_empty())
+            continue
+        p, r = _pair(seed * 31 + i, max(rows, 1), qid=qid, field=field,
+                     weight=bool(rng.randint(0, 2)))
+        port_blocks.append(p)
+        ref_blocks.append(r)
+    return port_blocks, ref_blocks
+
+
+OUT_CASES = [(seed, parts, qid, field) for seed in (1, 2, 3)
+             for parts in (1, 4) for qid in (False, True)
+             for field in (False, True)]
+
+
+@pytest.mark.parametrize("seed,parts,qid,field", OUT_CASES)
+def test_stack_into_out_is_byte_identical(seed, parts, qid, field):
+    """stack_padded_rows(out=...) writes every element of the caller's
+    arrays (filled with junk first) with the bytes of the port's fresh
+    stack and of the reference's, over seeded rounds with and without
+    qid and field, one part and four."""
+    port_blocks, ref_blocks = _random_round(seed, parts, qid, field)
+    for want_qid, want_field in ((False, False), (qid, field)):
+        fresh = stack_padded_rows(port_blocks, 8, 64, want_qid, want_field)
+        spec = stack_spec(port_blocks, 8, 64, want_qid, want_field)
+        out = {}
+        for k, (shape, dtype) in spec.items():
+            out[k] = np.empty(shape, dtype)
+            out[k].view(np.uint8)[...] = 0xA5
+        got = stack_padded_rows(port_blocks, 8, 64, want_qid, want_field,
+                                out=out)
+        assert got is out
+        _assert_same_bytes(got, fresh)
+        _assert_same_bytes(got, ref_stack(ref_blocks, 8, 64, want_qid,
+                                          want_field))
+
+
+def test_stack_into_out_copies_the_single_full_block():
+    """L == 1 and the block exactly bucket-sized: with out= the stack is
+    one copy into the caller's arrays, not a view of the block."""
+    kw = dict(offset=np.array([0, 1, 3, 5, 6], np.int64),
+              label=np.ones(4, np.float32),
+              index=np.arange(6, dtype=np.uint32),
+              value=np.ones(6, np.float32), weight=np.ones(4, np.float32))
+    port, ref = RowBlock(**kw), RefRowBlock(**kw)
+    spec = stack_spec([port], 4, 6)
+    out = {k: np.zeros(shape, dtype) for k, (shape, dtype) in spec.items()}
+    stack_padded_rows([port], 4, 6, out=out)
+    _assert_same_bytes(out, ref_stack([ref], 4, 6))
+    assert not np.shares_memory(out["index"], port.index)
+    with pytest.raises(DMLCError, match="stack_spec"):
+        stack_padded_rows([port], 4, 6, want_qid=True, out=out)
+
+
+class _Event:
+    """A stand-in for a CUDA event: pending until synchronized."""
+
+    def __init__(self):
+        self.done = False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+
+def test_staging_slot_is_never_handed_out_while_its_copy_is_pending():
+    spec = {"x": ((2, 3), np.dtype(np.float32)),
+            "i": ((2,), np.dtype(np.uint32))}
+    pool = HostStaging(slots=2)
+    a = pool.acquire(spec)
+    ev_a = _Event()
+    pool.release(a, ev_a)
+    b = pool.acquire(spec)  # a is pending: a second slot
+    assert b is not a and pool.allocated == 2
+    ev_b = _Event()
+    pool.release(b, ev_b)
+    c = pool.acquire(spec)  # all allocated, all busy: wait on the oldest
+    assert c is a and ev_a.done and not ev_b.done
+    assert c["i"].dtype == torch.uint32 and tuple(c["x"].shape) == (2, 3)
+    # a finished copy is taken without a wait
+    ev_b.done = True
+    assert pool.acquire(spec) is b
+    # another shape gets its own slot, in place of a free one of another
+    # shape when every slot is allocated
+    pool.release(b, None)
+    pool.release(c, None)
+    other = pool.acquire({"x": ((5,), np.dtype(np.float32))})
+    assert other is not b and other is not c and pool.allocated == 2
+    # a slot released with no event is free at once; on a target that
+    # aliases the slot (the CPU), a released slot is never handed out
+    cpu = HostStaging(slots=2, alias_unsafe=True)
+    s1 = cpu.acquire(spec)
+    cpu.release(s1, None)
+    assert cpu.acquire(spec) is not s1
+
+
+def test_stage_round_fills_a_slot_with_the_stack(mesh):
+    """stage_round pads and stacks into a staging slot, and the slot goes
+    to the device as it stands (make_global_batch(staged=True)), byte
+    for byte the fresh stack's batch."""
+    blocks = [_pair(s, 4, qid=True)[0] for s in range(PARTS)]
+    pool = HostStaging(slots=2, alias_unsafe=True)
+    slot = stage_round(blocks, 8, 64, True, False, pool)
+    assert isinstance(slot["offset"], torch.Tensor)
+    gb = make_global_batch(slot, mesh, staging=pool, staged=True)
+    fresh = stack_padded_rows(blocks, 8, 64, True, False)
+    _assert_same_bytes(gb, fresh)
+    assert gb.counts == (int(fresh["num_rows"].sum()),
+                         int(fresh["num_nnz"].sum()))
+    with pytest.raises(DMLCError, match="staging pool"):
+        make_global_batch(slot, mesh, staged=True)
 
 
 def test_helpers_match_reference():
@@ -495,6 +620,42 @@ def test_page_spill_serves_steady_epochs_like_reference(
     ref.close()
     assert not os.path.exists(port_file)
     assert os.listdir(tmp_path / "port_spill") == []
+
+
+def _batch_hashes(batches):
+    import hashlib
+    out = []
+    for b in batches:
+        h = hashlib.sha256()
+        for k in sorted(b):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(b[k]).tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+@pytest.mark.parametrize("tier", ["memory", "pages"])
+def test_served_tiers_hash_like_the_parse_and_the_reference(
+        tier, mesh, ref_mesh, ref_host, tmp_path):
+    """The serve thread stacks each round straight into its staging
+    slot: every memory- and page-tier epoch hashes batch for batch like
+    the parse epoch and like the reference's host batches."""
+    p = tmp_path / "d.libsvm"
+    _skewed_qid(p, 9)
+    budget = 1 << 30 if tier == "memory" else 2048
+    it, ref = _page_iters(p, mesh, ref_mesh, tmp_path, row_bucket=8,
+                          agreement_cache_bytes=budget)
+    parse = None
+    for epoch in range(3):
+        got, want = _batch_hashes(_collect(it)), _batch_hashes(_collect(ref))
+        assert got == want
+        parse = parse or got
+        assert got == parse
+    assert it.replay_tier == tier and it._serve_stats["work_s"] > 0
+    assert set(it._serve_stats) == {"produced", "producer_block_s",
+                                    "work_s", "work_cpu_s"}
+    it.close()
+    ref.close()
 
 
 def test_page_spill_mutation_reparses_then_reearns(mesh, ref_mesh,
