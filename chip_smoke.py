@@ -151,14 +151,42 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    ``save_pytree`` and restored by each into a fresh model on the card
    bit for bit, and 3 steps on each restored model match 3 on the model
    never interrupted (K1, K2, K8 and K9 launching);
-10. last, after every traced phase, configs 4 (``prefetch``), 7
+10. the RecordIO paths, over corpora of about 256 MB each written at
+   the bench suite's shapes (config 3's 4 parts of 60-140 KB records,
+   config 14's dense rows of 24-47 values with an escaped magic every
+   251st row, config 18's 32x32x3 images, and a dense training corpus of
+   config 14's rows with labels in {0, 1}): ``cuda_ingest``, the linear
+   corpus through ``create_stream("cuda://...").device_chunks`` at 1, 4
+   and 16 MB chunks, each chunk on the card, their checksum computed on
+   the card equal to numpy's over the file, and config 3's 4 parts through
+   ``recordio_device_batches`` (the native reader must serve it), every
+   record read back from the card hashing as the host reader's, GB/s of
+   each; ``recordio_decode``, configs 14's and 18's corpora through
+   ``Pipeline.from_uri(rec).parse(format="recordio_dense" /
+   "recordio_image", engine="native").batch(8192 / 256, pad=True,
+   nnz_bucket=8192 * 48 / 256 * 3072).to_device(cuda)``, assembled in the
+   engine, every batch on the card hashing as the host's padded batch,
+   the first image batch's ``value.view(256, 32, 32, 3)`` holding the
+   records' pixels; ``dense_train``, K1, K2, K8 and K9 at the dense batch
+   against their plain versions (half, private, grid and narrow routes)
+   and timed, then ``SparseLinearModel(48).train_step`` for one epoch of
+   the training corpus through the same chain: one step agreeing with the
+   plain versions' on the card, K1, K2, K8 and K9 once a step, the loss
+   falling, and the final weights agreeing with an epoch through the
+   plain versions; GB/s and steps/s;
+11. last, after every traced phase, configs 4 (``prefetch``), 7
    (``multiprocess``: two worker processes over a gloo group, each a
    mesh of 2 parts on this card), 8 (``page_replay``) and 10 (``spill_replay``, both with
    the memcpy gauge before each epoch) of ``dmlc_tpu_torch.bench_suite``
    at 256 MB over the linear corpus (linked to the name the suite reads,
-   so it writes no corpus of its own), each JSON on a line, their own
-   checks holding (content hashes against a direct parse; page replay
-   epochs >= 3; config 7's epochs 2-3 replayed).
+   so it writes no corpus of its own), then 3 (``recordio``), 14
+   (``recio_native``) and 18 (``image_record``, both gauged) over the
+   RecordIO corpora, each JSON on a line, their own checks holding
+   (content hashes against a direct parse; page replay epochs >= 3;
+   config 7's epochs 2-3 replayed; config 3 through the native reader,
+   its records' hash equal to the host reader's in ``cuda_ingest``;
+   configs 14 and 18 assembled in the engine, their native and sharded
+   streams equal to the python golden's).
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -168,7 +196,7 @@ version does.
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it the kernels' JSON record (every kernel: K1-K9, K8's
 three launches apart, K9 at the linear width and, by its narrow route,
-at the ranking width). Imports
+at the ranking width; K1, K2, K8 and K9 again at the dense batch). Imports
 nothing of JAX or of the ``dmlc_tpu`` package.
 """
 
@@ -217,6 +245,14 @@ RANK_LEARNING_RATE = 3.0
 WRAP_LAST, WRAP_BAD, WRAP_U64 = 2**32 - 1, 2**31, 2**32 + 3
 SEED = 0
 PROFILE_ATTEMPTS = 3
+# A trace that kept no kernel at all is taken again at once, up to this
+# many times in all. On the card such traces come in runs (3, 5 and 6 in
+# a row at retries 1 s apart, in two runs of this script), and waiting
+# does not help: in scripts/trace_probe.py's runs a probe trace that kept no
+# kernel was followed by a full one at once 3 times of 7, after 5 s idle
+# once of 7. So none waits, and each measured trace follows a throwaway
+# one at once.
+EMPTY_TRACE_ATTEMPTS = 6
 # The sharded phase: a mesh of this many parts of the path's batch on the
 # card, one process over a world-1 NCCL group; the dry run's mesh.
 SHARD_PARTS = 4
@@ -253,6 +289,12 @@ ZEROED = {"csr_spmv_t": ("global", "private"),
           "csr_to_dense": ("global",)}  # the tile route writes every entry
 FILL = "FillFunctor"
 SPIN = "spin_kernel"  # torch.cuda._sleep's kernel
+# Launches of SPIN that open each measured trace, left out of its result:
+# late in a run a trace loses the records of its first launches, more of
+# them the later (scripts/trace_probe.py: a probe trace of 3 kernels
+# kept 3 early in a run, 2 from its page-tier phases on, and none
+# at some points near its end), and these absorb the loss.
+SPIN_LAUNCHES = 32
 # The launches a call of each wrapper of one route makes, by kernel (see
 # _launched): its kernels, and a zero fill where it zeroes its output.
 KERNEL_CALLS = {
@@ -333,6 +375,33 @@ NARROW_WIDEST = 1020
 # model; the plain versions on the card for FM and FFM): the kernels' sums
 # and the card's reductions of the loss run in other orders.
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-6
+# The RecordIO paths (cuda_ingest, recordio_decode, dense_train; configs 3,
+# 14 and 18): the bench suite's corpora at its shapes, each about
+# RECORDIO_MB, written once at the names the suite reads: config 3's 4
+# parts of 60-140 KB binary records; config 14's dense rows of 24-47
+# values, a value carrying the frame magic's bits every 251st row;
+# config 18's 32x32x3 images, the magic spelled in every 101st; and a
+# dense training corpus at config 14's row shape (write_dense_corpus).
+RECORDIO_MB = 128  # at 256 the run took past 180 s (PERF.md)
+INGEST_CHUNKS = (1 << 20, 4 << 20, 16 << 20)  # device_chunks' chunk sweep
+DENSE_FEATURES = 48           # config 14's widest row
+DENSE_ROW_BUCKET = 8192       # config 14's batch rows
+IMAGE_SHAPE = (32, 32, 3)     # config 18's images
+IMAGE_ROW_BUCKET = 256        # config 18's batch rows
+# SGD on 48 features that are each present in most rows with values in
+# [0, 1): the loss's curvature in w is up to 1/4 of the largest eigenvalue
+# of E[x x^T], about 36 * 0.25 = 9, so a rate above 2 / (9 / 4) ~ 0.9
+# diverges; 0.5 sits below it.
+DENSE_LEARNING_RATE = 0.5
+# One epoch (about 200 steps) through the kernels against one through the
+# plain versions on the card: every step's sums (K1's rows, K2's atomics,
+# K8's loss) run in other fp32 orders, and SGD carries each difference
+# into the next step, where the loss's curvature damps it: on the CPU, an
+# epoch whose batches' rows (and each row's values) were taken in another
+# order stayed within 5.4e-7 of the first in every weight over 53 steps
+# of this corpus at 64 MB, without growing. So the final w and b are held
+# to STEP_RTOL and an atol of about 20 times that drift.
+DENSE_EPOCH_RTOL, DENSE_EPOCH_ATOL = STEP_RTOL, 1e-5
 
 
 def log(msg: str) -> None:
@@ -510,13 +579,46 @@ def write_ranking_corpus(path: str) -> int:
     return os.path.getsize(path)
 
 
+def write_dense_corpus(path: str) -> int:
+    """The dense training corpus, about RECORDIO_MB, through the port's
+    DenseRecordWriter: config 14's rows (24-47 values a row, uniform in
+    [0, 1)), labels in {0, 1} drawn by a seeded rng with the probability
+    that a seeded hidden weight vector gives the centred row, so the loss
+    can fall. Unlike config 14's corpus it carries no value with the frame
+    magic's bits: such a value (about -1.8e9) every 251st row would throw
+    the weights off by 1e5 a step (recordio_decode and config 14 run the
+    escaped records)."""
+    import numpy as np
+    from dmlc_tpu_torch.io.recordio import DenseRecordWriter
+    from dmlc_tpu_torch.io.stream import create_stream
+    rng = np.random.RandomState(SEED + 14)
+    w_true = rng.standard_normal(DENSE_FEATURES).astype(np.float32)
+    rows = (RECORDIO_MB << 20) // (16 + 4 * 35)  # a frame of 35.5 values
+    n = rng.randint(24, 48, rows)
+    off = np.concatenate([[0], np.cumsum(n)])
+    vals = rng.rand(int(off[-1])).astype(np.float32)
+    cols = np.arange(int(off[-1])) - np.repeat(off[:-1], n)
+    margins = np.add.reduceat((vals - 0.5) * w_true[cols], off[:-1])
+    labels = (rng.rand(rows) < 1 / (1 + np.exp(-margins))).astype(np.float32)
+    with create_stream(path, "w") as s:
+        w = DenseRecordWriter(s)
+        for i in range(rows):
+            w.write(labels[i], vals[off[i]:off[i + 1]])
+    return os.path.getsize(path)
+
+
 # Each path's padded batch: the file's format, the row and nnz buckets,
 # and the columns it forces.
 LAYOUT = {"libsvm": ("libsvm", ROW_BUCKET, NNZ_BUCKET, {}),
           "libfm": ("libfm", ROW_BUCKET, LIBFM_NNZ_BUCKET,
                     {"want_field": True}),
           "ranking": ("libsvm", RANK_ROW_BUCKET, RANK_NNZ_BUCKET,
-                      {"want_qid": True})}
+                      {"want_qid": True}),
+          "dense": ("recordio_dense", DENSE_ROW_BUCKET,
+                    DENSE_ROW_BUCKET * DENSE_FEATURES, {}),
+          "image": ("recordio_image", IMAGE_ROW_BUCKET,
+                    IMAGE_ROW_BUCKET * IMAGE_SHAPE[0] * IMAGE_SHAPE[1]
+                    * IMAGE_SHAPE[2], {})}
 
 
 def padded_batches(parser, fmt="libsvm"):
@@ -581,23 +683,31 @@ def _device_us_by_kernel(fn, iters: int = 1, calls=None):
     kernels it launched). ``calls`` maps kernels (see _launched) to the
     launches a piece must show of them, 0 for a kernel that must not run.
 
-    Late in a run on the card, a trace loses the record of its first
-    launch (of 100 launches, 49 and 50 records of K7 forward's two
+    Late in a run on the card, a trace loses the records of its first
+    launches (of 100 launches, 49 and 50 records of K7 forward's two
     kernels; a single K2 call without its fill), so each trace opens with
-    a launch of torch's spin kernel (SPIN), left out of the result. A
+    SPIN_LAUNCHES launches of torch's spin kernel (SPIN), left out of the
+    result. A
     kernel's launches a piece are its records over ``iters``, rounded,
     and its time a piece the mean of the records it kept times those
     launches; a trace in which a kernel kept fewer than nine tenths of
     its launches' records, or more than them, or that shows launches
-    other than ``calls`` (or no device activity at all) is taken again,
-    up to PROFILE_ATTEMPTS times, and then fails."""
+    other than ``calls`` is taken again, up to PROFILE_ATTEMPTS times, and
+    then fails; one that kept no kernel at all, up to
+    EMPTY_TRACE_ATTEMPTS times. Each follows a throwaway trace at once
+    (see EMPTY_TRACE_ATTEMPTS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     want = dict(calls or {})
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+    attempts = empty = 0
+    while True:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]):
             torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPIN_LAUNCHES):
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
@@ -614,12 +724,14 @@ def _device_us_by_kernel(fn, iters: int = 1, calls=None):
                        if _launched(key, k)) for k in want}
         if by_kernel and seen == want and not lost:
             return by_kernel
-        log(f"  trace {attempt} of {PROFILE_ATTEMPTS}: "
+        attempts += bool(by_kernel)
+        empty += not by_kernel
+        log(f"  trace {attempts + empty} ({empty} with no kernel): "
             f"{len(by_kernel)} kernels, launches a piece {seen} (want "
             f"{want}), records kept out of launches {lost}")
-        time.sleep(1.0)  # an empty trace recovers by the next one or two
-    fail(f"no trace of {PROFILE_ATTEMPTS} showed the launches wanted: "
-         f"{want} a piece of {iters}")
+        if attempts >= PROFILE_ATTEMPTS or empty >= EMPTY_TRACE_ATTEMPTS:
+            fail(f"no trace of {attempts + empty} showed the launches "
+                 f"wanted: {want} a piece of {iters}")
 
 
 def rotating(inputs, nbytes):
@@ -742,12 +854,12 @@ def edge_case_batch(first):
     return new_off, idx, val, fld, [20, 60]
 
 
-def _check_narrow_k2(name, offset, index, value, g):
-    """K2 on a narrow model's batch against its plain version, with the
-    rtol of each weight's sum|terms| (see K2_RTOL); returns max |err|."""
+def _check_narrow_k2(name, offset, index, value, g, F=RANK_NUM_FEATURES):
+    """K2 on a narrow model's batch (``F`` weights) against its plain
+    version, with the rtol of each weight's sum|terms| (see K2_RTOL);
+    returns max |err|."""
     import torch
     from dmlc_tpu_torch.ops import csr
-    F = RANK_NUM_FEATURES
     gw = on_route("csr_spmv_t", "private",
                   lambda: csr.csr_spmv_t(offset, index, value, g, F))
     plain = csr.csr_spmv_t_plain(offset, index, value, g, F)
@@ -1135,8 +1247,15 @@ def _check_sgd(name, params, grads, decay, lr, l2, route):
             f"K9 {name}: the copies lost the parameters' alignment")
     loss = torch.tensor(0.5, device=params[0].device)
     p_loss = loss.clone()
-    on_route("sgd_update", route,
-             lambda: step_ops.sgd_update(got, grads, decay, lr, l2, loss))
+
+    def update():
+        # from the parameters each time: a trace taken again reruns it
+        for a, p in zip(got, params):
+            a.copy_(p)
+        loss.fill_(0.5)
+        step_ops.sgd_update(got, grads, decay, lr, l2, loss)
+
+    on_route("sgd_update", route, update)
     step_ops.sgd_update_plain(want, grads, decay, lr, l2, p_loss)
     torch.cuda.synchronize()
     err = 0.0
@@ -3755,7 +3874,7 @@ def cache_path(path, size, lr, single):
             "parse_to_device_gbps_training": gbps, "steps_per_s": sps}
 
 
-def bench_twins(path, work):
+def bench_twins(path, work, records_hash):
     """Configs 4 (``prefetch``), 7 (``multiprocess``), 8 (``page_replay``)
     and 10 (``spill_replay``) of the port's bench suite at 256 MB on the
     card, over the linear corpus ``path``, linked to the name the suite
@@ -3765,10 +3884,18 @@ def bench_twins(path, work):
     ranks agreeing on their batches, 8's replay hash, 10's page replay
     epochs) and 4's and 10's hashes and rounds stand beside the corpus.
     Config 7 runs two worker processes over a gloo group, each a Mesh of
-    2 parts on this card (NCCL refuses two ranks on one card). Each JSON
-    is printed as a line. The suite's files are removed after."""
+    2 parts on this card (NCCL refuses two ranks on one card). Then
+    configs 3 (``recordio``), 14 (``recio_native``) and 18
+    (``image_record``) at RECORDIO_MB over the corpora that
+    write_recordio_corpora put at the suite's names, 14 and 18 with the
+    gauge: 3 through the native reader, its coverage hash equal to
+    ``records_hash`` (cuda_ingest's, of the host reader's records); 14's
+    and 18's native and sharded streams each equal to the python golden's
+    (their own checks) and assembled in the engine. Each JSON is printed
+    as a line. The suite's files are removed after."""
     from dmlc_tpu_torch.bench_suite import (
-        bench_multiprocess_ingest, bench_page_replay, bench_prefetch,
+        bench_image_record, bench_multiprocess_ingest, bench_page_replay,
+        bench_prefetch, bench_recio_native, bench_recordio,
         bench_spill_replay,
     )
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
@@ -3780,7 +3907,12 @@ def bench_twins(path, work):
                ("page_replay", lambda: bench_page_replay(
                    256, gauge_fn=memcpy_gauge, work=work)),
                ("spill_replay", lambda: bench_spill_replay(
-                   256, gauge_fn=memcpy_gauge, work=work)))
+                   256, gauge_fn=memcpy_gauge, work=work)),
+               ("recordio", lambda: bench_recordio(RECORDIO_MB, work=work)),
+               ("recio_native", lambda: bench_recio_native(
+                   RECORDIO_MB, gauge_fn=memcpy_gauge, work=work)),
+               ("image_record", lambda: bench_image_record(
+                   RECORDIO_MB, gauge_fn=memcpy_gauge, work=work)))
     out = {}
     try:
         for name, fn in configs:
@@ -3800,6 +3932,16 @@ def bench_twins(path, work):
         require(out[name]["epoch_gauges"] is not None
                 and out[name]["platform"] == "gpu",
                 f"config {name}: no gauges or not on the card: {out[name]}")
+    require(out["recordio"]["engine"] == "native"
+            and out["recordio"]["hash"] == records_hash,
+            f"config 3: engine {out['recordio']['engine']}, hash "
+            f"{out['recordio']['hash']} != the host reader's {records_hash}")
+    for name in ("recio_native", "image_record"):
+        require(out[name]["native"] is not None
+                and out[name]["native"]["assembly_path"] == "native-padded"
+                and out[name]["sharded"]["hash"] == out[name]["hash"],
+                f"config {name}: the native decode did not run, or not in "
+                f"the engine: {out[name]}")
     return out
 
 
@@ -3987,6 +4129,471 @@ def checkpoint_ffm(path, lr, work):
             "restore_bytes_read": read, "launches": launches}
 
 
+# --------------------------------------------------------------- phase 11
+
+def write_recordio_corpora(work):
+    """Configs 3, 14 and 18's corpora (RECORDIO_MB each), written by the
+    bench suite's makers at the names the suite reads (so bench_twins
+    writes none of its own). Returns {"recordio": [4 part paths],
+    "dense", "image"}."""
+    from dmlc_tpu_torch import bench_suite
+    prefix = os.path.join(work, "dmlc_tpu_torch_bench_suite")
+    paths, secs = {}, {}
+    t0 = time.perf_counter()
+    paths["recordio"] = bench_suite.make_recordio(f"{prefix}.imagenet",
+                                                  RECORDIO_MB, nparts=4)
+    secs["recordio"] = time.perf_counter() - t0
+    paths["dense"] = f"{prefix}.dense.rec"
+    t0 = time.perf_counter()
+    bench_suite.make_dense_recordio(paths["dense"], RECORDIO_MB, seed=11)
+    secs["dense"] = time.perf_counter() - t0
+    paths["image"] = f"{prefix}.images.rec"
+    t0 = time.perf_counter()
+    bench_suite.make_image_recordio(paths["image"], RECORDIO_MB, seed=18,
+                                    shape=IMAGE_SHAPE)
+    secs["image"] = time.perf_counter() - t0
+    sizes = {k: sum(map(os.path.getsize, v)) if isinstance(v, list)
+             else os.path.getsize(v) for k, v in paths.items()}
+    log("RecordIO corpora: " + ", ".join(
+        f"{k} {sizes[k]} bytes in {secs[k]:.1f} s" for k in paths))
+    return paths
+
+
+# The checksum of cuda_ingest: a byte's weight cycles with its position
+# modulo this prime, so a reordered, lost or repeated chunk shows.
+CHECK_MOD = 65521
+
+
+def _host_checksum(path):
+    """(bytes, sum b, sum b * (position mod CHECK_MOD + 1)) of a file,
+    by numpy on the host."""
+    import numpy as np
+    n = s1 = s2 = 0
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(16 << 20)
+            if not buf:
+                return n, s1, s2
+            x = np.frombuffer(buf, np.uint8).astype(np.int64)
+            pos = np.arange(n, n + x.size, dtype=np.int64) % CHECK_MOD + 1
+            s1 += int(x.sum())
+            s2 += int((x * pos).sum())
+            n += x.size
+
+
+def _card_checksum(chunks):
+    """_host_checksum of the uint8 tensors that ``chunks`` yields in
+    turn, summed on their device (read once, at the end)."""
+    import torch
+    n, s1, s2 = 0, 0, 0
+    for c in chunks:
+        x = c.to(torch.int64)
+        pos = torch.arange(n, n + x.numel(), device=c.device) % CHECK_MOD + 1
+        s1 = s1 + x.sum()
+        s2 = s2 + (x * pos).sum()
+        n += x.numel()
+    return n, int(s1), int(s2)
+
+
+def cuda_ingest(path, parts):
+    """A10's ``cuda://`` on the card. ``device_chunks`` over ``path`` (the
+    256 MB linear corpus) through ``create_stream("cuda://...")`` at
+    INGEST_CHUNKS, each chunk a uint8 tensor on the card: their checksum,
+    computed on the card, must equal numpy's over the file; then GB/s of
+    each (the file over a second pass's wall, ended by a synchronize,
+    each chunk dropped as it comes), beside the same reads alone into a
+    pinned buffer. Then
+    ``recordio_device_batches`` over each of config 3's 4 parts
+    (``parts``, as cuda:// URIs): each record read back from the card
+    must hash (sha256) as the host reader's (``NativeRecordIOReader``)
+    record does; then GB/s of record bytes a part (a second pass, each
+    batch dropped as it comes), beside the reader's own pass over the
+    part (no copy).
+    The native engine must serve it (no fall to the Python split).
+    Returns the rates, and config 3's coverage hash of the host's
+    records."""
+    import hashlib
+    import torch
+    from dmlc_tpu_torch.io.cuda_fs import (
+        CUDASeekStream, recordio_device_batches,
+    )
+    from dmlc_tpu_torch.io.stream import create_stream
+    from dmlc_tpu_torch.native import native_available
+    from dmlc_tpu_torch.native.bindings import NativeRecordIOReader
+    from dmlc_tpu_torch.utils.memory import thread_local_pool
+    require(native_available(), "cuda_ingest: the native engine is not "
+            "available: recordio_device_batches would take the Python split")
+    want = _host_checksum(path)
+    size = want[0]
+    chunk_gbps = {}
+    for chunk in INGEST_CHUNKS:
+        def chunks():
+            with create_stream(f"cuda://{path}", "r") as s:
+                require(isinstance(s, CUDASeekStream),
+                        f"cuda:// opened a {type(s).__name__}")
+                for c in s.device_chunks(chunk):
+                    require(c.is_cuda and c.dtype == torch.uint8,
+                            "device_chunks gave a chunk off the card or "
+                            "not uint8")
+                    yield c
+
+        # the bytes, in an untimed pass (which also fills the thread's
+        # pinned pool and the allocator's cache at this size)
+        card = _card_checksum(chunks())
+        require(card == want, f"device_chunks at {chunk} bytes: the card's "
+                f"checksum {card} != the file's {want}")
+        # the rate, with a consumer that drops each chunk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in chunks():
+            pass
+        torch.cuda.synchronize()
+        chunk_gbps[chunk >> 20] = size / (time.perf_counter() - t0) / 1e9
+    # the host's part alone: the same in-place reads into one pinned
+    # buffer of the pool, no copy to the card
+    read_gbps = {}
+    for chunk in INGEST_CHUNKS:
+        buf = memoryview(thread_local_pool(pin=True).acquire(chunk))[:chunk]
+        with create_stream(path, "r") as s:
+            t0 = time.perf_counter()
+            while s.readinto(buf):
+                pass
+            read_gbps[chunk >> 20] = size / (time.perf_counter() - t0) / 1e9
+    log(f"cuda_ingest: device_chunks over {size} bytes, the card's checksum "
+        f"equal to the file's at each chunk; GB/s by chunk MB "
+        + ", ".join(f"{k} MB {v:.3f}" for k, v in chunk_gbps.items())
+        + "; the reads alone into a pinned buffer "
+        + ", ".join(f"{k} MB {v:.3f}" for k, v in read_gbps.items()))
+    uri = ";".join(f"cuda://{p}" for p in parts)
+    coverage = hashlib.sha256()  # config 3's: sha256 of records' sha256
+    per_part = []
+    for k in range(len(parts)):
+        r = NativeRecordIOReader(uri, k, len(parts))
+        want_part = [hashlib.sha256(rec).digest() for rec in r.records()]
+        # the host's part alone: the reader's batches, no copy
+        r.before_first()
+        t0 = time.perf_counter()
+        while r.next_batch() is not None:
+            pass
+        read_secs = time.perf_counter() - t0
+        r.destroy()
+        # the records, in an untimed pass
+        got_part, nbatches = [], 0
+        for b in recordio_device_batches(uri, k, len(parts)):
+            require(all(t.is_cuda for t in b.values()),
+                    "recordio_device_batches gave a batch off the card")
+            payload = b["payload"].cpu().numpy()
+            for s, e in zip(b["starts"].tolist(), b["ends"].tolist()):
+                got_part.append(hashlib.sha256(payload[s:e]).digest())
+            nbatches += 1
+        require(got_part == want_part,
+                f"cuda_ingest part {k}: {len(got_part)} records on the card, "
+                f"{len(want_part)} from the host reader, or a record differs")
+        for d in want_part:
+            coverage.update(d)
+        # the rate, with a consumer that drops each batch
+        nbytes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in recordio_device_batches(uri, k, len(parts)):
+            nbytes += b["payload"].numel()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        per_part.append({"records": len(got_part), "batches": nbatches,
+                         "bytes": nbytes, "gbps": nbytes / secs / 1e9,
+                         "reader_gbps": nbytes / read_secs / 1e9})
+    log(f"cuda_ingest: recordio_device_batches, {len(parts)} parts of config "
+        f"3's corpus, each record on the card equal to the host reader's "
+        f"(sha256): " + "; ".join(
+            f"part {k} {p['records']} records in {p['batches']} batches, "
+            f"{p['gbps']:.3f} GB/s (the reader alone {p['reader_gbps']:.3f})"
+            for k, p in enumerate(per_part)))
+    return {"bytes": size, "chunk_gbps": chunk_gbps,
+            "read_gbps": read_gbps, "parts": per_part,
+            "records": sum(p["records"] for p in per_part),
+            "records_hash": coverage.hexdigest()[:16]}
+
+
+def recordio_decode(paths):
+    """The dense and image record decode on the card: config 14's and
+    config 18's corpora through ``Pipeline.from_uri(rec)
+    .parse(format="recordio_dense" / "recordio_image", engine="native")
+    .batch(8192 / 256, pad=True, nnz_bucket=8192 * 48 / 256 * 3072)
+    .to_device(cuda)`` (build_pipeline): one timed epoch (the engine must
+    assemble, ``native-padded``), then one in which every batch read back
+    from the card hashes as the same chain's host padded batch does; the
+    first image batch's ``value.view(256, 32, 32, 3)`` must hold the first
+    256 records' pixels and ``label`` their labels. GB/s of each."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.io.recordio import RecordIOReader, decode_image_record
+    from dmlc_tpu_torch.io.stream import create_stream
+    from dmlc_tpu_torch.pipeline import Pipeline
+    with create_stream(paths["image"], "r") as s:
+        reader = RecordIOReader(s)
+        first_images = [decode_image_record(reader.next_record())
+                        for _ in range(IMAGE_ROW_BUCKET)]
+    out = {}
+    for fmt in ("dense", "image"):
+        path = paths[fmt]
+        size = os.path.getsize(path)
+        file_fmt, rows, nnz_bucket, _ = LAYOUT[fmt]
+        host = (Pipeline.from_uri(path).parse(format=file_fmt, engine="native")
+                .batch(rows, pad=True, nnz_bucket=nnz_bucket).build())
+        want = [batch_hash(b) for b in host]
+        host.close()
+        built = build_pipeline(path, fmt)
+        secs, _, batches, moved = train_epoch(built, None, train=False)
+        require(batches == len(want), f"recordio_decode {fmt}: {batches} "
+                f"batches on the card, {len(want)} on the host")
+        got = []
+        for b in built:
+            require(all(t.is_cuda for t in b.values()),
+                    f"recordio_decode {fmt}: a batch off the card")
+            if fmt == "image" and not got:
+                px = b["value"].view(rows, *IMAGE_SHAPE)
+                want_px = torch.from_numpy(np.stack(
+                    [p for _, p in first_images]).astype(np.float32))
+                want_label = torch.from_numpy(
+                    np.float32([label for label, _ in first_images]))
+                require(torch.equal(px.cpu(), want_px)
+                        and torch.equal(b["label"].cpu(), want_label),
+                        "recordio_decode: the first image batch's "
+                        "value.view(256, 32, 32, 3) or label differs from "
+                        "the records' pixels")
+            got.append(batch_hash({k: v.cpu().numpy()
+                                   for k, v in b.items()}))
+        require(got == want, f"recordio_decode {fmt}: "
+                f"{sum(a != b for a, b in zip(got, want))} of {len(want)} "
+                "batches on the card differ from the host's padded batches")
+        log_pipeline_stats(f"recordio_decode {fmt}", built)
+        built.close()
+        out[fmt] = {"bytes": size, "batches": batches,
+                    "gbps": size / secs / 1e9,
+                    "bytes_to_card": moved}
+    log("recordio_decode: every padded batch on the card equal to the host's "
+        "(sha256), native-padded, image pixels in place; " + "; ".join(
+            f"{k} {v['batches']} batches, {v['gbps']:.3f} GB/s of records"
+            for k, v in out.items()))
+    return out
+
+
+def plain_linear_model(num_features, lr):
+    """SparseLinearModel on the card whose margins run the plain versions
+    of K1 and K2 and whose steps the plain K8 and K9."""
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+
+    Linear = _plain_linear()
+
+    class Plain(_plain_steps(SparseLinearModel)):
+        def _margin_terms(self, batch):
+            return [Linear.apply(batch["offset"], batch["index"],
+                                 batch["value"], self.w)]
+
+    return Plain(num_features, learning_rate=lr, device=torch.device("cuda"))
+
+
+def check_dense_kernels(first):
+    """K1, K2, K8 and K9 at the dense path's first batch (8192 rows of
+    24-47 values, 48 weights and the bias): each against its plain
+    version on the card (K1 by its half route and K2 by its private
+    route, K8 by its grid route, K9 by its narrow route, each read from
+    the call's trace), then timed as check_kernels and check_step_kernels
+    time them, beside its bound, its plain version and one PyTorch call.
+    Returns their kernel rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dmlc_tpu_torch.ops import csr
+    from dmlc_tpu_torch.ops import step as step_ops
+    cuda = torch.device("cuda")
+    n, feats = DENSE_ROW_BUCKET, DENSE_FEATURES
+    require(int(first["num_rows"]) == n,
+            f"the dense path's first batch has {int(first['num_rows'])} rows")
+    b = {k: torch.from_numpy(np.asarray(first[k])).to(cuda)
+         for k in ("offset", "index", "value", "label", "weight")}
+    off, idx, val = b["offset"], b["index"], b["value"]
+    nnz = int(first["num_nnz"])
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 15)
+    w = torch.randn(feats, device=cuda, generator=gen)
+    g = torch.randn(n, device=cuda, generator=gen)
+    k1_err = _check_k1("at the dense batch", off, idx, val, w, "half", [])
+    k2_err = _check_narrow_k2("at the dense batch", off, idx, val, g, feats)
+    margins = csr.csr_spmv_plain(off, idx, val, w)
+    t = ([margins], torch.tensor(0.1, device=cuda), b["label"], b["weight"])
+    out = []
+    _device_us_by_kernel(lambda: out.append(step_ops.logistic_step(*t)), 1,
+                         OBJECTIVE_ROUTE_CALLS["grid"])
+    k8_err = _check_objective("at the dense batch", out[-1],
+                              step_ops.logistic_step_plain(*t), t[3])
+    params = [torch.randn(feats, device=cuda, generator=gen) * 0.1,
+              torch.randn((), device=cuda, generator=gen) * 0.1]
+    grads = [torch.randn_like(p) * 1e-3 for p in params]
+    decay = [True, False]
+    require(step_ops.sgd_route([p.numel() for p in params],
+                               [(p.data_ptr(), q.data_ptr())
+                                for p, q in zip(params, grads)]) == "narrow",
+            "K9 at the dense model does not take its narrow route")
+    k9_err = max(_check_sgd(f"dense l2={l2}", params, grads, decay, 0.5, l2,
+                            "narrow") for l2 in (0.0, 0.01))
+    log(f"dense kernels agree with their plain versions at the first batch "
+        f"({n} rows, {nnz} nonzeros, {feats} weights): K1 half route max "
+        f"|err| {k1_err[0]:.3g}, K2 private route {k2_err:.3g}, K8 grid "
+        f"route g {k8_err:.3g}, K9 narrow route {k9_err:.3g}")
+
+    # Timing, at the batch as it came from the parser.
+    y01 = (b["label"] > 0).to(torch.float32)
+    m = margins + t[1]
+    a = torch.sparse_csr_tensor(off, idx[:nnz].to(torch.int64), val[:nnz],
+                                size=(n, feats))
+    try:
+        at = a.t()
+        at @ g
+        k2_lib = lambda: at @ g  # noqa: E731
+    except RuntimeError as e:
+        log(f"library K2 at the dense batch not timed: {e}")
+        k2_lib = None
+    turn, copies = rotating([params, grads], (feats + 1) * 8)
+
+    def k9():
+        p, q = turn()
+        step_ops.sgd_update(p, q, decay, DENSE_LEARNING_RATE, 0.0)
+
+    def k9_plain():
+        p, q = turn()
+        step_ops.sgd_update_plain(p, q, decay, DENSE_LEARNING_RATE, 0.0)
+
+    def k9_lib():
+        p, q = turn()
+        torch._foreach_add_(p, q, alpha=-DENSE_LEARNING_RATE)
+
+    csr_bytes = (n + 1) * 8 + nnz * (4 + 4)
+    work = {
+        "csr_spmv": (
+            lambda: csr.csr_spmv(off, idx, val, w),
+            lambda: csr.csr_spmv_plain(off, idx, val, w),
+            lambda: a @ w, route_calls("csr_spmv", "half"),
+            csr_bytes + feats * 4 + n * 4, 2 * nnz,
+            "dmlc_tpu_torch/csrc/csr_spmv.cu", "dmlc_tpu/ops/csr.py:46",
+            k1_err[0]),
+        "csr_spmv_t": (
+            lambda: csr.csr_spmv_t(off, idx, val, g, feats),
+            lambda: csr.csr_spmv_t_plain(off, idx, val, g, feats),
+            k2_lib, route_calls("csr_spmv_t", "private"),
+            csr_bytes + n * 4 + feats * 4, 2 * nnz,
+            "dmlc_tpu_torch/csrc/csr_spmv.cu",
+            "dmlc_tpu/models/common.py:89", k2_err),
+        "logistic_step": (
+            lambda: step_ops.logistic_step(*t),
+            lambda: step_ops.logistic_step_plain(*t),
+            lambda: F.binary_cross_entropy_with_logits(
+                m, y01, t[3], reduction="sum"),
+            {"logistic_step_kernel": 1}, n * 16 + 4 + 3 * 4,
+            n * K8_OPS_PER_ROW, "dmlc_tpu_torch/csrc/step.cu",
+            "dmlc_tpu/models/common.py:28", k8_err),
+        "sgd_update": (
+            k9, k9_plain, k9_lib, route_calls("sgd_update", "narrow"),
+            (feats + 1) * 12, (feats + 1) * 2,
+            "dmlc_tpu_torch/csrc/step.cu", "dmlc_tpu/models/common.py:91",
+            k9_err),
+    }
+    rows = []
+    for name, (kernel, plain, lib, calls, nbytes, ops, source, replaces,
+               err) in work.items():
+        bound, by = bound_ms(nbytes, ops)
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err,
+            "ms": device_ms(kernel, calls=calls),
+            "plain_ms": device_ms(plain), "bound_ms": bound, "bound_by": by,
+            "library_ms": device_ms(lib) if lib else None,
+            "call_ms": call_ms(kernel), "path": "dense"})
+    log(f"dense kernels timed at the first batch (K9 rotating over {copies} "
+        "copies of p and g); library calls: torch.sparse CSR @ w, its "
+        "transpose @ g, F.binary_cross_entropy_with_logits(reduction='sum'), "
+        "torch._foreach_add_")
+    return rows
+
+
+def dense_train(path, lr):
+    """The linear model trained from a dense ``.rec`` on the card:
+    ``SparseLinearModel(48)`` through the dense chain of build_pipeline
+    (native decode → the engine's padded batches → pinned async H2D),
+    ``train_step`` a batch, for one epoch. First one step on the first
+    batch through the kernels and one through their plain versions on the
+    card agree (STEP_RTOL, STEP_ATOL); then the epoch: K1, K2, K8 and K9
+    each launch once a step (the counters), the loss falls; then one epoch
+    of a fresh model through the plain versions (no kernel launching) ends
+    at the same weights (DENSE_EPOCH_RTOL, DENSE_EPOCH_ATOL). GB/s (the
+    file over the epoch's wall) and steps/s."""
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    cuda = torch.device("cuda")
+    size = os.path.getsize(path)
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["linear"] + ("logistic_sums",
+                                                   "logistic_grad")}
+    built = build_pipeline(path, "dense")
+    it = iter(built)
+    batch = next(it)
+    it.close()
+    kernels = SparseLinearModel(DENSE_FEATURES, learning_rate=lr, device=cuda)
+    plain = plain_linear_model(DENSE_FEATURES, lr)
+    got = (kernels.train_step(batch).reshape(1), kernels.w.detach(),
+           kernels.b.detach().reshape(1))
+    want = (plain.train_step(batch).reshape(1), plain.w.detach(),
+            plain.b.detach().reshape(1))
+    for what, x, y in zip(("loss", "w", "b"), got, want):
+        require(torch.allclose(x, y, rtol=STEP_RTOL, atol=STEP_ATOL),
+                f"dense_train: the first step through the kernels vs the plain "
+                f"versions: {what} max |err| {(x - y).abs().max().item()}")
+
+    model = SparseLinearModel(DENSE_FEATURES, learning_rate=lr, device=cuda)
+    for fn in wrappers.values():
+        fn.launches = 0
+    secs, losses, steps, _ = train_epoch(built, model, train=True)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want_launches = {k: steps if k in PATH_KERNELS["linear"] else 0
+                     for k in launches}
+    require(steps > 0 and launches == want_launches,
+            f"dense_train: launches {launches} != {want_launches}: the epoch "
+            "did not go through K1, K2, K8 and K9 once a step")
+    tail = sum(losses[-10:]) / len(losses[-10:])
+    require(all(x == x and abs(x) != float("inf") for x in losses)
+            and tail < losses[0],
+            f"dense_train: the loss did not fall: first {losses[0]}, mean of "
+            f"the last 10 {tail}")
+    reference = plain_linear_model(DENSE_FEATURES, lr)
+    _, plain_losses, plain_steps, _ = train_epoch(built, reference,
+                                                  train=True)
+    built.close()
+    require(plain_steps == steps and all(
+        fn.launches == launches[k] for k, fn in wrappers.items()),
+        "dense_train: the plain epoch launched a kernel or took other steps")
+    w_err = (model.w - reference.w).detach().abs().max().item()
+    for what, x, y in (("w", model.w.detach(), reference.w.detach()),
+                       ("b", model.b.detach(), reference.b.detach())):
+        require(torch.allclose(x, y, rtol=DENSE_EPOCH_RTOL,
+                               atol=DENSE_EPOCH_ATOL),
+                f"dense_train: after the epoch, {what} through the kernels vs "
+                f"the plain versions: max |err| "
+                f"{(x - y).abs().max().item()}")
+    stats = {"bytes": size, "steps": steps, "epoch_s": secs,
+             "gbps": size / secs / 1e9, "steps_per_s": steps / secs,
+             "loss_first": losses[0], "loss_last10": tail, "w_err": w_err,
+             "plain_loss_last": plain_losses[-1]}
+    log(f"dense_train: SparseLinearModel({DENSE_FEATURES}) at learning rate "
+        f"{lr}, {steps} steps over {size} bytes of dense records: "
+        f"{stats['gbps']:.3f} GB/s, {stats['steps_per_s']:.2f} steps/s; loss "
+        f"{losses[0]:.4f} -> {tail:.4f} (mean of the last 10); the first "
+        f"step equal to the plain versions' (rtol {STEP_RTOL}, atol "
+        f"{STEP_ATOL}); after the epoch w max |err| {w_err:.3g} against the "
+        f"plain versions' epoch (rtol {DENSE_EPOCH_RTOL}, atol "
+        f"{DENSE_EPOCH_ATOL}); launches {launches}")
+    return launches, stats
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
@@ -4010,8 +4617,17 @@ def main() -> None:
         t0 = time.perf_counter()
         size = write_corpus(path)
         log(f"corpus: {size} bytes in {time.perf_counter() - t0:.1f} s")
+        train = os.path.join(work, "dense_train.rec")
+        t0 = time.perf_counter()
+        train_size = write_dense_corpus(train)
+        log(f"dense training corpus: {train_size} bytes in "
+            f"{time.perf_counter() - t0:.1f} s")
         first = first_batch(path)
         rows = check_kernels(first) + check_step_kernels(first)
+        # the dense path's kernels here, among the run's first traces: a
+        # trace taken long after the one before it (in one run, after the
+        # RecordIO corpora's writes) came back with no device activity
+        dense_rows = check_dense_kernels(first_batch(train, "dense"))
         launches, stats = main_path(path, size, LEARNING_RATE, first)
         sharded_rows = [r for r in rows
                         if r["name"] in ("logistic_sums", "logistic_grad")]
@@ -4070,11 +4686,23 @@ def main() -> None:
                        RANK_LEARNING_RATE)
         rows += rank_rows
         sharded_dryrun(mesh)
+
+        # the RecordIO paths: cuda:// ingest, the dense and image decode,
+        # the linear model trained from dense records
+        corpora = write_recordio_corpora(work)
+        stats["cuda_ingest"] = cuda_ingest(linear, corpora["recordio"])
+        stats["recordio_decode"] = recordio_decode(corpora)
+        launches, stats["dense_train"] = dense_train(train,
+                                                     DENSE_LEARNING_RATE)
+        report_kernels(dense_rows, launches, stats["dense_train"]["steps"])
+        rows += dense_rows
+        os.unlink(train)
         # the bench configs last, after every traced phase: in a run with
         # them before the factor path (config 7's two worker processes on
         # the card among them), the factor kernels' profiler traces came
         # back with no device activity
-        stats["bench"] = bench_twins(linear, work)
+        stats["bench"] = bench_twins(linear, work,
+                                     stats["cuda_ingest"]["records_hash"])
         os.unlink(linear)
         from dmlc_tpu_torch.parallel.launch import finalize
         finalize()

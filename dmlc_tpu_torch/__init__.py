@@ -5,9 +5,13 @@ counterpart at the same path there, and the JAX package stays the
 reference the tests hold this one to. This package imports torch and
 numpy, never jax, and nothing of ``dmlc_tpu``.
 
-Ported so far: local-file ``InputSplit``, the libsvm and libfm parsers
-(Python golden and native C++ engine, with ABI-5 padded batch assembly
-that carries libfm's ``field`` column), bucket padding, the pinned async
+Ported so far: local-file ``InputSplit`` (text and RecordIO), the
+libsvm, libfm, dense-record and image-record parsers (Python golden and
+native C++ engine, with ABI-5 padded batch assembly that carries libfm's
+``field`` column, and the sharded single-input parse), the RecordIO
+codec and native record reader, the ``cuda://`` scheme (streams that
+stage bytes and RecordIO record batches straight into device memory),
+bucket padding, the pinned async
 host→device iterator, the pipeline graph (``dmlc_tpu_torch.pipeline``:
 ``Pipeline.from_uri(...).parse(...).batch(...).to_device(...).build()``
 with its stage probes and autotuner), the CSR SpMV kernels with their
@@ -26,7 +30,10 @@ from dmlc_tpu_torch.utils.logging import DMLCError
 from dmlc_tpu_torch.data.parser import Parser
 from dmlc_tpu_torch.data import libsvm_parser as _libsvm  # registers "libsvm"
 from dmlc_tpu_torch.data import libfm_parser as _libfm  # registers "libfm"
+from dmlc_tpu_torch.data import dense_record_parser as _dense  # "recordio_dense"
+from dmlc_tpu_torch.data import image_record_parser as _image  # "recordio_image"
+from dmlc_tpu_torch.io import cuda_fs as _cuda_fs  # registers cuda://
 
 __all__ = ["DMLCError", "Parser"]
 
-del _libsvm, _libfm
+del _libsvm, _libfm, _dense, _image, _cuda_fs

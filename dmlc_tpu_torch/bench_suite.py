@@ -5,6 +5,9 @@ whose planes are ported; each emits one JSON line with the reference's
 keys, ``"platform"`` naming the device the numbers came from (``gpu``
 on the card) where the reference reports one:
 
+  3. recordio — the RecordIO split over 4 parts of an ImageNet-.rec-
+               shaped corpus (60-140 KB binary records), through the
+               native record reader when the engine is built
   4. prefetch — four parts parsed on concurrent threads, each copying
                its blocks to the device through its own pinned staging
                pool, 4 copies in flight a part (the multi-host shape)
@@ -18,22 +21,32 @@ on the card) where the reference reports one:
                forced over its agreement_cache_bytes budget, steady
                epochs served from the spilled round pages (the
                larger-than-RAM training shape)
+ 14. recio_native — the native dense-RecordIO decode (ABI 6) vs the
+               Python golden vs the sharded gang, sha256-parity pinned
+ 18. image_record — the native image-payload decode (ABI 8): the
+               config-3 scenario's decoded batches (raw uniform HWC u8
+               -> padded f32), python / native / sharded x2
+               sha256-identical
 
-Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB]. Every
-config copies to the card (config 4 as the reference's ``--device``
-run does; its parse-only form is not ported).
+Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB].
+Configs 4, 7, 8 and 10 copy to the card (config 4 as the reference's
+``--device`` run does; its parse-only form is not ported); configs 3,
+14 and 18 are the reference's host-side measurements (read and decode,
+no copy), as there.
 
 Trimmed from the reference: every other config (their planes are not
 ported), the warm-up pass, ``--trace`` and ``--chaos``. Data files go
 under ``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a config is
-given a ``work`` directory. Every config reads one corpus file, the
-reference's criteo shape from seed 7 (the file its configs 4, 9 and 12
+given a ``work`` directory. Configs 3, 14 and 18 write the reference's
+RecordIO corpora (``make_recordio``, ``make_dense_recordio``,
+``make_image_recordio``: the same bytes from the same seed). Every other
+config reads one corpus file, the reference's criteo shape from seed 7 (the file its configs 4, 9 and 12
 share; it writes the same bytes under more names for 7, 8 and 10):
 ``make_libsvm`` draws each row's indices by a permutation of 10^6, so
 writing it takes minutes whatever ``mb`` is, and a second copy would
-double that. Configs 8 and 10 take the reference's ``gauge_fn`` (e.g.
-``bench_transfer.memcpy_gauge``), which tags each epoch with the
-host's memcpy rate just before it.
+double that. Configs 8, 10, 14 and 18 take the reference's ``gauge_fn``
+(e.g. ``bench_transfer.memcpy_gauge``, the default of 14 and 18), which
+tags each epoch with the host's memcpy rate just before it.
 """
 
 from __future__ import annotations
@@ -49,8 +62,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-__all__ = ["make_libsvm", "bench_prefetch", "bench_multiprocess_ingest",
-           "bench_page_replay", "bench_spill_replay", "CONFIGS", "main"]
+from dmlc_tpu_torch.utils.logging import check
+
+__all__ = ["make_libsvm", "make_recordio", "make_dense_recordio",
+           "make_image_recordio", "bench_recordio", "bench_prefetch",
+           "bench_multiprocess_ingest", "bench_page_replay",
+           "bench_spill_replay", "bench_recio_native",
+           "bench_image_record", "CONFIGS", "main"]
 
 
 def _prefix(work: Optional[str]) -> str:
@@ -111,6 +129,88 @@ def make_libsvm(path: str, mb: int, seed: int = 0,
     return os.path.getsize(path)
 
 
+def make_recordio(prefix: str, mb: int, nparts: int = 4,
+                  seed: int = 0) -> List[str]:
+    """ImageNet-.rec-shaped: multi-part files of ~100KB binary records."""
+    from dmlc_tpu_torch.io.recordio import RecordIOWriter
+    from dmlc_tpu_torch.io.stream import create_stream
+    paths = [f"{prefix}.part{k}.rec" for k in range(nparts)]
+    per_part = (mb << 20) // nparts
+    rng = np.random.RandomState(seed)
+    for p in paths:
+        if os.path.exists(p) and os.path.getsize(p) >= per_part * 3 // 4:
+            continue
+        with create_stream(p, "w") as s:
+            w = RecordIOWriter(s)
+            written = 0
+            while written < per_part:
+                rec = rng.bytes(rng.randint(60_000, 140_000))
+                w.write_record(rec)
+                written += len(rec) + 8
+    return paths
+
+
+def make_dense_recordio(path: str, mb: int, seed: int = 0,
+                        n_range=(24, 48)) -> int:
+    """Dense .rec corpus for config 14: RecordIO-framed dense records
+    (the frozen ABI-6 payload ``u32 n | f32 label | f32[n] values``)
+    with a sprinkle of values whose f32 bits equal the frame magic, so
+    the escaped multi-frame decode path runs inside the measured
+    epoch (not just in unit tests)."""
+    import struct
+
+    from dmlc_tpu_torch.io.recordio import (DenseRecordWriter, RECORDIO_MAGIC)
+    from dmlc_tpu_torch.io.stream import create_stream
+    if os.path.exists(path) and os.path.getsize(path) >= (mb << 20) * 3 // 4:
+        return os.path.getsize(path)
+    rng = np.random.RandomState(seed)
+    magic_f32 = np.frombuffer(struct.pack("<I", RECORDIO_MAGIC),
+                              "<f4")[0]
+    with create_stream(path, "w") as s:
+        w = DenseRecordWriter(s)
+        written = 0
+        i = 0
+        while written < (mb << 20):
+            n = int(rng.randint(*n_range))
+            vals = rng.rand(n).astype(np.float32)
+            if i % 251 == 0:
+                vals[n // 2] = magic_f32
+            w.write(float(i % 7) - 3.0, vals)
+            written += 16 + 4 * n
+            i += 1
+    return os.path.getsize(path)
+
+
+def make_image_recordio(path: str, mb: int, seed: int = 0,
+                        shape=(32, 32, 3)) -> int:
+    """Config-18 corpus — the MXNet-style ImageNet ``.rec`` scenario
+    (BASELINE config 3) with DECODABLE payloads: uniform-shape raw HWC
+    u8 images (frozen ABI-8 payload contract), a sprinkle of pixel
+    runs spelling the frame magic so the escaped multi-frame decode
+    path runs inside the measured epoch."""
+    import struct
+
+    from dmlc_tpu_torch.io.recordio import RECORDIO_MAGIC, ImageRecordWriter
+    from dmlc_tpu_torch.io.stream import create_stream
+    if os.path.exists(path) and os.path.getsize(path) >= (mb << 20) * 3 // 4:
+        return os.path.getsize(path)
+    rng = np.random.RandomState(seed)
+    magic = np.frombuffer(struct.pack("<I", RECORDIO_MAGIC), np.uint8)
+    per_rec = 16 + int(np.prod(shape))
+    with create_stream(path, "w") as s:
+        w = ImageRecordWriter(s)
+        written = 0
+        i = 0
+        while written < (mb << 20):
+            px = rng.randint(0, 256, shape).astype(np.uint8)
+            if i % 101 == 0:
+                px.reshape(-1)[8:12] = magic  # 4-aligned in the payload
+            w.write(float(i % 1000), px)
+            written += per_rec + 8
+            i += 1
+    return os.path.getsize(path)
+
+
 def _criteo(prefix: str, mb: int) -> str:
     """The criteo-shaped corpus of every config (written once)."""
     path = f"{prefix}.criteo.libsvm"
@@ -135,6 +235,36 @@ def _put(arrays: Dict[str, np.ndarray], device: torch.device):
 def _done(put) -> None:
     if put[1] is not None:
         put[1].synchronize()
+
+
+def format_stages(s: Dict[str, int], size: int) -> Optional[str]:
+    """One-line per-stage breakdown from an engine stats dict."""
+    parse_key = "parse_busy_ns" if "parse_busy_ns" in s else "decode_busy_ns"
+    cpu_key = "parse_cpu_ns" if "parse_busy_ns" in s else "decode_cpu_ns"
+    rd, pb, wall = s["reader_busy_ns"], s[parse_key], s["wall_ns"]
+    if not (rd and pb and wall):
+        return None
+    stage = parse_key.split("_")[0]
+    pc = s.get(cpu_key, 0)
+    # the cpu rate is the honest per-core kernel speed: wall-based busy
+    # inflates whenever workers are preempted (1-core hosts)
+    cpu_part = (f" {stage}-cpu={pc / 1e9:.2f}s ({size / pc:.2f} GB/s/core)"
+                if pc else "")
+    extra = ""
+    if "max_chunk_queue_depth" in s:
+        extra = (f" depth(chunkq={s['max_chunk_queue_depth']}, "
+                 f"reorder={s['max_reorder_depth']})")
+    return (f"stages: read={rd / 1e9:.2f}s ({size / rd:.2f} GB/s) "
+            f"{stage}={pb / 1e9:.2f}s ({size / pb:.2f} GB/s summed)"
+            f"{cpu_part} wall={wall / 1e9:.2f}s chunks={s['chunks']}"
+            f"{extra}")
+
+
+def _stage_line(parser_or_reader, size: int) -> Optional[str]:
+    stats = getattr(parser_or_reader, "stats", None)
+    if stats is None:
+        return None
+    return format_stages(stats(), size)
 
 
 PREFETCH_IN_FLIGHT = 4  # device copies in flight a part (config 4)
@@ -435,11 +565,203 @@ def bench_spill_replay(mb: int, gauge_fn=None, replay_epochs: int = 5,
             "platform": _platform(dev)}
 
 
+def bench_recordio(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 3: the RecordIO split over 4 parts of an ImageNet-.rec-
+    shaped corpus, through the native record reader when the engine is
+    built (else the Python split). Each chunk's records are kept (the
+    native leases held) so the coverage hash, sha256 over every record's
+    sha256, is computed outside the timed region."""
+    import hashlib
+
+    paths = make_recordio(f"{_prefix(work)}.imagenet", mb, nparts=4)
+    uri = ";".join(paths)
+    size = sum(os.path.getsize(p) for p in paths)
+    from dmlc_tpu_torch.native import native_available
+    engine = "native" if native_available() else "python"
+    t0 = time.perf_counter()
+    nrec = 0
+    batches: List = []  # (payload bytes-like, spans, lease) per chunk
+    readers: List = []
+    if engine == "native":
+        from dmlc_tpu_torch.native.bindings import NativeRecordIOReader
+        for k in range(4):
+            r = NativeRecordIOReader(uri, k, 4)
+            readers.append(r)  # keep alive: leased views hashed below
+            while True:
+                batch = r.next_batch()
+                if batch is None:
+                    break
+                data, starts, ends = batch
+                nrec += len(starts)
+                batches.append((data, (starts, ends), r.detach()))
+            line = _stage_line(r, size // 4)
+            if line and k == 0:
+                _log(f"  part0 {line}")
+    else:
+        from dmlc_tpu_torch.io.input_split import InputSplit
+        for k in range(4):
+            for rec in InputSplit.create(uri, k, 4, "recordio"):
+                nrec += 1
+                batches.append((rec, None, None))
+    dt = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for data, spans, _lease in batches:
+        if spans is None:
+            digest.update(hashlib.sha256(data).digest())
+        else:
+            starts, ends = spans
+            view = memoryview(data)
+            for i in range(len(starts)):
+                digest.update(hashlib.sha256(
+                    view[int(starts[i]):int(ends[i])]).digest())
+    for _, _, lease in batches:
+        if lease is not None:
+            lease.release()
+    for r in readers:
+        r.destroy()
+    return {"config": "recordio_imagenet", "gbps": size / dt / 1e9,
+            "bytes": size, "records": nrec, "engine": engine,
+            "hash": digest.hexdigest()[:16]}
+
+
+def _decode_contest(path: str, fmt: str, rows: int, nnz_bucket: int,
+                    gauge_fn) -> Dict:
+    """Configs 14 and 18: ``path`` through ``parse(format=fmt) →
+    batch(rows, pad=True, nnz_bucket=...)`` three ways, engine=python
+    (the golden), engine=native and engine=native with ``shards=2``, each
+    epoch tagged by ``gauge_fn`` (default ``bench_transfer.memcpy_gauge``),
+    the two native contenders' 3 epochs interleaved. Every stream's
+    padded batches are hashed in an untimed pass and must be
+    sha256-identical; the native paths must assemble in the engine and
+    leave no lease out after an epoch (``outstanding()``). Returns the
+    reference's keys but ``config``, ``bytes`` and its shape keys."""
+    import hashlib
+
+    from dmlc_tpu_torch.pipeline import Pipeline
+
+    if gauge_fn is None:
+        from dmlc_tpu_torch.bench_transfer import memcpy_gauge
+        gauge_fn = memcpy_gauge
+    size = os.path.getsize(path)
+
+    def build(engine, shards=None):
+        kw = {"shards": shards} if shards else {}
+        return (Pipeline.from_uri(path)
+                .parse(format=fmt, engine=engine, **kw)
+                .batch(rows, pad=True, nnz_bucket=nnz_bucket)
+                .build())
+
+    def measure(built, state):
+        state.setdefault("gauges", []).append(round(gauge_fn(), 2))
+        t0 = time.perf_counter()
+        for _ in built:
+            pass
+        state.setdefault("walls", []).append(time.perf_counter() - t0)
+        # leak probe: between epochs NO lease may stay out (the last
+        # padded lease releases on the epoch's terminal pull)
+        parser = getattr(built._runners[0], "_parser", None)
+        if parser is not None and hasattr(parser, "outstanding"):
+            state["outstanding"] = int(parser.outstanding())
+
+    def finish(built, state):
+        snap = built.stats()
+        apath = next((x["assembly_path"] for s in snap["stages"]
+                      if (x := s.get("extra") or {}).get("assembly_path")),
+                     None)
+        h = hashlib.sha256()
+        n = 0
+        for b in built:
+            for k in sorted(b):
+                h.update(k.encode())
+                h.update(np.ascontiguousarray(b[k]).tobytes())
+            n += 1
+        built.close()
+        return {"gbps": round(size / min(state["walls"]) / 1e9, 4),
+                "epoch_walls": [round(w, 3) for w in state["walls"]],
+                "epoch_gauges": state["gauges"],
+                "assembly_path": apath, "batches": n,
+                "outstanding_after_epoch": state.get("outstanding"),
+                "hash": h.hexdigest()}
+
+    from dmlc_tpu_torch import native
+    py_built, py_state = build("python"), {}
+    measure(py_built, py_state)
+    py = finish(py_built, py_state)
+    out = {"python": py, "gbps": py["gbps"], "hash": py["hash"],
+           "epoch_gauges": py["epoch_gauges"]}
+    if not native.native_available():
+        out.update({"native": None, "sharded": None,
+                    "speedup_native_vs_python": None,
+                    "speedup_sharded_vs_native": None})
+        return out
+    contenders = {"native": build("native"),
+                  "sharded": build("native", shards=2)}
+    states = {k: {} for k in contenders}
+    for _ in range(3):
+        for k, b in contenders.items():
+            measure(b, states[k])
+    nat = finish(contenders["native"], states["native"])
+    sh = finish(contenders["sharded"], states["sharded"])
+    check(nat["assembly_path"] == "native-padded",
+          f"native {fmt} decode fell back to {nat['assembly_path']}")
+    for name, r in (("native", nat), ("sharded", sh)):
+        check(r["hash"] == py["hash"],
+              f"{name} {fmt} stream diverged from the python golden")
+        check(r["outstanding_after_epoch"] == 0,
+              f"{name}: {r['outstanding_after_epoch']} leases leaked")
+    out.update({
+        "native": nat, "sharded": sh, "gbps": nat["gbps"],
+        "epoch_gauges": nat["epoch_gauges"],
+        "speedup_native_vs_python": round(nat["gbps"] / py["gbps"], 3),
+        "speedup_sharded_vs_native": round(sh["gbps"] / nat["gbps"], 3)})
+    return out
+
+
+def bench_recio_native(mb: int, gauge_fn=None,
+                       work: Optional[str] = None) -> Dict:
+    """Config 14: the native dense-RecordIO decode (ABI 6) vs the Python
+    golden vs the sharded gang on a dense .rec corpus (24-48 values a
+    row, a value carrying the frame magic's bits every 251st row, so the
+    escaped multi-frame decode runs in the measured epochs), 8192 rows a
+    batch (``_decode_contest``)."""
+    path = f"{_prefix(work)}.dense.rec"
+    make_dense_recordio(path, mb, seed=11)
+    rows = 8 << 10
+    nnz_bucket = rows * 48
+    out = {"config": "recio_native", "bytes": os.path.getsize(path),
+           "rows": rows, "nnz_bucket": nnz_bucket}
+    out.update(_decode_contest(path, "recordio_dense", rows, nnz_bucket,
+                               gauge_fn))
+    return out
+
+
+def bench_image_record(mb: int, gauge_fn=None,
+                       work: Optional[str] = None) -> Dict:
+    """Config 18: the native image-payload decode (ABI 8), config 3's
+    ImageNet-.rec scenario with decodable payloads: uniform 32x32x3 raw
+    HWC u8 images (pixel runs spelling the frame magic every 101st
+    record), 256 rows a batch, decoded to padded f32 batches
+    (``_decode_contest``)."""
+    path = f"{_prefix(work)}.images.rec"
+    shape = (32, 32, 3)
+    make_image_recordio(path, mb, seed=18, shape=shape)
+    rows = 256
+    nnz_bucket = rows * int(np.prod(shape))
+    out = {"config": "image_record", "bytes": os.path.getsize(path),
+           "shape": list(shape), "rows": rows}
+    out.update(_decode_contest(path, "recordio_image", rows, nnz_bucket,
+                               gauge_fn))
+    return out
+
+
 CONFIGS = {
+    3: ("recordio", lambda mb: bench_recordio(mb)),
     4: ("prefetch", lambda mb: bench_prefetch(mb)),
     7: ("multiprocess", lambda mb: bench_multiprocess_ingest(mb)),
     8: ("page_replay", lambda mb: bench_page_replay(mb)),
     10: ("spill_replay", lambda mb: bench_spill_replay(mb)),
+    14: ("recio_native", lambda mb: bench_recio_native(mb)),
+    18: ("image_record", lambda mb: bench_image_record(mb)),
 }
 
 

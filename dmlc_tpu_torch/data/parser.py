@@ -10,8 +10,9 @@ implementations subclass TextParserBase and provide ``parse_block(records,
 container)``. The native C++ engine (dmlc_tpu_torch.native) slots in at
 Parser.create via engine="native"; engine="auto" prefers native when it
 builds, and both engines share the frozen parse semantics (see
-data/strtonum.py), so blocks are byte-identical. The ``libsvm`` and
-``libfm`` formats are registered in this package so far.
+data/strtonum.py), so blocks are byte-identical. The ``libsvm``, ``libfm``,
+``recordio_dense`` and ``recordio_image`` formats are registered in this
+package so far (``import dmlc_tpu_torch`` registers all four).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
 from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.io.input_split import InputSplit
 from dmlc_tpu_torch.io.uri_spec import URISpec
-from dmlc_tpu_torch.utils.logging import DMLCError, check
+from dmlc_tpu_torch.utils.logging import DMLCError, check, log_warning
 from dmlc_tpu_torch.utils.registry import Registry
 
 __all__ = ["DataIter", "Parser", "TextParserBase", "PARSER_REGISTRY",
@@ -40,8 +41,26 @@ def native_or(native_cls_name: str, python_cls, kwargs):
     back to the Python golden when it cannot be built or cannot serve
     the URI. engine="native": require it, re-raising any failure.
     engine="python": golden only.
+
+    ``shards=N`` (N > 1, whole-input reads only) splits one input
+    across N independent native parsers on byte ranges with
+    deterministic in-order block reassembly
+    (bindings.NativeShardedTextParser), byte-identical to the 1-parser
+    stream. The python golden (and a part of a wider split) runs
+    unsharded: shards is a pure performance knob, never a semantics
+    change.
     """
     engine = kwargs.get("engine", "auto")
+    shards = int(kwargs.pop("shards", 1) or 1)
+    whole = (kwargs.get("part_index", 0) == 0
+             and kwargs.get("num_parts", 1) == 1)
+    if shards > 1 and not whole:
+        # an outer part/num_parts split already subdivides the input;
+        # nesting the shard split would apply the byte-range alignment
+        # rule twice with different steps
+        log_warning(f"shards={shards} ignored under a part/num_parts "
+                    "split (sharded parse serves whole inputs only)")
+        shards = 1
     if engine in ("auto", "native"):
         from dmlc_tpu_torch.native import native_available
         if native_available():
@@ -49,13 +68,20 @@ def native_or(native_cls_name: str, python_cls, kwargs):
                 from dmlc_tpu_torch.native import bindings
                 nat_kwargs = {k: v for k, v in kwargs.items()
                               if k != "prefetch_depth"}
-                return getattr(bindings, native_cls_name)(**nat_kwargs)
+                cls = getattr(bindings, native_cls_name)
+                if shards > 1:
+                    return bindings.NativeShardedTextParser(
+                        **nat_kwargs, shards=shards, format=cls._format)
+                return cls(**nat_kwargs)
             except (DMLCError, FileNotFoundError, OSError):
                 if engine == "native":
                     raise
         elif engine == "native":
             from dmlc_tpu_torch.native import get_lib
             get_lib()  # raises with the build failure
+    if shards > 1:
+        log_warning(f"shards={shards} ignored: the sharded single-input "
+                    "parse needs the native engine; running unsharded")
     return python_cls(**kwargs)
 
 

@@ -19,9 +19,6 @@ binary row pages and RoundSpillWriter's round pages (data/row_iter.py)
   skipping entries pinned by this process or owned by live writers.
 
 Trimmed from the reference:
-- ``stat_uri`` stats local and ``file://`` paths with ``os.stat`` and
-  other schemes through the port's ``io/filesys.py`` (the reference's
-  ``tpu://`` mapping, ``io/tpu_fs.local_path``, is not ported);
 - the ``pagestore.hit`` / ``miss`` / ``evict`` counters of the obs
   metrics registry, which is not ported;
 - ``PageStore.default()`` with its ``DMLC_TPU_PAGESTORE_BUDGET`` and
@@ -113,13 +110,15 @@ def _name_owner_dead(name: str) -> Optional[bool]:
 
 def stat_uri(uri: str) -> Tuple[int, int, int, int]:
     """(size, mtime_ns, ctime_ns, inode) for a possibly scheme-bearing
-    path — THE stat rule for fingerprints. Local and ``file://`` paths
-    use os.stat (full richness); other registered schemes stat through
-    their FileSystem (``get_path_info``), reporting 0 for the fields
-    the port's FileInfo does not carry. Raises OSError for missing
-    local files, DMLCError for a scheme that is not ported."""
+    path — THE stat rule for fingerprints. Local, ``file://`` and
+    ``cuda://`` paths use os.stat (full richness); other registered
+    schemes stat through their FileSystem (``get_path_info``), reporting
+    0 for the fields the port's FileInfo does not carry. Raises OSError
+    for missing local files, DMLCError for a scheme that is not
+    ported."""
+    from dmlc_tpu_torch.io.cuda_fs import local_path
     from dmlc_tpu_torch.io.filesys import URI, FileSystem
-    u = URI(uri)
+    u = URI(local_path(uri))
     if u.protocol == "file://":
         st = os.stat(u.name)
         return (st.st_size, st.st_mtime_ns, st.st_ctime_ns, st.st_ino)

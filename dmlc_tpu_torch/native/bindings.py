@@ -1,17 +1,24 @@
-"""ctypes bindings for the native engine + the libsvm and libfm Parser adapters.
+"""ctypes bindings for the native engine: the libsvm, libfm, dense-record
+and image-record Parser adapters, the sharded single-input parser and the
+RecordIO record reader.
 
 The native parser implements the same Parser protocol as the Python
 golden (data/parser.py) with byte-identical output. File listing and URI
 handling stay in Python (the VFS is the source of truth for shard
-layout); the native side owns reading, splitting, parsing and padded
-batch assembly.
+layout; ``cuda://`` paths map to their backing files); the native side
+owns reading, splitting, parsing and padded batch assembly.
+
+Trimmed from ``dmlc_tpu/native/bindings.py``: the csv, parquet and
+indexed-recordio adapters, the engine's trace and profiler entries, the
+test hooks, and the obs metrics registration of each handle
+(``native/<format>``, ``native/recordio``), which is not ported.
 """
 
 from __future__ import annotations
 
 import ctypes as C
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -23,7 +30,9 @@ from dmlc_tpu_torch.io.uri_spec import URISpec
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["load", "BlockLease", "NativeTextParser", "NativeLibSVMParser",
-           "NativeLibFMParser"]
+           "NativeLibFMParser", "NativeDenseRecordParser",
+           "NativeImageRecordParser", "NativeShardedTextParser",
+           "NativeRecordIOReader"]
 
 _lib = None
 
@@ -80,6 +89,23 @@ def load(path: str):
         C.POINTER(C.c_int), C.POINTER(C.c_int), C.POINTER(C.c_int),
     ]
     lib.dtp_padded_release.argtypes = [C.c_void_p, C.c_void_p]
+    # ABI-6 gang assembly: padded batches cut ACROSS sharded
+    # sub-parsers (same out-param layout as dtp_parser_next_padded)
+    lib.dtp_gang_create.restype = C.c_void_p
+    lib.dtp_gang_create.argtypes = [C.POINTER(C.c_void_p), C.c_int64]
+    lib.dtp_gang_next_padded.restype = C.c_int64
+    lib.dtp_gang_next_padded.argtypes = \
+        list(lib.dtp_parser_next_padded.argtypes)
+    lib.dtp_gang_padded_release.argtypes = [C.c_void_p, C.c_void_p]
+    lib.dtp_gang_outstanding.restype = C.c_int64
+    lib.dtp_gang_outstanding.argtypes = [C.c_void_p]
+    lib.dtp_gang_assemble_ns.restype = C.c_int64
+    lib.dtp_gang_assemble_ns.argtypes = [C.c_void_p]
+    lib.dtp_gang_before_first.argtypes = [C.c_void_p]
+    lib.dtp_gang_destroy.argtypes = [C.c_void_p]
+    lib.dtp_parser_start.argtypes = [C.c_void_p]
+    lib.dtp_parser_outstanding.restype = C.c_int64
+    lib.dtp_parser_outstanding.argtypes = [C.c_void_p]
     lib.dtp_parser_before_first.argtypes = [C.c_void_p]
     lib.dtp_block_release.argtypes = [C.c_void_p, C.c_void_p]
     lib.dtp_block_index_range.argtypes = [
@@ -88,6 +114,25 @@ def load(path: str):
     lib.dtp_parser_bytes_read.restype = C.c_int64
     lib.dtp_parser_bytes_read.argtypes = [C.c_void_p]
     lib.dtp_parser_destroy.argtypes = [C.c_void_p]
+    lib.dtp_recio_create.restype = C.c_void_p
+    lib.dtp_recio_create.argtypes = [
+        C.POINTER(C.c_char_p), C.POINTER(C.c_int64), C.c_int64, C.c_int64,
+        C.c_int64, C.c_int64,
+    ]
+    lib.dtp_recio_next_batch.restype = C.c_int64
+    lib.dtp_recio_next_batch.argtypes = [
+        C.c_void_p, C.POINTER(C.c_void_p),
+        C.POINTER(C.POINTER(C.c_uint8)), C.POINTER(C.POINTER(C.c_int64)),
+        C.POINTER(C.POINTER(C.c_int64)),
+    ]
+    lib.dtp_recio_block_release.argtypes = [C.c_void_p, C.c_void_p]
+    lib.dtp_recio_before_first.argtypes = [C.c_void_p]
+    lib.dtp_recio_bytes_read.restype = C.c_int64
+    lib.dtp_recio_bytes_read.argtypes = [C.c_void_p]
+    lib.dtp_recio_total_size.restype = C.c_int64
+    lib.dtp_recio_total_size.argtypes = [C.c_void_p]
+    lib.dtp_recio_stats.argtypes = [C.c_void_p, C.POINTER(C.c_int64)]
+    lib.dtp_recio_destroy.argtypes = [C.c_void_p]
     _lib = lib
     return lib
 
@@ -98,9 +143,12 @@ def _get_lib():
 
 
 def _local_split_files(uri: str):
-    """[(local_path, size)] for a split URI: the engine reads raw local
-    bytes, so every path must exist locally."""
-    files = list_split_files(uri)
+    """[(local_path, size)] for a split URI. The engine reads raw local
+    bytes, so cuda:// VFS paths map to their backing files (device
+    staging happens at the consumer edge); anything else must exist
+    locally."""
+    from dmlc_tpu_torch.io.cuda_fs import local_path
+    files = [(local_path(p), s) for p, s in list_split_files(uri)]
     for p, _ in files:
         check(os.path.exists(p),
               f"native engine requires local files, got {p!r}")
@@ -146,6 +194,76 @@ class _PaddedLease(BlockLease):
     __slots__ = ()
 
     _release_fn = "dtp_padded_release"
+
+
+class _GangPaddedLease(BlockLease):
+    """Lease over one gang-assembled padded block (ABI 6): the buffers
+    return to the GANG's padded pool on release (the owner's _handle
+    is the gang handle, not a parser handle)."""
+
+    __slots__ = ()
+
+    _release_fn = "dtp_gang_padded_release"
+
+
+class _RecioLease(BlockLease):
+    """BlockLease for record batches (different C release entry)."""
+
+    __slots__ = ()
+
+    _release_fn = "dtp_recio_block_release"
+
+
+def _padded_outparams():
+    """The out-params of dtp_parser_next_padded and dtp_gang_next_padded
+    (ABI 5/6), allocated once a parser: the C call overwrites them."""
+    return (C.c_void_p(),             # padded-block lease
+            C.POINTER(C.c_int64)(),   # offset
+            C.POINTER(C.c_float)(),   # label
+            C.POINTER(C.c_float)(),   # weight
+            C.POINTER(C.c_float)(),   # value
+            C.POINTER(C.c_uint32)(),  # index32
+            C.POINTER(C.c_uint64)(),  # index64
+            C.POINTER(C.c_int64)(),   # qid
+            C.POINTER(C.c_int64)(),   # field
+            C.c_int64(),              # num_nnz
+            C.c_int(), C.c_int(), C.c_int())
+
+
+def _padded_views(outs, n: int, rb: int, nnz_bucket: int,
+                  index_dtype) -> PaddedBatch:
+    """The batch of ``n`` rows the engine just cut into ``outs``
+    (_padded_outparams), as ZERO-COPY views into its leased padded block,
+    padded to (rb, nnz_bucket). A PaddedBatch (not a plain dict): it has
+    the ``lease`` slot a consumer that detaches the lease can attach to
+    the item."""
+    (_, offset, label, weight, value, index32, index64, qid, field,
+     num_nnz, wide, has_qid, has_field) = outs
+
+    def arr(ptr, count, dtype):
+        if count == 0:
+            return np.empty(0, dtype)
+        return np.ctypeslib.as_array(ptr, shape=(count,))
+
+    nb = int(nnz_bucket)
+    if wide.value:
+        index = arr(index64, nb, np.uint64)
+    else:
+        index = arr(index32, nb, np.uint32)
+    if index_dtype != index.dtype:
+        index = index.astype(index_dtype)
+    out = PaddedBatch(
+        {"offset": arr(offset, rb + 1, np.int64),
+         "label": arr(label, rb, np.float32),
+         "weight": arr(weight, rb, np.float32),
+         "index": index,
+         "value": arr(value, nb, np.float32),
+         "num_rows": np.int32(n), "num_nnz": np.int32(int(num_nnz.value))})
+    if has_qid.value:
+        out["qid"] = arr(qid, rb, np.int64)
+    if has_field.value:
+        out["field"] = arr(field, nb, np.int64)
+    return out
 
 
 class NativeTextParser(Parser):
@@ -203,18 +321,7 @@ class NativeTextParser(Parser):
                    C.c_int64(),              # nnz
                    C.c_int(), C.c_int(), C.c_int())
         self._refs = tuple(C.byref(x) for x in self._o)
-        # padded-batch out-params (ABI 5), same allocate-once discipline
-        self._p = (C.c_void_p(),             # padded-block lease
-                   C.POINTER(C.c_int64)(),   # offset
-                   C.POINTER(C.c_float)(),   # label
-                   C.POINTER(C.c_float)(),   # weight
-                   C.POINTER(C.c_float)(),   # value
-                   C.POINTER(C.c_uint32)(),  # index32
-                   C.POINTER(C.c_uint64)(),  # index64
-                   C.POINTER(C.c_int64)(),   # qid
-                   C.POINTER(C.c_int64)(),   # field
-                   C.c_int64(),              # num_nnz
-                   C.c_int(), C.c_int(), C.c_int())
+        self._p = _padded_outparams()
         self._prefs = tuple(C.byref(x) for x in self._p)
         self._mode: Optional[str] = None  # "blocks" | "padded" per epoch
 
@@ -321,45 +428,29 @@ class NativeTextParser(Parser):
         n = self._lib.dtp_parser_next_padded(
             self._handle, rows, rb, nnz_bucket,
             1 if want_qid else 0, 1 if want_field else 0, *self._prefs)
-        (block, offset, label, weight, value, index32, index64, qid,
-         field, num_nnz, wide, has_qid, has_field) = self._p
         if n < 0:
             self._block = None
             raise DMLCError(
                 f"{self._format}: {self._lib.dtp_last_error().decode()}")
         if n == 0:
             return None
-        z = int(num_nnz.value)
-        lease = _PaddedLease(self, block.value)
-
-        def arr(ptr, count, dtype):
-            if count == 0:
-                return np.empty(0, dtype)
-            return np.ctypeslib.as_array(ptr, shape=(count,))
-
-        nb = int(nnz_bucket)
-        if wide.value:
-            index = arr(index64, nb, np.uint64)
-        else:
-            index = arr(index32, nb, np.uint32)
-        if self.index_dtype != index.dtype:
-            index = index.astype(self.index_dtype)
-        # a PaddedBatch (not a plain dict): it has the ``lease`` slot a
-        # consumer that detaches the lease can attach to the item
-        out = PaddedBatch(
-            {"offset": arr(offset, rb + 1, np.int64),
-             "label": arr(label, rb, np.float32),
-             "weight": arr(weight, rb, np.float32),
-             "index": index,
-             "value": arr(value, nb, np.float32),
-             "num_rows": np.int32(n), "num_nnz": np.int32(z)})
-        if has_qid.value:
-            out["qid"] = arr(qid, rb, np.int64)
-        if has_field.value:
-            out["field"] = arr(field, nb, np.int64)
-        self._lease = lease
+        self._lease = _PaddedLease(self, self._p[0].value)
         self._block = None
-        return out
+        return _padded_views(self._p, n, rb, nnz_bucket, self.index_dtype)
+
+    def start(self) -> None:
+        """Kick the parse pipeline without consuming a block (reader +
+        workers run ahead immediately). Used by NativeShardedTextParser
+        so every byte-range sub-parser fills its bounded window while
+        the consumer drains them in order. No-op while running."""
+        self._lib.dtp_parser_start(self._handle)
+
+    def outstanding(self) -> int:
+        """Leases currently held by consumers (CSR arenas + padded
+        blocks) — the leak probe: after padded emission the source
+        arenas must be back in the free list even while padded leases
+        are still held."""
+        return int(self._lib.dtp_parser_outstanding(self._handle))
 
     def detach(self) -> Optional[BlockLease]:
         """Take ownership of the current block's lease: the parser will
@@ -410,3 +501,368 @@ class NativeLibSVMParser(NativeTextParser):
 
 class NativeLibFMParser(NativeTextParser):
     _format = "libfm"
+
+
+class NativeDenseRecordParser(NativeTextParser):
+    """Dense RecordIO decode over the native pipeline (ABI 6): the
+    engine's RecordIOShardReader realigns the shard by magic scan and
+    the parse pool decodes each record's frozen dense payload
+    (``u32 n_values | f32 label | f32[n] values`` — io/recordio.py)
+    straight into CSR arenas: indices are the column ordinals, values a
+    memcpy of the payload's f32 bits. Byte-identical to the Python
+    golden (data/dense_record_parser.py); ``next_padded`` feeds the
+    same ABI-5 device-layout lease path as the text formats, so
+    ``batch(pad=True)`` runs pad+stack in C with the GIL released."""
+
+    _format = "recordio_dense"
+
+    def _configure(self, kwargs):
+        # the recordio framing is the format; only the standard engine
+        # knobs apply (no delimiter/label_column/sparse semantics)
+        split_type = kwargs.pop("split_type", "recordio")
+        if split_type != "recordio":
+            return (f"recordio_dense: split_type must be 'recordio', "
+                    f"got {split_type!r}")
+        return super()._configure(kwargs)
+
+
+class NativeImageRecordParser(NativeTextParser):
+    """Dense image-payload decode over the native pipeline (ABI 8):
+    the MXNet-style ``.rec`` scenario's decoded lane. The engine's
+    RecordIOShardReader realigns the shard by magic scan and the parse
+    pool decodes each record's frozen image payload
+    (``u32 h | u32 w | u32 c | f32 label | u8[h*w*c]`` HWC pixels —
+    io/recordio.py) straight into CSR rows: indices are the pixel
+    ordinals, values the pixels widened u8 -> f32 (exact). Byte parity
+    with the Python golden (data/image_record_parser.py) is by
+    construction; ``next_padded`` feeds the same ABI-5/6 device-layout
+    lease path, so ``batch(pad=True)`` emits decoded fixed-shape
+    batches with zero Python row-byte touches."""
+
+    _format = "recordio_image"
+
+    def _configure(self, kwargs):
+        split_type = kwargs.pop("split_type", "recordio")
+        if split_type != "recordio":
+            return (f"recordio_image: split_type must be 'recordio', "
+                    f"got {split_type!r}")
+        return super()._configure(kwargs)
+
+
+_SHARDED_FORMATS = {"libsvm": NativeLibSVMParser,
+                    "libfm": NativeLibFMParser,
+                    "recordio_dense": NativeDenseRecordParser,
+                    "recordio_image": NativeImageRecordParser}
+
+
+class NativeShardedTextParser(Parser):
+    """Single-file parse sharded across N native parsers on byte ranges.
+
+    One large file bounds the steady path by ONE reader thread and ONE
+    consumer-side ordered queue however many parse workers run. This
+    parser splits the WHOLE input across ``shards`` independent native
+    parsers using the standard InputSplit partition rule (sub-parser j
+    is part j of ``shards``, so the aligned byte ranges concatenate to
+    exactly the whole input — the same realignment contract the Python
+    golden and the engine already share), kicks every sub-pipeline at
+    epoch start (``dtp_parser_start``), and reassembles blocks by
+    draining the sub-parsers in shard order. Each sub-parser's bounded
+    reorder window holds its early blocks, so all shards read and parse
+    concurrently while the emitted stream stays BYTE-IDENTICAL to the
+    1-parser stream (pinned by tests/test_torch_recordio.py).
+
+    ``next_padded`` (ABI 6) assembles device-layout batches ACROSS the
+    shards in C (``dtp_gang_next_padded``): the gang handle drains the
+    sub-parsers' arena streams in shard order through the same padded
+    emission a single parser uses, so batches are cut across shard
+    boundaries exactly as the 1-parser stream cuts them — byte
+    parity pinned — and the sharded steady path keeps Python off the
+    row bytes (pre-6, sharded parses paid the Python fused pad, which
+    BOUND memcpy-cheap formats like recordio_dense below the unsharded
+    native path).
+
+    Serves the whole input only (part 0 of 1): nesting an outer
+    part/num_parts split and the inner shard split would apply the
+    byte-range alignment rule twice with different step sizes, yielding
+    ranges that no longer concatenate to the outer part.
+    """
+
+    def __init__(self, uri: str, part_index: int = 0, num_parts: int = 1,
+                 shards: int = 2, format: str = "libsvm",
+                 index_dtype=np.uint32, nthreads: Optional[int] = None,
+                 chunk_size: int = 8 << 20, **kwargs: Any):
+        check(part_index == 0 and num_parts == 1,
+              "NativeShardedTextParser serves the whole input "
+              "(part 0 of 1); shard the file via `shards=` only")
+        cls = _SHARDED_FORMATS.get(format)
+        check(cls is not None,
+              f"NativeShardedTextParser: unsupported format {format!r}")
+        self.uri = uri
+        self.index_dtype = np.dtype(index_dtype)
+        self.shards = max(1, int(shards))
+        if nthreads is None:
+            nthreads = max(1, (os.cpu_count() or 1) - 1)
+        per = max(1, int(nthreads) // self.shards)
+        self._subs: List[NativeTextParser] = [
+            cls(uri, j, self.shards, index_dtype=index_dtype,
+                nthreads=per, chunk_size=chunk_size, **dict(kwargs))
+            for j in range(self.shards)]
+        self._cur = 0
+        self._started = False
+        self._block: Optional[RowBlock] = None
+        self._block_sub: Optional[NativeTextParser] = None
+        # ABI-6 gang handle: padded assembly across the sub-parsers
+        # (borrows their handles — destroyed BEFORE the subs)
+        self._lib = self._subs[0]._lib
+        ptrs = (C.c_void_p * self.shards)(
+            *[p._handle for p in self._subs])
+        self._handle = self._lib.dtp_gang_create(ptrs, self.shards)
+        if not self._handle:
+            raise DMLCError(
+                f"gang create failed: {self._lib.dtp_last_error().decode()}")
+        self._please: Optional[_GangPaddedLease] = None
+        self._mode: Optional[str] = None  # "blocks" | "padded" per epoch
+        self._p = _padded_outparams()
+        self._prefs = tuple(C.byref(x) for x in self._p)
+
+    def _start_all(self) -> None:
+        for p in self._subs:
+            p.start()
+        self._started = True
+
+    def before_first(self) -> None:
+        if self._please is not None:
+            self._please.release()
+            self._please = None
+        # after destroy() the gang handle is gone: stay the safe no-op
+        # the pre-gang code was (subs are empty too)
+        if getattr(self, "_handle", None):
+            self._lib.dtp_gang_before_first(self._handle)
+        for p in self._subs:
+            p.before_first()
+        self._cur = 0
+        self._mode = None
+        self._block = None
+        self._block_sub = None
+        # restart every sub-pipeline NOW: shard j's reader/workers fill
+        # its bounded window while the consumer is still draining j-1
+        self._start_all()
+
+    def next(self) -> bool:
+        if self._mode == "padded":
+            raise DMLCError(
+                "sharded parser: next() after next_padded() within one "
+                "epoch — rows already cut into the gang's padded carry "
+                "would be skipped; call before_first() first")
+        self._mode = "blocks"
+        if not self._started:
+            self._start_all()
+        while self._cur < len(self._subs):
+            p = self._subs[self._cur]
+            if p.next():
+                self._block = p.value()
+                self._block_sub = p
+                return True
+            self._cur += 1
+        self._block = None
+        self._block_sub = None
+        return False
+
+    def value(self) -> RowBlock:
+        check(self._block is not None, "value() before successful next()")
+        return self._block
+
+    def next_padded(self, rows: int, row_bucket: Optional[int] = None,
+                    nnz_bucket: int = 0, want_qid: bool = False,
+                    want_field: bool = False
+                    ) -> Optional[Dict[str, np.ndarray]]:
+        """One bucket-padded batch assembled across the shards in the
+        ENGINE (ABI 6, dtp_gang_next_padded): same layout contract,
+        lease discipline, and Python-golden byte parity as
+        NativeTextParser.next_padded — the gang cuts batches over the
+        shard-ordered arena stream, so output is identical to the
+        1-parser padded stream."""
+        if self._mode == "blocks":
+            raise DMLCError(
+                "sharded parser: next_padded() after next() within one "
+                "epoch — the gang's padded carry would skip the leased "
+                "block's rows; call before_first() first")
+        self._mode = "padded"
+        if not self._started:
+            self._start_all()
+        if self._please is not None:
+            self._please.release()
+            self._please = None
+        rb = rows if row_bucket is None else row_bucket
+        n = self._lib.dtp_gang_next_padded(
+            self._handle, rows, rb, nnz_bucket,
+            1 if want_qid else 0, 1 if want_field else 0, *self._prefs)
+        if n < 0:
+            raise DMLCError(
+                f"sharded: {self._lib.dtp_last_error().decode()}")
+        if n == 0:
+            return None
+        self._please = _GangPaddedLease(self, self._p[0].value)
+        return _padded_views(self._p, n, rb, nnz_bucket, self.index_dtype)
+
+    def detach(self) -> Optional[BlockLease]:
+        if self._please is not None:
+            lease, self._please = self._please, None
+            return lease
+        return (self._block_sub.detach()
+                if self._block_sub is not None else None)
+
+    def stats(self) -> Dict[str, int]:
+        """Summed busy/cpu/chunk/assemble counters over the sub-parsers
+        (they run concurrently, so summed busy vs the max wall proves
+        the cross-shard overlap); depths are maxima. The gang's own
+        padded-assembly copy time joins assemble_ns (sub-parsers report
+        0 there on the gang path — their planes never run)."""
+        outs = [p.stats() for p in self._subs]
+        agg = {k: sum(o[k] for o in outs)
+               for k in ("reader_busy_ns", "parse_busy_ns", "chunks",
+                         "parse_cpu_ns", "assemble_ns")}
+        if getattr(self, "_handle", None):
+            agg["assemble_ns"] += int(
+                self._lib.dtp_gang_assemble_ns(self._handle))
+        agg["wall_ns"] = max(o["wall_ns"] for o in outs)
+        agg["max_chunk_queue_depth"] = max(
+            o["max_chunk_queue_depth"] for o in outs)
+        agg["max_reorder_depth"] = max(
+            o["max_reorder_depth"] for o in outs)
+        agg["shards"] = self.shards
+        return agg
+
+    def outstanding(self) -> int:
+        gang = (int(self._lib.dtp_gang_outstanding(self._handle))
+                if getattr(self, "_handle", None) else 0)
+        return gang + sum(p.outstanding() for p in self._subs)
+
+    def bytes_read(self) -> int:
+        return sum(p.bytes_read() for p in self._subs)
+
+    def destroy(self) -> None:
+        if getattr(self, "_handle", None):
+            if self._please is not None:
+                self._please.release()
+                self._please = None
+            # the gang borrows the sub handles: destroy it FIRST
+            self._lib.dtp_gang_destroy(self._handle)
+            self._handle = None
+        for p in self._subs:
+            p.destroy()
+        self._subs = []
+        self._block = None
+        self._block_sub = None
+
+    def __del__(self):
+        try:
+            self.destroy()
+        except Exception:
+            pass
+
+
+class NativeRecordIOReader:
+    """Sharded RecordIO record reader over the native pipeline.
+
+    Native counterpart of InputSplit.create(uri, k, n, "recordio")
+    (reference: src/io/recordio_split.cc + src/recordio.cc): the engine's
+    reader thread realigns the shard to a record-starting frame head,
+    reads whole-frame chunks, and the decode stitches multi-frame
+    records IN PLACE inside the chunk buffer (single-frame records never
+    move — decode cost is the header walk). ``next_batch()`` yields one
+    chunk's records zero-copy as (payload_u8, starts_i64, ends_i64)
+    numpy views — record i is ``payload[starts[i]:ends[i]]`` — valid
+    until the next next_batch()/before_first() (or hold via
+    ``detach()``). Record stream is byte-identical to the Python split
+    (parity test: tests/test_torch_recordio.py)."""
+
+    def __init__(self, uri: str, part_index: int = 0, num_parts: int = 1,
+                 chunk_size: int = 8 << 20):
+        lib = _get_lib()
+        self.uri = uri
+        files = _local_split_files(uri)
+        paths = (C.c_char_p * len(files))(*[p.encode() for p, _ in files])
+        sizes = (C.c_int64 * len(files))(*[s for _, s in files])
+        self._lib = lib
+        self._handle = lib.dtp_recio_create(
+            paths, sizes, len(files), part_index, num_parts,
+            int(chunk_size))
+        if not self._handle:
+            raise DMLCError(f"native recordio create failed: "
+                            f"{lib.dtp_last_error().decode()}")
+        self._lease: Optional[_RecioLease] = None
+
+    def next_batch(self):
+        """(payload, starts, ends) numpy views for one chunk's records,
+        or None at end of shard."""
+        if self._lease is not None:
+            self._lease.release()
+            self._lease = None
+        block = C.c_void_p()
+        payload = C.POINTER(C.c_uint8)()
+        starts = C.POINTER(C.c_int64)()
+        ends = C.POINTER(C.c_int64)()
+        nrec = self._lib.dtp_recio_next_batch(
+            self._handle, C.byref(block), C.byref(payload), C.byref(starts),
+            C.byref(ends))
+        if nrec < 0:
+            raise DMLCError(
+                f"recordio: {self._lib.dtp_last_error().decode()}")
+        if nrec == 0:
+            return None
+        self._lease = _RecioLease(self, block.value)
+        n = int(nrec)
+        s = np.ctypeslib.as_array(starts, shape=(n,))
+        e = np.ctypeslib.as_array(ends, shape=(n,))
+        data = np.ctypeslib.as_array(payload, shape=(int(e[-1]),))
+        return data, s, e
+
+    def detach(self) -> Optional[_RecioLease]:
+        lease, self._lease = self._lease, None
+        return lease
+
+    def records(self):
+        """Iterate records as bytes (convenience; copies)."""
+        self.before_first()
+        while True:
+            batch = self.next_batch()
+            if batch is None:
+                return
+            data, starts, ends = batch
+            buf = data.tobytes()
+            for i in range(len(starts)):
+                yield buf[int(starts[i]):int(ends[i])]
+
+    def before_first(self) -> None:
+        if self._lease is not None:
+            self._lease.release()
+            self._lease = None
+        self._lib.dtp_recio_before_first(self._handle)
+
+    def bytes_read(self) -> int:
+        return int(self._lib.dtp_recio_bytes_read(self._handle))
+
+    def get_total_size(self) -> int:
+        return int(self._lib.dtp_recio_total_size(self._handle))
+
+    def stats(self) -> Dict[str, int]:
+        out = (C.c_int64 * 7)()
+        self._lib.dtp_recio_stats(self._handle, out)
+        return {"reader_busy_ns": int(out[0]), "decode_busy_ns": int(out[1]),
+                "wall_ns": int(out[2]), "chunks": int(out[3]),
+                "decode_cpu_ns": int(out[6])}
+
+    def destroy(self) -> None:
+        if getattr(self, "_handle", None):
+            if self._lease is not None:
+                self._lease.release()
+                self._lease = None
+            self._lib.dtp_recio_destroy(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        try:
+            self.destroy()
+        except Exception:
+            pass

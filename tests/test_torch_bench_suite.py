@@ -154,3 +154,70 @@ def test_gauge_fn_tags_each_epoch(dirs):
         nnz_bucket=512 * 45, device="cpu", work=dirs)
     assert got["parse_epoch_gauge"] == 2.5
     assert got["epoch_gauges"] == [2.5] * 3
+
+
+# ----------------------------------------- configs 3, 14 and 18 (RecordIO)
+
+@pytest.mark.parametrize("maker,args", [
+    ("make_dense_recordio", dict(seed=11)),
+    ("make_image_recordio", dict(seed=18, shape=(32, 32, 3))),
+])
+def test_record_makers_write_the_reference_bytes(tmp_path, maker, args):
+    a, b = str(tmp_path / "a.rec"), str(tmp_path / "b.rec")
+    assert getattr(bench_suite, maker)(a, 1, **args) == \
+        getattr(ref_bench, maker)(b, 1, **args)
+    with open(a, "rb") as x, open(b, "rb") as y:
+        assert x.read() == y.read()
+
+
+def test_make_recordio_writes_the_reference_parts(tmp_path):
+    got = bench_suite.make_recordio(str(tmp_path / "a"), 2, nparts=4)
+    want = ref_bench.make_recordio(str(tmp_path / "b"), 2, nparts=4)
+    assert len(got) == len(want) == 4
+    for p, q in zip(got, want):
+        with open(p, "rb") as x, open(q, "rb") as y:
+            assert x.read() == y.read()
+
+
+def test_recordio_matches_reference(dirs):
+    """Config 3: the 4-part split's record count and coverage hash."""
+    got = bench_suite.bench_recordio(2, work=dirs)
+    want = ref_bench.bench_recordio(2)
+    assert set(got) == set(want)
+    for k in ("config", "bytes", "records", "engine", "hash"):
+        assert got[k] == want[k], k
+    json.dumps(got)
+
+
+@pytest.mark.parametrize("name,shape_keys", [
+    ("bench_recio_native", ("rows", "nnz_bucket")),
+    ("bench_image_record", ("rows", "shape"))])
+def test_decode_configs_match_reference(dirs, name, shape_keys):
+    """Configs 14 and 18: the reference's keys, nested too; the padded
+    streams' hash (python, native and sharded, each held to the python
+    golden's by the config itself) equal to the reference's."""
+    gauge = iter(range(1, 100))
+    got = getattr(bench_suite, name)(2, gauge_fn=lambda: next(gauge),
+                                     work=dirs)
+    want = getattr(ref_bench, name)(2, gauge_fn=lambda: 1.0)
+    assert set(got) == set(want)
+    for k in ("config", "bytes", "hash") + shape_keys:
+        assert got[k] == want[k], k
+    for contender in ("python", "native", "sharded"):
+        assert set(got[contender]) == set(want[contender]), contender
+        for k in ("hash", "batches", "assembly_path",
+                  "outstanding_after_epoch"):
+            assert got[contender][k] == want[contender][k], (contender, k)
+    assert got["native"]["assembly_path"] == "native-padded"
+    assert got["python"]["epoch_gauges"] == [1.0]
+    assert got["native"]["epoch_gauges"] == [2.0, 4.0, 6.0]
+    assert len(got["sharded"]["epoch_walls"]) == 3
+    json.dumps(got)
+
+
+def test_configs_table_holds_the_recordio_configs():
+    assert {n: name for n, (name, _) in bench_suite.CONFIGS.items()} == {
+        3: "recordio", 4: "prefetch", 7: "multiprocess", 8: "page_replay",
+        10: "spill_replay", 14: "recio_native", 18: "image_record"}
+    for n in (3, 14, 18):
+        assert bench_suite.CONFIGS[n][0] == ref_bench.CONFIGS[n][0]

@@ -202,7 +202,7 @@ def test_rowblock_to_device_keeps_layout_dtypes(tmp_path):
     assert dev["index"].data_ptr() != block.index.ctypes.data  # a copy
 
 
-@pytest.mark.parametrize("split_type", ["recordio", "indexed_recordio"])
+@pytest.mark.parametrize("split_type", ["indexed_recordio"])
 def test_unported_split_types_raise(tmp_path, split_type):
     path = tmp_path / "a.libsvm"
     path.write_text("1 1:1\n")
@@ -225,7 +225,10 @@ def test_cache_uri_raises(tmp_path):
 
 
 def test_only_libsvm_is_registered():
-    """The text formats ported so far are libsvm and libfm (its parity
-    tests: tests/test_torch_libfm.py); csv is not ported."""
-    with pytest.raises(DMLCError, match=r"\['libfm', 'libsvm'\]"):
+    """The formats ported so far are libsvm, libfm (its parity tests:
+    tests/test_torch_libfm.py) and the dense and image RecordIO records
+    (tests/test_torch_recordio.py); csv is not ported."""
+    with pytest.raises(DMLCError, match=r"\['libfm', 'libsvm', "
+                                        r"'recordio_dense', "
+                                        r"'recordio_image'\]"):
         Parser.create("x.csv", format="csv")
