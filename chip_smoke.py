@@ -54,6 +54,36 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    MB a cell: the port's put, a pinned staging slot and a copy stream,
    at 1-8 MB chunks, on 2 and 4 threads, in one 64 MB put, beside a host
    memcpy), its JSON on a line;
+4b. the trace plane and the split planes, right after the main path
+   (profiler traces lose records late in a run): ``trace_path``, one
+   training epoch of the main path's chain inside ``built.trace(json)``
+   and ``cuda_trace("epoch", log_dir)``: the recorder's Chrome JSON loads,
+   each stage has a ``pull/<stage>`` span per item it delivered and one
+   ``pull/<stage>.end``, the engine's spans sit on the native thread
+   tracks beside its counter track, ``to_device.drain`` and
+   ``device.xfer`` spans a batch, the profiler's ``epoch`` span, nothing
+   dropped, and the torch.profiler trace under log_dir shows K1, K2, K8
+   and K9 once a step (its record counts; a trace that lost records is
+   taken again, up to PROFILE_ATTEMPTS epochs); one step inside
+   ``cuda_trace("step")`` under this script's profiler, whose annotation
+   must cover the step's four kernels; parse-only epochs with tracing
+   off and on in turns (off, on, on, off), GB/s and events recorded of
+   each; then ``split_path``: each of 4 parts of the corpus through the
+   plain split, a ``#cache`` URI twice (write, then replay) and
+   ``ThreadedInputSplit``, the records' sha256 equal in all four passes
+   and the cache entry ``.p{k}-4`` and its ``.meta.json`` stamp on disk;
+   ``InputSplitShuffle(num_shuffle_parts=8, seed=7)`` over the whole
+   file, the same order from two creations, the plain records as a
+   multiset and another order in its second epoch; GB/s of every pass;
+   then two epochs of ``SparseLinearModel(10^6)`` over the corpus's first
+   32 MB through ``Pipeline.from_uri(p).shuffle(num_shuffle_parts=8,
+   seed=7).parse(format="libsvm").batch(8192, pad=True,
+   nnz_bucket=368640).to_device(cuda, window="auto")``: K1, K2, K8 and
+   K9 once a step, the loss falling, each epoch's rows those of the
+   unshuffled python chain, the two orders different, epoch 1's batches
+   those of the shuffled host chain (``prefetch`` in place of
+   ``to_device``; both references from a worker process, beside the
+   epochs), GB/s of each epoch;
 5. parity: native padded batches byte-identical to the Python parser's
    ``pad_single``; 3 steps on the card allclose to 3 steps of the plain
    CPU path;
@@ -2245,6 +2275,442 @@ def device_time(built, model, epoch_s):
         log(f"  {t / 1e3:9.3f} ms  {n:5d} calls  {key[:90]}")
     return {"device_ms": total_us / 1e3,
             "busy_share": total_us / 1e6 / epoch_s}
+
+
+# --------------------------------------------------------------- phase 4b
+
+def _chrome(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _kernel_counts(events, names):
+    """{kernel: launches} of a torch.profiler Chrome trace's kernel
+    events, for each kernel in ``names`` (see _launched)."""
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {k: sum(_launched(n, k) for n in kernels) for k in names}
+
+
+def check_recorder_trace(path, stats, profiled):
+    """The checks of a pipeline epoch's Chrome trace (``built.trace``):
+    one ``pull/<stage>`` span per item each stage delivered and one
+    ``pull/<stage>.end``; the engine's spans on the native thread tracks
+    and its counter track; the to_device stage's ``to_device.drain`` and
+    ``device.xfer`` spans; the profiler's span ``profiled``; nothing
+    dropped. Returns the event count by category."""
+    from dmlc_tpu_torch.native.bindings import _TRACE_KINDS
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    require(doc["otherData"]["dropped"] == 0,
+            f"the pipeline trace dropped {doc['otherData']['dropped']} "
+            "events")
+    spans = {}
+    for e in events:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    for st in stats["stages"]:
+        name = f"pull/{st['name']}"
+        require(spans.get(name, 0) == st["items"],
+                f"{spans.get(name, 0)} {name} spans for the stage's "
+                f"{st['items']} items")
+        require(spans.get(name + ".end", 0) == 1,
+                f"{spans.get(name + '.end', 0)} {name}.end spans, not 1")
+    threads = {e["tid"]: e["args"]["name"] for e in events
+               if e["ph"] == "M" and e["name"] == "thread_name"}
+    native = [e for e in events if e.get("cat") == "native"
+              and e["ph"] in ("X", "i")]
+    kinds = {name for _, name in _TRACE_KINDS.values()}
+    require(native and all(e["name"] in kinds for e in native),
+            "no native engine span, or one the engine does not name")
+    require(all(threads.get(e["tid"], "").startswith("native/")
+                for e in native),
+            "a native span off the native thread tracks")
+    require(any(e["ph"] == "C" and e["name"] == "engine" for e in events),
+            "no engine counter track")
+    n_out = [st for st in stats["stages"] if st["name"] == "to_device"][0]
+    for name in ("to_device.drain", "device.xfer"):
+        require(spans.get(name, 0) == n_out["items"],
+                f"{spans.get(name, 0)} {name} spans for "
+                f"{n_out['items']} batches")
+    require(any(e["ph"] == "X" and e["name"] == profiled
+                and e.get("cat") == "profiler" for e in events),
+            f"no profiler span {profiled!r}")
+    cats = {}
+    for e in events:
+        if e["ph"] != "M":
+            cats[e.get("cat", "")] = cats.get(e.get("cat", ""), 0) + 1
+    return cats
+
+
+def _annotation_covers(events, name, kernels):
+    """Whether the user annotation ``name`` of a torch.profiler Chrome
+    trace covers one launch of each of ``kernels``: each kernel lies in
+    the annotation's device range (``gpu_user_annotation``) or was
+    launched from inside its host range (the runtime call with the
+    kernel's correlation id). Returns (covered, how)."""
+    found = {k: [e for e in events if e.get("cat") == "kernel"
+                 and _launched(e["name"], k)] for k in kernels}
+    if any(len(v) != 1 for v in found.values()):
+        return False, f"launches {({k: len(v) for k, v in found.items()})}"
+    gpu = [e for e in events if e.get("cat") == "gpu_user_annotation"
+           and e["name"] == name]
+    if gpu:
+        lo = min(e["ts"] for e in gpu)
+        hi = max(e["ts"] + e["dur"] for e in gpu)
+        return all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi
+                   for v in found.values() for e in v), "device range"
+    host = [e for e in events if e.get("cat") == "user_annotation"
+            and e["name"] == name]
+    if not host:
+        return False, "no annotation"
+    lo, hi = host[0]["ts"], host[0]["ts"] + host[0]["dur"]
+    calls = {e["args"].get("correlation"): e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    ok = True
+    for v in found.values():
+        call = calls.get(v[0]["args"].get("correlation"))
+        ok &= call is not None and lo <= call["ts"] <= hi
+    return ok, "host range"
+
+
+def trace_path(path, size, lr, work):
+    """The trace plane on the main path: one training epoch of
+    SparseLinearModel(10^6) through build_pipeline inside
+    ``built.trace(json)`` and ``cuda_trace("epoch", log_dir)``: the
+    recorder's Chrome JSON (check_recorder_trace) and the torch.profiler
+    trace under log_dir (K1, K2, K8 and K9 once a step); one step inside
+    ``cuda_trace("step")`` under a profiler of this script, whose
+    annotation must cover the step's kernels; parse-only epochs with
+    tracing off and on in turns (off, on, on, off), GB/s and span count
+    of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.obs.trace import cuda_trace, profiler
+    cuda = torch.device("cuda")
+    wrappers = _wrappers()
+    kernels = STEP_CALLS["linear"]
+    built = build_pipeline(path)
+    warm_up(built, SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                     device=cuda))
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        json_path = os.path.join(work, f"trace_epoch_{attempt}.json")
+        log_dir = os.path.join(work, f"cuda_trace_{attempt}")
+        model = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                  device=cuda)
+        for fn in wrappers.values():
+            fn.launches = 0
+        profiler.reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]):  # throwaway
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        with built.trace(json_path):
+            with cuda_trace("epoch", log_dir):
+                secs, losses, steps, _ = train_epoch(built, model,
+                                                     train=True)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        want = {k: steps if k in PATH_KERNELS["linear"] else 0
+                for k in launches}
+        require(launches == want,
+                f"traced epoch: launch counts {launches} != {want}")
+        require(losses[-1] < losses[0],
+                f"traced epoch: the loss did not fall ({losses[0]} -> "
+                f"{losses[-1]})")
+        cats = check_recorder_trace(json_path, built.stats(), "epoch")
+        require(profiler.stats()["epoch"].calls == 1,
+                "cuda_trace did not feed the profiler")
+        files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+        require(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+                f"cuda_trace wrote {files}, not one Chrome trace")
+        counts = _kernel_counts(_chrome(files[0]), kernels)
+        wanted = {k: n * steps for k, n in kernels.items()}
+        if counts == wanted:
+            break
+        log(f"  traced epoch {attempt}: kernel records {counts} (want "
+            f"{wanted})")
+        require(attempt < PROFILE_ATTEMPTS,
+                f"no torch.profiler trace of {attempt} traced epochs "
+                "showed K1, K2, K8 and K9 once a step")
+    log(f"trace_path: traced epoch {size / secs / 1e9:.3f} GB/s, {steps} "
+        f"steps, recorder events by category {cats}; the torch.profiler "
+        f"trace shows {counts} ({os.path.getsize(files[0])} bytes)")
+
+    # one step under this script's profiler, annotated by cuda_trace
+    it = iter(built)
+    batch = {k: v.clone() for k, v in next(it).items()}
+    it.close()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        step_json = os.path.join(work, f"trace_step_{attempt}.json")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with cuda_trace("step"):
+                model.train_step(batch)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(step_json)
+        covered, how = _annotation_covers(
+            _chrome(step_json), "step",
+            [k for k, n in kernels.items() if n])
+        if covered:
+            break
+        log(f"  annotated step {attempt}: not covered ({how})")
+        require(attempt < PROFILE_ATTEMPTS,
+                "the cuda_trace annotation 'step' did not cover the "
+                "step's kernels")
+    log(f"trace_path: the annotation 'step' covers K1, K2, K8 and K9 (by "
+        f"its {how})")
+
+    # parse-only epochs with tracing off and on, in turns
+    runs = {"off": [], "on": []}
+    spans = []
+    for turn, mode in enumerate(("off", "on", "on", "off")):
+        if mode == "on":
+            with built.trace(os.path.join(work, f"parse_{turn}.json")) \
+                    as rec:
+                parse_secs, _, batches, _ = train_epoch(built, None,
+                                                        train=False)
+            spans.append(rec.recorded)
+        else:
+            parse_secs, _, batches, _ = train_epoch(built, None,
+                                                    train=False)
+        require(batches == steps, f"a parse-only epoch gave {batches} "
+                f"batches, the training epoch {steps}")
+        runs[mode].append(size / parse_secs / 1e9)
+    built.close()
+    log("trace_path: parse-only epochs, tracing off "
+        + " / ".join(f"{x:.3f}" for x in runs["off"]) + " GB/s, on "
+        + " / ".join(f"{x:.3f}" for x in runs["on"])
+        + f" GB/s ({spans} events recorded)")
+    return {"traced_epoch_gbps": size / secs / 1e9, "steps": steps,
+            "recorder_events": cats, "kernel_records": counts,
+            "annotation": how, "parse_gbps": runs, "parse_events": spans}
+
+
+SPLIT_PARTS = 4
+SHUFFLE_PARTS, SHUFFLE_SEED = 8, 7
+SHUFFLE_MB = 32  # the shuffled epoch's corpus (the python parser reads it)
+
+
+def _ordered(recs):
+    h = hashlib.sha256()
+    for r in recs:
+        h.update(r)
+        h.update(b"\n")
+    return h.hexdigest()
+
+
+def _multiset(recs):
+    """A hash of the records as a multiset: their 64-bit hashes summed."""
+    return sum(int.from_bytes(hashlib.blake2b(r, digest_size=8).digest(),
+                              "little") for r in recs) % (1 << 64)
+
+
+def _split_pass(split):
+    """(records, seconds, bytes read) of one pass over ``split``."""
+    t0 = time.perf_counter()
+    recs = [bytes(r) for r in split]
+    return recs, time.perf_counter() - t0, split.bytes_read
+
+
+def row_hashes(batch):
+    """The sha256 of each real row of a padded batch (label, weight, its
+    indices and values)."""
+    import numpy as np
+    b = {k: np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+         for k, v in batch.items()}
+    off = b["offset"]
+    out = []
+    for r in range(int(b["num_rows"])):
+        s, e = int(off[r]), int(off[r + 1])
+        out.append(hashlib.sha256(
+            b["label"][r].tobytes() + b["weight"][r].tobytes()
+            + b["index"][s:e].tobytes()
+            + b["value"][s:e].tobytes()).hexdigest())
+    return out
+
+
+def _padded_chain(path, shuffle):
+    """The python parse of ``path`` into padded linear batches, shuffled
+    by the shuffled epoch's parts and seed when ``shuffle``."""
+    from dmlc_tpu_torch.pipeline import Pipeline
+    pipe = Pipeline.from_uri(path)
+    if shuffle:
+        pipe = pipe.shuffle(num_shuffle_parts=SHUFFLE_PARTS,
+                            seed=SHUFFLE_SEED)
+    return pipe.parse(format="libsvm", engine="python").batch(
+        ROW_BUCKET, pad=True, row_bucket=ROW_BUCKET, nnz_bucket=NNZ_BUCKET)
+
+
+def host_references(path):
+    """In a worker process: the batch hashes of epoch 1 of the shuffled
+    host chain (``prefetch`` in place of ``to_device``) and the sorted
+    row hashes of the unshuffled python chain over ``path``."""
+    shuffled = _padded_chain(path, True).prefetch().build()
+    epoch1 = [batch_hash(b) for b in shuffled]
+    shuffled.close()
+    plain = _padded_chain(path, False).prefetch().build()
+    rows = sorted(r for b in plain for r in row_hashes(b))
+    plain.close()
+    return epoch1, rows
+
+
+def split_path(path, size, lr, work):
+    """The split planes over the linear corpus, then a shuffled training
+    epoch. Part 1: for each of SPLIT_PARTS parts the plain split and a
+    '#cache' URI twice (a write pass, then a replay pass), the records'
+    sha256 equal across the three and the cache entry and its stamp on
+    disk; ThreadedInputSplit giving each part's records unchanged;
+    InputSplitShuffle(SHUFFLE_PARTS, SHUFFLE_SEED) over the whole file
+    giving the same order from two creations, the plain split's records
+    as a multiset, and another order in its second epoch; GB/s of every
+    pass. Part 2: the first SHUFFLE_MB of the corpus through
+    ``Pipeline...shuffle(...).parse(format="libsvm").batch(...)
+    .to_device(cuda)`` into SparseLinearModel(10^6) for two epochs: K1,
+    K2, K8 and K9 once a step, the loss falling, each epoch's rows those
+    of the unshuffled python chain, the two orders different, and epoch
+    1's batches those of the shuffled host chain (the last two from a
+    worker process, beside the epochs)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import torch
+    from dmlc_tpu_torch.io.input_split import InputSplit
+    from dmlc_tpu_torch.io.input_split_shuffle import InputSplitShuffle
+    from dmlc_tpu_torch.io.threaded_split import ThreadedInputSplit
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    cuda = torch.device("cuda")
+    small = os.path.join(work, "criteo_shaped_shuffle.libsvm")
+    with open(path, "rb") as src:
+        head = src.read(SHUFFLE_MB << 20)
+    with open(small, "wb") as dst:
+        dst.write(head[:head.rfind(b"\n") + 1])
+    small_size = os.path.getsize(small)
+    del head
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        host = pool.submit(host_references, small)
+        out = _split_planes(path, work, InputSplit, InputSplitShuffle,
+                            ThreadedInputSplit)
+        out.update(_shuffled_epochs(small, small_size, lr, cuda, host,
+                                    SparseLinearModel))
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    os.unlink(small)
+    return out
+
+
+def _split_planes(path, work, InputSplit, InputSplitShuffle,
+                  ThreadedInputSplit):
+    gbps = {"plain": [], "cache_write": [], "cache_replay": [],
+            "threaded": []}
+    whole = 0
+    cache = os.path.join(work, "split.cache")
+    for k in range(SPLIT_PARTS):
+        recs, secs, nbytes = _split_pass(InputSplit.create(path, k,
+                                                           SPLIT_PARTS))
+        gbps["plain"].append(nbytes / secs / 1e9)
+        want = _ordered(recs)
+        whole = (whole + _multiset(recs)) % (1 << 64)
+        split = InputSplit.create(f"{path}#{cache}", k, SPLIT_PARTS)
+        for name in ("cache_write", "cache_replay"):
+            recs, secs, nbytes = _split_pass(split)
+            gbps[name].append(nbytes / secs / 1e9)
+            require(_ordered(recs) == want,
+                    f"part {k}: the {name} pass's records differ from the "
+                    "plain split's")
+        require(split._reader is not None,
+                f"part {k}: the second pass did not replay the cache")
+        entry = f"{cache}.p{k}-{SPLIT_PARTS}"
+        require(os.path.exists(entry)
+                and os.path.exists(entry + ".meta.json"),
+                f"part {k}: no committed cache entry and stamp at {entry}")
+        os.unlink(entry)
+        threaded = ThreadedInputSplit(InputSplit.create(path, k,
+                                                        SPLIT_PARTS))
+        recs, secs, nbytes = _split_pass(threaded)
+        threaded.destroy()
+        gbps["threaded"].append(nbytes / secs / 1e9)
+        require(_ordered(recs) == want,
+                f"part {k}: ThreadedInputSplit changed the records")
+    log("split_path: GB/s a part, " + "; ".join(
+        f"{name} " + " / ".join(f"{x:.3f}" for x in v)
+        for name, v in gbps.items()))
+    orders, shuffle_gbps = [], []
+    first = None
+    for creation in range(2):
+        split = InputSplitShuffle.create(
+            path, 0, 1, "text", num_shuffle_parts=SHUFFLE_PARTS,
+            seed=SHUFFLE_SEED)
+        for epoch in range(2 if creation == 0 else 1):
+            recs, secs, nbytes = _split_pass(split)
+            shuffle_gbps.append(nbytes / secs / 1e9)
+            orders.append(_ordered(recs))
+            if first is None:
+                first = _multiset(recs)
+            del recs
+    require(orders[0] == orders[2],
+            "two InputSplitShuffle creations gave different orders")
+    require(orders[1] != orders[0],
+            "InputSplitShuffle's second epoch kept the first's order")
+    require(first == whole,
+            "InputSplitShuffle's records are not the plain split's")
+    log("split_path: InputSplitShuffle(8 parts, seed 7) over the whole "
+        "file, epochs 1, 2 and a second creation's 1: "
+        + " / ".join(f"{x:.3f}" for x in shuffle_gbps) + " GB/s")
+    return {"split_gbps": gbps, "shuffle_split_gbps": shuffle_gbps}
+
+
+def _shuffled_epochs(small, small_size, lr, cuda, host, SparseLinearModel):
+    import torch
+    wrappers = _wrappers()
+    built = _padded_chain(small, True).to_device(
+        cuda, window="auto").build()
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, epochs, secs = [], [], []
+    for _ in range(2):
+        kept = []
+        t0 = time.perf_counter()
+        for batch in built:
+            kept.append(batch)
+            losses.append(model.train_step(batch))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        epochs.append(kept)
+    stages = {st["name"]: st for st in built.stats()["stages"]}
+    built.close()
+    steps = sum(len(e) for e in epochs)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = {k: steps if k in PATH_KERNELS["linear"] else 0
+            for k in launches}
+    require(launches == want,
+            f"shuffled epochs: launch counts {launches} != {want}")
+    losses = [float(x) for x in losses]
+    require(all(x == x for x in losses) and losses[-1] < losses[0],
+            f"shuffled epochs: the loss did not fall ({losses})")
+    require(stages["assemble"]["extra"]["assembly_path"] == "python-fused",
+            "the shuffled chain did not pad through the python golden")
+    hashes = [[batch_hash({k: v.cpu() for k, v in b.items()}) for b in e]
+              for e in epochs]
+    rows = [sorted(r for b in e for r in row_hashes(b)) for e in epochs]
+    host_epoch1, plain_rows = host.result()
+    require(hashes[0] == host_epoch1,
+            "shuffled epoch 1's batches on the card differ from the "
+            "shuffled host chain's")
+    require(rows[0] == plain_rows and rows[1] == plain_rows,
+            "a shuffled epoch's rows differ from the unshuffled chain's")
+    require(hashes[0] != hashes[1], "the two shuffled epochs' orders match")
+    gbps = [small_size / s / 1e9 for s in secs]
+    log(f"split_path: shuffled training epochs over {small_size} bytes, "
+        f"{steps} steps: " + " / ".join(f"{x:.4f}" for x in gbps)
+        + f" GB/s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; batches of "
+        "epoch 1 equal to the host chain's, rows of both equal to the "
+        "unshuffled chain's")
+    return {"shuffled_gbps": gbps, "shuffled_steps": steps,
+            "shuffled_bytes": small_size}
 
 
 # --------------------------------------------------------------- phase 5
@@ -4635,6 +5101,10 @@ def main() -> None:
         report_kernels([r for r in rows
                         if r not in sharded_rows + narrow_rows], launches,
                        stats["steps"])
+        # the trace plane and the split planes over the same corpus,
+        # early: profiler traces lose records late in a run
+        stats["trace"] = trace_path(path, size, LEARNING_RATE, work)
+        stats["split"] = split_path(path, size, LEARNING_RATE, work)
         stats["h2d_gbps"] = h2d_gbps(first)
         log(f"H2D from pinned slots: {stats['h2d_gbps']:.2f} GB/s "
             f"({stats['h2d_bytes_per_batch']} bytes per batch)")

@@ -5,7 +5,8 @@ counterpart at the same path there, and the JAX package stays the
 reference the tests hold this one to. This package imports torch and
 numpy, never jax, and nothing of ``dmlc_tpu``.
 
-Ported so far: local-file ``InputSplit`` (text and RecordIO), the
+Ported so far: local-file ``InputSplit`` (text and RecordIO; stdin,
+``#cache`` URIs, the shuffled and threaded splits), the
 libsvm, libfm, dense-record and image-record parsers (Python golden and
 native C++ engine, with ABI-5 padded batch assembly that carries libfm's
 ``field`` column, and the sharded single-input parse), the RecordIO
@@ -21,9 +22,10 @@ the pairwise ranking loss with its gradient in the margins, and SGD for
 ``SparseLinearModel``, ``SparseFMModel``, ``SparseFFMModel`` and
 ``SparseRankingModel`` (over libsvm ``qid``), on one device and data
 parallel over a ``torch.distributed`` group (``parallel.launch``,
-``parallel.sharded``, ``Pipeline.shard``, ``graft``). Entry points that touch a
-device default to ``torch.device("cuda")``; pass ``device="cpu"`` to run
-the plain PyTorch versions of the kernels.
+``parallel.sharded``, ``Pipeline.shard``, ``graft``), and the trace plane
+(``dmlc_tpu_torch.obs``: spans, Chrome export, metrics, ``cuda_trace``).
+Entry points that touch a device default to ``torch.device("cuda")``;
+pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """
 
 from dmlc_tpu_torch.utils.logging import DMLCError

@@ -14,8 +14,11 @@ reference's workers holds 2 host devices. The group is gloo by default:
 NCCL needs a card a rank (it refuses two ranks on one card), so with
 ``nccl`` rank r takes card r and the caller checks there is one.
 
-Trimmed from the reference: its obs, rendezvous, scheduler and SLO
-``install_if_env`` hooks (their planes are not ported).
+Under ``launch_local(trace_dir=...)`` each rank records its run and
+exports a rank-tagged trace (``obs.trace.trace_if_env``), as the
+reference's worker does. Trimmed from the reference: its other obs,
+rendezvous, scheduler and SLO ``install_if_env`` hooks (their planes
+are not ported).
 
 Usage: bench_mp_worker.py <data_uri> <out_dir> [<device> [gloo|nccl]]
 (device ``cuda`` by default).
@@ -28,6 +31,14 @@ import time
 
 
 def main() -> int:
+    # the rank-tagged gang trace under launch_local(trace_dir=...) (a
+    # no-op without DMLC_TPU_TRACE_DIR)
+    from dmlc_tpu_torch.obs.trace import trace_if_env
+    with trace_if_env():
+        return _run()
+
+
+def _run() -> int:
     data_uri, out_dir = sys.argv[1], sys.argv[2]
     device = sys.argv[3] if len(sys.argv) > 3 else "cuda"
     backend = sys.argv[4] if len(sys.argv) > 4 else "gloo"

@@ -25,7 +25,7 @@ from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
 from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.io.input_split import InputSplit
 from dmlc_tpu_torch.io.uri_spec import URISpec
-from dmlc_tpu_torch.utils.logging import DMLCError, check, log_warning
+from dmlc_tpu_torch.utils.logging import DMLCError, check
 from dmlc_tpu_torch.utils.registry import Registry
 
 __all__ = ["DataIter", "Parser", "TextParserBase", "PARSER_REGISTRY",
@@ -58,16 +58,25 @@ def native_or(native_cls_name: str, python_cls, kwargs):
         # an outer part/num_parts split already subdivides the input;
         # nesting the shard split would apply the byte-range alignment
         # rule twice with different steps
-        log_warning(f"shards={shards} ignored under a part/num_parts "
-                    "split (sharded parse serves whole inputs only)")
+        from dmlc_tpu_torch.obs.log import warn_limited
+        warn_limited(
+            "parser-shards-nested",
+            f"shards={shards} ignored under a part/num_parts split "
+            "(sharded parse serves whole inputs only); running the "
+            "part unsharded", min_interval_s=60.0)
         shards = 1
-    if engine in ("auto", "native"):
+    # python-only construction kwargs (pipeline seam): the native engine
+    # runs its own reader/queue pipeline, so a custom split forces the
+    # python golden and the chunk-prefetch depth simply does not apply
+    has_custom_split = kwargs.get("split_factory") is not None
+    if engine in ("auto", "native") and not has_custom_split:
         from dmlc_tpu_torch.native import native_available
         if native_available():
             try:
                 from dmlc_tpu_torch.native import bindings
                 nat_kwargs = {k: v for k, v in kwargs.items()
-                              if k != "prefetch_depth"}
+                              if k not in ("prefetch_depth",
+                                           "split_factory")}
                 cls = getattr(bindings, native_cls_name)
                 if shards > 1:
                     return bindings.NativeShardedTextParser(
@@ -79,9 +88,16 @@ def native_or(native_cls_name: str, python_cls, kwargs):
         elif engine == "native":
             from dmlc_tpu_torch.native import get_lib
             get_lib()  # raises with the build failure
+    elif engine == "native" and has_custom_split:
+        raise DMLCError("native engine does not accept split_factory; "
+                        "use engine='python' for injected splits")
     if shards > 1:
-        log_warning(f"shards={shards} ignored: the sharded single-input "
-                    "parse needs the native engine; running unsharded")
+        from dmlc_tpu_torch.obs.log import warn_limited
+        warn_limited(
+            "parser-shards-ignored",
+            f"shards={shards} ignored: the sharded single-input parse "
+            "needs the native engine over the whole input "
+            "(part 0 of 1); running unsharded", min_interval_s=60.0)
     return python_cls(**kwargs)
 
 
@@ -144,15 +160,21 @@ class TextParserBase(Parser):
     def __init__(self, uri: str, part_index: int = 0, num_parts: int = 1,
                  index_dtype=np.uint32, split_type: str = "text",
                  chunk_size: int = 8 << 20, prefetch: bool = True,
-                 prefetch_depth: int = 4, engine: str = "auto",
-                 **_ignored: Any):
+                 prefetch_depth: int = 4, split_factory=None,
+                 engine: str = "auto", **_ignored: Any):
         self.uri = uri
         self.index_dtype = np.dtype(index_dtype)
-        self._split = InputSplit.create(uri, part_index, num_parts,
-                                        split_type, chunk_size=chunk_size)
+        # split_factory (dmlc_tpu_torch.pipeline): inject a custom
+        # InputSplit (e.g. InputSplitShuffle) in place of the default
+        # byte-range split — python engine only (native builds its own
+        # reader)
+        self._split = (split_factory() if split_factory is not None
+                       else InputSplit.create(uri, part_index, num_parts,
+                                              split_type,
+                                              chunk_size=chunk_size))
         self._block: Optional[RowBlock] = None
         self._prefetch: Optional[ThreadedIter] = None
-        if prefetch:
+        if prefetch and getattr(self._split, "rewindable", True):
             self._prefetch = ThreadedIter(max_capacity=prefetch_depth,
                                           name="parse.chunk_prefetch")
             self._prefetch.init(self._split.next_chunk,

@@ -23,6 +23,8 @@ import threading
 import time
 from typing import Any, Callable, Generic, Optional, TypeVar
 
+from dmlc_tpu_torch.obs import trace as _trace
+from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from dmlc_tpu_torch.utils.logging import check
 
 T = TypeVar("T")
@@ -31,14 +33,26 @@ _DATA, _END, _EXC = 0, 1, 2
 
 
 class ThreadedIter(Generic[T]):
-    """Background prefetch with faithful exception semantics. ``name``
-    labels the queue (the reference also registers it with its metrics
-    plane, which is not ported)."""
+    """Background prefetch with faithful exception semantics.
+
+    Observability (dmlc_tpu_torch.obs): BLOCKING producer/consumer waits
+    on any ThreadedIter become trace spans (``<name>.producer_wait`` /
+    ``<name>.consumer_wait``; unnamed queues record under the generic
+    ``threaded_iter`` label); ``name`` additionally registers the
+    queue's ``stats()`` as a metrics collector ``queue/<name>`` until
+    destroy(). Cost when no recorder is installed: one module-global
+    read per blocked wait; non-blocking operation is untouched. The
+    reference also registers each blocked wait with its stall
+    watchdog, which is not ported.
+    """
 
     def __init__(self, max_capacity: int = 8, name: Optional[str] = None):
         check(max_capacity >= 1, "max_capacity must be >= 1")
         self._cap = max_capacity
         self.name = name
+        self._metrics_key = (
+            _METRICS.register(f"queue/{name}", self, ThreadedIter._metrics)
+            if name else None)
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         self._not_full = threading.Condition(self._lock)
@@ -122,7 +136,13 @@ class ThreadedIter(Generic[T]):
                     t0 = time.perf_counter()
                 self._not_full.wait()
             if t0 is not None:
-                self._producer_block_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self._producer_block_s += dt
+                rec = _trace.active()
+                if rec is not None:
+                    rec.complete(
+                        f"{self.name or 'threaded_iter'}.producer_wait",
+                        t0, dt, "queue")
             if self._destroyed or self._epoch != epoch:
                 return False
             self._queue.append((epoch, kind, payload))
@@ -141,10 +161,20 @@ class ThreadedIter(Generic[T]):
             return None
         while True:
             with self._lock:
+                t0 = None
                 while not self._queue:
                     if self._destroyed:
                         return None
+                    if t0 is None:
+                        t0 = time.perf_counter()
                     self._not_empty.wait()  # _emit/destroy always notify
+                if t0 is not None:
+                    rec = _trace.active()
+                    if rec is not None:
+                        rec.complete(
+                            f"{self.name or 'threaded_iter'}"
+                            ".consumer_wait", t0,
+                            time.perf_counter() - t0, "queue")
                 epoch, kind, payload = self._queue.pop(0)
                 self._not_full.notify()
                 if epoch != self._epoch:
@@ -169,6 +199,13 @@ class ThreadedIter(Generic[T]):
         produced and seconds the producer spent blocked on a full queue."""
         with self._lock:
             return {"produced": self._produced,
+                    "producer_block_s": round(self._producer_block_s, 6)}
+
+    def _metrics(self) -> dict:
+        """Registered metrics-collector shape (obs.metrics)."""
+        with self._lock:
+            return {"qsize": len(self._queue), "capacity": self._cap,
+                    "produced": self._produced,
                     "producer_block_s": round(self._producer_block_s, 6)}
 
     @property
@@ -199,6 +236,9 @@ class ThreadedIter(Generic[T]):
 
     def destroy(self) -> None:
         """Stop the producer and join (reference: Destroy/dtor)."""
+        if self._metrics_key is not None:
+            _METRICS.unregister(self._metrics_key)
+            self._metrics_key = None
         with self._lock:
             self._destroyed = True
             self._not_full.notify_all()

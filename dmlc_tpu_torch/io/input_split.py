@@ -30,13 +30,15 @@ Record definitions:
   whole(0) or start(1) — continuation frames are not record starts
   (reference: src/io/recordio_split.cc).
 
-The text and recordio splits are ported; indexed recordio, '#cache' URIs
-and stdin raise a DMLCError naming what is missing.
+The text and recordio splits, the stdin split (``"-"``) and '#cache'
+URIs (``CachedInputSplit``) are ported; indexed recordio raises a
+DMLCError naming what is missing.
 """
 
 from __future__ import annotations
 
 import struct
+import sys
 from bisect import bisect_right
 from typing import Iterator, List, Optional, Tuple
 
@@ -93,25 +95,35 @@ class InputSplit:
         """Reference: InputSplit::Create (src/io.cc).
 
         split_type: "text" | "recordio" ("indexed_recordio" is not
-        ported)."""
+        ported). The URI "-" reads text records from stdin (one part). A
+        '#cachefile' URI suffix wraps the split in a disk cache
+        (reference: CachedInputSplit)."""
         check_lt(part_index, num_parts, "part_index must be < num_parts")
         spec = URISpec(uri)
         if spec.uri == "-":
-            raise DMLCError("stdin split is not ported to dmlc_tpu_torch "
-                            "yet")
-        if spec.cache_file:
-            raise DMLCError("'#cache' URIs (CachedInputSplit) are not "
-                            "ported to dmlc_tpu_torch yet")
+            check(split_type == "text",
+                  f"stdin split supports only text records, "
+                  f"not {split_type!r}")
+            check(num_parts == 1,
+                  "stdin split has exactly one part (a pipe cannot be "
+                  "byte-range sharded)")
+            return _StdinSplit(chunk_size=chunk_size)
         if split_type == "text":
-            return _TextSplit(uri, part_index, num_parts,
-                              chunk_size=chunk_size)
-        if split_type == "recordio":
-            return _RecordIOSplit(uri, part_index, num_parts,
-                                  chunk_size=chunk_size)
-        if split_type == "indexed_recordio":
+            split: InputSplit = _TextSplit(uri, part_index, num_parts,
+                                           chunk_size=chunk_size)
+        elif split_type == "recordio":
+            split = _RecordIOSplit(uri, part_index, num_parts,
+                                   chunk_size=chunk_size)
+        elif split_type == "indexed_recordio":
             raise DMLCError("split_type 'indexed_recordio' is not ported to "
-                            "dmlc_tpu_torch yet")
-        raise DMLCError(f"unknown split_type {split_type!r}")
+                            "dmlc_tpu_torch yet (it waits for the indexed "
+                            "RecordIO split and its native reader)")
+        else:
+            raise DMLCError(f"unknown split_type {split_type!r}")
+        if spec.cache_file:
+            from dmlc_tpu_torch.io.cached_split import CachedInputSplit
+            split = CachedInputSplit(split, spec.cache_file)
+        return split
 
     # -- interface
 
@@ -160,6 +172,79 @@ class InputSplit:
             if rec is None:
                 return
             yield rec
+
+
+class _StdinSplit(InputSplit):
+    """Degenerate single-part split over stdin (reference:
+    src/io/single_file_split.h — the "-" URI path). One pass only;
+    before_first after consumption raises (a pipe cannot rewind)."""
+
+    rewindable = False  # a pipe cannot seek; parsers skip prefetch
+
+    def __init__(self, chunk_size: int = _DEFAULT_CHUNK):
+        self._consumed = False
+        self._recbuf: List[bytes] = []
+        self._recpos = 0
+        self._bytes = 0
+        self._chunk_size = max(chunk_size, 64 * 1024)
+        self._leftover = b""
+        self._eof = False
+
+    def next_chunk(self) -> Optional[bytes]:
+        """Bounded streaming read with partial-line carry — a piped
+        50 GB stream never lives in memory at once."""
+        while not self._eof:
+            self._consumed = True
+            raw = sys.stdin.buffer.read(self._chunk_size)
+            if not raw:
+                self._eof = True
+                break
+            self._bytes += len(raw)
+            combined = self._leftover + raw
+            cut = max(combined.rfind(b"\n"), combined.rfind(b"\r")) + 1
+            if cut == 0:
+                self._leftover = combined
+                continue
+            self._leftover = combined[cut:]
+            return combined[:cut]
+        if self._leftover:
+            tail, self._leftover = self._leftover, b""
+            return tail
+        return None
+
+    def next_record(self) -> Optional[bytes]:
+        while self._recpos >= len(self._recbuf):
+            chunk = self.next_chunk()
+            if chunk is None:
+                return None
+            self._recbuf = list(self.extract_records(chunk))
+            self._recpos = 0
+        rec = self._recbuf[self._recpos]
+        self._recpos += 1
+        return rec
+
+    def extract_records(self, chunk: bytes) -> Iterator[bytes]:
+        for line in chunk.splitlines():
+            if line:
+                yield line
+
+    def before_first(self) -> None:
+        if not self._consumed:
+            return  # fresh stream: nothing to rewind
+        if self._recbuf:
+            self._recpos = 0  # replay buffered records
+        else:
+            raise DMLCError("stdin split cannot rewind")
+
+    def reset_partition(self, part_index: int, num_parts: int) -> None:
+        check(num_parts == 1, "stdin split has exactly one part")
+
+    def get_total_size(self) -> int:
+        return self._bytes
+
+    @property
+    def bytes_read(self) -> int:
+        return self._bytes
 
 
 class _AlignedSplitBase(InputSplit):

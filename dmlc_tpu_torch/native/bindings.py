@@ -8,16 +8,21 @@ handling stay in Python (the VFS is the source of truth for shard
 layout; ``cuda://`` paths map to their backing files); the native side
 owns reading, splitting, parsing and padded batch assembly.
 
+The engine's span ring (chunk reads, tokenize, batch assembly) drains
+into the port's trace recorder (``drain_trace``); its on/off flag
+follows ``dmlc_tpu_torch.obs.trace``.
+
 Trimmed from ``dmlc_tpu/native/bindings.py``: the csv, parquet and
-indexed-recordio adapters, the engine's trace and profiler entries, the
-test hooks, and the obs metrics registration of each handle
-(``native/<format>``, ``native/recordio``), which is not ported.
+indexed-recordio adapters, the engine's profiler beacons, the test
+hooks, and the obs metrics registration of each handle
+(``native/<format>``, ``native/recordio``).
 """
 
 from __future__ import annotations
 
 import ctypes as C
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -133,7 +138,17 @@ def load(path: str):
     lib.dtp_recio_total_size.argtypes = [C.c_void_p]
     lib.dtp_recio_stats.argtypes = [C.c_void_p, C.POINTER(C.c_int64)]
     lib.dtp_recio_destroy.argtypes = [C.c_void_p]
+    lib.dtp_trace_set_enabled.argtypes = [C.c_int]
+    lib.dtp_trace_enabled.restype = C.c_int
+    lib.dtp_now_ns.restype = C.c_int64
+    lib.dtp_parser_trace_drain.restype = C.c_int64
+    lib.dtp_parser_trace_drain.argtypes = [
+        C.c_void_p, C.POINTER(C.c_int64), C.c_int64]
     _lib = lib
+    # the tracing global may already be on when the engine loads late
+    # (obs.trace only mirrors into an ALREADY-loaded lib)
+    from dmlc_tpu_torch.obs import trace as _obs_trace
+    lib.dtp_trace_set_enabled(1 if _obs_trace.active() is not None else 0)
     return lib
 
 
@@ -266,6 +281,31 @@ def _padded_views(outs, n: int, rb: int, nnz_bucket: int,
     return out
 
 
+# native span ring (engine.cc SpanRing): event kind -> (ph, timeline
+# name); "X" = complete span, "i" = instant. The engine's small thread
+# ids are offset into their own track range so they can never collide
+# with Python pthread idents (which are pointer-sized).
+_TRACE_KINDS = {
+    1: ("X", "native/chunk_read"),
+    2: ("X", "native/tokenize"),
+    3: ("X", "native/batch_assemble"),
+    4: ("i", "native/cache.hit"),
+    5: ("i", "native/cache.miss"),
+}
+_NATIVE_TID_BASE = 0x6E000000  # 'n' << 24: the native track range
+_NATIVE_RING_CAP = 4096        # engine.cc SpanRing::kCap
+
+
+def _native_thread_name(tid: int) -> str:
+    if tid == 0:
+        return "native/consumer"
+    if tid == 1:
+        return "native/reader"
+    if tid == 100:
+        return "native/arena-pool"
+    return f"native/worker-{tid - 2}"
+
+
 class NativeTextParser(Parser):
     """Parser over the native pipeline (reader + parse-pool threads in
     C++). Blocks are zero-copy views into engine arenas (see BlockLease).
@@ -281,8 +321,10 @@ class NativeTextParser(Parser):
         self.index_dtype = np.dtype(index_dtype)
         spec = URISpec(uri)
         if spec.cache_file:
-            raise DMLCError("'#cache' URIs are not ported to "
-                            "dmlc_tpu_torch yet")
+            raise DMLCError(
+                "'#cache' URIs are not ported to the native engine (the "
+                "reference's engine refuses them too); use "
+                "engine='python' for cached splits")
         files = _local_split_files(uri)
         paths = (C.c_char_p * len(files))(
             *[p.encode() for p, _ in files])
@@ -476,6 +518,42 @@ class NativeTextParser(Parser):
                 "max_reorder_depth": int(out[5]),
                 "parse_cpu_ns": int(out[6]),
                 "assemble_ns": int(out[7])}
+
+    def drain_trace(self, rec) -> int:
+        """Drain this parser's native span ring into a
+        :class:`~dmlc_tpu_torch.obs.trace.TraceRecorder`, converting
+        engine steady-clock timestamps onto the recorder's perf_counter
+        timebase (offset calibrated per drain — exact when both are
+        CLOCK_MONOTONIC, which glibc guarantees, and bounded by one
+        syscall's jitter otherwise). Returns the event count. The ring
+        records only while tracing is on (dtp_trace_set_enabled), so
+        with tracing off this returns 0 at the cost of one C call."""
+        if not getattr(self, "_handle", None):
+            return 0
+        buf = (C.c_int64 * (5 * _NATIVE_RING_CAP))()
+        n = int(self._lib.dtp_parser_trace_drain(
+            self._handle, buf, _NATIVE_RING_CAP))
+        if n == 0:
+            return 0
+        off_s = time.perf_counter() - self._lib.dtp_now_ns() / 1e9
+        named = set()
+        for k in range(n):
+            kind, tid, t0_ns, dur_ns, arg = buf[5 * k:5 * k + 5]
+            ph_name = _TRACE_KINDS.get(kind)
+            if ph_name is None:
+                continue
+            ph, name = ph_name
+            rtid = _NATIVE_TID_BASE + tid
+            if rtid not in named:
+                rec.name_thread(rtid, _native_thread_name(tid))
+                named.add(rtid)
+            t0_s = t0_ns / 1e9 + off_s
+            if ph == "X":
+                rec.complete_at(name, t0_s, dur_ns / 1e9, rtid,
+                                "native", {"seq": int(arg)})
+            else:
+                rec.instant_at(name, t0_s, rtid, "native")
+        return n
 
     def bytes_read(self) -> int:
         return int(self._lib.dtp_parser_bytes_read(self._handle))
@@ -732,6 +810,12 @@ class NativeShardedTextParser(Parser):
             o["max_reorder_depth"] for o in outs)
         agg["shards"] = self.shards
         return agg
+
+    def drain_trace(self, rec) -> int:
+        # sub-parser span rings share one engine tid range, so their
+        # events land on the same named native tracks — one timeline,
+        # shard attribution via the per-span seq args
+        return sum(p.drain_trace(rec) for p in self._subs)
 
     def outstanding(self) -> int:
         gang = (int(self._lib.dtp_gang_outstanding(self._handle))

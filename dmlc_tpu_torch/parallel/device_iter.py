@@ -23,6 +23,13 @@ as a :class:`DeviceBatch`, a dict of tensors with the same keys, shapes
 and dtypes: the index keeps its layout dtype (u32 stays 4 bytes an index
 across the edge).
 
+Each stage copy emits a ``device.assemble`` span and each staged batch a
+``device.xfer`` span (its window in flight: from its copy's enqueue to
+its hand-off to the consumer, whose stream then waits on the copy's
+event) into the active ``dmlc_tpu_torch.obs.trace`` recorder; the
+``device.staging`` gauge counts the slots handed out and not yet
+released.
+
 The copy itself is :func:`copy_to_device` (enqueue, event behind) and
 :func:`wait_copy` (the consumer's side); ``device_prefetch``, the
 pipeline's ``to_device`` stage and ``parallel.sharded``'s serve thread
@@ -38,6 +45,9 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
 
 import numpy as np
 import torch
+
+from dmlc_tpu_torch.obs import trace as _trace
+from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 
 __all__ = ["device_prefetch", "DeviceIter", "HostStaging", "DeviceBatch",
            "copy_to_device", "wait_copy"]
@@ -78,6 +88,7 @@ class HostStaging:
         self._free: List[Dict[str, torch.Tensor]] = []
         self._busy: collections.deque = collections.deque()
         self.allocated = 0
+        self.in_flight = 0     # slots handed out and not yet released
         self.assemble_s = 0.0  # seconds spent staging, over the pool's life
 
     @staticmethod
@@ -127,17 +138,24 @@ class HostStaging:
                                    pin_memory=self.pin)
                     for k, (shape, dtype) in spec.items()}
             self.allocated += 1
+        self.in_flight += 1
+        _METRICS.gauge("device.staging").set(self.in_flight)
         return slot
 
     def stage(self, arrs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Copy ``arrs`` into a staging slot; the source arrays are dead
-        to this pool after the call."""
+        """Copy ``arrs`` into a staging slot (``device.assemble`` span);
+        the source arrays are dead to this pool after the call."""
         t0 = time.perf_counter()
         arrs = {k: np.asarray(v) for k, v in arrs.items()}
         slot = self.acquire({k: (a.shape, a.dtype) for k, a in arrs.items()})
         for k, a in arrs.items():
             slot[k].copy_(torch.from_numpy(a))
-        self.assemble_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.assemble_s += dt
+        rec = _trace.active()
+        if rec is not None:
+            rec.complete("device.assemble", t0, dt, "transfer",
+                         {"in_flight": self.in_flight})
         return slot
 
     def release(self, slot: Dict[str, torch.Tensor],
@@ -145,6 +163,8 @@ class HostStaging:
         """The H2D copy from ``slot`` was enqueued before ``event``:
         recycle the slot once the event completes (never, on targets
         that alias the slot)."""
+        self.in_flight -= 1
+        _METRICS.gauge("device.staging").set(self.in_flight)
         if self.alias_unsafe:
             self.allocated -= 1
         elif event is None:
@@ -232,10 +252,22 @@ def device_prefetch(host_batches: Iterable[Dict[str, Any]], size: int = 2,
     def _enqueue():
         batch = next(it)  # StopIteration propagates to the caller
         src = pool.stage(batch) if pool is not None else _to_tensors(batch)
+        t_enq = time.perf_counter()
         out = copy_to_device(src, device, copy_stream)
         if pool is not None:
             pool.release(src, out.event)
-        return out
+        return out, t_enq
+
+    def _drain(entry):
+        out, t_enq = entry
+        rec = _trace.active()
+        if rec is not None and pool is not None:
+            # the batch's window in flight, enqueue → hand-off: it
+            # overlaps the NEXT batch's device.assemble span when
+            # staging does its job
+            rec.complete("device.xfer", t_enq,
+                         time.perf_counter() - t_enq, "transfer")
+        return wait_copy(out, device)
 
     try:
         for _ in range(size):
@@ -248,7 +280,7 @@ def device_prefetch(host_batches: Iterable[Dict[str, Any]], size: int = 2,
             queue.append(_enqueue())
         except StopIteration:
             pass
-        yield wait_copy(entry, device)
+        yield _drain(entry)
 
 
 class DeviceIter:

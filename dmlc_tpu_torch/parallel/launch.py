@@ -14,7 +14,9 @@ coordinator's address. This module keeps:
   the CPU. NCCL needs one card a rank. There is no fallback from one
   backend to the other: if NCCL fails, the call raises;
 - ``launch_local()``, N local worker processes: the gang is killed on
-  the first nonzero exit and on timeout;
+  the first nonzero exit and on timeout; ``trace_dir`` hands every
+  worker the obs tracing contract (``DMLC_TPU_TRACE_DIR``) and
+  :func:`merge_gang_traces` stitches their trace files into one;
 - the ring/tree topology helpers (``get_ring``, ``get_tree``,
   ``get_link_map``), pure functions kept for API parity;
 - ``find_free_port(s)``.
@@ -37,15 +39,18 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = [
     "worker_envs", "ps_envs", "get_role", "init_from_env", "finalize",
-    "launch_local", "get_ring", "get_tree", "get_link_map",
-    "find_free_port", "find_free_ports", "ENV_COORD", "ENV_NWORKER",
-    "ENV_TASK_ID",
+    "launch_local", "merge_gang_traces", "get_ring", "get_tree",
+    "get_link_map", "find_free_port", "find_free_ports", "ENV_COORD",
+    "ENV_NWORKER", "ENV_TASK_ID", "ENV_TRACE_DIR",
 ]
 
 # env contract (reference: slave_envs in tracker.py)
 ENV_COORD = "DMLC_TPU_COORDINATOR_URI"
 ENV_NWORKER = "DMLC_TPU_NUM_WORKER"
 ENV_TASK_ID = "DMLC_TPU_TASK_ID"
+# obs tracing contract: workers that wrap their run in
+# obs.trace.trace_if_env() export a rank-tagged trace file here
+ENV_TRACE_DIR = "DMLC_TPU_TRACE_DIR"
 # reference-name aliases accepted on read
 _ALIASES = {
     ENV_COORD: ["DMLC_TRACKER_URI"],
@@ -57,7 +62,6 @@ _ALIASES = {
 # does not have, each with the plane it waits for
 _NOT_PORTED = {
     "num_servers": "the parameter-server role set",
-    "trace_dir": "the obs trace plane",
     "serve_ports": "the obs live status server",
     "flight_dir": "the obs flight recorder",
     "history_s": "the obs time-series plane",
@@ -220,6 +224,7 @@ def launch_local(num_workers: int, command: Sequence[str],
                  env: Optional[Dict[str, str]] = None,
                  coordinator: Optional[str] = None,
                  timeout: Optional[float] = None,
+                 trace_dir: Optional[str] = None,
                  **options) -> List[int]:
     """Run ``num_workers`` worker processes of ``command`` on this host
     (reference: local.py), each with the env contract of its rank on top
@@ -229,7 +234,15 @@ def launch_local(num_workers: int, command: Sequence[str],
     worker is killed and the call raises. Returns the exit codes in rank
     order (all 0).
 
-    The reference's other options (``num_servers``, ``trace_dir``,
+    ``trace_dir`` hands every worker the obs tracing contract
+    (``DMLC_TPU_TRACE_DIR``): workers that wrap their run in
+    ``dmlc_tpu_torch.obs.trace.trace_if_env()`` each export a
+    rank-tagged Chrome trace there, and on a clean gang exit the
+    per-worker files are merged into ``<trace_dir>/trace-gang.json`` —
+    one Perfetto timeline, one process row per rank. Stale
+    ``trace-*.json`` files in the directory are removed first.
+
+    The reference's other options (``num_servers``,
     ``serve_ports``, ``flight_dir``, ``history_s``, ``gang_poll_s``,
     ``profile_hz``, ``control``, ``scheduler``, ``slo``,
     ``restart_policy``, ``faults``, ``rendezvous``,
@@ -244,6 +257,17 @@ def launch_local(num_workers: int, command: Sequence[str],
                 f"launch_local({name}=...) is not ported to dmlc_tpu_torch "
                 f"yet (it waits for {_NOT_PORTED[name]})")
     check(num_workers >= 1, "num_workers must be >= 1")
+    if trace_dir is not None:
+        import glob
+        os.makedirs(trace_dir, exist_ok=True)
+        # stale trace-*.json from a previous gang (e.g. a 4-worker run
+        # reusing a 2-worker run's dir) would merge as ghost rank rows
+        # on the new timeline — this launch owns the dir's trace files
+        for stale in glob.glob(os.path.join(trace_dir, "trace-*.json")):
+            try:
+                os.remove(stale)
+            except OSError:
+                pass
     if coordinator is None:
         coordinator = f"127.0.0.1:{find_free_port()}"
     procs: List[subprocess.Popen] = []
@@ -253,6 +277,8 @@ def launch_local(num_workers: int, command: Sequence[str],
             if env:
                 wenv.update(env)
             wenv.update(worker_envs(coordinator, num_workers, task_id))
+            if trace_dir is not None:
+                wenv[ENV_TRACE_DIR] = trace_dir
             procs.append(subprocess.Popen(list(command), env=wenv))
         deadline = (time.monotonic() + timeout) if timeout else None
         while True:
@@ -265,6 +291,8 @@ def launch_local(num_workers: int, command: Sequence[str],
                     f"{[p.returncode for p in procs]} (gang killed on "
                     "first nonzero exit)")
             if all(c == 0 for c in codes):
+                if trace_dir is not None:
+                    merge_gang_traces(trace_dir)
                 return codes
             if deadline is not None and time.monotonic() > deadline:
                 _kill_all(procs)
@@ -274,6 +302,24 @@ def launch_local(num_workers: int, command: Sequence[str],
     except BaseException:
         _kill_all(procs)
         raise
+
+
+def merge_gang_traces(trace_dir: str,
+                      out_name: str = "trace-gang.json") -> Optional[str]:
+    """Merge the per-worker ``trace-*.json`` files a traced gang left
+    in ``trace_dir`` into one Perfetto-loadable timeline. Returns the
+    merged path, or None when no worker exported a trace (workers opt
+    in via obs.trace.trace_if_env())."""
+    import glob
+    out_path = os.path.join(trace_dir, out_name)
+    paths = sorted(p for p in glob.glob(os.path.join(trace_dir,
+                                                     "trace-*.json"))
+                   if os.path.abspath(p) != os.path.abspath(out_path))
+    if not paths:
+        return None
+    from dmlc_tpu_torch.obs.export import merge_chrome_files
+    merge_chrome_files(paths, out_path)
+    return out_path
 
 
 # ---------------------------------------------------------------- topology

@@ -37,11 +37,25 @@ stages and copies them); only ``map`` and ``prefetch`` may follow it.
 RAM or from a :class:`~dmlc_tpu_torch.data.row_iter.DiskRowIter` page
 cache under the port's page store.
 
-Trimmed from the reference: the obs trace spans, the stall watchdog and
-the metrics registry, and the verdict-driven controller. Not ported yet
-(each raises a DMLCError that says so): ``shuffle``, ``from_stream``,
-``to_device(sharding=...)`` and ``build(tenant=...)``; ``shuffle``
-with ``cache`` keeps the reference's own refusal.
+``shuffle(num_shuffle_parts, seed)`` lowers to an injected
+:class:`~dmlc_tpu_torch.io.input_split_shuffle.InputSplitShuffle` under
+the python parse engine (the native reader owns its own split), with the
+reference's seed law, so its order is the reference's.
+
+Observability (``dmlc_tpu_torch.obs``): with a trace recorder active
+(``built.trace(path)``) every delivered item is a ``pull/<stage>`` span,
+each epoch's terminal wait a ``pull/<stage>.end`` span, the native
+engine's span ring and counters join the timeline, and ``to_device``
+emits ``to_device.drain`` and ``device.xfer`` spans; the compiled
+pipeline's last snapshot is a ``pipeline`` collector of the metrics
+registry.
+
+Trimmed from the reference: the stall watchdog (``obs/watchdog.py`` is
+not ported, so no pull registers a wait with it) and the verdict-driven
+controller. Not ported yet (each raises a DMLCError that says so):
+``shuffle(global_seed=...)``, ``from_stream``,
+``to_device(sharding=...)`` and ``build(tenant=...)``; ``shuffle`` with
+``cache`` keeps the reference's own refusal.
 """
 
 from __future__ import annotations
@@ -53,6 +67,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dmlc_tpu_torch.io.input_split_shuffle import InputSplitShuffle
+from dmlc_tpu_torch.obs import trace as _trace
+from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from dmlc_tpu_torch.parallel.device_iter import (
     DeviceBatch, copy_to_device, wait_copy,
 )
@@ -73,17 +90,32 @@ def _not_ported(what: str, waits_for: str) -> DMLCError:
 
 def _probed(runner) -> Iterator:
     """Pull a runner's epoch through its probe: every boundary crossing
-    records wait time, volume, and (when queue-backed) occupancy."""
+    records wait time, volume, and (when queue-backed) occupancy.
+
+    Observability contract (the reference's): with a trace recorder
+    active, every DELIVERED item emits exactly one complete span named
+    ``pull/<stage>`` whose duration is the SAME perf_counter pair the
+    probe accumulates into ``wait_s`` — so per-stage span totals and
+    probe waits agree by construction (the terminal end-of-stream wait
+    goes to ``pull/<stage>.end`` to keep the span-count == items
+    invariant exact)."""
     gen = runner.epoch()
     probe = runner.probe
+    pull_name = f"pull/{probe.name}"      # loop-invariant: built once,
+    end_name = pull_name + ".end"         # not per delivered item
     while True:
+        rec = _trace.active()
         t0 = time.perf_counter()
         item = next(gen, _END)
         dt = time.perf_counter() - t0
         if item is _END:
             probe.record_wait_only(dt)
+            if rec is not None:
+                rec.complete(end_name, t0, dt, "pipeline")
             return
         probe.record(item, dt, runner.queue)
+        if rec is not None:
+            rec.complete(pull_name, t0, dt, "pipeline")
         yield item
 
 
@@ -122,21 +154,33 @@ class _RunnerBase:
 
 def _finalize_parser(parser, probe) -> None:
     """Stamp a parser's end-of-epoch telemetry into ``probe``: engine
-    stats and bytes_read. Shared by _ParseRunner and the fused
+    stats (+ counter track), the native span-ring drain onto the active
+    timeline, and bytes_read. Shared by _ParseRunner and the fused
     _NativeAssembleRunner so both stages report the engine the same
     way."""
     stats_fn = getattr(parser, "stats", None)
     if stats_fn is not None:
-        probe.extra["engine"] = stats_fn()
+        engine = stats_fn()
+        probe.extra["engine"] = engine
+        # native-engine counters as a trace counter track: the
+        # reader/parse busy split rides next to the spans
+        _trace.counter("engine", engine, "native")
+    rec = _trace.active()
+    drain = getattr(parser, "drain_trace", None)
+    if rec is not None and drain is not None:
+        # the engine's span ring (chunk read/tokenize/assemble events)
+        # joins the Python spans on ONE timeline
+        drain(rec)
     probe.extra["bytes_read"] = int(parser.bytes_read())
 
 
 class _ParseRunner(_RunnerBase):
-    """source + parse → Parser.create (native or python), local files."""
+    """source [+ shuffle] + parse → Parser.create (native or python)."""
 
     kind = "parse"
 
-    def __init__(self, source: StageSpec, parse: StageSpec):
+    def __init__(self, source: StageSpec, shuffle: Optional[StageSpec],
+                 parse: StageSpec):
         super().__init__("parse")
         sp = source.params
         p = dict(parse.params)
@@ -144,6 +188,26 @@ class _ParseRunner(_RunnerBase):
         depth = p.pop("prefetch_depth", "auto")
         self._auto_depth = depth == "auto"
         kwargs = {k: v for k, v in p.items() if v is not None}
+        if shuffle is not None:
+            # shuffled read order lowers to an injected chunk-level
+            # InputSplitShuffle under the python engine (the native
+            # reader owns its own split)
+            if (shuffle.params.get("global_seed") is not None
+                    or shuffle.params.get("window_bytes") is not None):
+                raise _not_ported("shuffle(global_seed=...)",
+                                  "the shuffle plane's global permutation")
+            kwargs["engine"] = "python"
+            chunk = kwargs.get("chunk_size", 8 << 20)
+            shp = shuffle.params
+
+            def factory():
+                return InputSplitShuffle.create(
+                    sp["uri"], sp["part_index"], sp["num_parts"],
+                    sp["split_type"],
+                    num_shuffle_parts=shp["num_shuffle_parts"],
+                    seed=shp["seed"], chunk_size=chunk)
+
+            kwargs["split_factory"] = factory
         if sp["split_type"] != "text":
             kwargs["split_type"] = sp["split_type"]
         from dmlc_tpu_torch.data.parser import Parser
@@ -151,6 +215,17 @@ class _ParseRunner(_RunnerBase):
             sp["uri"], sp["part_index"], sp["num_parts"], format=fmt,
             prefetch_depth=4 if self._auto_depth else int(depth), **kwargs)
         self.owned = not hasattr(self._parser, "detach")
+        if shuffle is not None and shuffle.params["num_shuffle_parts"] > 1:
+            # formats whose parser ignores split_factory would silently
+            # yield UNshuffled data — refuse instead
+            split = getattr(self._parser, "_split", None)
+            if not isinstance(split, InputSplitShuffle):
+                self.close()
+                raise DMLCError(
+                    f"pipeline: shuffle is not supported by the "
+                    f"{fmt or 'default'} parser (it ignores the "
+                    "injected split); shuffle works with record-stream "
+                    "formats (libsvm/csv/libfm)")
 
     @property
     def queue(self):
@@ -688,7 +763,7 @@ class _DeviceRunner(_RunnerBase):
 
         def drain_one():
             nonlocal xfer_wait
-            out, lease = in_flight.popleft()
+            out, lease, staged, t_enq = in_flight.popleft()
             t0 = time.perf_counter()
             if out.event is not None and lease is not None:
                 # the copy reads the leased arena: it must have
@@ -697,8 +772,22 @@ class _DeviceRunner(_RunnerBase):
             wait_copy(out, device)
             if lease is not None:
                 lease.release()
-            xfer_wait += time.perf_counter() - t0
+            now = time.perf_counter()
+            dt = now - t0
+            xfer_wait += dt
             self.probe.extra["xfer_wait_s"] = round(xfer_wait, 6)
+            rec = _trace.active()
+            if rec is not None:
+                rec.complete("to_device.drain", t0, dt, "transfer",
+                             {"in_flight": len(in_flight) + 1})
+                if staged:
+                    # the batch's window in flight, enqueue → hand-off
+                    # to the consumer (whose stream then waits on the
+                    # copy's event): it overlaps the NEXT batch's
+                    # device.assemble span — the Perfetto-visible proof
+                    # the double-buffer works
+                    rec.complete("device.xfer", t_enq, now - t_enq,
+                                 "transfer")
             return out
 
         for item in _probed(self.up):
@@ -740,11 +829,12 @@ class _DeviceRunner(_RunnerBase):
                     lease = None
                 src = {k: torch.from_numpy(np.asarray(v))
                        for k, v in arrs.items()}
+            t_enq = time.perf_counter()
             out = copy_to_device(src, device, copy_stream)
             out.counts = counts
             if slot is not None:
                 pool.release(slot, out.event)
-            in_flight.append((out, lease))
+            in_flight.append((out, lease, slot is not None, t_enq))
             # window is re-read each round: the autotuner adjusts it
             # between epochs (and a mid-epoch change is simply honored)
             while len(in_flight) > self.window:
@@ -773,6 +863,14 @@ class CompiledPipeline:
         self.autotuner = autotuner
         self._epoch = 0
         self._last: Optional[Dict[str, Any]] = None
+        # the pipeline's stats() registers as an obs metrics collector:
+        # one REGISTRY.snapshot() sees the last epoch's stage stats
+        # next to the queue and profiler surfaces
+        self._metrics_key = _METRICS.register(
+            "pipeline", self, CompiledPipeline._last_snapshot)
+
+    def _last_snapshot(self) -> Optional[Dict[str, Any]]:
+        return self._last
 
     # -- iteration
 
@@ -816,11 +914,28 @@ class CompiledPipeline:
         return (self.autotuner.report()
                 if self.autotuner is not None else None)
 
+    def trace(self, path: str, capacity: int = 1 << 20):
+        """Record a Chrome/Perfetto trace of everything run inside the
+        block and export it to ``path`` on exit::
+
+            with built.trace("epoch.json"):
+                for batch in built:
+                    step(batch)
+
+        Every stage pull becomes a ``pull/<stage>`` span, queue waits
+        and transfer drains appear on their own threads, and native
+        engine counters ride as counter tracks (dmlc_tpu_torch.obs.trace;
+        installs the global recorder for the duration)."""
+        return _trace.trace_to(path, capacity)
+
     @property
     def epochs(self) -> int:
         return self._epoch
 
     def close(self) -> None:
+        if self._metrics_key is not None:
+            _METRICS.unregister(self._metrics_key)
+            self._metrics_key = None
         for r in reversed(self._runners):
             r.close()
 
@@ -875,9 +990,25 @@ class Pipeline:
                                     prefetch_depth=prefetch_depth,
                                     **kwargs))
 
-    def shuffle(self, *args: Any, **kwargs: Any) -> "Pipeline":
-        """Shuffled read order: not ported."""
-        raise _not_ported("shuffle", "the shuffle plane")
+    def shuffle(self, num_shuffle_parts: int = 4, seed: int = 0,
+                global_seed: Optional[int] = None,
+                window_bytes: Optional[int] = None) -> "Pipeline":
+        """Shuffled read order, chunk-level (InputSplitShuffle): the
+        shard subdivides into num_shuffle_parts sub-shards whose order
+        reshuffles each epoch, deterministically from ``seed`` (the
+        reference's seed law, so the same order as the reference's).
+        Lowers onto the python parse engine.
+
+        ``global_seed`` (the reference's gang-wide sample-level shuffle,
+        with its ``window_bytes``) is not ported."""
+        if global_seed is not None or window_bytes is not None:
+            raise _not_ported("shuffle(global_seed=..., window_bytes=...)",
+                              "the shuffle plane's global permutation")
+        check(num_shuffle_parts >= 1, "num_shuffle_parts must be >= 1")
+        return self._with(StageSpec("shuffle",
+                                    num_shuffle_parts=num_shuffle_parts,
+                                    seed=seed, global_seed=None,
+                                    window_bytes=None))
 
     def cache(self, path: Optional[str] = None,
               rows_per_page: int = 64 << 10,
@@ -991,9 +1122,6 @@ class Pipeline:
         kinds = [s.kind for s in specs]
         if specs[0].params.get("stream") is not None:
             raise _not_ported("a streaming source", "the streaming split")
-        if "shuffle" in kinds and "cache" not in kinds:
-            # with a cache, _CacheRunner keeps the reference's refusal
-            raise _not_ported("shuffle", "the shuffle plane")
         if "parse" not in kinds and "shard" not in kinds:
             raise DMLCError(
                 "pipeline: nothing to run — add .parse(...) or "
@@ -1016,7 +1144,7 @@ class Pipeline:
             runners = [_ShardRunner(specs[0], parse_spec, specs[i])]
             i += 1
         else:
-            runners = [_ParseRunner(specs[0], parse_spec)]
+            runners = [_ParseRunner(specs[0], shuffle_spec, parse_spec)]
         for spec in specs[i:]:
             up = runners[-1]
             if spec.kind == "batch" and spec.params["pad"]:

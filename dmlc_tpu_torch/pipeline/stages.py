@@ -8,8 +8,8 @@ refuses is refused here with the same message. A
 without executing anything. ``Pipeline.build()`` validates the chain
 against ``ALLOWED_AFTER`` (the legal stage grammar) and lowers each spec
 onto the port's machinery (see ``dmlc_tpu_torch.pipeline.graph``). The
-port refuses ``shuffle`` and streaming sources when they are built, with
-a "not ported" error.
+port refuses the global shuffle (``global_seed``) and streaming sources
+when they are built, with a "not ported" error.
 
 Stage catalog (the reference's docs/pipeline.md has the narrative
 version):
@@ -29,7 +29,9 @@ version):
               window; window "auto" is an autotuner knob
   shard     — part-granular multi-process ingest (ShardedRowBlockIter):
               [L, ...] batches on the mesh's device
-  shuffle   — in the grammar, refused by the port
+  shuffle   — shuffled read order, python engine: chunk-level
+              (InputSplitShuffle, reference: input_split_shuffle.h); the
+              global permutation (global_seed) is refused by the port
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 The port imports torch and numpy, never jax, and nothing of the JAX
 package dmlc_tpu (it keeps its own copies of the host modules it needs).
 Checked twice: in a fresh interpreter (tests/conftest.py imports jax into
-this one), and by an AST scan of every file of the package and of
-chip_smoke.py. Also: chip_smoke.py refuses to run without a CUDA card,
+this one), and by an AST scan of every file of the package, of the
+example twins under examples/torch_port/ and of chip_smoke.py. Also: chip_smoke.py refuses to run without a CUDA card,
 and the kernel paths raise instead of falling back.
 """
 
@@ -28,11 +28,12 @@ FORBIDDEN = ("jax", "jaxlib", "dmlc_tpu")
 
 def _port_files():
     out = []
-    for dirpath, dirnames, filenames in os.walk(PKG):
-        dirnames[:] = sorted(d for d in dirnames
-                             if d not in ("build", "__pycache__"))
-        out += [os.path.join(dirpath, f) for f in sorted(filenames)
-                if f.endswith(".py")]
+    for root in (PKG, os.path.join(REPO, "examples", "torch_port")):
+        for dirpath, dirnames, filenames in os.walk(root):
+            dirnames[:] = sorted(d for d in dirnames
+                                 if d not in ("build", "__pycache__"))
+            out += [os.path.join(dirpath, f) for f in sorted(filenames)
+                    if f.endswith(".py")]
     return out + [os.path.join(REPO, "chip_smoke.py")]
 
 
@@ -77,15 +78,30 @@ def test_no_file_imports_jax_or_dmlc_tpu(path):
 NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
                "dmlc_tpu_torch.bench_mp_worker",
                "dmlc_tpu_torch.io.checkpoint",
-               "dmlc_tpu_torch.utils.json_util")
+               "dmlc_tpu_torch.utils.json_util",
+               "dmlc_tpu_torch.obs",
+               "dmlc_tpu_torch.obs.metrics",
+               "dmlc_tpu_torch.obs.log",
+               "dmlc_tpu_torch.obs.trace",
+               "dmlc_tpu_torch.obs.export",
+               "dmlc_tpu_torch.utils.profiler",
+               "dmlc_tpu_torch.utils.timer",
+               "dmlc_tpu_torch.io.tempdir",
+               "dmlc_tpu_torch.io.threaded_split",
+               "dmlc_tpu_torch.io.input_split_shuffle",
+               "dmlc_tpu_torch.io.cached_split",
+               "dmlc_tpu_torch.shuffle.permutation")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_transfer_and_checkpoint_modules_import_alone(module):
     """The transfer probe, the multi-process bench worker, the checkpoint
-    plane and its JSON helpers import in a fresh interpreter without
-    jax or dmlc_tpu (each is also in the AST scan above)."""
-    path = os.path.join(REPO, *module.split(".")) + ".py"
+    plane and its JSON helpers, and the trace and split planes' modules
+    import in a fresh interpreter without jax or dmlc_tpu (each is also
+    in the AST scan above)."""
+    path = os.path.join(REPO, *module.split("."))
+    path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+            else path + ".py")
     assert path in _port_files()
     code = (f"import sys, {module}\n"
             "bad = sorted(k for k in sys.modules\n"

@@ -132,7 +132,7 @@ def test_launch_local_kills_everyone_at_its_timeout(tmp_path):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("num_servers", 1), ("trace_dir", "/tmp/x"), ("serve_ports", True),
+    ("num_servers", 1), ("serve_ports", True),
     ("flight_dir", "/tmp/x"), ("history_s", 1.0), ("gang_poll_s", 1.0),
     ("profile_hz", 10.0), ("control", True), ("scheduler", True),
     ("slo", True), ("restart_policy", 1), ("faults", "x"),

@@ -211,17 +211,20 @@ def test_unported_split_types_raise(tmp_path, split_type):
 
 
 @pytest.mark.parametrize("uri", ["s3://bucket/key.libsvm",
-                                 "hdfs://nn/a.libsvm", "-"])
+                                 "hdfs://nn/a.libsvm"])
 def test_unported_uris_raise(uri):
     with pytest.raises(DMLCError, match="not ported"):
         InputSplit.create(uri, 0, 1)
 
 
 def test_cache_uri_raises(tmp_path):
+    """The native engine refuses a '#cache' URI, as the reference's does
+    (the split itself is ported: tests/test_torch_split_planes.py)."""
+    from dmlc_tpu_torch.native import bindings
     path = tmp_path / "a.libsvm"
     path.write_text("1 1:1\n")
-    with pytest.raises(DMLCError, match="not ported"):
-        InputSplit.create(f"{path}#{tmp_path}/cache", 0, 1)
+    with pytest.raises(DMLCError, match="not ported to the native engine"):
+        bindings.NativeLibSVMParser(f"{path}#{tmp_path}/cache")
 
 
 def test_only_libsvm_is_registered():

@@ -315,7 +315,7 @@ def test_drop_remainder_drops_the_short_tail(corpora, native):
 
 
 @pytest.mark.parametrize("refused,match", [
-    (lambda p: p.shuffle(), "shuffle"),
+    (lambda p: p.shuffle(global_seed=3, window_bytes=1 << 20), "shuffle"),
     (lambda p: p.shuffle(global_seed=3), "shuffle"),
     (lambda p: p.parse().to_device(sharding=object()), "sharding"),
     (lambda p: p.parse().build(tenant="feed"), "tenant"),
