@@ -216,7 +216,30 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    config 7's epochs 2-3 replayed; config 3 through the native reader,
    its records' hash equal to the host reader's in ``cuda_ingest``;
    configs 14 and 18 assembled in the engine, their native and sharded
-   streams equal to the python golden's).
+   streams equal to the python golden's);
+12. the resilience plane (``chaos_path``), after the bench configs:
+   the spill linear path (the mesh of 4 parts, 1 MB replay budget; parse,
+   parse and spill, pages x 3) over a directory holding the linear
+   corpus, one epoch of ``cache(path=...)`` pages, and the trained model
+   saved and restored by ``ShardedCheckpoint`` and ``save_pytree``, run
+   once fault-free and once with CHAOS_PLAN armed (an ioerror at
+   ``io.filesys.list``/``stat``, ``spill.commit``, ``data.pages.build``/
+   ``commit``, ``io.stream.open``, ``io.stream.read`` on the serve
+   thread's page reads, ``checkpoint.save``/``restore``): every armed
+   site retried, the faults injected equal to the plan's log and the
+   retries, every batch equal to the fault-free run's in order, the
+   final weights within the step tolerance, the restores bit for bit,
+   K1, K2, K8 and K9 once a step (a part); a page epoch with a
+   ``fault=delay`` read past a ``Watchdog``'s threshold: one stall
+   report naming the blocked pull and one ``FlightRecorder`` bundle;
+   a gang of 2 workers (``launch_local``, each parsing its half and
+   training its own ``SparseLinearModel(10^6)`` on the card) run
+   fault-free and with rank 1 crashing at its third batch under a
+   ``RestartPolicy``: exit codes [0, 0], one restart in the counter and
+   on ``trace-gang.json``, each rank's batches and weights as the
+   fault-free gang's; config 10 through ``bench_suite.main`` under
+   ``--chaos`` with no ``error``; parse-only epochs with and without an
+   installed watchdog, in turns.
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -5060,6 +5083,617 @@ def dense_train(path, lr):
     return launches, stats
 
 
+# --------------------------------------------------------------- phase 12
+
+# The chaos phase's fault plan: an ioerror at every host I/O seam the
+# spill path, the page cache and the checkpoint cross, each at least once
+# (the page reads on the serve thread by a seeded coin); every fault is
+# retried under CHAOS_POLICY's attempts, with a backoff short enough not
+# to show in an epoch.
+CHAOS_PLAN = ";".join([
+    "site=io.filesys.list,fault=ioerror,times=1",
+    "site=io.filesys.stat,fault=ioerror,nth=2",
+    "site=spill.commit,fault=ioerror,times=2",
+    "site=data.pages.build,fault=ioerror,times=1",
+    "site=data.pages.commit,fault=ioerror,times=1",
+    "site=io.stream.open,fault=ioerror,nth=3",
+    "site=io.stream.read,fault=ioerror,p=0.002",
+    "site=checkpoint.save,fault=ioerror,times=1",
+    "site=checkpoint.restore,fault=ioerror,times=1"])
+CHAOS_SITES = ("io.filesys.list", "io.filesys.stat", "spill.commit",
+               "data.pages.build", "data.pages.commit", "io.stream.open",
+               "io.stream.read", "checkpoint.save", "checkpoint.restore")
+CHAOS_SEED = 17
+CHAOS_ATTEMPTS = 6
+# a page read of the stall epoch sleeps STALL_DELAY_S, past the
+# watchdog's threshold; the watchdog polls every STALL_POLL_S
+STALL_DELAY_S, STALL_THRESHOLD_S, STALL_POLL_S = 3.0, 1.0, 0.25
+STALL_NTH_READ = 200
+# the gang: rank 1 hard-crashes at its third batch, before its first
+# restart only
+GANG_FAULTS = "site=gang.block,fault=crash,nth=3,rank=1,attempt=0"
+GANG_TIMEOUT_S = 300
+# config 10 under --chaos: page reads, the spill's commit and a stat
+BENCH_CHAOS_PLAN = ("site=io.stream.read,fault=ioerror,p=0.002;"
+                    "site=spill.commit,fault=ioerror,times=1;"
+                    "site=io.filesys.stat,fault=ioerror,times=1")
+BENCH_CHAOS_SITES = ("io.stream.read", "spill.commit", "io.filesys.stat")
+WATCHDOG_EPOCHS = ("off", "on", "on", "off")
+
+
+def _chaos_policy():
+    """Every site retries CHAOS_ATTEMPTS times, 1-10 ms apart."""
+    from dmlc_tpu_torch.resilience import RetryPolicy, set_policy
+    set_policy("*", RetryPolicy(max_attempts=CHAOS_ATTEMPTS,
+                                base_delay_s=0.001, max_delay_s=0.01))
+
+
+def _retry_delta(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def chaos_spill_run(uri, lr, mesh, work, tag, plan_spec=None):
+    """The spill linear path (``spill_path``'s chain over ``uri``, a
+    directory holding the corpus, SPILL_EPOCHS epochs: parse, parse and
+    spill, pages), one epoch of ``Pipeline...cache(path=...)`` (a
+    DiskRowIter page cache built and replayed), then the trained model
+    saved by ``ShardedCheckpoint`` and ``save_pytree`` and restored by
+    each into a fresh model on the card. With ``plan_spec`` the fault
+    plan is armed (seed CHAOS_SEED) before the pipeline is built and
+    disarmed after the restores, which must be bit for bit. Returns each
+    epoch's batch hashes, launches, tier, seconds and retries, the
+    run's faults and retries, and the final w and b on the host."""
+    import torch
+    from dmlc_tpu_torch.io.checkpoint import (
+        ShardedCheckpoint, load_pytree, save_pytree,
+    )
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.obs.metrics import REGISTRY
+    from dmlc_tpu_torch.pipeline import Pipeline
+    from dmlc_tpu_torch.resilience import inject, retry_counts
+    cuda = torch.device("cuda")
+    root = os.path.join(work, f"chaos_{tag}")
+    os.makedirs(root)
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["linear"] + ("logistic_sums",
+                                                  "logistic_grad")}
+    injected0 = REGISTRY.counter("resilience.fault.injected").value
+    retries0 = retry_counts()
+    plan = (inject.install(plan_spec, seed=CHAOS_SEED)
+            if plan_spec is not None else None)
+    try:
+        built = (Pipeline.from_uri(uri)
+                 .parse(format="libsvm", engine="native")
+                 .shard(mesh, row_bucket=ROW_BUCKET, nnz_bucket=NNZ_BUCKET,
+                        agreement_cache_bytes=1 << 20,
+                        first_epoch_cache="never",
+                        spill_dir=os.path.join(root, "spill"))
+                 .build(autotune=True))
+        model = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                  device=mesh.device)
+        step = model.make_sharded_train_step(mesh)
+        epochs = []
+        for _ in range(SPILL_EPOCHS):
+            for fn in wrappers.values():
+                fn.launches = 0
+            before = retry_counts()
+            kept, losses = [], []
+            t0 = time.perf_counter()
+            for batch in built:
+                kept.append(batch)
+                losses.append(step(batch))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            shard = built.stats()["stages"][0]["extra"]
+            epochs.append({"secs": secs, "steps": len(kept),
+                           "losses": [float(x) for x in losses],
+                           "launches": {k: fn.launches
+                                        for k, fn in wrappers.items()},
+                           "hashes": _hashes(kept),
+                           "tier": shard["replay_tier"],
+                           "retries": _retry_delta(retry_counts(), before)})
+            del kept
+        built.close()
+        cached = (Pipeline.from_uri(uri)
+                  .parse(format="libsvm", engine="native")
+                  .cache(path=os.path.join(root, "cache.pages"),
+                         memory_budget_bytes=0)
+                  .batch(ROW_BUCKET, pad=True, nnz_bucket=NNZ_BUCKET)
+                  .to_device(cuda, window="auto")
+                  .build(autotune=True))
+        for fn in wrappers.values():
+            fn.launches = 0
+        kept, cache_losses = [], []
+        t0 = time.perf_counter()
+        for batch in cached:
+            kept.append(batch)
+            cache_losses.append(model.train_step(batch))
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        stages = {s["kind"]: s["extra"] for s in cached.stats()["stages"]}
+        cache_epoch = {"secs": cache_s, "steps": len(kept),
+                       "hashes": _hashes(kept),
+                       "losses": [float(x) for x in cache_losses],
+                       "tier": stages["cache"]["replay_tier"],
+                       "launches": {k: fn.launches
+                                    for k, fn in wrappers.items()}}
+        del kept
+        cached.close()
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        ck = ShardedCheckpoint(os.path.join(root, "ckpt"))
+        ck.save(1, model.state_dict(), metadata={"tag": tag})
+        pytree = os.path.join(root, "linear.pytree")
+        save_pytree(model.state_dict(), pytree)
+        for name in ("sharded", "pytree"):
+            fresh = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                      device=cuda)
+            if name == "sharded":
+                got, user = ck.restore(like=fresh.state_dict())
+                require(user == {"tag": tag},
+                        f"chaos {tag}: restored metadata {user}")
+            else:
+                got = load_pytree(pytree, like=fresh.state_dict())
+            fresh.load_state_dict(got)
+            _same_state(f"chaos {tag} {name}", fresh.state_dict(), state)
+    finally:
+        if plan is not None:
+            inject.uninstall()
+    injected = REGISTRY.counter("resilience.fault.injected").value - injected0
+    return {"epochs": epochs, "cache": cache_epoch,
+            "w": model.w.detach().cpu(), "b": model.b.detach().cpu(),
+            "plan": plan, "injected": injected,
+            "retries": _retry_delta(retry_counts(), retries0)}
+
+
+def _check_chaos_run(tag, run, want_steps):
+    """One chaos_spill_run's own checks: the tiers, the launch counts
+    (K1 and K2 once a part a step, K8's two launches and K9 once a step
+    on the mesh; K1, K2, K8 and K9 once a step in the cache epoch), every
+    epoch's batches equal to its epoch 1's and the loss falling (the
+    run itself held both restores bit for bit)."""
+    epochs = run["epochs"]
+    tiers = [e["tier"] for e in epochs]
+    require(tiers == SPILL_TIERS,
+            f"chaos {tag}: the epochs were served by {tiers}, want "
+            f"{SPILL_TIERS}")
+    steps = epochs[0]["steps"]
+    require(want_steps is None or steps == want_steps,
+            f"chaos {tag}: {steps} steps an epoch, want {want_steps}")
+    want = {"csr_spmv": SHARD_PARTS * steps,
+            "csr_spmv_t": SHARD_PARTS * steps, "logistic_step": 0,
+            "logistic_sums": steps, "logistic_grad": steps,
+            "sgd_update": steps}
+    for i, e in enumerate(epochs):
+        require(e["steps"] == steps and e["launches"] == want,
+                f"chaos {tag}: epoch {i + 1} ({e['tier']}) took {e['steps']}"
+                f" steps with launches {e['launches']}; want {want}")
+        require(e["hashes"] == epochs[0]["hashes"],
+                f"chaos {tag}: epoch {i + 1}'s batches differ from epoch 1's")
+    c = run["cache"]
+    csteps = c["steps"]
+    cwant = {k: csteps if k in PATH_KERNELS["linear"] else 0
+             for k in want}
+    require(c["tier"] == "pages" and c["launches"] == cwant,
+            f"chaos {tag}: the cache epoch was served by {c['tier']} with "
+            f"launches {c['launches']}, want pages and {cwant}")
+    losses = [x for e in epochs for x in e["losses"]] + c["losses"]
+    require(all(x == x and abs(x) != float("inf") for x in losses)
+            and losses[-1] < losses[0],
+            f"chaos {tag}: losses {losses[0]} -> {losses[-1]}")
+    return steps
+
+
+def stall_epoch(uri, lr, mesh, work):
+    """One page epoch of the spill path with a ``fault=delay`` clause of
+    STALL_DELAY_S on the STALL_NTH_READ-th stream read (a page read on
+    the ``shard.serve`` thread), a ``Watchdog`` of STALL_THRESHOLD_S and
+    a ``FlightRecorder`` installed for that epoch alone: exactly one
+    stall report naming the blocked pull, and one bundle whose
+    ``trace.json``, ``metrics.json`` and ``faults.json`` load. The
+    epoch's batches must hash equal to its parse epoch's."""
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.obs import flight
+    from dmlc_tpu_torch.obs.watchdog import Watchdog
+    from dmlc_tpu_torch.pipeline import Pipeline
+    from dmlc_tpu_torch.resilience import inject
+    root = os.path.join(work, "chaos_stall")
+    built = (Pipeline.from_uri(uri)
+             .parse(format="libsvm", engine="native")
+             .shard(mesh, row_bucket=ROW_BUCKET, nnz_bucket=NNZ_BUCKET,
+                    agreement_cache_bytes=1 << 20, first_epoch_cache="never",
+                    spill_dir=os.path.join(root, "spill"))
+             .build(autotune=True))
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                              device=mesh.device)
+    step = model.make_sharded_train_step(mesh)
+    hashes = []
+    for _ in range(3):  # parse, parse and spill, pages
+        kept = [b for b in built]
+        for b in kept:
+            step(b)
+        hashes.append(_hashes(kept))
+        del kept
+    tier = built.stats()["stages"][0]["extra"]["replay_tier"]
+    require(tier == "pages", f"stall: the third epoch was served by {tier}")
+    out_dir = os.path.join(root, "flight")
+    plan = inject.install(f"site=io.stream.read,fault=delay,"
+                          f"delay_s={STALL_DELAY_S},nth={STALL_NTH_READ}")
+    recorder = flight.install(out_dir=out_dir)
+    wd = Watchdog(threshold_s=STALL_THRESHOLD_S, interval_s=STALL_POLL_S)
+    try:
+        with wd:
+            kept = []
+            t0 = time.perf_counter()
+            for b in built:
+                kept.append(b)
+                step(b)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        flight.uninstall()
+        inject.uninstall()
+    tier = built.stats()["stages"][0]["extra"]["replay_tier"]
+    built.close()
+    require(tier == "pages" and _hashes(kept) == hashes[0],
+            f"stall: the delayed epoch ({tier}) differs from the parse "
+            "epoch's batches")
+    del kept
+    require(plan.injected == 1 and plan.events()[0]["fault"] == "delay",
+            f"stall: the plan injected {plan.events()}")
+    require(len(wd.reports) == 1,
+            f"stall: {len(wd.reports)} stall reports, want one")
+    blocked = [b["name"] for b in wd.reports[0]["blocked"]]
+    require(any(n.startswith("pull/") for n in blocked),
+            f"stall: the report names {blocked}, no blocked pull")
+    bundles = [d for d in os.listdir(out_dir) if d.startswith("flight-")]
+    require(len(bundles) == 1 and recorder.dumped,
+            f"stall: flight bundles {bundles}")
+    d = os.path.join(out_dir, bundles[0])
+    docs = {}
+    for name in ("trace.json", "metrics.json", "faults.json",
+                 "MANIFEST.json", "watchdog.json"):
+        with open(os.path.join(d, name)) as f:
+            docs[name] = json.load(f)
+    events = docs["trace.json"]["traceEvents"]
+    require(events and all(all(k in e for k in ("ph", "ts", "pid", "tid",
+                                                 "name")) for e in events),
+            "stall: the bundle's trace.json lacks Chrome keys")
+    require(docs["MANIFEST.json"]["reason"] == "watchdog_stall"
+            and docs["faults.json"]["injected"] == 1
+            and docs["faults.json"]["events"][0]["site"] == "io.stream.read"
+            and "counters" in docs["metrics.json"]["current"],
+            f"stall: the bundle's manifest {docs['MANIFEST.json']}, faults "
+            f"{docs['faults.json']}")
+    report = wd.reports[0]
+    log(f"chaos stall: a page read delayed {STALL_DELAY_S} s (the "
+        f"{STALL_NTH_READ}th read of the epoch) under a watchdog of "
+        f"{STALL_THRESHOLD_S} s: one stall report naming {blocked} (blocked "
+        f"{[b['blocked_s'] for b in report['blocked']]} s when reported); "
+        f"one flight bundle ({sorted(os.listdir(d))}, {len(events)} trace "
+        f"events); the epoch {secs:.3f} s, its batches equal to the parse "
+        "epoch's")
+    return {"epoch_s": secs, "blocked": blocked,
+            "bundle_files": sorted(os.listdir(d))}
+
+
+GANG_WORKER = r'''
+import hashlib, json, os, sys, time
+t_start = time.time()
+import numpy as np
+import torch
+from dmlc_tpu_torch.resilience import inject
+inject.install_if_env()
+from dmlc_tpu_torch.data.parser import Parser
+from dmlc_tpu_torch.models.linear import SparseLinearModel
+from dmlc_tpu_torch.ops import csr
+from dmlc_tpu_torch.ops import step as step_ops
+uri, out_dir, rows, nnz_bucket, features, lr = sys.argv[1:7]
+rank = int(os.environ["DMLC_TPU_TASK_ID"])
+nparts = int(os.environ["DMLC_TPU_NUM_WORKER"])
+cuda = torch.device("cuda")
+wrappers = {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
+            "logistic_step": step_ops.logistic_step,
+            "sgd_update": step_ops.sgd_update}
+for fn in wrappers.values():
+    fn.launches = 0
+model = SparseLinearModel(int(features), learning_rate=float(lr),
+                          device=cuda)
+parser = Parser.create(uri, rank, nparts, format="libsvm", engine="native")
+h = hashlib.sha256()
+count, losses = 0, []
+while True:
+    batch = parser.next_padded(int(rows), nnz_bucket=int(nnz_bucket))
+    if batch is None:
+        break
+    inject.fire("gang.block")      # the armed mid-epoch crash site
+    batch = batch.copy()
+    bh = hashlib.sha256()
+    for k in sorted(batch):
+        a = np.ascontiguousarray(batch[k])
+        bh.update(k.encode() + a.dtype.str.encode())
+        bh.update(a.tobytes())
+    h.update(bh.hexdigest().encode())
+    losses.append(model.train_step(
+        {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}))
+    count += 1
+torch.cuda.synchronize()
+parser.destroy()
+np.save(os.path.join(out_dir, f"w-{rank}.npy"), model.w.detach().cpu().numpy())
+np.save(os.path.join(out_dir, f"b-{rank}.npy"), model.b.detach().cpu().numpy())
+out = {"count": count, "sha256": h.hexdigest(),
+       "launches": {k: fn.launches for k, fn in wrappers.items()},
+       "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+       "attempt": int(os.environ["DMLC_TPU_ATTEMPT"]),
+       "wall_s": time.time() - t_start}
+tmp = os.path.join(out_dir, f"out-{rank}.tmp")
+with open(tmp, "w") as f:
+    json.dump(out, f)
+os.replace(tmp, os.path.join(out_dir, f"out-{rank}.json"))
+'''
+
+
+def _gang(script, path, out_dir, lr, **kw):
+    """A launch_local gang of 2 GANG_WORKER processes over ``path``;
+    returns (exit codes, each rank's output, w and b, wall seconds)."""
+    import numpy as np
+    from dmlc_tpu_torch.parallel.launch import launch_local
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    codes = launch_local(
+        2, [sys.executable, script, path, out_dir, str(ROW_BUCKET),
+            str(NNZ_BUCKET), str(NUM_FEATURES), str(lr)],
+        env={"PYTHONPATH": REPO}, timeout=GANG_TIMEOUT_S, **kw)
+    secs = time.perf_counter() - t0
+    outs, weights = {}, {}
+    for r in range(2):
+        with open(os.path.join(out_dir, f"out-{r}.json")) as f:
+            outs[r] = json.load(f)
+        weights[r] = (np.load(os.path.join(out_dir, f"w-{r}.npy")),
+                      np.load(os.path.join(out_dir, f"b-{r}.npy")))
+    return codes, outs, weights, secs
+
+
+def chaos_gang(path, work, lr):
+    """A fault-free gang of 2 workers, then the same gang with rank 1
+    crashing (``os._exit``) at its third batch and restarted by the
+    supervisor (``RestartPolicy(max_restarts=2, backoff_base_s=0.05)``):
+    exit codes [0, 0], one restart in the ``resilience.restart`` counter
+    and on ``trace-gang.json``, each rank's batch count and hash equal to
+    the fault-free gang's, its weights within the step tolerance, K1,
+    K2, K8 and K9 once a step in every worker. The workers form no
+    ``torch.distributed`` group."""
+    import torch
+    from dmlc_tpu_torch.obs.metrics import REGISTRY
+    from dmlc_tpu_torch.resilience import RestartPolicy
+    script = os.path.join(work, "gang_worker.py")
+    with open(script, "w") as f:
+        f.write(GANG_WORKER)
+    codes, clean, clean_w, clean_s = _gang(
+        script, path, os.path.join(work, "gang_clean"), lr)
+    require(codes == [0, 0], f"gang: the fault-free gang exited {codes}")
+    trace_dir = os.path.join(work, "gang_trace")
+    before = REGISTRY.counter("resilience.restart").value
+    codes, chaos, chaos_w, chaos_s = _gang(
+        script, path, os.path.join(work, "gang_chaos"), lr,
+        faults=GANG_FAULTS, trace_dir=trace_dir,
+        restart_policy=RestartPolicy(max_restarts=2, backoff_base_s=0.05))
+    restarts = REGISTRY.counter("resilience.restart").value - before
+    require(codes == [0, 0] and restarts == 1,
+            f"gang: the crashed gang exited {codes} after {restarts} "
+            "restarts; want [0, 0] after one")
+    with open(os.path.join(trace_dir, "trace-gang.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events]
+    require(names.count("gang/restart/worker-1") == 1
+            and any(n and n.startswith("gang/spawn/") for n in names),
+            "gang: trace-gang.json lacks one gang/restart/worker-1 or a "
+            "gang/spawn event")
+    require(chaos[1]["attempt"] == 1 and chaos[0]["attempt"] == 0,
+            f"gang: attempts {[chaos[r]['attempt'] for r in range(2)]}")
+    for r in range(2):
+        require((chaos[r]["count"], chaos[r]["sha256"])
+                == (clean[r]["count"], clean[r]["sha256"]),
+                f"gang: rank {r}'s batches after the crash differ from the "
+                f"fault-free gang's: {chaos[r]} vs {clean[r]}")
+        for out in (clean[r], chaos[r]):
+            steps = out["count"]
+            require(steps > 3 and out["launches"]
+                    == {k: steps for k in PATH_KERNELS["linear"]},
+                    f"gang: rank {r} took {steps} steps with launches "
+                    f"{out['launches']}")
+            require(out["loss_last"] < out["loss_first"],
+                    f"gang: rank {r}'s loss {out['loss_first']} -> "
+                    f"{out['loss_last']}")
+        for what, a, b in zip(("w", "b"), chaos_w[r], clean_w[r]):
+            a, b = torch.from_numpy(a), torch.from_numpy(b)
+            require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                    f"gang: rank {r}'s {what} after the crash vs the "
+                    f"fault-free gang's: max |err| "
+                    f"{(a - b).abs().max().item()}")
+    # spawn-to-exit times of each member, from the supervisor's track
+    spans = {}
+    for e in events:
+        n = e.get("name") or ""
+        if n.startswith(("gang/spawn/", "gang/exit/")):
+            kind, member = n.split("/")[1:3]
+            spans.setdefault(member, []).append((e["ts"], kind))
+    lives = {}
+    for member, evs in spans.items():
+        evs.sort()
+        starts = [t for t, k in evs if k == "spawn"]
+        end = max(t for t, _ in evs)
+        lives[member] = [round((end - s) / 1e6, 3) for s in starts]
+    log(f"chaos gang: 2 workers, each its half of the corpus "
+        f"(Parser.create(uri, rank, 2), native) into its own "
+        f"SparseLinearModel(10^6) on the card; fault-free gang "
+        f"{clean_s:.2f} s, crashed gang {chaos_s:.2f} s (rank 1 crashed "
+        f"at its third batch, exit 77, restarted once: attempt 1); ranks' "
+        f"batches {[chaos[r]['count'] for r in range(2)]}, hashes and "
+        f"counts equal to the fault-free gang's, weights within rtol "
+        f"{STEP_RTOL}, atol {STEP_ATOL}; launches {chaos[0]['launches']} "
+        f"and {chaos[1]['launches']}; spawn-to-exit seconds by member "
+        f"(the restarted member's from each spawn) {lives}; worker wall "
+        f"seconds, fault-free {[round(clean[r]['wall_s'], 2) for r in range(2)]},"
+        f" crashed {[round(chaos[r]['wall_s'], 2) for r in range(2)]}")
+    return {"clean_s": clean_s, "chaos_s": chaos_s, "restarts": restarts,
+            "lives_s": lives, "counts": [chaos[r]["count"] for r in range(2)]}
+
+
+def chaos_bench(path, work):
+    """Config 10 (``spill_replay``) through ``bench_suite.main(["--config",
+    "10", "--chaos", BENCH_CHAOS_PLAN])`` over the linear corpus (linked
+    to the name the suite reads, in a temporary directory the suite is
+    pointed at): its JSON has no ``error``, injected faults and retries
+    at each armed site."""
+    import contextlib
+    import io
+    from dmlc_tpu_torch import bench_suite
+    from dmlc_tpu_torch.resilience import inject
+    d = os.path.join(work, "chaos_bench")
+    os.makedirs(d)
+    os.link(path, os.path.join(d, "dmlc_tpu_torch_bench_suite.criteo.libsvm"))
+    saved, tempfile.tempdir = tempfile.tempdir, d
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            bench_suite.main(["--config", "10", "--mb", "256",
+                              "--chaos", BENCH_CHAOS_PLAN])
+    finally:
+        tempfile.tempdir = saved
+        inject.uninstall()
+        shutil.rmtree(d)
+    secs = time.perf_counter() - t0
+    lines = [json.loads(x) for x in out.getvalue().splitlines()
+             if x.startswith("{")]
+    require(len(lines) == 1, f"chaos bench: {len(lines)} JSON lines")
+    rec = lines[0]
+    require("error" not in rec, f"chaos bench: config 10 failed: {rec}")
+    chaos = rec.get("chaos") or {}
+    require(chaos.get("injected", 0) > 0
+            and all(chaos["retries"].get(s, 0) > 0
+                    for s in BENCH_CHAOS_SITES),
+            f"chaos bench: faults and retries {chaos}")
+    log(f"chaos bench config 10 under --chaos ({secs:.1f} s):")
+    log(json.dumps(rec))
+    return rec
+
+
+def watchdog_parse_epochs(path):
+    """Parse-only epochs of the main path's chain with no watchdog and
+    with one installed (threshold 30 s: it reports nothing), in turns
+    (WATCHDOG_EPOCHS); GB/s of each."""
+    from dmlc_tpu_torch.obs.watchdog import Watchdog
+    built = build_pipeline(path)
+    size = os.path.getsize(path)
+    train_epoch(built, None, train=False)  # untimed: first allocations
+    gbps = []
+    for mode in WATCHDOG_EPOCHS:
+        wd = Watchdog(threshold_s=30.0).start() if mode == "on" else None
+        try:
+            secs, _, batches, _ = train_epoch(built, None, train=False)
+        finally:
+            if wd is not None:
+                wd.stop()
+        if wd is not None:
+            require(wd.reports == [], f"watchdog: a report on a parse "
+                    f"epoch: {wd.reports}")
+        gbps.append(size / secs / 1e9)
+    built.close()
+    log("parse-only epochs, watchdog " + ", ".join(WATCHDOG_EPOCHS) + ": "
+        + " / ".join(f"{x:.3f}" for x in gbps) + " GB/s")
+    return dict(zip(("off1", "on1", "on2", "off2"), gbps))
+
+
+def chaos_path(path, size, lr, mesh, work, spill):
+    """The resilience plane on the card (see the module docstring, 12).
+    ``spill``: spill_path's stats of this run (its page epochs, with no
+    plan armed, are printed beside PR 16's)."""
+    import torch
+    from dmlc_tpu_torch.resilience import reset_policies
+    src = os.path.join(work, "chaos_src")
+    os.makedirs(src)
+    os.link(path, os.path.join(src, os.path.basename(path)))
+    _chaos_policy()
+    try:
+        clean = chaos_spill_run(src, lr, mesh, work, "clean")
+        steps = _check_chaos_run("clean", clean, None)
+        chaos = chaos_spill_run(src, lr, mesh, work, "chaos", CHAOS_PLAN)
+        _check_chaos_run("chaos", chaos, steps)
+        plan = chaos["plan"]
+        require(clean["injected"] == 0 and clean["retries"] == {},
+                f"chaos: the fault-free run injected {clean['injected']} and "
+                f"retried {clean['retries']}")
+        missing = [s for s in CHAOS_SITES if chaos["retries"].get(s, 0) < 1]
+        require(not missing, f"chaos: no retry at {missing}: "
+                f"{chaos['retries']}")
+        require(plan.injected == len(plan.events()) == chaos["injected"]
+                == sum(chaos["retries"].values()),
+                f"chaos: {plan.injected} injected, {len(plan.events())} in "
+                f"the plan's log, {chaos['injected']} counted, "
+                f"{sum(chaos['retries'].values())} retries")
+        page_reads = sum(e["retries"].get("io.stream.read", 0)
+                         for e in chaos["epochs"] if e["tier"] == "pages")
+        require(page_reads > 0, "chaos: no page read of a page epoch (the "
+                "shard.serve thread) was retried")
+        for i, (a, b) in enumerate(zip(chaos["epochs"], clean["epochs"])):
+            require(a["hashes"] == b["hashes"],
+                    f"chaos: epoch {i + 1}'s batches differ from the "
+                    "fault-free run's")
+        require(chaos["cache"]["hashes"] == clean["cache"]["hashes"],
+                "chaos: the cache epoch's batches differ from the "
+                "fault-free run's")
+        for what in ("w", "b"):
+            a, b = chaos[what], clean[what]
+            require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                    f"chaos: the final {what} vs the fault-free run's: max "
+                    f"|err| {(a - b).abs().max().item()}")
+        by_site = {}
+        for ev in plan.events():
+            by_site[ev["site"]] = by_site.get(ev["site"], 0) + 1
+        gb = lambda run: [size / e["secs"] / 1e9  # noqa: E731
+                          for e in run["epochs"]]
+        fmt = lambda xs: " / ".join(f"{x:.3f}" for x in xs)  # noqa: E731
+        w_err = (chaos["w"] - clean["w"]).abs().max().item()
+        log(f"chaos spill: {SHARD_PARTS} parts of {ROW_BUCKET} rows over a "
+            f"directory holding the corpus, {steps} steps an epoch, tiers "
+            f"{SPILL_TIERS}, a cache epoch of {chaos['cache']['steps']} "
+            f"steps, then ShardedCheckpoint and save_pytree saved and "
+            f"restored bit for bit; plan {CHAOS_PLAN} (seed {CHAOS_SEED}), "
+            f"{CHAOS_ATTEMPTS} attempts a site: faults injected by site "
+            f"{by_site}, retries by site {chaos['retries']} ({page_reads} of "
+            f"them page reads of the page epochs); every batch equal to the "
+            f"fault-free run's, in order; final w max |err| {w_err:.3g} "
+            f"(rtol {STEP_RTOL}, atol {STEP_ATOL}); launches an epoch "
+            f"{chaos['epochs'][-1]['launches']}")
+        log(f"chaos spill parse-to-device with training, epochs "
+            + ", ".join(f"{i + 1} ({t})" for i, t in enumerate(SPILL_TIERS))
+            + f": faulted {fmt(gb(chaos))} GB/s, fault-free "
+            f"{fmt(gb(clean))} GB/s; cache epoch faulted "
+            f"{size / chaos['cache']['secs'] / 1e9:.3f}, fault-free "
+            f"{size / clean['cache']['secs'] / 1e9:.3f} GB/s")
+        pages = [g for g, t in zip(spill["parse_to_device_gbps_training"],
+                                   spill["tiers"]) if t == "pages"]
+        log(f"page epochs with no plan armed (every page read through "
+            f"guarded): spill_path {fmt(pages)} GB/s, the chaos phase's "
+            f"fault-free run {fmt(gb(clean)[2:])} GB/s; PR 16's proof16 "
+            "1.765 / 1.483 / 1.555 GB/s")
+        stall = stall_epoch(src, lr, mesh, work)
+    finally:
+        reset_policies()
+    gang = chaos_gang(path, work, lr)
+    bench = chaos_bench(path, work)
+    watch = watchdog_parse_epochs(path)
+    return {"steps": steps, "injected": chaos["injected"],
+            "retries": chaos["retries"],
+            "faulted_gbps": [size / e["secs"] / 1e9 for e in chaos["epochs"]],
+            "clean_gbps": [size / e["secs"] / 1e9 for e in clean["epochs"]],
+            "stall": stall, "gang": gang,
+            "bench_chaos": bench.get("chaos"), "watchdog_gbps": watch}
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
@@ -5119,7 +5753,7 @@ def main() -> None:
                                     stats["sharded"])
         stats["cache"] = cache_path(path, size, LEARNING_RATE, stats)
         stats["checkpoint"] = checkpoint_path(path, LEARNING_RATE, work)
-        linear = path
+        linear, linear_size = path, size
 
         # the factor models' path: libfm → FM and FFM
         path = os.path.join(work, "criteo_shaped.libfm")
@@ -5173,6 +5807,10 @@ def main() -> None:
         # back with no device activity
         stats["bench"] = bench_twins(linear, work,
                                      stats["cuda_ingest"]["records_hash"])
+        # the resilience plane last: its gang's worker processes and its
+        # chaos-armed bench config come after every traced phase
+        stats["chaos"] = chaos_path(linear, linear_size, LEARNING_RATE,
+                                    mesh, work, stats["spill"])
         os.unlink(linear)
         from dmlc_tpu_torch.parallel.launch import finalize
         finalize()

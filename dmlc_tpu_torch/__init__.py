@@ -22,8 +22,11 @@ the pairwise ranking loss with its gradient in the margins, and SGD for
 ``SparseLinearModel``, ``SparseFMModel``, ``SparseFFMModel`` and
 ``SparseRankingModel`` (over libsvm ``qid``), on one device and data
 parallel over a ``torch.distributed`` group (``parallel.launch``,
-``parallel.sharded``, ``Pipeline.shard``, ``graft``), and the trace plane
-(``dmlc_tpu_torch.obs``: spans, Chrome export, metrics, ``cuda_trace``).
+``parallel.sharded``, ``Pipeline.shard``, ``graft``), the trace plane
+(``dmlc_tpu_torch.obs``: spans, Chrome export, metrics, ``cuda_trace``,
+the stall watchdog and the flight recorder), and the resilience plane
+(``dmlc_tpu_torch.resilience``: retry policies at the host I/O seams,
+seeded fault injection, gang supervision with restarts).
 Entry points that touch a device default to ``torch.device("cuda")``;
 pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """

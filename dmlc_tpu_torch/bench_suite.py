@@ -28,14 +28,19 @@ on the card) where the reference reports one:
                -> padded f32), python / native / sharded x2
                sha256-identical
 
-Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB].
+Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB]
+[--chaos PLAN]. ``--chaos`` arms a fault plan (the ``DMLC_TPU_FAULTS``
+grammar) for the whole run: each config's JSON gets a ``chaos`` section
+(the plan, its seed, and the faults injected and retries by site during
+that config), and a config that fails emits an ``error`` line while the
+next config still runs.
 Configs 4, 7, 8 and 10 copy to the card (config 4 as the reference's
 ``--device`` run does; its parse-only form is not ported); configs 3,
 14 and 18 are the reference's host-side measurements (read and decode,
 no copy), as there.
 
 Trimmed from the reference: every other config (their planes are not
-ported), the warm-up pass, ``--trace`` and ``--chaos``. Data files go
+ported), the warm-up pass, ``--trace`` and the live telemetry opt-ins. Data files go
 under ``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a config is
 given a ``work`` directory. Configs 3, 14 and 18 write the reference's
 RecordIO corpora (``make_recordio``, ``make_dense_recordio``,
@@ -771,7 +776,21 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help=f"one of {sorted(CONFIGS)} (0 = all)")
     ap.add_argument("--mb", type=int, default=64,
                     help="approx data size per config in MB")
+    ap.add_argument("--chaos", default=None, metavar="PLAN",
+                    help="arm a dmlc_tpu_torch.resilience fault plan "
+                         "(DMLC_TPU_FAULTS grammar) for the whole "
+                         "run; configs must degrade gracefully, not "
+                         "abort")
     args = ap.parse_args(argv)
+    from dmlc_tpu_torch.resilience import inject as _inject
+    from dmlc_tpu_torch.resilience import retry_counts
+    chaos_plan = None
+    chaos_injected0 = 0
+    chaos_retries0: Dict[str, int] = {}
+    if args.chaos:
+        chaos_plan = _inject.install(args.chaos)
+        _log(f"chaos: fault plan armed: {chaos_plan.spec()} "
+             f"(seed {chaos_plan.seed})")
     picks = [args.config] if args.config else sorted(CONFIGS)
     for n in picks:
         name, fn = CONFIGS[n]
@@ -779,10 +798,28 @@ def main(argv: Optional[List[str]] = None) -> None:
         try:
             out = fn(args.mb)
             out["gbps"] = round(out["gbps"], 4)
+            if chaos_plan is not None:
+                # per-config DELTAS: cumulative totals would miscredit
+                # one config's faults/retries to every later config
+                now = retry_counts()
+                out["chaos"] = {
+                    "plan": chaos_plan.spec(),
+                    "seed": chaos_plan.seed,
+                    "injected": chaos_plan.injected - chaos_injected0,
+                    "retries": {k: d for k, v in now.items()
+                                if (d := v - chaos_retries0.get(k, 0))},
+                }
             _emit(out)
         except Exception as e:  # noqa: BLE001 — one config's failure
             # is reported on its line; the suite goes on
             _emit({"config": name, "error": str(e)[:200]})
+        finally:
+            if chaos_plan is not None:
+                # advance the delta baselines on BOTH outcomes: a
+                # failed config's faults must not be credited to the
+                # next config's accounting
+                chaos_injected0 = chaos_plan.injected
+                chaos_retries0 = retry_counts()
 
 
 if __name__ == "__main__":

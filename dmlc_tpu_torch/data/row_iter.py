@@ -20,14 +20,15 @@ LRU eviction, and ONE stale sweep. Files are byte-identical to the
 reference's for the same blocks, rounds and meta, and each package
 reads the other's.
 
+DiskRowIter's build is the reference's retry site ``data.pages.build``;
+its commit publishes under ``data.pages.commit`` and a round spill's
+under ``spill.commit``, inside a ``spill.commit`` trace span.
+
 Trimmed from the reference:
 - ``RowBlockIter.create`` (the ``#cache`` URI hint) and
   ``BasicRowIter``: ``Pipeline.cache`` keeps its memory tier itself;
-- the retry of DiskRowIter's build (site ``data.pages.build``) and of
-  the commits (``data.pages.commit``, ``spill.commit``): the port makes
-  one attempt, as the resilience plane is not ported;
-- the ``spill.commit`` trace span and ``sweep_stale_spill``'s objstore
-  multipart leg (the obs and objstore planes are not ported).
+- ``sweep_stale_spill``'s objstore multipart leg (the objstore plane is
+  not ported).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.io import codec as _codec
 from dmlc_tpu_torch.io.pagestore import PageStore, default_store_dir
 from dmlc_tpu_torch.io.stream import MemoryStream, create_stream
+from dmlc_tpu_torch.obs import trace as _trace
 from dmlc_tpu_torch.utils import serializer as ser
 from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
 
@@ -59,7 +61,8 @@ class DiskRowIter(DataIter):
     replayed — and reclaimed by the one stale sweep), accounted against
     the store's byte budget, and pinned against LRU eviction while this
     iterator lives. ``parser_factory`` is a Parser or a callable that
-    makes one; the build makes one attempt."""
+    makes one; with a callable the build retries under the
+    ``data.pages.build`` site's policy, a Parser gets one attempt."""
 
     def __init__(self, parser_factory, cache_file: str,
                  rows_per_page: int = 64 << 10, fingerprint=None):
@@ -69,9 +72,22 @@ class DiskRowIter(DataIter):
         present = (self._store.lookup(self._entry, fingerprint=fingerprint)
                    is not None)
         if not present:
-            parser = (parser_factory() if callable(parser_factory)
-                      else parser_factory)
-            self._build_cache(parser, fingerprint, rows_per_page)
+            if callable(parser_factory):
+                # the build is THE retry site of this iterator: each
+                # policy attempt re-creates the parser and rebuilds
+                # into a fresh pid-named tmp (site data.pages.build)
+                from dmlc_tpu_torch.resilience.policy import guarded
+
+                def build_once() -> None:
+                    self._max_index = 0
+                    self._build_cache(parser_factory(), fingerprint,
+                                      rows_per_page)
+
+                guarded("data.pages.build", build_once)
+            else:
+                # a pre-built parser cannot be re-created: one shot
+                self._build_cache(parser_factory, fingerprint,
+                                  rows_per_page)
         else:
             # scan cached pages once for num_col
             with create_stream(cache_file, "r") as s:
@@ -92,7 +108,8 @@ class DiskRowIter(DataIter):
         # the PageStore writer owns the pid-unique tmp discipline: two
         # processes racing to build the same cache each build their own
         # tmp, the replaces are atomic, last complete build wins
-        w = self._store.writer(self._entry, fingerprint=fingerprint)
+        w = self._store.writer(self._entry, fingerprint=fingerprint,
+                               commit_site="data.pages.commit")
         ok = False
         try:
             out = w.stream
@@ -117,7 +134,9 @@ class DiskRowIter(DataIter):
                 pending.save(out)
             ok = True
         finally:
-            # a mid-parse failure must not leak the native parser
+            # destroy in a finally: a mid-parse failure under the
+            # data.pages.build retry policy must not leak this
+            # attempt's native parser
             if hasattr(parser, "destroy"):
                 parser.destroy()
             if not ok:
@@ -231,7 +250,8 @@ class RoundSpillWriter:
         store, entry = PageStore.for_path(path)
         self._w = store.writer(
             entry, fingerprint=meta.get("fingerprint"),
-            meta={k: v for k, v in meta.items() if k != "fingerprint"})
+            meta={k: v for k, v in meta.items() if k != "fingerprint"},
+            commit_site="spill.commit")
         self._s = self._w.stream
         ser.write_u32(self._s, _SPILL_MAGIC)
         ser.write_u8(self._s, version)
@@ -259,10 +279,16 @@ class RoundSpillWriter:
         self.rounds += 1
 
     def commit(self) -> "RoundSpillFile":
-        ser.write_u32(self._s, _SPILL_END_MAGIC)
-        ser.write_u64(self._s, self.rounds)
-        self._s = None
-        self._w.commit()
+        with _trace.span("spill.commit", "io",
+                         {"rounds": self.rounds, "path": self.path}):
+            ser.write_u32(self._s, _SPILL_END_MAGIC)
+            ser.write_u64(self._s, self.rounds)
+            self._s = None
+            # the PageWriter publishes under the spill.commit retry
+            # site: the atomic rename is idempotent, so transient
+            # errors (and injected chaos) retry under policy instead
+            # of abandoning the spill tier
+            self._w.commit()
         return RoundSpillFile(self.path, self.nparts, self.rounds)
 
     def abort(self) -> None:

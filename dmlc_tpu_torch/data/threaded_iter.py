@@ -24,6 +24,7 @@ import time
 from typing import Any, Callable, Generic, Optional, TypeVar
 
 from dmlc_tpu_torch.obs import trace as _trace
+from dmlc_tpu_torch.obs import watchdog as _watchdog
 from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from dmlc_tpu_torch.utils.logging import check
 
@@ -37,13 +38,14 @@ class ThreadedIter(Generic[T]):
 
     Observability (dmlc_tpu_torch.obs): BLOCKING producer/consumer waits
     on any ThreadedIter become trace spans (``<name>.producer_wait`` /
-    ``<name>.consumer_wait``; unnamed queues record under the generic
-    ``threaded_iter`` label); ``name`` additionally registers the
-    queue's ``stats()`` as a metrics collector ``queue/<name>`` until
-    destroy(). Cost when no recorder is installed: one module-global
-    read per blocked wait; non-blocking operation is untouched. The
-    reference also registers each blocked wait with its stall
-    watchdog, which is not ported.
+    ``<name>.consumer_wait``) and watchdog-registered waits — the
+    watchdog must see every queue that can wedge, named or not.
+    Unnamed queues record under the generic ``threaded_iter`` label
+    (the stall report still distinguishes them by thread and queue
+    detail); ``name`` additionally registers the queue's ``stats()``
+    as a metrics collector ``queue/<name>`` until destroy(). Cost when
+    no recorder/watchdog is installed: one module-global read per
+    blocked wait; non-blocking operation is untouched.
     """
 
     def __init__(self, max_capacity: int = 8, name: Optional[str] = None):
@@ -129,13 +131,19 @@ class ThreadedIter(Generic[T]):
         """
         with self._lock:
             t0 = None
+            token = None
             while len(self._queue) >= self._cap:
                 if self._destroyed or self._epoch != epoch:
+                    _watchdog.end_wait(token)
                     return False
                 if t0 is None:
                     t0 = time.perf_counter()
+                    token = _watchdog.begin_wait(
+                        f"{self.name or 'threaded_iter'}.producer_wait",
+                        self._wait_detail)
                 self._not_full.wait()
             if t0 is not None:
+                _watchdog.end_wait(token)
                 dt = time.perf_counter() - t0
                 self._producer_block_s += dt
                 rec = _trace.active()
@@ -162,13 +170,19 @@ class ThreadedIter(Generic[T]):
         while True:
             with self._lock:
                 t0 = None
+                token = None
                 while not self._queue:
                     if self._destroyed:
+                        _watchdog.end_wait(token)
                         return None
                     if t0 is None:
                         t0 = time.perf_counter()
+                        token = _watchdog.begin_wait(
+                            f"{self.name or 'threaded_iter'}"
+                            ".consumer_wait", self._wait_detail)
                     self._not_empty.wait()  # _emit/destroy always notify
                 if t0 is not None:
+                    _watchdog.end_wait(token)
                     rec = _trace.active()
                     if rec is not None:
                         rec.complete(
@@ -207,6 +221,14 @@ class ThreadedIter(Generic[T]):
             return {"qsize": len(self._queue), "capacity": self._cap,
                     "produced": self._produced,
                     "producer_block_s": round(self._producer_block_s, 6)}
+
+    def _wait_detail(self) -> dict:
+        """Watchdog diagnosis sample. Lock-free on purpose: called
+        from the watchdog thread while a producer/consumer may be
+        blocked — approximate-but-deadlock-proof beats exact."""
+        return {"qsize": len(self._queue), "capacity": self._cap,
+                "produced": self._produced, "ended": self._ended,
+                "producer_block_s": round(self._producer_block_s, 6)}
 
     @property
     def capacity(self) -> int:

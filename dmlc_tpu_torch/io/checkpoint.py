@@ -34,13 +34,23 @@ content-addressed pages, the multipart writer, the gang's restore
 fanout), ``prefetch``, the ``writer``/``num_writers`` arguments and
 ``sharding_tree``, which raise ``DMLCError("... not ported ...")``; the
 rendezvous ``gang_metadata`` stamp in ``meta.json`` (the reference adds
-it only inside an elastic gang); the resilience retry of the
-``checkpoint.save``/``checkpoint.restore`` sites (one attempt); the obs
-counters and trace spans.
+it only inside an elastic gang); the ``objstore.*`` counters and the
+``io.objstore.*`` retry sites, which wait for the objstore plane.
+
+As in the reference, ``save_pytree`` and ``load_pytree`` are resilience
+seams (``checkpoint.save``, ``checkpoint.restore``: the whole file is
+rewritten or re-read under the site's policy), while
+``ShardedCheckpoint``'s save and restore are not retried whole (a gang's
+barriers forbid one rank's re-entry) and ride the ``io.stream.*`` seams
+of their streams. Each is a trace span (``checkpoint.save_pytree``,
+``checkpoint.load_pytree``, ``checkpoint.save``,
+``checkpoint.restore``), and restore counts its data bytes in the
+``checkpoint.restore_bytes`` counter.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import shutil
 from typing import Any, Dict, List, Optional, Tuple
@@ -49,6 +59,8 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.io.stream import create_stream
+from dmlc_tpu_torch.obs import trace as _trace
+from dmlc_tpu_torch.resilience.policy import guarded
 from dmlc_tpu_torch.utils import serializer as ser
 from dmlc_tpu_torch.utils.json_util import json_dump, json_load
 from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
@@ -56,6 +68,27 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
 __all__ = ["save_pytree", "load_pytree", "ShardedCheckpoint"]
 
 _FORMAT_VERSION = 1
+
+
+def _ckpt_count(which: str, n: int = 1) -> None:
+    try:
+        from dmlc_tpu_torch.obs.metrics import REGISTRY
+        REGISTRY.counter(f"checkpoint.{which}").inc(n)
+    except Exception:  # noqa: BLE001 — telemetry must not break I/O
+        pass
+
+
+def _spanned(name: str):
+    """Record the call as one obs trace span (no-op when tracing is
+    off) — checkpoint save/restore shows up on the timeline next to
+    the pipeline's pulls."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with _trace.span(name, "checkpoint"):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
 
 
 def _not_ported(what: str) -> DMLCError:
@@ -128,30 +161,48 @@ def _like_leaf(proto: Any, arr: np.ndarray) -> Any:
     return arr
 
 
+@_spanned("checkpoint.save_pytree")
 def save_pytree(tree: Any, uri: str) -> None:
     """Serialize a tree of tensors or arrays to one stream (the
-    single-process path): the reference's file, byte for byte."""
-    leaves = _flatten(tree)
-    with create_stream(uri, "w") as s:
-        ser.write_u32(s, _FORMAT_VERSION)
-        ser.write_u64(s, len(leaves))
-        for key, leaf in leaves:
-            ser.write_str(s, key)
-            ser.write_ndarray(s, _host(leaf))
+    single-process path): the reference's file, byte for byte.
+
+    The whole write is a resilience seam (site ``checkpoint.save``):
+    idempotent, so a transient I/O failure rewrites from scratch under
+    the site's RetryPolicy. The leaves leave the device once, before the
+    first attempt: no retry touches the card."""
+    leaves = [(key, _host(leaf)) for key, leaf in _flatten(tree)]
+
+    def write() -> None:
+        with create_stream(uri, "w") as s:
+            ser.write_u32(s, _FORMAT_VERSION)
+            ser.write_u64(s, len(leaves))
+            for key, arr in leaves:
+                ser.write_str(s, key)
+                ser.write_ndarray(s, arr)
+
+    guarded("checkpoint.save", write)
 
 
+@_spanned("checkpoint.load_pytree")
 def load_pytree(uri: str, like: Optional[Any] = None) -> Any:
     """Load a checkpoint; returns {key: array}, or the structure of
     ``like`` when given (keys must match; a tensor leaf of ``like`` comes
-    back as a tensor on its device)."""
-    with create_stream(uri, "r") as s:
-        version = ser.read_u32(s)
-        check_eq(version, _FORMAT_VERSION, "checkpoint version mismatch")
-        n = ser.read_u64(s)
-        flat: Dict[str, np.ndarray] = {}
-        for _ in range(n):
-            key = ser.read_str(s)
-            flat[key] = ser.read_ndarray(s)
+    back as a tensor on its device, after the read)."""
+    def read() -> Dict[str, np.ndarray]:
+        with create_stream(uri, "r") as s:
+            version = ser.read_u32(s)
+            check_eq(version, _FORMAT_VERSION,
+                     "checkpoint version mismatch")
+            n = ser.read_u64(s)
+            out: Dict[str, np.ndarray] = {}
+            for _ in range(n):
+                key = ser.read_str(s)
+                out[key] = ser.read_ndarray(s)
+        return out
+
+    # resilience seam checkpoint.restore: a transient read failure
+    # re-reads the whole (immutable) file under the site's policy
+    flat = guarded("checkpoint.restore", read)
     if like is None:
         return flat
     leaves = _flatten(like)
@@ -232,6 +283,7 @@ class ShardedCheckpoint:
 
     # -- save
 
+    @_spanned("checkpoint.save")
     def save(self, step: int, tree: Any,
              metadata: Optional[Dict[str, Any]] = None,
              writer: Optional[int] = None,
@@ -366,6 +418,7 @@ class ShardedCheckpoint:
 
     # -- restore
 
+    @_spanned("checkpoint.restore")
     def restore(self, step: Optional[int] = None, like: Any = None,
                 sharding_tree: Any = None) -> Tuple[Any, Dict[str, Any]]:
         """Load (tree, user_metadata). ``like`` supplies the structure:
@@ -505,6 +558,7 @@ class ShardedCheckpoint:
             s = streams[entry["file"]] = create_stream(entry["file"], "r")
         s.seek(entry["offset"])
         self.last_restore_bytes_read += entry["nbytes"]
+        _ckpt_count("restore_bytes", entry["nbytes"])
         data = ser.read_ndarray(s)
         if cache is not None:
             cache[loc] = data

@@ -5,7 +5,9 @@ Open/OpenForRead/GetPathInfo/ListDirectory, URI{protocol,host,name},
 FileInfo{path,size,type}; src/io/local_filesys.{h,cc}.
 
 Only ``file://`` (and bare paths) is registered. Every other scheme
-raises a DMLCError saying it is not ported yet.
+raises a DMLCError saying it is not ported yet. A local stat and a
+directory listing are the reference's resilience seams
+(``io.filesys.stat``, ``io.filesys.list``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import stat as _stat
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+from dmlc_tpu_torch.resilience.policy import guarded
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 from dmlc_tpu_torch.io.stream import FileStream, SeekStream, Stream
 
@@ -124,18 +127,23 @@ class LocalFileSystem(FileSystem):
         return FileStream(open(uri.name, "rb"), path=uri.name)
 
     def get_path_info(self, uri: URI) -> FileInfo:
-        st = os.stat(uri.name)
+        # resilience seam io.filesys.stat (retry policy + fault plan)
+        st = guarded("io.filesys.stat", lambda: os.stat(uri.name))
         ftype = "directory" if _stat.S_ISDIR(st.st_mode) else "file"
         return FileInfo(path=uri.name, size=st.st_size, type=ftype)
 
     def list_directory(self, uri: URI) -> List[FileInfo]:
-        out = []
-        for name in sorted(os.listdir(uri.name)):
-            full = os.path.join(uri.name, name)
-            st = os.stat(full)
-            ftype = "directory" if _stat.S_ISDIR(st.st_mode) else "file"
-            out.append(FileInfo(path=full, size=st.st_size, type=ftype))
-        return out
+        def scan() -> List[FileInfo]:
+            out = []
+            for name in sorted(os.listdir(uri.name)):
+                full = os.path.join(uri.name, name)
+                st = os.stat(full)
+                ftype = ("directory" if _stat.S_ISDIR(st.st_mode)
+                         else "file")
+                out.append(FileInfo(path=full, size=st.st_size,
+                                    type=ftype))
+            return out
+        return guarded("io.filesys.list", scan)
 
 
 FileSystem.register_scheme("file://", LocalFileSystem)

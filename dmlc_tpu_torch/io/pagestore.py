@@ -6,8 +6,10 @@ binary row pages and RoundSpillWriter's round pages (data/row_iter.py)
 — route their bytes through :class:`PageStore`:
 
 - **one commit protocol** — writes land in a tmp file and are published
-  by an atomic ``os.replace``, so a crashed or aborted build never
-  masquerades as a complete cache;
+  by an atomic ``os.replace`` under a resilience ``guarded()`` site
+  (``pagestore.commit`` by default; the spill and page-cache writers
+  name their own), so a crashed or aborted build never masquerades as a
+  complete cache;
 - **one staleness stamp** — every committed entry carries a sidecar
   ``<entry>.meta.json`` recording the SOURCE fingerprint
   (``[[path, size, mtime_ns], ...]``), and :meth:`PageStore.sweep` is
@@ -16,15 +18,13 @@ binary row pages and RoundSpillWriter's round pages (data/row_iter.py)
 - **one byte budget** — committed bytes are accounted per store root and
   LRU-evicted (by entry mtime, bumped on every read) when a budget is
   set (:meth:`PageStore.set_budget`; ``Pipeline.cache(page_budget_bytes=)``),
-  skipping entries pinned by this process or owned by live writers.
+  skipping entries pinned by this process or owned by live writers;
+- **one telemetry surface** — ``pagestore.hit`` / ``pagestore.miss`` /
+  ``pagestore.evict`` counters of the obs metrics registry.
 
-Trimmed from the reference:
-- the ``pagestore.hit`` / ``miss`` / ``evict`` counters of the obs
-  metrics registry, which is not ported;
-- ``PageStore.default()`` with its ``DMLC_TPU_PAGESTORE_BUDGET`` and
-  ``commit_bytes``, which serve the objstore and checkpoint planes;
-- ``PageWriter.commit`` publishes in one attempt: the reference retries
-  it under its resilience policy (``guarded``), which is not ported.
+Trimmed from the reference: ``PageStore.default()`` with its
+``DMLC_TPU_PAGESTORE_BUDGET`` and ``commit_bytes``, which serve the
+objstore plane (not ported).
 
 The default root differs from the reference's (see
 :func:`default_store_dir`): both packages name spill files by the same
@@ -158,6 +158,16 @@ def fingerprint_fresh(fp) -> Optional[bool]:
 
 # ------------------------------------------------------------ page writer
 
+# ---------------------------------------------------------------- metrics
+
+def _count(which: str, n: int = 1) -> None:
+    try:
+        from dmlc_tpu_torch.obs.metrics import REGISTRY
+        REGISTRY.counter(f"pagestore.{which}").inc(n)
+    except Exception:  # noqa: BLE001 — telemetry must not break caching
+        pass
+
+
 class PageWriter:
     """An in-flight page-store entry: write to ``.stream``, then
     :meth:`commit` (atomic publish + sidecar stamp + budget accounting)
@@ -165,9 +175,11 @@ class PageWriter:
 
     def __init__(self, store: "PageStore", name: str,
                  fingerprint=None, meta: Optional[dict] = None,
+                 commit_site: str = "pagestore.commit",
                  tmp_suffix: Optional[str] = None):
         self._store = store
         self.name = name
+        self._site = commit_site
         self.path = store.path(name)
         self._fingerprint = fingerprint
         self._meta = dict(meta or {})
@@ -199,14 +211,17 @@ class PageWriter:
         return self.stream.write(data)
 
     def commit(self) -> str:
-        """Close, publish atomically (one attempt: the reference retries
-        the rename under the commit site's policy), stamp the sidecar,
-        account the bytes (evicting LRU entries if the store is over
-        budget). Returns the entry path."""
+        """Close, publish atomically under the commit site's retry
+        policy, stamp the sidecar, account the bytes (evicting LRU
+        entries if the store is over budget). Returns the entry path."""
+        from dmlc_tpu_torch.resilience.policy import guarded
         check(self._s is not None, "PageWriter already closed")
         self._s.close()
         self._s = None
-        os.replace(self.tmp, self.path)
+        # the atomic publish rename is idempotent, so transient errors
+        # (and injected chaos) retry under policy instead of abandoning
+        # the freshly built pages
+        guarded(self._site, lambda: os.replace(self.tmp, self.path))
         meta = dict(self._meta)
         meta["fingerprint"] = self._fingerprint
         try:
@@ -319,17 +334,19 @@ class PageStore:
 
     def writer(self, name: str, fingerprint=None,
                meta: Optional[dict] = None,
+               commit_site: str = "pagestore.commit",
                tmp_suffix: Optional[str] = None) -> PageWriter:
         return PageWriter(self, name, fingerprint=fingerprint, meta=meta,
-                          tmp_suffix=tmp_suffix)
+                          commit_site=commit_site, tmp_suffix=tmp_suffix)
 
     def lookup(self, name: str, fingerprint=None) -> Optional[str]:
-        """Entry path when present and fresh, else None. With a
-        ``fingerprint``, a committed stamp that
+        """Entry path when present and fresh, else None. Counts ONE
+        hit or miss. With a ``fingerprint``, a committed stamp that
         does not match it marks the entry stale: it is deleted and the
         lookup is a miss (the caller re-earns the cache)."""
         p = self.path(name)
         if not os.path.exists(p):
+            _count("miss")
             return None
         if fingerprint is not None:
             meta = self.stamp(name)
@@ -337,18 +354,22 @@ class PageStore:
                     and meta["fingerprint"] != [list(e)
                                                 for e in fingerprint]:
                 self.delete(name)
+                _count("miss")
                 return None
+        _count("hit")
         self.touch(name)
         return p
 
     def open_read(self, name: str) -> Optional[Stream]:
-        """Seekable stream over a present entry (bumping its LRU
-        clock), or None."""
+        """Seekable stream over a present entry (counts a hit and
+        bumps its LRU clock), or None (counts a miss)."""
         p = self.path(name)
         try:
             s = create_stream(p, "r")
         except FileNotFoundError:
+            _count("miss")
             return None
+        _count("hit")
         self.touch(name)
         return s
 
@@ -473,6 +494,7 @@ class PageStore:
                 if self.delete(name):
                     used -= size
                     evicted += 1
+                    _count("evict")
             return evicted
 
     # -- the one sweep

@@ -8,15 +8,18 @@ the reference's size_t-returning Read; ``read_exact``/``write`` helpers carry
 the serializer. ``create_stream`` opens local paths and ``file://`` URIs;
 other schemes are not ported yet (see io/filesys.py).
 
-Trimmed from ``dmlc_tpu/io/stream.py``: the resilience seams (retry and
-fault injection around reads and opens), ``as_file`` and
-``create_seek_stream_for_read``.
+Reads and opens are the reference's resilience seams (sites
+``io.stream.read`` and ``io.stream.open``, see :class:`FileStream` and
+:func:`create_stream`). Trimmed from ``dmlc_tpu/io/stream.py``:
+``as_file`` and ``create_seek_stream_for_read``.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
+from dmlc_tpu_torch.resilience import inject as _inject
+from dmlc_tpu_torch.resilience.policy import guarded
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["Stream", "SeekStream", "MemoryStream", "FileStream",
@@ -131,20 +134,90 @@ class MemoryStream(SeekStream):
 
 class FileStream(SeekStream):
     """Local-file stream over a Python file object (reference:
-    src/io/local_filesys.cc FileStream over stdio)."""
+    src/io/local_filesys.cc FileStream over stdio).
+
+    Reads are a resilience seam (site ``io.stream.read``): transient
+    OSErrors retry under the site's RetryPolicy and an armed FaultPlan
+    can raise/delay/truncate here. Two position rules keep chaos
+    DETECTABLE instead of silently corrupting:
+
+    - a retried attempt SEEKS BACK to the pre-read position first — a
+      buffered read that failed after consuming k bytes advances the
+      offset, and re-reading from there would return a stream missing
+      those bytes (fixed-size payload reads would then load shifted,
+      wrong data);
+    - an injected truncation shortens the returned bytes AND pins the
+      stream at EOF — simulating a truncated SOURCE object whose tail
+      is gone, which framing layers surface as an unexpected-EOF
+      error. Shortening alone would leave the offset past the dropped
+      bytes: the next read would return shifted data and fixed-size
+      readers would succeed with silently wrong payloads.
+
+    Unseekable fileobjs (stdin/pipes) fall back to plain re-read and
+    skip truncation. The quiet path costs one tell + global read +
+    try/except per call."""
 
     def __init__(self, fileobj, path: str = ""):
         self._f = fileobj
         self.path = path
 
+    def _tell(self):
+        try:
+            return self._f.tell()
+        except OSError:
+            return None  # unseekable (stdin/pipe)
+
+    def _restoring(self, pos, fn):
+        """Wrap a read op so every RETRY attempt starts at the same
+        file position. The first attempt skips the restore (the
+        position cannot have moved yet — the quiet path stays at one
+        tell per call)."""
+        first = [True]
+
+        def attempt():
+            if first[0]:
+                first[0] = False
+            elif pos is not None:
+                self._f.seek(pos)
+            return fn()
+
+        return attempt
+
+    def _truncated_len(self, pos, nread: int, payload) -> int:
+        """Armed truncate clauses: shortened length, stream pinned at
+        EOF (see class docstring); ``nread`` when chaos is off. The
+        payload is materialized only when a truncate clause is scoped
+        here — a plan targeting other sites must not cost the hot
+        readinto path a copy per chunk."""
+        plan = _inject.active()
+        if plan is None or not nread or pos is None \
+                or not plan.has_truncate("io.stream.read"):
+            return nread
+        short = plan.corrupt("io.stream.read", payload())
+        if len(short) != nread:
+            self._f.seek(0, 2)  # the source's tail is GONE
+            return len(short)
+        return nread
+
     def read(self, nbytes: int) -> bytes:
-        return self._f.read(nbytes)
+        pos = self._tell()
+        out = guarded("io.stream.read",
+                      self._restoring(pos, lambda: self._f.read(nbytes)))
+        if _inject.active() is not None:
+            out = out[:self._truncated_len(pos, len(out), lambda: out)]
+        return out
 
     def readinto(self, b) -> int:
         ri = getattr(self._f, "readinto", None)
         if ri is None:
-            return super().readinto(b)
-        return int(ri(b))
+            return super().readinto(b)  # routes through read() above
+        pos = self._tell()
+        n = guarded("io.stream.read",
+                    self._restoring(pos, lambda: int(ri(b))))
+        if _inject.active() is not None:
+            n = self._truncated_len(pos, n,
+                                    lambda: bytes(memoryview(b)[:n]))
+        return n
 
     def write(self, data) -> int:
         return self._f.write(data)
@@ -180,7 +253,10 @@ def create_stream(uri: str, mode: str = "r",
     if fs is None:
         return None
     try:
-        return fs.open(u, mode)
+        # resilience seam io.stream.open: transient open errors retry
+        # under policy; FileNotFoundError is classified permanent and
+        # propagates immediately (the allow_null contract below)
+        return guarded("io.stream.open", lambda: fs.open(u, mode))
     except FileNotFoundError:
         if allow_null:
             return None

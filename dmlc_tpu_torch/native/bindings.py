@@ -12,10 +12,11 @@ The engine's span ring (chunk reads, tokenize, batch assembly) drains
 into the port's trace recorder (``drain_trace``); its on/off flag
 follows ``dmlc_tpu_torch.obs.trace``.
 
-Trimmed from ``dmlc_tpu/native/bindings.py``: the csv, parquet and
-indexed-recordio adapters, the engine's profiler beacons, the test
-hooks, and the obs metrics registration of each handle
-(``native/<format>``, ``native/recordio``).
+Each parser and record-reader handle registers its engine counters with
+the obs metrics registry (``native/<format>``, ``native/recordio``)
+until ``destroy()``, as the reference's do. Trimmed from
+``dmlc_tpu/native/bindings.py``: the csv, parquet and indexed-recordio
+adapters, the engine's profiler beacons and the test hooks.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from dmlc_tpu_torch.data.parser import Parser
 from dmlc_tpu_torch.data.rowblock import RowBlock
 from dmlc_tpu_torch.io.input_split import list_split_files
 from dmlc_tpu_torch.io.uri_spec import URISpec
+from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["load", "BlockLease", "NativeTextParser", "NativeLibSVMParser",
@@ -348,6 +350,14 @@ class NativeTextParser(Parser):
         self._block: Optional[RowBlock] = None
         self._lease: Optional[BlockLease] = None
         self._init_outparams()
+        # engine counters join the process metrics registry: one
+        # obs.metrics snapshot sees reader/parse busy-ns next to the
+        # Python-side queue stats (weakly held; destroy() unregisters)
+        self._metrics_key = _METRICS.register(
+            f"native/{self._format}", self, type(self)._metrics_stats)
+
+    def _metrics_stats(self) -> Optional[Dict[str, int]]:
+        return self.stats() if getattr(self, "_handle", None) else None
 
     def _init_outparams(self) -> None:
         # out-params allocated once; the C call overwrites them per block
@@ -559,6 +569,9 @@ class NativeTextParser(Parser):
         return int(self._lib.dtp_parser_bytes_read(self._handle))
 
     def destroy(self) -> None:
+        if getattr(self, "_metrics_key", None):
+            _METRICS.unregister(self._metrics_key)
+            self._metrics_key = None
         if getattr(self, "_handle", None):
             if self._lease is not None:
                 self._lease.release()
@@ -876,6 +889,11 @@ class NativeRecordIOReader:
             raise DMLCError(f"native recordio create failed: "
                             f"{lib.dtp_last_error().decode()}")
         self._lease: Optional[_RecioLease] = None
+        self._metrics_key = _METRICS.register(
+            "native/recordio", self, NativeRecordIOReader._metrics_stats)
+
+    def _metrics_stats(self) -> Optional[Dict[str, int]]:
+        return self.stats() if getattr(self, "_handle", None) else None
 
     def next_batch(self):
         """(payload, starts, ends) numpy views for one chunk's records,
@@ -938,6 +956,9 @@ class NativeRecordIOReader:
                 "decode_cpu_ns": int(out[6])}
 
     def destroy(self) -> None:
+        if getattr(self, "_metrics_key", None):
+            _METRICS.unregister(self._metrics_key)
+            self._metrics_key = None
         if getattr(self, "_handle", None):
             if self._lease is not None:
                 self._lease.release()

@@ -12,12 +12,21 @@ Counterpart of ``dmlc_tpu/obs``; the ported part of it:
 - :mod:`~dmlc_tpu_torch.obs.metrics` — counters/gauges/histograms plus
   the registered ``stats()`` surfaces, one versioned ``snapshot()``;
 - :mod:`~dmlc_tpu_torch.obs.log` — the rate-limited, gang-deduplicated
-  warn channel.
+  warn channel;
+- :mod:`~dmlc_tpu_torch.obs.watchdog` — the stall watchdog: every
+  pipeline pull and blocked queue wait registers while it blocks, and a
+  wait past the threshold gives one diagnosis report;
+- :mod:`~dmlc_tpu_torch.obs.flight` — the crash flight recorder: an
+  always-on trace ring and a post-mortem bundle on an uncaught
+  exception, a fatal signal, an injected crash or a confirmed stall.
 
-Not ported yet: the stall watchdog, the flight recorder, the live status
-server, the sampling profiler and its renderers, the control plane,
-SLOs, gang aggregation, the time series, the bottleneck analysis and
-the RPC trace-context plane.
+Not ported yet, each waiting for its own slice: the live status server
+(``serve``), the time series (``timeseries``; the watchdog and the
+flight recorder read its ring lazily, so their ``history`` stays empty),
+gang aggregation (``aggregate``), the control plane (``control``), SLOs
+(``slo``), the sampling profiler and its renderers (``profile``), the
+bottleneck analysis (``analyze``) and the RPC trace-context plane
+(``rpc``), with the ``obs.scrape`` retry site that waits for ``serve``.
 """
 
 from dmlc_tpu_torch.obs.export import (
@@ -32,6 +41,8 @@ from dmlc_tpu_torch.obs.trace import (
     Profiler, StageStats, TraceRecorder, counter, cuda_trace, instant,
     profiler, span, start, stop, trace_to,
 )
+from dmlc_tpu_torch.obs.watchdog import Watchdog
+from dmlc_tpu_torch.obs.flight import FlightRecorder
 
 __all__ = [
     "TraceRecorder", "span", "instant", "counter", "start", "stop",
@@ -39,5 +50,5 @@ __all__ = [
     "chrome_events", "write_chrome", "merge_chrome_files",
     "MetricsRegistry", "REGISTRY", "Counter", "Gauge", "Histogram",
     "merge_snapshots", "METRICS_SCHEMA",
-    "warn_once", "warn_limited",
+    "warn_once", "warn_limited", "Watchdog", "FlightRecorder",
 ]

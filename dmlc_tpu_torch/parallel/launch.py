@@ -13,10 +13,15 @@ coordinator's address. This module keeps:
   device is ``cuda`` (the default), gloo only when the caller asks for
   the CPU. NCCL needs one card a rank. There is no fallback from one
   backend to the other: if NCCL fails, the call raises;
-- ``launch_local()``, N local worker processes: the gang is killed on
-  the first nonzero exit and on timeout; ``trace_dir`` hands every
-  worker the obs tracing contract (``DMLC_TPU_TRACE_DIR``) and
-  :func:`merge_gang_traces` stitches their trace files into one;
+- ``launch_local()``, N local worker processes owned by a
+  :class:`~dmlc_tpu_torch.resilience.GangSupervisor`: with no
+  ``restart_policy`` the gang is killed on the first nonzero exit and
+  on timeout; with one, a dead worker is respawned with its same
+  coordinates up to a budget. ``faults`` hands every worker the fault
+  plan's env contract, ``flight_dir`` the flight recorder's, and
+  ``trace_dir`` the obs tracing contract (``DMLC_TPU_TRACE_DIR``);
+  :func:`merge_gang_traces` stitches the workers' and the
+  supervisor's trace files into one;
 - the ring/tree topology helpers (``get_ring``, ``get_tree``,
   ``get_link_map``), pure functions kept for API parity;
 - ``find_free_port(s)``.
@@ -31,8 +36,6 @@ from __future__ import annotations
 
 import os
 import socket
-import subprocess
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from dmlc_tpu_torch.utils.logging import DMLCError, check
@@ -63,22 +66,15 @@ _ALIASES = {
 _NOT_PORTED = {
     "num_servers": "the parameter-server role set",
     "serve_ports": "the obs live status server",
-    "flight_dir": "the obs flight recorder",
     "history_s": "the obs time-series plane",
     "gang_poll_s": "the obs gang aggregation plane",
     "profile_hz": "the obs sampling profiler",
     "control": "the obs control plane",
     "scheduler": "the multi-tenant pipeline scheduler",
     "slo": "the obs SLO plane",
-    "restart_policy": "the resilience plane",
-    "faults": "the resilience fault plane",
     "rendezvous": "the rendezvous plane",
     "heartbeat_grace_s": "the rendezvous plane",
 }
-
-
-# how often launch_local looks at its workers
-_POLL_S = 0.05
 
 
 def _getenv(name: str) -> Optional[str]:
@@ -212,42 +208,61 @@ def finalize() -> None:
         dist.destroy_process_group()
 
 
-def _kill_all(procs: List[subprocess.Popen]) -> None:
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-    for p in procs:
-        p.wait()
-
-
 def launch_local(num_workers: int, command: Sequence[str],
                  env: Optional[Dict[str, str]] = None,
                  coordinator: Optional[str] = None,
                  timeout: Optional[float] = None,
                  trace_dir: Optional[str] = None,
+                 flight_dir: Optional[str] = None,
+                 restart_policy=None,
+                 faults=None,
                  **options) -> List[int]:
     """Run ``num_workers`` worker processes of ``command`` on this host
     (reference: local.py), each with the env contract of its rank on top
-    of this process's environment and ``env``. A worker that exits 0
-    early is finished and the others keep running; the first nonzero
-    exit kills the gang and raises; past ``timeout`` seconds every
-    worker is killed and the call raises. Returns the exit codes in rank
-    order (all 0).
+    of this process's environment and ``env``.
+
+    The gang is owned by a :class:`dmlc_tpu_torch.resilience.GangSupervisor`:
+    a worker that **exits 0 early** is a finished member (the gang keeps
+    running), a worker that **dies** (nonzero exit or signal) kills the
+    gang on first failure and the call raises — unless
+    ``restart_policy`` (a :class:`dmlc_tpu_torch.resilience.RestartPolicy`,
+    or an int = max restarts per worker) is given, in which case the
+    dead worker is respawned with its SAME coordinates and a bumped
+    ``DMLC_TPU_ATTEMPT`` (alias ``DMLC_NUM_ATTEMPT``) up to the budget.
+    Budget exhausted = prompt gang teardown (plus a launcher-side flight
+    bundle when ``flight_dir`` is set), never a hang. Past ``timeout``
+    seconds every worker is killed and the call raises. Restarts count
+    in the launcher's ``resilience.restart`` counter and land as
+    ``gang/restart/<member>`` instants on the merged gang trace. A
+    restarted worker cannot rejoin a live ``torch.distributed`` group
+    (see :mod:`dmlc_tpu_torch.resilience.supervise`): restarts are for
+    gangs whose workers form none.
+
+    ``faults`` (a spec string or :class:`dmlc_tpu_torch.resilience.FaultPlan`)
+    hands every member the ``DMLC_TPU_FAULTS`` chaos contract (and a
+    plan's seed as ``DMLC_TPU_FAULT_SEED``) — members opt in with one
+    ``resilience.inject.install_if_env()`` call, and the seeded plan
+    makes every run provoke identical failures.
+
+    ``flight_dir`` hands every worker the crash flight-recorder contract
+    (``DMLC_TPU_FLIGHT_DIR``): workers that call
+    ``obs.flight.install_if_env()`` leave a post-mortem bundle there
+    when they die badly.
 
     ``trace_dir`` hands every worker the obs tracing contract
     (``DMLC_TPU_TRACE_DIR``): workers that wrap their run in
     ``dmlc_tpu_torch.obs.trace.trace_if_env()`` each export a
-    rank-tagged Chrome trace there, and on a clean gang exit the
-    per-worker files are merged into ``<trace_dir>/trace-gang.json`` —
-    one Perfetto timeline, one process row per rank. Stale
-    ``trace-*.json`` files in the directory are removed first.
+    rank-tagged Chrome trace there, the supervisor writes its own
+    (``trace-supervisor.json``), and on a clean gang exit the files are
+    merged into ``<trace_dir>/trace-gang.json`` — one Perfetto timeline,
+    one process row per rank. Stale ``trace-*.json`` files in the
+    directory are removed first.
 
-    The reference's other options (``num_servers``,
-    ``serve_ports``, ``flight_dir``, ``history_s``, ``gang_poll_s``,
-    ``profile_hz``, ``control``, ``scheduler``, ``slo``,
-    ``restart_policy``, ``faults``, ``rendezvous``,
-    ``heartbeat_grace_s``) raise a DMLCError naming the plane each waits
-    for."""
+    Returns the exit codes in rank order (all 0). The reference's other
+    options (``num_servers``, ``serve_ports``, ``history_s``,
+    ``gang_poll_s``, ``profile_hz``, ``control``, ``scheduler``,
+    ``slo``, ``rendezvous``, ``heartbeat_grace_s``) raise a DMLCError
+    naming the plane each waits for."""
     for name, value in options.items():
         if name not in _NOT_PORTED:
             raise TypeError(
@@ -257,6 +272,8 @@ def launch_local(num_workers: int, command: Sequence[str],
                 f"launch_local({name}=...) is not ported to dmlc_tpu_torch "
                 f"yet (it waits for {_NOT_PORTED[name]})")
     check(num_workers >= 1, "num_workers must be >= 1")
+    if flight_dir is not None:
+        os.makedirs(flight_dir, exist_ok=True)
     if trace_dir is not None:
         import glob
         os.makedirs(trace_dir, exist_ok=True)
@@ -270,38 +287,48 @@ def launch_local(num_workers: int, command: Sequence[str],
                 pass
     if coordinator is None:
         coordinator = f"127.0.0.1:{find_free_port()}"
-    procs: List[subprocess.Popen] = []
-    try:
-        for task_id in range(num_workers):
-            wenv = dict(os.environ)
-            if env:
-                wenv.update(env)
-            wenv.update(worker_envs(coordinator, num_workers, task_id))
-            if trace_dir is not None:
-                wenv[ENV_TRACE_DIR] = trace_dir
-            procs.append(subprocess.Popen(list(command), env=wenv))
-        deadline = (time.monotonic() + timeout) if timeout else None
-        while True:
-            codes = [p.poll() for p in procs]
-            bad = [c for c in codes if c not in (None, 0)]
-            if bad:
-                _kill_all(procs)
-                raise DMLCError(
-                    f"worker failure, exit codes "
-                    f"{[p.returncode for p in procs]} (gang killed on "
-                    "first nonzero exit)")
-            if all(c == 0 for c in codes):
-                if trace_dir is not None:
-                    merge_gang_traces(trace_dir)
-                return codes
-            if deadline is not None and time.monotonic() > deadline:
-                _kill_all(procs)
-                raise DMLCError(
-                    f"workers exceeded timeout {timeout}s; all killed")
-            time.sleep(_POLL_S)
-    except BaseException:
-        _kill_all(procs)
-        raise
+    from dmlc_tpu_torch.obs.flight import ENV_FLIGHT_DIR
+    from dmlc_tpu_torch.resilience import inject as _inject
+    from dmlc_tpu_torch.resilience.supervise import (
+        GangMember, GangSupervisor, RestartPolicy,
+    )
+    if isinstance(restart_policy, int):
+        restart_policy = RestartPolicy(max_restarts=restart_policy)
+    fault_spec = fault_seed = None
+    if faults is not None:
+        if isinstance(faults, str):
+            fault_spec = faults
+        else:
+            # a FaultPlan's spec() carries clauses only — the plan
+            # seed must ride DMLC_TPU_FAULT_SEED or every worker's
+            # p= clauses would re-parse onto seed 0, not the armed one
+            fault_spec = faults.spec()
+            fault_seed = str(faults.seed)
+    members: List[GangMember] = []
+    for task_id in range(num_workers):
+        wenv = dict(os.environ)
+        if env:
+            wenv.update(env)
+        if fault_spec is not None:
+            wenv[_inject.ENV_FAULTS] = fault_spec
+        if fault_seed is not None:
+            wenv[_inject.ENV_FAULT_SEED] = fault_seed
+        wenv.update(worker_envs(coordinator, num_workers, task_id))
+        if trace_dir is not None:
+            wenv[ENV_TRACE_DIR] = trace_dir
+        if flight_dir is not None:
+            wenv[ENV_FLIGHT_DIR] = flight_dir
+        members.append(GangMember(f"worker-{task_id}", "worker",
+                                  task_id, command, wenv))
+    # the supervisor owns spawning (a Popen failure mid-loop must not
+    # leak the running half of the gang), the poll, restarts and the
+    # timeout
+    codes = GangSupervisor(members, restart_policy=restart_policy,
+                           timeout=timeout, trace_dir=trace_dir,
+                           flight_dir=flight_dir).run()
+    if trace_dir is not None:
+        merge_gang_traces(trace_dir)
+    return codes
 
 
 def merge_gang_traces(trace_dir: str,

@@ -342,6 +342,13 @@ class ShardedRowBlockIter:
             self._ctor_sizes = list_split_files(uri)
         except (OSError, DMLCError):  # non-stat-able backing
             self._ctor_sizes = None
+        # per-iterator obs collector (weakly held): replay tier +
+        # epoch counters land in one metrics snapshot per LIVE
+        # iterator, next to the queue/engine surfaces
+        from dmlc_tpu_torch.obs.metrics import REGISTRY as _registry
+        self._obs_key = _registry.register(
+            f"shard/{os.path.basename(uri.split('?', 1)[0])}",
+            self, ShardedRowBlockIter._metrics)
 
     # -- the collectives
 
@@ -972,6 +979,14 @@ class ShardedRowBlockIter:
         return make_global_batch(self._assemble_stacked(blocks),
                                  self.mesh, self.axis)
 
+    def _metrics(self) -> Dict[str, Any]:
+        """obs.metrics collector shape (registered weakly at
+        construction, pruned with the iterator)."""
+        return {"replay_tier": self.replay_tier,
+                "replay_epochs": self.replay_epochs,
+                "page_replay_epochs": self.page_replay_epochs,
+                "prefetch_depth": self.prefetch_depth}
+
     def __iter__(self) -> Iterator[DeviceBatch]:
         if self._rounds_per_epoch is None:
             self.replay_tier = "parse"
@@ -1026,6 +1041,10 @@ class ShardedRowBlockIter:
         spill file) and destroy the parsers. Safe to call twice; also
         invoked from __del__ so an abandoned iterator cannot leak spill
         files past process exit by accident."""
+        if getattr(self, "_obs_key", None):
+            from dmlc_tpu_torch.obs.metrics import REGISTRY as _registry
+            _registry.unregister(self._obs_key)
+            self._obs_key = None
         store, self._round_store = self._round_store, None
         if store is not None:
             store.drop()

@@ -50,9 +50,10 @@ emits ``to_device.drain`` and ``device.xfer`` spans; the compiled
 pipeline's last snapshot is a ``pipeline`` collector of the metrics
 registry.
 
-Trimmed from the reference: the stall watchdog (``obs/watchdog.py`` is
-not ported, so no pull registers a wait with it) and the verdict-driven
-controller. Not ported yet (each raises a DMLCError that says so):
+Every pull registers with the stall watchdog (``obs.watchdog``) while it
+blocks, with the stage's queue state as its detail, and a raising stage
+leaves no wait behind. Trimmed from the reference: the verdict-driven
+controller (``obs.control``). Not ported yet (each raises a DMLCError that says so):
 ``shuffle(global_seed=...)``, ``from_stream``,
 ``to_device(sharding=...)`` and ``build(tenant=...)``; ``shuffle`` with
 ``cache`` keeps the reference's own refusal.
@@ -69,6 +70,7 @@ import torch
 
 from dmlc_tpu_torch.io.input_split_shuffle import InputSplitShuffle
 from dmlc_tpu_torch.obs import trace as _trace
+from dmlc_tpu_torch.obs import watchdog as _watchdog
 from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from dmlc_tpu_torch.parallel.device_iter import (
     DeviceBatch, copy_to_device, wait_copy,
@@ -98,15 +100,22 @@ def _probed(runner) -> Iterator:
     probe accumulates into ``wait_s`` — so per-stage span totals and
     probe waits agree by construction (the terminal end-of-stream wait
     goes to ``pull/<stage>.end`` to keep the span-count == items
-    invariant exact)."""
+    invariant exact). Each pull also registers with the stall watchdog
+    while it blocks."""
     gen = runner.epoch()
     probe = runner.probe
     pull_name = f"pull/{probe.name}"      # loop-invariant: built once,
     end_name = pull_name + ".end"         # not per delivered item
     while True:
         rec = _trace.active()
+        token = _watchdog.begin_wait(pull_name, runner.wait_detail)
         t0 = time.perf_counter()
-        item = next(gen, _END)
+        try:
+            item = next(gen, _END)
+        finally:
+            # a raising stage must not leave a phantom wait registered
+            # — the watchdog would later report a stall that never was
+            _watchdog.end_wait(token)
         dt = time.perf_counter() - t0
         if item is _END:
             probe.record_wait_only(dt)
@@ -133,6 +142,23 @@ class _RunnerBase:
     def queue(self):
         """Live bounded queue for occupancy sampling, or None."""
         return None
+
+    def wait_detail(self) -> Dict[str, Any]:
+        """Watchdog diagnosis sample for a blocked pull at this stage:
+        queue state when queue-backed, plus stage extras (replay tier,
+        serve stats) the runner recorded so far."""
+        out: Dict[str, Any] = {"kind": self.kind,
+                               "items": self.probe.items}
+        q = self.queue
+        if q is not None:
+            try:
+                out["qsize"] = q.qsize()
+                out["capacity"] = q.capacity
+            except Exception:  # noqa: BLE001 — diagnostics only
+                pass
+        if self.probe.extra:
+            out["extra"] = dict(self.probe.extra)
+        return out
 
     def epoch(self) -> Iterator:
         raise NotImplementedError

@@ -7,11 +7,11 @@ recycled here are the host staging buffers of ``io/cuda_fs.py``'s
 device chunks: allocation churn on the host→device edge is the
 analogue of the reference's free-list concern.
 
-Trimmed from the reference: ``thread_local_pool`` does not register its
-pool with the obs metrics registry (``buffer_pool/<thread>``), which is
-not ported. Added: ``pin=True`` pools hold page-locked buffers, so a
-copy from one to the card runs asynchronously (``cuda_fs.device_chunks``
-stages through them).
+``thread_local_pool`` registers each thread's pool with the obs metrics
+registry (``buffer_pool/<thread>``), as the reference does. Added:
+``pin=True`` pools hold page-locked buffers, so a copy from one to the
+card runs asynchronously (``cuda_fs.device_chunks`` stages through
+them).
 """
 
 from __future__ import annotations
@@ -79,6 +79,11 @@ class BufferPool:
     def stats(self) -> Tuple[int, int]:
         return self.allocated, self.reused
 
+    def _metrics(self) -> dict:
+        """obs.metrics collector shape (stats() keeps its tuple for
+        existing callers)."""
+        return {"allocated": self.allocated, "reused": self.reused}
+
 
 _tls = threading.local()
 
@@ -91,4 +96,10 @@ def thread_local_pool(pin: bool = False) -> BufferPool:
     if pool is None:
         pool = BufferPool(pin=pin)
         setattr(_tls, name, pool)
+        # weakly registered: the pool leaves the snapshot with its
+        # thread; the name carries the owning thread for gang readers
+        from dmlc_tpu_torch.obs.metrics import REGISTRY
+        REGISTRY.register(
+            f"buffer_pool/{threading.current_thread().name}"
+            + ("/pinned" if pin else ""), pool, BufferPool._metrics)
     return pool

@@ -90,15 +90,22 @@ NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
                "dmlc_tpu_torch.io.threaded_split",
                "dmlc_tpu_torch.io.input_split_shuffle",
                "dmlc_tpu_torch.io.cached_split",
-               "dmlc_tpu_torch.shuffle.permutation")
+               "dmlc_tpu_torch.shuffle.permutation",
+               "dmlc_tpu_torch.resilience",
+               "dmlc_tpu_torch.resilience.inject",
+               "dmlc_tpu_torch.resilience.policy",
+               "dmlc_tpu_torch.resilience.supervise",
+               "dmlc_tpu_torch.obs.watchdog",
+               "dmlc_tpu_torch.obs.flight")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_transfer_and_checkpoint_modules_import_alone(module):
     """The transfer probe, the multi-process bench worker, the checkpoint
-    plane and its JSON helpers, and the trace and split planes' modules
-    import in a fresh interpreter without jax or dmlc_tpu (each is also
-    in the AST scan above)."""
+    plane and its JSON helpers, the trace and split planes' modules, and
+    the resilience plane, watchdog and flight recorder import in a fresh
+    interpreter without jax or dmlc_tpu (each is also in the AST scan
+    above)."""
     path = os.path.join(REPO, *module.split("."))
     path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
             else path + ".py")

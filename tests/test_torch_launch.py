@@ -3,7 +3,8 @@ JAX package's: the topology helpers and the env contract equal the
 reference's exactly; ``launch_local`` runs real worker processes (ranks
 read from their env, a failure propagated, a gang killed at its
 timeout); every option that waits for an unported plane raises a named
-error; ``init_from_env`` without a coordinator is single-process mode
+error, and the resilience plane's options (``flight_dir``,
+``restart_policy``, ``faults``) are accepted; ``init_from_env`` without a coordinator is single-process mode
 and, with one, forms a gloo group in a subprocess (never in this
 process).
 """
@@ -133,14 +134,26 @@ def test_launch_local_kills_everyone_at_its_timeout(tmp_path):
 
 @pytest.mark.parametrize("option,value", [
     ("num_servers", 1), ("serve_ports", True),
-    ("flight_dir", "/tmp/x"), ("history_s", 1.0), ("gang_poll_s", 1.0),
+    ("history_s", 1.0), ("gang_poll_s", 1.0),
     ("profile_hz", 10.0), ("control", True), ("scheduler", True),
-    ("slo", True), ("restart_policy", 1), ("faults", "x"),
-    ("rendezvous", True), ("heartbeat_grace_s", 1.0)])
+    ("slo", True), ("rendezvous", True), ("heartbeat_grace_s", 1.0)])
 def test_unported_options_raise_named_errors(option, value):
     with pytest.raises(DMLCError, match="not ported.*waits for"):
         launch.launch_local(1, [sys.executable, "-c", "pass"],
                             **{option: value})
+
+
+@pytest.mark.parametrize("option", ["flight_dir", "restart_policy",
+                                    "faults"])
+def test_resilience_options_are_ported(option, tmp_path):
+    # the resilience plane's three options leave the refusal list: a
+    # clean worker under each exits 0 and the launch returns its code
+    value = {"flight_dir": str(tmp_path / "flight"), "restart_policy": 1,
+             "faults": "site=never.fires,fault=ioerror,nth=9"}[option]
+    assert option not in launch._NOT_PORTED
+    assert launch.launch_local(1, [sys.executable, "-c", "pass"],
+                               env=ENV, timeout=60,
+                               **{option: value}) == [0]
 
 
 def test_unknown_option_is_a_type_error():

@@ -561,10 +561,9 @@ def test_gang_trace_one_process_per_rank(tmp_path):
                              if e["name"] == "process_name")
         work = [e for e in evs if e["name"] == "worker-work"]
         assert len(work) == 2 and len({e["pid"] for e in work}) == 2
-    # the reference's gang supervisor exports its own process row; the
-    # port has no supervisor (the resilience plane is not ported)
+    # each package's gang supervisor exports its own process row
     assert procs["ref"] == sorted(["rank 0", "rank 1", "gang supervisor"])
-    assert procs["port"] == ["rank 0", "rank 1"]
+    assert procs["port"] == procs["ref"]
 
 
 def test_trace_if_env_and_merge(tmp_path, monkeypatch):
