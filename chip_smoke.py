@@ -204,6 +204,36 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    plain versions' on the card, K1, K2, K8 and K9 once a step, the loss
    falling, and the final weights agreeing with an epoch through the
    plain versions; GB/s and steps/s;
+10b. the format matrix (``format_path``), over a HIGGS-shaped csv of
+   about 256 MB (a {0, 1} label and 28 cells of "%.6f" a row, labels
+   from a seeded hidden weight vector), a sparse variant of 64 MB (30% of
+   the cells exactly 0), config 5's Parquet table (a "label" and 28
+   float32 columns, 128 MB in 16 row groups) and config 17's (20 float32
+   columns with 10% nulls, row groups of 4000, 64 MB), both written by
+   ``write_parquet`` with numpy alone (V1 PLAIN uncompressed pages,
+   definition levels for the optional columns: the card's machine has
+   no pyarrow), and config 6's indexed RecordIO (128 MB of 60-140 KB
+   records and its ``.idx``): K1, K2, K8 and K9 at the csv batch (8192
+   rows of 28 nonzeros, 28 weights and the bias) against their plain
+   versions by the half, private, grid and narrow routes read from the
+   trace, timed among the run's first traces beside the dense batch's;
+   the csv's native padded batches byte-identical to ``pad_single`` over
+   the Python ``CSVParser``, dense and sparse, and its ``shards=2``
+   stream to the one-parser stream; ``SparseLinearModel(28)`` for one
+   epoch through ``Pipeline.from_uri(csv).parse(format="csv",
+   engine="native", label_column=0).batch(8192, pad=True,
+   nnz_bucket=8192 * 28).to_device(cuda, window="auto")`` (as
+   ``dense_train``: K1, K2, K8 and K9 once a step, the loss falling, the
+   first step and the epoch equal to the plain versions'), parse-only
+   epochs of both csvs beside it; the Parquet tables through
+   ``format="parquet_native", engine="native", label_column="label"``,
+   every block bit for bit the columns written (NaN at the nulls) at 1,
+   2 and 4 shards (config 5's) with ``outstanding() == 0`` after each
+   epoch, and config 5's table trained on for one epoch the same way;
+   ``IndexedRecordIOSplit(shuffle=True, seed=11, batch_size=64)`` and
+   ``NativeIndexedRecordIOReader`` giving the same records in the same
+   order (config 6's digest), seeds 11 and 12 two orders of the same
+   records; GB/s of each;
 11. last, after every traced phase, configs 4 (``prefetch``), 7
    (``multiprocess``: two worker processes over a gloo group, each a
    mesh of 2 parts on this card), 8 (``page_replay``) and 10 (``spill_replay``, both with
@@ -211,7 +241,10 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    at 256 MB over the linear corpus (linked to the name the suite reads,
    so it writes no corpus of its own), then 3 (``recordio``), 14
    (``recio_native``) and 18 (``image_record``, both gauged) over the
-   RecordIO corpora, each JSON on a line, their own checks holding
+   RecordIO corpora, then 1 (``libsvm``, a1a-shaped, 256 MB), 2 (``csv``,
+   HIGGS-shaped, dense and sparse, 256 MB) and 6 (``indexed_shuffled``,
+   over format_path's indexed RecordIO, its digest equal to
+   format_path's), each JSON on a line, their own checks holding
    (content hashes against a direct parse; page replay epochs >= 3;
    config 7's epochs 2-3 replayed; config 3 through the native reader,
    its records' hash equal to the host reader's in ``cuda_ingest``;
@@ -249,8 +282,9 @@ version does.
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it the kernels' JSON record (every kernel: K1-K9, K8's
 three launches apart, K9 at the linear width and, by its narrow route,
-at the ranking width; K1, K2, K8 and K9 again at the dense batch). Imports
-nothing of JAX or of the ``dmlc_tpu`` package.
+at the ranking width; K1, K2, K8 and K9 again at the dense batch and at
+the csv batch). Imports nothing of JAX or of the ``dmlc_tpu`` package, nor
+pyarrow.
 """
 
 import gc
@@ -455,6 +489,33 @@ DENSE_LEARNING_RATE = 0.5
 # of this corpus at 64 MB, without growing. So the final w and b are held
 # to STEP_RTOL and an atol of about 20 times that drift.
 DENSE_EPOCH_RTOL, DENSE_EPOCH_ATOL = STEP_RTOL, 1e-5
+# The format path (format_path; bench configs 1, 2, 5, 6 and 17) at the
+# shape of HIGGS (Baldi, Sadowski and Whiteson, "Searching for Exotic
+# Particles in High-Energy Physics with Deep Learning", Nature
+# Communications 2014; the UCI table XGBoost benchmarks on): a label and
+# 28 float columns a row. The csv writes each cell "%.6f" (config 2's
+# make_csv), labels drawn with the probability a seeded hidden weight
+# vector gives the centred row, so the loss can fall; the sparse variant
+# has a share of cells exactly zero. The Parquet table is config 5's
+# (make_parquet: a "label" column and f0-f27, float32, in 16 row groups),
+# written by write_parquet (no pyarrow on the card's machine); the
+# decode-bound table config 17's (make_parquet_decode_bound: 20 float32
+# columns with 10% nulls beside the label, row groups of 4000). The
+# indexed RecordIO is config 6's (make_indexed_recordio: 60-140 KB
+# records and a .idx), read with its seed and batch.
+HIGGS_FEATURES = 28
+CSV_MB, SPARSE_CSV_MB, CSV_ZERO_FRAC = 256, 64, 0.3
+CSV_ROW_BUCKET = 8192
+CSV_NNZ_BUCKET = CSV_ROW_BUCKET * HIGGS_FEATURES
+CSV_PARITY_BATCHES = 2  # batches held to pad_single over the Python parser
+PARQUET_MB, PARQUET_GROUPS = 128, 16
+DECODE_MB, DECODE_COLUMNS, DECODE_NULLS, DECODE_GROUP_ROWS = 64, 20, 0.1, 4000
+INDEXED_MB, INDEXED_SEEDS, INDEXED_BATCH = 128, (11, 12), 64
+# 28 features in [0, 1) present in every row: the loss's curvature in w is
+# up to 1/4 of the largest eigenvalue of E[x x^T], about 27 / 4 + 1 / 3,
+# so a rate above 2 / 1.8 ~ 1.1 diverges; 0.5 sits below it (as for the
+# dense path).
+HIGGS_LEARNING_RATE = 0.5
 
 
 def log(msg: str) -> None:
@@ -660,6 +721,207 @@ def write_dense_corpus(path: str) -> int:
     return os.path.getsize(path)
 
 
+def _higgs_labels(rng, x):
+    """{0, 1} labels for the rows of ``x`` (values in [0, 1)), each 1 with
+    the probability a seeded hidden weight vector gives the centred row."""
+    import numpy as np
+    w_true = np.random.RandomState(SEED + 28).standard_normal(x.shape[1])
+    p = 1 / (1 + np.exp(-((x - 0.5) @ w_true)))
+    return rng.rand(len(x)) < p
+
+
+CSV_ROW_BYTES = 2 + HIGGS_FEATURES * 9  # "y," then "0.dddddd," a cell
+
+
+def write_higgs_csv(path: str, mb: int, seed: int,
+                    zero_frac: float = 0.0) -> int:
+    """A HIGGS-shaped csv of about ``mb`` MB: a {0, 1} label and 28 cells
+    of "0.dddddd" a row (uniform millionths in [0, 1), ``zero_frac`` of
+    them exactly 0), labels by _higgs_labels; formatted by numpy, 64K
+    rows at a time."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    rows = (mb << 20) // CSV_ROW_BYTES
+    place = 10 ** np.arange(5, -1, -1)
+    with open(path, "wb") as f:
+        for start in range(0, rows, 1 << 16):
+            n = min(1 << 16, rows - start)
+            k = rng.randint(0, 10 ** 6, (n, HIGGS_FEATURES))
+            if zero_frac:
+                k[rng.rand(n, HIGGS_FEATURES) < zero_frac] = 0
+            label = _higgs_labels(rng, k / 1e6)
+            out = np.empty((n, CSV_ROW_BYTES), np.uint8)
+            out[:, 0] = ord("0") + label
+            out[:, 1] = ord(",")
+            cells = out[:, 2:].reshape(n, HIGGS_FEATURES, 9)
+            cells[:, :, 0] = ord("0")
+            cells[:, :, 1] = ord(".")
+            cells[:, :, 2:8] = ord("0") + (k[:, :, None] // place) % 10
+            cells[:, :, 8] = ord(",")
+            out[:, -1] = ord("\n")
+            f.write(out.tobytes())
+    return os.path.getsize(path)
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+class _Thrift:
+    """A thrift compact-protocol struct writer: the fields write_parquet's
+    page headers and footer use (i32, i64, string, struct, list), each
+    field header in the short form (ids ascending by at most 15)."""
+
+    I32, I64, BINARY, LIST, STRUCT = 5, 6, 8, 9, 12
+
+    def __init__(self):
+        self.out = bytearray()
+        self.last = 0
+
+    def field(self, fid: int, kind: int) -> "_Thrift":
+        self.out.append(((fid - self.last) << 4) | kind)
+        self.last = fid
+        return self
+
+    def num(self, fid: int, v: int, kind: int = I32) -> "_Thrift":
+        self.field(fid, kind).out += _zigzag(v)
+        return self
+
+    def string(self, fid: int, s: str) -> "_Thrift":
+        b = s.encode()
+        self.field(fid, self.BINARY).out += _varint(len(b)) + b
+        return self
+
+    def struct(self, fid: int, body: bytes) -> "_Thrift":
+        self.field(fid, self.STRUCT).out += body
+        return self
+
+    def seq(self, fid: int, kind: int, items) -> "_Thrift":
+        self.field(fid, self.LIST)
+        n = len(items)
+        self.out += (bytes([(n << 4) | kind]) if n < 15
+                     else bytes([0xF0 | kind]) + _varint(n))
+        for item in items:
+            self.out += item
+        return self
+
+    def end(self) -> bytes:
+        return bytes(self.out) + b"\0"
+
+
+def _zigzag(v: int) -> bytes:
+    return _varint((v << 1) ^ (v >> 63))
+
+
+def write_parquet(path: str, columns, group_rows: int, nulls=None) -> int:
+    """A Parquet file of float32 columns, written with numpy alone: what
+    the engine's page decoder takes (ABI 8) and pyarrow reads. ``columns``
+    maps each name to its float32 values (all of one length), in schema
+    order; ``nulls`` maps some names to a bool mask (True: null), and
+    those columns are OPTIONAL, with RLE/bit-packed definition levels
+    (one bit-packed run, bit width 1), the others REQUIRED. Each row
+    group of ``group_rows`` rows holds one V1 DATA_PAGE a column: PLAIN,
+    UNCOMPRESSED, the non-null values only. ``PAR1`` at both ends, the
+    thrift compact footer between. Returns the file's size."""
+    import numpy as np
+    nulls = nulls or {}
+    names = list(columns)
+    nrows = len(columns[names[0]])
+    groups = []  # [(num_rows, [(start, size, num_values)] a column)]
+    with open(path, "wb") as f:
+        f.write(b"PAR1")
+        pos = 4
+        for lo in range(0, nrows, group_rows):
+            hi = min(lo + group_rows, nrows)
+            chunks = []
+            for name in names:
+                vals = np.ascontiguousarray(columns[name][lo:hi], "<f4")
+                body = b""
+                if name in nulls:
+                    present = ~np.asarray(nulls[name][lo:hi], bool)
+                    levels = (_varint((-(-(hi - lo) // 8) << 1) | 1)
+                              + np.packbits(present,
+                                            bitorder="little").tobytes())
+                    body = len(levels).to_bytes(4, "little") + levels
+                    vals = vals[present]
+                body += vals.tobytes()
+                page = (_Thrift().num(1, 0)           # DATA_PAGE
+                        .num(2, len(body)).num(3, len(body))
+                        .struct(5, _Thrift().num(1, hi - lo)
+                                .num(2, 0)             # PLAIN
+                                .num(3, 3).num(4, 3)   # levels: RLE
+                                .end())
+                        .end())
+                f.write(page + body)
+                chunks.append((pos, len(page) + len(body)))
+                pos += len(page) + len(body)
+            groups.append((hi - lo, chunks))
+        schema = [_Thrift().string(4, "schema").num(5, len(names)).end()]
+        schema += [_Thrift().num(1, 4)                 # FLOAT
+                   .num(3, 1 if name in nulls else 0)  # OPTIONAL/REQUIRED
+                   .string(4, name).end() for name in names]
+        row_groups = []
+        for num_rows, chunks in groups:
+            metas = []
+            for name, (start, size) in zip(names, chunks):
+                meta = (_Thrift().num(1, 4)
+                        .seq(2, _Thrift.I32, [_zigzag(0), _zigzag(3)])
+                        .seq(3, _Thrift.BINARY,
+                              [_varint(len(name)) + name.encode()])
+                        .num(4, 0)                     # UNCOMPRESSED
+                        .num(5, num_rows, _Thrift.I64)
+                        .num(6, size, _Thrift.I64)
+                        .num(7, size, _Thrift.I64)
+                        .num(9, start, _Thrift.I64)    # data_page_offset
+                        .end())
+                metas.append(_Thrift().num(2, start, _Thrift.I64)
+                             .struct(3, meta).end())
+            row_groups.append(
+                _Thrift().seq(1, _Thrift.STRUCT, metas)
+                .num(2, sum(size for _, size in chunks), _Thrift.I64)
+                .num(3, num_rows, _Thrift.I64).end())
+        footer = (_Thrift().num(1, 1)
+                  .seq(2, _Thrift.STRUCT, schema)
+                  .num(3, nrows, _Thrift.I64)
+                  .seq(4, _Thrift.STRUCT, row_groups)
+                  .end())
+        f.write(footer + len(footer).to_bytes(4, "little") + b"PAR1")
+    return os.path.getsize(path)
+
+
+def higgs_table(mb: int, seed: int):
+    """Config 5's table at about ``mb`` MB: {"label", "f0".."f27"} of
+    float32 (uniform in [0, 1), labels by _higgs_labels), as columns."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    rows = (mb << 20) // 120  # make_parquet's ~30 float32 columns a row
+    x = rng.rand(rows, HIGGS_FEATURES).astype(np.float32)
+    cols = {"label": _higgs_labels(rng, x).astype(np.float32)}
+    cols.update((f"f{c}", np.ascontiguousarray(x[:, c]))
+                for c in range(HIGGS_FEATURES))
+    return cols
+
+
+def decode_table(mb: int, seed: int):
+    """Config 17's table at about ``mb`` MB: a float32 label and f0-f19
+    of float32 with DECODE_NULLS of each column null. Returns (columns,
+    nulls)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    rows = (mb << 20) // (DECODE_COLUMNS * 4 + 8)
+    cols = {"label": rng.rand(rows).astype(np.float32)}
+    nulls = {}
+    for c in range(DECODE_COLUMNS):
+        cols[f"f{c}"] = rng.rand(rows).astype(np.float32)
+        nulls[f"f{c}"] = rng.rand(rows) < DECODE_NULLS
+    return cols, nulls
+
+
 # Each path's padded batch: the file's format, the row and nnz buckets,
 # and the columns it forces.
 LAYOUT = {"libsvm": ("libsvm", ROW_BUCKET, NNZ_BUCKET, {}),
@@ -671,7 +933,23 @@ LAYOUT = {"libsvm": ("libsvm", ROW_BUCKET, NNZ_BUCKET, {}),
                     DENSE_ROW_BUCKET * DENSE_FEATURES, {}),
           "image": ("recordio_image", IMAGE_ROW_BUCKET,
                     IMAGE_ROW_BUCKET * IMAGE_SHAPE[0] * IMAGE_SHAPE[1]
-                    * IMAGE_SHAPE[2], {})}
+                    * IMAGE_SHAPE[2], {}),
+          "csv": ("csv", CSV_ROW_BUCKET, CSV_NNZ_BUCKET, {}),
+          "csv_sparse": ("csv", CSV_ROW_BUCKET, CSV_NNZ_BUCKET, {}),
+          "parquet": ("parquet_native", CSV_ROW_BUCKET, CSV_NNZ_BUCKET, {})}
+# The format options each path's parse takes (the label's column).
+PARSE_KW = {"csv": {"label_column": 0},
+            "csv_sparse": {"label_column": 0, "sparse": True},
+            "parquet": {"label_column": "label"}}
+# The linear model's paths over dense rows (check_dense_kernels,
+# dense_train): the rows a batch, the features, the learning rate and the
+# kernel checks' seed.
+DENSE_PATHS = {"dense": (DENSE_ROW_BUCKET, DENSE_FEATURES,
+                         DENSE_LEARNING_RATE, SEED + 15),
+               "csv": (CSV_ROW_BUCKET, HIGGS_FEATURES, HIGGS_LEARNING_RATE,
+                       SEED + 16),
+               "parquet": (CSV_ROW_BUCKET, HIGGS_FEATURES,
+                           HIGGS_LEARNING_RATE, SEED + 17)}
 
 
 def padded_batches(parser, fmt="libsvm"):
@@ -687,7 +965,7 @@ def first_batch(path, fmt="libsvm"):
     """The native parser's first padded batch, copied out of its lease."""
     from dmlc_tpu_torch.data.parser import Parser
     parser = Parser.create(path, 0, 1, format=LAYOUT[fmt][0],
-                           engine="native")
+                           engine="native", **PARSE_KW.get(fmt, {}))
     batch = next(padded_batches(parser, fmt)).copy()
     parser.destroy()
     return batch
@@ -2074,7 +2352,7 @@ def build_pipeline(path, fmt="libsvm"):
     from dmlc_tpu_torch.pipeline import Pipeline
     file_fmt, rows, nnz_bucket, want = LAYOUT[fmt]
     return (Pipeline.from_uri(path)
-            .parse(format=file_fmt, engine="native")
+            .parse(format=file_fmt, engine="native", **PARSE_KW.get(fmt, {}))
             .batch(rows, pad=True, row_bucket=rows, nnz_bucket=nnz_bucket,
                    **want)
             .to_device(torch.device("cuda"), window="auto")
@@ -2126,7 +2404,7 @@ def prefetch_epoch(path, fmt="libsvm"):
     from dmlc_tpu_torch.native import bindings
     from dmlc_tpu_torch.parallel.device_iter import device_prefetch
     parser = Parser.create(path, 0, 1, format=LAYOUT[fmt][0],
-                           engine="native")
+                           engine="native", **PARSE_KW.get(fmt, {}))
     require(isinstance(parser, bindings.NativeTextParser),
             f"engine='native' gave {type(parser).__name__}")
     batches = 0
@@ -4363,7 +4641,7 @@ def cache_path(path, size, lr, single):
             "parse_to_device_gbps_training": gbps, "steps_per_s": sps}
 
 
-def bench_twins(path, work, records_hash):
+def bench_twins(path, work, records_hash, indexed_hash):
     """Configs 4 (``prefetch``), 7 (``multiprocess``), 8 (``page_replay``)
     and 10 (``spill_replay``) of the port's bench suite at 256 MB on the
     card, over the linear corpus ``path``, linked to the name the suite
@@ -4380,12 +4658,18 @@ def bench_twins(path, work, records_hash):
     gauge: 3 through the native reader, its coverage hash equal to
     ``records_hash`` (cuda_ingest's, of the host reader's records); 14's
     and 18's native and sharded streams each equal to the python golden's
-    (their own checks) and assembled in the engine. Each JSON is printed
-    as a line. The suite's files are removed after."""
+    (their own checks) and assembled in the engine. Then configs 1
+    (``libsvm``, a1a-shaped) at 256 MB and 2 (``csv``, HIGGS-shaped, dense
+    and sparse) at CSV_MB, each writing its corpus, and 6
+    (``indexed_shuffled``) over the indexed RecordIO that
+    write_format_corpora put at the suite's name: through the native
+    reader, its order and content equal to the Python split's (its own
+    check) and its digest ``indexed_hash`` (indexed_leg's). Each JSON is
+    printed as a line. The suite's files are removed after."""
     from dmlc_tpu_torch.bench_suite import (
-        bench_image_record, bench_multiprocess_ingest, bench_page_replay,
-        bench_prefetch, bench_recio_native, bench_recordio,
-        bench_spill_replay,
+        bench_csv, bench_image_record, bench_indexed_shuffled, bench_libsvm,
+        bench_multiprocess_ingest, bench_page_replay, bench_prefetch,
+        bench_recio_native, bench_recordio, bench_spill_replay,
     )
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     prefix = "dmlc_tpu_torch_bench_suite."
@@ -4401,7 +4685,11 @@ def bench_twins(path, work, records_hash):
                ("recio_native", lambda: bench_recio_native(
                    RECORDIO_MB, gauge_fn=memcpy_gauge, work=work)),
                ("image_record", lambda: bench_image_record(
-                   RECORDIO_MB, gauge_fn=memcpy_gauge, work=work)))
+                   RECORDIO_MB, gauge_fn=memcpy_gauge, work=work)),
+               ("libsvm", lambda: bench_libsvm(FILE_MB, work=work)),
+               ("csv", lambda: bench_csv(CSV_MB, work=work)),
+               ("indexed_shuffled", lambda: bench_indexed_shuffled(
+                   INDEXED_MB, work=work)))
     out = {}
     try:
         for name, fn in configs:
@@ -4431,6 +4719,16 @@ def bench_twins(path, work, records_hash):
                 and out[name]["sharded"]["hash"] == out[name]["hash"],
                 f"config {name}: the native decode did not run, or not in "
                 f"the engine: {out[name]}")
+    require(out["libsvm"]["rows"] > 0 and len(out["libsvm"]["hash"]) == 64,
+            f"config 1: {out['libsvm']}")
+    require(out["csv"]["rows"] > 0 and out["csv"]["nnz"] == out["csv"]["rows"]
+            * HIGGS_FEATURES and abs(out["csv"]["sparse_nnz_frac"]
+                                     - (1 - CSV_ZERO_FRAC)) < 0.01,
+            f"config 2: {out['csv']}")
+    require(out["indexed_shuffled"]["engine"] == "native"
+            and out["indexed_shuffled"]["hash"] == indexed_hash,
+            f"config 6: {out['indexed_shuffled']} (indexed_leg's digest "
+            f"{indexed_hash})")
     return out
 
 
@@ -4883,38 +5181,41 @@ def plain_linear_model(num_features, lr):
     return Plain(num_features, learning_rate=lr, device=torch.device("cuda"))
 
 
-def check_dense_kernels(first):
-    """K1, K2, K8 and K9 at the dense path's first batch (8192 rows of
-    24-47 values, 48 weights and the bias): each against its plain
-    version on the card (K1 by its half route and K2 by its private
-    route, K8 by its grid route, K9 by its narrow route, each read from
-    the call's trace), then timed as check_kernels and check_step_kernels
-    time them, beside its bound, its plain version and one PyTorch call.
-    Returns their kernel rows."""
+def check_dense_kernels(first, path="dense"):
+    """K1, K2, K8 and K9 at the first batch of a path over dense rows
+    (DENSE_PATHS: "dense", 8192 rows of 24-47 values, 48 weights and the
+    bias; "csv", 8192 rows of 28 values, 28 weights and the bias): each
+    against its plain version on the card (K1 by its half route and K2 by
+    its private route, K8 by its grid route, K9 by its narrow route, each
+    read from the call's trace), then timed as check_kernels and
+    check_step_kernels time them, beside its bound, its plain version and
+    one PyTorch call. Returns their kernel rows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from dmlc_tpu_torch.ops import csr
     from dmlc_tpu_torch.ops import step as step_ops
     cuda = torch.device("cuda")
-    n, feats = DENSE_ROW_BUCKET, DENSE_FEATURES
+    n, feats, lr, seed = DENSE_PATHS[path]
     require(int(first["num_rows"]) == n,
-            f"the dense path's first batch has {int(first['num_rows'])} rows")
+            f"the {path} path's first batch has {int(first['num_rows'])} "
+            "rows")
     b = {k: torch.from_numpy(np.asarray(first[k])).to(cuda)
          for k in ("offset", "index", "value", "label", "weight")}
     off, idx, val = b["offset"], b["index"], b["value"]
     nnz = int(first["num_nnz"])
-    gen = torch.Generator(device=cuda).manual_seed(SEED + 15)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     w = torch.randn(feats, device=cuda, generator=gen)
     g = torch.randn(n, device=cuda, generator=gen)
-    k1_err = _check_k1("at the dense batch", off, idx, val, w, "half", [])
-    k2_err = _check_narrow_k2("at the dense batch", off, idx, val, g, feats)
+    k1_err = _check_k1(f"at the {path} batch", off, idx, val, w, "half", [])
+    k2_err = _check_narrow_k2(f"at the {path} batch", off, idx, val, g,
+                              feats)
     margins = csr.csr_spmv_plain(off, idx, val, w)
     t = ([margins], torch.tensor(0.1, device=cuda), b["label"], b["weight"])
     out = []
     _device_us_by_kernel(lambda: out.append(step_ops.logistic_step(*t)), 1,
                          OBJECTIVE_ROUTE_CALLS["grid"])
-    k8_err = _check_objective("at the dense batch", out[-1],
+    k8_err = _check_objective(f"at the {path} batch", out[-1],
                               step_ops.logistic_step_plain(*t), t[3])
     params = [torch.randn(feats, device=cuda, generator=gen) * 0.1,
               torch.randn((), device=cuda, generator=gen) * 0.1]
@@ -4923,10 +5224,10 @@ def check_dense_kernels(first):
     require(step_ops.sgd_route([p.numel() for p in params],
                                [(p.data_ptr(), q.data_ptr())
                                 for p, q in zip(params, grads)]) == "narrow",
-            "K9 at the dense model does not take its narrow route")
-    k9_err = max(_check_sgd(f"dense l2={l2}", params, grads, decay, 0.5, l2,
-                            "narrow") for l2 in (0.0, 0.01))
-    log(f"dense kernels agree with their plain versions at the first batch "
+            f"K9 at the {path} model does not take its narrow route")
+    k9_err = max(_check_sgd(f"{path} l2={l2}", params, grads, decay, 0.5,
+                            l2, "narrow") for l2 in (0.0, 0.01))
+    log(f"{path} kernels agree with their plain versions at the first batch "
         f"({n} rows, {nnz} nonzeros, {feats} weights): K1 half route max "
         f"|err| {k1_err[0]:.3g}, K2 private route {k2_err:.3g}, K8 grid "
         f"route g {k8_err:.3g}, K9 narrow route {k9_err:.3g}")
@@ -4941,21 +5242,21 @@ def check_dense_kernels(first):
         at @ g
         k2_lib = lambda: at @ g  # noqa: E731
     except RuntimeError as e:
-        log(f"library K2 at the dense batch not timed: {e}")
+        log(f"library K2 at the {path} batch not timed: {e}")
         k2_lib = None
     turn, copies = rotating([params, grads], (feats + 1) * 8)
 
     def k9():
         p, q = turn()
-        step_ops.sgd_update(p, q, decay, DENSE_LEARNING_RATE, 0.0)
+        step_ops.sgd_update(p, q, decay, lr, 0.0)
 
     def k9_plain():
         p, q = turn()
-        step_ops.sgd_update_plain(p, q, decay, DENSE_LEARNING_RATE, 0.0)
+        step_ops.sgd_update_plain(p, q, decay, lr, 0.0)
 
     def k9_lib():
         p, q = turn()
-        torch._foreach_add_(p, q, alpha=-DENSE_LEARNING_RATE)
+        torch._foreach_add_(p, q, alpha=-lr)
 
     csr_bytes = (n + 1) * 8 + nnz * (4 + 4)
     work = {
@@ -4997,19 +5298,20 @@ def check_dense_kernels(first):
             "ms": device_ms(kernel, calls=calls),
             "plain_ms": device_ms(plain), "bound_ms": bound, "bound_by": by,
             "library_ms": device_ms(lib) if lib else None,
-            "call_ms": call_ms(kernel), "path": "dense"})
-    log(f"dense kernels timed at the first batch (K9 rotating over {copies} "
+            "call_ms": call_ms(kernel), "path": path})
+    log(f"{path} kernels timed at the first batch (K9 rotating over {copies} "
         "copies of p and g); library calls: torch.sparse CSR @ w, its "
         "transpose @ g, F.binary_cross_entropy_with_logits(reduction='sum'), "
         "torch._foreach_add_")
     return rows
 
 
-def dense_train(path, lr):
-    """The linear model trained from a dense ``.rec`` on the card:
-    ``SparseLinearModel(48)`` through the dense chain of build_pipeline
-    (native decode → the engine's padded batches → pinned async H2D),
-    ``train_step`` a batch, for one epoch. First one step on the first
+def dense_train(path, lr, fmt="dense"):
+    """The linear model trained on the card from a file of dense rows
+    (DENSE_PATHS: a dense ``.rec``, the HIGGS-shaped csv or the Parquet
+    table): ``SparseLinearModel(48)`` (or 28) through ``fmt``'s chain of
+    build_pipeline (native parse or decode → the engine's padded batches
+    → pinned async H2D), ``train_step`` a batch, for one epoch. First one step on the first
     batch through the kernels and one through their plain versions on the
     card agree (STEP_RTOL, STEP_ATOL); then the epoch: K1, K2, K8 and K9
     each launch once a step (the counters), the loss falls; then one epoch
@@ -5020,25 +5322,27 @@ def dense_train(path, lr):
     from dmlc_tpu_torch.models.linear import SparseLinearModel
     cuda = torch.device("cuda")
     size = os.path.getsize(path)
+    features = DENSE_PATHS[fmt][1]
     wrappers = {k: fn for k, fn in _wrappers().items()
                 if k in PATH_KERNELS["linear"] + ("logistic_sums",
                                                    "logistic_grad")}
-    built = build_pipeline(path, "dense")
+    built = build_pipeline(path, fmt)
     it = iter(built)
     batch = next(it)
     it.close()
-    kernels = SparseLinearModel(DENSE_FEATURES, learning_rate=lr, device=cuda)
-    plain = plain_linear_model(DENSE_FEATURES, lr)
+    kernels = SparseLinearModel(features, learning_rate=lr, device=cuda)
+    plain = plain_linear_model(features, lr)
     got = (kernels.train_step(batch).reshape(1), kernels.w.detach(),
            kernels.b.detach().reshape(1))
     want = (plain.train_step(batch).reshape(1), plain.w.detach(),
             plain.b.detach().reshape(1))
     for what, x, y in zip(("loss", "w", "b"), got, want):
         require(torch.allclose(x, y, rtol=STEP_RTOL, atol=STEP_ATOL),
-                f"dense_train: the first step through the kernels vs the plain "
-                f"versions: {what} max |err| {(x - y).abs().max().item()}")
+                f"{fmt}_train: the first step through the kernels vs the "
+                f"plain versions: {what} max |err| "
+                f"{(x - y).abs().max().item()}")
 
-    model = SparseLinearModel(DENSE_FEATURES, learning_rate=lr, device=cuda)
+    model = SparseLinearModel(features, learning_rate=lr, device=cuda)
     for fn in wrappers.values():
         fn.launches = 0
     secs, losses, steps, _ = train_epoch(built, model, train=True)
@@ -5046,34 +5350,35 @@ def dense_train(path, lr):
     want_launches = {k: steps if k in PATH_KERNELS["linear"] else 0
                      for k in launches}
     require(steps > 0 and launches == want_launches,
-            f"dense_train: launches {launches} != {want_launches}: the epoch "
-            "did not go through K1, K2, K8 and K9 once a step")
+            f"{fmt}_train: launches {launches} != {want_launches}: the "
+            "epoch did not go through K1, K2, K8 and K9 once a step")
     tail = sum(losses[-10:]) / len(losses[-10:])
     require(all(x == x and abs(x) != float("inf") for x in losses)
             and tail < losses[0],
-            f"dense_train: the loss did not fall: first {losses[0]}, mean of "
-            f"the last 10 {tail}")
-    reference = plain_linear_model(DENSE_FEATURES, lr)
+            f"{fmt}_train: the loss did not fall: first {losses[0]}, mean "
+            f"of the last 10 {tail}")
+    reference = plain_linear_model(features, lr)
     _, plain_losses, plain_steps, _ = train_epoch(built, reference,
                                                   train=True)
     built.close()
     require(plain_steps == steps and all(
         fn.launches == launches[k] for k, fn in wrappers.items()),
-        "dense_train: the plain epoch launched a kernel or took other steps")
+        f"{fmt}_train: the plain epoch launched a kernel or took other "
+        "steps")
     w_err = (model.w - reference.w).detach().abs().max().item()
     for what, x, y in (("w", model.w.detach(), reference.w.detach()),
                        ("b", model.b.detach(), reference.b.detach())):
         require(torch.allclose(x, y, rtol=DENSE_EPOCH_RTOL,
                                atol=DENSE_EPOCH_ATOL),
-                f"dense_train: after the epoch, {what} through the kernels vs "
-                f"the plain versions: max |err| "
+                f"{fmt}_train: after the epoch, {what} through the kernels "
+                f"vs the plain versions: max |err| "
                 f"{(x - y).abs().max().item()}")
     stats = {"bytes": size, "steps": steps, "epoch_s": secs,
              "gbps": size / secs / 1e9, "steps_per_s": steps / secs,
              "loss_first": losses[0], "loss_last10": tail, "w_err": w_err,
              "plain_loss_last": plain_losses[-1]}
-    log(f"dense_train: SparseLinearModel({DENSE_FEATURES}) at learning rate "
-        f"{lr}, {steps} steps over {size} bytes of dense records: "
+    log(f"{fmt}_train: SparseLinearModel({features}) at learning rate "
+        f"{lr}, {steps} steps over {size} bytes of {fmt}: "
         f"{stats['gbps']:.3f} GB/s, {stats['steps_per_s']:.2f} steps/s; loss "
         f"{losses[0]:.4f} -> {tail:.4f} (mean of the last 10); the first "
         f"step equal to the plain versions' (rtol {STEP_RTOL}, atol "
@@ -5081,6 +5386,274 @@ def dense_train(path, lr):
         f"plain versions' epoch (rtol {DENSE_EPOCH_RTOL}, atol "
         f"{DENSE_EPOCH_ATOL}); launches {launches}")
     return launches, stats
+
+
+# --------------------------------------------------------------- phase 10b
+
+def write_format_corpora(work):
+    """The format path's corpora but the dense csv (written with the run's
+    first corpora, for its kernel checks): the sparse csv (SPARSE_CSV_MB,
+    CSV_ZERO_FRAC of the cells exactly 0), config 5's table (PARQUET_MB in
+    PARQUET_GROUPS row groups) and config 17's (DECODE_MB, row groups of
+    DECODE_GROUP_ROWS) through write_parquet, and config 6's indexed
+    RecordIO (INDEXED_MB, ``make_indexed_recordio``) at the name the bench
+    suite reads, so config 6 writes none. Returns ({name: path}, {name:
+    (columns, nulls)} of the two tables)."""
+    from dmlc_tpu_torch import bench_suite
+    paths = {"csv_sparse": os.path.join(work, "higgs_sparse.csv"),
+             "parquet": os.path.join(work, "higgs.parquet"),
+             "decode": os.path.join(work, "decode.parquet"),
+             "indexed": os.path.join(
+                 work, "dmlc_tpu_torch_bench_suite.imagenet.indexed.rec")}
+    secs, tables = {}, {}
+    t0 = time.perf_counter()
+    write_higgs_csv(paths["csv_sparse"], SPARSE_CSV_MB, SEED + 2,
+                    CSV_ZERO_FRAC)
+    secs["csv_sparse"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cols = higgs_table(PARQUET_MB, SEED + 5)
+    rows = len(cols["label"])
+    write_parquet(paths["parquet"], cols, rows // PARQUET_GROUPS)
+    tables["parquet"] = (cols, {})
+    secs["parquet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables["decode"] = decode_table(DECODE_MB, SEED + 17)
+    write_parquet(paths["decode"], tables["decode"][0], DECODE_GROUP_ROWS,
+                  tables["decode"][1])
+    secs["decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench_suite.make_indexed_recordio(paths["indexed"], INDEXED_MB)
+    secs["indexed"] = time.perf_counter() - t0
+    log("format corpora: " + ", ".join(
+        f"{k} {os.path.getsize(p)} bytes in {secs[k]:.1f} s"
+        for k, p in paths.items()))
+    return paths, tables
+
+
+def _padded_hashes(parser, fmt):
+    """The sha256 of each padded batch of ``parser``'s epoch in ``fmt``'s
+    layout; the parser is destroyed after."""
+    hashes = [batch_hash(b) for b in padded_batches(parser, fmt)]
+    parser.destroy()
+    return hashes
+
+
+def csv_parity(path, fmt):
+    """The csv's native padded batches (``fmt``: "csv" or "csv_sparse")
+    against ``pad_single`` over the Python CSVParser's rows, byte for byte,
+    for the first CSV_PARITY_BATCHES batches; then the whole file's padded
+    stream through ``shards=2`` (the gang) equal, batch by batch, to the
+    one-parser stream. Returns the batches of the epoch."""
+    import numpy as np
+    from dmlc_tpu_torch.data.csv_parser import CSVParser
+    from dmlc_tpu_torch.data.padding import pad_single
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.data.rowblock import RowBlockContainer
+    from dmlc_tpu_torch.native import bindings
+    kw = PARSE_KW[fmt]
+    golden = Parser.create(path, 0, 1, format="csv", engine="python",
+                           prefetch=False, chunk_size=4 << 20, **kw)
+    require(isinstance(golden, CSVParser),
+            f"engine='python' gave {type(golden).__name__}")
+    want = CSV_PARITY_BATCHES * CSV_ROW_BUCKET
+    cont = RowBlockContainer(np.uint32)
+    for block in golden:
+        cont.push_block(block)
+        if cont.size >= want:
+            break
+    rows = cont.get_block()
+    native = Parser.create(path, 0, 1, format="csv", engine="native", **kw)
+    require(isinstance(native, bindings.NativeCSVParser),
+            f"engine='native' gave {type(native).__name__}")
+    one = _padded_hashes(native, fmt)
+    for i in range(CSV_PARITY_BATCHES):
+        gold = pad_single(rows.slice(i * CSV_ROW_BUCKET,
+                                     (i + 1) * CSV_ROW_BUCKET),
+                          CSV_ROW_BUCKET, CSV_NNZ_BUCKET)
+        require(one[i] == batch_hash(gold),
+                f"csv_parity {fmt}: native padded batch {i} differs from "
+                "pad_single over the Python CSVParser")
+    sharded = Parser.create(path, 0, 1, format="csv", engine="native",
+                            shards=2, **kw)
+    require(isinstance(sharded, bindings.NativeShardedTextParser),
+            f"shards=2 gave {type(sharded).__name__}")
+    two = _padded_hashes(sharded, fmt)
+    require(two == one, f"csv_parity {fmt}: the shards=2 stream "
+            f"({len(two)} batches) differs from the one-parser stream "
+            f"({len(one)})")
+    log(f"csv_parity {fmt}: the first {CSV_PARITY_BATCHES} native padded "
+        "batches byte-identical to pad_single over the Python CSVParser; "
+        f"the shards=2 stream's {len(two)} batches equal the one-parser "
+        "stream's")
+    return len(one)
+
+
+def _block_bits(block, columns, nulls, pos):
+    """Whether ``block`` (rows from ``pos``) holds the table's label and
+    feature columns bit for bit, NaN (0x7fc00000, the engine's and
+    numpy's) at the nulls, in the dense layout."""
+    import numpy as np
+    n = block.size
+    feats = [c for c in columns if c != "label"]
+    want = np.stack([columns[c][pos:pos + n] for c in feats], axis=1)
+    for j, c in enumerate(feats):
+        if c in nulls:
+            want[nulls[c][pos:pos + n], j] = np.float32("nan")
+    return (np.array_equal(np.asarray(block.offset),
+                           np.arange(n + 1) * len(feats))
+            and np.array_equal(np.asarray(block.index),
+                               np.tile(np.arange(len(feats)), n))
+            and np.array_equal(np.asarray(block.label).view(np.uint32),
+                               columns["label"][pos:pos + n].view(np.uint32))
+            and np.array_equal(np.asarray(block.value).view(np.uint32),
+                               want.reshape(-1).view(np.uint32)))
+
+
+def parquet_decode(path, table, shards=(1, 2, 4)):
+    """The Parquet file through ``format="parquet_native"``,
+    ``engine="native"``, ``label_column="label"``, two epochs of blocks at
+    each of ``shards``: in the first every block bit for bit the columns
+    write_parquet wrote (_block_bits), every row once; the second timed,
+    the blocks only counted; ``outstanding() == 0`` after each epoch.
+    Returns GB/s (the file over the timed epoch's wall) by shards."""
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.native import bindings
+    columns, nulls = table
+    size = os.path.getsize(path)
+    rows = len(columns["label"])
+    gbps = {}
+    for n in shards:
+        kw = {"shards": n} if n > 1 else {}
+        parser = Parser.create(path, 0, 1, format="parquet_native",
+                               engine="native", label_column="label", **kw)
+        require(isinstance(parser, (bindings.NativeParquetParser,
+                                    bindings.NativeShardedTextParser)),
+                f"engine='native' gave {type(parser).__name__}")
+        pos, bad = 0, []
+        for block in parser:
+            if not _block_bits(block, columns, nulls, pos):
+                bad.append(pos)
+            pos += block.size
+        leases = [parser.outstanding()]
+        timed = 0
+        t0 = time.perf_counter()
+        for block in parser:
+            timed += block.size
+        secs = time.perf_counter() - t0
+        leases.append(parser.outstanding())
+        parser.destroy()
+        require(not bad and pos == rows == timed,
+                f"parquet_decode {os.path.basename(path)} shards={n}: "
+                f"{pos} and {timed} rows of {rows}, blocks from rows "
+                f"{bad[:5]} differ from the columns written")
+        require(leases == [0, 0], f"parquet_decode shards={n}: {leases} "
+                "leases outstanding after the epochs")
+        gbps[n] = size / secs / 1e9
+    log(f"parquet_decode {os.path.basename(path)}: {rows} rows, every block "
+        "bit for bit the columns written (NaN at the nulls), outstanding() "
+        "0 after each epoch; GB/s by shards " + ", ".join(
+            f"{n}: {g:.3f}" for n, g in gbps.items()))
+    return gbps
+
+
+def _records_digest(digests):
+    """Config 6's digest of records whose sha256 digests are ``digests``,
+    in order: the sha256 over them, 16 hex."""
+    return hashlib.sha256(b"".join(digests)).hexdigest()[:16]
+
+
+def indexed_leg(path):
+    """Config 6's access pattern on the host: the indexed RecordIO through
+    ``IndexedRecordIOSplit(shuffle=True, seed=11, batch_size=64)`` and
+    ``NativeIndexedRecordIOReader`` with the same arguments, the same
+    records in the same order (config 6's digest); seeds 11 and 12 give
+    two orders, each the unshuffled records as a multiset. GB/s of each
+    epoch's reads (the digests outside the timed reads)."""
+    from dmlc_tpu_torch.io.indexed_recordio_split import IndexedRecordIOSplit
+    from dmlc_tpu_torch.native.bindings import NativeIndexedRecordIOReader
+    size = os.path.getsize(path)
+    plain = IndexedRecordIOSplit(path, 0, 1)
+    multiset = sorted(hashlib.sha256(r).digest()
+                      for r in iter(plain.next_record, None))
+    kw = {"shuffle": True, "batch_size": INDEXED_BATCH}
+    split = IndexedRecordIOSplit(path, 0, 1, seed=INDEXED_SEEDS[0], **kw)
+    t0 = time.perf_counter()
+    py = list(iter(split.next_record, None))
+    py_s = time.perf_counter() - t0
+    py_hash = _records_digest([hashlib.sha256(r).digest() for r in py])
+    orders, native_s = {}, {}
+    for seed in INDEXED_SEEDS:
+        reader = NativeIndexedRecordIOReader(path, 0, 1, seed=seed, **kw)
+        held = []
+        t0 = time.perf_counter()
+        while True:
+            batch = reader.next_batch()
+            if batch is None:
+                break
+            held.append((batch, reader.detach()))
+        native_s[seed] = time.perf_counter() - t0
+        recs = []
+        for (data, starts, ends), lease in held:
+            view = memoryview(data)
+            recs += [view[int(a):int(b)] for a, b in zip(starts, ends)]
+        orders[seed] = [hashlib.sha256(r).digest() for r in recs]
+        digest = _records_digest(orders[seed])
+        for _, lease in held:
+            lease.release()
+        reader.destroy()
+        if seed == INDEXED_SEEDS[0]:
+            require(len(recs) == len(py) and digest == py_hash,
+                    f"indexed_leg: the native reader's {len(recs)} records "
+                    f"({digest}) are not the split's {len(py)} ({py_hash})")
+        require(sorted(orders[seed]) == multiset,
+                f"indexed_leg: seed {seed}'s records are not the file's")
+    a, b = (orders[s] for s in INDEXED_SEEDS)
+    require(a != b, f"indexed_leg: seeds {INDEXED_SEEDS} gave one order")
+    stats = {"bytes": size, "records": len(py), "hash": py_hash,
+             "python_gbps": size / py_s / 1e9,
+             "native_gbps": size / native_s[INDEXED_SEEDS[0]] / 1e9}
+    log(f"indexed_leg: {len(py)} records ({size} bytes), the native "
+        f"reader's order and content the split's (digest {py_hash}); seeds "
+        f"{INDEXED_SEEDS} two orders of the same records; "
+        f"python {stats['python_gbps']:.3f} GB/s, native "
+        f"{stats['native_gbps']:.3f} GB/s")
+    return stats
+
+
+def format_path(csv, work):
+    """The format matrix on the card and the host (phase 10b): the
+    HIGGS-shaped csv (dense, and sparse in csv_parity) held to the Python
+    CSVParser and its gang, ``SparseLinearModel(28)`` trained one epoch
+    from it (dense_train: K1, K2, K8 and K9 once a step, the loss
+    falling, one step and the epoch equal to the plain versions'), a
+    parse-only epoch of each csv beside it; config 5's Parquet table
+    decoded bit for bit at 1, 2 and 4 shards and trained on the same way;
+    config 17's table (nulls) decoded bit for bit; config 6's indexed
+    RecordIO (indexed_leg). Returns (the csv epoch's launches, stats)."""
+    paths, tables = write_format_corpora(work)
+    out = {"csv_batches": csv_parity(csv, "csv"),
+           "csv_sparse_batches": csv_parity(paths["csv_sparse"],
+                                            "csv_sparse")}
+    launches, out["csv_train"] = dense_train(csv, HIGGS_LEARNING_RATE, "csv")
+    for name, p, fmt in (("csv", csv, "csv"),
+                         ("csv_sparse", paths["csv_sparse"], "csv_sparse")):
+        built = build_pipeline(p, fmt)
+        secs, _, batches, _ = train_epoch(built, None, train=False)
+        built.close()
+        out[f"{name}_parse_gbps"] = os.path.getsize(p) / secs / 1e9
+    log(f"format_path csv: training epoch {out['csv_train']['gbps']:.3f} "
+        f"GB/s, {out['csv_train']['steps_per_s']:.2f} steps/s; parse-only "
+        f"epochs through the Pipeline {out['csv_parse_gbps']:.3f} GB/s "
+        f"(dense), {out['csv_sparse_parse_gbps']:.3f} GB/s (sparse)")
+    out["parquet_gbps"] = parquet_decode(paths["parquet"], tables["parquet"])
+    _, out["parquet_train"] = dense_train(paths["parquet"],
+                                          HIGGS_LEARNING_RATE, "parquet")
+    out["decode_gbps"] = parquet_decode(paths["decode"], tables["decode"],
+                                        shards=(1,))
+    out["indexed"] = indexed_leg(paths["indexed"])
+    for name in ("csv_sparse", "parquet", "decode"):
+        os.unlink(paths[name])
+    return launches, out
 
 
 # --------------------------------------------------------------- phase 12
@@ -5722,12 +6295,18 @@ def main() -> None:
         train_size = write_dense_corpus(train)
         log(f"dense training corpus: {train_size} bytes in "
             f"{time.perf_counter() - t0:.1f} s")
+        csv = os.path.join(work, "higgs.csv")
+        t0 = time.perf_counter()
+        csv_size = write_higgs_csv(csv, CSV_MB, SEED + 1)
+        log(f"HIGGS-shaped csv: {csv_size} bytes in "
+            f"{time.perf_counter() - t0:.1f} s")
         first = first_batch(path)
         rows = check_kernels(first) + check_step_kernels(first)
         # the dense path's kernels here, among the run's first traces: a
         # trace taken long after the one before it (in one run, after the
         # RecordIO corpora's writes) came back with no device activity
         dense_rows = check_dense_kernels(first_batch(train, "dense"))
+        csv_rows = check_dense_kernels(first_batch(csv, "csv"), "csv")
         launches, stats = main_path(path, size, LEARNING_RATE, first)
         sharded_rows = [r for r in rows
                         if r["name"] in ("logistic_sums", "logistic_grad")]
@@ -5801,12 +6380,19 @@ def main() -> None:
         report_kernels(dense_rows, launches, stats["dense_train"]["steps"])
         rows += dense_rows
         os.unlink(train)
+        # the format matrix: csv, Parquet and indexed RecordIO
+        launches, stats["format"] = format_path(csv, work)
+        report_kernels(csv_rows, launches,
+                       stats["format"]["csv_train"]["steps"])
+        rows += csv_rows
+        os.unlink(csv)
         # the bench configs last, after every traced phase: in a run with
         # them before the factor path (config 7's two worker processes on
         # the card among them), the factor kernels' profiler traces came
         # back with no device activity
         stats["bench"] = bench_twins(linear, work,
-                                     stats["cuda_ingest"]["records_hash"])
+                                     stats["cuda_ingest"]["records_hash"],
+                                     stats["format"]["indexed"]["hash"])
         # the resilience plane last: its gang's worker processes and its
         # chaos-armed bench config come after every traced phase
         stats["chaos"] = chaos_path(linear, linear_size, LEARNING_RATE,

@@ -6,11 +6,14 @@ reference the tests hold this one to. This package imports torch and
 numpy, never jax, and nothing of ``dmlc_tpu``.
 
 Ported so far: local-file ``InputSplit`` (text and RecordIO; stdin,
-``#cache`` URIs, the shuffled and threaded splits), the
-libsvm, libfm, dense-record and image-record parsers (Python golden and
-native C++ engine, with ABI-5 padded batch assembly that carries libfm's
-``field`` column, and the sharded single-input parse), the RecordIO
-codec and native record reader, the ``cuda://`` scheme (streams that
+``#cache`` URIs, the shuffled and threaded splits, and the indexed
+RecordIO split with its seeded batch shuffle and native reader), the
+libsvm, csv, libfm, dense-record, image-record and Parquet parsers
+(Python golden and native C++ engine, with ABI-5 padded batch assembly
+that carries libfm's ``field`` column, and the sharded single-input
+parse; the Parquet golden needs pyarrow, the engine's page decoder
+does not), the RecordIO codec and native record reader, the ``cuda://``
+scheme (streams that
 stage bytes and RecordIO record batches straight into device memory),
 bucket padding, the pinned async
 host→device iterator, the pipeline graph (``dmlc_tpu_torch.pipeline``:
@@ -34,11 +37,13 @@ pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 from dmlc_tpu_torch.utils.logging import DMLCError
 from dmlc_tpu_torch.data.parser import Parser
 from dmlc_tpu_torch.data import libsvm_parser as _libsvm  # registers "libsvm"
+from dmlc_tpu_torch.data import csv_parser as _csv  # registers "csv"
 from dmlc_tpu_torch.data import libfm_parser as _libfm  # registers "libfm"
 from dmlc_tpu_torch.data import dense_record_parser as _dense  # "recordio_dense"
 from dmlc_tpu_torch.data import image_record_parser as _image  # "recordio_image"
+from dmlc_tpu_torch.data import parquet_parser as _parquet  # "parquet", "parquet_native"
 from dmlc_tpu_torch.io import cuda_fs as _cuda_fs  # registers cuda://
 
 __all__ = ["DMLCError", "Parser"]
 
-del _libsvm, _libfm, _dense, _image, _cuda_fs
+del _libsvm, _csv, _libfm, _dense, _image, _parquet, _cuda_fs

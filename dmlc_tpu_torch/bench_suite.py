@@ -5,12 +5,20 @@ whose planes are ported; each emits one JSON line with the reference's
 keys, ``"platform"`` naming the device the numbers came from (``gpu``
 on the card) where the reference reports one:
 
+  1. libsvm  — LibSVMParser → RowBlockIter on an a1a-shaped single file
+  2. csv     — CSVParser dense RowBlocks on a HIGGS-shaped file (label +
+               28 columns), and its sparse mode on a variant with 30%
+               exact zeros
   3. recordio — the RecordIO split over 4 parts of an ImageNet-.rec-
                shaped corpus (60-140 KB binary records), through the
                native record reader when the engine is built
   4. prefetch — four parts parsed on concurrent threads, each copying
                its blocks to the device through its own pinned staging
                pool, 4 copies in flight a part (the multi-host shape)
+  5. parquet — Parquet columnar ingest through the pyarrow golden
+  6. indexed_shuffled — the native shuffled indexed-RecordIO reader vs
+               the Python split (seed 11, batches of 64 records),
+               digest-checked
   7. multiprocess — a real 2-process gang (``launch_local``) streaming
                its parts through ShardedRowBlockIter for 3 epochs
                (``bench_mp_worker.py``): epoch 1 parses, epochs 2-3
@@ -23,6 +31,11 @@ on the card) where the reference reports one:
                larger-than-RAM training shape)
  14. recio_native — the native dense-RecordIO decode (ABI 6) vs the
                Python golden vs the sharded gang, sha256-parity pinned
+ 17. parquet_native — the native Parquet page decode vs the pyarrow
+               golden on a decode-bound corpus (20 null-bearing f32
+               columns, UNCOMPRESSED V1 pages), sha256 stream parity at
+               1/2/4 shards, interleaved and gauge-tagged; native >= 3x
+               the golden and outstanding() == 0 checked
  18. image_record — the native image-payload decode (ABI 8): the
                config-3 scenario's decoded batches (raw uniform HWC u8
                -> padded f32), python / native / sharded x2
@@ -35,22 +48,29 @@ grammar) for the whole run: each config's JSON gets a ``chaos`` section
 that config), and a config that fails emits an ``error`` line while the
 next config still runs.
 Configs 4, 7, 8 and 10 copy to the card (config 4 as the reference's
-``--device`` run does; its parse-only form is not ported); configs 3,
-14 and 18 are the reference's host-side measurements (read and decode,
-no copy), as there.
+``--device`` run does; its parse-only form is not ported); configs 1,
+2, 3, 5, 6, 14, 17 and 18 are the reference's host-side measurements
+(read, parse and decode, no copy), as there. Configs 5 and 17 write
+their corpora with pyarrow (``make_parquet``,
+``make_parquet_decode_bound``), so they run only where pyarrow is
+installed: not on the card's machine, which has none.
 
 Trimmed from the reference: every other config (their planes are not
 ported), the warm-up pass, ``--trace`` and the live telemetry opt-ins. Data files go
 under ``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a config is
-given a ``work`` directory. Configs 3, 14 and 18 write the reference's
-RecordIO corpora (``make_recordio``, ``make_dense_recordio``,
-``make_image_recordio``: the same bytes from the same seed). Every other
-config reads one corpus file, the reference's criteo shape from seed 7 (the file its configs 4, 9 and 12
+given a ``work`` directory. Configs 1, 2, 3, 5, 6, 14, 17 and 18 write
+the reference's corpora (``make_libsvm`` at its a1a defaults,
+``make_csv``, ``make_recordio``, ``make_parquet``,
+``make_indexed_recordio``, ``make_dense_recordio``,
+``make_parquet_decode_bound``, ``make_image_recordio``: the same bytes
+from the same seed; pyarrow's files the same tables). Configs 4, 7, 8
+and 10 read one corpus file, the reference's criteo shape from seed 7 (the file its configs 4, 9 and 12
 share; it writes the same bytes under more names for 7, 8 and 10):
 ``make_libsvm`` draws each row's indices by a permutation of 10^6, so
 writing it takes minutes whatever ``mb`` is, and a second copy would
-double that. Configs 8, 10, 14 and 18 take the reference's ``gauge_fn``
-(e.g. ``bench_transfer.memcpy_gauge``, the default of 14 and 18), which
+double that. Configs 8, 10, 14, 17 and 18 take the reference's
+``gauge_fn`` (e.g. ``bench_transfer.memcpy_gauge``, the default of 14,
+17 and 18), which
 tags each epoch with the host's memcpy rate just before it.
 """
 
@@ -69,11 +89,14 @@ import torch
 
 from dmlc_tpu_torch.utils.logging import check
 
-__all__ = ["make_libsvm", "make_recordio", "make_dense_recordio",
-           "make_image_recordio", "bench_recordio", "bench_prefetch",
+__all__ = ["make_libsvm", "make_csv", "make_recordio", "make_dense_recordio",
+           "make_indexed_recordio", "make_parquet",
+           "make_parquet_decode_bound", "make_image_recordio",
+           "bench_libsvm", "bench_csv", "bench_recordio", "bench_prefetch",
+           "bench_parquet", "bench_indexed_shuffled",
            "bench_multiprocess_ingest", "bench_page_replay",
            "bench_spill_replay", "bench_recio_native",
-           "bench_image_record", "CONFIGS", "main"]
+           "bench_parquet_native", "bench_image_record", "CONFIGS", "main"]
 
 
 def _prefix(work: Optional[str]) -> str:
@@ -134,6 +157,27 @@ def make_libsvm(path: str, mb: int, seed: int = 0,
     return os.path.getsize(path)
 
 
+def make_csv(path: str, mb: int, seed: int = 0,
+             zero_frac: float = 0.0) -> int:
+    """HIGGS-shaped: label + 28 float columns. zero_frac > 0 plants
+    exact-zero cells (the sparse-mode corpus; BASELINE config 2 is
+    "dense + sparse")."""
+    if os.path.exists(path) and os.path.getsize(path) >= (mb << 20) * 3 // 4:
+        return os.path.getsize(path)
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(2000):
+        vals = rng.rand(28)
+        if zero_frac:
+            vals[rng.rand(28) < zero_frac] = 0.0
+        rows.append(f"{i % 2}," + ",".join(f"{v:.6f}" for v in vals))
+    block = ("\n".join(rows) + "\n").encode()
+    with open(path, "wb") as f:
+        for _ in range(max(1, (mb << 20) // len(block))):
+            f.write(block)
+    return os.path.getsize(path)
+
+
 def make_recordio(prefix: str, mb: int, nparts: int = 4,
                   seed: int = 0) -> List[str]:
     """ImageNet-.rec-shaped: multi-part files of ~100KB binary records."""
@@ -183,6 +227,67 @@ def make_dense_recordio(path: str, mb: int, seed: int = 0,
             w.write(float(i % 7) - 3.0, vals)
             written += 16 + 4 * n
             i += 1
+    return os.path.getsize(path)
+
+
+def make_indexed_recordio(path: str, mb: int, seed: int = 0) -> int:
+    """ImageNet-.rec-shaped single file + .idx (key\\toffset) index."""
+    from dmlc_tpu_torch.io.recordio import IndexedRecordIOWriter
+    from dmlc_tpu_torch.io.stream import create_stream
+    if (os.path.exists(path) and os.path.exists(path + ".idx")
+            and os.path.getsize(path) >= (mb << 20) * 3 // 4):
+        return os.path.getsize(path)
+    rng = np.random.RandomState(seed)
+    with create_stream(path, "w") as s, \
+            create_stream(path + ".idx", "w") as ix:
+        w = IndexedRecordIOWriter(s, ix)
+        written = 0
+        while written < (mb << 20):
+            rec = rng.bytes(rng.randint(60_000, 140_000))
+            w.write_record(rec)
+            written += len(rec) + 8
+    return os.path.getsize(path)
+
+
+def make_parquet(path: str, mb: int, seed: int = 0) -> int:
+    """Config-5 corpus: label + 28 float32 columns in 16 row groups,
+    written by pyarrow (snappy pages, pyarrow's default)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    if os.path.exists(path) and os.path.getsize(path) >= (mb << 20) // 4:
+        return os.path.getsize(path)
+    rng = np.random.RandomState(seed)
+    nrows = (mb << 20) // 120  # ~30 float32 cols
+    cols = {"label": pa.array(rng.randint(0, 2, nrows).astype(np.float32))}
+    for c in range(28):
+        cols[f"f{c}"] = pa.array(rng.rand(nrows).astype(np.float32))
+    pq.write_table(pa.table(cols), path, row_group_size=max(1, nrows // 16))
+    return os.path.getsize(path)
+
+
+def make_parquet_decode_bound(path: str, mb: int, seed: int = 0) -> int:
+    """Config-17 corpus — the BASELINE config-5 DECODE-bound shape:
+    null-bearing float32 feature columns (real tabular data carries
+    nulls, and nulls knock the pyarrow golden off its zero-copy fast
+    path onto per-column to_numpy + np.stack) in moderate row groups,
+    UNCOMPRESSED V1 PLAIN pages so the measured wall is pure DECODE on
+    both contenders, never zlib."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    if os.path.exists(path) and os.path.getsize(path) >= (mb << 20) // 2:
+        return os.path.getsize(path)
+    rng = np.random.RandomState(seed)
+    ncol = 20
+    nrows = (mb << 20) // (ncol * 4 + 8)
+    cols = {"label": pa.array(rng.rand(nrows).astype(np.float32))}
+    for c in range(ncol):
+        vals = rng.rand(nrows).astype(np.float64)
+        mask = rng.rand(nrows) < 0.10
+        arr = pa.array(vals, type=pa.float32(),
+                       mask=mask)  # 10% nulls, f32 storage
+        cols[f"f{c}"] = arr
+    pq.write_table(pa.table(cols), path, row_group_size=4000,
+                   compression="NONE", use_dictionary=False)
     return os.path.getsize(path)
 
 
@@ -759,13 +864,307 @@ def bench_image_record(mb: int, gauge_fn=None,
     return out
 
 
+# ------------------------------------------------- the format matrix
+
+def bench_libsvm(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 1: LibSVMParser -> RowBlockIter on an a1a-shaped single
+    file (the blocks drained into a materialized container, as
+    BasicRowIter does)."""
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.data.rowblock import RowBlockContainer
+    path = f"{_prefix(work)}.a1a.libsvm"
+    size = make_libsvm(path, mb)
+    t0 = time.perf_counter()
+    p = Parser.create(path, 0, 1, format="libsvm")
+    c = RowBlockContainer(np.uint32)
+    can_detach = hasattr(p, "detach")
+    leases = []
+    while p.next():
+        # hold the native leases across the drain: push_block then keeps
+        # zero-copy views and get_block's single concatenation is the one
+        # materializing copy (same copy count as the reference's C++
+        # Push(RowBlock) path)
+        c.push_block(p.value(), copy=not can_detach)
+        if can_detach:
+            leases.append(p.detach())
+    block = c.get_block()
+    for lease in leases:
+        lease.release()
+    rows, nnz = block.size, block.nnz
+    dt = time.perf_counter() - t0
+    line = _stage_line(p, size)
+    if line:
+        _log(f"  {line}")
+    if hasattr(p, "destroy"):
+        p.destroy()
+    return {"config": "libsvm_a1a", "gbps": size / dt / 1e9,
+            "bytes": size, "rows": rows, "nnz": nnz,
+            "hash": _content_hash(path, "libsvm")}
+
+
+def bench_csv(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 2: CSVParser dense RowBlocks on a HIGGS-shaped file (label
+    + 28 columns), then the sparse mode (zero cells dropped at parse) on
+    a variant with 30% exact zeros; the dense stream's content hash."""
+    from dmlc_tpu_torch.data.parser import Parser
+    path = f"{_prefix(work)}.higgs.csv"
+    size = make_csv(path, mb)
+    t0 = time.perf_counter()
+    p = Parser.create(path, 0, 1, format="csv", label_column=0)
+    rows = nnz = 0
+    while p.next():
+        b = p.value()
+        rows += b.size
+        nnz += b.nnz
+    dt = time.perf_counter() - t0
+    line = _stage_line(p, size)
+    if line:
+        _log(f"  {line}")
+    if hasattr(p, "destroy"):
+        p.destroy()
+    spath = f"{_prefix(work)}.higgs_sparse.csv"
+    ssize = make_csv(spath, mb, seed=1, zero_frac=0.3)
+    t0 = time.perf_counter()
+    sp = Parser.create(spath, 0, 1, format="csv", label_column=0,
+                       sparse=True)
+    srows = snnz = 0
+    while sp.next():
+        b = sp.value()
+        srows += b.size
+        snnz += b.nnz
+    sdt = time.perf_counter() - t0
+    if hasattr(sp, "destroy"):
+        sp.destroy()
+    return {"config": "csv_higgs", "gbps": size / dt / 1e9,
+            "bytes": size, "rows": rows, "nnz": nnz,
+            "sparse_gbps": round(ssize / sdt / 1e9, 4),
+            "sparse_nnz_frac": round(snnz / max(srows * 28, 1), 3),
+            "hash": _content_hash(path, "csv", label_column=0)}
+
+
+def bench_parquet(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 5: Parquet columnar ingest through the pyarrow golden
+    (``format="parquet"``). Its corpus is written by pyarrow too, so it
+    runs only where pyarrow is installed (not on the card's machine)."""
+    from dmlc_tpu_torch.data.parser import Parser
+    path = f"{_prefix(work)}.table.parquet"
+    size = make_parquet(path, mb)
+    t0 = time.perf_counter()
+    p = Parser.create(path, 0, 1, format="parquet", label_column="label")
+    rows = nnz = 0
+    while p.next():
+        b = p.value()
+        rows += b.size
+        nnz += b.nnz
+    dt = time.perf_counter() - t0
+    if hasattr(p, "destroy"):
+        p.destroy()
+    return {"config": "parquet_columnar", "gbps": size / dt / 1e9,
+            "bytes": size, "rows": rows, "nnz": nnz,
+            "hash": _content_hash(path, "parquet", label_column="label")}
+
+
+def bench_indexed_shuffled(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 6: shuffled indexed-RecordIO reads — the ImageNet .rec
+    TRAINING access pattern (reference: src/io/indexed_recordio_split.cc):
+    seeded per-epoch batch shuffle (seed 11, 64 records a batch),
+    index-driven seeks. The native reader vs the Python split, their
+    record order and content equal by digest (sha256 over each record's
+    sha256, computed outside the timed reads)."""
+    import hashlib
+
+    path = f"{_prefix(work)}.imagenet.indexed.rec"
+    size = make_indexed_recordio(path, mb)
+    from dmlc_tpu_torch.native import native_available
+
+    def py_epoch(seed):
+        from dmlc_tpu_torch.io.indexed_recordio_split import (
+            IndexedRecordIOSplit)
+        sp = IndexedRecordIOSplit(path, 0, 1, shuffle=True, seed=seed,
+                                  batch_size=64)
+        recs = []
+        t0 = time.perf_counter()
+        while True:
+            rec = sp.next_record()
+            if rec is None:
+                break
+            recs.append(rec)
+        dt = time.perf_counter() - t0
+        digest = hashlib.sha256()
+        for rec in recs:
+            digest.update(hashlib.sha256(rec).digest())
+        return dt, len(recs), digest.hexdigest()[:16]
+
+    def native_epoch(seed):
+        from dmlc_tpu_torch.native.bindings import NativeIndexedRecordIOReader
+        r = NativeIndexedRecordIOReader(path, 0, 1, shuffle=True,
+                                        seed=seed, batch_size=64)
+        digest = hashlib.sha256()
+        nrec = 0
+        t0 = time.perf_counter()
+        batches = []
+        while True:
+            batch = r.next_batch()
+            if batch is None:
+                break
+            data, starts, ends = batch
+            nrec += len(starts)
+            batches.append((data, starts, ends, r.detach()))
+        dt = time.perf_counter() - t0
+        for data, starts, ends, lease in batches:
+            view = memoryview(data)
+            for i in range(len(starts)):
+                digest.update(hashlib.sha256(
+                    view[int(starts[i]):int(ends[i])]).digest())
+            if lease is not None:
+                lease.release()
+        r.destroy()
+        return dt, nrec, digest.hexdigest()[:16]
+
+    py_dt, py_n, py_h = py_epoch(11)
+    if not native_available():
+        return {"config": "indexed_recordio_shuffled", "engine": "python",
+                "gbps": size / py_dt / 1e9, "bytes": size,
+                "records": py_n, "hash": py_h}
+    nat_dt, nat_n, nat_h = native_epoch(11)
+    check((py_n, py_h) == (nat_n, nat_h),
+          f"order/content mismatch: py={py_n}/{py_h} native={nat_n}/{nat_h}")
+    return {"config": "indexed_recordio_shuffled", "engine": "native",
+            "gbps": size / nat_dt / 1e9, "bytes": size, "records": nat_n,
+            "python_gbps": round(size / py_dt / 1e9, 4),
+            "speedup_vs_python": round(py_dt / nat_dt, 2),
+            "hash": nat_h}
+
+
+# Config 17's acceptance: the native page decode at least this many times
+# the pyarrow golden's GB/s on its decode-bound corpus.
+PARQUET_NATIVE_MIN_SPEEDUP = 3.0
+
+
+def bench_parquet_native(mb: int, gauge_fn=None,
+                         work: Optional[str] = None) -> Dict:
+    """Config 17: native Parquet PAGE decode vs the pyarrow golden on a
+    decode-bound corpus (null-bearing f32 columns, UNCOMPRESSED V1 PLAIN
+    pages — see make_parquet_decode_bound) through
+    ``format="parquet_native"`` four ways — engine=python (the pyarrow
+    golden), engine=native, and native with shards=2 and shards=4
+    (row-group-aligned byte ranges) — every contender's 3 epochs
+    INTERLEAVED, each tagged by ``gauge_fn`` (default
+    ``bench_transfer.memcpy_gauge``). Checks that all four streams are
+    sha256-identical, ``outstanding()`` == 0 after the native epochs,
+    and native >= PARQUET_NATIVE_MIN_SPEEDUP x the golden. The corpus is
+    written by
+    pyarrow, so it runs only where pyarrow is installed (not on the card's
+    machine)."""
+    import hashlib
+
+    from dmlc_tpu_torch.data.parser import Parser
+
+    if gauge_fn is None:
+        from dmlc_tpu_torch.bench_transfer import memcpy_gauge
+        gauge_fn = memcpy_gauge
+    path = f"{_prefix(work)}.decode.parquet"
+    size = make_parquet_decode_bound(path, mb, seed=17)
+
+    def build(engine, shards=None):
+        kw = {"shards": shards} if shards else {}
+        return Parser.create(path, 0, 1, format="parquet_native",
+                             engine=engine, label_column="label", **kw)
+
+    def measure(parser, state):
+        state.setdefault("gauges", []).append(round(gauge_fn(), 2))
+        t0 = time.perf_counter()
+        parser.before_first()
+        rows = 0
+        while parser.next():
+            rows += parser.value().size
+        state.setdefault("walls", []).append(time.perf_counter() - t0)
+        state["rows"] = rows
+        if hasattr(parser, "outstanding"):
+            state["outstanding"] = int(parser.outstanding())
+
+    def stream_hash(parser):
+        h = hashlib.sha256()
+        parser.before_first()
+        while parser.next():
+            b = parser.value()
+            h.update(np.diff(np.asarray(b.offset))
+                     .astype("<i8").tobytes())
+            h.update(np.ascontiguousarray(b.label).tobytes())
+            h.update(np.ascontiguousarray(b.index)
+                     .astype("<u4").tobytes())
+            h.update(np.ascontiguousarray(b.value).tobytes())
+        return h.hexdigest()
+
+    def finish(parser, state):
+        out = {"gbps": round(size / min(state["walls"]) / 1e9, 4),
+               "epoch_walls": [round(w, 3) for w in state["walls"]],
+               "epoch_gauges": state["gauges"],
+               "rows": state["rows"],
+               "outstanding_after_epoch": state.get("outstanding"),
+               "hash": stream_hash(parser)}
+        if hasattr(parser, "destroy"):
+            parser.destroy()
+        return out
+
+    from dmlc_tpu_torch.native import native_available
+    have_native = native_available()
+    contenders = {"python": build("python")}
+    if have_native:
+        contenders.update({"native": build("native"),
+                           "sharded2": build("native", shards=2),
+                           "sharded4": build("native", shards=4)})
+    states: Dict[str, Dict] = {k: {} for k in contenders}
+    for _ in range(3):  # interleaved: one credit climate for all
+        for k, p in contenders.items():
+            measure(p, states[k])
+    results = {k: finish(p, states[k]) for k, p in contenders.items()}
+    py = results["python"]
+    out = {"config": "parquet_native", "bytes": size,
+           "decode_path_golden": "pyarrow",
+           "python": py, "gbps": py["gbps"], "hash": py["hash"],
+           "epoch_gauges": py["epoch_gauges"]}
+    if not have_native:
+        out.update({"native": None, "sharded2": None, "sharded4": None,
+                    "speedup_native_vs_pyarrow": None})
+        return out
+    nat = results["native"]
+    for name in ("native", "sharded2", "sharded4"):
+        r = results[name]
+        check(r["hash"] == py["hash"],
+              f"{name} parquet stream diverged from the pyarrow golden")
+        check(r["outstanding_after_epoch"] == 0,
+              f"{name}: {r['outstanding_after_epoch']} leases leaked")
+    speedup = nat["gbps"] / py["gbps"]
+    check(speedup >= PARQUET_NATIVE_MIN_SPEEDUP,
+          f"native page decode {nat['gbps']} GB/s is only "
+          f"{speedup:.2f}x the pyarrow golden {py['gbps']} GB/s "
+          f"(acceptance: >= {PARQUET_NATIVE_MIN_SPEEDUP}x on the "
+          "decode-bound corpus)")
+    out.update({
+        "native": nat, "sharded2": results["sharded2"],
+        "sharded4": results["sharded4"], "gbps": nat["gbps"],
+        "epoch_gauges": nat["epoch_gauges"],
+        "speedup_native_vs_pyarrow": round(speedup, 3),
+        "speedup_sharded2_vs_native": round(
+            results["sharded2"]["gbps"] / nat["gbps"], 3),
+        "speedup_sharded4_vs_native": round(
+            results["sharded4"]["gbps"] / nat["gbps"], 3)})
+    return out
+
+
 CONFIGS = {
+    1: ("libsvm", lambda mb: bench_libsvm(mb)),
+    2: ("csv", lambda mb: bench_csv(mb)),
     3: ("recordio", lambda mb: bench_recordio(mb)),
     4: ("prefetch", lambda mb: bench_prefetch(mb)),
+    5: ("parquet", lambda mb: bench_parquet(mb)),
+    6: ("indexed_shuffled", lambda mb: bench_indexed_shuffled(mb)),
     7: ("multiprocess", lambda mb: bench_multiprocess_ingest(mb)),
     8: ("page_replay", lambda mb: bench_page_replay(mb)),
     10: ("spill_replay", lambda mb: bench_spill_replay(mb)),
     14: ("recio_native", lambda mb: bench_recio_native(mb)),
+    17: ("parquet_native", lambda mb: bench_parquet_native(mb)),
     18: ("image_record", lambda mb: bench_image_record(mb)),
 }
 

@@ -10,9 +10,9 @@ implementations subclass TextParserBase and provide ``parse_block(records,
 container)``. The native C++ engine (dmlc_tpu_torch.native) slots in at
 Parser.create via engine="native"; engine="auto" prefers native when it
 builds, and both engines share the frozen parse semantics (see
-data/strtonum.py), so blocks are byte-identical. The ``libsvm``, ``libfm``,
-``recordio_dense`` and ``recordio_image`` formats are registered in this
-package so far (``import dmlc_tpu_torch`` registers all four).
+data/strtonum.py), so blocks are byte-identical. ``import dmlc_tpu_torch``
+registers the reference's formats: ``libsvm``, ``csv``, ``libfm``,
+``recordio_dense``, ``recordio_image``, ``parquet`` and ``parquet_native``.
 """
 
 from __future__ import annotations

@@ -30,9 +30,8 @@ Record definitions:
   whole(0) or start(1) — continuation frames are not record starts
   (reference: src/io/recordio_split.cc).
 
-The text and recordio splits, the stdin split (``"-"``) and '#cache'
-URIs (``CachedInputSplit``) are ported; indexed recordio raises a
-DMLCError naming what is missing.
+The text, recordio and indexed-recordio splits, the stdin split (``"-"``)
+and '#cache' URIs (``CachedInputSplit``) are ported.
 """
 
 from __future__ import annotations
@@ -90,14 +89,16 @@ class InputSplit:
 
     @staticmethod
     def create(uri: str, part_index: int, num_parts: int,
-               split_type: str = "text", *,
-               chunk_size: int = _DEFAULT_CHUNK) -> "InputSplit":
+               split_type: str = "text", *, chunk_size: int = _DEFAULT_CHUNK,
+               shuffle: bool = False, seed: int = 0,
+               batch_size: int = 256) -> "InputSplit":
         """Reference: InputSplit::Create (src/io.cc).
 
-        split_type: "text" | "recordio" ("indexed_recordio" is not
-        ported). The URI "-" reads text records from stdin (one part). A
-        '#cachefile' URI suffix wraps the split in a disk cache
-        (reference: CachedInputSplit)."""
+        split_type: "text" | "recordio" | "indexed_recordio". The URI
+        "-" reads text records from stdin (one part). A '#cachefile' URI
+        suffix wraps the split in a disk cache (reference:
+        CachedInputSplit); shuffle, seed and batch_size apply to
+        indexed_recordio (its seeded per-epoch batch shuffle)."""
         check_lt(part_index, num_parts, "part_index must be < num_parts")
         spec = URISpec(uri)
         if spec.uri == "-":
@@ -115,9 +116,11 @@ class InputSplit:
             split = _RecordIOSplit(uri, part_index, num_parts,
                                    chunk_size=chunk_size)
         elif split_type == "indexed_recordio":
-            raise DMLCError("split_type 'indexed_recordio' is not ported to "
-                            "dmlc_tpu_torch yet (it waits for the indexed "
-                            "RecordIO split and its native reader)")
+            from dmlc_tpu_torch.io.indexed_recordio_split import (
+                IndexedRecordIOSplit)
+            split = IndexedRecordIOSplit(
+                uri, part_index, num_parts, shuffle=shuffle, seed=seed,
+                batch_size=batch_size)
         else:
             raise DMLCError(f"unknown split_type {split_type!r}")
         if spec.cache_file:

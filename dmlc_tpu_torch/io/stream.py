@@ -11,7 +11,7 @@ other schemes are not ported yet (see io/filesys.py).
 Reads and opens are the reference's resilience seams (sites
 ``io.stream.read`` and ``io.stream.open``, see :class:`FileStream` and
 :func:`create_stream`). Trimmed from ``dmlc_tpu/io/stream.py``:
-``as_file`` and ``create_seek_stream_for_read``.
+``as_file``.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from dmlc_tpu_torch.resilience.policy import guarded
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["Stream", "SeekStream", "MemoryStream", "FileStream",
-           "create_stream"]
+           "create_stream", "create_seek_stream_for_read"]
 
 
 class Stream:
@@ -257,6 +257,22 @@ def create_stream(uri: str, mode: str = "r",
         # under policy; FileNotFoundError is classified permanent and
         # propagates immediately (the allow_null contract below)
         return guarded("io.stream.open", lambda: fs.open(u, mode))
+    except FileNotFoundError:
+        if allow_null:
+            return None
+        raise
+
+
+def create_seek_stream_for_read(uri: str,
+                                allow_null: bool = False) -> Optional[SeekStream]:
+    """Reference: SeekStream::CreateForRead."""
+    from dmlc_tpu_torch.io.filesys import FileSystem, URI
+    u = URI(uri)
+    fs = FileSystem.get_instance(u, allow_null=allow_null)
+    if fs is None:
+        return None
+    try:
+        return guarded("io.stream.open", lambda: fs.open_for_read(u))
     except FileNotFoundError:
         if allow_null:
             return None

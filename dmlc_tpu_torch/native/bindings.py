@@ -1,6 +1,7 @@
-"""ctypes bindings for the native engine: the libsvm, libfm, dense-record
-and image-record Parser adapters, the sharded single-input parser and the
-RecordIO record reader.
+"""ctypes bindings for the native engine: the libsvm, csv, libfm,
+dense-record, image-record and Parquet Parser adapters, the sharded
+single-input parser, the RecordIO record reader and the indexed-RecordIO
+reader.
 
 The native parser implements the same Parser protocol as the Python
 golden (data/parser.py) with byte-identical output. File listing and URI
@@ -15,8 +16,8 @@ follows ``dmlc_tpu_torch.obs.trace``.
 Each parser and record-reader handle registers its engine counters with
 the obs metrics registry (``native/<format>``, ``native/recordio``)
 until ``destroy()``, as the reference's do. Trimmed from
-``dmlc_tpu/native/bindings.py``: the csv, parquet and indexed-recordio
-adapters, the engine's profiler beacons and the test hooks.
+``dmlc_tpu/native/bindings.py``: the engine's profiler beacons, the
+float-parse probe and the test hooks.
 """
 
 from __future__ import annotations
@@ -37,9 +38,10 @@ from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["load", "BlockLease", "NativeTextParser", "NativeLibSVMParser",
-           "NativeLibFMParser", "NativeDenseRecordParser",
-           "NativeImageRecordParser", "NativeShardedTextParser",
-           "NativeRecordIOReader"]
+           "NativeCSVParser", "NativeLibFMParser", "NativeDenseRecordParser",
+           "NativeImageRecordParser", "NativeParquetParser",
+           "NativeShardedTextParser", "NativeRecordIOReader",
+           "NativeIndexedRecordIOReader", "columns_interleave"]
 
 _lib = None
 
@@ -117,6 +119,9 @@ def load(path: str):
     lib.dtp_block_release.argtypes = [C.c_void_p, C.c_void_p]
     lib.dtp_block_index_range.argtypes = [
         C.c_void_p, C.POINTER(C.c_uint64), C.POINTER(C.c_uint64)]
+    lib.dtp_columns_interleave.argtypes = [
+        C.POINTER(C.c_void_p), C.POINTER(C.c_int32), C.c_int64, C.c_int64,
+        C.POINTER(C.c_float)]
     lib.dtp_parser_stats.argtypes = [C.c_void_p, C.POINTER(C.c_int64)]
     lib.dtp_parser_bytes_read.restype = C.c_int64
     lib.dtp_parser_bytes_read.argtypes = [C.c_void_p]
@@ -140,6 +145,19 @@ def load(path: str):
     lib.dtp_recio_total_size.argtypes = [C.c_void_p]
     lib.dtp_recio_stats.argtypes = [C.c_void_p, C.POINTER(C.c_int64)]
     lib.dtp_recio_destroy.argtypes = [C.c_void_p]
+    lib.dtp_recidx_create.restype = C.c_void_p
+    lib.dtp_recidx_create.argtypes = [
+        C.c_char_p, C.POINTER(C.c_int64), C.POINTER(C.c_int64), C.c_int64]
+    lib.dtp_recidx_read_batch.restype = C.c_int64
+    lib.dtp_recidx_read_batch.argtypes = [
+        C.c_void_p, C.POINTER(C.c_int64), C.c_int64,
+        C.POINTER(C.c_void_p), C.POINTER(C.POINTER(C.c_uint8)),
+        C.POINTER(C.POINTER(C.c_int64)), C.POINTER(C.POINTER(C.c_int64)),
+    ]
+    lib.dtp_recidx_release.argtypes = [C.c_void_p, C.c_void_p]
+    lib.dtp_recidx_bytes_read.restype = C.c_int64
+    lib.dtp_recidx_bytes_read.argtypes = [C.c_void_p]
+    lib.dtp_recidx_destroy.argtypes = [C.c_void_p]
     lib.dtp_trace_set_enabled.argtypes = [C.c_int]
     lib.dtp_trace_enabled.restype = C.c_int
     lib.dtp_now_ns.restype = C.c_int64
@@ -170,6 +188,24 @@ def _local_split_files(uri: str):
         check(os.path.exists(p),
               f"native engine requires local files, got {p!r}")
     return files
+
+
+def columns_interleave(cols) -> np.ndarray:
+    """Interleave contiguous float32/float64 column arrays into one
+    row-major float32 array of shape [nrow * ncol] via the native
+    cache-blocked transpose (the hot half of Parquet/Arrow ingest).
+    Caller guarantees equal lengths, float dtypes, C-contiguity."""
+    lib = _get_lib()
+    ncol = len(cols)
+    nrow = len(cols[0]) if ncol else 0
+    out = np.empty(nrow * ncol, np.float32)
+    ptrs = (C.c_void_p * ncol)(
+        *[c.ctypes.data_as(C.c_void_p).value for c in cols])
+    dts = (C.c_int32 * ncol)(
+        *[0 if c.dtype == np.float32 else 1 for c in cols])
+    lib.dtp_columns_interleave(ptrs, dts, ncol, nrow,
+                               out.ctypes.data_as(C.POINTER(C.c_float)))
+    return out
 
 
 class BlockLease:
@@ -229,6 +265,14 @@ class _RecioLease(BlockLease):
     __slots__ = ()
 
     _release_fn = "dtp_recio_block_release"
+
+
+class _RecidxLease(BlockLease):
+    """Lease over an indexed-recordio batch."""
+
+    __slots__ = ()
+
+    _release_fn = "dtp_recidx_release"
 
 
 def _padded_outparams():
@@ -337,12 +381,14 @@ class NativeTextParser(Parser):
         if cfgerr:
             raise DMLCError(cfgerr)
         self._lib = lib
-        # label/weight column, delimiter, sparse flag and column names
-        # configure the csv/parquet formats, not ported yet: neutral here
         self._handle = lib.dtp_parser_create(
             paths, sizes, len(files), part_index, num_parts,
             self._format.encode(), int(nthreads), int(chunk_size),
-            int(self._indexing_mode), -1, -1, b",", 0, None, None)
+            int(self._indexing_mode), int(self._label_column),
+            int(self._weight_column), self._delimiter.encode()[:1],
+            int(self._sparse),
+            self._label_name.encode() if self._label_name else None,
+            self._weight_name.encode() if self._weight_name else None)
         if not self._handle:
             raise DMLCError(
                 f"native parser create failed: "
@@ -377,8 +423,21 @@ class NativeTextParser(Parser):
         self._prefs = tuple(C.byref(x) for x in self._p)
         self._mode: Optional[str] = None  # "blocks" | "padded" per epoch
 
+    # format knobs; subclasses override
+    _indexing_mode = 0
+    _label_column = -1
+    _weight_column = -1
+    _delimiter = ","
+    _sparse = False
+    _label_name = None   # parquet: columns are addressed by NAME
+    _weight_name = None
+
     def _configure(self, kwargs: Dict[str, Any]) -> Optional[str]:
         self._indexing_mode = int(kwargs.pop("indexing_mode", 0))
+        self._label_column = int(kwargs.pop("label_column", -1))
+        self._weight_column = int(kwargs.pop("weight_column", -1))
+        self._delimiter = str(kwargs.pop("delimiter", ","))
+        self._sparse = bool(kwargs.pop("sparse", False))
         kwargs.pop("engine", None)
         kwargs.pop("prefetch", None)
         kwargs.pop("format", None)
@@ -590,6 +649,15 @@ class NativeLibSVMParser(NativeTextParser):
     _format = "libsvm"
 
 
+class NativeCSVParser(NativeTextParser):
+    """The csv format in the engine: label and weight columns by
+    ordinal, a one-byte delimiter, and ``sparse=True`` dropping zero
+    cells (indices keep the column ordinal), byte-identical to
+    data/csv_parser.py's CSVParser."""
+
+    _format = "csv"
+
+
 class NativeLibFMParser(NativeTextParser):
     _format = "libfm"
 
@@ -640,10 +708,46 @@ class NativeImageRecordParser(NativeTextParser):
         return super()._configure(kwargs)
 
 
-_SHARDED_FORMATS = {"libsvm": NativeLibSVMParser,
+class NativeParquetParser(NativeTextParser):
+    """Parquet columnar-page decode over the native pipeline (ABI 8):
+    one chunk is one ROW GROUP's contiguous byte span, decoded on a
+    pool worker — V1 PLAIN/RLE-dictionary data pages, physical types
+    i32/i64/f32/f64, def-level nulls (NaN), UNCOMPRESSED + GZIP pages.
+    Emission matches the pyarrow golden's dense path byte for byte
+    (data/parquet_parser.py): feature columns in schema order, label/
+    weight by name. Anything outside that matrix — nested or byte-array
+    columns, zstd pages, V2 data pages, ``sparse=True`` —
+    fails create with a NAMED error, so ``engine="auto"`` falls back to
+    the pyarrow golden at build, never wrongly at decode. Row-group-
+    aligned ``shards=N`` byte-range partition means sharded parses
+    concatenate byte-identical to the 1-parser stream (the text/
+    recordio contract), through the same ABI-6 gang padded assembly.
+    The engine reads the file itself: this lane never imports pyarrow."""
+
+    _format = "parquet"
+    decode_path = "native-page"
+
+    def _configure(self, kwargs):
+        self._label_name = str(kwargs.pop("label_column", "") or "")
+        self._weight_name = str(kwargs.pop("weight_column", "") or "")
+        kwargs.pop("split_type", None)
+        if kwargs.pop("sparse", False):
+            return ("parquet: sparse (zero-dropping) decode is not "
+                    "native; engine='auto' falls back to the pyarrow "
+                    "golden")
+        kwargs.pop("engine", None)
+        kwargs.pop("prefetch", None)
+        kwargs.pop("format", None)
+        if kwargs:
+            return f"native parquet: unknown parameter(s) {sorted(kwargs)}"
+        return None
+
+
+_SHARDED_FORMATS = {"libsvm": NativeLibSVMParser, "csv": NativeCSVParser,
                     "libfm": NativeLibFMParser,
                     "recordio_dense": NativeDenseRecordParser,
-                    "recordio_image": NativeImageRecordParser}
+                    "recordio_image": NativeImageRecordParser,
+                    "parquet": NativeParquetParser}
 
 
 class NativeShardedTextParser(Parser):
@@ -964,6 +1068,121 @@ class NativeRecordIOReader:
                 self._lease.release()
                 self._lease = None
             self._lib.dtp_recio_destroy(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        try:
+            self.destroy()
+        except Exception:
+            pass
+
+
+class NativeIndexedRecordIOReader:
+    """Shuffled random-access record reader over the native data plane
+    (reference: src/io/indexed_recordio_split.cc).
+
+    The Python split (io.indexed_recordio_split.IndexedRecordIOSplit)
+    owns index parsing, byte-range partitioning, and the seeded per-epoch
+    batch shuffle — so ordering semantics are IDENTICAL by construction.
+    The native handle maps the data file once; ``next_batch()`` returns
+    one shuffled batch's payloads as zero-copy spans into the mapping
+    (single-frame records; multi-frame batches stitch into a pooled
+    buffer). Same lease contract as NativeRecordIOReader."""
+
+    def __init__(self, uri: str, part_index: int = 0, num_parts: int = 1,
+                 index_uri: Optional[str] = None, shuffle: bool = False,
+                 seed: int = 0, batch_size: int = 256):
+        from dmlc_tpu_torch.io.cuda_fs import local_path
+        from dmlc_tpu_torch.io.indexed_recordio_split import (
+            IndexedRecordIOSplit)
+        lib = _get_lib()
+        self._split = IndexedRecordIOSplit(
+            uri, part_index, num_parts, index_uri=index_uri,
+            shuffle=shuffle, seed=seed, batch_size=batch_size)
+        offs, sizes = self._split.record_windows()
+        self._lib = lib
+        self._handle = lib.dtp_recidx_create(
+            local_path(self._split._data_uri).encode(),
+            offs.ctypes.data_as(C.POINTER(C.c_int64)),
+            sizes.ctypes.data_as(C.POINTER(C.c_int64)), len(offs))
+        if not self._handle:
+            raise DMLCError(f"native indexed recordio create failed: "
+                            f"{lib.dtp_last_error().decode()}")
+        self._lease: Optional[_RecidxLease] = None
+
+    def keys(self):
+        return self._split.keys()
+
+    def next_batch(self):
+        """(payload, starts, ends) numpy views for the next shuffled
+        batch's records, or None at end of epoch. Spans are in batch
+        order (record i = payload[starts[i]:ends[i]])."""
+        order = self._split.next_order_batch()
+        if order is None:
+            return None
+        if self._lease is not None:
+            self._lease.release()
+            self._lease = None
+        block = C.c_void_p()
+        payload = C.POINTER(C.c_uint8)()
+        starts = C.POINTER(C.c_int64)()
+        ends = C.POINTER(C.c_int64)()
+        nrec = self._lib.dtp_recidx_read_batch(
+            self._handle, order.ctypes.data_as(C.POINTER(C.c_int64)),
+            len(order), C.byref(block), C.byref(payload), C.byref(starts),
+            C.byref(ends))
+        if nrec < 0:
+            # engine messages already carry the "indexed recordio:" prefix
+            raise DMLCError(self._lib.dtp_last_error().decode())
+        if nrec == 0:
+            return None
+        self._lease = _RecidxLease(self, block.value)
+        n = int(nrec)
+        s = np.ctypeslib.as_array(starts, shape=(n,))
+        e = np.ctypeslib.as_array(ends, shape=(n,))
+        # shuffled spans are not ascending: the view must cover max(ends)
+        data = np.ctypeslib.as_array(payload, shape=(int(e.max()),))
+        return data, s, e
+
+    def detach(self) -> Optional[_RecidxLease]:
+        lease, self._lease = self._lease, None
+        return lease
+
+    def records(self):
+        """Iterate the CURRENT epoch's remaining records as bytes
+        (copies). Does NOT rewind: with shuffle=True, before_first()
+        advances to the next epoch's permutation (the split's
+        semantics — construction leaves epoch 0 ready), so rewinding
+        here would silently skip an epoch."""
+        while True:
+            batch = self.next_batch()
+            if batch is None:
+                return
+            data, starts, ends = batch
+            view = memoryview(data)
+            for i in range(len(starts)):
+                yield bytes(view[int(starts[i]):int(ends[i])])
+
+    def before_first(self) -> None:
+        """Rewind; with shuffle=True this advances to the next epoch's
+        permutation (the split's reshuffle-per-epoch semantics)."""
+        if self._lease is not None:
+            self._lease.release()
+            self._lease = None
+        self._split.before_first()
+
+    def bytes_read(self) -> int:
+        return int(self._lib.dtp_recidx_bytes_read(self._handle))
+
+    def get_total_size(self) -> int:
+        return self._split.get_total_size()
+
+    def destroy(self) -> None:
+        if getattr(self, "_handle", None):
+            if self._lease is not None:
+                self._lease.release()
+                self._lease = None
+            self._lib.dtp_recidx_destroy(self._handle)
             self._handle = None
 
     def __del__(self):

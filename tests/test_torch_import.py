@@ -96,16 +96,19 @@ NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
                "dmlc_tpu_torch.resilience.policy",
                "dmlc_tpu_torch.resilience.supervise",
                "dmlc_tpu_torch.obs.watchdog",
-               "dmlc_tpu_torch.obs.flight")
+               "dmlc_tpu_torch.obs.flight",
+               "dmlc_tpu_torch.data.csv_parser",
+               "dmlc_tpu_torch.data.parquet_parser",
+               "dmlc_tpu_torch.io.indexed_recordio_split")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_transfer_and_checkpoint_modules_import_alone(module):
     """The transfer probe, the multi-process bench worker, the checkpoint
-    plane and its JSON helpers, the trace and split planes' modules, and
-    the resilience plane, watchdog and flight recorder import in a fresh
-    interpreter without jax or dmlc_tpu (each is also in the AST scan
-    above)."""
+    plane and its JSON helpers, the trace and split planes' modules, the
+    resilience plane, watchdog and flight recorder, and the csv, Parquet
+    and indexed-RecordIO modules import in a fresh interpreter without
+    jax or dmlc_tpu (each is also in the AST scan above)."""
     path = os.path.join(REPO, *module.split("."))
     path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
             else path + ".py")
@@ -119,6 +122,83 @@ def test_transfer_and_checkpoint_modules_import_alone(module):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# The files that may import pyarrow: the Parquet golden (guarded) and the
+# bench suite's corpus writers of configs 5 and 17.
+PYARROW_FILES = ("dmlc_tpu_torch/data/parquet_parser.py",
+                 "dmlc_tpu_torch/bench_suite.py")
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_only_the_parquet_golden_imports_pyarrow(path):
+    """The card's machine has no pyarrow: chip_smoke.py and every module
+    but the golden and the bench suite's Parquet writers never import
+    it."""
+    if "pyarrow" in set(_imported_roots(path)):
+        assert os.path.relpath(path, REPO) in PYARROW_FILES
+
+
+def test_the_port_works_without_pyarrow(tmp_path):
+    """With pyarrow blocked (``sys.modules["pyarrow"] = None``), ``import
+    dmlc_tpu_torch`` and every submodule import; the csv, parquet_native
+    (engine="native", over chip_smoke.write_parquet's file) and indexed
+    RecordIO paths parse; ``format="parquet"`` raises the reference's
+    DMLCError naming pyarrow, and so does parquet_native's fallback."""
+    code = f"""
+import pkgutil, sys
+sys.modules["pyarrow"] = None
+sys.modules["pyarrow.parquet"] = None
+import numpy as np
+import dmlc_tpu_torch
+for m in pkgutil.walk_packages(dmlc_tpu_torch.__path__, "dmlc_tpu_torch."):
+    __import__(m.name)
+import chip_smoke
+from dmlc_tpu_torch import bench_suite
+from dmlc_tpu_torch.data.parser import Parser
+from dmlc_tpu_torch.io.input_split import InputSplit
+from dmlc_tpu_torch.native.bindings import NativeIndexedRecordIOReader
+from dmlc_tpu_torch.utils.logging import DMLCError
+d = {str(tmp_path)!r}
+csv = d + "/h.csv"
+chip_smoke.write_higgs_csv(csv, 1, 3, 0.3)
+rows = sum(b.size for b in Parser.create(csv, format="csv",
+                                         engine="native", label_column=0))
+assert rows == (1 << 20) // chip_smoke.CSV_ROW_BYTES, rows
+pq = d + "/t.parquet"
+cols = chip_smoke.higgs_table(1, 5)
+chip_smoke.write_parquet(pq, cols, 1000)
+p = Parser.create(pq, format="parquet_native", engine="native",
+                  label_column="label")
+got = np.concatenate([b.label.copy() for b in p])
+assert np.array_equal(got, cols["label"])
+p.destroy()
+rec = d + "/i.rec"
+bench_suite.make_indexed_recordio(rec, 1)
+a = list(NativeIndexedRecordIOReader(rec, 0, 1, shuffle=True, seed=11,
+                                     batch_size=4).records())
+split = InputSplit.create(rec, 0, 1, "indexed_recordio", shuffle=True,
+                          seed=11, batch_size=4)
+b = list(iter(split.next_record, None))
+assert a == b and len(a) > 4
+for fmt, engine in (("parquet", "auto"), ("parquet_native", "python")):
+    try:
+        Parser.create(pq, format=fmt, engine=engine, label_column="label")
+    except DMLCError as e:
+        assert "requires pyarrow" in str(e), e
+    else:
+        raise SystemExit("format=%r engine=%r did not raise" % (fmt, engine))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "dmlc_tpu", "pyarrow")
+             and sys.modules[k] is not None)
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

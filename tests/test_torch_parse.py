@@ -7,6 +7,8 @@ native engine, whole and sharded; its padded batches (native
 ``next_padded`` and Python ``pad_single``) byte-identical dicts.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -202,14 +204,6 @@ def test_rowblock_to_device_keeps_layout_dtypes(tmp_path):
     assert dev["index"].data_ptr() != block.index.ctypes.data  # a copy
 
 
-@pytest.mark.parametrize("split_type", ["indexed_recordio"])
-def test_unported_split_types_raise(tmp_path, split_type):
-    path = tmp_path / "a.libsvm"
-    path.write_text("1 1:1\n")
-    with pytest.raises(DMLCError, match="not ported"):
-        InputSplit.create(str(path), 0, 1, split_type)
-
-
 @pytest.mark.parametrize("uri", ["s3://bucket/key.libsvm",
                                  "hdfs://nn/a.libsvm"])
 def test_unported_uris_raise(uri):
@@ -227,11 +221,16 @@ def test_cache_uri_raises(tmp_path):
         bindings.NativeLibSVMParser(f"{path}#{tmp_path}/cache")
 
 
-def test_only_libsvm_is_registered():
-    """The formats ported so far are libsvm, libfm (its parity tests:
-    tests/test_torch_libfm.py) and the dense and image RecordIO records
-    (tests/test_torch_recordio.py); csv is not ported."""
-    with pytest.raises(DMLCError, match=r"\['libfm', 'libsvm', "
-                                        r"'recordio_dense', "
-                                        r"'recordio_image'\]"):
-        Parser.create("x.csv", format="csv")
+def test_registered_formats_match_the_reference():
+    """Every format of the reference's parser registry is registered in
+    the port (parity tests: tests/test_torch_parse.py, _libfm.py,
+    _recordio.py, _csv.py and _parquet.py), and an unknown one is refused
+    with the same list."""
+    from dmlc_tpu.data.parser import PARSER_REGISTRY as REF_REGISTRY
+    from dmlc_tpu_torch.data.parser import PARSER_REGISTRY
+    want = ['csv', 'libfm', 'libsvm', 'parquet', 'parquet_native',
+            'recordio_dense', 'recordio_image']
+    assert sorted(PARSER_REGISTRY.list_all_names()) == want
+    assert sorted(REF_REGISTRY.list_all_names()) == want
+    with pytest.raises(DMLCError, match=re.escape(str(want))):
+        Parser.create("x.xml", format="xml")

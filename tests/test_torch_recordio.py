@@ -527,10 +527,3 @@ def test_split_type_guard(tmp_path, fmt, native):
     with pytest.raises(DMLCError, match="split_type"):
         Parser.create(str(path), format=fmt, engine="native",
                       split_type="text")
-
-
-def test_indexed_recordio_split_is_not_ported(tmp_path):
-    path = tmp_path / "x.rec"
-    _write(path, "frames", rio, create_stream)
-    with pytest.raises(DMLCError, match="not ported"):
-        InputSplit.create(str(path), 0, 1, "indexed_recordio")

@@ -288,10 +288,6 @@ def test_cached_reset_partition(tmp_path, stores, text_uri):
     assert os.path.exists(str(tmp_path / "p.c") + ".p1-2")
 
 
-def test_indexed_recordio_stays_refused(rec_uri):
-    with pytest.raises(DMLCError, match="not ported.*indexed RecordIO"):
-        InputSplit.create(rec_uri, 0, 1, "indexed_recordio")
-
 
 # --------------------------------------------------------- tempdir
 
