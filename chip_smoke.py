@@ -180,7 +180,11 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    trains one epoch, is saved by ``ShardedCheckpoint`` and by
    ``save_pytree`` and restored by each into a fresh model on the card
    bit for bit, and 3 steps on each restored model match 3 on the model
-   never interrupted (K1, K2, K8 and K9 launching);
+   never interrupted (K1, K2, K8 and K9 launching); the FFM's 628 MB
+   state saved locally and to an ``obj://`` root (the object-store
+   plane's multipart writer, 8 MB parts, 4 at once) and restored to the
+   card bit for bit from each (from the page store the save filled, and
+   cold, over the wire), save and restore GB/s of each;
 10. the RecordIO paths, over corpora of about 256 MB each written at
    the bench suite's shapes (config 3's 4 parts of 60-140 KB records,
    config 14's dense rows of 24-47 values with an escaped magic every
@@ -250,6 +254,30 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    its records' hash equal to the host reader's in ``cuda_ingest``;
    configs 14 and 18 assembled in the engine, their native and sharded
    streams equal to the python golden's);
+11b. the object-store plane (``remote_path``), over one on-disk
+   emulator under the run's directory behind the reference's modeled
+   wire (2 ms a request, 4 GB/s; 4 MB blocks, 4 coalesced, 4 GETs at
+   once): config 11 (``remote_hydrate``) at 256 MB over the linear
+   corpus (a cold ``obj://`` epoch of ``InputSplit`` bytes, three warm
+   epochs with no GET, the codec variant at level 6 moving fewer wire
+   bytes with a wire-free second epoch, every epoch's sha256 the local
+   file's); ``SparseLinearModel(10^6)`` trained from ``obj://`` on the
+   first 32 MB of the linear corpus cut at a line (an ``obj://`` epoch
+   parses in Python) through ``Pipeline.from_uri("obj://...")
+   .parse(format="libsvm").batch(8192, pad=True, nnz_bucket=368640)
+   .to_device(cuda)``: a cold and a warm epoch from the same fresh model,
+   their padded batches hashing as the same chain's over the local copy,
+   the warm epoch with no GET, K1, K2, K8 and K9 once a step, the loss
+   falling, the two epochs' weights within the step tolerance, GB/s and
+   steps/s beside the local chain's; the trained model saved to
+   ``obj://`` by ``ShardedCheckpoint`` and restored to the card bit for
+   bit (from the page store and cold, the local and wire bytes adding
+   up to the checkpoint's pages), an unchanged re-save with no page PUT,
+   and 3 steps on each restored model matching 3 on the model never
+   interrupted; then config 21's multipart leg alone: 48 MB up as 8 MB
+   parts, 8 at once, on a wire shaped to 2 ms and 0.05 GB/s (in
+   ``/dev/shm`` where it exists), read back equal, at least 2x faster
+   than one single-shot PUT (the reference's bar);
 12. the resilience plane (``chaos_path``), after the bench configs:
    the spill linear path (the mesh of 4 parts, 1 MB replay budget; parse,
    parse and spill, pages x 3) over a directory holding the linear
@@ -516,6 +544,20 @@ INDEXED_MB, INDEXED_SEEDS, INDEXED_BATCH = 128, (11, 12), 64
 # so a rate above 2 / 1.8 ~ 1.1 diverges; 0.5 sits below it (as for the
 # dense path).
 HIGGS_LEARNING_RATE = 0.5
+# The object-store plane (remote_path, phase 11b): one on-disk emulator
+# under the run's directory, behind config 11's modeled wire (the
+# reference's bench_remote_hydrate: 2 ms a request, 4 GB/s) with the
+# objstore's default 4 MB blocks, 4 coalesced, 4 GETs at once. The
+# training leg uploads the first REMOTE_TRAIN_MB of the linear corpus,
+# cut at a line: an obj:// epoch parses in Python (the native engine
+# reads local files only), about 7 MB/s. Config 21's multipart leg
+# (the reference's bench_ckpt_restore_fanout, its write plane alone):
+# 48 MB as 8 MB parts, 8 at once, on a wire of 2 ms and 0.05 GB/s, at
+# least 2x faster than one single-shot PUT.
+REMOTE_LATENCY_S, REMOTE_GBPS = 0.002, 4.0
+REMOTE_TRAIN_MB = 32
+MULTIPART_MB, MULTIPART_PART_MB, MULTIPART_PARALLEL = 48, 8, 8
+MULTIPART_GBPS, MULTIPART_MIN_SPEEDUP = 0.05, 2.0
 
 
 def log(msg: str) -> None:
@@ -4732,6 +4774,316 @@ def bench_twins(path, work, records_hash, indexed_hash):
     return out
 
 
+# --------------------------------------------------------------- phase 11b
+
+def remote_config11(linear, work):
+    """Config 11 (``bench_remote_hydrate``) at FILE_MB over the linear
+    corpus, linked to the name the suite reads: its own checks (every
+    epoch's sha256 the local file's, warm epochs and the codec variant's
+    second epoch with no GET, the codec moving fewer wire bytes) hold;
+    its JSON printed. The hydrated pages are dropped after."""
+    from dmlc_tpu_torch.bench_suite import bench_remote_hydrate
+    from dmlc_tpu_torch.io.pagestore import PageStore
+    prefix = os.path.join(work, "dmlc_tpu_torch_bench_suite.")
+    os.link(linear, prefix + "criteo.libsvm")
+    t0 = time.perf_counter()
+    try:
+        out = bench_remote_hydrate(FILE_MB, work=work)
+    finally:
+        os.unlink(prefix + "criteo.libsvm")
+        shutil.rmtree(prefix + "objroot", ignore_errors=True)
+        store = PageStore.default()
+        for name in os.listdir(store.root):
+            if name.startswith("obj-"):
+                store.delete(name)
+    require(out["cold_gets"] > 0 and out["warm_gets"] == 0
+            and out["compressed"]["warm_gets"] == 0
+            and out["compressed"]["wire_ratio"] > 1
+            and out["pagestore_hit_rate"] == 1.0,
+            f"config 11: {out}")
+    log(f"bench config remote_hydrate ({time.perf_counter() - t0:.1f} s): "
+        f"cold {out['hydrate_gbps']} GB/s in {out['cold_gets']} GETs, "
+        f"warm {out['gbps']:.4f} GB/s with {out['warm_gets']} GETs; codec "
+        f"level 6: cold {out['compressed']['hydrate_gbps']} GB/s, wire "
+        f"bytes / {out['compressed']['wire_ratio']}")
+    log(json.dumps(out))
+    return out
+
+
+def remote_chain(uri):
+    """The obj:// training chain: the golden parse (engine "auto" on a
+    remote URI), the Python padded assembly, pinned async H2D."""
+    import torch
+    from dmlc_tpu_torch.pipeline import Pipeline
+    return (Pipeline.from_uri(uri).parse(format="libsvm")
+            .batch(ROW_BUCKET, pad=True, row_bucket=ROW_BUCKET,
+                   nnz_bucket=NNZ_BUCKET)
+            .to_device(torch.device("cuda"), window="auto").build())
+
+
+def remote_epoch(built, lr, em):
+    """One epoch of ``built`` training a fresh SparseLinearModel(10^6),
+    the kernels' counts set to 0 just before it and read just after.
+    Returns (model, seconds, losses, batch hashes, GETs, launches, the
+    epoch's batches). The batches are hashed after the timed region. The
+    GETs are counted from the caller's last reset of ``em``'s counters:
+    a parser starts reading ahead when its chain is built."""
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                              device=torch.device("cuda"))
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    kept, losses = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in built:
+        kept.append(batch)
+        losses.append(model.train_step(batch))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    gets = em.counters()["gets"]
+    hashes = [batch_hash({k: v.cpu() for k, v in b.items()}) for b in kept]
+    return (model, secs, [float(x) for x in losses], hashes, gets,
+            launches, kept)
+
+
+def remote_train(linear, lr, work, em):
+    """``SparseLinearModel(10^6)`` trained from ``obj://`` on the first
+    REMOTE_TRAIN_MB of the linear corpus (cut at a line): a cold and a
+    warm epoch of remote_chain, each from a fresh model, and one epoch
+    of the same chain over the local copy. Checks: every epoch's padded
+    batches hash alike; the warm epoch makes no GET; K1, K2, K8 and K9
+    launch once a step and no other kernel launches; the loss falls;
+    the epochs' final weights agree within the step tolerance. Returns
+    (launches of the cold epoch, stats, the warm epoch's model, three of
+    its batches)."""
+    import torch
+    with open(linear, "rb") as f:
+        head = f.read(REMOTE_TRAIN_MB << 20)
+    head = head[:head.rindex(b"\n") + 1]
+    local = os.path.join(work, "remote_train.libsvm")
+    with open(local, "wb") as f:
+        f.write(head)
+    uri = "obj://smoke/criteo/train.libsvm"
+    em.put("smoke", "criteo/train.libsvm", head)
+    runs = {}
+    em.reset_counters()
+    built = remote_chain(uri)
+    for name in ("cold", "warm"):
+        runs[name] = remote_epoch(built, lr, em)
+        em.reset_counters()
+    built.close()
+    with remote_chain(local) as built:
+        runs["local"] = remote_epoch(built, lr, em)
+    os.unlink(local)
+    model, _, _, hashes, _, _, kept = runs["warm"]
+    steps = len(hashes)
+    require(steps > 1, f"the obj:// epoch gave {steps} batches")
+    want = {k: steps if k in PATH_KERNELS["linear"] else 0
+            for k in _wrappers()}
+    base = runs["local"][0]
+    for name, (m, secs, losses, h, gets, launches, _) in runs.items():
+        require(h == hashes, f"obj:// training: the {name} epoch's padded "
+                "batches differ from the warm obj:// epoch's")
+        require(launches == want, f"obj:// training: {name} epoch "
+                f"launches {launches} != {want}")
+        require(all(x == x and abs(x) != float("inf") for x in losses)
+                and losses[-1] < losses[0],
+                f"obj:// training: {name} losses {losses}")
+        for label, a, b in (("w", m.w, base.w), ("b", m.b, base.b)):
+            a, b = a.detach().cpu(), b.detach().cpu()
+            require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                    f"obj:// training: the {name} epoch's {label} vs the "
+                    f"local chain's: max |err| {(a - b).abs().max().item()}")
+    require(runs["cold"][4] > 0 and runs["warm"][4] == 0,
+            f"obj:// training: GETs cold {runs['cold'][4]}, warm "
+            f"{runs['warm'][4]} (want > 0, 0)")
+    size = len(head)
+    stats = {name: {"gbps": size / r[1] / 1e9, "steps_per_s": steps / r[1],
+                    "seconds": r[1], "gets": r[4],
+                    "loss": [r[2][0], r[2][-1]]}
+             for name, r in runs.items()}
+    stats.update(bytes=size, steps=steps)
+    log(f"obj:// training: SparseLinearModel(10^6) over {size} bytes "
+        f"({steps} steps a epoch): cold {stats['cold']['gbps']:.4f} GB/s, "
+        f"{stats['cold']['steps_per_s']:.2f} steps/s, {runs['cold'][4]} GETs;"
+        f" warm {stats['warm']['gbps']:.4f} GB/s, "
+        f"{stats['warm']['steps_per_s']:.2f} steps/s, 0 GETs; the local "
+        f"chain {stats['local']['gbps']:.4f} GB/s, "
+        f"{stats['local']['steps_per_s']:.2f} steps/s; loss "
+        f"{runs['warm'][2][0]:.4f} -> {runs['warm'][2][-1]:.4f}; padded "
+        f"batches hash alike; launches {runs['cold'][5]}")
+    return runs["cold"][5], stats, model, kept[:3]
+
+
+def remote_checkpoint(model, resume, lr, work, em, step):
+    """The trained linear model saved to ``obj://smoke/ck`` by
+    ShardedCheckpoint and restored into fresh models on the card, from
+    the page store the save filled and cold (a fresh page store), bit for
+    bit, each restore's local and wire bytes adding up to the
+    checkpoint's pages; a re-save of the unchanged state puts no page;
+    then 3 steps on each restored model and on ``model`` agree within
+    the step tolerance."""
+    import torch
+    from dmlc_tpu_torch.io import pagestore
+    from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    cuda = torch.device("cuda")
+    ck = ShardedCheckpoint("obj://smoke/ck")
+    em.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(step, model.state_dict(), metadata={"epoch": 2})
+    save_s = time.perf_counter() - t0
+    page_bytes = sum(o.size for o in em.list("smoke", "ck/pages"))
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in model.state_dict().values())
+    restored, times = {}, {}
+    env = os.environ.get(pagestore.ENV_STORE_DIR)
+    try:
+        for tier in ("local", "wire"):
+            if tier == "wire":
+                os.environ[pagestore.ENV_STORE_DIR] = os.path.join(
+                    work, "pages_cold")
+            c = ShardedCheckpoint("obj://smoke/ck")
+            fresh = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                      device=cuda)
+            t0 = time.perf_counter()
+            state, user = c.restore(like=fresh.state_dict())
+            fresh.load_state_dict(state)
+            torch.cuda.synchronize()
+            times[tier] = time.perf_counter() - t0
+            require(c.latest_step() == step and user == {"epoch": 2}
+                    and all(v.device.type == "cuda"
+                            for v in state.values()),
+                    f"obj:// checkpoint ({tier}): step {c.latest_step()}, "
+                    f"user {user}")
+            _same_state(f"obj:// ({tier})", fresh.state_dict(),
+                        model.state_dict())
+            split = {"local": c.last_restore_local_bytes,
+                     "wire": c.last_restore_wire_bytes}
+            require(split["local"] + split["wire"] == page_bytes
+                    and split[tier] == page_bytes,
+                    f"obj:// checkpoint ({tier}): restore split {split}, "
+                    f"the pages {page_bytes} bytes")
+            restored[tier] = fresh
+    finally:
+        if env is None:
+            os.environ.pop(pagestore.ENV_STORE_DIR, None)
+        else:
+            os.environ[pagestore.ENV_STORE_DIR] = env
+        shutil.rmtree(os.path.join(work, "pages_cold"), ignore_errors=True)
+    em.reset_counters()
+    ck.save(step + 1, model.state_dict(), metadata={"epoch": 2})
+    resave = em.counters()
+    require(ck.last_save_bytes_written == 0 and resave["put_parts"] == 0
+            and resave["puts"] == 3,
+            f"obj:// checkpoint: the unchanged re-save wrote "
+            f"{ck.last_save_bytes_written} page bytes, counters {resave} "
+            "(want only the index, meta.json and COMMIT)")
+    after = {}
+    for name, m in [("uninterrupted", model)] + list(restored.items()):
+        ls = [m.train_step(b) for b in resume]
+        after[name] = (torch.stack(ls).cpu(), m.w.detach().cpu(),
+                       m.b.detach().cpu())
+    for name in restored:
+        for label, a, b in zip(("losses", "w", "b"), after[name],
+                               after["uninterrupted"]):
+            require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                    f"obj:// checkpoint: 3 steps after the {name} restore "
+                    f"vs the uninterrupted model: {label} max |err| "
+                    f"{(a - b).abs().max().item()}")
+    log(f"obj:// checkpoint: {nbytes} bytes of parameters ({page_bytes} "
+        f"of pages) saved in {save_s:.4f} s ({nbytes / save_s / 1e9:.3f} "
+        f"GB/s); restored bit for bit from the page store in "
+        f"{times['local']:.4f} s ({page_bytes / times['local'] / 1e9:.3f} "
+        f"GB/s) and cold over the wire in {times['wire']:.4f} s "
+        f"({page_bytes / times['wire'] / 1e9:.3f} GB/s); the unchanged "
+        f"re-save put no page ({resave['puts']} PUTs, "
+        f"{resave['put_bytes']} bytes); 3 steps after each restore match "
+        f"the uninterrupted model's")
+    return {"bytes": nbytes, "page_bytes": page_bytes, "save_s": save_s,
+            "restore_s": times, "resave": resave}
+
+
+def multipart_leg(work):
+    """Config 21's multipart leg alone: MULTIPART_MB of seeded bytes up
+    through ``create_stream("obj://...", "w")`` (MULTIPART_PART_MB parts,
+    MULTIPART_PARALLEL at once) and as one single-shot PUT, on a wire
+    shaped to 2 ms and MULTIPART_GBPS (tmpfs where there is one); the
+    object reads back equal, at least 6 parts went up, and the multipart
+    upload is MULTIPART_MIN_SPEEDUP times faster or more."""
+    import numpy as np
+    import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.io.objstore.emulator import EmulatedObjectStore
+    from dmlc_tpu_torch.io.stream import create_stream
+    shm = "/dev/shm"
+    root = (os.path.join(shm, f"dmlc_chip_smoke_mp.{os.getpid()}")
+            if os.path.isdir(shm) else os.path.join(work, "mp.objroot"))
+    shaped = EmulatedObjectStore(root, latency_s=REMOTE_LATENCY_S,
+                                 bandwidth_gbps=MULTIPART_GBPS)
+    payload = np.random.default_rng(21).integers(
+        0, 256, MULTIPART_MB << 20, dtype=np.uint8).tobytes()
+    saved = objstore.options()
+    try:
+        objstore.configure(shaped, put_part_bytes=MULTIPART_PART_MB << 20,
+                           put_parallel=MULTIPART_PARALLEL)
+        t0 = time.perf_counter()
+        with create_stream("obj://bench/mp.bin", "w") as s:
+            s.write(payload)
+        multi_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shaped.put("bench", "single.bin", payload)
+        single_s = time.perf_counter() - t0
+        counts = shaped.counters()
+        same = shaped.get("bench", "mp.bin") == payload
+    finally:
+        objstore.configure(None, put_part_bytes=saved["put_part_bytes"],
+                           put_parallel=saved["put_parallel"])
+        shutil.rmtree(root, ignore_errors=True)
+    speedup = single_s / multi_s
+    require(same and counts["put_parts"] >= 6,
+            f"config 21 multipart: read back equal {same}, {counts}")
+    require(speedup >= MULTIPART_MIN_SPEEDUP,
+            f"config 21 multipart: {multi_s:.3f} s against a single-shot "
+            f"PUT's {single_s:.3f} s ({speedup:.2f}x < "
+            f"{MULTIPART_MIN_SPEEDUP})")
+    log(f"config 21 multipart leg ({root.split('/dmlc')[0]}): "
+        f"{MULTIPART_MB} MB in {counts['put_parts']} parts "
+        f"{multi_s:.3f} s ({(MULTIPART_MB << 20) / multi_s / 1e9:.3f} "
+        f"GB/s) against one PUT {single_s:.3f} s "
+        f"({(MULTIPART_MB << 20) / single_s / 1e9:.3f} GB/s): "
+        f"{speedup:.2f}x")
+    return {"multi_s": multi_s, "single_s": single_s, "speedup": speedup,
+            "put_parts": counts["put_parts"]}
+
+
+def remote_path(linear, lr, work):
+    """Phase 11b: config 11, training from obj://, the remote checkpoint
+    and config 21's multipart leg (see the module docstring). Returns
+    (the obj:// training epoch's launches, stats)."""
+    import dmlc_tpu_torch.io.objstore as objstore
+    t0 = time.perf_counter()
+    out = {"config11": remote_config11(linear, work)}
+    objroot = os.path.join(work, "objroot")
+    em = objstore.configure(root=objroot, latency_s=REMOTE_LATENCY_S,
+                            bandwidth_gbps=REMOTE_GBPS)
+    try:
+        launches, out["train"], model, resume = remote_train(
+            linear, lr, work, em)
+        out["checkpoint"] = remote_checkpoint(
+            model, resume, lr, work, em, out["train"]["steps"])
+    finally:
+        objstore.configure(None)
+        shutil.rmtree(objroot, ignore_errors=True)
+    out["multipart"] = multipart_leg(work)
+    log(f"remote path: {time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
 def transfer_probe():
     """A8's probe on the card, 3 interleaved rounds at 64 MB a cell: the
     port's put (a pinned HostStaging slot, a copy stream, an event) one
@@ -4859,7 +5211,8 @@ def checkpoint_ffm(path, lr, work):
     saved model and on the restored one, agrees within the step
     tolerance (K6 forward and backward, K8 and K9 launch in it). Save
     and restore GB/s are printed, restore's over
-    ``last_restore_bytes_read``."""
+    ``last_restore_bytes_read``. Then the same state through the
+    object-store plane (remote_ffm)."""
     import numpy as np
     import torch
     from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
@@ -4912,8 +5265,87 @@ def checkpoint_ffm(path, lr, work):
         f"agrees (loss {float(out['saved'][0][0]):.6f}); launches "
         f"{launches}")
     shutil.rmtree(root)
+    del fresh
+    remote = remote_ffm(model, lr, work, nbytes, save_s, read / restore_s)
     return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
-            "restore_bytes_read": read, "launches": launches}
+            "restore_bytes_read": read, "launches": launches,
+            "remote": remote}
+
+
+def remote_ffm(model, lr, work, nbytes, local_save_s, local_restore_bps):
+    """The FFM's state through the object-store plane: saved to
+    ``obj://smoke/ckpt_ffm`` on the run's emulator (REMOTE_* wire; the
+    628 MB V page goes up through the multipart writer, 8 MB parts, 4 at
+    once), restored to a fresh model on the card from the page store
+    the save filled, then cold (a fresh page store: every page over the
+    wire), bit for bit each time. Save and restore GB/s printed beside
+    the local plane's."""
+    import torch
+    import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.io import pagestore
+    from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+    objroot = os.path.join(work, "objroot")
+    em = objstore.configure(root=objroot, latency_s=REMOTE_LATENCY_S,
+                            bandwidth_gbps=REMOTE_GBPS)
+    part_bytes = objstore.options()["put_part_bytes"]
+    env = os.environ.get(pagestore.ENV_STORE_DIR)
+    try:
+        ck = ShardedCheckpoint("obj://smoke/ckpt_ffm")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, model.state_dict())
+        save_s = time.perf_counter() - t0
+        counts = em.counters()
+        require(counts["put_parts"] >= nbytes // part_bytes
+                and ck.last_save_bytes_written >= nbytes,
+                f"remote FFM save: {counts}, "
+                f"{ck.last_save_bytes_written} bytes written")
+        runs = {}
+        for tier in ("local", "wire"):
+            if tier == "wire":
+                # a cold process: a page store that holds no page
+                os.environ[pagestore.ENV_STORE_DIR] = os.path.join(
+                    work, "pages_cold")
+            fresh = make_factor_model("ffm", lr)
+            with torch.no_grad():
+                fresh.V.zero_()
+            t0 = time.perf_counter()
+            state, _ = ck.restore(like=fresh.state_dict())
+            fresh.load_state_dict(state)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            del state
+            _same_state(f"ffm obj:// ({tier})", fresh.state_dict(),
+                        model.state_dict())
+            split = (ck.last_restore_local_bytes,
+                     ck.last_restore_wire_bytes)
+            want = ((ck.last_restore_bytes_read, 0) if tier == "local"
+                    else (0, ck.last_restore_bytes_read))
+            require(split == want and ck.last_restore_bytes_read
+                    >= nbytes, f"remote FFM restore ({tier}): local, wire "
+                    f"bytes {split}, want {want}")
+            runs[tier] = {"restore_s": secs, "gbps":
+                          ck.last_restore_bytes_read / secs / 1e9}
+            del fresh
+    finally:
+        if env is None:
+            os.environ.pop(pagestore.ENV_STORE_DIR, None)
+        else:
+            os.environ[pagestore.ENV_STORE_DIR] = env
+        objstore.configure(None)
+        shutil.rmtree(os.path.join(objroot, "smoke", "ckpt_ffm"),
+                      ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "pages_cold"), ignore_errors=True)
+    log(f"checkpoint FFM over obj://: save {save_s:.4f} s "
+        f"({nbytes / save_s / 1e9:.3f} GB/s; local "
+        f"{nbytes / local_save_s / 1e9:.3f}), {counts['put_parts']} parts "
+        f"of {part_bytes} bytes; restore to the card from the page store "
+        f"{runs['local']['restore_s']:.4f} s "
+        f"({runs['local']['gbps']:.3f} GB/s), cold over the wire "
+        f"{runs['wire']['restore_s']:.4f} s ({runs['wire']['gbps']:.3f} "
+        f"GB/s; local plane {local_restore_bps / 1e9:.3f}), bit for bit")
+    return {"save_s": save_s, "save_gbps": nbytes / save_s / 1e9,
+            "put_parts": counts["put_parts"], "restore": runs}
 
 
 # --------------------------------------------------------------- phase 11
@@ -6393,6 +6825,9 @@ def main() -> None:
         stats["bench"] = bench_twins(linear, work,
                                      stats["cuda_ingest"]["records_hash"],
                                      stats["format"]["indexed"]["hash"])
+        # the object-store plane: config 11, the linear model trained
+        # from obj://, its remote checkpoint, config 21's multipart leg
+        _, stats["remote"] = remote_path(linear, LEARNING_RATE, work)
         # the resilience plane last: its gang's worker processes and its
         # chaos-armed bench config come after every traced phase
         stats["chaos"] = chaos_path(linear, linear_size, LEARNING_RATE,

@@ -27,9 +27,13 @@ the pairwise ranking loss with its gradient in the margins, and SGD for
 parallel over a ``torch.distributed`` group (``parallel.launch``,
 ``parallel.sharded``, ``Pipeline.shard``, ``graft``), the trace plane
 (``dmlc_tpu_torch.obs``: spans, Chrome export, metrics, ``cuda_trace``,
-the stall watchdog and the flight recorder), and the resilience plane
-(``dmlc_tpu_torch.resilience``: retry policies at the host I/O seams,
-seeded fault injection, gang supervision with restarts).
+the stall watchdog and the flight recorder, and the RPC trace-context
+plane), the resilience plane (``dmlc_tpu_torch.resilience``: retry
+policies at the host I/O seams, seeded fault injection, gang
+supervision with restarts), and the object-store plane
+(``dmlc_tpu_torch.io.objstore``: ``obj://`` and ``s3://`` reads that
+hydrate the page store, the multipart writer, the HTTP client, and
+remote ``ShardedCheckpoint`` roots).
 Entry points that touch a device default to ``torch.device("cuda")``;
 pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """
@@ -43,6 +47,7 @@ from dmlc_tpu_torch.data import dense_record_parser as _dense  # "recordio_dense
 from dmlc_tpu_torch.data import image_record_parser as _image  # "recordio_image"
 from dmlc_tpu_torch.data import parquet_parser as _parquet  # "parquet", "parquet_native"
 from dmlc_tpu_torch.io import cuda_fs as _cuda_fs  # registers cuda://
+# (importing dmlc_tpu_torch.io registers obj:// and s3://)
 
 __all__ = ["DMLCError", "Parser"]
 

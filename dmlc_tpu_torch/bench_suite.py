@@ -29,6 +29,12 @@ on the card) where the reference reports one:
                forced over its agreement_cache_bytes budget, steady
                epochs served from the spilled round pages (the
                larger-than-RAM training shape)
+ 11. remote_hydrate — the criteo-shaped corpus over ``obj://`` on the
+               on-disk object-store emulator behind a modeled wire
+               (2 ms, 4 GB/s): a cold epoch of ranged GETs hydrating
+               the page store, three warm epochs with zero GETs, and
+               the codec variant (level 6), every epoch sha256-held to
+               the local file
  14. recio_native — the native dense-RecordIO decode (ABI 6) vs the
                Python golden vs the sharded gang, sha256-parity pinned
  17. parquet_native — the native Parquet page decode vs the pyarrow
@@ -49,8 +55,8 @@ that config), and a config that fails emits an ``error`` line while the
 next config still runs.
 Configs 4, 7, 8 and 10 copy to the card (config 4 as the reference's
 ``--device`` run does; its parse-only form is not ported); configs 1,
-2, 3, 5, 6, 14, 17 and 18 are the reference's host-side measurements
-(read, parse and decode, no copy), as there. Configs 5 and 17 write
+2, 3, 5, 6, 11, 14, 17 and 18 are the reference's host-side
+measurements (read, parse and decode, no copy), as there. Configs 5 and 17 write
 their corpora with pyarrow (``make_parquet``,
 ``make_parquet_decode_bound``), so they run only where pyarrow is
 installed: not on the card's machine, which has none.
@@ -63,9 +69,10 @@ the reference's corpora (``make_libsvm`` at its a1a defaults,
 ``make_csv``, ``make_recordio``, ``make_parquet``,
 ``make_indexed_recordio``, ``make_dense_recordio``,
 ``make_parquet_decode_bound``, ``make_image_recordio``: the same bytes
-from the same seed; pyarrow's files the same tables). Configs 4, 7, 8
-and 10 read one corpus file, the reference's criteo shape from seed 7 (the file its configs 4, 9 and 12
-share; it writes the same bytes under more names for 7, 8 and 10):
+from the same seed; pyarrow's files the same tables). Configs 4, 7, 8,
+10 and 11 read one corpus file, the reference's criteo shape from seed
+7 (the file its configs 4, 9 and 12 share; it writes the same bytes
+under more names for 7, 8, 10 and 11):
 ``make_libsvm`` draws each row's indices by a permutation of 10^6, so
 writing it takes minutes whatever ``mb`` is, and a second copy would
 double that. Configs 8, 10, 14, 17 and 18 take the reference's
@@ -95,7 +102,8 @@ __all__ = ["make_libsvm", "make_csv", "make_recordio", "make_dense_recordio",
            "bench_libsvm", "bench_csv", "bench_recordio", "bench_prefetch",
            "bench_parquet", "bench_indexed_shuffled",
            "bench_multiprocess_ingest", "bench_page_replay",
-           "bench_spill_replay", "bench_recio_native",
+           "bench_spill_replay", "bench_remote_hydrate",
+           "bench_recio_native",
            "bench_parquet_native", "bench_image_record", "CONFIGS", "main"]
 
 
@@ -675,6 +683,129 @@ def bench_spill_replay(mb: int, gauge_fn=None, replay_epochs: int = 5,
             "platform": _platform(dev)}
 
 
+def bench_remote_hydrate(mb: int, work: Optional[str] = None) -> Dict:
+    """Remote object-store hydration (config 11): the criteo-shaped
+    corpus uploaded to the on-disk emulator behind a modeled wire (2 ms
+    a request, 4 GB/s), then a COLD epoch over the ``obj://`` URI —
+    every block arrives via coalesced ranged GETs and hydrates into the
+    page store — against three WARM epochs that replay the hydrated
+    pages with ZERO emulator GETs (the counters prove it; under an
+    armed ``--chaos`` plan the retry seams keep the run byte-identical
+    and the GET count merely grows), and the codec variant (level 6:
+    ranges travel as codec frames, fewer wire bytes, a wire-free second
+    epoch). Every epoch's sha256 must equal the local file's.
+    hydrate_gbps is wire-bound by construction; gbps (warm page replay)
+    is what steady training over object storage sees. The reference's
+    JSON keys."""
+    import hashlib
+
+    import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.io.input_split import InputSplit
+    from dmlc_tpu_torch.io.objstore import fs as _objfs
+    from dmlc_tpu_torch.io.pagestore import PageStore
+    from dmlc_tpu_torch.obs.metrics import REGISTRY
+
+    tmp = _prefix(work)
+    path = _criteo(tmp, mb)
+    size = os.path.getsize(path)
+    uri = "obj://bench/criteo/train.libsvm"
+    em = objstore.configure(root=f"{tmp}.objroot", latency_s=0.002,
+                            bandwidth_gbps=4.0)
+    try:
+        em.put_file("bench", "criteo/train.libsvm", path)
+        store = PageStore.default()
+
+        def drop_hydrated():
+            # a genuinely cold epoch: drop any hydrated generation a
+            # previous run left behind
+            for name in os.listdir(store.root) \
+                    if os.path.isdir(store.root) else []:
+                if name.startswith("obj-"):
+                    store.delete(name)
+
+        def epoch():
+            h = hashlib.sha256()
+            n = 0
+            split = InputSplit.create(uri, 0, 1)
+            t0 = time.perf_counter()
+            while (chunk := split.next_chunk()) is not None:
+                h.update(chunk)
+                n += len(chunk)
+            return time.perf_counter() - t0, h.hexdigest(), n
+
+        drop_hydrated()
+        em.reset_counters()
+        cold_wall, cold_hash, _ = epoch()
+        cold = em.counters()
+        with open(path, "rb") as f:
+            local_hash = hashlib.sha256(f.read()).hexdigest()
+        check(cold_hash == local_hash,
+              "remote epoch diverged from the local bytes")
+        walls = []
+        hit0 = REGISTRY.counter("pagestore.hit").value
+        miss0 = REGISTRY.counter("pagestore.miss").value
+        em.reset_counters()
+        for _ in range(3):
+            w, h, _ = epoch()
+            check(h == local_hash, "warm remote epoch diverged")
+            walls.append(w)
+        warm = em.counters()
+        hits = REGISTRY.counter("pagestore.hit").value - hit0
+        misses = REGISTRY.counter("pagestore.miss").value - miss0
+        best = min(walls)
+
+        # the codec variant: the SAME cold epoch with the page codec on
+        # — ranges travel as codec frames (decoded under the
+        # io.objstore.get retry seam), hydrated blocks land encoded
+        prev_level = objstore.options().get("codec_level")
+        objstore.configure(codec_level=6)
+        try:
+            drop_hydrated()
+            em.reset_counters()
+            czw, czh, _ = epoch()
+            ccold = em.counters()
+            check(czh == local_hash,
+                  "compressed remote epoch diverged from the local bytes")
+            em.reset_counters()
+            czw2, czh2, _ = epoch()
+            cwarm = em.counters()
+            check(czh2 == local_hash, "compressed warm epoch diverged")
+        finally:
+            # configure() treats None as "keep": restore the option
+            # directly, so no later config reads compressed
+            _objfs._options["codec_level"] = prev_level
+        compressed = {
+            "hydrate_gbps": round(size / czw / 1e9, 4),
+            "cold_gets": ccold["gets"],
+            "cold_wire_bytes": ccold["get_bytes"],
+            "wire_ratio": round(
+                cold["get_bytes"] / max(ccold["get_bytes"], 1), 2),
+            "warm_gets": cwarm["gets"],
+            "warm_wall_s": round(czw2, 3),
+        }
+        check(ccold["get_bytes"] < cold["get_bytes"],
+              "codec moved no fewer wire bytes")
+        check(cwarm["gets"] == 0,
+              f"compressed warm epoch hit the wire: {cwarm['gets']} GETs")
+        check(warm["gets"] == 0,
+              f"warm epochs hit the wire: {warm['gets']} GETs")
+        return {"config": "remote_hydrate", "gbps": size / best / 1e9,
+                "bytes": size,
+                "hydrate_gbps": round(size / cold_wall / 1e9, 4),
+                "cold_gets": cold["gets"],
+                "cold_get_bytes": cold["get_bytes"],
+                "warm_gets": warm["gets"],
+                "pagestore_hit_rate": round(
+                    hits / max(hits + misses, 1), 4),
+                "replay_epoch_walls": [round(w, 3) for w in walls],
+                "wire": {"latency_s": em.latency_s,
+                         "bandwidth_gbps": em.bandwidth_gbps},
+                "compressed": compressed,
+                "hash": cold_hash}
+    finally:
+        objstore.configure(None)
+
+
 def bench_recordio(mb: int, work: Optional[str] = None) -> Dict:
     """Config 3: the RecordIO split over 4 parts of an ImageNet-.rec-
     shaped corpus, through the native record reader when the engine is
@@ -1163,6 +1294,7 @@ CONFIGS = {
     7: ("multiprocess", lambda mb: bench_multiprocess_ingest(mb)),
     8: ("page_replay", lambda mb: bench_page_replay(mb)),
     10: ("spill_replay", lambda mb: bench_spill_replay(mb)),
+    11: ("remote_hydrate", lambda mb: bench_remote_hydrate(mb)),
     14: ("recio_native", lambda mb: bench_recio_native(mb)),
     17: ("parquet_native", lambda mb: bench_parquet_native(mb)),
     18: ("image_record", lambda mb: bench_image_record(mb)),

@@ -24,11 +24,9 @@ DiskRowIter's build is the reference's retry site ``data.pages.build``;
 its commit publishes under ``data.pages.commit`` and a round spill's
 under ``spill.commit``, inside a ``spill.commit`` trace span.
 
-Trimmed from the reference:
-- ``RowBlockIter.create`` (the ``#cache`` URI hint) and
-  ``BasicRowIter``: ``Pipeline.cache`` keeps its memory tier itself;
-- ``sweep_stale_spill``'s objstore multipart leg (the objstore plane is
-  not ported).
+Trimmed from the reference: ``RowBlockIter.create`` (the ``#cache`` URI
+hint) and ``BasicRowIter``: ``Pipeline.cache`` keeps its memory tier
+itself.
 """
 
 from __future__ import annotations
@@ -373,9 +371,19 @@ def sweep_stale_spill(spill_dir: Optional[str] = None,
     older than ``max_tmp_age_s`` (younger ones may belong to a live
     writer). Returns entries removed. With ``spill_dir=None`` the sweep
     covers the default store root plus every page-store root this
-    process has touched."""
+    process has touched (custom spill dirs, explicit cache paths,
+    hydrated remote blocks), and the configured object store's staged
+    multipart uploads whose writer process is dead."""
     if spill_dir is None:
         dirs = {default_store_dir()} | set(PageStore.known_roots())
-        return sum(sweep_stale_spill(d, max_tmp_age_s) for d in dirs)
+        removed = sum(sweep_stale_spill(d, max_tmp_age_s) for d in dirs)
+        try:
+            # the multipart leg: a crashed writer's staged objstore
+            # parts go by the same pid liveness rule as its .tmp pages
+            from dmlc_tpu_torch.io.objstore.multipart import sweep_uploads
+            removed += sweep_uploads()
+        except Exception:  # noqa: BLE001 — sweep is best-effort
+            pass
+        return removed
     return PageStore.at(spill_dir).sweep(max_tmp_age_s,
                                          header_meta=read_spill_meta)

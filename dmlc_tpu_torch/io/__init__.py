@@ -1,1 +1,7 @@
-"""Local-file streams, the VFS registry and sharded input splits."""
+"""Streams, the VFS registry, sharded input splits and the object-store
+plane: importing this package registers ``obj://`` and its ``s3://``
+alias (``dmlc_tpu_torch.io.objstore``)."""
+
+from dmlc_tpu_torch.io import objstore  # registers obj:// + s3:// on import
+
+__all__ = ["objstore"]

@@ -1,7 +1,7 @@
 """Checkpoint/resume: parameter trees round-tripped over Streams.
 
-Counterpart of ``dmlc_tpu/io/checkpoint.py`` for local roots; a file or
-step directory written by either package restores in the other:
+Counterpart of ``dmlc_tpu/io/checkpoint.py``; a file, step directory or
+remote step written by either package restores in the other:
 
 - ``save_pytree``/``load_pytree``: a tree (dicts, lists and tuples) of
   tensors or numpy arrays ↔ one Stream (the single-process path);
@@ -12,7 +12,22 @@ step directory written by either package restores in the other:
   only once committed, so a torn save is never restored and a crash
   never loses the step's last committed copy. Restore reads only the
   stored records whose placements intersect what it rebuilds, seeking
-  through the index (``last_restore_bytes_read`` counts the bytes).
+  through the index (``last_restore_bytes_read`` counts the bytes);
+- a root containing ``://`` (``obj://bucket/prefix``) switches
+  ``ShardedCheckpoint`` to the object-store plane: every record is a
+  CONTENT-ADDRESSED page object ``<root>/pages/<digest>.pg`` (digest
+  over dtype, shape and bytes) written through the objstore write plane
+  (multipart past ``put_part_bytes``), so a re-save uploads only the
+  records that changed (``last_save_bytes_written`` against
+  ``last_save_bytes_reused``; an unchanged digest is recognized from
+  the page store's committed ``ckptpg-<digest>.pages`` entry, or a HEAD
+  probe). Each writer publishes ``<step>/shard-<w>.idx.json``; writer 0
+  waits for ``num_writers`` indexes, writes ``meta.json``, then the
+  ``COMMIT`` object. Restore verifies every page against its digest and
+  splits ``last_restore_bytes_read`` into
+  ``last_restore_{local,peer,wire}_bytes`` (the page store or the wire;
+  peer is 0 in the port). Object keys and contents are the reference's
+  byte for byte for the same tree.
 
 Where the port differs from the reference:
 
@@ -29,13 +44,13 @@ Where the port differs from the reference:
 - ranks meet at ``torch.distributed.barrier()`` when a group of more than
   one rank exists.
 
-Trimmed from the reference: roots with ``://`` (its object-store plane:
-content-addressed pages, the multipart writer, the gang's restore
-fanout), ``prefetch``, the ``writer``/``num_writers`` arguments and
-``sharding_tree``, which raise ``DMLCError("... not ported ...")``; the
-rendezvous ``gang_metadata`` stamp in ``meta.json`` (the reference adds
-it only inside an elastic gang); the ``objstore.*`` counters and the
-``io.objstore.*`` retry sites, which wait for the objstore plane.
+Trimmed from the reference: ``sharding_tree``, which raises
+``DMLCError("... not ported ...")``; the rendezvous ``gang_metadata``
+stamp in ``meta.json`` (the reference adds it only inside an elastic
+gang); and the gang's restore fanout over the peer tier, which waits
+for the status server plane (``obs/serve.py``): with no peer tier every
+page a restore lacks locally comes from the wire, as the reference's
+does outside a gang, and ``prefetch`` stages nothing.
 
 As in the reference, ``save_pytree`` and ``load_pytree`` are resilience
 seams (``checkpoint.save``, ``checkpoint.restore``: the whole file is
@@ -51,14 +66,17 @@ of their streams. Each is a trace span (``checkpoint.save_pytree``,
 from __future__ import annotations
 
 import functools
+import hashlib
 import os
+import re
 import shutil
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dmlc_tpu_torch.io.stream import create_stream
+from dmlc_tpu_torch.io.stream import MemoryStream, create_stream
 from dmlc_tpu_torch.obs import trace as _trace
 from dmlc_tpu_torch.resilience.policy import guarded
 from dmlc_tpu_torch.utils import serializer as ser
@@ -69,11 +87,23 @@ __all__ = ["save_pytree", "load_pytree", "ShardedCheckpoint"]
 
 _FORMAT_VERSION = 1
 
+# local page-store namespace for content-addressed checkpoint pages:
+# fingerprint=None entries (immortal to the stale sweep)
+_PAGE_PREFIX = "ckptpg-"
+
 
 def _ckpt_count(which: str, n: int = 1) -> None:
     try:
         from dmlc_tpu_torch.obs.metrics import REGISTRY
         REGISTRY.counter(f"checkpoint.{which}").inc(n)
+    except Exception:  # noqa: BLE001 — telemetry must not break I/O
+        pass
+
+
+def _obj_count(which: str, n: int = 1) -> None:
+    try:
+        from dmlc_tpu_torch.obs.metrics import REGISTRY
+        REGISTRY.counter(f"objstore.{which}").inc(n)
     except Exception:  # noqa: BLE001 — telemetry must not break I/O
         pass
 
@@ -92,8 +122,7 @@ def _spanned(name: str):
 
 
 def _not_ported(what: str) -> DMLCError:
-    return DMLCError(f"checkpoint: {what} is not ported to dmlc_tpu_torch "
-                     "(local roots only)")
+    return DMLCError(f"checkpoint: {what} is not ported to dmlc_tpu_torch")
 
 
 def _intersect(a: tuple, b: tuple) -> Optional[tuple]:
@@ -221,21 +250,34 @@ def _rank_world() -> Tuple[int, int]:
 
 
 class ShardedCheckpoint:
-    """Per-rank shard streams for a parameter tree, local roots.
+    """Per-rank shard streams for a parameter tree.
 
-    Layout: ``<root>/step-<N>/shard-<rank>.bin`` + ``meta.json``
+    Local layout: ``<root>/step-<N>/shard-<rank>.bin`` + ``meta.json``
     (written by rank 0) + ``COMMIT`` marker. Each shard file holds, per
     leaf, the records this rank writes (a placement in the full array
     and that block's data): rank 0 writes every leaf whole, the others
-    none (the port's parameters are replicated).
+    none (the port's parameters are replicated). Remote (``obj://``)
+    layout: ``<root>/pages/<digest>.pg`` per record and
+    ``<root>/step-<N>/{shard-<w>.idx.json, meta.json, COMMIT}``.
     """
 
     def __init__(self, root: str):
-        if "://" in root:
-            raise _not_ported(f"the remote root {root!r} (objstore plane)")
-        self.root = root
+        self.root = root.rstrip("/") if "://" in root else root
         self.last_restore_bytes_read = 0  # data bytes read by restore()
-        os.makedirs(root, exist_ok=True)
+        self.last_save_bytes_written = 0  # payload bytes uploaded
+        self.last_save_bytes_reused = 0   # payload bytes deduped away
+        # split of last_restore_bytes_read by source tier (remote roots)
+        self.last_restore_local_bytes = 0
+        self.last_restore_peer_bytes = 0
+        self.last_restore_wire_bytes = 0
+        self._remote = "://" in root
+        if self._remote:
+            from dmlc_tpu_torch.io.filesys import URI
+            u = URI(self.root)
+            self._bucket = u.host
+            self._obj_prefix = u.name.strip("/")
+        else:
+            os.makedirs(root, exist_ok=True)
 
     # -- paths
 
@@ -259,6 +301,8 @@ class ShardedCheckpoint:
         return d  # the caller's commit check reports the right error
 
     def _committed_steps(self) -> List[int]:
+        if self._remote:
+            return self._committed_steps_remote()
         steps = set()
         for name in os.listdir(self.root):
             if not name.startswith("step-"):
@@ -289,9 +333,15 @@ class ShardedCheckpoint:
              writer: Optional[int] = None,
              num_writers: Optional[int] = None) -> str:
         """Write ``tree`` as step ``step`` (every rank of the group
-        calls it); returns the step's directory."""
-        if writer is not None or num_writers is not None:
-            raise _not_ported("save(writer=, num_writers=) (remote roots)")
+        calls it); returns the step's directory (or URI). ``writer`` and
+        ``num_writers`` name this process's part of a remote save
+        (default: the group's rank and world)."""
+        if self._remote:
+            return self._save_remote(step, tree, metadata, writer,
+                                     num_writers)
+        check(writer is None and num_writers is None,
+              "checkpoint: writer/num_writers apply to remote (obj://) "
+              "roots; local saves shard by the torch.distributed rank")
         rank, world = _rank_world()
         # each leaf on the host once (a tensor leaves its device here)
         leaves = [(k, _host(leaf)) for k, leaf in _flatten(tree)]
@@ -427,7 +477,10 @@ class ShardedCheckpoint:
         records that intersect it (seeking via the shard-*.idx.json byte
         index); other leaves, or every leaf with ``like=None``, come
         back as host arrays, reading only the keys asked for.
-        ``last_restore_bytes_read`` records the data bytes read.
+        ``last_restore_bytes_read`` records the data bytes read (on a
+        remote root also split by source, ``last_restore_local_bytes``
+        and ``last_restore_wire_bytes``); every remote page is checked
+        against its digest before it is used.
 
         Restore also sweeps the port's replay page-spill files
         (best-effort): a restore marks a resume boundary, and spill files
@@ -447,12 +500,26 @@ class ShardedCheckpoint:
             check(step is not None,
                   f"no committed checkpoint under {self.root}")
         self.last_restore_bytes_read = 0
-        d = self._resolve_step_dir(step)
-        check(os.path.exists(os.path.join(d, "COMMIT")),
-              f"checkpoint step {step} is not committed")
-        with create_stream(os.path.join(d, "meta.json"), "r") as s:
-            meta = json_load(s)
-        index = self._load_index(d)
+        self.last_restore_local_bytes = 0
+        self.last_restore_peer_bytes = 0
+        self.last_restore_wire_bytes = 0
+        if self._remote:
+            sd = self._step_key(step)
+            check(self._remote_committed(sd),
+                  f"checkpoint step {step} is not committed")
+            meta = json_load(MemoryStream(
+                self._get_object(f"{sd}/meta.json")))
+            index = self._load_index_remote(sd)
+            # the fanout cut: stage the digests THIS rank owns (none
+            # without a peer tier)
+            self._prefetch_owned_pages(index)
+        else:
+            d = self._resolve_step_dir(step)
+            check(os.path.exists(os.path.join(d, "COMMIT")),
+                  f"checkpoint step {step} is not committed")
+            with create_stream(os.path.join(d, "meta.json"), "r") as s:
+                meta = json_load(s)
+            index = self._load_index(d)
         meta_shapes = {l["key"]: tuple(l["shape"])
                        for l in meta.get("leaves", [])}
         meta_dtypes = {l["key"]: np.dtype(l["dtype"])
@@ -480,9 +547,21 @@ class ShardedCheckpoint:
         return _unflatten(like, values), meta.get("user", {})
 
     def prefetch(self, step: Optional[int] = None) -> None:
-        """The reference warms a remote restore's page fanout; the port
-        has no remote roots."""
-        raise _not_ported("prefetch() (remote roots)")
+        """Warm this rank's fanout cut ahead of ``restore()``: wire-fetch
+        the pages ``content_owner`` assigns to this rank into the local
+        page store, so gang peers could take them from it. Remote roots
+        only; a no-op without a peer tier (always, in the port: the
+        tier waits for the status server plane)."""
+        check(self._remote,
+              "checkpoint.prefetch applies to remote (obj://) roots")
+        if step is None:
+            step = self.latest_step()
+            check(step is not None,
+                  f"no committed checkpoint under {self.root}")
+        sd = self._step_key(step)
+        check(self._remote_committed(sd),
+              f"checkpoint step {step} is not committed")
+        self._prefetch_owned_pages(self._load_index_remote(sd))
 
     # -- restore internals
 
@@ -550,16 +629,20 @@ class ShardedCheckpoint:
     def _read_entry(self, streams: Dict[str, Any], entry: dict,
                     cache: Optional[Dict[tuple, np.ndarray]] = None
                     ) -> np.ndarray:
-        loc = (entry["file"], entry["offset"])
+        loc = (entry.get("file"), entry.get("offset", entry.get("digest")))
         if cache is not None and loc in cache:
             return cache[loc]
-        s = streams.get(entry["file"])
-        if s is None:
-            s = streams[entry["file"]] = create_stream(entry["file"], "r")
-        s.seek(entry["offset"])
-        self.last_restore_bytes_read += entry["nbytes"]
-        _ckpt_count("restore_bytes", entry["nbytes"])
-        data = ser.read_ndarray(s)
+        if "digest" in entry:
+            data = self._read_page_record(entry)
+        else:
+            s = streams.get(entry["file"])
+            if s is None:
+                s = streams[entry["file"]] = create_stream(
+                    entry["file"], "r")
+            s.seek(entry["offset"])
+            self.last_restore_bytes_read += entry["nbytes"]
+            _ckpt_count("restore_bytes", entry["nbytes"])
+            data = ser.read_ndarray(s)
         if cache is not None:
             cache[loc] = data
         return data
@@ -642,3 +725,375 @@ class ShardedCheckpoint:
                 f"checkpoint leaf {key!r}: shards cover {covered} of "
                 f"{out.size} elements (missing shard files?)")
         return out
+
+    # -------------------------------------- remote (obj://) plane
+
+    def _step_key(self, step: int) -> str:
+        return f"step-{step:08d}"
+
+    def _key(self, rel: str) -> str:
+        return f"{self._obj_prefix}/{rel}" if self._obj_prefix else rel
+
+    def _client(self):
+        from dmlc_tpu_torch.io.objstore.fs import client
+        c = client()
+        check(c is not None,
+              f"checkpoint root {self.root!r}: no object store "
+              "configured (DMLC_TPU_OBJSTORE_ROOT / _ENDPOINT, or "
+              "dmlc_tpu_torch.io.objstore.configure)")
+        return c
+
+    @staticmethod
+    def _pages_store():
+        try:
+            from dmlc_tpu_torch.io.pagestore import PageStore
+            return PageStore.default()
+        except Exception:  # noqa: BLE001 — cache trouble != checkpoint failure
+            return None
+
+    @staticmethod
+    def _record_digest(arr: np.ndarray) -> str:
+        """Content address of one record: dtype + shape + bytes. The
+        digest, not the (step, writer) coordinates, names the page
+        object — an unchanged record hashes to the SAME object across
+        saves (incremental reuse) and across writers."""
+        h = hashlib.sha256()
+        h.update(arr.dtype.str.encode())
+        h.update(repr(tuple(arr.shape)).encode())
+        h.update(np.ascontiguousarray(arr))
+        return h.hexdigest()[:32]
+
+    @staticmethod
+    def _serialize_record(arr: np.ndarray) -> bytes:
+        buf = MemoryStream()
+        ser.write_ndarray(buf, arr)
+        return buf.getvalue()
+
+    def _get_object(self, rel: str,
+                    expected_len: Optional[int] = None) -> bytes:
+        """One whole-object GET under the ``io.objstore.get`` seam
+        (chaos injects here; a short payload retries under policy)."""
+        from dmlc_tpu_torch.resilience import inject as _inject
+        c = self._client()
+        key = self._key(rel)
+
+        def attempt():
+            data = _inject.corrupt(
+                "io.objstore.get", c.get(self._bucket, key, 0, None))
+            if expected_len is not None and len(data) != expected_len:
+                raise IOError(
+                    f"objstore: short GET on {self.root}/{rel}: got "
+                    f"{len(data)}/{expected_len} bytes")
+            return data
+
+        data = guarded("io.objstore.get", attempt)
+        _obj_count("get")
+        _obj_count("bytes", len(data))
+        _obj_count("bytes_served", len(data))
+        return data
+
+    def _remote_committed(self, sd: str) -> bool:
+        c = self._client()
+        try:
+            guarded("io.objstore.stat",
+                    lambda: c.head(self._bucket,
+                                   self._key(f"{sd}/COMMIT")))
+        except FileNotFoundError:
+            return False
+        _obj_count("stat")
+        return True
+
+    def _committed_steps_remote(self) -> List[int]:
+        c = self._client()
+        infos = guarded("io.objstore.list",
+                        lambda: c.list(self._bucket, self._obj_prefix))
+        _obj_count("list")
+        pat = re.compile(r"step-(\d+)/COMMIT$")
+        steps = {int(m.group(1)) for o in infos
+                 for m in [pat.search(o.key)] if m}
+        return sorted(steps)
+
+    # -- remote save
+
+    def _save_remote(self, step: int, tree: Any,
+                     metadata: Optional[Dict[str, Any]],
+                     writer: Optional[int],
+                     num_writers: Optional[int]) -> str:
+        """Each record streams to ``<root>/pages/<digest>.pg`` through
+        the objstore write plane (multipart past ``put_part_bytes``);
+        digests already present (this or any earlier save, locally
+        committed or HEAD-probed) upload NOTHING. The leaves leave the
+        device once, before the first wire call."""
+        rank, world = _rank_world()
+        if writer is None:
+            writer = rank
+        if num_writers is None:
+            num_writers = world
+        check(0 <= writer < num_writers,
+              f"checkpoint: writer {writer} outside num_writers "
+              f"{num_writers}")
+        c = self._client()
+        sd = self._step_key(step)
+        if writer == 0 and hasattr(c, "delete"):
+            # re-save of an existing step: it must not look committed
+            # while its indexes are being rebuilt
+            try:
+                c.delete(self._bucket, self._key(f"{sd}/COMMIT"))
+            except Exception:  # noqa: BLE001 — probe is best-effort
+                pass
+        leaves = [(k, _host(leaf)) for k, leaf in _flatten(tree)]
+        store = self._pages_store()
+        written = reused = 0
+        entries = []
+        for key, leaf in leaves:
+            for placement, data in self._addressable_shards(leaf):
+                arr = np.ascontiguousarray(data)
+                digest = self._record_digest(arr)
+                nbytes = self._reusable_nbytes(c, store, digest)
+                if nbytes is None:
+                    payload = self._serialize_record(arr)
+                    nbytes = len(payload)
+                    with create_stream(
+                            f"{self.root}/pages/{digest}.pg", "w") as s:
+                        s.write(payload)
+                    written += nbytes
+                    self._commit_local_page(store, digest, payload)
+                else:
+                    reused += nbytes
+                entries.append(
+                    {"key": key,
+                     "placement": [list(p) for p in placement],
+                     "digest": digest, "nbytes": nbytes})
+        with create_stream(
+                f"{self.root}/{sd}/shard-{writer}.idx.json", "w") as s:
+            json_dump({"version": _FORMAT_VERSION, "writer": writer,
+                       "entries": entries}, s)
+        self.last_save_bytes_written = written
+        self.last_save_bytes_reused = reused
+        _ckpt_count("save_bytes", written)
+        if writer == 0:
+            self._commit_remote(c, sd, step, leaves, metadata,
+                                num_writers)
+        return f"{self.root}/{sd}"
+
+    def _reusable_nbytes(self, c, store, digest: str) -> Optional[int]:
+        """Payload size when ``pages/<digest>.pg`` already exists — the
+        incremental-save dedup. A locally committed page stamped with
+        THIS root answers without any wire op; otherwise a HEAD probe
+        asks the store. None = upload needed."""
+        name = _PAGE_PREFIX + digest + ".pages"
+        if store is not None and store.exists(name):
+            stamp = store.stamp(name)
+            if (stamp and stamp.get("digest") == digest
+                    and stamp.get("root") == self.root
+                    and "nbytes" in stamp):
+                return int(stamp["nbytes"])
+        try:
+            info = guarded(
+                "io.objstore.stat",
+                lambda: c.head(self._bucket,
+                               self._key(f"pages/{digest}.pg")))
+        except FileNotFoundError:
+            return None
+        _obj_count("stat")
+        return int(info.size)
+
+    def _commit_local_page(self, store, digest: str,
+                           payload: bytes) -> None:
+        """Best-effort page-store commit of a page this process just
+        moved (saved or fetched): what the next incremental save and a
+        restore in this process recognize without a wire op.
+        fingerprint None = content-addressed, immortal to the stale
+        sweep."""
+        if store is None:
+            return
+        from dmlc_tpu_torch.io.codec import encode_page, tag
+        try:
+            store.commit_bytes(
+                _PAGE_PREFIX + digest + ".pages",
+                encode_page(payload, 0), fingerprint=None,
+                meta={"digest": digest, "nbytes": len(payload),
+                      "codec": tag(0), "root": self.root})
+        except Exception:  # noqa: BLE001 — cache trouble != I/O failure
+            pass
+
+    def _commit_remote(self, c, sd: str, step: int, leaves,
+                       metadata: Optional[Dict[str, Any]],
+                       num_writers: int) -> None:
+        """Writer 0's commit: meta.json, then wait for every writer's
+        index (the remote analogue of the local save's barrier), then
+        the COMMIT marker — a torn or in-flight save never lists as a
+        committed step."""
+        meta = {
+            "version": _FORMAT_VERSION,
+            "step": step,
+            "num_processes": num_writers,
+            "leaves": [{"key": k, "shape": list(leaf.shape),
+                        "dtype": leaf.dtype.str}
+                       for k, leaf in leaves],
+            "user": metadata or {},
+        }
+        with create_stream(f"{self.root}/{sd}/meta.json", "w") as s:
+            json_dump(meta, s)
+        pat = re.compile(r"shard-(\d+)\.idx\.json$")
+        deadline = time.monotonic() + 120.0
+        while True:
+            infos = guarded("io.objstore.list",
+                            lambda: c.list(self._bucket, self._key(sd)))
+            _obj_count("list")
+            have = {int(m.group(1)) for o in infos
+                    for m in [pat.search(o.key)] if m}
+            if len(have & set(range(num_writers))) == num_writers:
+                break
+            check(time.monotonic() < deadline,
+                  f"checkpoint step {step}: waited 120s for "
+                  f"{num_writers} shard indexes, have {sorted(have)}")
+            time.sleep(0.05)
+        with create_stream(f"{self.root}/{sd}/COMMIT", "w") as s:
+            s.write(b"")
+
+    # -- remote restore
+
+    def _load_index_remote(self, sd: str) -> Dict[str, List[dict]]:
+        c = self._client()
+        infos = guarded("io.objstore.list",
+                        lambda: c.list(self._bucket, self._key(sd)))
+        _obj_count("list")
+        pat = re.compile(r"shard-\d+\.idx\.json$")
+        out: Dict[str, List[dict]] = {}
+        for o in infos:
+            if not pat.search(o.key):
+                continue
+            rel = (o.key[len(self._obj_prefix):].lstrip("/")
+                   if self._obj_prefix else o.key)
+            idx = json_load(MemoryStream(
+                self._get_object(rel, expected_len=o.size)))
+            check(idx.get("version", _FORMAT_VERSION) == _FORMAT_VERSION,
+                  "checkpoint shard index version mismatch")
+            for e in idx.get("entries", []):
+                out.setdefault(e["key"], []).append({
+                    "key": e["key"],
+                    "placement": tuple(tuple(p)
+                                       for p in e["placement"]),
+                    "digest": e["digest"],
+                    "nbytes": int(e["nbytes"]),
+                })
+        return out
+
+    @staticmethod
+    def _tier():
+        """The gang peer tier: None in the port (it waits for the
+        status server plane), so a restore takes every page from the
+        local page store or the wire, as the reference's does outside
+        a gang."""
+        return None
+
+    def _prefetch_owned_pages(self, index: Dict[str, List[dict]]) -> None:
+        """The fanout cut: of all the checkpoint's digests, wire-fetch
+        (and page-commit) the ones ``content_owner`` assigns to THIS
+        rank at the CURRENT world. Without a peer tier there is nothing
+        to serve peers from, so nothing is staged."""
+        # preserve marks from an explicit prefetch(): those pages'
+        # wire cost is still unreported, and the first store-read
+        # must say "wire", not "local"
+        self._prefetched = getattr(self, "_prefetched", None) or set()
+        t = self._tier()
+        if t is None:
+            return
+        from dmlc_tpu_torch.rendezvous.elastic import content_owner
+        store = self._pages_store()
+        digests: Dict[str, int] = {}
+        for entries in index.values():
+            for e in entries:
+                digests[e["digest"]] = e["nbytes"]
+        for digest in sorted(digests):
+            if content_owner(digest, t.world) != t.self_index:
+                continue
+            name = _PAGE_PREFIX + digest + ".pages"
+            if store is not None and store.exists(name):
+                continue
+            try:
+                payload = self._wire_page(digest, digests[digest])
+            except Exception:  # noqa: BLE001 — assembly retries
+                continue
+            self._commit_local_page(store, digest, payload)
+            self._prefetched.add(digest)
+
+    def _read_page_record(self, entry: dict) -> np.ndarray:
+        digest, nbytes = entry["digest"], entry["nbytes"]
+        payload, src = self._page_payload(digest, nbytes)
+        arr = ser.read_ndarray(MemoryStream(payload))
+        if self._record_digest(arr) != digest:
+            raise DMLCError(
+                f"checkpoint page {digest}: content mismatch "
+                "(corrupt page object)")
+        # a 0-d leaf's page holds it as one element (the saver's
+        # np.ascontiguousarray, which the digest covers): give the
+        # record its placement's shape back
+        shape = tuple(hi - lo for lo, hi in entry["placement"])
+        if arr.shape != shape:
+            arr = arr.reshape(shape)
+        self.last_restore_bytes_read += nbytes
+        _ckpt_count("restore_bytes", nbytes)
+        _ckpt_count(f"restore.{src}_bytes", nbytes)
+        attr = f"last_restore_{src}_bytes"
+        setattr(self, attr, getattr(self, attr) + nbytes)
+        return arr
+
+    def _page_payload(self, digest: str,
+                      nbytes: int) -> Tuple[bytes, str]:
+        """One content-addressed page, tiered: local page store →
+        singleflight → wire. Returns (payload, source) with source in
+        {"local", "wire"} — a page this rank itself prefetched over the
+        wire reports as "wire" once (the honest split), then
+        "local"."""
+        from dmlc_tpu_torch.io.objstore.fs import _SINGLEFLIGHT, _count_sf
+        name = _PAGE_PREFIX + digest + ".pages"
+        store = self._pages_store()
+        payload = self._local_page(store, name, nbytes)
+        if payload is not None:
+            if digest in getattr(self, "_prefetched", ()):
+                self._prefetched.discard(digest)
+                return payload, "wire"
+            return payload, "local"
+        key = (_PAGE_PREFIX, digest)
+        if _SINGLEFLIGHT.lead(key):
+            _count_sf("lead")
+            try:
+                return self._fetch_page(store, digest, nbytes)
+            finally:
+                _SINGLEFLIGHT.done(key)
+        _count_sf("dedup")
+        payload = self._local_page(store, name, nbytes)
+        if payload is not None:
+            return payload, "local"
+        return self._fetch_page(store, digest, nbytes)
+
+    def _local_page(self, store, name: str,
+                    nbytes: int) -> Optional[bytes]:
+        if store is None:
+            return None
+        from dmlc_tpu_torch.io.codec import decode_page
+        s = store.open_read(name)
+        if s is None:
+            return None
+        with s:
+            data = s.read_all()
+        try:
+            data = decode_page(data)
+        except DMLCError:
+            data = b""  # corrupt frame: treat as torn below
+        if len(data) != nbytes:
+            store.delete(name)
+            return None
+        return data
+
+    def _fetch_page(self, store, digest: str,
+                    nbytes: int) -> Tuple[bytes, str]:
+        payload = self._wire_page(digest, nbytes)
+        self._commit_local_page(store, digest, payload)
+        return payload, "wire"
+
+    def _wire_page(self, digest: str, nbytes: int) -> bytes:
+        return self._get_object(f"pages/{digest}.pg",
+                                expected_len=nbytes)

@@ -1,13 +1,21 @@
-"""ONE compressed-page codec for every on-disk page byte.
+"""ONE compressed-page codec for every on-disk/on-wire page byte.
 
 Copy of ``dmlc_tpu/io/codec.py`` with its imports rewritten to
 ``dmlc_tpu_torch``: the frame and its contract are the reference's byte
 for byte, so a page either package encodes decodes in the other. A
-zlib-backed page codec with a self-describing header; in the port its
-one seam is ``RoundSpillWriter``'s v2 round pages (``data/row_iter.py``):
-steady spill replay reads fewer bytes per round at the cost of one
-decode. Trimmed: the reference's other two seams (hydrated objstore
-blocks and the objstore wire), whose planes are not ported.
+zlib-backed page codec with a self-describing header, applied at the
+reference's three seams —
+
+- ``RoundSpillWriter`` round pages (``data/row_iter.py``): steady spill
+  replay reads fewer bytes per round;
+- hydrated remote blocks (``io/objstore/fs.py`` → ``io/pagestore.py``
+  entries, the sidecar stamps the codec): the page cache holds fewer
+  bytes per object;
+- the objstore wire itself (``EmulatedObjectStore.get_encoded``): a
+  cold ``obj://`` epoch moves fewer wire bytes, decompressed under the
+  ``io.objstore.get`` retry seam and counted honestly
+  (``objstore.bytes`` = compressed on-wire bytes,
+  ``objstore.bytes_served`` = decompressed payload).
 
 Page frame (little-endian, 20-byte header)::
 

@@ -248,10 +248,11 @@ class CUDAFileSystem(FileSystem):
     def get_path_info(self, uri: URI) -> FileInfo:
         info = self._local().get_path_info(URI(_inner_path(uri)))
         return FileInfo(path=_SCHEME + info.path, size=info.size,
-                        type=info.type)
+                        type=info.type, mtime_ns=info.mtime_ns)
 
     def list_directory(self, uri: URI) -> List[FileInfo]:
-        return [FileInfo(path=_SCHEME + fi.path, size=fi.size, type=fi.type)
+        return [FileInfo(path=_SCHEME + fi.path, size=fi.size,
+                         type=fi.type, mtime_ns=fi.mtime_ns)
                 for fi in self._local().list_directory(URI(_inner_path(uri)))]
 
 

@@ -1,13 +1,16 @@
-"""Virtual filesystem registry with URI-scheme dispatch (local files only).
+"""Virtual filesystem registry with URI-scheme dispatch.
 
 Reference: src/io/filesys.{h,cc} — FileSystem::GetInstance(URI),
 Open/OpenForRead/GetPathInfo/ListDirectory, URI{protocol,host,name},
 FileInfo{path,size,type}; src/io/local_filesys.{h,cc}.
 
-Only ``file://`` (and bare paths) is registered. Every other scheme
-raises a DMLCError saying it is not ported yet. A local stat and a
-directory listing are the reference's resilience seams
-(``io.filesys.stat``, ``io.filesys.list``).
+``file://`` (and bare paths) is registered here; ``cuda://``
+(io/cuda_fs.py) and ``obj://`` with its ``s3://`` alias
+(io/objstore) register themselves when ``dmlc_tpu_torch`` is imported.
+Every other scheme (``hdfs://``, ``azure://``, ``gs://``) raises a
+DMLCError saying it is not ported yet. A local stat and a directory
+listing are the reference's resilience seams (``io.filesys.stat``,
+``io.filesys.list``).
 """
 
 from __future__ import annotations
@@ -61,10 +64,14 @@ class URI:
 
 @dataclass
 class FileInfo:
-    """Reference: FileInfo{path, size, type}."""
+    """Reference: FileInfo{path, size, type}. ``mtime_ns`` extends the
+    reference shape so fingerprint stamps (io/pagestore.py) can stat
+    any registered scheme through one seam; backends without a
+    modification clock report 0."""
     path: str
     size: int
     type: str  # "file" | "directory"
+    mtime_ns: int = 0
 
 
 class FileSystem:
@@ -130,7 +137,8 @@ class LocalFileSystem(FileSystem):
         # resilience seam io.filesys.stat (retry policy + fault plan)
         st = guarded("io.filesys.stat", lambda: os.stat(uri.name))
         ftype = "directory" if _stat.S_ISDIR(st.st_mode) else "file"
-        return FileInfo(path=uri.name, size=st.st_size, type=ftype)
+        return FileInfo(path=uri.name, size=st.st_size, type=ftype,
+                        mtime_ns=st.st_mtime_ns)
 
     def list_directory(self, uri: URI) -> List[FileInfo]:
         def scan() -> List[FileInfo]:
@@ -141,7 +149,7 @@ class LocalFileSystem(FileSystem):
                 ftype = ("directory" if _stat.S_ISDIR(st.st_mode)
                          else "file")
                 out.append(FileInfo(path=full, size=st.st_size,
-                                    type=ftype))
+                                    type=ftype, mtime_ns=st.st_mtime_ns))
             return out
         return guarded("io.filesys.list", scan)
 

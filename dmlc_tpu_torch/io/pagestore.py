@@ -1,9 +1,11 @@
 """ONE fingerprint-stamped on-disk page store for every cache tier.
 
 Copy of ``dmlc_tpu/io/pagestore.py`` with its imports rewritten to
-``dmlc_tpu_torch``. The port's two on-disk cache layers — DiskRowIter's
-binary row pages and RoundSpillWriter's round pages (data/row_iter.py)
-— route their bytes through :class:`PageStore`:
+``dmlc_tpu_torch``. The port's on-disk cache layers — DiskRowIter's
+binary row pages and RoundSpillWriter's round pages (data/row_iter.py),
+hydrated ``obj://`` blocks (io/objstore/fs.py) and remote checkpoints'
+content-addressed pages (io/checkpoint.py) — route their bytes through
+:class:`PageStore`:
 
 - **one commit protocol** — writes land in a tmp file and are published
   by an atomic ``os.replace`` under a resilience ``guarded()`` site
@@ -12,21 +14,24 @@ binary row pages and RoundSpillWriter's round pages (data/row_iter.py)
   complete cache;
 - **one staleness stamp** — every committed entry carries a sidecar
   ``<entry>.meta.json`` recording the SOURCE fingerprint
-  (``[[path, size, mtime_ns], ...]``), and :meth:`PageStore.sweep` is
-  the one sweep that removes entries whose sources changed, dead
+  (``[[path, size, mtime_ns], ...]``, scheme-aware: remote ``obj://``
+  sources stat through the FileSystem seam), and :meth:`PageStore.sweep`
+  is the one sweep that removes entries whose sources changed, dead
   writers' files, and orphaned tmps/sidecars;
 - **one byte budget** — committed bytes are accounted per store root and
   LRU-evicted (by entry mtime, bumped on every read) when a budget is
-  set (:meth:`PageStore.set_budget`; ``Pipeline.cache(page_budget_bytes=)``),
+  set (``DMLC_TPU_TORCH_PAGESTORE_BUDGET``, :meth:`PageStore.set_budget`,
+  ``Pipeline.cache(page_budget_bytes=)``),
   skipping entries pinned by this process or owned by live writers;
 - **one telemetry surface** — ``pagestore.hit`` / ``pagestore.miss`` /
   ``pagestore.evict`` counters of the obs metrics registry.
 
-Trimmed from the reference: ``PageStore.default()`` with its
-``DMLC_TPU_PAGESTORE_BUDGET`` and ``commit_bytes``, which serve the
-objstore plane (not ported).
+The remote I/O plane (``dmlc_tpu_torch.io.objstore``) hydrates
+ranged-GET blocks into :meth:`PageStore.default`, which is what makes a
+second epoch over an ``obj://`` URI wire-free: the blocks steady replay
+wants are already local pages.
 
-The default root differs from the reference's (see
+The default root and its two variables differ from the reference's (see
 :func:`default_store_dir`): both packages name spill files by the same
 rule, so one shared root would let one package's ``close()`` delete the
 other's pages.
@@ -49,9 +54,10 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check
 __all__ = [
     "PageStore", "PageWriter", "default_store_dir",
     "stat_uri", "stat_fingerprint", "fingerprint_fresh",
-    "ENV_STORE_DIR", "META_SUFFIX",
+    "ENV_BUDGET", "ENV_STORE_DIR", "META_SUFFIX",
 ]
 
+ENV_BUDGET = "DMLC_TPU_TORCH_PAGESTORE_BUDGET"
 ENV_STORE_DIR = "DMLC_TPU_TORCH_PAGESTORE_DIR"
 META_SUFFIX = ".meta.json"
 
@@ -63,9 +69,10 @@ _NAME_PID_RE = re.compile(r"-p(\d+)-\d+\.pages(\.tmp)?$")
 
 
 def default_store_dir() -> str:
-    """The port's default root: spill pages and derived caches land
-    here unless a caller names a directory — one dir, one sweep, one
-    budget. ``DMLC_TPU_TORCH_PAGESTORE_DIR`` overrides it (read per
+    """The port's default root: spill pages, derived caches, and
+    hydrated remote blocks land here unless a caller names a directory
+    — one dir, one sweep, one budget.
+    ``DMLC_TPU_TORCH_PAGESTORE_DIR`` overrides it (read per
     call, so a gang worker sharing a host with its peers can give each
     rank its own store); else ``<tempdir>/dmlc_tpu_torch_spill``. Both
     differ from the reference's (``DMLC_TPU_PAGESTORE_DIR``,
@@ -113,9 +120,9 @@ def stat_uri(uri: str) -> Tuple[int, int, int, int]:
     path — THE stat rule for fingerprints. Local, ``file://`` and
     ``cuda://`` paths use os.stat (full richness); other registered
     schemes stat through their FileSystem (``get_path_info``), reporting
-    0 for the fields the port's FileInfo does not carry. Raises OSError
-    for missing local files, DMLCError for a scheme that is not
-    ported."""
+    0 for the fields object stores do not have. Raises OSError for
+    missing local files, FileNotFoundError/DMLCError from remote
+    backends (DMLCError also for a scheme that is not ported)."""
     from dmlc_tpu_torch.io.cuda_fs import local_path
     from dmlc_tpu_torch.io.filesys import URI, FileSystem
     u = URI(local_path(uri))
@@ -123,7 +130,7 @@ def stat_uri(uri: str) -> Tuple[int, int, int, int]:
         st = os.stat(u.name)
         return (st.st_size, st.st_mtime_ns, st.st_ctime_ns, st.st_ino)
     info = FileSystem.get_instance(u).get_path_info(u)
-    return (info.size, 0, 0, 0)
+    return (info.size, info.mtime_ns, 0, 0)
 
 
 def stat_fingerprint(paths) -> List[List[Any]]:
@@ -251,7 +258,8 @@ class PageWriter:
 class PageStore:
     """A directory of atomically-committed, fingerprint-stamped page
     files with byte-budget LRU accounting. One instance per root
-    (:meth:`at` caches them)."""
+    (:meth:`at` caches them); :meth:`default` is the shared store every
+    derived cache and hydrated remote block uses."""
 
     _by_root: Dict[str, "PageStore"] = {}
     _cls_lock = threading.Lock()
@@ -286,6 +294,18 @@ class PageStore:
                 cls._by_root[key] = store
             elif byte_budget is not None:
                 store.byte_budget = byte_budget
+        return store
+
+    @classmethod
+    def default(cls) -> "PageStore":
+        store = cls.at(default_store_dir())
+        if store.byte_budget is None:
+            env = os.environ.get(ENV_BUDGET)
+            if env:
+                try:
+                    store.byte_budget = int(env)
+                except ValueError:
+                    pass
         return store
 
     @classmethod
@@ -338,6 +358,20 @@ class PageStore:
                tmp_suffix: Optional[str] = None) -> PageWriter:
         return PageWriter(self, name, fingerprint=fingerprint, meta=meta,
                           commit_site=commit_site, tmp_suffix=tmp_suffix)
+
+    def commit_bytes(self, name: str, data: bytes, fingerprint=None,
+                     meta: Optional[dict] = None) -> str:
+        """One-shot write-and-commit of a fully materialized payload
+        (the content-addressed checkpoint pages' shape:
+        ``fingerprint=None`` entries are immortal to the stale sweep).
+        Returns the entry path; aborts cleanly on failure."""
+        w = self.writer(name, fingerprint=fingerprint, meta=meta)
+        try:
+            w.write(data)
+        except Exception:
+            w.abort()
+            raise
+        return w.commit()
 
     def lookup(self, name: str, fingerprint=None) -> Optional[str]:
         """Entry path when present and fresh, else None. Counts ONE

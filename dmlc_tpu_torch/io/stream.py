@@ -1,12 +1,13 @@
-"""Byte-stream abstraction over local files and memory.
+"""Byte-stream abstraction over files, memory and remote objects.
 
 Reference: include/dmlc/io.h — Stream (Read/Write), SeekStream (Seek/Tell);
 include/dmlc/memory_io.h — MemoryStringStream.
 
 Python semantics: ``read(n)`` returns up to ``n`` bytes (b"" at EOF), matching
 the reference's size_t-returning Read; ``read_exact``/``write`` helpers carry
-the serializer. ``create_stream`` opens local paths and ``file://`` URIs;
-other schemes are not ported yet (see io/filesys.py).
+the serializer. ``create_stream`` opens any scheme the VFS registry
+knows (see io/filesys.py): local paths, ``file://``, ``cuda://``, and
+``obj://``/``s3://`` through the object-store plane.
 
 Reads and opens are the reference's resilience seams (sites
 ``io.stream.read`` and ``io.stream.open``, see :class:`FileStream` and

@@ -18,15 +18,18 @@ Counterpart of ``dmlc_tpu/obs``; the ported part of it:
   wait past the threshold gives one diagnosis report;
 - :mod:`~dmlc_tpu_torch.obs.flight` — the crash flight recorder: an
   always-on trace ring and a post-mortem bundle on an uncaught
-  exception, a fatal signal, an injected crash or a confirmed stall.
+  exception, a fatal signal, an injected crash or a confirmed stall;
+- :mod:`~dmlc_tpu_torch.obs.rpc` — the RPC trace-context plane: client
+  and server spans of the object-store wire calls and the per-edge
+  latency table (the ``rpc`` collector).
 
 Not ported yet, each waiting for its own slice: the live status server
 (``serve``), the time series (``timeseries``; the watchdog and the
 flight recorder read its ring lazily, so their ``history`` stays empty),
 gang aggregation (``aggregate``), the control plane (``control``), SLOs
 (``slo``), the sampling profiler and its renderers (``profile``), the
-bottleneck analysis (``analyze``) and the RPC trace-context plane
-(``rpc``), with the ``obs.scrape`` retry site that waits for ``serve``.
+bottleneck analysis (``analyze``), with the ``obs.scrape`` retry site
+that waits for ``serve``.
 """
 
 from dmlc_tpu_torch.obs.export import (

@@ -3,12 +3,13 @@
 Copy of ``dmlc_tpu/resilience/policy.py`` with its imports rewritten to
 ``dmlc_tpu_torch``. ``delay_for`` keeps the reference's
 ``zlib.crc32(site)`` jitter, so both packages give the same backoff
-schedule for a site. Trimmed: :func:`guarded` does not tell an RPC
-tracing plane about an injected failure (``obs.rpc`` is not ported).
-The built-in site table keeps the reference's entries for sites whose
-planes the port does not have yet (``obs.scrape``, ``io.objstore.*``,
-``rendezvous.*``). Seams wrap host I/O only: a CUDA error surfaces as a
-``RuntimeError``, which the default classifier never retries.
+schedule for a site. When an injected fault kills an attempt,
+:func:`guarded` tells the RPC tracing plane (``obs.rpc``), so the retry
+still shows as one span an attempt. The built-in site table keeps the
+reference's entries for sites whose planes the port does not have yet
+(``obs.scrape``, ``io.objstore.peer``, ``rendezvous.*``). Seams wrap
+host I/O only: a CUDA error surfaces as a ``RuntimeError``, which the
+default classifier never retries.
 
 Reference: the production dmlc-core survives worker faults through its
 ``recover`` handshake + ``DMLC_NUM_ATTEMPT`` rejoin (SURVEY §5.3); the
@@ -460,7 +461,15 @@ def guarded(site: str, fn: Callable[[], Any],
     def attempt() -> Any:
         live = _inject._plan
         if live is not None:
-            live.fire(site)
+            try:
+                live.fire(site)
+            except BaseException:
+                # the fault killed the attempt before its transport
+                # opened a client span — tell the tracing plane so the
+                # retry still shows as one countable span per attempt
+                from dmlc_tpu_torch.obs import rpc as _rpc
+                _rpc.note_injected_failure(site)
+                raise
         return fn()
 
     return pol.call(site, attempt)

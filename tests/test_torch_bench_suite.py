@@ -85,6 +85,38 @@ def test_spill_replay_matches_reference(dirs):
     json.dumps(got)
 
 
+def test_remote_hydrate_matches_reference(dirs, tmp_path, monkeypatch):
+    """Config 11 at 6 MB (two 4 MB blocks): the reference's JSON keys,
+    the same content hash, the same GET counts and wire bytes, cold and
+    compressed, and warm epochs with no GET, in both packages."""
+    import dmlc_tpu.io.objstore.fs as ref_ofs
+    import dmlc_tpu_torch.io.objstore.fs as ofs
+    for name in (ofs.ENV_ROOT, ofs.ENV_ENDPOINT):
+        monkeypatch.delenv(name, raising=False)
+    corpus = os.path.join(dirs, "dmlc_tpu_torch_bench_suite.criteo.libsvm")
+    _criteo_shaped(corpus, mb=6)
+    os.link(corpus, str(tmp_path / "ref.remote.libsvm"))
+    saved, ref_saved = ofs.options(), ref_ofs.options()
+    try:
+        got = bench_suite.bench_remote_hydrate(6, work=dirs)
+        want = ref_bench.bench_remote_hydrate(6)
+    finally:
+        ofs._options.update(saved)
+        ref_ofs._options.update(ref_saved)
+    assert ofs.client() is None and ref_ofs.client() is None
+    assert set(got) == set(want)
+    assert set(got["compressed"]) == set(want["compressed"])
+    for k in ("hash", "bytes", "cold_gets", "cold_get_bytes", "warm_gets",
+              "wire", "config"):
+        assert got[k] == want[k], k
+    for k in ("cold_gets", "cold_wire_bytes", "warm_gets", "wire_ratio"):
+        assert got["compressed"][k] == want["compressed"][k], k
+    assert got["bytes"] > 4 << 20 and got["cold_gets"] >= 2
+    assert got["warm_gets"] == 0 and got["compressed"]["warm_gets"] == 0
+    assert got["pagestore_hit_rate"] == 1.0
+    json.dumps(got)
+
+
 def test_main_prints_one_line_a_config(dirs, monkeypatch, capsys):
     calls = []
     monkeypatch.setattr(bench_suite, "CONFIGS", {
@@ -219,8 +251,8 @@ def test_configs_table_holds_the_recordio_configs():
     assert {n: name for n, (name, _) in bench_suite.CONFIGS.items()} == {
         1: "libsvm", 2: "csv", 3: "recordio", 4: "prefetch", 5: "parquet",
         6: "indexed_shuffled", 7: "multiprocess", 8: "page_replay",
-        10: "spill_replay", 14: "recio_native", 17: "parquet_native",
-        18: "image_record"}
+        10: "spill_replay", 11: "remote_hydrate", 14: "recio_native",
+        17: "parquet_native", 18: "image_record"}
     for n in bench_suite.CONFIGS:
         assert bench_suite.CONFIGS[n][0] == ref_bench.CONFIGS[n][0]
 

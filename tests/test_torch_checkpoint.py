@@ -425,16 +425,32 @@ def test_two_rank_gloo_save_restores_in_one_process(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda tmp: ck.ShardedCheckpoint("obj://bucket/ck"),
-    lambda tmp: ck.ShardedCheckpoint(tmp).prefetch(),
-    lambda tmp: ck.ShardedCheckpoint(tmp).save(1, _tree(), writer=0,
-                                               num_writers=2),
     lambda tmp: ck.ShardedCheckpoint(tmp).restore(like=_tree(),
                                                   sharding_tree={}),
-], ids=["remote_root", "prefetch", "writers", "sharding_tree"])
+], ids=["sharding_tree"])
 def test_parts_left_out_raise_by_name(tmp_path, call):
     with pytest.raises(DMLCError, match="not ported"):
         call(str(tmp_path / "r"))
+
+
+@pytest.mark.parametrize("call,message", [
+    (lambda c, tree: c.prefetch(),
+     "checkpoint.prefetch applies to remote (obj://) roots"),
+    (lambda c, tree: c.save(1, tree, writer=0, num_writers=2),
+     "writer/num_writers apply to remote (obj://) roots"),
+], ids=["prefetch", "writers"])
+def test_local_root_refusals_are_the_references(tmp_path, call, message):
+    """``prefetch`` and ``writer``/``num_writers`` apply to remote roots
+    only: on a local root the port refuses them as the reference does,
+    with the reference's message."""
+    import re
+
+    from dmlc_tpu.utils.logging import DMLCError as RefDMLCError
+    with pytest.raises(DMLCError, match=re.escape(message)):
+        call(ck.ShardedCheckpoint(str(tmp_path / "port")), _tree())
+    with pytest.raises(RefDMLCError, match=re.escape(message)):
+        call(ref_ck.ShardedCheckpoint(str(tmp_path / "ref")),
+             {"x": np.arange(4, dtype=np.float32)})
 
 
 # ------------------------------------------------------------ json_util

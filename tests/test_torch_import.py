@@ -99,16 +99,26 @@ NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
                "dmlc_tpu_torch.obs.flight",
                "dmlc_tpu_torch.data.csv_parser",
                "dmlc_tpu_torch.data.parquet_parser",
-               "dmlc_tpu_torch.io.indexed_recordio_split")
+               "dmlc_tpu_torch.io.indexed_recordio_split",
+               "dmlc_tpu_torch.obs.rpc",
+               "dmlc_tpu_torch.io.objstore",
+               "dmlc_tpu_torch.io.objstore.emulator",
+               "dmlc_tpu_torch.io.objstore.fs",
+               "dmlc_tpu_torch.io.objstore.multipart",
+               "dmlc_tpu_torch.io.objstore.http_client",
+               "dmlc_tpu_torch.rendezvous",
+               "dmlc_tpu_torch.rendezvous.elastic")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_transfer_and_checkpoint_modules_import_alone(module):
     """The transfer probe, the multi-process bench worker, the checkpoint
     plane and its JSON helpers, the trace and split planes' modules, the
-    resilience plane, watchdog and flight recorder, and the csv, Parquet
-    and indexed-RecordIO modules import in a fresh interpreter without
-    jax or dmlc_tpu (each is also in the AST scan above)."""
+    resilience plane, watchdog and flight recorder, the csv, Parquet
+    and indexed-RecordIO modules, and the object-store plane (with the
+    RPC trace plane and the ownership rule) import in a fresh
+    interpreter without jax or dmlc_tpu (each is also in the AST scan
+    above)."""
     path = os.path.join(REPO, *module.split("."))
     path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
             else path + ".py")
@@ -117,6 +127,38 @@ def test_transfer_and_checkpoint_modules_import_alone(module):
             "bad = sorted(k for k in sys.modules\n"
             "             if k.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'dmlc_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+HTTP_CLIENT_FILES = ("dmlc_tpu_torch/io/objstore/http_client.py",)
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_only_the_objstore_wire_client_imports_http_client(path):
+    """The real HTTP wire client is the one module of the port that
+    speaks ``http.client``, and ``import dmlc_tpu_torch`` does not load
+    it (``test_import_does_not_load_the_wire_client``)."""
+    if "http" in set(_imported_roots(path)):
+        assert os.path.relpath(path, REPO) in HTTP_CLIENT_FILES
+
+
+def test_import_does_not_load_the_wire_client():
+    """``import dmlc_tpu_torch`` registers ``obj://`` and ``s3://`` and
+    leaves the objstore wire client unimported (torch itself imports
+    ``http.client``, so the probe is the port's module)."""
+    code = ("import sys\n"
+            "import dmlc_tpu_torch\n"
+            "from dmlc_tpu_torch.io.filesys import FileSystem\n"
+            "assert {'obj://', 's3://'} <= set(FileSystem._schemes)\n"
+            "bad = [k for k in sys.modules\n"
+            "       if k == 'dmlc_tpu_torch.io.objstore.http_client'\n"
+            "       or k.split('.')[0] in ('jax', 'dmlc_tpu')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -54,8 +54,11 @@ def test_fingerprint_fresh_and_stale(tmp_path):
     assert fingerprint_fresh(fp) is False
     assert fingerprint_fresh(None) is None
     assert fingerprint_fresh([[str(tmp_path / "gone"), 1, 2]]) is False
-    # a scheme the port has no filesystem for: unknowable, never stale
+    # s3:// is registered (the object-store plane), but with no store
+    # configured the source is unknowable, never stale: the reference's
+    # answer
     assert fingerprint_fresh([["s3://b/k", 1, 2]]) is None
+    assert ref_pagestore.fingerprint_fresh([["s3://b/k", 1, 2]]) is None
 
 
 def test_default_roots_differ_and_honour_their_variables(tmp_path,

@@ -204,11 +204,36 @@ def test_rowblock_to_device_keeps_layout_dtypes(tmp_path):
     assert dev["index"].data_ptr() != block.index.ctypes.data  # a copy
 
 
-@pytest.mark.parametrize("uri", ["s3://bucket/key.libsvm",
-                                 "hdfs://nn/a.libsvm"])
+@pytest.mark.parametrize("uri", ["hdfs://nn/a.libsvm"])
 def test_unported_uris_raise(uri):
     with pytest.raises(DMLCError, match="not ported"):
         InputSplit.create(uri, 0, 1)
+
+
+@pytest.mark.parametrize("uri", ["s3://bucket/key.libsvm",
+                                 "obj://bucket/key.libsvm"])
+def test_unconfigured_object_store_raises_the_references_error(
+        uri, monkeypatch):
+    """``s3://`` and ``obj://`` are registered; with no object store
+    configured a split over one raises the reference's actionable error
+    (it names DMLC_TPU_OBJSTORE_ROOT), as the reference's does."""
+    import dmlc_tpu.io.objstore as ref_objstore
+    from dmlc_tpu.io.input_split import InputSplit as RefInputSplit
+    from dmlc_tpu.utils.logging import DMLCError as RefDMLCError
+    from dmlc_tpu_torch.io import objstore
+    for name in (objstore.ENV_ROOT, objstore.ENV_ENDPOINT):
+        monkeypatch.delenv(name, raising=False)
+    port_client, ref_client = objstore.client(), ref_objstore.client()
+    objstore.configure(None)
+    ref_objstore.configure(None)
+    try:
+        with pytest.raises(DMLCError, match="DMLC_TPU_OBJSTORE_ROOT"):
+            InputSplit.create(uri, 0, 1)
+        with pytest.raises(RefDMLCError, match="DMLC_TPU_OBJSTORE_ROOT"):
+            RefInputSplit.create(uri, 0, 1)
+    finally:
+        objstore.configure(port_client)
+        ref_objstore.configure(ref_client)
 
 
 def test_cache_uri_raises(tmp_path):
