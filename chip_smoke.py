@@ -253,7 +253,15 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    config 7's epochs 2-3 replayed; config 3 through the native reader,
    its records' hash equal to the host reader's in ``cuda_ingest``;
    configs 14 and 18 assembled in the engine, their native and sharded
-   streams equal to the python golden's);
+   streams equal to the python golden's); then configs 15
+   (``peer_hydrate``, a 2-process gang reading the 256 MB linear corpus
+   from ``obj://`` through the peer tier) and 21
+   (``ckpt_restore_fanout``, a 3-writer save under a rendezvous and a
+   2-rank fanout restore of 64 MB, and the multipart leg: 48 MB up as
+   8 MB parts, 8 at once, on a wire shaped to 2 ms and 0.05 GB/s, in
+   ``/dev/shm`` where it exists, read back equal, at least 2x faster
+   than one single-shot PUT, the reference's bar), their own checks
+   holding;
 11b. the object-store plane (``remote_path``), over one on-disk
    emulator under the run's directory behind the reference's modeled
    wire (2 ms a request, 4 GB/s; 4 MB blocks, 4 coalesced, 4 GETs at
@@ -274,10 +282,32 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    bit (from the page store and cold, the local and wire bytes adding
    up to the checkpoint's pages), an unchanged re-save with no page PUT,
    and 3 steps on each restored model matching 3 on the model never
-   interrupted; then config 21's multipart leg alone: 48 MB up as 8 MB
-   parts, 8 at once, on a wire shaped to 2 ms and 0.05 GB/s (in
-   ``/dev/shm`` where it exists), read back equal, at least 2x faster
-   than one single-shot PUT (the reference's bar);
+   interrupted;
+11c. the gang plane (``gang_path``), over a second on-disk emulator
+   behind the same wire: a ``launch_local(2, ..., serve_ports=True,
+   rendezvous=True)`` gang of CUDA processes (two on this card, no
+   ``torch.distributed`` group between them), each rank with its own
+   page store, status server and rendezvous client, reads the first
+   32 MB of the linear corpus from ``obj://`` cold through the objstore
+   peer tier (1 MB blocks in groups of 4, owned by rank in turn) and
+   warm: each rank's wire bytes at most 0.60 of the object, peer bytes
+   on both, no GET warm, every read's sha256 the local file's; each rank
+   trains its own ``SparseLinearModel(10^6)`` on the parts
+   ``rendezvous.elastic.assign_parts(4, world, rank)`` gives it under
+   its rendezvous view (K1, K2, K8 and K9 once a step, the loss
+   falling, its padded batches hashing as the local chain's over the
+   same parts); rank 0 scrapes rank 1's ``/metrics`` (a valid
+   exposition, ``dmlc_objstore_peer_get_total`` > 0) and ``/healthz``
+   and its own ``/gang`` (``membership.world`` 2) while the gang is
+   alive; the ranks save their models to ``obj://`` as one 2-writer
+   ``ShardedCheckpoint`` (``meta.json`` stamped with the rendezvous
+   membership); then a second 2-rank gang with fresh page stores runs
+   ``prefetch``, a barrier and ``restore`` onto the card: the weights
+   bit for bit the saved ones, the ranks' splits complementary (each
+   page over the wire once in the gang: no local bytes, one rank's
+   wire the other's peer), gang wire at most 1.3x the checkpoint, peer
+   bytes > 0, and one step each through K1, K2, K8 and K9 on a batch of
+   the local corpus;
 12. the resilience plane (``chaos_path``), after the bench configs:
    the spill linear path (the mesh of 4 parts, 1 MB replay budget; parse,
    parse and spill, pages x 3) over a directory holding the linear
@@ -550,14 +580,26 @@ HIGGS_LEARNING_RATE = 0.5
 # objstore's default 4 MB blocks, 4 coalesced, 4 GETs at once. The
 # training leg uploads the first REMOTE_TRAIN_MB of the linear corpus,
 # cut at a line: an obj:// epoch parses in Python (the native engine
-# reads local files only), about 7 MB/s. Config 21's multipart leg
-# (the reference's bench_ckpt_restore_fanout, its write plane alone):
-# 48 MB as 8 MB parts, 8 at once, on a wire of 2 ms and 0.05 GB/s, at
-# least 2x faster than one single-shot PUT.
+# reads local files only), about 7 MB/s.
 REMOTE_LATENCY_S, REMOTE_GBPS = 0.002, 4.0
 REMOTE_TRAIN_MB = 32
-MULTIPART_MB, MULTIPART_PART_MB, MULTIPART_PARALLEL = 48, 8, 8
-MULTIPART_GBPS, MULTIPART_MIN_SPEEDUP = 0.05, 2.0
+# The gang plane (gang_path, phase 11c): gangs of GANG_RANKS CUDA
+# processes on this card behind remote_path's wire, each rank its own
+# page store. The training gang reads the first REMOTE_TRAIN_MB of the
+# linear corpus through the peer tier in GANG_BLOCK_MB blocks, groups of
+# GANG_COALESCE owned by rank in turn (config 15's reference settings),
+# a rank's wire bytes at most GANG_PEER_SLACK of the object; a non-owner
+# waits on a 404 for the owner's hydration as the reference's worker
+# does (GANG_PEER_ATTEMPTS, 0.05-0.4 s apart) before it takes the wire.
+# It trains on the parts of GANG_PARTS that assign_parts gives each
+# rank. The restore gang's wire is at most GANG_CKPT_WIRE_MAX of the
+# checkpoint (config 21's bar). bench_twins runs config 15 at
+# PEER_HYDRATE_MB over the linear corpus and config 21 at CKPT_FANOUT_MB
+# (the reference's default --mb).
+GANG_RANKS, GANG_PARTS, GANG_TIMEOUT_S = 2, 4, 300
+GANG_BLOCK_MB, GANG_COALESCE, GANG_PEER_ATTEMPTS = 1, 4, 8
+GANG_PEER_SLACK, GANG_CKPT_WIRE_MAX = 0.60, 1.3
+PEER_HYDRATE_MB, CKPT_FANOUT_MB = 256, 64
 
 
 def log(msg: str) -> None:
@@ -4706,11 +4748,19 @@ def bench_twins(path, work, records_hash, indexed_hash):
     (``indexed_shuffled``) over the indexed RecordIO that
     write_format_corpora put at the suite's name: through the native
     reader, its order and content equal to the Python split's (its own
-    check) and its digest ``indexed_hash`` (indexed_leg's). Each JSON is
-    printed as a line. The suite's files are removed after."""
+    check) and its digest ``indexed_hash`` (indexed_leg's). Then config
+    15 (``peer_hydrate``) at PEER_HYDRATE_MB over the linear corpus (a
+    2-process gang through the peer tier: each rank's wire at most
+    GANG_PEER_SLACK of it, peer bytes on both, warm epochs with no GET)
+    and config 21 (``ckpt_restore_fanout``) at CKPT_FANOUT_MB (a
+    3-writer save under a rendezvous, a 2-rank fanout restore, an
+    incremental re-save, the multipart leg), each holding its own checks
+    and these. Each JSON is printed as a line. The suite's files are
+    removed after."""
     from dmlc_tpu_torch.bench_suite import (
-        bench_csv, bench_image_record, bench_indexed_shuffled, bench_libsvm,
-        bench_multiprocess_ingest, bench_page_replay, bench_prefetch,
+        bench_ckpt_restore_fanout, bench_csv, bench_image_record,
+        bench_indexed_shuffled, bench_libsvm, bench_multiprocess_ingest,
+        bench_page_replay, bench_peer_hydrate, bench_prefetch,
         bench_recio_native, bench_recordio, bench_spill_replay,
     )
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
@@ -4731,7 +4781,11 @@ def bench_twins(path, work, records_hash, indexed_hash):
                ("libsvm", lambda: bench_libsvm(FILE_MB, work=work)),
                ("csv", lambda: bench_csv(CSV_MB, work=work)),
                ("indexed_shuffled", lambda: bench_indexed_shuffled(
-                   INDEXED_MB, work=work)))
+                   INDEXED_MB, work=work)),
+               ("peer_hydrate", lambda: bench_peer_hydrate(
+                   PEER_HYDRATE_MB, work=work)),
+               ("ckpt_restore_fanout", lambda: bench_ckpt_restore_fanout(
+                   CKPT_FANOUT_MB, work=work)))
     out = {}
     try:
         for name, fn in configs:
@@ -4742,7 +4796,11 @@ def bench_twins(path, work, records_hash, indexed_hash):
     finally:
         for n in os.listdir(work):
             if n.startswith(prefix):
-                os.unlink(os.path.join(work, n))
+                p = os.path.join(work, n)
+                if os.path.isdir(p):
+                    shutil.rmtree(p, ignore_errors=True)
+                else:
+                    os.unlink(p)
     require(out["prefetch"]["to_device"] and out["prefetch"]["hosts"] == 4,
             f"config 4: {out['prefetch']}")
     require(out["multiprocess"]["replay_epochs"] == 2,
@@ -4771,6 +4829,17 @@ def bench_twins(path, work, records_hash, indexed_hash):
             and out["indexed_shuffled"]["hash"] == indexed_hash,
             f"config 6: {out['indexed_shuffled']} (indexed_leg's digest "
             f"{indexed_hash})")
+    peer = out["peer_hydrate"]
+    require(peer["warm_gets"] == [0, 0]
+            and all(b > 0 for b in peer["peer_bytes_per_rank"])
+            and max(peer["single_rank_wire_frac"]) <= GANG_PEER_SLACK,
+            f"config 15: {peer}")
+    fan = out["ckpt_restore_fanout"]
+    require(fan["per_rank_wire_frac"] <= GANG_PEER_SLACK
+            and fan["gang_wire_frac"] <= GANG_CKPT_WIRE_MAX
+            and fan["restore_split"]["peer"] > 0
+            and fan["incremental_frac"] <= 0.2,
+            f"config 21: {fan}")
     return out
 
 
@@ -4810,12 +4879,15 @@ def remote_config11(linear, work):
     return out
 
 
-def remote_chain(uri):
+def remote_chain(uri, part=0, parts=1):
     """The obj:// training chain: the golden parse (engine "auto" on a
-    remote URI), the Python padded assembly, pinned async H2D."""
+    remote URI), the Python padded assembly, pinned async H2D; of a
+    local path, the native parse and padded assembly. ``part`` of
+    ``parts`` of the input."""
     import torch
     from dmlc_tpu_torch.pipeline import Pipeline
-    return (Pipeline.from_uri(uri).parse(format="libsvm")
+    return (Pipeline.from_uri(uri, part_index=part, num_parts=parts)
+            .parse(format="libsvm")
             .batch(ROW_BUCKET, pad=True, row_bucket=ROW_BUCKET,
                    nnz_bucket=NNZ_BUCKET)
             .to_device(torch.device("cuda"), window="auto").build())
@@ -5009,61 +5081,9 @@ def remote_checkpoint(model, resume, lr, work, em, step):
             "restore_s": times, "resave": resave}
 
 
-def multipart_leg(work):
-    """Config 21's multipart leg alone: MULTIPART_MB of seeded bytes up
-    through ``create_stream("obj://...", "w")`` (MULTIPART_PART_MB parts,
-    MULTIPART_PARALLEL at once) and as one single-shot PUT, on a wire
-    shaped to 2 ms and MULTIPART_GBPS (tmpfs where there is one); the
-    object reads back equal, at least 6 parts went up, and the multipart
-    upload is MULTIPART_MIN_SPEEDUP times faster or more."""
-    import numpy as np
-    import dmlc_tpu_torch.io.objstore as objstore
-    from dmlc_tpu_torch.io.objstore.emulator import EmulatedObjectStore
-    from dmlc_tpu_torch.io.stream import create_stream
-    shm = "/dev/shm"
-    root = (os.path.join(shm, f"dmlc_chip_smoke_mp.{os.getpid()}")
-            if os.path.isdir(shm) else os.path.join(work, "mp.objroot"))
-    shaped = EmulatedObjectStore(root, latency_s=REMOTE_LATENCY_S,
-                                 bandwidth_gbps=MULTIPART_GBPS)
-    payload = np.random.default_rng(21).integers(
-        0, 256, MULTIPART_MB << 20, dtype=np.uint8).tobytes()
-    saved = objstore.options()
-    try:
-        objstore.configure(shaped, put_part_bytes=MULTIPART_PART_MB << 20,
-                           put_parallel=MULTIPART_PARALLEL)
-        t0 = time.perf_counter()
-        with create_stream("obj://bench/mp.bin", "w") as s:
-            s.write(payload)
-        multi_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        shaped.put("bench", "single.bin", payload)
-        single_s = time.perf_counter() - t0
-        counts = shaped.counters()
-        same = shaped.get("bench", "mp.bin") == payload
-    finally:
-        objstore.configure(None, put_part_bytes=saved["put_part_bytes"],
-                           put_parallel=saved["put_parallel"])
-        shutil.rmtree(root, ignore_errors=True)
-    speedup = single_s / multi_s
-    require(same and counts["put_parts"] >= 6,
-            f"config 21 multipart: read back equal {same}, {counts}")
-    require(speedup >= MULTIPART_MIN_SPEEDUP,
-            f"config 21 multipart: {multi_s:.3f} s against a single-shot "
-            f"PUT's {single_s:.3f} s ({speedup:.2f}x < "
-            f"{MULTIPART_MIN_SPEEDUP})")
-    log(f"config 21 multipart leg ({root.split('/dmlc')[0]}): "
-        f"{MULTIPART_MB} MB in {counts['put_parts']} parts "
-        f"{multi_s:.3f} s ({(MULTIPART_MB << 20) / multi_s / 1e9:.3f} "
-        f"GB/s) against one PUT {single_s:.3f} s "
-        f"({(MULTIPART_MB << 20) / single_s / 1e9:.3f} GB/s): "
-        f"{speedup:.2f}x")
-    return {"multi_s": multi_s, "single_s": single_s, "speedup": speedup,
-            "put_parts": counts["put_parts"]}
-
-
 def remote_path(linear, lr, work):
-    """Phase 11b: config 11, training from obj://, the remote checkpoint
-    and config 21's multipart leg (see the module docstring). Returns
+    """Phase 11b: config 11, training from obj:// and the remote
+    checkpoint (see the module docstring). Returns
     (the obj:// training epoch's launches, stats)."""
     import dmlc_tpu_torch.io.objstore as objstore
     t0 = time.perf_counter()
@@ -5079,9 +5099,394 @@ def remote_path(linear, lr, work):
     finally:
         objstore.configure(None)
         shutil.rmtree(objroot, ignore_errors=True)
-    out["multipart"] = multipart_leg(work)
     log(f"remote path: {time.perf_counter() - t0:.1f} s")
     return launches, out
+
+
+# --------------------------------------------------------------- phase 11c
+
+GANG_PEER_WORKER = r"""
+import hashlib, json, os, sys, time
+t_start = time.time()
+(mode, uri, local, ck_uri, out_dir, rows, nnz_bucket, features, lr, parts,
+ block_bytes, coalesce, attempts) = sys.argv[1:14]
+rows, nnz_bucket, features, parts = (int(rows), int(nnz_bucket),
+                                     int(features), int(parts))
+rank = int(os.environ["DMLC_TPU_TASK_ID"])
+world = int(os.environ["DMLC_TPU_NUM_WORKER"])
+# each rank its own page store, named before the package is imported: a
+# shared store would serve peers' pages through the filesystem
+os.environ["DMLC_TPU_TORCH_PAGESTORE_DIR"] = os.path.join(
+    out_dir, f"store-{mode}-{rank}")
+import numpy as np
+import torch
+if not torch.cuda.is_available():
+    raise RuntimeError("gang worker: no CUDA card")
+cuda = torch.device("cuda")
+import dmlc_tpu_torch.io.objstore as objstore
+from dmlc_tpu_torch import rendezvous
+from dmlc_tpu_torch.bench_ckpt_worker import fanout_restore
+from dmlc_tpu_torch.bench_peer_worker import barrier, epoch
+from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+from dmlc_tpu_torch.models.linear import SparseLinearModel
+from dmlc_tpu_torch.obs.serve import scrape, serve_if_env
+from dmlc_tpu_torch.ops import csr
+from dmlc_tpu_torch.ops import step as step_ops
+from dmlc_tpu_torch.pipeline import Pipeline
+from dmlc_tpu_torch.rendezvous.elastic import assign_parts
+from dmlc_tpu_torch.resilience import RetryPolicy, set_policy
+wrappers = {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
+            "logistic_step": step_ops.logistic_step,
+            "sgd_update": step_ops.sgd_update}
+
+def gang_barrier(phase):
+    barrier(out_dir, f"{mode}-{phase}", rank, world, timeout_s=240.0)
+
+def batch_hash(batch):
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        a = np.ascontiguousarray(batch[k].cpu().numpy())
+        h.update(k.encode() + a.dtype.str.encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+def chain(path, part):
+    return (Pipeline.from_uri(path, part_index=part, num_parts=parts)
+            .parse(format="libsvm")
+            .batch(rows, pad=True, row_bucket=rows, nnz_bucket=nnz_bucket)
+            .to_device(cuda, window="auto").build())
+
+def save_npy(prefix, state):
+    for k, v in state.items():
+        np.save(os.path.join(out_dir, f"{prefix}-{k}.npy"),
+                v.detach().cpu().numpy())
+
+srv = serve_if_env()
+if srv is None:
+    raise RuntimeError("gang worker needs launch_local(serve_ports=...)")
+objstore.configure(block_bytes=int(block_bytes), coalesce=int(coalesce))
+# patience at the peer seam: a 404 is usually the owner mid-hydration
+set_policy("io.objstore.peer", RetryPolicy(
+    max_attempts=int(attempts), base_delay_s=0.05, max_delay_s=0.4))
+out = {"rank": rank, "mode": mode}
+if mode == "train":
+    cli = rendezvous.install_if_env()
+    if cli is None:
+        raise RuntimeError("gang worker needs launch_local(rendezvous=True)")
+    # the whole gang in this member's view before the first read: the
+    # roster orders the peer tier's owners, the same order on every rank
+    deadline = time.monotonic() + 30
+    while cli.world < world:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rendezvous world {cli.world}")
+        cli.heartbeat()
+        time.sleep(0.05)
+    gang_barrier("start")
+    out["cold"] = epoch(uri)
+    gang_barrier("cold")
+    out["warm"] = epoch(uri)
+    # ownership of the parts, from one view
+    view = cli.view()
+    mine = assign_parts(parts, view["world"], view["rank"])
+    model = SparseLinearModel(features, learning_rate=float(lr),
+                              device=cuda)
+    for fn in wrappers.values():
+        fn.launches = 0
+    kept, losses = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in mine:
+        with chain(uri, p) as built:
+            for batch in built:
+                kept.append((p, batch))
+                losses.append(model.train_step(batch))
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    hashes = {}
+    for p, b in kept:
+        hashes.setdefault(str(p), []).append(batch_hash(b))
+    losses = [float(x) for x in losses]
+    out.update(parts=mine, view=view, steps=len(kept), hashes=hashes,
+               loss_first=losses[0], loss_last=losses[-1],
+               finite=all(x == x and abs(x) != float("inf")
+                          for x in losses))
+    gang_barrier("trained")
+    if rank == 0:
+        # the gang is alive: rank 1 waits at the "done" barrier
+        from urllib.request import urlopen
+        ports = [int(p) for p in
+                 os.environ["DMLC_TPU_SERVE_PORTS"].split(",")]
+        with urlopen(f"http://127.0.0.1:{ports[1]}/metrics",
+                     timeout=10) as r:
+            text = r.read().decode()
+        values = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                values[name] = float(value)
+        out["scrape"] = {
+            "metrics_lines": len(text.splitlines()),
+            "peer_get_total": values.get("dmlc_objstore_peer_get_total"),
+            "healthz": scrape(ports[1], path="/healthz"),
+            "gang": scrape(ports[0], path="/gang")}
+    state = {k: v for k, v in model.state_dict().items()}
+    save_npy(f"train-{rank}", state)
+    t0 = time.perf_counter()
+    ShardedCheckpoint(ck_uri).save(1, {f"rank{rank}": state},
+                                   metadata={"parts": str(mine)},
+                                   writer=rank, num_writers=world)
+    out["save_s"] = time.perf_counter() - t0
+    out["save_bytes"] = sum(v.numel() * v.element_size()
+                            for v in state.values())
+else:
+    ck = ShardedCheckpoint(ck_uri)
+    like = {f"rank{r}": SparseLinearModel(features, device=cuda).state_dict()
+            for r in range(world)}
+    state, user, report = fanout_restore(ck, out_dir, rank, world,
+                                         like=like,
+                                         sync=torch.cuda.synchronize)
+    out.update(report, on_card=all(v.device.type == "cuda"
+                                   for leaves in state.values()
+                                   for v in leaves.values()))
+    for r in range(world):
+        save_npy(f"restore-{rank}-{r}", state[f"rank{r}"])
+    # one step on this rank's restored model, a batch of the local copy
+    model = SparseLinearModel(features, learning_rate=float(lr),
+                              device=cuda)
+    model.load_state_dict(state[f"rank{rank}"])
+    with chain(local, rank) as built:
+        batch = next(iter(built))
+        for fn in wrappers.values():
+            fn.launches = 0
+        loss = float(model.train_step(batch))
+        torch.cuda.synchronize()
+    out["step"] = {"loss": loss,
+                   "launches": {k: fn.launches for k, fn in wrappers.items()}}
+out["worker_s"] = time.time() - t_start
+gang_barrier("done")
+tmp = os.path.join(out_dir, f"{mode}-{rank}.tmp")
+with open(tmp, "w") as f:
+    json.dump(out, f)
+os.replace(tmp, os.path.join(out_dir, f"{mode}-{rank}.json"))
+"""
+
+
+def _gang(script, args, out_dir, prefix, env=None, **kw):
+    """One launch_local gang of GANG_RANKS processes of ``script`` with
+    ``args`` (this checkout first on PYTHONPATH, ``env`` beside it); every
+    rank must exit 0. Returns (each rank's ``<prefix>-<rank>.json`` in
+    ``out_dir``, spawn-to-exit seconds)."""
+    from dmlc_tpu_torch.parallel.launch import launch_local
+    t0 = time.perf_counter()
+    codes = launch_local(GANG_RANKS, [sys.executable, script] + args,
+                         env={"PYTHONPATH": REPO, **(env or {})},
+                         timeout=GANG_TIMEOUT_S, **kw)
+    secs = time.perf_counter() - t0
+    require(codes == [0] * GANG_RANKS,
+            f"gang: the gang writing {prefix}-*.json in {out_dir} exited "
+            f"{codes}")
+    outs = []
+    for r in range(GANG_RANKS):
+        with open(os.path.join(out_dir, f"{prefix}-{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, secs
+
+
+def _local_part_hashes(local):
+    """The padded batches' hashes of the local chain over each of
+    GANG_PARTS parts."""
+    out = {}
+    for p in range(GANG_PARTS):
+        with remote_chain(local, p, GANG_PARTS) as built:
+            out[str(p)] = [batch_hash({k: v.cpu() for k, v in b.items()})
+                           for b in built]
+    return out
+
+
+def gang_path(linear, lr, work):
+    """Phase 11c: the gang plane (see the module docstring): a training
+    gang that hydrates its corpus through the objstore peer tier, trains
+    a model a rank on the card and saves them as one 2-writer checkpoint
+    (``train`` mode of GANG_PEER_WORKER, under ``serve_ports=True,
+    rendezvous=True``), then a restore gang with the checkpoint fanout
+    (``restore`` mode). Returns the phase's numbers."""
+    import numpy as np
+    import dmlc_tpu_torch.io.objstore as objstore
+    t_phase = time.perf_counter()
+    script = os.path.join(work, "gang_peer_worker.py")
+    with open(script, "w") as f:
+        f.write(GANG_PEER_WORKER)
+    with open(linear, "rb") as f:
+        head = f.read(REMOTE_TRAIN_MB << 20)
+    head = head[:head.rindex(b"\n") + 1]
+    local = os.path.join(work, "gang_train.libsvm")
+    with open(local, "wb") as f:
+        f.write(head)
+    size = len(head)
+    local_sha = hashlib.sha256(head).hexdigest()
+    objroot = os.path.join(work, "gang_objroot")
+    em = objstore.configure(root=objroot)
+    try:
+        em.put("smoke", "gang/train.libsvm", head)
+    finally:
+        objstore.configure(None)
+    out_dir = os.path.join(work, "gang")
+    os.makedirs(out_dir)
+    env = {objstore.ENV_ROOT: objroot,
+           objstore.ENV_LATENCY: str(REMOTE_LATENCY_S),
+           objstore.ENV_GBPS: str(REMOTE_GBPS)}
+    ck_uri = "obj://smoke/gang/ck"
+    args = ["obj://smoke/gang/train.libsvm", local, ck_uri, out_dir,
+            str(ROW_BUCKET), str(NNZ_BUCKET), str(NUM_FEATURES), str(lr),
+            str(GANG_PARTS), str(GANG_BLOCK_MB << 20), str(GANG_COALESCE),
+            str(GANG_PEER_ATTEMPTS)]
+    try:
+        train, train_s = _gang(script, ["train"] + args, out_dir, "train",
+                               env, serve_ports=True, rendezvous=True)
+        want = _local_part_hashes(local)
+        # 1. the peer-hydrated read
+        for r in train:
+            cold, warm = r["cold"], r["warm"]
+            require(cold["sha256"] == warm["sha256"] == local_sha
+                    and cold["bytes"] == size,
+                    f"gang path: rank {r['rank']}'s obj:// reads differ "
+                    "from the local file")
+            require(cold["counters"]["objstore.bytes"]
+                    <= GANG_PEER_SLACK * size,
+                    f"gang path: rank {r['rank']} moved "
+                    f"{cold['counters']['objstore.bytes']} wire bytes of "
+                    f"{size} (> {GANG_PEER_SLACK}); the ranks' cold reads: "
+                    f"{[(x['cold']['counters'], x['cold']['wall_s']) for x in train]}")
+            require(cold["counters"]["objstore.peer.bytes"] > 0,
+                    f"gang path: rank {r['rank']}'s peer tier is inert: "
+                    f"{cold['counters']}")
+            require(warm["counters"]["objstore.get"] == 0,
+                    f"gang path: rank {r['rank']}'s warm read made "
+                    f"{warm['counters']['objstore.get']} GETs")
+        # 2. the training
+        seen = sorted(p for r in train for p in r["parts"])
+        require(seen == list(range(GANG_PARTS)),
+                f"gang path: the ranks' parts {seen} do not cover "
+                f"{GANG_PARTS} parts once")
+        for r in train:
+            steps = r["steps"]
+            require(steps > 0 and r["launches"]
+                    == {k: steps for k in PATH_KERNELS["linear"]},
+                    f"gang path: rank {r['rank']} took {steps} steps with "
+                    f"launches {r['launches']}")
+            require(r["finite"] and r["loss_last"] < r["loss_first"],
+                    f"gang path: rank {r['rank']}'s loss "
+                    f"{r['loss_first']} -> {r['loss_last']}")
+            for p in r["parts"]:
+                require(r["hashes"][str(p)] == want[str(p)],
+                        f"gang path: rank {r['rank']}'s padded batches of "
+                        f"part {p} differ from the local chain's")
+        sc = train[0]["scrape"]
+        require(sc["metrics_lines"] > 10 and sc["peer_get_total"]
+                and sc["peer_get_total"] > 0,
+                f"gang path: rank 1's /metrics as rank 0 scraped it: {sc}")
+        require(sc["healthz"]["ok"] is True and sc["healthz"]["rank"] == 1,
+                f"gang path: rank 1's /healthz: {sc['healthz']}")
+        require(sc["gang"]["membership"]["world"] == GANG_RANKS,
+                f"gang path: rank 0's /gang: {sc['gang']}")
+        with open(os.path.join(objroot, "smoke", "gang", "ck",
+                               "step-00000001", "meta.json")) as f:
+            meta = json.load(f)
+        stamp = meta.get("rendezvous") or {}
+        require(stamp.get("gang") == "local"
+                and stamp.get("member") == "worker-0"
+                and meta["num_processes"] == GANG_RANKS,
+                f"gang path: the checkpoint's meta.json {meta}")
+        page_bytes = sum(
+            os.path.getsize(os.path.join(d, n))
+            for d, _, names in os.walk(os.path.join(objroot, "smoke",
+                                                    "gang", "ck", "pages"))
+            for n in names)
+        # 3. the fanout restore
+        restore, restore_s = _gang(script, ["restore"] + args, out_dir,
+                                   "restore", env, serve_ports=True)
+        for r in range(GANG_RANKS):
+            for k in ("w", "b"):
+                saved = np.load(os.path.join(out_dir, f"train-{r}-{k}.npy"))
+                for q in range(GANG_RANKS):
+                    got = np.load(os.path.join(out_dir,
+                                               f"restore-{q}-{r}-{k}.npy"))
+                    require(got.dtype == saved.dtype
+                            and got.shape == saved.shape
+                            and got.tobytes() == saved.tobytes(),
+                            f"gang path: rank {q} restored rank {r}'s {k} "
+                            "not bit for bit")
+        s0, s1 = restore[0]["split"], restore[1]["split"]
+        require(s0["local"] == s1["local"] == 0
+                and s0["wire"] == s1["peer"] and s1["wire"] == s0["peer"]
+                and s0["wire"] + s1["wire"] == restore[0]["restored_bytes"],
+                f"gang path: the restore splits are not complementary: "
+                f"{s0}, {s1}")
+        gang_wire = sum(r["wire_bytes"] for r in restore)
+        require(gang_wire <= GANG_CKPT_WIRE_MAX * page_bytes
+                and s0["peer"] + s1["peer"] > 0,
+                f"gang path: the restore gang moved {gang_wire} wire bytes "
+                f"for {page_bytes} of pages, peer {s0['peer'] + s1['peer']}")
+        for r in restore:
+            require(r["on_card"] and r["step"]["launches"]
+                    == {k: 1 for k in PATH_KERNELS["linear"]}
+                    and r["step"]["loss"] == r["step"]["loss"],
+                    f"gang path: rank {r['rank']}'s restored step: "
+                    f"{r['step']}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(objroot, ignore_errors=True)
+        os.unlink(local)
+    cold_s = max(r["cold"]["wall_s"] for r in train)
+    warm_s = max(r["warm"]["wall_s"] for r in train)
+    stats = {
+        "bytes": size, "cold_gbps": size / cold_s / 1e9,
+        "warm_gbps": size / warm_s / 1e9,
+        "wire_bytes": [r["cold"]["counters"]["objstore.bytes"]
+                       for r in train],
+        "peer_bytes": [r["cold"]["counters"]["objstore.peer.bytes"]
+                       for r in train],
+        "served_bytes": [r["cold"]["counters"]["objstore.peer.served_bytes"]
+                         for r in train],
+        "peer_miss": [r["cold"]["counters"]["objstore.peer.miss"]
+                      for r in train],
+        "steps": [r["steps"] for r in train],
+        "steps_per_s": [r["steps"] / r["train_s"] for r in train],
+        "save_gbps": [r["save_bytes"] / r["save_s"] / 1e9 for r in train],
+        "page_bytes": page_bytes,
+        "restore_gbps": [r["restored_bytes"] / r["restore_s"] / 1e9
+                         for r in restore],
+        "fanout_gbps": [r["restored_bytes"] / r["wall_s"] / 1e9
+                        for r in restore],
+        "restore_split": [r["split"] for r in restore],
+        "restore_wire": [r["wire_bytes"] for r in restore],
+        "gang_s": {"train": train_s, "restore": restore_s},
+        "worker_wall_s": {"train": [r["worker_s"] for r in train],
+                          "restore": [r["worker_s"] for r in restore]},
+    }
+    log(f"gang path: 2 CUDA processes on the card, each its own page store, "
+        f"over {size} bytes of obj://: cold {stats['cold_gbps']:.4f} GB/s, "
+        f"warm {stats['warm_gbps']:.4f} GB/s (the slower rank); wire bytes "
+        f"{stats['wire_bytes']}, peer bytes {stats['peer_bytes']}, served "
+        f"{stats['served_bytes']}, peer misses {stats['peer_miss']}; "
+        f"SparseLinearModel(10^6) a rank on parts "
+        f"{[r['parts'] for r in train]}: steps {stats['steps']}, "
+        f"{[round(x, 2) for x in stats['steps_per_s']]} steps/s, losses "
+        f"{[(round(r['loss_first'], 4), round(r['loss_last'], 4)) for r in train]}"
+        f", batches hashing as the local chain's; /metrics of rank 1 "
+        f"({sc['metrics_lines']} lines, peer GETs {sc['peer_get_total']}), "
+        f"/healthz, /gang world {sc['gang']['membership']['world']}; saved "
+        f"at {[round(x, 3) for x in stats['save_gbps']]} GB/s a writer "
+        f"({page_bytes} bytes of pages, meta.json stamped); restored bit "
+        f"for bit onto the card at "
+        f"{[round(x, 3) for x in stats['restore_gbps']]} GB/s (with the "
+        f"prefetch and barrier {[round(x, 3) for x in stats['fanout_gbps']]}"
+        f"), splits {stats['restore_split']}, restore wire "
+        f"{stats['restore_wire']}; one step a rank after; gangs spawn to "
+        f"exit {train_s:.2f} s and {restore_s:.2f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return stats
 
 
 def transfer_probe():
@@ -6117,7 +6522,6 @@ STALL_NTH_READ = 200
 # the gang: rank 1 hard-crashes at its third batch, before its first
 # restart only
 GANG_FAULTS = "site=gang.block,fault=crash,nth=3,rank=1,attempt=0"
-GANG_TIMEOUT_S = 300
 # config 10 under --chaos: page reads, the spill's commit and a stat
 BENCH_CHAOS_PLAN = ("site=io.stream.read,fault=ioerror,p=0.002;"
                     "site=spill.commit,fault=ioerror,times=1;"
@@ -6439,27 +6843,6 @@ os.replace(tmp, os.path.join(out_dir, f"out-{rank}.json"))
 '''
 
 
-def _gang(script, path, out_dir, lr, **kw):
-    """A launch_local gang of 2 GANG_WORKER processes over ``path``;
-    returns (exit codes, each rank's output, w and b, wall seconds)."""
-    import numpy as np
-    from dmlc_tpu_torch.parallel.launch import launch_local
-    os.makedirs(out_dir)
-    t0 = time.perf_counter()
-    codes = launch_local(
-        2, [sys.executable, script, path, out_dir, str(ROW_BUCKET),
-            str(NNZ_BUCKET), str(NUM_FEATURES), str(lr)],
-        env={"PYTHONPATH": REPO}, timeout=GANG_TIMEOUT_S, **kw)
-    secs = time.perf_counter() - t0
-    outs, weights = {}, {}
-    for r in range(2):
-        with open(os.path.join(out_dir, f"out-{r}.json")) as f:
-            outs[r] = json.load(f)
-        weights[r] = (np.load(os.path.join(out_dir, f"w-{r}.npy")),
-                      np.load(os.path.join(out_dir, f"b-{r}.npy")))
-    return codes, outs, weights, secs
-
-
 def chaos_gang(path, work, lr):
     """A fault-free gang of 2 workers, then the same gang with rank 1
     crashing (``os._exit``) at its third batch and restarted by the
@@ -6469,25 +6852,34 @@ def chaos_gang(path, work, lr):
     the fault-free gang's, its weights within the step tolerance, K1,
     K2, K8 and K9 once a step in every worker. The workers form no
     ``torch.distributed`` group."""
+    import numpy as np
     import torch
     from dmlc_tpu_torch.obs.metrics import REGISTRY
     from dmlc_tpu_torch.resilience import RestartPolicy
     script = os.path.join(work, "gang_worker.py")
     with open(script, "w") as f:
         f.write(GANG_WORKER)
-    codes, clean, clean_w, clean_s = _gang(
-        script, path, os.path.join(work, "gang_clean"), lr)
-    require(codes == [0, 0], f"gang: the fault-free gang exited {codes}")
+
+    def run(name, **kw):
+        out_dir = os.path.join(work, name)
+        os.makedirs(out_dir)
+        outs, secs = _gang(
+            script, [path, out_dir, str(ROW_BUCKET), str(NNZ_BUCKET),
+                     str(NUM_FEATURES), str(lr)], out_dir, "out", **kw)
+        weights = [tuple(np.load(os.path.join(out_dir, f"{k}-{r}.npy"))
+                         for k in ("w", "b")) for r in range(GANG_RANKS)]
+        return outs, weights, secs
+
+    clean, clean_w, clean_s = run("gang_clean")
     trace_dir = os.path.join(work, "gang_trace")
     before = REGISTRY.counter("resilience.restart").value
-    codes, chaos, chaos_w, chaos_s = _gang(
-        script, path, os.path.join(work, "gang_chaos"), lr,
-        faults=GANG_FAULTS, trace_dir=trace_dir,
+    chaos, chaos_w, chaos_s = run(
+        "gang_chaos", faults=GANG_FAULTS, trace_dir=trace_dir,
         restart_policy=RestartPolicy(max_restarts=2, backoff_base_s=0.05))
     restarts = REGISTRY.counter("resilience.restart").value - before
-    require(codes == [0, 0] and restarts == 1,
-            f"gang: the crashed gang exited {codes} after {restarts} "
-            "restarts; want [0, 0] after one")
+    require(restarts == 1,
+            f"gang: the crashed gang exited [0, 0] after {restarts} "
+            "restarts; want one")
     with open(os.path.join(trace_dir, "trace-gang.json")) as f:
         events = json.load(f)["traceEvents"]
     names = [e.get("name") for e in events]
@@ -6826,8 +7218,11 @@ def main() -> None:
                                      stats["cuda_ingest"]["records_hash"],
                                      stats["format"]["indexed"]["hash"])
         # the object-store plane: config 11, the linear model trained
-        # from obj://, its remote checkpoint, config 21's multipart leg
+        # from obj:// and its remote checkpoint
         _, stats["remote"] = remote_path(linear, LEARNING_RATE, work)
+        # the gang plane: a peer-hydrated training gang and a fanout
+        # restore gang, two CUDA processes each on this card
+        stats["gang"] = gang_path(linear, LEARNING_RATE, work)
         # the resilience plane last: its gang's worker processes and its
         # chaos-armed bench config come after every traced phase
         stats["chaos"] = chaos_path(linear, linear_size, LEARNING_RATE,

@@ -33,7 +33,11 @@ policies at the host I/O seams, seeded fault injection, gang
 supervision with restarts), and the object-store plane
 (``dmlc_tpu_torch.io.objstore``: ``obj://`` and ``s3://`` reads that
 hydrate the page store, the multipart writer, the HTTP client, and
-remote ``ShardedCheckpoint`` roots).
+remote ``ShardedCheckpoint`` roots), and the gang plane: the live
+status server (``dmlc_tpu_torch.obs.serve``), the objstore peer tier
+that reads a gang's blocks and checkpoint pages from the rank that
+owns them, and rendezvous membership (``dmlc_tpu_torch.rendezvous``:
+the service, its client and the elastic ownership rules).
 Entry points that touch a device default to ``torch.device("cuda")``;
 pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """

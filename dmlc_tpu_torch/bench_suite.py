@@ -37,6 +37,11 @@ on the card) where the reference reports one:
                the local file
  14. recio_native — the native dense-RecordIO decode (ABI 6) vs the
                Python golden vs the sharded gang, sha256-parity pinned
+ 15. peer_hydrate — a real 2-process gang (``bench_peer_worker.py``,
+               ``launch_local(serve_ports=True)``), each rank with its
+               own page store, streaming one ``obj://`` object cold
+               through the peer tier (each rank's wire <= 0.60 of the
+               corpus, peer bytes on both) and warm with no GET
  17. parquet_native — the native Parquet page decode vs the pyarrow
                golden on a decode-bound corpus (20 null-bearing f32
                columns, UNCOMPRESSED V1 pages), sha256 stream parity at
@@ -46,6 +51,12 @@ on the card) where the reference reports one:
                config-3 scenario's decoded batches (raw uniform HWC u8
                -> padded f32), python / native / sharded x2
                sha256-identical
+ 21. ckpt_restore_fanout — a 3-writer gang saves a checkpoint to
+               ``obj://`` under a rendezvous (stamped meta.json) and
+               re-saves it with one of 96 leaves changed; a 2-rank gang
+               restores it cold with the peer fanout (per-rank wire
+               <= 0.60, gang wire <= 1.3 of the checkpoint, every leaf
+               equal); then the multipart writer against one PUT
 
 Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB]
 [--chaos PLAN]. ``--chaos`` arms a fault plan (the ``DMLC_TPU_FAULTS``
@@ -55,8 +66,9 @@ that config), and a config that fails emits an ``error`` line while the
 next config still runs.
 Configs 4, 7, 8 and 10 copy to the card (config 4 as the reference's
 ``--device`` run does; its parse-only form is not ported); configs 1,
-2, 3, 5, 6, 11, 14, 17 and 18 are the reference's host-side
-measurements (read, parse and decode, no copy), as there. Configs 5 and 17 write
+2, 3, 5, 6, 11, 14, 15, 17, 18 and 21 are the reference's host-side
+measurements (read, parse, decode and the gangs' object-store traffic,
+no copy), as there. Configs 5 and 17 write
 their corpora with pyarrow (``make_parquet``,
 ``make_parquet_decode_bound``), so they run only where pyarrow is
 installed: not on the card's machine, which has none.
@@ -70,7 +82,7 @@ the reference's corpora (``make_libsvm`` at its a1a defaults,
 ``make_indexed_recordio``, ``make_dense_recordio``,
 ``make_parquet_decode_bound``, ``make_image_recordio``: the same bytes
 from the same seed; pyarrow's files the same tables). Configs 4, 7, 8,
-10 and 11 read one corpus file, the reference's criteo shape from seed
+10, 11 and 15 read one corpus file, the reference's criteo shape from seed
 7 (the file its configs 4, 9 and 12 share; it writes the same bytes
 under more names for 7, 8, 10 and 11):
 ``make_libsvm`` draws each row's indices by a permutation of 10^6, so
@@ -103,6 +115,7 @@ __all__ = ["make_libsvm", "make_csv", "make_recordio", "make_dense_recordio",
            "bench_parquet", "bench_indexed_shuffled",
            "bench_multiprocess_ingest", "bench_page_replay",
            "bench_spill_replay", "bench_remote_hydrate",
+           "bench_peer_hydrate", "bench_ckpt_restore_fanout",
            "bench_recio_native",
            "bench_parquet_native", "bench_image_record", "CONFIGS", "main"]
 
@@ -460,6 +473,17 @@ def _landed(batch) -> None:
         batch.event.synchronize()
 
 
+def _worker_env(extra: Dict[str, str]) -> Dict[str, str]:
+    """A gang worker's env: ``extra`` plus this checkout first on
+    PYTHONPATH (empty entries would inject cwd)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    return env
+
+
 def bench_multiprocess_ingest(mb: int, device=None,
                               work: Optional[str] = None,
                               backend: str = "gloo") -> Dict:
@@ -495,13 +519,10 @@ def bench_multiprocess_ingest(mb: int, device=None,
     worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "bench_mp_worker.py")
     out_dir = tempfile.mkdtemp(prefix="dmlc_torch_bench_mp_", dir=work)
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {"PYTHONPATH": os.pathsep.join(
-        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(
-            os.pathsep) if p])}  # empty entries would inject cwd
     try:
         launch_local(procs, [sys.executable, worker, path, out_dir,
-                             str(dev), backend], env=env, timeout=900)
+                             str(dev), backend], env=_worker_env({}),
+                     timeout=900)
         results = []
         for rank in range(procs):
             with open(os.path.join(out_dir, f"bench-mp-{rank}.json")) as f:
@@ -804,6 +825,284 @@ def bench_remote_hydrate(mb: int, work: Optional[str] = None) -> Dict:
                 "hash": cold_hash}
     finally:
         objstore.configure(None)
+
+
+def bench_peer_hydrate(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 15: a REAL 2-process gang over one ``obj://`` object, each
+    rank with its OWN page store, peer-serving hydrated blocks through
+    the ``/pages`` data plane (``bench_peer_worker.py``). Checks the
+    reference's acceptance — each rank's cold wire bytes at most
+    PEER_SLACK of the corpus (peer-retry exhaustion double-fetches a
+    block occasionally, it must stay rare), the gang total at least
+    0.9× the corpus, peer bytes on every rank, a wire-free warm epoch on
+    EVERY rank, and every rank's stream sha256-identical to the local
+    bytes. The corpus is the criteo shape every config reads; the wire
+    is the reference's (2 ms a request). The reference's JSON keys."""
+    import hashlib
+    import shutil
+
+    import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.parallel.launch import launch_local
+
+    # ideal per-rank share is 1/N; the slack covers peer-ladder
+    # exhaustion double-fetches (the acceptance bound: <= ~60% of the
+    # single-rank wire bytes per rank for N=2)
+    PEER_SLACK = 0.60
+
+    tmp = _prefix(work)
+    path = _criteo(tmp, mb)
+    size = os.path.getsize(path)
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(16 << 20):
+            h.update(chunk)
+    local_hash = h.hexdigest()
+    root = f"{tmp}.peer.objroot"
+    em = objstore.configure(root=root)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "bench_peer_worker.py")
+    out_dir = tempfile.mkdtemp(prefix="dmlc_torch_bench_peer_", dir=work)
+    block_bytes, coalesce = 1 << 20, 4
+    env = _worker_env({objstore.ENV_ROOT: root,
+                       objstore.ENV_LATENCY: "0.002"})
+    try:
+        em.put_file("bench", "peer/train.libsvm", path)
+        t0 = time.perf_counter()
+        codes = launch_local(2, [sys.executable, worker,
+                                 "obj://bench/peer/train.libsvm", out_dir,
+                                 str(block_bytes), str(coalesce)],
+                             env=env, serve_ports=True, timeout=600)
+        gang_wall = time.perf_counter() - t0
+        check(codes == [0, 0], f"the peer gang exited {codes}")
+        results = []
+        for rank in range(2):
+            with open(os.path.join(out_dir, f"peer-{rank}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+        objstore.configure(None)
+
+    per_rank_wire = [r["cold"]["counters"]["objstore.bytes"]
+                     for r in results]
+    per_rank_peer = [r["cold"]["counters"]["objstore.peer.bytes"]
+                     for r in results]
+    for r in results:
+        check(r["cold"]["sha256"] == local_hash,
+              f"rank {r['rank']} cold stream diverged from local bytes")
+        check(r["warm"]["sha256"] == local_hash,
+              f"rank {r['rank']} warm stream diverged from local bytes")
+        check(r["warm"]["counters"]["objstore.get"] == 0,
+              f"rank {r['rank']} warm epoch hit the wire: "
+              f"{r['warm']['counters']['objstore.get']} GETs")
+        check(r["cold"]["counters"]["objstore.peer.bytes"] > 0,
+              f"rank {r['rank']} peer-served nothing (tier inert?)")
+    for rank, wired in enumerate(per_rank_wire):
+        check(wired <= PEER_SLACK * size,
+              f"rank {rank} moved {wired} wire bytes > {PEER_SLACK:.0%} "
+              f"of the {size}-byte corpus — the peer tier did not carry "
+              "its half")
+    total_wire = sum(per_rank_wire)
+    check(total_wire >= 0.9 * size,
+          "gang total wire bytes below the corpus (counter bug?)")
+    cold_wall = max(r["cold"]["wall_s"] for r in results)
+    warm_wall = max(r["warm"]["wall_s"] for r in results)
+    return {"config": "peer_hydrate", "procs": 2, "bytes": size,
+            "gbps": size / warm_wall / 1e9,  # steady gang cadence
+            "hydrate_gbps": round(size / cold_wall / 1e9, 4),
+            "wire_bytes_per_rank": per_rank_wire,
+            "peer_bytes_per_rank": per_rank_peer,
+            "gang_wire_frac": round(total_wire / (2 * size), 4),
+            "single_rank_wire_frac": [round(w / size, 4)
+                                      for w in per_rank_wire],
+            "peer_miss_per_rank": [
+                r["cold"]["counters"]["objstore.peer.miss"]
+                for r in results],
+            "warm_gets": [r["warm"]["counters"]["objstore.get"]
+                          for r in results],
+            "served_bytes_per_rank": [
+                r["cold"]["counters"]["objstore.peer.served_bytes"]
+                for r in results],
+            "gang_wall_s": round(gang_wall, 3),
+            "hash": local_hash}
+
+
+# config 21's multipart leg: MULTIPART_MB of seeded bytes in
+# MULTIPART_PART_MB parts, MULTIPART_PARALLEL at once, on a wire of 2 ms
+# and MULTIPART_GBPS, against one single-shot PUT
+MULTIPART_MB = 48
+MULTIPART_PART_MB = 8
+MULTIPART_PARALLEL = 8
+MULTIPART_GBPS = 0.05
+MULTIPART_MIN_SPEEDUP = 2.0
+
+
+def multipart_leg(work: Optional[str] = None) -> Dict:
+    """Config 21's multipart write plane alone, on a bandwidth-shaped
+    wire slow enough that the modeled transfer dominates local disk and
+    copy cost (tmpfs when there is one: real disk writeback noise can
+    swamp the model): MULTIPART_MB up through ``create_stream(
+    "obj://...", "w")`` against one single-shot PUT of the same bytes.
+    The object reads back equal, at least 6 parts went up, and the
+    parallel part PUTs are MULTIPART_MIN_SPEEDUP times faster or more."""
+    import shutil
+
+    import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.io.objstore.emulator import EmulatedObjectStore
+    from dmlc_tpu_torch.io.stream import create_stream
+
+    mp_root = (os.path.join("/dev/shm",
+                            f"dmlc_torch_bench_mp.{os.getpid()}.objroot")
+               if os.path.isdir("/dev/shm")
+               else f"{_prefix(work)}.ckpt.mproot")
+    shaped = EmulatedObjectStore(mp_root, latency_s=0.002,
+                                 bandwidth_gbps=MULTIPART_GBPS)
+    payload = np.random.default_rng(21).integers(
+        0, 256, MULTIPART_MB << 20, dtype=np.uint8).tobytes()
+    saved = objstore.options()
+    try:
+        objstore.configure(shaped, put_part_bytes=MULTIPART_PART_MB << 20,
+                           put_parallel=MULTIPART_PARALLEL)
+        t0 = time.perf_counter()
+        with create_stream("obj://bench/mp.bin", "w") as s:
+            s.write(payload)
+        multi_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shaped.put("bench", "single.bin", payload)
+        single_s = time.perf_counter() - t0
+        check(shaped.get("bench", "mp.bin") == payload,
+              "the multipart object read back different")
+        parts = shaped.counters()["put_parts"]
+        check(parts >= 6, f"the multipart upload sent {parts} parts")
+    finally:
+        objstore.configure(None, put_part_bytes=saved["put_part_bytes"],
+                           put_parallel=saved["put_parallel"])
+        shutil.rmtree(mp_root, ignore_errors=True)
+    speedup = single_s / multi_s
+    check(speedup >= MULTIPART_MIN_SPEEDUP,
+          f"multipart PUT {multi_s:.3f}s vs single-shot {single_s:.3f}s "
+          f"({speedup:.2f}x) — parallel parts are not hiding the wire")
+    return {"multipart_speedup": round(speedup, 2),
+            "multipart_s": round(multi_s, 3),
+            "single_shot_s": round(single_s, 3)}
+
+
+def bench_ckpt_restore_fanout(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 21: the sharded checkpoint arc as two REAL gangs over one
+    ``obj://`` root (``bench_ckpt_worker.py``, host arrays: no card). A
+    three-writer gang under ``launch_local(rendezvous=True)`` saves
+    disjoint leaves mid-epoch (the rendezvous stamp in meta.json), then
+    re-saves with ONE of 96 leaves mutated — the incremental path must
+    upload only that leaf's pages. A two-rank gang (a DIFFERENT world:
+    the elastic re-cut) under ``serve_ports=True`` then restores the full
+    checkpoint cold: each rank prefetches only the pages
+    ``content_owner`` assigns to it at world 2 and takes the rest from
+    its peer's ``/pages`` tier, so per-rank wire is at most 0.60× the
+    checkpoint and the gang's at most 1.3×, while every leaf restores
+    byte-identical to what the 3-writer gang saved. Finally
+    ``multipart_leg``. The reference's JSON keys, with ``save_meta``
+    (the stamped meta.json) beside them."""
+    import shutil
+
+    import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.parallel.launch import launch_local
+
+    tmp = _prefix(work)
+    root = f"{tmp}.ckpt.objroot"
+    shutil.rmtree(root, ignore_errors=True)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "bench_ckpt_worker.py")
+    out_dir = tempfile.mkdtemp(prefix="dmlc_torch_bench_ckpt_", dir=work)
+    env = _worker_env({objstore.ENV_ROOT: root,
+                       objstore.ENV_LATENCY: "0.002"})
+    try:
+        t0 = time.perf_counter()
+        codes = launch_local(3, [sys.executable, worker, out_dir, "save",
+                                 str(mb)], env=env, rendezvous=True,
+                             timeout=600)
+        save_wall = time.perf_counter() - t0
+        # an elastic gang returns a dead writer's code instead of raising
+        check(codes == [0, 0, 0], f"the save gang exited {codes}")
+        saves = []
+        for rank in range(3):
+            with open(os.path.join(out_dir, f"save-{rank}.json")) as f:
+                saves.append(json.load(f))
+        with open(os.path.join(root, "bench", "ckpt", "step-00000006",
+                               "meta.json")) as f:
+            save_meta = json.load(f)
+        t0 = time.perf_counter()
+        codes = launch_local(2, [sys.executable, worker, out_dir, "restore",
+                                 str(mb)], env=env, serve_ports=True,
+                             timeout=600)
+        restore_wall = time.perf_counter() - t0
+        check(codes == [0, 0], f"the restore gang exited {codes}")
+        restores = []
+        for rank in range(2):
+            with open(os.path.join(out_dir,
+                                   f"restore-{rank}.json")) as f:
+                restores.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # byte-identical across the world change: every leaf the 3-writer
+    # gang saved (post-mutation step) restores with the same digest on
+    # BOTH ranks of the world-2 gang
+    want = {}
+    for r in saves:
+        want.update(r["leaves"])
+    for r in restores:
+        check(r["step"] == 6, f"rank {r['rank']} restored {r['step']}")
+        check(r["leaves"] == want,
+              f"rank {r['rank']}: different-world restore diverged on "
+              f"{sorted(k for k in want if r['leaves'].get(k) != want[k])}")
+    # writer 0 stamps the membership it sees when it commits (its rank
+    # is its place in the roster, its world grows as writers join)
+    stamp = save_meta.get("rendezvous") or {}
+    check(stamp.get("gang") == "local"
+          and stamp.get("member") == "worker-0"
+          and 1 <= stamp.get("world", 0) <= 3,
+          f"meta.json carries no rendezvous stamp of writer 0: "
+          f"{save_meta.get('rendezvous')}")
+    total = restores[0]["restored_bytes"]
+    check(total > 0 and restores[1]["restored_bytes"] == total,
+          f"restored bytes {[r['restored_bytes'] for r in restores]}")
+    # THE fanout acceptance: each rank's wire <= 0.60x the naive
+    # all-wire restore (ideal is 1/2 at world 2 + index/meta overhead)
+    worst = max(r["wire_bytes"] for r in restores)
+    check(worst <= 0.60 * total,
+          f"per-rank restore wire {worst} > 0.60x naive {total} — the "
+          "peer fanout is not cutting the wire")
+    gang_wire = sum(r["wire_bytes"] for r in restores)
+    check(gang_wire <= 1.3 * total,
+          f"gang moved {gang_wire} wire bytes for a {total}-byte restore")
+    peer_bytes = sum(r["split"]["peer"] for r in restores)
+    check(peer_bytes > 0, "no page was ever peer-served")
+    # the incremental save: one leaf of 96 changed, so the re-save
+    # uploads a sliver and dedups the rest by content digest
+    full = sum(r["full_written"] for r in saves)
+    incr = sum(r["incr_written"] for r in saves)
+    check(0 < incr <= 0.2 * full,
+          f"incremental save uploaded {incr} of a {full}-byte checkpoint "
+          "with 1/96 leaves changed")
+    check(sum(r["incr_reused"] for r in saves) > 0,
+          "the incremental save reused no page")
+
+    wall = max(r["wall_s"] for r in restores)
+    return {"config": "ckpt_restore_fanout", "procs": 5,
+            "bytes": total, "gbps": total / wall / 1e9,
+            "save_wall_s": round(save_wall, 3),
+            "restore_wall_s": round(restore_wall, 3),
+            "per_rank_wire_frac": round(worst / total, 4),
+            "gang_wire_frac": round(gang_wire / total, 4),
+            "restore_split": {
+                k: sum(r["split"][k] for r in restores)
+                for k in ("local", "peer", "wire")},
+            "incremental_frac": round(incr / full, 4),
+            "incremental_bytes": incr,
+            "full_save_bytes": full,
+            **multipart_leg(work),
+            "save_meta": save_meta}
 
 
 def bench_recordio(mb: int, work: Optional[str] = None) -> Dict:
@@ -1296,8 +1595,10 @@ CONFIGS = {
     10: ("spill_replay", lambda mb: bench_spill_replay(mb)),
     11: ("remote_hydrate", lambda mb: bench_remote_hydrate(mb)),
     14: ("recio_native", lambda mb: bench_recio_native(mb)),
+    15: ("peer_hydrate", lambda mb: bench_peer_hydrate(mb)),
     17: ("parquet_native", lambda mb: bench_parquet_native(mb)),
     18: ("image_record", lambda mb: bench_image_record(mb)),
+    21: ("ckpt_restore_fanout", lambda mb: bench_ckpt_restore_fanout(mb)),
 }
 
 

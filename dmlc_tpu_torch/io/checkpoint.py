@@ -25,9 +25,19 @@ remote step written by either package restores in the other:
   waits for ``num_writers`` indexes, writes ``meta.json``, then the
   ``COMMIT`` object. Restore verifies every page against its digest and
   splits ``last_restore_bytes_read`` into
-  ``last_restore_{local,peer,wire}_bytes`` (the page store or the wire;
-  peer is 0 in the port). Object keys and contents are the reference's
-  byte for byte for the same tree.
+  ``last_restore_{local,peer,wire}_bytes``. Object keys and contents
+  are the reference's byte for byte for the same tree.
+
+Restore fanout (a gang whose ranks serve ``/pages``,
+``launch_local(serve_ports=...)``): each rank's :meth:`prefetch` (and
+the restore's own first pass) wire-fetches only the pages
+``rendezvous.elastic.content_owner`` assigns to it at the CURRENT world
+and commits them to its page store; every other page comes from its
+owner's ``/pages`` through the objstore peer tier, then from the wire
+if the owner cannot serve it. Each of M restoring ranks pays about 1/M
+of the wire, at any world size, different from the saving gang's or
+not. Inside a rendezvous gang, ``meta.json`` carries the membership
+stamp (``rendezvous.elastic.gang_metadata``) of the gang that saved.
 
 Where the port differs from the reference:
 
@@ -45,12 +55,7 @@ Where the port differs from the reference:
   one rank exists.
 
 Trimmed from the reference: ``sharding_tree``, which raises
-``DMLCError("... not ported ...")``; the rendezvous ``gang_metadata``
-stamp in ``meta.json`` (the reference adds it only inside an elastic
-gang); and the gang's restore fanout over the peer tier, which waits
-for the status server plane (``obs/serve.py``): with no peer tier every
-page a restore lacks locally comes from the wire, as the reference's
-does outside a gang, and ``prefetch`` stages nothing.
+``DMLCError("... not ported ...")`` (it waits for a placement plane).
 
 As in the reference, ``save_pytree`` and ``load_pytree`` are resilience
 seams (``checkpoint.save``, ``checkpoint.restore``: the whole file is
@@ -119,6 +124,22 @@ def _spanned(name: str):
                 return fn(*args, **kwargs)
         return wrapper
     return deco
+
+
+def _stamp_gang(meta: Dict[str, Any]) -> None:
+    """Elastic gangs stamp WHO wrote this step (gang, member, rank,
+    membership epoch, world) into ``meta["rendezvous"]``: a restore
+    after an N→M reshard reads the stamp and re-derives shard ownership
+    from the same pure contract (``rendezvous/elastic.py``) instead of
+    assuming the world never changed. Nothing outside a rendezvous
+    gang; a save never fails for the stamp."""
+    try:
+        from dmlc_tpu_torch.rendezvous.elastic import gang_metadata
+        stamp = gang_metadata()
+        if stamp is not None:
+            meta["rendezvous"] = stamp
+    except Exception:  # noqa: BLE001 — the stamp is additive
+        pass
 
 
 def _not_ported(what: str) -> DMLCError:
@@ -422,6 +443,7 @@ class ShardedCheckpoint:
                            for k, leaf in leaves],
                 "user": metadata or {},
             }
+            _stamp_gang(meta)
             with create_stream(os.path.join(d, "meta.json"), "w") as s:
                 json_dump(meta, s)
         self._barrier()           # all shard files durable
@@ -511,7 +533,7 @@ class ShardedCheckpoint:
                 self._get_object(f"{sd}/meta.json")))
             index = self._load_index_remote(sd)
             # the fanout cut: stage the digests THIS rank owns (none
-            # without a peer tier)
+            # without a peer tier), so peers can take them from us
             self._prefetch_owned_pages(index)
         else:
             d = self._resolve_step_dir(step)
@@ -549,9 +571,14 @@ class ShardedCheckpoint:
     def prefetch(self, step: Optional[int] = None) -> None:
         """Warm this rank's fanout cut ahead of ``restore()``: wire-fetch
         the pages ``content_owner`` assigns to this rank into the local
-        page store, so gang peers could take them from it. Remote roots
-        only; a no-op without a peer tier (always, in the port: the
-        tier waits for the status server plane)."""
+        page store, so gang peers can take them from our ``/pages``
+        tier. Remote roots only; a no-op without a peer tier. A
+        restoring gang that barriers between ``prefetch()`` and
+        ``restore()`` guarantees every page is staged at its owner
+        before anyone assembles — no rank races ahead and pays wire for
+        a page its peer has not fetched yet. The prefetched pages still
+        report as "wire" (once) in the restore split: the wire cost was
+        paid, just earlier."""
         check(self._remote,
               "checkpoint.prefetch applies to remote (obj://) roots")
         if step is None:
@@ -933,6 +960,7 @@ class ShardedCheckpoint:
                        for k, leaf in leaves],
             "user": metadata or {},
         }
+        _stamp_gang(meta)
         with create_stream(f"{self.root}/{sd}/meta.json", "w") as s:
             json_dump(meta, s)
         pat = re.compile(r"shard-(\d+)\.idx\.json$")
@@ -982,17 +1010,26 @@ class ShardedCheckpoint:
 
     @staticmethod
     def _tier():
-        """The gang peer tier: None in the port (it waits for the
-        status server plane), so a restore takes every page from the
-        local page store or the wire, as the reference's does outside
-        a gang."""
-        return None
+        """The gang peer tier when this process is one rank of a gang
+        of two or more that it can find itself in, else None (no
+        fanout: every page comes from the page store or the wire)."""
+        try:
+            from dmlc_tpu_torch.io.objstore import peer as _peer_mod
+            t = _peer_mod.tier()
+        except Exception:  # noqa: BLE001 — no tier = no fanout, not an error
+            return None
+        if t is None or t.self_index is None or t.world <= 1:
+            return None
+        return t
 
     def _prefetch_owned_pages(self, index: Dict[str, List[dict]]) -> None:
         """The fanout cut: of all the checkpoint's digests, wire-fetch
         (and page-commit) the ones ``content_owner`` assigns to THIS
-        rank at the CURRENT world. Without a peer tier there is nothing
-        to serve peers from, so nothing is staged."""
+        rank at the CURRENT world — any world, including one different
+        from the saving gang's. Peers then take these pages from our
+        ``/pages`` tier, so each of M restoring ranks pays ~1/M of the
+        wire. Best-effort: a failed prefetch leaves the page to the
+        assembly pass's peer-then-wire ladder."""
         # preserve marks from an explicit prefetch(): those pages'
         # wire cost is still unreported, and the first store-read
         # must say "wire", not "local"
@@ -1043,10 +1080,10 @@ class ShardedCheckpoint:
     def _page_payload(self, digest: str,
                       nbytes: int) -> Tuple[bytes, str]:
         """One content-addressed page, tiered: local page store →
-        singleflight → wire. Returns (payload, source) with source in
-        {"local", "wire"} — a page this rank itself prefetched over the
-        wire reports as "wire" once (the honest split), then
-        "local"."""
+        singleflight → peer owner's /pages → wire. Returns (payload,
+        source) with source in {"local", "peer", "wire"} — a page this
+        rank itself prefetched over the wire reports as "wire" once
+        (the honest split), then "local"."""
         from dmlc_tpu_torch.io.objstore.fs import _SINGLEFLIGHT, _count_sf
         name = _PAGE_PREFIX + digest + ".pages"
         store = self._pages_store()
@@ -1060,14 +1097,15 @@ class ShardedCheckpoint:
         if _SINGLEFLIGHT.lead(key):
             _count_sf("lead")
             try:
-                return self._fetch_page(store, digest, nbytes)
+                return self._peer_or_wire_page(store, name, digest,
+                                               nbytes)
             finally:
                 _SINGLEFLIGHT.done(key)
         _count_sf("dedup")
         payload = self._local_page(store, name, nbytes)
         if payload is not None:
             return payload, "local"
-        return self._fetch_page(store, digest, nbytes)
+        return self._peer_or_wire_page(store, name, digest, nbytes)
 
     def _local_page(self, store, name: str,
                     nbytes: int) -> Optional[bytes]:
@@ -1088,8 +1126,17 @@ class ShardedCheckpoint:
             return None
         return data
 
-    def _fetch_page(self, store, digest: str,
-                    nbytes: int) -> Tuple[bytes, str]:
+    def _peer_or_wire_page(self, store, name: str, digest: str,
+                           nbytes: int) -> Tuple[bytes, str]:
+        t = self._tier()
+        if t is not None:
+            from dmlc_tpu_torch.rendezvous.elastic import content_owner
+            owner = content_owner(digest, t.world)
+            if owner != t.self_index:
+                data = t.fetch_entry(owner, name, None, nbytes)
+                if data is not None:
+                    self._commit_local_page(store, digest, data)
+                    return data, "peer"
         payload = self._wire_page(digest, nbytes)
         self._commit_local_page(store, digest, payload)
         return payload, "wire"

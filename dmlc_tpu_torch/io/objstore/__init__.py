@@ -12,19 +12,20 @@ into :mod:`dmlc_tpu_torch.io.pagestore` — so a second epoch over the
 same remote URI never touches the wire. The backend is a pluggable
 client protocol: the on-disk
 :class:`~dmlc_tpu_torch.io.objstore.emulator.EmulatedObjectStore`
-(tests, benches), or the stdlib HTTP client over a real endpoint.
+(tests, benches), or the stdlib HTTP client over a real endpoint. In a
+gang whose ranks serve ``/pages`` (``launch_local(serve_ports=...)``),
+the peer tier (:mod:`~dmlc_tpu_torch.io.objstore.peer`) sits ahead of
+the wire: each hydration group crosses the wire once in the gang.
 
     from dmlc_tpu_torch.io import objstore
     em = objstore.configure(root="/tmp/objstore")   # emulator backend
     em.put("bucket", "train/data.libsvm", payload)
     Pipeline.from_uri("obj://bucket/train/data.libsvm").parse(
         format="libsvm")...
-
-Trimmed from the reference: the gang peer tier (``peer``), which waits
-for the status server plane (``obs/serve.py``).
 """
 
 from dmlc_tpu_torch.io.filesys import FileSystem
+from dmlc_tpu_torch.io.objstore import peer
 from dmlc_tpu_torch.io.objstore.emulator import EmulatedObjectStore, ObjectInfo
 from dmlc_tpu_torch.io.objstore.fs import (
     ENV_AUTH, ENV_ENDPOINT, ENV_GBPS, ENV_LATENCY, ENV_ROOT,
@@ -37,7 +38,7 @@ from dmlc_tpu_torch.io.objstore.fs import (
 
 __all__ = [
     "ObjectStoreFileSystem", "ObjectSeekStream", "EmulatedObjectStore",
-    "ObjectInfo", "configure", "client", "options",
+    "ObjectInfo", "configure", "client", "options", "peer",
     "ENV_ROOT", "ENV_LATENCY", "ENV_GBPS", "ENV_ENDPOINT", "ENV_AUTH",
 ]
 

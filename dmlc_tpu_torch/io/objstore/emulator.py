@@ -4,7 +4,12 @@ I/O plane.
 Copy of ``dmlc_tpu/io/objstore/emulator.py`` with its imports rewritten
 to ``dmlc_tpu_torch``. The layout is the reference's, so either
 package's emulator reads a root the other wrote, and the request
-counters of one read sequence are equal in both.
+counters of one read sequence are equal in both. Unlike the
+reference's, ``list`` leaves out another process's PUT in flight (its
+``<key>.tmp.<pid>`` file) and a file removed or replaced while the
+listing walks: several writers of one checkpoint commit into one root
+at once, and the reference's listing then fails on a file it saw that
+is gone by its ``stat``.
 
 The ``obj://`` plane is exercised against this emulator wherever no
 real endpoint is configured: a directory of ``<root>/<bucket>/<key>``
@@ -46,6 +51,7 @@ rule).
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import threading
 import time
@@ -56,6 +62,9 @@ from dmlc_tpu_torch.obs import rpc as _rpc
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["ObjectInfo", "EmulatedObjectStore"]
+
+# the staging name of a single-shot PUT: ``<key>.tmp.<writer pid>``
+_INFLIGHT_RE = re.compile(r"\.tmp\.\d+$")
 
 
 @dataclass
@@ -292,9 +301,14 @@ class EmulatedObjectStore:
                 dirnames.remove(".mpu")
             dirnames.sort()
             for name in sorted(filenames):
+                if _INFLIGHT_RE.search(name):
+                    continue  # a PUT in flight: not an object yet
                 full = os.path.join(dirpath, name)
                 key = os.path.relpath(full, base).replace(os.sep, "/")
-                st = os.stat(full)
+                try:
+                    st = os.stat(full)
+                except FileNotFoundError:
+                    continue  # deleted or replaced since the walk
                 out.append(ObjectInfo(key=key, size=st.st_size,
                                       mtime_ns=st.st_mtime_ns))
         out.sort(key=lambda o: o.key)

@@ -16,12 +16,6 @@ unmodified. The native engine reads local files only: a parse of an
 ``obj://`` URI with ``engine="auto"`` takes the Python golden parser,
 and ``engine="native"`` raises.
 
-Trimmed from the reference: the gang peer tier (``io/objstore/peer.py``
-serves pages through the status server of ``obs/serve.py``, which the
-port does not have yet). Every block a stream misses comes from the
-wire, as the reference's does outside a gang, and ``configure(peer=)``
-raises ``DMLCError("... not ported ...")``.
-
 Read path (:class:`ObjectSeekStream`):
 
 - the object is addressed in fixed ``block_bytes`` blocks;
@@ -51,12 +45,23 @@ Read path (:class:`ObjectSeekStream`):
   pays when an epoch waits on the wire, and costs when it already
   waits on the CPU.
 
-**Singleflight** (process-local) sits ahead of the wire: concurrent
-misses of the same hydration group dedup onto ONE fetch — the leader
-fills the store, waiters read the committed page
-(``pagestore.singleflight.lead`` / ``pagestore.singleflight.dedup``
-counters make the dedup auditable). A waiter whose block the leader's
-span did not cover simply fetches it itself.
+Two tiers sit AHEAD of the wire (the gang-scale data plane):
+
+- **gang peers** (:mod:`dmlc_tpu_torch.io.objstore.peer`): in a gang
+  whose ranks run the StatusServer (``launch_local(serve_ports=...)``),
+  hydration groups — contiguous runs of ``coalesce`` blocks — are
+  OWNED round-robin by rank, the owner fetches its groups from the
+  wire, and every other rank asks the owner's ``/pages/<entry>``
+  endpoint first (fingerprint- and length-validated, decoded, under
+  the ``io.objstore.peer`` resilience seam). A cold N-rank epoch moves
+  ~1/N of the single-rank wire bytes; any peer trouble degrades to
+  the wire, never to corruption or a hang;
+- **singleflight** (process-local): concurrent misses of the same
+  hydration group dedup onto ONE fetch — the leader fills the store,
+  waiters read the committed page (``pagestore.singleflight.lead`` /
+  ``pagestore.singleflight.dedup`` counters make the dedup
+  auditable). A waiter whose block the leader's span did not cover
+  simply fetches it itself.
 
 Hydrated entries are stamped with the object's ``[uri, size, mtime]``
 fingerprint AND keyed by its etag: a changed object changes the key
@@ -108,8 +113,12 @@ _client = None
 _options = {
     "block_bytes": 4 << 20,   # hydration/GET granularity
     "coalesce": 4,            # max adjacent missing blocks per span
+                              # (ALSO the peer tier's ownership-group
+                              # size, so owned wire fetches coalesce)
     "parallel": 4,            # concurrent ranged GETs per span
     "hydrate": True,          # write fetched blocks into the PageStore
+    "peer": True,             # consult gang peers (when a tier exists)
+                              # before the wire
     "codec_level": None,      # io.codec level for the wire + hydrated
                               # pages; None = the process default
                               # (DMLC_TPU_PAGE_CODEC_LEVEL), 0 = raw
@@ -147,15 +156,8 @@ def configure(client_obj=_KEEP, *, root: Optional[str] = None,
     returning one, the auth-header hook). An explicit
     ``configure(None)`` with neither uninstalls; calling with only
     option kwargs (e.g. ``configure(hydrate=False)``) tunes the read
-    path without touching the installed client. ``peer`` names the gang
-    peer tier, which is not ported: any value raises."""
+    path without touching the installed client."""
     global _client
-    if peer is not None:
-        raise DMLCError(
-            "objstore: the gang peer tier (configure(peer=...)) is not "
-            "ported to dmlc_tpu_torch; it waits for the status server "
-            "plane (obs/serve.py). Reads take every missing block from "
-            "the wire.")
     with _lock:
         if client_obj is _KEEP and root is None and endpoint is None:
             client_obj = _client
@@ -182,6 +184,7 @@ def configure(client_obj=_KEEP, *, root: Optional[str] = None,
                          ("coalesce", coalesce),
                          ("parallel", parallel),
                          ("hydrate", hydrate),
+                         ("peer", peer),
                          ("codec_level", codec_level),
                          ("put_part_bytes", put_part_bytes),
                          ("put_parallel", put_parallel)):
@@ -318,8 +321,15 @@ class ObjectSeekStream(SeekStream):
         self._store = (store if store is not None
                        else (PageStore.default() if opts["hydrate"]
                              else None))
-        # the singleflight group: a run of `coalesce` blocks, the span
-        # one leader's coalesced fetch covers
+        # the gang peer tier (None outside a gang or when peer=False):
+        # hydration groups of `coalesce` blocks are owned round-robin
+        # by rank; non-owners ask the owner's /pages endpoint first
+        self._peer = None
+        if opts.get("peer", True):
+            from dmlc_tpu_torch.io.objstore import peer as _peer_mod
+            t = _peer_mod.tier()
+            if t is not None and t.remote_count > 0:
+                self._peer = t
         self._group = max(1, self._coalesce)
         # entry names carry the object identity AND its etag: a changed
         # object hydrates a fresh generation, never mixes with the old
@@ -405,18 +415,18 @@ class ObjectSeekStream(SeekStream):
         return data
 
     def _fetch_missing(self, ix: int) -> bytes:
-        """A store miss: singleflight the hydration group, then the
-        wire. The leader's fetch commits the span; followers read the
-        committed pages (one GET fills the store for every concurrent
-        reader)."""
+        """A store miss: singleflight the hydration group, then
+        peer-or-wire. The leader's fetch commits the span; followers
+        read the committed pages (one GET fills the gang member's
+        store for every concurrent reader)."""
         if self._store is None:
             # nothing to dedup INTO — every reader fetches its own
-            return self._fetch_span(ix)
+            return self._peer_or_wire(ix)
         key = (self._entry_prefix, self._bb, ix // self._group)
         if _SINGLEFLIGHT.lead(key):
             _count_sf("lead")
             try:
-                return self._fetch_span(ix)
+                return self._peer_or_wire(ix)
             finally:
                 _SINGLEFLIGHT.done(key)
         _count_sf("dedup")
@@ -425,14 +435,47 @@ class ObjectSeekStream(SeekStream):
             return data
         # the leader's span stopped short of our block (or its commit
         # failed): fetch it ourselves
+        return self._peer_or_wire(ix)
+
+    def _peer_or_wire(self, ix: int) -> bytes:
+        """The tiered fetch for one missing block: gang peer (when the
+        group is owned by another rank) ahead of the object store."""
+        tier = self._peer
+        if tier is None:
+            return self._fetch_span(ix)
+        group_ix = ix // self._group
+        owner = tier.owner_index(group_ix)
+        if owner is None:
+            # self-owned: fetch from the wire, clamped to OUR group so
+            # the coalesced span never pre-fetches a peer-owned block
+            end_of_group = (group_ix + 1) * self._group
+            return self._fetch_span(ix, limit_blocks=end_of_group - ix)
+        data = tier.fetch_entry(owner, self._entry(ix),
+                                self._fingerprint, self._expected(ix))
+        if data is not None:
+            if self._store is not None:
+                self._hydrate(ix, data)
+            return data
+        if tier.available(owner):
+            # the owner is alive but behind (or served a bad page):
+            # take just this block from the wire — the owner will
+            # still serve the rest of its group
+            return self._fetch_span(ix, limit_blocks=1)
+        # breaker open (dead peer): its groups are ours now, full
+        # coalesced spans and all
         return self._fetch_span(ix)
 
-    def _fetch_span(self, ix: int) -> bytes:
+    def _fetch_span(self, ix: int,
+                    limit_blocks: Optional[int] = None) -> bytes:
         """Fetch the run of store-missing blocks starting at ``ix``
-        (request coalescing, at most ``coalesce`` blocks), as up to
+        (request coalescing, capped at ``limit_blocks`` when the peer
+        tier bounds the span to an ownership group), as up to
         ``parallel`` concurrent ranged GETs; hydrate every fetched
         block. Returns block ``ix``."""
-        last = min(ix + self._coalesce, self._nblocks())
+        span_blocks = self._coalesce
+        if limit_blocks is not None:
+            span_blocks = max(1, min(span_blocks, limit_blocks))
+        last = min(ix + span_blocks, self._nblocks())
         j = ix + 1
         while j < last and not (self._store is not None
                                 and self._store.exists(self._entry(j))):

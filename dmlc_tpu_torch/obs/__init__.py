@@ -20,16 +20,22 @@ Counterpart of ``dmlc_tpu/obs``; the ported part of it:
   always-on trace ring and a post-mortem bundle on an uncaught
   exception, a fatal signal, an injected crash or a confirmed stall;
 - :mod:`~dmlc_tpu_torch.obs.rpc` — the RPC trace-context plane: client
-  and server spans of the object-store wire calls and the per-edge
-  latency table (the ``rpc`` collector).
+  and server spans of the object-store wire calls, the status server's
+  requests and the rendezvous line protocol, and the per-edge latency
+  table (the ``rpc`` collector);
+- :mod:`~dmlc_tpu_torch.obs.serve` — the LIVE plane: per-rank in-process
+  HTTP status server (/metrics Prometheus exposition, /metrics.json,
+  /healthz, /stacks, /trace, /rpc, /gang's membership section, and
+  /pages, the objstore peer tier's data plane), ``scrape`` and
+  ``scrape_gang`` (the ``obs.scrape`` retry site).
 
-Not ported yet, each waiting for its own slice: the live status server
-(``serve``), the time series (``timeseries``; the watchdog and the
-flight recorder read its ring lazily, so their ``history`` stays empty),
-gang aggregation (``aggregate``), the control plane (``control``), SLOs
-(``slo``), the sampling profiler and its renderers (``profile``), the
-bottleneck analysis (``analyze``), with the ``obs.scrape`` retry site
-that waits for ``serve``.
+Not ported yet, each waiting for its own slice: the time series
+(``timeseries``; the watchdog and the flight recorder read its ring
+lazily, so their ``history`` stays empty), gang aggregation
+(``aggregate``), the control plane (``control``), SLOs (``slo``), the
+sampling profiler and its renderers (``profile``), the bottleneck
+analysis (``analyze``); their status-server endpoints answer 404
+naming the plane.
 """
 
 from dmlc_tpu_torch.obs.export import (
@@ -39,6 +45,9 @@ from dmlc_tpu_torch.obs.log import warn_limited, warn_once
 from dmlc_tpu_torch.obs.metrics import (
     METRICS_SCHEMA, REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
     merge_snapshots,
+)
+from dmlc_tpu_torch.obs.serve import (
+    StatusServer, render_prometheus, scrape_gang, serve,
 )
 from dmlc_tpu_torch.obs.trace import (
     Profiler, StageStats, TraceRecorder, counter, cuda_trace, instant,
@@ -54,4 +63,5 @@ __all__ = [
     "MetricsRegistry", "REGISTRY", "Counter", "Gauge", "Histogram",
     "merge_snapshots", "METRICS_SCHEMA",
     "warn_once", "warn_limited", "Watchdog", "FlightRecorder",
+    "StatusServer", "serve", "render_prometheus", "scrape_gang",
 ]

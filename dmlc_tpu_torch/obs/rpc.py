@@ -5,8 +5,10 @@ Copy of ``dmlc_tpu/obs/rpc.py`` with its imports rewritten to
 ``dmlc_tpu_torch``; the context format, the header names and the edge
 table are the reference's, so a trace either package writes reads the
 same. The port's edges are the object-store wire calls
-(``io/objstore/fs.py``, ``io/objstore/emulator.py``): every ranged GET,
-HEAD, LIST and PUT runs as one :func:`client_span` inside one
+(``io/objstore/fs.py``, ``io/objstore/emulator.py``), the peer tier's
+``/pages`` fetches (``io/objstore/peer.py``), status-server scrapes
+(``obs/serve.py``) and the rendezvous line protocol (``rendezvous/``):
+every call runs as one :func:`client_span` inside one
 :func:`operation`.
 
 - :class:`TraceContext` ``(trace_id, span_id)`` — minted at the client
@@ -28,8 +30,7 @@ HEAD, LIST and PUT runs as one :func:`client_span` inside one
   handle time (``X-Dmlc-Handle-Us`` echo), and their difference — the
   network+queue residual that tells "slow server" from "slow wire". It
   is the ``rpc`` collector of the metrics registry (:func:`view` gives
-  the whole table); the reference's ``GET /rpc`` endpoint waits for the
-  port's status server (``obs/serve.py``).
+  the whole table, which the status server serves at ``GET /rpc``).
 
 Off cost: every entry point reads the ONE trace-recorder global and
 branches; with tracing off no context is minted, no header injected,

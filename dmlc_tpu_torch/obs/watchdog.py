@@ -97,12 +97,27 @@ def end_wait(key: Optional[int]) -> None:
 
 
 def _thread_stacks() -> str:
-    """All-thread stacks via faulthandler (needs a real fd)."""
+    """All-thread stacks via faulthandler (needs a real fd).
+
+    faulthandler writes at most 100 threads, newest first, and ends with
+    "..." past them: in a process with more live threads the dumping
+    thread (often the oldest, the main one) is cut off. Its own stack is
+    then appended under faulthandler's "Current thread" header, so every
+    dump shows the thread that asked for it."""
     try:
         with tempfile.TemporaryFile(mode="w+") as f:
             faulthandler.dump_traceback(file=f, all_threads=True)
             f.seek(0)
-            return f.read()
+            out = f.read()
+            if "Current thread " in out:
+                return out
+            f.seek(0)
+            f.truncate()
+            faulthandler.dump_traceback(file=f, all_threads=False)
+            f.seek(0)
+            own = f.read().split("\n", 1)[-1]  # drop "Stack (...):"
+        return (f"{out}\nCurrent thread 0x{threading.get_ident():016x} "
+                f"(most recent call first):\n{own}")
     except Exception as e:  # noqa: BLE001 — diagnostics must not raise
         return f"<stack dump failed: {e}>"
 

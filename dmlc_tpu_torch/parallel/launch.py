@@ -21,7 +21,11 @@ coordinator's address. This module keeps:
   plan's env contract, ``flight_dir`` the flight recorder's, and
   ``trace_dir`` the obs tracing contract (``DMLC_TPU_TRACE_DIR``);
   :func:`merge_gang_traces` stitches the workers' and the
-  supervisor's trace files into one;
+  supervisor's trace files into one; ``serve_ports`` hands every worker
+  the live status server's env contract (``DMLC_TPU_SERVE_PORT`` and
+  ``_PORTS``, which the objstore peer tier reads too) and
+  ``rendezvous=True`` starts a membership service for an elastic gang
+  (``DMLC_TPU_RNDV_*``);
 - the ring/tree topology helpers (``get_ring``, ``get_tree``,
   ``get_link_map``), pure functions kept for API parity;
 - ``find_free_port(s)``.
@@ -65,15 +69,12 @@ _ALIASES = {
 # does not have, each with the plane it waits for
 _NOT_PORTED = {
     "num_servers": "the parameter-server role set",
-    "serve_ports": "the obs live status server",
     "history_s": "the obs time-series plane",
     "gang_poll_s": "the obs gang aggregation plane",
     "profile_hz": "the obs sampling profiler",
     "control": "the obs control plane",
     "scheduler": "the multi-tenant pipeline scheduler",
     "slo": "the obs SLO plane",
-    "rendezvous": "the rendezvous plane",
-    "heartbeat_grace_s": "the rendezvous plane",
 }
 
 
@@ -216,6 +217,9 @@ def launch_local(num_workers: int, command: Sequence[str],
                  flight_dir: Optional[str] = None,
                  restart_policy=None,
                  faults=None,
+                 serve_ports=None,
+                 rendezvous: bool = False,
+                 heartbeat_grace_s: Optional[float] = None,
                  **options) -> List[int]:
     """Run ``num_workers`` worker processes of ``command`` on this host
     (reference: local.py), each with the env contract of its rank on top
@@ -258,11 +262,30 @@ def launch_local(num_workers: int, command: Sequence[str],
     one process row per rank. Stale ``trace-*.json`` files in the
     directory are removed first.
 
-    Returns the exit codes in rank order (all 0). The reference's other
-    options (``num_servers``, ``serve_ports``, ``history_s``,
+    ``serve_ports`` (a list of one port per worker, or True for free
+    ones) hands every worker its status-server port via
+    ``DMLC_TPU_SERVE_PORT`` (workers opt in with one
+    ``obs.serve.serve_if_env()`` call) and the whole gang list via
+    ``DMLC_TPU_SERVE_PORTS`` — which is also the objstore peer tier's
+    topology: a gang that serves ``/metrics`` is a peer data plane.
+
+    ``rendezvous=True`` makes the gang ELASTIC: the launcher starts a
+    :class:`dmlc_tpu_torch.rendezvous.RendezvousService` and exports
+    ``DMLC_TPU_RNDV_URI/PORT`` (+ the gang name) — workers that call
+    ``dmlc_tpu_torch.rendezvous.install_if_env()`` join, heartbeat, and
+    learn roster changes through the membership epoch. The supervisor
+    reports deaths to the service (the epoch bumps at once, not after
+    the heartbeat grace), and a worker whose restart budget is
+    exhausted SHRINKS the gang instead of killing it.
+    ``heartbeat_grace_s`` tunes the service's silent-member death
+    window.
+
+    Returns the exit codes in rank order: all 0, except that in an
+    elastic rendezvous gang a shrink is NOT a failure and a dead
+    member's nonzero code is returned instead of raised. The
+    reference's other options (``num_servers``, ``history_s``,
     ``gang_poll_s``, ``profile_hz``, ``control``, ``scheduler``,
-    ``slo``, ``rendezvous``, ``heartbeat_grace_s``) raise a DMLCError
-    naming the plane each waits for."""
+    ``slo``) raise a DMLCError naming the plane each waits for."""
     for name, value in options.items():
         if name not in _NOT_PORTED:
             raise TypeError(
@@ -272,6 +295,13 @@ def launch_local(num_workers: int, command: Sequence[str],
                 f"launch_local({name}=...) is not ported to dmlc_tpu_torch "
                 f"yet (it waits for {_NOT_PORTED[name]})")
     check(num_workers >= 1, "num_workers must be >= 1")
+    if serve_ports is True:
+        serve_ports = find_free_ports(num_workers)
+    if serve_ports is not None:
+        serve_ports = [int(p) for p in serve_ports]
+        check(len(serve_ports) == num_workers,
+              f"serve_ports needs one port per worker "
+              f"({len(serve_ports)} != {num_workers})")
     if flight_dir is not None:
         os.makedirs(flight_dir, exist_ok=True)
     if trace_dir is not None:
@@ -292,8 +322,16 @@ def launch_local(num_workers: int, command: Sequence[str],
     from dmlc_tpu_torch.resilience.supervise import (
         GangMember, GangSupervisor, RestartPolicy,
     )
+    from dmlc_tpu_torch.obs.serve import ENV_SERVE_PORT, ENV_SERVE_PORTS
     if isinstance(restart_policy, int):
         restart_policy = RestartPolicy(max_restarts=restart_policy)
+    rndv_service = None
+    rndv_gang = os.environ.get("DMLC_TPU_RNDV_GANG", "local")
+    if rendezvous:
+        from dmlc_tpu_torch.rendezvous import RendezvousService
+        kw = ({"heartbeat_grace_s": float(heartbeat_grace_s)}
+              if heartbeat_grace_s is not None else {})
+        rndv_service = RendezvousService(**kw)
     fault_spec = fault_seed = None
     if faults is not None:
         if isinstance(faults, str):
@@ -316,16 +354,35 @@ def launch_local(num_workers: int, command: Sequence[str],
         wenv.update(worker_envs(coordinator, num_workers, task_id))
         if trace_dir is not None:
             wenv[ENV_TRACE_DIR] = trace_dir
+        if serve_ports is not None:
+            wenv[ENV_SERVE_PORT] = str(serve_ports[task_id])
+            wenv[ENV_SERVE_PORTS] = ",".join(map(str, serve_ports))
         if flight_dir is not None:
             wenv[ENV_FLIGHT_DIR] = flight_dir
+        if rndv_service is not None:
+            from dmlc_tpu_torch.rendezvous import (
+                ENV_RNDV_GANG, ENV_RNDV_PORT, ENV_RNDV_URI,
+            )
+            wenv[ENV_RNDV_URI] = rndv_service.host
+            wenv[ENV_RNDV_PORT] = str(rndv_service.port)
+            wenv[ENV_RNDV_GANG] = rndv_gang
         members.append(GangMember(f"worker-{task_id}", "worker",
                                   task_id, command, wenv))
     # the supervisor owns spawning (a Popen failure mid-loop must not
     # leak the running half of the gang), the poll, restarts and the
     # timeout
-    codes = GangSupervisor(members, restart_policy=restart_policy,
-                           timeout=timeout, trace_dir=trace_dir,
-                           flight_dir=flight_dir).run()
+    try:
+        codes = GangSupervisor(
+            members, restart_policy=restart_policy,
+            timeout=timeout, trace_dir=trace_dir,
+            flight_dir=flight_dir,
+            rendezvous_addr=(rndv_service.address
+                             if rndv_service is not None else None),
+            rendezvous_gang=rndv_gang,
+            elastic=rndv_service is not None).run()
+    finally:
+        if rndv_service is not None:
+            rndv_service.close()
     if trace_dir is not None:
         merge_gang_traces(trace_dir)
     return codes

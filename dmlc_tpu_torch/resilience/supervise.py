@@ -39,9 +39,10 @@ for data-plane gangs with no cross-worker group (each worker parses its
 own shard and trains or writes on its own), or for whole-job retry
 wrappers.
 
-Trimmed from the reference: the rendezvous wiring (death reports to a
-membership service and the elastic shrink of a gang whose member's
-budget is gone), which waits for the rendezvous plane.
+With a rendezvous service (``launch_local(rendezvous=True)``) every
+death is reported to it at once, so the membership epoch bumps without
+waiting out the heartbeat grace, and in an elastic gang a worker whose
+restart budget is gone shrinks the gang instead of killing it.
 """
 
 from __future__ import annotations
@@ -125,7 +126,10 @@ class GangSupervisor:
                  poll_interval_s: float = 0.05,
                  trace_dir: Optional[str] = None,
                  flight_dir: Optional[str] = None,
-                 ps_grace_s: float = 10.0):
+                 ps_grace_s: float = 10.0,
+                 rendezvous_addr: Optional[tuple] = None,
+                 rendezvous_gang: str = "local",
+                 elastic: bool = False):
         check(len(members) >= 1, "GangSupervisor needs members")
         self.members = members
         self.restart_policy = restart_policy
@@ -139,6 +143,15 @@ class GangSupervisor:
         # a real scheduler blocked waiting for work forever cannot
         # hang the launch
         self.ps_grace_s = ps_grace_s
+        # rendezvous wiring (launch_local(rendezvous=True)): deaths
+        # are REPORTED to the service — the membership epoch bumps
+        # immediately instead of waiting out the heartbeat grace —
+        # and with ``elastic`` a worker whose restart budget is gone
+        # LEAVES the gang (survivors reshard over the new world)
+        # rather than killing it
+        self.rendezvous_addr = rendezvous_addr
+        self.rendezvous_gang = rendezvous_gang
+        self.elastic = bool(elastic)
         self.total_restarts = 0
         self._rec = None
         if trace_dir is not None:
@@ -158,6 +171,24 @@ class GangSupervisor:
             if self._rec is not None:
                 self._rec.instant(name, "resilience", payload)
         except Exception:  # noqa: BLE001 — telemetry must not kill the gang
+            pass
+
+    def _report_death(self, m: GangMember) -> None:
+        """Tell the rendezvous service a member died — supervision is
+        the FAST death signal (the heartbeat grace is the slow one):
+        the epoch bumps now, survivors learn the shrunken roster at
+        their next beat. Best-effort: a missing or already-closed
+        service must never take the supervisor down."""
+        if self.rendezvous_addr is None:
+            return
+        try:
+            from dmlc_tpu_torch.rendezvous import service as _rndv
+            _rndv.call(self.rendezvous_addr[0],
+                       self.rendezvous_addr[1],
+                       {"op": "report_death",
+                        "gang": self.rendezvous_gang,
+                        "member": m.name}, timeout_s=1.0)
+        except Exception:  # noqa: BLE001 — best-effort report
             pass
 
     def _note_restart(self, m: GangMember, rc: int, delay: float) -> None:
@@ -318,12 +349,26 @@ class GangSupervisor:
                         m.code = 0
                         self._event("exit", m, {"code": 0})
                         continue
+                    self._report_death(m)
                     if self._may_restart(m):
                         m.restarts += 1
                         delay = self.restart_policy.backoff_for(
                             m.restarts)
                         m.restart_due = now + delay
                         self._note_restart(m, rc, delay)
+                        continue
+                    if (self.elastic and m.role == "worker"
+                            and any(x is not m and x.code is None
+                                    for x in self.members
+                                    if x.role == "worker")):
+                        # elastic mode: a permanently dead worker is
+                        # a membership SHRINK, not a gang failure —
+                        # the death report above bumped the epoch and
+                        # the survivors reshard (rendezvous/elastic);
+                        # its nonzero code is returned, not raised
+                        m.code = rc
+                        self._event("death", m, {"code": rc,
+                                                 "elastic": True})
                         continue
                     self._fail(m, rc,
                                budget_exhausted=(

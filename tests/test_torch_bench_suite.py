@@ -117,6 +117,61 @@ def test_remote_hydrate_matches_reference(dirs, tmp_path, monkeypatch):
     json.dumps(got)
 
 
+def _unset_gang_env(monkeypatch):
+    import dmlc_tpu_torch.io.objstore.fs as ofs
+    for name in (ofs.ENV_ROOT, ofs.ENV_ENDPOINT, "DMLC_TPU_SERVE_PORT",
+                 "DMLC_TPU_SERVE_PORTS", "DMLC_TPU_RNDV_URI",
+                 "DMLC_TPU_RNDV_PORT"):
+        monkeypatch.delenv(name, raising=False)
+
+
+def test_peer_hydrate_matches_reference_keys(dirs, monkeypatch):
+    """Config 15 at 16 MB (1 MB blocks in groups of 4, so each of the 2
+    ranks owns about half): a real 2-process gang of the port's
+    ``bench_peer_worker.py``; the reference's JSON keys (and the port's
+    served bytes and gang wall beside them), every rank's stream equal
+    to the corpus, each rank's wire at most 0.60 of it, peer bytes on
+    both, warm epochs with no GET."""
+    import hashlib
+    _unset_gang_env(monkeypatch)
+    corpus = os.path.join(dirs, "dmlc_tpu_torch_bench_suite.criteo.libsvm")
+    _criteo_shaped(corpus, mb=16)
+    got = bench_suite.bench_peer_hydrate(16, work=dirs)
+    assert set(got) == _return_keys(ref_bench.bench_peer_hydrate) | {
+        "served_bytes_per_rank", "gang_wall_s"}
+    with open(corpus, "rb") as f:
+        assert got["hash"] == hashlib.sha256(f.read()).hexdigest()
+    assert got["bytes"] == os.path.getsize(corpus)
+    assert all(w <= 0.60 * got["bytes"] for w in got["wire_bytes_per_rank"])
+    assert all(b > 0 for b in got["peer_bytes_per_rank"])
+    assert got["warm_gets"] == [0, 0]
+    # served during each rank's own cold epoch (the peer may read on)
+    assert sum(got["served_bytes_per_rank"]) > 0
+    json.dumps(got)
+
+
+def test_ckpt_restore_fanout_matches_reference_keys(dirs, monkeypatch):
+    """Config 21 at 4 MB: the 3-writer save gang under a rendezvous (its
+    stamp in meta.json), the 2-rank fanout restore, the incremental
+    re-save and the multipart leg hold their checks; the reference's
+    JSON keys, with the stamped meta.json beside them."""
+    _unset_gang_env(monkeypatch)
+    got = bench_suite.bench_ckpt_restore_fanout(4, work=dirs)
+    assert set(got) == _return_keys(ref_bench.bench_ckpt_restore_fanout) \
+        | {"save_meta"}
+    assert got["per_rank_wire_frac"] <= 0.60
+    assert got["gang_wire_frac"] <= 1.3
+    assert got["restore_split"]["peer"] > 0
+    assert got["restore_split"]["local"] == 0
+    assert got["restore_split"]["peer"] + got["restore_split"]["wire"] \
+        == 2 * got["bytes"]
+    assert 0 < got["incremental_frac"] <= 0.2
+    assert got["multipart_speedup"] >= bench_suite.MULTIPART_MIN_SPEEDUP
+    assert got["save_meta"]["rendezvous"]["gang"] == "local"
+    assert got["save_meta"]["num_processes"] == 3
+    json.dumps(got)
+
+
 def test_main_prints_one_line_a_config(dirs, monkeypatch, capsys):
     calls = []
     monkeypatch.setattr(bench_suite, "CONFIGS", {
@@ -252,7 +307,8 @@ def test_configs_table_holds_the_recordio_configs():
         1: "libsvm", 2: "csv", 3: "recordio", 4: "prefetch", 5: "parquet",
         6: "indexed_shuffled", 7: "multiprocess", 8: "page_replay",
         10: "spill_replay", 11: "remote_hydrate", 14: "recio_native",
-        17: "parquet_native", 18: "image_record"}
+        15: "peer_hydrate", 17: "parquet_native", 18: "image_record",
+        21: "ckpt_restore_fanout"}
     for n in bench_suite.CONFIGS:
         assert bench_suite.CONFIGS[n][0] == ref_bench.CONFIGS[n][0]
 

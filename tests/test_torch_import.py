@@ -107,7 +107,12 @@ NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
                "dmlc_tpu_torch.io.objstore.multipart",
                "dmlc_tpu_torch.io.objstore.http_client",
                "dmlc_tpu_torch.rendezvous",
-               "dmlc_tpu_torch.rendezvous.elastic")
+               "dmlc_tpu_torch.rendezvous.elastic",
+               "dmlc_tpu_torch.rendezvous.service",
+               "dmlc_tpu_torch.obs.serve",
+               "dmlc_tpu_torch.io.objstore.peer",
+               "dmlc_tpu_torch.bench_peer_worker",
+               "dmlc_tpu_torch.bench_ckpt_worker")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -115,8 +120,10 @@ def test_transfer_and_checkpoint_modules_import_alone(module):
     """The transfer probe, the multi-process bench worker, the checkpoint
     plane and its JSON helpers, the trace and split planes' modules, the
     resilience plane, watchdog and flight recorder, the csv, Parquet
-    and indexed-RecordIO modules, and the object-store plane (with the
-    RPC trace plane and the ownership rule) import in a fresh
+    and indexed-RecordIO modules, the object-store plane (with the
+    RPC trace plane and the ownership rule), and the gang plane (the
+    status server, the peer tier, rendezvous membership and the two
+    gang bench workers) import in a fresh
     interpreter without jax or dmlc_tpu (each is also in the AST scan
     above)."""
     path = os.path.join(REPO, *module.split("."))
@@ -136,6 +143,19 @@ def test_transfer_and_checkpoint_modules_import_alone(module):
 
 
 HTTP_CLIENT_FILES = ("dmlc_tpu_torch/io/objstore/http_client.py",)
+# the status server's side of the gang plane
+HTTP_SERVER_FILES = ("dmlc_tpu_torch/obs/serve.py",)
+
+
+def _imported_modules(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
 
 
 @pytest.mark.parametrize(
@@ -143,9 +163,17 @@ HTTP_CLIENT_FILES = ("dmlc_tpu_torch/io/objstore/http_client.py",)
 def test_only_the_objstore_wire_client_imports_http_client(path):
     """The real HTTP wire client is the one module of the port that
     speaks ``http.client``, and ``import dmlc_tpu_torch`` does not load
-    it (``test_import_does_not_load_the_wire_client``)."""
-    if "http" in set(_imported_roots(path)):
-        assert os.path.relpath(path, REPO) in HTTP_CLIENT_FILES
+    it (``test_import_does_not_load_the_wire_client``). The status
+    server (``obs/serve.py``) is the one module that imports
+    ``http.server``; no module imports ``http`` another way."""
+    rel = os.path.relpath(path, REPO)
+    for mod in _imported_modules(path):
+        if mod.split(".")[0] != "http":
+            continue
+        if mod == "http.server":
+            assert rel in HTTP_SERVER_FILES
+        else:
+            assert rel in HTTP_CLIENT_FILES
 
 
 def test_import_does_not_load_the_wire_client():

@@ -4,7 +4,8 @@ reference's exactly; ``launch_local`` runs real worker processes (ranks
 read from their env, a failure propagated, a gang killed at its
 timeout); every option that waits for an unported plane raises a named
 error, and the resilience plane's options (``flight_dir``,
-``restart_policy``, ``faults``) are accepted; ``init_from_env`` without a coordinator is single-process mode
+``restart_policy``, ``faults``) and the gang plane's (``serve_ports``,
+``rendezvous``, ``heartbeat_grace_s``) are accepted; ``init_from_env`` without a coordinator is single-process mode
 and, with one, forms a gloo group in a subprocess (never in this
 process).
 """
@@ -133,10 +134,10 @@ def test_launch_local_kills_everyone_at_its_timeout(tmp_path):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("num_servers", 1), ("serve_ports", True),
+    ("num_servers", 1),
     ("history_s", 1.0), ("gang_poll_s", 1.0),
     ("profile_hz", 10.0), ("control", True), ("scheduler", True),
-    ("slo", True), ("rendezvous", True), ("heartbeat_grace_s", 1.0)])
+    ("slo", True)])
 def test_unported_options_raise_named_errors(option, value):
     with pytest.raises(DMLCError, match="not ported.*waits for"):
         launch.launch_local(1, [sys.executable, "-c", "pass"],
@@ -154,6 +155,69 @@ def test_resilience_options_are_ported(option, tmp_path):
     assert launch.launch_local(1, [sys.executable, "-c", "pass"],
                                env=ENV, timeout=60,
                                **{option: value}) == [0]
+
+
+# each gang-plane option and the env its worker must see
+_GANG_OPTION_ENV = {
+    "serve_ports": ("DMLC_TPU_SERVE_PORT", "DMLC_TPU_SERVE_PORTS"),
+    "rendezvous": ("DMLC_TPU_RNDV_URI", "DMLC_TPU_RNDV_PORT",
+                   "DMLC_TPU_RNDV_GANG"),
+    "heartbeat_grace_s": ("DMLC_TPU_RNDV_URI", "DMLC_TPU_RNDV_PORT"),
+}
+
+
+@pytest.mark.parametrize("option,value", [
+    ("serve_ports", True), ("rendezvous", True), ("heartbeat_grace_s", 1.0)])
+def test_gang_options_are_ported(option, value):
+    """The gang plane's options leave the refusal list: each hands its
+    worker the reference's env contract (``heartbeat_grace_s`` with the
+    rendezvous it tunes), and the launch returns the worker's code."""
+    assert option not in launch._NOT_PORTED
+    kw = {option: value}
+    if option == "heartbeat_grace_s":
+        kw["rendezvous"] = True
+    code = ("import os, sys\n"
+            f"names = {_GANG_OPTION_ENV[option]!r}\n"
+            "sys.exit(0 if all(os.environ.get(n) for n in names) "
+            "else 3)\n")
+    assert launch.launch_local(1, [sys.executable, "-c", code], env=ENV,
+                               timeout=60, **kw) == [0]
+
+
+def test_serve_ports_one_a_worker(tmp_path):
+    """serve_ports takes an explicit list, one port a worker, and
+    refuses a list of another length; each worker sees its own port and
+    the gang's list."""
+    ports = launch.find_free_ports(2)
+    code = ("import os, sys\n"
+            "r = int(os.environ['DMLC_TPU_TASK_ID'])\n"
+            "open(os.path.join(sys.argv[1], f'{r}.txt'), 'w').write(\n"
+            "    os.environ['DMLC_TPU_SERVE_PORT'] + ' ' +\n"
+            "    os.environ['DMLC_TPU_SERVE_PORTS'])\n")
+    assert launch.launch_local(2, [sys.executable, "-c", code,
+                                   str(tmp_path)], env=ENV, timeout=60,
+                               serve_ports=ports) == [0, 0]
+    for r in range(2):
+        assert (tmp_path / f"{r}.txt").read_text() == \
+            f"{ports[r]} {ports[0]},{ports[1]}"
+    with pytest.raises(DMLCError, match="one port per worker"):
+        launch.launch_local(2, [sys.executable, "-c", "pass"],
+                            serve_ports=ports[:1])
+
+
+def test_elastic_gang_returns_a_dead_members_code():
+    """In a rendezvous gang a worker that dies (with no restart left)
+    shrinks the membership: launch_local returns its code instead of
+    raising, as the reference's does; without the rendezvous the same
+    death raises."""
+    code = ("import os, sys, time\n"
+            "r = int(os.environ['DMLC_TPU_TASK_ID'])\n"
+            "sys.exit(3) if r == 1 else time.sleep(1.0)\n")
+    assert launch.launch_local(2, [sys.executable, "-c", code], env=ENV,
+                               timeout=60, rendezvous=True) == [0, 3]
+    with pytest.raises(DMLCError):
+        launch.launch_local(2, [sys.executable, "-c", code], env=ENV,
+                            timeout=60)
 
 
 def test_unknown_option_is_a_type_error():

@@ -226,17 +226,49 @@ class TestObjectStoreFileSystem:
         for name in ("ENV_ROOT", "ENV_LATENCY", "ENV_GBPS", "ENV_ENDPOINT",
                      "ENV_AUTH"):
             assert getattr(ofs, name) == getattr(ref_ofs, name)
-        ref_opts = dict(ref_ofs.options())
-        del ref_opts["peer"]
-        assert ofs.options() == ref_opts
+        assert ofs.options() == dict(ref_ofs.options())
 
     @pytest.mark.parametrize("peer", [True, False])
     def test_peer_tier_refused_by_name(self, peer):
+        """The peer tier is ported: ``configure(peer=...)`` no longer
+        refuses, it sets the read option as the reference's does (and
+        the test puts the option back)."""
+        import dmlc_tpu.io.objstore.fs as ref_ofs
         import dmlc_tpu_torch.io.objstore.fs as ofs
         before = ofs.options()
-        with pytest.raises(DMLCError, match="not ported.*obs/serve.py"):
+        assert ref_ofs.options()["peer"] is True  # the default of both
+        try:
             objstore.configure(peer=peer)
+            assert ofs.options() == dict(before, peer=peer)
+        finally:
+            objstore.configure(peer=True)
         assert ofs.options() == before
+
+
+def test_listing_skips_inflight_puts_and_vanished_files(tmp_path,
+                                                       monkeypatch):
+    """Several writers commit into one emulator root at once (a gang's
+    checkpoint): a listing leaves out another process's PUT in flight
+    (its ``.tmp.<pid>`` staging file) and a file gone by the time it is
+    stat'ed, where the reference's listing raises FileNotFoundError."""
+    from dmlc_tpu_torch.io.objstore.emulator import EmulatedObjectStore
+    em = EmulatedObjectStore(str(tmp_path / "root"))
+    em.put("b", "ck/a.idx.json", b"{}")
+    em.put("b", "ck/b.idx.json", b"{}")
+    (tmp_path / "root" / "b" / "ck" / "c.idx.json.tmp.4242").write_bytes(
+        b"{")
+    assert [o.key for o in em.list("b", "ck")] == ["ck/a.idx.json",
+                                                   "ck/b.idx.json"]
+    gone = str(tmp_path / "root" / "b" / "ck" / "b.idx.json")
+    real_stat = os.stat
+
+    def racing_stat(path, *a, **kw):
+        if str(path) == gone:
+            raise FileNotFoundError(path)
+        return real_stat(path, *a, **kw)
+
+    monkeypatch.setattr(os, "stat", racing_stat)
+    assert [o.key for o in em.list("b", "ck")] == ["ck/a.idx.json"]
 
 
 # ----------------------------------------------------- the seek stream

@@ -1,6 +1,7 @@
 """The port's RPC trace-context plane (``dmlc_tpu_torch/obs/rpc.py``) held
 to the reference's ``tests/test_rpc.py`` in the parts that need no
-status server: the context and its wire form, the Perfetto flow events
+status server (its ``TestRpcEndpoint`` is twinned in
+``tests/test_torch_serve.py``): the context and its wire form, the Perfetto flow events
 of a client/server pair, the edge table and its registry collector, the
 emulator's server half, one span a retried attempt (``guarded`` reports
 an injected failure), and the tracing-off cost. The reference's ±20%

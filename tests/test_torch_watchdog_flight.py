@@ -330,6 +330,30 @@ class TestFlightRecorder:
             fl.uninstall()
         assert obs_trace.active() is None
 
+    def test_stacks_keep_the_dumping_thread_past_100_threads(self,
+                                                             tmp_path):
+        """faulthandler writes at most 100 threads, newest first: with
+        more alive (threads other tests of the same process left), the
+        dumping thread fell off ``stacks.txt`` and the test above failed
+        in a full run. The dump now appends it."""
+        release = threading.Event()
+        extra = [threading.Thread(target=release.wait, daemon=True)
+                 for _ in range(110)]
+        for t in extra:
+            t.start()
+        fl = obs_flight.FlightRecorder(
+            out_dir=str(tmp_path / "flight")).install()
+        try:
+            d = fl.dump("many_threads")
+            stacks = open(os.path.join(d, "stacks.txt")).read()
+            assert "Current thread" in stacks
+            assert "test_stacks_keep_the_dumping_thread" in stacks
+        finally:
+            fl.uninstall()
+            release.set()
+            for t in extra:
+                t.join(timeout=5)
+
     def test_clean_uninstall_leaves_no_bundle(self, tmp_path):
         out = str(tmp_path / "flight")
         fl = obs_flight.FlightRecorder(out_dir=out).install()
