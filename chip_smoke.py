@@ -261,7 +261,14 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    8 MB parts, 8 at once, on a wire shaped to 2 ms and 0.05 GB/s, in
    ``/dev/shm`` where it exists, read back equal, at least 2x faster
    than one single-shot PUT, the reference's bar), their own checks
-   holding;
+   holding; then configs 20 (``elastic_reshard``, a 2→3→2 gang under
+   a rendezvous over 64 MB of ``obj://`` parts, resuming adopted parts
+   from the committed prefix) and 23 (``global_shuffle``, a 2-process
+   gang draining one seeded global order of 64 MB of RecordIO in 2 MB
+   windows through the peers' ``/pages``), host-only gangs as in the
+   reference, their own checks holding and at least two reshards,
+   resumed bytes, gang wire at most 1.3 of the corpus (20), at least 8
+   windows, peer bytes on each rank, gang wire at most 1.6 (23);
 11b. the object-store plane (``remote_path``), over one on-disk
    emulator under the run's directory behind the reference's modeled
    wire (2 ms a request, 4 GB/s; 4 MB blocks, 4 coalesced, 4 GETs at
@@ -308,6 +315,26 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    wire the other's peer), gang wire at most 1.3x the checkpoint, peer
    bytes > 0, and one step each through K1, K2, K8 and K9 on a batch of
    the local corpus;
+11d. the global shuffle plane (``shuffle_path``), over the first 32 MB
+   of the linear corpus cut at a line: ``GlobalShuffleSplit(path, 0, 1,
+   "text", seed=0, window_bytes=2 MB)`` drained on the host (at least
+   16 windows) gives the corpus's lines as a multiset in
+   ``GlobalShuffle``'s order, its displacement against a uniform
+   permutation printed, and the same order through the host chain
+   (``Pipeline.from_uri(p).shuffle(global_seed=0, window_bytes=2 MB)
+   .parse(format="libsvm").batch(8192, pad=True, nnz_bucket=368640)``)
+   gives the world-1 rows; then a ``launch_local(2, ...,
+   serve_ports=True)`` gang of CUDA processes on this card, each rank
+   its own page store and status server, builds that chain as part
+   ``rank`` of 2 with ``.to_device(cuda, window="auto")`` and trains
+   its own ``SparseLinearModel(10^6)`` for a cold and a warm epoch: K1,
+   K2, K8 and K9 once a step, the loss falling from 0.6931, peer bytes
+   on each rank in the cold epoch (windows from the other rank's
+   ``/pages``), no wire or peer byte in the warm epoch, the ranks' cold
+   rows merged by position (position p is rank p % 2's) the world-1
+   rows, the warm rows the corpus's in another order; GB/s cold and
+   warm, steps/s a rank, the peer fraction and the gang's wire as a
+   fraction of the 32 MB;
 12. the resilience plane (``chaos_path``), after the bench configs:
    the spill linear path (the mesh of 4 parts, 1 MB replay budget; parse,
    parse and spill, pages x 3) over a directory holding the linear
@@ -600,6 +627,15 @@ GANG_RANKS, GANG_PARTS, GANG_TIMEOUT_S = 2, 4, 300
 GANG_BLOCK_MB, GANG_COALESCE, GANG_PEER_ATTEMPTS = 1, 4, 8
 GANG_PEER_SLACK, GANG_CKPT_WIRE_MAX = 0.60, 1.3
 PEER_HYDRATE_MB, CKPT_FANOUT_MB = 256, 64
+# The global shuffle plane (shuffle_path, phase 11d): a gang of
+# GANG_RANKS CUDA processes on this card, each its own page store,
+# trains on one seeded global order (SEED) of the first REMOTE_TRAIN_MB
+# of the linear corpus in SHUFFLE_WINDOW_MB windows (config 23's), a
+# cold and a warm epoch; SHUFFLE_MIN_WINDOWS is the corpus cut by that
+# window. bench_twins runs configs 20 and 23 at ELASTIC_MB and
+# GLOBAL_SHUFFLE_MB (the reference's default --mb).
+SHUFFLE_WINDOW_MB, SHUFFLE_MIN_WINDOWS = 2, 16
+ELASTIC_MB, GLOBAL_SHUFFLE_MB = 64, 64
 
 
 def log(msg: str) -> None:
@@ -4754,14 +4790,22 @@ def bench_twins(path, work, records_hash, indexed_hash):
     GANG_PEER_SLACK of it, peer bytes on both, warm epochs with no GET)
     and config 21 (``ckpt_restore_fanout``) at CKPT_FANOUT_MB (a
     3-writer save under a rendezvous, a 2-rank fanout restore, an
-    incremental re-save, the multipart leg), each holding its own checks
-    and these. Each JSON is printed as a line. The suite's files are
-    removed after."""
+    incremental re-save, the multipart leg), then config 20
+    (``elastic_reshard``) at ELASTIC_MB (a 2→3→2 gang under a
+    rendezvous resuming adopted parts from the committed prefix: at
+    least two reshards, resumed bytes, gang wire at most 1.3 of the
+    corpus) and config 23 (``global_shuffle``) at GLOBAL_SHUFFLE_MB (a
+    2-rank gang draining one seeded global order of a RecordIO corpus:
+    at least 8 windows, peer bytes on each rank, gang wire at most 1.6
+    of the corpus), host-only gangs as in the reference, each holding
+    its own checks and these. Each JSON is printed as a line. The
+    suite's files are removed after."""
     from dmlc_tpu_torch.bench_suite import (
-        bench_ckpt_restore_fanout, bench_csv, bench_image_record,
-        bench_indexed_shuffled, bench_libsvm, bench_multiprocess_ingest,
-        bench_page_replay, bench_peer_hydrate, bench_prefetch,
-        bench_recio_native, bench_recordio, bench_spill_replay,
+        bench_ckpt_restore_fanout, bench_csv, bench_elastic_reshard,
+        bench_global_shuffle, bench_image_record, bench_indexed_shuffled,
+        bench_libsvm, bench_multiprocess_ingest, bench_page_replay,
+        bench_peer_hydrate, bench_prefetch, bench_recio_native,
+        bench_recordio, bench_spill_replay,
     )
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     prefix = "dmlc_tpu_torch_bench_suite."
@@ -4785,7 +4829,11 @@ def bench_twins(path, work, records_hash, indexed_hash):
                ("peer_hydrate", lambda: bench_peer_hydrate(
                    PEER_HYDRATE_MB, work=work)),
                ("ckpt_restore_fanout", lambda: bench_ckpt_restore_fanout(
-                   CKPT_FANOUT_MB, work=work)))
+                   CKPT_FANOUT_MB, work=work)),
+               ("elastic_reshard", lambda: bench_elastic_reshard(
+                   ELASTIC_MB, work=work)),
+               ("global_shuffle", lambda: bench_global_shuffle(
+                   GLOBAL_SHUFFLE_MB, work=work)))
     out = {}
     try:
         for name, fn in configs:
@@ -4840,7 +4888,19 @@ def bench_twins(path, work, records_hash, indexed_hash):
             and fan["restore_split"]["peer"] > 0
             and fan["incremental_frac"] <= 0.2,
             f"config 21: {fan}")
+    require_shuffle_configs(out["elastic_reshard"], out["global_shuffle"])
     return out
+
+
+def require_shuffle_configs(el, gs):
+    """Config 20's and config 23's bars beyond their own checks."""
+    require(el["reshard_count"] >= 2 and el["resume_saved_bytes"] > 0
+            and el["gang_wire_frac"] <= 1.3,
+            f"config 20: {el}")
+    require(gs["windows"] >= 8
+            and all(f > 0 for f in gs["peer_frac_per_rank"])
+            and gs["gang_wire_frac"] <= 1.6,
+            f"config 23: {gs}")
 
 
 # --------------------------------------------------------------- phase 11b
@@ -5485,6 +5545,264 @@ def gang_path(linear, lr, work):
         f"), splits {stats['restore_split']}, restore wire "
         f"{stats['restore_wire']}; one step a rank after; gangs spawn to "
         f"exit {train_s:.2f} s and {restore_s:.2f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return stats
+
+
+SHUFFLE_GANG_WORKER = r"""
+import hashlib, json, os, sys, time
+t_start = time.time()
+(path, out_dir, seed, window_bytes, rows, nnz_bucket, features, lr,
+ attempts) = sys.argv[1:10]
+rows, nnz_bucket, features = int(rows), int(nnz_bucket), int(features)
+rank = int(os.environ["DMLC_TPU_TASK_ID"])
+world = int(os.environ["DMLC_TPU_NUM_WORKER"])
+# each rank its own page store, named before the package is imported: a
+# shared store would hand windows over through the filesystem
+os.environ["DMLC_TPU_TORCH_PAGESTORE_DIR"] = os.path.join(
+    out_dir, f"store-{rank}")
+import torch
+if not torch.cuda.is_available():
+    raise RuntimeError("shuffle gang worker: no CUDA card")
+cuda = torch.device("cuda")
+from dmlc_tpu_torch.bench_peer_worker import barrier, counters, delta
+from dmlc_tpu_torch.bench_shuffle_worker import SHUFFLE_COUNTERS
+from dmlc_tpu_torch.models.linear import SparseLinearModel
+from dmlc_tpu_torch.obs.serve import serve_if_env
+from dmlc_tpu_torch.ops import csr
+from dmlc_tpu_torch.ops import step as step_ops
+from dmlc_tpu_torch.pipeline import Pipeline
+from dmlc_tpu_torch.resilience import RetryPolicy, set_policy
+wrappers = {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
+            "logistic_step": step_ops.logistic_step,
+            "sgd_update": step_ops.sgd_update}
+
+def row_hashes(batch):
+    b = {k: v.cpu().numpy() for k, v in batch.items()}
+    off = b["offset"]
+    out = []
+    for r in range(int(b["num_rows"])):
+        s, e = int(off[r]), int(off[r + 1])
+        out.append(hashlib.sha256(
+            b["label"][r].tobytes() + b["weight"][r].tobytes()
+            + b["index"][s:e].tobytes()
+            + b["value"][s:e].tobytes()).hexdigest())
+    return out
+
+srv = serve_if_env()
+if srv is None:
+    raise RuntimeError("shuffle gang worker needs "
+                       "launch_local(serve_ports=...)")
+# patience at the peer seam: a 404 is usually the window's owner still
+# assembling it (the ranks walk the same window order)
+set_policy("io.objstore.peer", RetryPolicy(
+    max_attempts=int(attempts), base_delay_s=0.05, max_delay_s=0.4))
+model = SparseLinearModel(features, learning_rate=float(lr), device=cuda)
+torch.cuda.synchronize()  # the CUDA context before the first epoch
+out = {"rank": rank}
+# both servers up before a rank reads: the chain reads ahead once built
+barrier(out_dir, "start", rank, world, timeout_s=240.0)
+built = None
+for name in ("cold", "warm"):
+    before = counters(SHUFFLE_COUNTERS)
+    for fn in wrappers.values():
+        fn.launches = 0
+    kept, losses = [], []
+    t0 = time.perf_counter()
+    if built is None:  # the cold epoch's bytes and wall count the build
+        built = (Pipeline.from_uri(path, part_index=rank, num_parts=world)
+                 .shuffle(global_seed=int(seed),
+                          window_bytes=int(window_bytes))
+                 .parse(format="libsvm")
+                 .batch(rows, pad=True, row_bucket=rows,
+                        nnz_bucket=nnz_bucket)
+                 .to_device(cuda, window="auto").build())
+    for batch in built:  # each pass is the global order's next epoch
+        kept.append(batch)
+        losses.append(model.train_step(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    out[name] = {
+        "wall_s": wall, "steps": len(kept),
+        "counters": delta(before, counters(SHUFFLE_COUNTERS)),
+        "launches": {k: fn.launches for k, fn in wrappers.items()},
+        "rows": [h for b in kept for h in row_hashes(b)],
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "finite": all(x == x and abs(x) != float("inf") for x in losses)}
+    kept.clear()
+    barrier(out_dir, name, rank, world, timeout_s=240.0)
+from dmlc_tpu_torch import shuffle
+out["view"] = shuffle.view()
+built.close()
+out["worker_s"] = time.time() - t_start
+barrier(out_dir, "done", rank, world, timeout_s=240.0)
+tmp = os.path.join(out_dir, f"shuffle-{rank}.tmp")
+with open(tmp, "w") as f:
+    json.dump(out, f)
+os.replace(tmp, os.path.join(out_dir, f"shuffle-{rank}.json"))
+"""
+
+
+def shuffle_path(linear, lr, work):
+    """Phase 11d: the global shuffle plane (see the module docstring):
+    the world-1 golden of the seeded global order on the host, then a
+    2-rank gang of SHUFFLE_GANG_WORKER under ``serve_ports=True`` (each
+    rank its own page store, windows through the peers' ``/pages``)
+    training a model a rank on its half of that order, cold and warm.
+    Returns the phase's numbers."""
+    from dmlc_tpu_torch.pipeline import Pipeline
+    from dmlc_tpu_torch.shuffle import (
+        GlobalShuffle, GlobalShuffleSplit, build_record_index,
+        displacement_stats,
+    )
+    t_phase = time.perf_counter()
+    window_bytes = SHUFFLE_WINDOW_MB << 20
+    with open(linear, "rb") as f:
+        head = f.read(REMOTE_TRAIN_MB << 20)
+    head = head[:head.rindex(b"\n") + 1]
+    local = os.path.join(work, "shuffle_train.libsvm")
+    with open(local, "wb") as f:
+        f.write(head)
+    size = len(head)
+    lines = head.split(b"\n")[:-1]
+    del head
+    out_dir = os.path.join(work, "shuffle")
+    os.makedirs(out_dir)
+    try:
+        # 1. the world-1 golden: the split's records are the corpus's
+        # lines, in the order GlobalShuffle draws, and the host chain's
+        # rows over the same split
+        t0 = time.perf_counter()
+        sp = GlobalShuffleSplit(local, 0, 1, "text", seed=SEED,
+                                window_bytes=window_bytes)
+        recs = list(sp)
+        drain_s = time.perf_counter() - t0
+        windows = sp.reader.num_windows
+        del sp
+        require(windows >= SHUFFLE_MIN_WINDOWS,
+                f"shuffle path: {windows} windows of {window_bytes} bytes "
+                f"over {size} bytes")
+        require(sorted(recs) == sorted(lines),
+                "shuffle path: the world-1 drain is not the corpus's lines "
+                "as a multiset")
+        order = GlobalShuffle(build_record_index(local, "text").sizes, SEED,
+                              window_bytes).order(0)
+        require(recs == [lines[k] for k in order],
+                "shuffle path: the world-1 drain is not GlobalShuffle's "
+                "order")
+        disp = displacement_stats(order)
+        del recs, lines
+        t0 = time.perf_counter()
+        with (Pipeline.from_uri(local)
+              .shuffle(global_seed=SEED, window_bytes=window_bytes)
+              .parse(format="libsvm")
+              .batch(ROW_BUCKET, pad=True, row_bucket=ROW_BUCKET,
+                     nnz_bucket=NNZ_BUCKET).build()) as built:
+            golden = [h for b in built for h in row_hashes(b)]
+        golden_s = time.perf_counter() - t0
+        require(len(golden) == len(order),
+                f"shuffle path: the world-1 chain gave {len(golden)} rows "
+                f"of {len(order)} lines")
+        # 2. the gang
+        script = os.path.join(work, "shuffle_gang_worker.py")
+        with open(script, "w") as f:
+            f.write(SHUFFLE_GANG_WORKER)
+        gang, gang_s = _gang(
+            script, [local, out_dir, str(SEED), str(window_bytes),
+                     str(ROW_BUCKET), str(NNZ_BUCKET), str(NUM_FEATURES),
+                     str(lr), str(GANG_PEER_ATTEMPTS)],
+            out_dir, "shuffle", serve_ports=True)
+        for r in gang:
+            for name in ("cold", "warm"):
+                e = r[name]
+                require(e["steps"] > 0 and e["launches"]
+                        == {k: e["steps"] for k in PATH_KERNELS["linear"]},
+                        f"shuffle path: rank {r['rank']}'s {name} epoch took "
+                        f"{e['steps']} steps with launches {e['launches']}")
+                require(e["finite"], f"shuffle path: rank {r['rank']}'s "
+                        f"{name} losses are not finite")
+            require(abs(r["cold"]["loss_first"] - 0.6931) < 1e-3
+                    and r["warm"]["loss_last"] < r["cold"]["loss_first"],
+                    f"shuffle path: rank {r['rank']}'s loss "
+                    f"{r['cold']['loss_first']} -> {r['warm']['loss_last']}")
+            cold, warm = r["cold"]["counters"], r["warm"]["counters"]
+            require(cold["shuffle.bytes.peer"] > 0,
+                    f"shuffle path: rank {r['rank']} fetched no window from "
+                    f"a peer: {cold}")
+            require(warm["shuffle.bytes.wire"] == 0
+                    and warm["shuffle.bytes.peer"] == 0,
+                    f"shuffle path: rank {r['rank']}'s warm epoch left its "
+                    f"page store: {warm}")
+            v = r["view"]
+            require((v["seed"], v["world"], v["rank"], v["position"])
+                    == (SEED, GANG_RANKS, r["rank"], v["records"])
+                    and v["delivered"] == len(r["warm"]["rows"]),
+                    f"shuffle path: rank {r['rank']}'s /shuffle view after "
+                    f"the warm epoch: {r['view']}")
+        warm = [h for r in gang for h in r["warm"]["rows"]]
+        require(sorted(warm) == sorted(golden)
+                and warm != [h for r in gang for h in r["cold"]["rows"]],
+                "shuffle path: the warm epoch's rows are not the corpus's "
+                "in a new order")
+        streams = [r["cold"]["rows"] for r in gang]
+        require([len(x) for x in streams]
+                == [len(range(q, len(golden), GANG_RANKS))
+                    for q in range(GANG_RANKS)],
+                f"shuffle path: the ranks' rows {[len(x) for x in streams]} "
+                f"of {len(golden)}")
+        merged = [streams[p % GANG_RANKS][p // GANG_RANKS]
+                  for p in range(len(golden))]
+        require(merged == golden,
+                "shuffle path: the ranks' rows merged by position differ "
+                "from the world-1 order")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.unlink(local)
+    wire = [r["cold"]["counters"]["shuffle.bytes.wire"] for r in gang]
+    peer = [r["cold"]["counters"]["shuffle.bytes.peer"] for r in gang]
+    cold_s = max(r["cold"]["wall_s"] for r in gang)
+    warm_s = max(r["warm"]["wall_s"] for r in gang)
+    stats = {
+        "bytes": size, "windows": windows, "rows": len(golden),
+        "displacement_normalized": disp["normalized_mean"],
+        "drain_gbps": size / drain_s / 1e9,
+        "golden_gbps": size / golden_s / 1e9,
+        "cold_gbps": size / cold_s / 1e9, "warm_gbps": size / warm_s / 1e9,
+        "steps": [[r["cold"]["steps"], r["warm"]["steps"]] for r in gang],
+        "steps_per_s": [[r[e]["steps"] / r[e]["wall_s"]
+                         for e in ("cold", "warm")] for r in gang],
+        "losses": [[r["cold"]["loss_first"], r["warm"]["loss_last"]]
+                   for r in gang],
+        "wire_bytes": wire, "peer_bytes": peer,
+        "peer_frac": [p / (p + w) if p + w else 0.0
+                      for p, w in zip(peer, wire)],
+        "gang_wire_frac": sum(wire) / size,
+        "windows_built": [r["cold"]["counters"]["shuffle.windows.built"]
+                          for r in gang],
+        "windows_fetched": [r["cold"]["counters"]["shuffle.windows.fetched"]
+                            for r in gang],
+        "gang_s": gang_s,
+        "worker_s": [r["worker_s"] for r in gang],
+    }
+    log(f"shuffle path: the world-1 drain of {size} bytes in {windows} "
+        f"windows of {window_bytes} at {stats['drain_gbps']:.4f} GB/s "
+        f"(displacement {disp['normalized_mean']:.4f} of uniform), its "
+        f"host chain of {len(golden)} rows at {stats['golden_gbps']:.4f} "
+        f"GB/s; 2 CUDA processes on the card, each its own page store, "
+        f"training SparseLinearModel(10^6) a rank on its half of the "
+        f"order: cold {stats['cold_gbps']:.4f} GB/s, warm "
+        f"{stats['warm_gbps']:.4f} GB/s (the slower rank), steps "
+        f"{stats['steps']}, steps/s "
+        f"{[[round(x, 2) for x in r] for r in stats['steps_per_s']]}, "
+        f"losses {[[round(x, 4) for x in r] for r in stats['losses']]}, "
+        f"K1, K2, K8 and K9 once a step; cold wire bytes {wire}, peer "
+        f"bytes {peer} (peer fraction "
+        f"{[round(x, 4) for x in stats['peer_frac']]}), windows built "
+        f"{stats['windows_built']} and fetched {stats['windows_fetched']}, "
+        f"gang wire {stats['gang_wire_frac']:.4f} of the corpus; warm "
+        f"epochs with no wire or peer byte; the merged rows the world-1 "
+        f"order's; gang spawn to exit {gang_s:.2f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return stats
 
@@ -7223,6 +7541,9 @@ def main() -> None:
         # the gang plane: a peer-hydrated training gang and a fanout
         # restore gang, two CUDA processes each on this card
         stats["gang"] = gang_path(linear, LEARNING_RATE, work)
+        # the global shuffle plane: a training gang on one seeded global
+        # order, windows exchanged between the two CUDA processes' stores
+        stats["shuffle"] = shuffle_path(linear, LEARNING_RATE, work)
         # the resilience plane last: its gang's worker processes and its
         # chaos-armed bench config come after every traced phase
         stats["chaos"] = chaos_path(linear, linear_size, LEARNING_RATE,

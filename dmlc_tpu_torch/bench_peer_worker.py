@@ -54,18 +54,21 @@ def barrier(out_dir: str, phase: str, rank: int, world: int,
         time.sleep(0.02)
 
 
-def counters() -> dict:
-    """The wire and peer-tier counters of this process."""
+PEER_COUNTERS = ("objstore.get", "objstore.bytes", "objstore.bytes_served",
+                 "objstore.peer.get", "objstore.peer.bytes",
+                 "objstore.peer.miss", "objstore.peer.served",
+                 "objstore.peer.served_bytes")
+
+
+def counters(names=PEER_COUNTERS) -> dict:
+    """The named counters of this process (by default the wire and
+    peer-tier ones; config 23's worker reads the shuffle tiers')."""
     from dmlc_tpu_torch.obs.metrics import REGISTRY
-    return {name: REGISTRY.counter(name).value
-            for name in ("objstore.get", "objstore.bytes",
-                         "objstore.bytes_served", "objstore.peer.get",
-                         "objstore.peer.bytes", "objstore.peer.miss",
-                         "objstore.peer.served",
-                         "objstore.peer.served_bytes")}
+    return {name: REGISTRY.counter(name).value for name in names}
 
 
-def _delta(a: dict, b: dict) -> dict:
+def delta(a: dict, b: dict) -> dict:
+    """What each counter of ``a`` moved by ``b``."""
     return {k: b[k] - a[k] for k in a}
 
 
@@ -87,7 +90,7 @@ def epoch(uri: str) -> dict:
     s.close()
     wall = time.perf_counter() - t0
     return {"wall_s": wall, "bytes": n, "sha256": h.hexdigest(),
-            "counters": _delta(before, counters())}
+            "counters": delta(before, counters())}
 
 
 def main() -> int:

@@ -57,6 +57,18 @@ on the card) where the reference reports one:
                restores it cold with the peer fanout (per-rank wire
                <= 0.60, gang wire <= 1.3 of the checkpoint, every leaf
                equal); then the multipart writer against one PUT
+ 20. elastic_reshard — a real 2→3→2 gang (``bench_elastic_worker.py``,
+               ``launch_local(rendezvous=True)``) over six ``obj://``
+               parts: a late joiner resumes adopted parts from the
+               committed progress prefix, then leaves; exactly-once
+               coverage digest-checked, gang wire <= 1.3 of the corpus
+ 23. global_shuffle — a real 2-process gang (``bench_shuffle_worker.py``,
+               ``launch_local(serve_ports=True)``) draining one seeded
+               global permutation of a RecordIO corpus in 2 MB windows,
+               each rank its own page store, windows exchanged through
+               the peer ``/pages`` tier; the merged rank streams equal
+               the world-1 order, the warm epoch reads neither the wire
+               nor a peer
 
 Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB]
 [--chaos PLAN]. ``--chaos`` arms a fault plan (the ``DMLC_TPU_FAULTS``
@@ -66,9 +78,9 @@ that config), and a config that fails emits an ``error`` line while the
 next config still runs.
 Configs 4, 7, 8 and 10 copy to the card (config 4 as the reference's
 ``--device`` run does; its parse-only form is not ported); configs 1,
-2, 3, 5, 6, 11, 14, 15, 17, 18 and 21 are the reference's host-side
-measurements (read, parse, decode and the gangs' object-store traffic,
-no copy), as there. Configs 5 and 17 write
+2, 3, 5, 6, 11, 14, 15, 17, 18, 20, 21 and 23 are the reference's
+host-side measurements (read, parse, decode and the gangs' object-store
+and window traffic, no copy), as there. Configs 5 and 17 write
 their corpora with pyarrow (``make_parquet``,
 ``make_parquet_decode_bound``), so they run only where pyarrow is
 installed: not on the card's machine, which has none.
@@ -76,7 +88,7 @@ installed: not on the card's machine, which has none.
 Trimmed from the reference: every other config (their planes are not
 ported), the warm-up pass, ``--trace`` and the live telemetry opt-ins. Data files go
 under ``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a config is
-given a ``work`` directory. Configs 1, 2, 3, 5, 6, 14, 17 and 18 write
+given a ``work`` directory. Configs 1, 2, 3, 5, 6, 14, 17, 18 and 23 write
 the reference's corpora (``make_libsvm`` at its a1a defaults,
 ``make_csv``, ``make_recordio``, ``make_parquet``,
 ``make_indexed_recordio``, ``make_dense_recordio``,
@@ -116,6 +128,7 @@ __all__ = ["make_libsvm", "make_csv", "make_recordio", "make_dense_recordio",
            "bench_multiprocess_ingest", "bench_page_replay",
            "bench_spill_replay", "bench_remote_hydrate",
            "bench_peer_hydrate", "bench_ckpt_restore_fanout",
+           "bench_elastic_reshard", "bench_global_shuffle",
            "bench_recio_native",
            "bench_parquet_native", "bench_image_record", "CONFIGS", "main"]
 
@@ -1105,6 +1118,226 @@ def bench_ckpt_restore_fanout(mb: int, work: Optional[str] = None) -> Dict:
             "save_meta": save_meta}
 
 
+def bench_elastic_reshard(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 20: the elastic N→M acceptance arc as a REAL gang over the
+    object-store emulator (``bench_elastic_worker.py``, host bytes: no
+    card). Three worker processes under ``launch_local(rendezvous=True)``:
+    ranks 0-1 join at startup (world 2) and consume a part-sharded
+    corpus through epoch-fenced progress commits; rank 2 joins mid-epoch
+    on rank 0's marker (the 2→3 GROW — it RESUMES the two
+    partially-consumed parts it adopts from the merged progress prefix
+    instead of replaying them), commits a fixed number of batches, then
+    leaves cleanly (the 3→2 SHRINK — survivors adopt its parts the same
+    way). Checks the reference's acceptance — byte-identical
+    exactly-once coverage (every committed range digest-checked against
+    the local corpus, no gaps, no overlaps), both epoch bumps visible in
+    the ranks' delivered membership views, and a gang wire total ≈ 1×
+    the corpus (the saved prefix bytes are exactly what replay-from-zero
+    would have re-pulled) — and that every rank exits 0. The reference's
+    JSON keys."""
+    import hashlib
+    import shutil
+
+    import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.parallel.launch import launch_local
+
+    N_PARTS, REC = 6, 64 << 10
+    recs = max(24, (mb << 20) // (N_PARTS * REC))
+    size = N_PARTS * recs * REC
+    root = f"{_prefix(work)}.elastic.objroot"
+    shutil.rmtree(root, ignore_errors=True)
+    em = objstore.configure(root=root)
+    rng = np.random.default_rng(20)
+    corpus = [rng.integers(0, 256, recs * REC,
+                           dtype=np.uint8).tobytes()
+              for _ in range(N_PARTS)]
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "bench_elastic_worker.py")
+    out_dir = tempfile.mkdtemp(prefix="dmlc_torch_bench_elastic_",
+                               dir=work)
+    env = _worker_env({objstore.ENV_ROOT: root,
+                       objstore.ENV_LATENCY: "0.002"})  # GETs cost
+    try:
+        for p, data in enumerate(corpus):
+            em.put("bench", f"elastic/part-{p}.bin", data)
+        t0 = time.perf_counter()
+        codes = launch_local(3, [sys.executable, worker, out_dir,
+                                 str(N_PARTS), str(REC), str(recs)],
+                             env=env, serve_ports=True, rendezvous=True,
+                             heartbeat_grace_s=10.0, timeout=600)
+        wall = time.perf_counter() - t0
+        # an elastic gang returns a dead worker's code instead of raising
+        check(codes == [0, 0, 0], f"the elastic gang exited {codes}")
+        results = []
+        for rank in range(3):
+            with open(os.path.join(out_dir,
+                                   f"elastic-{rank}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+        objstore.configure(None)
+
+    # byte-identical exactly-once coverage: per part, the committed
+    # ranges across the whole gang tile [0, recs) with no gap and no
+    # overlap, each range's digest matching the local corpus slice
+    for p in range(N_PARTS):
+        ranges = sorted((c[1], c[2], c[3], r["rank"])
+                        for r in results for c in r["committed"]
+                        if c[0] == p)
+        cursor = 0
+        for start, end, sha8, rank in ranges:
+            check(start == cursor,
+                  f"part {p}: coverage "
+                  f"{'gap' if start > cursor else 'overlap'}"
+                  f" at record {start} (expected {cursor}, rank {rank})")
+            want = hashlib.sha256(
+                corpus[p][start * REC:end * REC]).hexdigest()[:16]
+            check(sha8 == want,
+                  f"part {p} records [{start},{end}) diverged on rank "
+                  f"{rank}")
+            cursor = end
+        check(cursor == recs,
+              f"part {p}: coverage stops at {cursor}/{recs}")
+    # the arc: a grow to world 3, then a shrink back to 2, in order
+    worlds = sorted({(e[0], e[1]) for r in results
+                     for e in r["epochs"]})
+    grow = [e for e, w in worlds if w == 3]
+    check(bool(grow), "grow to world 3 never delivered")
+    check(any(w == 2 and e > grow[0] for e, w in worlds),
+          "shrink back to world 2 never delivered")
+    late = next(r for r in results if r["rank"] == 2)
+    check(bool(late["committed"]), "the late joiner never committed a batch")
+    saved = sum(r["saved_bytes"] for r in results)
+    check(saved > 0,
+          "no part was ever resumed mid-epoch (resume path untested)")
+    total_wire = sum(r["wire_bytes"] for r in results)
+    check(total_wire <= 1.3 * size,
+          f"gang moved {total_wire} wire bytes for a {size}-byte corpus "
+          "— mid-epoch resume did not prevent replay")
+    costs = [c for r in results for c in r["reshard_costs"]]
+    return {"config": "elastic_reshard", "procs": 3, "bytes": size,
+            "gbps": size / wall / 1e9, "wall_s": round(wall, 3),
+            "reshard_cost_s": round(max(costs), 4) if costs else None,
+            "reshard_count": len(costs),
+            "resume_saved_bytes": saved,
+            "replay_wire_bytes": total_wire + saved,
+            "gang_wire_frac": round(total_wire / size, 4),
+            "late_joiner_batches": len(late["committed"]),
+            "epochs": [list(e) for e in worlds]}
+
+
+def bench_global_shuffle(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 23: a REAL 2-process gang (``bench_shuffle_worker.py``,
+    ``launch_local(serve_ports=True)``, host bytes: no card) draining one
+    seeded global permutation over a larger-than-window RecordIO corpus
+    (``make_recordio``'s, two parts), each rank with its OWN page store,
+    exchanging shuffle windows through the peer ``/pages`` tier. Checks
+    the reference's acceptance — the two ranks' ordered streams
+    round-robin-merge byte-identically into the world-1 in-process drain
+    (same seed ⇒ same global order at any world size), the merged set is
+    sha256-identical to the unshuffled corpus (exact coverage), every
+    rank peer-fetches a visible fraction of its non-owned windows, and
+    the warm epoch replays wire- and peer-free from the local store —
+    and that both ranks exit 0. The reference's JSON keys."""
+    import hashlib
+    import shutil
+
+    from dmlc_tpu_torch.io.recordio import RecordIOChunkReader
+    from dmlc_tpu_torch.parallel.launch import launch_local
+    from dmlc_tpu_torch.shuffle import (
+        GlobalShuffle, GlobalShuffleSplit, build_record_index,
+        displacement_stats,
+    )
+
+    seed, window_bytes = 23, 2 << 20
+    paths = make_recordio(f"{_prefix(work)}.shuffle", mb, nparts=2, seed=5)
+    uri = ";".join(paths)
+    size = sum(os.path.getsize(p) for p in paths)
+
+    # the unshuffled corpus record set (payload sha256s, file order)
+    corpus = []
+    for p in paths:
+        with open(p, "rb") as f:
+            for rec in RecordIOChunkReader(f.read()):
+                corpus.append(hashlib.sha256(rec).hexdigest())
+
+    # the world-1 golden: the full global order drained in-process
+    t0 = time.perf_counter()
+    sp = GlobalShuffleSplit(uri, 0, 1, "recordio", seed=seed,
+                            window_bytes=window_bytes)
+    golden = [hashlib.sha256(rec).hexdigest() for rec in sp]
+    solo_wall = time.perf_counter() - t0
+    n, windows = len(golden), sp.reader.num_windows
+    check(windows >= 8,
+          f"corpus not larger-than-window ({windows} windows)")
+    check(sorted(golden) == sorted(corpus),
+          "world-1 drain lost/duplicated records vs the corpus")
+    idx = build_record_index(uri, "recordio")
+    disp = displacement_stats(
+        GlobalShuffle(idx.sizes, seed, window_bytes).order(0))
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "bench_shuffle_worker.py")
+    out_dir = tempfile.mkdtemp(prefix="dmlc_torch_bench_shuffle_",
+                               dir=work)
+    try:
+        codes = launch_local(2, [sys.executable, worker, uri, out_dir,
+                                 str(seed), str(window_bytes)],
+                             env=_worker_env({}), serve_ports=True,
+                             timeout=600)
+        check(codes == [0, 0], f"the shuffle gang exited {codes}")
+        results = []
+        for rank in range(2):
+            with open(os.path.join(out_dir,
+                                   f"shuffle-{rank}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    results.sort(key=lambda r: r["rank"])
+    streams = [r["cold"]["hashes"] for r in results]
+    merged = [streams[p % 2][p // 2] for p in range(n)]
+    check(merged == golden,
+          "2-rank merge diverged from the world-1 order (seed broken)")
+    per_rank_wire = [r["cold"]["counters"]["shuffle.bytes.wire"]
+                     for r in results]
+    per_rank_peer = [r["cold"]["counters"]["shuffle.bytes.peer"]
+                     for r in results]
+    for r in results:
+        c = r["cold"]["counters"]
+        check(c["shuffle.bytes.peer"] > 0,
+              f"rank {r['rank']} peer-fetched nothing (tier inert?)")
+        w = r["warm"]["counters"]
+        check(w["shuffle.bytes.wire"] == 0
+              and w["shuffle.bytes.peer"] == 0,
+              f"rank {r['rank']} warm epoch left the local store: {w}")
+        check(r["warm"]["n"] == r["cold"]["n"],
+              f"rank {r['rank']} warm epoch coverage drifted")
+    total_wire = sum(per_rank_wire)
+    check(total_wire <= 1.6 * size,
+          f"gang wired {total_wire} bytes > 160% of the {size}-byte "
+          "corpus — the peer tier did not carry the exchange")
+    cold_wall = max(r["cold"]["wall_s"] for r in results)
+    warm_wall = max(r["warm"]["wall_s"] for r in results)
+    return {"config": "global_shuffle", "procs": 2, "bytes": size,
+            "records": n, "windows": windows,
+            "window_bytes": window_bytes,
+            "gbps": size / warm_wall / 1e9,  # steady local replay
+            "cold_gbps": round(size / cold_wall / 1e9, 4),
+            "solo_gbps": round(size / solo_wall / 1e9, 4),
+            "wire_bytes_per_rank": per_rank_wire,
+            "peer_bytes_per_rank": per_rank_peer,
+            "peer_frac_per_rank": [
+                round(p / (p + w), 4) if p + w else 0.0
+                for p, w in zip(per_rank_peer, per_rank_wire)],
+            "gang_wire_frac": round(total_wire / size, 4),
+            "displacement_normalized": round(
+                disp["normalized_mean"], 4),
+            "hash": hashlib.sha256(
+                "\n".join(sorted(golden)).encode()).hexdigest()}
+
+
 def bench_recordio(mb: int, work: Optional[str] = None) -> Dict:
     """Config 3: the RecordIO split over 4 parts of an ImageNet-.rec-
     shaped corpus, through the native record reader when the engine is
@@ -1598,7 +1831,9 @@ CONFIGS = {
     15: ("peer_hydrate", lambda mb: bench_peer_hydrate(mb)),
     17: ("parquet_native", lambda mb: bench_parquet_native(mb)),
     18: ("image_record", lambda mb: bench_image_record(mb)),
+    20: ("elastic_reshard", lambda mb: bench_elastic_reshard(mb)),
     21: ("ckpt_restore_fanout", lambda mb: bench_ckpt_restore_fanout(mb)),
+    23: ("global_shuffle", lambda mb: bench_global_shuffle(mb)),
 }
 
 

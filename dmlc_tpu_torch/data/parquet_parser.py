@@ -18,9 +18,11 @@ concatenate in file order, so the native engine's row-group-aligned
 sharded parse (``shards=N``, ABI 8) is byte-identical to the 1-parser
 stream — the SAME rule (``_partition_groups``).
 
-Trimmed from the reference: the golden reads local files only (every
-scheme the port registers, ``file://`` and ``cuda://``, maps to one), so
-the file adapter over a VFS stream (``Stream.as_file``) is not ported.
+Parquet rides the same Stream/VFS seam as every text parser: a local
+path (and ``cuda://``, through its backing file) goes to pyarrow
+directly, by its mmap fast path; any other registered scheme
+(``obj://``, ``s3://``, one added with ``FileSystem.register_scheme``)
+reaches pyarrow as a buffered ``Stream.as_file`` over its SeekStream.
 """
 
 from __future__ import annotations
@@ -74,8 +76,8 @@ class ParquetParser(Parser):
         from dmlc_tpu_torch.io.input_split import list_split_files
         entries = list_split_files(uri)
         check(len(entries) >= 1, "parquet: no input path")
-        self._files = [_pq.ParquetFile(self._open_source(p))
-                       for p, _ in entries]
+        self._sources = [self._open_source(p, size) for p, size in entries]
+        self._files = [_pq.ParquetFile(s) for s in self._sources]
         self._groups = self._partition_groups(self._files, entries,
                                               part_index, num_parts)
         self._pos = 0
@@ -125,15 +127,24 @@ class ParquetParser(Parser):
         return [(fi, gi) for fi, gi, g in groups if lo <= g < hi]
 
     @staticmethod
-    def _open_source(path: str) -> str:
-        """The local file behind ``path`` (``cuda://`` maps to its
-        backing file); pyarrow reads it by its own mmap fast path."""
+    def _open_source(path: str, size: int):
+        """Local path, or a buffered seekable file-like over the VFS
+        stream for registered schemes. Non-seekable streams fail with
+        the adapter's UnsupportedOperation naming the fix (pyarrow
+        needs random access to read the footer)."""
+        import io as _io
         import os
         from dmlc_tpu_torch.io.cuda_fs import local_path
+        from dmlc_tpu_torch.io.stream import SeekStream, create_stream
         lp = local_path(path)
-        check(os.path.isfile(lp),
-              f"parquet: {path!r} is not a local file")
-        return lp
+        if os.path.isfile(lp):
+            return lp
+        # the adapter is handed off to pyarrow and nothing else holds
+        # the stream: transfer ownership so closing the file closes it
+        stream = create_stream(path, "r")
+        raw = stream.as_file(size=size if isinstance(stream, SeekStream)
+                             else None, own_stream=True)
+        return _io.BufferedReader(raw, buffer_size=1 << 20)
 
     # -- producer hooks (run on the prefetch thread)
 
@@ -177,6 +188,16 @@ class ParquetParser(Parser):
         if self._prefetch is not None:
             self._prefetch.destroy()
             self._prefetch = None
+        # close VFS-backed sources deterministically (a registered
+        # scheme's stream may hold an fd or remote connection; GC is
+        # too late for many-part many-epoch jobs)
+        for s in getattr(self, "_sources", []):
+            if hasattr(s, "close"):
+                try:
+                    s.close()
+                except Exception:  # noqa: BLE001 — best-effort teardown
+                    pass
+        self._sources = []
         self._files = []
 
     @staticmethod

@@ -8,15 +8,18 @@ the reference's size_t-returning Read; ``read_exact``/``write`` helpers carry
 the serializer. ``create_stream`` opens any scheme the VFS registry
 knows (see io/filesys.py): local paths, ``file://``, ``cuda://``, and
 ``obj://``/``s3://`` through the object-store plane.
+``Stream.as_file`` adapts any stream to a Python binary file (the
+reference's ``dmlc::istream``); the Parquet golden hands pyarrow one
+over a non-local scheme.
 
 Reads and opens are the reference's resilience seams (sites
 ``io.stream.read`` and ``io.stream.open``, see :class:`FileStream` and
-:func:`create_stream`). Trimmed from ``dmlc_tpu/io/stream.py``:
-``as_file``.
+:func:`create_stream`).
 """
 
 from __future__ import annotations
 
+import io as _pyio
 from typing import Optional, Union
 
 from dmlc_tpu_torch.resilience import inject as _inject
@@ -79,6 +82,23 @@ class Stream:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    def as_file(self, size: Optional[int] = None,
+                own_stream: bool = False) -> "_StreamFile":
+        """Adapt to a Python binary-file-like object (reference
+        dmlc::istream). Pass the object's total ``size`` to enable
+        seek-from-end (whence=2) on SeekStreams — consumers like
+        pyarrow discover file size that way.
+
+        Ownership: by default the adapter does NOT own the stream —
+        closing the adapter (or letting it be GC'd; RawIOBase.__del__
+        calls close()) leaves the stream open, so a temporary
+        ``s.as_file().write(...)`` cannot close ``s`` out from under its
+        owner mid-``with``. Pass ``own_stream=True`` to transfer
+        ownership: the adapter then closes the underlying stream with
+        itself (the right mode when the adapter is handed off, e.g. to
+        pyarrow)."""
+        return _StreamFile(self, size=size, own_stream=own_stream)
 
 
 class SeekStream(Stream):
@@ -233,6 +253,58 @@ class FileStream(SeekStream):
         if self._f is not None:
             self._f.close()
             self._f = None
+
+
+class _StreamFile(_pyio.RawIOBase):
+    """Binary file adapter over a Stream (reference dmlc::istream/ostream)."""
+
+    def __init__(self, stream: Stream, size: Optional[int] = None,
+                 own_stream: bool = False):
+        self._s = stream
+        self._size = size
+        self._own = own_stream
+
+    def close(self) -> None:
+        # with own_stream, propagate to the underlying Stream (fd/
+        # socket/remote handle) — RawIOBase.close() alone would strand
+        # it until GC; without it, the stream's owner keeps control
+        # (see Stream.as_file)
+        try:
+            if self._own:
+                self._s.close()
+        finally:
+            super().close()
+
+    def readable(self) -> bool:
+        return True
+
+    def writable(self) -> bool:
+        return True
+
+    def readinto(self, b) -> int:
+        data = self._s.read(len(b))
+        b[:len(data)] = data
+        return len(data)
+
+    def write(self, b) -> int:
+        return self._s.write(bytes(b))
+
+    def seekable(self) -> bool:
+        return isinstance(self._s, SeekStream)
+
+    def seek(self, pos, whence=0):
+        if not isinstance(self._s, SeekStream):
+            raise _pyio.UnsupportedOperation("seek")
+        if whence == 0:
+            self._s.seek(pos)
+        elif whence == 1:
+            self._s.seek(self._s.tell() + pos)
+        elif whence == 2 and self._size is not None:
+            self._s.seek(self._size + pos)
+        else:
+            raise _pyio.UnsupportedOperation(
+                "seek from end needs as_file(size=...)")
+        return self._s.tell()
 
 
 def create_stream(uri: str, mode: str = "r",

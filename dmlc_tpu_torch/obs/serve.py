@@ -39,11 +39,17 @@ monitored while it runs; one daemon thread per rank serves:
   matters: a slow ``/pages`` body transfer runs on its own handler
   thread and cannot starve ``/healthz`` or ``/metrics`` scrapes.
 
+``GET /shuffle`` is the global shuffle's row surface: the installed
+reader's view (``dmlc_tpu_torch.shuffle.view()``: seed, epoch, windows,
+position, coverage, records and bytes by tier), or the reference's 404
+with a hint naming ``global_seed`` when no global shuffle is active in
+this process.
+
 Trimmed from the reference, each answering the reference's 404 JSON
 shape with an ``error`` that names its plane as not ported: ``/history``
 (the time series), ``/tenants`` (the multi-tenant scheduler), ``/slo``,
-``/analyze`` (the bottleneck analysis), ``/control``, ``/profile`` (the
-sampling profiler) and ``/shuffle`` (the global shuffle); ``/gang``
+``/analyze`` (the bottleneck analysis), ``/control`` and ``/profile``
+(the sampling profiler); ``/gang``
 carries no aggregator view (the gang aggregation plane), only the
 membership section. The ``/pages`` freshness cache belongs to each
 server, not to the module.
@@ -103,7 +109,6 @@ NOT_PORTED = {
     "/analyze": "the obs bottleneck analysis (obs.analyze)",
     "/control": "the obs control plane (obs.control)",
     "/profile": "the obs sampling profiler (obs.profile)",
-    "/shuffle": "the global shuffle plane (shuffle.GlobalShuffleSplit)",
 }
 
 _name_ok = re.compile(r"[^a-z0-9_]")
@@ -294,7 +299,8 @@ def _not_ported(path: str) -> Dict[str, str]:
     return {"error": f"{path} is not ported to dmlc_tpu_torch "
                      f"(it waits for {NOT_PORTED[path]})",
             "hint": "the port serves /metrics, /metrics.json, /healthz, "
-                    "/stacks, /trace, /rpc, /gang and /pages/<entry>"}
+                    "/stacks, /trace, /rpc, /gang, /shuffle and "
+                    "/pages/<entry>"}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -465,6 +471,19 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(_capture_trace(seconds))
             elif url.path == "/gang":
                 self._serve_gang()
+            elif url.path == "/shuffle":
+                from dmlc_tpu_torch import shuffle as _shuffle
+                doc = _shuffle.view()
+                if doc is None:
+                    self._send_json(
+                        {"error": "no global shuffle active",
+                         "hint": "Pipeline.from_uri(...).shuffle("
+                                 "global_seed=...) or construct "
+                                 "dmlc_tpu_torch.shuffle."
+                                 "GlobalShuffleSplit in this process"},
+                        code=404)
+                else:
+                    self._send_json(doc)
             elif url.path in NOT_PORTED:
                 self._send_json(_not_ported(url.path), code=404)
             elif url.path == "/rpc":
@@ -477,7 +496,8 @@ class _Handler(BaseHTTPRequestHandler):
                                                "/metrics.json",
                                                "/healthz", "/stacks",
                                                "/trace?seconds=N",
-                                               "/gang", "/rpc",
+                                               "/gang", "/shuffle",
+                                               "/rpc",
                                                "/pages/<entry>"]},
                                 code=404)
         except Exception as e:  # noqa: BLE001 — a scrape must never

@@ -40,7 +40,10 @@ cache under the port's page store.
 ``shuffle(num_shuffle_parts, seed)`` lowers to an injected
 :class:`~dmlc_tpu_torch.io.input_split_shuffle.InputSplitShuffle` under
 the python parse engine (the native reader owns its own split), with the
-reference's seed law, so its order is the reference's.
+reference's seed law, so its order is the reference's;
+``shuffle(global_seed=..., window_bytes=...)`` lowers to the gang-wide
+sample-level :class:`~dmlc_tpu_torch.shuffle.split.GlobalShuffleSplit`
+under the same engine, so its order is the reference's too.
 
 Observability (``dmlc_tpu_torch.obs``): with a trace recorder active
 (``built.trace(path)``) every delivered item is a ``pull/<stage>`` span,
@@ -54,9 +57,8 @@ Every pull registers with the stall watchdog (``obs.watchdog``) while it
 blocks, with the stage's queue state as its detail, and a raising stage
 leaves no wait behind. Trimmed from the reference: the verdict-driven
 controller (``obs.control``). Not ported yet (each raises a DMLCError that says so):
-``shuffle(global_seed=...)``, ``from_stream``,
-``to_device(sharding=...)`` and ``build(tenant=...)``; ``shuffle`` with
-``cache`` keeps the reference's own refusal.
+``from_stream``, ``to_device(sharding=...)`` and ``build(tenant=...)``;
+``shuffle`` with ``cache`` keeps the reference's own refusal.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ from dmlc_tpu_torch.parallel.device_iter import (
 from dmlc_tpu_torch.pipeline.autotune import Autotuner, Knob
 from dmlc_tpu_torch.pipeline.stages import StageSpec, validate_chain
 from dmlc_tpu_torch.pipeline.stats import StageProbe, _item_stats, snapshot
+from dmlc_tpu_torch.shuffle import DEFAULT_WINDOW_BYTES, GlobalShuffleSplit
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = ["Pipeline", "CompiledPipeline", "DeviceBatch"]
@@ -215,23 +218,28 @@ class _ParseRunner(_RunnerBase):
         self._auto_depth = depth == "auto"
         kwargs = {k: v for k, v in p.items() if v is not None}
         if shuffle is not None:
-            # shuffled read order lowers to an injected chunk-level
-            # InputSplitShuffle under the python engine (the native
-            # reader owns its own split)
-            if (shuffle.params.get("global_seed") is not None
-                    or shuffle.params.get("window_bytes") is not None):
-                raise _not_ported("shuffle(global_seed=...)",
-                                  "the shuffle plane's global permutation")
+            # shuffled read order lowers to an injected split under the
+            # python engine (the native reader owns its own split):
+            # global_seed → the sample-level GlobalShuffleSplit, else
+            # the chunk-level InputSplitShuffle
             kwargs["engine"] = "python"
             chunk = kwargs.get("chunk_size", 8 << 20)
             shp = shuffle.params
 
-            def factory():
-                return InputSplitShuffle.create(
-                    sp["uri"], sp["part_index"], sp["num_parts"],
-                    sp["split_type"],
-                    num_shuffle_parts=shp["num_shuffle_parts"],
-                    seed=shp["seed"], chunk_size=chunk)
+            if shp.get("global_seed") is not None:
+                def factory():
+                    wb = shp.get("window_bytes") or DEFAULT_WINDOW_BYTES
+                    return GlobalShuffleSplit(
+                        sp["uri"], sp["part_index"], sp["num_parts"],
+                        sp["split_type"], seed=shp["global_seed"],
+                        window_bytes=wb)
+            else:
+                def factory():
+                    return InputSplitShuffle.create(
+                        sp["uri"], sp["part_index"], sp["num_parts"],
+                        sp["split_type"],
+                        num_shuffle_parts=shp["num_shuffle_parts"],
+                        seed=shp["seed"], chunk_size=chunk)
 
             kwargs["split_factory"] = factory
         if sp["split_type"] != "text":
@@ -241,11 +249,14 @@ class _ParseRunner(_RunnerBase):
             sp["uri"], sp["part_index"], sp["num_parts"], format=fmt,
             prefetch_depth=4 if self._auto_depth else int(depth), **kwargs)
         self.owned = not hasattr(self._parser, "detach")
-        if shuffle is not None and shuffle.params["num_shuffle_parts"] > 1:
+        if shuffle is not None:
             # formats whose parser ignores split_factory would silently
             # yield UNshuffled data — refuse instead
             split = getattr(self._parser, "_split", None)
-            if not isinstance(split, InputSplitShuffle):
+            wants = (shuffle.params.get("global_seed") is not None
+                     or shuffle.params["num_shuffle_parts"] > 1)
+            if wants and not isinstance(
+                    split, (InputSplitShuffle, GlobalShuffleSplit)):
                 self.close()
                 raise DMLCError(
                     f"pipeline: shuffle is not supported by the "
@@ -1019,22 +1030,29 @@ class Pipeline:
     def shuffle(self, num_shuffle_parts: int = 4, seed: int = 0,
                 global_seed: Optional[int] = None,
                 window_bytes: Optional[int] = None) -> "Pipeline":
-        """Shuffled read order, chunk-level (InputSplitShuffle): the
-        shard subdivides into num_shuffle_parts sub-shards whose order
-        reshuffles each epoch, deterministically from ``seed`` (the
-        reference's seed law, so the same order as the reference's).
-        Lowers onto the python parse engine.
+        """Shuffled read order. Default: chunk-level
+        (InputSplitShuffle) — the shard subdivides into
+        num_shuffle_parts sub-shards whose order reshuffles each
+        epoch, deterministically from ``seed`` (the reference's seed
+        law, so the same order as the reference's).
 
-        ``global_seed`` (the reference's gang-wide sample-level shuffle,
-        with its ``window_bytes``) is not ported."""
-        if global_seed is not None or window_bytes is not None:
-            raise _not_ported("shuffle(global_seed=..., window_bytes=...)",
-                              "the shuffle plane's global permutation")
+        ``global_seed`` switches to the gang-wide SAMPLE-level shuffle
+        (dmlc_tpu_torch.shuffle.GlobalShuffleSplit): a seeded global
+        permutation over every record of the dataset, identical at any
+        world size, window-bounded to ``window_bytes`` resident bytes
+        (default dmlc_tpu_torch.shuffle.DEFAULT_WINDOW_BYTES), with
+        window pages exchanged through the peer /pages tier. Both lower
+        onto the python parse engine."""
         check(num_shuffle_parts >= 1, "num_shuffle_parts must be >= 1")
+        check(window_bytes is None or window_bytes > 0,
+              "shuffle: window_bytes must be > 0")
+        check(window_bytes is None or global_seed is not None,
+              "shuffle: window_bytes applies to the global shuffle — "
+              "pass global_seed")
         return self._with(StageSpec("shuffle",
                                     num_shuffle_parts=num_shuffle_parts,
-                                    seed=seed, global_seed=None,
-                                    window_bytes=None))
+                                    seed=seed, global_seed=global_seed,
+                                    window_bytes=window_bytes))
 
     def cache(self, path: Optional[str] = None,
               rows_per_page: int = 64 << 10,

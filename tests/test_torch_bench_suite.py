@@ -172,6 +172,52 @@ def test_ckpt_restore_fanout_matches_reference_keys(dirs, monkeypatch):
     json.dumps(got)
 
 
+def test_elastic_reshard_matches_reference_keys(dirs, monkeypatch):
+    """Config 20 at 16 MB (42 records of 64 KB a part, six parts; at the
+    reference's floor of 24 records the survivors can finish every part
+    before the late joiner's leave is delivered, in either package): the
+    2→3→2 gang of the port's ``bench_elastic_worker.py`` covers every
+    part exactly once, digest-checked, with both epoch bumps delivered,
+    a resumed prefix and gang wire at most 1.3 of the corpus; the
+    reference's JSON keys."""
+    _unset_gang_env(monkeypatch)
+    got = bench_suite.bench_elastic_reshard(16, work=dirs)
+    assert set(got) == _return_keys(ref_bench.bench_elastic_reshard)
+    assert got["bytes"] == 6 * 42 * (64 << 10)
+    assert got["reshard_count"] >= 2 and got["resume_saved_bytes"] > 0
+    assert got["gang_wire_frac"] <= 1.3
+    assert got["late_joiner_batches"] == 10
+    worlds = [w for _, w in got["epochs"]]
+    assert 3 in worlds and 2 in worlds[worlds.index(3):]
+    json.dumps(got)
+
+
+def test_global_shuffle_matches_reference(dirs, monkeypatch):
+    """Config 23 at 16 MB, the smallest corpus cut into at least 8
+    windows of 2 MB: the port's 2-rank gang merges into the world-1
+    order with peer bytes on both ranks and a warm epoch that reads
+    neither the wire nor a peer; the reference's JSON keys, and its
+    order over the same corpus (``make_recordio`` writes the reference's
+    bytes): the same sorted-record hash and displacement."""
+    from dmlc_tpu.shuffle import GlobalShuffleSplit as RefSplit
+    _unset_gang_env(monkeypatch)
+    got = bench_suite.bench_global_shuffle(16, work=dirs)
+    assert set(got) == _return_keys(ref_bench.bench_global_shuffle)
+    assert got["windows"] >= 8 and got["window_bytes"] == 2 << 20
+    assert all(f > 0 for f in got["peer_frac_per_rank"])
+    assert got["gang_wire_frac"] <= 1.6
+    import hashlib
+    paths = [os.path.join(dirs, f"dmlc_tpu_torch_bench_suite.shuffle."
+                                f"part{k}.rec") for k in range(2)]
+    ref = RefSplit(";".join(paths), 0, 1, "recordio", seed=23,
+                   window_bytes=2 << 20)
+    golden = [hashlib.sha256(r).hexdigest() for r in ref]
+    assert len(golden) == got["records"]
+    assert got["hash"] == hashlib.sha256(
+        "\n".join(sorted(golden)).encode()).hexdigest()
+    json.dumps(got)
+
+
 def test_main_prints_one_line_a_config(dirs, monkeypatch, capsys):
     calls = []
     monkeypatch.setattr(bench_suite, "CONFIGS", {
@@ -308,7 +354,8 @@ def test_configs_table_holds_the_recordio_configs():
         6: "indexed_shuffled", 7: "multiprocess", 8: "page_replay",
         10: "spill_replay", 11: "remote_hydrate", 14: "recio_native",
         15: "peer_hydrate", 17: "parquet_native", 18: "image_record",
-        21: "ckpt_restore_fanout"}
+        20: "elastic_reshard", 21: "ckpt_restore_fanout",
+        23: "global_shuffle"}
     for n in bench_suite.CONFIGS:
         assert bench_suite.CONFIGS[n][0] == ref_bench.CONFIGS[n][0]
 

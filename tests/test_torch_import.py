@@ -112,7 +112,13 @@ NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
                "dmlc_tpu_torch.obs.serve",
                "dmlc_tpu_torch.io.objstore.peer",
                "dmlc_tpu_torch.bench_peer_worker",
-               "dmlc_tpu_torch.bench_ckpt_worker")
+               "dmlc_tpu_torch.bench_ckpt_worker",
+               "dmlc_tpu_torch.shuffle",
+               "dmlc_tpu_torch.shuffle.index",
+               "dmlc_tpu_torch.shuffle.exchange",
+               "dmlc_tpu_torch.shuffle.split",
+               "dmlc_tpu_torch.bench_shuffle_worker",
+               "dmlc_tpu_torch.bench_elastic_worker")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -123,7 +129,8 @@ def test_transfer_and_checkpoint_modules_import_alone(module):
     and indexed-RecordIO modules, the object-store plane (with the
     RPC trace plane and the ownership rule), and the gang plane (the
     status server, the peer tier, rendezvous membership and the two
-    gang bench workers) import in a fresh
+    gang bench workers), and the global shuffle plane (its four modules
+    and the config 20 and 23 workers) import in a fresh
     interpreter without jax or dmlc_tpu (each is also in the AST scan
     above)."""
     path = os.path.join(REPO, *module.split("."))

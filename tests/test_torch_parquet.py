@@ -371,3 +371,202 @@ def test_chip_smoke_writer_is_read_back(tmp_path, chip_smoke, shape,
     ok = ~np.isnan(dense.ravel())
     assert np.array_equal(golden.value[ok], dense.ravel()[ok])
     assert np.array_equal(golden.label, cols["label"])
+
+
+# ------------------------------------- the golden over the VFS (C12's cure)
+
+def test_as_file_adapter(tmp_path):
+    """Twin of ``tests/test_io.py``'s ``test_as_file_adapter``."""
+    import io
+
+    from dmlc_tpu_torch.io.stream import create_stream
+    p = str(tmp_path / "t.txt")
+    with create_stream(p, "w") as s:
+        s.as_file().write(b"line1\nline2\n")
+    with create_stream(p, "r") as s:
+        assert io.BufferedReader(s.as_file()).readline() == b"line1\n"
+
+
+def test_as_file_does_not_own_stream_by_default(tmp_path):
+    """A temporary adapter (GC'd or closed) must not close the stream out
+    from under its owner mid-``with``."""
+    from dmlc_tpu_torch.io.stream import create_stream
+    p = str(tmp_path / "own.txt")
+    with create_stream(p, "w") as s:
+        f = s.as_file()
+        f.write(b"a\n")
+        f.close()          # adapter gone...
+        s.write(b"b\n")    # ...stream still usable by its owner
+    with create_stream(p, "r") as s:
+        assert s.read_all() == b"a\nb\n"
+
+
+def test_as_file_own_stream_transfers_ownership(tmp_path):
+    from dmlc_tpu_torch.io.stream import create_stream
+    p = str(tmp_path / "own2.txt")
+    with open(p, "w") as f:
+        f.write("x")
+    s = create_stream(p, "r")
+    s.as_file(own_stream=True).close()
+    # FileStream drops its file object on close — ownership moved
+    assert s._f is None
+
+
+def test_as_file_seeks_from_end_only_with_a_size(tmp_path):
+    """``size=`` makes whence=2 work on a SeekStream (pyarrow finds the
+    footer so); without it, and on a stream that cannot seek, the
+    adapter raises ``UnsupportedOperation``, as the reference's does."""
+    import io
+
+    from dmlc_tpu_torch.io.stream import Stream, create_stream
+    p = str(tmp_path / "s.bin")
+    with open(p, "wb") as f:
+        f.write(bytes(range(100)))
+    with create_stream(p, "r") as s:
+        f = s.as_file(size=100)
+        assert f.seekable() and f.seek(-10, 2) == 90
+        assert f.read(3) == bytes([90, 91, 92])
+        with pytest.raises(io.UnsupportedOperation, match="size"):
+            s.as_file().seek(-1, 2)
+    plain = Stream()
+    assert not plain.as_file().seekable()
+    with pytest.raises(io.UnsupportedOperation):
+        plain.as_file().seek(0)
+
+
+@pytest.fixture
+def vfs_parquet(tmp_path):
+    path = str(tmp_path / "d.parquet")
+    rng = np.random.RandomState(5)
+    n = 1000
+    table = pa.table({
+        "label": rng.randint(0, 2, n).astype(np.float32),
+        "f0": rng.rand(n).astype(np.float32),
+        "f1": rng.randn(n).astype(np.float32),
+        "f2": rng.rand(n).astype(np.float32),
+    })
+    pq.write_table(table, path, row_group_size=100)
+    return path, table
+
+
+def test_registered_scheme_streams_parquet(vfs_parquet):
+    """Twin of ``TestParquetOverVFS::test_registered_scheme_streams_parquet``:
+    a scheme registered with ``FileSystem.register_scheme`` whose
+    ``open_for_read`` returns a SeekStream feeds pyarrow through the
+    ``as_file(size=...)`` adapter, with no local-path escape; its block
+    is the local file's."""
+    from dmlc_tpu_torch.io.filesys import (
+        FileInfo, FileSystem, LocalFileSystem, URI,
+    )
+    path, table = vfs_parquet
+    opened = []
+
+    class PrefixFS(LocalFileSystem):
+        """vfsx://<abs path> → local file, paths keep the scheme so
+        every re-dispatch stays inside the VFS."""
+
+        def open_for_read(self, uri):
+            opened.append(uri.name)
+            return super().open_for_read(URI(uri.name))
+
+        def open(self, uri, mode):
+            opened.append(uri.name)
+            return super().open(URI(uri.name), mode)
+
+        def get_path_info(self, uri):
+            info = super().get_path_info(URI(uri.name))
+            return FileInfo(path=f"vfsx://{info.path}",
+                            size=info.size, type=info.type)
+
+    FileSystem.register_scheme("vfsx://", PrefixFS)
+    try:
+        block = _drain(Parser, RowBlockContainer, f"vfsx://{path}", "auto",
+                       fmt="parquet", prefetch=False)
+        assert block.size == 1000
+        np.testing.assert_array_equal(
+            block.label, table.column("label").to_numpy())
+        assert opened, "scheme open() was never exercised"
+        _assert_blocks_equal(block, _port(path, "python", fmt="parquet"))
+    finally:
+        FileSystem._schemes.pop("vfsx://", None)
+        FileSystem._instances.pop("vfsx://", None)
+
+
+def test_non_seekable_scheme_fails_with_guidance(vfs_parquet):
+    """Twin of ``TestParquetOverVFS::test_non_seekable_scheme_fails_with_guidance``."""
+    from dmlc_tpu_torch.io.filesys import FileInfo, FileSystem, URI
+    from dmlc_tpu_torch.io.stream import Stream
+    path, _ = vfs_parquet
+
+    class NoSeekFS(FileSystem):
+        def open_for_read(self, uri):
+            f = open(URI(uri.name).name, "rb")
+            s = Stream()  # base Stream: not a SeekStream
+            s.read = lambda n: f.read(n)
+            s.close = f.close
+            return s
+
+        open = open_for_read
+
+        def get_path_info(self, uri):
+            return FileInfo(path=f"noseek://{uri.name}",
+                            size=os.path.getsize(uri.name), type="file")
+
+    FileSystem.register_scheme("noseek://", NoSeekFS)
+    try:
+        with pytest.raises(Exception, match="seek|Seek"):
+            Parser.create(f"noseek://{path}", 0, 1, format="parquet",
+                          prefetch=False)
+    finally:
+        FileSystem._schemes.pop("noseek://", None)
+        FileSystem._instances.pop("noseek://", None)
+
+
+@pytest.fixture
+def obj_parquet(vfs_parquet, tmp_path, monkeypatch):
+    """The Parquet file behind ``obj://`` on the port's emulator (an
+    isolated page store; the process's client and options restored
+    after)."""
+    import dmlc_tpu_torch.io.objstore as objstore
+    import dmlc_tpu_torch.io.objstore.fs as ofs
+    import dmlc_tpu_torch.io.pagestore as ps
+    for name in (ofs.ENV_ROOT, ofs.ENV_ENDPOINT, "DMLC_TPU_SERVE_PORTS",
+                 "DMLC_TPU_SERVE_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(ps, "default_store_dir",
+                        lambda: str(tmp_path / "pages"))
+    saved = ofs.options()
+    em = objstore.configure(root=str(tmp_path / "objroot"),
+                            block_bytes=1 << 14, coalesce=2, parallel=2,
+                            hydrate=True, peer=False, codec_level=0)
+    em.put_file("bench", "t/d.parquet", vfs_parquet[0])
+    yield "obj://bench/t/d.parquet", vfs_parquet[0]
+    objstore.configure(None, **{k: v for k, v in saved.items()
+                                if k != "codec_level"})
+    ofs._options["codec_level"] = saved["codec_level"]
+
+
+@pytest.mark.parametrize("fmt", ["parquet", "parquet_native"])
+def test_obj_parquet_reads_as_the_local_file(obj_parquet, fmt):
+    """C12: ``engine="auto"`` on a Parquet object behind ``obj://`` gives
+    the local file's blocks and padded batches, and the reference
+    golden's block of the same file."""
+    from dmlc_tpu_torch.obs.metrics import REGISTRY
+    uri, local = obj_parquet
+    gets0 = REGISTRY.counter("objstore.get").value
+    got = _drain(Parser, RowBlockContainer, uri, "auto", fmt=fmt)
+    assert REGISTRY.counter("objstore.get").value > gets0
+    assert got.content_hash() == _port(local, "auto", fmt=fmt).content_hash()
+    _assert_blocks_equal(got, _ref(local, fmt="parquet"))
+
+    def batches(u):
+        with (Pipeline.from_uri(u)
+              .parse(format=fmt, engine="auto", label_column="label")
+              .batch(256, pad=True, nnz_bucket=256 * 3)
+              .to_device(device="cpu").build()) as built:
+            return [hashlib.sha256(b"".join(
+                np.ascontiguousarray(b[k].numpy()).tobytes()
+                for k in sorted(b))).hexdigest() for b in built]
+
+    want = batches(local)
+    assert len(want) == 4 and batches(uri) == want

@@ -314,9 +314,25 @@ def test_drop_remainder_drops_the_short_tail(corpora, native):
         assert rows == [BATCH] * (ROWS // BATCH), engine
 
 
+@pytest.mark.parametrize("kwargs,window_bytes", [
+    ({"global_seed": 3, "window_bytes": 1 << 20}, 1 << 20),
+    ({"global_seed": 3}, 32 << 20),
+])
+def test_global_shuffle_stage_lowers(corpora, kwargs, window_bytes):
+    """``shuffle(global_seed=...)`` lowers onto a GlobalShuffleSplit (the
+    reference's default window of 32 MB when none is given), whose view
+    is the process's ``/shuffle`` surface while the chain lives."""
+    from dmlc_tpu_torch import shuffle
+    with (Pipeline.from_uri(corpora["libsvm"]).shuffle(**kwargs)
+          .parse(format="libsvm").build()) as b:
+        rows = sum(blk.size for blk in b)
+        v = shuffle.view()
+        assert (v["seed"], v["window_bytes"], v["world"]) == \
+            (3, window_bytes, 1)
+    assert rows == v["records"] == v["delivered"] == ROWS
+
+
 @pytest.mark.parametrize("refused,match", [
-    (lambda p: p.shuffle(global_seed=3, window_bytes=1 << 20), "shuffle"),
-    (lambda p: p.shuffle(global_seed=3), "shuffle"),
     (lambda p: p.parse().to_device(sharding=object()), "sharding"),
     (lambda p: p.parse().build(tenant="feed"), "tenant"),
     (lambda p: Pipeline.from_stream("x.libsvm", window_records=8),

@@ -7,8 +7,10 @@ Twins of ``tests/test_pipeline.py``'s
 shuffled padded batches (``to_device(device="cpu")``) must be
 byte-identical to the reference's shuffled host chain (``prefetch`` in
 place of ``to_device``) in epochs 1 and 2, whose orders differ; the
-shuffled rows must be the unshuffled rows; and the global shuffle
-(``global_seed=``) and ``shuffle`` with ``cache`` must refuse.
+shuffled rows must be the unshuffled rows; ``shuffle`` with ``cache``
+must refuse, and so must ``window_bytes`` without ``global_seed`` (the
+reference's words); the global shuffle (``global_seed=``) must lower
+onto a ``GlobalShuffleSplit``.
 """
 
 import hashlib
@@ -185,24 +187,49 @@ def test_shuffle_unsupported_format_refused(tmp_path, ignoring_format):
                                     {"global_seed": 3, "window_bytes": 1024},
                                     {"window_bytes": 1024}])
 def test_global_shuffle_is_not_ported(tmp_path, kwargs):
-    with pytest.raises(DMLCError,
-                       match="not ported.*shuffle plane's global"):
-        Pipeline.from_uri("x.libsvm").shuffle(**kwargs)
+    """(Named when the port refused the global shuffle.) ``global_seed``
+    now adds a shuffle spec carrying the seed and window the lowering
+    reads, as the reference's ``shuffle`` does; ``window_bytes`` alone
+    is refused in both packages with the reference's words."""
+    if "global_seed" not in kwargs:
+        for pipeline_cls, err in ((Pipeline, DMLCError),
+                                  (RefPipeline, RefDMLCError)):
+            with pytest.raises(err, match="pass global_seed"):
+                pipeline_cls.from_uri("x.libsvm").shuffle(**kwargs)
+        return
+    spec = Pipeline.from_uri("x.libsvm").shuffle(**kwargs).stages[-1]
+    ref = RefPipeline.from_uri("x.libsvm").shuffle(**kwargs).stages[-1]
+    assert spec.kind == ref.kind == "shuffle"
+    assert dict(spec.params) == dict(ref.params)
+    assert spec.params["global_seed"] == 3
+    assert spec.params["window_bytes"] == kwargs.get("window_bytes")
 
 
 def test_global_shuffle_spec_refused_at_build(tmp_path):
-    """A chain whose shuffle spec carries a global seed (built from specs,
-    not through ``shuffle()``) is refused where it lowers, never read as
-    a chunk shuffle."""
+    """(Named when the port refused the global shuffle.) A chain whose
+    shuffle spec carries a global seed (built from specs, not through
+    ``shuffle()``) lowers onto a GlobalShuffleSplit at that seed and the
+    default window, never a chunk shuffle: its rows are the file's rows
+    in the reference's global order."""
+    from dmlc_tpu.pipeline import StageSpec as RefStageSpec
+    from dmlc_tpu_torch import shuffle
     from dmlc_tpu_torch.pipeline import StageSpec
     uri = _write_libsvm(tmp_path, rows=100)
-    pipe = Pipeline((StageSpec("source", uri=uri, part_index=0,
-                               num_parts=1, split_type="text"),
-                     StageSpec("shuffle", num_shuffle_parts=2, seed=0,
-                               global_seed=3, window_bytes=None),
-                     StageSpec("parse", format="libsvm", engine="python")))
-    with pytest.raises(DMLCError, match="not ported.*global"):
-        pipe.build()
+
+    def specs(cls):
+        return (cls("source", uri=uri, part_index=0, num_parts=1,
+                    split_type="text"),
+                cls("shuffle", num_shuffle_parts=2, seed=0, global_seed=3,
+                    window_bytes=None),
+                cls("parse", format="libsvm", engine="python"))
+
+    with Pipeline(specs(StageSpec)).build() as built:
+        got = _drain_hash(built, RowBlockContainer)
+        v = shuffle.view()
+        assert (v["seed"], v["window_bytes"], v["records"]) == \
+            (3, shuffle.DEFAULT_WINDOW_BYTES, 100)
+    with RefPipeline(specs(RefStageSpec)).build() as built:
+        assert got == _drain_hash(built, RefContainer)
 
 
 def test_shuffle_with_cache_refuses(tmp_path):

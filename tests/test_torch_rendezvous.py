@@ -5,10 +5,10 @@ supervisor wiring around it, held to the reference's
 replacement replays the identical stream; a partial run is a prefix),
 ``TestRendezvousMembership`` (deterministic ranks, monotonic epochs,
 heartbeat-grace flap suppression, the epoch fence, the peer tier's dead
-rank) and ``test_shrink_gang_byte_identical_coverage``.
-``test_grow_reshard_visible_on_trace_gang_and_ledger`` needs the
-control ledger and the gang aggregator, which the port does not have,
-and is left out.
+rank), ``test_shrink_gang_byte_identical_coverage`` and
+``test_grow_reshard_visible_on_trace_gang_and_ledger``, whose ledger
+check is left out: the control ledger is the analytic obs planes', which
+the port does not have.
 
 Beside the twins, across the packages: the port's client joins the
 reference's service (and the reference's the port's) and sees the same
@@ -444,6 +444,68 @@ class TestElasticGangAcceptance:
         assert got == want
         assert hashlib.sha256(b"\n".join(got)).hexdigest() == baseline
         assert outs["b"], "the victim's prefix should be real work"
+
+    def test_grow_reshard_visible_on_trace_gang_and_ledger(self):
+        """Twin of the reference's test, without its third check: the
+        membership record on the control ledger waits for the analytic
+        obs planes (``obs.control``), which the port does not have. A
+        mid-epoch grow is on the merged trace (the service's join
+        instants, the member's reshard instant with its world
+        transition) and on ``/gang``'s live roster."""
+        import json as _json
+        import urllib.request
+
+        from dmlc_tpu_torch.io.objstore import peer as peer_mod
+        from dmlc_tpu_torch.obs import trace as obs_trace
+        from dmlc_tpu_torch.obs.serve import StatusServer
+
+        rec = obs_trace.start()
+        svc = srv = None
+        try:
+            svc = RendezvousService(heartbeat_grace_s=30.0)
+            a = RendezvousClient("127.0.0.1", svc.port, gang="grow",
+                                 member="a", serve_port=7101)
+            b = RendezvousClient("127.0.0.1", svc.port, gang="grow",
+                                 member="b", serve_port=7102)
+            a.join()
+            b.join()
+            a.heartbeat()
+            assert (a.epoch, a.world) == (2, 2)
+            rndv.install(client=a)  # a's membership IS /gang here
+            srv = StatusServer(port=0)
+            # the mid-epoch GROW: a third member joins the running
+            # gang; a learns at its next beat and reshards
+            c = RendezvousClient("127.0.0.1", svc.port, gang="grow",
+                                 member="c", serve_port=7103)
+            c.join()
+            assert (c.world, c.rank) == (3, 2)
+            a.heartbeat()
+            assert a.world == 3
+            # 1) the merged trace: service-side join instants AND the
+            # member-side reshard instant, with the world transition
+            names = [e[1] for e in rec.events()]
+            assert "gang/member/join" in names
+            assert "gang/member/reshard" in names
+            ev = [e for e in rec.events()
+                  if e[1] == "gang/member/reshard"][-1]
+            assert ev[6]["old_world"] == 2
+            assert ev[6]["new_world"] == 3
+            # 2) /gang: the live roster over HTTP
+            with urllib.request.urlopen(srv.url("/gang"),
+                                        timeout=5) as r:
+                doc = _json.loads(r.read())
+            mem = doc["membership"]
+            assert mem["world"] == 3 and mem["epoch"] == a.epoch
+            assert [m["member"] for m in mem["roster"]] == \
+                ["a", "b", "c"]
+        finally:
+            rndv.uninstall()
+            obs_trace.stop()
+            peer_mod.reset()  # the joins set the process peer tier
+            if srv is not None:
+                srv.close()
+            if svc is not None:
+                svc.close()
 
     def test_launch_local_gang_shrinks_on_a_death(self, tmp_path):
         """A real ``launch_local(rendezvous=True)`` gang of 2: both join

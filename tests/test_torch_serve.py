@@ -320,6 +320,38 @@ class TestStatusServer:
         assert "not ported" in doc["error"]
         assert NOT_PORTED[path] in doc["error"]
 
+    @pytest.mark.parametrize("live", [False, True])
+    def test_shuffle_answers_its_view_or_the_reference_404(
+            self, tmp_path, monkeypatch, live):
+        """``/shuffle`` answers the live global shuffle's view with 200,
+        and with none the reference's 404 ``{error, hint}``, the hint
+        naming ``global_seed``, never a not-ported error."""
+        from dmlc_tpu_torch.io.pagestore import ENV_STORE_DIR
+        from dmlc_tpu_torch.shuffle import GlobalShuffleSplit
+        from dmlc_tpu_torch.shuffle import exchange as exchange_mod
+        monkeypatch.setenv(ENV_STORE_DIR, str(tmp_path / "store"))
+        monkeypatch.setattr(exchange_mod, "_VIEW_REF", None)
+        path = tmp_path / "t.txt"
+        path.write_bytes(b"".join(b"row-%d\n" % i for i in range(50)))
+        sp = (GlobalShuffleSplit(str(path), 0, 1, "text", seed=9,
+                                 window_bytes=64) if live else None)
+        with StatusServer() as srv:
+            if live:
+                assert sp.next_record() is not None
+                status, body = _get(srv.url("/shuffle"))
+                doc = json.loads(body)
+                assert status == 200 and doc == sp.reader.view_dict()
+                assert (doc["seed"], doc["delivered"], doc["records"]) \
+                    == (9, 1, 50)
+                return
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _get(srv.url("/shuffle"))
+            assert e.value.code == 404
+            doc = json.loads(e.value.read())
+        assert set(doc) == {"error", "hint"}
+        assert doc["error"] == "no global shuffle active"
+        assert "global_seed" in doc["hint"]
+
     def test_serve_if_env_and_shutdown(self, monkeypatch):
         import importlib
 
