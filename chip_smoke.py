@@ -357,7 +357,39 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    on ``trace-gang.json``, each rank's batches and weights as the
    fault-free gang's; config 10 through ``bench_suite.main`` under
    ``--chaos`` with no ``error``; parse-only epochs with and without an
-   installed watchdog, in turns.
+   installed watchdog, in turns;
+13. dmlc-core's entry point (``rowiter_path``): ``RowBlockIter.create``
+   over the linear corpus, in RAM (one ``BasicRowIter`` block), then
+   ``create(path#cache)``'s build epoch and a replay from a fresh
+   iterator (a ``DiskRowIter`` over the page entry
+   ``<cache>.pages.p0-1``, not rebuilt), each pass cut into the main
+   path's batches (8192 rows, ``pad_single`` to nnz_bucket 368640, u32
+   index), copied to the card and trained on by a fresh
+   ``SparseLinearModel(10^6)``: every pass's blocks joined hash as the
+   main path's native parse (``RowBlock.content_hash()``), ``num_col``
+   and the rows equal, K1, K2, K8 and K9 once a step and no other
+   kernel, the loss falling; GB/s and steps/s of each epoch;
+14. the submit CLI (``submit_path``): ``python -m
+   dmlc_tpu_torch.parallel.launch -n 2 -s 1 -- python SUBMIT_WORKER``
+   over the first 32 MB of the linear corpus: the CLI exits 0 (every
+   code of the gang 0); the scheduler and the server branch on
+   ``get_role()`` and see the reference's ``ps_envs`` of their role on
+   one PS root; each worker (no process group: both share this card)
+   trains ``SparseLinearModel(10^6)`` on its part of 2 on the card
+   through the native Pipeline, K1, K2, K8 and K9 once a step, the loss
+   falling;
+15. the example twins (``examples_path``): every twin under
+   ``examples/torch_port/`` that takes ``--device`` but the gang's runs
+   on the card and with ``--device cpu``, each in a process of its own
+   run by EXAMPLE_RUNNER, which counts the kernels' launches beside the
+   twin's untouched output: the card run exits 0 and prints the host
+   run's lines under the per-line rules of ``same_output`` (those
+   ``tests/test_torch_examples.py`` holds the twins to their references
+   with), its model launched its kernels
+   (EXAMPLE_KERNELS) and no other, the host run none;
+   ``distributed_launch.py`` on this one-card host refuses with
+   ``NotEnoughCardsError`` (NCCL needs a card a rank) and prints
+   nothing.
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -376,6 +408,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -636,6 +669,155 @@ PEER_HYDRATE_MB, CKPT_FANOUT_MB = 256, 64
 # GLOBAL_SHUFFLE_MB (the reference's default --mb).
 SHUFFLE_WINDOW_MB, SHUFFLE_MIN_WINDOWS = 2, 16
 ELASTIC_MB, GLOBAL_SHUFFLE_MB = 64, 64
+# dmlc-core's front door (phases 13-15). rowiter_path: RowBlockIter.create
+# over the linear corpus, in RAM and through a '#cache' page file (its
+# build epoch, then a replay), each pass cut into the main path's
+# batches. submit_path: the submit CLI (python -m
+# dmlc_tpu_torch.parallel.launch -n SUBMIT_WORKERS -s SUBMIT_SERVERS),
+# its workers training on the card on their parts of the first
+# REMOTE_TRAIN_MB of the linear corpus. examples_path: the example twins
+# on the card against their runs on the host, each subprocess within
+# EXAMPLE_TIMEOUT_S, the host's runs one at a time beside the card's on
+# EXAMPLE_HOST_THREADS threads (on an 8-core host, three processes with
+# a thread a core each ran 10x slower); EXAMPLE_KERNELS names the
+# kernels each twin's model must launch on the card (and no other); a
+# twin with none moves data only.
+SUBMIT_WORKERS, SUBMIT_SERVERS, SUBMIT_TIMEOUT_S = 2, 1, 300
+EXAMPLE_TIMEOUT_S, EXAMPLE_HOST_THREADS = 300, 4
+EXAMPLE_KERNELS = {
+    "pipeline_quickstart.py": (),
+    "cuda_device_ingest.py": (),
+    "train_sparse_linear.py": ("csr_spmv", "csr_spmv_t", "logistic_sums",
+                               "logistic_grad", "sgd_update"),
+    "train_fm.py": ("csr_spmv", "csr_spmv_t", "fm_pair_fwd", "fm_pair_bwd",
+                    "ffm_pair_fwd", "ffm_pair_bwd", "logistic_sums",
+                    "logistic_grad", "sgd_update"),
+    "train_ranking.py": ("csr_spmv", "csr_spmv_t", "pair_sums",
+                         "pair_sums_grad", "sgd_update"),
+}
+
+
+# The example twins (phase 15, and tests/test_torch_examples*.py, which
+# hold each twin to its reference with the same rules).
+# twin -> (its reference under examples/, whether it takes --device)
+TABLE = {
+    "data_pipeline.py": ("data_pipeline.py", False),
+    "pipeline_quickstart.py": ("pipeline_quickstart.py", True),
+    "cuda_device_ingest.py": ("tpu_device_ingest.py", True),
+    "train_sparse_linear.py": ("train_sparse_linear.py", True),
+    "train_ranking.py": ("train_ranking.py", True),
+    "train_fm.py": ("train_fm.py", True),
+    "distributed_launch.py": ("distributed_launch.py", True),
+}
+
+# The per-line rules under which a twin's stdout is its reference's
+# (the tests), or its card run's is its host run's (examples_path).
+#
+# 1. The reference's collective library writes its connection log to the
+#    workers' stdout ("[Gloo] Rank 0 is connected to 1 peer ranks. ..."),
+#    from both worker processes at once, so its lines can come out
+#    broken and interleaved: in the reference's output, every line that
+#    holds a piece of it ("[Gloo]", "peer ranks") and every blank line
+#    is dropped.
+# 2. Wall times are masked: an epoch's "1.30s" in "(10 steps, 1.30s, ...",
+#    a stage's "wait=0.009s" and its queue's "occupancy=0.35" (how full
+#    the queue stood is timing too), and the depths the autotuner chose
+#    from those waits: in "autotuned knobs: {'prefetch.depth': 4, ...}
+#    (changed: ...)" each knob's value and the changed set are masked,
+#    the knobs' names are not (one card run moved prefetch.depth to 2
+#    where the host's run kept 4).
+# 3. The device word: where the reference names its JAX platform ("on
+#    cpu", "on tpu"), the twin names its torch device type ("on cpu",
+#    "on cuda"); each run's own word is masked, so a line that names
+#    any other device differs.
+# 4. Device counts: the twin counts the parts of its mesh (or the cards
+#    it reads onto) where the reference counts JAX devices; with the
+#    reference's counts above and the twins' meshes these are the same
+#    numbers, so they stay in the byte comparison. One count depends on
+#    the host: cuda_device_ingest.py shards its records over up to 4
+#    cards, one part each, and over one part on the CPU. So where a twin's
+#    card run is held to its own host run (reference=False) on a host of
+#    ``cards`` cards, the host run's "across 1 device shards" stands for
+#    "across min(4, cards) device shards".
+# 5. The records written by the worker processes of a gang ("[worker
+#    r/w] ...") are compared as a sorted list: their order between
+#    processes is timing. In the reference's output, everything up to
+#    the end of the line that holds its last record was written by its
+#    workers, their records and the log of rule 1 broken into each other
+#    (fragments as short as one digit): there the records are found by
+#    their pattern and the rest is dropped. In the twin's output each
+#    record must be a line of its own, and nothing else is dropped.
+# 6. Every decimal number (a digit, a point, digits; an exponent too) is
+#    compared as a float: |twin - reference| <= one unit in the last
+#    place the reference printed + FLOAT_RTOL * |reference| (ROADMAP C3:
+#    device math meets a stated tolerance; the two packages and the two
+#    devices sum in other orders). Everything else is compared byte for
+#    byte.
+
+DROP = re.compile(r"\[Gloo\]|peer ranks|^\s*$")
+WALL = (re.compile(r"(\(\d+ steps, )\d+\.\d+(s, )"),
+        re.compile(r"( wait=)\d+\.\d+(s)"),
+        re.compile(r"( occupancy=)\d+\.\d+()"),
+        re.compile(r"^(autotuned knobs: .*\(changed: ).*(\))$"))
+TUNED = re.compile(r"^(autotuned knobs: )|('[\w.]+': )\d+")
+RECORD = re.compile(r"\[worker \d+/\d+\][^\[\n]*")
+FLOAT = re.compile(r"-?\d+\.(\d+)(?:[eE][-+]?\d+)?")
+FLOAT_RTOL = 1e-4
+SHARDS = re.compile(r"\bacross 1 device shards\b")
+
+
+def _lines(text, device, reference):
+    lines, records = text.splitlines(), []
+    if reference:
+        gang = max((i + 1 for i, line in enumerate(lines)
+                    if RECORD.search(line)), default=0)
+        for line in lines[:gang]:
+            records += RECORD.findall(line)
+        lines = [line for line in lines[gang:] if not DROP.search(line)]
+    out = []
+    for line in lines:
+        for pat in WALL:
+            line = pat.sub(r"\1<wall>\2", line)
+        if line.startswith("autotuned knobs: "):
+            line = TUNED.sub(lambda m: m.group(1) or m.group(2) + "<wall>",
+                             line)
+        line = re.sub(rf"\bon {re.escape(device)}\b", "on <device>", line)
+        if not reference and line.startswith("[worker "):
+            records.append(line)
+        else:
+            out.append(line)
+    return out + sorted(records)
+
+
+def _floats_close(got, want):
+    for g, w in zip(FLOAT.finditer(got), FLOAT.finditer(want)):
+        exp = re.search(r"[eE]([-+]?\d+)$", w.group(0))
+        ulp = 10.0 ** (-len(w.group(1)) + (int(exp.group(1)) if exp else 0))
+        if abs(float(g.group(0)) - float(w.group(0))) > \
+                ulp + FLOAT_RTOL * abs(float(w.group(0))):
+            return False
+    return True
+
+
+def same_output(want_text, got_text, want_device, got_device,
+                reference=True, cards=1):
+    """Whether ``got_text`` (a twin's stdout on ``got_device``) is
+    ``want_text`` (its reference's on the JAX platform ``want_device``;
+    with ``reference=False``, the twin's own run on the CPU, the card run
+    on a host of ``cards`` cards) under the rules above. Returns (ok, the
+    first differing pair of lines or None)."""
+    if not reference:
+        want_text = SHARDS.sub(f"across {min(4, cards)} device shards",
+                               want_text)
+    want = _lines(want_text, want_device, reference)
+    got = _lines(got_text, got_device, False)
+    if not want or len(want) != len(got):
+        return False, (want, got)
+    for w, g in zip(want, got):
+        if (FLOAT.sub("<f>", w) != FLOAT.sub("<f>", g)
+                or not _floats_close(g, w)):
+            return False, (w, g)
+    return True, None
 
 
 def log(msg: str) -> None:
@@ -7411,6 +7593,461 @@ def chaos_path(path, size, lr, mesh, work, spill):
 
 # --------------------------------------------------------------- main
 
+# --------------------------------------------------------------- phase 13
+
+def _rowiter_batches(blocks):
+    """The blocks of one RowBlockIter pass cut into the main path's
+    batches: ROW_BUCKET rows each (a cut may span blocks; the last may
+    be short), each padded by ``pad_single`` to ROW_BUCKET x
+    NNZ_BUCKET."""
+    from dmlc_tpu_torch.data.padding import pad_single
+    from dmlc_tpu_torch.data.rowblock import RowBlockContainer
+    pending = None
+    for block in blocks:
+        start = 0
+        if pending is not None:
+            start = min(ROW_BUCKET - pending.size, block.size)
+            pending.push_block(block.slice(0, start))
+            if pending.size < ROW_BUCKET:
+                continue
+            yield pad_single(pending.get_block(), ROW_BUCKET, NNZ_BUCKET)
+            pending = None
+        while block.size - start >= ROW_BUCKET:
+            yield pad_single(block.slice(start, start + ROW_BUCKET),
+                             ROW_BUCKET, NNZ_BUCKET)
+            start += ROW_BUCKET
+        if start < block.size:
+            pending = RowBlockContainer(block.index.dtype)
+            pending.push_block(block.slice(start, block.size))
+    if pending is not None:
+        yield pad_single(pending.get_block(), ROW_BUCKET, NNZ_BUCKET)
+
+
+def rowiter_epoch(name, make_iter, size, lr, want_hash):
+    """One epoch of ``make_iter()`` (a RowBlockIter, created inside the
+    epoch's clock) cut into the main path's batches, each copied to the
+    card and trained on by a fresh ``SparseLinearModel(10^6)``. Checks:
+    the pass's blocks joined hash as ``want_hash``; K1, K2, K8 and K9
+    launch once a step and no other kernel; the loss falls. Returns the
+    epoch's numbers (and its iterator's ``num_col``)."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.data.rowblock import RowBlockContainer
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    cuda = torch.device("cuda")
+    wrappers = _wrappers()
+    model = SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda)
+    kept, losses = [], []
+
+    def blocks(it):
+        it.before_first()
+        while it.next():
+            kept.append(it.value())
+            yield kept[-1]
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = make_iter()
+    create_s = time.perf_counter() - t0
+    for batch in _rowiter_batches(blocks(it)):
+        losses.append(model.train_step(
+            {k: torch.from_numpy(np.asarray(v)).to(cuda)
+             for k, v in batch.items()}))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    steps = len(losses)
+    want = {k: steps if k in PATH_KERNELS["linear"] else 0
+            for k in launches}
+    require(steps > 0 and launches == want,
+            f"rowiter path, {name}: launch counts {launches} != {want}")
+    losses = [float(x) for x in losses]
+    require(all(x == x and abs(x) != float("inf") for x in losses)
+            and losses[-1] < losses[0],
+            f"rowiter path, {name}: the loss did not fall: {losses}")
+    cont = RowBlockContainer(np.uint32)
+    for b in kept:
+        cont.push_block(b)
+    got = cont.get_block().content_hash()
+    require(got == want_hash,
+            f"rowiter path, {name}: its blocks hash {got}, the main path's "
+            f"parse {want_hash}")
+    out = {"blocks": len(kept), "rows": cont.size, "steps": steps,
+           "create_s": create_s, "epoch_s": secs, "gbps": size / secs / 1e9,
+           "steps_per_s": steps / secs, "loss_first": losses[0],
+           "loss_last": losses[-1], "num_col": it.num_col(),
+           "launches": launches}
+    log(f"rowiter path, {name}: {out['blocks']} blocks, {out['rows']} rows, "
+        f"{steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; create "
+        f"{create_s:.3f} s of {secs:.3f} s: {out['gbps']:.3f} GB/s, "
+        f"{out['steps_per_s']:.2f} steps/s")
+    return out, it
+
+
+def rowiter_path(path, size, lr, work):
+    """Phase 13: dmlc-core's entry point, ``RowBlockIter.create``, over
+    the linear corpus (see the module docstring): the in-RAM iterator,
+    then ``create(path#cache)``'s build epoch and a replay from a fresh
+    iterator, each cut into the main path's batches and trained on the
+    card (after one untimed step on the corpus's first batch: in a
+    process that had not touched the card, the first epoch took its
+    start-up: 5.5 s against 0.7 for the next on an H100). Returns the
+    phase's numbers."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.data.parser import Parser
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.data.row_iter import (
+        BasicRowIter, DiskRowIter, RowBlockIter,
+    )
+    from dmlc_tpu_torch.data.rowblock import RowBlockContainer
+    t_phase = time.perf_counter()
+    # the main path's parse (the native engine), its blocks joined
+    parser = Parser.create(path, 0, 1, format="libsvm", engine="native")
+    cont = RowBlockContainer(np.uint32)
+    for block in parser:
+        cont.push_block(block)
+    parser.destroy()
+    whole = cont.get_block()
+    want_hash, want_rows = whole.content_hash(), whole.size
+    want_col = int(whole.index.max()) + 1
+    del cont, whole
+    cuda = torch.device("cuda")
+    SparseLinearModel(NUM_FEATURES, learning_rate=lr, device=cuda).train_step(
+        {k: torch.from_numpy(np.asarray(v)).to(cuda)
+         for k, v in first_batch(path).items()})
+    torch.cuda.synchronize()
+    cache = os.path.join(work, "rowiter", "criteo.cache")
+    os.makedirs(os.path.dirname(cache))
+    entry = cache + ".pages.p0-1"
+    out = {"rows": want_rows}
+    out["ram"], it = rowiter_epoch(
+        "in RAM", lambda: RowBlockIter.create(path, format="libsvm"), size,
+        lr, want_hash)
+    require(isinstance(it, BasicRowIter) and out["ram"]["blocks"] == 1,
+            f"rowiter path: create(path) gave {type(it).__name__} of "
+            f"{out['ram']['blocks']} blocks, not one BasicRowIter block")
+    del it
+    out["build"], it = rowiter_epoch(
+        "#cache build",
+        lambda: RowBlockIter.create(f"{path}#{cache}", format="libsvm"),
+        size, lr, want_hash)
+    require(isinstance(it, DiskRowIter) and os.path.exists(entry)
+            and os.path.exists(entry + ".meta.json"),
+            f"rowiter path: create(path#cache) gave {type(it).__name__}; "
+            f"the entry {entry} and its stamp must be on disk")
+    inode, pages_bytes = os.stat(entry).st_ino, os.path.getsize(entry)
+    del it
+    out["replay"], it = rowiter_epoch(
+        "#cache replay",
+        lambda: RowBlockIter.create(f"{path}#{cache}", format="libsvm"),
+        size, lr, want_hash)
+    require(os.stat(entry).st_ino == inode,
+            "rowiter path: the replay rebuilt the page cache")
+    del it
+    for name in ("ram", "build", "replay"):
+        require(out[name]["rows"] == want_rows
+                and out[name]["num_col"] == want_col,
+                f"rowiter path, {name}: {out[name]['rows']} rows, num_col "
+                f"{out[name]['num_col']}; the parse {want_rows}, {want_col}")
+    out["pages_bytes"] = pages_bytes
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"rowiter path: {want_rows} rows, num_col {want_col}, every pass's "
+        f"blocks hash as the main path's parse; pages {pages_bytes} bytes; "
+        f"phase {out['phase_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------- phase 14
+
+SUBMIT_WORKER = r"""
+import json, os, sys, time
+t_start = time.time()
+path, out_dir, rows, nnz_bucket, features, lr = sys.argv[1:7]
+rows, nnz_bucket, features = int(rows), int(nnz_bucket), int(features)
+from dmlc_tpu_torch.parallel.launch import get_role
+role = get_role()
+keys = ("DMLC_PS_ROOT_URI", "DMLC_PS_ROOT_PORT", "DMLC_NUM_SERVER",
+        "DMLC_NUM_WORKER", "DMLC_ROLE", "DMLC_TASK_ID", "DMLC_TPU_TASK_ID",
+        "DMLC_TPU_NUM_WORKER", "DMLC_TPU_COORDINATOR_URI")
+out = {"role": role, "env": {k: os.environ.get(k) for k in keys}}
+if role == "worker":
+    # a worker trains on its part on the card, in no process group: the
+    # two workers share one card, and NCCL needs a card a rank
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("submit worker: no CUDA card")
+    cuda = torch.device("cuda")
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.ops import csr
+    from dmlc_tpu_torch.ops import step as step_ops
+    from dmlc_tpu_torch.pipeline import Pipeline
+    wrappers = {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
+                "logistic_step": step_ops.logistic_step,
+                "sgd_update": step_ops.sgd_update}
+    rank = int(os.environ["DMLC_TPU_TASK_ID"])
+    world = int(os.environ["DMLC_TPU_NUM_WORKER"])
+    model = SparseLinearModel(features, learning_rate=float(lr), device=cuda)
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, on_card = [], True
+    t0 = time.perf_counter()
+    with (Pipeline.from_uri(path, part_index=rank, num_parts=world)
+          .parse(format="libsvm", engine="native")
+          .batch(rows, pad=True, row_bucket=rows, nnz_bucket=nnz_bucket)
+          .to_device(cuda, window="auto").build()) as built:
+        for batch in built:
+            on_card &= all(v.device.type == "cuda" for v in batch.values())
+            losses.append(model.train_step(batch))
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    out.update(rank=rank, world=world, steps=len(losses), losses=losses,
+               train_s=time.perf_counter() - t0, on_card=on_card,
+               launches={k: fn.launches for k, fn in wrappers.items()})
+out["worker_s"] = time.time() - t_start
+name = f"{role}-{os.environ.get('DMLC_TASK_ID')}"
+tmp = os.path.join(out_dir, name + ".tmp")
+with open(tmp, "w") as f:
+    json.dump(out, f)
+os.replace(tmp, os.path.join(out_dir, name + ".json"))
+"""
+
+
+def _run_group(cmd, timeout, **kw):
+    """``cmd`` in a session of its own, within ``timeout`` seconds: past
+    it every process of the session is killed (a launcher's workers
+    too). Returns the CompletedProcess (text output), or fails."""
+    import signal
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True, **kw)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{' '.join(cmd[:6])} ... ran past {timeout} s")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def submit_path(linear, lr, work):
+    """Phase 14: the submit CLI with the parameter-server role set (see
+    the module docstring): ``python -m dmlc_tpu_torch.parallel.launch -n
+    2 -s 1 -- python SUBMIT_WORKER ...`` over the first REMOTE_TRAIN_MB
+    of the linear corpus. Checks: the CLI exits 0 (every code of the
+    gang 0); the scheduler and the server see the reference's PS env of
+    their role, one root for all; each worker trains its part on the
+    card, K1, K2, K8 and K9 once a step, the loss falling. Returns the
+    phase's numbers."""
+    from dmlc_tpu_torch.parallel.launch import ps_envs
+    t_phase = time.perf_counter()
+    with open(linear, "rb") as f:
+        head = f.read(REMOTE_TRAIN_MB << 20)
+    head = head[:head.rindex(b"\n") + 1]
+    out_dir = os.path.join(work, "submit")
+    os.makedirs(out_dir)
+    local = os.path.join(out_dir, "train.libsvm")
+    with open(local, "wb") as f:
+        f.write(head)
+    size = len(head)
+    del head
+    script = os.path.join(out_dir, "submit_worker.py")
+    with open(script, "w") as f:
+        f.write(SUBMIT_WORKER)
+    cmd = [sys.executable, "-m", "dmlc_tpu_torch.parallel.launch",
+           "-n", str(SUBMIT_WORKERS), "-s", str(SUBMIT_SERVERS), "--",
+           sys.executable, script, local, out_dir, str(ROW_BUCKET),
+           str(NNZ_BUCKET), str(NUM_FEATURES), str(lr)]
+    t0 = time.perf_counter()
+    r = _run_group(cmd, SUBMIT_TIMEOUT_S, cwd=REPO,
+                   env={**os.environ, "PYTHONPATH": REPO})
+    launch_s = time.perf_counter() - t0
+    require(r.returncode == 0,
+            f"submit path: the CLI exited {r.returncode}: {r.stderr[-3000:]}")
+    names = ([f"worker-{i}" for i in range(SUBMIT_WORKERS)] + ["scheduler-0"]
+             + [f"server-{i}" for i in range(SUBMIT_SERVERS)])
+    got = {}
+    for name in names:
+        with open(os.path.join(out_dir, name + ".json")) as f:
+            got[name] = json.load(f)
+    root = got["scheduler-0"]["env"]
+    uri, port = root["DMLC_PS_ROOT_URI"], root["DMLC_PS_ROOT_PORT"]
+    require(uri and port, f"submit path: the scheduler saw no PS root: {root}")
+    for name, res in got.items():
+        role, tid = name.rsplit("-", 1)
+        want = ps_envs(uri, int(port), SUBMIT_WORKERS, SUBMIT_SERVERS, role,
+                       int(tid))
+        seen = {k: res["env"][k] for k in want}
+        require(res["role"] == role and seen == want,
+                f"submit path: {name} saw {seen}, the reference's contract "
+                f"is {want}")
+    steps, workers = 0, []
+    for i in range(SUBMIT_WORKERS):
+        w = got[f"worker-{i}"]
+        require(w["env"]["DMLC_TPU_TASK_ID"] == str(i) and w["on_card"],
+                f"submit path: worker {i}: {w['env']}, on the card "
+                f"{w['on_card']}")
+        want = {k: w["steps"] for k in w["launches"]}
+        losses = w["losses"]
+        require(w["steps"] > 0 and w["launches"] == want,
+                f"submit path: worker {i}'s launches {w['launches']} != "
+                f"{want}")
+        require(all(x == x and abs(x) != float("inf") for x in losses)
+                and losses[-1] < losses[0],
+                f"submit path: worker {i}'s loss did not fall: {losses}")
+        steps += w["steps"]
+        workers.append({"steps": w["steps"], "loss_first": losses[0],
+                        "loss_last": losses[-1], "train_s": w["train_s"],
+                        "worker_s": w["worker_s"],
+                        "steps_per_s": w["steps"] / w["train_s"]})
+    out = {"bytes": size, "launch_s": launch_s, "steps": steps,
+           "workers": workers, "phase_s": time.perf_counter() - t_phase}
+    log(f"submit path: -n {SUBMIT_WORKERS} -s {SUBMIT_SERVERS}, codes all 0 "
+        f"in {launch_s:.1f} s; " + "; ".join(
+            f"worker {i} {w['steps']} steps, loss {w['loss_first']:.4f} -> "
+            f"{w['loss_last']:.4f}, {w['steps_per_s']:.2f} steps/s, "
+            f"spawn-to-exit {w['worker_s']:.1f} s"
+            for i, w in enumerate(workers)))
+    return out
+
+
+# --------------------------------------------------------------- phase 15
+
+EXAMPLE_RUNNER = r"""
+import json, runpy, sys
+from chip_smoke import _wrappers
+twin, counts = sys.argv[1], sys.argv[2]
+sys.argv = [twin] + sys.argv[3:]
+wrappers = _wrappers()
+for fn in wrappers.values():
+    fn.launches = 0
+try:
+    runpy.run_path(twin, run_name="__main__")
+finally:
+    with open(counts, "w") as f:
+        json.dump({k: fn.launches for k, fn in wrappers.items()}, f)
+"""
+
+
+def _run_twin(runner, name, device, work):
+    """Example twin ``name`` run as ``__main__`` by ``runner`` in a
+    process of its own (on the card, or with ``--device cpu``): its
+    stdout untouched, the kernels' launch counters of the run written
+    beside it. Returns (the process, the counters, seconds)."""
+    twin = os.path.join(REPO, "examples", "torch_port", name)
+    counts = os.path.join(work, f"{name}.{device}.launches.json")
+    args = ["--device", "cpu"] if device == "cpu" else []
+    env = {**os.environ, "PYTHONPATH": REPO}
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = str(EXAMPLE_HOST_THREADS)
+    t0 = time.perf_counter()
+    r = _run_group([sys.executable, runner, twin, counts] + args,
+                   EXAMPLE_TIMEOUT_S, cwd=os.path.dirname(twin), env=env)
+    secs = time.perf_counter() - t0
+    launches = None
+    if os.path.exists(counts):
+        with open(counts) as f:
+            launches = json.load(f)
+    return r, launches, secs
+
+
+def examples_path(work):
+    """Phase 15: the example twins on the card (see the module
+    docstring). Each twin that takes ``--device`` but the gang's runs on
+    the card and again with ``--device cpu`` (the host runs one at a
+    time beside the card's); the card run must exit 0, print the host
+    run's lines under the per-line rules of ``same_output``, and its model must have launched
+    its kernels (EXAMPLE_KERNELS) and no other; the host run launches
+    none. ``distributed_launch.py`` needs a card a rank: on a host with
+    fewer it must refuse by ``NotEnoughCardsError`` and print nothing;
+    on one with two or more its lines must be its host run's.
+    Returns the phase's numbers."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(work, "examples")
+    os.makedirs(out_dir)
+    runner = os.path.join(out_dir, "example_runner.py")
+    with open(runner, "w") as f:
+        f.write(EXAMPLE_RUNNER)
+    twins = sorted(n for n, (_, dev) in TABLE.items()
+                   if dev and n != "distributed_launch.py")
+    require(set(twins) == set(EXAMPLE_KERNELS),
+            f"examples path: twins {twins}, kernels named for "
+            f"{sorted(EXAMPLE_KERNELS)}")
+    out = {}
+    with ThreadPoolExecutor(1) as pool:
+        host = {n: pool.submit(_run_twin, runner, n, "cpu", out_dir)
+                for n in twins}
+        for name in twins:
+            card, launches, secs = _run_twin(runner, name, "cuda", out_dir)
+            require(card.returncode == 0,
+                    f"examples path: {name} on the card exited "
+                    f"{card.returncode}: {card.stderr[-3000:]}")
+            cpu, cpu_launches, cpu_secs = host[name].result()
+            require(cpu.returncode == 0,
+                    f"examples path: {name} --device cpu exited "
+                    f"{cpu.returncode}: {cpu.stderr[-3000:]}")
+            ok, diff = same_output(cpu.stdout, card.stdout, "cpu", "cuda",
+                                   reference=False,
+                                   cards=torch.cuda.device_count())
+            require(ok, f"examples path: {name} on the card printed other "
+                    f"lines than on the host: {diff}")
+            want = EXAMPLE_KERNELS[name]
+            require(launches is not None and all(
+                (v > 0) == (k in want) for k, v in launches.items()),
+                f"examples path: {name}'s launches {launches}; its model "
+                f"runs {want} on the card")
+            require(cpu_launches is not None
+                    and not any(cpu_launches.values()),
+                    f"examples path: {name} --device cpu launched "
+                    f"{cpu_launches}")
+            out[name] = {"card_s": secs, "cpu_s": cpu_secs,
+                         "lines": len(card.stdout.splitlines()),
+                         "launches": {k: v for k, v in launches.items()
+                                      if v}}
+            log(f"examples path: {name} on the card in {secs:.1f} s (host "
+                f"{cpu_secs:.1f} s), {out[name]['lines']} lines as the "
+                f"host's; launches {out[name]['launches']}")
+    name = "distributed_launch.py"
+    twin = os.path.join(REPO, "examples", "torch_port", name)
+    runs = {}
+    for device in (["cuda"] if torch.cuda.device_count() < 2
+                   else ["cuda", "cpu"]):
+        t0 = time.perf_counter()
+        runs[device] = _run_group(
+            [sys.executable, twin]
+            + (["--device", "cpu"] if device == "cpu" else []),
+            EXAMPLE_TIMEOUT_S, cwd=os.path.dirname(twin),
+            env={**os.environ, "PYTHONPATH": REPO})
+        out.setdefault(name, {})[f"{device}_s"] = time.perf_counter() - t0
+    r = runs["cuda"]
+    if "cpu" not in runs:
+        require(r.returncode != 0 and "NotEnoughCardsError" in r.stderr
+                and not r.stdout.strip(),
+                f"examples path: {name} on one card exited {r.returncode} "
+                f"with stdout {r.stdout!r}: {r.stderr[-2000:]}")
+        out[name]["refused"] = r.stderr.strip().splitlines()[-1]
+        log(f"examples path: {name} on one card refused: "
+            f"{out[name]['refused']}")
+    else:
+        require(r.returncode == 0 and runs["cpu"].returncode == 0,
+                f"examples path: {name} exited {r.returncode} on the cards, "
+                f"{runs['cpu'].returncode} on the host: {r.stderr[-2000:]}")
+        ok, diff = same_output(runs["cpu"].stdout, r.stdout, "cpu", "cuda",
+                               reference=False,
+                               cards=torch.cuda.device_count())
+        require(ok, f"examples path: {name} on the cards printed other "
+                f"lines than on the host: {diff}")
+        log(f"examples path: {name} on {torch.cuda.device_count()} cards, "
+            "its lines as the host's")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"examples path: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     # Keep CUPTI set up between profiler traces. With kineto's default
     # teardown after each trace, a trace late in a run on an H100
@@ -7548,6 +8185,12 @@ def main() -> None:
         # chaos-armed bench config come after every traced phase
         stats["chaos"] = chaos_path(linear, linear_size, LEARNING_RATE,
                                     mesh, work, stats["spill"])
+        # dmlc-core's front door: RowBlockIter.create into the linear
+        # step, the submit CLI with the PS role set, the example twins
+        stats["rowiter"] = rowiter_path(linear, linear_size, LEARNING_RATE,
+                                        work)
+        stats["submit"] = submit_path(linear, LEARNING_RATE, work)
+        stats["examples"] = examples_path(work)
         os.unlink(linear)
         from dmlc_tpu_torch.parallel.launch import finalize
         finalize()

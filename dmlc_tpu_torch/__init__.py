@@ -37,13 +37,20 @@ remote ``ShardedCheckpoint`` roots), and the gang plane: the live
 status server (``dmlc_tpu_torch.obs.serve``), the objstore peer tier
 that reads a gang's blocks and checkpoint pages from the rank that
 owns them, and rendezvous membership (``dmlc_tpu_torch.rendezvous``:
-the service, its client and the elastic ownership rules).
+the service, its client and the elastic ownership rules); and
+dmlc-core's front door: ``RowBlockIter.create`` (in RAM, or through a
+``#cache`` page file), the submit CLI (``python -m
+dmlc_tpu_torch.parallel.launch``) with the parameter-server role set,
+ssh command lines and the mpi, slurm, sge and kubernetes generators
+(``parallel.backends``), and the utility layer's ``Config``, blocking
+queues, ``ThreadGroup`` and tagged serializer (``dmlc_tpu_torch.utils``).
 Entry points that touch a device default to ``torch.device("cuda")``;
 pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """
 
 from dmlc_tpu_torch.utils.logging import DMLCError
 from dmlc_tpu_torch.data.parser import Parser
+from dmlc_tpu_torch.data.row_iter import RowBlockIter
 from dmlc_tpu_torch.data import libsvm_parser as _libsvm  # registers "libsvm"
 from dmlc_tpu_torch.data import csv_parser as _csv  # registers "csv"
 from dmlc_tpu_torch.data import libfm_parser as _libfm  # registers "libfm"
@@ -53,6 +60,6 @@ from dmlc_tpu_torch.data import parquet_parser as _parquet  # "parquet", "parque
 from dmlc_tpu_torch.io import cuda_fs as _cuda_fs  # registers cuda://
 # (importing dmlc_tpu_torch.io registers obj:// and s3://)
 
-__all__ = ["DMLCError", "Parser"]
+__all__ = ["DMLCError", "Parser", "RowBlockIter"]
 
 del _libsvm, _csv, _libfm, _dense, _image, _parquet, _cuda_fs

@@ -1,9 +1,12 @@
-"""Disk-cached row-block iteration, plus the round spill store backing
-ShardedRowBlockIter's page-tier steady replay.
+"""Row-block iterators: in-RAM and disk-cached, plus the round spill
+store backing ShardedRowBlockIter's page-tier steady replay.
 
 Counterpart of ``dmlc_tpu/data/row_iter.py``. Reference:
-src/data/disk_row_iter.h (DiskRowIter<I> — parse once, spill binary
-pages to a cache file, then replay pages with ThreadedIter prefetch).
+src/data/basic_row_iter.h (BasicRowIter<I> — drain parser into one
+RowBlockContainer at construction), src/data/disk_row_iter.h
+(DiskRowIter<I> — parse once, spill binary pages to a '#cache' file,
+then replay pages with ThreadedIter prefetch), include/dmlc/data.h
+(RowBlockIter<I>::Create).
 
 The spill store (RoundSpillWriter / RoundSpillFile) is DiskRowIter's
 page format generalized to ROUNDS: each round is a fixed-width row of
@@ -18,21 +21,21 @@ Both tiers route their on-disk bytes through the port's
 commit protocol, one fingerprint-stamped sidecar, one byte budget with
 LRU eviction, and ONE stale sweep. Files are byte-identical to the
 reference's for the same blocks, rounds and meta, and each package
-reads the other's.
+reads the other's; ``RowBlockIter.create(uri + "#cache")`` names its
+cache entry as the reference does, so either package replays the
+other's.
 
 DiskRowIter's build is the reference's retry site ``data.pages.build``;
 its commit publishes under ``data.pages.commit`` and a round spill's
 under ``spill.commit``, inside a ``spill.commit`` trace span.
-
-Trimmed from the reference: ``RowBlockIter.create`` (the ``#cache`` URI
-hint) and ``BasicRowIter``: ``Pipeline.cache`` keeps its memory tier
-itself.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Iterator, List, Optional
+from typing import Any, Iterator, List, Optional
+
+import numpy as np
 
 from dmlc_tpu_torch.data.parser import DataIter, Parser
 from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
@@ -40,15 +43,101 @@ from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.io import codec as _codec
 from dmlc_tpu_torch.io.pagestore import PageStore, default_store_dir
 from dmlc_tpu_torch.io.stream import MemoryStream, create_stream
+from dmlc_tpu_torch.io.uri_spec import URISpec
 from dmlc_tpu_torch.obs import trace as _trace
 from dmlc_tpu_torch.utils import serializer as ser
 from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
 
-__all__ = ["DiskRowIter", "RoundSpillWriter", "RoundSpillFile",
-           "default_spill_dir", "read_spill_meta", "sweep_stale_spill"]
+__all__ = ["RowBlockIter", "BasicRowIter", "DiskRowIter",
+           "RoundSpillWriter", "RoundSpillFile", "default_spill_dir",
+           "read_spill_meta", "sweep_stale_spill"]
 
 
-class DiskRowIter(DataIter):
+class RowBlockIter(DataIter):
+    """DataIter over RowBlocks with num_col introspection
+    (reference: RowBlockIter<IndexType>)."""
+
+    @staticmethod
+    def create(uri: str, part_index: int = 0, num_parts: int = 1,
+               format: Optional[str] = None, index_dtype=np.uint32,
+               **kwargs: Any) -> "RowBlockIter":
+        """Reference: RowBlockIter<I>::Create — '#cache' in the URI selects
+        the disk-spill path, else everything is held in RAM."""
+        spec = URISpec(uri)
+        # '#cache' at this level selects the row-page cache (DiskRowIter);
+        # strip it from the parser's URI so the chunk-level CachedInputSplit
+        # does not also claim the same file (the page cache already makes
+        # the source single-pass).
+        parser_uri = spec.uri
+        if spec.args:
+            parser_uri += "?" + "&".join(
+                f"{k}={v}" for k, v in spec.args.items())
+
+        def make_parser() -> Parser:
+            return Parser.create(parser_uri, part_index, num_parts,
+                                 format=format, index_dtype=index_dtype,
+                                 **kwargs)
+
+        if spec.cache_file:
+            # namespace by shard so parts never mix (same scheme as
+            # CachedInputSplit), and by role so a chunk cache using the
+            # same hint stays distinct
+            cache = f"{spec.cache_file}.pages.p{part_index}-{num_parts}"
+            return DiskRowIter(make_parser, cache,
+                               fingerprint=_source_fingerprint(parser_uri))
+        return BasicRowIter(make_parser())
+
+    def num_col(self) -> int:
+        raise NotImplementedError
+
+
+class BasicRowIter(RowBlockIter):
+    """All-in-RAM single-block iterator (reference: BasicRowIter<I>)."""
+
+    def __init__(self, parser: Parser):
+        container = RowBlockContainer(parser.index_dtype)
+        parser.before_first()
+        while parser.next():
+            container.push_block(parser.value())
+        if hasattr(parser, "destroy"):
+            parser.destroy()
+        self._block = container.get_block()
+        self._max_index = container.max_index
+        self._at_head = True
+        self._taken = False
+
+    def before_first(self) -> None:
+        self._at_head = True
+        self._taken = False
+
+    def next(self) -> bool:
+        if self._at_head and not self._taken:
+            self._taken = True
+            return True
+        return False
+
+    def value(self) -> RowBlock:
+        check(self._taken, "value() before next()")
+        return self._block
+
+    def num_col(self) -> int:
+        return int(self._max_index) + 1
+
+
+def _source_fingerprint(uri: str):
+    """Best-effort ``[[path, size, mtime_ns], ...]`` stamp of a
+    parser's backing files — None when the source cannot be stat'ed
+    (the cache then trusts its existence, the pre-pagestore
+    contract)."""
+    try:
+        from dmlc_tpu_torch.io.input_split import list_split_files
+        from dmlc_tpu_torch.io.pagestore import stat_fingerprint
+        return stat_fingerprint(p for p, _ in list_split_files(uri))
+    except Exception:  # noqa: BLE001 — non-stat-able source
+        return None
+
+
+class DiskRowIter(RowBlockIter):
     """Parse once → binary page cache → threaded page replay
     (reference: DiskRowIter<I>, pages via RowBlockContainer::Save/Load).
 

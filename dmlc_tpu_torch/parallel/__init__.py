@@ -1,3 +1,5 @@
 """The host→device edge (pinned staging and async prefetch) and the
-data-parallel gang: ``launch`` (``torch.distributed`` rendezvous and
-local workers) and ``sharded`` (the part mesh, sharded ingest)."""
+data-parallel gang: ``launch`` (``torch.distributed`` rendezvous, local
+workers with the parameter-server role set, ssh command lines and the
+submit CLI), ``backends`` (mpi, slurm, sge and kubernetes submit
+generators) and ``sharded`` (the part mesh, sharded ingest)."""

@@ -8,7 +8,8 @@ coordinator's address. This module keeps:
 
 - the env contract (``DMLC_TPU_COORDINATOR_URI``/``NUM_WORKER``/
   ``TASK_ID``, with the reference's ``DMLC_*`` names read as aliases),
-  and the parameter-server half (``ps_envs``, ``get_role``);
+  the parameter-server half (``ps_envs``, ``get_role``) and the
+  rendezvous half (``rendezvous_envs``);
 - ``init_from_env()`` and ``finalize()``, worker side: NCCL when the
   device is ``cuda`` (the default), gloo only when the caller asks for
   the CPU. NCCL needs one card a rank. There is no fallback from one
@@ -25,30 +26,38 @@ coordinator's address. This module keeps:
   the live status server's env contract (``DMLC_TPU_SERVE_PORT`` and
   ``_PORTS``, which the objstore peer tier reads too) and
   ``rendezvous=True`` starts a membership service for an elastic gang
-  (``DMLC_TPU_RNDV_*``);
+  (``DMLC_TPU_RNDV_*``); ``num_servers`` adds the parameter-server role
+  set (one scheduler and N servers running the same command under
+  ``ps_envs``; the command branches on ``get_role()``);
+- ``launch_ssh()``, the command lines for bare-metal hosts, and the
+  submit CLI ``main`` (the reference's dmlc-submit):
+  ``python -m dmlc_tpu_torch.parallel.launch -n 2 [-s 1] -- cmd ...``;
 - the ring/tree topology helpers (``get_ring``, ``get_tree``,
   ``get_link_map``), pure functions kept for API parity;
 - ``find_free_port(s)``.
 
-Trimmed from the reference: ssh and the CLI, the PS role set in
-``launch_local`` and every option of ``launch_local`` that waits for a
-plane the port does not have yet (each raises a DMLCError that says
-"not ported" and names the plane).
+Trimmed from the reference: every option of ``launch_local`` that waits
+for a plane the port does not have yet (each raises a DMLCError that
+says "not ported" and names the plane).
 """
 
 from __future__ import annotations
 
 import os
+import shlex
 import socket
+import subprocess
+import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 __all__ = [
     "worker_envs", "ps_envs", "get_role", "init_from_env", "finalize",
-    "launch_local", "merge_gang_traces", "get_ring", "get_tree",
-    "get_link_map", "find_free_port", "find_free_ports", "ENV_COORD",
-    "ENV_NWORKER", "ENV_TASK_ID", "ENV_TRACE_DIR",
+    "launch_local", "launch_ssh", "merge_gang_traces", "get_ring",
+    "get_tree", "get_link_map", "find_free_port", "find_free_ports",
+    "main", "rendezvous_envs", "ENV_COORD", "ENV_NWORKER", "ENV_TASK_ID",
+    "ENV_TRACE_DIR",
 ]
 
 # env contract (reference: slave_envs in tracker.py)
@@ -68,7 +77,6 @@ _ALIASES = {
 # launch_local options of the reference that wait for a plane the port
 # does not have, each with the plane it waits for
 _NOT_PORTED = {
-    "num_servers": "the parameter-server role set",
     "history_s": "the obs time-series plane",
     "gang_poll_s": "the obs gang aggregation plane",
     "profile_hz": "the obs sampling profiler",
@@ -153,8 +161,11 @@ def ps_envs(root_uri: str, root_port: int, num_workers: int,
 
 
 def get_role() -> str:
-    """This process's tracker role (reference: DMLC_ROLE); 'worker' when
-    unset."""
+    """This process's tracker role (reference: DMLC_ROLE). 'worker' when
+    unset — only launch_local(num_servers>0) / PS-style launchers create
+    the other roles. Branch on this BEFORE init_from_env: scheduler and
+    server processes are not part of the torch.distributed worker
+    gang."""
     return os.environ.get("DMLC_ROLE", "worker")
 
 
@@ -213,6 +224,7 @@ def launch_local(num_workers: int, command: Sequence[str],
                  env: Optional[Dict[str, str]] = None,
                  coordinator: Optional[str] = None,
                  timeout: Optional[float] = None,
+                 num_servers: int = 0,
                  trace_dir: Optional[str] = None,
                  flight_dir: Optional[str] = None,
                  restart_policy=None,
@@ -280,10 +292,22 @@ def launch_local(num_workers: int, command: Sequence[str],
     ``heartbeat_grace_s`` tunes the service's silent-member death
     window.
 
-    Returns the exit codes in rank order: all 0, except that in an
-    elastic rendezvous gang a shrink is NOT a failure and a dead
-    member's nonzero code is returned instead of raised. The
-    reference's other options (``num_servers``, ``history_s``,
+    With ``num_servers > 0`` (reference: dmlc-submit --num-servers +
+    PSTracker), the launch also spawns ONE scheduler and
+    ``num_servers`` server processes running the same command under the
+    PS env contract (``DMLC_PS_ROOT_URI/PORT``, ``DMLC_ROLE``,
+    ``DMLC_NUM_SERVER/WORKER``): the command branches on ``get_role()``.
+    Workers carry BOTH contracts; the ``torch.distributed`` gang is
+    workers-only. Service roles that outlive every worker are
+    terminated after the supervisor's grace (a scheduler waiting for
+    work forever cannot hang the launch), and a dead worker kills them
+    with the rest of the gang, with or without a ``timeout``.
+
+    Returns the exit codes: workers first in rank order, then the
+    scheduler, then the servers. All are 0, except that in an elastic
+    rendezvous gang a shrink is NOT a failure and a dead member's
+    nonzero code is returned instead of raised. The reference's other
+    options (``history_s``,
     ``gang_poll_s``, ``profile_hz``, ``control``, ``scheduler``,
     ``slo``) raise a DMLCError naming the plane each waits for."""
     for name, value in options.items():
@@ -295,6 +319,7 @@ def launch_local(num_workers: int, command: Sequence[str],
                 f"launch_local({name}=...) is not ported to dmlc_tpu_torch "
                 f"yet (it waits for {_NOT_PORTED[name]})")
     check(num_workers >= 1, "num_workers must be >= 1")
+    check(num_servers >= 0, "num_servers must be >= 0")
     if serve_ports is True:
         serve_ports = find_free_ports(num_workers)
     if serve_ports is not None:
@@ -315,8 +340,18 @@ def launch_local(num_workers: int, command: Sequence[str],
                 os.remove(stale)
             except OSError:
                 pass
-    if coordinator is None:
-        coordinator = f"127.0.0.1:{find_free_port()}"
+    ps_root: Optional[Tuple[str, int]] = None
+    if coordinator is None and num_servers > 0:
+        # one probe pass holding both sockets: back-to-back single-port
+        # probes could hand the coordinator and the PS root the SAME port
+        coord_port, ps_port = find_free_ports(2)
+        coordinator = f"127.0.0.1:{coord_port}"
+        ps_root = ("127.0.0.1", ps_port)
+    else:
+        if coordinator is None:
+            coordinator = f"127.0.0.1:{find_free_port()}"
+        if num_servers > 0:
+            ps_root = ("127.0.0.1", find_free_port())
     from dmlc_tpu_torch.obs.flight import ENV_FLIGHT_DIR
     from dmlc_tpu_torch.resilience import inject as _inject
     from dmlc_tpu_torch.resilience.supervise import (
@@ -342,15 +377,20 @@ def launch_local(num_workers: int, command: Sequence[str],
             # p= clauses would re-parse onto seed 0, not the armed one
             fault_spec = faults.spec()
             fault_seed = str(faults.seed)
+
+    def _base_env() -> Dict[str, str]:
+        e = dict(os.environ)
+        if env:
+            e.update(env)
+        if fault_spec is not None:
+            e[_inject.ENV_FAULTS] = fault_spec
+        if fault_seed is not None:
+            e[_inject.ENV_FAULT_SEED] = fault_seed
+        return e
+
     members: List[GangMember] = []
     for task_id in range(num_workers):
-        wenv = dict(os.environ)
-        if env:
-            wenv.update(env)
-        if fault_spec is not None:
-            wenv[_inject.ENV_FAULTS] = fault_spec
-        if fault_seed is not None:
-            wenv[_inject.ENV_FAULT_SEED] = fault_seed
+        wenv = _base_env()
         wenv.update(worker_envs(coordinator, num_workers, task_id))
         if trace_dir is not None:
             wenv[ENV_TRACE_DIR] = trace_dir
@@ -366,11 +406,23 @@ def launch_local(num_workers: int, command: Sequence[str],
             wenv[ENV_RNDV_URI] = rndv_service.host
             wenv[ENV_RNDV_PORT] = str(rndv_service.port)
             wenv[ENV_RNDV_GANG] = rndv_gang
+        if ps_root is not None:
+            wenv.update(ps_envs(ps_root[0], ps_root[1], num_workers,
+                                num_servers, "worker", task_id))
         members.append(GangMember(f"worker-{task_id}", "worker",
                                   task_id, command, wenv))
+    if ps_root is not None:
+        roles = [("scheduler", 0)] + [("server", i)
+                                      for i in range(num_servers)]
+        for role, task_id in roles:
+            renv = _base_env()
+            renv.update(ps_envs(ps_root[0], ps_root[1], num_workers,
+                                num_servers, role, task_id))
+            members.append(GangMember(f"{role}-{task_id}", role,
+                                      task_id, command, renv))
     # the supervisor owns spawning (a Popen failure mid-loop must not
-    # leak the running half of the gang), the poll, restarts and the
-    # timeout
+    # leak the running half of the gang), the gang poll, restarts, the
+    # timeout, and the PS roles' drain once every worker finished
     try:
         codes = GangSupervisor(
             members, restart_policy=restart_policy,
@@ -406,6 +458,69 @@ def merge_gang_traces(trace_dir: str,
     return out_path
 
 
+def rendezvous_envs(rendezvous_addr: Optional[Tuple[str, int]] = None,
+                    rendezvous_gang: Optional[str] = None
+                    ) -> Dict[str, str]:
+    """The rendezvous env contract (``DMLC_TPU_RNDV_URI/PORT/GANG``)
+    as a dict ready to merge into worker envs. An explicit
+    ``rendezvous_addr=(host, port)`` wins; otherwise the launcher's own
+    environment is forwarded (a membership service bound on the submit
+    host is reachable from scheduler-launched workers too); empty when
+    neither names a service. Shared by launch_ssh and every
+    parallel.backends generator so elastic membership is not a
+    local/ssh-only feature."""
+    from dmlc_tpu_torch.rendezvous import (
+        ENV_RNDV_GANG, ENV_RNDV_PORT, ENV_RNDV_URI,
+    )
+    rndv: Dict[str, str] = {}
+    if rendezvous_addr is not None:
+        rndv[ENV_RNDV_URI] = str(rendezvous_addr[0])
+        rndv[ENV_RNDV_PORT] = str(rendezvous_addr[1])
+    elif os.environ.get(ENV_RNDV_URI) and os.environ.get(ENV_RNDV_PORT):
+        rndv[ENV_RNDV_URI] = os.environ[ENV_RNDV_URI]
+        rndv[ENV_RNDV_PORT] = os.environ[ENV_RNDV_PORT]
+    if rndv:
+        rndv[ENV_RNDV_GANG] = (rendezvous_gang
+                               or os.environ.get(ENV_RNDV_GANG, "local"))
+    return rndv
+
+
+def launch_ssh(hosts: Sequence[str], command: Sequence[str],
+               coordinator: str, num_workers: Optional[int] = None,
+               dry_run: bool = False,
+               rendezvous_addr: Optional[Tuple[str, int]] = None,
+               rendezvous_gang: Optional[str] = None) -> List[str]:
+    """Generate (and optionally run) per-host ssh commands
+    (reference: ssh.py). Returns the command lines, the reference's for
+    the same arguments.
+
+    The rendezvous env contract rides the command lines: pass
+    ``rendezvous_addr=(host, port)`` (and optionally
+    ``rendezvous_gang``) to point every worker at an elastic
+    membership service, or leave them None and the launcher's own
+    ``DMLC_TPU_RNDV_URI/PORT/GANG`` environment (when set) is
+    forwarded — a service bound on the submit host is reachable from
+    every ssh worker, not just the local gang."""
+    n = num_workers or len(hosts)
+    rndv = rendezvous_envs(rendezvous_addr, rendezvous_gang)
+    lines = []
+    for task_id in range(n):
+        host = hosts[task_id % len(hosts)]
+        envs = dict(worker_envs(coordinator, n, task_id))
+        envs.update(rndv)
+        env_str = " ".join(f"{k}={shlex.quote(v)}" for k, v in envs.items())
+        cmd_str = " ".join(shlex.quote(c) for c in command)
+        lines.append(f"ssh -o StrictHostKeyChecking=no {host} "
+                     f"'cd {shlex.quote(os.getcwd())} && "
+                     f"env {env_str} {cmd_str}'")
+    if not dry_run:
+        procs = [subprocess.Popen(line, shell=True) for line in lines]
+        codes = [p.wait() for p in procs]
+        if any(codes):
+            raise DMLCError(f"ssh worker failure, exit codes {codes}")
+    return lines
+
+
 # ---------------------------------------------------------------- topology
 # Reference: tracker.py get_ring/get_tree/get_link_map (RabitTracker).
 
@@ -430,3 +545,50 @@ def get_link_map(n: int) -> Dict[int, List[int]]:
             links[r].append(p)
             links[p].append(r)
     return links
+
+
+# ---------------------------------------------------------------- CLI
+# Reference: tracker/dmlc-submit + submit.py/opts.py
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """The submit CLI: ``python -m dmlc_tpu_torch.parallel.launch -n N
+    [-s S] [--cluster local|ssh] -- cmd ...`` (the reference's options
+    and behaviour). Returns 0; a failed gang raises."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="dmlc-tpu-torch-submit",
+        description="Launch distributed workers "
+                    "(reference: dmlc-submit; torch.distributed rendezvous)")
+    ap.add_argument("--cluster", choices=["local", "ssh"], default="local")
+    ap.add_argument("-n", "--num-workers", type=int, required=True)
+    ap.add_argument("-s", "--num-servers", type=int, default=0,
+                    help="PS server processes (reference: dmlc-submit "
+                         "--num-servers; spawns scheduler+servers under "
+                         "the DMLC_PS_* env contract, local cluster only)")
+    ap.add_argument("--host-file", default=None,
+                    help="one host per line (ssh cluster)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank-0 coordinator")
+    ap.add_argument("command", nargs=argparse.REMAINDER)
+    args = ap.parse_args(argv)
+    check(len(args.command) > 0, "no worker command given")
+    cmd = args.command[1:] if args.command[0] == "--" else args.command
+    if args.cluster == "local":
+        launch_local(args.num_workers, cmd, coordinator=args.coordinator,
+                     num_servers=args.num_servers)
+    else:
+        check(args.num_servers == 0,
+              "--num-servers is local-cluster only (ssh PS launch: set "
+              "the DMLC_PS_* env per host with ps_envs())")
+        check(args.host_file is not None, "--host-file required for ssh")
+        with open(args.host_file) as f:
+            hosts = [h.strip() for h in f if h.strip()]
+        # port chosen by local probe; it must be free on hosts[0] too —
+        # pass --coordinator to control it explicitly
+        coord = args.coordinator or f"{hosts[0]}:{find_free_port()}"
+        launch_ssh(hosts, cmd, coord, num_workers=args.num_workers)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

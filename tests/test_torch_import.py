@@ -76,6 +76,7 @@ def test_no_file_imports_jax_or_dmlc_tpu(path):
 
 
 NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
+               "dmlc_tpu_torch.testing",
                "dmlc_tpu_torch.bench_mp_worker",
                "dmlc_tpu_torch.io.checkpoint",
                "dmlc_tpu_torch.utils.json_util",
@@ -118,7 +119,11 @@ NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
                "dmlc_tpu_torch.shuffle.exchange",
                "dmlc_tpu_torch.shuffle.split",
                "dmlc_tpu_torch.bench_shuffle_worker",
-               "dmlc_tpu_torch.bench_elastic_worker")
+               "dmlc_tpu_torch.bench_elastic_worker",
+               "dmlc_tpu_torch.utils.config",
+               "dmlc_tpu_torch.utils.concurrency",
+               "dmlc_tpu_torch.utils.thread_group",
+               "dmlc_tpu_torch.parallel.backends")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -129,8 +134,10 @@ def test_transfer_and_checkpoint_modules_import_alone(module):
     and indexed-RecordIO modules, the object-store plane (with the
     RPC trace plane and the ownership rule), and the gang plane (the
     status server, the peer tier, rendezvous membership and the two
-    gang bench workers), and the global shuffle plane (its four modules
-    and the config 20 and 23 workers) import in a fresh
+    gang bench workers), the global shuffle plane (its four modules
+    and the config 20 and 23 workers), and dmlc-core's utility bricks
+    and submit generators (config, queues, thread group, backends)
+    import in a fresh
     interpreter without jax or dmlc_tpu (each is also in the AST scan
     above)."""
     path = os.path.join(REPO, *module.split("."))
