@@ -268,7 +268,15 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    windows through the peers' ``/pages``), host-only gangs as in the
    reference, their own checks holding and at least two reshards,
    resumed bytes, gang wire at most 1.3 of the corpus (20), at least 8
-   windows, peer bytes on each rank, gang wire at most 1.6 (23);
+   windows, peer bytes on each rank, gang wire at most 1.6 (23); then
+   configs 13 (``analyze``, over the corpus's first 24 MB: a verdict
+   with VERDICT_KEYS and hot_frames), 16 (``control``, its first 32 MB:
+   the shard count raised under a parse-bound verdict), 19
+   (``multi_tenant``, 32 MB: the victim's p99 within 1.5x of its alone
+   p99 on the quietest pair) and 22 (``slo_burn``, 8 MB: the fast-burn
+   alert fires and clears), 19 and 22 each in a process of its own
+   (``python -m dmlc_tpu_torch.bench_suite``), their own checks
+   holding;
 11b. the object-store plane (``remote_path``), over one on-disk
    emulator under the run's directory behind the reference's modeled
    wire (2 ms a request, 4 GB/s; 4 MB blocks, 4 coalesced, 4 GETs at
@@ -389,7 +397,47 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    (EXAMPLE_KERNELS) and no other, the host run none;
    ``distributed_launch.py`` on this one-card host refuses with
    ``NotEnoughCardsError`` (NCCL needs a card a rank) and prints
-   nothing.
+   nothing;
+16. the tenants (``tenant_path``): one process, one
+   ``PipelineScheduler(quantum=4, burst=2, queue_budget=32)``, a history
+   ring, a ``StackProfiler`` at 97 Hz, a ``Controller`` and a
+   ``StatusServer``; tenant ``bulk`` (weight 1) loops whole epochs of
+   the main path's native chain built with ``build(tenant="bulk")``,
+   tenant ``feed`` (weight 4, a 0.25 s latency SLO over 30 s, 1%
+   budget) reads ``Pipeline.from_stream`` (windows of 8192 records,
+   polled every 20 ms, idle after 2 s) over a file that a writer grows
+   with the corpus's first 32 MB, 1 MB a slice cut at a line, every 20
+   ms, then stops; each trains its own ``SparseLinearModel(10^6)``: the
+   feed's rows are the rows written and its watermark, hashing in order
+   as the python parse of the finished file (from a worker process),
+   the bulk tenant's first epoch hashes as the main path's chain, both
+   losses fall, K1, K2, K8 and K9 launch once a step of each tenant;
+   while they run ``/tenants`` shows both rows pulling and the feed's
+   watermark and ``/slo`` judges ``tenant.feed``; after, ``/history``
+   has samples, ``/analyze`` a verdict with VERDICT_KEYS and a tenant,
+   ``/control`` a record (RECORD_KEYS) a bulk epoch at least,
+   ``/profile`` the ``tenant/bulk`` and ``tenant/feed`` threads and a
+   ``native:`` leaf; each tenant's GB/s and steps/s, the feed's pull
+   p50 and largest wait with its number of pulls (the stream makes too
+   few for a tail percentile), its watermark lag when the writer stops,
+   the bulk thread's most sampled profile frames and the profiler's
+   duty are printed, then parse-only epochs of the main
+   path's chain with the profiler off and on in turns (off, on, on,
+   off);
+17. the analytic planes in a gang (``obs_gang_path``):
+   ``launch_local(2, ..., serve_ports=..., rendezvous=True,
+   history_s=0.5, gang_poll_s=0.5, profile_hz=49, control=True,
+   scheduler="quantum=4,queue=32", slo=True)``, each CUDA process
+   installing every plane from its env and training its own
+   ``SparseLinearModel(10^6)`` on 2 of 4 parts of the corpus's first 32
+   MB through ``build(tenant="train")`` (no process group), then
+   waiting for a stop file: rank 0's ``/gang`` shows both ranks
+   reachable with rollups and the membership, each rank's
+   ``/history`` has samples, a rank's ``/control`` the membership
+   record, and the obsctl twin's ``top --once``, ``history``, ``gang``,
+   ``tenants``, ``control``, ``slo``, ``profile`` and ``rpc`` against
+   rank 0 exit 0; exit codes [0, 0], each rank's loss falling and K1,
+   K2, K8 and K9 once a step.
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -695,6 +743,39 @@ EXAMPLE_KERNELS = {
     "train_ranking.py": ("csr_spmv", "csr_spmv_t", "pair_sums",
                          "pair_sums_grad", "sgd_update"),
 }
+
+
+# The analytic obs planes, the multi-tenant scheduler and streaming input
+# (phases 16-17). tenant_path: two tenants in one process under one
+# PipelineScheduler(quantum=TENANT_QUANTUM, burst=TENANT_BURST,
+# queue_budget=TENANT_QUEUE): "bulk" (weight 1) loops the native chain
+# over the linear corpus, "feed" (weight TENANT_FEED_WEIGHT, latency SLO
+# TENANT_FEED_SLO) streams the first REMOTE_TRAIN_MB of it from a file a
+# writer grows by TENANT_SLICE_BYTES every TENANT_SLICE_S, cut at line
+# ends (Pipeline.from_stream, windows of ROW_BUCKET records, polled every
+# TENANT_POLL_S, idle after TENANT_IDLE_S); a history ring sampling every
+# TENANT_HISTORY_S, a StackProfiler at TENANT_PROFILE_HZ and a Controller
+# run beside them, read through a StatusServer. obs_gang_path: a gang of
+# GANG_RANKS CUDA processes under every plane's env contract
+# (OBS_GANG_OPTIONS), each training on its GANG_PARTS // GANG_RANKS parts
+# of that cut, rank 0's /gang polled until both ranks are reachable
+# (within OBS_GANG_WAIT_S) and the obsctl twin's OBSCTL_COMMANDS run
+# against rank 0. bench_twins runs configs 13, 16, 19 and 22 at
+# ANALYZE_MB, CONTROL_MB, MULTI_TENANT_MB and SLO_BURN_MB.
+TENANT_QUANTUM, TENANT_BURST, TENANT_QUEUE = 4, 2.0, 32
+TENANT_FEED_WEIGHT = 4
+TENANT_FEED_SLO = {"target_s": 0.25, "window_s": 30, "budget": 0.01}
+TENANT_SLICE_BYTES, TENANT_SLICE_S = 1 << 20, 0.02
+TENANT_POLL_S, TENANT_IDLE_S = 0.02, 2.0
+TENANT_HISTORY_S, TENANT_PROFILE_HZ = 0.5, 97
+PROFILE_TURNS = ("off", "on", "on", "off")
+OBS_GANG_OPTIONS = {"history_s": 0.5, "gang_poll_s": 0.5, "profile_hz": 49,
+                    "control": True, "scheduler": "quantum=4,queue=32",
+                    "slo": True}
+OBS_GANG_WAIT_S = 120
+OBSCTL_COMMANDS = (("top", "--once"), ("history",), ("gang",), ("tenants",),
+                   ("control",), ("slo",), ("profile",), ("rpc",))
+ANALYZE_MB, CONTROL_MB, MULTI_TENANT_MB, SLO_BURN_MB = 24, 32, 32, 8
 
 
 # The example twins (phase 15, and tests/test_torch_examples*.py, which
@@ -1281,6 +1362,17 @@ def batch_hash(batch) -> str:
         h.update(k.encode() + a.dtype.str.encode())
         h.update(a.tobytes())
     return h.hexdigest()
+
+
+def write_cut(linear, dst, mb=REMOTE_TRAIN_MB):
+    """The first ``mb`` MB of ``linear``, cut at a line end, written to
+    ``dst``. Returns the bytes."""
+    with open(linear, "rb") as f:
+        head = f.read(mb << 20)
+    head = head[:head.rindex(b"\n") + 1]
+    with open(dst, "wb") as f:
+        f.write(head)
+    return head
 
 
 # --------------------------------------------------------------- phase 3
@@ -3184,12 +3276,7 @@ def split_path(path, size, lr, work):
     from dmlc_tpu_torch.models.linear import SparseLinearModel
     cuda = torch.device("cuda")
     small = os.path.join(work, "criteo_shaped_shuffle.libsvm")
-    with open(path, "rb") as src:
-        head = src.read(SHUFFLE_MB << 20)
-    with open(small, "wb") as dst:
-        dst.write(head[:head.rfind(b"\n") + 1])
-    small_size = os.path.getsize(small)
-    del head
+    small_size = len(write_cut(path, small, SHUFFLE_MB))
     pool = ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -4940,7 +5027,9 @@ def cache_path(path, size, lr, single):
         f"{single['steps_per_s']:.2f} steps/s")
     return {"steps": steps, "build_s": build_s,
             "epoch_s": [e["secs"] for e in epochs],
-            "parse_to_device_gbps_training": gbps, "steps_per_s": sps}
+            "parse_to_device_gbps_training": gbps, "steps_per_s": sps,
+            "hashes_sha256": hashlib.sha256(
+                "".join(want_hashes).encode()).hexdigest()}
 
 
 def bench_twins(path, work, records_hash, indexed_hash):
@@ -4983,15 +5072,24 @@ def bench_twins(path, work, records_hash, indexed_hash):
     its own checks and these. Each JSON is printed as a line. The
     suite's files are removed after."""
     from dmlc_tpu_torch.bench_suite import (
-        bench_ckpt_restore_fanout, bench_csv, bench_elastic_reshard,
-        bench_global_shuffle, bench_image_record, bench_indexed_shuffled,
-        bench_libsvm, bench_multiprocess_ingest, bench_page_replay,
-        bench_peer_hydrate, bench_prefetch, bench_recio_native,
-        bench_recordio, bench_spill_replay,
+        bench_analyze, bench_ckpt_restore_fanout, bench_control, bench_csv,
+        bench_elastic_reshard, bench_global_shuffle, bench_image_record,
+        bench_indexed_shuffled, bench_libsvm, bench_multiprocess_ingest,
+        bench_page_replay, bench_peer_hydrate, bench_prefetch,
+        bench_recio_native, bench_recordio, bench_spill_replay,
     )
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     prefix = "dmlc_tpu_torch_bench_suite."
     os.link(path, os.path.join(work, prefix + "criteo.libsvm"))
+
+    def criteo_cut(mb):
+        # a directory of its own holding the first mb MB of the corpus
+        # at the suite's name (config 13's and 16's sizes)
+        d = os.path.join(work, f"{prefix}cut{mb}")
+        os.makedirs(d)
+        write_cut(path, os.path.join(d, prefix + "criteo.libsvm"), mb)
+        return d
+
     configs = (("prefetch", lambda: bench_prefetch(256, work=work)),
                ("multiprocess",
                 lambda: bench_multiprocess_ingest(256, work=work)),
@@ -5015,7 +5113,14 @@ def bench_twins(path, work, records_hash, indexed_hash):
                ("elastic_reshard", lambda: bench_elastic_reshard(
                    ELASTIC_MB, work=work)),
                ("global_shuffle", lambda: bench_global_shuffle(
-                   GLOBAL_SHUFFLE_MB, work=work)))
+                   GLOBAL_SHUFFLE_MB, work=work)),
+               ("analyze", lambda: bench_analyze(
+                   ANALYZE_MB, work=criteo_cut(ANALYZE_MB))),
+               ("control", lambda: bench_control(
+                   CONTROL_MB, work=criteo_cut(CONTROL_MB))),
+               ("multi_tenant", lambda: suite_config(
+                   19, MULTI_TENANT_MB, work)),
+               ("slo_burn", lambda: suite_config(22, SLO_BURN_MB, work)))
     out = {}
     try:
         for name, fn in configs:
@@ -5071,6 +5176,35 @@ def bench_twins(path, work, records_hash, indexed_hash):
             and fan["incremental_frac"] <= 0.2,
             f"config 21: {fan}")
     require_shuffle_configs(out["elastic_reshard"], out["global_shuffle"])
+    # configs 13, 16, 19 and 22 assert their own acceptance; beside it
+    require(out["analyze"]["bytes"] <= (ANALYZE_MB << 20)
+            and out["analyze"]["analysis"]["hot_frames"],
+            f"config 13: {out['analyze']}")
+    require(out["control"]["bytes"] <= (CONTROL_MB << 20)
+            and out["control"]["shards_final"] >= 1
+            and out["control"]["decisions"] >= out["control"]["epochs"],
+            f"config 16: {out['control']}")
+    return out
+
+
+def suite_config(n, mb, work):
+    """Config ``n`` of the port's bench suite at ``mb`` MB in a process of
+    its own, as the suite's command line runs it (``python -m
+    dmlc_tpu_torch.bench_suite --config n --mb mb``; the host-timing
+    gates of configs 19 and 22 then share no interpreter with this
+    run's threads), its files under ``work``. Returns its JSON line; a
+    config that fails (an ``error`` line) fails the run."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "dmlc_tpu_torch.bench_suite", "--config",
+         str(n), "--mb", str(mb)], cwd=REPO, capture_output=True,
+        text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": REPO, "TMPDIR": work})
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    require(proc.returncode == 0 and len(lines) == 1,
+            f"config {n}: exit {proc.returncode}: {proc.stdout[-800:]} "
+            f"{proc.stderr[-800:]}")
+    out = json.loads(lines[0])
+    require("error" not in out, f"config {n}: {out}")
     return out
 
 
@@ -5175,12 +5309,8 @@ def remote_train(linear, lr, work, em):
     (launches of the cold epoch, stats, the warm epoch's model, three of
     its batches)."""
     import torch
-    with open(linear, "rb") as f:
-        head = f.read(REMOTE_TRAIN_MB << 20)
-    head = head[:head.rindex(b"\n") + 1]
     local = os.path.join(work, "remote_train.libsvm")
-    with open(local, "wb") as f:
-        f.write(head)
+    head = write_cut(linear, local)
     uri = "obj://smoke/criteo/train.libsvm"
     em.put("smoke", "criteo/train.libsvm", head)
     runs = {}
@@ -5559,12 +5689,8 @@ def gang_path(linear, lr, work):
     script = os.path.join(work, "gang_peer_worker.py")
     with open(script, "w") as f:
         f.write(GANG_PEER_WORKER)
-    with open(linear, "rb") as f:
-        head = f.read(REMOTE_TRAIN_MB << 20)
-    head = head[:head.rindex(b"\n") + 1]
     local = os.path.join(work, "gang_train.libsvm")
-    with open(local, "wb") as f:
-        f.write(head)
+    head = write_cut(linear, local)
     size = len(head)
     local_sha = hashlib.sha256(head).hexdigest()
     objroot = os.path.join(work, "gang_objroot")
@@ -5840,12 +5966,8 @@ def shuffle_path(linear, lr, work):
     )
     t_phase = time.perf_counter()
     window_bytes = SHUFFLE_WINDOW_MB << 20
-    with open(linear, "rb") as f:
-        head = f.read(REMOTE_TRAIN_MB << 20)
-    head = head[:head.rindex(b"\n") + 1]
     local = os.path.join(work, "shuffle_train.libsvm")
-    with open(local, "wb") as f:
-        f.write(head)
+    head = write_cut(linear, local)
     size = len(head)
     lines = head.split(b"\n")[:-1]
     del head
@@ -7843,16 +7965,10 @@ def submit_path(linear, lr, work):
     phase's numbers."""
     from dmlc_tpu_torch.parallel.launch import ps_envs
     t_phase = time.perf_counter()
-    with open(linear, "rb") as f:
-        head = f.read(REMOTE_TRAIN_MB << 20)
-    head = head[:head.rindex(b"\n") + 1]
     out_dir = os.path.join(work, "submit")
     os.makedirs(out_dir)
     local = os.path.join(out_dir, "train.libsvm")
-    with open(local, "wb") as f:
-        f.write(head)
-    size = len(head)
-    del head
+    size = len(write_cut(linear, local))
     script = os.path.join(out_dir, "submit_worker.py")
     with open(script, "w") as f:
         f.write(SUBMIT_WORKER)
@@ -8048,6 +8164,603 @@ def examples_path(work):
     return out
 
 
+# --------------------------------------------------------------- phase 16
+
+def stream_reference(path):
+    """In a worker process: (rows, the sha256 of their row hashes in
+    order) of the python chain's padded batches over ``path``."""
+    built = _padded_chain(path, False).prefetch().build()
+    h, rows = hashlib.sha256(), 0
+    for b in built:
+        for r in row_hashes(b):
+            h.update(r.encode())
+            rows += 1
+    built.close()
+    return rows, h.hexdigest()
+
+
+def _frames(node):
+    """Every frame name under a profile trie node, the node's included."""
+    yield node.get("name") or ""
+    for child in node.get("children") or []:
+        yield from _frames(child)
+
+
+def _leaves(node, top=6, depth=3):
+    """The ``top`` stack ends under a profile trie node by their own
+    samples, each as its last ``depth`` frames (a wait leaf says little
+    without the frames that waited), with the node's sample total."""
+    own, total = {}, 0
+    stack = [(node, ())]
+    while stack:
+        n, path = stack.pop()
+        path = (path + (n.get("name") or "?",))[-depth:]
+        k = int(n.get("self") or 0) + int(n.get("folded") or 0)
+        if k:
+            own[" > ".join(path)] = own.get(" > ".join(path), 0) + k
+            total += k
+        stack.extend((c, path) for c in n.get("children") or [])
+    ranked = sorted(own.items(), key=lambda kv: (-kv[1], kv[0]))[:top]
+    return {"samples": total, "ends": ranked}
+
+
+def _hashes_digest(kept):
+    return hashlib.sha256("".join(_hashes(kept)).encode()).hexdigest()
+
+
+def _tenant_poll(port, res, stop):
+    """Poll /tenants, /slo and /analyze while the tenants run, keeping in
+    ``res["polls"]`` the last /tenants with both rows pulled and the
+    feed's watermark, the /slo with most of tenant.feed's windows judged
+    and the last /analyze verdict, read once the bulk tenant has ended an
+    epoch (before, no epoch is attributed and /analyze answers 404)."""
+    from dmlc_tpu_torch.obs.serve import scrape
+
+    def windows(doc):
+        row = (doc.get("objectives") or {}).get("tenant.feed") or {}
+        return sum(w.get("burn") is not None
+                   for w in (row.get("windows") or {}).values())
+    try:
+        while not stop.is_set():
+            doc = scrape(port, path="/tenants", timeout_s=10.0)
+            rows = doc.get("tenants") or {}
+            if all((rows.get(t) or {}).get("pulls", 0) > 0
+                   for t in ("bulk", "feed")) \
+                    and (rows["feed"].get("watermark") or {}).get(
+                        "watermark_records", 0) > 0:
+                res["polls"]["tenants"] = doc
+            doc = scrape(port, path="/slo", timeout_s=10.0)
+            if windows(doc) >= windows(res["polls"].get("slo") or {}):
+                res["polls"]["slo"] = doc
+            if res["bulk"]:
+                doc = scrape(port, path="/analyze", timeout_s=10.0)
+                if doc.get("tenant") is not None:
+                    res["polls"]["analyze"] = doc
+            stop.wait(0.25)
+    except BaseException as e:  # noqa: BLE001 — judged by the caller
+        res["errors"].append(f"poller: {e!r}")
+
+
+def tenant_path(linear, size, lr, work, bulk_digest):
+    """Phase 16 (see the module docstring): the tenants ``bulk`` and
+    ``feed`` train two SparseLinearModel(10^6) on the card in one process
+    under the scheduler, the feed from a growing file, with the history
+    ring, the profiler and the controller read through a StatusServer;
+    then parse-only epochs with the profiler off and on in turns.
+    ``bulk_digest``: the digest of the main path's chain's batch hashes
+    (cache_path's). Returns the phase's numbers."""
+    import importlib
+    import multiprocessing
+    import statistics
+    from concurrent.futures import ProcessPoolExecutor
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.obs import analyze, control, profile, slo, timeseries
+    from dmlc_tpu_torch.pipeline import Pipeline, scheduler
+    serve = importlib.import_module("dmlc_tpu_torch.obs.serve")
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cut = os.path.join(work, "tenant_cut.libsvm")
+    head = write_cut(linear, cut)
+    written_rows = head.count(b"\n")
+    feed_path = os.path.join(work, "tenant_feed.libsvm")
+    open(feed_path, "wb").close()
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["linear"]}
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    host = pool.submit(stream_reference, cut)
+    sched = scheduler.install(quantum=TENANT_QUANTUM, burst=TENANT_BURST,
+                              queue_budget=TENANT_QUEUE)
+    timeseries.install(period_s=TENANT_HISTORY_S)
+    prof = profile.install(hz=TENANT_PROFILE_HZ)
+    control.install()
+    srv = serve.StatusServer()
+    res = {"bulk": [], "feed": None, "errors": [], "polls": {}, "stop": {}}
+    bulk = feed = None
+    threads = []
+    try:
+        sched.add_tenant("bulk", weight=1)
+        sched.add_tenant("feed", weight=TENANT_FEED_WEIGHT,
+                         slo=TENANT_FEED_SLO)
+        bulk = (Pipeline.from_uri(linear)
+                .parse(format="libsvm", engine="native")
+                .batch(ROW_BUCKET, pad=True, row_bucket=ROW_BUCKET,
+                       nnz_bucket=NNZ_BUCKET)
+                .to_device(cuda, window="auto")
+                .build(autotune=True, tenant="bulk"))
+        feed = (Pipeline.from_stream(feed_path, window_records=ROW_BUCKET,
+                                     poll_interval_s=TENANT_POLL_S,
+                                     idle_timeout_s=TENANT_IDLE_S)
+                .parse(format="libsvm")
+                .batch(ROW_BUCKET, pad=True, row_bucket=ROW_BUCKET,
+                       nnz_bucket=NNZ_BUCKET)
+                .to_device(cuda)
+                .build(tenant="feed"))
+        # the pipeline reads its stream's watermark (stream_stats) but
+        # has no call that ends the stream: the writer stops the split
+        split = feed._runners[0]._stream_split
+        models = {t: SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                       device=cuda)
+                  for t in ("bulk", "feed")}
+        feed_done, poll_stop = threading.Event(), threading.Event()
+        for fn in wrappers.values():
+            fn.launches = 0
+
+        def bulk_loop():
+            try:
+                while True:
+                    kept = [] if not res["bulk"] else None
+                    losses = []
+                    t0 = time.perf_counter()
+                    for batch in bulk:
+                        if kept is not None:
+                            kept.append(batch)
+                        losses.append(models["bulk"].train_step(batch))
+                    torch.cuda.synchronize()
+                    epoch = {"secs": time.perf_counter() - t0,
+                             "steps": len(losses),
+                             "losses": [float(x) for x in losses]}
+                    if kept is not None:
+                        epoch["digest"] = _hashes_digest(kept)
+                        del kept
+                    res["bulk"].append(epoch)
+                    if feed_done.is_set():
+                        return
+            except BaseException as e:  # noqa: BLE001 — judged below
+                res["errors"].append(f"bulk: {e!r}")
+
+        def feed_loop():
+            try:
+                lat, losses, rows = [], [], 0
+                h = hashlib.sha256()
+                it = iter(feed)
+                t0 = time.perf_counter()
+                while True:
+                    tb = time.perf_counter()
+                    batch = next(it, None)
+                    if batch is None:
+                        break
+                    lat.append(time.perf_counter() - tb)
+                    for r in row_hashes(batch):
+                        h.update(r.encode())
+                        rows += 1
+                    losses.append(models["feed"].train_step(batch))
+                torch.cuda.synchronize()
+                res["feed"] = {"secs": time.perf_counter() - t0,
+                               "end": time.perf_counter(),
+                               "steps": len(losses), "rows": rows,
+                               "digest": h.hexdigest(), "lat": lat,
+                               "losses": [float(x) for x in losses],
+                               "watermark": feed.stream_stats()}
+            except BaseException as e:  # noqa: BLE001 — judged below
+                res["errors"].append(f"feed: {e!r}")
+            finally:
+                feed_done.set()
+
+        def writer():
+            try:
+                pos = 0
+                with open(feed_path, "ab") as f:
+                    while pos < len(head):
+                        end = min(pos + TENANT_SLICE_BYTES, len(head))
+                        if end < len(head):
+                            end = head.rindex(b"\n", pos, end) + 1
+                        f.write(head[pos:end])
+                        f.flush()
+                        pos = end
+                        time.sleep(TENANT_SLICE_S)
+                res["stop"] = {"t": time.perf_counter(),
+                               "watermark": feed.stream_stats()}
+            except BaseException as e:  # noqa: BLE001 — judged below
+                res["errors"].append(f"writer: {e!r}")
+            finally:
+                split.stop()
+
+        for t in (threading.Thread(target=bulk_loop, name="tenant/bulk"),
+                  threading.Thread(target=feed_loop, name="tenant/feed"),
+                  threading.Thread(target=writer, name="feed-writer"),
+                  threading.Thread(target=_tenant_poll, name="obs-poller",
+                                   args=(srv.port, res, poll_stop))):
+            t.start()
+            threads.append(t)
+        for t in threads[:3]:
+            t.join(timeout=600)
+        poll_stop.set()
+        threads[3].join(timeout=60)
+        require(not any(t.is_alive() for t in threads),
+                "tenant path: a tenant thread did not finish")
+        require(not res["errors"], f"tenant path: {res['errors']}")
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        docs = {ep: serve.scrape(srv.port, path=ep, timeout_s=10.0)
+                for ep in ("/history", "/control", "/profile", "/analyze")}
+        profile_doc = prof.to_dict()
+    finally:
+        for built in (feed, bulk):
+            if built is not None:
+                built.close()
+        srv.close()
+        for plane in (profile, timeseries, control, slo, scheduler):
+            plane.uninstall()
+        rows_ref, digest_ref = host.result()
+        pool.shutdown(wait=True, cancel_futures=True)
+    fd, ep = res["feed"], res["bulk"]
+    # 1. the feed: every row written, in order, as the python parse of
+    # the finished file
+    require(fd["rows"] == written_rows == rows_ref
+            == fd["watermark"]["watermark_records"]
+            and fd["watermark"]["ended"],
+            f"tenant path: the feed delivered {fd['rows']} rows, "
+            f"{written_rows} written, watermark {fd['watermark']}, the "
+            f"python parse of the file {rows_ref}")
+    require(fd["digest"] == digest_ref,
+            "tenant path: the feed's rows differ from the python parse of "
+            "the finished file")
+    # 2. the bulk tenant's first epoch hashes as the main path's chain
+    require(len(ep) >= 1 and ep[0]["digest"] == bulk_digest,
+            "tenant path: the bulk epoch's batches differ from the main "
+            "path's")
+    # 3. both losses fall, every kernel once a step of each tenant
+    bulk_losses = [x for e in ep for x in e["losses"]]
+    for name, losses in (("bulk", bulk_losses), ("feed", fd["losses"])):
+        require(all(x == x and abs(x) != float("inf") for x in losses)
+                and losses[-1] < losses[0],
+                f"tenant path: {name}'s loss {losses[0]} -> {losses[-1]}")
+    steps = {"bulk": sum(e["steps"] for e in ep), "feed": fd["steps"]}
+    want = {k: steps["bulk"] + steps["feed"] for k in wrappers}
+    require(launches == want,
+            f"tenant path: launches {launches} != {want} (steps {steps})")
+    # 4. the planes, as the status server served them
+    tenants = res["polls"].get("tenants")
+    require(tenants is not None, "tenant path: /tenants never showed both "
+            "tenants pulling and the feed's watermark")
+    hist = docs["/history"]
+    require(hist["samples"], f"tenant path: /history {str(hist)[:200]}")
+    verdict = docs["/analyze"]
+    live = res["polls"].get("analyze") or verdict
+    # a firing SLO alert rides along as slo_verdicts
+    keys = set(analyze.VERDICT_KEYS)
+    require(set(verdict) - {"slo_verdicts"} == keys
+            and set(live) - {"slo_verdicts"} == keys
+            and verdict["tenant"] in ("bulk", "feed"),
+            f"tenant path: /analyze {verdict}")
+    ctl_doc = docs["/control"]
+    records = (ctl_doc.get("ledger") or {}).get("records") or []
+    require(len(records) >= len(ep)
+            and all(sorted(r) == sorted(control.RECORD_KEYS)
+                    for r in records),
+            f"tenant path: /control: {len(records)} records for "
+            f"{len(ep)} bulk epochs")
+    slo_doc = res["polls"].get("slo") or {}
+    row = (slo_doc.get("objectives") or {}).get("tenant.feed") or {}
+    judged = sorted(k for k, w in (row.get("windows") or {}).items()
+                    if w.get("burn") is not None)
+    require(row and judged,
+            f"tenant path: /slo never judged tenant.feed: {slo_doc}")
+    prof_doc = docs["/profile"]
+    labels = set((prof_doc.get("threads") or {}))
+    native = sorted({f for root in (prof_doc.get("threads") or {}).values()
+                     for f in _frames(root) if f.startswith("native:")})
+    require({"tenant/bulk", "tenant/feed"} <= labels and native,
+            f"tenant path: /profile: threads {sorted(labels)}, "
+            f"native leaves {native}")
+    duty = profile_doc["tick_cost_s"] * profile_doc["effective_hz"]
+    lat = sorted(fd["lat"])
+    stats = {
+        "bulk_epochs": len(ep), "steps": steps,
+        "bulk_gbps": size * len(ep) / sum(e["secs"] for e in ep) / 1e9,
+        "bulk_steps_per_s": steps["bulk"] / sum(e["secs"] for e in ep),
+        "feed_gbps": len(head) / fd["secs"] / 1e9,
+        "feed_steps_per_s": steps["feed"] / fd["secs"],
+        # a tail needs many more pulls than the stream makes: the
+        # largest wait is reported with n, not as a percentile
+        "feed_pulls": len(lat), "feed_pull_p50_s": statistics.median(lat),
+        "feed_pull_max_s": lat[-1],
+        "watermark_lag_records_at_stop":
+            written_rows - res["stop"]["watermark"]["watermark_records"],
+        "watermark_lag_bytes_at_stop":
+            len(head) - res["stop"]["watermark"]["watermark_bytes"],
+        "drain_s": fd["end"] - res["stop"]["t"],
+        "profiler_duty": duty, "profiler_effective_hz":
+            profile_doc["effective_hz"],
+        "history_samples": len(hist["samples"]),
+        "control_records": len(records), "slo_windows_judged": judged,
+        "tenants": {t: {k: r.get(k) for k in
+                        ("pulls", "rows", "credit_waits", "credit_wait_s",
+                         "batch_p50_s", "batch_p99_s")}
+                    for t, r in tenants["tenants"].items()},
+        "native_leaves": native,
+        "bulk_thread_profile": _leaves(prof_doc["threads"]["tenant/bulk"]),
+    }
+    log(f"tenant path: bulk {len(ep)} epochs of the {size}-byte corpus at "
+        f"{stats['bulk_gbps']:.3f} GB/s, {stats['bulk_steps_per_s']:.2f} "
+        f"steps/s; feed {fd['rows']} rows streamed from a file grown by "
+        f"{TENANT_SLICE_BYTES} bytes every {TENANT_SLICE_S} s at "
+        f"{stats['feed_gbps']:.4f} GB/s, {stats['feed_steps_per_s']:.2f} "
+        f"steps/s, pull p50 {stats['feed_pull_p50_s'] * 1e3:.1f} ms and max "
+        f"{stats['feed_pull_max_s'] * 1e3:.1f} ms of n={stats['feed_pulls']} "
+        f"pulls, watermark lag at stop "
+        f"{stats['watermark_lag_records_at_stop']} records "
+        f"({stats['watermark_lag_bytes_at_stop']} bytes), drained "
+        f"{stats['drain_s']:.3f} s after; rows hashing in order as the "
+        f"python parse of the file; bulk epoch 1 hashing as the main path; "
+        f"losses bulk {bulk_losses[0]:.4f} -> {bulk_losses[-1]:.4f}, feed "
+        f"{fd['losses'][0]:.4f} -> {fd['losses'][-1]:.4f}; launches "
+        f"{launches} for steps {steps}; /tenants {stats['tenants']}; "
+        f"/history {stats['history_samples']} samples; /analyze bound "
+        f"{verdict['bound']} of tenant {verdict['tenant']}; /control "
+        f"{len(records)} records; /slo tenant.feed windows {judged}; "
+        f"/profile native leaves {native}, the bulk thread's "
+        f"{stats['bulk_thread_profile']}, profiler duty {duty:.5f} at "
+        f"{profile_doc['effective_hz']} Hz")
+    stats["profile_turns"] = profile_turns(linear, size)
+    os.unlink(cut)
+    os.unlink(feed_path)
+    log(f"tenant path: phase {time.perf_counter() - t_phase:.1f} s")
+    return stats
+
+
+def profile_turns(path, size):
+    """Parse-only epochs of the main path's chain with the sampling
+    profiler off and on, in turns (PROFILE_TURNS): GB/s of each, the
+    profiler's duty beside the on epochs."""
+    from dmlc_tpu_torch.obs import profile
+    built = build_pipeline(path)
+    gbps, duty = {"off": [], "on": []}, []
+    try:
+        for turn in PROFILE_TURNS:
+            if turn == "on":
+                prof = profile.install(hz=TENANT_PROFILE_HZ)
+            try:
+                secs, _, _, _ = train_epoch(built, None, train=False)
+            finally:
+                if turn == "on":
+                    doc = prof.to_dict()
+                    duty.append(doc["tick_cost_s"] * doc["effective_hz"])
+                    profile.uninstall()
+            gbps[turn].append(size / secs / 1e9)
+    finally:
+        built.close()
+    log("parse-only epochs, the profiler off / on in turns at "
+        f"{TENANT_PROFILE_HZ} Hz: off "
+        + " / ".join(f"{x:.3f}" for x in gbps["off"]) + " GB/s, on "
+        + " / ".join(f"{x:.3f}" for x in gbps["on"]) + " GB/s (duty "
+        + " / ".join(f"{x:.5f}" for x in duty) + ")")
+    return {"gbps": gbps, "duty": duty}
+
+
+# --------------------------------------------------------------- phase 17
+
+OBS_GANG_WORKER = r"""
+import json, os, sys, time
+cut, out_dir, rows, nnz_bucket, features, lr, parts = sys.argv[1:8]
+rows, nnz_bucket, features, parts = (int(rows), int(nnz_bucket),
+                                     int(features), int(parts))
+rank = int(os.environ["DMLC_TPU_TASK_ID"])
+world = int(os.environ["DMLC_TPU_NUM_WORKER"])
+os.environ["DMLC_TPU_TORCH_PAGESTORE_DIR"] = os.path.join(
+    out_dir, f"store-{rank}")
+import torch
+if not torch.cuda.is_available():
+    raise RuntimeError("obs gang worker: no CUDA card")
+cuda = torch.device("cuda")
+from dmlc_tpu_torch import rendezvous
+from dmlc_tpu_torch.models.linear import SparseLinearModel
+from dmlc_tpu_torch.obs import aggregate, control, profile, slo, timeseries
+from dmlc_tpu_torch.obs.serve import serve_if_env
+from dmlc_tpu_torch.ops import csr
+from dmlc_tpu_torch.ops import step as step_ops
+from dmlc_tpu_torch.pipeline import Pipeline, scheduler
+wrappers = {"csr_spmv": csr.csr_spmv, "csr_spmv_t": csr.csr_spmv_t,
+            "logistic_step": step_ops.logistic_step,
+            "sgd_update": step_ops.sgd_update}
+# every plane from its env contract; the controller before the join, so
+# the membership change lands on its ledger
+planes = {"serve": serve_if_env(), "scheduler": scheduler.install_if_env(),
+          "slo": slo.install_if_env(), "history": timeseries.install_if_env(),
+          "control": control.install_if_env(),
+          "profile": profile.install_if_env(),
+          "gang": aggregate.install_if_env(),
+          "rendezvous": rendezvous.install_if_env()}
+missing = sorted(k for k, v in planes.items()
+                 if (v is None) != (k == "gang" and rank != 0))
+if missing:
+    raise RuntimeError(f"obs gang worker: planes {missing} wrong for rank "
+                       f"{rank}")
+cli = planes["rendezvous"]
+deadline = time.monotonic() + 60
+while cli.world < world:
+    if time.monotonic() > deadline:
+        raise TimeoutError(f"rendezvous world {cli.world}")
+    cli.heartbeat()
+    time.sleep(0.05)
+planes["scheduler"].add_tenant("train", weight=1, slo=json.loads(
+    os.environ["OBS_GANG_SLO"]))
+model = SparseLinearModel(features, learning_rate=float(lr), device=cuda)
+for fn in wrappers.values():
+    fn.launches = 0
+losses = []
+mine = list(range(rank * parts // world, (rank + 1) * parts // world))
+t0 = time.perf_counter()
+for p in mine:
+    with (Pipeline.from_uri(cut, part_index=p, num_parts=parts)
+          .parse(format="libsvm")
+          .batch(rows, pad=True, row_bucket=rows, nnz_bucket=nnz_bucket)
+          .to_device(cuda).build(tenant="train")) as built:
+        for batch in built:
+            losses.append(model.train_step(batch))
+torch.cuda.synchronize()
+losses = [float(x) for x in losses]
+out = {"rank": rank, "parts": mine, "steps": len(losses),
+       "train_s": time.perf_counter() - t0,
+       "launches": {k: fn.launches for k, fn in wrappers.items()},
+       "loss_first": losses[0], "loss_last": losses[-1],
+       "finite": all(x == x and abs(x) != float("inf") for x in losses)}
+tmp = os.path.join(out_dir, f"obs-{rank}.tmp")
+with open(tmp, "w") as f:
+    json.dump(out, f)
+os.replace(tmp, os.path.join(out_dir, f"obs-{rank}.json"))
+open(os.path.join(out_dir, f"done-{rank}"), "w").close()
+# alive, heartbeating and serving until the parent has read the planes
+stop = os.path.join(out_dir, "stop")
+deadline = time.monotonic() + 300
+while not os.path.exists(stop):
+    if time.monotonic() > deadline:
+        raise TimeoutError("obs gang worker: no stop file")
+    cli.heartbeat()
+    time.sleep(0.1)
+"""
+
+
+def _obsctl(port, args):
+    """Start ``python -m dmlc_tpu_torch.obsctl <args> --port <port>``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "dmlc_tpu_torch.obsctl", *args,
+         "--port", str(port)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": REPO})
+
+
+def obs_gang_path(linear, lr, work):
+    """Phase 17 (see the module docstring): a gang of GANG_RANKS CUDA
+    processes under every analytic plane's env contract, each training
+    on its parts of the first REMOTE_TRAIN_MB of the linear corpus
+    through ``build(tenant="train")``; read while it lives through rank
+    0's /gang, each rank's /history and /control, and the obsctl twin.
+    Returns the phase's numbers."""
+    from dmlc_tpu_torch.obs import control
+    from dmlc_tpu_torch.obs.serve import scrape
+    from dmlc_tpu_torch.parallel.launch import find_free_ports, launch_local
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(work, "obs_gang")
+    os.makedirs(out_dir)
+    cut = os.path.join(work, "obs_gang_cut.libsvm")
+    write_cut(linear, cut)
+    script = os.path.join(work, "obs_gang_worker.py")
+    with open(script, "w") as f:
+        f.write(OBS_GANG_WORKER)
+    ports = find_free_ports(GANG_RANKS)
+    run = {}
+
+    def gang():
+        try:
+            run["codes"] = launch_local(
+                GANG_RANKS, [sys.executable, script, cut, out_dir,
+                             str(ROW_BUCKET), str(NNZ_BUCKET),
+                             str(NUM_FEATURES), str(lr), str(GANG_PARTS)],
+                env={"PYTHONPATH": REPO,
+                     "OBS_GANG_SLO": json.dumps(TENANT_FEED_SLO)},
+                timeout=GANG_TIMEOUT_S, serve_ports=ports, rendezvous=True,
+                **OBS_GANG_OPTIONS)
+        except BaseException as e:  # noqa: BLE001 — judged below
+            run["error"] = repr(e)
+
+    t = threading.Thread(target=gang, name="obs-gang")
+    t.start()
+    try:
+        deadline = time.monotonic() + OBS_GANG_WAIT_S
+        done = [os.path.join(out_dir, f"done-{r}") for r in range(GANG_RANKS)]
+        while not all(map(os.path.exists, done)):
+            require(t.is_alive() and time.monotonic() < deadline,
+                    f"obs gang path: the gang ended or stalled before both "
+                    f"ranks trained: {run}")
+            time.sleep(0.1)
+        while True:
+            view = scrape(ports[0], path="/gang", timeout_s=10.0)
+            ranks = (view.get("ranks") or {}).values()
+            if (len(ranks) == GANG_RANKS
+                    and all(r["polls_ok"] > 0 and not r["unreachable"]
+                            for r in ranks)
+                    and (view.get("rollup") or {}).get("samples")
+                    and view.get("membership")):
+                break
+            require(time.monotonic() < deadline,
+                    f"obs gang path: rank 0's /gang never showed both ranks "
+                    f"reachable with rollups: {str(view)[:400]}")
+            time.sleep(0.25)
+        hist = [scrape(p, path="/history", timeout_s=10.0) for p in ports]
+        ctl = [scrape(p, path="/control", timeout_s=10.0) for p in ports]
+        procs = {" ".join(a): _obsctl(ports[0], a) for a in OBSCTL_COMMANDS}
+        cli = {}
+        for name, proc in procs.items():
+            text, _ = proc.communicate(timeout=120)
+            cli[name] = (proc.returncode, text)
+    finally:
+        open(os.path.join(out_dir, "stop"), "w").close()
+        t.join(timeout=GANG_TIMEOUT_S)
+    require(not t.is_alive() and run.get("codes") == [0] * GANG_RANKS,
+            f"obs gang path: the gang ended {run}")
+    outs = []
+    for r in range(GANG_RANKS):
+        with open(os.path.join(out_dir, f"obs-{r}.json")) as f:
+            outs.append(json.load(f))
+    for r in outs:
+        require(r["steps"] > 0 and r["launches"]
+                == {k: r["steps"] for k in PATH_KERNELS["linear"]},
+                f"obs gang path: rank {r['rank']} took {r['steps']} steps "
+                f"with launches {r['launches']}")
+        require(r["finite"] and r["loss_last"] < r["loss_first"],
+                f"obs gang path: rank {r['rank']}'s loss "
+                f"{r['loss_first']} -> {r['loss_last']}")
+    for rank, doc in enumerate(hist):
+        require(doc["samples"], f"obs gang path: rank {rank}'s /history "
+                f"has no samples")
+    membership = [rec for doc in ctl for rec in doc["ledger"]["records"]
+                  if rec["knob"] == "membership"]
+    require(membership and all(sorted(rec) == sorted(control.RECORD_KEYS)
+                               for rec in membership),
+            f"obs gang path: no membership record on the ranks' /control: "
+            f"{[str(doc)[:300] for doc in ctl]}")
+    for name, (code, text) in cli.items():
+        require(code == 0, f"obs gang path: obsctl {name} exited {code}: "
+                f"{text[-600:]}")
+    ranks = view["ranks"]
+    stats = {
+        "steps": [r["steps"] for r in outs],
+        "steps_per_s": [r["steps"] / r["train_s"] for r in outs],
+        "losses": [(r["loss_first"], r["loss_last"]) for r in outs],
+        "gang_polls": view["polls"],
+        "rollup_samples": len(view["rollup"]["samples"]),
+        "history_samples": [len(doc["samples"]) for doc in hist],
+        "membership": [rec["evidence"] for rec in membership],
+        "obsctl": {name: code for name, (code, _) in cli.items()},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"obs gang path: {GANG_RANKS} CUDA processes under "
+        f"{sorted(OBS_GANG_OPTIONS)}, steps {stats['steps']} at "
+        f"{[round(x, 2) for x in stats['steps_per_s']]} steps/s, losses "
+        f"{[(round(a, 4), round(b, 4)) for a, b in stats['losses']]}, K1, "
+        f"K2, K8 and K9 once a step; rank 0's /gang: {len(ranks)} ranks "
+        f"reachable after {view['polls']} polls, {stats['rollup_samples']} "
+        f"rollup samples; /history samples {stats['history_samples']}; "
+        f"membership {stats['membership']}; obsctl exits {stats['obsctl']};"
+        f" phase {stats['phase_s']:.1f} s")
+    log("obsctl gang against rank 0:\n" + cli["gang"][1].rstrip())
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.unlink(cut)
+    return stats
+
+
 def main() -> None:
     # Keep CUPTI set up between profiler traces. With kineto's default
     # teardown after each trace, a trace late in a run on an H100
@@ -8191,6 +8904,12 @@ def main() -> None:
                                         work)
         stats["submit"] = submit_path(linear, LEARNING_RATE, work)
         stats["examples"] = examples_path(work)
+        # the analytic obs planes: two tenants in this process, one from
+        # a growing file, then a gang under every plane's env contract
+        stats["tenants"] = tenant_path(linear, linear_size, LEARNING_RATE,
+                                       work,
+                                       stats["cache"]["hashes_sha256"])
+        stats["obs_gang"] = obs_gang_path(linear, LEARNING_RATE, work)
         os.unlink(linear)
         from dmlc_tpu_torch.parallel.launch import finalize
         finalize()

@@ -43,7 +43,12 @@ dmlc-core's front door: ``RowBlockIter.create`` (in RAM, or through a
 dmlc_tpu_torch.parallel.launch``) with the parameter-server role set,
 ssh command lines and the mpi, slurm, sge and kubernetes generators
 (``parallel.backends``), and the utility layer's ``Config``, blocking
-queues, ``ThreadGroup`` and tagged serializer (``dmlc_tpu_torch.utils``).
+queues, ``ThreadGroup`` and tagged serializer (``dmlc_tpu_torch.utils``);
+and the analytic obs planes (the time-series ring, gang aggregation, the
+sampling profiler, bottleneck attribution, SLOs and the verdict-driven
+controller, with the ``python -m dmlc_tpu_torch.obsctl`` CLI), the
+multi-tenant pipeline scheduler (``build(tenant=...)``) and streaming
+input (``Pipeline.from_stream``).
 Entry points that touch a device default to ``torch.device("cuda")``;
 pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """

@@ -14,11 +14,12 @@ reference's workers holds 2 host devices. The group is gloo by default:
 NCCL needs a card a rank (it refuses two ranks on one card), so with
 ``nccl`` rank r takes card r and the caller checks there is one.
 
-Under ``launch_local(trace_dir=...)`` each rank records its run and
-exports a rank-tagged trace (``obs.trace.trace_if_env``), as the
-reference's worker does. Trimmed from the reference: its other obs,
-rendezvous, scheduler and SLO ``install_if_env`` hooks (their planes
-are not ported).
+Like the reference's worker, it opts in to every live plane (each a no-op
+without its env var): the status server, rendezvous membership, the
+multi-tenant scheduler, SLOs, the time-series ring, the flight recorder,
+the gang aggregator, the sampling profiler, and under
+``launch_local(trace_dir=...)`` a rank-tagged trace
+(``obs.trace.trace_if_env``).
 
 Usage: bench_mp_worker.py <data_uri> <out_dir> [<device> [gloo|nccl]]
 (device ``cuda`` by default).
@@ -31,9 +32,29 @@ import time
 
 
 def main() -> int:
-    # the rank-tagged gang trace under launch_local(trace_dir=...) (a
-    # no-op without DMLC_TPU_TRACE_DIR)
+    # live-telemetry opt-ins (each a no-op without its env var): the
+    # per-rank status server under launch_local(serve_ports=...), the
+    # crash flight recorder under launch_local(flight_dir=...), and the
+    # rank-tagged gang trace under launch_local(trace_dir=...)
+    from dmlc_tpu_torch.obs.aggregate import install_if_env as gang_if_env
+    from dmlc_tpu_torch.obs.flight import install_if_env
+    from dmlc_tpu_torch.obs.profile import install_if_env as prof_if_env
+    from dmlc_tpu_torch.obs.serve import serve_if_env
+    from dmlc_tpu_torch.obs.slo import install_if_env as slo_if_env
+    from dmlc_tpu_torch.obs.timeseries import install_if_env as hist_if_env
     from dmlc_tpu_torch.obs.trace import trace_if_env
+    from dmlc_tpu_torch.pipeline.scheduler import (
+        install_if_env as sched_if_env,
+    )
+    from dmlc_tpu_torch.rendezvous import install_if_env as rndv_if_env
+    serve_if_env()
+    rndv_if_env()     # DMLC_TPU_RNDV_URI/PORT: elastic membership
+    sched_if_env()    # DMLC_TPU_SCHED: multi-tenant scheduler
+    slo_if_env()      # DMLC_TPU_SLO: declared objectives on /slo
+    hist_if_env()     # before flight: DMLC_TPU_HISTORY_S must win
+    install_if_env()
+    gang_if_env()     # DMLC_TPU_GANG_POLL_S (rank 0 only): /gang
+    prof_if_env()     # DMLC_TPU_PROFILE_HZ: /profile flamegraphs
     with trace_if_env():
         return _run()
 

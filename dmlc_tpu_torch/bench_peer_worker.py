@@ -1,9 +1,8 @@
 """Worker for bench_suite config 15 (peer_hydrate).
 
-Counterpart of ``dmlc_tpu/bench_peer_worker.py``; trimmed from the
-reference: its time-series and gang-aggregator ``install_if_env``
-hooks (their planes are not ported; the reference's are no-ops without
-their env, which config 15 does not set).
+Counterpart of ``dmlc_tpu/bench_peer_worker.py``, with the reference's
+``install_if_env`` hooks (each a no-op without its env, which config 15
+does not set).
 
 Run under ``parallel.launch_local(serve_ports=True)`` as a REAL
 N-process gang: each rank gets its OWN page-store root (simulating
@@ -106,8 +105,10 @@ def main() -> int:
     os.environ[ENV_STORE_DIR] = os.path.join(out_dir, f"store-{rank}")
 
     import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.obs.aggregate import install_if_env as gang_if_env
     from dmlc_tpu_torch.obs.flight import install_if_env as flight_if_env
     from dmlc_tpu_torch.obs.serve import serve_if_env
+    from dmlc_tpu_torch.obs.timeseries import install_if_env as hist_if_env
     from dmlc_tpu_torch.resilience import RetryPolicy, set_policy
 
     objstore.configure(block_bytes=block_bytes, coalesce=coalesce,
@@ -124,7 +125,9 @@ def main() -> int:
                            "launch_local(serve_ports=...)")
     from dmlc_tpu_torch.rendezvous import install_if_env as rndv_if_env
     rndv = rndv_if_env()  # DMLC_TPU_RNDV_URI/PORT: elastic membership
+    hist_if_env()     # before flight: DMLC_TPU_HISTORY_S must win
     flight_if_env()
+    gang_if_env()     # DMLC_TPU_GANG_POLL_S (rank 0): /gang rollups
 
     # both servers must be up before any rank's cold epoch starts —
     # and every rank must stay alive (serving) until all finished;

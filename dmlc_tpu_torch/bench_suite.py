@@ -35,6 +35,11 @@ on the card) where the reference reports one:
                the page store, three warm epochs with zero GETs, and
                the codec variant (level 6), every epoch sha256-held to
                the local file
+ 13. analyze — one epoch of the criteo-shaped corpus (parse → padded
+               batch, at least 24 MB) under a private 211 Hz sampling
+               profiler, attributed by ``obs.analyze``: the verdict has
+               VERDICT_KEYS, evidence, per-stage waits and hot_frames,
+               and its bound is one with a measured wait
  14. recio_native — the native dense-RecordIO decode (ABI 6) vs the
                Python golden vs the sharded gang, sha256-parity pinned
  15. peer_hydrate — a real 2-process gang (``bench_peer_worker.py``,
@@ -42,6 +47,12 @@ on the card) where the reference reports one:
                own page store, streaming one ``obj://`` object cold
                through the peer tier (each rank's wire <= 0.60 of the
                corpus, peer bytes on both) and warm with no GET
+ 16. control — five epochs of the criteo-shaped corpus under an
+               ``obs.control.Controller`` whose parse family owns a real
+               shard-count knob (the pipeline is rebuilt with
+               ``parse(shards=N)``): parse-bound verdicts, the shard
+               count raised on the native engine, every ledger record
+               with RECORD_KEYS, at most one revert
  17. parquet_native — the native Parquet page decode vs the pyarrow
                golden on a decode-bound corpus (20 null-bearing f32
                columns, UNCOMPRESSED V1 pages), sha256 stream parity at
@@ -51,6 +62,13 @@ on the card) where the reference reports one:
                config-3 scenario's decoded batches (raw uniform HWC u8
                -> padded f32), python / native / sharded x2
                sha256-identical
+ 19. multi_tenant — three adversarial tenants under one
+               ``PipelineScheduler`` (a native parse saturator, an
+               ``obj://`` tenant re-hydrated cold every epoch, and a
+               sparse victim): on the quietest alone/contended pair the
+               victim's contended p99 is at most ISOLATION_BOUND (1.5)
+               times its alone p99, the saturators hit credit waits,
+               and the victim's stream hashes the same under contention
  21. ckpt_restore_fanout — a 3-writer gang saves a checkpoint to
                ``obj://`` under a rendezvous (stamped meta.json) and
                re-saves it with one of 96 leaves changed; a 2-rank gang
@@ -62,6 +80,11 @@ on the card) where the reference reports one:
                parts: a late joiner resumes adopted parts from the
                committed progress prefix, then leaves; exactly-once
                coverage digest-checked, gang wire <= 1.3 of the corpus
+ 22. slo_burn — a victim tenant declaring a 50 ms latency SLO
+               (``add_tenant(slo=...)``) starved through the scheduler
+               by a bully: healthy alone, the fast-burn alert fires
+               within 9 s of contention as an ``slo``-bound verdict, and
+               clears within 12 s of ``pause("bully")``
  23. global_shuffle — a real 2-process gang (``bench_shuffle_worker.py``,
                ``launch_local(serve_ports=True)``) draining one seeded
                global permutation of a RecordIO corpus in 2 MB windows,
@@ -78,15 +101,16 @@ that config), and a config that fails emits an ``error`` line while the
 next config still runs.
 Configs 4, 7, 8 and 10 copy to the card (config 4 as the reference's
 ``--device`` run does; its parse-only form is not ported); configs 1,
-2, 3, 5, 6, 11, 14, 15, 17, 18, 20, 21 and 23 are the reference's
-host-side measurements (read, parse, decode and the gangs' object-store
-and window traffic, no copy), as there. Configs 5 and 17 write
+2, 3, 5, 6, 11, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22 and 23 are the
+reference's host-side measurements (read, parse, decode, the analysis
+planes' probes and the gangs' object-store and window traffic, no
+copy), as there. Configs 5 and 17 write
 their corpora with pyarrow (``make_parquet``,
 ``make_parquet_decode_bound``), so they run only where pyarrow is
 installed: not on the card's machine, which has none.
 
-Trimmed from the reference: every other config (their planes are not
-ported), the warm-up pass, ``--trace`` and the live telemetry opt-ins. Data files go
+Trimmed from the reference: configs 9 and 12 (the bench twin's), the
+warm-up pass, ``--trace`` and the live telemetry opt-ins. Data files go
 under ``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a config is
 given a ``work`` directory. Configs 1, 2, 3, 5, 6, 14, 17, 18 and 23 write
 the reference's corpora (``make_libsvm`` at its a1a defaults,
@@ -94,9 +118,9 @@ the reference's corpora (``make_libsvm`` at its a1a defaults,
 ``make_indexed_recordio``, ``make_dense_recordio``,
 ``make_parquet_decode_bound``, ``make_image_recordio``: the same bytes
 from the same seed; pyarrow's files the same tables). Configs 4, 7, 8,
-10, 11 and 15 read one corpus file, the reference's criteo shape from seed
-7 (the file its configs 4, 9 and 12 share; it writes the same bytes
-under more names for 7, 8, 10 and 11):
+10, 11, 13, 15 and 16 read one corpus file, the reference's criteo shape
+from seed 7 (the file its configs 4, 9 and 12 share; it writes the same
+bytes under more names for 7, 8, 10 and 11):
 ``make_libsvm`` draws each row's indices by a permutation of 10^6, so
 writing it takes minutes whatever ``mb`` is, and a second copy would
 double that. Configs 8, 10, 14, 17 and 18 take the reference's
@@ -129,7 +153,8 @@ __all__ = ["make_libsvm", "make_csv", "make_recordio", "make_dense_recordio",
            "bench_spill_replay", "bench_remote_hydrate",
            "bench_peer_hydrate", "bench_ckpt_restore_fanout",
            "bench_elastic_reshard", "bench_global_shuffle",
-           "bench_recio_native",
+           "bench_recio_native", "bench_analyze", "bench_control",
+           "bench_multi_tenant", "bench_slo_burn",
            "bench_parquet_native", "bench_image_record", "CONFIGS", "main"]
 
 
@@ -1816,6 +1841,635 @@ def bench_parquet_native(mb: int, gauge_fn=None,
     return out
 
 
+def bench_analyze(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 13: the analysis plane's acceptance probe. One short
+    declarative-pipeline epoch (criteo-shaped corpus, parse → padded
+    batch) attributed by dmlc_tpu_torch.obs.analyze: the verdict must be
+    schema-valid (VERDICT_KEYS — the shape /analyze serves), non-empty,
+    and its bound must be consistent with the measured stage waits (a
+    bound naming a component with zero measured wait would be fabricated
+    evidence).
+    The epoch runs under the SAMPLING PROFILER (dmlc_tpu_torch.obs.profile,
+    high rate so even a fast epoch collects samples), so the verdict
+    must also carry non-empty, schema-valid hot_frames — the
+    function-level evidence rung below stage waits."""
+    from dmlc_tpu_torch.obs import analyze as obs_analyze
+    from dmlc_tpu_torch.obs import profile as obs_profile
+    from dmlc_tpu_torch.obs.metrics import REGISTRY
+    from dmlc_tpu_torch.pipeline import Pipeline
+
+    # corpus floor: the epoch must span several sampler periods or the
+    # hot_frames acceptance would ride on one forced end-of-epoch
+    # sample instead of the measured epoch
+    path = _criteo(_prefix(work), max(mb, 24))
+    size = os.path.getsize(path)
+    built = (Pipeline.from_uri(path)
+             .parse(format="libsvm", engine="auto")
+             .batch(8 << 10, pad=True, nnz_bucket=(8 << 10) * 45)
+             .build())
+    # a PRIVATE epoch-scoped sampler, never the process-global one: a
+    # suite-wide DMLC_TPU_PROFILE_HZ profiler's trie is cumulative
+    # across earlier configs, which would rank earlier configs' frames as
+    # THIS epoch's hot_frames — the same cross-config pollution the
+    # counter delta below scopes away for the wire side
+    prof = obs_profile.StackProfiler(hz=211)
+    try:
+        # start() inside the try: a raising snapshot/epoch must not
+        # leak a 211 Hz daemon sampler into the rest of the suite
+        prof.start()
+        before = (REGISTRY.snapshot().get("counters") or {})
+        snap = built.run_epoch()
+        metrics = REGISTRY.snapshot()
+        prof.sample_now(force=True)  # even a sub-period epoch samples
+        prof_doc = prof.to_dict()
+    finally:
+        # stop() first — it never raises (a bounded thread join), so
+        # a raising close() cannot leak the 211 Hz sampler either
+        prof.stop()
+        built.close()
+    # attribute() reads wire-side counters (objstore/pagestore) from
+    # the snapshot — delta them across THIS epoch so an earlier
+    # config's remote traffic (config 11 in a full-suite run) cannot
+    # flip a purely local epoch's verdict to wire-bound
+    metrics = dict(metrics)
+    metrics["counters"] = {
+        k: (v - before[k] if isinstance(v, (int, float))
+            and isinstance(before.get(k), (int, float)) else v)
+        for k, v in (metrics.get("counters") or {}).items()}
+    verdict = obs_analyze.attribute(snap, metrics=metrics,
+                                    profile_doc=prof_doc)
+    assert sorted(verdict) == sorted(obs_analyze.VERDICT_KEYS), \
+        f"verdict drifted from VERDICT_KEYS: {sorted(verdict)}"
+    assert verdict["bound"] in obs_analyze.BOUNDS, verdict["bound"]
+    assert verdict["evidence"], "empty evidence"
+    assert verdict["stage_waits"]["stages"], "no per-stage waits"
+    # the profiler ran for the whole epoch: the verdict must carry
+    # function-level hot_frames evidence, schema-valid and weighted
+    assert verdict["hot_frames"], \
+        "no hot_frames from the sampling profiler"
+    for hf in verdict["hot_frames"]:
+        assert sorted(hf) == ["frac", "frame", "samples"], hf
+        assert hf["samples"] > 0 and 0.0 <= hf["frac"] <= 1.0, hf
+    sw = verdict["stage_waits"]
+    if verdict["bound"] in ("parse", "assemble", "xfer"):
+        key = {"parse": "parse_s", "assemble": "assemble_s",
+               "xfer": "xfer_s"}[verdict["bound"]]
+        assert sw[key] > 0, \
+            f"bound={verdict['bound']} with zero {key} measured"
+    return {"config": "analyze", "gbps": size / snap["wall_s"] / 1e9,
+            "bytes": size, "rows": snap["stages"][0]["rows"],
+            "wall_s": snap["wall_s"], "analysis": verdict}
+
+
+def bench_control(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 16: the verdict-driven control plane's
+    acceptance probe. A parse-bound pipeline (criteo-shaped corpus,
+    parse → padded batch, trivially fast consumer) runs several epochs
+    under a :class:`dmlc_tpu_torch.obs.control.Controller` whose parse
+    family owns a REAL shard-count knob (the setter rebuilds the
+    pipeline with ``parse(shards=N)`` between epochs — the native
+    sharded single-file parse). Acceptance: the
+    verdict attributes the epochs parse-bound, the controller RAISES
+    the shard count against it (native engine; the python golden has
+    no shard headroom and must produce an honest no-op instead),
+    every decision is present and schema-valid in the ledger
+    (RECORD_KEYS), and reverted trials stay within the revert budget
+    — the rail's guarantee that measured throughput never silently
+    regresses past it."""
+    from dmlc_tpu_torch import native
+    from dmlc_tpu_torch.obs import control as obs_control
+    from dmlc_tpu_torch.pipeline import Pipeline
+
+    path = _criteo(_prefix(work), mb)
+    size = os.path.getsize(path)
+    rows = 8 << 10
+    nnz_bucket = rows * 45
+    have_native = native.native_available()
+    state = {"shards": 1, "built": None}
+
+    def build():
+        kw = {"shards": state["shards"]} if state["shards"] > 1 else {}
+        return (Pipeline.from_uri(path)
+                .parse(format="libsvm",
+                       engine="native" if have_native else "python",
+                       **kw)
+                .batch(rows, pad=True, nnz_bucket=nnz_bucket)
+                .build())
+
+    def set_shards(n: int) -> None:
+        if n != state["shards"]:
+            state["shards"] = n
+            state["built"].close()
+            state["built"] = build()
+
+    state["built"] = build()
+    knob = obs_control.ControlKnob(
+        "parse.shards", "parse",
+        get=lambda: state["shards"], set=set_shards,
+        lo=1, hi=2 if have_native else 1)
+    # one mover per process: a suite-wide DMLC_TPU_CONTROL controller
+    # would adopt the probe pipeline and trial ITS knobs mid-probe,
+    # perturbing the walls this probe's own rail judges — suspend it
+    # BEFORE building the probe controller (so the probe owns the
+    # "control" collector name too), reinstall after
+    suspended = obs_control.detach()
+    ctl = obs_control.Controller([knob], revert_budget=1)
+    walls: List[float] = []
+    try:
+        for _ in range(5):
+            snap = state["built"].run_epoch()
+            walls.append(snap["wall_s"])
+            ctl.observe(snap)
+        records = ctl.ledger.records()
+        doc = ctl.to_dict()
+    finally:
+        state["built"].close()
+        ctl.close()
+        if suspended is not None:
+            obs_control.install(suspended)
+    assert records, "controller made no decisions over 5 epochs"
+    for rec in records:
+        assert sorted(rec) == sorted(obs_control.RECORD_KEYS), \
+            f"ledger record drifted from RECORD_KEYS: {sorted(rec)}"
+        assert rec["verdict_id"], "decision without a citable verdict"
+        assert rec["evidence"], "decision without measured evidence"
+    bounds = [r["bound"] for r in records]
+    assert "parse" in bounds, \
+        f"epochs never attributed parse-bound: {bounds}"
+    trials = [r for r in records if r["outcome"] == "trial"]
+    reverts = [r for r in records if r["outcome"] == "reverted"]
+    assert len(reverts) <= 1, \
+        f"{len(reverts)} reverts exceed the revert budget of 1"
+    if have_native:
+        # the observe→act acceptance: a parse-bound verdict RAISED the
+        # shard count (a later revert is legal — the rail's job — but
+        # the move must have been made and the knob must equal what
+        # the ledger says it should)
+        assert any(t["knob"] == "parse.shards" and t["new"] > t["old"]
+                   for t in trials), f"shards never raised: {records}"
+    else:
+        assert not trials, "python engine has no shard headroom"
+    expected = knob.initial
+    for r in records:
+        if r["knob"] == "parse.shards" and r["outcome"] == "trial":
+            expected = r["new"]
+        elif r["knob"] == "parse.shards" and r["outcome"] in (
+                "reverted", "discarded"):
+            expected = r["old"]  # the move was undone: back at old
+    assert state["shards"] == expected, \
+        (f"knob value {state['shards']} disagrees with the ledger's "
+         f"account {expected}")
+    return {"config": "control", "gbps": size / min(walls) / 1e9,
+            "bytes": size, "epochs": len(walls),
+            "epoch_walls": [round(w, 3) for w in walls],
+            "shards_final": state["shards"],
+            "decisions": len(records),
+            "trials": len(trials), "reverted": len(reverts),
+            "counts": doc["counts"],
+            "ledger": records[-8:]}
+
+
+def bench_multi_tenant(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 19: the multi-tenant scheduler's acceptance probe. THREE
+    adversarial tenants share ONE process under an installed
+    :class:`dmlc_tpu_torch.pipeline.PipelineScheduler` —
+    ``parse_heavy`` (a native fused-padded parse looping epochs over
+    the big corpus, CPU-saturating), ``wire_heavy`` (an ``obj://``
+    epoch through the emulator's modeled wire, re-hydrated cold every
+    epoch), and ``idle`` (a small-corpus tenant pulling sparsely —
+    the interactive victim whose p99 batch latency is the metric).
+
+    The victim's per-batch latency (scheduler acquire + pull, the
+    tenant-experienced number) is measured in ALTERNATING segments —
+    alone / contended / alone / contended ... — and the isolation
+    ratio is judged on the QUIETEST adjacent pair (the timing-gate
+    statistic: a pair shares one credit climate, so the host's
+    burstable-credit swings do not masquerade as scheduler failure).
+    Asserted: contended p99 <= ISOLATION_BOUND x the alone p99 of the
+    same pair, the noisy tenants actually hit credit waits (the
+    throttle engaged, the comparison is not vacuous), and every
+    tenant's accounting rows come back on the shared ``/tenants``
+    shape. All three tenants' pull spans land on ONE process timeline
+    (threads named ``tenant/<name>``) when a trace recorder is on."""
+    import hashlib
+    import threading
+
+    import dmlc_tpu_torch.io.objstore as objstore
+    from dmlc_tpu_torch.io.pagestore import PageStore
+    from dmlc_tpu_torch.obs.metrics import REGISTRY
+    from dmlc_tpu_torch.pipeline import Pipeline
+    from dmlc_tpu_torch.pipeline import scheduler as sched_mod
+
+    ISOLATION_BOUND = 1.5
+    SEGMENTS = 3          # alone/contended pairs
+    VICTIM_EPOCHS = 3     # victim epochs per segment
+
+    tmp = _prefix(work)
+    big = f"{tmp}.mt.noisy.libsvm"
+    small = f"{tmp}.mt.idle.libsvm"
+    wire_src = f"{tmp}.mt.wire.libsvm"
+    big_size = make_libsvm(big, max(mb, 16), seed=19)
+    small_size = make_libsvm(small, 2, seed=20)
+    make_libsvm(wire_src, 4, seed=21)
+    wire_uri = "obj://bench/mt/feed.libsvm"
+    em = objstore.configure(root=f"{tmp}.mt.objroot", latency_s=0.002,
+                            bandwidth_gbps=2.0)
+    em.put_file("bench", "mt/feed.libsvm", wire_src)
+    store = PageStore.default()
+
+    # install() is idempotent — an installed scheduler (a caller's, or
+    # DMLC_TPU_SCHED's) keeps its place, and registering tenants on
+    # an orphaned local instance would leave Pipeline.build(tenant=)
+    # resolving a scheduler that knows none of them. This config owns
+    # the probe: displace any installed scheduler for the run.
+    sched_mod.uninstall()
+    sched = sched_mod.PipelineScheduler(quantum=2.0, burst=2.0,
+                                        queue_budget=24)
+    assert sched_mod.install(sched) is sched
+    stop = threading.Event()
+    errors: List[str] = []
+    try:
+        # the idle tenant is PROVISIONED past its offered load: a
+        # latency-sensitive tenant whose per-round share covers its
+        # whole sparse burst never goes broke mid-burst, so its p99
+        # sees only CPU contention, never a peer's quantum (DRR blocks
+        # only tenants that exhausted their own share). The slack
+        # costs nothing — work conservation hands the noisy pair the
+        # whole box whenever the victim sleeps.
+        sched.register_tenant("idle", weight=16.0, max_pipelines=2)
+        sched.register_tenant("parse_heavy", weight=1.0)
+        sched.register_tenant("wire_heavy", weight=1.0)
+        preempt0 = {name: REGISTRY.counter(
+            f"tenant.{name}.preempt_waits").value
+            for name in sched.tenants()}
+
+        victim = (Pipeline.from_uri(small)
+                  .parse(format="libsvm", nthreads=1)
+                  .batch(2048)
+                  .build(tenant="idle"))
+        # modest noisy batches: the DRR grant grain IS the batch, so
+        # a 10 ms noisy batch would hold a 200 us victim pull behind
+        # it — scheduling granularity, not a scheduler failure
+        noisy = (Pipeline.from_uri(big)
+                 .parse(format="libsvm", nthreads=1)
+                 .batch(1024, pad=True, nnz_bucket=1024 * 64)
+                 .build(tenant="parse_heavy"))
+        wire = (Pipeline.from_uri(wire_uri)
+                .parse(format="libsvm")
+                .batch(4096)
+                .build(tenant="wire_heavy"))
+
+        def noisy_loop():
+            try:
+                while not stop.is_set():
+                    for _ in noisy:
+                        if stop.is_set():
+                            break
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"parse_heavy: {e!r}")
+
+        def wire_loop():
+            try:
+                while not stop.is_set():
+                    # re-cold every epoch: drop the hydrated
+                    # generation so the tenant stays ON the wire
+                    if os.path.isdir(store.root):
+                        for name in os.listdir(store.root):
+                            if name.startswith("obj-"):
+                                store.delete(name)
+                    for _ in wire:
+                        if stop.is_set():
+                            break
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"wire_heavy: {e!r}")
+
+        def victim_pass() -> List[float]:
+            lat: List[float] = []
+            for _ in range(VICTIM_EPOCHS):
+                it = iter(victim)
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(it, None)
+                    if batch is None:
+                        break
+                    lat.append(time.perf_counter() - t0)
+                    time.sleep(0.002)  # the idle tenant IS idle
+            return lat
+
+        # clock starts BEFORE the warm hash pass: its batches bill
+        # the idle tenant's counters, and the headline gbps must
+        # divide billed bytes by the wall that produced them
+        t_run0 = time.perf_counter()
+        h = hashlib.sha256()
+        for b in victim:
+            h.update(b.content_hash().encode())
+        victim_hash = h.hexdigest()
+        pairs: List[Dict] = []
+        threads = [
+            threading.Thread(target=noisy_loop, daemon=True,
+                             name="tenant/parse_heavy"),
+            threading.Thread(target=wire_loop, daemon=True,
+                             name="tenant/wire_heavy")]
+        # the saturator threads run for the whole campaign; the ALONE
+        # segments quiesce them through the scheduler's own admission
+        # surface (pause blocks their next acquire — within one
+        # in-flight batch the box is the victim's)
+        sched.pause("parse_heavy")
+        sched.pause("wire_heavy")
+        for t in threads:
+            t.start()
+        for seg in range(SEGMENTS):
+            time.sleep(0.3)  # drain the noisy tenants' in-flight batch
+            alone = victim_pass()
+            sched.resume("parse_heavy")
+            sched.resume("wire_heavy")
+            time.sleep(0.5)  # let the saturators reach steady state
+            contended = victim_pass()
+            sched.pause("parse_heavy")
+            sched.pause("wire_heavy")
+            pairs.append({
+                "alone_p99_s": round(
+                    float(np.percentile(alone, 99)), 5),
+                "contended_p99_s": round(
+                    float(np.percentile(contended, 99)), 5),
+                "alone_batches": len(alone),
+                "contended_batches": len(contended)})
+        stop.set()
+        # resume BEFORE joining: a paused tenant's thread is blocked
+        # inside acquire() and would never see the stop flag
+        sched.resume("parse_heavy")
+        sched.resume("wire_heavy")
+        for t in threads:
+            t.join(timeout=60)
+        assert all(not t.is_alive() for t in threads), \
+            "noisy tenant threads failed to quiesce"
+        assert not errors, f"noisy tenants failed: {errors}"
+
+        for p in pairs:
+            p["ratio"] = round(
+                p["contended_p99_s"] / max(p["alone_p99_s"], 1e-9), 3)
+        best = min(pairs, key=lambda p: p["ratio"])
+        rows = sched.to_dict()
+        tenants = rows["tenants"]
+        # the comparison is only meaningful if the throttle ENGAGED:
+        # a contended phase where no saturator ever hit a credit wall
+        # measured coexistence, not scheduling
+        throttled = (tenants["parse_heavy"]["credit_waits"]
+                     + tenants["wire_heavy"]["credit_waits"])
+        assert throttled > 0, \
+            "no noisy tenant ever blocked on credits — the scheduler " \
+            "never actually arbitrated this run"
+        assert best["ratio"] <= ISOLATION_BOUND, \
+            (f"isolation broken: victim p99 degraded "
+             f"{best['ratio']}x under load on every pair "
+             f"(bound {ISOLATION_BOUND}x): {pairs}")
+        # byte-parity: the victim's stream under contention is the
+        # same stream (scheduling must never reorder or drop)
+        h = hashlib.sha256()
+        for b in victim:
+            h.update(b.content_hash().encode())
+        assert h.hexdigest() == victim_hash, \
+            "victim stream changed under contention"
+        processed = sum(t["bytes"] for t in tenants.values())
+        wall = time.perf_counter() - t_run0
+        victim.close()
+        noisy.close()
+        wire.close()
+        return {
+            "config": "multi_tenant", "bytes": processed,
+            # headline: aggregate tenant-billed bytes over the whole
+            # contention run — the shared-process throughput all three
+            # tenants extracted together
+            "gbps": round(processed / wall / 1e9, 4),
+            "wall_s": round(wall, 3),
+            "isolation_ratio": best["ratio"],
+            "isolation_bound": ISOLATION_BOUND,
+            "pairs": pairs,
+            "noisy_credit_waits": throttled,
+            "rounds": rows["rounds"],
+            "tenants": {
+                name: {k: t.get(k) for k in
+                       ("pulls", "bytes", "credit_waits",
+                        "credit_wait_s", "batch_p50_s", "batch_p99_s",
+                        "queue_share", "pipelines")}
+                for name, t in tenants.items()},
+            # how often a noisy tenant held at a yield point or in
+            # acquire() for the victim's pull in flight
+            "preempt_waits": {
+                name: REGISTRY.counter(f"tenant.{name}.preempt_waits")
+                .value - preempt0[name] for name in tenants},
+            "victim_bytes": small_size,
+            "noisy_bytes": big_size,
+            "hash": victim_hash,
+        }
+    finally:
+        stop.set()
+        sched_mod.uninstall()
+        objstore.configure(None)
+
+
+def bench_slo_burn(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 22: end-to-end burn-rate alerting on a REAL
+    two-tenant run. A latency-sensitive ``victim`` declares its SLO at
+    admission (``add_tenant(slo=...)`` — 50 ms p-batch target, 30 s
+    window, 1% budget) and a ``bully`` tenant then starves it THROUGH
+    the scheduler: the bully is provisioned flush (weight 8, pull rate
+    held under its per-round refill so it never goes broke) which pins
+    the broke victim to clock-paced DRR rounds — each victim pull
+    costs two round periods (~0.2 s), a deterministic 4x violation of
+    its target, not a load-dependent maybe. The arc asserted:
+
+      alone      — attainment healthy, no alert;
+      contended  — the FAST-burn pair (W/6, W/72 windows, 14.4x) fires
+                   within the fast_long horizon and the miss surfaces
+                   as an ``slo``-bound ``fast-burn`` verdict
+                   (obs.analyze shape — what /analyze attaches);
+      recovered  — ``pause("bully")`` returns the box to the victim
+                   and the fast alert CLEARS (the short window is the
+                   reset gate; a fired alert must not latch).
+
+    Attainment/burn per phase, time-to-fire and time-to-clear ride in
+    the JSON. The victim's latency histogram uses the SLO-aware bucket
+    bounds the declaration picked, so the judged counts come from
+    buckets pinned to the target — not log2 luck."""
+    import threading
+
+    from dmlc_tpu_torch.obs import slo as slo_mod
+    from dmlc_tpu_torch.pipeline import Pipeline
+    from dmlc_tpu_torch.pipeline import scheduler as sched_mod
+
+    TARGET_S = 0.05
+    WINDOW_S = 30.0      # fast pair: 5 s / 0.42 s
+    BUDGET = 0.01        # 1% of pulls may miss
+    ALONE_S = 0.8
+    FIRE_TIMEOUT_S = 9.0
+    CLEAR_TIMEOUT_S = 12.0
+
+    tmp = _prefix(work)
+    victim_src = f"{tmp}.slo.victim.libsvm"
+    bully_src = f"{tmp}.slo.bully.libsvm"
+    victim_size = make_libsvm(victim_src, 2, seed=22)
+    bully_size = make_libsvm(bully_src, max(mb, 8), seed=23)
+
+    # this config owns BOTH planes for the run: displace any
+    # env-installed scheduler (config 19's rationale) and any
+    # env-installed SLO engine — the declaration below must land on
+    # THIS scheduler's registry, judged from a clean baseline
+    sched_mod.uninstall()
+    slo_mod.uninstall()
+    sched = sched_mod.PipelineScheduler(quantum=1.0, burst=2.0,
+                                        queue_budget=24)
+    assert sched_mod.install(sched) is sched
+    stop = threading.Event()
+    errors: List[str] = []
+    try:
+        # weight 0.2 caps the victim's pull cost at its burst
+        # allowance (0.4 credits) with a 0.2/round refill: broke under
+        # contention, every pull is TWO clock-paced rounds
+        sched.add_tenant("victim", weight=0.2,
+                         slo={"target_s": TARGET_S, "window_s": WINDOW_S,
+                              "budget": BUDGET})
+        sched.register_tenant("bully", weight=8.0)
+        eng = slo_mod.active()
+        assert eng is not None, "SLO declaration did not install"
+        obj = "tenant.victim"
+        assert obj in eng.objectives()
+
+        victim = (Pipeline.from_uri(victim_src)
+                  .parse(format="libsvm", nthreads=1)
+                  .batch(512)
+                  .build(tenant="victim"))
+        bully = (Pipeline.from_uri(bully_src)
+                 .parse(format="libsvm", nthreads=1)
+                 .batch(1024)
+                 .build(tenant="bully"))
+
+        def bully_loop():
+            try:
+                while not stop.is_set():
+                    for _ in bully:
+                        if stop.is_set():
+                            break
+                        # stay FLUSH: 8 credits/round refill at a
+                        # 0.1 s round period feeds 80 pulls/s — at
+                        # ~40/s the bully never goes broke, so it
+                        # never advances rounds itself (a broke bully
+                        # would refill the victim off-clock and melt
+                        # the deterministic starvation)
+                        time.sleep(0.025)
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"bully: {e!r}")
+
+        def row() -> Dict:
+            return eng.view()["objectives"][obj]
+
+        def victim_until(pred, timeout_s: float) -> float:
+            """Pull victim batches (judging each via a fresh engine
+            sample) until pred(row) or timeout; returns elapsed."""
+            t0 = time.perf_counter()
+            it = iter(victim)
+            while time.perf_counter() - t0 < timeout_s:
+                if next(it, None) is None:
+                    it = iter(victim)
+                    continue
+                if pred(row()):
+                    break
+                time.sleep(0.02)  # the victim IS latency-sensitive
+            return time.perf_counter() - t0
+
+        t_run0 = time.perf_counter()
+        bt = threading.Thread(target=bully_loop, daemon=True,
+                              name="tenant/bully")
+        sched.pause("bully")
+        bt.start()
+
+        # --- alone: the declaration judges a healthy tenant
+        victim_until(lambda r: False, ALONE_S)
+        alone = row()
+        assert not alone["alerts"]["fast"], \
+            f"fast-burn fired with the box idle: {alone}"
+        assert alone["attainment"] is not None \
+            and alone["attainment"] >= 0.9, \
+            f"victim unhealthy ALONE (is the box overloaded?): {alone}"
+
+        # --- contended: starve through the scheduler until the fast
+        # pair fires (both windows >= 14.4x burn)
+        sched.resume("bully")
+        fire_s = victim_until(lambda r: r["alerts"]["fast"],
+                              FIRE_TIMEOUT_S)
+        contended = row()
+        assert contended["alerts"]["fast"], \
+            (f"fast-burn never fired after {FIRE_TIMEOUT_S}s of "
+             f"deterministic starvation: {contended}")
+        verdicts = eng.verdicts()
+        bands = [v["band"] for v in verdicts
+                 if v["bound"] == "slo" and v["tenant"] == "victim"]
+        assert "fast-burn" in bands, \
+            f"firing alert produced no fast-burn verdict: {verdicts}"
+
+        # --- recovered: pause the bully; the short window resets the
+        # alert (assert FAST specifically — slow may linger while the
+        # 30 s long window drains, by design)
+        sched.pause("bully")
+        clear_s = victim_until(lambda r: not r["alerts"]["fast"],
+                               CLEAR_TIMEOUT_S)
+        recovered = row()
+        assert not recovered["alerts"]["fast"], \
+            (f"fast-burn LATCHED {CLEAR_TIMEOUT_S}s after the "
+             f"contention ended: {recovered}")
+
+        stop.set()
+        # resume BEFORE joining: a paused tenant's thread is blocked
+        # inside acquire() and would never see the stop flag
+        sched.resume("bully")
+        bt.join(timeout=60)
+        assert not bt.is_alive(), "bully thread failed to quiesce"
+        assert not errors, f"bully failed: {errors}"
+
+        rows = sched.to_dict()["tenants"]
+        assert rows["victim"].get("slo"), \
+            "declared SLO missing from the /tenants row"
+        processed = sum(t["bytes"] for t in rows.values())
+        wall = time.perf_counter() - t_run0
+        victim.close()
+        bully.close()
+
+        def _phase(r: Dict) -> Dict:
+            return {"attainment": r["attainment"],
+                    "budget_remaining": r["budget_remaining"],
+                    "fast_long_burn":
+                        r["windows"]["fast_long"]["burn"],
+                    "fast_short_burn":
+                        r["windows"]["fast_short"]["burn"],
+                    "alerts": r["alerts"]}
+        return {
+            "config": "slo_burn", "bytes": processed,
+            # headline: both tenants' billed bytes over the whole
+            # alone/contended/recovered arc — context, not the point
+            "gbps": round(processed / wall / 1e9, 4),
+            "wall_s": round(wall, 3),
+            "slo": {"target_s": TARGET_S, "window_s": WINDOW_S,
+                    "budget": BUDGET},
+            "alone": _phase(alone),
+            "contended": _phase(contended),
+            "recovered": _phase(recovered),
+            "fire_s": round(fire_s, 3),
+            "clear_s": round(clear_s, 3),
+            "verdict_bands": bands,
+            "tenants": {
+                name: {k: t.get(k) for k in
+                       ("pulls", "bytes", "credit_waits",
+                        "credit_wait_s", "batch_p99_s", "slo")}
+                for name, t in rows.items()},
+            "victim_bytes": victim_size,
+            "bully_bytes": bully_size,
+        }
+    finally:
+        stop.set()
+        slo_mod.uninstall()
+        sched_mod.uninstall()
+
+
 CONFIGS = {
     1: ("libsvm", lambda mb: bench_libsvm(mb)),
     2: ("csv", lambda mb: bench_csv(mb)),
@@ -1827,12 +2481,16 @@ CONFIGS = {
     8: ("page_replay", lambda mb: bench_page_replay(mb)),
     10: ("spill_replay", lambda mb: bench_spill_replay(mb)),
     11: ("remote_hydrate", lambda mb: bench_remote_hydrate(mb)),
+    13: ("analyze", lambda mb: bench_analyze(mb)),
     14: ("recio_native", lambda mb: bench_recio_native(mb)),
     15: ("peer_hydrate", lambda mb: bench_peer_hydrate(mb)),
+    16: ("control", lambda mb: bench_control(mb)),
     17: ("parquet_native", lambda mb: bench_parquet_native(mb)),
     18: ("image_record", lambda mb: bench_image_record(mb)),
+    19: ("multi_tenant", lambda mb: bench_multi_tenant(mb)),
     20: ("elastic_reshard", lambda mb: bench_elastic_reshard(mb)),
     21: ("ckpt_restore_fanout", lambda mb: bench_ckpt_restore_fanout(mb)),
+    22: ("slo_burn", lambda mb: bench_slo_burn(mb)),
     23: ("global_shuffle", lambda mb: bench_global_shuffle(mb)),
 }
 

@@ -25,6 +25,7 @@ from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
 from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.io.input_split import InputSplit
 from dmlc_tpu_torch.io.uri_spec import URISpec
+from dmlc_tpu_torch.utils.concurrency import YieldingRecords, yield_hook
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 from dmlc_tpu_torch.utils.registry import Registry
 
@@ -194,8 +195,14 @@ class TextParserBase(Parser):
                  else self._split.next_chunk())
         while chunk is not None:
             container = RowBlockContainer(self.index_dtype)
-            self.parse_block(list(self._split.extract_records(chunk)),
-                             container)
+            records = list(self._split.extract_records(chunk))
+            # a chunk is seconds of GIL-holding Python: under a tenant
+            # the loop reaches the scheduler's yield point every few
+            # records (utils.concurrency), never mid-record
+            hook = yield_hook()
+            if hook is not None:
+                records = YieldingRecords(records, hook)
+            self.parse_block(records, container)
             if container.size > 0:
                 self._block = container.get_block()
                 return True

@@ -15,9 +15,11 @@ follows ``dmlc_tpu_torch.obs.trace``.
 
 Each parser and record-reader handle registers its engine counters with
 the obs metrics registry (``native/<format>``, ``native/recordio``)
-until ``destroy()``, as the reference's do. Trimmed from
-``dmlc_tpu/native/bindings.py``: the engine's profiler beacons, the
-float-parse probe and the test hooks.
+until ``destroy()``, as the reference's do. The engine's phase beacons
+(``prof_read``, ``dtp_parser_set_shard`` on a sharded parser's subs)
+feed the sampling profiler's ``native:*`` leaves (``obs/profile.py``).
+Trimmed from ``dmlc_tpu/native/bindings.py``: the float-parse probe and
+the test hooks.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ __all__ = ["load", "BlockLease", "NativeTextParser", "NativeLibSVMParser",
            "NativeCSVParser", "NativeLibFMParser", "NativeDenseRecordParser",
            "NativeImageRecordParser", "NativeParquetParser",
            "NativeShardedTextParser", "NativeRecordIOReader",
-           "NativeIndexedRecordIOReader", "columns_interleave"]
+           "NativeIndexedRecordIOReader", "columns_interleave",
+           "prof_read"]
 
 _lib = None
 
@@ -164,6 +167,10 @@ def load(path: str):
     lib.dtp_parser_trace_drain.restype = C.c_int64
     lib.dtp_parser_trace_drain.argtypes = [
         C.c_void_p, C.POINTER(C.c_int64), C.c_int64]
+    lib.dtp_prof_read.restype = C.c_int64
+    lib.dtp_prof_read.argtypes = [C.POINTER(C.c_int64), C.c_int64]
+    lib.dtp_parser_set_shard.restype = None
+    lib.dtp_parser_set_shard.argtypes = [C.c_void_p, C.c_int32]
     _lib = lib
     # the tracing global may already be on when the engine loads late
     # (obs.trace only mirrors into an ALREADY-loaded lib)
@@ -175,6 +182,26 @@ def load(path: str):
 def _get_lib():
     from dmlc_tpu_torch.native import get_lib
     return get_lib()
+
+
+_PROF_MAX_SLOTS = 256  # engine.cc kProfSlots
+
+
+def prof_read(max_slots: int = _PROF_MAX_SLOTS):
+    """Snapshot the engine's phase beacons: one ``(kind, index, phase,
+    shard)`` tuple per live engine pipeline thread (kind 1 = shard
+    reader, 2 = parse worker, 3 = padded consumer; phase per engine.cc
+    ProfPhase, 0 = idle; shard -1 when the parser is not a sharded sub).
+    Returns ``[]`` when the engine library is not loaded — callers
+    (obs/profile.py's sampler) must never trigger a native build/load
+    just to profile."""
+    if _lib is None:
+        return []
+    n_slots = max(1, min(int(max_slots), _PROF_MAX_SLOTS))
+    buf = (C.c_int64 * (4 * n_slots))()
+    n = int(_lib.dtp_prof_read(buf, n_slots))
+    return [(buf[4 * i], buf[4 * i + 1], buf[4 * i + 2],
+             buf[4 * i + 3]) for i in range(n)]
 
 
 def _local_split_files(uri: str):
@@ -802,6 +829,12 @@ class NativeShardedTextParser(Parser):
             cls(uri, j, self.shards, index_dtype=index_dtype,
                 nthreads=per, chunk_size=chunk_size, **dict(kwargs))
             for j in range(self.shards)]
+        for j, p in enumerate(self._subs):
+            # tag each sub's phase beacons with its shard, so the
+            # sampling profiler's native labels carry which shard a
+            # worker belongs to (set BEFORE any pipeline start —
+            # StartPipeline stamps the slots)
+            p._lib.dtp_parser_set_shard(p._handle, j)
         self._cur = 0
         self._started = False
         self._block: Optional[RowBlock] = None

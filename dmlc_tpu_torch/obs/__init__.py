@@ -1,6 +1,6 @@
-"""dmlc_tpu_torch.obs — tracing, metrics and the warn channel.
+"""dmlc_tpu_torch.obs — unified observability: tracing, metrics, watchdog.
 
-Counterpart of ``dmlc_tpu/obs``; the ported part of it:
+Counterpart of ``dmlc_tpu/obs``, every module of it:
 
 - :mod:`~dmlc_tpu_torch.obs.trace` — thread-aware span/instant/counter
   ring buffer, near-zero cost when off; the port's ONE span API (the
@@ -25,22 +25,36 @@ Counterpart of ``dmlc_tpu/obs``; the ported part of it:
   table (the ``rpc`` collector);
 - :mod:`~dmlc_tpu_torch.obs.serve` — the LIVE plane: per-rank in-process
   HTTP status server (/metrics Prometheus exposition, /metrics.json,
-  /healthz, /stacks, /trace, /rpc, /gang's membership section, and
-  /pages, the objstore peer tier's data plane), ``scrape`` and
-  ``scrape_gang`` (the ``obs.scrape`` retry site).
-
-Not ported yet, each waiting for its own slice: the time series
-(``timeseries``; the watchdog and the flight recorder read its ring
-lazily, so their ``history`` stays empty), gang aggregation
-(``aggregate``), the control plane (``control``), SLOs (``slo``), the
-sampling profiler and its renderers (``profile``), the bottleneck
-analysis (``analyze``); their status-server endpoints answer 404
-naming the plane.
+  /healthz, /stacks, /trace, /rpc, /history, /gang, /tenants, /slo,
+  /analyze, /control, /profile, /shuffle, and /pages, the objstore peer
+  tier's data plane), ``scrape`` and ``scrape_gang`` (the ``obs.scrape``
+  retry site);
+- :mod:`~dmlc_tpu_torch.obs.timeseries` — the ANALYSIS substrate: a
+  bounded, downsampling ring of periodic metric samples shared by
+  /history, stall reports, and crash bundles;
+- :mod:`~dmlc_tpu_torch.obs.aggregate` — rank-0 gang aggregation onto
+  one wall-anchored timeline (per-rank series, rollups, explicit
+  unreachable-rank gaps; served at /gang);
+- :mod:`~dmlc_tpu_torch.obs.analyze` — bottleneck attribution (the
+  structured bound verdict /analyze serves) and band-aware
+  BENCH-to-BENCH regression comparison;
+- :mod:`~dmlc_tpu_torch.obs.profile` — the continuous sampling profiler:
+  merged Python+native flamegraphs (sys._current_frames + the engine's
+  phase beacons) in a byte-budgeted coarsening trie, served at
+  /profile, attached to stall reports and crash bundles, and the
+  ``hot_frames`` evidence in the analyze verdict;
+- :mod:`~dmlc_tpu_torch.obs.slo` and :mod:`~dmlc_tpu_torch.obs.control`
+  — declared objectives with burn alerts, and the verdict-driven
+  controller with its decision ledger.
 """
 
+from dmlc_tpu_torch.obs.aggregate import GangAggregator
+from dmlc_tpu_torch.obs.analyze import attribute, compare, gauge_band
 from dmlc_tpu_torch.obs.export import (
     chrome_events, merge_chrome_files, write_chrome,
 )
+from dmlc_tpu_torch.obs.profile import FrameTrie, StackProfiler
+from dmlc_tpu_torch.obs.timeseries import TimeSeriesRing
 from dmlc_tpu_torch.obs.log import warn_limited, warn_once
 from dmlc_tpu_torch.obs.metrics import (
     METRICS_SCHEMA, REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
@@ -64,4 +78,7 @@ __all__ = [
     "merge_snapshots", "METRICS_SCHEMA",
     "warn_once", "warn_limited", "Watchdog", "FlightRecorder",
     "StatusServer", "serve", "render_prometheus", "scrape_gang",
+    "TimeSeriesRing", "GangAggregator",
+    "attribute", "compare", "gauge_band",
+    "StackProfiler", "FrameTrie",
 ]

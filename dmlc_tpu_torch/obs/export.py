@@ -1,7 +1,6 @@
 """Chrome/Perfetto trace-event JSON export + gang-trace merging.
 
-Copy of ``dmlc_tpu/obs/export.py`` up to its sampling-profiler renderers
-(which wait for the port of ``obs/profile.py``). One exporter for every
+Copy of ``dmlc_tpu/obs/export.py``. One exporter for every
 :class:`~dmlc_tpu_torch.obs.trace.TraceRecorder`: ``chrome_events()``
 renders the ring buffer into trace-event dicts (the Trace Event Format's
 required keys — ``ph``/``ts``/``pid``/``tid``/``name``), ``write_chrome()``
@@ -11,10 +10,16 @@ per-worker trace files from a :mod:`dmlc_tpu_torch.parallel.launch` gang
 onto one timeline — events stay distinguishable because every process
 tags its own ``pid`` (and a rank-named process_name metadata track).
 
-The reference's RPC spans carry a trace context (``trace_id-span_id``
-under the ``trace`` arg) that becomes Perfetto flow events; the port
-keeps that rendering (:func:`_trace_id`) though no port module emits
-such spans yet.
+The sampling profiler (:mod:`dmlc_tpu_torch.obs.profile`) exports
+through here too, from the same ``to_dict()`` payload the ``/profile``
+endpoint serves: ``collapsed_lines()``/``write_collapsed()`` render the
+collapsed-stack format (one ``frame;frame;... N`` line per path),
+``speedscope_doc()``/``write_speedscope()`` the sampled-profile JSON
+speedscope loads directly.
+
+RPC spans (``obs.rpc``) carry a trace context (``trace_id-span_id``
+under the ``trace`` arg) that becomes Perfetto flow events
+(:func:`_trace_id`).
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from dmlc_tpu_torch.obs.trace import (CAT_RPC_CLIENT, CAT_RPC_SERVER,
                                       TraceRecorder)
 
 __all__ = ["chrome_events", "write_chrome", "merge_chrome_files",
-           "worker_rank"]
+           "collapsed_lines", "write_collapsed", "speedscope_doc",
+           "write_speedscope", "worker_rank"]
 
 # the span arg that carries an RPC span's serialized trace context
 TRACE_FIELD = "trace"
@@ -156,3 +162,92 @@ def merge_chrome_files(paths: List[str], out_path: str) -> Dict[str, Any]:
         json.dump(merged, f)
     os.replace(tmp, out_path)
     return merged
+
+
+# ------------------------------------------------ profile exports
+
+def _walk_profile(doc: Dict[str, Any]):
+    """Yield (path, weight) for every weighted node of a profile
+    ``to_dict()`` payload — ``path`` is root-first starting at the
+    thread label; folded (coarsened-away) weight rides a synthetic
+    ``[coarsened]`` leaf so no sample weight is ever dropped from an
+    export."""
+    from dmlc_tpu_torch.obs.profile import FOLDED_FRAME
+
+    def _visit(node: Dict[str, Any], path: List[str]):
+        path = path + [node.get("name") or "?"]
+        n = int(node.get("self") or 0)
+        if n:
+            yield path, n
+        folded = int(node.get("folded") or 0)
+        if folded:
+            yield path + [FOLDED_FRAME], folded
+        for child in node.get("children") or []:
+            yield from _visit(child, path)
+
+    for root in (doc.get("threads") or {}).values():
+        yield from _visit(root, [])
+
+
+def collapsed_lines(doc: Dict[str, Any]) -> List[str]:
+    """Profile payload -> collapsed-stack lines
+    (``thread;frame;frame N``), sorted for stable diffs."""
+    return sorted(f"{';'.join(path)} {n}"
+                  for path, n in _walk_profile(doc))
+
+
+def write_collapsed(doc: Dict[str, Any], path: str) -> str:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write("\n".join(collapsed_lines(doc)) + "\n")
+    os.replace(tmp, path)
+    return path
+
+
+def speedscope_doc(doc: Dict[str, Any],
+                   name: str = "dmlc_tpu_torch profile") -> Dict[str, Any]:
+    """Profile payload -> a speedscope "sampled" profile document
+    (shared frame table + per-path sample/weight arrays; the thread
+    label is the root frame, so one flamegraph carries the whole
+    process — Python threads and native phase tracks side by side)."""
+    frames: List[str] = []
+    index: Dict[str, int] = {}
+
+    def fi(frame: str) -> int:
+        i = index.get(frame)
+        if i is None:
+            i = index[frame] = len(frames)
+            frames.append(frame)
+        return i
+
+    samples: List[List[int]] = []
+    weights: List[int] = []
+    for path, n in _walk_profile(doc):
+        samples.append([fi(p) for p in path])
+        weights.append(n)
+    total = sum(weights)
+    return {
+        "$schema": "https://www.speedscope.app/file-format-schema.json",
+        "name": name,
+        "activeProfileIndex": 0,
+        "exporter": "dmlc_tpu_torch.obs",
+        "shared": {"frames": [{"name": f} for f in frames]},
+        "profiles": [{
+            "type": "sampled",
+            "name": name,
+            "unit": "none",
+            "startValue": 0,
+            "endValue": total,
+            "samples": samples,
+            "weights": weights,
+        }],
+    }
+
+
+def write_speedscope(doc: Dict[str, Any], path: str,
+                     name: str = "dmlc_tpu_torch profile") -> str:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(speedscope_doc(doc, name=name), f)
+    os.replace(tmp, path)
+    return path

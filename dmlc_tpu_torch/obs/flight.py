@@ -13,6 +13,12 @@ when the process dies badly:
   ``trace_to``/``start()`` displaces it for the explicit trace's
   duration and ``stop()`` reinstates it — always-on costs one branch
   plus one ring append per event, exactly the tracing-on price;
+- the SHARED time-series ring (:mod:`dmlc_tpu_torch.obs.timeseries`): the
+  recorder installs the process history ring when none is running yet
+  (period ``metrics_interval_s``), so the bundle's ``history.json``
+  shows the minutes BEFORE the crash — the SAME samples a live
+  ``GET /history`` query would have returned, not a private sampler's
+  parallel universe;
 - crash hooks: ``sys.excepthook`` + ``threading.excepthook`` (dump on
   uncaught exceptions), ``faulthandler`` writing fatal-signal stacks
   into the bundle dir (SIGSEGV leaves ``fatal.txt`` even though no
@@ -26,7 +32,8 @@ Bundle layout (one timestamped dir per process under ``out_dir``)::
     flight-20260803-101502-pid4242/
       MANIFEST.json   # reason, time, pid/rank, what else is here
       trace.json      # Chrome/Perfetto export of the active ring
-      metrics.json    # current snapshot (+ the periodic history)
+      metrics.json    # current snapshot + the periodic history
+      history.json    # the shared time-series ring's full dump
       watchdog.json   # live blocked waits + past stall reports
       stacks.txt      # all-thread Python stacks at dump time
       env.json        # argv, python, platform, DMLC_*/CUDA_*/NCCL_*/
@@ -36,17 +43,23 @@ Bundle layout (one timestamped dir per process under ``out_dir``)::
       faults.json     # armed fault plan + injected-fault log (only
                       # when dmlc_tpu_torch.resilience.inject chaos
                       # was on)
+      profile.txt     # sampling profiler's collapsed stacks — forced
+                      # final sample + everything accumulated (only
+                      # when dmlc_tpu_torch.obs.profile is installed)
+      control.json    # the verdict-driven controller's decision
+                      # ledger + knob state (only when
+                      # dmlc_tpu_torch.obs.control is installed)
+      rpc.json        # the RPC edge table: per-(peer, verb) latency
+                      # attribution (only when dmlc_tpu_torch.obs.rpc
+                      # recorded at least one edge)
+      slo.json        # declared SLO objectives judged at dump time:
+                      # attainment, budget remaining, burn alerts
+                      # (only when dmlc_tpu_torch.obs.slo has
+                      # objectives)
 
 A dump reads host state only: it makes no CUDA call, since an injected
 crash dumps from inside ``os._exit``'s caller in a process that holds a
 CUDA context, where a device sync can hang.
-
-The time-series plane (``obs.timeseries``) is not ported: the recorder
-joins a shared ring only when one is installed, imported lazily, so
-``metrics.json``'s ``history`` is empty and ``history.json`` absent
-until that plane lands. Trimmed from the reference: the bundle sections
-of planes the port does not have (``profile.txt``, ``control.json``,
-``rpc.json``, ``slo.json``).
 
 Wiring: ``install()`` / ``uninstall()`` directly, or
 :func:`install_if_env` under ``DMLC_TPU_FLIGHT_DIR`` (set per worker
@@ -78,15 +91,6 @@ ENV_FLIGHT_DIR = "DMLC_TPU_FLIGHT_DIR"
 
 def default_flight_dir() -> str:
     return os.path.join(tempfile.gettempdir(), "dmlc_tpu_torch_flight")
-
-
-def _timeseries():
-    """The time-series plane's module, or None while it is not ported."""
-    try:
-        from dmlc_tpu_torch.obs import timeseries
-    except ImportError:
-        return None
-    return timeseries
 
 
 class FlightRecorder:
@@ -141,8 +145,8 @@ class FlightRecorder:
         # ring, installing one (at this recorder's interval) only when
         # none is running — crash bundles and live /history queries
         # must read the SAME ring
-        _ts = _timeseries()
-        if _ts is not None and _ts.active() is None:
+        from dmlc_tpu_torch.obs import timeseries as _ts
+        if _ts.active() is None:
             self._owned_history = _ts.install(
                 period_s=self.metrics_interval_s)
         self._installed = True
@@ -152,7 +156,7 @@ class FlightRecorder:
         if not self._installed:
             return
         self._installed = False
-        _ts = _timeseries()
+        from dmlc_tpu_torch.obs import timeseries as _ts
         if (self._owned_history is not None
                 and _ts.active() is self._owned_history):
             _ts.uninstall()
@@ -296,8 +300,8 @@ class FlightRecorder:
             # window carries the final state)
             history = None
             try:
-                _ts = _timeseries()
-                ring = _ts.active() if _ts is not None else None
+                from dmlc_tpu_torch.obs import timeseries as _ts
+                ring = _ts.active()
                 if ring is not None:
                     ring.sample_now(force=True)
                     history = ring.to_dict()
@@ -310,6 +314,62 @@ class FlightRecorder:
             })
             if history is not None:
                 _write_json("history.json", history)
+            # the sampling profiler's collapsed stacks (forced sample
+            # first — the period bypass — so even a fresh profiler
+            # carries the dying state): absent when none is installed,
+            # so clean/unprofiled runs leave nothing extra
+            try:
+                from dmlc_tpu_torch.obs import profile as _prof
+                prof_lines = _prof.dump_collapsed()
+            except Exception:  # noqa: BLE001 — optional section
+                prof_lines = None
+            if prof_lines is not None:
+                try:
+                    with open(os.path.join(d, "profile.txt"), "w") as f:
+                        f.write("\n".join(prof_lines) + "\n")
+                    wrote["profile.txt"] = "ok"
+                except Exception as e:  # noqa: BLE001
+                    wrote["profile.txt"] = f"failed: {e!r}"
+            # the control plane's decision ledger: a post-mortem that
+            # says WHICH knob moved on WHAT evidence before the death.
+            # to_dict() runs user knob closures — guarded, because a
+            # raising knob must cost this SECTION, never the bundle
+            try:
+                from dmlc_tpu_torch.obs import control as _control
+                ctl = _control.active()
+                control_doc = (ctl.to_dict() if ctl is not None
+                               else None)
+            except Exception as e:  # noqa: BLE001 — optional section
+                control_doc = None
+                wrote["control.json"] = f"failed: {e!r}"
+            if control_doc is not None:
+                _write_json("control.json", control_doc)
+            # the RPC edge table: who this process was talking to and
+            # where its wire wait went, at the moment of death
+            try:
+                from dmlc_tpu_torch.obs import rpc as _rpc
+                rpc_doc = _rpc.view()
+                if not rpc_doc.get("edges"):
+                    rpc_doc = None
+            except Exception as e:  # noqa: BLE001 — optional section
+                rpc_doc = None
+                wrote["rpc.json"] = f"failed: {e!r}"
+            if rpc_doc is not None:
+                _write_json("rpc.json", rpc_doc)
+            # declared objectives at the moment of death: was the
+            # process keeping its promises when it went down, and
+            # which budget was burning
+            try:
+                from dmlc_tpu_torch.obs import slo as _slo
+                eng = _slo.active()
+                slo_doc = (eng.view()
+                           if eng is not None and eng.objectives()
+                           else None)
+            except Exception as e:  # noqa: BLE001 — optional section
+                slo_doc = None
+                wrote["slo.json"] = f"failed: {e!r}"
+            if slo_doc is not None:
+                _write_json("slo.json", slo_doc)
             try:
                 from dmlc_tpu_torch.resilience import inject as _inject
                 plan = _inject.active()

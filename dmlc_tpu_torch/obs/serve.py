@@ -25,9 +25,35 @@ monitored while it runs; one daemon thread per rank serves:
   active (restoring the flight ring after), or lets an active ring
   accumulate N more seconds, then returns the Chrome trace-event JSON;
 - ``GET /rpc`` — the RPC edge table (:func:`dmlc_tpu_torch.obs.rpc.view`);
-- ``GET /gang`` — the ``membership`` section (roster, ranks, membership
-  epoch) whenever this process has joined a
-  :mod:`dmlc_tpu_torch.rendezvous` gang;
+- ``GET /history[?seconds=N]`` — the shared time-series ring
+  (:mod:`dmlc_tpu_torch.obs.timeseries`): this rank's metric history,
+  optionally trimmed to the trailing N seconds;
+- ``GET /gang[?seconds=N]`` — the gang aggregator's merged view
+  (:mod:`dmlc_tpu_torch.obs.aggregate`, rank 0 / launcher): per-rank
+  series, rollups, explicit unreachable-rank gaps; plus a ``membership``
+  section (roster, ranks, membership epoch) whenever this process has
+  joined a :mod:`dmlc_tpu_torch.rendezvous` gang;
+- ``GET /tenants`` — the multi-tenant scheduler's per-tenant rows
+  (:mod:`dmlc_tpu_torch.pipeline.scheduler`): budget, live pipelines,
+  credits/deficit, queue share and occupancy, batch p50/p99, streaming
+  watermark, last bound verdict (404 with an enable hint until a
+  scheduler is installed, like ``/history``);
+- ``GET /slo`` — declared objectives judged live
+  (:mod:`dmlc_tpu_torch.obs.slo`): per-objective windowed attainment,
+  error-budget remaining, and multi-rate burn alerts (404 with an
+  enable hint until an objective is registered);
+- ``GET /analyze`` — a bottleneck-attribution verdict
+  (:mod:`dmlc_tpu_torch.obs.analyze`) over the last completed pipeline
+  epoch's stage stats + the current registry snapshot; any FIRING
+  SLO alerts ride along as ``slo_verdicts``;
+- ``GET /control[?last=N]`` — the verdict-driven controller's state
+  and decision ledger (:mod:`dmlc_tpu_torch.obs.control`): every knob
+  move, freeze, and no-op with the verdict evidence that caused it (404
+  with an enable hint until a controller is installed);
+- ``GET /profile[?seconds=N&hz=M]`` — the sampling profiler's merged
+  Python+native flamegraph (:mod:`dmlc_tpu_torch.obs.profile`): the
+  continuous trie, or an on-demand burst capture of the next N seconds
+  at M Hz (404 with an enable hint when no profiler is installed);
 - ``GET /pages/<entry>`` — the gang peer DATA plane: serves one
   committed, fingerprint-fresh page-store entry's bytes (``Range:
   bytes=a-b`` honored with a 206) under a refcounted pin, stamping the
@@ -45,14 +71,8 @@ position, coverage, records and bytes by tier), or the reference's 404
 with a hint naming ``global_seed`` when no global shuffle is active in
 this process.
 
-Trimmed from the reference, each answering the reference's 404 JSON
-shape with an ``error`` that names its plane as not ported: ``/history``
-(the time series), ``/tenants`` (the multi-tenant scheduler), ``/slo``,
-``/analyze`` (the bottleneck analysis), ``/control`` and ``/profile``
-(the sampling profiler); ``/gang``
-carries no aggregator view (the gang aggregation plane), only the
-membership section. The ``/pages`` freshness cache belongs to each
-server, not to the module.
+The ``/pages`` freshness cache belongs to each server, not to the
+module.
 
 ``launch_local(serve_ports=[...])`` hands every worker a port via
 ``DMLC_TPU_SERVE_PORT`` (workers opt in with one :func:`serve_if_env`
@@ -79,7 +99,7 @@ from dmlc_tpu_torch.obs.metrics import (
 
 __all__ = ["StatusServer", "serve", "serve_if_env", "shutdown",
            "render_prometheus", "scrape", "scrape_gang",
-           "ENV_SERVE_PORT", "ENV_SERVE_PORTS", "NOT_PORTED"]
+           "ENV_SERVE_PORT", "ENV_SERVE_PORTS"]
 
 # env contract (parallel.launch.launch_local(serve_ports=...) sets both)
 ENV_SERVE_PORT = "DMLC_TPU_SERVE_PORT"    # this worker's port
@@ -98,18 +118,6 @@ MAX_TRACE_CAPTURE_S = 60.0
 # byte. Keyed by (root, name, stamp), so a re-stamped entry is
 # re-judged immediately.
 PAGE_FRESH_TTL_S = 2.0
-
-# the reference's endpoints whose planes the port does not have: each
-# answers 404 with the reference's {"error", "hint"} shape
-NOT_PORTED = {
-    "/history": "the obs time-series plane (obs.timeseries)",
-    "/tenants": "the multi-tenant pipeline scheduler "
-                "(pipeline.scheduler)",
-    "/slo": "the obs SLO plane (obs.slo)",
-    "/analyze": "the obs bottleneck analysis (obs.analyze)",
-    "/control": "the obs control plane (obs.control)",
-    "/profile": "the obs sampling profiler (obs.profile)",
-}
 
 _name_ok = re.compile(r"[^a-z0-9_]")
 
@@ -294,15 +302,6 @@ def _capture_trace(seconds: float) -> Dict[str, Any]:
     }
 
 
-def _not_ported(path: str) -> Dict[str, str]:
-    """The 404 body of an endpoint whose plane the port does not have."""
-    return {"error": f"{path} is not ported to dmlc_tpu_torch "
-                     f"(it waits for {NOT_PORTED[path]})",
-            "hint": "the port serves /metrics, /metrics.json, /healthz, "
-                    "/stacks, /trace, /rpc, /gang, /shuffle and "
-                    "/pages/<entry>"}
-
-
 class _Handler(BaseHTTPRequestHandler):
     """Routes; the owning StatusServer rides on the server object."""
 
@@ -421,29 +420,6 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             store.unpin(name)
 
-    def _serve_gang(self) -> None:
-        """/gang: the membership section of a rendezvous gang (the
-        reference's aggregator view is not ported, so the body is
-        ``{"schema": 0, "membership": ...}``)."""
-        membership = None
-        try:
-            from dmlc_tpu_torch import rendezvous as _rndv
-            cli = _rndv.active()
-            if cli is not None:
-                membership = cli.view()
-        except Exception:  # noqa: BLE001 — membership rows
-            pass           # are additive, never a 500
-        if membership is None:
-            self._send_json(
-                {"error": "no rendezvous membership installed (the gang "
-                          "aggregator is not ported to dmlc_tpu_torch)",
-                 "hint": "join a rendezvous (launch_local("
-                         "rendezvous=True) + dmlc_tpu_torch."
-                         "rendezvous.install_if_env())"},
-                code=404)
-            return
-        self._send_json({"schema": 0, "membership": membership})
-
     def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler contract
         url = urlparse(self.path)
         # bind the inbound trace context (if any): the echo headers and
@@ -469,8 +445,96 @@ class _Handler(BaseHTTPRequestHandler):
                 q = parse_qs(url.query)
                 seconds = float(q.get("seconds", ["1"])[0])
                 self._send_json(_capture_trace(seconds))
+            elif url.path == "/history":
+                from dmlc_tpu_torch.obs import timeseries as _ts
+                ring = _ts.active()
+                if ring is None:
+                    self._send_json(
+                        {"error": "no timeseries ring installed",
+                         "hint": "set DMLC_TPU_HISTORY_S (launch_local"
+                                 "(history_s=...)) or call "
+                                 "obs.timeseries.install()"},
+                        code=404)
+                else:
+                    q = parse_qs(url.query)
+                    raw = q.get("seconds", [None])[0]
+                    last_s = float(raw) if raw else None
+                    self._send_json(ring.to_dict(last_s=last_s))
             elif url.path == "/gang":
-                self._serve_gang()
+                from dmlc_tpu_torch.obs import aggregate as _agg
+                agg = _agg.active()
+                membership = None
+                try:
+                    from dmlc_tpu_torch import rendezvous as _rndv
+                    cli = _rndv.active()
+                    if cli is not None:
+                        membership = cli.view()
+                except Exception:  # noqa: BLE001 — membership rows
+                    pass           # are additive, never a 500
+                if agg is None and membership is None:
+                    self._send_json(
+                        {"error": "no gang aggregator or rendezvous "
+                                  "membership installed",
+                         "hint": "set DMLC_TPU_GANG_POLL_S (launch_"
+                                 "local(gang_poll_s=...)) or join a "
+                                 "rendezvous (launch_local("
+                                 "rendezvous=True) + dmlc_tpu_torch."
+                                 "rendezvous.install_if_env())"},
+                        code=404)
+                else:
+                    if agg is not None:
+                        q = parse_qs(url.query)
+                        raw = q.get("seconds", [None])[0]
+                        last_s = float(raw) if raw else None
+                        body = agg.view(last_s=last_s)
+                    else:
+                        body = {"schema": 0}
+                    if membership is not None:
+                        # the elastic half of the gang story: who is
+                        # in, at which rank, under which membership
+                        # epoch (docs/rendezvous.md)
+                        body["membership"] = membership
+                    self._send_json(body)
+            elif url.path == "/control":
+                from dmlc_tpu_torch.obs import control as _control
+                ctl = _control.active()
+                if ctl is None:
+                    self._send_json(
+                        {"error": "no controller installed",
+                         "hint": "set DMLC_TPU_CONTROL=1 (launch_"
+                                 "local(control=True)) or call "
+                                 "obs.control.install()"},
+                        code=404)
+                else:
+                    q = parse_qs(url.query)
+                    raw = q.get("last", [None])[0]
+                    last = int(raw) if raw else None
+                    self._send_json(ctl.to_dict(last=last))
+            elif url.path == "/tenants":
+                from dmlc_tpu_torch.pipeline import scheduler as _sched
+                sched = _sched.active()
+                if sched is None:
+                    self._send_json(
+                        {"error": "no pipeline scheduler installed",
+                         "hint": "set DMLC_TPU_SCHED=1 (launch_local"
+                                 "(scheduler=True)) or call "
+                                 "pipeline.scheduler.install()"},
+                        code=404)
+                else:
+                    self._send_json(sched.to_dict())
+            elif url.path == "/slo":
+                from dmlc_tpu_torch.obs import slo as _slo
+                eng = _slo.active()
+                if eng is None or not eng.objectives():
+                    self._send_json(
+                        {"error": "no SLO objectives registered",
+                         "hint": "set DMLC_TPU_SLO (launch_local"
+                                 "(slo=...)), declare via "
+                                 "scheduler.add_tenant(slo=...), or "
+                                 "call obs.slo.install().register()"},
+                        code=404)
+                else:
+                    self._send_json(eng.view())
             elif url.path == "/shuffle":
                 from dmlc_tpu_torch import shuffle as _shuffle
                 doc = _shuffle.view()
@@ -484,8 +548,55 @@ class _Handler(BaseHTTPRequestHandler):
                         code=404)
                 else:
                     self._send_json(doc)
-            elif url.path in NOT_PORTED:
-                self._send_json(_not_ported(url.path), code=404)
+            elif url.path == "/analyze":
+                verdict = owner.analyze_verdict()
+                # a burning declared objective rides along: the stage
+                # verdict says WHERE time goes, the slo verdicts say
+                # which promises that breaks (obs.slo)
+                svs = []
+                try:
+                    from dmlc_tpu_torch.obs import slo as _slo
+                    eng = _slo.active()
+                    if eng is not None:
+                        svs = eng.verdicts()
+                except Exception:  # noqa: BLE001
+                    svs = []
+                if verdict is None and not svs:
+                    self._send_json(
+                        {"error": "no pipeline stats to attribute "
+                                  "(no registered pipeline collector "
+                                  "has completed an epoch yet)"},
+                        code=404)
+                elif verdict is None:
+                    self._send_json({"slo_verdicts": svs})
+                else:
+                    if svs:
+                        verdict = dict(verdict)
+                        verdict["slo_verdicts"] = svs
+                    self._send_json(verdict)
+            elif url.path == "/profile":
+                from dmlc_tpu_torch.obs import profile as _prof
+                prof = _prof.active()
+                if prof is None:
+                    self._send_json(
+                        {"error": "no sampling profiler installed",
+                         "hint": "set DMLC_TPU_PROFILE_HZ (launch_"
+                                 "local(profile_hz=...)) or call "
+                                 "obs.profile.install()"},
+                        code=404)
+                else:
+                    q = parse_qs(url.query)
+                    raw_s = q.get("seconds", [None])[0]
+                    raw_hz = q.get("hz", [None])[0]
+                    if raw_s is None:
+                        self._send_json(prof.to_dict())
+                    else:
+                        # the handler thread sleeps for the burst
+                        # window — same clamp as /trace?seconds=N
+                        seconds = max(0.0, min(float(raw_s),
+                                               MAX_TRACE_CAPTURE_S))
+                        hz = float(raw_hz) if raw_hz else None
+                        self._send_json(prof.burst(seconds, hz=hz))
             elif url.path == "/rpc":
                 self._send_json(_rpc.view())
             elif url.path.startswith("/pages/"):
@@ -496,7 +607,13 @@ class _Handler(BaseHTTPRequestHandler):
                                                "/metrics.json",
                                                "/healthz", "/stacks",
                                                "/trace?seconds=N",
-                                               "/gang", "/shuffle",
+                                               "/history", "/gang",
+                                               "/tenants", "/slo",
+                                               "/shuffle",
+                                               "/analyze",
+                                               "/control[?last=N]",
+                                               "/profile?seconds=N"
+                                               "&hz=M",
                                                "/rpc",
                                                "/pages/<entry>"]},
                                 code=404)
@@ -547,6 +664,11 @@ class StatusServer:
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True,
             name="dmlc_tpu_torch.obs.StatusServer")
+        # /analyze wire-counter scoping: (epoch, closing counters of
+        # the PREVIOUS epoch, baseline used for this epoch) — see
+        # analyze_verdict()
+        self._analyze_lock = threading.Lock()
+        self._analyze_prev = None
         self._thread.start()
         # the port is itself telemetry: a merged gang snapshot tells
         # the reader where each rank can be curled
@@ -560,6 +682,45 @@ class StatusServer:
         if self._pages_root is not None:
             return PageStore.at(self._pages_root)
         return PageStore.default()
+
+    def analyze_verdict(self) -> Optional[Dict[str, Any]]:
+        """The /analyze payload: attribute the last completed epoch of
+        the first live pipeline collector. Wire-side counters
+        (objstore/pagestore) are process-cumulative in the registry, so
+        they are DELTA-scoped here against the counters seen when the
+        previous epoch closed — earlier remote work (a cold hydration
+        configs ago) must not flip a purely local epoch's verdict to
+        wire-bound. The very first call has no baseline and reads
+        cumulative counters; within one epoch, repeated polls reuse the
+        same baseline so the verdict is stable."""
+        from dmlc_tpu_torch.obs import analyze as _an
+        snap = self.registry.snapshot()
+        pipeline = next(
+            (v for k, v in sorted(
+                (snap.get("collectors") or {}).items())
+             if k.startswith("pipeline") and v), None)
+        if pipeline is None:
+            return None
+        counters = dict(snap.get("counters") or {})
+        epoch = pipeline.get("epoch")
+        with self._analyze_lock:
+            prev = self._analyze_prev
+            if prev is None:
+                baseline = None
+                self._analyze_prev = (epoch, counters, None)
+            elif epoch != prev[0]:
+                baseline = prev[1]
+                self._analyze_prev = (epoch, counters, baseline)
+            else:
+                baseline = prev[2]
+        if baseline:
+            snap = dict(snap)
+            snap["counters"] = {
+                k: (v - baseline[k] if isinstance(v, (int, float))
+                    and isinstance(baseline.get(k), (int, float))
+                    else v)
+                for k, v in counters.items()}
+        return _an.attribute(pipeline, metrics=snap)
 
     def page_fresh(self, root: str, name: str, fp, judge) -> Optional[bool]:
         """``judge(fp)`` (``pagestore.fingerprint_fresh``), cached for

@@ -13,15 +13,13 @@ the blocked stage(s), how long each has been blocked, the live detail
 each wait carries (queue occupancy/capacity, producer counters, replay
 tier), a full metrics-registry snapshot (spill state, engine stats —
 whatever the process registered), the trailing ``history_s`` of
-time-series samples when a shared ``obs.timeseries`` ring is installed
-(the decay INTO the stall, not just the frozen end state; that plane is
-not ported yet, so ``history`` is empty until it is), and
-``faulthandler`` stacks of every thread. The report lands as JSON at
-``report_path`` (plus a warning through obs.log) and in ``self.reports``
-for tests/tooling.
-
-Trimmed from the reference: the sampling profiler's collapsed stacks
-(``profile`` is always None: ``obs.profile`` is not ported).
+time-series samples when the shared :mod:`dmlc_tpu_torch.obs.timeseries`
+ring is installed (the decay INTO the stall, not just the frozen end
+state), the sampling profiler's collapsed stacks when
+:mod:`dmlc_tpu_torch.obs.profile` is installed (a forced sample first, so
+the report carries the stalling state itself), and ``faulthandler``
+stacks of every thread. The report lands as JSON at ``report_path`` (plus
+a warning through obs.log) and in ``self.reports`` for tests/tooling.
 """
 
 from __future__ import annotations
@@ -246,6 +244,14 @@ class Watchdog:
                 history = ring.last(self.history_s)
         except Exception:  # noqa: BLE001 — diagnostics must not raise
             history = []
+        # the sampling profiler's collapsed stacks (forced sample, the
+        # period bypass): WHERE the process is burning/blocking as it
+        # stalls — None when no profiler is installed
+        try:
+            from dmlc_tpu_torch.obs import profile as _prof
+            prof_lines = _prof.dump_collapsed()
+        except Exception:  # noqa: BLE001 — diagnostics must not raise
+            prof_lines = None
         return {
             "kind": "dmlc_tpu_stall_report",
             "time": time.time(),
@@ -255,7 +261,7 @@ class Watchdog:
             "metrics": metrics,
             "history": history,
             "history_s": self.history_s,
-            "profile": None,
+            "profile": prof_lines,
             "stacks": _thread_stacks(),
         }
 

@@ -43,7 +43,9 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.ops.index import wrap_index
-from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, max_shared_bytes
+from dmlc_tpu_torch.ops.kernels import (
+    INDEX_BYTES, count, launch, max_shared_bytes,
+)
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
@@ -170,7 +172,7 @@ def csr_spmv(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
     y = torch.empty(n, dtype=torch.float32, device=w.device)
     _launch("dmlc_csr_spmv", offset, index, value, w, n,
             w.numel(), y, K1_LANES[csr_spmv_route(index.numel(), n)])
-    csr_spmv.launches += 1
+    count(csr_spmv)
     return y
 
 
@@ -218,7 +220,7 @@ def csr_spmv_t(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
     grad = torch.zeros(num_features, dtype=torch.float32, device=g.device)
     _launch("dmlc_csr_spmv_t", offset, index, value, g, n, num_features,
             grad, K2_BLOCKS_PER_SM * sms if private else 0)
-    csr_spmv_t.launches += 1
+    count(csr_spmv_t)
     return grad
 
 
@@ -362,7 +364,7 @@ def sdot_rows(padded_index: torch.Tensor, padded_value: torch.Tensor,
     launch("dmlc_sdot_rows", w.device, padded_index.data_ptr(),
            INDEX_BYTES[padded_index.dtype], padded_value.data_ptr(),
            w.data_ptr(), n, k, w.numel(), y.data_ptr())
-    sdot_rows.launches += 1
+    count(sdot_rows)
     return y
 
 
@@ -420,7 +422,7 @@ def csr_to_dense(offset: torch.Tensor, index: torch.Tensor,
            index.data_ptr(), INDEX_BYTES[index.dtype], value.data_ptr(),
            num_rows, index.numel(), num_cols, dense.data_ptr(),
            K4_TILE_ROWS if tile else 0)
-    csr_to_dense.launches += 1
+    count(csr_to_dense)
     return dense
 
 

@@ -42,7 +42,9 @@ import torch
 
 from dmlc_tpu_torch.ops.csr import _check_csr, _segment_ids
 from dmlc_tpu_torch.ops.index import clip_field, wrap_index
-from dmlc_tpu_torch.ops.kernels import INDEX_BYTES, launch, max_shared_bytes
+from dmlc_tpu_torch.ops.kernels import (
+    INDEX_BYTES, count, launch, max_shared_bytes,
+)
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["fm_pair", "ffm_pair", "fm_pair_fwd", "fm_pair_bwd",
@@ -183,7 +185,7 @@ def fm_pair_fwd(offset: torch.Tensor, index: torch.Tensor,
            INDEX_BYTES[index.dtype], value.data_ptr(), V.data_ptr(), n,
            index.numel(), F, K, pair.data_ptr(), s.data_ptr(),
            int(fm_route(K, aligned) == "vector"))
-    fm_pair_fwd.launches += 1
+    count(fm_pair_fwd)
     return pair, s
 
 
@@ -202,7 +204,7 @@ def fm_pair_bwd(offset: torch.Tensor, index: torch.Tensor,
            INDEX_BYTES[index.dtype], value.data_ptr(), V.data_ptr(),
            s.data_ptr(), g.data_ptr(), n, index.numel(), F, K,
            gV.data_ptr(), int(fm_route(K, aligned) == "vector"))
-    fm_pair_bwd.launches += 1
+    count(fm_pair_bwd)
     return gV
 
 
@@ -275,7 +277,7 @@ def ffm_pair_fwd(offset: torch.Tensor, index: torch.Tensor,
            field.data_ptr(), V.data_ptr(), n, index.numel(), F, nf, K,
            pair.data_ptr(),
            None if workspace is None else workspace.data_ptr(), blocks)
-    ffm_pair_fwd.launches += 1
+    count(ffm_pair_fwd)
     return pair
 
 
@@ -294,7 +296,7 @@ def ffm_pair_bwd(offset: torch.Tensor, index: torch.Tensor,
            field.data_ptr(), V.data_ptr(), g.data_ptr(), n, index.numel(),
            F, nf, K, gV.data_ptr(),
            None if workspace is None else workspace.data_ptr(), blocks)
-    ffm_pair_bwd.launches += 1
+    count(ffm_pair_bwd)
     return gV
 
 

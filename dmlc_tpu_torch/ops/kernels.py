@@ -4,7 +4,9 @@ One shared library is built from every source under ``csrc/``
 (``native/build.py``, nvcc for ``sm_90a``, at first use) and loaded with
 ctypes. Each C entry point is declared here once, and :func:`launch`
 calls one on the current stream of a tensor's device and raises on the
-CUDA error it returns.
+CUDA error it returns. :func:`count` adds one to a wrapper's launch
+count under a lock, since wrappers launch from more than one thread (two
+tenants training in one process).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from dmlc_tpu_torch.utils.logging import DMLCError
 
-__all__ = ["INDEX_BYTES", "library", "launch", "max_shared_bytes"]
+__all__ = ["INDEX_BYTES", "library", "launch", "count", "max_shared_bytes"]
 
 # The index dtypes the kernels read, by width: the layout's u32/u64, and
 # int32 (csr_to_padded_rows). Under the index rule (csrc/index.cuh) u32 and
@@ -82,6 +84,7 @@ _SIGNATURES = {
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def library():
@@ -107,6 +110,13 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise DMLCError(f"{name} launch failed: CUDA error {err}")
+
+
+def count(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel: ``wrapper.launches += 1``
+    under a lock, so launches from two threads are each counted."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from dmlc_tpu_torch.ops.kernels import launch
+from dmlc_tpu_torch.ops.kernels import count, launch
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["pair_weights_plain", "pair_sums_plain", "pair_sums_grad_plain",
@@ -150,7 +150,7 @@ def pair_sums(margins: torch.Tensor, label: torch.Tensor, qid: torch.Tensor,
            label.data_ptr(), qid.data_ptr(), weight.data_ptr(), n,
            row_sums.data_ptr(), table.data_ptr(), lsum.data_ptr(),
            wsum.data_ptr())
-    pair_sums.launches += 1
+    count(pair_sums)
     return lsum, wsum, table
 
 
@@ -177,7 +177,7 @@ def pair_sums_grad(margins: torch.Tensor, label: torch.Tensor,
     launch("dmlc_pair_sums_bwd", margins.device, margins.data_ptr(),
            label.data_ptr(), qid.data_ptr(), weight.data_ptr(),
            s.contiguous().data_ptr(), n, table.data_ptr(), g.data_ptr())
-    pair_sums_grad.launches += 1
+    count(pair_sums_grad)
     return g
 
 

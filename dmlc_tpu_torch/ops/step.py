@@ -51,11 +51,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from dmlc_tpu_torch.ops.kernels import launch
+from dmlc_tpu_torch.ops.kernels import count, launch
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["stable_bce_on_logits", "logistic_step", "logistic_sums",
@@ -222,7 +223,7 @@ def logistic_step(terms: Sequence[torch.Tensor],
            *_pointers(terms, bias, label, weight), partial.data_ptr(),
            _counter(label.device).data_ptr(), loss.data_ptr(),
            g.data_ptr(), gb.data_ptr(), blocks)
-    logistic_step.launches += 1
+    count(logistic_step)
     return loss, g, gb
 
 
@@ -247,7 +248,7 @@ def logistic_sums(terms: Sequence[torch.Tensor],
     launch("dmlc_logistic_sums", label.device,
            *_pointers(terms, bias, label, weight), partial.data_ptr(),
            _counter(label.device).data_ptr(), total.data_ptr(), blocks)
-    logistic_sums.launches += 1
+    count(logistic_sums)
     return total
 
 
@@ -273,7 +274,7 @@ def logistic_grad(terms: Sequence[torch.Tensor],
            total.contiguous().data_ptr(), loss.data_ptr(), g.data_ptr(),
            partial.data_ptr(), _counter(label.device).data_ptr(),
            gb.data_ptr(), blocks)
-    logistic_grad.launches += 1
+    count(logistic_grad)
     return loss, g, gb
 
 
@@ -283,6 +284,7 @@ def _sms(device: torch.device) -> int:
 
 
 _counters = {}
+_counters_lock = threading.Lock()
 
 
 def _counter(device: torch.device) -> torch.Tensor:
@@ -292,9 +294,11 @@ def _counter(device: torch.device) -> torch.Tensor:
     Launches on one stream never overlap, so they may share it; two
     launches on two streams would mix their counts, so they do not."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    if key not in _counters:
-        _counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _counters[key]
+    with _counters_lock:  # two threads' first launches make one counter
+        if key not in _counters:
+            _counters[key] = torch.zeros(1, dtype=torch.int32,
+                                         device=device)
+        return _counters[key]
 
 
 def sgd_grid(numels: Sequence[int], sms: int) -> int:
@@ -386,7 +390,7 @@ def sgd_update(params: Sequence[torch.Tensor],
            partial.data_ptr() if grid_sum else None,
            _counter(device).data_ptr() if grid_sum else None,
            loss.data_ptr() if accumulate else None, blocks)
-    sgd_update.launches += 1
+    count(sgd_update)
 
 
 logistic_step.launches = 0

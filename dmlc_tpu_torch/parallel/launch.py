@@ -28,17 +28,15 @@ coordinator's address. This module keeps:
   ``rendezvous=True`` starts a membership service for an elastic gang
   (``DMLC_TPU_RNDV_*``); ``num_servers`` adds the parameter-server role
   set (one scheduler and N servers running the same command under
-  ``ps_envs``; the command branches on ``get_role()``);
+  ``ps_envs``; the command branches on ``get_role()``); ``history_s``,
+  ``gang_poll_s``, ``profile_hz``, ``control``, ``scheduler`` and
+  ``slo`` hand the workers the analytic obs planes' env contracts;
 - ``launch_ssh()``, the command lines for bare-metal hosts, and the
   submit CLI ``main`` (the reference's dmlc-submit):
   ``python -m dmlc_tpu_torch.parallel.launch -n 2 [-s 1] -- cmd ...``;
 - the ring/tree topology helpers (``get_ring``, ``get_tree``,
   ``get_link_map``), pure functions kept for API parity;
 - ``find_free_port(s)``.
-
-Trimmed from the reference: every option of ``launch_local`` that waits
-for a plane the port does not have yet (each raises a DMLCError that
-says "not ported" and names the plane).
 """
 
 from __future__ import annotations
@@ -72,17 +70,6 @@ _ALIASES = {
     ENV_COORD: ["DMLC_TRACKER_URI"],
     ENV_NWORKER: ["DMLC_NUM_WORKER"],
     ENV_TASK_ID: ["DMLC_TASK_ID"],
-}
-
-# launch_local options of the reference that wait for a plane the port
-# does not have, each with the plane it waits for
-_NOT_PORTED = {
-    "history_s": "the obs time-series plane",
-    "gang_poll_s": "the obs gang aggregation plane",
-    "profile_hz": "the obs sampling profiler",
-    "control": "the obs control plane",
-    "scheduler": "the multi-tenant pipeline scheduler",
-    "slo": "the obs SLO plane",
 }
 
 
@@ -232,7 +219,12 @@ def launch_local(num_workers: int, command: Sequence[str],
                  serve_ports=None,
                  rendezvous: bool = False,
                  heartbeat_grace_s: Optional[float] = None,
-                 **options) -> List[int]:
+                 history_s: Optional[float] = None,
+                 gang_poll_s: Optional[float] = None,
+                 profile_hz: Optional[float] = None,
+                 control: Optional[bool] = None,
+                 scheduler=None,
+                 slo=None) -> List[int]:
     """Run ``num_workers`` worker processes of ``command`` on this host
     (reference: local.py), each with the env contract of its rank on top
     of this process's environment and ``env``.
@@ -292,6 +284,47 @@ def launch_local(num_workers: int, command: Sequence[str],
     ``heartbeat_grace_s`` tunes the service's silent-member death
     window.
 
+    ``history_s`` hands every worker the time-series contract
+    (``DMLC_TPU_HISTORY_S``): workers that call
+    ``obs.timeseries.install_if_env()`` sample their metrics registry
+    at that period into the shared bounded ring — served live at
+    ``/history``, attached to stall reports and crash bundles.
+
+    ``gang_poll_s`` sets ``DMLC_TPU_GANG_POLL_S`` on RANK 0 ONLY: with
+    ``serve_ports`` also wired, a rank-0 ``obs.aggregate.install_if_env()``
+    call polls every peer's ``/metrics.json`` at that period into one
+    gang timeline (per-rank series + sum/min/max rollups + explicit
+    unreachable gaps), served at rank 0's ``/gang``.
+
+    ``profile_hz`` hands every worker the sampling-profiler contract
+    (``DMLC_TPU_PROFILE_HZ``): workers that call
+    ``obs.profile.install_if_env()`` run the continuous sampler at that
+    rate — merged Python+native flamegraphs served at ``/profile``,
+    attached to stall reports and crash bundles (``profile.txt``), and
+    feeding ``hot_frames`` verdict evidence.
+
+    ``control=True`` hands every worker the verdict-driven control plane
+    (``DMLC_TPU_CONTROL``): workers that call
+    ``obs.control.install_if_env()`` run the between-epoch controller,
+    whose decision ledger is served at ``/control`` and attached to
+    flight bundles as ``control.json``.
+
+    ``scheduler=True`` (or a ``DMLC_TPU_SCHED`` option string such as
+    ``"quantum=4,queue=48"``) hands every worker the multi-tenant
+    pipeline scheduler contract: workers that call
+    ``pipeline.scheduler.install_if_env()`` share their process's queue
+    budgets across tenants (``Pipeline.build(tenant=...)``) with DRR pull
+    credits, admission control, and per-tenant rows at ``/tenants``.
+
+    ``slo=True`` (or a ``DMLC_TPU_SLO`` declaration string such as
+    ``"name=ingest,metric=tenant.ingest.batch_s,target=0.15"``) hands
+    every worker the SLO contract (:mod:`dmlc_tpu_torch.obs.slo`):
+    workers that call ``obs.slo.install_if_env()`` judge declared
+    objectives live at ``/slo``, rolled up gang-wide on rank 0's
+    ``/gang`` and attached to flight bundles as ``slo.json``. Tenants can
+    also declare objectives through the scheduler string
+    (``scheduler="slo.victim=0.15:300:0.01"``).
+
     With ``num_servers > 0`` (reference: dmlc-submit --num-servers +
     PSTracker), the launch also spawns ONE scheduler and
     ``num_servers`` server processes running the same command under the
@@ -306,18 +339,7 @@ def launch_local(num_workers: int, command: Sequence[str],
     Returns the exit codes: workers first in rank order, then the
     scheduler, then the servers. All are 0, except that in an elastic
     rendezvous gang a shrink is NOT a failure and a dead member's
-    nonzero code is returned instead of raised. The reference's other
-    options (``history_s``,
-    ``gang_poll_s``, ``profile_hz``, ``control``, ``scheduler``,
-    ``slo``) raise a DMLCError naming the plane each waits for."""
-    for name, value in options.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(
-                f"launch_local() got an unexpected keyword argument {name!r}")
-        if value not in (None, False, 0):
-            raise DMLCError(
-                f"launch_local({name}=...) is not ported to dmlc_tpu_torch "
-                f"yet (it waits for {_NOT_PORTED[name]})")
+    nonzero code is returned instead of raised."""
     check(num_workers >= 1, "num_workers must be >= 1")
     check(num_servers >= 0, "num_servers must be >= 0")
     if serve_ports is True:
@@ -358,6 +380,12 @@ def launch_local(num_workers: int, command: Sequence[str],
         GangMember, GangSupervisor, RestartPolicy,
     )
     from dmlc_tpu_torch.obs.serve import ENV_SERVE_PORT, ENV_SERVE_PORTS
+    from dmlc_tpu_torch.obs.aggregate import ENV_GANG_POLL_S
+    from dmlc_tpu_torch.obs.control import ENV_CONTROL
+    from dmlc_tpu_torch.obs.profile import ENV_PROFILE_HZ
+    from dmlc_tpu_torch.obs.slo import ENV_SLO
+    from dmlc_tpu_torch.obs.timeseries import ENV_HISTORY_S
+    from dmlc_tpu_torch.pipeline.scheduler import ENV_SCHED
     if isinstance(restart_policy, int):
         restart_policy = RestartPolicy(max_restarts=restart_policy)
     rndv_service = None
@@ -399,6 +427,19 @@ def launch_local(num_workers: int, command: Sequence[str],
             wenv[ENV_SERVE_PORTS] = ",".join(map(str, serve_ports))
         if flight_dir is not None:
             wenv[ENV_FLIGHT_DIR] = flight_dir
+        if history_s is not None:
+            wenv[ENV_HISTORY_S] = str(history_s)
+        if gang_poll_s is not None and task_id == 0:
+            wenv[ENV_GANG_POLL_S] = str(gang_poll_s)
+        if profile_hz is not None:
+            wenv[ENV_PROFILE_HZ] = str(profile_hz)
+        if control:
+            wenv[ENV_CONTROL] = "1"
+        if scheduler:
+            wenv[ENV_SCHED] = (scheduler if isinstance(scheduler, str)
+                               else "1")
+        if slo:
+            wenv[ENV_SLO] = (slo if isinstance(slo, str) else "1")
         if rndv_service is not None:
             from dmlc_tpu_torch.rendezvous import (
                 ENV_RNDV_GANG, ENV_RNDV_PORT, ENV_RNDV_URI,

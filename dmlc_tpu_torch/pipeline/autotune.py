@@ -1,9 +1,9 @@
 """Between-epoch depth autotuning from stage telemetry.
 
 Counterpart of ``dmlc_tpu/pipeline/autotune.py``, copied whole (it has no
-JAX in it). The verdict-driven controller named below
-(``dmlc_tpu.obs.control``) is not ported: here the Autotuner is the only
-mover of a pipeline's knobs.
+JAX in it). An installed verdict-driven controller
+(``dmlc_tpu_torch.obs.control``) adopts a pipeline's knobs on the same
+rails (``ExplorationRail``) and its Autotuner stands down.
 
 Replaces the hard-coded queue depths the hand-wired stacks carried
 (``ThreadedIter(max_capacity=4)``, the bench loop's fixed ``> 4``

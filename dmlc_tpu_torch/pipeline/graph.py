@@ -55,10 +55,18 @@ registry.
 
 Every pull registers with the stall watchdog (``obs.watchdog``) while it
 blocks, with the stage's queue state as its detail, and a raising stage
-leaves no wait behind. Trimmed from the reference: the verdict-driven
-controller (``obs.control``). Not ported yet (each raises a DMLCError that says so):
-``from_stream``, ``to_device(sharding=...)`` and ``build(tenant=...)``;
-``shuffle`` with ``cache`` keeps the reference's own refusal.
+leaves no wait behind. An installed verdict-driven controller
+(``obs.control``) adopts the pipeline's knobs after each complete epoch
+in place of its autotuner.
+
+``Pipeline.from_stream(uri, ...)`` roots a chain on an EOF-less
+:class:`~dmlc_tpu_torch.io.streaming_split.StreamingSplit` under the
+python parse engine, with its watermark in the parse stage's extras;
+``build(tenant=...)`` admits the compiled pipeline under a tenant of the
+installed :mod:`dmlc_tpu_torch.pipeline.scheduler`, which bills every
+delivered batch one pull credit and owns the queue-capacity knobs.
+``to_device(sharding=...)`` is not ported (it raises a DMLCError that
+says so); ``shuffle`` with ``cache`` keeps the reference's own refusal.
 """
 
 from __future__ import annotations
@@ -217,6 +225,18 @@ class _ParseRunner(_RunnerBase):
         depth = p.pop("prefetch_depth", "auto")
         self._auto_depth = depth == "auto"
         kwargs = {k: v for k, v in p.items() if v is not None}
+        self._stream_split = None
+        stream = sp.get("stream")
+        if stream is not None:
+            # streaming source (Pipeline.from_stream): an EOF-less
+            # windowed split injected under the python engine (the
+            # native reader owns its own split, and a growing file has
+            # no frozen byte range for it to own)
+            from dmlc_tpu_torch.io.streaming_split import StreamingSplit
+            kwargs["engine"] = "python"
+            split = StreamingSplit(sp["uri"], **stream)
+            self._stream_split = split
+            kwargs["split_factory"] = lambda: split
         if shuffle is not None:
             # shuffled read order lowers to an injected split under the
             # python engine (the native reader owns its own split):
@@ -249,6 +269,18 @@ class _ParseRunner(_RunnerBase):
             sp["uri"], sp["part_index"], sp["num_parts"], format=fmt,
             prefetch_depth=4 if self._auto_depth else int(depth), **kwargs)
         self.owned = not hasattr(self._parser, "detach")
+        if self._stream_split is not None:
+            # formats whose parser ignores split_factory would silently
+            # read the frozen file instead of the stream — refuse (the
+            # shuffle-injection precedent below)
+            if getattr(self._parser, "_split", None) \
+                    is not self._stream_split:
+                self.close()
+                raise DMLCError(
+                    f"pipeline: from_stream is not supported by the "
+                    f"{fmt or 'default'} parser (it ignores the "
+                    "injected split); streaming works with record-"
+                    "stream formats (libsvm/csv/libfm)")
         if shuffle is not None:
             # formats whose parser ignores split_factory would silently
             # yield UNshuffled data — refuse instead
@@ -288,8 +320,14 @@ class _ParseRunner(_RunnerBase):
 
     def finalize_epoch(self) -> None:
         _finalize_parser(self._parser, self.probe)
+        if self._stream_split is not None:
+            # the monotonic watermark rides the stage extras (and the
+            # scheduler's /tenants rows read it live mid-epoch)
+            self.probe.extra["stream"] = self._stream_split.watermark()
 
     def close(self) -> None:
+        if self._stream_split is not None:
+            self._stream_split.stop()
         if hasattr(self._parser, "destroy"):
             self._parser.destroy()
 
@@ -895,11 +933,21 @@ class CompiledPipeline:
     ``stats()``, let the bound autotuner retune depths between epochs."""
 
     def __init__(self, runners: List[_RunnerBase],
-                 autotuner: Optional[Autotuner]):
+                 autotuner: Optional[Autotuner],
+                 tenant: Optional[str] = None):
         self._runners = runners
         self.autotuner = autotuner
+        # multi-tenant contract (pipeline.scheduler): the tenant this
+        # pipeline bills its pulls to, and the queue-capacity knobs
+        # the scheduler owns (the autotuner/controller must not move
+        # them — one owner per knob)
+        self.tenant = tenant
+        self.scheduler_owned: tuple = ()
         self._epoch = 0
         self._last: Optional[Dict[str, Any]] = None
+        # one-way hand-off flag: a controller that raised on this
+        # pipeline never gets it back (see the epoch hook below)
+        self._control_failed = False
         # the pipeline's stats() registers as an obs metrics collector:
         # one REGISTRY.snapshot() sees the last epoch's stage stats
         # next to the queue and profiler surfaces
@@ -917,15 +965,92 @@ class CompiledPipeline:
         abandoned epoch leaves the previous snapshot in place."""
         for r in self._runners:
             r.probe.reset()
+        sched = None
+        if self.tenant is not None:
+            from dmlc_tpu_torch.pipeline import scheduler as _sched
+            sched = _sched.active()
         t0 = time.perf_counter()
-        yield from _probed(self._runners[-1])
+        if sched is None:
+            yield from _probed(self._runners[-1])
+        else:
+            # multi-tenant discipline: every delivered batch costs one
+            # pull credit FIRST (a credit-blocked tenant stops pulling
+            # — its bounded queues fill and the throttle propagates up
+            # to its readers), then bills its latency + volume to the
+            # tenant's accounting. The billed latency is the
+            # tenant-EXPERIENCED wait — credit wait included — because
+            # that is what a declared latency SLO (obs.slo) judges.
+            # The pull itself runs under pulling(): lighter tenants
+            # hold at their yield points while it is in flight
+            gen = _probed(self._runners[-1])
+            while True:
+                tb = time.perf_counter()
+                sched.acquire(self.tenant)
+                with sched.pulling(self.tenant):
+                    item = next(gen, _END)
+                if item is _END:
+                    break
+                rows, _nnz, nbytes = _item_stats(item)
+                sched.note_batch(self.tenant,
+                                 time.perf_counter() - tb,
+                                 rows=rows, nbytes=nbytes)
+                yield item
         wall = time.perf_counter() - t0
         for r in self._runners:
             r.finalize_epoch()
         self._epoch += 1
         self._last = snapshot([r.probe for r in self._runners], wall,
                               self._epoch, self.knob_values())
-        if self.autotuner is not None:
+        if self.tenant is not None:
+            # the tenant label rides the snapshot (obs/analyze emits
+            # per-tenant bound verdicts from it; /tenants rows cite it)
+            self._last["tenant"] = self.tenant
+        if sched is not None:
+            sched.note_epoch(self.tenant, self._last)
+        # one mover per process: an installed verdict-driven
+        # controller (obs.control) adopts this pipeline's knobs and
+        # subsumes the blind hill-climber — the bound verdict picks
+        # WHICH family moves; otherwise the bound autotuner takes its
+        # between-epoch step as before
+        ctl = None
+        if not self._control_failed:
+            from dmlc_tpu_torch.obs import control as _control
+            ctl = _control.active()
+        if ctl is not None:
+            if self.autotuner is not None \
+                    and self.autotuner.rail.pending is not None:
+                # a controller installed MID-RUN takes over from the
+                # autotuner: its in-flight trial would never be judged
+                # again — discard it (value restored, no freeze) so no
+                # knob is stranded at an unjudged trial value
+                self.autotuner.rail.discard()
+            try:
+                ctl.observe_pipeline(self, self._last)
+            except Exception as e:  # noqa: BLE001 — a controller bug
+                # must not take down the epoch loop, and it must not
+                # SILENTLY disable tuning either. The hand-off is
+                # ONE-WAY (this pipeline never returns to the
+                # controller): alternating movers would let the
+                # autotuner arm a trial the controller's epoch never
+                # resolves — a knob stranded at an unjudged value
+                from dmlc_tpu_torch.obs.log import warn_limited
+                warn_limited(
+                    "control-observe-failed",
+                    f"obs.control: observe_pipeline failed ({e!r}); "
+                    "this pipeline falls back to its own autotuner "
+                    "permanently",
+                    min_interval_s=60)
+                self._control_failed = True
+                try:
+                    # release this pipeline's controller state: an
+                    # unresolved pending trial would wedge every
+                    # OTHER source into no-ops, and the controller
+                    # must stop moving knobs the autotuner now owns
+                    ctl.abandon_pipeline(self)
+                except Exception:  # noqa: BLE001
+                    pass
+                ctl = None
+        if ctl is None and self.autotuner is not None:
             self.autotuner.after_epoch(self._last)
 
     def run_epoch(self) -> Dict[str, Any]:
@@ -965,11 +1090,23 @@ class CompiledPipeline:
         installs the global recorder for the duration)."""
         return _trace.trace_to(path, capacity)
 
+    def stream_stats(self) -> Optional[Dict[str, Any]]:
+        """Live watermark of a streaming source (None for finite
+        pipelines) — readable MID-epoch, unlike stats()."""
+        src = self._runners[0]
+        split = getattr(src, "_stream_split", None)
+        return split.watermark() if split is not None else None
+
     @property
     def epochs(self) -> int:
         return self._epoch
 
     def close(self) -> None:
+        if self.tenant is not None:
+            from dmlc_tpu_torch.pipeline import scheduler as _sched
+            sched = _sched.active()
+            if sched is not None:
+                sched.release(self)
         if self._metrics_key is not None:
             _METRICS.unregister(self._metrics_key)
             self._metrics_key = None
@@ -1006,9 +1143,31 @@ class Pipeline:
                                    split_type=split_type),))
 
     @staticmethod
-    def from_stream(uri: str, **kwargs: Any) -> "Pipeline":
-        """A streaming source: not ported."""
-        raise _not_ported("from_stream", "the streaming split")
+    def from_stream(uri: str, *, window_records: Optional[int] = None,
+                    window_s: Optional[float] = None,
+                    poll_interval_s: float = 0.05,
+                    idle_timeout_s: Optional[float] = None,
+                    chunk_size: int = 8 << 20) -> "Pipeline":
+        """Root of a STREAMING pipeline: an EOF-less windowed read of
+        one growing text source (:class:`dmlc_tpu_torch.io.
+        streaming_split.StreamingSplit`). Appended records accumulate
+        into windows closed by ``window_records`` and/or ``window_s``;
+        each window feeds the unchanged parse/batch/to_device machinery,
+        with a monotonic watermark in the parse stage's
+        ``extra["stream"]``. The epoch ends when the split's ``stop()``
+        is called and the committed bytes are drained, or after
+        ``idle_timeout_s`` with no growth (None = stream forever).
+        Streaming sources are single-part and cannot be shuffled,
+        cached, or sharded (the chain validator rejects those
+        stages)."""
+        return Pipeline((StageSpec(
+            "source", uri=uri, part_index=0, num_parts=1,
+            split_type="text",
+            stream={"window_records": window_records,
+                    "window_s": window_s,
+                    "poll_interval_s": poll_interval_s,
+                    "idle_timeout_s": idle_timeout_s,
+                    "chunk_size": chunk_size}),))
 
     def _with(self, spec: StageSpec) -> "Pipeline":
         return Pipeline(self._stages + (spec,))
@@ -1156,16 +1315,19 @@ class Pipeline:
               **autotune_opts: Any) -> CompiledPipeline:
         """Validate the chain and lower it onto the port's machinery.
         ``autotune=True`` binds an Autotuner over every "auto" depth
-        knob (no-op when the chain has none). ``tenant`` (the
-        reference's multi-tenant scheduler) is not ported."""
-        if tenant is not None:
-            raise _not_ported("build(tenant=...)",
-                              "the multi-tenant scheduler")
+        knob (no-op when the chain has none).
+
+        ``tenant`` admits the compiled pipeline under that tenant of
+        the installed :mod:`dmlc_tpu_torch.pipeline.scheduler`
+        (admission control applies — past the tenant's budget this
+        RAISES AdmissionError or queues, per the tenant's policy).
+        Every delivered batch then costs one scheduler pull credit,
+        volume and latency bill to the tenant, and the scheduler owns
+        the pipeline's queue-capacity knobs (withheld from the
+        autotuner here — one owner per knob)."""
         specs = self._stages
         validate_chain(specs)
         kinds = [s.kind for s in specs]
-        if specs[0].params.get("stream") is not None:
-            raise _not_ported("a streaming source", "the streaming split")
         if "parse" not in kinds and "shard" not in kinds:
             raise DMLCError(
                 "pipeline: nothing to run — add .parse(...) or "
@@ -1213,12 +1375,34 @@ class Pipeline:
                 runners.append(_DeviceRunner(
                     up, spec.params["device"], spec.params["window"],
                     spec.params["staging"]))
+        sched = None
+        owned: tuple = ()
+        if tenant is not None:
+            from dmlc_tpu_torch.pipeline import scheduler as _sched
+            sched = _sched.active()
+            if sched is None:
+                for r in reversed(runners):
+                    r.close()
+                raise DMLCError(
+                    "pipeline: build(tenant=...) needs an installed "
+                    "scheduler (dmlc_tpu_torch.pipeline.scheduler."
+                    f"install() or {_sched.ENV_SCHED}=1)")
+            owned = _sched.MANAGED_KNOBS
         tuner = None
         if autotune:
-            knobs = [k for r in runners for k in r.knobs()]
+            knobs = [k for r in runners for k in r.knobs()
+                     if k.name not in owned]
             if knobs:
                 tuner = Autotuner(knobs, **autotune_opts)
-        return CompiledPipeline(runners, tuner)
+        built = CompiledPipeline(runners, tuner, tenant=tenant)
+        built.scheduler_owned = owned
+        if sched is not None:
+            try:
+                sched.admit(tenant, built)
+            except BaseException:
+                built.close()  # free the runners a failed admission
+                raise          # would otherwise leak
+        return built
 
     # -- introspection
 

@@ -7,14 +7,13 @@ refuses is refused here with the same message. A
 ``StageSpec`` values; chaining (``.parse().batch(...)``) appends specs
 without executing anything. ``Pipeline.build()`` validates the chain
 against ``ALLOWED_AFTER`` (the legal stage grammar) and lowers each spec
-onto the port's machinery (see ``dmlc_tpu_torch.pipeline.graph``). The
-port refuses the global shuffle (``global_seed``) and streaming sources
-when they are built, with a "not ported" error.
+onto the port's machinery (see ``dmlc_tpu_torch.pipeline.graph``).
 
 Stage catalog (the reference's docs/pipeline.md has the narrative
 version):
 
-  source    — from_uri(uri, part_index, num_parts): the sharded byte span
+  source    — from_uri(uri, part_index, num_parts): the sharded byte span;
+              from_stream(uri, ...): an EOF-less windowed growing file
   parse     — text bytes → CSR RowBlock stream (Parser.create)
   cache     — parse once, replay later epochs; the tier is picked by
               memory_budget_bytes: raw blocks in RAM when they fit,
@@ -30,8 +29,9 @@ version):
   shard     — part-granular multi-process ingest (ShardedRowBlockIter):
               [L, ...] batches on the mesh's device
   shuffle   — shuffled read order, python engine: chunk-level
-              (InputSplitShuffle, reference: input_split_shuffle.h); the
-              global permutation (global_seed) is refused by the port
+              (InputSplitShuffle, reference: input_split_shuffle.h), or
+              with global_seed the gang-wide sample-level permutation
+              (GlobalShuffleSplit)
 """
 
 from __future__ import annotations

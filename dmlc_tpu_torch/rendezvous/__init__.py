@@ -2,9 +2,9 @@
 ``tracker/dmlc_tracker/tracker.py``, gone elastic).
 
 Copy of ``dmlc_tpu/rendezvous/__init__.py`` with its imports rewritten
-to ``dmlc_tpu_torch``. Trimmed from the reference: the membership record
-on the control ledger (``obs.control``, which the port does not have);
-everything else on an epoch bump is the reference's. Unlike the
+to ``dmlc_tpu_torch``; an epoch bump does what the reference's does,
+the membership record on the control ledger (``obs.control``) included.
+Unlike the
 reference's, a client's first view (its join) also sets the peer tier's
 topology from the roster, so a member that joins a gang of two or more
 agrees with the members already in it on who owns each hydration group.
@@ -313,8 +313,14 @@ class RendezvousClient:
                            "new_world": self.world})
         except Exception:  # noqa: BLE001
             pass
-        # the reference's membership record on the control ledger is
-        # skipped: obs.control is not ported
+        try:
+            from dmlc_tpu_torch.obs import control as _control
+            _control.membership_record(
+                "reshard", gang=self.gang, epoch=self.epoch,
+                old_world=old_world, new_world=self.world,
+                member=self.member, rank=self.rank)
+        except Exception:  # noqa: BLE001
+            pass
         view = self.view()
         try:
             # retire RPC edge rows for departed members — a dead

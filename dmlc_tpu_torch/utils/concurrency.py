@@ -11,17 +11,63 @@ The reference's vendored moodycamel lock-free queues
 CPython threads serialize on the GIL, and the C++ engine uses its own
 bounded ring (native/src/threaded_iter.cc analogue) — a lock-free MPMC
 queue buys nothing here.
+
+``yield_hook``/``set_yield_hook`` are the port's cooperative yield
+seam: the thread serving a scheduled pull (pipeline.scheduler) carries
+a callback that long CPU-bound Python loops (the golden text parsers)
+call every few records, so a lower-priority tenant's parse can be held
+at a record boundary while a higher-priority tenant's pull is in
+flight. Threads that serve no tenant carry none, and the loops then
+run as before.
 """
 
 from __future__ import annotations
 
 import heapq
 import threading
-from typing import Any, Generic, List, Optional, Tuple, TypeVar
+from typing import (Any, Callable, Generic, List, Optional, Tuple,
+                    TypeVar)
 
 T = TypeVar("T")
 
-__all__ = ["ConcurrentBlockingQueue", "PriorityBlockingQueue"]
+__all__ = ["ConcurrentBlockingQueue", "PriorityBlockingQueue",
+           "yield_hook", "set_yield_hook", "YieldingRecords"]
+
+_yield = threading.local()
+
+
+def yield_hook() -> Optional[Callable[[], None]]:
+    """This thread's cooperative yield callback, or None."""
+    return getattr(_yield, "hook", None)
+
+
+def set_yield_hook(hook: Optional[Callable[[], None]]
+                   ) -> Optional[Callable[[], None]]:
+    """Set this thread's yield callback; returns the previous one (so a
+    nested setter can restore it)."""
+    prev = getattr(_yield, "hook", None)
+    _yield.hook = hook
+    return prev
+
+
+class YieldingRecords(list):
+    """A record list whose iteration calls ``hook`` before every
+    ``EVERY``-th record: a golden parse loop over it (about 50 us a
+    libsvm line) reaches a yield point about once a millisecond without
+    knowing of the scheduler."""
+
+    EVERY = 16
+
+    def __init__(self, records, hook: Callable[[], None]):
+        super().__init__(records)
+        self._hook = hook
+
+    def __iter__(self):
+        hook = self._hook
+        for i, rec in enumerate(super().__iter__()):
+            if i % self.EVERY == 0:
+                hook()
+            yield rec
 
 
 class ConcurrentBlockingQueue(Generic[T]):

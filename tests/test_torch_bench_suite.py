@@ -352,9 +352,10 @@ def test_configs_table_holds_the_recordio_configs():
     assert {n: name for n, (name, _) in bench_suite.CONFIGS.items()} == {
         1: "libsvm", 2: "csv", 3: "recordio", 4: "prefetch", 5: "parquet",
         6: "indexed_shuffled", 7: "multiprocess", 8: "page_replay",
-        10: "spill_replay", 11: "remote_hydrate", 14: "recio_native",
-        15: "peer_hydrate", 17: "parquet_native", 18: "image_record",
-        20: "elastic_reshard", 21: "ckpt_restore_fanout",
+        10: "spill_replay", 11: "remote_hydrate", 13: "analyze",
+        14: "recio_native", 15: "peer_hydrate", 16: "control",
+        17: "parquet_native", 18: "image_record", 19: "multi_tenant",
+        20: "elastic_reshard", 21: "ckpt_restore_fanout", 22: "slo_burn",
         23: "global_shuffle"}
     for n in bench_suite.CONFIGS:
         assert bench_suite.CONFIGS[n][0] == ref_bench.CONFIGS[n][0]
@@ -474,3 +475,28 @@ def test_parquet_native_holds_its_acceptance(fmt_dirs, monkeypatch):
     with pytest.raises(DMLCError, match="acceptance: >= 1000.0x"):
         bench_suite.bench_parquet_native(1, gauge_fn=lambda: 1.0,
                                          work=fmt_dirs)
+
+
+def test_control_matches_reference(dirs, tmp_path):
+    """Config 16 on the quick criteo-shaped corpus: the reference's JSON
+    keys and its acceptance in both packages (parse-bound epochs, the
+    shard count raised on the native engine, every record with
+    RECORD_KEYS, at most one revert), and the same first decision."""
+    from dmlc_tpu_torch.obs import control as obs_control
+    os.link(os.path.join(dirs, "dmlc_tpu_torch_bench_suite.criteo.libsvm"),
+            str(tmp_path / "ref.criteo.libsvm"))
+    got = bench_suite.bench_control(1, work=dirs)
+    want = ref_bench.bench_control(1)
+    assert set(got) == set(want)
+    assert got["config"] == want["config"] == "control"
+    assert got["bytes"] == want["bytes"] and got["epochs"] == 5
+    assert got["shards_final"] >= 1 and got["trials"] >= 1
+    first, ref_first = got["ledger"][0], want["ledger"][0]
+    assert (first["bound"], first["knob"], first["old"], first["new"],
+            first["outcome"]) == (ref_first["bound"], ref_first["knob"],
+                                  ref_first["old"], ref_first["new"],
+                                  ref_first["outcome"])
+    assert all(sorted(r) == sorted(obs_control.RECORD_KEYS)
+               for r in got["ledger"])
+    assert obs_control.active() is None  # the probe's own controller
+    json.dumps(got)

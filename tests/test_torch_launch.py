@@ -136,14 +136,34 @@ def test_launch_local_kills_everyone_at_its_timeout(tmp_path):
     assert time.monotonic() - t0 < 20
 
 
+# each analytic obs plane's option, the env it sets and the value a
+# worker must see there (gang_poll_s reaches rank 0 only)
+_OBS_OPTION_ENV = {
+    "history_s": ("DMLC_TPU_HISTORY_S", "1.0"),
+    "gang_poll_s": ("DMLC_TPU_GANG_POLL_S", "1.0"),
+    "profile_hz": ("DMLC_TPU_PROFILE_HZ", "10.0"),
+    "control": ("DMLC_TPU_CONTROL", "1"),
+    "scheduler": ("DMLC_TPU_SCHED", "quantum=4,queue=32"),
+    "slo": ("DMLC_TPU_SLO", "1"),
+}
+
+
 @pytest.mark.parametrize("option,value", [
     ("history_s", 1.0), ("gang_poll_s", 1.0),
-    ("profile_hz", 10.0), ("control", True), ("scheduler", True),
-    ("slo", True)])
-def test_unported_options_raise_named_errors(option, value):
-    with pytest.raises(DMLCError, match="not ported.*waits for"):
-        launch.launch_local(1, [sys.executable, "-c", "pass"],
-                            **{option: value})
+    ("profile_hz", 10.0), ("control", True),
+    ("scheduler", "quantum=4,queue=32"), ("slo", True)])
+def test_obs_plane_options_set_their_env(option, value):
+    """The analytic obs planes' options hand their workers the
+    reference's env contracts; ``gang_poll_s`` goes to rank 0 only."""
+    name, want = _OBS_OPTION_ENV[option]
+    code = ("import os, sys\n"
+            "rank = int(os.environ['DMLC_TPU_TASK_ID'])\n"
+            f"got = os.environ.get({name!r})\n"
+            f"want = {want!r} if rank == 0 or {option != 'gang_poll_s'} "
+            "else None\n"
+            "sys.exit(0 if got == want else 3)\n")
+    assert launch.launch_local(2, [sys.executable, "-c", code], env=ENV,
+                               timeout=60, **{option: value}) == [0, 0]
 
 
 @pytest.mark.parametrize("option", ["flight_dir", "restart_policy",
@@ -153,7 +173,6 @@ def test_resilience_options_are_ported(option, tmp_path):
     # clean worker under each exits 0 and the launch returns its code
     value = {"flight_dir": str(tmp_path / "flight"), "restart_policy": 1,
              "faults": "site=never.fires,fault=ioerror,nth=9"}[option]
-    assert option not in launch._NOT_PORTED
     assert launch.launch_local(1, [sys.executable, "-c", "pass"],
                                env=ENV, timeout=60,
                                **{option: value}) == [0]
@@ -174,7 +193,6 @@ def test_gang_options_are_ported(option, value):
     """The gang plane's options leave the refusal list: each hands its
     worker the reference's env contract (``heartbeat_grace_s`` with the
     rendezvous it tunes), and the launch returns the worker's code."""
-    assert option not in launch._NOT_PORTED
     kw = {option: value}
     if option == "heartbeat_grace_s":
         kw["rendezvous"] = True

@@ -7,9 +7,10 @@ reference's host batches, and by value against the reference's device
 batches, whose int64 columns JAX without x64 keeps as int32 (ROADMAP
 C2). Unpadded streams must match by ``RowBlock.content_hash()``. The
 port's ThreadedIter, stats snapshot and Autotuner are held to the
-reference's semantics, every stage the port refuses raises its "not
-ported" error, and the slice ``Pipeline → SparseLinearModel`` matches
-the reference's 5 SGD steps at rtol=1e-5, atol=1e-6 (CPU fp32 on both
+reference's semantics, the one stage the port refuses
+(``to_device(sharding=...)``) raises its "not ported" error, tenant
+builds and streaming sources run beside the reference's, and the slice
+``Pipeline → SparseLinearModel`` matches the reference's 5 SGD steps at rtol=1e-5, atol=1e-6 (CPU fp32 on both
 sides, the CSR sums in different orders).
 """
 
@@ -334,13 +335,73 @@ def test_global_shuffle_stage_lowers(corpora, kwargs, window_bytes):
 
 @pytest.mark.parametrize("refused,match", [
     (lambda p: p.parse().to_device(sharding=object()), "sharding"),
-    (lambda p: p.parse().build(tenant="feed"), "tenant"),
-    (lambda p: Pipeline.from_stream("x.libsvm", window_records=8),
-     "from_stream"),
 ])
 def test_refused_stages_say_not_ported(refused, match):
     with pytest.raises(DMLCError, match=f"{match}.*not ported"):
         refused(Pipeline.from_uri("x.libsvm"))
+
+
+def test_tenant_build_needs_an_installed_scheduler(corpora):
+    """``build(tenant=...)`` without a scheduler raises the reference's
+    error, in both packages."""
+    from dmlc_tpu.pipeline import scheduler as ref_sched
+    from dmlc_tpu_torch.pipeline import scheduler as sched
+    assert sched.active() is None and ref_sched.active() is None
+    with pytest.raises(DMLCError, match="needs an installed scheduler"):
+        Pipeline.from_uri(corpora["libsvm"]).parse().build(tenant="feed")
+    with pytest.raises(RefDMLCError, match="needs an installed scheduler"):
+        RefPipeline.from_uri(corpora["libsvm"]).parse().build(
+            tenant="feed")
+
+
+def test_tenant_build_bills_every_batch_and_stamps_the_snapshot(corpora):
+    """A pipeline admitted under a tenant pays one pull a batch, bills
+    its rows, withholds the scheduler's knobs from the autotuner and
+    stamps its epoch snapshot with the tenant, as the reference's."""
+    from dmlc_tpu.pipeline import scheduler as ref_sched
+    from dmlc_tpu_torch.pipeline import scheduler as sched
+    rows = {}
+    for mod, P in ((sched, Pipeline), (ref_sched, RefPipeline)):
+        s = mod.install(quantum=4, queue_budget=16)
+        try:
+            s.add_tenant("feed", weight=2)
+            with (P.from_uri(corpora["libsvm"])
+                  .parse(format="libsvm", engine="python")
+                  .batch(BATCH).prefetch(depth="auto")
+                  .build(autotune=True, tenant="feed")) as b:
+                n = sum(1 for _ in b)
+                assert b.stats()["tenant"] == "feed"
+                assert "prefetch.depth" in b.scheduler_owned
+                assert b.autotuner is None  # its only knob is owned
+                row = s.to_dict()["tenants"]["feed"]
+                rows[mod.__name__] = (n, row["pulls"], row["rows"])
+        finally:
+            mod.uninstall()
+    got, want = rows.values()
+    assert got == want == (got[0], got[0], ROWS)
+
+
+def test_from_stream_reads_what_the_file_holds(corpora, tmp_path):
+    """``Pipeline.from_stream`` over a finished file ends at its idle
+    timeout with the file's rows and a watermark equal to them; the
+    stream's blocks hash as the reference's."""
+    hashes = []
+    for P in (Pipeline, RefPipeline):
+        with (P.from_stream(corpora["libsvm"], window_records=200,
+                            poll_interval_s=0.01, idle_timeout_s=0.3)
+              .parse(format="libsvm").build()) as b:
+            c = None
+            for blk in b:
+                if c is None:
+                    c = (RowBlockContainer if P is Pipeline
+                         else RefContainer)(blk.index.dtype)
+                c.push_block(blk)
+            wm = b.stream_stats()
+            assert wm["watermark_records"] == ROWS and wm["ended"]
+            assert b.stats()["stages"][0]["extra"]["stream"][
+                "watermark_records"] == ROWS
+            hashes.append(c.get_block().content_hash())
+    assert hashes[0] == hashes[1]
 
 
 # ------------------------------------------------------------- cache

@@ -6,9 +6,8 @@ replacement replays the identical stream; a partial run is a prefix),
 ``TestRendezvousMembership`` (deterministic ranks, monotonic epochs,
 heartbeat-grace flap suppression, the epoch fence, the peer tier's dead
 rank), ``test_shrink_gang_byte_identical_coverage`` and
-``test_grow_reshard_visible_on_trace_gang_and_ledger``, whose ledger
-check is left out: the control ledger is the analytic obs planes', which
-the port does not have.
+``test_grow_reshard_visible_on_trace_gang_and_ledger`` (the reshard on the
+trace, on ``/gang`` and as a membership record on the control ledger).
 
 Beside the twins, across the packages: the port's client joins the
 reference's service (and the reference's the port's) and sees the same
@@ -446,20 +445,21 @@ class TestElasticGangAcceptance:
         assert outs["b"], "the victim's prefix should be real work"
 
     def test_grow_reshard_visible_on_trace_gang_and_ledger(self):
-        """Twin of the reference's test, without its third check: the
-        membership record on the control ledger waits for the analytic
-        obs planes (``obs.control``), which the port does not have. A
-        mid-epoch grow is on the merged trace (the service's join
-        instants, the member's reshard instant with its world
-        transition) and on ``/gang``'s live roster."""
+        """Twin of the reference's test: a mid-epoch grow is on the
+        merged trace (the service's join instants, the member's reshard
+        instant with its world transition), on ``/gang``'s live roster,
+        and on the control ledger as a schema-valid membership
+        record."""
         import json as _json
         import urllib.request
 
         from dmlc_tpu_torch.io.objstore import peer as peer_mod
+        from dmlc_tpu_torch.obs import control as obs_control
         from dmlc_tpu_torch.obs import trace as obs_trace
         from dmlc_tpu_torch.obs.serve import StatusServer
 
         rec = obs_trace.start()
+        ctl = obs_control.install(obs_control.Controller())
         svc = srv = None
         try:
             svc = RendezvousService(heartbeat_grace_s=30.0)
@@ -498,8 +498,16 @@ class TestElasticGangAcceptance:
             assert mem["world"] == 3 and mem["epoch"] == a.epoch
             assert [m["member"] for m in mem["roster"]] == \
                 ["a", "b", "c"]
+            # 3) the control ledger: a schema-valid membership record
+            recs = [r for r in ctl.ledger.records()
+                    if r["family"] == "gang"]
+            assert recs and recs[-1]["outcome"] == "reshard"
+            assert (recs[-1]["old"], recs[-1]["new"]) == (2, 3)
+            assert recs[-1]["verdict_id"] == f"m{a.epoch}-grow"
+            assert sorted(recs[-1]) == sorted(obs_control.RECORD_KEYS)
         finally:
             rndv.uninstall()
+            obs_control.uninstall()
             obs_trace.stop()
             peer_mod.reset()  # the joins set the process peer tier
             if srv is not None:

@@ -1,13 +1,13 @@
 """The port's live status server (``dmlc_tpu_torch/obs/serve.py``) held
 to the reference's ``tests/test_obs_live.py`` (``TestPrometheusExposition``,
 ``TestStatusServer``, ``TestGangServe``) and ``tests/test_rpc.py``
-(``TestRpcEndpoint``; ``test_gang_view_carries_rpc`` needs
-``obs.aggregate``, which the port does not have, and is left out).
+(``TestRpcEndpoint``; ``test_gang_view_carries_rpc``'s twin is in
+``tests/test_torch_obs_planes.py`` with the gang aggregator).
 
 Beside the twins: ``render_prometheus`` of one seeded snapshot gives the
-same text in both packages; the endpoints of planes the port does not
-have answer the reference's 404 shape naming the plane; ``/gang`` serves
-the rendezvous membership section. Every wait is bounded.
+same text in both packages; the analytic planes' endpoints answer the
+reference's 404 body while their plane is absent; ``/gang`` serves the
+rendezvous membership section. Every wait is bounded.
 """
 
 import json
@@ -30,7 +30,7 @@ from dmlc_tpu_torch.obs import watchdog as obs_watchdog
 from dmlc_tpu_torch.obs.export import chrome_events
 from dmlc_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 from dmlc_tpu_torch.obs.serve import (
-    NOT_PORTED, StatusServer, render_prometheus, scrape, scrape_gang,
+    StatusServer, render_prometheus, scrape, scrape_gang,
 )
 from dmlc_tpu_torch.obs.watchdog import Watchdog
 
@@ -305,20 +305,22 @@ class TestStatusServer:
             assert doc["otherData"]["capture_s"] == 0.05
         assert obs_trace.active() is None
 
-    @pytest.mark.parametrize("path", sorted(NOT_PORTED))
-    def test_unported_planes_answer_named_404(self, path):
-        """The reference's endpoints of planes the port does not have
-        answer 404 with the reference's {error, hint} shape, the error
-        naming the plane as not ported (never a 500, never a fallback
-        body)."""
-        with StatusServer() as srv:
-            with pytest.raises(urllib.error.HTTPError) as e:
-                _get(srv.url(path))
-            assert e.value.code == 404
-            doc = json.loads(e.value.read())
-        assert set(doc) == {"error", "hint"}
-        assert "not ported" in doc["error"]
-        assert NOT_PORTED[path] in doc["error"]
+    @pytest.mark.parametrize("path", ["/analyze", "/control", "/history",
+                                      "/profile", "/slo", "/tenants"])
+    def test_absent_planes_answer_the_reference_404(self, path):
+        """An analytic plane's endpoint answers the reference's 404 body
+        (its error and its enable hint) while the plane is not installed
+        in this process: never a 500, never a fallback body."""
+        from dmlc_tpu.obs.serve import StatusServer as RefStatusServer
+        docs = []
+        for cls in (StatusServer, RefStatusServer):
+            with cls() as srv:
+                with pytest.raises(urllib.error.HTTPError) as e:
+                    _get(srv.url(path))
+                assert e.value.code == 404
+                docs.append(json.loads(e.value.read()))
+        assert docs[0] == docs[1]
+        assert "error" in docs[0]
 
     @pytest.mark.parametrize("live", [False, True])
     def test_shuffle_answers_its_view_or_the_reference_404(

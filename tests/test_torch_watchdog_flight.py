@@ -5,11 +5,9 @@ Twins of the reference's ``tests/test_obs.py::TestWatchdog``,
 ``tests/test_obs_live.py::TestFlightRecorder`` and
 ``::TestWatchdogReportRetention``, and of the two
 ``tests/test_obs_history.py::TestWatchdogHistory`` cases, run against the
-port: the time-series plane is not ported, so the case that reads a ring
-installs a stand-in ring where the watchdog looks for one, and the
-flight bundle's ``history`` stays empty. Beside them: a stall report and
-a flight bundle carry the reference's keys for the same stall, and a
-dump makes no CUDA call.
+port with its own time-series ring: a flight bundle carries the ring's
+``history.json``. Beside them: a stall report and a flight bundle carry
+the reference's keys for the same stall, and a dump makes no CUDA call.
 """
 
 import glob
@@ -18,7 +16,6 @@ import os
 import sys
 import threading
 import time
-import types
 
 import pytest
 import torch
@@ -304,6 +301,7 @@ class TestFlightRecorder:
             with obs_trace.span("flight-covered-work"):
                 pass
             REGISTRY.counter("flight.test_events").inc(3)
+            time.sleep(0.15)  # let the sampler take a history snapshot
             d = fl.dump("unit_test")
             assert os.path.isdir(d)
             manifest = json.load(open(os.path.join(d, "MANIFEST.json")))
@@ -316,10 +314,12 @@ class TestFlightRecorder:
             metrics = json.load(open(os.path.join(d, "metrics.json")))
             assert metrics["current"]["counters"][
                 "flight.test_events"] == 3
-            # no time-series ring in the port yet: an empty history
-            assert metrics["history"] == []
+            # the recorder's own time-series ring: the periodic history
+            # and the ring's full dump beside it
+            assert len(metrics["history"]) >= 1
             assert metrics["interval_s"] == 0.05
-            assert not os.path.exists(os.path.join(d, "history.json"))
+            hist = json.load(open(os.path.join(d, "history.json")))
+            assert hist["period_s"] == 0.05 and hist["samples"]
             # faulthandler names the dumping thread "Current thread"
             # (others "Thread"): the one line every dump has
             stacks = open(os.path.join(d, "stacks.txt")).read()
@@ -503,38 +503,18 @@ class TestWatchdogReportRetention:
         assert names == ["soak.2", "soak.3"]  # the LAST two survive
 
 
-class _Ring:
-    """Stand-in for a shared time-series ring: the two calls the
-    watchdog makes on one."""
-
-    def __init__(self, samples):
-        self.samples = list(samples)
-
-    def sample_now(self, t=None, force=False):
-        self.samples.append({"t": time.time(), "v": {
-            "counters.decay.rows":
-                REGISTRY.counter("decay.rows").value}})
-
-    def last(self, seconds):
-        cut = time.time() - seconds
-        return [s for s in self.samples if s["t"] >= cut]
-
-
 class TestWatchdogHistory:
     def test_stall_report_attaches_decay(self, monkeypatch):
-        """With a ring installed where the time-series plane keeps it, a
-        stall report carries its trailing samples and a fresh one."""
+        """With the shared time-series ring installed, a stall report
+        carries its trailing samples and a fresh one: the decay INTO the
+        stall, not just the frozen end state."""
+        from dmlc_tpu_torch.obs import timeseries as obs_ts
         before = REGISTRY.counter("decay.rows").value
+        ring = obs_ts.TimeSeriesRing(period_s=60)
+        monkeypatch.setattr(obs_ts, "_ring", ring)  # installed, driven
         REGISTRY.counter("decay.rows").inc(100)
-        ring = _Ring([{"t": time.time() - 10.0, "v": {
-            "counters.decay.rows": before + 100}}])
+        ring.sample_now(t=time.time() - 10.0)
         REGISTRY.counter("decay.rows").inc(5)  # the rate died
-        mod = types.ModuleType("dmlc_tpu_torch.obs.timeseries")
-        mod.active = lambda: ring
-        monkeypatch.setitem(sys.modules, "dmlc_tpu_torch.obs.timeseries",
-                            mod)
-        import dmlc_tpu_torch.obs as obs_pkg
-        monkeypatch.setattr(obs_pkg, "timeseries", mod, raising=False)
         wd = Watchdog(threshold_s=0.02, interval_s=999,
                       history_s=60.0).start()
         try:
