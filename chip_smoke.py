@@ -111,6 +111,21 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    ``ShardedCheckpoint`` and restored into a fresh model on the card bit
    for bit, one step on the first libfm batch on each agreeing (K6, K8
    and K9 launching), save and restore GB/s printed;
+6b. the placement plane (``placement_path``): the same FFM at full width
+   held on ``Mesh((2, 2), ("data", "model"))`` on the card, V a
+   ``PlacedTensor`` under ``P("model")`` (2 slices of 314 MB), ``w`` and
+   ``b`` replicated, saved by ``ShardedCheckpoint`` as exactly 2 records
+   of V (replica 0 only) and one of each other leaf; restored onto
+   ``Mesh((4,), ("model",))`` through ``restore(sharding_tree=)``, the 4
+   slices bit for bit, each record read once, and as whole leaves
+   reading the same bytes; one step with V gathered from the slices
+   agreeing with the saved model's (K6 forward and backward, K8, K9
+   once each); a gang of two CUDA processes over gloo, each writing only
+   its 2 of 4 parts of the 10^6-feature ``w`` under ``P("data")`` into
+   its ``shard-<rank>.bin``, restored whole bit for bit; 8 batches of
+   the linear chain through ``to_device(sharding=...)`` equal to
+   ``to_device()``'s, a step on each agreeing (K1, K2, K8, K9); save
+   and restore GB/s printed beside the card;
 7. the ranking path: a seeded libsvm-with-qid file of about 128 MB shaped
    like MSLR-WEB30K (136 features a row, graded labels 0-4, queries of
    1-240 documents); K7 (``pair_sums``/``pair_sums_grad``) against its
@@ -276,7 +291,10 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    p99 on the quietest pair) and 22 (``slo_burn``, 8 MB: the fast-burn
    alert fires and clears), 19 and 22 each in a process of its own
    (``python -m dmlc_tpu_torch.bench_suite``), their own checks
-   holding;
+   holding; and configs 9 (``pipeline``, 64 MB: the autotuned
+   ``Pipeline``'s stream hash equal to a direct parse) and 12
+   (``native_assembly``, 48 MB: the fused, unfused and sharded native
+   streams sha256-equal to the Python golden's, gauged);
 11b. the object-store plane (``remote_path``), over one on-disk
    emulator under the run's directory behind the reference's modeled
    wire (2 ms a request, 4 GB/s; 4 MB blocks, 4 coalesced, 4 GETs at
@@ -776,6 +794,14 @@ OBS_GANG_WAIT_S = 120
 OBSCTL_COMMANDS = (("top", "--once"), ("history",), ("gang",), ("tenants",),
                    ("control",), ("slo",), ("profile",), ("rpc",))
 ANALYZE_MB, CONTROL_MB, MULTI_TENANT_MB, SLO_BURN_MB = 24, 32, 32, 8
+# The placement plane (placement_path, phase 6b): a checkpoint record's
+# framing past its data (dtype string, rank and dimensions) is at most
+# PLACEMENT_FRAMING bytes; the pipeline leg takes PLACEMENT_BATCHES
+# batches of the linear chain. bench_twins runs configs 9 and 12 at
+# PIPELINE_MB and ASSEMBLY_MB over the linear corpus's first MB (12's
+# Python golden parses its cut twice, at about 7 MB/s).
+PLACEMENT_FRAMING, PLACEMENT_BATCHES = 64, 8
+PIPELINE_MB, ASSEMBLY_MB = 64, 48
 
 
 # The example twins (phase 15, and tests/test_torch_examples*.py, which
@@ -5069,14 +5095,19 @@ def bench_twins(path, work, records_hash, indexed_hash):
     2-rank gang draining one seeded global order of a RecordIO corpus:
     at least 8 windows, peer bytes on each rank, gang wire at most 1.6
     of the corpus), host-only gangs as in the reference, each holding
-    its own checks and these. Each JSON is printed as a line. The
-    suite's files are removed after."""
+    its own checks and these. Then configs 9 (``pipeline``) at PIPELINE_MB
+    and 12 (``native_assembly``, gauged) at ASSEMBLY_MB over the linear
+    corpus's first MB: 9's stream hash equal to a direct parse, 12's
+    fused, unfused and sharded native streams equal to the python
+    golden's, assembled in the engine (their own checks). Each JSON is
+    printed as a line. The suite's files are removed after."""
     from dmlc_tpu_torch.bench_suite import (
         bench_analyze, bench_ckpt_restore_fanout, bench_control, bench_csv,
         bench_elastic_reshard, bench_global_shuffle, bench_image_record,
         bench_indexed_shuffled, bench_libsvm, bench_multiprocess_ingest,
-        bench_page_replay, bench_peer_hydrate, bench_prefetch,
-        bench_recio_native, bench_recordio, bench_spill_replay,
+        bench_native_assembly, bench_page_replay, bench_peer_hydrate,
+        bench_pipeline, bench_prefetch, bench_recio_native, bench_recordio,
+        bench_spill_replay,
     )
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     prefix = "dmlc_tpu_torch_bench_suite."
@@ -5084,10 +5115,11 @@ def bench_twins(path, work, records_hash, indexed_hash):
 
     def criteo_cut(mb):
         # a directory of its own holding the first mb MB of the corpus
-        # at the suite's name (config 13's and 16's sizes)
+        # at the suite's name (configs 9, 12, 13 and 16), made once
         d = os.path.join(work, f"{prefix}cut{mb}")
-        os.makedirs(d)
-        write_cut(path, os.path.join(d, prefix + "criteo.libsvm"), mb)
+        if not os.path.isdir(d):
+            os.makedirs(d)
+            write_cut(path, os.path.join(d, prefix + "criteo.libsvm"), mb)
         return d
 
     configs = (("prefetch", lambda: bench_prefetch(256, work=work)),
@@ -5114,6 +5146,11 @@ def bench_twins(path, work, records_hash, indexed_hash):
                    ELASTIC_MB, work=work)),
                ("global_shuffle", lambda: bench_global_shuffle(
                    GLOBAL_SHUFFLE_MB, work=work)),
+               ("pipeline", lambda: bench_pipeline(
+                   PIPELINE_MB, work=criteo_cut(PIPELINE_MB))),
+               ("native_assembly", lambda: bench_native_assembly(
+                   ASSEMBLY_MB, gauge_fn=memcpy_gauge,
+                   work=criteo_cut(ASSEMBLY_MB))),
                ("analyze", lambda: bench_analyze(
                    ANALYZE_MB, work=criteo_cut(ANALYZE_MB))),
                ("control", lambda: bench_control(
@@ -5176,6 +5213,18 @@ def bench_twins(path, work, records_hash, indexed_hash):
             and fan["incremental_frac"] <= 0.2,
             f"config 21: {fan}")
     require_shuffle_configs(out["elastic_reshard"], out["global_shuffle"])
+    # configs 9 and 12 hold their own checks (the pipeline's content hash
+    # equal to a direct parse; every assembly stream's sha256 equal to the
+    # python golden's); beside them
+    pipe, asm = out["pipeline"], out["native_assembly"]
+    require(pipe["rows"] > 0 and pipe["bytes"] <= (PIPELINE_MB << 20)
+            and len(pipe["epoch_walls"]) == 3,
+            f"config 9: {pipe}")
+    require(asm["native"] is not None
+            and asm["native"]["assembly_path"] == "native-padded"
+            and asm["native"]["hash"] == asm["sharded"]["hash"]
+            == asm["native_unfused"]["hash"] == asm["hash"],
+            f"config 12: {asm}")
     # configs 13, 16, 19 and 22 assert their own acceptance; beside it
     require(out["analyze"]["bytes"] <= (ANALYZE_MB << 20)
             and out["analyze"]["analysis"]["hot_frames"],
@@ -6373,6 +6422,290 @@ def remote_ffm(model, lr, work, nbytes, local_save_s, local_restore_bps):
         f"GB/s; local plane {local_restore_bps / 1e9:.3f}), bit for bit")
     return {"save_s": save_s, "save_gbps": nbytes / save_s / 1e9,
             "put_parts": counts["put_parts"], "restore": runs}
+
+
+# --------------------------------------------------------------- phase 6b
+
+PLACEMENT_GANG_WORKER = r"""
+import json, os, sys, time
+root, out_dir, features, seed = sys.argv[1:5]
+features, seed = int(features), int(seed)
+import torch
+import torch.distributed as dist
+if not torch.cuda.is_available():
+    raise RuntimeError("placement gang worker: no CUDA card")
+from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+from dmlc_tpu_torch.parallel.launch import finalize, init_from_env
+from dmlc_tpu_torch.parallel.placement import NamedSharding, P, device_put
+from dmlc_tpu_torch.parallel.sharded import Mesh
+# gloo: NCCL refuses two ranks on one card; the parts live on the card
+rank, world = init_from_env(device="cpu")
+cuda = torch.device("cuda")
+w = torch.randn(features, device=cuda,
+                generator=torch.Generator(device=cuda).manual_seed(seed))
+mesh = Mesh((4,), ("data",), group=dist.group.WORLD, device=cuda)
+placed = device_put(w, NamedSharding(mesh, P("data")), name="w")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+ShardedCheckpoint(root).save(1, {"w": placed})
+out = {"rank": rank, "world": world, "save_s": time.perf_counter() - t0,
+       "parts": [s.part for s in placed.addressable_shards],
+       "placements": [[list(p) for p in s.placement]
+                      for s in placed.addressable_shards
+                      if s.replica_id == 0]}
+with open(os.path.join(out_dir, f"placed-{rank}.json"), "w") as f:
+    json.dump(out, f)
+finalize()
+"""
+
+
+def _records(step_dir, rank=0):
+    """{key: [placement, ...]} of the records in ``shard-<rank>.bin``."""
+    from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+    out = {}
+    for e in ShardedCheckpoint._scan_bin(
+            os.path.join(step_dir, f"shard-{rank}.bin")):
+        out.setdefault(e["key"], []).append(
+            [list(p) for p in e["placement"]])
+    return out
+
+
+def placement_gang(work):
+    """Two CUDA processes on this card over a gloo group (``launch_local``,
+    as gang_path's; no NCCL), each holding its 2 of the 4 parts of
+    ``Mesh((4,), ("data",))``: the 10^6-feature linear ``w`` (from one
+    seeded CUDA generator on both) under ``P("data")``, saved by
+    ``ShardedCheckpoint``. Each ``shard-<rank>.bin`` must hold exactly
+    its rank's placements, and the world-1 restore here must equal
+    ``w`` bit for bit."""
+    import torch
+    from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+    out_dir = os.path.join(work, "placed_gang")
+    os.makedirs(out_dir)
+    script = os.path.join(out_dir, "placement_gang_worker.py")
+    with open(script, "w") as f:
+        f.write(PLACEMENT_GANG_WORKER)
+    root = os.path.join(out_dir, "ckpt")
+    outs, secs = _gang(script, [root, out_dir, str(NUM_FEATURES),
+                                str(SEED + 24)], out_dir, "placed")
+    step_dir = os.path.join(root, "step-00000001")
+    quarter = NUM_FEATURES // 4
+    for o in outs:
+        want = [[[quarter * p, quarter * (p + 1)]]
+                for p in range(2 * o["rank"], 2 * o["rank"] + 2)]
+        got = _records(step_dir, o["rank"])
+        require(o["parts"] == list(range(2 * o["rank"], 2 * o["rank"] + 2))
+                and o["placements"] == want and got == {"w": want},
+                f"placement gang: rank {o['rank']} owns {o['parts']}, "
+                f"wrote {got}, want {want}")
+    cuda = torch.device("cuda")
+    w = torch.randn(NUM_FEATURES, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(SEED + 24))
+    ck = ShardedCheckpoint(root)
+    got, _ = ck.restore(like={"w": torch.zeros_like(w)})
+    require(torch.equal(got["w"], w),
+            "placement gang: the world-1 restore differs from the saved w")
+    shutil.rmtree(out_dir)
+    return {"spawn_to_exit_s": secs,
+            "save_s": [o["save_s"] for o in outs],
+            "restore_bytes_read": ck.last_restore_bytes_read}
+
+
+def placement_pipeline(linear, lr):
+    """The first PLACEMENT_BATCHES batches of the linear path's chain
+    through ``.to_device(sharding=NamedSharding(Mesh((4,), ("data",)),
+    P()))`` and through ``.to_device()``: every array one copy on the
+    card shared by the 4 parts, equal to the plain batch; then one step
+    of a fresh ``SparseLinearModel(10^6)`` on each path's first batch
+    (K1, K2, K8 and K9 once each), agreeing within the step
+    tolerance."""
+    import torch
+    from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.parallel.placement import NamedSharding, P
+    from dmlc_tpu_torch.parallel.sharded import Mesh
+    from dmlc_tpu_torch.pipeline import Pipeline
+    cuda = torch.device("cuda")
+    sharding = NamedSharding(Mesh((4,), ("data",), device=cuda), P())
+    batches = {}
+    for name, kw in (("placed", {"sharding": sharding}), ("plain", {})):
+        built = (Pipeline.from_uri(linear)
+                 .parse(format="libsvm", engine="native")
+                 .batch(ROW_BUCKET, pad=True, row_bucket=ROW_BUCKET,
+                        nnz_bucket=NNZ_BUCKET)
+                 .to_device(**kw).build())
+        it = iter(built)
+        batches[name] = [next(it) for _ in range(PLACEMENT_BATCHES)]
+        it.close()
+        built.close()
+    for placed, plain in zip(batches["placed"], batches["plain"]):
+        require(set(placed) == set(plain), f"placed batch keys {set(placed)}")
+        for k, v in placed.items():
+            shards = v.addressable_shards
+            require(len(shards) == 4 and v.device.type == "cuda"
+                    and len({id(s.data) for s in shards}) == 1
+                    and torch.equal(v.to_full(), plain[k]),
+                    f"placement pipeline: {k} differs from the plain batch "
+                    f"or is not one copy on the card")
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["linear"]}
+    for fn in wrappers.values():
+        fn.launches = 0
+    after = {}
+    for name in ("placed", "plain"):
+        batch = batches[name][0]
+        if name == "placed":
+            batch = {k: v.to_full() for k, v in batch.items()}
+        model = SparseLinearModel(NUM_FEATURES, learning_rate=lr,
+                                  device=cuda)
+        loss = model.train_step(batch)
+        after[name] = (loss.reshape(1).cpu(), model.w.detach().cpu(),
+                       model.b.detach().reshape(1).cpu())
+    for label, a, b in zip(("loss", "w", "b"), after["placed"],
+                           after["plain"]):
+        require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                f"placement pipeline: the step on the placed batch: {label} "
+                f"max |err| {(a - b).abs().max().item()}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    require(all(n == 2 for n in launches.values()),
+            f"placement pipeline: launches {launches}, want 2 of each")
+    return {"batches": PLACEMENT_BATCHES, "launches": launches,
+            "loss": float(after["plain"][0][0])}
+
+
+def placement_path(libfm, linear, lr, work, card):
+    """Phase 6b, the placement plane: ``SparseFFMModel(10^6, 39, K=4)`` at
+    full width held on ``Mesh((2, 2), ("data", "model"))`` on the card, V
+    (628 MB) a ``PlacedTensor`` under ``P("model")`` (2 slices of 314
+    MB), ``w`` and ``b`` replicated; saved by ``ShardedCheckpoint``: V
+    exactly 2 records (replica 0 only), each other leaf 1. Restored onto
+    ``Mesh((4,), ("model",))`` with ``sharding_tree``: the 4 slices equal
+    V bit for bit, each record read once (``last_restore_bytes_read`` at
+    most the state's bytes plus PLACEMENT_FRAMING a record); restored
+    again as whole leaves (``like=`` plain tensors on the card, a
+    one-part holding) reading the same bytes. One step on the first
+    libfm batch with V gathered from the 4 slices, and one on the saved
+    model, agree within the step tolerance, K6 forward and backward, K8
+    and K9 launching once in each. Then placement_gang and
+    placement_pipeline. Save and restore GB/s printed beside the card's
+    name and power limit."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+    from dmlc_tpu_torch.parallel.placement import NamedSharding, P
+    from dmlc_tpu_torch.parallel.placement import device_put
+    from dmlc_tpu_torch.parallel.sharded import Mesh
+    cuda = torch.device("cuda")
+    model = make_factor_model("ffm", lr)
+    mesh = Mesh((2, 2), ("data", "model"), device=cuda)
+    specs = {"V": P("model"), "w": P(), "b": P()}
+    state = model.state_dict()
+    require(set(state) == set(specs), f"FFM state keys {set(state)}")
+    placed = {k: device_put(v.detach(), NamedSharding(mesh, specs[k]),
+                            name=k) for k, v in state.items()}
+    half = NUM_FEATURES // 2
+    require([tuple(s.shape) for s in placed["V"].slices()]
+            == [(half, FFM_FIELDS, FFM_FACTORS)] * 2,
+            f"placed V slices {[s.shape for s in placed['V'].slices()]}")
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    root = os.path.join(work, "ckpt_placed")
+    ck = ShardedCheckpoint(root)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(1, placed)
+    save_s = time.perf_counter() - t0
+    step_dir = os.path.join(root, "step-00000001")
+    records = _records(step_dir)
+    rest = [[0, FFM_FIELDS], [0, FFM_FACTORS]]
+    require(sorted(os.listdir(step_dir)) == ["COMMIT", "meta.json",
+                                             "shard-0.bin",
+                                             "shard-0.idx.json"]
+            and records == {"V": [[[0, half]] + rest,
+                                  [[half, NUM_FEATURES]] + rest],
+                            "w": [[[0, NUM_FEATURES]]], "b": [[]]},
+            f"placement: the step directory holds {records}")
+    del placed
+    nrec = sum(len(v) for v in records.values())
+    mesh4 = Mesh((4,), ("model",), device=cuda)
+    t0 = time.perf_counter()
+    got, _ = ck.restore(like=state, sharding_tree={
+        k: NamedSharding(mesh4, P("model") if k == "V" else P())
+        for k in specs})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    read = ck.last_restore_bytes_read
+    V = model.V.detach()
+    quarter = NUM_FEATURES // 4
+    slices = got["V"].slices()
+    require(len(slices) == 4 and all(
+        torch.equal(s, V[i * quarter:(i + 1) * quarter])
+        for i, s in enumerate(slices)),
+        "placement: the 4 restored V slices differ from the saved V")
+    require(nbytes <= read <= nbytes + PLACEMENT_FRAMING * nrec,
+            f"placement: restore read {read} bytes of a {nbytes}-byte state "
+            f"in {nrec} records")
+    fresh = make_factor_model("ffm", lr)
+    with torch.no_grad():
+        fresh.V.zero_()
+    whole, _ = ck.restore(like=fresh.state_dict())
+    require(ck.last_restore_bytes_read == read
+            and all(torch.equal(whole[k], state[k]) for k in specs),
+            f"placement: the whole-leaf restore read "
+            f"{ck.last_restore_bytes_read} bytes (the sharded one {read}) "
+            "or differs")
+    del whole
+    with torch.no_grad():
+        for k in specs:
+            getattr(fresh, k).copy_(got[k].to_full())
+    del got, slices
+    shutil.rmtree(root)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(cuda)
+             for k, v in first_batch(libfm, "libfm").items()}
+    wrappers = {k: fn for k, fn in _wrappers().items()
+                if k in PATH_KERNELS["ffm"]}
+    out, launches = {}, {}
+    for name, m in (("saved", model), ("restored", fresh)):
+        for fn in wrappers.values():
+            fn.launches = 0
+        loss = m.train_step(batch)
+        torch.cuda.synchronize()
+        launches[name] = {k: fn.launches for k, fn in wrappers.items()}
+        out[name] = (loss.reshape(1).cpu(), m.V.detach()[:4096].cpu(),
+                     m.w.detach().cpu())
+    for label, a, b in zip(("loss", "V", "w"), out["restored"],
+                           out["saved"]):
+        require(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL),
+                f"placement: the FFM step on the gathered V: {label} max "
+                f"|err| {(a - b).abs().max().item()}")
+    for name, n in launches.items():
+        require(all(n[k] == 1 for k in ("ffm_pair_fwd", "ffm_pair_bwd",
+                                        "logistic_step", "sgd_update")),
+                f"placement: the {name} model's step launched {n}")
+    del model, fresh, state, V
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"placement: SparseFFMModel(10^6, 39, K=4) on Mesh((2, 2)), V "
+        f"under P('model') as 2 slices; {nbytes} bytes saved in "
+        f"{save_s:.4f} s ({nbytes / save_s / 1e9:.3f} GB/s; {nrec} "
+        f"records), restored onto Mesh((4,)) in {restore_s:.4f} s ({read} "
+        f"bytes read, {read / restore_s / 1e9:.3f} GB/s), 4 slices bit for "
+        f"bit; the FFM step on the gathered V agrees (loss "
+        f"{float(out['saved'][0][0]):.6f}); launches {launches}; card "
+        f"{card}")
+    gang = placement_gang(work)
+    log(f"placement gang: 2 ranks over gloo, w (10^6) under P('data') on "
+        f"Mesh((4,)), each shard file its rank's 2 placements, saved in "
+        f"{gang['save_s']} s, spawn to exit {gang['spawn_to_exit_s']:.1f} "
+        f"s; the world-1 restore bit for bit")
+    pipe = placement_pipeline(linear, lr)
+    log(f"placement pipeline: {pipe['batches']} batches through "
+        f"to_device(sharding=P()) equal to to_device()'s, one copy a "
+        f"batch on the card; a step on each agrees (loss "
+        f"{pipe['loss']:.6f}); launches {pipe['launches']}")
+    return {"bytes": nbytes, "records": nrec, "save_s": save_s,
+            "save_gbps": nbytes / save_s / 1e9, "restore_s": restore_s,
+            "restore_bytes_read": read,
+            "restore_gbps": read / restore_s / 1e9, "launches": launches,
+            "gang": gang, "pipeline": pipe}
 
 
 # --------------------------------------------------------------- phase 11
@@ -8841,6 +9174,8 @@ def main() -> None:
                            launches, stats[kind]["steps"])
         libfm_parity(path, LEARNING_RATE)
         stats["checkpoint_ffm"] = checkpoint_ffm(path, LEARNING_RATE, work)
+        stats["placement"] = placement_path(path, linear, LEARNING_RATE,
+                                            work, card)
         sharded_parity(path, "libfm", ("fm", "ffm"), mesh, LEARNING_RATE)
         rows += factor_rows
         os.unlink(path)

@@ -1,7 +1,11 @@
 """Worker for bench_suite config 20 (elastic_reshard).
 
 Copy of ``dmlc_tpu/bench_elastic_worker.py`` with its imports rewritten
-to ``dmlc_tpu_torch``: the same arc, constants and report.
+to ``dmlc_tpu_torch``: the same arc, constants and report. One change:
+once the grow marker exists, ranks 0 and 1 commit nothing until they
+have seen world 3, so the parts rank 2 adopts still hold its
+``LEAVE_AFTER`` batches on a loaded host (the reference's survivors
+race on and can leave it fewer).
 
 Run under ``parallel.launch_local(rendezvous=True, serve_ports=True)``
 as a REAL gang that lives through the full elastic arc:
@@ -67,10 +71,10 @@ def main() -> int:
     objstore.configure(block_bytes=256 << 10)
     serve_if_env()
 
+    marker = os.path.join(out_dir, GROW_MARKER)
     if rank == 2:
         # the late joiner: the gang runs at world 2 until rank 0 has
         # consumed enough to make the mid-epoch grow meaningful
-        marker = os.path.join(out_dir, GROW_MARKER)
         deadline = time.monotonic() + 120.0
         while not os.path.exists(marker):
             if time.monotonic() > deadline:
@@ -114,7 +118,15 @@ def main() -> int:
         return all(int(cli.progress.get(str(p), 0)) >= recs_per_part
                    for p in range(n_parts))
 
+    def grown() -> bool:
+        # the grow has happened once any delivered view held world 3;
+        # rank 2's report stands in for a join and leave that both fell
+        # between two of this rank's beats
+        return (any(w >= 3 for _, w in epochs)
+                or os.path.exists(os.path.join(out_dir, "elastic-2.json")))
+
     grow_written = False
+    grow_deadline = None
     total = n_parts * recs_per_part
     while cli.rank is not None and not done():
         # ONE consistent snapshot per pass: ownership, resume offset
@@ -125,6 +137,18 @@ def main() -> int:
         v = cli.view()
         if v["rank"] is None or v["epoch"] is None:
             break
+        if rank != 2 and v["world"] < 3 and not grown() \
+                and os.path.exists(marker):
+            # the marker is written: commit nothing more until rank 2
+            # is in, so the parts it adopts still hold its
+            # LEAVE_AFTER batches however loaded the host is
+            if grow_deadline is None:
+                grow_deadline = time.monotonic() + 120.0
+            if time.monotonic() > grow_deadline:
+                raise TimeoutError("the late joiner never joined")
+            cli.heartbeat()
+            time.sleep(0.02)
+            continue
         progressed = False
         for p in elastic.assign_parts(n_parts, v["world"], v["rank"]):
             start = elastic.resume_skip(v["progress"], p)
@@ -155,8 +179,7 @@ def main() -> int:
             got = sum(min(int(cli.progress.get(str(p), 0)),
                           recs_per_part) for p in range(n_parts))
             if got * 4 >= total:  # >= 25% consumed: grow now
-                with create_stream(os.path.join(out_dir, GROW_MARKER),
-                                   "w") as s:
+                with create_stream(marker, "w") as s:
                     s.write(b"1")
                 grow_written = True
         if rank == 2 and len(committed) >= LEAVE_AFTER:

@@ -25,6 +25,9 @@ on the card) where the reference reports one:
                replay the retained rounds
   8. page_replay — binary page cache replay → device memory, parse
                skipped (DiskRowIter pages; the repeated-epoch shape)
+  9. pipeline — the declarative Pipeline (parse → batch → prefetch,
+               autotuned over 3 epochs) on the criteo-shaped corpus, its
+               block stream's content hash equal to a direct parse
  10. spill_replay — page-SPILL steady replay: ShardedRowBlockIter
                forced over its agreement_cache_bytes budget, steady
                epochs served from the spilled round pages (the
@@ -35,6 +38,10 @@ on the card) where the reference reports one:
                the page store, three warm epochs with zero GETs, and
                the codec variant (level 6), every epoch sha256-held to
                the local file
+ 12. native_assembly — padded batches assembled in the engine (ABI 5)
+               vs the Python fused golden vs an unfused native parse vs
+               two native shards of one file, interleaved and
+               gauge-tagged, every stream sha256-identical
  13. analyze — one epoch of the criteo-shaped corpus (parse → padded
                batch, at least 24 MB) under a private 211 Hz sampling
                profiler, attributed by ``obs.analyze``: the verdict has
@@ -94,33 +101,39 @@ on the card) where the reference reports one:
                nor a peer
 
 Run: python -m dmlc_tpu_torch.bench_suite [--config N] [--mb MB]
-[--chaos PLAN]. ``--chaos`` arms a fault plan (the ``DMLC_TPU_FAULTS``
-grammar) for the whole run: each config's JSON gets a ``chaos`` section
-(the plan, its seed, and the faults injected and retries by site during
-that config), and a config that fails emits an ``error`` line while the
-next config still runs.
-Configs 4, 7, 8 and 10 copy to the card (config 4 as the reference's
-``--device`` run does; its parse-only form is not ported); configs 1,
-2, 3, 5, 6, 11, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22 and 23 are the
-reference's host-side measurements (read, parse, decode, the analysis
-planes' probes and the gangs' object-store and window traffic, no
-copy), as there. Configs 5 and 17 write
+[--device] [--cold] [--trace OUT_JSON] [--chaos PLAN]. ``--device`` makes
+config 4 copy its blocks to the card (without it config 4 only parses,
+as the reference's); each config but those in ``NO_WARMUP`` runs once
+as a warm-up before its measured run unless ``--cold``; ``--trace``
+records each measured run with ``obs.trace`` and writes its
+Chrome/Perfetto JSON (``OUT_JSON.configN.json`` when several run). The
+live telemetry planes install from their env vars (``serve_if_env``,
+then the scheduler, SLO, history, flight, gang, profile and control
+``install_if_env``), in the reference's order. ``--chaos`` arms a
+fault plan (the ``DMLC_TPU_FAULTS`` grammar) for the whole run: each
+config's JSON gets a ``chaos`` section (the plan, its seed, and the
+faults injected and retries by site during that config), and a config
+that fails emits an ``error`` line while the next config still runs.
+Configs 7, 8 and 10 copy to the card, and config 4 with ``--device``
+(or ``bench_prefetch(to_device=True)``, its default as a function);
+configs 1, 2, 3, 5, 6, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
+22 and 23 are the reference's host-side measurements (read, parse,
+decode, the analysis planes' probes and the gangs' object-store and
+window traffic, no copy), as there. Configs 5 and 17 write
 their corpora with pyarrow (``make_parquet``,
 ``make_parquet_decode_bound``), so they run only where pyarrow is
 installed: not on the card's machine, which has none.
 
-Trimmed from the reference: configs 9 and 12 (the bench twin's), the
-warm-up pass, ``--trace`` and the live telemetry opt-ins. Data files go
-under ``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a config is
-given a ``work`` directory. Configs 1, 2, 3, 5, 6, 14, 17, 18 and 23 write
-the reference's corpora (``make_libsvm`` at its a1a defaults,
-``make_csv``, ``make_recordio``, ``make_parquet``,
+Data files go under ``<tempdir>/dmlc_tpu_torch_bench_suite.*`` unless a
+config is given a ``work`` directory. Configs 1, 2, 3, 5, 6, 14, 17, 18
+and 23 write the reference's corpora (``make_libsvm`` at its a1a
+defaults, ``make_csv``, ``make_recordio``, ``make_parquet``,
 ``make_indexed_recordio``, ``make_dense_recordio``,
 ``make_parquet_decode_bound``, ``make_image_recordio``: the same bytes
 from the same seed; pyarrow's files the same tables). Configs 4, 7, 8,
-10, 11, 13, 15 and 16 read one corpus file, the reference's criteo shape
-from seed 7 (the file its configs 4, 9 and 12 share; it writes the same
-bytes under more names for 7, 8, 10 and 11):
+9, 10, 11, 12, 13, 15 and 16 read one corpus file, the reference's
+criteo shape from seed 7 (the file the reference's configs 4, 9 and 12
+share; it writes the same bytes under more names for 7, 8, 10 and 11):
 ``make_libsvm`` draws each row's indices by a permutation of 10^6, so
 writing it takes minutes whatever ``mb`` is, and a second copy would
 double that. Configs 8, 10, 14, 17 and 18 take the reference's
@@ -155,7 +168,8 @@ __all__ = ["make_libsvm", "make_csv", "make_recordio", "make_dense_recordio",
            "bench_elastic_reshard", "bench_global_shuffle",
            "bench_recio_native", "bench_analyze", "bench_control",
            "bench_multi_tenant", "bench_slo_burn",
-           "bench_parquet_native", "bench_image_record", "CONFIGS", "main"]
+           "bench_parquet_native", "bench_image_record", "bench_pipeline",
+           "bench_native_assembly", "CONFIGS", "main"]
 
 
 def _prefix(work: Optional[str]) -> str:
@@ -439,18 +453,19 @@ def _stage_line(parser_or_reader, size: int) -> Optional[str]:
 PREFETCH_IN_FLIGHT = 4  # device copies in flight a part (config 4)
 
 
-def bench_prefetch(mb: int, device=None,
-                   work: Optional[str] = None) -> Dict:
+def bench_prefetch(mb: int, device=None, work: Optional[str] = None,
+                   to_device: bool = True) -> Dict:
     """Multi-host shape: every part parsed with the prefetch pipeline
     (one process enumerates all part_index values). Parts run on
     CONCURRENT threads — the engine's calls release the GIL, so a
     multi-core host overlaps the per-part pipelines the way real hosts
-    would. Each part copies each block's offset, index and value to
-    ``device`` (``cuda`` unless the caller asks; the reference's
-    ``--device`` run) through its own pinned HostStaging pool and copy
-    stream, at most ``PREFETCH_IN_FLIGHT`` copies in flight: a block's
-    arrays are copied into a slot before the parser's next call, so no
-    copy reads an arena the parser reuses."""
+    would. With ``to_device`` (the reference's ``--device`` run) each
+    part copies each block's offset, index and value to ``device``
+    (``cuda`` unless the caller asks) through its own pinned HostStaging
+    pool and copy stream, at most ``PREFETCH_IN_FLIGHT`` copies in
+    flight: a block's arrays are copied into a slot before the parser's
+    next call, so no copy reads an arena the parser reuses. Without it
+    the parts only parse (the reference's run without ``--device``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dmlc_tpu_torch.data.parser import Parser
@@ -473,15 +488,18 @@ def bench_prefetch(mb: int, device=None,
     def run_part(k: int) -> int:
         rows = 0
         in_flight: List = []
-        pool = HostStaging(PREFETCH_IN_FLIGHT + 1, pin=on_cuda,
-                           alias_unsafe=not on_cuda)
-        stream = torch.cuda.Stream(dev) if on_cuda else None
+        if to_device:
+            pool = HostStaging(PREFETCH_IN_FLIGHT + 1, pin=on_cuda,
+                               alias_unsafe=not on_cuda)
+            stream = torch.cuda.Stream(dev) if on_cuda else None
         p = Parser.create(path, k, nhosts, format="libsvm",
                           chunk_size=32 << 20, nthreads=nthreads)
         try:
             while p.next():
                 b = p.value()
                 rows += b.size
+                if not to_device:
+                    continue
                 slot = pool.stage({"offset": b.offset, "index": b.index,
                                    "value": b.value})
                 out = copy_to_device(slot, dev, stream)
@@ -502,7 +520,7 @@ def bench_prefetch(mb: int, device=None,
     dt = time.perf_counter() - t0
     return {"config": "prefetch_criteo_multihost",
             "gbps": size / dt / 1e9, "bytes": size, "rows": sum(results),
-            "hosts": nhosts, "to_device": True,
+            "hosts": nhosts, "to_device": bool(to_device),
             "hash": _content_hash(path, "libsvm")}
 
 
@@ -740,6 +758,156 @@ def bench_spill_replay(mb: int, gauge_fn=None, replay_epochs: int = 5,
             "speedup_vs_parse": round(best / parse_gbps, 2),
             "rounds": spill_file.rounds,
             "platform": _platform(dev)}
+
+
+def bench_pipeline(mb: int, work: Optional[str] = None) -> Dict:
+    """Config 9: the declarative pipeline over config 4's criteo-shaped
+    corpus, ``Pipeline.from_uri → parse → batch → prefetch``. Three
+    epochs let the between-epoch autotuner act; the stage snapshot of
+    the best epoch and the autotune report ride in the JSON. Parity: the
+    pipeline's block stream concatenates to the SAME content hash as a
+    direct parse (batching must not change content). Host bytes: no
+    copy, as in the reference."""
+    from dmlc_tpu_torch.data.rowblock import RowBlockContainer
+    from dmlc_tpu_torch.pipeline import Pipeline
+
+    path = _criteo(_prefix(work), mb)
+    size = os.path.getsize(path)
+    built = (Pipeline.from_uri(path)
+             .parse(format="libsvm", engine="auto")
+             .batch(16 << 10)
+             .prefetch(depth="auto")
+             .build(autotune=True))
+    snaps = [built.run_epoch() for _ in range(3)]
+    best = min(s["wall_s"] for s in snaps)
+    best_snap = min(snaps, key=lambda s: s["wall_s"])
+    # parity pass (untimed): pipeline stream == direct parse, CSR-wise
+    c = RowBlockContainer(np.uint32)
+    for b in built:
+        c.push_block(b)
+    pipe_hash = c.get_block().content_hash()
+    report = built.autotune_report()
+    built.close()
+    parse_hash = _content_hash(path, "libsvm")
+    check(pipe_hash == parse_hash,
+          f"pipeline diverged from direct parse: {pipe_hash} != "
+          f"{parse_hash}")
+    return {"config": "pipeline_libsvm", "gbps": size / best / 1e9,
+            "bytes": size, "rows": best_snap["stages"][-1]["rows"],
+            "epoch_walls": [round(s["wall_s"], 3) for s in snaps],
+            "stages": best_snap["stages"],
+            "knobs": best_snap["knobs"],
+            "autotune": report,
+            "hash": pipe_hash}
+
+
+def bench_native_assembly(mb: int, gauge_fn=None,
+                          work: Optional[str] = None) -> Dict:
+    """Config 12: native ABI-5 batch assembly vs the Python fused golden,
+    one gauge-tagged run. Config 4's criteo-shaped corpus runs through
+    ``parse → batch(pad=True)`` three ways — engine=native (fused onto
+    ``dtp_parser_next_padded``: bucket-padded batches emitted straight
+    from the parse arena), engine=python (the ``pad_single`` fused
+    golden), and engine=native with ``shards=2`` (one file split across
+    two native parsers on aligned byte ranges, blocks reassembled in
+    shard order) — with every path's padded batches hashed in an UNTIMED
+    parity pass: all the streams must be byte-identical. The native
+    paths' epochs interleave (fused, unfused, sharded, fused, ...), each
+    gauge-tagged (``bench_transfer.memcpy_gauge`` by default). Host
+    bytes: no copy, as in the reference."""
+    import hashlib
+
+    from dmlc_tpu_torch import native
+    from dmlc_tpu_torch.pipeline import Pipeline
+
+    if gauge_fn is None:
+        from dmlc_tpu_torch.bench_transfer import memcpy_gauge
+        gauge_fn = memcpy_gauge
+    path = _criteo(_prefix(work), mb)
+    size = os.path.getsize(path)
+    rows = 8 << 10
+    nnz_bucket = rows * 45
+
+    def build(engine, shards=None, unfuse=False):
+        kw = {"shards": shards} if shards else {}
+        pl = Pipeline.from_uri(path).parse(format="libsvm",
+                                           engine=engine, **kw)
+        if unfuse:
+            # an identity map between parse and batch blocks the native
+            # fusion: same native parse, python-fused assembly — the
+            # honest denominator for the assembly rung alone
+            pl = pl.map(lambda b: b, name="unfuse")
+        return pl.batch(rows, pad=True, nnz_bucket=nnz_bucket).build()
+
+    def measure(built, state):
+        state.setdefault("walls", []).append(0.0)
+        state.setdefault("gauges", []).append(round(gauge_fn(), 2))
+        t0 = time.perf_counter()
+        for _ in built:
+            pass
+        state["walls"][-1] = time.perf_counter() - t0
+
+    def finish(built, state):
+        snap = built.stats()
+        apath = next((x["assembly_path"] for s in snap["stages"]
+                      if (x := s.get("extra") or {}).get("assembly_path")),
+                     None)
+        # untimed parity pass: hash every padded batch, array by array
+        h = hashlib.sha256()
+        n = 0
+        for b in built:
+            for k in sorted(b):
+                h.update(k.encode())
+                h.update(np.ascontiguousarray(b[k]).tobytes())
+            n += 1
+        built.close()
+        return {"gbps": round(size / min(state["walls"]) / 1e9, 4),
+                "epoch_walls": [round(w, 3) for w in state["walls"]],
+                "epoch_gauges": state["gauges"], "assembly_path": apath,
+                "batches": n, "hash": h.hexdigest()}
+
+    # the pure-python engine is the byte-parity GOLDEN, not a perf
+    # contender: one timed epoch for the record, its hash for the pins
+    py_built, py_state = build("python"), {}
+    measure(py_built, py_state)
+    py = finish(py_built, py_state)
+    out = {"config": "native_assembly", "bytes": size,
+           "rows": rows, "nnz_bucket": nnz_bucket,
+           "python": py, "gbps": py["gbps"], "hash": py["hash"]}
+    if native.native_available():
+        contenders = {"fused": build("native"),
+                      "unfused": build("native", unfuse=True),
+                      "sharded": build("native", shards=2)}
+        states = {k: {} for k in contenders}
+        for _ in range(3):
+            for k, b in contenders.items():
+                measure(b, states[k])
+        nat = finish(contenders["fused"], states["fused"])
+        unf = finish(contenders["unfused"], states["unfused"])
+        sh = finish(contenders["sharded"], states["sharded"])
+        check(nat["assembly_path"] == "native-padded",
+              f"native run fell back to {nat['assembly_path']}")
+        check(unf["assembly_path"] == "python-fused",
+              "unfused reference unexpectedly fused")
+        for name, r in (("native", nat), ("unfused", unf),
+                        ("sharded", sh)):
+            check(r["hash"] == py["hash"],
+                  f"{name} stream diverged from the python golden")
+        out.update({
+            "native": nat, "native_unfused": unf, "sharded": sh,
+            "gbps": nat["gbps"],
+            # native parse held constant: fused ABI-5 assembly vs the
+            # python-fused pad over the same native block stream
+            "speedup_fused_vs_unfused": round(
+                nat["gbps"] / unf["gbps"], 3),
+            # vs the pure-python ENGINE (parse + assembly both)
+            "speedup_native_vs_python": round(
+                nat["gbps"] / py["gbps"], 3)})
+    else:
+        out.update({"native": None, "native_unfused": None,
+                    "sharded": None, "speedup_fused_vs_unfused": None,
+                    "speedup_native_vs_python": None})
+    return out
 
 
 def bench_remote_hydrate(mb: int, work: Optional[str] = None) -> Dict:
@@ -2471,28 +2639,42 @@ def bench_slo_burn(mb: int, work: Optional[str] = None) -> Dict:
 
 
 CONFIGS = {
-    1: ("libsvm", lambda mb: bench_libsvm(mb)),
-    2: ("csv", lambda mb: bench_csv(mb)),
-    3: ("recordio", lambda mb: bench_recordio(mb)),
-    4: ("prefetch", lambda mb: bench_prefetch(mb)),
-    5: ("parquet", lambda mb: bench_parquet(mb)),
-    6: ("indexed_shuffled", lambda mb: bench_indexed_shuffled(mb)),
-    7: ("multiprocess", lambda mb: bench_multiprocess_ingest(mb)),
-    8: ("page_replay", lambda mb: bench_page_replay(mb)),
-    10: ("spill_replay", lambda mb: bench_spill_replay(mb)),
-    11: ("remote_hydrate", lambda mb: bench_remote_hydrate(mb)),
-    13: ("analyze", lambda mb: bench_analyze(mb)),
-    14: ("recio_native", lambda mb: bench_recio_native(mb)),
-    15: ("peer_hydrate", lambda mb: bench_peer_hydrate(mb)),
-    16: ("control", lambda mb: bench_control(mb)),
-    17: ("parquet_native", lambda mb: bench_parquet_native(mb)),
-    18: ("image_record", lambda mb: bench_image_record(mb)),
-    19: ("multi_tenant", lambda mb: bench_multi_tenant(mb)),
-    20: ("elastic_reshard", lambda mb: bench_elastic_reshard(mb)),
-    21: ("ckpt_restore_fanout", lambda mb: bench_ckpt_restore_fanout(mb)),
-    22: ("slo_burn", lambda mb: bench_slo_burn(mb)),
-    23: ("global_shuffle", lambda mb: bench_global_shuffle(mb)),
+    1: ("libsvm", lambda mb, dev: bench_libsvm(mb)),
+    2: ("csv", lambda mb, dev: bench_csv(mb)),
+    3: ("recordio", lambda mb, dev: bench_recordio(mb)),
+    4: ("prefetch", lambda mb, dev: bench_prefetch(mb, to_device=dev)),
+    5: ("parquet", lambda mb, dev: bench_parquet(mb)),
+    6: ("indexed_shuffled", lambda mb, dev: bench_indexed_shuffled(mb)),
+    7: ("multiprocess", lambda mb, dev: bench_multiprocess_ingest(mb)),
+    8: ("page_replay", lambda mb, dev: bench_page_replay(mb)),
+    9: ("pipeline", lambda mb, dev: bench_pipeline(mb)),
+    10: ("spill_replay", lambda mb, dev: bench_spill_replay(mb)),
+    11: ("remote_hydrate", lambda mb, dev: bench_remote_hydrate(mb)),
+    12: ("native_assembly", lambda mb, dev: bench_native_assembly(mb)),
+    13: ("analyze", lambda mb, dev: bench_analyze(mb)),
+    14: ("recio_native", lambda mb, dev: bench_recio_native(mb)),
+    15: ("peer_hydrate", lambda mb, dev: bench_peer_hydrate(mb)),
+    16: ("control", lambda mb, dev: bench_control(mb)),
+    17: ("parquet_native", lambda mb, dev: bench_parquet_native(mb)),
+    18: ("image_record", lambda mb, dev: bench_image_record(mb)),
+    19: ("multi_tenant", lambda mb, dev: bench_multi_tenant(mb)),
+    20: ("elastic_reshard", lambda mb, dev: bench_elastic_reshard(mb)),
+    21: ("ckpt_restore_fanout",
+         lambda mb, dev: bench_ckpt_restore_fanout(mb)),
+    22: ("slo_burn", lambda mb, dev: bench_slo_burn(mb)),
+    23: ("global_shuffle", lambda mb, dev: bench_global_shuffle(mb)),
 }
+
+# the configs whose measured run is not preceded by a warm-up pass: 7's
+# steady metric self-warms (epochs 2-3 of one gang), 8 takes best-of-3
+# replay epochs over a build it performs itself, 9 and 10 run several
+# epochs of one iterator, 11's cold epoch IS the measurement, 13's
+# verdict is no perf number, 14, 17 and 18 interleave 3 epochs a
+# contender, 15's gang manages its own cold and warm split, 16's
+# controller runs its own epoch sequence (a warm pass would pre-move its
+# knobs), 19 its own alone and contended segments, 20 and 21 whole
+# gangs, 22 its own phases (a warm pass would pre-burn the budget)
+NO_WARMUP = (7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -2501,6 +2683,15 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help=f"one of {sorted(CONFIGS)} (0 = all)")
     ap.add_argument("--mb", type=int, default=64,
                     help="approx data size per config in MB")
+    ap.add_argument("--device", action="store_true",
+                    help="include device transfer in config 4")
+    ap.add_argument("--cold", action="store_true",
+                    help="skip the warm-up pass (report first-run numbers)")
+    ap.add_argument("--trace", default=None, metavar="OUT_JSON",
+                    help="record the measured run of each config with "
+                         "the dmlc_tpu_torch.obs trace recorder and "
+                         "export Chrome/Perfetto trace-event JSON (one "
+                         "file per config when several run)")
     ap.add_argument("--chaos", default=None, metavar="PLAN",
                     help="arm a dmlc_tpu_torch.resilience fault plan "
                          "(DMLC_TPU_FAULTS grammar) for the whole "
@@ -2516,13 +2707,52 @@ def main(argv: Optional[List[str]] = None) -> None:
         chaos_plan = _inject.install(args.chaos)
         _log(f"chaos: fault plan armed: {chaos_plan.spec()} "
              f"(seed {chaos_plan.seed})")
+    # live telemetry opt-ins (no-ops without their env vars): a set
+    # DMLC_TPU_SERVE_PORT makes the running configs scrapeable
+    # (/metrics, /healthz), DMLC_TPU_FLIGHT_DIR leaves a post-mortem
+    # bundle if a config dies badly
+    from dmlc_tpu_torch.obs.aggregate import install_if_env as _gang_if_env
+    from dmlc_tpu_torch.obs.control import install_if_env as _ctl_if_env
+    from dmlc_tpu_torch.obs.flight import install_if_env
+    from dmlc_tpu_torch.obs.profile import install_if_env as _prof_if_env
+    from dmlc_tpu_torch.obs.serve import serve_if_env
+    from dmlc_tpu_torch.obs.slo import install_if_env as _slo_if_env
+    from dmlc_tpu_torch.obs.timeseries import install_if_env as _hist_if_env
+    from dmlc_tpu_torch.pipeline.scheduler import (
+        install_if_env as _sched_if_env,
+    )
+    srv = serve_if_env()
+    _sched_if_env()   # DMLC_TPU_SCHED: multi-tenant scheduler
+    _slo_if_env()     # DMLC_TPU_SLO: declared objectives on /slo
+    if srv is not None:
+        _log(f"obs status server: http://127.0.0.1:{srv.port}/metrics")
+    # history before flight: flight installs a 15 s ring only when none
+    # is running, so DMLC_TPU_HISTORY_S/_BYTES must win
+    _hist_if_env()
+    install_if_env()
+    _gang_if_env()
+    _prof_if_env()    # DMLC_TPU_PROFILE_HZ: /profile flamegraphs
+    _ctl_if_env()     # DMLC_TPU_CONTROL: verdict-driven controller
     picks = [args.config] if args.config else sorted(CONFIGS)
     for n in picks:
         name, fn = CONFIGS[n]
         _log(f"— config {n} ({name}), ~{args.mb} MB —")
         try:
-            out = fn(args.mb)
+            if not args.cold and n not in NO_WARMUP:
+                fn(args.mb, args.device)  # warm imports + page cache
+            trace_path = None
+            if args.trace:
+                trace_path = (args.trace if len(picks) == 1
+                              else f"{args.trace}.config{n}.json")
+                from dmlc_tpu_torch.obs.trace import trace_to
+                with trace_to(trace_path):
+                    out = fn(args.mb, args.device)
+                _log(f"obs trace -> {trace_path}")
+            else:
+                out = fn(args.mb, args.device)
             out["gbps"] = round(out["gbps"], 4)
+            if trace_path:
+                out["trace"] = trace_path
             if chaos_plan is not None:
                 # per-config DELTAS: cumulative totals would miscredit
                 # one config's faults/retries to every later config

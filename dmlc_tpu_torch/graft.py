@@ -130,6 +130,76 @@ def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:12]
 
 
+def _model_slices(w_placed, m: int, mesh) -> list:
+    """The ``m`` slices of ``w_placed`` (a 1-D leaf under ``P("model")``)
+    in model order: the owned ones as they are held, the others (a
+    process that owns fewer than ``m`` model coordinates, as each one of
+    a world of ``mesh.size`` does) all-gathered over ``mesh.group``."""
+    k = w_placed.shape[0] // m
+    held = {s.placement[0][0] // k: s.data
+            for s in w_placed.addressable_shards}
+    if len(held) == m:
+        return [held[j] for j in range(m)]
+    import torch.distributed as dist
+    from dmlc_tpu_torch.parallel.sharded import collective_device
+    cdev = collective_device(mesh)
+    # one row a model coordinate, its last column 1 where this rank
+    # holds that slice
+    buf = torch.zeros(m, k + 1, dtype=w_placed.dtype, device=cdev)
+    for j, t in held.items():
+        buf[j, :k] = t.detach().to(cdev)
+        buf[j, k] = 1
+    bufs = [torch.empty_like(buf) for _ in range(mesh.world)]
+    dist.all_gather(bufs, buf, group=mesh.group)
+    out = dict(held)
+    for b in bufs:
+        for j in range(m):
+            if j not in out and bool(b[j, k] == 1):
+                out[j] = b[j, :k].to(w_placed.device, copy=True)
+    assert len(out) == m, \
+        f"the gang holds {sorted(out)} of w's {m} model slices"
+    return [out[j] for j in range(m)]
+
+
+def model_axis_phase(path: str, n_parts: int, device, group=None,
+                     its=None) -> float:
+    """The dry run's 2-D (data x model) phase over the corpus at
+    ``path``: the weight vector held as M = 2 slices over the model axis
+    of a ``(n_parts // 2, 2)`` mesh (a PlacedTensor under
+    ``NamedSharding(mesh2, P("model"))``; slices this process does not
+    own are gathered over ``group``), concatenated before K1; K2's
+    gradient splits back to the slices. Loss and gradients must match
+    the unsharded computation on this process's batch. Returns the
+    loss; the iterator it opens is appended to ``its`` to be closed."""
+    from dmlc_tpu_torch.parallel.placement import NamedSharding, P, device_put
+    from dmlc_tpu_torch.parallel.sharded import Mesh, ShardedRowBlockIter
+    m = 2
+    mesh2 = Mesh((n_parts // 2, m), ("data", "model"), group=group,
+                 device=device)
+    it2 = ShardedRowBlockIter(path, mesh2, format="libsvm",
+                              row_bucket=ROW_BUCKET, nnz_bucket=NNZ_BUCKET)
+    if its is not None:
+        its.append(it2)
+    b2 = next(iter(it2))
+    w0 = torch.from_numpy(np.random.RandomState(11).randn(
+        NUM_FEATURES).astype(np.float32)).to(device)
+    w_placed = device_put(w0, NamedSharding(mesh2, P("model")), name="w")
+    slices = [s.requires_grad_(True)
+              for s in _model_slices(w_placed, m, mesh2)]
+    b_tp = torch.tensor(0.25, device=device, requires_grad=True)
+    l_tp = _golden_loss(torch.cat(slices), b_tp, b2)
+    grads = torch.autograd.grad(l_tp, slices + [b_tp])
+    gw, gb = torch.cat(grads[:m]), grads[m]
+    w_ref = w0.clone().requires_grad_(True)
+    b_ref = torch.tensor(0.25, device=device, requires_grad=True)
+    l_ref = _golden_loss(w_ref, b_ref, b2)
+    gw_ref, gb_ref = torch.autograd.grad(l_ref, (w_ref, b_ref))
+    for got, want in ((l_tp, l_ref), (gw, gw_ref), (gb, gb_ref)):
+        torch.testing.assert_close(got.detach(), want.detach(),
+                                   rtol=RTOL, atol=ATOL)
+    return float(l_tp.detach())
+
+
 def dryrun_multichip(n_parts: int, device=None, group=None
                      ) -> Dict[str, Any]:
     """The data-parallel dry run over a mesh of ``n_parts`` parts on
@@ -197,38 +267,12 @@ def dryrun_multichip(n_parts: int, device=None, group=None
                                    rtol=RTOL, atol=ATOL)
         dm, dg = _digest(w_mesh), _digest(w_gold)
 
-        # the 2-D (data x model) phase: the weight vector held as M = 2
-        # slices over the model axis, gathered before K1; K2's gradient
-        # splits back to the slices. Loss and gradients must match the
-        # unsharded computation on the same batch
         tp_note = ""
         if n_parts >= 4 and n_parts % 2 == 0:
-            m = 2
-            mesh2 = Mesh((n_parts // 2, m), ("data", "model"), group=group,
-                         device=device)
-            it2 = ShardedRowBlockIter(path, mesh2, format="libsvm",
-                                      row_bucket=ROW_BUCKET,
-                                      nnz_bucket=NNZ_BUCKET)
-            its.append(it2)
-            b2 = next(iter(it2))
-            w0 = torch.from_numpy(np.random.RandomState(11).randn(
-                NUM_FEATURES).astype(np.float32)).to(device)
-            slices = [s.clone().requires_grad_(True)
-                      for s in w0.chunk(mesh2.parts("model"))]
-            b_tp = torch.tensor(0.25, device=device, requires_grad=True)
-            l_tp = _golden_loss(torch.cat(slices), b_tp, b2)
-            grads = torch.autograd.grad(l_tp, slices + [b_tp])
-            gw, gb = torch.cat(grads[:m]), grads[m]
-            w_ref = w0.clone().requires_grad_(True)
-            b_ref = torch.tensor(0.25, device=device, requires_grad=True)
-            l_ref = _golden_loss(w_ref, b_ref, b2)
-            gw_ref, gb_ref = torch.autograd.grad(l_ref, (w_ref, b_ref))
-            for got, want in ((l_tp, l_ref), (gw, gw_ref), (gb, gb_ref)):
-                torch.testing.assert_close(got.detach(), want.detach(),
-                                           rtol=RTOL, atol=ATOL)
-            tp_note = (f"; model-axis phase OK (2-D {n_parts // 2}x{m} "
-                       f"data*model mesh, w held as {m} slices, loss+grad "
-                       f"parity {float(l_tp.detach()):.4f})")
+            l_tp = model_axis_phase(path, n_parts, device, group, its)
+            tp_note = (f"; model-axis phase OK (2-D {n_parts // 2}x2 "
+                       f"data*model mesh, w held as 2 slices, loss+grad "
+                       f"parity {l_tp:.4f})")
         print(f"dryrun_multichip({n_parts}) on {device}: loss {l0:.4f} -> "
               f"{l5:.4f} OK ({len(batches)} batches through the "
               f"file→mesh stack); steady replay OK ({it.replay_epochs} "

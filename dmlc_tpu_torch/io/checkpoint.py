@@ -39,23 +39,28 @@ of the wire, at any world size, different from the saving gang's or
 not. Inside a rendezvous gang, ``meta.json`` carries the membership
 stamp (``rendezvous.elastic.gang_metadata``) of the gang that saved.
 
+Sharded leaves are the port's :class:`~dmlc_tpu_torch.parallel.
+placement.PlacedTensor` (a ``NamedSharding`` over the part mesh): each
+process writes one record for each part it owns whose ``replica_id`` is
+0, with that part's placement, so the replica-0 records of all ranks
+tile the leaf exactly, as the reference writes a sharded ``jax.Array``;
+a plain tensor or array is written whole by rank 0. ``restore(like=,
+sharding_tree=)`` brings a leaf whose target is a ``NamedSharding``
+(from ``sharding_tree``, or a ``PlacedTensor`` leaf of ``like``) back as
+a ``PlacedTensor`` built from only the records that intersect this
+process's owned slices, each record read once a leaf; a step directory
+written by either package for the same tree is byte-identical.
+
 Where the port differs from the reference:
 
 - the tree walk is the port's own (``_flatten``): dict keys in sorted
   order, as jax sorts them (an ``OrderedDict`` such as a ``state_dict``
   too), sequence positions by index, keys joined with ``/``;
-- the port's models are replicated across ranks, so a leaf is written
-  whole by rank 0 with the full placement (the reference writes replica 0
-  of each shard of a sharded ``jax.Array``); restore still assembles
-  leaves from any placements, so a reference checkpoint whose leaves
-  were sharded over several devices restores here;
-- restored leaves are tensors on the device of ``like``'s leaf (numpy
-  arrays where ``like``'s leaf is not a tensor, or with no ``like``);
+- a restored leaf without a target sharding is a tensor on the device
+  of ``like``'s tensor leaf (read from only the records that intersect
+  it), else a numpy array (and every leaf with no ``like``);
 - ranks meet at ``torch.distributed.barrier()`` when a group of more than
   one rank exists.
-
-Trimmed from the reference: ``sharding_tree``, which raises
-``DMLCError("... not ported ...")`` (it waits for a placement plane).
 
 As in the reference, ``save_pytree`` and ``load_pytree`` are resilience
 seams (``checkpoint.save``, ``checkpoint.restore``: the whole file is
@@ -83,6 +88,9 @@ import torch
 
 from dmlc_tpu_torch.io.stream import MemoryStream, create_stream
 from dmlc_tpu_torch.obs import trace as _trace
+from dmlc_tpu_torch.parallel.placement import (
+    NamedSharding, PlacedTensor, device_put,
+)
 from dmlc_tpu_torch.resilience.policy import guarded
 from dmlc_tpu_torch.utils import serializer as ser
 from dmlc_tpu_torch.utils.json_util import json_dump, json_load
@@ -142,10 +150,6 @@ def _stamp_gang(meta: Dict[str, Any]) -> None:
         pass
 
 
-def _not_ported(what: str) -> DMLCError:
-    return DMLCError(f"checkpoint: {what} is not ported to dmlc_tpu_torch")
-
-
 def _intersect(a: tuple, b: tuple) -> Optional[tuple]:
     """Intersection of two per-dim (start, stop) span tuples; None when
     empty. Scalars (zero-dim, empty tuples) always intersect."""
@@ -197,10 +201,25 @@ def _unflatten(like: Any, values: Dict[str, Any],
 
 
 def _host(leaf: Any) -> np.ndarray:
-    """A leaf's bytes on the host: a tensor leaves its device."""
+    """A leaf's bytes on the host: a tensor leaves its device, a
+    placed leaf is gathered."""
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
+    if isinstance(leaf, PlacedTensor):
+        return leaf.gather()
     return np.asarray(leaf)
+
+
+def _staged(leaf: Any) -> Any:
+    """A leaf as a sharded save writes it: a placed leaf stays on its
+    device (each rank writes only its records), any other on the host."""
+    return leaf if isinstance(leaf, PlacedTensor) else _host(leaf)
+
+
+def _leaf_meta(key: str, leaf: Any) -> Dict[str, Any]:
+    """A staged leaf's ``meta.json`` entry: the global shape and dtype."""
+    dtype = leaf.np_dtype if isinstance(leaf, PlacedTensor) else leaf.dtype
+    return {"key": key, "shape": list(leaf.shape), "dtype": dtype.str}
 
 
 def _like_leaf(proto: Any, arr: np.ndarray) -> Any:
@@ -364,8 +383,9 @@ class ShardedCheckpoint:
               "checkpoint: writer/num_writers apply to remote (obj://) "
               "roots; local saves shard by the torch.distributed rank")
         rank, world = _rank_world()
-        # each leaf on the host once (a tensor leaves its device here)
-        leaves = [(k, _host(leaf)) for k, leaf in _flatten(tree)]
+        # each unplaced leaf on the host once (a tensor leaves its
+        # device here); a placed leaf's owned records leave it one by one
+        leaves = [(k, _staged(leaf)) for k, leaf in _flatten(tree)]
         final = self._step_dir(step)
         # Every save builds in step-N.new and swaps it in only after ITS
         # commit, whatever the filesystem says of step-N (ranks on a
@@ -438,9 +458,7 @@ class ShardedCheckpoint:
                 "version": _FORMAT_VERSION,
                 "step": step,
                 "num_processes": world,
-                "leaves": [{"key": k, "shape": list(leaf.shape),
-                            "dtype": leaf.dtype.str}
-                           for k, leaf in leaves],
+                "leaves": [_leaf_meta(k, leaf) for k, leaf in leaves],
                 "user": metadata or {},
             }
             _stamp_gang(meta)
@@ -474,13 +492,20 @@ class ShardedCheckpoint:
 
     @staticmethod
     def _addressable_shards(leaf: Any):
-        """[(placement, data)] this rank writes for ``leaf``, a placement
-        being ((start, stop), ...) per dim of the full array: rank 0
-        writes the leaf whole (the port's parameters are replicated, so
-        one copy a checkpoint, as the reference writes replica 0)."""
-        arr = _host(leaf)
-        placement = tuple((0, s) for s in arr.shape)
-        return [(placement, arr)] if _rank_world()[0] == 0 else []
+        """[(placement, data)] this rank writes for a staged ``leaf``, a
+        placement being ((start, stop), ...) per dim of the full array.
+
+        Only replica 0 of each datum is written: a ``PlacedTensor``
+        gives one record for each owned part whose ``replica_id`` is 0
+        (so the replica-0 records of all ranks tile the leaf exactly,
+        whatever the mesh), any other leaf one whole record from rank
+        0."""
+        if isinstance(leaf, PlacedTensor):
+            return [(sh.placement, _host(sh.data))
+                    for sh in leaf.addressable_shards
+                    if sh.replica_id == 0]
+        placement = tuple((0, s) for s in leaf.shape)
+        return [(placement, leaf)] if _rank_world()[0] == 0 else []
 
     @staticmethod
     def _barrier() -> None:
@@ -493,11 +518,18 @@ class ShardedCheckpoint:
     @_spanned("checkpoint.restore")
     def restore(self, step: Optional[int] = None, like: Any = None,
                 sharding_tree: Any = None) -> Tuple[Any, Dict[str, Any]]:
-        """Load (tree, user_metadata). ``like`` supplies the structure:
-        each of its tensor leaves comes back as a tensor of the stored
-        dtype on that leaf's device, rebuilt from only the stored
-        records that intersect it (seeking via the shard-*.idx.json byte
-        index); other leaves, or every leaf with ``like=None``, come
+        """Load (tree, user_metadata). ``like`` supplies the structure
+        (and shardings, where its leaves are ``PlacedTensor``s);
+        ``sharding_tree`` overrides the shardings: a tree of
+        ``NamedSharding`` (or None) leaves under the same keys.
+
+        A leaf with a target sharding comes back as a ``PlacedTensor``
+        built from only the stored records that intersect this
+        process's owned slices (seeking via the shard-*.idx.json byte
+        index), each record read once and each distinct slice built
+        once. A tensor leaf of ``like`` without one comes back as a
+        tensor of the stored dtype on that leaf's device, rebuilt the
+        same way; other leaves, or every leaf with ``like=None``, come
         back as host arrays, reading only the keys asked for.
         ``last_restore_bytes_read`` records the data bytes read (on a
         remote root also split by source, ``last_restore_local_bytes``
@@ -510,8 +542,6 @@ class ShardedCheckpoint:
         adopted by the resumed run. Only files whose recorded fingerprint
         fails a re-stat (plus crashed writers' orphaned .tmp files) are
         deleted."""
-        if sharding_tree is not None:
-            raise _not_ported("restore(sharding_tree=)")
         try:
             from dmlc_tpu_torch.data.row_iter import sweep_stale_spill
             sweep_stale_spill()
@@ -550,22 +580,39 @@ class ShardedCheckpoint:
             host = self._assemble_full(index, meta_shapes, meta_dtypes)
             return host, meta.get("user", {})
         leaves = _flatten(like)
-        on_device = {key for key, proto in leaves
-                     if isinstance(proto, torch.Tensor)
-                     and key in index and key in meta_shapes}
-        full_keys = [key for key, _ in leaves if key not in on_device]
+        shardings = (dict(_flatten(sharding_tree))
+                     if sharding_tree is not None else None)
+
+        def _target(key, proto):
+            # a NamedSharding, a device (a tensor leaf), or None (host)
+            if shardings is not None and shardings.get(key) is not None:
+                return shardings[key]
+            if shardings is None and isinstance(proto, PlacedTensor):
+                return proto.sharding
+            if isinstance(proto, torch.Tensor):
+                return proto.device
+            return None
+
+        targets = {key: _target(key, proto) for key, proto in leaves}
+        local = {key for key, t in targets.items()
+                 if t is not None and key in index and key in meta_shapes}
+        full_keys = [key for key, _ in leaves if key not in local]
         full_cache = (self._assemble_full(index, meta_shapes, meta_dtypes,
                                           keys=full_keys)
                       if full_keys else {})
         values = {}
         for key, proto in leaves:
-            if key in on_device:
+            target = targets[key]
+            if key in local:
                 values[key] = self._restore_sharded(
                     index, key, meta_shapes[key], meta_dtypes[key],
-                    proto.device)
+                    target)
                 continue
             check(key in full_cache, f"checkpoint missing leaf {key!r}")
-            values[key] = _like_leaf(proto, full_cache[key])
+            full = full_cache[key]
+            values[key] = (device_put(full, target, name=key)
+                           if isinstance(target, NamedSharding)
+                           else _like_leaf(proto, full))
         return _unflatten(like, values), meta.get("user", {})
 
     def prefetch(self, step: Optional[int] = None) -> None:
@@ -675,36 +722,54 @@ class ShardedCheckpoint:
         return data
 
     def _restore_sharded(self, index: Dict[str, List[dict]], key: str,
-                         shape: tuple, dtype, device: torch.device
-                         ) -> torch.Tensor:
-        """One leaf as a tensor on ``device``, assembled on the host from
-        only the stored records that intersect it (the whole leaf: this
-        rank holds the parameters replicated), each read once."""
-        spans = tuple((0, s) for s in shape)
+                         shape: tuple, dtype, target) -> Any:
+        """One leaf rebuilt from only the stored records that intersect
+        what this process holds: under a ``NamedSharding`` target its
+        owned slices, as a ``PlacedTensor`` on the mesh's device; under
+        a device, the whole leaf as a tensor there."""
+        placed = isinstance(target, NamedSharding)
+        if placed:
+            wanted = list(target.addressable_placements(shape, key).values())
+        else:
+            wanted = [tuple((0, s) for s in shape)]
         streams: Dict[str, Any] = {}
+        slice_cache: Dict[tuple, np.ndarray] = {}  # equal spans built once
+        # each stored record read once per leaf even when several spans
+        # intersect it (a replicated-saved leaf onto a sharded target)
         read_cache: Dict[tuple, np.ndarray] = {}
         try:
-            local = np.empty(tuple(shape), dtype)
-            filled = 0
-            for entry in index.get(key, []):
-                inter = _intersect(spans, entry["placement"])
-                if inter is None:
+            for spans in wanted:
+                if spans in slice_cache:
                     continue
-                data = self._read_entry(streams, entry, read_cache)
-                dst = tuple(slice(lo - start, hi - start)
-                            for (lo, hi), (start, _) in zip(inter, spans))
-                src = tuple(slice(lo - pstart, hi - pstart)
-                            for (lo, hi), (pstart, _) in zip(
-                                inter, entry["placement"]))
-                local[dst] = data[src]
-                filled += local[dst].size
-            check_eq(filled, local.size,
-                     f"leaf {key!r}: stored shards do not cover this "
-                     "process's slice")
+                local = np.empty(
+                    tuple(stop - start for start, stop in spans), dtype)
+                filled = 0
+                for entry in index.get(key, []):
+                    inter = _intersect(spans, entry["placement"])
+                    if inter is None:
+                        continue
+                    data = self._read_entry(streams, entry, read_cache)
+                    dst = tuple(slice(lo - start, hi - start)
+                                for (lo, hi), (start, _) in zip(inter,
+                                                                spans))
+                    src = tuple(slice(lo - pstart, hi - pstart)
+                                for (lo, hi), (pstart, _) in zip(
+                                    inter, entry["placement"]))
+                    local[dst] = data[src]
+                    filled += local[dst].size
+                check_eq(filled, local.size,
+                         f"leaf {key!r}: stored shards do not cover this "
+                         "process's slice")
+                slice_cache[spans] = local
         finally:
             for s in streams.values():
                 s.close()
-        return torch.from_numpy(local).to(device)
+        device = target.device if placed else target
+        tensors = {sp: torch.from_numpy(arr).to(device)
+                   for sp, arr in slice_cache.items()}
+        if placed:
+            return PlacedTensor(shape, target, tensors, key)
+        return tensors[wanted[0]]
 
     def _assemble_full(self, index: Dict[str, List[dict]],
                        meta_shapes: Dict[str, tuple],
@@ -868,7 +933,7 @@ class ShardedCheckpoint:
                 c.delete(self._bucket, self._key(f"{sd}/COMMIT"))
             except Exception:  # noqa: BLE001 — probe is best-effort
                 pass
-        leaves = [(k, _host(leaf)) for k, leaf in _flatten(tree)]
+        leaves = [(k, _staged(leaf)) for k, leaf in _flatten(tree)]
         store = self._pages_store()
         written = reused = 0
         entries = []
@@ -955,9 +1020,7 @@ class ShardedCheckpoint:
             "version": _FORMAT_VERSION,
             "step": step,
             "num_processes": num_writers,
-            "leaves": [{"key": k, "shape": list(leaf.shape),
-                        "dtype": leaf.dtype.str}
-                       for k, leaf in leaves],
+            "leaves": [_leaf_meta(k, leaf) for k, leaf in leaves],
             "user": metadata or {},
         }
         _stamp_gang(meta)

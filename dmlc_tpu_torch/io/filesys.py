@@ -7,10 +7,13 @@ FileInfo{path,size,type}; src/io/local_filesys.{h,cc}.
 ``file://`` (and bare paths) is registered here; ``cuda://``
 (io/cuda_fs.py) and ``obj://`` with its ``s3://`` alias
 (io/objstore) register themselves when ``dmlc_tpu_torch`` is imported.
-Every other scheme (``hdfs://``, ``azure://``, ``gs://``) raises a
-DMLCError saying it is not ported yet. A local stat and a directory
-listing are the reference's resilience seams (``io.filesys.stat``,
-``io.filesys.list``).
+Cloud backends (HDFS, Azure, GCS; reference src/io/{hdfs,azure}_filesys.cc)
+are a plugin seam, as in the reference: ``s3://``, ``hdfs://``,
+``azure://`` and ``gs://`` are pre-registered with stub factories that
+raise a DMLCError telling the user how to register a real implementation
+(``FileSystem.register_scheme``); the object-store plane registers over
+the ``s3://`` stub. A local stat and a directory listing are the
+reference's resilience seams (``io.filesys.stat``, ``io.filesys.list``).
 """
 
 from __future__ import annotations
@@ -102,8 +105,8 @@ class FileSystem:
             if allow_null:
                 return None
             raise DMLCError(
-                f"filesystem protocol {uri.protocol!r} is not ported to "
-                f"dmlc_tpu_torch yet; registered: {sorted(cls._schemes)}")
+                f"unknown filesystem protocol {uri.protocol!r}; registered: "
+                f"{sorted(cls._schemes)}")
         inst = factory()
         cls._instances[uri.protocol] = inst
         return inst
@@ -154,4 +157,39 @@ class LocalFileSystem(FileSystem):
         return guarded("io.filesys.list", scan)
 
 
+class _StubFileSystem(FileSystem):
+    """Pre-registered cloud scheme with no backend in this build (the
+    reference's s3/hdfs/azure filesystems need libcurl or libhdfs); a
+    real implementation plugs in via ``FileSystem.register_scheme``."""
+
+    def __init__(self, protocol: str, hint: str):
+        self.protocol = protocol
+        self.hint = hint
+
+    def _fail(self):
+        raise DMLCError(
+            f"filesystem {self.protocol!r} has no backend in this build "
+            f"({self.hint}). Register one with FileSystem.register_scheme"
+            f"({self.protocol!r}, factory).")
+
+    def open(self, uri, mode):
+        self._fail()
+
+    def open_for_read(self, uri):
+        self._fail()
+
+    def get_path_info(self, uri):
+        self._fail()
+
+    def list_directory(self, uri):
+        self._fail()
+
+
 FileSystem.register_scheme("file://", LocalFileSystem)
+for _proto, _hint in (
+        ("s3://", "reference: src/io/s3_filesys.cc, needs HTTP+HMAC"),
+        ("hdfs://", "reference: src/io/hdfs_filesys.cc, needs libhdfs"),
+        ("azure://", "reference: src/io/azure_filesys.cc"),
+        ("gs://", "GCS plugin seam (no reference counterpart)")):
+    FileSystem.register_scheme(
+        _proto, (lambda p=_proto, h=_hint: _StubFileSystem(p, h)))

@@ -122,7 +122,7 @@ def stat_uri(uri: str) -> Tuple[int, int, int, int]:
     schemes stat through their FileSystem (``get_path_info``), reporting
     0 for the fields object stores do not have. Raises OSError for
     missing local files, FileNotFoundError/DMLCError from remote
-    backends (DMLCError also for a scheme that is not ported)."""
+    backends (DMLCError also for an unknown scheme or a stub one)."""
     from dmlc_tpu_torch.io.cuda_fs import local_path
     from dmlc_tpu_torch.io.filesys import URI, FileSystem
     u = URI(local_path(uri))

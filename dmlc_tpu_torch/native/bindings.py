@@ -18,8 +18,10 @@ the obs metrics registry (``native/<format>``, ``native/recordio``)
 until ``destroy()``, as the reference's do. The engine's phase beacons
 (``prof_read``, ``dtp_parser_set_shard`` on a sharded parser's subs)
 feed the sampling profiler's ``native:*`` leaves (``obs/profile.py``).
-Trimmed from ``dmlc_tpu/native/bindings.py``: the float-parse probe and
-the test hooks.
+``native_parse_float32`` and ``native_parse_float64`` are the engine's
+float parse as a probe against the Python golden; a text parser's
+``set_test_delay_ms`` and ``set_test_touch_rounds`` are the reference's
+test hooks for the pipeline-scaling proof.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ __all__ = ["load", "BlockLease", "NativeTextParser", "NativeLibSVMParser",
            "NativeCSVParser", "NativeLibFMParser", "NativeDenseRecordParser",
            "NativeImageRecordParser", "NativeParquetParser",
            "NativeShardedTextParser", "NativeRecordIOReader",
-           "NativeIndexedRecordIOReader", "columns_interleave",
-           "prof_read"]
+           "NativeIndexedRecordIOReader", "native_parse_float32",
+           "native_parse_float64", "columns_interleave", "prof_read"]
 
 _lib = None
 
@@ -126,6 +128,8 @@ def load(path: str):
         C.POINTER(C.c_void_p), C.POINTER(C.c_int32), C.c_int64, C.c_int64,
         C.POINTER(C.c_float)]
     lib.dtp_parser_stats.argtypes = [C.c_void_p, C.POINTER(C.c_int64)]
+    lib.dtp_parser_set_test_delay_ms.argtypes = [C.c_void_p, C.c_int]
+    lib.dtp_parser_set_test_touch_rounds.argtypes = [C.c_void_p, C.c_int]
     lib.dtp_parser_bytes_read.restype = C.c_int64
     lib.dtp_parser_bytes_read.argtypes = [C.c_void_p]
     lib.dtp_parser_destroy.argtypes = [C.c_void_p]
@@ -161,6 +165,12 @@ def load(path: str):
     lib.dtp_recidx_bytes_read.restype = C.c_int64
     lib.dtp_recidx_bytes_read.argtypes = [C.c_void_p]
     lib.dtp_recidx_destroy.argtypes = [C.c_void_p]
+    lib.dtp_parse_float32.restype = C.c_int
+    lib.dtp_parse_float32.argtypes = [C.c_char_p, C.c_int64,
+                                      C.POINTER(C.c_float)]
+    lib.dtp_parse_float64.restype = C.c_int
+    lib.dtp_parse_float64.argtypes = [C.c_char_p, C.c_int64,
+                                      C.POINTER(C.c_double)]
     lib.dtp_trace_set_enabled.argtypes = [C.c_int]
     lib.dtp_trace_enabled.restype = C.c_int
     lib.dtp_now_ns.restype = C.c_int64
@@ -233,6 +243,24 @@ def columns_interleave(cols) -> np.ndarray:
     lib.dtp_columns_interleave(ptrs, dts, ncol, nrow,
                                out.ctypes.data_as(C.POINTER(C.c_float)))
     return out
+
+
+def native_parse_float32(token: bytes) -> np.float32:
+    """Engine-side float parse (parity probe against the Python golden)."""
+    lib = _get_lib()
+    out = C.c_float()
+    if not lib.dtp_parse_float32(token, len(token), C.byref(out)):
+        raise ValueError(f"native: invalid float literal {token!r}")
+    return np.float32(out.value)
+
+
+def native_parse_float64(token: bytes) -> np.float64:
+    """The float64 twin of :func:`native_parse_float32`."""
+    lib = _get_lib()
+    out = C.c_double()
+    if not lib.dtp_parse_float64(token, len(token), C.byref(out)):
+        raise ValueError(f"native: invalid float literal {token!r}")
+    return np.float64(out.value)
 
 
 class BlockLease:
@@ -582,6 +610,18 @@ class NativeTextParser(Parser):
         so every byte-range sub-parser fills its bounded window while
         the consumer drains them in order. No-op while running."""
         self._lib.dtp_parser_start(self._handle)
+
+    def set_test_delay_ms(self, ms: int) -> None:
+        """Test hook: add a per-chunk parse delay (pipeline-scaling proof
+        on single-core hosts)."""
+        self._lib.dtp_parser_set_test_delay_ms(self._handle, int(ms))
+
+    def set_test_touch_rounds(self, rounds: int) -> None:
+        """Test hook: FNV-checksum every chunk byte ``rounds`` times per
+        chunk before parsing: real byte-touching work for the scaling
+        proof."""
+        self._lib.dtp_parser_set_test_touch_rounds(self._handle,
+                                                   int(rounds))
 
     def outstanding(self) -> int:
         """Leases currently held by consumers (CSR arenas + padded

@@ -65,8 +65,10 @@ python parse engine, with its watermark in the parse stage's extras;
 ``build(tenant=...)`` admits the compiled pipeline under a tenant of the
 installed :mod:`dmlc_tpu_torch.pipeline.scheduler`, which bills every
 delivered batch one pull credit and owns the queue-capacity knobs.
-``to_device(sharding=...)`` is not ported (it raises a DMLCError that
-says so); ``shuffle`` with ``cache`` keeps the reference's own refusal.
+``to_device(sharding=...)`` places every array of a batch under a
+:class:`~dmlc_tpu_torch.parallel.placement.NamedSharding` (each a
+``PlacedTensor`` on the mesh's device); ``shuffle`` with ``cache`` keeps
+the reference's own refusal.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from dmlc_tpu_torch.parallel.device_iter import (
     DeviceBatch, copy_to_device, wait_copy,
 )
+from dmlc_tpu_torch.parallel.placement import NamedSharding, device_put
 from dmlc_tpu_torch.pipeline.autotune import Autotuner, Knob
 from dmlc_tpu_torch.pipeline.stages import StageSpec, validate_chain
 from dmlc_tpu_torch.pipeline.stats import StageProbe, _item_stats, snapshot
@@ -94,11 +97,6 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check
 __all__ = ["Pipeline", "CompiledPipeline", "DeviceBatch"]
 
 _END = object()
-
-
-def _not_ported(what: str, waits_for: str) -> DMLCError:
-    return DMLCError(f"pipeline: {what} is not ported to dmlc_tpu_torch "
-                     f"yet (it waits for {waits_for})")
 
 
 def _probed(runner) -> Iterator:
@@ -789,12 +787,20 @@ class _DeviceRunner(_RunnerBase):
 
     kind = "to_device"
 
-    def __init__(self, up: _RunnerBase, device, window, staging="auto"):
+    def __init__(self, up: _RunnerBase, device, window, staging="auto",
+                 sharding=None):
         super().__init__("to_device")
         self.up = up
         self._auto = window == "auto"
         self.window = 4 if self._auto else int(window)
         check(self.window >= 1, "to_device(window) needs window >= 1")
+        check(device is None or sharding is None,
+              "to_device: pass device OR sharding, not both")
+        check(sharding is None or isinstance(sharding, NamedSharding),
+              "to_device(sharding=) takes a "
+              "dmlc_tpu_torch.parallel.placement.NamedSharding, got "
+              f"{type(sharding).__name__}")
+        self._sharding = sharding
         # staging: route batches through reusable pinned host slots
         # (parallel.device_iter.HostStaging) so the source buffers are
         # free at COPY time and the H2D copy of batch N overlaps batch
@@ -804,7 +810,8 @@ class _DeviceRunner(_RunnerBase):
         check(staging in (True, False, "auto"),
               "to_device(staging) must be True, False or 'auto'")
         self._staging = staging
-        self._device = torch.device("cuda" if device is None else device)
+        self._device = (sharding.device if sharding is not None else
+                        torch.device("cuda" if device is None else device))
 
     @staticmethod
     def _host_arrays(item) -> Dict[str, np.ndarray]:
@@ -847,6 +854,14 @@ class _DeviceRunner(_RunnerBase):
             wait_copy(out, device)
             if lease is not None:
                 lease.release()
+            if self._sharding is not None:
+                # the batch is on the mesh's device: each array's owned
+                # slices are copies on the card, a replicated spec one
+                placed = DeviceBatch({
+                    k: device_put(t, self._sharding, name=k)
+                    for k, t in out.items()})
+                placed.counts = out.counts
+                out = placed
             now = time.perf_counter()
             dt = now - t0
             xfer_wait += dt
@@ -1300,13 +1315,13 @@ class Pipeline:
         the source at once; the H2D copy of batch N overlaps the
         assembly of N+1): True, False, or "auto" (on for dict batches —
         the fixed-shape padded steady path — off for RowBlock
-        streams)."""
-        if sharding is not None:
-            raise _not_ported("to_device(sharding=...)",
-                              "a sharded device placement of batches "
-                              "(shard(mesh) places them itself)")
+        streams). ``sharding`` (a ``parallel.placement.NamedSharding``,
+        not with ``device``) places every array of a batch under it
+        instead: each a ``PlacedTensor`` holding this process's slices
+        on the mesh's device."""
         return self._with(StageSpec("to_device", device=device,
-                                    window=window, staging=staging))
+                                    sharding=sharding, window=window,
+                                    staging=staging))
 
     # -- compilation
 
@@ -1374,7 +1389,7 @@ class Pipeline:
             else:  # to_device; validate_chain rejects anything else here
                 runners.append(_DeviceRunner(
                     up, spec.params["device"], spec.params["window"],
-                    spec.params["staging"]))
+                    spec.params["staging"], spec.params["sharding"]))
         sched = None
         owned: tuple = ()
         if tenant is not None:

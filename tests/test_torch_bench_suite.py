@@ -221,14 +221,117 @@ def test_global_shuffle_matches_reference(dirs, monkeypatch):
 def test_main_prints_one_line_a_config(dirs, monkeypatch, capsys):
     calls = []
     monkeypatch.setattr(bench_suite, "CONFIGS", {
-        8: ("page_replay", lambda mb: calls.append(mb) or {"gbps": 1.0}),
-        10: ("spill_replay", lambda mb: 1 / 0)})
+        8: ("page_replay",
+            lambda mb, dev: calls.append(mb) or {"gbps": 1.0}),
+        10: ("spill_replay", lambda mb, dev: 1 / 0)})
     bench_suite.main(["--mb", "3"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert calls == [3]
     assert json.loads(lines[0]) == {"gbps": 1.0}
     assert json.loads(lines[1])["config"] == "spill_replay"
     assert "error" in json.loads(lines[1])
+
+
+def _counting_configs(calls):
+    """Configs 4 (warmed) and 9 (in NO_WARMUP) that record each call's
+    (config, mb, dev) and emit ``gbps`` 1."""
+    def make(n):
+        return lambda mb, dev: calls.append((n, mb, dev)) or {
+            "config": f"c{n}", "gbps": 1.0}
+    return {4: ("prefetch", make(4)), 9: ("pipeline", make(9))}
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--mb", "2"], [(4, 2, False), (4, 2, False), (9, 2, False)]),
+    (["--mb", "2", "--cold"], [(4, 2, False), (9, 2, False)]),
+    (["--mb", "2", "--cold", "--device"], [(4, 2, True), (9, 2, True)]),
+], ids=["warm", "cold", "device"])
+def test_main_warms_up_as_the_reference(monkeypatch, capsys, argv, want):
+    """Each config outside ``NO_WARMUP`` runs once before its measured
+    run unless ``--cold`` (the reference's list); ``--device`` reaches
+    every config's second argument."""
+    calls = []
+    monkeypatch.setattr(bench_suite, "CONFIGS", _counting_configs(calls))
+    bench_suite.main(argv)
+    assert calls == want
+    assert [json.loads(x)["config"] for x in
+            capsys.readouterr().out.strip().splitlines()] == ["c4", "c9"]
+    assert bench_suite.NO_WARMUP == (7, 8, 9, 10, 11, 13, 14, 15, 16, 17,
+                                     18, 19, 20, 21, 22)
+
+
+def test_main_trace_writes_a_loadable_trace(tmp_path, monkeypatch, capsys):
+    """``--trace OUT`` records each measured run through ``obs.trace``:
+    one file a config when several run, each a Chrome trace holding the
+    config's own span, its path in the config's line."""
+    from dmlc_tpu_torch.obs import trace as obs_trace
+
+    def spanned(n):
+        def fn(mb, dev):
+            with obs_trace.span(f"config{n}", "bench"):
+                return {"config": f"c{n}", "gbps": 1.0}
+        return fn
+
+    monkeypatch.setattr(bench_suite, "CONFIGS", {
+        4: ("prefetch", spanned(4)), 9: ("pipeline", spanned(9))})
+    out = str(tmp_path / "t.json")
+    bench_suite.main(["--cold", "--trace", out])
+    lines = [json.loads(x) for x in
+             capsys.readouterr().out.strip().splitlines()]
+    for n, line in zip((4, 9), lines):
+        assert line["trace"] == f"{out}.config{n}.json"
+        with open(line["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        assert f"config{n}" in [e.get("name") for e in events]
+
+
+def test_prefetch_parse_only_without_device(dirs, tmp_path):
+    """Config 4 without ``--device``: the parts only parse, the
+    reference's keys and content hash, ``to_device`` False as there."""
+    _criteo_shaped(str(tmp_path / "ref.criteo.libsvm"))
+    got = bench_suite.bench_prefetch(1, work=dirs, to_device=False)
+    want = ref_bench.bench_prefetch(1, False)
+    assert set(got) == set(want)
+    for k in ("hash", "bytes", "rows", "hosts", "to_device", "config"):
+        assert got[k] == want[k], k
+
+
+def test_pipeline_config_matches_reference(dirs, tmp_path):
+    """Config 9 at 1 MB: the port's pipeline over the criteo-shaped
+    corpus, its own parity check (the stream's content hash equal to a
+    direct parse) holding; the reference's keys, bytes, rows and hash
+    over the same corpus."""
+    _criteo_shaped(str(tmp_path / "ref.criteo.libsvm"))
+    got = bench_suite.bench_pipeline(1, work=dirs)
+    want = ref_bench.bench_pipeline(1)
+    assert set(got) == set(want)
+    for k in ("config", "bytes", "rows", "hash"):
+        assert got[k] == want[k], k
+    assert len(got["epoch_walls"]) == 3
+    json.dumps(got)
+
+
+def test_native_assembly_config_matches_reference(dirs, tmp_path):
+    """Config 12 at 1 MB: the fused, unfused and sharded native streams
+    each equal to the Python golden (the config's own checks); the
+    reference's keys at each level, and its hashes, batch counts and
+    assembly paths over the same corpus."""
+    _criteo_shaped(str(tmp_path / "ref.criteo.libsvm"))
+    gauge = iter(range(1, 100))
+    got = bench_suite.bench_native_assembly(
+        1, gauge_fn=lambda: next(gauge), work=dirs)
+    want = ref_bench.bench_native_assembly(1, gauge_fn=lambda: 1.0)
+    assert set(got) == set(want)
+    for k in ("config", "bytes", "rows", "nnz_bucket", "hash"):
+        assert got[k] == want[k], k
+    for leg in ("python", "native", "native_unfused", "sharded"):
+        assert set(got[leg]) == set(want[leg]), leg
+        for k in ("hash", "batches", "assembly_path"):
+            assert got[leg][k] == want[leg][k], (leg, k)
+    assert got["native"]["assembly_path"] == "native-padded"
+    assert got["python"]["epoch_gauges"] == [1.0]
+    assert got["native"]["epoch_gauges"] == [2.0, 5.0, 8.0]
+    json.dumps(got)
 
 
 # ------------------------------------------------- configs 4 and 7, gauges
@@ -352,7 +455,8 @@ def test_configs_table_holds_the_recordio_configs():
     assert {n: name for n, (name, _) in bench_suite.CONFIGS.items()} == {
         1: "libsvm", 2: "csv", 3: "recordio", 4: "prefetch", 5: "parquet",
         6: "indexed_shuffled", 7: "multiprocess", 8: "page_replay",
-        10: "spill_replay", 11: "remote_hydrate", 13: "analyze",
+        9: "pipeline", 10: "spill_replay", 11: "remote_hydrate",
+        12: "native_assembly", 13: "analyze",
         14: "recio_native", 15: "peer_hydrate", 16: "control",
         17: "parquet_native", 18: "image_record", 19: "multi_tenant",
         20: "elastic_reshard", 21: "ckpt_restore_fanout", 22: "slo_burn",

@@ -7,7 +7,8 @@ directories are byte-identical, and each package restores the other's; a
 reference checkpoint whose leaf is sharded over the 8 CPU devices
 restores in the port reading the same bytes. Then twins of the
 reference's local tests (``tests/test_checkpoint.py``), a 2-rank gloo
-save through ``launch_local``, and the parts left out raising by name.
+save through ``launch_local``, and ``restore(sharding_tree=)`` placing a
+leaf.
 Also ``utils/json_util.py`` against the reference's."""
 
 import collections
@@ -424,13 +425,28 @@ def test_two_rank_gloo_save_restores_in_one_process(tmp_path):
     _assert_tree_equal(got, want)
 
 
-@pytest.mark.parametrize("call", [
-    lambda tmp: ck.ShardedCheckpoint(tmp).restore(like=_tree(),
-                                                  sharding_tree={}),
-], ids=["sharding_tree"])
-def test_parts_left_out_raise_by_name(tmp_path, call):
-    with pytest.raises(DMLCError, match="not ported"):
-        call(str(tmp_path / "r"))
+@pytest.mark.parametrize("spec", [("data",)], ids=["sharding_tree"])
+def test_parts_left_out_raise_by_name(tmp_path, spec):
+    """``restore(sharding_tree=)``, once refused by name, places the leaf:
+    a port-saved tree comes back under the given ``NamedSharding`` of 8
+    parts, each part's slice the saved data's, reading the leaf's record
+    once (the reference's count for the same restore)."""
+    from dmlc_tpu_torch.parallel.placement import NamedSharding as PortNS
+    from dmlc_tpu_torch.parallel.placement import P as PortP
+    from dmlc_tpu_torch.parallel.sharded import Mesh
+    root = str(tmp_path / "r")
+    c = ck.ShardedCheckpoint(root)
+    c.save(1, _tree())
+    sharding = PortNS(Mesh((8,), ("data",), device="cpu"), PortP(*spec))
+    got, _ = c.restore(like=_tree(), sharding_tree={"x": sharding})
+    want = np.arange(float(1 << 12), dtype=np.float32)
+    assert got["x"].sharding is sharding
+    for sh in got["x"].addressable_shards:
+        assert np.array_equal(sh.data.numpy(), want[sh.index])
+    ref = ref_ck.ShardedCheckpoint(root)
+    ref.restore(like={"x": want}, sharding_tree={"x": NamedSharding(
+        RefMesh(np.array(jax.devices()[:8]), ("data",)), P(*spec))})
+    assert c.last_restore_bytes_read == ref.last_restore_bytes_read
 
 
 @pytest.mark.parametrize("call,message", [

@@ -251,11 +251,21 @@ class TestRemoteCheckpoint:
             ShardedCheckpoint("obj://b/ck").save(1, {"x": np.zeros(2)})
 
     def test_sharding_tree_still_refused(self, remote):
+        """Once refused, ``restore(sharding_tree=)`` on a remote root now
+        places the leaf: 4 parts each holding its slice of the stored
+        page, the one page read once."""
+        from dmlc_tpu_torch.parallel.placement import NamedSharding, P
+        from dmlc_tpu_torch.parallel.sharded import Mesh
+        x = np.arange(8, dtype=np.float32)
         c = ShardedCheckpoint("obj://b/ck")
-        c.save(1, {"x": np.zeros(2, np.float32)})
-        with pytest.raises(DMLCError, match="not ported"):
-            c.restore(like={"x": np.zeros(2, np.float32)},
-                      sharding_tree={})
+        c.save(1, {"x": x})
+        sharding = NamedSharding(Mesh((4,), ("data",), device="cpu"),
+                                 P("data"))
+        got, _ = c.restore(like={"x": np.zeros(8, np.float32)},
+                           sharding_tree={"x": sharding})
+        assert [sh.data.tolist() for sh in got["x"].addressable_shards] \
+            == [x[i:i + 2].tolist() for i in (0, 2, 4, 6)]
+        assert c.last_restore_bytes_read == c.last_save_bytes_written
 
 
 # ------------------------------------------------ cross-package parity
@@ -336,3 +346,59 @@ def test_each_package_restores_the_others_checkpoint(remote, tmp_path):
     assert c.last_restore_wire_bytes + c.last_restore_local_bytes == \
         c.last_restore_bytes_read
     assert c.last_restore_wire_bytes == 4000 + 20
+
+
+def test_sharded_tree_writes_the_references_objects(remote, tmp_path):
+    """A tree whose leaves are placed on 8 parts (``V`` split over its
+    rows, ``w`` replicated), saved by the port, and the same tree as
+    ``jax.Array``s on the 8 CPU devices saved by the reference: the same
+    object keys, each byte-identical (one page a replica-0 shard), and
+    each package restores the other's onto 4 parts reading the same
+    bytes."""
+    import jax
+    from jax.sharding import Mesh as RefMesh
+    from jax.sharding import NamedSharding as RefNS
+    from jax.sharding import PartitionSpec as RefP
+
+    import dmlc_tpu.io.objstore as ref_objstore
+    from dmlc_tpu.io.objstore.emulator import EmulatedObjectStore
+    from dmlc_tpu_torch.parallel.placement import NamedSharding, P
+    from dmlc_tpu_torch.parallel.placement import device_put
+    from dmlc_tpu_torch.parallel.sharded import Mesh
+    rng = np.random.RandomState(12)
+    tree = {"V": rng.rand(96, 5).astype(np.float32),
+            "w": rng.rand(40).astype(np.float32)}
+    specs = {"V": ("data",), "w": ()}
+    mesh = Mesh((8,), ("data",), device="cpu")
+    ref_mesh = RefMesh(np.array(jax.devices()[:8]), ("data",))
+    ref_root = str(tmp_path / "ref_objroot")
+    ref_objstore.configure(EmulatedObjectStore(ref_root))
+    ShardedCheckpoint("obj://b/ck").save(1, {
+        k: device_put(v, NamedSharding(mesh, P(*specs[k])), name=k)
+        for k, v in tree.items()})
+    ref_ck.ShardedCheckpoint("obj://b/ck").save(1, {
+        k: jax.device_put(v, RefNS(ref_mesh, RefP(*specs[k])))
+        for k, v in tree.items()})
+    port, ref = _walk(remote.root), _walk(ref_root)
+    assert sorted(port) == sorted(ref)
+    assert sum(k.startswith(os.path.join("b", "ck", "pages")) for k in port) \
+        == 8 + 1
+    for k in port:
+        assert port[k] == ref[k], k
+    # each restores the other's objects onto 4 parts
+    mesh4 = Mesh((4,), ("data",), device="cpu")
+    ref_mesh4 = RefMesh(np.array(jax.devices()[:4]), ("data",))
+    like = {k: np.zeros_like(v) for k, v in tree.items()}
+    ref_objstore.configure(EmulatedObjectStore(remote.root))
+    import dmlc_tpu_torch.io.objstore as objstore
+    objstore.configure(root=ref_root)
+    c = ShardedCheckpoint("obj://b/ck")
+    got, _ = c.restore(like=like, sharding_tree={
+        k: NamedSharding(mesh4, P(*specs[k])) for k in tree})
+    r = ref_ck.ShardedCheckpoint("obj://b/ck")
+    ref_got, _ = r.restore(like=like, sharding_tree={
+        k: RefNS(ref_mesh4, RefP(*specs[k])) for k in tree})
+    for k, v in tree.items():
+        assert got[k].gather().tobytes() == v.tobytes(), k
+        assert np.asarray(ref_got[k]).tobytes() == v.tobytes(), k
+    assert c.last_restore_bytes_read == r.last_restore_bytes_read

@@ -13,7 +13,9 @@ modules and on the port's and compares what they leave.
   gauge and histogram calls; ``warn_limited`` returns the same sequence.
 - Pipeline traces: one small libsvm file through the native engine at
   the same chunk size and thread count: equal multisets of the Python
-  spans' (name, cat) and equal counts of native spans by name.
+  spans' (name, cat) and equal counts of native spans by name; the
+  device stage's chain is traced under ``device=`` and under a
+  replicated ``sharding=`` alike.
 - Gang traces: ``launch_local(2, ..., trace_dir=d)`` leaves a
   ``trace-gang.json`` with one process per rank, as the reference's
   does (its supervisor's process is the one the port has not).
@@ -433,18 +435,33 @@ def _chains(uri, cls):
     padded assembly, a prefetch queue and the host→device stage (the
     reference's on JAX's CPU, the port's to_device(device="cpu"))."""
     dev = {"device": "cpu"} if cls is Pipeline else {}
+    if cls is Pipeline:
+        from dmlc_tpu_torch.parallel.placement import NamedSharding, P
+        from dmlc_tpu_torch.parallel.sharded import Mesh
+        placed = NamedSharding(Mesh((2,), ("data",), device="cpu"), P())
+    else:
+        import jax
+        from jax.sharding import Mesh as RefMesh
+        from jax.sharding import NamedSharding as RefNS
+        from jax.sharding import PartitionSpec as RefP
+        placed = RefNS(RefMesh(np.array(jax.devices()[:2]), ("data",)),
+                       RefP())
     parse = dict(format="libsvm", engine="native", chunk_size=64 << 10,
                  nthreads=2)
     return {
         "assemble+device": (cls.from_uri(uri).parse(**parse)
                             .batch(128, pad=True, nnz_bucket=128 * 10)
                             .to_device(window=2, **dev)),
+        # a sharding target rides the same staged window and spans
+        "assemble+sharding": (cls.from_uri(uri).parse(**parse)
+                              .batch(128, pad=True, nnz_bucket=128 * 10)
+                              .to_device(window=2, sharding=placed)),
         "parse+batch+prefetch": (cls.from_uri(uri).parse(**parse)
                                  .batch(100).prefetch(depth=2)),
     }
 
 
-@pytest.mark.parametrize("chain", ["assemble+device",
+@pytest.mark.parametrize("chain", ["assemble+device", "assemble+sharding",
                                    "parse+batch+prefetch"])
 def test_pipeline_trace_equals_reference(tmp_path, chain):
     if not native_available():

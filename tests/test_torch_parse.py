@@ -204,10 +204,18 @@ def test_rowblock_to_device_keeps_layout_dtypes(tmp_path):
     assert dev["index"].data_ptr() != block.index.ctypes.data  # a copy
 
 
-@pytest.mark.parametrize("uri", ["hdfs://nn/a.libsvm"])
+@pytest.mark.parametrize("uri", ["hdfs://nn/a.libsvm", "azure://c/a.libsvm",
+                                 "gs://b/a.libsvm"])
 def test_unported_uris_raise(uri):
-    with pytest.raises(DMLCError, match="not ported"):
+    """The cloud schemes without a backend raise the reference's stub
+    message, word for word."""
+    from dmlc_tpu.io.input_split import InputSplit as RefInputSplit
+    with pytest.raises(DMLCError, match="has no backend in this build") \
+            as got:
         InputSplit.create(uri, 0, 1)
+    with pytest.raises(Exception) as want:
+        RefInputSplit.create(uri, 0, 1)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("uri", ["s3://bucket/key.libsvm",
@@ -259,3 +267,52 @@ def test_registered_formats_match_the_reference():
     assert sorted(REF_REGISTRY.list_all_names()) == want
     with pytest.raises(DMLCError, match=re.escape(str(want))):
         Parser.create("x.xml", format="xml")
+
+
+def _parse_or_reject(fn, token):
+    try:
+        return np.asarray(fn(token)).tobytes()
+    except ValueError:
+        return "rejected"
+
+
+def _ref_probe(width):
+    """The reference engine's float parse of ``width`` (its bindings
+    export the float32 probe; the float64 one is the same lib's)."""
+    import ctypes
+    from dmlc_tpu.native import bindings as ref_bindings
+    if width == "float32":
+        return ref_bindings.native_parse_float32
+
+    def parse64(token):
+        out = ctypes.c_double()
+        if not ref_bindings._get_lib().dtp_parse_float64(
+                token, len(token), ctypes.byref(out)):
+            raise ValueError(token)
+        return np.float64(out.value)
+    return parse64
+
+
+@pytest.mark.parametrize("width", ["float32", "float64"])
+def test_native_float_probe_matches_reference(native, width):
+    """``native_parse_float32`` and ``native_parse_float64`` equal the
+    reference engine's parse of the same width, bit for bit, on the
+    reference's adversarial token table and every token of up to two
+    characters over the decimal charset, rejection included."""
+    from dmlc_tpu_torch.native import bindings
+    rng = np.random.RandomState(42)
+    tokens = [b"1.5", b"-0.0", b"0.1", b"1e-45", b"3.4028235e38",
+              b"1.17549435e-38", b"2.2250738585072014e-308",
+              b"9007199254740993", b"0.30000000000000004",
+              b"1.0000000000000002", b".5", b"5.", b"1e-400",
+              b"123456789.123456789", b"4.9406564584124654e-324",
+              b"1.7976931348623157e308", b"", b"abc", b"1e"]
+    for _ in range(200):
+        mantissa = rng.randint(0, 10 ** rng.randint(1, 18))
+        tokens.append(f"{mantissa}e{rng.randint(-40, 40)}".encode())
+        tokens.append(f"{mantissa / 10 ** rng.randint(0, 17):.17g}".encode())
+    chars = b"0123456789.eE+-"
+    tokens += [bytes([a, b]) for a in chars for b in chars]
+    probe, ref = getattr(bindings, f"native_parse_{width}"), _ref_probe(width)
+    for t in tokens:
+        assert _parse_or_reject(probe, t) == _parse_or_reject(ref, t), t

@@ -7,9 +7,9 @@ reference's host batches, and by value against the reference's device
 batches, whose int64 columns JAX without x64 keeps as int32 (ROADMAP
 C2). Unpadded streams must match by ``RowBlock.content_hash()``. The
 port's ThreadedIter, stats snapshot and Autotuner are held to the
-reference's semantics, the one stage the port refuses
-(``to_device(sharding=...)``) raises its "not ported" error, tenant
-builds and streaming sources run beside the reference's, and the slice
+reference's semantics, ``to_device(sharding=...)`` places each batch's
+arrays on a part mesh, tenant builds and streaming sources run beside
+the reference's, and the slice
 ``Pipeline → SparseLinearModel`` matches the reference's 5 SGD steps at rtol=1e-5, atol=1e-6 (CPU fp32 on both
 sides, the CSR sums in different orders).
 """
@@ -333,12 +333,38 @@ def test_global_shuffle_stage_lowers(corpora, kwargs, window_bytes):
     assert rows == v["records"] == v["delivered"] == ROWS
 
 
-@pytest.mark.parametrize("refused,match", [
-    (lambda p: p.parse().to_device(sharding=object()), "sharding"),
-])
-def test_refused_stages_say_not_ported(refused, match):
-    with pytest.raises(DMLCError, match=f"{match}.*not ported"):
-        refused(Pipeline.from_uri("x.libsvm"))
+@pytest.mark.parametrize("spec", [(), ("data",)], ids=["replicated",
+                                                      "sharded"])
+def test_refused_stages_say_not_ported(corpora, spec):
+    """``to_device(sharding=...)``, once refused as not ported, places
+    every array of a padded batch under the sharding (the reference's
+    ``jax.device_put(batch, sharding)``): replicated over 2 parts, both
+    parts share one copy equal to the host batch; split over them, the
+    batch's offset column (33 long) does not divide and raises naming
+    it."""
+    from dmlc_tpu_torch.parallel.placement import NamedSharding, P
+    from dmlc_tpu_torch.parallel.sharded import Mesh
+    sharding = NamedSharding(Mesh((2,), ("data",), device="cpu"), P(*spec))
+
+    def chain():
+        return (Pipeline.from_uri(corpora["libsvm"]).parse(format="libsvm")
+                .batch(32, pad=True, nnz_bucket=256))
+
+    placed = chain().to_device(sharding=sharding).build()
+    if spec:
+        with pytest.raises(DMLCError, match="offset: sharding"):
+            list(placed)
+        return
+    host = [{k: np.array(v) for k, v in b.items()} for b in chain().build()]
+    got = list(placed)
+    assert len(got) == len(host)
+    for batch, want in zip(got, host):
+        assert set(batch) == set(want)
+        for k, v in batch.items():
+            shards = v.addressable_shards
+            assert [s.replica_id for s in shards] == [0, 1]
+            assert shards[0].data is shards[1].data  # one copy
+            assert np.array_equal(shards[0].data.numpy(), want[k])
 
 
 def test_tenant_build_needs_an_installed_scheduler(corpora):

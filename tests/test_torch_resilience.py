@@ -1060,7 +1060,7 @@ class TestBenchChaos:
         set_policy("io.stream.*",
                    RetryPolicy(max_attempts=4, sleep=_noop_sleep))
 
-        def chaos_probe(mb):
+        def chaos_probe(mb, dev):
             from dmlc_tpu_torch.io.stream import create_stream
             t0 = time.perf_counter()
             with create_stream(data, "r") as s:
@@ -1069,7 +1069,7 @@ class TestBenchChaos:
             return {"config": "chaos_probe", "gbps": 4096 / dt / 1e9,
                     "bytes": len(payload)}
 
-        def doomed(mb):
+        def doomed(mb, dev):
             inject.fire("bench.doomed")  # always-armed ioerror below
             return {"config": "doomed", "gbps": 0.0}
 
@@ -1079,7 +1079,7 @@ class TestBenchChaos:
                             {98: ("doomed", doomed),
                              99: ("chaos_probe", chaos_probe)})
         bench_suite.main([
-            "--mb", "1",
+            "--mb", "1", "--cold",
             "--chaos",
             "site=bench.doomed,fault=ioerror;"
             "site=io.stream.open,fault=ioerror,times=1;"

@@ -41,6 +41,7 @@ from dmlc_tpu_torch.parallel.sharded import (
     Mesh, ShardedRowBlockIter, empty_block, make_global_batch,
     make_replicated, next_pow2_bucket, stack_device_batches, stage_round,
 )
+from dmlc_tpu_torch.parallel.placement import NamedSharding, P
 from dmlc_tpu_torch.pipeline import Pipeline
 from dmlc_tpu_torch.utils.logging import DMLCError
 
@@ -804,8 +805,13 @@ def test_pipeline_shard_grammar(mesh, tmp_path):
     with pytest.raises(DMLCError, match="cannot follow"):
         (Pipeline.from_uri(str(p)).parse().shard(mesh)
          .to_device(device="cpu").build())
-    with pytest.raises(DMLCError, match="not ported"):
-        Pipeline.from_uri(str(p)).parse().to_device(sharding=object())
+    with pytest.raises(DMLCError, match="pass device OR sharding"):
+        (Pipeline.from_uri(str(p)).parse()
+         .to_device(device="cpu", sharding=NamedSharding(mesh, P()))
+         .build())
+    placed = list(Pipeline.from_uri(str(p)).parse()
+                  .to_device(sharding=NamedSharding(mesh, P())).build())
+    assert sum(int(b["label"].shape[0]) for b in placed) == 10
     built = Pipeline.from_uri(str(p)).shard(mesh, row_bucket=8,
                                             nnz_bucket=16).build()
     assert sum(int(b["num_rows"].sum()) for b in built) == 10
