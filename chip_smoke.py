@@ -412,10 +412,8 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    run's lines under the per-line rules of ``same_output`` (those
    ``tests/test_torch_examples.py`` holds the twins to their references
    with), its model launched its kernels
-   (EXAMPLE_KERNELS) and no other, the host run none;
-   ``distributed_launch.py`` on this one-card host refuses with
-   ``NotEnoughCardsError`` (NCCL needs a card a rank) and prints
-   nothing;
+   (EXAMPLE_KERNELS) and no other, the host run none
+   (``distributed_launch.py`` is phase 18's);
 16. the tenants (``tenant_path``): one process, one
    ``PipelineScheduler(quantum=4, burst=2, queue_budget=32)``, a history
    ring, a ``StackProfiler`` at 97 Hz, a ``Controller`` and a
@@ -455,7 +453,28 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    record, and the obsctl twin's ``top --once``, ``history``, ``gang``,
    ``tenants``, ``control``, ``slo``, ``profile`` and ``rpc`` against
    rank 0 exit 0; exit codes [0, 0], each rank's loss falling and K1,
-   K2, K8 and K9 once a step.
+   K2, K8 and K9 once a step;
+18. the multi-card gang (``multicard_path``) over W = min(cards, 4) cards
+   of the host, one NCCL rank a card (``init_from_env`` gives rank r
+   card r). On a host of one card: ``python -m dmlc_tpu_torch.graft
+   --cards 2`` refuses with ``NotEnoughCardsError`` before any rank
+   starts, ``distributed_launch.py`` refuses the same way and prints
+   nothing, and one line says that the multi-card legs did not run. On
+   W >= 2 cards: (a) ``python -m dmlc_tpu_torch.graft --cards W``, each
+   rank's dry run over 2W parts passing on its own card, NCCL's
+   transports read from its debug log; (b) two epochs of
+   ``SparseLinearModel(10^6)`` over the linear corpus through
+   ``Pipeline.shard(Mesh((2W,), group=WORLD))``, 2 parts a rank: the
+   loss falling, the ranks' final w bitwise equal, K1 and K2 twice a
+   step a rank, K8's sharded pair and K9 once, profiled steps' NCCL
+   device time and the gradient's all-reduce alone, and the first 3
+   steps held to flat steps on one card over the gathered global
+   batches; (c) the FFM's 628 MB state with V a slice a card under
+   ``P("model")``, saved by every rank and restored onto a (2, W) mesh,
+   each rank's slices bit for bit, its bytes read those of its own
+   records of V, w and b; (d) ``distributed_launch.py`` on the
+   cards, its lines as its ``--device cpu`` run's; (e) config 7 over
+   NCCL beside its gloo figure.
 
 Every kernel check holds the index rule (ROADMAP C6): indices u32
 2^32-1 and 2^31 and u64 2^32+3, and in the FFM a field of 2^31, are
@@ -8409,10 +8428,8 @@ def examples_path(work):
     time beside the card's); the card run must exit 0, print the host
     run's lines under the per-line rules of ``same_output``, and its model must have launched
     its kernels (EXAMPLE_KERNELS) and no other; the host run launches
-    none. ``distributed_launch.py`` needs a card a rank: on a host with
-    fewer it must refuse by ``NotEnoughCardsError`` and print nothing;
-    on one with two or more its lines must be its host run's.
-    Returns the phase's numbers."""
+    none. ``distributed_launch.py``, which needs a card a rank, is
+    ``multicard_path``'s leg. Returns the phase's numbers."""
     from concurrent.futures import ThreadPoolExecutor
     import torch
     t_phase = time.perf_counter()
@@ -8460,38 +8477,6 @@ def examples_path(work):
             log(f"examples path: {name} on the card in {secs:.1f} s (host "
                 f"{cpu_secs:.1f} s), {out[name]['lines']} lines as the "
                 f"host's; launches {out[name]['launches']}")
-    name = "distributed_launch.py"
-    twin = os.path.join(REPO, "examples", "torch_port", name)
-    runs = {}
-    for device in (["cuda"] if torch.cuda.device_count() < 2
-                   else ["cuda", "cpu"]):
-        t0 = time.perf_counter()
-        runs[device] = _run_group(
-            [sys.executable, twin]
-            + (["--device", "cpu"] if device == "cpu" else []),
-            EXAMPLE_TIMEOUT_S, cwd=os.path.dirname(twin),
-            env={**os.environ, "PYTHONPATH": REPO})
-        out.setdefault(name, {})[f"{device}_s"] = time.perf_counter() - t0
-    r = runs["cuda"]
-    if "cpu" not in runs:
-        require(r.returncode != 0 and "NotEnoughCardsError" in r.stderr
-                and not r.stdout.strip(),
-                f"examples path: {name} on one card exited {r.returncode} "
-                f"with stdout {r.stdout!r}: {r.stderr[-2000:]}")
-        out[name]["refused"] = r.stderr.strip().splitlines()[-1]
-        log(f"examples path: {name} on one card refused: "
-            f"{out[name]['refused']}")
-    else:
-        require(r.returncode == 0 and runs["cpu"].returncode == 0,
-                f"examples path: {name} exited {r.returncode} on the cards, "
-                f"{runs['cpu'].returncode} on the host: {r.stderr[-2000:]}")
-        ok, diff = same_output(runs["cpu"].stdout, r.stdout, "cpu", "cuda",
-                               reference=False,
-                               cards=torch.cuda.device_count())
-        require(ok, f"examples path: {name} on the cards printed other "
-                f"lines than on the host: {diff}")
-        log(f"examples path: {name} on {torch.cuda.device_count()} cards, "
-            "its lines as the host's")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"examples path: phase {out['phase_s']:.1f} s")
     return out
@@ -9094,6 +9079,517 @@ def obs_gang_path(linear, lr, work):
     return stats
 
 
+
+# --------------------------------------------------------------- phase 18
+
+MULTICARD_MAX = 4       # the multi-card legs use the host's cards, up to 4
+MULTICARD_EPOCHS = 2    # leg (b)'s training epochs
+MULTICARD_TIMEOUT_S = 300
+# leg (b)'s steps held to flat steps on one card, as sharded_path's
+MULTICARD_PARITY_STEPS = 3
+# leg (b)'s profiled steps, and its timed all-reduces of the gradient
+MULTICARD_PROFILED_STEPS, MULTICARD_ALLREDUCE_ITERS = 5, 50
+NCCL_VIA = re.compile(r"via (\S+)")
+# the legs' host rehearsal over gloo (multicard_path(device="cpu"), from
+# scripts/multicard_quick.py --device cpu and tests/test_torch_multicard.py):
+# chip_smoke's widths it cuts, and their cut values
+MULTICARD_REHEARSAL = {"NUM_FEATURES": 10 ** 5, "FILE_MB": 16,
+                       "ROW_BUCKET": 1024, "NNZ_BUCKET": 1024 * 45}
+
+MULTICARD_WORKER = r"""
+import json, os, sys, time
+linear, out_dir, root, lr, device = sys.argv[1:6]
+lr = float(lr)
+import chip_smoke as cs
+# the parent's widths (a host rehearsal cuts them)
+cs.NUM_FEATURES, cs.ROW_BUCKET, cs.NNZ_BUCKET = map(int, sys.argv[6:9])
+cs.LAYOUT["libsvm"] = ("libsvm", cs.ROW_BUCKET, cs.NNZ_BUCKET, {})
+import torch
+import torch.distributed as dist
+from dmlc_tpu_torch import graft
+from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
+from dmlc_tpu_torch.models.linear import SparseLinearModel
+from dmlc_tpu_torch.parallel.launch import finalize, init_from_env
+from dmlc_tpu_torch.parallel.placement import (NamedSharding, P,
+                                               PlacedTensor, device_put)
+from dmlc_tpu_torch.parallel.sharded import Mesh, collective_device
+from dmlc_tpu_torch.pipeline import Pipeline
+
+on_card = device == "cuda"
+# NCCL on the card, a card a rank (init_from_env takes card rank)
+rank, world = init_from_env(device=None if on_card else "cpu")
+dev = (torch.device("cuda", torch.cuda.current_device()) if on_card
+       else torch.device("cpu"))
+
+
+def sync():
+    if on_card:
+        torch.cuda.synchronize(dev)
+
+
+res = {"rank": rank, "world": world, "device": str(dev)}
+
+# (b) the linear main path data parallel: 2 parts a rank
+mesh = Mesh((2 * world,), ("data",), group=dist.group.WORLD, device=dev)
+wrappers = {k: fn for k, fn in cs._wrappers().items()
+            if k in cs.PATH_KERNELS["linear"] + ("logistic_sums",
+                                                 "logistic_grad")}
+built = (Pipeline.from_uri(linear)
+         .parse(format="libsvm", engine="native")
+         .shard(mesh, row_bucket=cs.ROW_BUCKET, nnz_bucket=cs.NNZ_BUCKET)
+         .build(autotune=True))
+# the communicator, and an all-reduce of the gradient's size, outside
+# the timed epochs
+dist.all_reduce(torch.zeros(cs.NUM_FEATURES, device=collective_device(mesh)))
+model = SparseLinearModel(cs.NUM_FEATURES, learning_rate=lr, device=dev)
+step = model.make_sharded_train_step(mesh)
+epochs = []
+for _ in range(cs.MULTICARD_EPOCHS):
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, moved, marks = [], 0, []
+    t0 = time.perf_counter()
+    for batch in built:
+        if not losses:
+            marks.append(time.perf_counter() - t0)  # the first batch
+        moved += sum(t.numel() * t.element_size() for t in batch.values())
+        losses.append(step(batch))
+        if len(losses) == 1:
+            sync()
+            marks.append(time.perf_counter() - t0)  # its step done
+    sync()
+    secs = time.perf_counter() - t0
+    shard = built.stats()["stages"][0]
+    epochs.append({"secs": secs, "steps": len(losses), "moved": moved,
+                   "first_batch_s": marks[0], "first_step_s": marks[1],
+                   "losses": [float(x) for x in losses],
+                   "launches": {k: fn.launches for k, fn in wrappers.items()},
+                   "tier": shard["extra"]["replay_tier"]})
+res["epochs"] = epochs
+res["w_digest"] = graft._digest(model.w.detach()) + graft._digest(
+    model.b.detach())
+# more steps on one batch, the ranks in lockstep: warm steps, then
+# MULTICARD_PROFILED_STEPS profiled on every rank (a collective needs
+# them all), so one rank's late start is spread over them
+gen = iter(built)
+batch = next(gen)
+gen.close()
+for _ in range(3):
+    step(batch)
+if on_card:
+    n = cs.MULTICARD_PROFILED_STEPS
+    # twice: the first trace starts each rank's profiler (CUPTI), at
+    # different times, and a rank's NCCL kernels wait for the others
+    for _ in range(2):
+        sync()
+        dist.barrier()
+        ops, nccl_us = cs.allreduce_trace(
+            lambda: [step(batch) for _ in range(n)], cs.SHARD_ALLREDUCES * n)
+    res["allreduce_ops"], res["nccl_us"] = ops, nccl_us / n
+    # the gradient's all-reduce alone, back to back: its time and rates
+    x = torch.ones(cs.NUM_FEATURES, device=dev)
+    for _ in range(5):
+        dist.all_reduce(x)
+    sync()
+    dist.barrier()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(cs.MULTICARD_ALLREDUCE_ITERS):
+        dist.all_reduce(x)
+    e1.record()
+    sync()
+    res["grad_allreduce_us"] = (e0.elapsed_time(e1) * 1e3
+                                / cs.MULTICARD_ALLREDUCE_ITERS)
+built.close()
+del model, step, batch
+
+# the first steps against as many flat steps on this rank's device over
+# the global [D, ...] batches, gathered from every rank
+batches = cs.first_sharded_batches(linear, mesh, "libsvm",
+                                   cs.MULTICARD_PARITY_STEPS)
+glob = graft._global_batches(batches, mesh)
+sharded = SparseLinearModel(cs.NUM_FEATURES, learning_rate=lr, device=dev)
+flat = SparseLinearModel(cs.NUM_FEATURES, learning_rate=lr, device=dev)
+st = sharded.make_sharded_train_step(mesh)
+ls = torch.stack([st(b) for b in batches])
+lf = torch.stack([flat.train_step(cs._flat_batch(g, dev)) for g in glob])
+errs = {}
+for name, a, b in (("losses", ls, lf), ("w", sharded.w, flat.w),
+                   ("b", sharded.b, flat.b)):
+    a, b = a.detach(), b.detach()
+    cs.require(torch.allclose(a, b, rtol=cs.STEP_RTOL, atol=cs.STEP_ATOL),
+               f"multicard rank {rank}: {len(batches)} sharded steps vs "
+               f"flat steps: {name} max |err| {(a - b).abs().max().item()}")
+    errs[name] = (a - b).abs().max().item()
+res["parity_max_err"] = errs
+res["parity_rows_a_step"] = int(glob[0]["label"].numel())
+del batches, glob, sharded, flat, st
+
+# (c) the FFM's state placed across the cards: V under P("model") on a
+# (world,) mesh, rank r holding only slice r, w and b replicated
+N, F, K = cs.NUM_FEATURES, cs.FFM_FIELDS, cs.FFM_FACTORS
+n = N // world
+
+
+def v_slice(j):
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 25 + j)
+    return torch.randn((n, F, K), generator=g, device=dev)
+
+
+def full_w():
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 24)
+    return torch.randn(N, generator=g, device=dev)
+
+
+mc = Mesh((world,), ("model",), group=dist.group.WORLD, device=dev)
+V = PlacedTensor((N, F, K), NamedSharding(mc, P("model")),
+                 {((rank * n, (rank + 1) * n), (0, F), (0, K)): v_slice(rank)},
+                 name="V")
+tree = {"V": V, "w": device_put(full_w(), NamedSharding(mc, P()), name="w"),
+        "b": device_put(torch.tensor(0.25, device=dev),
+                        NamedSharding(mc, P()), name="b")}
+res["held_V_bytes"] = V.nbytes
+ck = ShardedCheckpoint(root)
+sync()
+dist.barrier()
+t0 = time.perf_counter()
+ck.save(1, tree)
+sync()
+res["save_s"] = time.perf_counter() - t0
+del V, tree
+# restored onto a (2, world) mesh: rank r's parts 2r, 2r+1 hold model
+# slices (2r mod world) and (2r+1 mod world), most written by others
+m2 = Mesh((2, world), ("data", "model"), group=dist.group.WORLD, device=dev)
+shard_tree = {"V": NamedSharding(m2, P("model")),
+              "w": NamedSharding(m2, P()), "b": NamedSharding(m2, P())}
+dist.barrier()
+t0 = time.perf_counter()
+got, _ = ck.restore(like={k: torch.empty(0) for k in shard_tree},
+                    sharding_tree=shard_tree)
+sync()
+res["restore_s"] = time.perf_counter() - t0
+res["restore_bytes_read"] = ck.last_restore_bytes_read
+held = []
+for s in got["V"].addressable_shards:
+    j = s.placement[0][0] // n
+    cs.require(s.placement[0][1] - s.placement[0][0] == n
+               and torch.equal(s.data, v_slice(j)),
+               f"multicard rank {rank}: restored V slice {j} differs")
+    held.append(j)
+cs.require(torch.equal(got["w"].to_full(), full_w())
+           and float(got["b"].to_full()) == 0.25,
+           f"multicard rank {rank}: the restored w or b differs")
+res["restored_slices"] = sorted(set(held))
+res["restored_V_bytes"] = got["V"].nbytes
+del got
+with open(os.path.join(out_dir, f"multicard-{rank}.json"), "w") as f:
+    json.dump(res, f)
+finalize()
+"""
+
+
+def _nccl_transports(log_dir):
+    """The NCCL transports the debug logs under ``log_dir`` name
+    (``... via P2P/CUMEM/read``), with their counts."""
+    vias = {}
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            for line in f:
+                m = NCCL_VIA.search(line)
+                if m:
+                    vias[m.group(1)] = vias.get(m.group(1), 0) + 1
+    return vias
+
+
+def distributed_launch_leg(cards, device="cuda"):
+    """``examples/torch_port/distributed_launch.py``, which runs 2 NCCL
+    ranks a card each: on a host of fewer than 2 cards it must refuse by
+    ``NotEnoughCardsError`` and print nothing; on one of 2 or more its
+    card run's lines must be its ``--device cpu`` run's under the rules
+    of ``same_output``. With ``device`` "cpu" (a host rehearsal) only the
+    host run, which must exit 0."""
+    name = "distributed_launch.py"
+    twin = os.path.join(REPO, "examples", "torch_port", name)
+    out, runs = {}, {}
+    for dev in ((["cuda"] if cards < 2 else ["cuda", "cpu"])
+                if device == "cuda" else ["cpu"]):
+        t0 = time.perf_counter()
+        runs[dev] = _run_group(
+            [sys.executable, twin]
+            + (["--device", "cpu"] if dev == "cpu" else []),
+            EXAMPLE_TIMEOUT_S, cwd=os.path.dirname(twin),
+            env={**os.environ, "PYTHONPATH": REPO})
+        out[f"{dev}_s"] = time.perf_counter() - t0
+    r = runs.get("cuda")
+    if r is None:
+        require(runs["cpu"].returncode == 0,
+                f"multicard path: {name} --device cpu exited "
+                f"{runs['cpu'].returncode}: {runs['cpu'].stderr[-2000:]}")
+    elif "cpu" not in runs:
+        require(r.returncode != 0 and "NotEnoughCardsError" in r.stderr
+                and not r.stdout.strip(),
+                f"multicard path: {name} on one card exited {r.returncode} "
+                f"with stdout {r.stdout!r}: {r.stderr[-2000:]}")
+        out["refused"] = r.stderr.strip().splitlines()[-1]
+        log(f"multicard path: {name} on one card refused: {out['refused']}")
+    else:
+        require(r.returncode == 0 and runs["cpu"].returncode == 0,
+                f"multicard path: {name} exited {r.returncode} on the "
+                f"cards, {runs['cpu'].returncode} on the host: "
+                f"{r.stderr[-2000:]}")
+        ok, diff = same_output(runs["cpu"].stdout, r.stdout, "cpu", "cuda",
+                               reference=False, cards=cards)
+        require(ok, f"multicard path: {name} on the cards printed other "
+                f"lines than on the host: {diff}")
+        out["lines"] = len(r.stdout.splitlines())
+        log(f"multicard path: (d) {name} on {cards} cards in "
+            f"{out['cuda_s']:.1f} s, its {out['lines']} lines as the "
+            f"host's ({out['cpu_s']:.1f} s)")
+    return out
+
+
+def multicard_path(linear, lr, work, device="cuda", cards=None, gloo7=None,
+                   keep=None):
+    """Phase 18, the multi-card gang over W = min(cards, MULTICARD_MAX)
+    cards of this host, one NCCL rank a card (see the module docstring).
+    On a host of one card it checks only that the gang refuses: the graft
+    twin's ``--cards 2`` by ``NotEnoughCardsError`` before any rank
+    starts, and ``distributed_launch.py`` as ``distributed_launch_leg``
+    says, and prints that the multi-card legs did not run. ``device``
+    "cpu" with ``cards`` rehearses the legs on the host over gloo (no
+    launch counts, no NCCL); ``gloo7`` is config 7's gloo result of this
+    run (run here when None); ``keep``, a directory, receives the NCCL
+    logs. Returns the phase's numbers."""
+    import torch
+    from dmlc_tpu_torch import graft
+    from dmlc_tpu_torch.parallel.launch import (
+        NotEnoughCardsError, launch_local,
+    )
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    have = torch.cuda.device_count() if on_card else cards
+    W = min(have, MULTICARD_MAX)
+    out = {"cards": W, "host_cards": have}
+    if W < 2:
+        try:
+            graft.main(["--cards", "2"])
+        except NotEnoughCardsError as e:
+            out["graft_refused"] = str(e)
+        else:
+            fail("multicard path: graft --cards 2 on one card did not "
+                 "raise NotEnoughCardsError")
+        out["distributed_launch"] = distributed_launch_leg(W)
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"multicard path: the multi-card legs (a)-(e) did not run: "
+            f"this host has {have} card(s) and NCCL needs a card a rank; "
+            f"graft --cards 2 refused ({out['graft_refused']}); phase "
+            f"{out['phase_s']:.1f} s")
+        return out
+    env = {"PYTHONPATH": REPO}
+    mdir = os.path.join(work, "multicard")
+    os.makedirs(mdir)
+    nccl_dir = os.path.join(mdir, "nccl")
+    os.makedirs(nccl_dir)
+    log(f"multicard path: {W} of {have} cards; NCCL_SOCKET_IFNAME="
+        f"{os.environ.get('NCCL_SOCKET_IFNAME')}, NCCL_P2P_LEVEL="
+        f"{os.environ.get('NCCL_P2P_LEVEL')}, NCCL_P2P_DISABLE="
+        f"{os.environ.get('NCCL_P2P_DISABLE')}"
+        + (f", NCCL {torch.cuda.nccl.version()}" if on_card else ""))
+
+    # (a) the graft twin: one rank a card, NCCL's transport log kept
+    t0 = time.perf_counter()
+    r = _run_group(
+        [sys.executable, "-m", "dmlc_tpu_torch.graft", "--cards", str(W)]
+        + ([] if on_card else ["--device", "cpu"]), MULTICARD_TIMEOUT_S,
+        cwd=REPO, env={**os.environ, **env, "NCCL_DEBUG": "INFO",
+                       "NCCL_DEBUG_FILE": os.path.join(nccl_dir,
+                                                       "nccl.%h.%p.log")})
+    secs = time.perf_counter() - t0
+    require(r.returncode == 0, f"multicard path: graft --cards {W} exited "
+            f"{r.returncode}: {r.stderr[-3000:]}")
+    runs = [ln for ln in r.stdout.splitlines()
+            if ln.startswith(f"dryrun_multichip({2 * W}): ")]
+    want = {f"rank={k} on {'cuda:' + str(k) if on_card else 'cpu'}"
+            for k in range(W)}
+    got = {re.search(r"rank=\d+ on \S+$", ln).group(0) for ln in runs}
+    require(len(runs) == W and got == want
+            and all(f"world={W} " in ln for ln in runs)
+            and r.stdout.count("entry() compile+run: ") == W,
+            f"multicard path: graft --cards {W} printed {r.stdout!r}")
+    vias = _nccl_transports(nccl_dir)
+    out["graft"] = {"secs": secs, "nccl_transports": vias}
+    log(f"multicard path: (a) graft --cards {W} in {secs:.1f} s, every "
+        f"rank's dry run passed on its own device ({sorted(got)}); NCCL "
+        f"transports {vias}")
+    log("  " + runs[0])
+    if keep is not None:
+        shutil.copytree(nccl_dir, os.path.join(keep, "nccl"),
+                        dirs_exist_ok=True)
+
+    # (b) and (c): one gang of W ranks
+    script = os.path.join(mdir, "multicard_worker.py")
+    with open(script, "w") as f:
+        f.write(MULTICARD_WORKER)
+    root = os.path.join(mdir, "ckpt")
+    t0 = time.perf_counter()
+    codes = launch_local(W, [sys.executable, script, linear, mdir, root,
+                             str(lr), device, str(NUM_FEATURES),
+                             str(ROW_BUCKET), str(NNZ_BUCKET)], env=env,
+                         timeout=MULTICARD_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    require(codes == [0] * W, f"multicard path: the gang exited {codes}")
+    res = []
+    for k in range(W):
+        with open(os.path.join(mdir, f"multicard-{k}.json")) as f:
+            res.append(json.load(f))
+    size = os.path.getsize(linear)
+    e = [x["epochs"] for x in res]
+    steps = e[0][0]["steps"]
+    require(len({x["device"] for x in res}) == (W if on_card else 1)
+            and all(x["world"] == W for x in res),
+            f"multicard path: the ranks ran on {[x['device'] for x in res]}")
+    losses = [ep["losses"] for ep in e[0]]
+    require(steps > 0 and all(all(x == x and abs(x) != float("inf")
+                                  for x in ls) for ls in losses)
+            and losses[-1][-1] < losses[0][0],
+            f"multicard path: the loss did not fall: {losses}")
+    require(len({x["w_digest"] for x in res}) == 1,
+            "multicard path: the ranks' final w or b differ")
+    require(all([ep["tier"] for ep in x["epochs"]] == ["parse", "memory"]
+                for x in res),
+            f"multicard path: epochs served by "
+            f"{[[ep['tier'] for ep in x['epochs']] for x in res]}")
+    want_launches = {"csr_spmv": 2 * steps, "csr_spmv_t": 2 * steps,
+                     "logistic_step": 0, "logistic_sums": steps,
+                     "logistic_grad": steps, "sgd_update": steps}
+    if on_card:
+        require(all(ep["launches"] == want_launches
+                    for x in res for ep in x["epochs"]),
+                f"multicard path: launches "
+                f"{[[ep['launches'] for ep in x['epochs']] for x in res]}, "
+                f"want {want_launches} an epoch a rank")
+    walls = [max(x["epochs"][i]["secs"] for x in res)
+             for i in range(MULTICARD_EPOCHS)]
+    grad_bytes = NUM_FEATURES * 4
+    nccl_us = res[0].get("nccl_us")
+    out["train"] = {
+        "parts": 2 * W, "steps": steps, "epoch_s": walls,
+        "gbps": [size / s / 1e9 for s in walls],
+        "gbps_a_rank": [size / W / s / 1e9 for s in walls],
+        "steps_per_s": [steps / s for s in walls],
+        "first_batch_s": [max(x["epochs"][i]["first_batch_s"] for x in res)
+                          for i in range(MULTICARD_EPOCHS)],
+        "first_step_s": [max(x["epochs"][i]["first_step_s"] for x in res)
+                         for i in range(MULTICARD_EPOCHS)],
+        "losses": [losses[0][0], losses[-1][-1]],
+        "launches_a_rank": e[0][0]["launches"],
+        "allreduce_ops": res[0].get("allreduce_ops"),
+        "allreduce_device_us_a_step": nccl_us,
+        "parity_max_err": [x["parity_max_err"] for x in res],
+        "gang_s": gang_s}
+    log(f"multicard path: (b) SparseLinearModel({NUM_FEATURES}) on {W} "
+        f"cards, "
+        f"{2 * W} parts of {ROW_BUCKET} rows, {steps} steps an epoch: "
+        f"loss {losses[0][0]:.4f} -> {losses[-1][-1]:.4f}, the ranks' "
+        f"final w bitwise equal; epochs (parse, memory) "
+        + " / ".join(f"{s:.3f}" for s in walls) + " s, "
+        + " / ".join(f"{x:.3f}" for x in out["train"]["gbps"])
+        + " GB/s (" + " / ".join(f"{x:.3f}" for x in
+                                 out["train"]["gbps_a_rank"])
+        + " a rank), " + " / ".join(f"{x:.2f}" for x in
+                                    out["train"]["steps_per_s"])
+        + f" steps/s (the first batch at "
+        + " / ".join(f"{x:.3f}" for x in out["train"]["first_batch_s"])
+        + " s, its step done at "
+        + " / ".join(f"{x:.3f}" for x in out["train"]["first_step_s"])
+        + f" s); launches a rank {e[0][0]['launches']}; "
+        f"{MULTICARD_PARITY_STEPS} steps vs flat steps over the "
+        f"{res[0]['parity_rows_a_step']}-row global batches max |err| "
+        f"{res[0]['parity_max_err']}")
+    if nccl_us is not None:
+        ar_us = res[0]["grad_allreduce_us"]
+        algbw = grad_bytes / ar_us / 1e3
+        out["train"]["grad_allreduce_us"] = ar_us
+        out["train"]["grad_allreduce_algbw_gbps"] = algbw
+        out["train"]["grad_allreduce_busbw_gbps"] = algbw * 2 * (W - 1) / W
+        log(f"multicard path: rank 0's {MULTICARD_PROFILED_STEPS} profiled "
+            f"steps: all-reduce ops {res[0]['allreduce_ops']}, NCCL kernels "
+            f"{nccl_us:.2f} us of device time a step (the {grad_bytes} B "
+            f"gradient of w and two scalars, with each kernel's wait for "
+            f"the other ranks); the gradient's all-reduce "
+            f"alone, {MULTICARD_ALLREDUCE_ITERS} back to back: {ar_us:.2f} "
+            f"us, {algbw:.2f} GB/s (bus {algbw * 2 * (W - 1) / W:.2f} GB/s)")
+    stored = sum(os.path.getsize(os.path.join(root, "step-00000001", f))
+                 for f in os.listdir(os.path.join(root, "step-00000001"))
+                 if f.endswith(".bin"))
+    V_bytes = NUM_FEATURES * FFM_FIELDS * FFM_FACTORS * 4
+    n = NUM_FEATURES // W
+    for x in res:
+        k = x["rank"]
+        want_sl = sorted({(2 * k) % W, (2 * k + 1) % W})
+        # the rank's own V slices, w and b, each record read once: a
+        # whole-leaf read takes W - len(want_sl) slices more
+        need = len(want_sl) * n * FFM_FIELDS * FFM_FACTORS * 4
+        nrec = len(want_sl) + 2
+        data = need + NUM_FEATURES * 4 + 4
+        require(x["held_V_bytes"] == V_bytes // W
+                and x["restored_slices"] == want_sl
+                and x["restored_V_bytes"] == need
+                and data <= x["restore_bytes_read"]
+                <= data + PLACEMENT_FRAMING * nrec,
+                f"multicard path: rank {k} held {x['held_V_bytes']} bytes "
+                f"of V, restored slices {x['restored_slices']} (want "
+                f"{want_sl}), read {x['restore_bytes_read']} bytes (want "
+                f"{data} of data in {nrec} records, {stored} stored)")
+    save_s = max(x["save_s"] for x in res)
+    out["placed"] = {
+        "stored_bytes": stored, "V_bytes": V_bytes, "save_s": save_s,
+        "save_gbps": stored / save_s / 1e9,
+        "restore_s": [x["restore_s"] for x in res],
+        "restore_bytes_read": [x["restore_bytes_read"] for x in res],
+        "restore_gbps": [x["restore_bytes_read"] / x["restore_s"] / 1e9
+                         for x in res]}
+    log(f"multicard path: (c) the FFM state (V {V_bytes} bytes under "
+        f"P('model') on ({W},), a slice a card; w, b replicated) saved by "
+        f"{W} ranks in {save_s:.4f} s ({stored} bytes stored, "
+        f"{out['placed']['save_gbps']:.3f} GB/s), restored onto (2, {W}) "
+        f"parts: bytes read a rank {out['placed']['restore_bytes_read']} "
+        f"of {stored} stored, "
+        + " / ".join(f"{g:.3f}" for g in out["placed"]["restore_gbps"])
+        + " GB/s a rank; every slice bit for bit")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (d) the distributed_launch twin's card leg
+    out["distributed_launch"] = distributed_launch_leg(W, device)
+
+    # (e) config 7 over NCCL through the suite's code path, beside gloo
+    from dmlc_tpu_torch.bench_suite import bench_multiprocess_ingest
+    suite = os.path.join(mdir, "suite")
+    os.makedirs(suite)
+    os.link(linear, os.path.join(suite,
+                                 "dmlc_tpu_torch_bench_suite.criteo.libsvm"))
+    mb = FILE_MB if on_card else max(1, size >> 20)
+    kw = {} if on_card else {"device": "cpu"}
+    if gloo7 is None:
+        gloo7 = bench_multiprocess_ingest(mb, work=suite, **kw)
+    if on_card:
+        nccl7 = bench_multiprocess_ingest(mb, work=suite, backend="nccl")
+        require(nccl7["replay_epochs"] == 2,
+                f"config 7 over NCCL: epochs 2-3 were not replayed: {nccl7}")
+        out["config7"] = {"nccl": nccl7, "gloo": gloo7}
+        log(f"multicard path: (e) config 7 over NCCL {nccl7['gbps']:.3f} "
+            f"GB/s steady (first epoch {nccl7['first_epoch_gbps']}), over "
+            f"gloo {gloo7['gbps']:.3f} GB/s")
+        log(json.dumps(nccl7))
+    else:
+        out["config7"] = {"gloo": gloo7}
+    shutil.rmtree(mdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multicard path: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     # Keep CUPTI set up between profiler traces. With kineto's default
     # teardown after each trace, a trace late in a run on an H100
@@ -9245,6 +9741,11 @@ def main() -> None:
                                        work,
                                        stats["cache"]["hashes_sha256"])
         stats["obs_gang"] = obs_gang_path(linear, LEARNING_RATE, work)
+        # the multi-card gang: a NCCL rank a card of this host, or, on a
+        # host of one card, the refusals
+        stats["multicard"] = multicard_path(
+            linear, LEARNING_RATE, work,
+            gloo7=stats["bench"]["multiprocess"])
         os.unlink(linear)
         from dmlc_tpu_torch.parallel.launch import finalize
         finalize()

@@ -53,7 +53,16 @@ Entry points that touch a device default to ``torch.device("cuda")``;
 pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """
 
-from dmlc_tpu_torch.utils.logging import DMLCError
+__version__ = "0.3.0"  # the reference's, whose API this mirrors
+
+from dmlc_tpu_torch.utils.logging import (
+    DMLCError, check, log_error, log_fatal, log_info, log_warning,
+)
+from dmlc_tpu_torch.utils.registry import Registry
+from dmlc_tpu_torch.utils.parameter import Parameter, field, get_env
+from dmlc_tpu_torch.io.stream import MemoryStream, SeekStream, Stream
+from dmlc_tpu_torch.io.tempdir import TemporaryDirectory
+from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
 from dmlc_tpu_torch.data.parser import Parser
 from dmlc_tpu_torch.data.row_iter import RowBlockIter
 from dmlc_tpu_torch.data import libsvm_parser as _libsvm  # registers "libsvm"
@@ -65,6 +74,12 @@ from dmlc_tpu_torch.data import parquet_parser as _parquet  # "parquet", "parque
 from dmlc_tpu_torch.io import cuda_fs as _cuda_fs  # registers cuda://
 # (importing dmlc_tpu_torch.io registers obj:// and s3://)
 
-__all__ = ["DMLCError", "Parser", "RowBlockIter"]
+__all__ = [
+    "DMLCError", "check", "log_info", "log_warning", "log_error", "log_fatal",
+    "Registry", "Parameter", "field", "get_env",
+    "Stream", "SeekStream", "MemoryStream", "TemporaryDirectory",
+    "RowBlock", "RowBlockContainer", "Parser", "RowBlockIter",
+    "__version__",
+]
 
 del _libsvm, _csv, _libfm, _dense, _image, _parquet, _cuda_fs

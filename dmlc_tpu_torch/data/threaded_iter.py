@@ -201,6 +201,9 @@ class ThreadedIter(Generic[T]):
             self._ended = True  # _EXC: stream is dead until BeforeFirst
             raise payload
 
+    def recycle(self, item: T) -> None:
+        """API parity with the reference's buffer recycling (no-op here)."""
+
     # -- introspection/tuning (pipeline probes + autotuner)
 
     def qsize(self) -> int:

@@ -16,21 +16,30 @@ port:
   for even ``n_parts >= 4`` a 2-D (data × model) phase whose weight
   vector is held as 2 slices over the model axis.
 
-The mesh's parts all live on one device of this process (a card, or the
-CPU); with ``group`` the step all-reduces over it (NCCL on the card).
+The mesh's parts of this process all live on its one device (a card,
+or the CPU); with ``group`` the step all-reduces over it (NCCL on the
+card, a card a rank). At a world of W > 1 each rank holds L = D / W
+parts, and the golden replays the reference's global ``[D, ...]``
+batches, gathered from every rank in part order.
+
+``python -m dmlc_tpu_torch.graft`` is the twin of ``python
+__graft_entry__.py``: ``entry()`` once, then the dry run (see
+:func:`main`).
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import os
+import sys
 import tempfile
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["entry", "dryrun_multichip", "write_dryrun_corpus"]
+__all__ = ["entry", "dryrun_multichip", "write_dryrun_corpus", "main"]
 
 NUM_FEATURES = 64
 ROW_BUCKET, NNZ_BUCKET = 16, 128
@@ -126,8 +135,67 @@ def _golden_step(params, batch):
     return loss.detach()
 
 
+def _say(line: str) -> None:
+    """``line`` to stdout in one write: the ranks of a gang share the
+    launcher's stdout, and ``print`` writes the text and its newline
+    apart, so two ranks' lines could interleave (a stdout with no file
+    descriptor, as a test's capture, takes ``print``)."""
+    sys.stdout.flush()
+    try:
+        fd = sys.stdout.fileno()
+    except (AttributeError, OSError, ValueError):  # a captured stdout
+        print(line, flush=True)
+        return
+    os.write(fd, (line + "\n").encode())
+
+
 def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:12]
+
+
+def _all_same(text: str, mesh) -> List[bytes]:
+    """Every rank's sha256 of ``text``, all-gathered over ``mesh.group``
+    (in rank order)."""
+    import torch.distributed as dist
+    from dmlc_tpu_torch.parallel.sharded import collective_device
+    mine = torch.frombuffer(bytearray(hashlib.sha256(
+        text.encode()).digest()), dtype=torch.uint8).to(
+        collective_device(mesh))
+    bufs = [torch.empty_like(mine) for _ in range(mesh.world)]
+    dist.all_gather(bufs, mine, group=mesh.group)
+    return [bytes(b.cpu().numpy()) for b in bufs]
+
+
+def _global_batches(batches: list, mesh) -> list:
+    """The reference's global ``[D, ...]`` batches from this rank's
+    ``[L, ...]`` ones: every rank's arrays all-gathered over
+    ``mesh.group`` (CUDA tensors under NCCL, CPU ones under gloo) and
+    joined in rank order, which is part order (rank r owns parts
+    ``[r·L, (r+1)·L)``). The buckets are fixed, so every rank's keys,
+    shapes and dtypes must agree: that is checked first, by digest."""
+    if mesh.group is None or mesh.world == 1:
+        return batches
+    import torch.distributed as dist
+    from dmlc_tpu_torch.parallel.sharded import collective_device
+    layout = repr([(k, tuple(b[k].shape), str(b[k].dtype))
+                   for b in batches for k in sorted(b)])
+    got = _all_same(layout, mesh)
+    assert len(set(got)) == 1, (
+        f"rank {mesh.rank}: the ranks' batch layouts differ ({layout})")
+    cdev = collective_device(mesh)
+    out = []
+    for b in batches:
+        g = {}
+        for k in sorted(b):
+            t = b[k].contiguous()
+            # as bytes: NCCL and gloo carry uint8 whatever the column's
+            # dtype (the index is u32 or u64)
+            mine = t.view(torch.uint8).to(cdev)
+            bufs = [torch.empty_like(mine) for _ in range(mesh.world)]
+            dist.all_gather(bufs, mine, group=mesh.group)
+            g[k] = torch.cat(bufs).view(t.dtype).to(mesh.device)
+        out.append(g)
+    return out
 
 
 def _model_slices(w_placed, m: int, mesh) -> list:
@@ -203,12 +271,17 @@ def model_axis_phase(path: str, n_parts: int, device, group=None,
 def dryrun_multichip(n_parts: int, device=None, group=None
                      ) -> Dict[str, Any]:
     """The data-parallel dry run over a mesh of ``n_parts`` parts on
-    ``device`` (``cuda`` by default), all-reducing over ``group`` when
-    one is given. Raises AssertionError on any failed check; returns
-    the final parameters and the figures it printed."""
+    ``device`` (``cuda`` by default: this process's card), all-reducing
+    over ``group`` when one is given. At a world of W > 1 every rank of
+    ``group`` calls it with the same ``n_parts``; each holds its
+    ``n_parts / W`` parts, checks its own ``w`` and ``b`` against the
+    golden over the gathered global batches, and the ranks' final ``w``
+    and ``b`` must be bitwise equal. Raises AssertionError on any failed
+    check; returns the final parameters and the figures it printed."""
     from dmlc_tpu_torch.models import SparseLinearModel
+    from dmlc_tpu_torch.parallel.device_iter import resolve_device
     from dmlc_tpu_torch.parallel.sharded import Mesh, ShardedRowBlockIter
-    device = torch.device("cuda" if device is None else device)
+    device = resolve_device(device)
     mesh = Mesh((n_parts,), ("data",), group=group, device=device)
     model = SparseLinearModel(NUM_FEATURES, learning_rate=LEARNING_RATE,
                               device=device)
@@ -233,9 +306,12 @@ def dryrun_multichip(n_parts: int, device=None, group=None
         assert np.isfinite(l0) and np.isfinite(l5), (l0, l5)
         assert l5 < l0, f"loss must decrease over 5 epochs: {l0} -> {l5}"
 
-        # steady-epoch replay through the SAME iterator: epoch 2
-        # re-parses and tees (single-process "auto"), epoch 3 serves the
-        # retained rounds from memory — batches identical to epoch 1
+        # steady-epoch replay through the SAME iterator: in one process
+        # epoch 2 re-parses and tees ("auto" streams epoch 1) and epoch 3
+        # serves the retained rounds from memory; at a world > 1 "auto"
+        # caches epoch 1, so epochs 2 and 3 are both served from memory
+        # (replay_epochs 2). Either way epoch 3 comes from memory, its
+        # batches identical to epoch 1
         e2 = list(it)
         e3 = list(it)
         assert len(e2) == len(e3) == len(batches), (
@@ -247,25 +323,34 @@ def dryrun_multichip(n_parts: int, device=None, group=None
             for k in a:
                 assert torch.equal(a[k], b[k]), k
 
-        # parity: replay the SAME batches through one flat golden step on
-        # one device. Any wrong all-reduce or mis-assigned part gives an
-        # O(1) parameter error; bitwise equality is reported besides
-        # (the sums may run in other orders)
+        # parity: replay the SAME global batches (every rank's parts,
+        # gathered) through one flat golden step on this rank's device.
+        # Any wrong all-reduce or mis-assigned part gives an O(1)
+        # parameter error; bitwise equality is reported besides (the
+        # sums may run in other orders)
+        global_batches = _global_batches(batches, mesh)
         gparams = {"w": torch.zeros(NUM_FEATURES, device=device,
                                     requires_grad=True),
                    "b": torch.zeros((), device=device, requires_grad=True)}
         for _ in range(5):
-            for batch in batches:
+            for batch in global_batches:
                 _golden_step(gparams, batch)
         # one more step on EACH side, so the comparison also covers a
         # fresh gradient at the converged point
-        _golden_step(gparams, batches[0])
+        _golden_step(gparams, global_batches[0])
         step(batches[0])
         w_mesh, w_gold = model.w.detach(), gparams["w"].detach()
         torch.testing.assert_close(w_mesh, w_gold, rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(model.b.detach(), gparams["b"].detach(),
                                    rtol=RTOL, atol=ATOL)
         dm, dg = _digest(w_mesh), _digest(w_gold)
+        if mesh.world > 1:
+            # the all-reduced gradient is the same bits on every rank,
+            # and so is every update: the ranks' w must be too
+            ranks = _all_same(dm + _digest(model.b.detach()), mesh)
+            assert len(set(ranks)) == 1, (
+                f"rank {mesh.rank}: the ranks' final w and b differ "
+                f"({[r.hex()[:12] for r in ranks]})")
 
         tp_note = ""
         if n_parts >= 4 and n_parts % 2 == 0:
@@ -273,16 +358,119 @@ def dryrun_multichip(n_parts: int, device=None, group=None
             tp_note = (f"; model-axis phase OK (2-D {n_parts // 2}x2 "
                        f"data*model mesh, w held as 2 slices, loss+grad "
                        f"parity {l_tp:.4f})")
-        print(f"dryrun_multichip({n_parts}) on {device}: loss {l0:.4f} -> "
-              f"{l5:.4f} OK ({len(batches)} batches through the "
-              f"file→mesh stack); steady replay OK ({it.replay_epochs} "
-              f"epoch(s) served from retained rounds, batches identical); "
-              f"1-device parity {'BITWISE' if dm == dg else 'allclose'} "
-              f"(mesh={dm} golden={dg}){tp_note}", flush=True)
+        _say(f"dryrun_multichip({n_parts}): loss {l0:.4f} -> {l5:.4f} "
+             f"OK ({len(batches)} global batches through the "
+             f"file→mesh stack); steady replay OK ({it.replay_epochs} "
+             f"epoch(s) served from retained rounds, batches identical); "
+             f"1-device parity {'BITWISE' if dm == dg else 'allclose'} "
+             f"(mesh={dm} golden={dg}){tp_note}; world={mesh.world} "
+             f"rank={mesh.rank} on {device}")
         return {"w": w_mesh.cpu().numpy(),
                 "b": float(model.b.detach()), "loss0": l0, "loss5": l5,
-                "batches": len(batches), "replay_epochs": it.replay_epochs}
+                "batches": len(batches), "replay_epochs": it.replay_epochs,
+                "world": mesh.world, "rank": mesh.rank}
     finally:
         for i in its:
             i.close()
         os.unlink(path)
+
+
+def _worker(args) -> None:
+    """One rank of the gang ``main`` launched: ``entry()`` on its device,
+    then the dry run over the group."""
+    import torch.distributed as dist
+    from dmlc_tpu_torch.parallel.device_iter import resolve_device
+    from dmlc_tpu_torch.parallel.launch import finalize, init_from_env
+    rank, world = init_from_env(device=args.device if args.device == "cpu"
+                                else None)
+    device = resolve_device(args.device)  # the rank's card, once set
+    fn, fargs = entry(device)
+    _say(f"entry() compile+run: {float(fn(*fargs))}")
+    out = dryrun_multichip(args.parts, device=device, group=dist.group.WORLD)
+    if args.out:
+        np.save(os.path.join(args.out, f"w-{rank}-of-{world}.npy"),
+                out["w"])
+    finalize()
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """``python -m dmlc_tpu_torch.graft [--device cpu] [--cards N]
+    [--parts P]``, the twin of ``python __graft_entry__.py``.
+
+    - ``--device cpu`` (one rank): ``entry()`` once, then
+      ``dryrun_multichip(P)`` on a mesh of P = 8 parts in this process,
+      as the reference's self-test runs on its 8 CPU devices.
+    - On the card, ``--cards 1`` (the default on a host of one card):
+      the same in a world-1 NCCL group.
+    - ``--cards N >= 2`` (the default on a host of N cards): N ranks
+      through ``launch_local``, one card each; each runs ``entry()`` on
+      its card and ``dryrun_multichip(P, group=WORLD)``, P = 2N parts by
+      default (the model-axis phase runs at P >= 4). With ``--device
+      cpu`` the N ranks form a gloo group on the host.
+
+    A host with fewer cards than N raises ``NotEnoughCardsError`` before
+    any rank starts. Returns 0, or 1 when a rank of the gang failed."""
+    from dmlc_tpu_torch.parallel.launch import (
+        NotEnoughCardsError, find_free_port, launch_local, worker_envs,
+    )
+    from dmlc_tpu_torch.utils.logging import DMLCError
+    ap = argparse.ArgumentParser(
+        prog="python -m dmlc_tpu_torch.graft",
+        description="entry() and the data-parallel dry run "
+                    "(twin of python __graft_entry__.py)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda (the default: NCCL, a card a rank) or cpu "
+                         "(gloo)")
+    ap.add_argument("--cards", type=int, default=None,
+                    help="ranks of the gang, one card each (default: "
+                         "every card of the host; 1 with --device cpu)")
+    ap.add_argument("--parts", type=int, default=None,
+                    help="mesh parts (default: 8 for one rank, 2 a rank "
+                         "otherwise)")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    on_card = args.device == "cuda"
+    cards = args.cards
+    if cards is None:
+        cards = max(1, torch.cuda.device_count()) if on_card else 1
+    if args.parts is None:
+        args.parts = 8 if cards == 1 else 2 * cards
+    if args.worker:
+        _worker(args)
+        return 0
+    if on_card and torch.cuda.device_count() < cards:
+        raise NotEnoughCardsError(
+            f"the dry run on the card runs {cards} NCCL rank(s), one "
+            f"CUDA card each; this host has {torch.cuda.device_count()} "
+            "(pass --device cpu for the host)")
+    if cards == 1 and not on_card:
+        fn, fargs = entry("cpu")
+        print("entry() compile+run:", float(fn(*fargs)), flush=True)
+        dryrun_multichip(args.parts, device="cpu")
+        return 0
+    # the ranks' NCCL bootstrap over loopback: every rank is on this host
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    if cards == 1:
+        os.environ.update(worker_envs(f"127.0.0.1:{find_free_port()}", 1, 0))
+        _worker(args)
+        return 0
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {"PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}
+    cmd = [sys.executable, "-m", "dmlc_tpu_torch.graft", "--worker",
+           "--device", args.device, "--cards", str(cards),
+           "--parts", str(args.parts)]
+    if args.out:
+        cmd += ["--out", args.out]
+    try:
+        launch_local(cards, cmd, env=env, timeout=600)
+    except DMLCError as e:
+        print(f"dry run gang failed: {e}", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,8 +26,8 @@ from dmlc_tpu_torch.resilience import inject as _inject
 from dmlc_tpu_torch.resilience.policy import guarded
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
-__all__ = ["Stream", "SeekStream", "MemoryStream", "FileStream",
-           "create_stream", "create_seek_stream_for_read"]
+__all__ = ["Stream", "SeekStream", "MemoryStream", "Serializable",
+           "FileStream", "create_stream", "create_seek_stream_for_read"]
 
 
 class Stream:
@@ -108,6 +108,16 @@ class SeekStream(Stream):
         raise NotImplementedError
 
     def tell(self) -> int:
+        raise NotImplementedError
+
+
+class Serializable:
+    """Objects that (de)serialize onto a Stream (reference: dmlc::Serializable)."""
+
+    def save(self, stream: Stream) -> None:
+        raise NotImplementedError
+
+    def load(self, stream: Stream) -> None:
         raise NotImplementedError
 
 

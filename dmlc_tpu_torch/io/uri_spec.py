@@ -9,8 +9,9 @@ kwargs such as ``format=csv``. ';' in the path separates multiple input
 paths, each keeping its own scheme.
 
 Scheme handling: the ``scheme://`` prefix is split off BEFORE the
-'?'/'#' decomposition, so the '?'/'#' splitting never eats into a
-protocol.
+'?'/'#' decomposition, so a remote URI like
+``obj://bucket/key?format=csv#cache`` round-trips with its protocol
+intact (``str_spec()`` reconstructs the raw form).
 """
 
 from __future__ import annotations
@@ -46,10 +47,28 @@ class URISpec:
                 k, _, v = kv.partition("=")
                 self.args[k] = v
 
+    @property
+    def scheme(self) -> str:
+        """Protocol of the (first) path, "file://" when bare."""
+        first = self.uri.split(";", 1)[0]
+        if "://" in first:
+            return first.partition("://")[0] + "://"
+        return "file://"
+
     def paths(self) -> List[str]:
         """';'-separated multi-path expansion; every path keeps the
         scheme it was written with."""
         return [p for p in self.uri.split(";") if p]
+
+    def str_spec(self) -> str:
+        """Reconstruct the raw user URI (protocol, ?args and #cache
+        intact)."""
+        out = self.uri
+        if self.args:
+            out += "?" + "&".join(f"{k}={v}" for k, v in self.args.items())
+        if self.cache_file:
+            out += "#" + self.cache_file
+        return out
 
     def __repr__(self) -> str:
         return (f"URISpec(uri={self.uri!r}, cache_file={self.cache_file!r}, "

@@ -53,7 +53,8 @@ __all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
            "csr_spmv_t_route",
            "sdot_rows",
            "sdot_rows_plain", "csr_to_dense", "csr_to_dense_plain",
-           "csr_to_dense_route", "csr_to_padded_rows", "sharded_spmv"]
+           "csr_to_dense_route", "csr_to_padded_rows", "sharded_spmv",
+           "segment_sum"]
 
 def csr_row_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
     """Row id of every nonzero: row_ids[k] = i s.t. offset[i] <= k < offset[i+1].
@@ -63,6 +64,27 @@ def csr_row_ids(offset: torch.Tensor, nnz: int) -> torch.Tensor:
     """
     k = torch.arange(nnz, dtype=offset.dtype, device=offset.device)
     return torch.searchsorted(offset, k, right=True) - 1
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: Optional[int] = None) -> torch.Tensor:
+    """out[s] = Σ data[k] over the k whose ``segment_ids[k] == s``, with
+    ``jax.ops.segment_sum``'s semantics: ``num_segments`` rows out (the
+    largest id + 1 when None), ids outside ``[0, num_segments)`` dropped,
+    an empty segment 0. ``segment_ids`` is 1-D, one id a row of
+    ``data``. A plain tensor function (the reference's public segment
+    sum), not a kernel: nothing on the kernel path calls it."""
+    ids = segment_ids.to(device=data.device, dtype=torch.int64)
+    check(ids.dim() == 1 and data.dim() >= 1
+          and ids.numel() == data.shape[0],
+          f"segment_sum: segment_ids {tuple(segment_ids.shape)} needs one "
+          f"id a row of data {tuple(data.shape)}")
+    if num_segments is None:
+        num_segments = int(ids.max()) + 1 if ids.numel() else 0
+    keep = (ids >= 0) & (ids < num_segments)
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    return out.index_add_(0, ids[keep], data[keep])
 
 
 def _check_index_value(index, value, dims):

@@ -50,11 +50,20 @@ from dmlc_tpu_torch.obs import trace as _trace
 from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 
 __all__ = ["device_prefetch", "DeviceIter", "HostStaging", "DeviceBatch",
-           "copy_to_device", "wait_copy"]
+           "copy_to_device", "wait_copy", "resolve_device"]
 
 
-def _device(device) -> torch.device:
-    return torch.device("cuda" if device is None else device)
+def resolve_device(device=None) -> torch.device:
+    """``device`` (``cuda`` when None), a ``cuda`` one with its card's
+    index: the calling thread's current card (a rank's own, once
+    ``init_from_env`` set it). A thread started later, such as a serve
+    thread, has card 0 as its current card, so a bare ``cuda`` there
+    would name card 0 whatever card the rank holds."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -172,6 +181,10 @@ class HostStaging:
         else:
             self._busy.append((slot, event))
 
+    def reset_epoch(self) -> None:
+        """Zero the staging seconds (``assemble_s``) for a new epoch."""
+        self.assemble_s = 0.0
+
 
 def _to_tensors(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
@@ -228,20 +241,44 @@ def wait_copy(batch: DeviceBatch, device: torch.device) -> DeviceBatch:
     return batch
 
 
+def _target(sharding, device):
+    """(device, NamedSharding or None) of ``device_prefetch``'s
+    ``sharding`` and ``device`` arguments."""
+    from dmlc_tpu_torch.parallel.placement import NamedSharding
+    from dmlc_tpu_torch.utils.logging import check
+    check(sharding is None or device is None,
+          "device_prefetch: pass device OR sharding, not both")
+    if sharding is None:
+        return resolve_device(device), None
+    if isinstance(sharding, NamedSharding):
+        return sharding.device, sharding
+    check(isinstance(sharding, torch.device),
+          "device_prefetch(sharding=) takes a dmlc_tpu_torch.parallel."
+          "placement.NamedSharding or a torch.device, got "
+          f"{type(sharding).__name__}")
+    return sharding, None
+
+
 def device_prefetch(host_batches: Iterable[Dict[str, Any]], size: int = 2,
-                    device=None,
-                    staging: bool = False) -> Iterator[Dict[str, Any]]:
+                    sharding=None, staging: bool = False,
+                    device=None) -> Iterator[Dict[str, Any]]:
     """Yield device-resident batches with ``size`` copies in flight.
 
     ``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the host.
-    Without staging, a batch must own its buffers until its copy has
+    ``sharding`` (the reference's argument) is a ``parallel.placement.
+    NamedSharding``, which places each array of a batch with
+    ``placement.device_put`` on the mesh's device (as
+    ``Pipeline.to_device(sharding=)`` does; the batch's values are then
+    ``PlacedTensor`` objects), or a ``torch.device``, which moves the batch
+    there; nothing else is accepted, and not both ``sharding`` and
+    ``device``. Without staging, a batch must own its buffers until its copy has
     been enqueued (a pageable-memory H2D copy has read its source when
     it returns); on the CPU the yielded tensors alias the source arrays.
     ``staging=True`` routes every batch through a :class:`HostStaging`
     pool of pinned slots (see the module docstring): the source arrays,
     e.g. leased native views, are free as soon as the batch is pulled.
     """
-    device = _device(device)
+    device, placement = _target(sharding, device)
     on_cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if on_cuda else None
     pool = (HostStaging(slots=size, pin=on_cuda, alias_unsafe=not on_cuda)
@@ -267,7 +304,14 @@ def device_prefetch(host_batches: Iterable[Dict[str, Any]], size: int = 2,
             # staging does its job
             rec.complete("device.xfer", t_enq,
                          time.perf_counter() - t_enq, "transfer")
-        return wait_copy(out, device)
+        out = wait_copy(out, device)
+        if placement is not None:
+            from dmlc_tpu_torch.parallel.placement import device_put
+            placed = DeviceBatch({k: device_put(t, placement, name=k)
+                                  for k, t in out.items()})
+            placed.counts = out.counts
+            out = placed
+        return out
 
     try:
         for _ in range(size):
@@ -291,14 +335,15 @@ class DeviceIter:
                  size: int = 2, device=None, staging: bool = False):
         self._factory = host_iter_factory
         self._size = size
-        self._device = _device(device)
+        self._device = resolve_device(device)
         self._staging = staging
         self._gen: Optional[Iterator] = None
         self._value = None
 
     def before_first(self) -> None:
         self._gen = device_prefetch(self._factory(), self._size,
-                                    self._device, self._staging)
+                                    staging=self._staging,
+                                    device=self._device)
         self._value = None
 
     def next(self) -> bool:

@@ -12,8 +12,10 @@ coordinator's address. This module keeps:
   rendezvous half (``rendezvous_envs``);
 - ``init_from_env()`` and ``finalize()``, worker side: NCCL when the
   device is ``cuda`` (the default), gloo only when the caller asks for
-  the CPU. NCCL needs one card a rank. There is no fallback from one
-  backend to the other: if NCCL fails, the call raises;
+  the CPU. NCCL needs one card a rank: a rank takes the card of its
+  task id, and a gang with fewer cards than ranks on one host raises
+  :class:`NotEnoughCardsError`. There is no fallback from one backend to
+  the other: if NCCL fails, the call raises;
 - ``launch_local()``, N local worker processes owned by a
   :class:`~dmlc_tpu_torch.resilience.GangSupervisor`: with no
   ``restart_policy`` the gang is killed on the first nonzero exit and
@@ -55,7 +57,7 @@ __all__ = [
     "launch_local", "launch_ssh", "merge_gang_traces", "get_ring",
     "get_tree", "get_link_map", "find_free_port", "find_free_ports",
     "main", "rendezvous_envs", "ENV_COORD", "ENV_NWORKER", "ENV_TASK_ID",
-    "ENV_TRACE_DIR",
+    "ENV_TRACE_DIR", "NotEnoughCardsError",
 ]
 
 # env contract (reference: slave_envs in tracker.py)
@@ -156,7 +158,28 @@ def get_role() -> str:
     return os.environ.get("DMLC_ROLE", "worker")
 
 
-def init_from_env(device=None) -> Tuple[int, int]:
+class NotEnoughCardsError(DMLCError):
+    """A gang on the card needs one CUDA card a rank, and this host has
+    fewer: NCCL refuses two ranks on one card, and the port never falls
+    back to gloo or to sharing a card.
+
+    ``init_from_env`` raises it only when the coordinator is a loopback
+    address (``localhost``, ``127.*``, ``::1``), the form ``launch_local``
+    gives by default: then every rank runs on this host. A one-host gang
+    given another address (``launch_local(coordinator=...)``) is not
+    checked, and ranks past the host's cards reach NCCL on a shared card
+    and fail there."""
+
+
+def _loopback(coord: str) -> bool:
+    """Whether the coordinator ``host:port`` is this host's loopback
+    address, which only ranks on this host can reach: then every rank of
+    the gang runs here."""
+    host = coord.rsplit(":", 1)[0].strip("[]")
+    return host in ("localhost", "::1") or host.startswith("127.")
+
+
+def init_from_env(device=None, force: bool = False) -> Tuple[int, int]:
     """Worker-side rendezvous: ``torch.distributed.init_process_group``
     from the env contract. Returns (rank, world size).
 
@@ -164,8 +187,21 @@ def init_from_env(device=None) -> Tuple[int, int]:
     the card, ``gloo`` only when the caller asks for ``"cpu"``; the
     store is TCP at the coordinator's host:port. With no coordinator in
     the env this is single-process mode: it returns (0, 1) and creates
-    no group. A process group that already exists is kept (its rank and
-    size are returned)."""
+    no group, unless ``force`` is set, which raises as the reference's
+    does. A process group that already exists is kept (its rank and
+    size are returned).
+
+    A card a rank: a ``cuda`` device without an index takes card
+    ``DMLC_TPU_TASK_ID % torch.cuda.device_count()``, so a
+    ``launch_local`` gang of N ranks on a host of N cards puts one rank
+    on each. When the coordinator is this host's loopback address (a
+    ``launch_local`` gang: every rank runs here) and the world is larger
+    than the host's cards, two ranks would share a card, and this raises
+    :class:`NotEnoughCardsError` before NCCL is asked. The task id is
+    global: across hosts (``launch_ssh`` puts rank r on host
+    ``r % len(hosts)``) the card is still the global task id modulo this
+    host's cards, which can repeat on a host, so such a gang passes
+    ``device=cuda:<i>`` itself."""
     import torch
     import torch.distributed as dist
     check(get_role() == "worker",
@@ -174,8 +210,9 @@ def init_from_env(device=None) -> Tuple[int, int]:
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     coord = _getenv(ENV_COORD)
-    if coord is None:
+    if coord is None and not force:
         return 0, 1
+    check(coord is not None, f"{ENV_COORD} not set")
     dev = torch.device("cuda" if device is None else device)
     check(dev.type in ("cuda", "cpu"),
           f"init_from_env runs on cuda or cpu, got {dev}")
@@ -186,7 +223,14 @@ def init_from_env(device=None) -> Tuple[int, int]:
               "init_from_env(device='cuda') needs a CUDA card for NCCL "
               "(pass device='cpu' for gloo)")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            cards = torch.cuda.device_count()
+            if _loopback(coord) and nworker > cards:
+                raise NotEnoughCardsError(
+                    f"rank {task_id} of {nworker} on this host would "
+                    f"share card {task_id % cards} with another rank: the "
+                    f"host has {cards} card(s) for {nworker} NCCL ranks "
+                    "(pass device='cpu' for gloo)")
+            dev = torch.device("cuda", task_id % cards)
         torch.cuda.set_device(dev)
         backend = "nccl"
     else:

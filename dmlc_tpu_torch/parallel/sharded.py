@@ -45,7 +45,7 @@ from dmlc_tpu_torch.data.padding import (  # noqa: F401 — re-exported, as
 )
 from dmlc_tpu_torch.data.rowblock import RowBlock
 from dmlc_tpu_torch.parallel.device_iter import (
-    DeviceBatch, HostStaging, copy_to_device, wait_copy,
+    DeviceBatch, HostStaging, copy_to_device, resolve_device, wait_copy,
 )
 from dmlc_tpu_torch.utils.logging import (
     DMLCError, check, check_eq, log_warning,
@@ -64,7 +64,8 @@ class Mesh:
     reference's mesh shape, in parts instead of devices). ``group`` is
     the ``torch.distributed`` process group (None: one process, no
     collective). ``device`` is this process's device (``cuda`` by
-    default). The parts are numbered in row-major order over ``shape``,
+    default: the card current when the mesh is made, the rank's own
+    under ``init_from_env``). The parts are numbered in row-major order over ``shape``,
     and process r of the group's world W owns the contiguous run
     ``[r·D/W, (r+1)·D/W)`` of them, all on ``device``; along an axis
     it owns the coordinates of that run (``local_parts``)."""
@@ -79,7 +80,7 @@ class Mesh:
         self.shape = shape
         self.axis_names = tuple(axis_names)
         self.group = group
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = resolve_device(device)
         if group is None:
             self.rank, self.world = 0, 1
         else:

@@ -85,7 +85,7 @@ from dmlc_tpu_torch.obs import trace as _trace
 from dmlc_tpu_torch.obs import watchdog as _watchdog
 from dmlc_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from dmlc_tpu_torch.parallel.device_iter import (
-    DeviceBatch, copy_to_device, wait_copy,
+    DeviceBatch, copy_to_device, resolve_device, wait_copy,
 )
 from dmlc_tpu_torch.parallel.placement import NamedSharding, device_put
 from dmlc_tpu_torch.pipeline.autotune import Autotuner, Knob
@@ -811,7 +811,7 @@ class _DeviceRunner(_RunnerBase):
               "to_device(staging) must be True, False or 'auto'")
         self._staging = staging
         self._device = (sharding.device if sharding is not None else
-                        torch.device("cuda" if device is None else device))
+                        resolve_device(device))
 
     @staticmethod
     def _host_arrays(item) -> Dict[str, np.ndarray]:

@@ -35,10 +35,6 @@ WORKERS = 2
 PARTS_PER_WORKER = 2
 
 
-class NotEnoughCardsError(RuntimeError):
-    """The gang on the card needs one CUDA card a rank."""
-
-
 def make_data(path: str) -> None:
     import numpy as np
     rng = np.random.RandomState(0)
@@ -88,7 +84,9 @@ def main(device: str) -> None:
 
     from dmlc_tpu_torch.io.checkpoint import ShardedCheckpoint
     from dmlc_tpu_torch.io.tempdir import TemporaryDirectory
-    from dmlc_tpu_torch.parallel.launch import launch_local
+    from dmlc_tpu_torch.parallel.launch import (
+        NotEnoughCardsError, launch_local,
+    )
 
     if device == "cuda" and torch.cuda.device_count() < WORKERS:
         raise NotEnoughCardsError(

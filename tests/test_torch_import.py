@@ -4,7 +4,8 @@ The port imports torch and numpy, never jax, and nothing of the JAX
 package dmlc_tpu (it keeps its own copies of the host modules it needs).
 Checked twice: in a fresh interpreter (tests/conftest.py imports jax into
 this one), and by an AST scan of every file of the package, of the
-example twins under examples/torch_port/ and of chip_smoke.py. Also: chip_smoke.py refuses to run without a CUDA card,
+example twins under examples/torch_port/, of chip_smoke.py and of
+scripts/multicard_quick.py. Also: chip_smoke.py refuses to run without a CUDA card,
 and the kernel paths raise instead of falling back.
 """
 
@@ -34,7 +35,8 @@ def _port_files():
                                  if d not in ("build", "__pycache__"))
             out += [os.path.join(dirpath, f) for f in sorted(filenames)
                     if f.endswith(".py")]
-    return out + [os.path.join(REPO, "chip_smoke.py")]
+    return out + [os.path.join(REPO, "chip_smoke.py"),
+                  os.path.join(REPO, "scripts", "multicard_quick.py")]
 
 
 def _imported_roots(path):
@@ -123,7 +125,13 @@ NEW_MODULES = ("dmlc_tpu_torch.bench_transfer",
                "dmlc_tpu_torch.utils.config",
                "dmlc_tpu_torch.utils.concurrency",
                "dmlc_tpu_torch.utils.thread_group",
-               "dmlc_tpu_torch.parallel.backends")
+               "dmlc_tpu_torch.parallel.backends",
+               "dmlc_tpu_torch",
+               "dmlc_tpu_torch.io",
+               "dmlc_tpu_torch.ops",
+               "dmlc_tpu_torch.parallel",
+               "dmlc_tpu_torch.parallel.launch",
+               "dmlc_tpu_torch.graft")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -135,9 +143,10 @@ def test_transfer_and_checkpoint_modules_import_alone(module):
     RPC trace plane and the ownership rule), and the gang plane (the
     status server, the peer tier, rendezvous membership and the two
     gang bench workers), the global shuffle plane (its four modules
-    and the config 20 and 23 workers), and dmlc-core's utility bricks
-    and submit generators (config, queues, thread group, backends)
-    import in a fresh
+    and the config 20 and 23 workers), dmlc-core's utility bricks
+    and submit generators (config, queues, thread group, backends), and
+    the packages that export the reference's names, the launcher and
+    the graft twin, import in a fresh
     interpreter without jax or dmlc_tpu (each is also in the AST scan
     above)."""
     path = os.path.join(REPO, *module.split("."))
