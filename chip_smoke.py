@@ -295,6 +295,15 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    ``Pipeline``'s stream hash equal to a direct parse) and 12
    (``native_assembly``, 48 MB: the fused, unfused and sharded native
    streams sha256-equal to the Python golden's, gauged);
+11a. the headline entry point (``bench_entry_path``): ``python -m
+   dmlc_tpu_torch.bench --trace``, the twin of bench.py, in a process of
+   its own at the bench's full width (256 MB, 8192-row batches,
+   ``nnz_bucket`` 368640) and a budget of 0 s (the reference's floor of
+   5 epochs), over the linear corpus at the twin's name: one stdout line
+   with bench.py's keys and nested keys (read from its source by
+   ``ast``), ``native-padded``, at least 5 epochs, its replay and
+   page-spill probes present (the spill probe served from pages), a
+   bound in its analysis, and a Chrome trace with ``pull/`` spans;
 11b. the object-store plane (``remote_path``), over one on-disk
    emulator under the run's directory behind the reference's modeled
    wire (2 ms a request, 4 GB/s; 4 MB blocks, 4 coalesced, 4 GETs at
@@ -5287,6 +5296,101 @@ def require_shuffle_configs(el, gs):
             f"config 23: {gs}")
 
 
+# --------------------------------------------------------------- phase 11a
+
+def bench_py_keys():
+    """bench.py's JSON keys, read from its source by ``ast`` (it is never
+    imported): {"": the keys of the dict it prints; "pipeline",
+    "replay", "replay_tier": the keys of those nested dicts}."""
+    import ast
+    with open(os.path.join(REPO, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+                == "dumps" and node.args
+                and isinstance(node.args[0], ast.Dict)):
+            names = [k.value for k in node.args[0].keys]
+            out[""] = set(names)
+            out["pipeline"] = {k.value for k in node.args[0].values[
+                names.index("pipeline")].keys}
+        elif (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+              and isinstance(node.targets[0], ast.Name)
+              and node.targets[0].id in ("replay", "replay_tier")):
+            out[node.targets[0].id] = {k.value for k in node.value.keys}
+    require(set(out) == {"", "pipeline", "replay", "replay_tier"},
+            f"bench.py's keys not found by ast: {sorted(out)}")
+    return out
+
+
+def bench_entry_path(linear, work, card):
+    """``python -m dmlc_tpu_torch.bench --trace <work>/bench_trace.json``
+    in a process of its own on the card, at the bench's full width (256
+    MB, 8192-row batches, nnz_bucket 368640) with
+    ``DMLC_TPU_BENCH_BUDGET_S=0``: the reference's floor of 5 epochs. The
+    linear corpus (bench.py's shape, 256 MB) stands at the twin's corpus
+    name, which the twin keeps as the reference keeps a file of its size,
+    and its first 64 MB at the bench suite's name for the replay probes.
+    Checks the one JSON line against bench.py's keys and the trace file;
+    logs the headline fields beside the card. Returns them."""
+    keys = bench_py_keys()
+    os.link(linear, os.path.join(work, "dmlc_tpu_torch_bench.libsvm"))
+    write_cut(linear, os.path.join(
+        work, "dmlc_tpu_torch_bench_suite.criteo.libsvm"), 64)
+    trace = os.path.join(work, "bench_trace.json")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DMLC_TPU_") or "PAGESTORE" in k}
+    env.update(PYTHONPATH=REPO, TMPDIR=work, DMLC_TPU_BENCH_MB="256",
+               DMLC_TPU_BENCH_BATCH_ROWS="8192",
+               DMLC_TPU_BENCH_NNZ_BUCKET="368640",
+               DMLC_TPU_BENCH_BUDGET_S="0")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dmlc_tpu_torch.bench", "--trace", trace],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        for line in proc.stderr.splitlines():
+            log(f"  bench: {line}")
+        lines = proc.stdout.splitlines()
+        require(proc.returncode == 0 and len(lines) == 1,
+                f"python -m dmlc_tpu_torch.bench: exit {proc.returncode}, "
+                f"{len(lines)} stdout lines: {proc.stdout[-800:]} "
+                f"{proc.stderr[-800:]}")
+        out = json.loads(lines[0])
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        for n in os.listdir(work):
+            if n.startswith("dmlc_tpu_torch_bench") or n == "bench_trace.json":
+                os.unlink(os.path.join(work, n))
+    require(set(out) == keys[""],
+            f"the twin's keys differ from bench.py's: "
+            f"{sorted(set(out) ^ keys[''])}")
+    for name in ("pipeline", "replay", "replay_tier"):
+        require(isinstance(out[name], dict) and set(out[name]) == keys[name],
+                f"the twin's {name} is {out[name]!r}, not bench.py's keys "
+                f"{sorted(keys[name])}")
+    require(out["assembly_path"] == "native-padded"
+            and out["epochs"] >= 5 and out["vs_baseline"] is None
+            and out["replay_tier"]["mode"] == "pages"
+            and len(out["replay"]["epoch_walls"]) == 5
+            and (out["analysis"] or {}).get("bound"),
+            f"the twin's line: {lines[0][:1500]}")
+    pulls = sum(1 for e in events
+                if e["ph"] == "X" and e["name"].startswith("pull/"))
+    require(pulls > 0, "the twin's --trace file holds no pull/ span")
+    got = {"value": out["value"], "best_epoch": out["best_epoch"],
+           "handwired_gbps": out["handwired_gbps"], "bound": out["bound"],
+           "analysis_bound": out["analysis"]["bound"],
+           "epochs": out["epochs"],
+           "replay_sustained": out["replay"]["replay_sustained"],
+           "speedup_vs_parse": out["replay_tier"]["speedup_vs_parse"],
+           "trace_pull_spans": pulls, "seconds": round(secs, 1)}
+    log(f"bench entry ({card}): " + json.dumps(got))
+    return got
+
+
 # --------------------------------------------------------------- phase 11b
 
 def remote_config11(linear, work):
@@ -9716,6 +9820,9 @@ def main() -> None:
         stats["bench"] = bench_twins(linear, work,
                                      stats["cuda_ingest"]["records_hash"],
                                      stats["format"]["indexed"]["hash"])
+        # the headline entry point, the twin of bench.py, in its own
+        # process after the bench configs
+        stats["bench_entry"] = bench_entry_path(linear, work, card)
         # the object-store plane: config 11, the linear model trained
         # from obj:// and its remote checkpoint
         _, stats["remote"] = remote_path(linear, LEARNING_RATE, work)

@@ -603,7 +603,7 @@ def bench_multiprocess_ingest(mb: int, device=None,
 
 
 def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
-                      gauge_fn=None, device=None,
+                      epochs: int = 3, gauge_fn=None, device=None,
                       work: Optional[str] = None) -> Dict:
     """Binary page replay → device memory, parse skipped.
 
@@ -617,8 +617,8 @@ def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
     (checked untimed).
 
     Reports gbps over PAGE bytes (the IO this path performs) and
-    text_equiv_gbps over the text bytes the replay stands in for. Three
-    replay passes are timed; ``gauge_fn`` (e.g.
+    text_equiv_gbps over the text bytes the replay stands in for.
+    ``max(3, epochs)`` replay passes are timed; ``gauge_fn`` (e.g.
     ``bench_transfer.memcpy_gauge``) tags each with a gauge read just
     before it (``epoch_gauges``, None without one)."""
     from dmlc_tpu_torch.data.parser import Parser
@@ -661,7 +661,7 @@ def bench_page_replay(mb: int, rows_per_page: int = 8 << 10,
 
     gauges = []
     walls = []
-    for _ in range(3):
+    for _ in range(max(3, epochs)):
         if gauge_fn is not None:
             gauges.append(round(float(gauge_fn()), 2))
         walls.append(replay_epoch())

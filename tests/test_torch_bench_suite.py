@@ -71,6 +71,22 @@ def test_page_replay_matches_reference(dirs):
     json.dumps(got)
 
 
+@pytest.mark.parametrize("epochs,timed", [(5, 5), (1, 3)])
+def test_page_replay_times_max_3_epochs_as_reference(dirs, epochs, timed):
+    """``epochs`` replay passes, at least 3, each with its gauge."""
+    results = []
+    for fn, kw in ((bench_suite.bench_page_replay,
+                    dict(device="cpu", work=dirs)),
+                   (ref_bench.bench_page_replay, {})):
+        gauge = iter(range(1, 100))
+        results.append(fn(1, epochs=epochs, gauge_fn=lambda: next(gauge),
+                          **kw))
+    for got in results:
+        assert len(got["epoch_walls"]) == timed
+        assert len(got["epoch_rates_text_gbps"]) == timed
+        assert got["epoch_gauges"] == [float(g) for g in range(1, timed + 1)]
+
+
 def test_spill_replay_matches_reference(dirs):
     kw = dict(replay_epochs=3, row_bucket=512, nnz_bucket=512 * 45)
     got = bench_suite.bench_spill_replay(1, device="cpu", work=dirs, **kw)

@@ -7,6 +7,9 @@ where it is random) and compares what they give: values, orders and
 errors, and for the serializer the bytes, each package reading the
 other's."""
 
+import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -315,11 +318,39 @@ def test_bad_tag_raises():
 # ---------------------------------------------------------------- exports
 
 
+def _fresh(code):
+    """Run ``code`` in a new interpreter: its import order is its own."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": repo,
+                               "JAX_PLATFORMS": "cpu"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_utils_exports_equal_the_reference():
+    """The exports, and ``utils.profiler`` the process profiler where
+    nothing has imported the ``utils/profiler.py`` shim (a fresh
+    interpreter: that import rebinds the name, see the next test)."""
     assert utils.__all__ == ref_utils.__all__
     for name in utils.__all__:
         assert getattr(utils, name) is not None
-    from dmlc_tpu_torch.obs import trace
-    assert utils.profiler is trace.profiler
-    assert utils.Profiler is trace.Profiler
     assert utils.Config is Config and utils.ThreadGroup is ThreadGroup
+    _fresh("import dmlc_tpu_torch.utils as utils\n"
+           "from dmlc_tpu_torch.obs import trace\n"
+           "assert utils.profiler is trace.profiler\n"
+           "assert utils.Profiler is trace.Profiler\n")
+
+
+def test_importing_the_profiler_shim_rebinds_the_name_as_the_reference():
+    """``import <pkg>.utils.profiler`` sets the package attribute to the
+    submodule, over the exported object, in both packages alike."""
+    _fresh("import types\n"
+           "import dmlc_tpu.utils as ref_utils\n"
+           "import dmlc_tpu.utils.profiler\n"
+           "import dmlc_tpu_torch.utils as utils\n"
+           "import dmlc_tpu_torch.utils.profiler\n"
+           "assert isinstance(ref_utils.profiler, types.ModuleType)\n"
+           "assert isinstance(utils.profiler, types.ModuleType)\n"
+           "assert utils.profiler.__name__ == 'dmlc_tpu_torch.utils.profiler'\n"
+           "assert ref_utils.profiler.__name__ == 'dmlc_tpu.utils.profiler'\n")
