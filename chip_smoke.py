@@ -176,15 +176,21 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    first_epoch_cache="never", spill_dir=<work>/spill)``: epoch 1
    streams, epoch 2 re-parses and spills its rounds to a page file,
    epochs 3-5 replay the pages (tiers parse, parse, pages x 3, page
-   replay epochs >= 3); every epoch's batches hash equal to epoch 1's,
-   K1 and K2 launch once a part a step and K8's two launches and K9 once
-   a step in every epoch, the loss falls, the page file is there while
-   the store lives and gone after ``close()``, each page epoch's serve
-   thread work printed in wall and thread CPU seconds, and the serve
-   thread's work of a page epoch timed pass by pass over the page file
-   (read; read and decode; and pad+stack; and the pad+stack into pinned
-   slots with the copy to the card), 5 rounds interleaved, each led by
-   the host memcpy gauge; then three
+   replay epochs >= 3, each served by the raw route); every epoch's
+   batches hash equal to epoch 1's, K1 and K2 launch once a part a step
+   and K8's two launches and K9 once a step in every epoch,
+   ``round_unpack`` (``csrc/pages.cu``) once a round in each page epoch
+   and never in a parse one, the loss falls, the page file is there
+   while the store lives and gone after ``close()``; ``round_unpack`` on
+   the page file's first round equal to its plain version byte for byte
+   on every key, timed beside its bound and the plain version (its row
+   in the kernel line); each page epoch's serve thread work printed in
+   wall and thread CPU seconds, and the serve thread's work of a page
+   epoch timed pass by pass over the page file (read; read and decode;
+   and pad+stack; and the pad+stack into pinned slots with the copy to
+   the card; the raw route: a read into a pinned slot, the copy and
+   ``round_unpack``), 5 rounds interleaved, each led by the host memcpy
+   gauge; then three
    epochs of ``SparseLinearModel(10^6).train_step`` through
    ``parse(engine="native").cache(memory_budget_bytes=0).batch(8192,
    pad=True, nnz_bucket=368640).to_device(cuda)``: every epoch served by
@@ -4827,11 +4833,13 @@ def spill_path(path, size, lr, mesh, work, sharded):
     epoch is printed beside."""
     import torch
     from dmlc_tpu_torch.models.linear import SparseLinearModel
+    from dmlc_tpu_torch.ops import pages as pages_ops
     from dmlc_tpu_torch.pipeline import Pipeline
     spill_dir = os.path.join(work, "spill")
     wrappers = {k: fn for k, fn in _wrappers().items()
                 if k in PATH_KERNELS["linear"] + ("logistic_sums",
                                                   "logistic_grad")}
+    wrappers["round_unpack"] = pages_ops.round_unpack
     built = (Pipeline.from_uri(path)
              .parse(format="libsvm", engine="native")
              .shard(mesh, row_bucket=ROW_BUCKET, nnz_bucket=NNZ_BUCKET,
@@ -4859,20 +4867,26 @@ def spill_path(path, size, lr, mesh, work, sharded):
                        "launches": launches, "hashes": _hashes(kept),
                        "tier": shard["replay_tier"],
                        "page_replay_epochs": shard["page_replay_epochs"],
+                       "raw_page_epochs": shard["raw_page_epochs"],
                        "serve": shard.get("serve")})
         del kept
     steps = epochs[0]["steps"]
     require(steps > 0, "spill: the epoch yielded no batch")
     tiers = [e["tier"] for e in epochs]
     require(tiers == SPILL_TIERS
-            and epochs[-1]["page_replay_epochs"] >= SPILL_EPOCHS - 2,
+            and epochs[-1]["page_replay_epochs"] >= SPILL_EPOCHS - 2
+            and epochs[-1]["raw_page_epochs"] == SPILL_EPOCHS - 2,
             f"spill: the epochs were served by {tiers}, page replay epochs "
-            f"{epochs[-1]['page_replay_epochs']}; want {SPILL_TIERS}")
-    want = {"csr_spmv": SHARD_PARTS * steps,
-            "csr_spmv_t": SHARD_PARTS * steps, "logistic_step": 0,
-            "logistic_sums": steps, "logistic_grad": steps,
-            "sgd_update": steps}
+            f"{epochs[-1]['page_replay_epochs']}, by the raw route "
+            f"{epochs[-1]['raw_page_epochs']}; want {SPILL_TIERS}, all "
+            "page epochs by the raw route")
     for i, e in enumerate(epochs):
+        # round_unpack once a round in a page epoch, never in a parse one
+        want = {"csr_spmv": SHARD_PARTS * steps,
+                "csr_spmv_t": SHARD_PARTS * steps, "logistic_step": 0,
+                "logistic_sums": steps, "logistic_grad": steps,
+                "sgd_update": steps,
+                "round_unpack": steps if e["tier"] == "pages" else 0}
         require(e["steps"] == steps and e["launches"] == want,
                 f"spill: epoch {i + 1} ({e['tier']}) took {e['steps']} "
                 f"steps with launch counts {e['launches']}; want {steps} "
@@ -4889,6 +4903,9 @@ def spill_path(path, size, lr, mesh, work, sharded):
     require(len(files) == 1, f"spill: {spill_dir} holds {files}, want one "
             "page file while the store lives")
     page_bytes = os.path.getsize(os.path.join(spill_dir, files[0]))
+    kernel = check_round_unpack(
+        os.path.join(spill_dir, files[0]), steps, mesh,
+        sum(e["launches"]["round_unpack"] for e in epochs))
     split = page_serve_split(os.path.join(spill_dir, files[0]), steps,
                              mesh)
     log_pipeline_stats("spill", built)
@@ -4929,17 +4946,208 @@ def spill_path(path, size, lr, mesh, work, sharded):
         f"{fmt(split['read_decode_stack_s'])} s; read, decode and the "
         f"pad+stack into pinned slots and the copy to the card "
         f"{fmt(split['read_decode_stack_copy_s'])} s (its thread CPU "
-        f"{fmt(split['read_decode_stack_copy_cpu_s'])} s)")
+        f"{fmt(split['read_decode_stack_copy_cpu_s'])} s); the raw route "
+        f"(each round read into a pinned slot, copied to the card and "
+        f"unpacked there by round_unpack) {fmt(split['raw_route_s'])} s "
+        f"(its thread CPU {fmt(split['raw_route_cpu_s'])} s)")
     return {"steps": steps, "tiers": tiers, "epoch_s":
             [e["secs"] for e in epochs],
             "parse_to_device_gbps_training": gbps, "steps_per_s": sps,
             "page_bytes": page_bytes, "memory_replay_gbps": memory,
-            "serve": [e["serve"] for e in epochs], "serve_split": split}
+            "serve": [e["serve"] for e in epochs], "serve_split": split,
+            "kernel": kernel}
+
+
+UNPACK_ITERS = 100
+# the edge rounds' buckets (round_unpack_edges)
+EDGE_RB, EDGE_NB = 64, 512
+
+
+def _edge_block(rng, n, nnz=None, index=None, value=True, weight=False,
+                qid=False, field=False):
+    """One seeded block of ``n`` rows for ``round_unpack_edges`` (random
+    nnz under EDGE_NB when None): u64 indices past 2^32, NaN and -0.0
+    among the floats."""
+    import numpy as np
+    from dmlc_tpu_torch.data.rowblock import RowBlock
+    index = np.uint32 if index is None else index
+    if nnz is None:
+        nnz = int(rng.randint(0, min(EDGE_NB, 8 * n) + 1)) if n else 0
+    cuts = np.sort(rng.randint(0, nnz + 1, max(n - 1, 0)))
+    offset = (np.concatenate([[0], cuts, [nnz]]) if n
+              else np.zeros(1)).astype(np.int64)
+    floats = lambda k: np.where(  # noqa: E731
+        rng.rand(k) < 0.1, -0.0, rng.randn(k)).astype(np.float32)
+    label = floats(n)
+    label[:min(n, 2)] = np.nan
+    top = 1 << 40 if index == np.uint64 else 1 << 32
+    return RowBlock(
+        offset=offset, label=label,
+        index=rng.randint(0, top, nnz, dtype=np.int64).astype(index),
+        value=floats(nnz) if value else None,
+        weight=floats(n) if weight else None,
+        qid=rng.randint(-1, 99, n) if qid else None,
+        field=rng.randint(0, 39, nnz) if field else None)
+
+
+def round_unpack_edges(work, device):
+    """``round_unpack`` on the card against its plain version, byte for
+    byte, on seeded edge rounds written by ``RoundSpillWriter`` at
+    EDGE_RB rows and EDGE_NB nonzeros (raw and codec-paged): 1 and 4
+    parts; empty pad parts; a part of exactly the buckets; weight, value,
+    qid and field absent and present (qid and field asked for or not);
+    u32 and u64 indices, a u64 part into a u32 batch and a u32 part into
+    a u64 one. The arrays sit at the byte offsets their headers leave.
+    Returns the rounds checked."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.data.row_iter import (ROUND_TABLE_COLUMNS,
+                                              RoundSpillWriter)
+    from dmlc_tpu_torch.ops import pages
+    rng = np.random.RandomState(SEED)
+    b = lambda n, **kw: _edge_block(rng, n, **kw)  # noqa: E731
+    u64 = np.uint64
+    rounds = [
+        [b(40)], [b(EDGE_RB, nnz=EDGE_NB)],
+        [b(30, weight=True), b(0), b(17, value=False), b(0)],
+        [b(0), b(0), b(0), b(0)],
+        [b(20, qid=True, field=True), b(9), b(EDGE_RB, nnz=EDGE_NB,
+                                              qid=True), b(3, field=True)],
+        [b(25, index=u64), b(0, index=u64), b(12, index=u64, weight=True,
+                                                value=False), b(8)],
+        [b(11), b(14, index=u64), b(0), b(33, weight=True, qid=True)]]
+    col = {c: i for i, c in enumerate(ROUND_TABLE_COLUMNS)}
+    checked = 0
+    for level in (0, 6):
+        for parts in (1, 4):
+            path = os.path.join(work, f"edges-{level}-{parts}.pages")
+            w = RoundSpillWriter(path, parts, {"edges": parts},
+                                 codec_level=level)
+            mine = [r for r in rounds if len(r) == parts]
+            for r in mine:
+                w.add_row(r)
+            f = w.commit()
+            buf = np.zeros(f.table.max_size, np.uint8)
+            for r, blocks in enumerate(mine):
+                size = f.read_round_into(r, buf)
+                rows = f.table.blocks[r]
+                raw_c = torch.from_numpy(buf[:size].copy())
+                table_c = torch.from_numpy(rows.copy())
+                dt = pages.INDEX_DTYPES[int(rows[0, col["index_bytes"]])]
+                has_qid = any(x.qid is not None for x in blocks)
+                has_field = any(x.field is not None for x in blocks)
+                for want_qid in {has_qid, True}:
+                    for want_field in {has_field, True}:
+                        args = (EDGE_RB, EDGE_NB, dt, want_qid, want_field)
+                        got = pages.round_unpack(raw_c.to(device),
+                                                 table_c.to(device), *args)
+                        want = pages.round_unpack_plain(raw_c, table_c, *args)
+                        differ = [k for k in want if not torch.equal(
+                            got[k].cpu().view(torch.uint8),
+                            want[k].view(torch.uint8))]
+                        require(got.keys() == want.keys() and not differ,
+                                f"round_unpack edges: level {level}, "
+                                f"{parts} parts, round {r}, qid "
+                                f"{want_qid}, field {want_field}: the "
+                                f"kernel differs from its plain version at "
+                                f"{differ}")
+                        checked += 1
+            f.delete()
+    return checked
+
+
+def check_round_unpack(spill, rounds, mesh, launches):
+    """The page tier's kernel on round 0 of the spill path's page file:
+    its bytes read into a pinned buffer and copied to the card, unpacked
+    there by ``round_unpack`` (``csrc/pages.cu``) and on the host by
+    ``round_unpack_plain`` over the same bytes. Every key must be equal,
+    byte for byte (a copy: no tolerance). The kernel's device ms (the
+    profiler's, over UNPACK_ITERS launches back to back into one set of
+    outputs, L2 warm) and a call's (CUDA events over as many, the
+    wrapper's host work included), the plain version's host ms, and the
+    bound: the
+    round's arrays read once and the batch written once over the card's
+    memory rate. Returns the kernel table's row, with ``launches`` (the
+    spill path's page epochs' count) beside; these launches count in no
+    epoch."""
+    import torch
+    from dmlc_tpu_torch.data.row_iter import (ROUND_TABLE_COLUMNS,
+                                              RoundSpillFile)
+    from dmlc_tpu_torch.ops import pages
+    dev = mesh.device
+    col = {c: i for i, c in enumerate(ROUND_TABLE_COLUMNS)}
+    f = RoundSpillFile(spill, SHARD_PARTS, rounds)  # its table by a scan
+    host = torch.empty(f.table.max_size, dtype=torch.uint8, pin_memory=True)
+    size = f.read_round_into(0, host.numpy())
+    f.close()
+    rows = f.table.blocks[0]
+    raw_c, table_c = host[:size], torch.from_numpy(rows.copy())
+    raw, table = raw_c.to(dev), table_c.to(dev)
+    args = (ROW_BUCKET, NNZ_BUCKET,
+            pages.INDEX_DTYPES[int(rows[0, col["index_bytes"]])], False,
+            False)
+    before = pages.round_unpack.launches
+    got = pages.round_unpack(raw, table, *args)
+    torch.cuda.synchronize(dev)
+    require(pages.round_unpack.launches == before + 1,
+            "round_unpack: the wrapper did not launch its kernel")
+    want = pages.round_unpack_plain(raw_c, table_c, *args)
+    differ = [k for k in want
+              if k not in got or not torch.equal(
+                  got[k].cpu().view(torch.uint8), want[k].view(torch.uint8))]
+    require(got.keys() == want.keys() and not differ,
+            f"round_unpack: the kernel's batch differs from its plain "
+            f"version's at {differ} (keys {sorted(got)})")
+    edges = round_unpack_edges(os.path.dirname(spill) + "_edges", dev)
+    out = {k: torch.empty_like(v) for k, v in got.items()}
+
+    def unpack():
+        for _ in range(UNPACK_ITERS):
+            pages.round_unpack(raw, table, *args, out=out)
+
+    unpack()
+    by_kernel = _device_us_by_kernel(unpack, UNPACK_ITERS,
+                                     {"round_unpack_kernel": 1})
+    ms = sum(us for k, (us, _) in by_kernel.items()
+             if _launched(k, "round_unpack_kernel")) / 1e3
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    unpack()
+    t1.record()
+    torch.cuda.synchronize(dev)
+    call_ms = t0.elapsed_time(t1) / UNPACK_ITERS
+    c0 = time.perf_counter()
+    for _ in range(3):
+        pages.round_unpack_plain(raw_c, table_c, *args)
+    plain_ms = (time.perf_counter() - c0) / 3 * 1e3
+    n, nnz, ib = (rows[:, col[c]] for c in ("n", "nnz", "index_bytes"))
+    read = int(((n + 1) * 8 + n * 4 + nnz * ib).sum()) + rows.nbytes
+    for name, per in (("value", nnz * 4), ("weight", n * 4),
+                      ("qid", n * 8), ("field", nnz * 8)):
+        read += int(per[rows[:, col[name]] >= 0].sum())
+    written = sum(v.numel() * v.element_size() for v in got.values())
+    bound, by = bound_ms(read + written, 0)
+    log(f"round_unpack: round 0 of the spill file ({SHARD_PARTS} parts, "
+        f"{int(n.sum())} rows, {int(nnz.sum())} nonzeros; {size} bytes) "
+        f"equal to its plain version byte for byte on every key, as on "
+        f"{edges} edge rounds (round_unpack_edges); kernel "
+        f"{ms * 1e3:.2f} us on the device (warm L2; a call back to back "
+        f"{call_ms * 1e3:.1f} us, launch included), plain "
+        f"{plain_ms * 1e3:.2f} us on the host, bound {bound * 1e3:.2f} us "
+        f"({by}: {read} bytes read, {written} written), library none; "
+        f"{launches} launches in the spill path's page epochs")
+    return {"name": "round_unpack", "route": "cuda",
+            "source": "dmlc_tpu_torch/csrc/pages.cu",
+            "replaces": "dmlc_tpu/data/padding.py:164", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "read_bytes": read,
+            "written_bytes": written}
 
 
 SERVE_SPLIT_ROUNDS = 5
 SERVE_PASSES = ("read_s", "read_decode_s", "read_decode_stack_s",
-                "read_decode_stack_copy_s")
+                "read_decode_stack_copy_s", "raw_route_s")
 
 
 def page_serve_split(spill, rounds, mesh):
@@ -4950,22 +5158,27 @@ def page_serve_split(spill, rounds, mesh):
     (``stack_padded_rows``); and all of that as the serve thread stages
     a round (``stage_round``: the pad+stack straight into a pinned slot,
     then ``make_global_batch(staged=True)`` on a copy stream, each batch
-    waited on as the consumer does). The four passes run
-    SERVE_SPLIT_ROUNDS times, interleaved (one of each a round), each
-    round led by ``bench_transfer.memcpy_gauge`` (the host's memcpy
-    GB/s then). Seconds a pass, a list a pass; the last pass's thread
-    CPU seconds too."""
+    waited on as the consumer does); and the raw route that serves page
+    epochs now (``RawRoundStager``: each round read into a pinned slot,
+    copied to the card and unpacked there by ``round_unpack``, each
+    batch waited on). The five passes run SERVE_SPLIT_ROUNDS times,
+    interleaved (one of each a round), each round led by
+    ``bench_transfer.memcpy_gauge`` (the host's memcpy GB/s then).
+    Seconds a pass, a list a pass; the thread CPU seconds of the last
+    two passes too."""
     import torch
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     from dmlc_tpu_torch.data.row_iter import RoundSpillFile
     from dmlc_tpu_torch.parallel.device_iter import HostStaging, wait_copy
-    from dmlc_tpu_torch.parallel.sharded import make_global_batch, \
-        stack_padded_rows, stage_round
+    from dmlc_tpu_torch.parallel.sharded import RawRoundStager, \
+        make_global_batch, stack_padded_rows, stage_round
     buf = bytearray(1 << 20)
     pages = RoundSpillFile(spill, SHARD_PARTS, rounds)
     on_cuda = mesh.device.type == "cuda"
     pool = HostStaging(3, pin=on_cuda, alias_unsafe=not on_cuda)
     stream = torch.cuda.Stream(mesh.device) if on_cuda else None
+    stager = RawRoundStager(pages, mesh.device, ROW_BUCKET, NNZ_BUCKET,
+                            HostStaging(3, pin=on_cuda), stream)
 
     def read():
         with open(spill, "rb", buffering=0) as f:
@@ -4990,16 +5203,28 @@ def page_serve_split(spill, rounds, mesh):
         if on_cuda:
             torch.cuda.synchronize(mesh.device)
 
-    passes = dict(zip(SERVE_PASSES, (read, decode, stack, stage)))
+    def raw():
+        for r in range(rounds):
+            wait_copy(stager(r, False, False), mesh.device)
+        pages.close()
+        if on_cuda:
+            torch.cuda.synchronize(mesh.device)
+
+    passes = dict(zip(SERVE_PASSES, (read, decode, stack, stage, raw)))
     out = {k: [] for k in SERVE_PASSES}
-    out["gauges"], out["read_decode_stack_copy_cpu_s"] = [], []
+    out["gauges"] = []
+    cpu = {"read_decode_stack_copy_s": "read_decode_stack_copy_cpu_s",
+           "raw_route_s": "raw_route_cpu_s"}
+    for k in cpu.values():
+        out[k] = []
     for _ in range(SERVE_SPLIT_ROUNDS):
         out["gauges"].append(memcpy_gauge())
         for name, fn in passes.items():
             t0, c0 = time.perf_counter(), time.thread_time()
             fn()
             out[name].append(time.perf_counter() - t0)
-        out["read_decode_stack_copy_cpu_s"].append(time.thread_time() - c0)
+            if name in cpu:
+                out[cpu[name]].append(time.thread_time() - c0)
     return out
 
 
@@ -7586,6 +7811,10 @@ CHAOS_PLAN = ";".join([
     "site=data.pages.commit,fault=ioerror,times=1",
     "site=io.stream.open,fault=ioerror,nth=3",
     "site=io.stream.read,fault=ioerror,p=0.002",
+    # a page epoch reads its file once a round (about 16 reads an epoch
+    # here): the run's first two stream reads, its first page epoch's
+    # first round, fail, so every run retries a page read
+    "site=io.stream.read,fault=ioerror,times=2",
     "site=checkpoint.save,fault=ioerror,times=1",
     "site=checkpoint.restore,fault=ioerror,times=1"])
 CHAOS_SITES = ("io.filesys.list", "io.filesys.stat", "spill.commit",
@@ -7594,14 +7823,18 @@ CHAOS_SITES = ("io.filesys.list", "io.filesys.stat", "spill.commit",
 CHAOS_SEED = 17
 CHAOS_ATTEMPTS = 6
 # a page read of the stall epoch sleeps STALL_DELAY_S, past the
-# watchdog's threshold; the watchdog polls every STALL_POLL_S
+# watchdog's threshold; the watchdog polls every STALL_POLL_S. A page
+# epoch reads its file once a round (the raw route), so the delayed read
+# is its fourth round's.
 STALL_DELAY_S, STALL_THRESHOLD_S, STALL_POLL_S = 3.0, 1.0, 0.25
-STALL_NTH_READ = 200
+STALL_NTH_READ = 4
 # the gang: rank 1 hard-crashes at its third batch, before its first
 # restart only
 GANG_FAULTS = "site=gang.block,fault=crash,nth=3,rank=1,attempt=0"
-# config 10 under --chaos: page reads, the spill's commit and a stat
+# config 10 under --chaos: page reads (one a round, so the first two
+# fail as well), the spill's commit and a stat
 BENCH_CHAOS_PLAN = ("site=io.stream.read,fault=ioerror,p=0.002;"
+                    "site=io.stream.read,fault=ioerror,times=2;"
                     "site=spill.commit,fault=ioerror,times=1;"
                     "site=io.filesys.stat,fault=ioerror,times=1")
 BENCH_CHAOS_SITES = ("io.stream.read", "spill.commit", "io.filesys.stat")
@@ -9755,6 +9988,7 @@ def main() -> None:
                        stats["sharded"]["steps"])
         stats["spill"] = spill_path(path, size, LEARNING_RATE, mesh, work,
                                     stats["sharded"])
+        rows.append(stats["spill"]["kernel"])
         stats["cache"] = cache_path(path, size, LEARNING_RATE, stats)
         stats["checkpoint"] = checkpoint_path(path, LEARNING_RATE, work)
         linear, linear_size = path, size

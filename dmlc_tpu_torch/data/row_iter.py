@@ -14,7 +14,10 @@ page format generalized to ROUNDS: each round is a fixed-width row of
 tee assembles them, fingerprint-stamped in the header so staleness is
 self-describing (``sweep_stale_spill``), committed atomically via
 tmp + rename. ShardedRowBlockIter replays these rounds on steady epochs
-when the in-memory tier would exceed ``agreement_cache_bytes``.
+when the in-memory tier would exceed ``agreement_cache_bytes``, one
+round's bytes at a time (``RoundSpillFile.read_round_into``), located
+by the :class:`RoundTable` the writer keeps (or a header scan builds):
+the file's bytes stay the reference's.
 
 Both tiers route their on-disk bytes through the port's
 :class:`dmlc_tpu_torch.io.pagestore.PageStore`: one atomic tmp+rename
@@ -38,7 +41,9 @@ from typing import Any, Iterator, List, Optional
 import numpy as np
 
 from dmlc_tpu_torch.data.parser import DataIter, Parser
-from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
+from dmlc_tpu_torch.data.rowblock import (
+    _PAGE_MAGIC, _PAGE_VERSION, RowBlock, RowBlockContainer,
+)
 from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.io import codec as _codec
 from dmlc_tpu_torch.io.pagestore import PageStore, default_store_dir
@@ -49,8 +54,8 @@ from dmlc_tpu_torch.utils import serializer as ser
 from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
 
 __all__ = ["RowBlockIter", "BasicRowIter", "DiskRowIter",
-           "RoundSpillWriter", "RoundSpillFile", "default_spill_dir",
-           "read_spill_meta", "sweep_stale_spill"]
+           "RoundSpillWriter", "RoundSpillFile", "RoundTable",
+           "default_spill_dir", "read_spill_meta", "sweep_stale_spill"]
 
 
 class RowBlockIter(DataIter):
@@ -305,6 +310,150 @@ def default_spill_dir() -> str:
     return default_store_dir()
 
 
+# The round table: where each round lies in a spill file and where each
+# block's arrays lie inside its round. One row a block, one column each:
+# the block's byte position (its page magic), its flags byte, its rows n
+# and nonzeros nnz, its index width in bytes, then the byte position of
+# each array's data (-1 for an absent one). Positions are relative to
+# the round's first byte (for a codec-paged round, of its decoded page).
+ROUND_TABLE_COLUMNS = ("block", "flags", "n", "nnz", "index_bytes",
+                       "offset", "label", "index", "value", "weight",
+                       "qid", "field")
+_COL = {name: i for i, name in enumerate(ROUND_TABLE_COLUMNS)}
+# the arrays of a RowBlock page in their serialized order, each with the
+# flag bit that marks it present (0: always) and the dtypes it may have
+_PAGE_ARRAYS = (("offset", 0, ("<i8",)), ("label", 0, ("<f4",)),
+                ("index", 0, ("<u4", "<u8")), ("value", 1, ("<f4",)),
+                ("weight", 2, ("<f4",)), ("qid", 4, ("<i8",)),
+                ("field", 8, ("<i8",)))
+# the arrays one a row long (offset n + 1); the others one a nonzero
+_ROWS_LONG = ("label", "weight", "qid")
+
+
+def _block_row(block: RowBlock) -> tuple:
+    """(page bytes, table row relative to the page) of ``block`` as
+    ``RowBlockContainer.save_block`` writes it: a 6-byte head (magic,
+    version, flags), then per array its dtype string, ndim and shape
+    (``serializer.write_ndarray``) before its data."""
+    flags = ((1 if block.value is not None else 0)
+             | (2 if block.weight is not None else 0)
+             | (4 if block.qid is not None else 0)
+             | (8 if block.field is not None else 0))
+    row = [0, flags, block.size, block.nnz, block.index.dtype.itemsize
+           ] + [-1] * 7
+    pos = 6
+    for name, bit, _ in _PAGE_ARRAYS:
+        if bit and not flags & bit:
+            continue
+        a = np.asarray(getattr(block, name))
+        pos += 8 + len(a.dtype.newbyteorder("<").str) + 1 + 8 * a.ndim
+        row[_COL[name]] = pos
+        pos += a.nbytes
+    return pos, row
+
+
+class RoundTable:
+    """Where each round of a spill file lies, and each block's arrays in
+    it (``ROUND_TABLE_COLUMNS``): ``start`` and ``length`` of the
+    round's bytes in the file, ``size`` of the round once decoded (the
+    length itself in the raw layout), ``blocks`` int64 ``[rounds,
+    nparts, len(ROUND_TABLE_COLUMNS)]``. It lives in memory only: the
+    file's bytes are the reference's."""
+
+    def __init__(self, start, length, size, blocks, coded: bool):
+        self.start = np.asarray(start, np.int64)
+        self.length = np.asarray(length, np.int64)
+        self.size = np.asarray(size, np.int64)
+        self.blocks = np.asarray(blocks, np.int64)
+        self.coded = bool(coded)
+
+    @property
+    def max_size(self) -> int:
+        """The largest decoded round, in bytes (0 with no round)."""
+        return int(self.size.max()) if len(self.size) else 0
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, RoundTable)
+                and self.coded == other.coded
+                and all(np.array_equal(getattr(self, k), getattr(other, k))
+                        for k in ("start", "length", "size", "blocks")))
+
+    @staticmethod
+    def scan(path: str, nparts: int, rounds: int) -> "RoundTable":
+        """The table of the spill file at ``path`` by one pass over its
+        headers: each array's data is sought past, not read (a codec
+        round's page is read and decoded). A header that is not a
+        RowBlock page's, or a file that ends early, raises DMLCError."""
+        start, length, size, blocks = [], [], [], []
+        with create_stream(path, "r") as s:
+            meta = _read_spill_header(s)
+            coded = meta["_version"] == _SPILL_VERSION_CODEC
+            for _ in range(rounds):
+                if coded:
+                    n = ser.read_u64(s)
+                    start.append(s.tell())
+                    length.append(n)
+                    src = MemoryStream(_codec.decode_page(_read_n(s, n,
+                                                                  path)))
+                else:
+                    start.append(s.tell())
+                    src = s
+                base = src.tell()
+                rows = [_scan_block(src, base, path) for _ in range(nparts)]
+                size.append(src.tell() - base)
+                if not coded:
+                    length.append(size[-1])
+                blocks.append(rows)
+        return RoundTable(start, length, size,
+                          np.asarray(blocks, np.int64).reshape(
+                              rounds, nparts, len(ROUND_TABLE_COLUMNS)),
+                          coded)
+
+
+def _read_n(s, n: int, path: str) -> bytes:
+    b = s.read(n)
+    if len(b) != n:
+        raise DMLCError(f"round spill {path}: truncated page stream (file "
+                        "changed under an armed replay cache?)")
+    return b
+
+
+def _scan_block(s, base: int, path: str) -> list:
+    """One RowBlock page's table row (positions relative to ``base``),
+    leaving ``s`` at the page's end."""
+    at = s.tell() - base
+    head = _read_n(s, 6, path)
+    check_eq(int.from_bytes(head[:4], "little"), _PAGE_MAGIC,
+             "RowBlock page: bad magic")
+    check_eq(head[4], _PAGE_VERSION, "RowBlock page: bad version")
+    flags = head[5]
+    row = [at, flags, 0, 0, 0] + [-1] * 7
+    lengths = {}
+    for name, bit, dtypes in _PAGE_ARRAYS:
+        if bit and not flags & bit:
+            continue
+        dt = _read_n(s, int.from_bytes(_read_n(s, 8, path), "little"),
+                     path).decode("utf-8", "replace")
+        ndim = _read_n(s, 1, path)[0]
+        check(dt in dtypes and ndim == 1,
+              f"round spill {path}: a block's {name} is {dt!r} of {ndim} "
+              f"dims, not 1-D {' or '.join(dtypes)}")
+        count = int.from_bytes(_read_n(s, 8, path), "little")
+        row[_COL[name]] = s.tell() - base
+        lengths[name] = count
+        if name == "index":
+            row[_COL["index_bytes"]] = int(dt[2:])
+        s.seek(s.tell() + count * int(dt[2:]))
+    n, nnz = lengths["offset"] - 1, lengths["index"]
+    for name, count in lengths.items():
+        want = (n + 1 if name == "offset" else
+                n if name in _ROWS_LONG else nnz)
+        check_eq(count, want, f"round spill {path}: a block's {name} "
+                 "length does not match its offset")
+    row[_COL["n"]], row[_COL["nnz"]] = n, nnz
+    return row
+
+
 class RoundSpillWriter:
     """Append rounds of raw RowBlocks to a page-store entry; commit
     atomically.
@@ -316,7 +465,9 @@ class RoundSpillWriter:
     land via an atomic replace only on commit, the fingerprint is
     stamped in the sidecar as well as the header, and committed bytes
     count against the store's byte budget — so a crashed or aborted
-    spill never masquerades as a complete cache.
+    spill never masquerades as a complete cache. As it writes, it keeps
+    the file's :class:`RoundTable`, which ``commit`` hands to the
+    :class:`RoundSpillFile` it returns.
     """
 
     def __init__(self, path: str, nparts: int,
@@ -340,10 +491,17 @@ class RoundSpillWriter:
             meta={k: v for k, v in meta.items() if k != "fingerprint"},
             commit_site="spill.commit")
         self._s = self._w.stream
+        text = json.dumps(meta)
         ser.write_u32(self._s, _SPILL_MAGIC)
         ser.write_u8(self._s, version)
         ser.write_u8(self._s, nparts)
-        ser.write_str(self._s, json.dumps(meta))
+        ser.write_str(self._s, text)
+        # the round table, kept as the rounds are written
+        self._pos = 4 + 1 + 1 + 8 + len(text.encode("utf-8"))
+        self._start: List[int] = []
+        self._length: List[int] = []
+        self._size: List[int] = []
+        self._blocks: List[list] = []
 
     def add_row(self, blocks: List[RowBlock]) -> None:
         """One round: exactly ``nparts`` blocks (empty pads included).
@@ -353,6 +511,15 @@ class RoundSpillWriter:
         (decoded round by round at replay — never the whole file in
         RAM)."""
         check_eq(len(blocks), self.nparts, "spill row width mismatch")
+        rows, size = [], 0
+        for b in blocks:
+            nbytes, row = _block_row(b)
+            # the page's positions, from the round's first byte
+            row[0] = size
+            row[_COL["offset"]:] = [x + size if x >= 0 else x
+                                    for x in row[_COL["offset"]:]]
+            rows.append(row)
+            size += nbytes
         if self._codec_level > 0:
             buf = MemoryStream()
             for b in blocks:
@@ -360,10 +527,26 @@ class RoundSpillWriter:
             page = _codec.encode_page(buf.getvalue(), self._codec_level)
             ser.write_u64(self._s, len(page))
             self._s.write(page)
+            self._start.append(self._pos + 8)
+            self._length.append(len(page))
+            self._pos += 8 + len(page)
         else:
             for b in blocks:
                 RowBlockContainer.save_block(b, self._s)
+            self._start.append(self._pos)
+            self._length.append(size)
+            self._pos += size
+        self._size.append(size)
+        self._blocks.append(rows)
         self.rounds += 1
+
+    def _table(self) -> RoundTable:
+        """The table of the rounds written so far."""
+        return RoundTable(self._start, self._length, self._size,
+                          np.asarray(self._blocks, np.int64).reshape(
+                              self.rounds, self.nparts,
+                              len(ROUND_TABLE_COLUMNS)),
+                          self._codec_level > 0)
 
     def commit(self) -> "RoundSpillFile":
         with _trace.span("spill.commit", "io",
@@ -376,7 +559,8 @@ class RoundSpillWriter:
             # errors (and injected chaos) retry under policy instead
             # of abandoning the spill tier
             self._w.commit()
-        return RoundSpillFile(self.path, self.nparts, self.rounds)
+        return RoundSpillFile(self.path, self.nparts, self.rounds,
+                              table=self._table())
 
     def abort(self) -> None:
         self._s = None
@@ -384,12 +568,75 @@ class RoundSpillWriter:
 
 
 class RoundSpillFile:
-    """A committed spill file: sequential round-major replay."""
+    """A committed spill file: sequential round-major replay
+    (``iter_rows``), or one round's bytes at a time into a caller's
+    buffer (``read_round_into``), located by its :class:`RoundTable`
+    (the writer's, or one header scan at first use)."""
 
-    def __init__(self, path: str, nparts: int, rounds: int):
+    def __init__(self, path: str, nparts: int, rounds: int,
+                 table: Optional[RoundTable] = None):
         self.path = path
         self.nparts = nparts
         self.rounds = rounds
+        self._table = table
+        self._stream = None
+
+    @property
+    def table(self) -> RoundTable:
+        if self._table is None:
+            self._table = RoundTable.scan(self.path, self.nparts,
+                                          self.rounds)
+        return self._table
+
+    def read_round_into(self, r: int, buf) -> int:
+        """Fill the head of ``buf`` (a writable uint8 buffer: a numpy
+        array, or a pinned tensor's ``.numpy()``, of at least
+        ``table.max_size`` bytes) with round ``r``'s bytes, as
+        ``table.blocks[r]`` places its arrays: one ``readinto`` from the
+        file (a codec round is read, then decoded into ``buf``). Returns
+        the round's size. The stream stays open for the next round until
+        :meth:`close`. A file that ends early, or whose pages' heads no
+        longer match the table, raises the DMLCError ``iter_rows``
+        would."""
+        t = self.table
+        start, length, size = (int(t.start[r]), int(t.length[r]),
+                               int(t.size[r]))
+        view = memoryview(buf).cast("B")
+        check(len(view) >= size, f"round spill: a buffer of {len(view)} "
+              f"bytes cannot hold round {r} ({size} bytes)")
+        if self._stream is None:
+            self._stream = create_stream(self.path, "r")
+        s = self._stream
+        s.seek(start)
+        if t.coded:
+            view[:size] = _codec.decode_page(_read_n(s, length, self.path))
+        else:
+            got = 0
+            while got < size:
+                n = s.readinto(view[got:size])
+                if not n:
+                    raise DMLCError(
+                        f"round spill {self.path}: truncated page stream "
+                        "(file changed under an armed replay cache?)")
+                got += n
+        rows = t.blocks[r]
+        heads = np.frombuffer(view, np.uint8, size)[
+            rows[:, _COL["block"], None] + np.arange(6)]
+        want = np.empty_like(heads)
+        want[:, :4] = np.frombuffer(_PAGE_MAGIC.to_bytes(4, "little"),
+                                    np.uint8)
+        want[:, 4] = _PAGE_VERSION
+        want[:, 5] = rows[:, _COL["flags"]]
+        check(np.array_equal(heads, want),
+              f"round spill {self.path}: round {r}'s pages do not match "
+              "its table (file changed under an armed replay cache?)")
+        return size
+
+    def close(self) -> None:
+        """Close the stream ``read_round_into`` keeps open."""
+        s, self._stream = self._stream, None
+        if s is not None:
+            s.close()
 
     def iter_rows(self) -> Iterator[List[RowBlock]]:
         """Yield each round's ``nparts`` raw blocks in written order.
@@ -424,6 +671,7 @@ class RoundSpillFile:
             s.close()
 
     def delete(self) -> None:
+        self.close()
         store, entry = PageStore.for_path(self.path)
         store.delete(entry)  # entry + sidecar stamp
 

@@ -36,7 +36,7 @@ BUILD_DIR = os.path.join(PKG, "build")
 ENGINE_SRC = os.path.join(HERE, "src", "engine.cc")
 KERNEL_SRCS = [os.path.join(PKG, "csrc", name)
                for name in ("csr_spmv.cu", "fm.cu", "csr_ops.cu",
-                            "ranking.cu", "step.cu")]
+                            "ranking.cu", "step.cu", "pages.cu")]
 KERNEL_HEADERS = [os.path.join(PKG, "csrc", name)
                   for name in ("device.cuh", "index.cuh")]
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"

@@ -80,6 +80,11 @@ _SIGNATURES = {
     # route), loss (null: no l2 term), blocks (0: the narrow route)
     "dmlc_sgd_update": [_P, _P, _P, _P, _I, _F, _F, _P, _P, _P, _I64,
                         _P],
+    # raw round, table [parts, 12], parts, row_bucket, nnz_bucket, the
+    # output index's bytes; offset, label, weight, index, value, qid and
+    # field (each null where not asked for), num_rows, num_nnz
+    "dmlc_round_unpack": [_P, _P, _I64, _I64, _I64, _I, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -54,7 +54,8 @@ from dmlc_tpu_torch.utils.logging import (
 __all__ = ["Mesh", "pad_to_bucket", "stack_device_batches",
            "make_global_batch", "make_replicated", "stack_padded_rows",
            "ShardedRowBlockIter", "next_pow2_bucket", "empty_block",
-           "ensure_schema", "collective_device", "stage_round"]
+           "ensure_schema", "collective_device", "stage_round",
+           "RawRoundStager"]
 
 
 class Mesh:
@@ -211,6 +212,85 @@ def stage_round(blocks: List[RowBlock], row_bucket: int, nnz_bucket: int,
     return slot
 
 
+class RawRoundStager:
+    """The raw route of a page epoch: round r of a committed spill file
+    (``data.row_iter.RoundSpillFile``) → a :class:`DeviceBatch` on
+    ``device``, holding ``stack_padded_rows``'s bytes for the round. Its
+    bytes go from the file into a pinned slot of ``staging`` by one read
+    (``read_round_into``), with the round's table rows behind them; one
+    copy takes the slot to a device byte buffer reused round after round;
+    one ``ops.pages.round_unpack`` launch writes the padded batch from
+    it; both run on ``copy_stream`` (the current stream when None), and
+    one event recorded behind them releases the slot and is the batch's
+    ``event`` (the consumer calls ``wait_copy``). On the CPU the slot's
+    bytes go through ``round_unpack_plain`` instead. The batch's
+    ``counts`` come from the table on the host."""
+
+    def __init__(self, pages, device: torch.device, row_bucket: int,
+                 nnz_bucket: int, staging: HostStaging, copy_stream=None):
+        from dmlc_tpu_torch.data.row_iter import ROUND_TABLE_COLUMNS
+        self.pages = pages
+        self.table = pages.table
+        self.device = device
+        self.row_bucket, self.nnz_bucket = row_bucket, nnz_bucket
+        self.staging = staging
+        self.copy_stream = copy_stream
+        self._col = {c: i for i, c in enumerate(ROUND_TABLE_COLUMNS)}
+        # the slot: the largest round's bytes, then (8-aligned) the
+        # round's table rows
+        self._table_at = (self.table.max_size + 7) // 8 * 8
+        row_bytes = self.table.blocks[0].nbytes if len(self.table.blocks) \
+            else 0
+        self._spec = {"raw": ((self._table_at + row_bytes,),
+                              np.dtype(np.uint8))}
+        self._scratch: Optional[torch.Tensor] = None
+
+    def schema(self, r: int):
+        """(whether a block of round r carries qid, ... field)."""
+        flags = self.table.blocks[r][:, self._col["flags"]]
+        return bool((flags & 4).any()), bool((flags & 8).any())
+
+    def __call__(self, r: int, want_qid: bool,
+                 want_field: bool) -> DeviceBatch:
+        from dmlc_tpu_torch.ops.pages import INDEX_DTYPES, round_unpack
+        rows = self.table.blocks[r]
+        n, nnz = rows[:, self._col["n"]], rows[:, self._col["nnz"]]
+        check(int(n.max()) <= self.row_bucket, "row bucket too small")
+        check(int(nnz.max()) <= self.nnz_bucket, "nnz bucket too small")
+        index_dtype = INDEX_DTYPES[int(rows[0, self._col["index_bytes"]])]
+        slot = self.staging.acquire(self._spec)
+        host = slot["raw"]
+        view = host.numpy()
+        size = self.pages.read_round_into(r, view)
+        at, end = self._table_at, self._table_at + rows.nbytes
+        view[at:end] = rows.reshape(-1).view(np.uint8)
+        args = (self.row_bucket, self.nnz_bucket, index_dtype, want_qid,
+                want_field)
+        if self.device.type != "cuda":
+            batch = DeviceBatch(round_unpack(
+                host[:size], host[at:end].view(torch.int64).view(
+                    rows.shape), *args))
+            self.staging.release(slot)
+        else:
+            stream = (self.copy_stream if self.copy_stream is not None
+                      else torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                if self._scratch is None:
+                    self._scratch = torch.empty(host.numel(),
+                                                dtype=torch.uint8,
+                                                device=self.device)
+                dev = self._scratch
+                dev[:end].copy_(host[:end], non_blocking=True)
+                batch = DeviceBatch(round_unpack(
+                    dev[:size], dev[at:end].view(torch.int64).view(
+                        rows.shape), *args))
+                batch.event = torch.cuda.Event()
+                batch.event.record(stream)
+            self.staging.release(slot, batch.event)
+        batch.counts = (int(n.sum()), int(nnz.sum()))
+        return batch
+
+
 def make_replicated(tree, mesh: Mesh):
     """Host pytree (dicts, lists and tuples of arrays) → the same tree of
     tensors on ``mesh.device``. Every process holds its own copy: callers
@@ -251,7 +331,10 @@ class ShardedRowBlockIter:
     past the budget instead. ``replay_tier`` reports which tier served
     the last epoch ("parse" | "memory" | "pages"); ``replay_epochs``
     counts the replayed ones and ``page_replay_epochs`` the page-served
-    ones among them. On any fingerprint mismatch the epoch
+    ones among them, and ``raw_page_epochs`` those the raw route served
+    (every page epoch: each round read once into a pinned slot, copied
+    to the device and unpacked there by ``ops.pages.round_unpack``,
+    :class:`RawRoundStager`). On any fingerprint mismatch the epoch
     transparently re-parses with the replay-count mutation assertions
     (truncation/rewrite raise DMLCError, appended bytes stay invisible)
     and re-earns replay by teeing the clean re-parse. The first epoch of
@@ -302,6 +385,7 @@ class ShardedRowBlockIter:
         self._spill_dir = spill_dir
         self.replay_epochs = 0        # replay-served epochs (all tiers)
         self.page_replay_epochs = 0   # ... of which from the page tier
+        self.raw_page_epochs = 0      # ... of which by the raw route
         self.replay_tier: Optional[str] = None  # last epoch's server
         self._round_store: Optional["ShardedRowBlockIter._RoundStore"] \
             = None
@@ -491,22 +575,27 @@ class ShardedRowBlockIter:
     def _replay_store(self, store: "ShardedRowBlockIter._RoundStore"
                       ) -> Iterator[DeviceBatch]:
         """Serve an epoch from retained raw rounds (memory or pages):
-        zero parsing — the serve-prefetch thread decodes pages, pads,
-        stacks and enqueues copies one round ahead of the consumer. One
-        producer on purpose: page decode and pad/stack are both
+        zero parsing — the serve-prefetch thread pads and stacks a
+        memory round, or reads a page round's bytes and unpacks them on
+        the device (the raw route), and enqueues its copy one round
+        ahead of the consumer. One producer on purpose: its work is
         memcpy-bound, and the reference measured a second serve thread
         35% slower. No collectives (the replay path and the re-parse
         path produce the same batch call sequence, so ranks may mix
         paths when only SOME see a local mutation — or sit in different
         tiers)."""
+        if store.tier == "pages":
+            # the raw route: each round's bytes to the card, unpacked
+            # there by round_unpack
+            self.raw_page_epochs += 1
+            try:
+                yield from self._prefetch_serve(pages=store.file)
+            finally:
+                # the serve thread has been joined by now
+                store.file.close()
+            return
         rows = store.iter_rows()
-        try:
-            yield from self._prefetch_serve(lambda: next(rows, None))
-        finally:
-            # the page generator holds the spill file open; the serve
-            # thread has been joined by now
-            if hasattr(rows, "close"):
-                rows.close()
+        yield from self._prefetch_serve(lambda: next(rows, None))
 
     def _fingerprint_now(self):
         """(path, size, mtime_ns, ctime_ns, inode) per backing file, or
@@ -526,14 +615,11 @@ class ShardedRowBlockIter:
             return None
 
     class _RoundStore:
-        """Retained epoch-1 rounds, served on steady epochs. Rows are
-        RAW (unpadded) per-part blocks; padding happens at serve time
-        on the prefetch thread."""
+        """Retained epoch-1 rounds, served on steady epochs: RAW
+        (unpadded) per-part blocks in memory, or a page file's rounds;
+        padding happens at serve time on the prefetch thread."""
 
         tier = "?"
-
-        def iter_rows(self) -> Iterator[List[RowBlock]]:
-            raise NotImplementedError
 
         def drop(self) -> None:
             pass
@@ -556,9 +642,6 @@ class ShardedRowBlockIter:
 
         def __init__(self, spill_file):
             self.file = spill_file  # data.row_iter.RoundSpillFile
-
-        def iter_rows(self) -> Iterator[List[RowBlock]]:
-            return self.file.iter_rows()
 
         def drop(self) -> None:
             self.file.delete()
@@ -716,14 +799,17 @@ class ShardedRowBlockIter:
             self._spill_dir or default_spill_dir(),
             f"rounds-{key}-p{os.getpid()}-{next(self._SPILL_SEQ)}.pages")
 
-    def _prefetch_serve(self, next_row) -> Iterator[DeviceBatch]:
+    def _prefetch_serve(self, next_row=None,
+                        pages=None) -> Iterator[DeviceBatch]:
         """Serve batches from a background producer, one round ahead:
         ``next_row()`` gives the next round's raw blocks (None at the
         end), and the producer thread pads and stacks them straight into
         a pinned HostStaging slot (``stage_round``) and copies the slot
         to the device on its own copy stream, so the copy of round r+1
         overlaps the consumer's work on round r; the consumer waits on
-        each batch's copy event. The live queue is exposed as
+        each batch's copy event. With ``pages`` (a committed spill file)
+        the producer serves its rounds in order by the raw route
+        (:class:`RawRoundStager`) instead. The live queue is exposed as
         ``_serve_queue`` while an epoch runs (pipeline probes sample its
         occupancy — that is what lets the autotuner drive the
         shard.prefetch knob) and its producer stats land in
@@ -736,18 +822,36 @@ class ShardedRowBlockIter:
         device = self.mesh.device
         on_cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if on_cuda else None
-        pool = HostStaging(self.prefetch_depth + 1, pin=on_cuda,
-                           alias_unsafe=not on_cuda)
         work = [0.0, 0.0]  # wall, thread CPU
+        if pages is not None:
+            # the raw route's outputs never alias its slots: a slot is
+            # reused on the CPU too
+            stager = RawRoundStager(
+                pages, device, self.row_bucket, self.nnz_bucket,
+                HostStaging(self.prefetch_depth + 1, pin=on_cuda),
+                copy_stream)
+            rounds = iter(range(pages.rounds))
 
-        def stage():
-            row = next_row()
-            if row is None:
-                return None
-            slot = self._assemble_stacked(row, staging=pool)
-            return make_global_batch(slot, self.mesh, self.axis,
-                                     staging=pool, copy_stream=copy_stream,
-                                     staged=True)
+            def stage():
+                r = next(rounds, None)
+                if r is None:
+                    return None
+                # sticky keys, as _assemble_stacked notes them
+                self._note_schema(*stager.schema(r))
+                return stager(r, self._has_qid, self._has_field)
+        else:
+            pool = HostStaging(self.prefetch_depth + 1, pin=on_cuda,
+                               alias_unsafe=not on_cuda)
+
+            def stage():
+                row = next_row()
+                if row is None:
+                    return None
+                slot = self._assemble_stacked(row, staging=pool)
+                return make_global_batch(slot, self.mesh, self.axis,
+                                         staging=pool,
+                                         copy_stream=copy_stream,
+                                         staged=True)
 
         def produce():
             w0, c0 = time.perf_counter(), time.thread_time()
@@ -986,6 +1090,7 @@ class ShardedRowBlockIter:
         return {"replay_tier": self.replay_tier,
                 "replay_epochs": self.replay_epochs,
                 "page_replay_epochs": self.page_replay_epochs,
+                "raw_page_epochs": self.raw_page_epochs,
                 "prefetch_depth": self.prefetch_depth}
 
     def __iter__(self) -> Iterator[DeviceBatch]:

@@ -660,6 +660,7 @@ class _ShardRunner(_RunnerBase):
             self.probe.extra["replay_tier"] = it.replay_tier
         self.probe.extra["replay_epochs"] = it.replay_epochs
         self.probe.extra["page_replay_epochs"] = it.page_replay_epochs
+        self.probe.extra["raw_page_epochs"] = it.raw_page_epochs
         if it._serve_stats:
             self.probe.extra["serve"] = dict(it._serve_stats)
 

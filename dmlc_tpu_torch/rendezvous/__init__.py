@@ -7,7 +7,11 @@ the membership record on the control ledger (``obs.control``) included.
 Unlike the
 reference's, a client's first view (its join) also sets the peer tier's
 topology from the roster, so a member that joins a gang of two or more
-agrees with the members already in it on who owns each hydration group.
+agrees with the members already in it on who owns each hydration group;
+and each call (join, heartbeat, commit) and the delivery of its answer
+are one ordered step, so the background heartbeat's answer cannot land
+after a commit's newer one and step the member's epoch back (the
+reference's client delivers whichever answer lands last).
 
 Three planes in one package:
 
@@ -88,6 +92,12 @@ class RendezvousClient:
         self.heartbeat_s = float(heartbeat_s)
         self.timeout_s = float(timeout_s)
         self._lock = threading.Lock()
+        # one call and the delivery of its answer are one step: the
+        # answer delivered last is the one the service gave last, so a
+        # heartbeat answered late cannot step the view back past a
+        # commit's. Re-entrant: a refused beat or commit rejoins inside
+        # its own step.
+        self._order = threading.RLock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._callbacks: List[Callable[[Dict[str, Any]], None]] = []
@@ -128,16 +138,17 @@ class RendezvousClient:
 
     def join(self) -> int:
         """Join (or rejoin) the gang; returns the assigned rank."""
-        resp = self._call({"op": "join", "gang": self.gang,
-                           "member": self.member,
-                           "host": self.self_host,
-                           "port": self.serve_port,
-                           "attempt": self.attempt},
-                          "rendezvous.join")
-        check(bool(resp.get("ok")),
-              f"rendezvous join refused: {resp.get('error')!r}")
-        self._deliver(resp)
-        return int(self.rank if self.rank is not None else -1)
+        with self._order:
+            resp = self._call({"op": "join", "gang": self.gang,
+                               "member": self.member,
+                               "host": self.self_host,
+                               "port": self.serve_port,
+                               "attempt": self.attempt},
+                              "rendezvous.join")
+            check(bool(resp.get("ok")),
+                  f"rendezvous join refused: {resp.get('error')!r}")
+            self._deliver(resp)
+            return int(self.rank if self.rank is not None else -1)
 
     def heartbeat(self,
                   progress: Optional[Dict[Any, int]] = None) -> bool:
@@ -159,27 +170,29 @@ class RendezvousClient:
                 merged[k] = max(merged.get(k, 0), int(n))
         if merged:
             payload["progress"] = merged
-        try:
-            resp = self._call(payload, "rendezvous.heartbeat")
-        except Exception:  # noqa: BLE001 — a beat lost past the seam
-            # is NOT a flap from our side; the grace window decides
-            with self._lock:
-                for k, n in merged.items():
-                    self._pending_progress[k] = max(
-                        self._pending_progress.get(k, 0), n)
-            self._count("heartbeat.lost")
-            return False
-        if not resp.get("ok"):
-            # the service declared us dead (grace or a supervisor
-            # report) while we are demonstrably alive: rejoin — the
-            # epoch bumps and we get a (possibly new) rank back
+        with self._order:
             try:
-                self.join()
-                return True
-            except Exception:  # noqa: BLE001
+                resp = self._call(payload, "rendezvous.heartbeat")
+            except Exception:  # noqa: BLE001 — a beat lost past the
+                # seam is NOT a flap from our side; the grace window
+                # decides
+                with self._lock:
+                    for k, n in merged.items():
+                        self._pending_progress[k] = max(
+                            self._pending_progress.get(k, 0), n)
+                self._count("heartbeat.lost")
                 return False
-        self._deliver(resp)
-        return True
+            if not resp.get("ok"):
+                # the service declared us dead (grace or a supervisor
+                # report) while we are demonstrably alive: rejoin — the
+                # epoch bumps and we get a (possibly new) rank back
+                try:
+                    self.join()
+                    return True
+                except Exception:  # noqa: BLE001
+                    return False
+            self._deliver(resp)
+            return True
 
     def commit(self, part: Any, records: int,
                epoch: Optional[int] = None) -> bool:
@@ -195,24 +208,25 @@ class RendezvousClient:
         iff the commit landed; False means the batch must NOT be
         counted as consumed (the roster moved — re-derive ownership
         from the view this very call just delivered, then retry)."""
-        fence = self.epoch if epoch is None else int(epoch)
-        check(fence is not None, "commit() before join()")
-        payload = {"op": "heartbeat", "gang": self.gang,
-                   "member": self.member, "epoch": fence,
-                   "progress": {str(part): int(records)}}
-        try:
-            resp = self._call(payload, "rendezvous.commit")
-        except Exception:  # noqa: BLE001 — undeliverable == uncommitted
-            self._count("heartbeat.lost")
-            return False
-        if not resp.get("ok"):
+        with self._order:
+            fence = self.epoch if epoch is None else int(epoch)
+            check(fence is not None, "commit() before join()")
+            payload = {"op": "heartbeat", "gang": self.gang,
+                       "member": self.member, "epoch": fence,
+                       "progress": {str(part): int(records)}}
             try:
-                self.join()
-            except Exception:  # noqa: BLE001
-                pass
-            return False
-        self._deliver(resp)
-        return not resp.get("progress_rejected", False)
+                resp = self._call(payload, "rendezvous.commit")
+            except Exception:  # noqa: BLE001 — undeliverable ==
+                self._count("heartbeat.lost")  # uncommitted
+                return False
+            if not resp.get("ok"):
+                try:
+                    self.join()
+                except Exception:  # noqa: BLE001
+                    pass
+                return False
+            self._deliver(resp)
+            return not resp.get("progress_rejected", False)
 
     def report_progress(self, part: Any, records: int) -> None:
         """Queue a part's consumed-prefix length for the next beat."""
@@ -247,6 +261,8 @@ class RendezvousClient:
             t.join(timeout=2.0)
 
     def _beat_loop(self) -> None:
+        # the wait holds no lock: heartbeat() takes the step's lock for
+        # its call and delivery only
         while not self._stop.wait(self.heartbeat_s):
             self.heartbeat()
 

@@ -200,11 +200,17 @@ def test_elastic_reshard_matches_reference_keys(dirs, monkeypatch):
     got = bench_suite.bench_elastic_reshard(16, work=dirs)
     assert set(got) == _return_keys(ref_bench.bench_elastic_reshard)
     assert got["bytes"] == 6 * 42 * (64 << 10)
-    assert got["reshard_count"] >= 2 and got["resume_saved_bytes"] > 0
-    assert got["gang_wire_frac"] <= 1.3
-    assert got["late_joiner_batches"] == 10
+    assert got["reshard_count"] >= 2 and got["resume_saved_bytes"] > 0, (
+        f"reshard_count {got['reshard_count']} (want >= 2), "
+        f"resume_saved_bytes {got['resume_saved_bytes']} (want > 0)")
+    assert got["gang_wire_frac"] <= 1.3, (
+        f"gang_wire_frac {got['gang_wire_frac']} (want <= 1.3)")
+    assert got["late_joiner_batches"] == 10, (
+        f"late_joiner_batches {got['late_joiner_batches']} (want 10)")
     worlds = [w for _, w in got["epochs"]]
-    assert 3 in worlds and 2 in worlds[worlds.index(3):]
+    assert 3 in worlds and 2 in worlds[worlds.index(3):], (
+        f"epochs (epoch, world) {got['epochs']}: want a world of 3, then "
+        "of 2")
     json.dumps(got)
 
 

@@ -271,6 +271,55 @@ class TestRendezvousMembership:
             assert a.commit(5, 10, epoch=a.epoch) is True
             assert a.progress["5"] == 10
 
+    def test_a_late_heartbeat_answer_cannot_step_the_epoch_back(
+            self, monkeypatch):
+        """A fake transport holds the answer to a heartbeat sent before a
+        commit (the service's view at the beat: epoch 1) until the commit
+        has been answered with epoch 2, or for 1 s. Each call and its
+        delivery are one step, so the commit waits for the beat and the
+        member ends on epoch 2, with one reshard for the one change; a
+        client that delivers whichever answer lands last ends on epoch 1
+        with a second, stale reshard."""
+        from dmlc_tpu_torch.obs.metrics import REGISTRY
+        state = {"epoch": 1}
+        beat_sent, commit_answered = threading.Event(), threading.Event()
+
+        def view(world):
+            return {"ok": True, "epoch": state["epoch"], "world": world,
+                    "roster": [{"member": m, "rank": r, "port": None}
+                               for r, m in enumerate("ab"[:world])],
+                    "progress": {}}
+
+        def fake(host, port, payload, timeout_s=2.0):
+            if payload["op"] == "join":
+                return view(1)
+            if "epoch" not in payload:  # the background beat
+                resp = view(1)  # the service's view when the beat lands
+                beat_sent.set()
+                commit_answered.wait(1.0)
+                return resp
+            state["epoch"] = 2  # member b joined before the commit landed
+            resp = dict(view(2), progress_rejected=payload["epoch"] != 2)
+            commit_answered.set()
+            return resp
+
+        monkeypatch.setattr(rsvc, "call", fake)
+        a = RendezvousClient("127.0.0.1", 1, gang="order", member="a")
+        assert a.join() == 0 and a.epoch == 1
+        changes = []
+        a.on_change(changes.append)
+        reshards = REGISTRY.counter("rendezvous.reshard").value
+        beat = threading.Thread(target=a.heartbeat)
+        beat.start()
+        assert beat_sent.wait(5.0)
+        a.commit(3, 7)
+        beat.join(5.0)
+        assert not beat.is_alive()
+        assert (a.epoch, a.world, a.rank) == (2, 2, 0), \
+            f"the member's view stepped back to epoch {a.epoch}"
+        assert [c["epoch"] for c in changes] == [2], changes
+        assert REGISTRY.counter("rendezvous.reshard").value - reshards == 1
+
     def test_peer_tier_dead_rank_reassigns_to_survivors(self):
         from dmlc_tpu_torch.io.objstore.peer import PeerTier
         t = PeerTier([7001, 7002, 7003], self_port=7001)

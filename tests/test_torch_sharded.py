@@ -753,6 +753,47 @@ def test_page_tier_defaults_match_reference():
     assert port["page_spill"].default is True
 
 
+@pytest.mark.parametrize("case", ["raw", "codec", "qid", "cut"])
+def test_page_epochs_take_the_raw_route(case, mesh, ref_mesh, ref_host,
+                                        tmp_path, monkeypatch):
+    """Every page epoch of the page-tier tests above is served by the raw
+    route (one read of each round, ``round_unpack`` over its bytes; the
+    plain version on the CPU, so no launch is counted): byte for byte the
+    reference's batches, with the reference's tier and counters. A spill
+    file cut short after its table was built raises a DMLCError in the
+    next page epoch, as a cut page stream did before the raw route."""
+    from dmlc_tpu_torch.ops import pages
+    monkeypatch.setenv("DMLC_TPU_PAGE_CODEC_LEVEL",
+                       "6" if case == "codec" else "0")
+    p = tmp_path / "d.libsvm"
+    if case == "qid":
+        _skewed_qid(p, 9)
+    else:
+        _write_libsvm(p, 20, 300)
+    it, ref = _page_iters(p, mesh, ref_mesh, tmp_path,
+                          **({"row_bucket": 8} if case == "qid" else {}))
+    launches = pages.round_unpack.launches
+    _same_epochs(_collect(it), _collect(ref))
+    assert (it.replay_tier, it._round_store.tier) == ("parse", "pages")
+    assert it.raw_page_epochs == 0
+    if case == "cut":
+        spill = it._round_store.file
+        assert spill.table.max_size > 0  # the writer's table
+        with open(spill.path, "r+b") as f:
+            f.truncate(os.path.getsize(spill.path) // 2)
+        with pytest.raises(DMLCError):
+            _collect(it)
+    else:
+        for epoch in range(2):
+            _same_epochs(_collect(it), _collect(ref))
+            assert _state(it) == _state(ref) == ("pages", epoch + 1,
+                                                 epoch + 1)
+            assert it.raw_page_epochs == it.page_replay_epochs == epoch + 1
+    assert pages.round_unpack.launches == launches
+    it.close()
+    ref.close()
+
+
 def test_serve_thread_and_prefetch_depth(mesh, tmp_path):
     """The cached epoch and the replay are served by a background thread
     (the shard.serve queue) through HostStaging: the batches are the
