@@ -190,7 +190,14 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    and pad+stack; and the pad+stack into pinned slots with the copy to
    the card; the raw route: a read into a pinned slot, the copy and
    ``round_unpack``), 5 rounds interleaved, each led by the host memcpy
-   gauge; then three
+   gauge; the fused entry (``RoundStage``: the copy from a pinned slot
+   and ``round_unpack`` in one call) on the same round equal to the
+   plain version byte for byte, its host µs a call timed; the serve
+   thread's host µs a round and the page readers printed; then one page
+   epoch after the page file is written back and dropped from the host's
+   page cache by ``posix_fadvise(DONTNEED)`` (its resident share read by
+   ``mincore`` before and after, and the read called cold, or warm where
+   the drop left the file resident), timed and printed, not gated; then three
    epochs of ``SparseLinearModel(10^6).train_step`` through
    ``parse(engine="native").cache(memory_budget_bytes=0).batch(8192,
    pad=True, nnz_bucket=368640).to_device(cuda)``: every epoch served by
@@ -4834,6 +4841,7 @@ def spill_path(path, size, lr, mesh, work, sharded):
     import torch
     from dmlc_tpu_torch.models.linear import SparseLinearModel
     from dmlc_tpu_torch.ops import pages as pages_ops
+    from dmlc_tpu_torch.parallel.sharded import PAGE_READERS
     from dmlc_tpu_torch.pipeline import Pipeline
     spill_dir = os.path.join(work, "spill")
     wrappers = {k: fn for k, fn in _wrappers().items()
@@ -4909,6 +4917,8 @@ def spill_path(path, size, lr, mesh, work, sharded):
     split = page_serve_split(os.path.join(spill_dir, files[0]), steps,
                              mesh)
     log_pipeline_stats("spill", built)
+    cold = cold_page_epoch(os.path.join(spill_dir, files[0]),
+                           lambda: _train_epoch(built, step))
     built.close()
     left = [n for n in os.listdir(spill_dir) if n.endswith(".pages")]
     require(left == [], f"spill: close() left {left} in {spill_dir}")
@@ -4934,9 +4944,17 @@ def spill_path(path, size, lr, mesh, work, sharded):
         if e["tier"] == "pages":
             log(f"spill page epoch {i + 1}: {e['secs']:.4f} s with its "
                 f"steps; the serve thread's work {e['serve']['work_s']:.4f}"
-                f" s of wall, {e['serve']['work_cpu_s']:.4f} s of its CPU, "
-                f"blocked on a full queue "
+                f" s of wall, {e['serve']['work_cpu_s']:.4f} s of its CPU "
+                f"({e['serve']['work_s'] / steps * 1e6:.1f} / "
+                f"{e['serve']['work_cpu_s'] / steps * 1e6:.1f} us a round, "
+                f"{PAGE_READERS} page readers), blocked on a full queue "
                 f"{e['serve']['producer_block_s']:.4f} s")
+    log(f"spill page epoch after a drop of the page file (on "
+        f"{cold['fs']}) from the host's page cache, read {cold['read']} "
+        f"(resident share {cold['resident_before']:.3f} before the drop, "
+        f"{cold['resident_after']:.3f} after): {cold['secs']:.4f} s with "
+        f"its steps, {size / cold['secs'] / 1e9:.3f} GB/s of text; not "
+        f"gated")
     fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)  # noqa: E731
     log(f"spill serve thread's work of a page epoch, by pass over the "
         f"page file with no step, {SERVE_SPLIT_ROUNDS} rounds interleaved "
@@ -4947,15 +4965,91 @@ def spill_path(path, size, lr, mesh, work, sharded):
         f"pad+stack into pinned slots and the copy to the card "
         f"{fmt(split['read_decode_stack_copy_s'])} s (its thread CPU "
         f"{fmt(split['read_decode_stack_copy_cpu_s'])} s); the raw route "
-        f"(each round read into a pinned slot, copied to the card and "
-        f"unpacked there by round_unpack) {fmt(split['raw_route_s'])} s "
+        f"(each round read ahead into a pinned slot by {PAGE_READERS} "
+        f"readers, copied to the card and unpacked there by one "
+        f"RoundStage call) {fmt(split['raw_route_s'])} s "
         f"(its thread CPU {fmt(split['raw_route_cpu_s'])} s)")
     return {"steps": steps, "tiers": tiers, "epoch_s":
             [e["secs"] for e in epochs],
             "parse_to_device_gbps_training": gbps, "steps_per_s": sps,
             "page_bytes": page_bytes, "memory_replay_gbps": memory,
             "serve": [e["serve"] for e in epochs], "serve_split": split,
-            "kernel": kernel}
+            "kernel": kernel, "cold": cold, "page_readers": PAGE_READERS}
+
+
+def _train_epoch(built, step):
+    """One epoch of ``step`` over ``built``, synchronised."""
+    import torch
+    for batch in built:
+        step(batch)
+    torch.cuda.synchronize()
+
+
+def _resident_share(path):
+    """The share of ``path``'s pages in the host's page cache
+    (``mincore`` over a private mapping of the file)."""
+    import ctypes
+    import mmap
+    size = os.path.getsize(path)
+    if size == 0:
+        return 0.0
+    pages = (size + mmap.PAGESIZE - 1) // mmap.PAGESIZE
+    vec = (ctypes.c_ubyte * pages)()
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.c_void_p]
+    with open(path, "rb") as f:
+        m = mmap.mmap(f.fileno(), size, access=mmap.ACCESS_COPY)
+    try:
+        head = ctypes.c_char.from_buffer(m)
+        err = libc.mincore(ctypes.addressof(head), size, vec)
+        del head
+    finally:
+        m.close()
+    require(err == 0, f"mincore failed on {path}: errno {ctypes.get_errno()}")
+    return sum(v & 1 for v in vec) / pages
+
+
+def _fs_type(path):
+    """The file system type of the mount that holds ``path`` (read from
+    ``/proc/self/mounts``; "?" where it cannot be read)."""
+    best, kind = "", "?"
+    try:
+        with open("/proc/self/mounts") as f:
+            for line in f:
+                fields = line.split()
+                mnt = fields[1]
+                if (os.path.realpath(path).startswith(mnt.rstrip("/") + "/")
+                        and len(mnt) > len(best)):
+                    best, kind = mnt, fields[2]
+    except OSError:
+        pass
+    return kind
+
+
+def cold_page_epoch(path, run_epoch):
+    """One epoch (``run_epoch()``) timed after this run's own page file at
+    ``path`` was written back (``fsync``) and dropped from the host's page
+    cache (``posix_fadvise(POSIX_FADV_DONTNEED)``); the file's resident
+    share before and after the drop, and the type of the file system
+    that holds it (a tmpfs keeps its pages whatever the advice); ``read``
+    says "cold" where at most a tenth of the file stayed resident, "warm
+    (drop ineffective)" where more than nine tenths did, else "partly
+    cold". Printed, not gated."""
+    before = _resident_share(path)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    after = _resident_share(path)
+    t0 = time.perf_counter()
+    run_epoch()
+    read = ("cold" if after <= 0.1 else "warm (drop ineffective)"
+            if after > 0.9 else "partly cold")
+    return {"secs": time.perf_counter() - t0, "resident_before": before,
+            "resident_after": after, "fs": _fs_type(path), "read": read}
 
 
 UNPACK_ITERS = 100
@@ -5098,6 +5192,42 @@ def check_round_unpack(spill, rounds, mesh, launches):
     require(got.keys() == want.keys() and not differ,
             f"round_unpack: the kernel's batch differs from its plain "
             f"version's at {differ} (keys {sorted(got)})")
+    # the fused entry: the same round's pinned bytes copied and unpacked
+    # by one call on a stream of its own, as a page epoch stages a round
+    stream = torch.cuda.Stream(dev)
+    dev_raw = torch.empty(size, dtype=torch.uint8, device=dev)
+    stage = pages.RoundStage(dev_raw, table, ROW_BUCKET, NNZ_BUCKET, stream)
+    staged = stage(raw_c, 0, *args[2:])
+    torch.cuda.synchronize(dev)
+    require(pages.round_unpack.launches == before + 2,
+            "RoundStage: the fused entry did not count its launch")
+    differ = [k for k in want
+              if k not in staged or not torch.equal(
+                  staged[k].cpu().view(torch.uint8),
+                  want[k].view(torch.uint8))]
+    require(staged.keys() == want.keys() and not differ,
+            f"RoundStage: the fused entry's batch differs from the plain "
+            f"version's at {differ} (keys {sorted(staged)})")
+    require(len({t.untyped_storage().data_ptr()
+                 for t in staged.values()}) == 1,
+            "RoundStage: the batch's keys are not views of one allocation")
+    # a round's call as a page epoch's serve thread makes it: one
+    # RoundStage for the epoch, the thread's current stream its own
+    with torch.cuda.stream(stream):
+        stage(raw_c, 0, *args[2:])
+        torch.cuda.synchronize(dev)
+        c0 = time.perf_counter()
+        for _ in range(UNPACK_ITERS):
+            stage(raw_c, 0, *args[2:])
+        stage_host_us = (time.perf_counter() - c0) / UNPACK_ITERS * 1e6
+        torch.cuda.synchronize(dev)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record(stream)
+        for _ in range(UNPACK_ITERS):
+            stage(raw_c, 0, *args[2:])
+        e1.record(stream)
+        torch.cuda.synchronize(dev)
+    stage_ms = e0.elapsed_time(e1) / UNPACK_ITERS
     edges = round_unpack_edges(os.path.dirname(spill) + "_edges", dev)
     out = {k: torch.empty_like(v) for k, v in got.items()}
 
@@ -5136,13 +5266,21 @@ def check_round_unpack(spill, rounds, mesh, launches):
         f"{plain_ms * 1e3:.2f} us on the host, bound {bound * 1e3:.2f} us "
         f"({by}: {read} bytes read, {written} written), library none; "
         f"{launches} launches in the spill path's page epochs")
+    log(f"RoundStage (the fused entry, the page epochs' route): equal to "
+        f"the plain version byte for byte on every key, its keys views of "
+        f"one allocation; {stage_host_us:.1f} us of host a call of the "
+        f"epoch's RoundStage (the allocation, views, the copy's and the "
+        f"launch's enqueue; {UNPACK_ITERS} calls, no other thread), "
+        f"{stage_ms * 1e3:.1f} us a call on its stream (the {size}-byte "
+        f"copy from pinned memory and the kernel)")
     return {"name": "round_unpack", "route": "cuda",
             "source": "dmlc_tpu_torch/csrc/pages.cu",
             "replaces": "dmlc_tpu/data/padding.py:164", "launches": launches,
             "max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "read_bytes": read,
-            "written_bytes": written}
+            "written_bytes": written, "stage_host_us": stage_host_us,
+            "stage_ms": stage_ms}
 
 
 SERVE_SPLIT_ROUNDS = 5
@@ -5159,26 +5297,26 @@ def page_serve_split(spill, rounds, mesh):
     a round (``stage_round``: the pad+stack straight into a pinned slot,
     then ``make_global_batch(staged=True)`` on a copy stream, each batch
     waited on as the consumer does); and the raw route that serves page
-    epochs now (``RawRoundStager``: each round read into a pinned slot,
-    copied to the card and unpacked there by ``round_unpack``, each
-    batch waited on). The five passes run SERVE_SPLIT_ROUNDS times,
-    interleaved (one of each a round), each round led by
-    ``bench_transfer.memcpy_gauge`` (the host's memcpy GB/s then).
+    epochs now (``RawRoundStager``: each round read ahead into a pinned
+    slot by PAGE_READERS reader threads, copied to the card and unpacked
+    there by one ``RoundStage`` call, each batch waited on). The five
+    passes run SERVE_SPLIT_ROUNDS times, interleaved (one of each a
+    round), each round led by ``bench_transfer.memcpy_gauge`` (the
+    host's memcpy GB/s then).
     Seconds a pass, a list a pass; the thread CPU seconds of the last
     two passes too."""
     import torch
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     from dmlc_tpu_torch.data.row_iter import RoundSpillFile
     from dmlc_tpu_torch.parallel.device_iter import HostStaging, wait_copy
-    from dmlc_tpu_torch.parallel.sharded import RawRoundStager, \
-        make_global_batch, stack_padded_rows, stage_round
+    from dmlc_tpu_torch.parallel.sharded import PAGE_READERS, \
+        RawRoundStager, make_global_batch, stack_padded_rows, stage_round
     buf = bytearray(1 << 20)
     pages = RoundSpillFile(spill, SHARD_PARTS, rounds)
     on_cuda = mesh.device.type == "cuda"
     pool = HostStaging(3, pin=on_cuda, alias_unsafe=not on_cuda)
     stream = torch.cuda.Stream(mesh.device) if on_cuda else None
-    stager = RawRoundStager(pages, mesh.device, ROW_BUCKET, NNZ_BUCKET,
-                            HostStaging(3, pin=on_cuda), stream)
+    raw_pool = HostStaging(3 + PAGE_READERS, pin=on_cuda)
 
     def read():
         with open(spill, "rb", buffering=0) as f:
@@ -5204,9 +5342,14 @@ def page_serve_split(spill, rounds, mesh):
             torch.cuda.synchronize(mesh.device)
 
     def raw():
-        for r in range(rounds):
-            wait_copy(stager(r, False, False), mesh.device)
-        pages.close()
+        # a stager an epoch, as a page epoch makes one
+        stager = RawRoundStager(pages, mesh.device, ROW_BUCKET, NNZ_BUCKET,
+                                raw_pool, stream)
+        try:
+            for r in range(rounds):
+                wait_copy(stager(r, False, False), mesh.device)
+        finally:
+            stager.close()
         if on_cuda:
             torch.cuda.synchronize(mesh.device)
 

@@ -38,6 +38,12 @@
 // max(rb + 1, nb) positions; the part's table row in shared memory;
 // consecutive threads read and write consecutive elements. It launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
+//
+// Two entries. dmlc_round_unpack launches the kernel on bytes already on
+// the card. dmlc_round_stage is a page epoch's whole round in one call
+// from the host: it enqueues the copy of the round's bytes from a pinned
+// host slot into the card's byte buffer, then the kernel, on one stream,
+// so the serve thread pays one call's worth of Python a round.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -171,6 +177,27 @@ int dmlc_round_unpack(const void* raw, const void* table, int64_t parts,
       static_cast<int64_t*>(qid), static_cast<int64_t*>(field),
       static_cast<int32_t*>(num_rows), static_cast<int32_t*>(num_nnz));
   return static_cast<int>(cudaGetLastError());
+}
+
+// host: the round's nbytes in a pinned host slot; dev_raw: a card buffer
+// of at least nbytes; the rest as dmlc_round_unpack. Enqueues the copy
+// host -> dev_raw and then the kernel on stream; returns a cudaError_t.
+int dmlc_round_stage(const void* host, void* dev_raw, int64_t nbytes,
+                     const void* table, int64_t parts, int64_t row_bucket,
+                     int64_t nnz_bucket, int out_index_bytes, void* offset,
+                     void* label, void* weight, void* index, void* value,
+                     void* qid, void* field, void* num_rows, void* num_nnz,
+                     void* stream) {
+  if (nbytes > 0) {
+    const cudaError_t err =
+        cudaMemcpyAsync(dev_raw, host, static_cast<size_t>(nbytes),
+                        cudaMemcpyHostToDevice,
+                        static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return dmlc_round_unpack(dev_raw, table, parts, row_bucket, nnz_bucket,
+                           out_index_bytes, offset, label, weight, index,
+                           value, qid, field, num_rows, num_nnz, stream);
 }
 
 }  // extern "C"

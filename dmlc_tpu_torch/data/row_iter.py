@@ -36,6 +36,8 @@ under ``spill.commit``, inside a ``spill.commit`` trace span.
 from __future__ import annotations
 
 import json
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Iterator, List, Optional
 
 import numpy as np
@@ -55,7 +57,8 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
 
 __all__ = ["RowBlockIter", "BasicRowIter", "DiskRowIter",
            "RoundSpillWriter", "RoundSpillFile", "RoundTable",
-           "default_spill_dir", "read_spill_meta", "sweep_stale_spill"]
+           "RoundReadAhead", "default_spill_dir", "read_spill_meta",
+           "sweep_stale_spill"]
 
 
 class RowBlockIter(DataIter):
@@ -320,6 +323,7 @@ ROUND_TABLE_COLUMNS = ("block", "flags", "n", "nnz", "index_bytes",
                        "offset", "label", "index", "value", "weight",
                        "qid", "field")
 _COL = {name: i for i, name in enumerate(ROUND_TABLE_COLUMNS)}
+_MAGIC_BYTES = np.frombuffer(_PAGE_MAGIC.to_bytes(4, "little"), np.uint8)
 # the arrays of a RowBlock page in their serialized order, each with the
 # flag bit that marks it present (0: always) and the dtypes it may have
 _PAGE_ARRAYS = (("offset", 0, ("<i8",)), ("label", 0, ("<f4",)),
@@ -598,39 +602,90 @@ class RoundSpillFile:
         :meth:`close`. A file that ends early, or whose pages' heads no
         longer match the table, raises the DMLCError ``iter_rows``
         would."""
+        spans, error = self.read_rounds_into(r, r + 1, buf)
+        if error is not None:
+            raise error
+        return spans[0][1]
+
+    def read_rounds_into(self, r0: int, r1: int, buf, stream=None):
+        """Rounds ``r0``…``r1 - 1`` into ``buf`` back to back: the raw
+        layout's by one ``readinto`` of their span of the file (they lie
+        there back to back), a codec file's round by round, each decoded.
+        It reads through ``stream`` (one of ``create_stream(path, "r")``,
+        the caller's to close), or else through the file's own stream,
+        which stays open for the next read until :meth:`close`. Every
+        round's page heads are checked against the table. Returns
+        ``(spans, error)``: ``spans`` the ``(offset in buf, size)`` of
+        each round from ``r0`` on that arrived whole and matches the
+        table, and ``error`` None, or the DMLCError ``iter_rows`` would
+        raise for the next round (a file that ends early, or pages whose
+        heads no longer match the table)."""
         t = self.table
-        start, length, size = (int(t.start[r]), int(t.length[r]),
-                               int(t.size[r]))
-        view = memoryview(buf).cast("B")
-        check(len(view) >= size, f"round spill: a buffer of {len(view)} "
-              f"bytes cannot hold round {r} ({size} bytes)")
-        if self._stream is None:
-            self._stream = create_stream(self.path, "r")
-        s = self._stream
-        s.seek(start)
+        starts, lengths = t.start[r0:r1], t.length[r0:r1]
+        sizes = t.size[r0:r1].tolist()
         if t.coded:
-            view[:size] = _codec.decode_page(_read_n(s, length, self.path))
+            offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
         else:
+            offsets = starts - starts[0]
+        total = int(offsets[-1]) + sizes[-1]
+        view = memoryview(buf).cast("B")
+        check(len(view) >= total, f"round spill: a buffer of {len(view)} "
+              f"bytes cannot hold rounds {r0}-{r1 - 1} ({total} bytes)")
+        if stream is None:
+            if self._stream is None:
+                self._stream = create_stream(self.path, "r")
+            stream = self._stream
+        truncated = DMLCError(
+            f"round spill {self.path}: truncated page stream (file changed "
+            "under an armed replay cache?)")
+
+        def changed(r):
+            return DMLCError(
+                f"round spill {self.path}: round {r}'s pages do not match "
+                "its table (file changed under an armed replay cache?)")
+
+        whole, error = len(sizes), None
+        if t.coded:
+            for i in range(len(sizes)):
+                stream.seek(int(starts[i]))
+                page = stream.read(int(lengths[i]))
+                if len(page) != int(lengths[i]):
+                    whole, error = i, truncated
+                    break
+                try:
+                    page = _codec.decode_page(page)
+                except DMLCError as e:  # a torn frame
+                    whole, error = i, e
+                    break
+                if len(page) != sizes[i]:
+                    whole, error = i, changed(r0 + i)
+                    break
+                at = int(offsets[i])
+                view[at:at + sizes[i]] = page
+        else:
+            stream.seek(int(starts[0]))
             got = 0
-            while got < size:
-                n = s.readinto(view[got:size])
+            while got < total:
+                n = stream.readinto(view[got:total])
                 if not n:
-                    raise DMLCError(
-                        f"round spill {self.path}: truncated page stream "
-                        "(file changed under an armed replay cache?)")
+                    break
                 got += n
-        rows = t.blocks[r]
-        heads = np.frombuffer(view, np.uint8, size)[
-            rows[:, _COL["block"], None] + np.arange(6)]
-        want = np.empty_like(heads)
-        want[:, :4] = np.frombuffer(_PAGE_MAGIC.to_bytes(4, "little"),
-                                    np.uint8)
-        want[:, 4] = _PAGE_VERSION
-        want[:, 5] = rows[:, _COL["flags"]]
-        check(np.array_equal(heads, want),
-              f"round spill {self.path}: round {r}'s pages do not match "
-              "its table (file changed under an armed replay cache?)")
-        return size
+            if got < total:
+                whole = int(np.searchsorted(offsets + sizes, got,
+                                            side="right"))
+                error = truncated
+        # each block's 6-byte head: magic, version, flags
+        rows = t.blocks[r0:r0 + whole]
+        at = (offsets[:whole, None] + rows[:, :, _COL["block"]]).reshape(-1)
+        heads = np.frombuffer(view, np.uint8, total)[at[:, None]
+                                                     + np.arange(6)]
+        bad = ((heads[:, :4] != _MAGIC_BYTES).any(1)
+               | (heads[:, 4] != _PAGE_VERSION)
+               | (heads[:, 5] != rows[:, :, _COL["flags"]].reshape(-1)))
+        if bad.any():
+            whole = int(np.argmax(bad)) // self.nparts
+            error = changed(r0 + whole)
+        return list(zip(offsets[:whole].tolist(), sizes[:whole])), error
 
     def close(self) -> None:
         """Close the stream ``read_round_into`` keeps open."""
@@ -674,6 +729,50 @@ class RoundSpillFile:
         self.close()
         store, entry = PageStore.for_path(self.path)
         store.delete(entry)  # entry + sidecar stamp
+
+
+class RoundReadAhead:
+    """Rounds of a :class:`RoundSpillFile` read ahead on ``readers``
+    threads (at least 1), each through a stream of its own
+    (``create_stream``, so the ``io.stream.read`` seam and its fault
+    plans apply to every read). ``submit(r0, r1, buf, after)`` starts
+    ``read_rounds_into(r0, r1, buf)`` on a free reader, then
+    ``after(spans)`` there (when given), and returns its Future:
+    ``result()`` is ``(spans, error, what after returned)``, or raises
+    what the read or ``after`` raised (an I/O error past its retries) in
+    the thread that asks. The caller keeps ``buf`` untouched until then,
+    and takes the results in its own order. :meth:`close` drops the
+    reads not started, waits for the running ones and closes the
+    readers' streams."""
+
+    def __init__(self, spill: "RoundSpillFile", readers: int):
+        check(readers >= 1, f"RoundReadAhead: readers must be >= 1, got "
+              f"{readers}")
+        self.file = spill
+        self._pool = ThreadPoolExecutor(readers,
+                                        thread_name_prefix="spill.read")
+        self._local = threading.local()
+        self._streams: list = []
+        self._lock = threading.Lock()
+
+    def _read(self, r0: int, r1: int, buf, after):
+        s = getattr(self._local, "stream", None)
+        if s is None:
+            s = self._local.stream = create_stream(self.file.path, "r")
+            with self._lock:
+                self._streams.append(s)
+        spans, error = self.file.read_rounds_into(r0, r1, buf, stream=s)
+        return spans, error, after(spans) if after is not None else None
+
+    def submit(self, r0: int, r1: int, buf, after=None) -> Future:
+        return self._pool.submit(self._read, r0, r1, buf, after)
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        with self._lock:
+            streams, self._streams = self._streams, []
+        for s in streams:
+            s.close()
 
 
 def _read_spill_header(s) -> dict:

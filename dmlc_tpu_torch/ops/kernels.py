@@ -3,9 +3,15 @@
 One shared library is built from every source under ``csrc/``
 (``native/build.py``, nvcc for ``sm_90a``, at first use) and loaded with
 ctypes. Each C entry point is declared here once, and :func:`launch`
-calls one on the current stream of a tensor's device and raises on the
-CUDA error it returns. :func:`count` adds one to a wrapper's launch
-count under a lock, since wrappers launch from more than one thread (two
+calls one on a stream (the current stream of a tensor's device unless
+it is given one) and raises on the CUDA error it returns. Every entry
+only enqueues work on a stream and returns. A call releases the GIL, so
+the threads that feed a training step run while it launches, except an
+entry of ``_KEEP_GIL``: one called on the thread whose progress paces a
+page epoch (the page tier's serve thread), which keeps the GIL for its
+microseconds instead of handing it to a reader thread and waiting for
+it to come back. :func:`count` adds one to a wrapper's launch count
+under a lock, since wrappers launch from more than one thread (two
 tenants training in one process).
 """
 
@@ -85,7 +91,14 @@ _SIGNATURES = {
     # field (each null where not asked for), num_rows, num_nnz
     "dmlc_round_unpack": [_P, _P, _I64, _I64, _I64, _I, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P],
+    # pinned host round, card byte buffer, the round's bytes; then
+    # dmlc_round_unpack's arguments after its raw round
+    "dmlc_round_stage": [_P, _P, _I64, _P, _I64, _I64, _I64, _I, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P],
 }
+
+# entries whose call keeps the GIL (``ctypes.PyDLL``'s convention)
+_KEEP_GIL = frozenset({"dmlc_round_stage"})
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -99,20 +112,24 @@ def library():
         if _lib is None:
             from dmlc_tpu_torch.native.build import build_kernels
             lib = ctypes.CDLL(build_kernels())
+            held = ctypes.PyDLL(lib._name, handle=lib._handle)
             for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
+                fn = getattr(held if name in _KEEP_GIL else lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+                setattr(lib, name, fn)
             _lib = lib
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call the entry ``name`` with ``args`` and the current stream of
-    ``device``; raise a DMLCError on the CUDA error it returns."""
+def launch(name: str, device: torch.device, *args, stream=None) -> None:
+    """Call the entry ``name`` with ``args`` and ``stream`` (a
+    ``torch.cuda.Stream``; the current stream of ``device`` when None)
+    on ``device``; raise a DMLCError on the CUDA error it returns."""
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(library(), name)(*args, stream)
+        if stream is None:
+            stream = torch.cuda.current_stream(device)
+        err = getattr(library(), name)(*args, stream.cuda_stream)
     if err != 0:
         raise DMLCError(f"{name} launch failed: CUDA error {err}")
 

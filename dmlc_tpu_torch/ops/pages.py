@@ -14,13 +14,19 @@ one must ask for it).
 ``round_unpack`` launches ``csrc/pages.cu`` for CUDA tensors and counts
 the launch in ``round_unpack.launches``; for CPU tensors it runs
 :func:`round_unpack_plain`, the same function in numpy over the same
-bytes. It replaces no TPU kernel: the reference pads a replayed round on
-the host (``stack_padded_rows``).
+bytes. A :class:`RoundStage` call is a page epoch's round in one call:
+the copy of its bytes from a pinned host slot to the card and the same
+kernel, enqueued together by one C entry (``dmlc_round_stage``),
+counted in ``round_unpack.launches`` too. Either writes a batch's keys
+as views of one fresh allocation (:func:`unpack_layout`). It replaces no
+TPU kernel: the reference pads a replayed round on the host
+(``stack_padded_rows``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +35,8 @@ from dmlc_tpu_torch.data.row_iter import ROUND_TABLE_COLUMNS
 from dmlc_tpu_torch.ops.kernels import count, launch
 from dmlc_tpu_torch.utils.logging import check
 
-__all__ = ["round_unpack", "round_unpack_plain", "unpack_spec",
-           "INDEX_DTYPES"]
+__all__ = ["round_unpack", "round_unpack_plain", "RoundStage",
+           "unpack_spec", "unpack_layout", "INDEX_DTYPES"]
 
 _C = {name: i for i, name in enumerate(ROUND_TABLE_COLUMNS)}
 # the output index's dtype by its width in bytes
@@ -58,6 +64,49 @@ def unpack_spec(parts: int, row_bucket: int, nnz_bucket: int,
     return spec
 
 
+# each key of a batch starts at a multiple of this many bytes of the
+# batch's one allocation
+ALIGN = 256
+
+
+@functools.lru_cache(maxsize=64)
+def unpack_layout(parts: int, row_bucket: int, nnz_bucket: int,
+                  index_dtype: torch.dtype, want_qid: bool, want_field: bool
+                  ) -> Tuple[Tuple[Tuple[str, int, int, tuple,
+                                         torch.dtype], ...], int]:
+    """Where each key of :func:`unpack_spec` lies in one byte buffer:
+    ``((key, start, nbytes, shape, dtype), ...)`` in the spec's order,
+    each start a multiple of ALIGN, and the buffer's total bytes."""
+    keys, at = [], 0
+    for k, (shape, dtype) in unpack_spec(parts, row_bucket, nnz_bucket,
+                                         index_dtype, want_qid,
+                                         want_field).items():
+        n = int(np.prod(shape)) * dtype.itemsize
+        keys.append((k, at, n, shape, dtype))
+        at += (n + ALIGN - 1) // ALIGN * ALIGN
+    return tuple(keys), at
+
+
+def _views(buf: torch.Tensor, layouts) -> List[Dict[str, torch.Tensor]]:
+    """The batches placed by ``layouts`` (``unpack_layout``'s, one after
+    the other) as views of the byte buffer ``buf`` (its own allocation,
+    at storage offset 0): one ``view`` of ``buf`` a dtype, then one
+    ``as_strided`` of it a key."""
+    by_dtype, out, at = {}, [], 0
+    for keys, total in layouts:
+        views = {}
+        for k, a, _n, shape, dtype in keys:
+            base = by_dtype.get(dtype)
+            if base is None:
+                base = by_dtype[dtype] = buf.view(dtype)
+            views[k] = base.as_strided(
+                shape, (shape[1], 1) if len(shape) == 2 else (1,),
+                (at + a) // dtype.itemsize)
+        out.append(views)
+        at += total
+    return out
+
+
 def _check_inputs(raw, table, index_dtype):
     check(raw.dtype == torch.uint8 and raw.dim() == 1
           and raw.is_contiguous(),
@@ -76,12 +125,13 @@ def _check_inputs(raw, table, index_dtype):
           f"{index_dtype}")
 
 
-def _outputs(spec, device, out):
-    """Fresh tensors of ``spec`` on ``device``, or ``out`` once it is
+def _outputs(spec, layout, device, out):
+    """Fresh tensors of ``spec`` on ``device``, views of one allocation
+    placed by ``layout`` (``unpack_layout``'s), or ``out`` once it is
     checked to hold them."""
     if out is None:
-        return {k: torch.empty(shape, dtype=dtype, device=device)
-                for k, (shape, dtype) in spec.items()}
+        return _views(torch.empty(layout[1], dtype=torch.uint8,
+                                  device=device), [layout])[0]
     check(out.keys() == spec.keys()
           and all(tuple(out[k].shape) == shape and out[k].dtype == dtype
                   and out[k].device == device and out[k].is_contiguous()
@@ -107,17 +157,125 @@ def round_unpack(raw: torch.Tensor, table: torch.Tensor, row_bucket: int,
         return round_unpack_plain(raw, table, row_bucket, nnz_bucket,
                                   index_dtype, want_qid, want_field, out)
     check(raw.is_cuda, f"round_unpack runs on cuda or cpu, got {raw.device}")
-    out = _outputs(unpack_spec(table.shape[0], row_bucket, nnz_bucket,
-                               index_dtype, want_qid, want_field),
-                   raw.device, out)
-    ptr = lambda k: out[k].data_ptr() if k in out else None  # noqa: E731
+    args = (table.shape[0], row_bucket, nnz_bucket, index_dtype, want_qid,
+            want_field)
+    out = _outputs(unpack_spec(*args), unpack_layout(*args), raw.device, out)
     launch("dmlc_round_unpack", raw.device, raw.data_ptr(), table.data_ptr(),
            table.shape[0], row_bucket, nnz_bucket, index_dtype.itemsize,
-           ptr("offset"), ptr("label"), ptr("weight"), ptr("index"),
-           ptr("value"), ptr("qid"), ptr("field"), ptr("num_rows"),
-           ptr("num_nnz"))
+           *_pointers(out))
     count(round_unpack)
     return out
+
+
+def _pointers(out):
+    """The output pointers in the C entries' order (None: not asked
+    for)."""
+    return [out[k].data_ptr() if k in out else None
+            for k in ("offset", "label", "weight", "index", "value", "qid",
+                      "field", "num_rows", "num_nnz")]
+
+
+class RoundStage:
+    """A page epoch's rounds, one call each, the per-epoch part checked
+    once. ``dev_raw`` is a uint8 buffer of at least the largest round,
+    ``table`` the epoch's round table (int64 ``[rounds, parts,
+    len(ROUND_TABLE_COLUMNS)]``, or one round's ``[parts, ...]``) on the
+    same device, and ``stream`` the stream every call enqueues on (the
+    current one at construction when None).
+
+    Calling it with round ``r``'s bytes (1-D uint8 on the CPU, pinned for
+    an asynchronous copy) copies them into the head of ``dev_raw`` and
+    writes the batch :func:`round_unpack` writes from them, in one fresh
+    allocation made on ``stream`` (views placed by :func:`unpack_layout`)
+    or in ``out``. On the card one C call, ``dmlc_round_stage``,
+    enqueues both the copy and the ``round_unpack`` launch, counted in
+    ``round_unpack.launches``; the caller records the event that
+    releases the host bytes. On the CPU the copy is ``copy_`` and the
+    unpack :func:`round_unpack_plain`. The caller has checked each
+    part's n and nnz against the buckets, as for :func:`round_unpack`.
+    :meth:`outputs` makes several rounds' ``out`` in one allocation."""
+
+    def __init__(self, dev_raw: torch.Tensor, table: torch.Tensor,
+                 row_bucket: int, nnz_bucket: int, stream=None):
+        check(dev_raw.dtype == torch.uint8 and dev_raw.dim() == 1
+              and dev_raw.is_contiguous(),
+              f"RoundStage: dev_raw must be contiguous 1-D uint8, got "
+              f"{tuple(dev_raw.shape)} {dev_raw.dtype}")
+        if table.dim() == 2:
+            table = table.unsqueeze(0)
+        check(table.dim() == 3 and table.is_contiguous()
+              and table.shape[2] == len(ROUND_TABLE_COLUMNS),
+              f"RoundStage: table must be contiguous [rounds, parts, "
+              f"{len(ROUND_TABLE_COLUMNS)}], got {tuple(table.shape)}")
+        _check_inputs(dev_raw, table.view(-1, len(ROUND_TABLE_COLUMNS)),
+                      torch.uint32)
+        self.device = dev_raw.device
+        self.dev_raw, self.table = dev_raw, table
+        self.rounds, self.parts = table.shape[0], table.shape[1]
+        self.row_bucket, self.nnz_bucket = row_bucket, nnz_bucket
+        if self.device.type == "cpu":
+            return
+        check(self.device.type == "cuda",
+              f"RoundStage runs on cuda or cpu, got {self.device}")
+        self.stream = (stream if stream is not None
+                       else torch.cuda.current_stream(self.device))
+        self._table_ptr = table.data_ptr()
+        self._row_bytes = table[0].numel() * table.element_size() \
+            if len(table) else 0
+
+    def outputs(self, plans: Sequence[tuple]) -> List[Dict[str, torch.Tensor]]:
+        """Fresh batches for several rounds in one allocation (on
+        ``stream``), each ``(index_dtype, want_qid, want_field)`` of
+        ``plans`` a dict of :func:`unpack_spec`'s keys, each key at a
+        multiple of ALIGN. A consumer that keeps one keeps the
+        allocation."""
+        layouts = [unpack_layout(self.parts, self.row_bucket,
+                                 self.nnz_bucket, *p) for p in plans]
+        total = sum(t for _, t in layouts)
+        if self.device.type == "cuda" and \
+                torch.cuda.current_stream(self.device) != self.stream:
+            with torch.cuda.stream(self.stream):
+                buf = torch.empty(total, dtype=torch.uint8,
+                                  device=self.device)
+        else:
+            buf = torch.empty(total, dtype=torch.uint8, device=self.device)
+        return _views(buf, layouts)
+
+    def __call__(self, host: torch.Tensor, r: int, index_dtype: torch.dtype,
+                 want_qid: bool = False, want_field: bool = False,
+                 at: int = 0, nbytes: Optional[int] = None,
+                 out: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """Round ``r`` from ``host[at:at + nbytes]`` (all of ``host`` past
+        ``at`` when ``nbytes`` is None), into ``out`` (one of
+        :meth:`outputs`' batches for this round's plan) or fresh
+        tensors."""
+        check(host.device.type == "cpu" and host.dtype == torch.uint8
+              and host.dim() == 1 and host.is_contiguous(),
+              f"RoundStage: host must be contiguous 1-D uint8 on the cpu, "
+              f"got {tuple(host.shape)} {host.dtype} on {host.device}")
+        check(0 <= r < self.rounds, f"RoundStage: round {r} is not one of "
+              f"the table's {self.rounds}")
+        n = host.numel() - at if nbytes is None else nbytes
+        check(0 <= at and at + n <= host.numel()
+              and n <= self.dev_raw.numel(),
+              f"RoundStage: a round of {n} bytes at {at} of a host buffer "
+              f"of {host.numel()} does not fit it or dev_raw's "
+              f"{self.dev_raw.numel()}")
+        rb, nb = self.row_bucket, self.nnz_bucket
+        if self.device.type == "cpu":
+            self.dev_raw[:n].copy_(host[at:at + n])
+            return round_unpack_plain(self.dev_raw[:n], self.table[r], rb,
+                                      nb, index_dtype, want_qid, want_field,
+                                      out)
+        if out is None:
+            out = self.outputs([(index_dtype, want_qid, want_field)])[0]
+        launch("dmlc_round_stage", self.device, host.data_ptr() + at,
+               self.dev_raw.data_ptr(), n,
+               self._table_ptr + r * self._row_bytes, self.parts, rb, nb,
+               index_dtype.itemsize, *_pointers(out), stream=self.stream)
+        count(round_unpack)
+        return out
 
 
 def round_unpack_plain(raw: torch.Tensor, table: torch.Tensor,
@@ -129,12 +287,12 @@ def round_unpack_plain(raw: torch.Tensor, table: torch.Tensor,
     """:func:`round_unpack` in numpy over CPU tensors: each array read
     where the table places it (``np.frombuffer`` reads at any byte),
     written into its part's row, then the neutral tail, as
-    ``stack_padded_rows`` writes them. The outputs own their memory:
-    none aliases ``raw``."""
+    ``stack_padded_rows`` writes them. The outputs own their memory (one
+    allocation, as the kernel's): none aliases ``raw``."""
     rb, nb = row_bucket, nnz_bucket
     _check_inputs(raw, table, index_dtype)
-    out = _outputs(unpack_spec(table.shape[0], rb, nb, index_dtype,
-                               want_qid, want_field), raw.device, out)
+    args = (table.shape[0], rb, nb, index_dtype, want_qid, want_field)
+    out = _outputs(unpack_spec(*args), unpack_layout(*args), raw.device, out)
     buf = raw.numpy()
     o = {k: v.numpy() for k, v in out.items()}
     for i, t in enumerate(table.numpy()):

@@ -230,14 +230,20 @@ def copy_to_device(src: Dict[str, torch.Tensor], device: torch.device,
 
 def wait_copy(batch: DeviceBatch, device: torch.device) -> DeviceBatch:
     """The consumer's side of :func:`copy_to_device`: the current stream
-    of ``device`` waits on the batch's copy, and each tensor is recorded
-    as used by that stream (so the caching allocator does not hand its
-    memory out while the consumer's work is queued). Returns ``batch``."""
+    of ``device`` waits on the batch's copy, and each storage under the
+    batch's tensors is recorded once as used by that stream (so the
+    caching allocator does not hand its memory out while the consumer's
+    work is queued; the raw route's keys are views of one storage).
+    Returns ``batch``."""
     if batch.event is not None:
         consumer = torch.cuda.current_stream(device)
         consumer.wait_event(batch.event)
+        seen = set()
         for t in batch.values():
-            t.record_stream(consumer)
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in seen:
+                seen.add(ptr)
+                t.record_stream(consumer)
     return batch
 
 

@@ -30,9 +30,11 @@ compute-neutral: weight 0, empty; padded nnz: value 0.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 import os
+import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
@@ -55,7 +57,8 @@ __all__ = ["Mesh", "pad_to_bucket", "stack_device_batches",
            "make_global_batch", "make_replicated", "stack_padded_rows",
            "ShardedRowBlockIter", "next_pow2_bucket", "empty_block",
            "ensure_schema", "collective_device", "stage_round",
-           "RawRoundStager"]
+           "RawRoundStager", "PAGE_READERS", "PAGE_GROUP_BYTES",
+           "round_groups"]
 
 
 class Mesh:
@@ -212,83 +215,202 @@ def stage_round(blocks: List[RowBlock], row_bucket: int, nnz_bucket: int,
     return slot
 
 
+# a page epoch's reader threads (RawRoundStager), and the bytes one read
+# of consecutive rounds covers at most (a round of more is read alone)
+PAGE_READERS = 3
+PAGE_GROUP_BYTES = 32 << 20
+
+
+def round_groups(sizes, group_bytes: int) -> List[tuple]:
+    """Consecutive rounds in groups ``(r0, r1)``, each read at once: round
+    0 alone (the epoch's first batch waits on one round's read), then
+    groups of at most twice the bytes of the group before, up to
+    ``group_bytes``, each of at least one round."""
+    groups, r, cap = [], 0, 0
+    while r < len(sizes):
+        r1, total = r + 1, int(sizes[r])
+        while r1 < len(sizes) and total + int(sizes[r1]) <= cap:
+            total += int(sizes[r1])
+            r1 += 1
+        groups.append((r, r1))
+        cap = min(2 * max(total, cap), group_bytes)
+        r = r1
+    return groups
+
+
 class RawRoundStager:
     """The raw route of a page epoch: round r of a committed spill file
     (``data.row_iter.RoundSpillFile``) → a :class:`DeviceBatch` on
-    ``device``, holding ``stack_padded_rows``'s bytes for the round. Its
-    bytes go from the file into a pinned slot of ``staging`` by one read
-    (``read_round_into``), with the round's table rows behind them; one
-    copy takes the slot to a device byte buffer reused round after round;
-    one ``ops.pages.round_unpack`` launch writes the padded batch from
-    it; both run on ``copy_stream`` (the current stream when None), and
-    one event recorded behind them releases the slot and is the batch's
-    ``event`` (the consumer calls ``wait_copy``). On the CPU the slot's
-    bytes go through ``round_unpack_plain`` instead. The batch's
-    ``counts`` come from the table on the host."""
+    ``device``, holding ``stack_padded_rows``'s bytes for the round.
+
+    The rounds' bytes go from the file into pinned slots of ``staging``
+    on PAGE_READERS reader threads (``RoundReadAhead``), a group of
+    consecutive rounds (:func:`round_groups`, up to PAGE_GROUP_BYTES) a
+    read, PAGE_READERS groups ahead of the round being staged, so a
+    reader takes the GIL from the serve thread a few times a group, not
+    a round (``staging`` holds a slot for each). Staging round r is one call of an ``ops.pages.RoundStage``
+    made for the epoch: the copy of its bytes to a device byte buffer
+    reused round after round and one ``round_unpack`` launch that writes
+    the padded batch from it, both enqueued on ``copy_stream`` (the
+    current stream at construction when None) by one C call. The
+    batches of a group's rounds are views of one fresh allocation, made
+    by the reader after its read (a round whose keys differ from those
+    asked for when the read started gets its own); none is ever reused.
+    One event recorded behind them is the batch's ``event`` (the
+    consumer calls ``wait_copy``); the last round's releases its
+    group's slot. The round table goes to the
+    device once, at construction; each round's counts, index dtype,
+    bucket checks and schema are taken from it then too. A read's error
+    (a truncated or rewritten file) is raised at its round. On the CPU
+    the same bytes go through ``round_unpack_plain``. Rounds must be
+    asked for in order, 0, 1, …; :meth:`close` stops the readers."""
 
     def __init__(self, pages, device: torch.device, row_bucket: int,
                  nnz_bucket: int, staging: HostStaging, copy_stream=None):
-        from dmlc_tpu_torch.data.row_iter import ROUND_TABLE_COLUMNS
+        from dmlc_tpu_torch.data.row_iter import (ROUND_TABLE_COLUMNS,
+                                                  RoundReadAhead)
+        from dmlc_tpu_torch.ops.pages import INDEX_DTYPES, RoundStage
+        col = {c: i for i, c in enumerate(ROUND_TABLE_COLUMNS)}
         self.pages = pages
         self.table = pages.table
         self.device = device
         self.row_bucket, self.nnz_bucket = row_bucket, nnz_bucket
         self.staging = staging
         self.copy_stream = copy_stream
-        self._col = {c: i for i, c in enumerate(ROUND_TABLE_COLUMNS)}
-        # the slot: the largest round's bytes, then (8-aligned) the
-        # round's table rows
-        self._table_at = (self.table.max_size + 7) // 8 * 8
-        row_bytes = self.table.blocks[0].nbytes if len(self.table.blocks) \
-            else 0
-        self._spec = {"raw": ((self._table_at + row_bytes,),
-                              np.dtype(np.uint8))}
-        self._scratch: Optional[torch.Tensor] = None
+        blocks = self.table.blocks
+        n, nnz = blocks[:, :, col["n"]], blocks[:, :, col["nnz"]]
+        flags = blocks[:, :, col["flags"]]
+        # (rows, nnz), the bucket checks, the index dtype and the schema
+        # (carries qid, carries field) of each round
+        self._counts = list(zip(n.sum(1).tolist(), nnz.sum(1).tolist()))
+        self._fits = list(zip((n.max(1, initial=0) <= row_bucket).tolist(),
+                              (nnz.max(1, initial=0) <= nnz_bucket).tolist()))
+        self._index_dtype = [INDEX_DTYPES[b] for b in
+                             blocks[:, 0, col["index_bytes"]].tolist()]
+        self._schema = list(zip((flags & 4).any(1).tolist(),
+                                (flags & 8).any(1).tolist()))
+        self._groups = round_groups(self.table.size, PAGE_GROUP_BYTES)
+        # a slot holds a group's rounds back to back; a raw group spans
+        # its rounds' bytes in the file
+        spans = [int(self.table.start[r1 - 1] + self.table.size[r1 - 1]
+                     - self.table.start[r0]) if not self.table.coded
+                 else int(self.table.size[r0:r1].sum())
+                 for r0, r1 in self._groups]
+        self._spec = {"raw": ((max(spans, default=0),), np.dtype(np.uint8))}
+        # on the copy stream, where they are used: the allocator then
+        # reuses neither while a copy or launch of it is pending
+        with torch.cuda.stream(copy_stream) if copy_stream is not None \
+                else contextlib.nullcontext():
+            self._table = torch.from_numpy(blocks).to(device)
+            self._raw = torch.empty(self.table.max_size, dtype=torch.uint8,
+                                    device=device)
+        self._stage = RoundStage(self._raw, self._table, row_bucket,
+                                 nnz_bucket, copy_stream)
+        self._stream = getattr(self._stage, "stream", None)
+        self._outputs = self._stage.outputs
+        self.readers = PAGE_READERS
+        self._reads = RoundReadAhead(pages, self.readers)
+        # group → (slot, the keys its batches were planned with, its read)
+        self._pending: Dict[int, Any] = {}
+        self._next_read = 0   # the next group to read
+        self._next_group = 0  # ... to stage
+        self._next_round = 0
+        # the group being staged: (slot, spans, error, r0, r1, its
+        # batches, their keys), and the event behind its last copy
+        self._group = None
+        self._event = None
+        # a call and close() (from the consumer's thread, while an
+        # abandoned epoch's serve thread may still be in a call) take
+        # turns
+        self._lock = threading.Lock()
+        self._closed = False
 
     def schema(self, r: int):
         """(whether a block of round r carries qid, ... field)."""
-        flags = self.table.blocks[r][:, self._col["flags"]]
-        return bool((flags & 4).any()), bool((flags & 8).any())
+        return self._schema[r]
+
+    def _read_ahead(self, last: int, flags: tuple) -> None:
+        """Start the reads of every group up to ``last`` not yet started,
+        each into a slot of its own; the reader that reads a group then
+        makes its rounds' batches in one allocation, each planned with
+        ``flags`` (want_qid, want_field), off the serve thread."""
+        while self._next_read <= min(last, len(self._groups) - 1):
+            slot = self.staging.acquire(self._spec)
+            r0, r1 = self._groups[self._next_read]
+
+            def outputs(spans, plan=self._index_dtype[r0:r1]):
+                return self._outputs([(dt,) + flags
+                                      for dt in plan[:len(spans)]])
+
+            self._pending[self._next_read] = (slot, flags, self._reads.submit(
+                r0, r1, slot["raw"].numpy(), outputs))
+            self._next_read += 1
+
+    def _take_group(self, flags: tuple) -> None:
+        """Wait for the next group's read and make it the current one."""
+        g = self._next_group
+        self._next_group += 1
+        self._read_ahead(g + self.readers, flags)
+        slot, planned, read = self._pending.pop(g)
+        try:
+            spans, error, outs = read.result()
+        except BaseException:
+            self.staging.release(slot)
+            raise
+        self._group = (slot, spans, error) + self._groups[g] + (outs,
+                                                                planned)
 
     def __call__(self, r: int, want_qid: bool,
                  want_field: bool) -> DeviceBatch:
-        from dmlc_tpu_torch.ops.pages import INDEX_DTYPES, round_unpack
-        rows = self.table.blocks[r]
-        n, nnz = rows[:, self._col["n"]], rows[:, self._col["nnz"]]
-        check(int(n.max()) <= self.row_bucket, "row bucket too small")
-        check(int(nnz.max()) <= self.nnz_bucket, "nnz bucket too small")
-        index_dtype = INDEX_DTYPES[int(rows[0, self._col["index_bytes"]])]
-        slot = self.staging.acquire(self._spec)
-        host = slot["raw"]
-        view = host.numpy()
-        size = self.pages.read_round_into(r, view)
-        at, end = self._table_at, self._table_at + rows.nbytes
-        view[at:end] = rows.reshape(-1).view(np.uint8)
-        args = (self.row_bucket, self.nnz_bucket, index_dtype, want_qid,
-                want_field)
-        if self.device.type != "cuda":
-            batch = DeviceBatch(round_unpack(
-                host[:size], host[at:end].view(torch.int64).view(
-                    rows.shape), *args))
-            self.staging.release(slot)
-        else:
-            stream = (self.copy_stream if self.copy_stream is not None
-                      else torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(stream):
-                if self._scratch is None:
-                    self._scratch = torch.empty(host.numel(),
-                                                dtype=torch.uint8,
-                                                device=self.device)
-                dev = self._scratch
-                dev[:end].copy_(host[:end], non_blocking=True)
-                batch = DeviceBatch(round_unpack(
-                    dev[:size], dev[at:end].view(torch.int64).view(
-                        rows.shape), *args))
-                batch.event = torch.cuda.Event()
-                batch.event.record(stream)
-            self.staging.release(slot, batch.event)
-        batch.counts = (int(n.sum()), int(nnz.sum()))
+        with self._lock:
+            check(not self._closed, "RawRoundStager: closed")
+            return self._stage_round(r, want_qid, want_field)
+
+    def _stage_round(self, r: int, want_qid: bool,
+                     want_field: bool) -> DeviceBatch:
+        check(r == self._next_round, f"RawRoundStager: round {r} asked "
+              f"for where round {self._next_round} is next")
+        self._next_round += 1
+        if self._group is None:
+            self._take_group((want_qid, want_field))
+        slot, spans, error, r0, r1, outs, flags = self._group
+        if r - r0 >= len(spans):
+            self._drop_group()
+            raise error  # the read's error, at its round
+        fits_rows, fits_nnz = self._fits[r]
+        check(fits_rows, "row bucket too small")
+        check(fits_nnz, "nnz bucket too small")
+        at, size = spans[r - r0]
+        # a key that first appears inside the group: this round alone
+        out = outs[r - r0] if flags == (want_qid, want_field) else None
+        batch = DeviceBatch(self._stage(slot["raw"], r, self._index_dtype[r],
+                                        want_qid, want_field, at, size, out))
+        if self.device.type == "cuda":
+            batch.event = self._event = torch.cuda.Event()
+            batch.event.record(self._stream)
+        if r == r1 - 1:
+            self._drop_group()
+        batch.counts = self._counts[r]
         return batch
+
+    def _drop_group(self) -> None:
+        """Release the current group's slot behind its last copy."""
+        if self._group is not None:
+            self.staging.release(self._group[0], self._event)
+            self._group = self._event = None
+
+    def close(self) -> None:
+        """Stop the readers and hand back the slots not released, once a
+        call in progress has ended; a later call raises."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._reads.close()
+            self._drop_group()
+            for slot, _, _ in self._pending.values():
+                self.staging.release(slot)
+            self._pending.clear()
 
 
 def make_replicated(tree, mesh: Mesh):
@@ -823,12 +945,15 @@ class ShardedRowBlockIter:
         on_cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if on_cuda else None
         work = [0.0, 0.0]  # wall, thread CPU
+        stager = None
         if pages is not None:
             # the raw route's outputs never alias its slots: a slot is
-            # reused on the CPU too
+            # reused on the CPU too; the pool holds a slot for each read
+            # ahead besides those in copy
             stager = RawRoundStager(
                 pages, device, self.row_bucket, self.nnz_bucket,
-                HostStaging(self.prefetch_depth + 1, pin=on_cuda),
+                HostStaging(self.prefetch_depth + 1 + PAGE_READERS,
+                            pin=on_cuda),
                 copy_stream)
             rounds = iter(range(pages.rounds))
 
@@ -853,13 +978,17 @@ class ShardedRowBlockIter:
                                          copy_stream=copy_stream,
                                          staged=True)
 
+        primed = []
+
         def produce():
             w0, c0 = time.perf_counter(), time.thread_time()
-            if on_cuda:
-                with torch.cuda.device(device):
-                    batch = stage()
-            else:
-                batch = stage()
+            if on_cuda and not primed:
+                # this thread serves the epoch alone: its card, and its
+                # copy stream as its current stream, once
+                torch.cuda.set_device(device)
+                torch.cuda.set_stream(copy_stream)
+                primed.append(True)
+            batch = stage()
             work[0] += time.perf_counter() - w0
             work[1] += time.thread_time() - c0
             return batch
@@ -877,6 +1006,8 @@ class ShardedRowBlockIter:
                                      work_s=round(work[0], 6),
                                      work_cpu_s=round(work[1], 6))
             ti.destroy()
+            if stager is not None:
+                stager.close()
 
     def _steady_stream(self) -> Iterator[List[RowBlock]]:
         """Epochs 2+: replay the agreed round count with ZERO

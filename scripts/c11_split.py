@@ -10,15 +10,31 @@ budget through two parse epochs and then times:
 
 - three page epochs with a synchronise after each batch (as config 10)
   and three without, each with the serve thread's stats;
+- page epochs with a synchronise after each batch at each reader count
+  in turns (``sharded.PAGE_READERS`` set to each of READER_ORDER in
+  that order, READER_EPOCHS epochs each time, groups of
+  ``PAGE_GROUP_BYTES``), with each count's median; then three at each
+  read's byte cap of GROUP_BYTES (``sharded.PAGE_GROUP_BYTES``; 1 reads
+  a round at a time) with ``PAGE_READERS`` readers; each with the last
+  epoch's serve thread stats;
 - the same ``RawRoundStager`` driven on this thread over every round,
-  three times, its seconds split into the slot's acquire, the read
-  (``read_round_into``) and the ``round_unpack`` wrapper (allocation,
-  checks, launch), and the total;
+  three times with read-ahead on (``PAGE_READERS`` readers) and three
+  with its reads made on this thread (a stand-in for its readers that
+  reads each group when it is asked for), its seconds split into the
+  slots' acquire, the read (on this thread, or the wait for a
+  reader's), the allocation of a group's batches (one allocation, the
+  views; the reader's with read-ahead on, so inside the wait), the
+  epoch's ``RoundStage`` call (the copy's and the launch's enqueue in
+  one C call) and the total; the total less the read, a round, is the
+  stager's host time excluding the reads;
 - the reads alone: into one pinned buffer, into three in turn, into a
   pageable one, by ``os.preadv`` into three pinned buffers, and by
   ``os.preadv`` split over 2 and 4 threads;
 - three host memcpy gauges (``bench_transfer.memcpy_gauge``);
-- ``round_unpack``'s device µs at the shape's first round (profiler).
+- ``round_unpack``'s device µs at the shape's first round (profiler);
+- one cold page epoch (``chip_smoke.cold_page_epoch``: the page file
+  dropped from the host's page cache first), with a synchronise after
+  each batch.
 
 It prints one JSON line a shape and, last, one with both and the card.
 """
@@ -29,10 +45,15 @@ import shutil
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
+from statistics import median
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((1 << 14, 1 << 19, 1), (8192, 368640, 4))  # rows, nnz, parts
+# each reader count three times, in balanced turns
+READER_ORDER = (1, 3, 2, 4, 4, 2, 3, 1, 1, 3, 2, 4)
+READER_EPOCHS = 8
+GROUP_BYTES = (1, 8 << 20)
 
 
 def _timed(name, fn, tm):
@@ -41,8 +62,41 @@ def _timed(name, fn, tm):
         out = fn(*a, **k)
         tm[name] += time.perf_counter() - t0
         return out
-    g.launches = 0  # stands in for round_unpack, whose count it takes
     return g
+
+
+class _Inline:
+    """The stager's readers replaced by reads on the calling thread, each
+    group read when ``submit`` is called, its read timed in
+    ``tm["read"]``."""
+
+    def __init__(self, f, tm):
+        self.f, self.tm = f, tm
+
+    def submit(self, r0, r1, buf, after):
+        t0 = time.perf_counter()
+        spans, error = self.f.read_rounds_into(r0, r1, buf)
+        self.tm["read"] += time.perf_counter() - t0
+        done = Future()
+        done.set_result((spans, error, after(spans)))
+        return done
+
+    def close(self):
+        pass
+
+
+class _Waited:
+    """A read's Future whose ``result()`` adds its wait to ``tm["read"]``."""
+
+    def __init__(self, fut, tm):
+        self.fut, self.tm = fut, tm
+
+    def result(self):
+        t0 = time.perf_counter()
+        try:
+            return self.fut.result()
+        finally:
+            self.tm["read"] += time.perf_counter() - t0
 
 
 def shape(c, path, work, dev, rb, nb, parts):
@@ -52,7 +106,10 @@ def shape(c, path, work, dev, rb, nb, parts):
     from dmlc_tpu_torch.bench_transfer import memcpy_gauge
     from dmlc_tpu_torch.ops import pages
     from dmlc_tpu_torch.parallel.device_iter import HostStaging, wait_copy
-    from dmlc_tpu_torch.parallel.sharded import (Mesh, RawRoundStager,
+    from dmlc_tpu_torch.parallel import sharded
+    from dmlc_tpu_torch.parallel.sharded import (PAGE_GROUP_BYTES,
+                                                 PAGE_READERS, Mesh,
+                                                 RawRoundStager,
                                                  ShardedRowBlockIter)
     key = f"{parts}x{rb}"
     mesh = Mesh((parts,), ("data",), device=dev)
@@ -79,29 +136,67 @@ def shape(c, path, work, dev, rb, nb, parts):
     rounds = f.rounds
     r["rounds"], r["max_size"] = rounds, f.table.max_size
 
-    # the stager on this thread, its parts timed
-    pool = HostStaging(3, pin=True)
-    st = RawRoundStager(f, dev, rb, nb, pool, torch.cuda.Stream(dev))
-    tm = {"acquire": 0.0, "read": 0.0, "unpack": 0.0}
-    orig = (pool.acquire, f.read_round_into, pages.round_unpack)
-    pool.acquire = _timed("acquire", orig[0], tm)
-    f.read_round_into = _timed("read", orig[1], tm)
-    pages.round_unpack = _timed("unpack", orig[2], tm)
-    manual = []
+    # page epochs at each reader count in turns, then at each group cap
     try:
-        for _ in range(3):
-            for k in tm:
-                tm[k] = 0.0
-            t0 = time.perf_counter()
-            for i in range(rounds):
-                wait_copy(st(i, False, False), dev)
-            torch.cuda.synchronize(dev)
-            manual.append(dict({k: round(v, 4) for k, v in tm.items()},
-                               total=round(time.perf_counter() - t0, 4)))
+        for k in READER_ORDER:
+            sharded.PAGE_READERS = k
+            r.setdefault(f"pages_readers{k}", []).extend(
+                epoch() for _ in range(READER_EPOCHS))
+            r[f"serve_readers{k}"] = it._serve_stats
+        r["readers_median_s"] = {
+            k: median(r[f"pages_readers{k}"]) for k in sorted(
+                set(READER_ORDER))}
+        sharded.PAGE_READERS = PAGE_READERS
+        for g in GROUP_BYTES:
+            sharded.PAGE_GROUP_BYTES = g
+            r[f"pages_group{g}"] = [epoch() for _ in range(3)]
+            r[f"serve_group{g}"] = it._serve_stats
     finally:
-        pool.acquire, f.read_round_into, pages.round_unpack = orig
+        sharded.PAGE_READERS = PAGE_READERS
+        sharded.PAGE_GROUP_BYTES = PAGE_GROUP_BYTES
+
+    # the stager on this thread, with read-ahead and with its reads on
+    # this thread, its parts timed
+    pool = HostStaging(3 + PAGE_READERS, pin=True)
+    stream = torch.cuda.Stream(dev)
+    tm = {"acquire": 0.0, "read": 0.0, "alloc": 0.0, "stage": 0.0}
+    pool.acquire = _timed("acquire", pool.acquire, tm)
+    try:
+        for name in ("manual", "manual_inline"):
+            runs = []
+            for _ in range(3):
+                st = RawRoundStager(f, dev, rb, nb, pool, stream)
+                st._stage = _timed("stage", st._stage, tm)
+                st._outputs = _timed("alloc", st._outputs, tm)
+                if name == "manual_inline":
+                    st._reads.close()
+                    st._reads = _Inline(f, tm)
+                else:
+                    submit = st._reads.submit
+                    st._reads.submit = (lambda r0, r1, buf, after,
+                                        submit=submit:
+                                        _Waited(submit(r0, r1, buf, after),
+                                                tm))
+                for k in tm:
+                    tm[k] = 0.0
+                t0 = time.perf_counter()
+                try:
+                    with torch.cuda.stream(stream):
+                        for i in range(rounds):
+                            wait_copy(st(i, False, False), dev)
+                    torch.cuda.synchronize(dev)
+                finally:
+                    st.close()
+                total = time.perf_counter() - t0
+                runs.append(dict(
+                    {k: round(v, 4) for k, v in tm.items()},
+                    total=round(total, 4),
+                    host_us_a_round=round(
+                        (total - tm["read"]) / rounds * 1e6, 1)))
+            r[name] = runs
+    finally:
         f.close()
-    r["manual"] = manual
+    r["page_readers"], r["page_group_bytes"] = PAGE_READERS, PAGE_GROUP_BYTES
 
     # the reads alone
     bufs = [torch.empty(f.table.max_size, dtype=torch.uint8,
@@ -160,6 +255,7 @@ def shape(c, path, work, dev, rb, nb, parts):
         lambda: [pages.round_unpack(raw, table, *args, out=out)
                  for _ in range(50)], 50, {"round_unpack_kernel": 1})
     r["kernel_us"] = {k[:60]: v for k, v in by.items()}
+    r["cold"] = c.cold_page_epoch(f.path, epoch)
     it.close()
     print(json.dumps({key: r}), flush=True)
     return key, r

@@ -229,3 +229,374 @@ def test_read_round_into_refuses_a_changed_or_short_file(tmp_path):
         RoundTable.scan(f.path, f.nparts, f.rounds + 1)
     assert RoundTable.scan(f.path, f.nparts, f.rounds) == t
     os.remove(f.path)
+
+
+# ------------------------------------------------------- read-ahead stager
+
+def _many_rounds(g, rounds=12, parts=4):
+    """Seeded rounds of ``parts`` blocks each, some of them empty pads,
+    with every optional array somewhere, u32 indices throughout."""
+    out = []
+    for r in range(rounds):
+        row = []
+        for p in range(parts):
+            n = int(g.randint(0, RB + 1))
+            row.append(_empty() if (r + p) % 5 == 4 else _arrays(
+                g, n, weight=bool(g.randint(2)), qid=True,
+                field=bool(g.randint(2))))
+        out.append(row)
+    return out
+
+
+def _stager_file(tmp_path, level, seed=11):
+    """The port's and the reference's spill files of ``_many_rounds``,
+    and the reference's stacked batch a round (qid and field asked
+    for)."""
+    rounds = _many_rounds(np.random.RandomState(seed))
+    port = str(tmp_path / f"port{level}" / "r.pages")
+    ref = str(tmp_path / f"ref{level}" / "r.pages")
+    w = RoundSpillWriter(port, 4, {"k": "many"}, codec_level=level)
+    rw = RefSpillWriter(ref, 4, {"k": "many"}, codec_level=level)
+    for row in rounds:
+        w.add_row([RowBlock(**a) for a in row])
+        rw.add_row([RefRowBlock(**a) for a in row])
+    f = w.commit()
+    want = [ref_stack(row, RB, NB, True, True)
+            for row in RefSpillFile(rw.commit().path, 4,
+                                    len(rounds)).iter_rows()]
+    return f, want
+
+
+def _stager(monkeypatch, f, readers, group_bytes=1):
+    """A CPU stager over ``f`` with ``readers`` page readers (the
+    module's PAGE_READERS) reading groups of up to ``group_bytes``
+    (PAGE_GROUP_BYTES; 1 reads a round at a time)."""
+    from dmlc_tpu_torch.parallel import sharded
+    from dmlc_tpu_torch.parallel.device_iter import HostStaging
+    monkeypatch.setattr(sharded, "PAGE_READERS", readers)
+    monkeypatch.setattr(sharded, "PAGE_GROUP_BYTES", group_bytes)
+    return sharded.RawRoundStager(f, torch.device("cpu"), RB, NB,
+                                  HostStaging(3 + readers), None)
+
+
+@pytest.mark.parametrize("group_bytes", [1, 2000])
+@pytest.mark.parametrize("level", [0, 6])
+@pytest.mark.parametrize("readers", [1, 2, 3, 4])
+def test_read_ahead_gives_each_round_in_order(tmp_path, monkeypatch, level,
+                                              readers, group_bytes):
+    """RawRoundStager with 1, 2, 3 (the default) and 4 reader threads,
+    over a 12-round spill file (raw and codec-paged), a round a read or
+    groups of rounds up to 2000 bytes:
+    every round's batch is the reference's
+    stack_padded_rows's, byte for byte, and the batches come in round
+    order although the reads end out of order (each read is held back
+    by a seeded delay, longer for earlier rounds)."""
+    import time
+    from dmlc_tpu_torch.parallel.sharded import round_groups
+    f, want = _stager_file(tmp_path, level)
+    groups = round_groups(f.table.size, group_bytes)
+    assert (len(groups) == f.rounds) == (group_bytes == 1)
+    delay = np.random.RandomState(readers).rand(f.rounds) * 0.004
+    read = RoundSpillFile.read_rounds_into
+    ended = []
+
+    def slow_read(self, r0, r1, buf, stream=None):
+        time.sleep(delay[r0] + 0.002 * (f.rounds - r0) / f.rounds)
+        out = read(self, r0, r1, buf, stream)
+        ended.append(r0)
+        return out
+
+    monkeypatch.setattr(RoundSpillFile, "read_rounds_into", slow_read)
+    st = _stager(monkeypatch, f, readers, group_bytes)
+    try:
+        got = [st(r, True, True) for r in range(f.rounds)]
+    finally:
+        st.close()
+    assert len(got) == len(want) == 12
+    for r, (g, w) in enumerate(zip(got, want)):
+        _same_bytes(g, w, (level, readers, r))
+        assert g.counts == (int(w["num_rows"].sum()),
+                            int(w["num_nnz"].sum()))
+    assert sorted(ended) == [r0 for r0, _ in groups]
+    if readers > 1 and group_bytes == 1:
+        assert ended != sorted(ended)  # the reads did end out of order
+    assert st.staging.in_flight == 0
+    with pytest.raises(DMLCError, match="round 3 asked for"):
+        _stager(monkeypatch, f, readers)(3, True, True)
+
+
+def test_round_groups():
+    """Round 0 alone, then consecutive rounds in groups of at most twice
+    the bytes of the group before, up to the byte cap; a round past the
+    cap alone."""
+    from dmlc_tpu_torch.parallel.sharded import round_groups
+    assert round_groups([5, 3, 3, 3, 9, 2, 1], 7) == [
+        (0, 1), (1, 3), (3, 4), (4, 5), (5, 7)]
+    assert round_groups([4] * 12, 64) == [(0, 1), (1, 3), (3, 7), (7, 12)]
+    assert round_groups([4] * 12, 12) == [(0, 1), (1, 3), (3, 6), (6, 9),
+                                          (9, 12)]
+    assert round_groups([5, 3, 3], 1) == [(0, 1), (1, 2), (2, 3)]
+    assert round_groups([], 8) == []
+
+
+def test_the_stager_reads_ahead_and_closes_its_readers(tmp_path,
+                                                       monkeypatch):
+    """The stager keeps ``readers`` groups read ahead of the group it
+    stages, no more, each in a slot of its own, hands every slot back,
+    and close() stops its reader threads."""
+    import threading
+    f, _ = _stager_file(tmp_path, 0)
+    started = []
+    st = _stager(monkeypatch, f, 3)
+    submit = st._reads.submit
+    st._reads.submit = (lambda r0, r1, buf, after: started.append(r0)
+                        or submit(r0, r1, buf, after))
+    for r in range(5):
+        st(r, True, True)
+        assert started == list(range(min(r + 4, f.rounds)))
+    st.close()
+    assert st.staging.in_flight == 0
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("spill.read") and t.is_alive()]
+
+
+def test_close_waits_for_a_call_in_progress(tmp_path, monkeypatch):
+    """close() from another thread while a call waits on its round's read
+    (an abandoned epoch's serve thread) lets that call end first, hands
+    every slot back, and a later call raises."""
+    import threading
+    f, want = _stager_file(tmp_path, 0)
+    entered, gate = threading.Event(), threading.Event()
+    read = RoundSpillFile.read_rounds_into
+
+    def held_read(self, r0, r1, buf, stream=None):
+        entered.set()
+        gate.wait(10)
+        return read(self, r0, r1, buf, stream)
+
+    monkeypatch.setattr(RoundSpillFile, "read_rounds_into", held_read)
+    st = _stager(monkeypatch, f, 2)
+    got = []
+    call = threading.Thread(target=lambda: got.append(st(0, True, True)))
+    call.start()
+    assert entered.wait(10)  # the call holds the stager, waiting on a read
+    closer = threading.Thread(target=st.close)
+    closer.start()
+    closer.join(0.3)
+    assert closer.is_alive() and not got  # close waits for the call
+    gate.set()
+    call.join(10)
+    closer.join(10)
+    assert not closer.is_alive() and len(got) == 1
+    _same_bytes(got[0], want[0], "closed")
+    assert st.staging.in_flight == 0
+    with pytest.raises(DMLCError, match="closed"):
+        st(1, True, True)
+
+
+@pytest.mark.parametrize("change", ["truncated", "rewritten"])
+@pytest.mark.parametrize("level", [0, 6])
+def test_a_group_read_raises_at_the_changed_round(tmp_path, monkeypatch,
+                                                  level, change):
+    """One read of a group of rounds over a file cut short inside round 7,
+    or whose round 7 was rewritten, gives the rounds before it whole and
+    raises the round's DMLCError at round 7, after their batches."""
+    f, want = _stager_file(tmp_path, level)
+    data = open(f.path, "rb").read()
+    at = int(f.table.start[7])
+    if change == "truncated":
+        data, match = data[:at + 10], "truncated page stream"
+    else:
+        data = data[:at] + b"XXXX" + data[at + 4:]
+        match = "round 7's pages do not match its table"
+    with open(f.path, "wb") as out:
+        out.write(data)
+    st = _stager(monkeypatch, f, 2, group_bytes=1 << 20)
+    # round 7 is read with rounds before it, by one read
+    assert [g for g in st._groups if g[0] < 7 < g[1]]
+    got = []
+    with pytest.raises(DMLCError, match=match):
+        for r in range(f.rounds):
+            got.append(st(r, True, True))
+    st.close()
+    assert len(got) == 7 and st.staging.in_flight == 0
+    for r, (g, w) in enumerate(zip(got, want)):
+        _same_bytes(g, w, (level, change, r))
+
+
+def _page_iter(tmp_path, monkeypatch, readers, rows=150, group_bytes=1,
+               **kw):
+    """A ShardedRowBlockIter over 4 CPU parts of a seeded libsvm file,
+    past a tiny replay budget (so its third epoch is a page epoch), with
+    ``readers`` page readers reading groups of up to ``group_bytes`` (1:
+    a round a read); and its parse epoch's batches, copied."""
+    from dmlc_tpu_torch.parallel import sharded
+    from dmlc_tpu_torch.parallel.sharded import Mesh, ShardedRowBlockIter
+    monkeypatch.setattr(sharded, "PAGE_READERS", readers)
+    monkeypatch.setattr(sharded, "PAGE_GROUP_BYTES", group_bytes)
+    p = tmp_path / "d.libsvm"
+    rng = np.random.RandomState(29)
+    p.write_bytes(b"".join(
+        f"{i % 2} qid:{i // 4} ".encode() + b" ".join(
+            f"{j}:{rng.rand():.6f}".encode() for j in sorted(
+                rng.choice(60, int(rng.randint(1, 9)), replace=False)))
+        + b"\n" for i in range(rows)))
+    it = ShardedRowBlockIter(str(p), Mesh((4,), ("data",), device="cpu"),
+                             format="libsvm", row_bucket=4, nnz_bucket=32,
+                             agreement_cache_bytes=256,
+                             first_epoch_cache="never",
+                             spill_dir=str(tmp_path / "spill"), **kw)
+    parse = [{k: v.numpy().copy() for k, v in b.items()} for b in it]
+    again = [{k: v.numpy().copy() for k, v in b.items()} for b in it]
+    _same_epochs(again, parse)
+    assert it._round_store.tier == "pages" and it.raw_page_epochs == 0
+    return it, parse
+
+
+def _same_epochs(got, want):
+    assert len(got) == len(want) > 0
+    for r, (g, w) in enumerate(zip(got, want)):
+        assert sorted(g) == sorted(w), r
+        for k in w:
+            a = g[k].numpy() if isinstance(g[k], torch.Tensor) else g[k]
+            assert a.dtype == w[k].dtype and a.shape == w[k].shape, (r, k)
+            assert a.tobytes() == w[k].tobytes(), (r, k)
+
+
+@pytest.mark.parametrize("group_bytes", [1, 1 << 20])
+@pytest.mark.parametrize("readers", [1, 2, 4])
+def test_page_epochs_keep_every_batch(tmp_path, monkeypatch, readers,
+                                      group_bytes):
+    """Page epochs with 1, 2 and 4 readers, a round a read or groups of
+    rounds, give the parse epoch's batches in order; a list of all of an
+    epoch's batches, kept through the next page epoch, still holds each
+    round's bytes (no output is reused); and each batch's tensors are
+    views of one storage, each key at a multiple of 256 bytes."""
+    it, parse = _page_iter(tmp_path, monkeypatch, readers,
+                           group_bytes=group_bytes)
+    kept = list(it)
+    assert it.replay_tier == "pages" and it.raw_page_epochs == 1
+    _same_epochs(list(it), parse)
+    assert it.raw_page_epochs == 2
+    _same_epochs(kept, parse)
+    for b in kept:
+        assert len({t.untyped_storage().data_ptr() for t in b.values()}) == 1
+        assert all(t.is_contiguous()
+                   and t.storage_offset() * t.element_size() % 256 == 0
+                   for t in b.values())
+    it.close()
+
+
+@pytest.mark.parametrize("change", ["truncated", "rewritten"])
+def test_a_spill_file_changed_mid_epoch_raises_at_its_round(tmp_path,
+                                                            monkeypatch,
+                                                            change):
+    """A spill file cut short or rewritten in its last round while a page
+    epoch runs (4 readers ahead, a round a read) raises the DMLCError of
+    its round on the consumer's thread, after every earlier round's
+    batch, and the epoch does not fall back to the parse."""
+    it, parse = _page_iter(tmp_path, monkeypatch, 4, rows=240)
+    f = it._round_store.file
+    rounds = f.rounds
+    assert rounds >= 12
+    last = int(f.table.start[-1])
+    got, pages = [], iter(it)
+    got.append({k: v.numpy().copy() for k, v in next(pages).items()})
+    if change == "truncated":
+        with open(f.path, "r+b") as out:
+            out.truncate(last + 3)
+        match = "truncated page stream"
+    else:
+        with open(f.path, "r+b") as out:
+            out.seek(last)
+            out.write(b"XXXX")
+        match = "do not match its table"
+    with pytest.raises(DMLCError, match=match):
+        for b in pages:
+            got.append({k: v.numpy().copy() for k, v in b.items()})
+    assert len(got) == rounds - 1
+    _same_epochs(got, parse[:rounds - 1])
+    assert it.replay_tier == "pages" and it.raw_page_epochs == 1
+    it.close()
+
+
+@pytest.mark.parametrize("readers", [1, 4])
+def test_read_faults_retry_to_the_same_bytes(tmp_path, monkeypatch, readers):
+    """A seeded fault plan failing page reads (``io.stream.read``: the
+    first two reads, then one in five) is retried by the readers' own
+    streams, and the page epoch still gives the parse epoch's bytes."""
+    from dmlc_tpu_torch.resilience import inject
+    it, parse = _page_iter(tmp_path, monkeypatch, readers)
+    plan = inject.install("site=io.stream.read,fault=ioerror,times=2;"
+                          "site=io.stream.read,fault=ioerror,nth=5",
+                          seed=17)
+    try:
+        got = [{k: v.numpy().copy() for k, v in b.items()} for b in it]
+    finally:
+        inject.uninstall()
+    assert plan.injected == 3
+    _same_epochs(got, parse)
+    assert it.replay_tier == "pages" and it.raw_page_epochs == 1
+    it.close()
+
+
+def test_round_stage_on_cpu_copies_then_unpacks(tmp_path):
+    """A ``RoundStage`` call on a CPU buffer copies the round's bytes into
+    it and gives the plain version's batch (views of one storage), counts
+    no launch, and refuses a host round that is not 1-D uint8, a buffer
+    too small and a round the table does not hold."""
+    f, _, _ = _write(tmp_path, "every_optional", seed=3)
+    buf = np.zeros(f.table.max_size, np.uint8)
+    size = f.read_round_into(0, buf)
+    host = torch.from_numpy(buf[:size])
+    table = torch.from_numpy(f.table.blocks[0].copy())
+    raw = torch.full((size + 5,), 9, dtype=torch.uint8)
+    before = pages.round_unpack.launches
+    stage = pages.RoundStage(raw, table, RB, NB)
+    got = stage(host, 0, torch.uint32, True, True)
+    want = pages.round_unpack_plain(host, table, RB, NB, torch.uint32, True,
+                                    True)
+    assert raw[:size].numpy().tobytes() == buf[:size].tobytes()
+    assert pages.round_unpack.launches == before
+    _same_bytes(got, {k: v.numpy() for k, v in want.items()}, "stage")
+    assert len({t.untyped_storage().data_ptr() for t in got.values()}) == 1
+    keys, total = pages.unpack_layout(2, RB, NB, torch.uint32, True, True)
+    assert [k for k, *_ in keys] == list(want)
+    assert all(a % 256 == 0 for _, a, *_ in keys)
+    assert total >= sum(n for _, _, n, *_ in keys)
+    with pytest.raises(DMLCError, match="does not fit it or dev_raw's"):
+        pages.RoundStage(raw[:size - 1], table, RB, NB)(
+            host, 0, torch.uint32, True, True)
+    with pytest.raises(DMLCError, match="host must be"):
+        stage(raw.view(torch.int8), 0, torch.uint32, True, True)
+    for r in (1, -1):
+        with pytest.raises(DMLCError, match="is not one of the table's 1"):
+            stage(host, r, torch.uint32, True, True)
+    f.close()
+
+
+def test_a_key_appearing_inside_a_group_gets_its_own_batch(tmp_path,
+                                                           monkeypatch):
+    """Rounds read as one group whose later rounds first carry qid: the
+    rounds asked for without qid come from the group's one allocation,
+    the later ones, asked for with qid, each from their own, all byte for
+    byte the reference's stack_padded_rows with the same keys."""
+    g = np.random.RandomState(41)
+    rounds = [[_arrays(g, 5, qid=r >= 6), _arrays(g, 3)] for r in range(10)]
+    path = str(tmp_path / "p" / "r.pages")
+    w = RoundSpillWriter(path, 2, {"k": "flip"}, codec_level=0)
+    for row in rounds:
+        w.add_row([RowBlock(**a) for a in row])
+    f = w.commit()
+    st = _stager(monkeypatch, f, 2, group_bytes=1 << 20)
+    assert [grp for grp in st._groups if grp[0] < 6 < grp[1]]
+    got = [st(r, r >= 6, False) for r in range(10)]
+    st.close()
+    storages = [b["offset"].untyped_storage().data_ptr() for b in got]
+    for r, row in enumerate(rounds):
+        want = ref_stack([RefRowBlock(**a) for a in row], RB, NB, r >= 6,
+                         False)
+        _same_bytes(got[r], want, ("flip", r))
+    group = next(grp for grp in st._groups if grp[0] < 6 < grp[1])
+    assert len(set(storages[group[0]:6])) == 1
+    assert len(set(storages[6:group[1]])) == group[1] - 6
