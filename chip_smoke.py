@@ -185,7 +185,9 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    the page file's first round equal to its plain version byte for byte
    on every key, timed beside its bound and the plain version (its row
    in the kernel line); each page epoch's serve thread work printed in
-   wall and thread CPU seconds, and the serve thread's work of a page
+   wall and thread CPU seconds, with its ``cudaMalloc`` calls
+   (``torch.cuda.memory_stats``' ``num_device_alloc``), none after the
+   first page epoch; and the serve thread's work of a page
    epoch timed pass by pass over the page file (read; read and decode;
    and pad+stack; and the pad+stack into pinned slots with the copy to
    the card; the raw route: a read into a pinned slot, the copy and
@@ -281,7 +283,9 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    config 7's epochs 2-3 replayed; config 3 through the native reader,
    its records' hash equal to the host reader's in ``cuda_ingest``;
    configs 14 and 18 assembled in the engine, their native and sharded
-   streams equal to the python golden's); then configs 15
+   streams equal to the python golden's; 8's and 10's page epochs'
+   ``cudaMalloc`` calls printed, 10's none after its first page
+   epoch); then configs 15
    (``peer_hydrate``, a 2-process gang reading the 256 MB linear corpus
    from ``obj://`` through the peer tier) and 21
    (``ckpt_restore_fanout``, a 3-writer save under a rendezvous and a
@@ -316,7 +320,8 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    with bench.py's keys and nested keys (read from its source by
    ``ast``), ``native-padded``, at least 5 epochs, its replay and
    page-spill probes present (the spill probe served from pages), a
-   bound in its analysis, and a Chrome trace with ``pull/`` spans;
+   bound in its analysis, and a Chrome trace with ``pull/`` spans; its
+   page epochs' ``cudaMalloc`` calls printed;
 11b. the object-store plane (``remote_path``), over one on-disk
    emulator under the run's directory behind the reference's modeled
    wire (2 ms a request, 4 GB/s; 4 MB blocks, 4 coalesced, 4 GETs at
@@ -511,6 +516,7 @@ the csv batch). Imports nothing of JAX or of the ``dmlc_tpu`` package, nor
 pyarrow.
 """
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -4831,6 +4837,63 @@ def _hashes(kept):
             for b in kept]
 
 
+def device_allocs():
+    """The caching allocator's ``(num_device_alloc,
+    segment.all.allocated)`` on the current card: its ``cudaMalloc``
+    calls and the segments they made, so far."""
+    import torch
+    stats = torch.cuda.memory_stats()
+    return (int(stats.get("num_device_alloc", 0)),
+            int(stats.get("segment.all.allocated", 0)))
+
+
+@contextlib.contextmanager
+def page_epoch_allocs():
+    """Each page epoch run inside: ``(source, num_device_alloc delta,
+    segment delta)`` appended to the list it yields, ``"spill"`` for a
+    ``ShardedRowBlockIter`` epoch the page tier served, ``"disk"`` for a
+    ``DiskRowIter`` pass (one ``before_first`` to the next, or to the
+    end of the block)."""
+    from dmlc_tpu_torch.data.row_iter import DiskRowIter
+    from dmlc_tpu_torch.parallel.sharded import ShardedRowBlockIter
+    out, passes = [], {}
+    serve, first = ShardedRowBlockIter.__iter__, DiskRowIter.before_first
+
+    def delta(source, at):
+        now = device_allocs()
+        out.append((source, now[0] - at[0], now[1] - at[1]))
+
+    def epoch(self):
+        at = device_allocs()
+        yield from serve(self)
+        if self.replay_tier == "pages":
+            delta("spill", at)
+
+    def before_first(self):
+        if id(self) in passes:
+            delta("disk", passes[id(self)])
+        passes[id(self)] = device_allocs()
+        first(self)
+
+    ShardedRowBlockIter.__iter__ = epoch
+    DiskRowIter.before_first = before_first
+    try:
+        yield out
+    finally:
+        ShardedRowBlockIter.__iter__ = serve
+        DiskRowIter.before_first = first
+        for at in passes.values():
+            delta("disk", at)
+
+
+def require_steady_allocs(name, allocs):
+    """Page epochs after the first made no device allocation."""
+    steady = [a for src, a, _ in allocs if src == "spill"][1:]
+    require(steady and not any(steady),
+            f"{name}: page epochs after the first called cudaMalloc: "
+            f"{allocs}")
+
+
 def spill_path(path, size, lr, mesh, work, sharded):
     """SPILL_EPOCHS epochs of SparseLinearModel(10^6)'s sharded step over
     the linear corpus through ``Pipeline.shard`` with a 1 MB replay
@@ -4862,15 +4925,18 @@ def spill_path(path, size, lr, mesh, work, sharded):
         for fn in wrappers.values():
             fn.launches = 0
         kept, losses = [], []
+        at = device_allocs()
         t0 = time.perf_counter()
         for batch in built:
             kept.append(batch)
             losses.append(step(batch))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        now = device_allocs()
         launches = {k: fn.launches for k, fn in wrappers.items()}
         shard = built.stats()["stages"][0]["extra"]
         epochs.append({"secs": secs, "steps": len(kept),
+                       "allocs": (now[0] - at[0], now[1] - at[1]),
                        "losses": [float(x) for x in losses],
                        "launches": launches, "hashes": _hashes(kept),
                        "tier": shard["replay_tier"],
@@ -4902,6 +4968,8 @@ def spill_path(path, size, lr, mesh, work, sharded):
         require(e["hashes"] == epochs[0]["hashes"],
                 f"spill: epoch {i + 1}'s ({e['tier']}) batches differ from "
                 "epoch 1's")
+    require_steady_allocs("spill", [("spill",) + e["allocs"]
+                                    for e in epochs if e["tier"] == "pages"])
     losses = [x for e in epochs for x in e["losses"]]
     require(all(x == x and abs(x) != float("inf") for x in losses),
             f"spill: non-finite loss in {losses}")
@@ -4948,7 +5016,9 @@ def spill_path(path, size, lr, mesh, work, sharded):
                 f"({e['serve']['work_s'] / steps * 1e6:.1f} / "
                 f"{e['serve']['work_cpu_s'] / steps * 1e6:.1f} us a round, "
                 f"{PAGE_READERS} page readers), blocked on a full queue "
-                f"{e['serve']['producer_block_s']:.4f} s")
+                f"{e['serve']['producer_block_s']:.4f} s; the card's "
+                f"allocator: {e['allocs'][0]} cudaMalloc calls, "
+                f"{e['allocs'][1]} segments made")
     log(f"spill page epoch after a drop of the page file (on "
         f"{cold['fs']}) from the host's page cache, read {cold['read']} "
         f"(resident share {cold['resident_before']:.3f} before the drop, "
@@ -4974,6 +5044,7 @@ def spill_path(path, size, lr, mesh, work, sharded):
             "parse_to_device_gbps_training": gbps, "steps_per_s": sps,
             "page_bytes": page_bytes, "memory_replay_gbps": memory,
             "serve": [e["serve"] for e in epochs], "serve_split": split,
+            "allocs": [e["allocs"] for e in epochs],
             "kernel": kernel, "cold": cold, "page_readers": PAGE_READERS}
 
 
@@ -5462,7 +5533,9 @@ def bench_twins(path, work, records_hash, indexed_hash):
     with ``bench_transfer.memcpy_gauge``. Their own checks must hold
     (config 4's content hash against a direct parse, config 7's two
     ranks agreeing on their batches, 8's replay hash, 10's page replay
-    epochs) and 4's and 10's hashes and rounds stand beside the corpus.
+    epochs) and 4's and 10's hashes and rounds stand beside the corpus;
+    8 and 10 print each page epoch's allocations on the card
+    (``page_epoch_allocs``), 10's none after its first page epoch.
     Config 7 runs two worker processes over a gloo group, each a Mesh of
     2 parts on this card (NCCL refuses two ranks on one card). Then
     configs 3 (``recordio``), 14 (``recio_native``) and 18
@@ -5554,13 +5627,21 @@ def bench_twins(path, work, records_hash, indexed_hash):
                ("multi_tenant", lambda: suite_config(
                    19, MULTI_TENANT_MB, work)),
                ("slo_burn", lambda: suite_config(22, SLO_BURN_MB, work)))
-    out = {}
+    out, allocs = {}, {}
     try:
         for name, fn in configs:
             t0 = time.perf_counter()
-            out[name] = fn()
+            if name in ("page_replay", "spill_replay"):
+                with page_epoch_allocs() as allocs[name]:
+                    out[name] = fn()
+            else:
+                out[name] = fn()
             log(f"bench config {name} ({time.perf_counter() - t0:.1f} s):")
             log(json.dumps(out[name]))
+            if name in allocs:
+                log(f"  config {name}'s page epochs on the card's allocator "
+                    f"(source, cudaMalloc calls, segments made): "
+                    f"{json.dumps(allocs[name])}")
     finally:
         for n in os.listdir(work):
             if n.startswith(prefix):
@@ -5573,6 +5654,7 @@ def bench_twins(path, work, records_hash, indexed_hash):
             f"config 4: {out['prefetch']}")
     require(out["multiprocess"]["replay_epochs"] == 2,
             f"config 7: epochs 2-3 were not replayed: {out['multiprocess']}")
+    require_steady_allocs("config 10", allocs["spill_replay"])
     for name in ("page_replay", "spill_replay"):
         require(out[name]["epoch_gauges"] is not None
                 and out[name]["platform"] == "gpu",
@@ -5691,9 +5773,26 @@ def bench_py_keys():
     return out
 
 
+# python -m dmlc_tpu_torch.bench, its page epochs' allocations on the
+# card (page_epoch_allocs) printed to its standard error at its end
+BENCH_ENTRY = """
+import json, runpy, sys
+import chip_smoke
+with chip_smoke.page_epoch_allocs() as allocs:
+    try:
+        runpy.run_module("dmlc_tpu_torch.bench", run_name="__main__",
+                         alter_sys=True)
+    finally:
+        print("page epoch allocs " + json.dumps(allocs), file=sys.stderr,
+              flush=True)
+"""
+
+
 def bench_entry_path(linear, work, card):
     """``python -m dmlc_tpu_torch.bench --trace <work>/bench_trace.json``
-    in a process of its own on the card, at the bench's full width (256
+    in a process of its own on the card (run as ``__main__`` by
+    BENCH_ENTRY, which prints its page epochs' allocations), at the
+    bench's full width (256
     MB, 8192-row batches, nnz_bucket 368640) with
     ``DMLC_TPU_BENCH_BUDGET_S=0``: the reference's floor of 5 epochs. The
     linear corpus (bench.py's shape, 256 MB) stands at the twin's corpus
@@ -5715,11 +5814,14 @@ def bench_entry_path(linear, work, card):
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [sys.executable, "-m", "dmlc_tpu_torch.bench", "--trace", trace],
+            [sys.executable, "-c", BENCH_ENTRY, "--trace", trace],
             cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
         secs = time.perf_counter() - t0
+        allocs = None
         for line in proc.stderr.splitlines():
             log(f"  bench: {line}")
+            if line.startswith("page epoch allocs "):
+                allocs = json.loads(line[len("page epoch allocs "):])
         lines = proc.stdout.splitlines()
         require(proc.returncode == 0 and len(lines) == 1,
                 f"python -m dmlc_tpu_torch.bench: exit {proc.returncode}, "
@@ -5754,6 +5856,7 @@ def bench_entry_path(linear, work, card):
            "epochs": out["epochs"],
            "replay_sustained": out["replay"]["replay_sustained"],
            "speedup_vs_parse": out["replay_tier"]["speedup_vs_parse"],
+           "page_epoch_allocs": allocs,
            "trace_pull_spans": pulls, "seconds": round(secs, 1)}
     log(f"bench entry ({card}): " + json.dumps(got))
     return got

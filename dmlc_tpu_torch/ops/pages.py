@@ -18,7 +18,9 @@ bytes. A :class:`RoundStage` call is a page epoch's round in one call:
 the copy of its bytes from a pinned host slot to the card and the same
 kernel, enqueued together by one C entry (``dmlc_round_stage``),
 counted in ``round_unpack.launches`` too. Either writes a batch's keys
-as views of one fresh allocation (:func:`unpack_layout`). It replaces no
+as views of one fresh allocation (:func:`unpack_layout`);
+:func:`group_layout` places several rounds' batches in one, each view's
+arguments worked out once for :meth:`RoundStage.batches`. It replaces no
 TPU kernel: the reference pads a replayed round on the host
 (``stack_padded_rows``).
 """
@@ -26,7 +28,7 @@ TPU kernel: the reference pads a replayed round on the host
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +38,8 @@ from dmlc_tpu_torch.ops.kernels import count, launch
 from dmlc_tpu_torch.utils.logging import check
 
 __all__ = ["round_unpack", "round_unpack_plain", "RoundStage",
-           "unpack_spec", "unpack_layout", "INDEX_DTYPES"]
+           "unpack_spec", "unpack_layout", "group_layout", "GroupLayout",
+           "INDEX_DTYPES"]
 
 _C = {name: i for i, name in enumerate(ROUND_TABLE_COLUMNS)}
 # the output index's dtype by its width in bytes
@@ -87,24 +90,47 @@ def unpack_layout(parts: int, row_bucket: int, nnz_bucket: int,
     return tuple(keys), at
 
 
-def _views(buf: torch.Tensor, layouts) -> List[Dict[str, torch.Tensor]]:
-    """The batches placed by ``layouts`` (``unpack_layout``'s, one after
-    the other) as views of the byte buffer ``buf`` (its own allocation,
-    at storage offset 0): one ``view`` of ``buf`` a dtype, then one
-    ``as_strided`` of it a key."""
-    by_dtype, out, at = {}, [], 0
-    for keys, total in layouts:
-        views = {}
+class GroupLayout(NamedTuple):
+    """Several rounds' batches placed in one byte buffer, each view's
+    arguments worked out once (:func:`group_layout`)."""
+    nbytes: int                  # the buffer's size
+    dtypes: Tuple[torch.dtype, ...]  # each dtype a key of it has
+    # a round's keys: (key, dtype, shape, stride, offset in elements of
+    # dtype) each
+    rounds: Tuple[Tuple[Tuple[str, torch.dtype, tuple, tuple, int], ...],
+                  ...]
+
+
+@functools.lru_cache(maxsize=256)
+def group_layout(parts: int, row_bucket: int, nnz_bucket: int,
+                 plans: Tuple[tuple, ...]) -> GroupLayout:
+    """The rounds of ``plans`` (one ``(index_dtype, want_qid,
+    want_field)`` a round) back to back in one byte buffer, each round
+    placed by :func:`unpack_layout`: the buffer's size and, for each
+    key, the dtype, shape, stride and element offset of its view."""
+    rounds, at, dtypes = [], 0, {}
+    for plan in plans:
+        keys, total = unpack_layout(parts, row_bucket, nnz_bucket, *plan)
+        views = []
         for k, a, _n, shape, dtype in keys:
-            base = by_dtype.get(dtype)
-            if base is None:
-                base = by_dtype[dtype] = buf.view(dtype)
-            views[k] = base.as_strided(
-                shape, (shape[1], 1) if len(shape) == 2 else (1,),
-                (at + a) // dtype.itemsize)
-        out.append(views)
+            dtypes[dtype] = None
+            views.append((k, dtype, shape,
+                          (shape[1], 1) if len(shape) == 2 else (1,),
+                          (at + a) // dtype.itemsize))
+        rounds.append(tuple(views))
         at += total
-    return out
+    return GroupLayout(at, tuple(dtypes), tuple(rounds))
+
+
+def _views(buf: torch.Tensor, layout: GroupLayout
+           ) -> List[Dict[str, torch.Tensor]]:
+    """The batches ``layout`` places, as views of the byte buffer ``buf``
+    (its own allocation, at storage offset 0): one ``view`` of ``buf`` a
+    dtype, then one ``as_strided`` of it a key."""
+    bases = {dtype: buf.view(dtype) for dtype in layout.dtypes}
+    return [{k: bases[dtype].as_strided(shape, stride, offset)
+             for k, dtype, shape, stride, offset in keys}
+            for keys in layout.rounds]
 
 
 def _check_inputs(raw, table, index_dtype):
@@ -125,13 +151,15 @@ def _check_inputs(raw, table, index_dtype):
           f"{index_dtype}")
 
 
-def _outputs(spec, layout, device, out):
-    """Fresh tensors of ``spec`` on ``device``, views of one allocation
-    placed by ``layout`` (``unpack_layout``'s), or ``out`` once it is
-    checked to hold them."""
+def _outputs(args, device, out):
+    """Fresh tensors of ``unpack_spec(*args)`` on ``device``, views of
+    one allocation placed by ``unpack_layout(*args)``, or ``out`` once it
+    is checked to hold them."""
     if out is None:
-        return _views(torch.empty(layout[1], dtype=torch.uint8,
-                                  device=device), [layout])[0]
+        layout = group_layout(*args[:3], (args[3:],))
+        return _views(torch.empty(layout.nbytes, dtype=torch.uint8,
+                                  device=device), layout)[0]
+    spec = unpack_spec(*args)
     check(out.keys() == spec.keys()
           and all(tuple(out[k].shape) == shape and out[k].dtype == dtype
                   and out[k].device == device and out[k].is_contiguous()
@@ -159,7 +187,7 @@ def round_unpack(raw: torch.Tensor, table: torch.Tensor, row_bucket: int,
     check(raw.is_cuda, f"round_unpack runs on cuda or cpu, got {raw.device}")
     args = (table.shape[0], row_bucket, nnz_bucket, index_dtype, want_qid,
             want_field)
-    out = _outputs(unpack_spec(*args), unpack_layout(*args), raw.device, out)
+    out = _outputs(args, raw.device, out)
     launch("dmlc_round_unpack", raw.device, raw.data_ptr(), table.data_ptr(),
            table.shape[0], row_bucket, nnz_bucket, index_dtype.itemsize,
            *_pointers(out))
@@ -227,19 +255,25 @@ class RoundStage:
         """Fresh batches for several rounds in one allocation (on
         ``stream``), each ``(index_dtype, want_qid, want_field)`` of
         ``plans`` a dict of :func:`unpack_spec`'s keys, each key at a
-        multiple of ALIGN. A consumer that keeps one keeps the
-        allocation."""
-        layouts = [unpack_layout(self.parts, self.row_bucket,
-                                 self.nnz_bucket, *p) for p in plans]
-        total = sum(t for _, t in layouts)
+        multiple of ALIGN: :meth:`batches` of their
+        :func:`group_layout`."""
+        return self.batches(group_layout(self.parts, self.row_bucket,
+                                         self.nnz_bucket, tuple(plans)))
+
+    def batches(self, layout: GroupLayout, nbytes: int = 0
+                ) -> List[Dict[str, torch.Tensor]]:
+        """The batches ``layout`` (a :func:`group_layout` of this stage's
+        parts and buckets) places, in one fresh allocation of
+        ``layout.nbytes``, or ``nbytes`` where that is more, made on
+        ``stream``. A consumer that keeps one keeps the allocation."""
+        n = max(layout.nbytes, nbytes)
         if self.device.type == "cuda" and \
                 torch.cuda.current_stream(self.device) != self.stream:
             with torch.cuda.stream(self.stream):
-                buf = torch.empty(total, dtype=torch.uint8,
-                                  device=self.device)
+                buf = torch.empty(n, dtype=torch.uint8, device=self.device)
         else:
-            buf = torch.empty(total, dtype=torch.uint8, device=self.device)
-        return _views(buf, layouts)
+            buf = torch.empty(n, dtype=torch.uint8, device=self.device)
+        return _views(buf, layout)
 
     def __call__(self, host: torch.Tensor, r: int, index_dtype: torch.dtype,
                  want_qid: bool = False, want_field: bool = False,
@@ -292,7 +326,7 @@ def round_unpack_plain(raw: torch.Tensor, table: torch.Tensor,
     rb, nb = row_bucket, nnz_bucket
     _check_inputs(raw, table, index_dtype)
     args = (table.shape[0], rb, nb, index_dtype, want_qid, want_field)
-    out = _outputs(unpack_spec(*args), unpack_layout(*args), raw.device, out)
+    out = _outputs(args, raw.device, out)
     buf = raw.numpy()
     o = {k: v.numpy() for k, v in out.items()}
     for i, t in enumerate(table.numpy()):

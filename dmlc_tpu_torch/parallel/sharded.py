@@ -248,17 +248,24 @@ class RawRoundStager:
     consecutive rounds (:func:`round_groups`, up to PAGE_GROUP_BYTES) a
     read, PAGE_READERS groups ahead of the round being staged, so a
     reader takes the GIL from the serve thread a few times a group, not
-    a round (``staging`` holds a slot for each). Staging round r is one call of an ``ops.pages.RoundStage``
-    made for the epoch: the copy of its bytes to a device byte buffer
-    reused round after round and one ``round_unpack`` launch that writes
-    the padded batch from it, both enqueued on ``copy_stream`` (the
-    current stream at construction when None) by one C call. The
-    batches of a group's rounds are views of one fresh allocation, made
-    by the reader after its read (a round whose keys differ from those
-    asked for when the read started gets its own); none is ever reused.
-    One event recorded behind them is the batch's ``event`` (the
-    consumer calls ``wait_copy``); the last round's releases its
-    group's slot. The round table goes to the
+    a round (``staging`` holds a slot for each); a reader does the read
+    and nothing else. Staging round r is one call of an
+    ``ops.pages.RoundStage`` made for the epoch: the copy of its bytes
+    to a device byte buffer reused round after round and one
+    ``round_unpack`` launch that writes the padded batch from it, both
+    enqueued on ``copy_stream`` (the current stream at construction when
+    None) by one C call. The batches of a group's rounds are views of
+    one fresh allocation on that stream, of the largest group's size
+    (so any buffer the caching allocator has back fits any group), made
+    when the group is taken from the group's ``ops.pages.group_layout``,
+    worked out at construction for the keys ``want`` asks for (a round
+    whose keys differ from those asked for when the read started gets
+    its own). The caching allocator gives that memory out again only
+    once the consumer has dropped the batch and its work on it is done
+    (``wait_copy`` records it on the consumer's stream). One event
+    recorded behind them is the batch's ``event`` (the consumer calls
+    ``wait_copy``); the last round's releases its group's slot. The
+    round table goes to the
     device once, at construction; each round's counts, index dtype,
     bucket checks and schema are taken from it then too. A read's error
     (a truncated or rewritten file) is raised at its round. On the CPU
@@ -266,7 +273,8 @@ class RawRoundStager:
     asked for in order, 0, 1, …; :meth:`close` stops the readers."""
 
     def __init__(self, pages, device: torch.device, row_bucket: int,
-                 nnz_bucket: int, staging: HostStaging, copy_stream=None):
+                 nnz_bucket: int, staging: HostStaging, copy_stream=None,
+                 want: tuple = (False, False)):
         from dmlc_tpu_torch.data.row_iter import (ROUND_TABLE_COLUMNS,
                                                   RoundReadAhead)
         from dmlc_tpu_torch.ops.pages import INDEX_DTYPES, RoundStage
@@ -307,7 +315,16 @@ class RawRoundStager:
         self._stage = RoundStage(self._raw, self._table, row_bucket,
                                  nnz_bucket, copy_stream)
         self._stream = getattr(self._stage, "stream", None)
-        self._outputs = self._stage.outputs
+        # each group's batches placed in one buffer, every view's
+        # arguments worked out here, for the keys ``want`` asks for
+        # (want_qid, want_field)
+        self._want = want
+        self._layouts = [self._layout(g, want)
+                         for g in range(len(self._groups))]
+        # every group's buffer is made at the largest group's size, so
+        # any buffer the caching allocator has back fits any group
+        self._group_bytes = max((x.nbytes for x in self._layouts),
+                                default=0)
         self.readers = PAGE_READERS
         self._reads = RoundReadAhead(pages, self.readers)
         # group → (slot, the keys its batches were planned with, its read)
@@ -325,38 +342,62 @@ class RawRoundStager:
         self._lock = threading.Lock()
         self._closed = False
 
+    def reserve(self, n: int) -> None:
+        """Have the caching allocator keep ``n`` group buffers for the
+        copy stream: made together and dropped at once, they stay cached
+        there, so a later page epoch that holds up to ``n`` at once finds
+        each without a ``cudaMalloc``. Nothing on the CPU."""
+        if self.device.type != "cuda" or not self._group_bytes:
+            return
+        with torch.cuda.stream(self._stream):
+            held = [torch.empty(self._group_bytes, dtype=torch.uint8,
+                                device=self.device) for _ in range(n)]
+        del held
+
+    def _layout(self, g: int, flags: tuple):
+        """Group g's ``ops.pages.group_layout``, its rounds planned with
+        ``flags`` (want_qid, want_field)."""
+        from dmlc_tpu_torch.ops.pages import group_layout
+        r0, r1 = self._groups[g]
+        return group_layout(self._stage.parts, self.row_bucket,
+                            self.nnz_bucket, tuple(
+                                (dt,) + flags
+                                for dt in self._index_dtype[r0:r1]))
+
     def schema(self, r: int):
         """(whether a block of round r carries qid, ... field)."""
         return self._schema[r]
 
     def _read_ahead(self, last: int, flags: tuple) -> None:
         """Start the reads of every group up to ``last`` not yet started,
-        each into a slot of its own; the reader that reads a group then
-        makes its rounds' batches in one allocation, each planned with
-        ``flags`` (want_qid, want_field), off the serve thread."""
+        each into a slot of its own, its rounds' batches planned with
+        ``flags`` (want_qid, want_field). A reader does the read and
+        nothing else."""
         while self._next_read <= min(last, len(self._groups) - 1):
+            g = self._next_read
             slot = self.staging.acquire(self._spec)
-            r0, r1 = self._groups[self._next_read]
-
-            def outputs(spans, plan=self._index_dtype[r0:r1]):
-                return self._outputs([(dt,) + flags
-                                      for dt in plan[:len(spans)]])
-
-            self._pending[self._next_read] = (slot, flags, self._reads.submit(
-                r0, r1, slot["raw"].numpy(), outputs))
+            r0, r1 = self._groups[g]
+            self._pending[g] = (slot, flags, self._reads.submit(
+                r0, r1, slot["raw"].numpy(), None))
             self._next_read += 1
 
     def _take_group(self, flags: tuple) -> None:
-        """Wait for the next group's read and make it the current one."""
+        """Wait for the next group's read and make it the current one,
+        with its rounds' batches in one allocation placed by its layout
+        (made here, where the GIL is already held: a reader would wait
+        for it again)."""
         g = self._next_group
         self._next_group += 1
         self._read_ahead(g + self.readers, flags)
         slot, planned, read = self._pending.pop(g)
         try:
-            spans, error, outs = read.result()
+            spans, error, _ = read.result()
         except BaseException:
             self.staging.release(slot)
             raise
+        outs = self._stage.batches(self._layouts[g] if planned == self._want
+                                   else self._layout(g, planned),
+                                   self._group_bytes)
         self._group = (slot, spans, error) + self._groups[g] + (outs,
                                                                 planned)
 
@@ -516,6 +557,15 @@ class ShardedRowBlockIter:
         # re-earn tee starts spilled (the shard is known over budget)
         self._serve_queue = None  # live serve ThreadedIter (probes)
         self._serve_stats: Optional[Dict[str, float]] = None
+        # the serve thread's copy stream, made at the first served epoch
+        # on the card and kept: the caching allocator hands a freed
+        # block only to a request on the stream it was made on, so each
+        # epoch's batches then reuse the blocks the epoch before freed
+        self._copy_stream = None
+        # the page epochs' pinned slots (HostStaging), kept between them,
+        # and the size of the group buffers reserved for them
+        self._page_staging: Optional[HostStaging] = None
+        self._reserved_bytes = None
         # serve-side prefetch lookahead (rounds assembled ahead of the
         # consumer); the pipeline exposes it as an autotuner knob
         self.prefetch_depth = 2
@@ -927,8 +977,9 @@ class ShardedRowBlockIter:
         ``next_row()`` gives the next round's raw blocks (None at the
         end), and the producer thread pads and stacks them straight into
         a pinned HostStaging slot (``stage_round``) and copies the slot
-        to the device on its own copy stream, so the copy of round r+1
-        overlaps the consumer's work on round r; the consumer waits on
+        to the device on the iterator's copy stream (``_copy_stream``,
+        every epoch's), so the copy of round r+1 overlaps the
+        consumer's work on round r; the consumer waits on
         each batch's copy event. With ``pages`` (a committed spill file)
         the producer serves its rounds in order by the raw route
         (:class:`RawRoundStager`) instead. The live queue is exposed as
@@ -943,18 +994,32 @@ class ShardedRowBlockIter:
         from dmlc_tpu_torch.data.threaded_iter import ThreadedIter
         device = self.mesh.device
         on_cuda = device.type == "cuda"
-        copy_stream = torch.cuda.Stream(device) if on_cuda else None
+        if on_cuda and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device)
+        copy_stream = self._copy_stream
         work = [0.0, 0.0]  # wall, thread CPU
         stager = None
         if pages is not None:
             # the raw route's outputs never alias its slots: a slot is
-            # reused on the CPU too; the pool holds a slot for each read
-            # ahead besides those in copy
+            # reused on the CPU too, and from one page epoch to the next
+            # (the pool is taken here and handed back once the epoch's
+            # stager is closed; an epoch that finds it out, an
+            # abandoned one's, makes its own). It holds a slot for each
+            # read ahead besides those in copy
+            staging, self._page_staging = self._page_staging, None
+            if staging is None:
+                staging = HostStaging(pin=on_cuda)
+            staging.slots = self.prefetch_depth + 1 + PAGE_READERS
             stager = RawRoundStager(
-                pages, device, self.row_bucket, self.nnz_bucket,
-                HostStaging(self.prefetch_depth + 1 + PAGE_READERS,
-                            pin=on_cuda),
-                copy_stream)
+                pages, device, self.row_bucket, self.nnz_bucket, staging,
+                copy_stream, (self._has_qid, self._has_field))
+            if self._reserved_bytes != stager._group_bytes:
+                # a spill file's first page epoch: room for the most
+                # group buffers a page epoch holds at once (the serve
+                # queue's batches, the one staged, the consumer's, and
+                # the last one it kept from the epoch before)
+                stager.reserve(self.prefetch_depth + 3)
+                self._reserved_bytes = stager._group_bytes
             rounds = iter(range(pages.rounds))
 
             def stage():
@@ -1008,6 +1073,7 @@ class ShardedRowBlockIter:
             ti.destroy()
             if stager is not None:
                 stager.close()
+                self._page_staging = stager.staging
 
     def _steady_stream(self) -> Iterator[List[RowBlock]]:
         """Epochs 2+: replay the agreed round count with ZERO

@@ -15,7 +15,9 @@ over the page file) and configs 8 and 10 of the tree's bench suite at
 gauge. (``spill_path`` prints the sharded path's memory-replay epoch
 beside its own; this script does not run the sharded path, so that
 figure prints as nan.) Each process prints its log and, last, one JSON
-line ``{"tree", "card", "spill", "page_replay", "spill_replay"}``, and
+line ``{"tree", "card", "spill", "threads", "page_replay",
+"spill_replay"}`` (``threads``: the names of the threads alive once
+``spill_path`` has run), and
 the script prints every tree's JSON line again at the end, in order.
 Needs ``torch.cuda.is_available()``.
 """
@@ -26,6 +28,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 
@@ -60,6 +63,8 @@ def one(tree: str) -> None:
         os.link(path, os.path.join(
             work, "dmlc_tpu_torch_bench_suite.criteo.libsvm"))
         out = {"tree": tree, "card": card, "spill": spill}
+        # the threads alive beside configs 8 and 10, which share the GIL
+        out["threads"] = sorted(t.name for t in threading.enumerate())
         for name, fn in (("page_replay", bench_suite.bench_page_replay),
                          ("spill_replay", bench_suite.bench_spill_replay)):
             kw = {"work": work}

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where a threaded page epoch's time goes, thread by thread, on one card.
 
-Usage: ``python3 scripts/c11_threads.py`` from the root of a checkout on
-a machine with a card. It builds the checkout's kernels and engine,
+Usage: ``python3 scripts/c11_threads.py [TREE]`` on a machine with a
+card, TREE the root of the checkout to measure (a ``git archive``
+unpacked into a gitignored directory; this script's own checkout when
+left out). It builds that checkout's kernels and engine,
 writes chip_smoke's linear corpus (256 MB) and, at config 10's shape
 (one part of 16384 rows, ``nnz_bucket`` 2^19) and the spill path's (4
 parts of 8192 rows, 368640), runs a ``ShardedRowBlockIter`` at a 1 MB
@@ -13,10 +15,21 @@ times four page epochs with a synchronise after each batch (as config
 - the serve thread: ``RawRoundStager`` calls, of which the wait for a
   group's read (``_take_group``), the slots' acquire and release, and
   the ``RoundStage`` calls (the copy's and the launch's enqueue);
-- the readers: ``read_rounds_into`` and the allocation of each group's
-  batches (``RoundStage.outputs``), summed over the readers;
+- the readers: ``read_rounds_into``, summed over the readers;
+- the making of each group's batches: by its reader on a tree where
+  ``RoundStage.outputs`` does it (``reader.outputs``), on the serve
+  thread where ``RoundStage.batches`` does (``serve.batches``), split
+  three ways: its views (``views``: ``ops.pages._views``), the rest
+  (``torch.empty`` and the layout: the whole less ``views``), and its
+  wait to run (``.wait``: its wall less its thread's CPU time, which
+  the host's thread clock may count in ticks of 10 ms);
 - the consumer: ``ThreadedIter.next``, ``wait_copy`` and the
-  synchronise.
+  synchronise;
+- the caching allocator: ``torch.cuda.memory_stats()``'s
+  ``num_device_alloc`` (its ``cudaMalloc`` calls) and
+  ``segment.all.allocated`` before and after every page epoch, the
+  three warm ones too (``allocs``: the tier, then each counter before
+  and after).
 
 Then, at config 10's first round, the host µs of a ``RoundStage`` call
 with the allocation (100 calls, the thread's current stream the
@@ -37,6 +50,7 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COUNTERS = ("num_device_alloc", "segment.all.allocated")
 SHAPES = ((1 << 14, 1 << 19, 1), (8192, 368640, 4))  # rows, nnz, parts
 # (class, method, the name its milliseconds go under)
 TIMED = (("RawRoundStager", "__call__", "serve.stager_call"),
@@ -44,20 +58,37 @@ TIMED = (("RawRoundStager", "__call__", "serve.stager_call"),
          ("HostStaging", "acquire", "serve.acquire"),
          ("HostStaging", "release", "serve.release"),
          ("RoundStage", "__call__", "serve.round_stage"),
+         ("RoundStage", "batches", "serve.batches"),
          ("RoundStage", "outputs", "reader.outputs"),
          ("RoundSpillFile", "read_rounds_into", "reader.read_rounds_into"),
          ("ThreadedIter", "next", "consumer.ti_next"))
 
 
 def _timer(fn, name, tm, lock):
+    """``fn``, its wall seconds summed under ``name`` in ``tm``; for the
+    making of a group's batches, its wall less its thread's CPU seconds
+    under ``name + ".wait"`` too."""
+    wait = name in ("reader.outputs", "serve.batches", "views")
+
     def timed(*a, **k):
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         try:
             return fn(*a, **k)
         finally:
+            wall = time.perf_counter() - t0
+            cpu = time.thread_time() - c0
             with lock:
-                tm[name] = tm.get(name, 0.0) + time.perf_counter() - t0
+                tm[name] = tm.get(name, 0.0) + wall
+                if wait:
+                    tm[name + ".wait"] = (tm.get(name + ".wait", 0.0)
+                                          + wall - cpu)
     return timed
+
+
+def _counters(dev):
+    import torch
+    stats = torch.cuda.memory_stats(dev)
+    return [int(stats.get(k, 0)) for k in COUNTERS]
 
 
 def split(path, work, dev, tm):
@@ -73,27 +104,33 @@ def split(path, work, dev, tm):
                                  nnz_bucket=nb, agreement_cache_bytes=1 << 20,
                                  first_epoch_cache="never",
                                  spill_dir=os.path.join(work, "spill" + key))
+        allocs = []
         for epoch in range(5):  # parse, parse, three warm page epochs
+            before = _counters(dev)
             for _b in it:
                 torch.cuda.synchronize(dev)
+            if it.replay_tier == "pages":
+                allocs.append([it.replay_tier] + before + _counters(dev))
         runs = []
         for _ in range(4):
             tm.clear()
             sync = 0.0
+            before = _counters(dev)
             t0 = time.perf_counter()
             for _b in it:
                 s0 = time.perf_counter()
                 torch.cuda.synchronize(dev)
                 sync += time.perf_counter() - s0
             torch.cuda.synchronize(dev)
+            allocs.append([it.replay_tier] + before + _counters(dev))
             run = {k: round(v * 1e3, 2) for k, v in sorted(tm.items())}
             run["consumer.sync"] = round(sync * 1e3, 2)
             run["epoch"] = round((time.perf_counter() - t0) * 1e3, 2)
             run["serve.work"] = round(it._serve_stats["work_s"] * 1e3, 2)
             runs.append(run)
         it.close()
-        out[key] = runs
-        print(json.dumps({key: runs}), flush=True)
+        out[key] = {"runs": runs, "allocs": allocs}
+        print(json.dumps({key: out[key]}), flush=True)
     return out
 
 
@@ -169,8 +206,9 @@ def beside(path, work, dev):
     return res
 
 
-def main() -> int:
-    sys.path.insert(0, REPO)
+def main(argv) -> int:
+    tree = os.path.abspath(argv[0]) if argv else REPO
+    sys.path.insert(0, tree)
     import torch
     import chip_smoke as c
     card = c.environment()
@@ -188,13 +226,18 @@ def main() -> int:
     os.environ["DMLC_TPU_TORCH_PAGESTORE_DIR"] = os.path.join(work, "pages")
     try:
         path = os.path.join(work, "criteo_shaped.libsvm")
-        res = {"card": card, "size": c.write_corpus(path)}
+        res = {"tree": tree, "card": card, "size": c.write_corpus(path)}
         dev = torch.device("cuda", 0)
         res["round_stage_us"] = beside(path, work, dev)
-        originals = [(owners[o], m, getattr(owners[o], m))
-                     for o, m, _ in TIMED]
-        for (owner, m, fn), (_, _, name) in zip(originals, TIMED):
-            setattr(owner, m, _timer(fn, name, tm, lock))
+        for o, m, name in TIMED:
+            if o == "RoundStage" and m == "outputs" and \
+                    hasattr(pages.RoundStage, "batches"):
+                continue  # outputs calls batches: time that alone
+            fn = getattr(owners[o], m, None)
+            if fn is None:
+                continue  # a method this tree lacks
+            setattr(owners[o], m, _timer(fn, name, tm, lock))
+        pages._views = _timer(pages._views, "views", tm, lock)
         sharded.wait_copy = _timer(sharded.wait_copy, "consumer.wait_copy",
                                    tm, lock)
         res["split"] = split(path, work, dev, tm)
@@ -205,4 +248,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
