@@ -18,7 +18,10 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    K2 also on a narrow model's edge batch (137
    weights, rows of indices 1-136 with duplicates, empty rows, an
    invalid index in the padded tail, u32 and u64 index), where it must
-   take its private route, as at 10^6 weights its global one;
+   take its private route, as at 10^6 weights its global one, whose
+   lanes a row (K1's 16, or 32 on the grown bucket) are read from the
+   trace too; K2 over 4 stacked parts of the narrow model's batch
+   (one launch, its private route);
    then K8 (``logistic_step`` on one part; ``logistic_sums`` and
    ``logistic_grad``, the sharded step's two launches) against its plain
    versions at the first batch's labels and weights and on edge cases (a
@@ -158,9 +161,13 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    through ``Pipeline.from_uri(path).parse(engine="native").shard(mesh,
    row_bucket=8192, nnz_bucket=368640)`` into
    ``SparseLinearModel(1_000_000).make_sharded_train_step(mesh)``: the
-   loss must fall, K1 and K2 launch once a part a step and K8 twice and
-   K9 once a step (the launch counters, and one step's trace, whose
-   launches and device µs by kernel are printed)
+   loss must fall, K1 launches once a part a step, K2 once a step for all
+   the parts (with one zero fill and no add of w's gradients), K8 twice
+   and K9 once a step (the launch counters, and one step's trace, whose
+   launches and device µs by kernel are printed, beside the SM clock);
+   K2 over the first batch's 4 parts, one of them exhausted, u32 and
+   u64, against its plain version, and timed beside the 4 single-part
+   calls and their adds and one torch.sparse product
    and the step's all-reduces show in its trace; epoch 2 re-parses and
    tees, epoch 3 replays from memory with batches hashing equal to epoch
    1's; 3 sharded steps allclose to 3 flat ``train_step``s over the same
@@ -177,8 +184,8 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    streams, epoch 2 re-parses and spills its rounds to a page file,
    epochs 3-5 replay the pages (tiers parse, parse, pages x 3, page
    replay epochs >= 3, each served by the raw route); every epoch's
-   batches hash equal to epoch 1's, K1 and K2 launch once a part a step
-   and K8's two launches and K9 once a step in every epoch,
+   batches hash equal to epoch 1's, K1 once a part a step and K2, K8's
+   two launches and K9 once a step in every epoch,
    ``round_unpack`` (``csrc/pages.cu``) once a round in each page epoch
    and never in a parse one, the loss falls, the page file is there
    while the store lives and gone after ``close()``; ``round_unpack`` on
@@ -492,8 +499,8 @@ checkout, and fails (non-zero exit, no result line) on any fault:
    transports read from its debug log; (b) two epochs of
    ``SparseLinearModel(10^6)`` over the linear corpus through
    ``Pipeline.shard(Mesh((2W,), group=WORLD))``, 2 parts a rank: the
-   loss falling, the ranks' final w bitwise equal, K1 and K2 twice a
-   step a rank, K8's sharded pair and K9 once, profiled steps' NCCL
+   loss falling, the ranks' final w bitwise equal, K1 twice a step a
+   rank, K2 once, K8's sharded pair and K9 once, profiled steps' NCCL
    device time and the gradient's all-reduce alone, and the first 3
    steps held to flat steps on one card over the gathered global
    batches; (c) the FFM's 628 MB state with V a slice a card under
@@ -1583,6 +1590,37 @@ def on_route(op, route, fn):
     return out[-1]
 
 
+# K2's global route takes K1's lanes a row (ops.csr.csr_spmv_route), one
+# kernel template instance each, whose arguments (lanes, unroll) the trace
+# names.
+K2_GLOBAL_LANES = {"half": ", 16, 4>", "warp": ", 32, 5>"}
+
+
+def on_k2_global(fn, lanes):
+    """``fn()``, one call of ``csr_spmv_t``, run under the profiler; fails
+    unless its trace shows the global route with ``lanes`` (K1's route
+    name: 16 lanes a row, or 32)."""
+    out = []
+    by_kernel = _device_us_by_kernel(lambda: out.append(fn()), 1,
+                                     route_calls("csr_spmv_t", "global"))
+    keys = [k for k in by_kernel
+            if _launched(k, ROUTE_KERNELS["csr_spmv_t"]["global"])]
+    require(any(K2_GLOBAL_LANES[lanes] in k for k in keys),
+            f"K2's global route did not take its {lanes} lanes a row: the "
+            f"trace shows {keys}")
+    return out[-1]
+
+
+def sm_clock():
+    """The card's SM clock now, as nvidia-smi reads it ("1980 MHz"), to
+    stand beside a timed trace."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    lines = smi.stdout.strip().splitlines()
+    return lines[0].strip() if smi.returncode == 0 and lines else "not read"
+
+
 def _fill_and_kernel(fn, op, route, iters: int = 50):
     """(the fill, the kernel) of the device milliseconds a call of ``fn``
     takes, a call of the wrapper ``op`` by ``route``: the route's kernel
@@ -1672,7 +1710,7 @@ def _check_narrow_k2(name, offset, index, value, g, F=RANK_NUM_FEATURES):
     return err.max().item()
 
 
-def narrow_edge_batch():
+def narrow_edge_batch(seed=SEED + 11):
     """A batch of a narrow model (137 weights) with K2's edge cases: 4096
     rows, each of the indices 1-136 and 0-7 more of them again (duplicates
     within the row), rows 3 and 7 emptied, the last 100 rows padding, and
@@ -1680,9 +1718,9 @@ def narrow_edge_batch():
     60 (invalid) and 2^32+3 in row 70 (reads 3); then a padded tail of 64
     nonzeros whose first holds 2^31 (invalid) and whose second index 5
     with value 1, which must add nothing. Returns (offset, index as u64,
-    value, g)."""
+    value, g), drawn from ``seed``."""
     import numpy as np
-    rng = np.random.RandomState(SEED + 11)
+    rng = np.random.RandomState(seed)
     n = RANK_ROW_BUCKET
     lens = RANK_FEATURES + rng.randint(0, 8, n)
     lens[[3, 7]] = 0
@@ -1772,6 +1810,43 @@ def _check_k1(name, offset, index, value, w, route, bad_rows):
     return err.max().item(), (err / scale).nan_to_num().max().item()
 
 
+def _check_k2_global(name, offset, index, value, g, lanes, last=False):
+    """K2 at 10^6 weights by its global route with ``lanes`` (read from
+    the trace) against its plain version, flat or stacked parts: finite,
+    allclose at K2_RTOL, K2_ATOL (a few terms a weight); with ``last``
+    (the edge batches), the index at F-1 given a gradient. Returns max
+    |err|."""
+    import torch
+    from dmlc_tpu_torch.ops import csr
+    gw = on_k2_global(lambda: csr.csr_spmv_t(offset, index, value, g,
+                                             NUM_FEATURES), lanes)
+    plain = csr.csr_spmv_t_plain(offset, index, value, g, NUM_FEATURES)
+    torch.cuda.synchronize()
+    require(torch.isfinite(gw).all().item(),
+            f"K2 {name}: non-finite gradient")
+    require(torch.allclose(gw, plain, rtol=K2_RTOL, atol=K2_ATOL),
+            f"K2 {name} disagrees with its plain version: max |err| "
+            f"{(gw - plain).abs().max().item()}")
+    require(not last or gw[NUM_FEATURES - 1].item() != 0.0,
+            f"K2 {name}: the index at F-1 got no gradient")
+    return (gw - plain).abs().max().item()
+
+
+def _stack_parts(parts):
+    """Flat CSR batches (offset, index, value, g) of one row count as
+    stacked parts [L, ...], each index and value padded with zeros to the
+    largest bucket (a tail past the part's offset[-1], never read)."""
+    import numpy as np
+    bucket = max(p[1].size for p in parts)
+
+    def pad(a):
+        return np.concatenate([a, np.zeros(bucket - a.size, a.dtype)])
+    return (np.stack([p[0] for p in parts]),
+            np.stack([pad(p[1]) for p in parts]),
+            np.stack([pad(p[2]) for p in parts]),
+            np.stack([p[3] for p in parts]))
+
+
 def check_kernels(first):
     """Phase 3: K1/K2 against their plain versions on the card."""
     import numpy as np
@@ -1801,27 +1876,22 @@ def check_kernels(first):
             [idx, np.zeros(grown, idx.dtype)]).astype(dtype)).to(cuda)
         _check_k1(f"{name}, bucket of {warp_bucket}", t_off, w_idx, w_val,
                   w, "warp", bad_rows)
-        gw = on_route("csr_spmv_t", "global", lambda: csr.csr_spmv_t(
-            t_off, t_idx, t_val, g, NUM_FEATURES))
-        gw_plain = csr.csr_spmv_t_plain(t_off, t_idx, t_val, g, NUM_FEATURES)
-        torch.cuda.synchronize()
-        require(torch.isfinite(gw).all().item(),
-                f"K2 {name}: non-finite gradient")
-        require(torch.allclose(gw, gw_plain, rtol=K2_RTOL, atol=K2_ATOL),
-                f"K2 {name} disagrees with its plain version: max "
-                f"|err| {(gw - gw_plain).abs().max().item()}")
-        require(gw[NUM_FEATURES - 1].item() != 0.0,
-                f"K2 {name}: the index at F-1 got no gradient")
-        if dtype is np.uint32:
-            k2_err = (gw - gw_plain).abs().max().item()
+        # K2's global route by K1's lanes: 16 a row on the batch, 32 on
+        # the same rows in the grown bucket
+        for lanes, k_idx, k_val in (("half", t_idx, t_val),
+                                    ("warp", w_idx, w_val)):
+            err = _check_k2_global(f"{name} ({lanes} lanes)", t_off, k_idx,
+                                   k_val, g, lanes, last=True)
+            if dtype is np.uint32 and lanes == "half":
+                k2_err = err
     k1_err, k1_rel = k1_errs["uint32"]
     log(f"kernels agree with their plain versions (u32 and u64 index; "
         f"indices 2^32-1, 2^31 and 2^32+3 among the edge cases): "
         f"K1 (half route; the warp route too, on a bucket of "
         f"{warp_bucket}) max |err| {k1_err:.3g}, max |err| / sum|terms| "
         f"{k1_rel:.3g} (rtol {K1_RTOL} of sum|terms|, atol {K1_ATOL}), "
-        f"K2 (global route) max |err| {k2_err:.3g} (rtol {K2_RTOL}, atol "
-        f"{K2_ATOL})")
+        f"K2 (global route, 16 lanes a row; 32 on the grown bucket) max "
+        f"|err| {k2_err:.3g} (rtol {K2_RTOL}, atol {K2_ATOL})")
     n_off, n_idx, n_val, n_g = narrow_edge_batch()
     t_off, t_val, t_g = (torch.from_numpy(a).to(cuda)
                          for a in (n_off, n_val, n_g))
@@ -1831,13 +1901,23 @@ def check_kernels(first):
         t_idx = torch.from_numpy(n_idx.astype(dtype)).to(cuda)
         narrow_err[name] = _check_narrow_k2(f"narrow {name}", t_off, t_idx,
                                             t_val, t_g)
+    # the ranking shape's [4, 4096] parts in one launch (private route):
+    # each part its own seeded edge batch, of its own fill
+    s_off, s_idx, s_val, s_g = _stack_parts(
+        [narrow_edge_batch(SEED + 11 + p) for p in range(SHARD_PARTS)])
+    for dtype in (np.uint32, np.uint64):
+        name = f"{SHARD_PARTS} parts {np.dtype(dtype).name}"
+        narrow_err[name] = _check_narrow_k2(
+            f"narrow {name}", *(torch.from_numpy(a).to(cuda) for a in (
+                s_off, s_idx.astype(dtype), s_val, s_g)))
     log(f"K2 agrees with its plain version on a narrow model's edge batch "
         f"through its private route ({RANK_NUM_FEATURES} weights, "
         f"{RANK_ROW_BUCKET} rows of indices 1-{RANK_FEATURES} with "
         f"duplicates, empty rows, indices 2^32-1, 2^31 and 2^32+3, an "
-        f"invalid index in the padded tail): max |err| u32 "
-        f"{narrow_err['uint32']:.3g}, u64 {narrow_err['uint64']:.3g} (rtol "
-        f"{K2_RTOL} of sum|terms|, atol {K2_ATOL})")
+        f"invalid index in the padded tail), one part and {SHARD_PARTS} "
+        f"stacked parts in one launch: max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in narrow_err.items())
+        + f" (rtol {K2_RTOL} of sum|terms|, atol {K2_ATOL})")
     w_small = torch.from_numpy(
         rng.randn(ROW_LENGTH_FEATURES).astype(np.float32)).to(cuda)
     lengths_err = {}
@@ -1879,7 +1959,7 @@ def check_kernels(first):
     k2_ms, k2_call = k2_fill + k2_kernel, call_ms(k2)
     log(f"csr_spmv_t at the main path's batch (global route): kernel "
         f"{k2_kernel * 1e3:.2f} us, zero fill {k2_fill * 1e3:.2f} us on the "
-        "device")
+        f"device (SM clock {sm_clock()} after it)")
     k2_plain = device_ms(lambda: csr.csr_spmv_t_plain(b_off, b_idx, b_val, g,
                                                       NUM_FEATURES))
     # the library yardstick: one torch.sparse CSR product on the same
@@ -3017,9 +3097,11 @@ def step_trace(name, fn, calls=None):
         kinds[_launch_kind(key)] = (us + t, count + n)
     out = {"launches": sum(n for _, n in by_kernel.values()),
            "device_us": sum(t for t, _ in by_kernel.values()),
-           "by_kind": {k: [round(us, 3), n] for k, (us, n) in kinds.items()}}
+           "by_kind": {k: [round(us, 3), n] for k, (us, n) in kinds.items()},
+           "sm_clock": sm_clock()}
     log(f"{name} step trace: {out['launches']} launches, "
-        f"{out['device_us']:.2f} us of device time; by kind: "
+        f"{out['device_us']:.2f} us of device time (SM clock "
+        f"{out['sm_clock']} after it); by kind: "
         + ", ".join(f"{k} {n} x {us:.2f} us" for k, (us, n) in
                     sorted(kinds.items(), key=lambda kv: -kv[1][0])))
     for key, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
@@ -3543,9 +3625,9 @@ PATH_KERNELS = {"linear": ("csr_spmv", "csr_spmv_t", "logistic_step",
                 "ranking": ("csr_spmv", "csr_spmv_t", "pair_sums",
                             "pair_sums_grad", "sgd_update")}
 # The kernels a traced step must launch, by kernel: the linear single-part
-# step's, the sharded linear step's over SHARD_PARTS parts (K1 and K2
-# once a part, K8 twice, K9 once), and the ranking step's K9 (its narrow
-# route).
+# step's, the sharded linear step's over SHARD_PARTS parts (K1 once a
+# part, K2 once for all of them with its one zero fill, K8 twice, K9
+# once), and the ranking step's K9 (its narrow route).
 STEP_CALLS = {
     "linear": {"csr_spmv_half_kernel": 1, "csr_spmv_warp_kernel": 0,
                "csr_spmv_t_kernel": 1, "csr_spmv_t_private_kernel": 0,
@@ -3554,7 +3636,7 @@ STEP_CALLS = {
                "sgd_update_narrow_kernel": 0},
     "sharded": {"csr_spmv_half_kernel": SHARD_PARTS,
                 "csr_spmv_warp_kernel": 0,
-                "csr_spmv_t_kernel": SHARD_PARTS,
+                "csr_spmv_t_kernel": 1, FILL: 1,
                 "csr_spmv_t_private_kernel": 0, "logistic_step_kernel": 0,
                 "logistic_sums_kernel": 1, "logistic_grad_kernel": 1,
                 "sgd_update_kernel": 1, "sgd_update_narrow_kernel": 0},
@@ -3634,7 +3716,8 @@ def make_factor_model(kind, lr, cls=None):
 
 def _plain_linear():
     """An autograd Function: CSR · w through the plain versions of K1
-    (forward) and K2 (backward)."""
+    (forward, a part at a time) and K2 (backward), on a flat batch or on
+    the stacked parts of a sharded one."""
     import torch
     from dmlc_tpu_torch.ops import csr
 
@@ -3643,6 +3726,9 @@ def _plain_linear():
         def forward(ctx, off, idx, val, w):
             ctx.save_for_backward(off, idx, val)
             ctx.features = w.numel()
+            if off.dim() == 2:
+                return torch.stack([csr.csr_spmv_plain(o, i, v, w)
+                                    for o, i, v in zip(off, idx, val)])
             return csr.csr_spmv_plain(off, idx, val, w)
 
         @staticmethod
@@ -3691,6 +3777,13 @@ def plain_factor_model(kind, lr):
             csr_cols = (batch["offset"], batch["index"], batch["value"])
             return [Linear.apply(*csr_cols, self.w),
                     Pair.apply(*csr_cols, batch["field"], self.V)]
+
+        def _parts_margin_terms(self, batch):
+            cols = ("offset", "index", "value", "field")
+            pairs = [Pair.apply(*(batch[k][p] for k in cols), self.V)
+                     for p in range(batch["label"].shape[0])]
+            return [Linear.apply(*(batch[k] for k in cols[:3]), self.w),
+                    torch.stack(pairs)]
 
     return make_factor_model(kind, lr, cls=Plain)
 
@@ -4362,8 +4455,10 @@ def plain_ranking_model(lr):
             return [Linear.apply(batch["offset"], batch["index"],
                                  batch["value"], self.w)]
 
-        def _block_objective(self, batch):
-            return Pairs.apply(self(batch), batch["label"], batch["qid"],
+        _parts_margin_terms = _margin_terms
+
+        def _pair_sums(self, margins, batch):
+            return Pairs.apply(margins, batch["label"], batch["qid"],
                                batch["weight"])
 
     return Plain(RANK_NUM_FEATURES, learning_rate=lr,
@@ -4627,6 +4722,99 @@ def allreduce_trace(fn, per_call):
     return ops, nccl_us
 
 
+def check_k2_parts(batch):
+    """K2 over the SHARD_PARTS parts of a sharded batch of the linear
+    corpus ([4, 8192], 10^6 weights) in one launch, against its plain
+    version: as parsed, then with part 1 exhausted (no row, no nonzero),
+    u32 and u64, each by its global route with its lanes read from the
+    trace. Then timed: the one launch (kernel and its one fill), beside
+    the way the sharded step took before, a single-part call a part and
+    3 adds of the 4 MB gradients, and beside one torch.sparse product,
+    the parts' rows stacked as one CSR matrix A, Aᵀ @ g = Σ_p A_pᵀ g_p.
+    Returns its kernels-line row."""
+    import numpy as np
+    import torch
+    from dmlc_tpu_torch.ops import csr
+    off, idx, val = batch["offset"], batch["index"], batch["value"]
+    parts, n = off.shape[0], off.shape[1] - 1
+    cuda = off.device
+    g = torch.from_numpy(np.random.RandomState(SEED + 21).randn(
+        parts, n).astype(np.float32)).to(cuda)
+    lanes = csr.csr_spmv_route(idx.shape[1], n)
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    ex = [host[k].copy() for k in ("offset", "index", "value")]
+    for a in ex:
+        a[1] = 0
+    ex_u64 = torch.from_numpy(ex[1].astype(np.uint64)).to(cuda)
+    ex = [torch.from_numpy(a).to(cuda) for a in ex]
+    errs = {}
+    for name, o, i, v in (("as parsed", off, idx, val),
+                          ("part 1 exhausted", *ex),
+                          ("part 1 exhausted, u64", ex[0], ex_u64, ex[2])):
+        errs[name] = _check_k2_global(f"{parts} parts, {name}", o, i, v, g,
+                                      lanes)
+    log(f"K2 over {parts} parts of {n} rows in one launch (global route, "
+        f"{csr.K1_LANES[lanes]} lanes a row) agrees with its plain version: "
+        "max |err| " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + f" (rtol {K2_RTOL}, atol {K2_ATOL})")
+
+    def one():
+        return csr.csr_spmv_t(off, idx, val, g, NUM_FEATURES)
+
+    def four():
+        acc = csr.csr_spmv_t(off[0], idx[0], val[0], g[0], NUM_FEATURES)
+        for p in range(1, parts):
+            acc += csr.csr_spmv_t(off[p], idx[p], val[p], g[p],
+                                  NUM_FEATURES)
+        return acc
+
+    fill, kernel = _fill_and_kernel(one, "csr_spmv_t", "global")
+    clock = sm_clock()
+    per_part = device_ms(four, calls={
+        ROUTE_KERNELS["csr_spmv_t"]["global"]: parts, FILL: parts})
+    plain_ms = device_ms(lambda: csr.csr_spmv_t_plain(off, idx, val, g,
+                                                      NUM_FEATURES))
+    nnzs = [int(x) for x in host["num_nnz"]]
+    crow = np.concatenate([[0]] + [host["offset"][p, 1:] + sum(nnzs[:p])
+                                   for p in range(parts)])
+    a = torch.sparse_csr_tensor(
+        torch.from_numpy(crow).to(cuda),
+        torch.from_numpy(np.concatenate([host["index"][p, :nnzs[p]]
+                                         for p in range(parts)])
+                         .astype(np.int64)).to(cuda),
+        torch.from_numpy(np.concatenate([host["value"][p, :nnzs[p]]
+                                         for p in range(parts)])).to(cuda),
+        size=(parts * n, NUM_FEATURES))
+    try:
+        at, g_flat = a.t(), g.flatten()
+        lib_err = (at @ g_flat - one()).abs()
+        torch.cuda.synchronize()
+        require(bool((lib_err <= K2_ATOL + K2_RTOL * one().abs()).all()),
+                f"K2 over {parts} parts disagrees with torch.sparse: max "
+                f"|err| {lib_err.max().item()}")
+        library = device_ms(lambda: at @ g_flat)
+    except RuntimeError as e:
+        log(f"library K2 over {parts} parts (A.t() @ g) not timed: {e}")
+        library = None
+    nbytes = (parts * ((n + 1) * 8 + n * 4) + sum(nnzs) * (4 + 4)
+              + NUM_FEATURES * 4)
+    bound, by = bound_ms(nbytes, 2 * sum(nnzs))
+    log(f"K2 over {parts} parts of {n} rows ({sum(nnzs)} nonzeros): one "
+        f"launch {(fill + kernel) * 1e3:.2f} us on the device (kernel "
+        f"{kernel * 1e3:.2f}, its one zero fill {fill * 1e3:.2f}; SM clock "
+        f"{clock}); a call a part and 3 adds {per_part * 1e3:.2f} us; plain "
+        f"{plain_ms * 1e3:.2f} us; library "
+        + ("not timed" if library is None else f"{library * 1e3:.2f} us")
+        + f"; bound {bound * 1e3:.2f} us ({by}, {nbytes} bytes)")
+    return {"name": "csr_spmv_t", "route": "cuda",
+            "source": "dmlc_tpu_torch/csrc/csr_spmv.cu",
+            "replaces": "dmlc_tpu/models/common.py:132",
+            "max_abs_err": errs["as parsed"], "ms": fill + kernel,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library, "call_ms": call_ms(one),
+            "per_part_ms": per_part}
+
+
 def sharded_path(path, size, lr, mesh, single):
     """Three epochs of SparseLinearModel(10^6)'s sharded step over the
     linear corpus through ``Pipeline.shard`` on ``mesh``; then one step's
@@ -4677,14 +4865,13 @@ def sharded_path(path, size, lr, mesh, single):
     e1, e2, e3 = epochs
     steps = e1["steps"]
     require(steps > 0, "the sharded epoch yielded no batch")
-    want = {"csr_spmv": SHARD_PARTS * steps,
-            "csr_spmv_t": SHARD_PARTS * steps, "logistic_step": 0,
-            "logistic_sums": steps, "logistic_grad": steps,
-            "sgd_update": steps}
+    want = {"csr_spmv": SHARD_PARTS * steps, "csr_spmv_t": steps,
+            "logistic_step": 0, "logistic_sums": steps,
+            "logistic_grad": steps, "sgd_update": steps}
     require(e1["launches"] == want,
-            f"sharded launch counts {e1['launches']} != {want}: K1 and K2 "
-            f"did not launch once a part a step, or K8's two launches and "
-            f"K9 once a step")
+            f"sharded launch counts {e1['launches']} != {want}: K1 did not "
+            f"launch once a part a step, or K2, K8's two launches and K9 "
+            f"once a step")
     losses = e1["losses"]
     require(all(x == x and abs(x) != float("inf") for x in losses),
             f"sharded: non-finite loss in {losses}")
@@ -4712,10 +4899,14 @@ def sharded_path(path, size, lr, mesh, single):
     gen.close()
     traced = step_trace("sharded", lambda: step(batch),
                         STEP_CALLS["sharded"])
+    require("elementwise" not in traced["by_kind"],
+            f"sharded step: launches by kind {traced['by_kind']}; want K2's "
+            "one zero fill and no add of w's gradients")
     step_us = traced["device_us"]
     ops, nccl_us = allreduce_trace(lambda: step(batch), SHARD_ALLREDUCES)
     log(f"sharded step: all-reduce ops {ops}, NCCL kernels {nccl_us:.2f} "
         "us of device time a step")
+    k2_parts = check_k2_parts(batch)
     built.close()
 
     gbps = [size / e["secs"] / 1e9 for e in epochs]
@@ -4728,7 +4919,7 @@ def sharded_path(path, size, lr, mesh, single):
              "allreduce_device_us_per_step": nccl_us,
              "allreduce_ops": ops, "step_device_us": step_us,
              "step": traced, "launches": e1["launches"],
-             "knobs": built.knob_values()}
+             "knobs": built.knob_values(), "k2_parts_row": k2_parts}
     log(f"sharded parse-to-device with training: epochs 1 (parse), 2 "
         f"(parse, tee), 3 (memory replay): "
         + " / ".join(f"{x:.3f}" for x in gbps) + " GB/s, "
@@ -4957,7 +5148,7 @@ def spill_path(path, size, lr, mesh, work, sharded):
     for i, e in enumerate(epochs):
         # round_unpack once a round in a page epoch, never in a parse one
         want = {"csr_spmv": SHARD_PARTS * steps,
-                "csr_spmv_t": SHARD_PARTS * steps, "logistic_step": 0,
+                "csr_spmv_t": steps, "logistic_step": 0,
                 "logistic_sums": steps, "logistic_grad": steps,
                 "sgd_update": steps,
                 "round_unpack": steps if e["tier"] == "pages" else 0}
@@ -7564,6 +7755,8 @@ def plain_linear_model(num_features, lr):
             return [Linear.apply(batch["offset"], batch["index"],
                                  batch["value"], self.w)]
 
+        _parts_margin_terms = _margin_terms
+
     return Plain(num_features, learning_rate=lr, device=torch.device("cuda"))
 
 
@@ -8214,8 +8407,8 @@ def chaos_spill_run(uri, lr, mesh, work, tag, plan_spec=None):
 
 def _check_chaos_run(tag, run, want_steps):
     """One chaos_spill_run's own checks: the tiers, the launch counts
-    (K1 and K2 once a part a step, K8's two launches and K9 once a step
-    on the mesh; K1, K2, K8 and K9 once a step in the cache epoch), every
+    (K1 once a part a step, K2, K8's two launches and K9 once a step on
+    the mesh; K1, K2, K8 and K9 once a step in the cache epoch), every
     epoch's batches equal to its epoch 1's and the loss falling (the
     run itself held both restores bit for bit)."""
     epochs = run["epochs"]
@@ -8226,10 +8419,9 @@ def _check_chaos_run(tag, run, want_steps):
     steps = epochs[0]["steps"]
     require(want_steps is None or steps == want_steps,
             f"chaos {tag}: {steps} steps an epoch, want {want_steps}")
-    want = {"csr_spmv": SHARD_PARTS * steps,
-            "csr_spmv_t": SHARD_PARTS * steps, "logistic_step": 0,
-            "logistic_sums": steps, "logistic_grad": steps,
-            "sgd_update": steps}
+    want = {"csr_spmv": SHARD_PARTS * steps, "csr_spmv_t": steps,
+            "logistic_step": 0, "logistic_sums": steps,
+            "logistic_grad": steps, "sgd_update": steps}
     for i, e in enumerate(epochs):
         require(e["steps"] == steps and e["launches"] == want,
                 f"chaos {tag}: epoch {i + 1} ({e['tier']}) took {e['steps']}"
@@ -10043,7 +10235,7 @@ def multicard_path(linear, lr, work, device="cuda", cards=None, gloo7=None,
                 for x in res),
             f"multicard path: epochs served by "
             f"{[[ep['tier'] for ep in x['epochs']] for x in res]}")
-    want_launches = {"csr_spmv": 2 * steps, "csr_spmv_t": 2 * steps,
+    want_launches = {"csr_spmv": 2 * steps, "csr_spmv_t": steps,
                      "logistic_step": 0, "logistic_sums": steps,
                      "logistic_grad": steps, "sgd_update": steps}
     if on_card:
@@ -10230,8 +10422,11 @@ def main() -> None:
         mesh = init_nccl()
         stats["sharded"] = sharded_path(path, size, LEARNING_RATE, mesh,
                                         stats)
-        report_kernels(sharded_rows, stats["sharded"]["launches"],
+        k2_parts = stats["sharded"].pop("k2_parts_row")
+        report_kernels(sharded_rows + [k2_parts],
+                       stats["sharded"]["launches"],
                        stats["sharded"]["steps"])
+        rows.append(k2_parts)
         stats["spill"] = spill_path(path, size, LEARNING_RATE, mesh, work,
                                     stats["sharded"])
         rows.append(stats["spill"]["kernel"])

@@ -30,7 +30,11 @@ class SparseModelBase(nn.Module):
     Subclasses provide ``_BATCH_KEYS`` (the batch columns their objective
     consumes beyond label/weight) and ``_margin_terms(batch)``: the margins
     without the bias ``b``, as one or two ``[rows]`` terms, whose sum plus
-    ``b`` is ``forward``. The base's objective, ``_objective``, is the
+    ``b`` is ``forward``. ``_parts_margin_terms(batch)`` gives the same
+    terms, ``[L, rows]`` each, for this process's L parts of a sharded
+    batch; a model whose K1 term takes all the parts at once
+    (``ops.csr.parts_spmv``: one K2 launch for them in the backward)
+    overrides it. The base's objective, ``_objective``, is the
     weighted logistic loss of those margins, run with its margin gradient
     through kernel K8 (``ops.step``); the ranking model overrides it with
     its pairwise objective.
@@ -49,6 +53,14 @@ class SparseModelBase(nn.Module):
 
     def _margin_terms(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
         raise NotImplementedError
+
+    def _parts_margin_terms(self, batch: Dict[str, Any]
+                            ) -> List[torch.Tensor]:
+        """The margin terms of this process's parts of a sharded batch,
+        ``[L, rows]`` each: each part's ``_margin_terms``, stacked."""
+        return [torch.stack(ts) for ts in zip(*(
+            self._margin_terms(self._part(batch, p))
+            for p in range(batch["label"].shape[0])))]
 
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Margins for one flat padded CSR batch."""
@@ -71,13 +83,12 @@ class SparseModelBase(nn.Module):
         gradient Σ g; on a mesh the terms are stacked over the parts, K8's
         first launch sums (lsum, wsum), which is all-reduced, and its
         second reads the group's W on the device. Autograd sends g back
-        through each term's kernels."""
+        through each term's kernels: on a mesh K2 once for all the
+        parts (``_parts_margin_terms``)."""
         if mesh is None:
             terms = self._margin_terms(batch)
         else:
-            terms = [torch.stack(ts) for ts in zip(*(
-                self._margin_terms(self._part(batch, p))
-                for p in range(batch["label"].shape[0])))]
+            terms = self._parts_margin_terms(batch)
         args = ([t.detach() for t in terms], self.b.detach(),
                 batch["label"], batch["weight"])
         if mesh is None:

@@ -3,11 +3,12 @@ padded CSR batches.
 
 Counterpart of ``dmlc_tpu/models/fm.py``. The margin of a row is
 ``b + Σ_i w_i x_i + pair``: the linear term is the CSR SpMV (kernel K1,
-gradient K2, ``ops.csr.segment_spmv``), the pair term FM's (Rendle 2010,
-the O(nnz·K) identity; kernel K5 forward and backward, ``ops.fm.fm_pair``)
-or FFM's (Juan et al. 2016, one K-vector per feature and field, the
-partner's field selects it; kernel K6 forward and backward,
-``ops.fm.ffm_pair``). Plain FM ignores ``field``. The step's objective is
+gradient K2, ``ops.csr.segment_spmv``; on a sharded batch
+``ops.csr.parts_spmv``, K2 once for all of a process's parts), the pair
+term FM's (Rendle 2010, the O(nnz·K) identity; kernel K5 forward and
+backward, ``ops.fm.fm_pair``) or FFM's (Juan et al. 2016, one K-vector
+per feature and field, the partner's field selects it; kernel K6 forward
+and backward, ``ops.fm.ffm_pair``). Plain FM ignores ``field``. The step's objective is
 K8 and its update K9 (``models.common``). Padded rows carry
 weight 0, so they are loss- and gradient-neutral.
 """
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from dmlc_tpu_torch.models.common import SparseModelBase
-from dmlc_tpu_torch.ops.csr import segment_spmv
+from dmlc_tpu_torch.ops.csr import parts_spmv, segment_spmv
 from dmlc_tpu_torch.ops.fm import ffm_pair, fm_pair
 from dmlc_tpu_torch.utils.logging import check
 
@@ -62,6 +63,15 @@ class _SparseFactorModelBase(SparseModelBase):
                              batch["value"], self.w,
                              num_rows=batch["label"].shape[0]),
                 self._pair(batch)]
+
+    def _parts_margin_terms(self, batch: Dict[str, Any]
+                            ) -> List[torch.Tensor]:
+        """The linear term of all the parts at once; the pair term a part,
+        stacked."""
+        return [parts_spmv(batch["offset"], batch["index"], batch["value"],
+                           self.w),
+                torch.stack([self._pair(self._part(batch, p))
+                             for p in range(batch["label"].shape[0])])]
 
     def predict_proba(self, batch: Dict[str, Any]) -> torch.Tensor:
         return torch.sigmoid(self(batch))

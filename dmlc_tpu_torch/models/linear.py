@@ -3,7 +3,8 @@
 Counterpart of ``dmlc_tpu/models/linear.py``: the margin is the CSR SpMV
 (kernel K1 on the card) plus the bias, and the weight gradient its
 transpose (kernel K2), paired in ``ops.csr.segment_spmv``'s autograd
-function; the step's objective is K8 and its update K9
+function, and on a sharded batch in ``ops.csr.parts_spmv``'s (K2 once
+for all of a process's parts); the step's objective is K8 and its update K9
 (``models.common``). Padded rows carry weight 0, so they are loss- and
 gradient-neutral.
 """
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 
 from dmlc_tpu_torch.models.common import SparseModelBase
-from dmlc_tpu_torch.ops.csr import segment_spmv
+from dmlc_tpu_torch.ops.csr import parts_spmv, segment_spmv
 
 __all__ = ["SparseLinearModel"]
 
@@ -41,6 +42,11 @@ class SparseLinearModel(SparseModelBase):
         return [segment_spmv(batch["offset"], batch["index"],
                              batch["value"], self.w,
                              num_rows=batch["label"].shape[0])]
+
+    def _parts_margin_terms(self, batch: Dict[str, Any]
+                            ) -> List[torch.Tensor]:
+        return [parts_spmv(batch["offset"], batch["index"], batch["value"],
+                           self.w)]
 
     def predict_proba(self, batch: Dict[str, Any]) -> torch.Tensor:
         return torch.sigmoid(self(batch))

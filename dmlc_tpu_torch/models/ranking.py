@@ -2,7 +2,8 @@
 libsvm ``qid`` column.
 
 Counterpart of ``dmlc_tpu/models/ranking.py``. Scores are
-``m_i = w·x_i + b`` (the CSR SpMV, kernel K1 on the card, gradient K2);
+``m_i = w·x_i + b`` (the CSR SpMV, kernel K1 on the card, gradient K2;
+on a sharded batch K2 once for all of a process's parts);
 for documents i, j of the same query with label_i > label_j the loss is
 softplus(−(m_i − m_j)), weighted by weight_i·weight_j and averaged over
 the pairs (kernel K7, forward and backward, ``ops.ranking``). Padded rows
@@ -22,7 +23,7 @@ import torch
 from torch import nn
 
 from dmlc_tpu_torch.models.common import SparseModelBase, _weighted_mean
-from dmlc_tpu_torch.ops.csr import segment_spmv
+from dmlc_tpu_torch.ops.csr import parts_spmv, segment_spmv
 from dmlc_tpu_torch.ops.ranking import pair_sums_autograd, pair_weights_plain
 from dmlc_tpu_torch.utils.logging import DMLCError
 
@@ -58,9 +59,28 @@ class SparseRankingModel(SparseModelBase):
                              batch["value"], self.w,
                              num_rows=batch["label"].shape[0])]
 
-    def _block_objective(self, batch: Dict[str, Any]):
-        """(loss sum, weight sum) of one part's pairs through K7."""
-        num_rows = batch["label"].shape[0]
+    def _parts_margin_terms(self, batch: Dict[str, Any]
+                            ) -> List[torch.Tensor]:
+        return [parts_spmv(batch["offset"], batch["index"], batch["value"],
+                           self.w)]
+
+    def _pair_sums(self, margins: torch.Tensor, batch: Dict[str, Any]):
+        """(loss sum, weight sum) of one part's pairs through K7, from
+        its margins."""
+        return pair_sums_autograd(margins, batch["label"], batch["qid"],
+                                  batch["weight"])
+
+    def _objective(self, batch: Dict[str, Any], mesh=None,
+                   backward: bool = False) -> torch.Tensor:
+        """The pairwise objective (see ``SparseModelBase._objective``),
+        differentiated by autograd through K7. Each part pairs only its
+        own rows, as the reference's ``shard_map`` runs it on each
+        device's block, and ``max_row_bucket`` applies to a part's rows,
+        checked before any launch; on a mesh the parts' margins come from
+        one stacked term (``_parts_margin_terms``). The loss and weight
+        sums of the parts (and of the group) are summed before
+        normalising."""
+        num_rows = batch["label"].shape[-1]
         if num_rows > self.max_row_bucket:
             raise DMLCError(
                 f"SparseRankingModel: row bucket {num_rows} exceeds "
@@ -69,24 +89,15 @@ class SparseRankingModel(SparseModelBase):
                 f"(~{num_rows * num_rows * 4 / 1e9:.1f} GB each there); use "
                 "a smaller row_bucket in the batch iterator, or raise "
                 "max_row_bucket explicitly")
-        return pair_sums_autograd(self(batch), batch["label"], batch["qid"],
-                                  batch["weight"])
-
-    def _objective(self, batch: Dict[str, Any], mesh=None,
-                   backward: bool = False) -> torch.Tensor:
-        """The pairwise objective (see ``SparseModelBase._objective``),
-        differentiated by autograd through K7. Each part pairs only its
-        own rows, as the reference's ``shard_map`` runs it on each
-        device's block, and ``max_row_bucket`` applies to a part's rows;
-        the loss and weight sums of the parts (and of the group) are
-        summed before normalising."""
-        parts = ([batch] if mesh is None else
-                 [self._part(batch, p)
-                  for p in range(batch["label"].shape[0])])
-        lsum, wsum = self._block_objective(parts[0])
-        for part in parts[1:]:
-            ls, ws = self._block_objective(part)
-            lsum, wsum = lsum + ls, wsum + ws
+        if mesh is None:
+            lsum, wsum = self._pair_sums(self(batch), batch)
+        else:
+            margins = self._parts_margin_terms(batch)[0] + self.b
+            sums = [self._pair_sums(m, self._part(batch, p))
+                    for p, m in enumerate(margins.unbind(0))]
+            lsum, wsum = sums[0]
+            for ls, ws in sums[1:]:
+                lsum, wsum = lsum + ls, wsum + ws
         if mesh is None:
             loss = _weighted_mean(lsum, wsum.detach())
             if backward:

@@ -6,7 +6,9 @@ jnp. Here each device computation is a CUDA kernel written by hand
 of the same function beside it:
 
 - K1 ``csr_spmv``:    y[i] = Σ_{offset[i] ≤ k < offset[i+1]} value[k]·w[index[k]]
-- K2 ``csr_spmv_t``:  grad_w[index[k]] += value[k]·g[row(k)]
+- K2 ``csr_spmv_t``:  grad_w[index[k]] += value[k]·g[row(k)], over one CSR
+  block or over the L parts of a stacked one (``[L, ...]`` columns) into
+  one grad_w
 - K3 ``sdot_rows``:   y[n] = Σ_k w[index[n,k]]·value[n,k] over padded ELL rows
 - K4 ``csr_to_dense``: dense[row(k), index[k]] += value[k], a zeroed
   ``[rows, cols]`` float32 matrix (duplicate columns of a row add up)
@@ -16,10 +18,11 @@ for CUDA tensors it launches the kernel or raises. K1 has two routes on
 the card, which :func:`csr_spmv_route` picks from the batch's nonzeros a
 row: "half" (16 lanes a row) and "warp" (32). K2 has two, which
 :func:`csr_spmv_t_route` picks from the model's width, the batch's
-nonzeros and the card: "global" (one atomic into grad_w per nonzero) and
-"private" (each block sums into its own copy of grad_w in shared memory,
-then adds it into grad_w). K4 has two, which :func:`csr_to_dense_route`
-picks from the matrix's width and the card: "tile" (a block builds
+nonzeros of all its parts and the card: "global" (K1's lanes a row, one
+atomic into grad_w per nonzero) and "private" (each block sums into its
+own copy of grad_w in shared memory, then adds it into grad_w). K4 has
+two, which :func:`csr_to_dense_route` picks from the matrix's width and
+the card: "tile" (a block builds
 K4_TILE_ROWS rows of the matrix in shared memory and writes them once)
 and "global" (one atomic into a zeroed matrix per nonzero). Each wrapper
 counts its kernel launches in ``.launches``. ``csr_to_padded_rows`` is the
@@ -48,7 +51,8 @@ from dmlc_tpu_torch.ops.kernels import (
 )
 from dmlc_tpu_torch.utils.logging import check
 
-__all__ = ["csr_row_ids", "segment_spmv", "spmv", "csr_spmv", "csr_spmv_t",
+__all__ = ["csr_row_ids", "segment_spmv", "spmv", "parts_spmv", "csr_spmv",
+           "csr_spmv_t",
            "csr_spmv_plain", "csr_spmv_t_plain", "csr_spmv_route",
            "csr_spmv_t_route",
            "sdot_rows",
@@ -151,13 +155,23 @@ def csr_spmv_plain(offset: torch.Tensor, index: torch.Tensor,
 def csr_spmv_t_plain(offset: torch.Tensor, index: torch.Tensor,
                      value: torch.Tensor, g: torch.Tensor,
                      num_features: int) -> torch.Tensor:
-    """Plain version of K2: index_add_ of value·g[row] into grad_w."""
-    rows = _segment_ids(offset, index.numel())
+    """Plain version of K2, flat (offset ``[R+1]``, index and value
+    ``[nnz]``, g ``[R]``) or stacked (``[L, R+1]``, ``[L, nnz]``, ``[L,
+    R]``): one index_add_ of value·g[row] over every part's nonzeros below
+    that part's offset[-1] into one grad_w."""
+    if offset.dim() == 1:
+        offset, index, value, g = (t[None] for t in (offset, index, value, g))
+    n = offset.shape[1] - 1
+    k = torch.arange(index.shape[1], dtype=offset.dtype,
+                     device=offset.device).expand(index.shape).contiguous()
+    rows = torch.searchsorted(offset.contiguous(), k, right=True) - 1
+    rows = torch.where((rows < 0) | (rows >= n), n, rows)  # n: no row
     idx, keep = wrap_index(index, num_features)
-    g_ext = torch.cat([g, g.new_zeros(1)])  # row n: the dropped tail
-    contrib = torch.where(keep, value * g_ext[rows], 0.0)
+    g_ext = torch.cat([g, g.new_zeros(g.shape[0], 1)], dim=1)
+    contrib = torch.where(keep & (rows < n), value * g_ext.gather(1, rows),
+                          0.0)
     grad = torch.zeros(num_features, dtype=g.dtype, device=g.device)
-    grad.index_add_(0, idx, contrib)
+    grad.index_add_(0, idx.flatten(), contrib.flatten())
     return grad
 
 
@@ -209,11 +223,11 @@ def csr_spmv_t_route(num_features: int, nnz: int, sms: int,
                      max_shared: int) -> str:
     """K2's route on a card of ``sms`` SMs whose blocks may opt in to
     ``max_shared`` bytes of shared memory (the private kernel has no
-    static shared memory), for a model of
-    ``num_features`` weights and a batch of ``nnz`` nonzeros (its bucket,
-    padded tail included): ``"private"`` where the F floats of grad_w fit
-    a block's shared memory and the flush, K2_BLOCKS_PER_SM · sms · F
-    global atomics, is at most K2_FLUSH_PER_NNZ per nonzero; else
+    static shared memory), for a model of ``num_features`` weights and a
+    call of ``nnz`` nonzeros (the buckets of all its parts, padded tails
+    included): ``"private"`` where the F floats of grad_w fit a block's
+    shared memory and the flush, K2_BLOCKS_PER_SM · sms · F global
+    atomics, is at most K2_FLUSH_PER_NNZ per nonzero; else
     ``"global"``. On an H100 (132 SMs), at 4096 rows of 136 nonzeros, the
     private route ran 7.3×, 9.3×, 2.0× and 1.24× faster than the global
     one at 137, 1,024, 8,192 and 16,384 weights, and 1.17× slower at
@@ -226,22 +240,52 @@ def csr_spmv_t_route(num_features: int, nnz: int, sms: int,
     return "private" if flush <= K2_FLUSH_PER_NNZ * nnz else "global"
 
 
+# The most parts one K2 launch takes (its grid's second dimension).
+K2_MAX_PARTS = 65535
+
+
 def csr_spmv_t(offset: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
                g: torch.Tensor, num_features: int) -> torch.Tensor:
-    """K2: grad_w[num_features] = CSRᵀ · g (see module docstring)."""
-    _check_csr(offset, index, value, g, "g")
-    n = offset.numel() - 1
-    check(g.numel() == n, f"g must have one entry per row ({n}), "
-          f"got {g.numel()}")
+    """K2: grad_w[num_features] = CSRᵀ · g of one CSR block (offset
+    ``[R+1]``, index and value ``[nnz]``, g ``[R]``), or Σ_p CSR_pᵀ · g_p
+    over the L parts of a stacked one (``[L, R+1]``, ``[L, nnz]``, ``[L,
+    R]``; each part its own padded block): one zero fill and one launch
+    either way (see module docstring)."""
+    dims = offset.dim()
+    check(dims in (1, 2) and offset.shape[-1] >= 1
+          and offset.dtype == torch.int64,
+          f"offset must be [R+1] or [L, R+1] int64 with >= 1 entry a part, "
+          f"got {tuple(offset.shape)} {offset.dtype}")
+    _check_index_value(index, value, dims)
+    check(g.dtype == torch.float32, f"g must be float32, got {g.dtype}")
+    _check_device((offset, index, value, g), "CSR tensors and g")
+    check(dims == 1 or index.shape[0] == offset.shape[0],
+          f"index and value must hold a row of nonzeros a part "
+          f"({offset.shape[0]}), got {tuple(index.shape)}")
+    n = offset.shape[-1] - 1
+    rows_shape = tuple(offset.shape[:-1]) + (n,)
+    check(tuple(g.shape) == rows_shape, f"g must have one entry per row "
+          f"{rows_shape}, got {tuple(g.shape)}")
     if g.device.type == "cpu":
         return csr_spmv_t_plain(offset, index, value, g, num_features)
     check(g.is_cuda, f"csr_spmv_t runs on cuda or cpu, got {g.device}")
+    parts, nnz = (1 if dims == 1 else offset.shape[0]), index.shape[-1]
+    check(nnz <= _INT32_MAX and parts * n < _INT32_MAX
+          and parts <= K2_MAX_PARTS,
+          f"csr_spmv_t takes fewer than 2^31 nonzeros a part and rows in "
+          f"all, and at most {K2_MAX_PARTS} parts, got {nnz}, {parts * n} "
+          f"and {parts}")
+    for t in (offset, index, value, g):
+        check(t.is_contiguous(), "csr_spmv_t needs contiguous tensors")
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    private = csr_spmv_t_route(num_features, index.numel(), sms,
+    private = csr_spmv_t_route(num_features, parts * nnz, sms,
                                max_shared_bytes(g.device)) == "private"
     grad = torch.zeros(num_features, dtype=torch.float32, device=g.device)
-    _launch("dmlc_csr_spmv_t", offset, index, value, g, n, num_features,
-            grad, K2_BLOCKS_PER_SM * sms if private else 0)
+    launch("dmlc_csr_spmv_t", g.device, offset.data_ptr(), index.data_ptr(),
+           INDEX_BYTES[index.dtype], value.data_ptr(), g.data_ptr(), parts,
+           n, nnz, num_features, grad.data_ptr(),
+           K1_LANES[csr_spmv_route(nnz, n)],
+           K2_BLOCKS_PER_SM * sms if private else 0)
     count(csr_spmv_t)
     return grad
 
@@ -251,14 +295,19 @@ csr_spmv_t.launches = 0
 
 
 class _CSRSpMV(torch.autograd.Function):
-    """y = CSR · w with K1 forward and K2 backward (gradient in w only:
-    the CSR batch is data)."""
+    """y = CSR · w, flat or over the L parts of a stacked batch (y [L,
+    R]), with K1 forward (a launch a part) and K2 backward (one launch for
+    all the parts, so w's gradient is one zeroed vector with no sum over
+    parts after it); the gradient is in w only: the CSR batch is data."""
 
     @staticmethod
     def forward(ctx, offset, index, value, w):
         ctx.save_for_backward(offset, index, value)
         ctx.num_features = w.numel()
-        return csr_spmv(offset, index, value, w)
+        if offset.dim() == 1:
+            return csr_spmv(offset, index, value, w)
+        return torch.stack([csr_spmv(o, i, v, w)
+                            for o, i, v in zip(offset, index, value)])
 
     @staticmethod
     def backward(ctx, g):
@@ -290,6 +339,19 @@ def spmv(offset, index, value, weights) -> torch.Tensor:
                         num_rows=offset.numel() - 1)
 
 
+def parts_spmv(offset: torch.Tensor, index: torch.Tensor,
+               value: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """y ``[L, R]``: each part's CSR · ``weights`` over the L parts of a
+    stacked batch (offset ``[L, R+1]``, index and value ``[L, nnz]``, each
+    part its own padded block), differentiable in ``weights``: K1 a part,
+    and in the backward one K2 launch for all L parts."""
+    check(offset.dim() == 2 and index.dim() == 2
+          and index.shape[0] == offset.shape[0],
+          f"parts_spmv takes a stacked batch, offset [L, R+1] and index "
+          f"[L, nnz], got {tuple(offset.shape)} and {tuple(index.shape)}")
+    return _CSRSpMV.apply(offset, index, value, weights)
+
+
 def sharded_spmv(batch, weights: torch.Tensor, mesh,
                  axis: str = "data") -> torch.Tensor:
     """SpMV over a sharded batch (``parallel.sharded`` layout): each
@@ -297,33 +359,20 @@ def sharded_spmv(batch, weights: torch.Tensor, mesh,
     ``mesh``, each part its own padded CSR block. Returns y ``[L,
     row_bucket]``, part p's rows in row p, differentiable in
     ``weights`` (counterpart of the reference's ``sharded_spmv``, K1
-    under ``shard_map``).
+    under ``shard_map``), through :func:`parts_spmv`.
 
-    One K1 launch a part (K2 too, in the backward), not one for all L
-    parts over a flattened CSR. In a flat CSR part p's padded tail (the
-    nonzeros past its ``num_nnz``, index 0, value 0) lies between its
-    last row and part p+1's first, so it has to belong to a row: each
-    part would take an extra "sink" row that owns its tail and is
-    dropped from y. That is exact (with ``w[0] = inf`` the sink row is
-    NaN, and dropped), but the sink row of a part holds every tail
-    nonzero (about 86,000 for 8192 rows of the Criteo-shaped corpus's
-    34.5 a row in a bucket of 368,640, and the whole bucket for an
-    exhausted part): K1 sums a row with 16 or 32
-    lanes, so one such row outlasts the rest of the launch, and the
-    backward adds ``0·0`` into ``grad_w[0]`` once a tail nonzero, every
-    atomic at one address. A launch a part keeps each block exactly the
-    reference's (its tail past ``offset[-1]``, never visited) and each
-    launch the single-part path's shape; the sharded path is
-    parse-bound, so L launches of a few µs cost nothing it can see."""
+    Each part stays its own block, exactly the reference's: its offsets
+    its own, its padded tail past its ``offset[-1]`` never visited, so no
+    part's tail has to belong to a row. K1 launches once a part. The
+    backward is one K2 launch that takes every part's block by its own
+    offsets and adds them all into one zeroed gradient of ``weights``,
+    as the reference's one ``jax.vjp`` over ``shard_map`` gives one."""
     num_parts = len(mesh.local_parts(axis))
     check(batch["offset"].shape[0] == num_parts,
           f"the batch holds {batch['offset'].shape[0]} parts, the mesh "
           f"gives this process {num_parts} along {axis!r}")
-    row_bucket = batch["offset"].shape[1] - 1
-    return torch.stack([
-        segment_spmv(batch["offset"][p], batch["index"][p],
-                     batch["value"][p], weights, num_rows=row_bucket)
-        for p in range(num_parts)])
+    return parts_spmv(batch["offset"], batch["index"], batch["value"],
+                      weights)
 
 
 # ------------------------------------------------------------ K3, K4

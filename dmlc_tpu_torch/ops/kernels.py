@@ -39,8 +39,11 @@ _SIGNATURES = {
     # offset, index, index_bytes, value, w, rows, nnz, features, y, lanes
     # (16: the half route, 32: the warp route)
     "dmlc_csr_spmv": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _I, _P],
-    # ..., grad_w, blocks (0: global route)
-    "dmlc_csr_spmv_t": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _P, _I64, _P],
+    # offset [parts, rows+1], index, index_bytes, value [parts, nnz], g
+    # [parts, rows], parts, rows, nnz (a part's), features, grad_w, lanes
+    # (the global route's, 16 or 32), blocks (0: global route)
+    "dmlc_csr_spmv_t": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _I64, _P, _I,
+                        _I64, _P],
     # offset, index, index_bytes, value, V, rows, nnz, features, K, pair, s,
     # vector (1: vector route)
     "dmlc_fm_pair_fwd": [_P, _P, _I, _P, _P, _I64, _I64, _I64, _I64, _P, _P,

@@ -156,11 +156,17 @@ SM90_K2_SHARED = 232448
     (10**6, 368640, "global"),      # the linear batch: 10^6 weights
     (60000, 10**9, "global"),       # 240 KB: past a block's shared memory
     (0, 557056, "global"),          # no weight to flush
+    # a call over L parts counts every part's bucket
+    (32768, 4 * 557056, "private"),  # 4 ranking parts: 3.9 a nonzero
+    (137, 4 * 557056, "private"),
+    (10**6, 4 * 368640, "global"),   # 4 parts of the linear batch
+    (60000, 4 * 10**9, "global"),    # past shared memory at any nonzeros
 ])
 def test_k2_route(features, nnz, route):
     """K2 takes its private route where grad_w fits a block's shared
     memory and its flush (2 blocks an SM x 132 SMs x F atomics) is at
-    most K2_FLUSH_PER_NNZ a nonzero; else the global one."""
+    most K2_FLUSH_PER_NNZ a nonzero of the call (all its parts' buckets);
+    else the global one."""
     assert csr.csr_spmv_t_route(features, nnz, 132, SM90_K2_SHARED) == route
 
 
@@ -177,6 +183,29 @@ def test_k1_route(nnz, rows, route):
     a row (a row in one pass of 4 a lane), a warp a row beyond."""
     assert csr.csr_spmv_route(nnz, rows) == route
     assert csr.K1_LANES[route] == {"half": 16, "warp": 32}[route]
+
+
+def test_k2_checks_the_stacked_layout():
+    """A stacked call takes offset [L, R+1], index and value [L, nnz] and g
+    [L, R]; any other shape is refused with its name."""
+    offset, index, value, _, g = _csr(seed=0, rows=8)
+    off = _t(np.stack([offset, offset]))
+    idx = _t(np.stack([index, index]))
+    val = _t(np.stack([value, value]))
+    gg = _t(np.stack([g, g]))
+    ok = csr.csr_spmv_t(off, idx, val, gg, 500)
+    np.testing.assert_allclose(
+        ok.numpy(), 2 * csr.csr_spmv_t(*(_t(a) for a in (offset, index,
+                                                          value, g)),
+                                       500).numpy(), rtol=RTOL, atol=ATOL)
+    with pytest.raises(DMLCError, match="one entry per row"):
+        csr.csr_spmv_t(off, idx, val, _t(g), 500)
+    with pytest.raises(DMLCError, match="a row of nonzeros a part"):
+        csr.csr_spmv_t(off, idx[:1], val[:1], gg, 500)
+    with pytest.raises(DMLCError, match=r"\[L, R\+1\]"):
+        csr.csr_spmv_t(off[None], idx, val, gg, 500)
+    with pytest.raises(DMLCError, match="stacked batch"):
+        csr.parts_spmv(_t(offset), _t(index), _t(value), torch.ones(500))
 
 
 def test_out_of_range_gives_nan_row_and_dropped_gradient():

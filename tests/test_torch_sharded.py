@@ -34,6 +34,7 @@ from dmlc_tpu.parallel import make_global_batch as ref_make_global_batch
 from dmlc_tpu.parallel import stack_device_batches as ref_stack_batches
 from dmlc_tpu_torch.data.padding import stack_padded_rows
 from dmlc_tpu_torch.data.rowblock import RowBlock, RowBlockContainer
+from dmlc_tpu_torch.ops import csr
 from dmlc_tpu_torch.ops.csr import sharded_spmv
 from dmlc_tpu_torch.data.padding import stack_spec
 from dmlc_tpu_torch.parallel.device_iter import HostStaging
@@ -857,3 +858,92 @@ def test_pipeline_shard_grammar(mesh, tmp_path):
                                             nnz_bucket=16).build()
     assert sum(int(b["num_rows"].sum()) for b in built) == 10
     built.close()
+
+
+# ------------------------------------------------------------ K2 over parts
+
+# Stacked parts for K2 (offset [8, 9], index and value [8, 64], g [8, 8]):
+# ``full``: a part whose 64 nonzeros fill its bucket (no tail); ``empty``: an
+# exhausted part (no nonzero: num_nnz 0); every other part of its own drawn
+# fill; ``raw``: (part, v) writes the raw index v as the part's first
+# nonzero (C6: u32 2^32-1 reads w[F-1], 2^32-5 w[F-5], 2^31 is invalid; u64
+# 2^32+3 reads w[3], 2^63+5 w[5], 2^40+2^31 is invalid). Part 0's tail
+# holds index 5 with value 1, which no row reads.
+K2_PART_CASES = {
+    "no_tail": dict(seed=20, full=3),
+    "exhausted": dict(seed=21, empty=5),
+    "unequal": dict(seed=22),
+    "u64": dict(seed=23, dtype=np.uint64),
+    "c6_u32": dict(seed=24, raw=((1, 2**32 - 1), (4, 2**31), (6, 2**32 - 5))),
+    "c6_u64": dict(seed=25, dtype=np.uint64, full=2,
+                   raw=((0, 2**40 + 2**31), (2, 2**32 + 3), (5, 2**63 + 5),
+                        (7, 2**32 - 1))),
+}
+K2_FEATURES = 50
+
+
+def _k2_parts(seed, full=None, empty=None, dtype=np.uint32, raw=()):
+    rng = np.random.RandomState(seed)
+    first = {p for p, _ in raw}
+    offset = np.zeros((PARTS, 9), np.int64)
+    index = np.zeros((PARTS, 64), dtype)
+    value = np.zeros((PARTS, 64), np.float32)
+    for d in range(PARTS):
+        lens = rng.randint(0, 8, 8)
+        if d in first:
+            lens[0] = max(lens[0], 1)
+        if d == full:
+            lens[:] = 8
+        if d == empty:
+            lens[:] = 0
+        offset[d, 1:] = np.cumsum(lens)
+        nnz = int(offset[d, -1])
+        index[d, :nnz] = rng.randint(0, K2_FEATURES, nnz)
+        value[d, :nnz] = rng.rand(nnz)
+    if full != 0:
+        index[0, offset[0, -1]], value[0, offset[0, -1]] = 5, 1.0
+    for d, v in raw:
+        index[d, 0] = v
+    g = rng.randn(PARTS, 8).astype(np.float32)
+    w = rng.randn(K2_FEATURES).astype(np.float32)
+    return offset, index, value, g, w
+
+
+@pytest.mark.parametrize("case", sorted(K2_PART_CASES))
+def test_stacked_k2_matches_reference_vjp(case, ref_mesh):
+    """The stacked plain K2 (one index_add_ over every part's nonzeros
+    below its offset[-1]), the wrapper on the CPU and the backward of
+    parts_spmv against jax.vjp of the reference's sharded_spmv."""
+    offset, index, value, g, w = _k2_parts(**K2_PART_CASES[case])
+    gb = {"offset": offset, "index": index, "value": value}
+    want_y, vjp = jax.vjp(lambda ww: ref_sharded_spmv(gb, ww, ref_mesh),
+                          jax.numpy.asarray(w))
+    want = np.asarray(vjp(jax.numpy.asarray(g))[0])
+    cols = [torch.from_numpy(a) for a in (offset, index, value)]
+    gt = torch.from_numpy(g)
+    for got in (csr.csr_spmv_t_plain(*cols, gt, K2_FEATURES),
+                csr.csr_spmv_t(*cols, gt, K2_FEATURES)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    wt = torch.from_numpy(w.copy()).requires_grad_(True)
+    y = csr.parts_spmv(*cols, wt)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(np.isnan(y.detach().numpy()),
+                                  np.isnan(np.asarray(want_y)))
+    y.backward(gt)
+    np.testing.assert_allclose(wt.grad.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", sorted(K2_PART_CASES))
+def test_stacked_k2_of_one_part_is_the_flat_k2(case):
+    """L = 1: the stacked layout of one part gives what the flat call
+    of the same part gives, bit for bit."""
+    offset, index, value, g, _ = _k2_parts(**K2_PART_CASES[case])
+    for p in range(PARTS):
+        cols = [torch.from_numpy(a[p]) for a in (offset, index, value, g)]
+        flat = csr.csr_spmv_t_plain(*cols, K2_FEATURES)
+        stacked = csr.csr_spmv_t_plain(*(c[None] for c in cols), K2_FEATURES)
+        np.testing.assert_array_equal(stacked.numpy(), flat.numpy())
+        np.testing.assert_array_equal(
+            csr.csr_spmv_t(*(c[None] for c in cols), K2_FEATURES).numpy(),
+            flat.numpy())

@@ -177,6 +177,32 @@ def test_sharded_step_matches_reference_and_flat(kind, l2, mesh, ref_mesh):
         _close(got[k], v)
 
 
+@pytest.mark.parametrize("kind", ["linear", "fm", "ffm", "ranking"])
+def test_sharded_step_calls_k2_once_a_step(kind, mesh, ref_mesh,
+                                           monkeypatch):
+    """The gradient of w over this process's 8 parts is one K2 call a
+    step, over the stacked parts (one fill and no add of per-part
+    gradients on the card), as the reference's one value_and_grad over
+    shard_map gives one gradient."""
+    from dmlc_tpu_torch.ops import csr
+    calls = []
+    k2 = csr.csr_spmv_t
+
+    def counted(offset, *args):
+        calls.append(tuple(offset.shape))
+        return k2(offset, *args)
+
+    monkeypatch.setattr(csr, "csr_spmv_t", counted)
+    ref, port = _models(kind, 0.01)
+    port.load_state_dict(params_from_jax(_params(ref, seed=4),
+                                         device="cpu"))
+    _, gb, _ = _global_batches(kind, 7, ref_mesh, mesh)
+    step = port.make_sharded_train_step(mesh)
+    for _ in range(2):
+        assert np.isfinite(float(step(gb)))
+    assert calls == [(PARTS, 9)] * 2
+
+
 def test_sharded_step_takes_the_axis():
     """``axis`` names the mesh axis the batch is sharded on: a mesh whose
     one axis is "batch", on both sides, with l2 > 0."""
